@@ -1,0 +1,65 @@
+"""The port imports no JAX: every module of worddiffusion_tpu_torch is
+imported, and the regeneration CLI runs a tiny slice on the CPU, in a
+fresh interpreter; then jax, flax, optax and PIL must be absent."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+
+SCRIPT = r"""
+import importlib, os, pkgutil, sys, tempfile
+import torch
+torch.set_num_threads(1)
+import worddiffusion_tpu_torch
+for mod in pkgutil.walk_packages(worddiffusion_tpu_torch.__path__, "worddiffusion_tpu_torch."):
+    importlib.import_module(mod.name)
+
+from worddiffusion_tpu.configs import presets
+from worddiffusion_tpu.configs.config import (
+    DataConfig, DiffusionConfig, Experiment, UNetConfig, VAEConfig)
+from worddiffusion_tpu_torch.cli import regenerate as cli
+
+presets.PRESETS["tiny"] = lambda: Experiment(
+    unet=UNetConfig(model_channels=32, context_dim=32, num_heads=2, vocab_size=54,
+                    num_writers=8, max_seq_len=10, dtype="float32"),
+    vae=VAEConfig(base_channels=32, channel_mult=(1, 2, 4, 4), num_res_blocks=1,
+                  dtype="float32"),
+    diffusion=DiffusionConfig(num_steps=12),
+    data=DataConfig(max_chars=10, alphabet="eng_main"),
+)
+out = tempfile.mkdtemp()
+gt = os.path.join(out, "words.filter27")
+with open(gt, "w") as f:
+    f.write("000,a01-000u-00 Hello\n001,a01-000u-01 word\n000,a01-000u-02 test\n")
+dump = os.path.join(out, "regen")
+cli.main(["--preset", "tiny", "--gt_file", gt, "--dump_path", dump, "--batch_size", "2",
+          "--keep_rejected", "1", "--device", "cpu"])
+written = [f for f in os.listdir(dump) if f.endswith(".png")]
+rejected = os.listdir(os.path.join(dump, "rejected")) if os.path.isdir(
+    os.path.join(dump, "rejected")) else []
+assert len(written) + len(rejected) == 3, (written, rejected)
+print("LOADED", sorted(m for m in ("jax", "flax", "optax", "PIL") if m in sys.modules))
+"""
+
+
+def test_port_runs_without_jax():
+    env = {k: v for k, v in os.environ.items() if k != "WD_PLATFORM"}
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "LOADED []" in proc.stdout, proc.stdout
+
+
+def test_cli_refuses_cpu_fallback(monkeypatch, tmp_path):
+    import torch
+
+    from worddiffusion_tpu_torch.cli import regenerate as cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="--device cpu"):
+        cli.main(["--gt_file", str(tmp_path / "none.txt")])
