@@ -18,6 +18,20 @@ Phases, each of which must pass (any failure exits non-zero):
    over 40 words in batches of 16, with the 600-step skip-step schedule
    and the deterministic update; checks shapes, finiteness, the PNGs and
    that every FF sub-layer went through the kernel.
+6. FFN forward + backward, kernel against plain: the forward and the
+   backward kernel against their plain versions at the training shapes,
+   M = 128*256, 128*64 and a ragged 1000 (the output and seven
+   gradients, each within its tolerance), bitwise repeatability, and the
+   autograd Function (both kernels) against plain autograd at the two
+   training M (output and gradients), with median times.
+7. training main path: the train CLI's Trainer (``iam`` preset at full
+   width, B=128, seeded random weights) on a latent cache of seeded
+   latents, 2 epochs with a checkpoint and a DDIM-50 preview each; then
+   a max_steps stop and a resume. Checks the loss, the update, the EMA,
+   4 backward-kernel launches per step, the checkpoint round trip, that
+   the EMA loads as the regeneration UNet and that the resumed run is
+   bitwise the uninterrupted one; times s/step with the kernels and with
+   the plain FF.
 
 The second-to-last line is a JSON summary of the kernels; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -37,6 +51,10 @@ import time
 
 D, INNER, B = 320, 1280, 16
 FFN_SHAPES = (B * 256, B * 64, 1000)   # M: full-res blocks, middle block, ragged
+TRAIN_B = 128
+BWD_SHAPES = (TRAIN_B * 256, TRAIN_B * 64, 1000)
+TRAIN_STEPS_PER_EPOCH = 10
+GRADS = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
 # bf16 keeps 8 significant bits (one rounding = 0.4% of a value). The kernel
 # keeps the [M, 2*inner] hidden in fp32 where the plain version rounds the
 # matmul output to bf16, so the two differ by a few ulps of the output.
@@ -44,6 +62,10 @@ FFN_REL_TOL = 1e-2
 # One such difference per FF sub-layer (4 per call), carried through the
 # bf16 layers after it: bound the eps difference at 3% of max |eps|.
 UNET_REL_TOL = 3e-2
+# The plain backward rounds dact, dxn and the weight gradients to bf16 (its
+# matmuls run in bf16); the kernel keeps them fp32: a few bf16 ulps of each
+# gradient's max (0.6% measured), bounded at 2%.
+BWD_REL_TOL = 2e-2
 
 
 def log(msg: str) -> None:
@@ -80,6 +102,250 @@ def ffn_inputs(m: int, seed: int):
         w2=(r(INNER, D) / INNER ** 0.5).bfloat16(), b2=0.02 * r(D),
     )
     return {k: v.cuda() for k, v in t.items()}
+
+
+def bwd_inputs(m: int, seed: int):
+    """Kernel-layout inputs of the backward (bf16 x, dy and weights)."""
+    import torch
+
+    t = ffn_inputs(m, seed)
+    t.pop("b2")
+    g = torch.Generator().manual_seed(seed + 100)
+    t["dy"] = (0.1 * torch.randn(m, D, generator=g)).bfloat16().cuda()
+    return {k: t[k] for k in ("x", "dy", "gamma", "beta", "w1", "b1", "w2")}
+
+
+def phase6_ffn_backward(smi: str) -> dict:
+    """The forward and backward kernels against their plain versions at
+    the training shapes, the backward's repeatability, and the Function
+    (both kernels) against plain autograd."""
+    import torch
+
+    from worddiffusion_tpu_torch.ops import ffn
+
+    rows, fwd_rows = [], []
+    for i, m in enumerate(BWD_SHAPES):
+        f = ffn_inputs(m, seed=10 + i)
+        got = ffn.fused_ln_geglu_ffn(**f)
+        torch.cuda.synchronize()
+        want = ffn.ln_geglu_ffn_reference(**f)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        ms = cuda_ms(lambda: ffn.fused_ln_geglu_ffn(**f), reps=20)
+        plain_ms = cuda_ms(lambda: ffn.ln_geglu_ffn_reference(**f), reps=20)
+        log(f"ffn fwd M={m}: max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {FFN_REL_TOL}) "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms [{smi}]")
+        assert bool(torch.isfinite(got.float()).all()), f"non-finite kernel output at M={m}"
+        assert rel <= FFN_REL_TOL, f"forward kernel disagrees with plain at M={m}: rel {rel}"
+        fwd_rows.append(dict(m=m, err=err, ms=ms, plain_ms=plain_ms))
+        del f, got, want
+
+        a = bwd_inputs(m, seed=10 + i)
+        got = ffn.ln_geglu_ffn_bwd(**a)
+        again = ffn.ln_geglu_ffn_bwd(**a)
+        torch.cuda.synchronize()
+        want = ffn.ln_geglu_ffn_bwd_reference(**a)
+        errs = []
+        for name, g, w, g2 in zip(GRADS, got, want, again):
+            assert bool(torch.isfinite(g.float()).all()), f"non-finite {name} at M={m}"
+            assert torch.equal(g, g2), f"{name} differs between two runs at M={m}"
+            err = (g.float() - w.float()).abs().max().item()
+            share = err / w.float().abs().max().item()
+            errs.append(err)
+            log(f"ffn bwd M={m} {name}: max_abs_err {err:.6g} share of max |plain| "
+                f"{share:.6g} (tol {BWD_REL_TOL}); bitwise repeatable")
+            assert share <= BWD_REL_TOL, f"backward kernel disagrees at M={m}: {name} {share}"
+        ms = cuda_ms(lambda: ffn.ln_geglu_ffn_bwd(**a), reps=20)
+        plain_ms = cuda_ms(lambda: ffn.ln_geglu_ffn_bwd_reference(**a), reps=20)
+        log(f"ffn bwd M={m}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms [{smi}]")
+        rows.append(dict(m=m, err=max(errs), ms=ms, plain_ms=plain_ms))
+
+    # The autograd Function (forward + backward kernels) against plain
+    # autograd of the plain forward, on fp32 master weights in parameter
+    # layout, as the UNet's FF sub-layer calls it; output and gradients.
+    order = ("gamma", "beta", "w1", "b1", "w2", "b2")
+    for m in BWD_SHAPES[:2]:
+        a = ffn_inputs(m, seed=20)
+        p = {k: a[k].float() for k in ("gamma", "beta", "b1", "b2")}
+        p["w1"] = a["w1"].float().t().contiguous()  # proj.weight [2*inner, d]
+        p["w2"] = a["w2"].float().t().contiguous()  # out.weight [d, inner]
+        dy = (0.1 * torch.randn(m, D, generator=torch.Generator().manual_seed(21))).bfloat16()
+        dy = dy.cuda()
+
+        def fwd_bwd(kernel: bool):
+            x = a["x"].clone().requires_grad_()
+            lv = {k: p[k].clone().requires_grad_() for k in order}
+            if kernel:
+                out = ffn.LnGegluFFN.apply(x, lv["gamma"], lv["beta"], lv["w1"], lv["b1"],
+                                           lv["w2"], lv["b2"], 1e-5)
+            else:
+                out = ffn.ln_geglu_ffn_reference(x, lv["gamma"], lv["beta"], lv["w1"].t(),
+                                                 lv["b1"], lv["w2"].t(), lv["b2"])
+            out.backward(dy)
+            return [out.detach(), x.grad] + [lv[k].grad for k in order]
+
+        (out_k, *got), (out_p, *want) = fwd_bwd(True), fwd_bwd(False)
+        torch.cuda.synchronize()
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        rel = err / out_p.float().abs().max().item()
+        log(f"ffn Function vs plain autograd M={m} out: max_abs_err {err:.6g} max_rel_err "
+            f"{rel:.6g} (tol {FFN_REL_TOL})")
+        assert rel <= FFN_REL_TOL, f"Function output disagrees with plain at M={m}: rel {rel}"
+        for name, g, w in zip(GRADS[:3] + ("dw1 [2*inner, d]", "db1", "dw2 [d, inner]", "db2"),
+                              got, want):
+            assert g.shape == w.shape and g.dtype == w.dtype, name
+            err = (g.float() - w.float()).abs().max().item()
+            share = err / w.float().abs().max().item()
+            log(f"ffn Function vs plain autograd M={m} {name}: max_abs_err {err:.6g} share "
+                f"{share:.6g} (tol {BWD_REL_TOL})")
+            assert share <= BWD_REL_TOL, f"Function disagrees at M={m}: {name} {share}"
+        if m == BWD_SHAPES[0]:
+            pair_ms = cuda_ms(lambda: fwd_bwd(True), reps=20)
+            plain_pair_ms = cuda_ms(lambda: fwd_bwd(False), reps=20)
+            log(f"ffn fwd+bwd M={m}: kernel pair {pair_ms:.4f} ms, plain autograd "
+                f"{plain_pair_ms:.4f} ms [{smi}]")
+    return dict(rows=rows, fwd_rows=fwd_rows, pair_ms=pair_ms, plain_pair_ms=plain_pair_ms)
+
+
+def write_latent_corpus(work: str, n: int) -> tuple[str, str]:
+    """A gt file of n words and a latent-cache npz of seeded latents."""
+    import numpy as np
+
+    words = ("the of and to in is was that for it with as his on be at by had are "
+             "but from not this have which one were all they she you her an there").split()
+    rng = np.random.default_rng(0)
+    gt = os.path.join(work, "train.filter27")
+    latents = {}
+    with open(gt, "w") as f:
+        for i in range(n):
+            name = f"a01-{i:04d}u-00"
+            f.write(f"{i % 300:03d},{name} {words[i % len(words)]}\n")
+            latents[name + ".png"] = (0.8 * rng.standard_normal((8, 32, 4))).astype(np.float32)
+    cache = os.path.join(work, "latents.npz")
+    np.savez(cache, **latents)
+    return gt, cache
+
+
+def phase7_train(smi: str, work: str) -> dict:
+    """The training main path as the train CLI builds it."""
+    import dataclasses
+
+    import torch
+
+    from worddiffusion_tpu_torch.cli import train as train_cli
+    from worddiffusion_tpu_torch.models.unet import UNet
+    from worddiffusion_tpu_torch.ops import ffn
+    from worddiffusion_tpu_torch.train.checkpoint import CheckpointManager
+    from worddiffusion_tpu_torch.train.loop import Trainer
+    from worddiffusion_tpu_torch.train.state import TrainState, make_optimizer
+
+    n = TRAIN_B * TRAIN_STEPS_PER_EPOCH + TRAIN_B // 2  # a half batch to drop_remainder
+    gt, cache = write_latent_corpus(work, n)
+    epochs, steps = 2, 2 * TRAIN_STEPS_PER_EPOCH
+
+    def cli_args(save: str, *extra: str):
+        return train_cli.build_parser().parse_args([
+            "--preset", "iam", "--gt_train", gt, "--latent_cache", cache,
+            "--batch_size", str(TRAIN_B), "--epochs", str(epochs), "--ckpt_every_epochs", "1",
+            "--save_path", os.path.join(work, save), "--seed", "0", "--device", "cuda", *extra,
+        ])
+
+    trainer = train_cli.build(cli_args("run"))
+    assert trainer.exp.train.ema_warmup_steps > steps
+    assert trainer.exp.unet.use_pallas_ffn is None  # the kernels' path
+    preview_launches = []
+    preview = trainer.preview_fn
+
+    def counted_preview(state, epoch):
+        n0 = ffn.launches
+        imgs = preview(state, epoch)
+        preview_launches.append(ffn.launches - n0)
+        assert imgs.shape == (3, 64, 256, 3) and bool((imgs >= 0).all() & (imgs <= 1).all())
+        return imgs
+
+    trainer.preview_fn = counted_preview
+    initial = {k: v.clone() for k, v in trainer.init_state().model.state_dict().items()}
+
+    ffn.launches = ffn.bwd_launches = 0
+    t0 = time.perf_counter()
+    state = trainer.run(epochs=epochs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = ffn.launches, ffn.bwd_launches
+
+    ck = CheckpointManager(trainer.ckpt.directory)
+    saved = torch.load(ck.path(steps), map_location="cpu", weights_only=True)
+    loss = saved["metrics"]["loss"]
+    changed = {k: (v - initial[k]).abs().max().item()
+               for k, v in state.model.state_dict().items()}
+    ff_keys = [k for k in changed if ".ff.net." in k and k.endswith("weight")]
+    ema_equal = all(torch.equal(e, p) for e, p in
+                    zip(state.ema.parameters(), state.model.parameters()))
+    log(f"train: {state.step} steps of B={TRAIN_B} in {wall:.2f} s incl. 2 checkpoints and "
+        f"2 DDIM-50 previews; epoch-1 loss {loss:.6g}; "
+        f"ffn launches: {bwd} backward, {fwd - sum(preview_launches)} forward in steps, "
+        f"{preview_launches} forward in previews; max param change {max(changed.values()):.4g}; "
+        f"EMA == params: {ema_equal}")
+    assert state.step == steps, state.step
+    assert sorted(ck.steps()) == [TRAIN_STEPS_PER_EPOCH, steps], ck.steps()
+    assert torch.isfinite(torch.tensor(loss)), loss
+    assert all(torch.isfinite(p).all() for p in state.model.parameters())
+    assert all(changed[k] > 0 for k in ff_keys) and len(ff_keys) == 8, ff_keys
+    assert ema_equal, "the EMA must equal the parameters during warmup"
+    assert bwd == 4 * steps, bwd
+    assert preview_launches == [4 * 50] * 2, preview_launches
+    assert fwd - sum(preview_launches) == 4 * steps, fwd
+    pngs = sorted(os.listdir(os.path.join(work, "run", "images")))
+    assert pngs == ["epoch_0000.png", "epoch_0001.png"], pngs
+    assert png_size(os.path.join(work, "run", "images", pngs[0])) == (3 * 256, 64)
+
+    # restore into a fresh state: bitwise the saved one
+    fresh = UNet(trainer.exp.unet).cuda()
+    restored = ck.restore(TrainState.create(fresh, make_optimizer(fresh.parameters(), 1e-4)))
+    sa, sb = restored.optimizer.state_dict()["state"], state.optimizer.state_dict()["state"]
+    assert restored.step == state.step
+    assert all(torch.equal(a, b) for a, b in zip(restored.model.parameters(),
+                                                 state.model.parameters()))
+    assert all(torch.equal(a, b) for a, b in zip(restored.ema.parameters(),
+                                                 state.ema.parameters()))
+    assert all(torch.equal(sa[i][k], sb[i][k]) for i in sa for k in sa[i])
+    # the EMA loads as the regeneration CLI's --torch_ckpt
+    regen_unet = UNet(trainer.exp.unet)
+    regen_unet.load_state_dict(torch.load(ck.path(steps, "ema_unet.pt"), map_location="cpu",
+                                          weights_only=True), strict=True)
+    log("train: restored state bitwise equal to the saved one; EMA loads as the "
+        "regeneration UNet")
+
+    # the same steps with the plain FF, for s/step
+    plain = Trainer(trainer.exp.replace(unet=dataclasses.replace(
+        trainer.exp.unet, use_pallas_ffn=False), train=dataclasses.replace(
+        trainer.exp.train, save_path=os.path.join(work, "plain"))), trainer.dataset,
+        device="cuda")
+    b0 = ffn.bwd_launches
+    plain_state = plain.run(epochs=epochs)
+    torch.cuda.synchronize()
+    assert ffn.bwd_launches == b0 and plain_state.step == steps
+    k_s, k_n = trainer.epoch_seconds[1]
+    p_s, p_n = plain.epoch_seconds[1]
+    log(f"train epoch 1 ({k_n} steps, B={TRAIN_B}): kernel FF {k_s / k_n:.4f} s/step "
+        f"{k_n / k_s:.3f} steps/s; plain FF {p_s / p_n:.4f} s/step {p_n / p_s:.3f} steps/s "
+        f"[{smi}]")
+
+    # a max_steps stop, then a resume, against the uninterrupted run
+    kill_at = TRAIN_STEPS_PER_EPOCH + 3
+    part = train_cli.build(cli_args("resume")).run(epochs=epochs, max_steps=kill_at)
+    assert part.step == kill_at, part.step
+    resumed = train_cli.build(cli_args("resume", "--loadPrev", "1")).run(
+        epochs=epochs, resume=True)
+    assert resumed.step == steps, resumed.step
+    diff = max((a - b).abs().max().item() for a, b in
+               zip(resumed.model.parameters(), state.model.parameters()))
+    scale = max(p.abs().max().item() for p in state.model.parameters())
+    log(f"train resume: stopped at step {kill_at}, resumed to {resumed.step}; max param diff "
+        f"vs the uninterrupted run {diff:.6g} (max |param| {scale:.4g}); must be bitwise 0")
+    assert diff == 0, f"the resumed run is not bitwise the uninterrupted one: {diff}"
+    return dict(fwd=fwd, bwd=bwd, s_per_step=k_s / k_n, plain_s_per_step=p_s / p_n,
+                resume_diff=diff)
 
 
 def png_size(path: str) -> tuple[int, int]:
@@ -225,16 +491,33 @@ def main() -> int:
     first = os.path.join(dump, pngs[0]) if pngs else os.path.join(dump, "rejected", rejected[0])
     assert png_size(first) == (256, 64), png_size(first)
 
-    main_row = ffn_rows[0]
+    # -- 6. FFN forward + backward: kernel vs plain -------------------------
+    bwd = phase6_ffn_backward(smi)
+
+    # -- 7. training main path -----------------------------------------------
+    train = phase7_train(smi, work)
+
+    main_row, bwd_row = ffn_rows[0], bwd["rows"][0]
     log(json.dumps({"kernels": [{
         "name": "ln_geglu_ffn",
         "route": "cuda",
         "source": "worddiffusion_tpu_torch/csrc/ln_geglu_ffn.cu",
         "replaces": "worddiffusion_tpu/ops/ffn_pallas.py:48",
-        "launches": launches,
-        "max_abs_err": max(r["err"] for r in ffn_rows),
+        "launches": launches + train["fwd"],
+        "launches_by_path": {"regenerate": launches, "train": train["fwd"]},
+        "max_abs_err": max(r["err"] for r in ffn_rows + bwd["fwd_rows"]),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
+    }, {
+        "name": "ln_geglu_ffn_bwd",
+        "route": "cuda",
+        "source": "worddiffusion_tpu_torch/csrc/ln_geglu_ffn_bwd.cu",
+        "replaces": "worddiffusion_tpu/ops/ffn_pallas.py:397",
+        "launches": train["bwd"],
+        "launches_by_path": {"train": train["bwd"]},
+        "max_abs_err": max(r["err"] for r in bwd["rows"]),
+        "ms": bwd_row["ms"],
+        "plain_ms": bwd_row["plain_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

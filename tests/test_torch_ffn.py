@@ -81,3 +81,91 @@ def test_build_raises_with_compiler_output(tmp_path):
     with pytest.raises(RuntimeError, match="no such target"):
         build.build(nvcc=str(fake), build_root=tmp_path / "out")
     assert not list((tmp_path / "out").rglob("*.so"))
+
+
+def _bwd_inputs(m=23, d=32, inner=64, seed=2):
+    """The shapes of tests/test_pallas_ops.py's backward-kernel case (m=23
+    pads the JAX grid), with a cotangent."""
+    a = _inputs(m, d, inner, seed)
+    a.pop("b2")
+    a["dy"] = np.random.default_rng(seed + 1).standard_normal((m, d))
+    return {k: v.astype(np.float32) for k, v in a.items()}
+
+
+def test_bwd_reference_matches_jax_kernel_fp32():
+    """The plain backward against the JAX backward kernel in interpret
+    mode, fp32: same arithmetic, other summation order -> 2e-4 abs."""
+    from worddiffusion_tpu.ops.ffn_pallas import _ln_ffn_bwd_pallas
+
+    a = _bwd_inputs()
+    order = ("x", "dy", "gamma", "beta", "w1", "b1", "w2")
+    want = _ln_ffn_bwd_pallas(*(jnp.asarray(a[k]) for k in order), interpret=True)
+    got = ffn.ln_geglu_ffn_bwd_reference(*(torch.from_numpy(a[k]) for k in order))
+    for g, w in zip(got, want):
+        w = np.asarray(w).reshape(tuple(g.shape))
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=2e-4)
+
+
+def test_bwd_dispatcher_takes_plain_path_on_cpu_and_refuses_other_devices():
+    a = {k: torch.from_numpy(v) for k, v in _bwd_inputs().items()}
+    got = ffn.ln_geglu_ffn_bwd(**a)
+    want = ffn.ln_geglu_ffn_bwd_reference(**a)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert ffn.bwd_launches == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        ffn.ln_geglu_ffn_bwd(**{k: v.to("meta") for k, v in a.items()})
+
+
+def test_bwd_reference_matches_autograd_fp32():
+    """The plain backward against torch autograd of the plain forward:
+    1e-5 of each gradient's scale."""
+    a = _bwd_inputs(m=40, d=64, inner=128, seed=5)
+    t = {k: torch.from_numpy(v) for k, v in a.items()}
+    dy = t.pop("dy")
+    leaves = {k: v.clone().requires_grad_() for k, v in t.items()}
+    b2 = torch.zeros(64)
+    out = ffn.ln_geglu_ffn_reference(**leaves, b2=b2)
+    want = torch.autograd.grad(out, [leaves[k] for k in ("x", "gamma", "beta", "w1", "b1", "w2")],
+                               dy)
+    got = ffn.ln_geglu_ffn_bwd_reference(t["x"], dy, t["gamma"], t["beta"], t["w1"], t["b1"],
+                                         t["w2"])
+    for g, w in zip([got[i] for i in (0, 1, 2, 3, 4, 5)], want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-5 * w.abs().max().item())
+    torch.testing.assert_close(got[6], dy.sum(0), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_function_grads_match_plain_and_reach_master_weights(dtype):
+    """Through the LnGegluFFN Function (the block's default FF path) a
+    transformer block's gradients equal those of the plain autograd path
+    (use_pallas_ffn=False), and the FF weights' gradients land on the
+    fp32 masters in parameter layout. fp32: 1e-5 of each gradient's
+    scale; bf16: the plain path rounds dact, dxn and the weight
+    gradients to bf16, the Function keeps them fp32 -> 2e-2."""
+    from worddiffusion_tpu_torch.models.attention import BasicTransformerBlock
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+
+    dt = getattr(torch, dtype)
+    blocks = [init_weights_(BasicTransformerBlock(64, 2, 32, 32, dtype=dt, use_pallas_ffn=u),
+                            seed=4, zero_init=False) for u in (None, False)]
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 24, 64, generator=g).to(dt)
+    ctx = torch.randn(2, 7, 32, generator=g).to(dt)
+    grads = []
+    for blk in blocks:
+        xi = x.clone().requires_grad_()
+        out = blk(xi, ctx)
+        assert out.requires_grad
+        (out.float() * torch.linspace(-1, 1, out.numel()).reshape(out.shape)).sum().backward()
+        grads.append({"x": xi.grad, **{n: p.grad for n, p in blk.named_parameters()}})
+    fn, plain = grads
+    proj = dict(blocks[0].named_parameters())["ff.net.0.proj.weight"]
+    assert proj.grad is not None and proj.grad.dtype == torch.float32
+    assert proj.grad.shape == proj.shape == (512, 64)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for k in plain:
+        scale = plain[k].float().abs().max().item()
+        torch.testing.assert_close(fn[k].float(), plain[k].float(), rtol=0, atol=tol * scale + 1e-12,
+                                   msg=k)

@@ -1,6 +1,7 @@
 """The port imports no JAX: every module of worddiffusion_tpu_torch is
-imported, and the regeneration CLI runs a tiny slice on the CPU, in a
-fresh interpreter; then jax, flax, optax and PIL must be absent."""
+imported, and the regeneration and train CLIs run a tiny slice on the
+CPU, in a fresh interpreter; then jax, flax, optax and PIL must be
+absent."""
 
 import os
 import subprocess
@@ -47,12 +48,64 @@ print("LOADED", sorted(m for m in ("jax", "flax", "optax", "PIL") if m in sys.mo
 """
 
 
-def test_port_runs_without_jax():
+TRAIN_SCRIPT = r"""
+import importlib, os, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+for name in ("train.state", "train.step", "train.checkpoint", "train.loop", "data.dataset",
+             "data.loader", "diffusion.forward", "cli.train"):
+    importlib.import_module("worddiffusion_tpu_torch." + name)
+
+from worddiffusion_tpu.configs import presets
+from worddiffusion_tpu.configs.config import (
+    DataConfig, DiffusionConfig, Experiment, TrainConfig, UNetConfig, VAEConfig)
+from worddiffusion_tpu_torch.cli import train as cli
+
+presets.PRESETS["tiny"] = lambda: Experiment(
+    unet=UNetConfig(model_channels=32, context_dim=32, num_heads=2, vocab_size=54,
+                    num_writers=8, max_seq_len=10, dtype="float32"),
+    vae=VAEConfig(base_channels=32, channel_mult=(1, 2, 4, 4), num_res_blocks=1,
+                  dtype="float32"),
+    diffusion=DiffusionConfig(num_steps=12),
+    data=DataConfig(max_chars=10, alphabet="eng_main"),
+    train=TrainConfig(ckpt_every_epochs=1),
+)
+out = tempfile.mkdtemp()
+gt = os.path.join(out, "words.filter27")
+rng = np.random.default_rng(0)
+lat = {}
+with open(gt, "w") as f:
+    for i, w in enumerate(["Hello", "word", "test", "the"]):
+        f.write(f"{i % 2:03d},a01-000u-{i:02d} {w}\n")
+        lat[f"a01-000u-{i:02d}.png"] = rng.standard_normal((8, 32, 4)).astype(np.float32)
+np.savez(os.path.join(out, "lat.npz"), **lat)
+state = cli.main(["--preset", "tiny", "--gt_train", gt, "--latent_cache",
+                  os.path.join(out, "lat.npz"), "--batch_size", "2", "--epochs", "1",
+                  "--preview_ddim", "2", "--save_path", os.path.join(out, "run"),
+                  "--device", "cpu"])
+assert state.step == 2, state.step
+assert os.listdir(os.path.join(out, "run", "ckpt")) == ["2"]
+print("LOADED", sorted(m for m in ("jax", "flax", "optax", "PIL") if m in sys.modules))
+"""
+
+
+def _run_jax_free(script):
     env = {k: v for k, v in os.environ.items() if k != "WD_PLATFORM"}
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "LOADED []" in proc.stdout, proc.stdout
+
+
+def test_port_runs_without_jax():
+    _run_jax_free(SCRIPT)
+
+
+def test_train_cli_runs_without_jax():
+    """The training slice (train/, data/, cli/train, diffusion/forward)
+    imports and runs with no jax, flax, optax or PIL."""
+    _run_jax_free(TRAIN_SCRIPT)
 
 
 def test_cli_refuses_cpu_fallback(monkeypatch, tmp_path):

@@ -91,6 +91,27 @@ def test_plain_ffn_switch_and_writer_clamp():
                                                 np.array([0, 7], np.int32)))
 
 
+def test_writer_mask_matches_jax():
+    """The training's classifier-free drop: writer_mask 0 removes a
+    sample's writer embedding, 1 keeps it (fp32, 1e-4). 64 channels: at
+    32 every channel is its own GroupNorm group, which cancels the
+    per-channel writer embedding outright."""
+    cfg = dataclasses.replace(CFG, model_channels=64)
+    params = _params(cfg)
+    x, t, ctx, wid = _inputs()
+    mask = np.array([1.0, 0.0], np.float32)
+    want = np.asarray(jax.jit(lambda p, *a: JaxUNet(cfg).apply(p, *a[:4], writer_mask=a[4]))(
+        params, x, t, ctx, wid, mask))
+    with torch.no_grad():
+        got = _port(cfg, params)(torch.from_numpy(x), torch.from_numpy(t),
+                                 torch.from_numpy(ctx).long(), torch.from_numpy(wid).long(),
+                                 writer_mask=torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    unmasked = _run(_port(cfg, params), x, t, ctx, wid)
+    np.testing.assert_array_equal(got[0], unmasked[0])
+    assert np.abs(got[1] - unmasked[1]).max() > 1e-4
+
+
 @pytest.mark.parametrize("option", [
     dict(use_phosc=True), dict(style_vec_dim=16), dict(use_char_images=True),
     dict(img_conditioned=True), dict(ocr_head=True), dict(use_scale_shift_norm=True),

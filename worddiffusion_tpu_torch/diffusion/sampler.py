@@ -1,5 +1,5 @@
-"""Reverse-diffusion sampling (port of ``ddpm_sample`` and
-``latent_to_image`` from ``worddiffusion_tpu/diffusion/sampler.py``).
+"""Reverse-diffusion sampling (port of ``ddpm_sample``, ``ddim_sample``
+and ``latent_to_image`` from ``worddiffusion_tpu/diffusion/sampler.py``).
 
 The JAX version is one compiled ``lax.scan``; here it is a Python loop
 over t = T-1 .. 1 whose work is queued on the device without a host
@@ -85,6 +85,34 @@ def ddpm_sample(
             else:
                 noise = torch.randn(x.shape, generator=generator, device=x.device)
             x = x + float(np.sqrt(b)) * noise
+    return x
+
+
+@torch.no_grad()
+def ddim_sample(
+    schedule: NoiseSchedule,
+    eps_fn: EpsFn,
+    x_init: torch.Tensor,
+    *,
+    num_steps: int = 50,
+) -> torch.Tensor:
+    """Deterministic DDIM (``eta=0``) over a subsampled timestep grid
+    (port of ``ddim_sample``): ``num_steps`` model calls from t = T-1
+    down to 0. The step coefficients are fp32, as in the JAX scan."""
+    T = schedule.num_steps
+    # the JAX grid is a float32 linspace, rounded half to even
+    ts = np.linspace(T - 1, 0, num_steps + 1, dtype=np.float32).round().astype(np.int64)
+    f32 = np.float32
+    x = x_init.float()
+    for idx in range(num_steps):
+        t_cur, t_next = int(ts[idx]), int(ts[idx + 1])
+        eps = eps_fn(x, torch.full((x.shape[0],), t_cur, dtype=torch.int32,
+                                   device=x.device)).float()
+        a_cur = schedule.alpha_hat[t_cur]
+        a_next = schedule.alpha_hat[t_next] if t_next > 0 else f32(1.0)
+        x0 = (x - float(np.sqrt(f32(1) - a_cur)) * eps) / float(np.sqrt(a_cur))
+        dir_xt = float(np.sqrt(f32(1) - a_next)) * eps
+        x = float(np.sqrt(a_next)) * x0 + dir_xt
     return x
 
 

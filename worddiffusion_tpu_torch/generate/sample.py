@@ -1,14 +1,14 @@
 """Word sampling (port of ``worddiffusion_tpu/generate/sample.py``):
 generate word images for (word, writer) pairs.
 
-encode words -> DDPM over the latent -> VAE decode -> uint8 images ->
-OCR forward + per-frame argmax, all queued on the device; only the
-uint8 images and the int32 frame ids cross back to the host, when the
-caller reads them.
+encode words -> DDPM or DDIM over the latent -> VAE decode -> uint8
+images -> OCR forward + per-frame argmax, all queued on the device; only
+the uint8 images and the int32 frame ids cross back to the host, when
+the caller reads them.
 
-Ported: the latent path with a VAE and the fused OCR argmax. Not yet:
-pixel-space models, DDIM, classifier-free guidance, multi-GPU and the
-conditioning variants.
+Ported: the latent path with a VAE, DDIM, the fused OCR argmax and the
+training's preview. Not yet: pixel-space models, classifier-free
+guidance, multi-GPU and the conditioning variants.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from worddiffusion_tpu.configs.config import Experiment
 from worddiffusion_tpu.data.tokenizer import Tokenizer
 from worddiffusion_tpu.diffusion.schedule import NoiseSchedule
 
-from ..diffusion.sampler import ddpm_sample, latent_to_image
+from ..diffusion.sampler import ddim_sample, ddpm_sample, latent_to_image
 from ..models.unet import UNet
 from ..models.vae import AutoencoderKL, decode_from_latent
 from ..ops.ctc import greedy_frame_ids
@@ -37,12 +37,14 @@ class WordSampler:
         call_mask: Optional[np.ndarray] = None,
         stochastic: bool = True,
         ocr_apply: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+        ddim_steps: int = 0,
     ):
         """``model``, ``vae`` and ``ocr_apply`` (images [B,H,W,1] in
         [-1,1] -> CTC logits, e.g. a ``CTCRecognizer``) live on one
         device, where sampling runs. With ``ocr_apply`` the OCR forward
         and argmax join the device work and ``sample_async`` returns
-        (uint8 images, int32 frame ids)."""
+        (uint8 images, int32 frame ids). ``ddim_steps`` > 0 samples with
+        deterministic DDIM over that many steps instead of the DDPM loop."""
         if not exp.data.latent:
             raise NotImplementedError("pixel-space sampling is not ported yet")
         self.exp = exp
@@ -56,6 +58,7 @@ class WordSampler:
         )
         self.call_mask = call_mask
         self.stochastic = stochastic
+        self.ddim_steps = ddim_steps
         self.latent_shape = (exp.data.img_height // 8, exp.data.img_width // 8, 4)
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
@@ -77,6 +80,9 @@ class WordSampler:
         def eps_fn(x, t):
             return self.model(x, t, ctx, wid)
 
+        if self.ddim_steps:
+            return ddim_sample(self.schedule, eps_fn, x_init.to(self.device),
+                               num_steps=self.ddim_steps)
         return ddpm_sample(
             self.schedule, eps_fn, x_init.to(self.device),
             stochastic=self.stochastic, call_mask=self.call_mask, generator=generator,
@@ -101,3 +107,12 @@ class WordSampler:
         x = torch.randn((len(words),) + self.latent_shape, generator=generator,
                         device=self.device)
         return self.decode(self.denoise(words, writer_ids, x, generator))
+
+    def sample_preview(self, generator: torch.Generator, words=None, n: int = 3) -> np.ndarray:
+        """Fixed-probe-word preview -> uint8 [n, H, W, 3] on the host; the
+        writer id is forced to ones like the reference epoch preview
+        (``trainModifyCondition.py:574``)."""
+        words = list(words or ["text", "getting", "prop"][:n])
+        out = self.sample_async(words, [1] * len(words), generator)
+        img = out[0] if isinstance(out, tuple) else out
+        return img.cpu().numpy()

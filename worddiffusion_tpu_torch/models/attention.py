@@ -4,7 +4,8 @@
 Attention scores and softmax run in fp32 (the reference numerics; the
 JAX package's bf16 ``fast_softmax`` is not ported). The block's FF
 sub-layer (norm3 -> GEGLU FFN -> residual) goes through
-``ops.ffn.fused_ln_geglu_ffn``, the CUDA kernel on the card.
+``ops.ffn.LnGegluFFN``, the CUDA kernel pair (forward and backward) on
+the card.
 """
 
 from __future__ import annotations
@@ -54,9 +55,9 @@ class BasicTransformerBlock(nn.Module):
     the context through one shared ``norm2``; otherwise attn1 is
     self-attention behind ``norm1``.
 
-    ``use_pallas_ffn``: None runs the FF sub-layer through the
-    dispatcher (the kernel for a CUDA tensor); False forces the plain
-    version."""
+    ``use_pallas_ffn``: None and True run the FF sub-layer through the
+    ``LnGegluFFN`` Function (the forward and backward kernels for a CUDA
+    tensor); False forces the plain autograd version."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int,
                  context_dim: Optional[int] = None, dropout: float = 0.0,
@@ -87,15 +88,14 @@ class BasicTransformerBlock(nn.Module):
         else:
             x = x + self.attn1(self._norm(self.norm1, x), None)
             x = x + self.attn2(self._norm(self.norm2, x), context)
-        proj, out = self.ff.net[0].proj, self.ff.net[2]
-        args = (
-            x, self.norm3.weight, self.norm3.bias,
-            proj.weight.t().to(x.dtype).contiguous(), proj.bias,
-            out.weight.t().to(x.dtype).contiguous(), out.bias, self.norm3.eps,
-        )
+        proj, out, norm = self.ff.net[0].proj, self.ff.net[2], self.norm3
         if self.use_pallas_ffn is False:
-            return ffn.ln_geglu_ffn_reference(*args)
-        return ffn.fused_ln_geglu_ffn(*args)
+            return ffn.ln_geglu_ffn_reference(x, norm.weight, norm.bias, proj.weight.t(),
+                                              proj.bias, out.weight.t(), out.bias, norm.eps)
+        # the fp32 master weights in parameter layout: the Function casts
+        # them itself, so their gradients come back in fp32
+        return ffn.LnGegluFFN.apply(x, norm.weight, norm.bias, proj.weight, proj.bias,
+                                    out.weight, out.bias, norm.eps)
 
 
 class SpatialTransformer(nn.Module):

@@ -9,8 +9,29 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from .layers import Dense, char_positional_encoding
+
+
+class _Lookup(torch.autograd.Function):
+    """``F.embedding`` whose weight gradient is a one-hot matmul, summed
+    in a fixed order. On CUDA the stock embedding backward adds repeated
+    ids with atomics, in an order that changes from run to run: on an
+    H100 it was the one gradient that broke the trainer's bitwise resume
+    (the char ids repeat the pad token across the whole batch)."""
+
+    @staticmethod
+    def forward(ctx, ids, weight):
+        ctx.save_for_backward(ids)
+        ctx.num = weight.shape[0]
+        return F.embedding(ids, weight)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        onehot = F.one_hot(ids.reshape(-1), ctx.num).to(grad.dtype)
+        return None, onehot.t() @ grad.reshape(-1, grad.shape[-1])
 
 
 class WordAttention(nn.Module):
@@ -49,7 +70,7 @@ class CharacterEncoder(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         """ids [B, L] int -> [B, L, hidden] in ``dtype``."""
-        emb = self.embedding(ids).to(self.dtype)
+        emb = _Lookup.apply(ids, self.embedding.weight).to(self.dtype)
         L = ids.shape[1]
         if L <= self.max_seq_len:
             emb = emb + self.pe[:L].to(emb.dtype)

@@ -5,8 +5,10 @@ The parameter names are the reference torch state-dict keys, so
 with ``load_state_dict(strict=True)`` and carries JAX weights across.
 
 Ported: the character-conditioned, writer-conditioned UNet with the
-concat-form ResBlock (the ``iam`` preset and its relatives). The other
-conditioning variants raise ``NotImplementedError``.
+concat-form ResBlock (the ``iam`` preset and its relatives), and the
+training's classifier-free drop of the writer conditioning
+(``writer_mask``). The other conditioning variants raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -132,7 +134,10 @@ class UNet(nn.Module):
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 context_ids: Optional[torch.Tensor] = None,
                 writer_id: Optional[torch.Tensor] = None,
+                writer_mask: Optional[torch.Tensor] = None,
                 **conditioning) -> torch.Tensor:
+        """``writer_mask`` [B] scales each sample's writer embedding (0
+        drops it: the training's classifier-free drop)."""
         given = [k for k, v in conditioning.items() if v is not None]
         if given:
             raise NotImplementedError(f"UNet conditioning not ported yet: {given}")
@@ -143,7 +148,10 @@ class UNet(nn.Module):
         if writer_id is not None:
             # clamp instead of a device assert on out-of-range ids
             wid = writer_id.clamp(0, cfg.num_writers - 1)
-            emb = emb + self.label_emb(wid).to(dtype)
+            w_emb = self.label_emb(wid).to(dtype)
+            if writer_mask is not None:
+                w_emb = w_emb * writer_mask[:, None].to(dtype)
+            emb = emb + w_emb
         context = self.word_emb(context_ids) if context_ids is not None else None
 
         h = x.permute(0, 3, 1, 2).to(dtype)  # NHWC -> NCHW (channels_last memory)

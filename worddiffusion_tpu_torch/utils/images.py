@@ -1,8 +1,8 @@
-"""Regeneration output naming and a stdlib PNG writer.
+"""Regeneration output naming, preview grids and a stdlib PNG writer.
 
-``regen_filename`` and ``save_single_images`` are copied from
-``worddiffusion_tpu/utils/images.py`` (that module imports PIL); the
-PNG encoder here uses only ``zlib`` and ``struct``.
+``regen_filename``, ``save_single_images`` and ``save_image_grid`` are
+copied from ``worddiffusion_tpu/utils/images.py`` (that module imports
+PIL); the PNG encoder here uses only ``zlib`` and ``struct``.
 """
 
 from __future__ import annotations
@@ -67,3 +67,18 @@ def save_single_images(
             f.write(encode_png(denormalize_to_uint8(img)))
         paths.append(p)
     return paths
+
+
+def save_image_grid(images: np.ndarray, path: str, ncol: int = 8) -> None:
+    """[B, H, W, C] float [0, 1] or uint8 -> one PNG grid, row-major,
+    white where a row is short (the training's epoch preview)."""
+    b, h, w, c = images.shape
+    ncol = min(ncol, b)
+    nrow = (b + ncol - 1) // ncol
+    grid = np.full((nrow * h, ncol * w, c), 255, np.uint8)
+    for i in range(b):
+        r, cl = divmod(i, ncol)
+        grid[r * h : (r + 1) * h, cl * w : (cl + 1) * w] = denormalize_to_uint8(images[i])
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(encode_png(grid))
