@@ -159,3 +159,93 @@ def test_block_backward_goes_through_the_kernels(cuda):
     for k, w in plain.items():
         err = (kern[k].float() - w.float()).abs().max().item()
         assert err <= 3e-2 * w.float().abs().max().item() + 1e-6, (k, err)
+
+
+# (B, Nq, Nk) of the attentions the paths run: iam (Nk = 42 characters),
+# iam_phosc self-attention (Nk = Nq) and cross-attention (Nk = 42 + 769
+# PHOSC tokens), at the regeneration batch of 16 and the training batch of
+# 128, and a ragged case; 4 heads of 80.
+ATTN_SHAPES = [(16, 256, 42), (16, 64, 42), (16, 256, 256), (16, 64, 64), (16, 256, 811),
+               (16, 64, 811), (128, 256, 42), (128, 256, 811), (128, 64, 811), (2, 40, 13)]
+
+
+def _qkv(b, nq, nk, device, d=80, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(b, 4, n, d, generator=g).bfloat16().to(device) for n in (nq, nk, nk))
+
+
+@pytest.mark.parametrize("b,nq,nk", ATTN_SHAPES)
+def test_attention_kernel_matches_plain(cuda, b, nq, nk):
+    """bf16 out: the two differ in the order of the fp32 sums, which can
+    move one bf16 rounding -> within 1% of max |out|; bitwise repeatable."""
+    from worddiffusion_tpu_torch.ops import attention
+
+    q, k, v = _qkv(b, nq, nk, cuda)
+    before = attention.launches
+    got = attention.fused_attention(q, k, v, 80 ** -0.5)
+    again = attention.fused_attention(q, k, v, 80 ** -0.5)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 2
+    want = attention.attention_reference(q, k, v, 80 ** -0.5)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("bad", ["fp32", "d_72", "non_contiguous", "nk_over_limit"])
+def test_attention_refuses_what_it_does_not_take(cuda, bad):
+    from worddiffusion_tpu_torch.ops import attention
+
+    q, k, v = _qkv(2, 64, 42, cuda)
+    if bad == "fp32":
+        q, k, v = q.float(), k.float(), v.float()
+    elif bad == "d_72":
+        q, k, v = (t[..., :72].contiguous() for t in (q, k, v))
+    elif bad == "non_contiguous":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)  # [B, N, H, D] memory
+    else:
+        q, k, v = _qkv(1, 16, attention._lib().wd_attention_max_nk() + 1, cuda)
+    before = attention.launches
+    with pytest.raises(ValueError):
+        attention.fused_attention(q, k, v, 0.1)
+    assert attention.launches == before
+
+
+def test_block_backward_reaches_qkv_through_the_attention_kernel(cuda):
+    """The PHOSC layout's block (self-attention, then cross-attention over
+    811 tokens) on the card: two attention kernel launches forward, two
+    Function backward calls, and gradients for every q/k/v weight that
+    agree with the all-plain block's (plain attention swapped in)."""
+    from unittest import mock
+
+    from worddiffusion_tpu_torch.models.attention import BasicTransformerBlock
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.ops import attention
+
+    blk = init_weights_(BasicTransformerBlock(D, 4, 80, 320, attn1_cross=False), seed=2,
+                        zero_init=False).to(cuda)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 256, D, generator=g).bfloat16().to(cuda)
+    ctx = torch.randn(4, 811, 320, generator=g).bfloat16().to(cuda)
+    co = torch.randn(4, 256, D, generator=g).to(cuda)
+    grads = []
+    for plain in (False, True):
+        blk.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_()
+        a0, b0 = attention.launches, attention.bwd_calls
+        with mock.patch.object(attention, "fused_attention",
+                               attention.attention_reference if plain else
+                               attention.fused_attention):
+            (blk(xi, ctx).float() * co).sum().backward()
+        torch.cuda.synchronize()
+        grads.append((attention.launches - a0, attention.bwd_calls - b0,
+                      {"x": xi.grad, **{n: p.grad for n, p in blk.named_parameters()}}))
+    (ka, kb, kern), (pa, pb, plain_g) = grads
+    assert (ka, kb, pa, pb) == (2, 2, 0, 0)
+    for k, w in plain_g.items():
+        assert kern[k] is not None, k
+        if ".to_" in k:
+            assert kern[k].abs().max() > 0, k
+        err = (kern[k].float() - w.float()).abs().max().item()
+        assert err <= 3e-2 * w.float().abs().max().item() + 1e-6, (k, err)

@@ -1,7 +1,7 @@
 """The port imports no JAX: every module of worddiffusion_tpu_torch is
-imported, and the regeneration and train CLIs run a tiny slice on the
-CPU, in a fresh interpreter; then jax, flax, optax and PIL must be
-absent."""
+imported, and the regeneration CLI (the iam and the PHOSC layout) and the
+train CLI run a tiny slice on the CPU, in a fresh interpreter; then jax,
+flax, optax and PIL must be absent."""
 
 import os
 import subprocess
@@ -44,6 +44,20 @@ written = [f for f in os.listdir(dump) if f.endswith(".png")]
 rejected = os.listdir(os.path.join(dump, "rejected")) if os.path.isdir(
     os.path.join(dump, "rejected")) else []
 assert len(written) + len(rejected) == 3, (written, rejected)
+
+# the PHOSC model (the iam_phosc layout at the tiny width) and its descriptors
+presets.PRESETS["tiny_phosc"] = lambda: Experiment(
+    unet=UNetConfig(model_channels=32, context_dim=32, num_heads=2, vocab_size=54,
+                    num_writers=8, max_seq_len=10, attn1_cross=False, use_phosc=True,
+                    phosc_dim=769, dtype="float32"),
+    vae=VAEConfig(base_channels=32, channel_mult=(1, 2, 4, 4), num_res_blocks=1,
+                  dtype="float32"),
+    diffusion=DiffusionConfig(num_steps=12),
+    data=DataConfig(max_chars=10, alphabet="eng_main"),
+)
+stats = cli.main(["--preset", "tiny_phosc", "--gt_file", gt, "--dump_path", dump + "_phosc",
+                  "--batch_size", "2", "--no_ocr_filter", "1", "--device", "cpu"])
+assert stats.generated == stats.accepted == 3, stats
 print("LOADED", sorted(m for m in ("jax", "flax", "optax", "PIL") if m in sys.modules))
 """
 
@@ -54,7 +68,7 @@ import numpy as np
 import torch
 torch.set_num_threads(1)
 for name in ("train.state", "train.step", "train.checkpoint", "train.loop", "data.dataset",
-             "data.loader", "diffusion.forward", "cli.train"):
+             "data.loader", "diffusion.forward", "cli.train", "ops.attention"):
     importlib.import_module("worddiffusion_tpu_torch." + name)
 
 from worddiffusion_tpu.configs import presets

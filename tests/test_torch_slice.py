@@ -163,6 +163,7 @@ class _ScriptedSampler:
     the frame ids spell the word only for words in ``readable``."""
 
     device = torch.device("cpu")
+    exp = EXP
 
     def __init__(self, readable):
         self.readable = readable
@@ -173,7 +174,8 @@ class _ScriptedSampler:
         seed = sum(map(ord, word))
         return np.random.default_rng(seed).integers(0, 256, (64, 256, 3), dtype=np.uint8)
 
-    def sample_async(self, words, writer_ids, generator):
+    def sample_async(self, words, writer_ids, generator, phosc=None):
+        assert phosc is None  # EXP takes no PHOSC
         self.writer_ids.extend(int(w) for w in writer_ids)
         ids = np.ones((len(words), 16), np.int32)  # all blank ('_' is index 1)
         for b, w in enumerate(words):

@@ -113,7 +113,7 @@ def test_writer_mask_matches_jax():
 
 
 @pytest.mark.parametrize("option", [
-    dict(use_phosc=True), dict(style_vec_dim=16), dict(use_char_images=True),
+    dict(style_vec_dim=16), dict(use_char_images=True),
     dict(img_conditioned=True), dict(ocr_head=True), dict(use_scale_shift_norm=True),
     dict(attn_fold_context=True), dict(split_skip_conv=True), dict(return_attn=True),
     dict(fast_softmax=True),

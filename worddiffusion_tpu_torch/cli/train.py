@@ -79,8 +79,6 @@ def _refuse_unported(args) -> None:
     unported = {
         "--synthetic": args.synthetic,
         "--ocrTraining": args.ocrTraining,
-        "--phosc": args.phosc,
-        "--phos": args.phos,
         "--wrdChrWrStyl": args.wrdChrWrStyl,
         "--charImages": args.charImages,
         "--imgConditioned": args.imgConditioned,
@@ -111,6 +109,8 @@ def experiment_from_args(args):
     from worddiffusion_tpu.configs import presets
 
     exp = presets.get(args.preset)
+    if args.phosc or args.phos:
+        exp = presets.get("iam_phosc") if args.preset == "iam" else exp
     h, w = (int(v) for v in args.img_size.split(","))
     return exp.replace(
         data=dataclasses.replace(
@@ -177,7 +177,8 @@ def build(args):
     registry.dump_json(f"{args.save_path}/writers_dict_train.json")
     tokenizer = Tokenizer.from_name(exp.data.alphabet, exp.data.max_chars)
     dataset = WordImageDataset(samples, registry, tokenizer, exp.data,
-                               latent_cache=LatentLookup.load(args.latent_cache))
+                               latent_cache=LatentLookup.load(args.latent_cache),
+                               use_phosc=exp.unet.use_phosc)
     return Trainer(exp, dataset, preview_fn=_preview_fn(args, exp, device), device=device)
 
 

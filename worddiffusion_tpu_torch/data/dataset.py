@@ -2,7 +2,8 @@
 ``worddiffusion_tpu/data/dataset.py``: ``WordImageDataset`` and
 ``LatentLookup``; that module imports PIL through ``utils/images.py``).
 
-A record is ``{image_name, word, context, writer, latent}``. Every
+A record is ``{image_name, word, context, writer, latent}``, plus
+``phosc`` [P] int32 (the word's PHOSC ids) with ``use_phosc``. Every
 sample must be in the cache: encoding images needs the VAE encoder,
 which is not ported yet.
 """
@@ -15,6 +16,7 @@ import numpy as np
 
 from worddiffusion_tpu.configs.config import DataConfig
 from worddiffusion_tpu.data.gt import Sample, WriterRegistry
+from worddiffusion_tpu.data.phosc import phosc_vector
 from worddiffusion_tpu.data.tokenizer import Tokenizer
 
 
@@ -48,12 +50,15 @@ class WordImageDataset:
         tokenizer: Tokenizer,
         cfg: DataConfig,
         latent_cache: LatentLookup,
+        use_phosc: bool = False,
     ):
         self.samples = list(samples)
         self.registry = registry
         self.tokenizer = tokenizer
         self.cfg = cfg
         self.latent_cache = latent_cache
+        self.use_phosc = use_phosc
+        self._phosc_cache: dict[str, np.ndarray] = {}
         missing = [s.image for s in self.samples if s.image not in latent_cache]
         if missing:
             raise NotImplementedError(
@@ -65,12 +70,21 @@ class WordImageDataset:
     def __len__(self) -> int:
         return len(self.samples)
 
+    def _phosc(self, word: str) -> np.ndarray:
+        if word not in self._phosc_cache:
+            self._phosc_cache[word] = phosc_vector(
+                word, self.cfg.phos_version, as_int=True).astype(np.int32)
+        return self._phosc_cache[word]
+
     def __getitem__(self, idx: int) -> dict:
         s = self.samples[idx]
-        return {
+        rec = {
             "image_name": s.image,
             "word": s.word,
             "context": self.tokenizer.encode(s.word),
             "writer": np.int32(self.registry[s.writer] if s.writer in self.registry else 0),
             "latent": self.latent_cache[s.image],
         }
+        if self.use_phosc:
+            rec["phosc"] = self._phosc(s.word)
+        return rec

@@ -7,6 +7,7 @@ of ``worddiffusion_tpu/generate/regenerate.py``).
 - Static batches: the last batch is padded to ``batch_size`` by
   repeating its own items; only the real ones are kept.
 - Writer-id perturbation (``sid_change``) offsets every writer id.
+- A ``use_phosc`` model gets each batch's PHOSC ids.
 - Pipelined dispatch: up to ``queue_depth`` batches are queued on the
   device before the host drains the oldest one (OCR decode, accept
   filter, PNG writes). ``_drain`` is the only place that waits for the
@@ -34,7 +35,7 @@ from worddiffusion_tpu.utils.stop_flag import StopFlag
 
 from ..ops.ctc import collapse_and_decode
 from ..utils.images import regen_filename, save_single_images
-from .sample import WordSampler
+from .sample import WordSampler, phosc_ids
 
 log = logging.getLogger("worddiffusion")
 
@@ -129,7 +130,10 @@ class Regenerator:
             wids = np.asarray([self.writer_lookup(s.writer) for s, _ in chunk], np.int64)
             if self.sid_change:
                 wids = wids + self.sid_change
-            out = self.sampler.sample_async(words, wids, generator)
+            phosc = None
+            if self.sampler.exp.unet.use_phosc:
+                phosc = phosc_ids(words, self.sampler.exp.data.phos_version)
+            out = self.sampler.sample_async(words, wids, generator, phosc)
             pending.append((out, chunk, n_real))
             if len(pending) > self.queue_depth:
                 self._drain(pending.popleft(), stats)

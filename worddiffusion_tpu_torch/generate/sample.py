@@ -6,9 +6,11 @@ images -> OCR forward + per-frame argmax, all queued on the device; only
 the uint8 images and the int32 frame ids cross back to the host, when
 the caller reads them.
 
-Ported: the latent path with a VAE, DDIM, the fused OCR argmax and the
-training's preview. Not yet: pixel-space models, classifier-free
-guidance, multi-GPU and the conditioning variants.
+Ported: the latent path with a VAE, DDIM, the fused OCR argmax, the
+training's preview and PHOSC conditioning (``phosc``). Not yet:
+pixel-space models, classifier-free guidance, multi-GPU, writer
+interpolation and the style, glyph-image and reference-latent
+conditioning.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 import torch
 
 from worddiffusion_tpu.configs.config import Experiment
+from worddiffusion_tpu.data.phosc import phosc_vector
 from worddiffusion_tpu.data.tokenizer import Tokenizer
 from worddiffusion_tpu.diffusion.schedule import NoiseSchedule
 
@@ -26,6 +29,12 @@ from ..diffusion.sampler import ddim_sample, ddpm_sample, latent_to_image
 from ..models.unet import UNet
 from ..models.vae import AutoencoderKL, decode_from_latent
 from ..ops.ctc import greedy_frame_ids
+
+
+def phosc_ids(words: Sequence[str], version: str) -> np.ndarray:
+    """The PHOSC descriptors of ``words`` as token ids [B, P] int64, the
+    UNet's ``phosc_ids`` (JAX ``generate/sample.py:242-248``)."""
+    return np.stack([phosc_vector(w, version, as_int=True) for w in words]).astype(np.int64)
 
 
 class WordSampler:
@@ -70,15 +79,17 @@ class WordSampler:
 
     @torch.no_grad()
     def denoise(self, words: Sequence[str], writer_ids: Sequence[int],
-                x_init: torch.Tensor, generator: Optional[torch.Generator] = None
-                ) -> torch.Tensor:
+                x_init: torch.Tensor, generator: Optional[torch.Generator] = None,
+                phosc: Optional[np.ndarray] = None) -> torch.Tensor:
         """The reverse process from an explicit ``x_init`` -> latents
-        [B, h, w, 4] fp32 (``generator`` feeds stochastic steps)."""
+        [B, h, w, 4] fp32 (``generator`` feeds stochastic steps; ``phosc``
+        [B, P] int: the PHOSC ids of a ``use_phosc`` model)."""
         ctx = self._to_device(self.tokenizer.encode_batch(list(words)).astype(np.int64))
         wid = self._to_device(np.asarray(writer_ids, np.int64))
+        ph = None if phosc is None else self._to_device(np.asarray(phosc, np.int64))
 
         def eps_fn(x, t):
-            return self.model(x, t, ctx, wid)
+            return self.model(x, t, ctx, wid, ph)
 
         if self.ddim_steps:
             return ddim_sample(self.schedule, eps_fn, x_init.to(self.device),
@@ -100,19 +111,22 @@ class WordSampler:
         return img, greedy_frame_ids(self.ocr_apply(gray))
 
     def sample_async(self, words: Sequence[str], writer_ids: Sequence[int],
-                     generator: torch.Generator):
+                     generator: torch.Generator, phosc: Optional[np.ndarray] = None):
         """Queue the whole batch on the device, from x_T ~ N(0, 1) drawn
         with ``generator``, and return its tensors without waiting for
         them; reading them (``.cpu()``) waits."""
         x = torch.randn((len(words),) + self.latent_shape, generator=generator,
                         device=self.device)
-        return self.decode(self.denoise(words, writer_ids, x, generator))
+        return self.decode(self.denoise(words, writer_ids, x, generator, phosc))
 
     def sample_preview(self, generator: torch.Generator, words=None, n: int = 3) -> np.ndarray:
         """Fixed-probe-word preview -> uint8 [n, H, W, 3] on the host; the
         writer id is forced to ones like the reference epoch preview
         (``trainModifyCondition.py:574``)."""
         words = list(words or ["text", "getting", "prop"][:n])
-        out = self.sample_async(words, [1] * len(words), generator)
+        phosc = None
+        if self.exp.unet.use_phosc:
+            phosc = phosc_ids(words, self.exp.data.phos_version)
+        out = self.sample_async(words, [1] * len(words), generator, phosc)
         img = out[0] if isinstance(out, tuple) else out
         return img.cpu().numpy()

@@ -1,8 +1,9 @@
 """Cross-attention, transformer block and spatial transformer (port of
 ``worddiffusion_tpu/models/attention.py``).
 
-Attention scores and softmax run in fp32 (the reference numerics; the
-JAX package's bf16 ``fast_softmax`` is not ported). The block's FF
+Every attention goes through ``ops.attention.fused_attention``, the CUDA
+kernel on the card, with fp32 scores and softmax (the reference numerics;
+the JAX package's bf16 ``fast_softmax`` is not ported). The block's FF
 sub-layer (norm3 -> GEGLU FFN -> residual) goes through
 ``ops.ffn.LnGegluFFN``, the CUDA kernel pair (forward and backward) on
 the card.
@@ -16,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import ffn
+from ..ops import attention, ffn
 from .layers import Conv2D, Dense, FeedForward, GroupNorm32
 
 
@@ -40,12 +41,14 @@ class CrossAttention(nn.Module):
         b, nq, _ = x.shape
         nk = context.shape[1]
         h, d = self.heads, self.dim_head
-        q = self.to_q(x).reshape(b, nq, h, d).transpose(1, 2)
-        k = self.to_k(context).reshape(b, nk, h, d).transpose(1, 2)
-        v = self.to_v(context).reshape(b, nk, h, d).transpose(1, 2)
-        sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * d ** -0.5
-        attn = sim.softmax(dim=-1).to(v.dtype)
-        out = torch.matmul(attn.float(), v.float()).to(v.dtype)
+
+        def heads_first(t, n):  # [B, N, H*D] -> contiguous [B, H, N, D], the kernel's layout
+            return t.reshape(b, n, h, d).transpose(1, 2).contiguous()
+
+        q = heads_first(self.to_q(x), nq)
+        k = heads_first(self.to_k(context), nk)
+        v = heads_first(self.to_v(context), nk)
+        out = attention.fused_attention(q, k, v, d ** -0.5)
         return self.to_out(out.transpose(1, 2).reshape(b, nq, h * d))
 
 

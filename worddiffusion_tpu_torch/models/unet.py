@@ -5,10 +5,13 @@ The parameter names are the reference torch state-dict keys, so
 with ``load_state_dict(strict=True)`` and carries JAX weights across.
 
 Ported: the character-conditioned, writer-conditioned UNet with the
-concat-form ResBlock (the ``iam`` preset and its relatives), and the
-training's classifier-free drop of the writer conditioning
-(``writer_mask``). The other conditioning variants raise
-``NotImplementedError``.
+concat-form ResBlock (the ``iam`` preset and its relatives), the
+PHOSC-conditioned one (``use_phosc``: the ``iam_phosc`` and ``gw``
+presets, self-attention then cross-attention over the characters and
+the PHOSC tokens), and the training's classifier-free drop of the
+writer conditioning (``writer_mask``). The other conditioning variants
+(style vectors, glyph images, reference latents, the OCR head, FiLM
+ResBlocks) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from .encoders import CharacterEncoder
 from .layers import Conv2D, Dense, Downsample, GroupNorm32, Upsample, timestep_embedding
 
 _UNPORTED_CONFIG = (
-    "use_phosc", "style_vec_dim", "use_char_images", "img_conditioned",
+    "style_vec_dim", "use_char_images", "img_conditioned",
     "ocr_head", "use_scale_shift_norm", "attn_fold_context",
     "split_skip_conv", "return_attn", "fast_softmax",
 )
@@ -68,8 +71,9 @@ class TimestepBlock(nn.ModuleList):
 
 
 class UNet(nn.Module):
-    """forward(x_t [B,H,W,C], t [B], context_ids [B,L], writer_id [B])
-    -> eps-hat [B,H,W,C] fp32. NHWC at the interface, like the JAX UNet."""
+    """forward(x_t [B,H,W,C], t [B], context_ids [B,L], writer_id [B],
+    phosc_ids [B,P]?) -> eps-hat [B,H,W,C] fp32. NHWC at the interface,
+    like the JAX UNet."""
 
     def __init__(self, cfg: UNetConfig):
         super().__init__()
@@ -134,10 +138,12 @@ class UNet(nn.Module):
     def forward(self, x: torch.Tensor, t: torch.Tensor,
                 context_ids: Optional[torch.Tensor] = None,
                 writer_id: Optional[torch.Tensor] = None,
+                phosc_ids: Optional[torch.Tensor] = None,
                 writer_mask: Optional[torch.Tensor] = None,
                 **conditioning) -> torch.Tensor:
-        """``writer_mask`` [B] scales each sample's writer embedding (0
-        drops it: the training's classifier-free drop)."""
+        """``phosc_ids`` [B, P] int: the PHOSC descriptor as token ids, read
+        only with ``use_phosc``. ``writer_mask`` [B] scales each sample's
+        writer embedding (0 drops it: the training's classifier-free drop)."""
         given = [k for k, v in conditioning.items() if v is not None]
         if given:
             raise NotImplementedError(f"UNet conditioning not ported yet: {given}")
@@ -152,7 +158,13 @@ class UNet(nn.Module):
             if writer_mask is not None:
                 w_emb = w_emb * writer_mask[:, None].to(dtype)
             emb = emb + w_emb
-        context = self.word_emb(context_ids) if context_ids is not None else None
+        context = None
+        if context_ids is not None:
+            context = self.word_emb(context_ids)
+            if cfg.use_phosc and phosc_ids is not None:
+                # the PHOSC ids go through the same encoder and extend the
+                # sequence axis (JAX unet.py:273-276)
+                context = torch.cat([context, self.word_emb(phosc_ids)], dim=1)
 
         h = x.permute(0, 3, 1, 2).to(dtype)  # NHWC -> NCHW (channels_last memory)
         hs = []

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Every ``csrc/*.cu`` file is compiled, at first use, into one shared
-library with a plain ``extern "C"`` interface::
+library with a plain ``extern "C"`` interface: one nvcc per source, all
+started together, then one link::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o <lib> csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <src>.o csrc/<src>.cu        # each source
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared -o <lib> *.o
 
 The library lands in ``build/wd_torch_kernels/<hash>/`` beside the
 package (``.gitignore`` lists ``build/``); the hash covers the sources
@@ -25,10 +27,8 @@ import tempfile
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC")
 LIB_NAME = "libwd_torch_kernels.so"
 BUILD_ROOT = CSRC.parent.parent / "build" / "wd_torch_kernels"
 
@@ -76,18 +76,28 @@ def build(nvcc: str | None = None, build_root: str | Path | None = None) -> Path
             "/usr/local/cuda/bin): the CUDA kernels cannot be built"
         )
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}: {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent build never loads half a file
+    tmp = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        objs = [tmp / f"{src.stem}.o" for src in sources]
+        _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                  for o, src in zip(objs, sources)])
+        _run_all([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp / LIB_NAME), *map(str, objs)]])
+        os.replace(tmp / LIB_NAME, lib)  # atomic: a concurrent build never loads half a file
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return lib
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands together; wait for all, then raise with the output
+    of the first that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {p.returncode}: {' '.join(cmd)}\n{out}")
 
 
 @functools.cache

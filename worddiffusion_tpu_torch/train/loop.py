@@ -79,11 +79,14 @@ class Trainer:
         return t.to(self.device)
 
     def _device_batch(self, batch: dict) -> dict:
-        return {
+        out = {
             "latent": self._to_device(batch["latent"].astype("float32", copy=False)),
             "context": self._to_device(batch["context"].astype("int64")),
             "writer": self._to_device(batch["writer"].astype("int64")),
         }
+        if "phosc" in batch:
+            out["phosc"] = self._to_device(batch["phosc"].astype("int64"))
+        return out
 
     def run(
         self,

@@ -10,6 +10,7 @@ Batch dict layout (``data.loader``, staged on the device):
   ``latent``  [B, 8, 32, 4] float32 — VAE latents, already * 0.18215
   ``context`` [B, L] int64 char ids
   ``writer``  [B] int64 dense writer index
+  ``phosc``   [B, P] int64 PHOSC ids (``use_phosc`` models)
 """
 
 from __future__ import annotations
@@ -85,7 +86,8 @@ def loss_fn(model, schedule: NoiseSchedule, exp: Experiment, batch: dict,
         # one draw per batch: the whole batch keeps or drops its writer
         # (reference train.py:284-285)
         writer_mask = torch.ones(latent.shape[0], device=latent.device) * draws.keep
-    eps = model(x_t, draws.t, batch["context"], batch["writer"], writer_mask=writer_mask)
+    eps = model(x_t, draws.t, batch["context"], batch["writer"], phosc_ids=batch.get("phosc"),
+                writer_mask=writer_mask)
     mse = (eps.float() - draws.noise).square().mean()
     return mse, {"mse": mse.detach(), "loss": mse.detach()}
 
