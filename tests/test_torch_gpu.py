@@ -249,3 +249,111 @@ def test_block_backward_reaches_qkv_through_the_attention_kernel(cuda):
             assert kern[k].abs().max() > 0, k
         err = (kern[k].float() - w.float()).abs().max().item()
         assert err <= 3e-2 * w.float().abs().max().item() + 1e-6, (k, err)
+
+
+# (B, N, L) of the fold path's sub-layers (C = 320, H = 4: every attention of
+# the iam UNet with attn_fold_context), at the regeneration batch of 16 and
+# the training batch of 128, full-resolution and middle blocks, and a ragged
+# case (L = 13 pads to 16, N = 40 ends mid-tile).
+FOLD_SHAPES = [(16, 256, 42), (16, 64, 42), (128, 256, 42), (128, 64, 42), (2, 40, 13)]
+
+
+def _fold_inputs(b, n, l, device, c=D, heads=4, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)
+    t = dict(x=r(b, n, c).bfloat16(), wt4=(r(b, heads, c, l) / c ** 0.5).bfloat16(),
+             vw4=r(b, heads, l, c).bfloat16(), gamma=1 + 0.1 * r(c), beta=0.1 * r(c),
+             b_out=0.02 * r(c))
+    return {k: v.to(device) for k, v in t.items()}
+
+
+@pytest.mark.parametrize("layout", ["b7", "b8"])
+@pytest.mark.parametrize("b,n,l", FOLD_SHAPES)
+def test_fold_kernel_matches_plain(cuda, layout, b, n, l):
+    """bf16 out: the two differ in the order of the fp32 sums, which can
+    move one bf16 rounding -> within 1% of max |out|; bitwise repeatable.
+    B.7's entry takes the folds as [B, C, H*L] and [B, H*L, C]."""
+    from worddiffusion_tpu_torch.ops import fold_attention as fa
+
+    t = _fold_inputs(b, n, l, cuda)
+    vecs = (t["gamma"], t["beta"], t["b_out"])
+    if layout == "b7":
+        wt = t["wt4"].permute(0, 2, 1, 3).reshape(b, D, 4 * l).contiguous()
+        run = lambda: fa.fold_attention(t["x"], wt, t["vw4"].reshape(b, 4 * l, D), *vecs, 4)
+    else:
+        run = lambda: fa.fold_attention_heads(t["x"], t["wt4"], t["vw4"], *vecs)
+    before = fa.launches
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert fa.launches == before + 2
+    want = fa.fold_attention_reference(t["x"], t["wt4"], t["vw4"], *vecs)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    assert torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("bad", ["fp32_x", "c_not_16", "l_over_limit", "heads_l_over_c",
+                                 "strided_x", "wt_l_strided"])
+def test_fold_kernel_refuses_what_it_does_not_take(cuda, bad):
+    from worddiffusion_tpu_torch.ops import fold_attention as fa
+
+    if bad == "c_not_16":
+        t = _fold_inputs(2, 64, 13, cuda, c=72)
+    elif bad == "l_over_limit":
+        t = _fold_inputs(2, 64, fa._lib().wd_fold_attention_max_l() + 1, cuda, heads=1)
+    elif bad == "heads_l_over_c":
+        t = _fold_inputs(2, 64, 42, cuda, heads=8)
+    else:
+        t = _fold_inputs(2, 64, 42, cuda)
+    if bad == "fp32_x":
+        t["x"] = t["x"].float()
+    elif bad == "strided_x":
+        t["x"] = torch.cat([t["x"], t["x"]], dim=-1)[..., ::2]
+    elif bad == "wt_l_strided":
+        t["wt4"] = t["wt4"].transpose(-1, -2).contiguous().transpose(-1, -2)
+    before = fa.launches
+    with pytest.raises(ValueError):
+        fa.fold_attention_heads(t["x"], t["wt4"], t["vw4"], t["gamma"], t["beta"], t["b_out"])
+    assert fa.launches == before
+
+
+def test_block_backward_reaches_projections_through_the_fold_kernel(cuda):
+    """The iam layout's block with the fold (both attentions cross-attend to
+    42 tokens) on the card: two fold kernel launches forward, two Function
+    backward calls, and gradients for every q/k/v/out weight (through the
+    fold functions) that agree with the all-plain block's."""
+    from unittest import mock
+
+    from worddiffusion_tpu_torch.models.attention import BasicTransformerBlock
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.ops import attention
+    from worddiffusion_tpu_torch.ops import fold_attention as fa
+
+    blk = init_weights_(BasicTransformerBlock(D, 4, 80, 320, fold_context=True), seed=3,
+                        zero_init=False).to(cuda)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 256, D, generator=g).bfloat16().to(cuda)
+    ctx = torch.randn(4, 42, 320, generator=g).bfloat16().to(cuda)
+    co = torch.randn(4, 256, D, generator=g).to(cuda)
+    grads = []
+    for plain in (False, True):
+        blk.zero_grad(set_to_none=True)
+        xi, ci = x.clone().requires_grad_(), ctx.clone().requires_grad_()
+        counts = (fa.launches, fa.bwd_calls, attention.launches)
+        with mock.patch.object(fa, "fold_attention_heads",
+                               fa.fold_attention_reference if plain else fa.fold_attention_heads):
+            (blk(xi, ci).float() * co).sum().backward()
+        torch.cuda.synchronize()
+        grads.append((fa.launches - counts[0], fa.bwd_calls - counts[1],
+                      attention.launches - counts[2],
+                      {"x": xi.grad, "context": ci.grad,
+                       **{n: p.grad for n, p in blk.named_parameters()}}))
+    (kl, kb, ka, kern), (pl, pb, pa, plain_g) = grads
+    assert (kl, kb, ka, pl, pb, pa) == (2, 2, 0, 0, 0, 0)
+    for k, w in plain_g.items():
+        assert kern[k] is not None, k
+        if ".to_" in k:
+            assert kern[k].abs().max() > 0, k
+        err = (kern[k].float() - w.float()).abs().max().item()
+        assert err <= 3e-2 * w.float().abs().max().item() + 1e-6, (k, err)

@@ -17,11 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from worddiffusion_tpu.configs import presets
 from worddiffusion_tpu.configs.config import (
     DataConfig, DiffusionConfig, Experiment, TrainConfig, UNetConfig, VAEConfig,
 )
-from worddiffusion_tpu.data.gt import Sample, WriterRegistry
 from worddiffusion_tpu.data.phosc import phosc_vector
 from worddiffusion_tpu.data.tokenizer import Tokenizer
 from worddiffusion_tpu.diffusion import forward as jforward
@@ -33,10 +31,15 @@ from worddiffusion_tpu.models.convert import export_reference_unet
 from worddiffusion_tpu.models.unet import UNet as JaxUNet
 from worddiffusion_tpu.train import state as jstate
 from worddiffusion_tpu.train import step as jstep
+from test_torch_copies import port_cfg
 from worddiffusion_tpu_torch.cli import regenerate as regen_cli
 from worddiffusion_tpu_torch.cli import train as train_cli
+from worddiffusion_tpu_torch.configs import presets
+from worddiffusion_tpu_torch.data import gt as port_gt
 from worddiffusion_tpu_torch.data.dataset import LatentLookup, WordImageDataset
+from worddiffusion_tpu_torch.data.tokenizer import Tokenizer as PortTokenizer
 from worddiffusion_tpu_torch.diffusion.sampler import regen_call_mask
+from worddiffusion_tpu_torch.diffusion.schedule import NoiseSchedule as PortSchedule
 from worddiffusion_tpu_torch.generate.sample import WordSampler, phosc_ids
 from worddiffusion_tpu_torch.models.convert import jax_vae_to_torch, state_dict_to_torch
 from worddiffusion_tpu_torch.models.unet import UNet
@@ -52,7 +55,8 @@ WORDS, WRITERS = ["word", "Hello"], [0, 3]
 
 
 def phosc_exp(version="eng", max_chars=10, **train_kw):
-    """The iam_phosc / gw layout at a tiny width. 64 channels: at 32 every
+    """The iam_phosc / gw layout at a tiny width (the JAX config;
+    ``port_cfg`` hands its values to the port). 64 channels: at 32 every
     channel is its own GroupNorm group, which cancels per-channel
     conditioning outright."""
     return Experiment(
@@ -95,7 +99,7 @@ def _params(seed=3):
 
 
 def _port(params):
-    m = UNet(CFG)
+    m = UNet(port_cfg(CFG))
     # strict: norm1 of the self-attention layout crosses too
     m.load_state_dict(state_dict_to_torch(export_reference_unet(params, CFG)), strict=True)
     return m.eval()
@@ -156,10 +160,10 @@ def test_word_sampler_with_phosc_matches_jax_pipeline():
 
     lat_j, img_j = (np.asarray(a) for a in run(x_init))
 
-    port_vae = AutoencoderKL(exp.vae)
-    port_vae.load_state_dict(state_dict_to_torch(jax_vae_to_torch(vae_p, exp.vae,
+    port_vae = AutoencoderKL(port_cfg(exp.vae))
+    port_vae.load_state_dict(state_dict_to_torch(jax_vae_to_torch(vae_p, port_cfg(exp.vae),
                                                                   decoder_only=True)))
-    sampler = WordSampler(exp, _port(unet_p), port_vae, call_mask=regen_call_mask(T),
+    sampler = WordSampler(port_cfg(exp), _port(unet_p), port_vae, call_mask=regen_call_mask(T),
                           stochastic=False)
     lat = sampler.denoise(WORDS, WRITERS, torch.from_numpy(x_init), phosc=ph)
     img = sampler.decode(lat).numpy()
@@ -210,7 +214,7 @@ def test_train_step_with_phosc_matches_jax():
                       torch.tensor(keep))
     tb = {k: torch.from_numpy(v).long() if v.dtype == np.int32 else torch.from_numpy(v)
           for k, v in batch.items()}
-    metrics = make_train_step(sched, exp)(state, tb, draws)
+    metrics = make_train_step(PortSchedule.linear(T), port_cfg(exp))(state, tb, draws)
     np.testing.assert_allclose(metrics["loss"].item(), float(jloss), rtol=1e-5)
 
     named = dict(model.named_parameters())
@@ -232,14 +236,15 @@ def test_train_step_with_phosc_matches_jax():
 
 
 def _dataset():
-    samples = [Sample(image=f"img{i}.png", writer=f"{i % 2:03d}", word=w)
+    samples = [port_gt.Sample(image=f"img{i}.png", writer=f"{i % 2:03d}", word=w)
                for i, w in enumerate(["the", "of", "and", "the"])]
-    reg = WriterRegistry()
+    reg = port_gt.WriterRegistry()
     for s in samples:
         reg.add(s.writer)
     cache = LatentLookup({s.image: np.zeros((8, 32, 4), np.float32) for s in samples})
-    return WordImageDataset(samples, reg, Tokenizer.from_name("eng_main", 10),
-                            DataConfig(max_chars=10, phos_version="gw"), latent_cache=cache,
+    return WordImageDataset(samples, reg, PortTokenizer.from_name("eng_main", 10),
+                            port_cfg(DataConfig(max_chars=10, phos_version="gw")),
+                            latent_cache=cache,
                             use_phosc=True)
 
 
@@ -285,7 +290,7 @@ def test_regen_cli_runs_phosc_presets(tmp_path, monkeypatch, preset, version, ma
     """--preset iam_phosc and --preset gw (registered here at a tiny width)
     on --device cpu: every batch's UNet calls get [B, 769] PHOSC ids and
     every word is written."""
-    monkeypatch.setitem(presets.PRESETS, preset, lambda: phosc_exp(version, max_chars))
+    monkeypatch.setitem(presets.PRESETS, preset, lambda: port_cfg(phosc_exp(version, max_chars)))
     spy = _PhoscSpy(monkeypatch)
     gt, _ = _gt(tmp_path)
     dump = tmp_path / "regen"
@@ -303,7 +308,7 @@ def test_train_cli_phosc_switches_to_iam_phosc(tmp_path, monkeypatch, flag):
     model (registered here at a tiny width), as the JAX CLI does: the
     dataset emits PHOSC ids, every step's UNet call and the preview get
     them, and the checkpoint loads as the PHOSC regeneration UNet."""
-    monkeypatch.setitem(presets.PRESETS, "iam_phosc", lambda: phosc_exp())
+    monkeypatch.setitem(presets.PRESETS, "iam_phosc", lambda: port_cfg(phosc_exp()))
     gt, cache = _gt(tmp_path, n=4)
     args = train_cli.build_parser().parse_args([
         "--preset", "iam", flag, "1", "--gt_train", gt, "--latent_cache", cache,

@@ -21,7 +21,6 @@ from worddiffusion_tpu.configs.config import (
     DataConfig, DiffusionConfig, Experiment, UNetConfig, VAEConfig,
 )
 from worddiffusion_tpu.data.alphabets import OCR_ENG
-from worddiffusion_tpu.data.gt import Sample
 from worddiffusion_tpu.data.tokenizer import Tokenizer
 from worddiffusion_tpu.diffusion.sampler import ddpm_sample, latent_to_image
 from worddiffusion_tpu.diffusion.sampler import regen_call_mask as jax_call_mask
@@ -30,7 +29,10 @@ from worddiffusion_tpu.models import ocr as jocr
 from worddiffusion_tpu.models import vae as jvae
 from worddiffusion_tpu.models.convert import export_reference_unet
 from worddiffusion_tpu.models.unet import UNet as JaxUNet
+from test_torch_copies import port_cfg
+from worddiffusion_tpu_torch.data.gt import Sample
 from worddiffusion_tpu_torch.diffusion.sampler import regen_call_mask
+from worddiffusion_tpu_torch.diffusion.schedule import NoiseSchedule as PortSchedule
 from worddiffusion_tpu_torch.generate.regenerate import Regenerator
 from worddiffusion_tpu_torch.generate.sample import WordSampler
 from worddiffusion_tpu_torch.models.convert import (
@@ -94,13 +96,14 @@ def _jax_pipeline(unet_p, vae_p, ocr_v, ctx, wid, x_init):
 
 
 def _port_sampler(unet_p, vae_p, ocr_v):
-    unet = UNet(EXP.unet)
+    unet = UNet(port_cfg(EXP.unet))
     unet.load_state_dict(state_dict_to_torch(export_reference_unet(unet_p, EXP.unet)))
-    vae = AutoencoderKL(EXP.vae)
-    vae.load_state_dict(state_dict_to_torch(jax_vae_to_torch(vae_p, EXP.vae, decoder_only=True)))
+    vae = AutoencoderKL(port_cfg(EXP.vae))
+    vae.load_state_dict(state_dict_to_torch(jax_vae_to_torch(vae_p, port_cfg(EXP.vae),
+                                                             decoder_only=True)))
     ocr = CTCRecognizer(num_classes=len(OCR_ENG), widths=OCR_WIDTHS, dtype=torch.float32)
     ocr.load_state_dict(state_dict_to_torch(jax_ocr_to_torch(ocr_v)))
-    return WordSampler(EXP, unet, vae, call_mask=regen_call_mask(T), stochastic=False,
+    return WordSampler(port_cfg(EXP), unet, vae, call_mask=regen_call_mask(T), stochastic=False,
                        ocr_apply=ocr.eval())
 
 
@@ -126,7 +129,7 @@ def test_ddpm_sample_matches_jax(stochastic):
     from worddiffusion_tpu_torch.diffusion.sampler import ddpm_sample as torch_ddpm
 
     got = torch_ddpm(
-        NoiseSchedule.linear(T), lambda x, t: 0.3 * x + 0.01 * t[:, None, None, None],
+        PortSchedule.linear(T), lambda x, t: 0.3 * x + 0.01 * t[:, None, None, None],
         torch.from_numpy(x_init), stochastic=stochastic, call_mask=mask,
         noise_seq=torch.from_numpy(noise),
     ).numpy()
@@ -163,7 +166,7 @@ class _ScriptedSampler:
     the frame ids spell the word only for words in ``readable``."""
 
     device = torch.device("cpu")
-    exp = EXP
+    exp = port_cfg(EXP)
 
     def __init__(self, readable):
         self.readable = readable

@@ -16,12 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from worddiffusion_tpu.configs import presets
 from worddiffusion_tpu.configs.config import (
     DataConfig, DiffusionConfig, Experiment, TrainConfig, UNetConfig, VAEConfig,
 )
-from worddiffusion_tpu.data.gt import Sample, WriterRegistry
-from worddiffusion_tpu.data.tokenizer import Tokenizer
 from worddiffusion_tpu.diffusion import forward as jforward
 from worddiffusion_tpu.diffusion.sampler import ddim_sample as jax_ddim
 from worddiffusion_tpu.diffusion.schedule import NoiseSchedule
@@ -29,11 +26,16 @@ from worddiffusion_tpu.models.convert import export_reference_unet
 from worddiffusion_tpu.models.unet import UNet as JaxUNet
 from worddiffusion_tpu.train import state as jstate
 from worddiffusion_tpu.train import step as jstep
+from test_torch_copies import port_cfg
 from worddiffusion_tpu_torch.cli import regenerate as regen_cli
 from worddiffusion_tpu_torch.cli import train as train_cli
+from worddiffusion_tpu_torch.configs import presets
 from worddiffusion_tpu_torch.data.dataset import LatentLookup, WordImageDataset
+from worddiffusion_tpu_torch.data.gt import Sample, WriterRegistry
+from worddiffusion_tpu_torch.data.tokenizer import Tokenizer
 from worddiffusion_tpu_torch.diffusion.forward import q_sample, sample_timesteps
 from worddiffusion_tpu_torch.diffusion.sampler import ddim_sample
+from worddiffusion_tpu_torch.diffusion.schedule import NoiseSchedule as PortSchedule
 from worddiffusion_tpu_torch.models.convert import state_dict_to_torch
 from worddiffusion_tpu_torch.models.unet import UNet
 from worddiffusion_tpu_torch.train.checkpoint import CheckpointManager
@@ -51,6 +53,7 @@ T = 40
 
 
 def tiny_exp(save_path="", **train_kw):
+    """The JAX config; ``port_cfg`` hands its values to the port."""
     return Experiment(
         name="tiny", unet=CFG,
         vae=VAEConfig(base_channels=32, channel_mult=(1, 2, 4, 4), num_res_blocks=1,
@@ -82,7 +85,7 @@ def _jax_params(seed=3):
 
 
 def _port_model(params):
-    m = UNet(CFG)
+    m = UNet(port_cfg(CFG))
     m.load_state_dict(state_dict_to_torch(export_reference_unet(params, CFG)), strict=True)
     return m
 
@@ -94,17 +97,19 @@ def test_q_sample_matches_jax():
     noise = rng.standard_normal((3, 8, 32, 4)).astype(np.float32)
     t = np.array([1, 17, T - 1], np.int32)
     want = np.asarray(jforward.q_sample(sched, jnp.asarray(x0), jnp.asarray(t), jnp.asarray(noise)))
-    got = q_sample(sched, torch.from_numpy(x0), torch.from_numpy(t).long(), torch.from_numpy(noise))
+    got = q_sample(PortSchedule.linear(T), torch.from_numpy(x0), torch.from_numpy(t).long(),
+                   torch.from_numpy(noise))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
 
 
 def test_sample_timesteps_support_and_generator():
     """t ~ U{1..T-1} like JAX's (whose threefry bits differ): the same
     range, every value reached, reproducible from the generator."""
-    sched = NoiseSchedule.linear(T)
+    sched = PortSchedule.linear(T)
     t = sample_timesteps(sched, 4000, torch.Generator().manual_seed(0))
     t_again = sample_timesteps(sched, 4000, torch.Generator().manual_seed(0))
-    jt = np.asarray(jforward.sample_timesteps(sched, jax.random.PRNGKey(0), 4000))
+    jt = np.asarray(jforward.sample_timesteps(NoiseSchedule.linear(T), jax.random.PRNGKey(0),
+                                              4000))
     assert torch.equal(t, t_again)
     assert set(t.tolist()) == set(jt.tolist()) == set(range(1, T))
 
@@ -124,7 +129,7 @@ def test_ddim_matches_jax(steps):
 
     want = np.asarray(jax_ddim(sched, eps_j, jax.random.PRNGKey(0), jnp.asarray(x),
                                num_steps=steps, eta=0.0))
-    got = ddim_sample(sched, eps_t, torch.from_numpy(x), num_steps=steps)
+    got = ddim_sample(PortSchedule.linear(T), eps_t, torch.from_numpy(x), num_steps=steps)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
@@ -182,7 +187,7 @@ def test_train_step_matches_jax(drop_prob, warmup):
     tb = {"latent": torch.from_numpy(batch["latent"]),
           "context": torch.from_numpy(batch["context"]).long(),
           "writer": torch.from_numpy(batch["writer"]).long()}
-    metrics = make_train_step(sched, exp)(state, tb, draws)
+    metrics = make_train_step(PortSchedule.linear(T), port_cfg(exp))(state, tb, draws)
     assert state.step == 1
     np.testing.assert_allclose(metrics["loss"].item(), float(jloss), rtol=1e-5)
 
@@ -230,7 +235,7 @@ def _dataset(n=32, seed=0):
     cache = LatentLookup({s.image: rng.standard_normal((8, 32, 4)).astype(np.float32)
                           for s in samples})
     return WordImageDataset(samples, reg, Tokenizer.from_name("eng_main", 10),
-                            DataConfig(max_chars=10), latent_cache=cache)
+                            port_cfg(DataConfig(max_chars=10)), latent_cache=cache)
 
 
 def _state_equal(a: TrainState, b: TrainState) -> bool:
@@ -253,25 +258,24 @@ def test_trainer_resume_is_bit_deterministic(tmp_path):
     ds = _dataset()
     spe = len(ds) // 8
     assert spe >= 2  # the kill point lands mid-epoch
-    full = Trainer(tiny_exp(tmp_path / "a"), ds, device="cpu").run(epochs=2)
+    full = Trainer(port_cfg(tiny_exp(tmp_path / "a")), ds, device="cpu").run(epochs=2)
 
-    exp_b = tiny_exp(tmp_path / "b")
+    exp_b = port_cfg(tiny_exp(tmp_path / "b"))
     kill_at = spe + 1
     part = Trainer(exp_b, ds, device="cpu").run(epochs=2, max_steps=kill_at)
     assert part.step == kill_at
     resumed = Trainer(exp_b, ds, device="cpu").run(epochs=2, resume=True)
     assert resumed.step == full.step == 2 * spe
     assert _state_equal(resumed, full)
-    init = Trainer(tiny_exp(tmp_path / "c"), ds, device="cpu").init_state()
+    init = Trainer(port_cfg(tiny_exp(tmp_path / "c")), ds, device="cpu").init_state()
     assert not all(torch.equal(x, y) for x, y in
                    zip(full.model.parameters(), init.model.parameters()))
 
 
 def test_checkpoint_roundtrip_and_retention(tmp_path):
-    model = UNet(CFG)
+    model = UNet(port_cfg(CFG))
     state = TrainState.create(model, make_optimizer(model.parameters(), 1e-3))
-    sched = NoiseSchedule.linear(T)
-    step = make_train_step(sched, tiny_exp())
+    step = make_train_step(PortSchedule.linear(T), port_cfg(tiny_exp()))
     tb = {k: torch.from_numpy(v).long() if v.dtype == np.int32 else torch.from_numpy(v)
           for k, v in _batch().items()}
     mgr = CheckpointManager(str(tmp_path / "ckpt"), max_to_keep=3)
@@ -281,11 +285,11 @@ def test_checkpoint_roundtrip_and_retention(tmp_path):
     assert mgr.steps() == [3, 4, 5] and mgr.latest_step() == 5
     assert not [n for n in os.listdir(mgr.directory) if n.startswith(".tmp")]
 
-    fresh = UNet(CFG)
+    fresh = UNet(port_cfg(CFG))
     restored = mgr.restore(TrainState.create(fresh, make_optimizer(fresh.parameters(), 1e-3)))
     assert _state_equal(restored, state)
     # the EMA alone loads as the regeneration CLI's --torch_ckpt
-    regen_unet = UNet(CFG)
+    regen_unet = UNet(port_cfg(CFG))
     regen_unet.load_state_dict(torch.load(mgr.path(5, "ema_unet.pt"), weights_only=True),
                                strict=True)
     assert all(torch.equal(a, b) for a, b in zip(regen_unet.parameters(), state.ema.parameters()))
@@ -310,7 +314,7 @@ def test_train_cli_runs_from_latent_cache(tmp_path, monkeypatch):
     """The train CLI on --device cpu at a tiny preset: 2 epochs of 3
     steps, checkpoints and DDIM previews each epoch; the EMA checkpoint
     then loads as the regeneration CLI's --torch_ckpt."""
-    monkeypatch.setitem(presets.PRESETS, "tiny", lambda: tiny_exp())
+    monkeypatch.setitem(presets.PRESETS, "tiny", lambda: port_cfg(tiny_exp()))
     gt, cache = _cli_files(tmp_path)
     save = tmp_path / "run"
     state = train_cli.main([

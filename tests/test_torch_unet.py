@@ -15,6 +15,7 @@ import torch
 from worddiffusion_tpu.configs.config import UNetConfig
 from worddiffusion_tpu.models.convert import export_reference_unet
 from worddiffusion_tpu.models.unet import UNet as JaxUNet
+from test_torch_copies import port_cfg
 from worddiffusion_tpu_torch.models.convert import state_dict_to_torch
 from worddiffusion_tpu_torch.models.unet import UNet
 
@@ -45,7 +46,7 @@ def _params(cfg, seed=3):
 
 
 def _port(cfg, params):
-    m = UNet(cfg)
+    m = UNet(port_cfg(cfg))
     m.load_state_dict(state_dict_to_torch(export_reference_unet(params, cfg)), strict=True)
     return m.eval()
 
@@ -115,16 +116,15 @@ def test_writer_mask_matches_jax():
 @pytest.mark.parametrize("option", [
     dict(style_vec_dim=16), dict(use_char_images=True),
     dict(img_conditioned=True), dict(ocr_head=True), dict(use_scale_shift_norm=True),
-    dict(attn_fold_context=True), dict(split_skip_conv=True), dict(return_attn=True),
-    dict(fast_softmax=True),
+    dict(split_skip_conv=True), dict(return_attn=True), dict(fast_softmax=True),
 ])
 def test_unported_config_raises(option):
     with pytest.raises(NotImplementedError):
-        UNet(dataclasses.replace(CFG, **option))
+        UNet(port_cfg(dataclasses.replace(CFG, **option)))
 
 
 def test_unported_conditioning_raises():
-    m = UNet(CFG).eval()
+    m = UNet(port_cfg(CFG)).eval()
     x, t, ctx, wid = (torch.from_numpy(a) for a in _inputs())
     with pytest.raises(NotImplementedError, match="writer_id2"):
         m(x, t, ctx.long(), wid.long(), writer_id2=wid.long())

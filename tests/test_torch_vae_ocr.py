@@ -9,6 +9,7 @@ import torch
 from worddiffusion_tpu.configs.config import VAEConfig
 from worddiffusion_tpu.models import ocr as jocr
 from worddiffusion_tpu.models import vae as jvae
+from test_torch_copies import port_cfg
 from worddiffusion_tpu_torch.models.convert import (
     jax_ocr_to_torch, jax_vae_to_torch, state_dict_to_torch,
 )
@@ -20,6 +21,7 @@ torch.set_num_threads(1)
 # 4 levels of base 32: an 8x32 latent decodes to 64x256
 VAE_CFG = VAEConfig(base_channels=32, channel_mult=(1, 2, 4, 4), num_res_blocks=1,
                     dtype="float32")
+PORT_VAE_CFG = port_cfg(VAE_CFG)
 OCR_WIDTHS = (8, 16, 16, 16, 32)
 
 
@@ -41,7 +43,7 @@ def _vae_params(seed=0):
 
 def test_vae_state_dict_round_trips_through_diffusers_keys():
     p = _vae_params()
-    back = jvae.convert_diffusers_vae(jax_vae_to_torch(p, VAE_CFG), VAE_CFG)
+    back = jvae.convert_diffusers_vae(jax_vae_to_torch(p, PORT_VAE_CFG), VAE_CFG)
     flat_p = jax.tree_util.tree_flatten_with_path(p)[0]
     flat_b = jax.tree_util.tree_flatten_with_path(back)[0]
     assert [k for k, _ in flat_p] == [k for k, _ in flat_b]
@@ -55,9 +57,9 @@ def test_vae_decoder_matches_jax():
     want = np.asarray(jax.jit(
         lambda p, z: jvae.decode_from_latent(jvae.AutoencoderKL(VAE_CFG), p, z)
     )(p, z))
-    vae = AutoencoderKL(VAE_CFG)
+    vae = AutoencoderKL(PORT_VAE_CFG)
     vae.load_state_dict(
-        state_dict_to_torch(jax_vae_to_torch(p, VAE_CFG, decoder_only=True)), strict=True
+        state_dict_to_torch(jax_vae_to_torch(p, PORT_VAE_CFG, decoder_only=True)), strict=True
     )
     with torch.no_grad():
         got = decode_from_latent(vae.eval(), torch.from_numpy(z)).numpy()

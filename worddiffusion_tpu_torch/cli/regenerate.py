@@ -65,7 +65,7 @@ def _load_or_init(module, path: str, what: str, seed: int):
 
 
 def _writer_registry(writers_dict: str, samples, gt_registry):
-    from worddiffusion_tpu.data.gt import WriterRegistry
+    from ..data.gt import WriterRegistry
 
     if not writers_dict:
         logging.warning(
@@ -88,10 +88,9 @@ def build(args):
     """Everything but the run: -> (Regenerator, samples)."""
     import torch
 
-    from worddiffusion_tpu.configs import presets
-    from worddiffusion_tpu.data.alphabets import OCR_CVL, OCR_ENG, OCR_NOR
-    from worddiffusion_tpu.data.gt import parse_gt
-
+    from ..configs import presets
+    from ..data.alphabets import OCR_CVL, OCR_ENG, OCR_NOR
+    from ..data.gt import parse_gt
     from ..diffusion.sampler import regen_call_mask
     from ..generate.regenerate import Regenerator
     from ..generate.sample import WordSampler

@@ -24,7 +24,7 @@ import os
 
 
 def build_parser() -> argparse.ArgumentParser:
-    from worddiffusion_tpu.configs import presets
+    from ..configs import presets
 
     p = argparse.ArgumentParser(description="worddiffusion trainer (PyTorch/CUDA)")
     p.add_argument("--preset", default="iam", choices=sorted(presets.PRESETS))
@@ -106,7 +106,7 @@ def _refuse_unported(args) -> None:
 
 def experiment_from_args(args):
     """The JAX CLI's experiment for the ported flags."""
-    from worddiffusion_tpu.configs import presets
+    from ..configs import presets
 
     exp = presets.get(args.preset)
     if args.phosc or args.phos:
@@ -160,10 +160,9 @@ def build(args):
     """Everything but the run: -> Trainer."""
     import torch
 
-    from worddiffusion_tpu.data.gt import parse_gt
-    from worddiffusion_tpu.data.tokenizer import Tokenizer
-
     from ..data.dataset import LatentLookup, WordImageDataset
+    from ..data.gt import parse_gt
+    from ..data.tokenizer import Tokenizer
     from ..train.loop import Trainer
 
     _refuse_unported(args)

@@ -14,10 +14,10 @@ from typing import Sequence
 
 import numpy as np
 
-from worddiffusion_tpu.configs.config import DataConfig
-from worddiffusion_tpu.data.gt import Sample, WriterRegistry
-from worddiffusion_tpu.data.phosc import phosc_vector
-from worddiffusion_tpu.data.tokenizer import Tokenizer
+from ..configs.config import DataConfig
+from .gt import Sample, WriterRegistry
+from .phosc import phosc_vector
+from .tokenizer import Tokenizer
 
 
 class LatentLookup:

@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from worddiffusion_tpu.diffusion.schedule import NoiseSchedule
+from .schedule import NoiseSchedule
 
 
 def q_sample(schedule: NoiseSchedule, x0: torch.Tensor, t: torch.Tensor,

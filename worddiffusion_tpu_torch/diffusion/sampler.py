@@ -15,7 +15,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from worddiffusion_tpu.diffusion.schedule import NoiseSchedule
+from .schedule import NoiseSchedule
 
 EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 

@@ -29,12 +29,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from worddiffusion_tpu.data.alphabets import OCR_ENG
-from worddiffusion_tpu.data.gt import Sample
-from worddiffusion_tpu.utils.stop_flag import StopFlag
-
+from ..data.alphabets import OCR_ENG
+from ..data.gt import Sample
 from ..ops.ctc import collapse_and_decode
 from ..utils.images import regen_filename, save_single_images
+from ..utils.stop_flag import StopFlag
 from .sample import WordSampler, phosc_ids
 
 log = logging.getLogger("worddiffusion")

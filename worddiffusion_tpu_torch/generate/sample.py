@@ -20,12 +20,11 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from worddiffusion_tpu.configs.config import Experiment
-from worddiffusion_tpu.data.phosc import phosc_vector
-from worddiffusion_tpu.data.tokenizer import Tokenizer
-from worddiffusion_tpu.diffusion.schedule import NoiseSchedule
-
+from ..configs.config import Experiment
+from ..data.phosc import phosc_vector
+from ..data.tokenizer import Tokenizer
 from ..diffusion.sampler import ddim_sample, ddpm_sample, latent_to_image
+from ..diffusion.schedule import NoiseSchedule
 from ..models.unet import UNet
 from ..models.vae import AutoencoderKL, decode_from_latent
 from ..ops.ctc import greedy_frame_ids

@@ -23,7 +23,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from worddiffusion_tpu.configs.config import VAEConfig
+from ..configs.config import VAEConfig
 
 
 def _t(a) -> np.ndarray:

@@ -8,10 +8,11 @@ Ported: the character-conditioned, writer-conditioned UNet with the
 concat-form ResBlock (the ``iam`` preset and its relatives), the
 PHOSC-conditioned one (``use_phosc``: the ``iam_phosc`` and ``gw``
 presets, self-attention then cross-attention over the characters and
-the PHOSC tokens), and the training's classifier-free drop of the
-writer conditioning (``writer_mask``). The other conditioning variants
-(style vectors, glyph images, reference latents, the OCR head, FiLM
-ResBlocks) raise ``NotImplementedError``.
+the PHOSC tokens), the context-folded cross-attention
+(``attn_fold_context``: ``ops.fold_attention``), and the training's
+classifier-free drop of the writer conditioning (``writer_mask``). The
+other conditioning variants (style vectors, glyph images, reference
+latents, the OCR head, FiLM ResBlocks) raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -21,16 +22,15 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from worddiffusion_tpu.configs.config import UNetConfig
-
+from ..configs.config import UNetConfig
 from .attention import SpatialTransformer
 from .encoders import CharacterEncoder
 from .layers import Conv2D, Dense, Downsample, GroupNorm32, Upsample, timestep_embedding
 
 _UNPORTED_CONFIG = (
     "style_vec_dim", "use_char_images", "img_conditioned",
-    "ocr_head", "use_scale_shift_norm", "attn_fold_context",
-    "split_skip_conv", "return_attn", "fast_softmax",
+    "ocr_head", "use_scale_shift_norm", "split_skip_conv", "return_attn",
+    "fast_softmax",
 )
 
 
@@ -96,7 +96,7 @@ class UNet(nn.Module):
             return SpatialTransformer(
                 ch, cfg.num_heads, ch // cfg.num_heads, cfg.transformer_depth,
                 cfg.context_dim, cfg.dropout, cfg.attn1_cross, self.dtype,
-                cfg.use_pallas_ffn,
+                cfg.use_pallas_ffn, bool(cfg.attn_fold_context),
             )
 
         self.input_blocks = nn.ModuleList([TimestepBlock([Conv2D(cfg.in_channels, mc)])])

@@ -13,8 +13,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from worddiffusion_tpu.configs.config import VAEConfig
-
+from ..configs.config import VAEConfig
 from .layers import Conv2D, Dense, GroupNorm32, Upsample
 
 

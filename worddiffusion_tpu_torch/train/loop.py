@@ -14,14 +14,13 @@ from typing import Callable, Optional
 
 import torch
 
-from worddiffusion_tpu.configs.config import Experiment
-from worddiffusion_tpu.diffusion.schedule import NoiseSchedule
-from worddiffusion_tpu.utils.metrics import MetricsLogger, StepTimer
-from worddiffusion_tpu.utils.stop_flag import StopFlag
-
+from ..configs.config import Experiment
 from ..data.loader import epoch_batches
+from ..diffusion.schedule import NoiseSchedule
 from ..models.layers import init_weights_
 from ..models.unet import UNet
+from ..utils.metrics import MetricsLogger, StepTimer
+from ..utils.stop_flag import StopFlag
 from .checkpoint import CheckpointManager
 from .state import TrainState, make_optimizer
 from .step import make_train_step

@@ -21,10 +21,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from worddiffusion_tpu.configs.config import Experiment
-from worddiffusion_tpu.diffusion.schedule import NoiseSchedule
-
+from ..configs.config import Experiment
 from ..diffusion.forward import q_sample, sample_timesteps
+from ..diffusion.schedule import NoiseSchedule
 from .state import TrainState, ema_update
 
 
