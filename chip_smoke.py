@@ -12,14 +12,17 @@ Phases, each of which must pass (any failure exits non-zero):
    PyTorch version at the main path's shapes (d=320, inner=1280,
    M = 16*256, 16*64) and a ragged M, with errors and median times.
 4. whole UNet: one full-width ``iam`` UNet call with every kernel against
-   the all-plain UNet (``use_pallas_ffn=False`` and the plain attention
-   swapped in) on the same weights and inputs; call times with all
-   kernels, with the FF kernel and the plain attention, and all plain.
+   the all-plain UNet (``use_pallas_ffn=False``, the plain attention and
+   the plain GroupNorm / GN -> SiLU -> conv swapped in) on the same weights
+   and inputs; launches per call (4 FF, 8 attention, 9 B.5, 12 B.6); call
+   times and profiled device busy time with all kernels, with plain B.5
+   and B.6, and all plain.
 5. main path: the regeneration CLI's pipeline (Regenerator + WordSampler,
    ``iam`` UNet, default VAE and CTC recognizer, seeded random weights)
    over 40 words in batches of 16, with the 600-step skip-step schedule
    and the deterministic update; checks shapes, finiteness, the PNGs and
-   that every FF sub-layer and every attention went through its kernel;
+   that every FF sub-layer, attention and GroupNorm went through its kernel
+   (per batch also the VAE decode's 4 B.5 + 26 B.6 and the OCR's 10 B.5);
    then single batches with the attention kernel and with the plain
    attention in turns, for s/batch with and without it.
 6. FFN forward + backward, kernel against plain: the forward and the
@@ -71,6 +74,30 @@ Phases, each of which must pass (any failure exits non-zero):
    the phase-7 latent corpus, 2 epochs of 10 steps, twice: 8 fold
    launches, 8 fold backward calls and 4 FF backward launches per step,
    the two runs bitwise equal; s/step and peak memory.
+14. GroupNorm (+ SiLU) (B.5, ``ops.groupnorm``) and GN -> SiLU -> conv3x3
+   (B.6, ``ops.gn_conv``) against their plain versions at every site's
+   shape (UNet B=16 and 128, VAE decoder B=16 and encoder B=128, ragged
+   C=48 and 5x13), bitwise repeatability, kernel / plain / library (stock
+   ``F.group_norm`` [+ ``F.silu``]; ``F.group_norm`` -> ``F.silu`` ->
+   cuDNN ``F.conv2d``) / bound times, and both Functions' gradients
+   against plain autograd at [128, 8, 32, 320].
+15. the whole SD VAE at full width on seeded weights: encode (B=128) and
+   decode (B=16) all-kernel against all-plain, 18 B.6 + 4 B.5 launches per
+   encode and 26 + 4 per decode, times.
+16. the latent-cache CLI (``cli.build_latent_cache``) over
+   N_IMAGES seeded word PNGs (grey and RGB, 30-150 x 20-600, written by the
+   port's PNG writer, resized on the host) with ``--stable_dif_path`` (a
+   safetensors file of the seeded VAE), B=64, ``--deterministic 1``: the npz
+   against a direct posterior-mean encode, launches per batch, images/s.
+17. training from those images through the train CLI (no
+   ``--latent_cache``): B=128, 2 epochs of 3 steps, each step one encode
+   (4 B.5 + 18 B.6) and the UNet's forward and plain-recompute backwards;
+   launches, loss, update, EMA, a max_steps stop and a bitwise resume;
+   s/step against latent-cache training on phase 16's cache; peak memory.
+
+Every training phase counts 9 B.5 and 12 B.6 launches and Function
+backward calls per step, and 9 * 50 + 4 and 12 * 50 + 26 per DDIM-50
+preview.
 
 The second-to-last line is a JSON summary of the kernels (each with its
 bound: the larger of its bytes over the card's memory rate and its
@@ -92,6 +119,7 @@ import tempfile
 import time
 from unittest import mock
 
+T_START = time.perf_counter()
 D, INNER, B = 320, 1280, 16
 FFN_SHAPES = (B * 256, B * 64, 1000)   # M: full-res blocks, middle block, ragged
 TRAIN_B = 128
@@ -136,6 +164,42 @@ FOLD_REL_TOL = 1e-2
 # attention (JAX's test_folded_matches_reference_bf16 allows 4e-2 for one
 # attention); bound the eps difference at 4% of max |eps|.
 FOLD_VS_UNFOLDED_TOL = 4e-2
+# GroupNorm (+ SiLU), B.5, per call: 9 in a UNet call (the 4 output ResBlocks'
+# 640-channel in_layers and the out norm with SiLU, the 4 SpatialTransformer
+# norms), 4 in each VAE encoder or decoder call, 10 in an OCR call (2 per conv
+# block). GN -> SiLU -> conv3x3, B.6, per call: 12 in a UNet call, 18 in a VAE
+# encoder call, 26 in a decoder call. As (B.5, B.6):
+UNET_NORMS, ENCODER_NORMS, DECODER_NORMS, OCR_NORMS = (9, 12), (4, 18), (4, 26), (10, 0)
+# (B, H, W, C, groups, silu) of B.5's sites: UNet regeneration (B=16) and
+# training (B=128) at 8x32 and 4x16 (the 640-channel output ResBlocks with
+# SiLU, the 320-channel transformer norms and the out norm); the VAE decoder
+# (B=16) and encoder (B=128) sites (channel-changing norm1s with SiLU, the
+# mid attention's norm, conv_norm_out with SiLU); a ragged C=48 in 48 groups.
+GN_SHAPES = tuple(
+    (b, h, w, c, 32, silu) for b in (B, TRAIN_B)
+    for h, w, c, silu in ((8, 32, 640, True), (4, 16, 640, True), (8, 32, 320, False),
+                          (4, 16, 320, False), (8, 32, 320, True))
+) + ((B, 32, 128, 512, 32, True), (B, 64, 256, 256, 32, True), (B, 8, 32, 512, 32, False),
+     (B, 64, 256, 128, 32, True), (TRAIN_B, 32, 128, 128, 32, True),
+     (TRAIN_B, 16, 64, 256, 32, True), (TRAIN_B, 8, 32, 512, 32, False),
+     (TRAIN_B, 8, 32, 512, 32, True), (2, 5, 13, 48, 48, False))
+# (B, H, W, C, groups) of B.6's sites: the UNet's two resolutions at B=16 and
+# 128, the decoder's levels at B=16, the encoder's at B=128, a ragged image
+# (5 x 13) and a ragged width (C=48 in 48 groups).
+CONV_SHAPES = ((B, 8, 32, 320, 32), (B, 4, 16, 320, 32), (TRAIN_B, 8, 32, 320, 32),
+               (TRAIN_B, 4, 16, 320, 32), (B, 8, 32, 512, 32), (B, 16, 64, 512, 32),
+               (B, 32, 128, 256, 32), (B, 64, 256, 128, 32), (TRAIN_B, 64, 256, 128, 32),
+               (TRAIN_B, 32, 128, 256, 32), (TRAIN_B, 16, 64, 512, 32),
+               (TRAIN_B, 8, 32, 512, 32), (2, 5, 13, 64, 32), (2, 5, 13, 48, 48))
+# bf16 output after fp32 arithmetic in another order (and, for B.6, one bf16
+# rounding of the activation): 1% of max |plain|. Measured on an H100 at these
+# shapes: at most 0.33% (B.5) and 0.72% (B.6).
+NORM_REL_TOL = 1e-2
+# Whole VAE all-kernel vs all-plain (every B.5 and B.6 of 22 or 30 per call
+# rounds differently, carried through the bf16 layers after it): 3% of max
+# |plain|.
+VAE_REL_TOL = 3e-2
+N_IMAGES = 3 * TRAIN_B + 8  # word PNGs of phases 16-17: 3 training steps an epoch
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
@@ -184,6 +248,42 @@ def plain_attention():
             mock.patch.object(fold_attention, "fold_attention_heads",
                               fold_attention.fold_attention_reference):
         yield
+
+
+@contextlib.contextmanager
+def plain_norms():
+    """Every GroupNorm (+ SiLU) and GN -> SiLU -> conv3x3 through its plain
+    version: the references without B.5 and B.6."""
+    from worddiffusion_tpu_torch.ops import gn_conv, groupnorm
+
+    with mock.patch.object(groupnorm, "fused_groupnorm", groupnorm.groupnorm_reference), \
+            mock.patch.object(gn_conv, "fused_gn_silu_conv3x3", gn_conv.gn_silu_conv3x3_reference):
+        yield
+
+
+@contextlib.contextmanager
+def all_plain():
+    """Every kernel but the FF's (a config flag: ``use_pallas_ffn=False``)
+    through its plain version."""
+    with plain_attention(), plain_norms():
+        yield
+
+
+def norm_counts() -> tuple[int, int, int, int]:
+    """(B.5 launches, B.6 launches, B.5 Function backwards, B.6 Function
+    backwards) so far."""
+    from worddiffusion_tpu_torch.ops import gn_conv, groupnorm
+
+    return groupnorm.launches, gn_conv.launches, groupnorm.bwd_calls, gn_conv.bwd_calls
+
+
+def reset_counts() -> None:
+    """Every kernel's launch and backward count to 0."""
+    from worddiffusion_tpu_torch.ops import attention, ffn, fold_attention, gn_conv, groupnorm
+
+    ffn.launches = ffn.bwd_launches = attention.launches = attention.bwd_calls = 0
+    fold_attention.launches = fold_attention.bwd_calls = 0
+    groupnorm.launches = groupnorm.bwd_calls = gn_conv.launches = gn_conv.bwd_calls = 0
 
 
 def attn_inputs(b: int, nq: int, nk: int, seed: int):
@@ -441,16 +541,17 @@ def phase7_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     trainer = train_cli.build(cli_args("run"))
     assert trainer.exp.train.ema_warmup_steps > steps
     assert trainer.exp.unet.use_pallas_ffn is None  # the kernels' path
-    preview_launches, preview_attn, preview_fold = count_previews(trainer)
+    preview_launches, preview_attn, preview_fold, preview_norms = count_previews(trainer)
     initial = {k: v.clone() for k, v in trainer.init_state().model.state_dict().items()}
 
-    ffn.launches = ffn.bwd_launches = attention.launches = attention.bwd_calls = 0
+    reset_counts()
     t0 = time.perf_counter()
     state = trainer.run(epochs=epochs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd = ffn.launches, ffn.bwd_launches
     attn, attn_bwd = attention.launches, attention.bwd_calls
+    gn, conv, gn_bwd, conv_bwd = norm_counts()
 
     ck = CheckpointManager(trainer.ckpt.directory)
     saved = torch.load(ck.path(steps), map_location="cpu", weights_only=True)
@@ -466,7 +567,13 @@ def phase7_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
         f"{preview_launches} forward in previews; attention launches: "
         f"{attn - sum(preview_attn)} in steps, {preview_attn} in previews, {attn_bwd} Function "
         f"backward calls; max param change {max(changed.values()):.4g}; EMA == params: {ema_equal}")
+    log(f"train: groupnorm (B.5) / gn_silu_conv3x3 (B.6) launches {gn} / {conv} ({preview_norms} "
+        f"in previews), Function backward calls {gn_bwd} / {conv_bwd}")
     assert state.step == steps, state.step
+    assert preview_norms == [preview_norm_launches()] * 2, preview_norms
+    assert (gn, conv) == tuple(n * steps + 2 * p for n, p in
+                               zip(UNET_NORMS, preview_norm_launches())), (gn, conv)
+    assert (gn_bwd, conv_bwd) == tuple(n * steps for n in UNET_NORMS), (gn_bwd, conv_bwd)
     assert sorted(ck.steps()) == [TRAIN_STEPS_PER_EPOCH, steps], ck.steps()
     assert torch.isfinite(torch.tensor(loss)), loss
     assert all(torch.isfinite(p).all() for p in state.model.parameters())
@@ -526,30 +633,38 @@ def phase7_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     log(f"train resume: stopped at step {kill_at}, resumed to {resumed.step}; max param diff "
         f"vs the uninterrupted run {diff:.6g} (max |param| {scale:.4g}); must be bitwise 0")
     assert diff == 0, f"the resumed run is not bitwise the uninterrupted one: {diff}"
-    return dict(fwd=fwd, bwd=bwd, attn=attn, s_per_step=k_s / k_n,
+    return dict(fwd=fwd, bwd=bwd, attn=attn, gn=gn, conv=conv, s_per_step=k_s / k_n,
                 plain_s_per_step=p_s / p_n, resume_diff=diff)
 
 
-def count_previews(trainer) -> tuple[list, list, list]:
+def preview_norm_launches() -> tuple[int, int]:
+    """(B.5, B.6) launches of one DDIM-50 preview: 50 UNet calls and one
+    decode (no OCR)."""
+    return tuple(50 * u + d for u, d in zip(UNET_NORMS, DECODER_NORMS))
+
+
+def count_previews(trainer) -> tuple[list, list, list, list]:
     """Wrap the trainer's preview: per preview, the FF, attention and fold
-    attention kernel launches it made (kept apart from the steps' own), and
-    its images checked."""
+    attention kernel launches and the (B.5, B.6) launches it made (kept apart
+    from the steps' own), and its images checked."""
     from worddiffusion_tpu_torch.ops import attention, ffn, fold_attention
 
-    ffn_n, attn_n, fold_n = [], [], []
+    ffn_n, attn_n, fold_n, norm_n = [], [], [], []
     preview = trainer.preview_fn
 
     def counted_preview(state, epoch):
         f0, a0, d0 = ffn.launches, attention.launches, fold_attention.launches
+        n0 = norm_counts()
         imgs = preview(state, epoch)
         ffn_n.append(ffn.launches - f0)
         attn_n.append(attention.launches - a0)
         fold_n.append(fold_attention.launches - d0)
+        norm_n.append(tuple(b - a for a, b in zip(n0[:2], norm_counts()[:2])))
         assert imgs.shape == (3, 64, 256, 3) and bool((imgs >= 0).all() & (imgs <= 1).all())
         return imgs
 
     trainer.preview_fn = counted_preview
-    return ffn_n, attn_n, fold_n
+    return ffn_n, attn_n, fold_n, norm_n
 
 
 def phase10_phosc_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
@@ -571,16 +686,17 @@ def phase10_phosc_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     cfg = trainer.exp.unet
     assert trainer.exp.name == "iam_phosc" and cfg.use_phosc and not cfg.attn1_cross
     assert cfg.model_channels == 320 and trainer.dataset[0]["phosc"].shape == (769,)
-    preview_ffn, preview_attn, _ = count_previews(trainer)
+    preview_ffn, preview_attn, _, preview_norms = count_previews(trainer)
     initial = {k: v.clone() for k, v in trainer.init_state().model.state_dict().items()}
 
-    ffn.launches = ffn.bwd_launches = attention.launches = attention.bwd_calls = 0
+    reset_counts()
     t0 = time.perf_counter()
     state = trainer.run(epochs=epochs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd = ffn.launches, ffn.bwd_launches
     attn, attn_bwd = attention.launches, attention.bwd_calls
+    gn, conv, gn_bwd, conv_bwd = norm_counts()
 
     ck = CheckpointManager(trainer.ckpt.directory)
     loss = torch.load(ck.path(steps), map_location="cpu", weights_only=True)["metrics"]["loss"]
@@ -592,8 +708,14 @@ def phase10_phosc_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
         f"and 1 DDIM-50 preview; last-epoch loss {loss:.6g}; attention launches "
         f"{attn - sum(preview_attn)} in steps, {preview_attn} in the preview, {attn_bwd} Function "
         f"backward calls; ffn launches {fwd - sum(preview_ffn)} forward and {bwd} backward in "
-        f"steps; epoch 1 {s_ / n_:.4f} s/step {n_ / s_:.3f} steps/s [{smi}]")
+        f"steps; B.5 / B.6 launches {gn} / {conv} ({preview_norms} in the preview), Function "
+        f"backward calls {gn_bwd} / {conv_bwd}; epoch 1 {s_ / n_:.4f} s/step "
+        f"{n_ / s_:.3f} steps/s [{smi}]")
     assert state.step == steps and ck.steps() == [steps], (state.step, ck.steps())
+    assert preview_norms == [preview_norm_launches()], preview_norms
+    assert (gn, conv) == tuple(n * steps + p for n, p in
+                               zip(UNET_NORMS, preview_norm_launches())), (gn, conv)
+    assert (gn_bwd, conv_bwd) == tuple(n * steps for n in UNET_NORMS), (gn_bwd, conv_bwd)
     assert torch.isfinite(torch.tensor(loss)), loss
     assert all(torch.isfinite(p).all() for p in state.model.parameters())
     assert len(qkv) == 4 * 2 * 3 and all(changed[k] > 0 for k in qkv), qkv
@@ -601,7 +723,7 @@ def phase10_phosc_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     assert attn - sum(preview_attn) == 8 * steps and attn_bwd == 8 * steps, (attn, attn_bwd)
     assert preview_attn == [8 * 50] and preview_ffn == [4 * 50], (preview_attn, preview_ffn)
     assert fwd - sum(preview_ffn) == 4 * steps and bwd == 4 * steps, (fwd, bwd)
-    return dict(fwd=fwd, bwd=bwd, attn=attn, s_per_step=s_ / n_)
+    return dict(fwd=fwd, bwd=bwd, attn=attn, gn=gn, conv=conv, s_per_step=s_ / n_)
 
 
 def fold_inputs(b: int, n: int, l: int, seed: int) -> dict:
@@ -752,7 +874,7 @@ def phase12_fold_regen(smi: str, cli, gt: str, work: str, words) -> dict:
     assert cfg.num_heads * cfg.max_seq_len <= cfg.model_channels  # every attention folds
     init_weights_(sampler.model, seed=0, zero_init=False)
     inputs = unet_inputs(sampler, words, phosc=False)
-    unet = unet_check(smi, sampler.model, inputs, "iam_fold", launches=(4, 0, 8))
+    unet = unet_check(smi, sampler.model, inputs, "iam_fold", launches=(4, 0, 8, *UNET_NORMS))
 
     unfolded = UNet(dataclasses.replace(cfg, attn_fold_context=None)).cuda().eval()
     unfolded.load_state_dict(sampler.model.state_dict())
@@ -775,7 +897,8 @@ def phase12_fold_regen(smi: str, cli, gt: str, work: str, words) -> dict:
             f"unprofiled call; top kernels (ms/call) {d['top']} [{smi}]")
     del unfolded
 
-    out = drive_regen(smi, regen, samples, seed=0, label="iam_fold", per_call=(4, 0, 8))
+    out = drive_regen(smi, regen, samples, seed=0, label="iam_fold",
+                      per_call=(4, 0, 8, *UNET_NORMS))
     batch_seconds(smi, sampler, words[:B], "iam_fold")
     return dict(out, unet_ms=unet["ms"], unfolded_ms=unfolded_ms, vs_unfolded=rel)
 
@@ -803,31 +926,35 @@ def phase13_fold_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
         previews = count_previews(trainer)
         initial = {k: v.clone() for k, v in trainer.init_state().model.state_dict().items()}
         torch.cuda.reset_peak_memory_stats()
-        ffn.launches = ffn.bwd_launches = attention.launches = attention.bwd_calls = 0
-        fold_attention.launches = fold_attention.bwd_calls = 0
+        reset_counts()
         state = trainer.run(epochs=epochs)
         torch.cuda.synchronize()
         counts = dict(ffn=ffn.launches, ffn_bwd=ffn.bwd_launches, attn=attention.launches,
                       attn_bwd=attention.bwd_calls, fold=fold_attention.launches,
-                      fold_bwd=fold_attention.bwd_calls)
+                      fold_bwd=fold_attention.bwd_calls,
+                      **dict(zip(("gn", "conv", "gn_bwd", "conv_bwd"), norm_counts())))
         return trainer, state, initial, counts, previews, torch.cuda.max_memory_allocated()
 
-    trainer, state, initial, counts, (p_ffn, p_attn, p_fold), peak = run("run_fold")
+    trainer, state, initial, counts, (p_ffn, p_attn, p_fold, p_norms), peak = run("run_fold")
     changed = {k: (v - initial[k]).abs().max().item()
                for k, v in state.model.state_dict().items()}
     proj = [k for k in changed if any(f".attn{i}.to_{w}" in k for i in (1, 2)
                                       for w in ("q", "k", "v", "out"))]
     s_, n_ = trainer.epoch_seconds[1]
     log(f"train iam_fold: {state.step} steps of B={TRAIN_B} incl. 1 checkpoint and 1 DDIM-50 "
-        f"preview; launches {counts} (preview: FF {p_ffn}, attention {p_attn}, fold {p_fold}); "
+        f"preview; launches {counts} (preview: FF {p_ffn}, attention {p_attn}, fold {p_fold}, "
+        f"B.5 / B.6 {p_norms}); "
         f"epoch 1 {s_ / n_:.4f} s/step {n_ / s_:.3f} steps/s; peak memory "
         f"{peak / 2 ** 30:.3f} GiB [{smi}]")
     assert state.step == steps, state.step
     assert all(torch.isfinite(p).all() for p in state.model.parameters())
     assert len(proj) == 4 * 2 * 5 and all(changed[k] > 0 for k in proj), proj
     assert p_fold == [8 * 50] and p_attn == [0] and p_ffn == [4 * 50], (p_fold, p_attn, p_ffn)
+    (gn_p, conv_p), (gn_u, conv_u) = preview_norm_launches(), UNET_NORMS
     assert counts == dict(ffn=4 * steps + 4 * 50, ffn_bwd=4 * steps, attn=0, attn_bwd=0,
-                          fold=8 * steps + 8 * 50, fold_bwd=8 * steps), counts
+                          fold=8 * steps + 8 * 50, fold_bwd=8 * steps, gn=gn_u * steps + gn_p,
+                          conv=conv_u * steps + conv_p, gn_bwd=gn_u * steps,
+                          conv_bwd=conv_u * steps), counts
 
     # where the step's device time goes: the UNet's forward and backward at
     # B=128 (the step without its draws and AdamW), folded and unfolded on
@@ -861,6 +988,358 @@ def phase13_fold_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     return dict(counts, s_per_step=s_ / n_, peak_bytes=peak)
 
 
+def norm_inputs(shape, seed: int) -> dict:
+    """Seeded bf16 x (channels last) with an offset and a spread, as a
+    residual stream gives the norms; GroupNorm affine near identity."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    c = shape[-1]
+    t = dict(x=(2 * torch.randn(*shape, generator=g) + 0.5).bfloat16(),
+             scale=1 + 0.1 * torch.randn(c, generator=g), bias=0.1 * torch.randn(c, generator=g))
+    return {k: v.cuda() for k, v in t.items()}
+
+
+def phase14_norms(smi: str) -> dict:
+    """B.5 and B.6 against their plain versions at every site's shape:
+    errors, bitwise repeatability, kernel / plain / library / bound times;
+    then both Functions' gradients against plain autograd at the UNet's
+    training shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from worddiffusion_tpu_torch.ops import gn_conv, groupnorm
+
+    gn_rows, conv_rows = [], []
+    for i, (b, h, w, c, groups, silu) in enumerate(GN_SHAPES):
+        t = norm_inputs((b, h, w, c), seed=90 + i)
+        args = (t["x"], t["scale"], t["bias"], groups, 1e-6, silu)
+        got, again = groupnorm.fused_groupnorm(*args), groupnorm.fused_groupnorm(*args)
+        torch.cuda.synchronize()
+        want = groupnorm.groupnorm_reference(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        ms = cuda_ms(lambda: groupnorm.fused_groupnorm(*args))
+        plain_ms = cuda_ms(lambda: groupnorm.groupnorm_reference(*args))
+        # the yardstick (the port never calls it): F.group_norm on the NCHW
+        # (channels_last) view with bf16 affine, and F.silu after it with silu
+        nchw, ws, bs = t["x"].permute(0, 3, 1, 2), t["scale"].bfloat16(), t["bias"].bfloat16()
+        if silu:
+            library_ms = cuda_ms(lambda: F.silu(F.group_norm(nchw, groups, ws, bs, 1e-6)))
+        else:
+            library_ms = cuda_ms(lambda: F.group_norm(nchw, groups, ws, bs, 1e-6))
+        bound_ms, bound_by = bound(nbytes(*t.values(), got), 0)
+        log(f"groupnorm B={b} {h}x{w} C={c} G={groups} silu={silu}: max_abs_err {err:.6g} "
+            f"max_rel_err {rel:.6g} (tol {NORM_REL_TOL}); bitwise repeatable "
+            f"{torch.equal(got, again)}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"{'F.group_norm + F.silu' if silu else 'F.group_norm'} {library_ms:.4f} ms bound "
+            f"{bound_ms:.4f} ms ({bound_by}) [{smi}]")
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        assert bool(torch.isfinite(got.float()).all()), f"non-finite groupnorm at {b, h, w, c}"
+        assert torch.equal(got, again), f"groupnorm differs between two runs at {b, h, w, c}"
+        assert rel <= NORM_REL_TOL, f"groupnorm kernel disagrees at {b, h, w, c}: rel {rel}"
+        gn_rows.append(dict(shape=(b, h, w, c, groups, silu), err=err, rel=rel, ms=ms,
+                            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                            bound_by=bound_by))
+        del t, got, again, want
+
+    for i, (b, h, w, c, groups) in enumerate(CONV_SHAPES):
+        t = norm_inputs((b, h, w, c), seed=120 + i)
+        g = torch.Generator().manual_seed(150 + i)
+        wt = (torch.randn(c, c, 3, 3, generator=g) / (9 * c) ** 0.5).cuda()
+        cb = (0.1 * torch.randn(c, generator=g)).cuda()
+        args = (t["x"], t["scale"], t["bias"], wt, cb, groups, 1e-6)
+        got, again = gn_conv.fused_gn_silu_conv3x3(*args), gn_conv.fused_gn_silu_conv3x3(*args)
+        torch.cuda.synchronize()
+        want = gn_conv.gn_silu_conv3x3_reference(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        ms = cuda_ms(lambda: gn_conv.fused_gn_silu_conv3x3(*args))
+        plain_ms = cuda_ms(lambda: gn_conv.gn_silu_conv3x3_reference(*args))
+        # the TPU file's own yardstick (resblock_pallas.py:126): three stock
+        # calls, F.group_norm -> F.silu -> cuDNN F.conv2d, on bf16 operands
+        nchw, ws, bs = t["x"].permute(0, 3, 1, 2), t["scale"].bfloat16(), t["bias"].bfloat16()
+        wb, cbb = wt.bfloat16().contiguous(memory_format=torch.channels_last), cb.bfloat16()
+        library_ms = cuda_ms(lambda: F.conv2d(F.silu(F.group_norm(nchw, groups, ws, bs, 1e-6)),
+                                              wb, cbb, padding=1))
+        bound_ms, bound_by = bound(nbytes(*t.values(), got, cb) + wt.numel() * 2,
+                                   2 * 9 * c * c * b * h * w)
+        log(f"gn_silu_conv3x3 B={b} {h}x{w} C={c} G={groups}: max_abs_err {err:.6g} max_rel_err "
+            f"{rel:.6g} (tol {NORM_REL_TOL}); bitwise repeatable {torch.equal(got, again)}; "
+            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms F.group_norm + F.silu + F.conv2d (3 "
+            f"calls) {library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) [{smi}]")
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        assert bool(torch.isfinite(got.float()).all()), f"non-finite conv at {b, h, w, c}"
+        assert torch.equal(got, again), f"gn_silu_conv3x3 differs between two runs at {b, h, w, c}"
+        assert rel <= NORM_REL_TOL, f"gn_silu_conv3x3 kernel disagrees at {b, h, w, c}: rel {rel}"
+        conv_rows.append(dict(shape=(b, h, w, c, groups), err=err, rel=rel, ms=ms,
+                              plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                              bound_by=bound_by))
+        del t, got, again, want
+
+    # The Functions (kernel forward, plain-recompute backward) against plain
+    # autograd at the UNet's training shape: output and every gradient.
+    t = norm_inputs((TRAIN_B, 8, 32, D), seed=180)
+    g = torch.Generator().manual_seed(181)
+    t["w"] = (torch.randn(D, D, 3, 3, generator=g) / (9 * D) ** 0.5).cuda()
+    t["b"] = (0.1 * torch.randn(D, generator=g)).cuda()
+    dy = (0.1 * torch.randn(TRAIN_B, 8, 32, D, generator=g)).bfloat16().cuda()
+    pairs = {
+        "groupnorm": (lambda x, s, b_: groupnorm.fused_groupnorm(x, s, b_, 32, 1e-5, True),
+                      lambda x, s, b_: groupnorm.groupnorm_reference(x, s, b_, 32, 1e-5, True),
+                      ("x", "scale", "bias")),
+        "gn_silu_conv3x3": (lambda *a: gn_conv.fused_gn_silu_conv3x3(*a, 32, 1e-5),
+                            lambda *a: gn_conv.gn_silu_conv3x3_reference(*a, 32, 1e-5),
+                            ("x", "scale", "bias", "w", "b")),
+    }
+    pair_ms = {}
+    for name, (fused, plain, keys) in pairs.items():
+        def fwd_bwd(fn):
+            leaves = [t[k].clone().requires_grad_() for k in keys]
+            out = fn(*leaves)
+            out.backward(dy)
+            return [out.detach()] + [v.grad for v in leaves]
+
+        got, want = fwd_bwd(fused), fwd_bwd(plain)
+        torch.cuda.synchronize()
+        for gname, a, w_ in zip(("out",) + tuple("d" + k for k in keys), got, want):
+            err = (a.float() - w_.float()).abs().max().item()
+            share = err / w_.float().abs().max().item()
+            log(f"{name} Function vs plain autograd B={TRAIN_B} 8x32 C={D} {gname}: max_abs_err "
+                f"{err:.6g} share of max |plain| {share:.6g} (tol {NORM_REL_TOL}); bitwise "
+                f"{torch.equal(a, w_)}")
+            assert a.shape == w_.shape and a.dtype == w_.dtype and bool(torch.isfinite(a).all())
+            assert share <= NORM_REL_TOL, f"{name} Function disagrees: {gname} {share}"
+        pair_ms[name] = (cuda_ms(lambda: fwd_bwd(fused), reps=10),
+                         cuda_ms(lambda: fwd_bwd(plain), reps=10))
+        log(f"{name} fwd+bwd B={TRAIN_B} 8x32 C={D}: Function {pair_ms[name][0]:.4f} ms, plain "
+            f"autograd {pair_ms[name][1]:.4f} ms [{smi}]")
+    return dict(gn_rows=gn_rows, conv_rows=conv_rows, pair_ms=pair_ms)
+
+
+def seeded_vae():
+    """The full SD VAE (encoder and decoder, VAEConfig's widths) with seeded
+    random weights, on the card."""
+    from worddiffusion_tpu_torch.configs.config import VAEConfig
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.models.vae import AutoencoderKL
+
+    vae = AutoencoderKL(VAEConfig(), with_encoder=True)
+    return init_weights_(vae, seed=0).cuda().eval().requires_grad_(False)
+
+
+def word_images(n: int, seed: int):
+    """n word-like uint8 crops: white paper with a faint ramp, dark strokes
+    of random widths; heights 30-150 and widths 20-600; even ones grey
+    [H, W], odd ones RGB."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        h, w = int(rng.integers(30, 151)), int(rng.integers(20, 601))
+        img = np.tile(np.linspace(235, 255, w).astype(np.uint8)[None, :, None], (h, 1, 3))
+        for _ in range(max(2, w // 12)):
+            y, x = int(rng.integers(h // 5, 4 * h // 5)), int(rng.integers(0, w))
+            img[y:y + int(rng.integers(2, h // 4 + 3)), x:x + int(rng.integers(1, 6))] = \
+                rng.integers(0, 70, 3)
+        out.append(img[..., 0] if i % 2 == 0 else img)
+    return out
+
+
+def phase15_vae(smi: str) -> dict:
+    """The whole SD VAE at full width on seeded weights: encode and decode
+    all-kernel against all-plain, launches per call, and times (encode at
+    the training batch, decode at the regeneration batch)."""
+    import numpy as np
+    import torch
+
+    from worddiffusion_tpu_torch.models.vae import decode_from_latent, encode_to_latent
+    from worddiffusion_tpu_torch.utils.images import normalize_to_unit, resize_and_pad
+
+    vae = seeded_vae()
+    rgb = [np.dstack([im] * 3) if im.ndim == 2 else im for im in word_images(TRAIN_B, seed=7)]
+    imgs = np.stack([normalize_to_unit(resize_and_pad(im)) for im in rgb])
+    x = torch.from_numpy(imgs).cuda()
+    with torch.no_grad():
+        n0 = norm_counts()
+        lat = encode_to_latent(vae, x, sample=False)
+        n1 = norm_counts()
+        img = decode_from_latent(vae, lat[:B])
+        n2 = norm_counts()
+        with plain_norms():
+            lat_p = encode_to_latent(vae, x, sample=False)
+            img_p = decode_from_latent(vae, lat[:B])
+            enc_plain_ms = cuda_ms(lambda: encode_to_latent(vae, x, sample=False), reps=5,
+                                   warmup=1)
+            dec_plain_ms = cuda_ms(lambda: decode_from_latent(vae, lat[:B]), reps=5, warmup=1)
+        enc_ms = cuda_ms(lambda: encode_to_latent(vae, x, sample=False), reps=5, warmup=1)
+        dec_ms = cuda_ms(lambda: decode_from_latent(vae, lat[:B]), reps=5, warmup=1)
+        prof = device_profile(lambda: encode_to_latent(vae, x, sample=False), calls=2)
+    enc_launches = tuple(b - a for a, b in zip(n0[:2], n1[:2]))
+    dec_launches = tuple(b - a for a, b in zip(n1[:2], n2[:2]))
+    lat_rel = (lat - lat_p).abs().max().item() / lat_p.abs().max().item()
+    img_rel = (img - img_p).abs().max().item() / img_p.abs().max().item()
+    log(f"vae: encode B={TRAIN_B} 64x256 -> {tuple(lat.shape)}, (B.5, B.6) launches "
+        f"{enc_launches}; decode B={B} -> {tuple(img.shape)}, launches {dec_launches}; all-kernel "
+        f"vs all-plain: latents max_rel_err {lat_rel:.6g}, images max_rel_err {img_rel:.6g} (tol "
+        f"{VAE_REL_TOL}); encode {enc_ms:.3f} ms (plain B.5/B.6 {enc_plain_ms:.3f}), decode "
+        f"{dec_ms:.3f} ms (plain {dec_plain_ms:.3f}); encode profiled: device busy "
+        f"{prof['busy_ms']:.3f} ms, {prof['kernels']:.0f} kernels; top (ms) {prof['top']} [{smi}]")
+    assert enc_launches == ENCODER_NORMS and dec_launches == DECODER_NORMS
+    assert lat.shape == (TRAIN_B, 8, 32, 4) and img.shape == (B, 64, 256, 3)
+    assert bool(torch.isfinite(lat).all() & torch.isfinite(img).all())
+    assert lat_rel <= VAE_REL_TOL, f"encoder all-kernel vs all-plain: rel {lat_rel}"
+    assert img_rel <= VAE_REL_TOL, f"decoder all-kernel vs all-plain: rel {img_rel}"
+    return dict(enc_ms=enc_ms, enc_plain_ms=enc_plain_ms, dec_ms=dec_ms, dec_plain_ms=dec_plain_ms,
+                lat_rel=lat_rel, img_rel=img_rel, enc_busy_ms=prof["busy_ms"])
+
+
+def write_image_corpus(work: str) -> tuple[str, str, str]:
+    """N_IMAGES word PNGs (written by the port's PNG writer), a gt file naming
+    them, and a diffusers-keyed safetensors file of the seeded VAE."""
+    from worddiffusion_tpu_torch.utils.images import encode_png
+    from worddiffusion_tpu_torch.utils.safetensors import save_file
+
+    crops = os.path.join(work, "crops")
+    os.makedirs(crops)
+    words = ("the of and to in is was that for it with as his on be at by had are "
+             "but from not this have which one were all they she you her an there").split()
+    gt = os.path.join(work, "crops.filter27")
+    with open(gt, "w") as f:
+        for i, img in enumerate(word_images(N_IMAGES, seed=3)):
+            with open(os.path.join(crops, f"c01-{i:04d}u-00.png"), "wb") as png:
+                png.write(encode_png(img))
+            f.write(f"{i % 300:03d},c01-{i:04d}u-00 {words[i % len(words)]}\n")
+    vae_file = os.path.join(work, "vae.safetensors")
+    save_file(seeded_vae().state_dict(), vae_file)
+    return crops, gt, vae_file
+
+
+def phase16_cache(smi: str, work: str, corpus) -> dict:
+    """The latent-cache CLI over the word PNGs (resized on the
+    host), with --stable_dif_path, B=64, --deterministic 1: the npz against a
+    direct posterior-mean encode, launches per batch, images/s."""
+    import numpy as np
+    import torch
+
+    from worddiffusion_tpu_torch.cli import build_latent_cache as cache_cli
+    from worddiffusion_tpu_torch.data.dataset import LatentLookup
+    from worddiffusion_tpu_torch.data.loader import batches
+    from worddiffusion_tpu_torch.models.vae import encode_to_latent
+
+    crops, gt, vae_file = corpus
+    out = os.path.join(work, "built.npz")
+    argv = ["--preset", "iam", "--gt_train", gt, "--iam_path", crops, "--stable_dif_path",
+            vae_file, "--batch_size", "64", "--deterministic", "1", "--device", "cuda"]
+    reset_counts()
+    t0 = time.perf_counter()
+    cache_cli.main(argv + ["--out", out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gn, conv = norm_counts()[:2]
+    lookup = LatentLookup.load(out)
+    n_batches = -(-N_IMAGES // 64)
+
+    ds, vae = cache_cli.build(cache_cli.build_parser().parse_args(argv + ["--out", out]))
+    diff, scale = 0.0, 0.0
+    with torch.no_grad():
+        for batch in batches(ds, 64, shuffle=False, drop_remainder=False):
+            direct = encode_to_latent(vae, torch.from_numpy(batch["image"]).cuda(),
+                                      sample=False).cpu().numpy()
+            for name, lat in zip(batch["image_name"], direct):
+                diff = max(diff, float(np.abs(lookup[name] - lat).max()))
+                scale = max(scale, float(np.abs(lat).max()))
+    names = sorted(f"c01-{i:04d}u-00.png" for i in range(N_IMAGES))
+    log(f"build_latent_cache: {len(lookup)} latents from {N_IMAGES} PNGs (30-150 x 20-600, "
+        f"resized) in {n_batches} batches of 64 in {wall:.2f} s incl. VAE load, "
+        f"{N_IMAGES / wall:.2f} images/s; (B.5, B.6) launches {(gn, conv)}; max |cache - direct "
+        f"posterior-mean encode| {diff:.6g} (max |latent| {scale:.4g}) [{smi}]")
+    assert sorted(lookup._arrays) == names
+    assert all(lookup[n].shape == (8, 32, 4) and np.isfinite(lookup[n]).all() for n in names)
+    assert (gn, conv) == tuple(k * n_batches for k in ENCODER_NORMS), (gn, conv)
+    assert diff <= 1e-6 * scale, f"cache differs from the direct encode: {diff}"
+    return dict(gn=gn, conv=conv, imgs_per_s=N_IMAGES / wall, cache=out)
+
+
+def phase17_train_images(smi: str, work: str, corpus, cache: str) -> dict:
+    """The train CLI from the word PNGs (no --latent_cache): each step
+    encodes its batch on the card, B=128, 2 epochs of 3 steps and one
+    DDIM-50 preview; a max_steps stop and a resume bitwise the uninterrupted
+    run; s/step against latent-cache training on phase 16's cache."""
+    import torch
+
+    from worddiffusion_tpu_torch.cli import train as train_cli
+    from worddiffusion_tpu_torch.ops import attention, ffn
+
+    crops, gt, vae_file = corpus
+    epochs, spe = 2, N_IMAGES // TRAIN_B
+    steps = epochs * spe
+
+    def args(save: str, *extra: str):
+        return train_cli.build_parser().parse_args([
+            "--preset", "iam", "--gt_train", gt, "--batch_size", str(TRAIN_B), "--epochs",
+            str(epochs), "--ckpt_every_epochs", "2", "--save_path", os.path.join(work, save),
+            "--seed", "0", "--device", "cuda", *extra])
+
+    trainer = train_cli.build(args("run_img", "--iam_path", crops, "--stable_dif_path",
+                                   vae_file))
+    assert trainer.encode_fn is not None and trainer.dataset.latent_cache is None
+    p_ffn, p_attn, _, p_norms = count_previews(trainer)
+    initial = {k: v.clone() for k, v in trainer.init_state().model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = trainer.run(epochs=epochs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts = dict(ffn=ffn.launches, ffn_bwd=ffn.bwd_launches, attn=attention.launches,
+                  attn_bwd=attention.bwd_calls,
+                  **dict(zip(("gn", "conv", "gn_bwd", "conv_bwd"), norm_counts())))
+    changed = {k: (v - initial[k]).abs().max().item()
+               for k, v in state.model.state_dict().items()}
+    ema_equal = all(torch.equal(e, p) for e, p in
+                    zip(state.ema.parameters(), state.model.parameters()))
+    s_, n_ = trainer.epoch_seconds[1]
+    loss = torch.load(trainer.ckpt.path(steps), map_location="cpu",
+                      weights_only=True)["metrics"]["loss"]
+
+    cached = train_cli.build(args("run_cached", "--latent_cache", cache))
+    cached.preview_fn = None
+    cached.run(epochs=epochs)
+    torch.cuda.synchronize()
+    c_s, c_n = cached.epoch_seconds[1]
+    log(f"train from images: {state.step} steps of B={TRAIN_B} ({spe} an epoch) in {wall:.2f} s "
+        f"incl. 1 checkpoint and 1 DDIM-50 preview; last-epoch loss {loss:.6g}; launches "
+        f"{counts} (preview: FF {p_ffn}, attention {p_attn}, B.5 / B.6 {p_norms}); max param "
+        f"change {max(changed.values()):.4g}; EMA == params {ema_equal}; epoch 1 {s_ / n_:.4f} "
+        f"s/step from images vs {c_s / c_n:.4f} s/step from the cache of the same images; peak "
+        f"memory {peak / 2 ** 30:.3f} GiB [{smi}]")
+    (gn_p, conv_p), (gn_u, conv_u) = preview_norm_launches(), UNET_NORMS
+    assert state.step == steps and torch.isfinite(torch.tensor(loss)), (state.step, loss)
+    assert all(torch.isfinite(p).all() for p in state.model.parameters())
+    assert max(changed.values()) > 0 and ema_equal
+    assert p_norms == [(gn_p, conv_p)] and p_ffn == [4 * 50] and p_attn == [8 * 50]
+    assert counts == dict(
+        ffn=4 * steps + 4 * 50, ffn_bwd=4 * steps, attn=8 * steps + 8 * 50, attn_bwd=8 * steps,
+        gn=(gn_u + ENCODER_NORMS[0]) * steps + gn_p, conv=(conv_u + ENCODER_NORMS[1]) * steps
+        + conv_p, gn_bwd=gn_u * steps, conv_bwd=conv_u * steps), counts
+
+    kill_at = spe + 1
+    part = train_cli.build(args("resume_img", "--iam_path", crops, "--stable_dif_path",
+                                vae_file)).run(epochs=epochs, max_steps=kill_at)
+    assert part.step == kill_at, part.step
+    resumed = train_cli.build(args("resume_img", "--iam_path", crops, "--stable_dif_path",
+                                   vae_file, "--loadPrev", "1")).run(epochs=epochs, resume=True)
+    diff = max((a - b).abs().max().item() for a, b in
+               zip(resumed.model.parameters(), state.model.parameters()))
+    log(f"train from images resume: stopped at step {kill_at}, resumed to {resumed.step}; max "
+        f"param diff vs the uninterrupted run {diff:.6g}; must be bitwise 0")
+    assert resumed.step == steps and diff == 0, (resumed.step, diff)
+    return dict(counts, s_per_step=s_ / n_, cached_s_per_step=c_s / c_n, peak_bytes=peak)
+
+
 def png_size(path: str) -> tuple[int, int]:
     with open(path, "rb") as f:
         head = f.read(24)
@@ -884,11 +1363,13 @@ def unet_inputs(sampler, words, phosc: bool):
     return x, t, ctx, torch.arange(B).cuda(), ph
 
 
-def unet_check(smi: str, unet, inputs, label: str, launches=(4, 8, 0)) -> dict:
+def unet_check(smi: str, unet, inputs, label: str, launches=(4, 8, 0, *UNET_NORMS)) -> dict:
     """One UNet call with every kernel against the all-plain UNet (plain FF,
-    plain attention, plain fold) on the same weights; kernel launches per
-    call (FF, attention, fold attention: ``launches``); call times
-    all-kernel, FF kernel with the plain attentions, and all-plain."""
+    plain attention, plain fold, plain B.5 and B.6) on the same weights;
+    kernel launches per call (FF, attention, fold attention, B.5, B.6:
+    ``launches``); call times all-kernel, without B.5 and B.6 (their plain
+    versions, the other kernels on), and all-plain; device busy time and
+    kernels per call, with and without B.5 and B.6."""
     import torch
 
     from worddiffusion_tpu_torch.models.unet import UNet
@@ -898,33 +1379,45 @@ def unet_check(smi: str, unet, inputs, label: str, launches=(4, 8, 0)) -> dict:
     plain.load_state_dict(unet.state_dict())
     with torch.no_grad():
         f0, a0, d0 = ffn.launches, attention.launches, fold_attention.launches
+        n0 = norm_counts()
         eps_k = unet(*inputs)
         n_ff, n_attn = ffn.launches - f0, attention.launches - a0
         n_fold = fold_attention.launches - d0
-        with plain_attention():
-            eps_p = plain(*inputs)
+        n_gn, n_conv = (b - a for a, b in zip(n0[:2], norm_counts()[:2]))
+        with plain_norms():
             before_ms = cuda_ms(lambda: unet(*inputs), reps=10)
+            prof_before = device_profile(lambda: unet(*inputs))
+        with all_plain():
+            eps_p = plain(*inputs)
             plain_ms = cuda_ms(lambda: plain(*inputs), reps=10)
         err = (eps_k - eps_p).abs().max().item()
         rel = err / eps_p.abs().max().item()
         unet_ms = cuda_ms(lambda: unet(*inputs), reps=10)
+        prof = device_profile(lambda: unet(*inputs))
+    got = (n_ff, n_attn, n_fold, n_gn, n_conv)
     log(f"unet B={B} ({label}, {unet.cfg.model_channels} ch): eps max_abs_err {err:.6g} "
         f"max_rel_err {rel:.6g} (tol {UNET_REL_TOL}) against all-plain; launches per call: "
-        f"{n_ff} FF, {n_attn} attention, {n_fold} fold attention; call {unet_ms:.3f} ms all "
-        f"kernels, {before_ms:.3f} ms FF kernel + plain attention, {plain_ms:.3f} ms all plain "
+        f"{n_ff} FF, {n_attn} attention, {n_fold} fold attention, {n_gn} groupnorm, {n_conv} "
+        f"gn_silu_conv3x3; call {unet_ms:.3f} ms all kernels, {before_ms:.3f} ms with plain "
+        f"B.5/B.6, {plain_ms:.3f} ms all plain; profiled device busy {prof['busy_ms']:.4f} ms "
+        f"and {prof['kernels']:.0f} kernels per call ({prof_before['busy_ms']:.4f} ms and "
+        f"{prof_before['kernels']:.0f} with plain B.5/B.6); top kernels (ms/call) {prof['top']} "
         f"[{smi}]")
-    assert (n_ff, n_attn, n_fold) == launches, (n_ff, n_attn, n_fold)
+    assert got == tuple(launches), got
     assert bool(torch.isfinite(eps_k).all()), "non-finite eps"
     assert rel <= UNET_REL_TOL, f"UNet all-kernel vs all-plain: rel {rel}"
     return dict(ms=unet_ms, before_ms=before_ms, plain_ms=plain_ms, err=err, rel=rel,
-                eps=eps_k)
+                eps=eps_k, busy_ms=prof["busy_ms"], kernels=prof["kernels"],
+                busy_before_ms=prof_before["busy_ms"], kernels_before=prof_before["kernels"])
 
 
-def drive_regen(smi: str, regen, samples, seed: int, label: str, per_call=(4, 8, 0)) -> dict:
+def drive_regen(smi: str, regen, samples, seed: int, label: str,
+                per_call=(4, 8, 0, *UNET_NORMS)) -> dict:
     """The regeneration main path over ``samples``: counts set to 0 just
     before the run and read just after; checks shapes, finiteness, the
-    PNGs and the FF, attention and fold attention launches per denoiser
-    call (``per_call``)."""
+    PNGs and the FF, attention, fold attention, B.5 and B.6 launches per
+    denoiser call (``per_call``) plus, per batch, one VAE decode and one
+    OCR call's B.5 and B.6."""
     import torch
 
     from worddiffusion_tpu_torch.generate.sample import phosc_ids
@@ -948,23 +1441,25 @@ def drive_regen(smi: str, regen, samples, seed: int, label: str, per_call=(4, 8,
     sampler.sample_async(words, list(range(B)), warm, ph)[0].cpu()  # warm-up batch
     checks.clear()
 
-    ffn.launches = attention.launches = fold_attention.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     stats = regen.run(samples, batch_size=B, seed=seed)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    n_ff, n_attn, n_fold = ffn.launches, attention.launches, fold_attention.launches
+    got = (ffn.launches, attention.launches, fold_attention.launches, *norm_counts()[:2])
 
     dump = regen.out_dir
     n_batches = -(-len(samples) // B)
     log(f"regen {label}: {stats.generated} generated, {stats.accepted} accepted, {n_batches} "
         f"batches of {B}, {calls} denoiser calls each; {elapsed / n_batches:.3f} s/batch, "
         f"{stats.generated / elapsed:.2f} imgs/s (incl. PNG writes) [{smi}]")
-    want = tuple(k * calls * n_batches for k in per_call)
-    log(f"kernel launches in the {label} main path: {n_ff} FF, {n_attn} attention, {n_fold} fold "
-        f"attention (expect {per_call} x {calls} calls x {n_batches} batches = {want})")
+    per_batch = (0, 0, 0, DECODER_NORMS[0] + OCR_NORMS[0], DECODER_NORMS[1] + OCR_NORMS[1])
+    want = tuple((k * calls + p) * n_batches for k, p in zip(per_call, per_batch))
+    log(f"kernel launches in the {label} main path (FF, attention, fold attention, groupnorm, "
+        f"gn_silu_conv3x3): {got} (expect ({per_call} x {calls} calls + {per_batch}) x "
+        f"{n_batches} batches = {want})")
     assert calls == 120, calls
-    assert (n_ff, n_attn, n_fold) == want, (n_ff, n_attn, n_fold)
+    assert got == want, (got, want)
     assert stats.generated == len(samples) == 40, stats
     assert len(checks) == n_batches, len(checks)
     for finite, ishape, idt, fshape, fdt in checks:
@@ -978,8 +1473,8 @@ def drive_regen(smi: str, regen, samples, seed: int, label: str, per_call=(4, 8,
     first = os.path.join(dump, pngs[0]) if pngs else os.path.join(dump, "rejected", rejected[0])
     assert png_size(first) == (256, 64), png_size(first)
     sampler.decode = decode
-    return dict(ffn=n_ff, attn=n_attn, fold=n_fold, s_per_batch=elapsed / n_batches,
-                imgs_per_s=stats.generated / elapsed)
+    return dict(zip(("ffn", "attn", "fold", "gn", "conv"), got),
+                s_per_batch=elapsed / n_batches, imgs_per_s=stats.generated / elapsed)
 
 
 def batch_seconds(smi: str, sampler, words, label: str, phosc=None) -> dict:
@@ -1116,83 +1611,84 @@ def main() -> int:
     # -- 13. iam_fold training ----------------------------------------------------------
     train_f = phase13_fold_train(smi, work, corpus)
 
+    # -- 14. GroupNorm (B.5) and GN -> SiLU -> conv3x3 (B.6) kernels vs plain ---------------
+    norms = phase14_norms(smi)
+
+    # -- 15. the whole VAE, all kernels vs all plain -------------------------------------
+    vae = phase15_vae(smi)
+
+    # -- 16. building the latent cache through its CLI ---------------------------------
+    images = write_image_corpus(work)
+    built = phase16_cache(smi, work, images)
+
+    # -- 17. training from word images through the train CLI ------------------------------
+    train_i = phase17_train_images(smi, work, images, built["cache"])
+
     paths = ("regenerate", "regenerate_iam_phosc", "regenerate_iam_fold", "train",
-             "train_iam_phosc", "train_iam_fold")
+             "train_iam_phosc", "train_iam_fold", "build_latent_cache", "train_from_images")
 
     def by_path(*counts):
         return dict(zip(paths, counts))
 
     ffn_paths = by_path(regen_iam["ffn"], regen_phosc["ffn"], regen_fold["ffn"], train["fwd"],
-                        train_p["fwd"], train_f["ffn"])
-    bwd_paths = by_path(0, 0, 0, train["bwd"], train_p["bwd"], train_f["ffn_bwd"])
+                        train_p["fwd"], train_f["ffn"], 0, train_i["ffn"])
+    bwd_paths = by_path(0, 0, 0, train["bwd"], train_p["bwd"], train_f["ffn_bwd"], 0,
+                        train_i["ffn_bwd"])
     attn_paths = by_path(regen_iam["attn"], regen_phosc["attn"], regen_fold["attn"],
-                         train["attn"], train_p["attn"], train_f["attn"])
-    fold_paths = by_path(0, 0, regen_fold["fold"], 0, 0, train_f["fold"])
+                         train["attn"], train_p["attn"], train_f["attn"], 0, train_i["attn"])
+    fold_paths = by_path(0, 0, regen_fold["fold"], 0, 0, train_f["fold"], 0, 0)
+    gn_paths = by_path(regen_iam["gn"], regen_phosc["gn"], regen_fold["gn"], train["gn"],
+                       train_p["gn"], train_f["gn"], built["gn"], train_i["gn"])
+    conv_paths = by_path(regen_iam["conv"], regen_phosc["conv"], regen_fold["conv"],
+                         train["conv"], train_p["conv"], train_f["conv"], built["conv"],
+                         train_i["conv"])
     main_row, bwd_row, attn_row = ffn_rows[0], bwd["rows"][0], attn["rows"][0]
     fold_row = fold["rows"][0]
-    log(f"summary [{smi}]: iam UNet call {unet['ms']:.3f} ms (FF kernel + plain attention "
-        f"{unet['before_ms']:.3f}); iam_phosc UNet call {unet_p['ms']:.3f} ms (FF kernel + plain "
-        f"attention {unet_p['before_ms']:.3f}); iam_fold UNet call {regen_fold['unet_ms']:.3f} ms "
+    # B.5's and B.6's rows: the UNet regeneration call's first site (B=16, 8x32)
+    gn_row, conv_row = norms["gn_rows"][0], norms["conv_rows"][0]
+    log(f"summary [{smi}]: iam UNet call {unet['ms']:.3f} ms (plain B.5/B.6 "
+        f"{unet['before_ms']:.3f}), device busy {unet['busy_ms']:.4f} ms and "
+        f"{unet['kernels']:.0f} kernels per call (plain B.5/B.6 {unet['busy_before_ms']:.4f} ms, "
+        f"{unet['kernels_before']:.0f}); iam_phosc UNet call {unet_p['ms']:.3f} ms (plain B.5/B.6 "
+        f"{unet_p['before_ms']:.3f}); iam_fold UNet call {regen_fold['unet_ms']:.3f} ms "
         f"(unfolded {regen_fold['unfolded_ms']:.3f}); regen s/batch iam "
         f"{regen_iam['s_per_batch']:.4f}, iam_phosc {regen_phosc['s_per_batch']:.4f}, iam_fold "
         f"{regen_fold['s_per_batch']:.4f}; imgs/s iam {regen_iam['imgs_per_s']:.3f}, iam_phosc "
         f"{regen_phosc['imgs_per_s']:.3f}, iam_fold {regen_fold['imgs_per_s']:.3f}; train s/step "
         f"iam {train['s_per_step']:.4f}, iam_phosc {train_p['s_per_step']:.4f}, iam_fold "
-        f"{train_f['s_per_step']:.4f}")
-    log(json.dumps({"kernels": [{
-        "name": "ln_geglu_ffn",
-        "route": "cuda",
-        "source": "worddiffusion_tpu_torch/csrc/ln_geglu_ffn.cu",
-        "replaces": "worddiffusion_tpu/ops/ffn_pallas.py:48",
-        "launches": sum(ffn_paths.values()),
-        "launches_by_path": ffn_paths,
-        "max_abs_err": max(r["err"] for r in ffn_rows + bwd["fwd_rows"]),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": None,
-    }, {
-        "name": "ln_geglu_ffn_bwd",
-        "route": "cuda",
-        "source": "worddiffusion_tpu_torch/csrc/ln_geglu_ffn_bwd.cu",
-        "replaces": "worddiffusion_tpu/ops/ffn_pallas.py:397",
-        "launches": sum(bwd_paths.values()),
-        "launches_by_path": bwd_paths,
-        "max_abs_err": max(r["err"] for r in bwd["rows"]),
-        "ms": bwd_row["ms"],
-        "plain_ms": bwd_row["plain_ms"],
-        "bound_ms": bwd_row["bound_ms"],
-        "bound_by": bwd_row["bound_by"],
-        "library_ms": None,
-    }, {
-        "name": "attention",
-        "route": "cuda",
-        "source": "worddiffusion_tpu_torch/csrc/attention.cu",
-        "replaces": "bench_kernels/attention_pallas.py:25",
-        "launches": sum(attn_paths.values()),
-        "launches_by_path": attn_paths,
-        "max_abs_err": max(r["err"] for r in attn["rows"]),
-        "ms": attn_row["ms"],
-        "plain_ms": attn_row["plain_ms"],
-        "bound_ms": attn_row["bound_ms"],
-        "bound_by": attn_row["bound_by"],
-        "library_ms": attn_row["library_ms"],
-    }, {
-        "name": "fold_attention",
-        "route": "cuda",
-        "source": "worddiffusion_tpu_torch/csrc/fold_attention.cu",
-        "replaces": "bench_kernels/attn_fold_pallas.py:36; "
-                    "bench_kernels/attn_fold_sublayer_pallas.py:100",
-        "launches": sum(fold_paths.values()),
-        "launches_by_path": fold_paths,
-        "max_abs_err": max(r["err"] for r in fold["rows"]),
-        "ms": fold_row["ms"],
-        "plain_ms": fold_row["plain_ms"],
-        "bound_ms": fold_row["bound_ms"],
-        "bound_by": fold_row["bound_by"],
-        "library_ms": None,
-    }]}))
+        f"{train_f['s_per_step']:.4f}, from images {train_i['s_per_step']:.4f} (from their cache "
+        f"{train_i['cached_s_per_step']:.4f}, peak {train_i['peak_bytes'] / 2 ** 30:.3f} GiB); "
+        f"VAE encode B={TRAIN_B} {vae['enc_ms']:.3f} ms (plain B.5/B.6 {vae['enc_plain_ms']:.3f}), "
+        f"decode B={B} {vae['dec_ms']:.3f} ms (plain {vae['dec_plain_ms']:.3f}); cache build "
+        f"{built['imgs_per_s']:.2f} images/s; whole run {time.perf_counter() - T_START:.1f} s")
+
+    def entry(name, source, replaces, paths_, rows, row, library_ms):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(paths_.values()), "launches_by_path": paths_,
+                "max_abs_err": max(r["err"] for r in rows), "ms": row["ms"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                "bound_by": row["bound_by"], "library_ms": library_ms}
+
+    log(json.dumps({"kernels": [
+        entry("ln_geglu_ffn", "worddiffusion_tpu_torch/csrc/ln_geglu_ffn.cu",
+              "worddiffusion_tpu/ops/ffn_pallas.py:48", ffn_paths, ffn_rows + bwd["fwd_rows"],
+              main_row, None),
+        entry("ln_geglu_ffn_bwd", "worddiffusion_tpu_torch/csrc/ln_geglu_ffn_bwd.cu",
+              "worddiffusion_tpu/ops/ffn_pallas.py:397", bwd_paths, bwd["rows"], bwd_row, None),
+        entry("attention", "worddiffusion_tpu_torch/csrc/attention.cu",
+              "bench_kernels/attention_pallas.py:25", attn_paths, attn["rows"], attn_row,
+              attn_row["library_ms"]),
+        entry("fold_attention", "worddiffusion_tpu_torch/csrc/fold_attention.cu",
+              "bench_kernels/attn_fold_pallas.py:36; "
+              "bench_kernels/attn_fold_sublayer_pallas.py:100", fold_paths, fold["rows"],
+              fold_row, None),
+        entry("groupnorm", "worddiffusion_tpu_torch/csrc/groupnorm.cu",
+              "bench_kernels/groupnorm_pallas.py:26", gn_paths, norms["gn_rows"], gn_row,
+              gn_row["library_ms"]),
+        entry("gn_silu_conv3x3", "worddiffusion_tpu_torch/csrc/gn_silu_conv3x3.cu",
+              "bench_kernels/resblock_pallas.py:39", conv_paths, norms["conv_rows"], conv_row,
+              conv_row["library_ms"]),
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))

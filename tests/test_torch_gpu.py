@@ -357,3 +357,156 @@ def test_block_backward_reaches_projections_through_the_fold_kernel(cuda):
             assert kern[k].abs().max() > 0, k
         err = (kern[k].float() - w.float()).abs().max().item()
         assert err <= 3e-2 * w.float().abs().max().item() + 1e-6, (k, err)
+
+
+# GroupNorm (+ SiLU), B.5: (B, H, W, C, groups, silu) of the paths' sites: the
+# UNet's 640-channel output ResBlocks and its 320-channel norms at B=16 and
+# 128, the VAE's four levels (one GN per channel group of 4, 8, 16 channels),
+# a ragged C=48 with one group per channel, and tokens [B, S, C].
+GN_SHAPES = [(16, 8, 32, 640, 32, True), (128, 4, 16, 640, 32, True), (16, 8, 32, 320, 32, False),
+             (16, 64, 256, 128, 32, True), (16, 32, 128, 256, 32, True),
+             (16, 8, 32, 512, 32, False), (2, 5, 13, 48, 48, False), (2, 40, None, 96, 32, True)]
+
+
+def _gn_inputs(shape, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    c = shape[-1]
+    x = (2 * torch.randn(*shape, generator=g) + 0.5).bfloat16()
+    return (x.to(device), (1 + 0.1 * torch.randn(c, generator=g)).to(device),
+            (0.1 * torch.randn(c, generator=g)).to(device))
+
+
+@pytest.mark.parametrize("b,h,w,c,groups,silu", GN_SHAPES)
+def test_groupnorm_kernel_matches_plain(cuda, b, h, w, c, groups, silu):
+    """bf16 out after fp32 arithmetic in other orders: within 1% of max
+    |out|; bitwise repeatable (no atomics)."""
+    from worddiffusion_tpu_torch.ops import groupnorm
+
+    shape = (b, h, c) if w is None else (b, h, w, c)
+    x, scale, bias = _gn_inputs(shape, cuda)
+    before = groupnorm.launches
+    got = groupnorm.fused_groupnorm(x, scale, bias, groups, 1e-6, silu)
+    again = groupnorm.fused_groupnorm(x, scale, bias, groups, 1e-6, silu)
+    torch.cuda.synchronize()
+    assert groupnorm.launches == before + 2
+    want = groupnorm.groupnorm_reference(x, scale, bias, groups, 1e-6, silu)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape and torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item(), err
+
+
+# GN -> SiLU -> conv3x3, B.6: the UNet's two resolutions at B=16 and 128, the
+# VAE's four levels, a ragged image (5 x 13) and a ragged width (C=48).
+CONV_SHAPES = [(16, 8, 32, 320, 32), (128, 8, 32, 320, 32), (128, 4, 16, 320, 32),
+               (4, 64, 256, 128, 32), (4, 32, 128, 256, 32), (4, 16, 64, 512, 32),
+               (16, 8, 32, 512, 32), (2, 5, 13, 64, 32), (2, 5, 13, 48, 48)]
+
+
+def _conv_inputs(b, h, w, c, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    t = dict(x=torch.randn(b, h, w, c, generator=g).bfloat16(),
+             gn_scale=1 + 0.1 * torch.randn(c, generator=g), gn_bias=0.1 * torch.randn(c, generator=g),
+             w=torch.randn(c, c, 3, 3, generator=g) / (9 * c) ** 0.5,
+             b=0.1 * torch.randn(c, generator=g))
+    return {k: v.to(device) for k, v in t.items()}
+
+
+@pytest.mark.parametrize("b,h,w,c,groups", CONV_SHAPES)
+def test_gn_conv_kernel_matches_plain(cuda, b, h, w, c, groups):
+    """bf16 out: one bf16 rounding of the activation and of the output, fp32
+    sums in other orders -> within 1% of max |out|; bitwise repeatable."""
+    from worddiffusion_tpu_torch.ops import gn_conv
+
+    torch.backends.cudnn.allow_tf32 = False
+    t = _conv_inputs(b, h, w, c, cuda)
+    before = gn_conv.launches
+    got = gn_conv.fused_gn_silu_conv3x3(**t, groups=groups)
+    again = gn_conv.fused_gn_silu_conv3x3(**t, groups=groups)
+    torch.cuda.synchronize()
+    assert gn_conv.launches == before + 2
+    want = gn_conv.gn_silu_conv3x3_reference(**t, groups=groups)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape and torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("bad", ["fp32_x", "nchw_x", "c_not_8", "fp16_scale", "width_change"])
+def test_norm_kernels_refuse_what_they_do_not_take(cuda, bad):
+    from worddiffusion_tpu_torch.ops import gn_conv, groupnorm
+
+    t = _conv_inputs(2, 8, 8, 64, cuda)
+    if bad == "fp32_x":
+        t["x"] = t["x"].float()
+    elif bad == "nchw_x":
+        t["x"] = t["x"].permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+    elif bad == "c_not_8":
+        t = _conv_inputs(2, 8, 8, 20, cuda)
+    elif bad == "fp16_scale":
+        t["gn_scale"] = t["gn_scale"].half()
+    else:
+        t["w"] = t["w"][:32].contiguous()
+    groups = 4
+    n0, c0 = groupnorm.launches, gn_conv.launches
+    with pytest.raises(ValueError):
+        gn_conv.fused_gn_silu_conv3x3(**t, groups=groups)
+    if bad != "width_change":
+        with pytest.raises(ValueError):
+            groupnorm.fused_groupnorm(t["x"], t["gn_scale"], t["gn_bias"], groups)
+    assert (groupnorm.launches, gn_conv.launches) == (n0, c0)
+
+
+def test_norm_functions_grads_match_plain_autograd(cuda):
+    """Both Functions (kernel forward, plain-recompute backward) at the
+    UNet's training shape: the output within 1%, the gradients bitwise
+    plain autograd's (the same plain computation)."""
+    from worddiffusion_tpu_torch.ops import gn_conv, groupnorm
+
+    t = _conv_inputs(128, 8, 32, 320, cuda, seed=1)
+    dy = (0.1 * torch.randn(128, 8, 32, 320, generator=torch.Generator().manual_seed(2)))
+    dy = dy.bfloat16().to(cuda)
+    for fused, plain, names in (
+            (gn_conv.fused_gn_silu_conv3x3, gn_conv.gn_silu_conv3x3_reference,
+             ("x", "gn_scale", "gn_bias", "w", "b")),
+            (lambda x, s, b, groups: groupnorm.fused_groupnorm(x, s, b, groups, 1e-5, True),
+             lambda x, s, b, groups: groupnorm.groupnorm_reference(x, s, b, groups, 1e-5, True),
+             ("x", "gn_scale", "gn_bias"))):
+        outs = []
+        for fn in (fused, plain):
+            leaves = [t[k].clone().requires_grad_() for k in names]
+            out = fn(*leaves, groups=32)
+            out.backward(dy)
+            outs.append([out.detach()] + [v.grad for v in leaves])
+        torch.cuda.synchronize()
+        (out_k, *gk), (out_p, *gp) = outs
+        err = (out_k.float() - out_p.float()).abs().max().item()
+        assert err <= 1e-2 * out_p.float().abs().max().item(), err
+        for name, a, b in zip(names, gk, gp):
+            assert torch.equal(a, b), name
+
+
+def test_vae_encoder_runs_the_kernels(cuda):
+    """The full-width SD encoder (seeded random weights) at B=2: 18 B.6 and 4
+    B.5 launches per call, latents [2, 8, 32, 4] within 3% of the all-plain
+    encoder's."""
+    from unittest import mock
+
+    from worddiffusion_tpu_torch.configs.config import VAEConfig
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.models.vae import AutoencoderKL, encode_to_latent
+    from worddiffusion_tpu_torch.ops import gn_conv, groupnorm
+
+    torch.backends.cudnn.allow_tf32 = False
+    vae = init_weights_(AutoencoderKL(VAEConfig(), with_encoder=True), seed=0).to(cuda).eval()
+    x = torch.rand(2, 64, 256, 3, generator=torch.Generator().manual_seed(0)).to(cuda) * 2 - 1
+    with torch.no_grad():
+        n0, c0 = groupnorm.launches, gn_conv.launches
+        got = encode_to_latent(vae, x, sample=False)
+        torch.cuda.synchronize()
+        assert (groupnorm.launches - n0, gn_conv.launches - c0) == (4, 18)
+        with mock.patch.object(groupnorm, "fused_groupnorm", groupnorm.groupnorm_reference), \
+                mock.patch.object(gn_conv, "fused_gn_silu_conv3x3",
+                                  gn_conv.gn_silu_conv3x3_reference):
+            want = encode_to_latent(vae, x, sample=False)
+    assert got.shape == (2, 8, 32, 4) and bool(torch.isfinite(got).all())
+    err = (got - want).abs().max().item()
+    assert err <= 3e-2 * want.abs().max().item(), err

@@ -1,9 +1,10 @@
 """The port imports no JAX and nothing of the JAX package: every module of
 worddiffusion_tpu_torch is imported, and the regeneration CLI (the iam,
-the context-folded iam and the PHOSC layout) and the train CLI run a tiny
-slice on the CPU, in a fresh interpreter, with tiny presets registered in
-the port's own ``presets.PRESETS``; then jax, flax, optax, PIL and every
-``worddiffusion_tpu`` module must be absent. A static scan of the port's
+the context-folded iam and the PHOSC layout), the train CLI (from a latent
+cache and from PNGs) and the latent-cache CLI run a tiny slice
+on the CPU, in a fresh interpreter, with tiny presets registered in the
+port's own ``presets.PRESETS``; then jax, flax, optax, PIL, safetensors
+and every ``worddiffusion_tpu`` module must be absent. A static scan of the port's
 sources and ``chip_smoke.py`` finds no import of ``worddiffusion_tpu``."""
 
 import ast
@@ -76,7 +77,8 @@ presets.PRESETS["tiny_phosc"] = lambda: Experiment(
 stats = cli.main(["--preset", "tiny_phosc", "--gt_file", gt, "--dump_path", dump + "_phosc",
                   "--batch_size", "2", "--no_ocr_filter", "1", "--device", "cpu"])
 assert stats.generated == stats.accepted == 3, stats
-print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "PIL")
+print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "PIL",
+                                                      "safetensors")
                      or m.split(".")[0] == "worddiffusion_tpu"))
 """
 
@@ -87,7 +89,9 @@ import numpy as np
 import torch
 torch.set_num_threads(1)
 for name in ("train.state", "train.step", "train.checkpoint", "train.loop", "data.dataset",
-             "data.loader", "diffusion.forward", "cli.train", "ops.attention"):
+             "data.loader", "data.png", "data.latent_cache", "diffusion.forward", "cli.train",
+             "cli.build_latent_cache", "ops.attention", "ops.groupnorm", "ops.gn_conv",
+             "utils.safetensors"):
     importlib.import_module("worddiffusion_tpu_torch." + name)
 
 from worddiffusion_tpu_torch.configs import presets
@@ -119,7 +123,26 @@ state = cli.main(["--preset", "tiny", "--gt_train", gt, "--latent_cache",
                   "--device", "cpu"])
 assert state.step == 2, state.step
 assert os.listdir(os.path.join(out, "run", "ckpt")) == ["2"]
-print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "PIL")
+
+# building a latent cache and training from images, on PNGs the port writes
+from worddiffusion_tpu_torch.cli import build_latent_cache as cache_cli
+from worddiffusion_tpu_torch.utils.images import encode_png
+crops = os.path.join(out, "crops")
+os.makedirs(crops)
+for i in range(4):
+    img = np.full((40 + 10 * i, 90 + 40 * i), 250, np.uint8)
+    img[10:20, 5:60] = 20
+    with open(os.path.join(crops, f"a01-000u-{i:02d}.png"), "wb") as f:
+        f.write(encode_png(img))
+cache = cache_cli.main(["--preset", "tiny", "--gt_train", gt, "--iam_path", crops, "--out",
+                        os.path.join(out, "built.npz"), "--batch_size", "3", "--device", "cpu"])
+assert len(cache) == 4 and cache["a01-000u-03.png"].shape == (8, 32, 4)
+state = cli.main(["--preset", "tiny", "--gt_train", gt, "--iam_path", crops, "--batch_size", "2",
+                  "--epochs", "1", "--preview_ddim", "2", "--save_path",
+                  os.path.join(out, "run_img"), "--device", "cpu"])
+assert state.step == 2, state.step
+print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "PIL",
+                                                      "safetensors")
                      or m.split(".")[0] == "worddiffusion_tpu"))
 """
 
@@ -137,8 +160,9 @@ def test_port_runs_without_jax():
 
 
 def test_train_cli_runs_without_jax():
-    """The training slice (train/, data/, cli/train, diffusion/forward)
-    imports and runs with no jax, flax, optax, PIL or JAX-package module."""
+    """The training slice (train/, data/, cli/train, diffusion/forward), the
+    latent-cache CLI and training from PNGs import and run with no
+    jax, flax, optax, PIL, safetensors or JAX-package module."""
     _run_jax_free(TRAIN_SCRIPT)
 
 

@@ -340,7 +340,7 @@ def test_train_cli_runs_from_latent_cache(tmp_path, monkeypatch):
 @pytest.mark.parametrize("flags", [
     ["--synthetic", "1"], ["--ocrTraining", "1"], ["--wrdChrWrStyl", "1"],
     ["--charImages", "1"], ["--imgConditioned", "1"], ["--hiGanArch", "1"], ["--augMaps", "1"],
-    ["--mesh_data", "2"], ["--latent", "0"], ["--latent_cache", ""],
+    ["--mesh_data", "2"], ["--latent", "0"], ["--vae_ckpt", "vae_dir"],
 ])
 def test_train_cli_refuses_unported(tmp_path, flags):
     gt, cache = _cli_files(tmp_path, n=2)

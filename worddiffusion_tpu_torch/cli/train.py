@@ -1,16 +1,21 @@
 """Training CLI (port of ``worddiffusion_tpu/cli/train.py``): the same
-flags and defaults, on one GPU, from a latent cache.
+flags and defaults, on one GPU, from a latent cache or from word images.
 
     python -m worddiffusion_tpu_torch.cli.train --preset iam \\
         --gt_train ./gt/gan.iam.tr_va.gt.filter27 --latent_cache latents.npz \\
         --epochs 1000 --batch_size 128 --save_path ./runs/iam
 
 The latent cache is an npz of ``image name -> [8, 32, 4]`` VAE latents
-(``worddiffusion_tpu.data.latent_cache.build_latent_cache`` writes one).
-Checkpoints land in ``<save_path>/ckpt/<step>/``; ``ema_unet.pt`` there
-is the regeneration CLI's ``--torch_ckpt``. Epoch previews are written
-to ``<save_path>/images/``, decoded by ``--vae_pt`` (port keys) or a
-seeded random VAE decoder.
+(``cli.build_latent_cache`` writes one). Without ``--latent_cache`` the
+word crops are read from ``--iam_path`` and each batch is encoded by the
+frozen VAE encoder inside the step: the VAE comes from a diffusers
+``--stable_dif_path`` file or a full ``--vae_pt`` state dict, or is
+seeded random with a warning. Checkpoints land in
+``<save_path>/ckpt/<step>/``; ``ema_unet.pt`` there is the regeneration
+CLI's ``--torch_ckpt``. Epoch previews are written to
+``<save_path>/images/``, decoded by that VAE (with a cache: ``--vae_pt``,
+a full or decoder-only state dict in the port's keys, or
+``--stable_dif_path``, or a seeded random decoder).
 
 Every flag whose path is not ported raises ``NotImplementedError``.
 """
@@ -51,9 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="DDIM steps for epoch previews; 0 = full DDPM "
                         "(the reference preview path)")
     p.add_argument("--vae_ckpt", default="", help="orbax VAE dir (not readable here)")
-    p.add_argument("--stable_dif_path", default="", help="diffusers VAE (not ported)")
+    p.add_argument("--stable_dif_path", default="", help="diffusers VAE (safetensors)")
     p.add_argument("--vae_pt", default="",
-                   help="VAE decoder state dict in the port's keys, for the previews")
+                   help="VAE state dict in the port's keys: full (encoder too), or "
+                        "decoder-only when training from a latent cache")
     p.add_argument("--ckpt_every_epochs", type=int, default=0,
                    help="override the preset's checkpoint/preview cadence "
                         "(reference: every 5 epochs)")
@@ -85,17 +91,12 @@ def _refuse_unported(args) -> None:
         "--hiGanArch": args.hiGanArch,
         "--augMaps": args.augMaps,
         "--vae_ckpt": args.vae_ckpt,
-        "--stable_dif_path": args.stable_dif_path,
     }
     for flag, value in unported.items():
         if value:
             raise NotImplementedError(f"{flag} is not ported to PyTorch yet")
     if not args.latent:
         raise NotImplementedError("--latent 0 (pixel-space training) is not ported yet")
-    if not args.latent_cache:
-        raise NotImplementedError(
-            "--latent 1 without --latent_cache needs the VAE encoder, which is not "
-            "ported yet")
     if not args.gt_train:
         raise NotImplementedError(
             "training without --gt_train uses the synthetic corpus, which is not "
@@ -115,7 +116,7 @@ def experiment_from_args(args):
     return exp.replace(
         data=dataclasses.replace(
             exp.data, gt_path=args.gt_train, image_dir=args.iam_path, img_height=h,
-            img_width=w, latent=True, latent_cache=args.latent_cache,
+            img_width=w, latent=True, latent_cache=args.latent_cache or None,
             batch_size=args.batch_size,
         ),
         train=dataclasses.replace(
@@ -127,24 +128,24 @@ def experiment_from_args(args):
     )
 
 
-def _preview_fn(args, exp, device):
+def _vae(args, exp, device, with_encoder: bool):
+    """The frozen VAE on ``device``: the full codec when the steps encode
+    images, the decode half for the previews of latent-cache training."""
+    from ..models.vae import make_vae
+
+    vae = make_vae(exp.vae, args.stable_dif_path, args.vae_pt, with_encoder=with_encoder,
+                   seed=args.seed)
+    return vae.to(device).eval().requires_grad_(False)
+
+
+def _preview_fn(args, exp, vae, device):
     """Epoch preview grids of the fixed probe words (reference
     ``train.py:298-313``), sampled with the EMA weights."""
     import numpy as np
     import torch
 
     from ..generate.sample import WordSampler
-    from ..models.layers import init_weights_
-    from ..models.vae import AutoencoderKL
     from ..utils.images import save_image_grid
-
-    vae = AutoencoderKL(exp.vae)
-    if args.vae_pt:
-        vae.load_state_dict(torch.load(args.vae_pt, map_location="cpu", weights_only=True))
-    else:
-        logging.warning("no --vae_pt: previews decode with a seeded random VAE")
-        init_weights_(vae, args.seed)
-    vae = vae.to(device)
 
     def preview_fn(state, epoch):
         sampler = WordSampler(exp, state.ema, vae, ddim_steps=args.preview_ddim)
@@ -163,6 +164,7 @@ def build(args):
     from ..data.dataset import LatentLookup, WordImageDataset
     from ..data.gt import parse_gt
     from ..data.tokenizer import Tokenizer
+    from ..models.vae import encode_to_latent
     from ..train.loop import Trainer
 
     _refuse_unported(args)
@@ -175,10 +177,17 @@ def build(args):
     # writers_dict_train.json compat (trainModifyCondition.py:1061-1064)
     registry.dump_json(f"{args.save_path}/writers_dict_train.json")
     tokenizer = Tokenizer.from_name(exp.data.alphabet, exp.data.max_chars)
-    dataset = WordImageDataset(samples, registry, tokenizer, exp.data,
-                               latent_cache=LatentLookup.load(args.latent_cache),
+    cache = LatentLookup.load(args.latent_cache) if args.latent_cache else None
+    dataset = WordImageDataset(samples, registry, tokenizer, exp.data, latent_cache=cache,
                                use_phosc=exp.unet.use_phosc)
-    return Trainer(exp, dataset, preview_fn=_preview_fn(args, exp, device), device=device)
+    vae = _vae(args, exp, device, with_encoder=cache is None)
+    encode_fn = None
+    if cache is None:
+        def encode_fn(images, generator):
+            return encode_to_latent(vae, images, generator)
+
+    return Trainer(exp, dataset, preview_fn=_preview_fn(args, exp, vae, device), device=device,
+                   encode_fn=encode_fn)
 
 
 def main(argv=None):

@@ -1,22 +1,29 @@
-"""Word dataset in latent-cache mode (PIL-free copy of the latent path of
-``worddiffusion_tpu/data/dataset.py``: ``WordImageDataset`` and
-``LatentLookup``; that module imports PIL through ``utils/images.py``).
+"""Word dataset: samples -> model-ready records (copy of
+``worddiffusion_tpu/data/dataset.py``'s ``WordImageDataset`` and
+``LatentLookup``, reading images with the port's own PNG reader and
+numpy resize instead of PIL).
 
-A record is ``{image_name, word, context, writer, latent}``, plus
-``phosc`` [P] int32 (the word's PHOSC ids) with ``use_phosc``. Every
-sample must be in the cache: encoding images needs the VAE encoder,
-which is not ported yet.
+A record is ``{image_name, word, context, writer}`` plus either
+``latent`` [8, 32, 4] (the sample's entry in the latent cache) or
+``image`` [H, W, 3] float32 in [-1, 1] (the word crop from
+``cfg.image_dir``, resize-padded to H x W), and ``phosc`` [P] int32 (the
+word's PHOSC ids) with ``use_phosc``. A sample with neither a cache entry
+nor an image file raises ``FileNotFoundError``: the JAX dataset's
+fallback, the synthetic renderer, is not ported (ROADMAP A.2).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import os
+from typing import Optional, Sequence
 
 import numpy as np
 
 from ..configs.config import DataConfig
+from ..utils.images import normalize_to_unit, resize_and_pad
 from .gt import Sample, WriterRegistry
 from .phosc import phosc_vector
+from .png import read_png
 from .tokenizer import Tokenizer
 
 
@@ -49,9 +56,12 @@ class WordImageDataset:
         registry: WriterRegistry,
         tokenizer: Tokenizer,
         cfg: DataConfig,
-        latent_cache: LatentLookup,
+        latent_cache: Optional[LatentLookup] = None,
         use_phosc: bool = False,
     ):
+        """Every sample comes from ``latent_cache`` or, without one, from
+        its image file; a cache that holds some of the samples but not all
+        raises (the batches would mix latents and images)."""
         self.samples = list(samples)
         self.registry = registry
         self.tokenizer = tokenizer
@@ -59,16 +69,34 @@ class WordImageDataset:
         self.latent_cache = latent_cache
         self.use_phosc = use_phosc
         self._phosc_cache: dict[str, np.ndarray] = {}
-        missing = [s.image for s in self.samples if s.image not in latent_cache]
-        if missing:
-            raise NotImplementedError(
-                f"{len(missing)} sample(s) are not in the latent cache (first: "
-                f"{missing[0]!r}); encoding images needs the VAE encoder, which "
-                "is not ported yet"
-            )
+        if latent_cache is not None:
+            missing = [s.image for s in self.samples if s.image not in latent_cache]
+            if missing:
+                raise ValueError(
+                    f"{len(missing)} of {len(self.samples)} sample(s) are not in the latent "
+                    f"cache (first: {missing[0]!r}); build the cache over the whole corpus "
+                    "(cli.build_latent_cache) or train from the images without one")
+        else:
+            for s in self.samples:
+                self._image_path(s)
 
     def __len__(self) -> int:
         return len(self.samples)
+
+    def _image_path(self, sample: Sample) -> str:
+        path = os.path.join(self.cfg.image_dir, sample.image) if self.cfg.image_dir else ""
+        if not path or not os.path.isfile(path):
+            raise FileNotFoundError(
+                f"no image file for sample {sample.image!r} (looked for {path or 'it'}: "
+                f"image_dir is {self.cfg.image_dir!r}); the JAX dataset renders a missing "
+                "image with the synthetic renderer, which is not ported (ROADMAP A.2)")
+        return path
+
+    def _load_image(self, sample: Sample) -> np.ndarray:
+        img = read_png(self._image_path(sample))
+        if img.shape[:2] != (self.cfg.img_height, self.cfg.img_width):
+            img = resize_and_pad(img, self.cfg.img_height, self.cfg.img_width)
+        return img
 
     def _phosc(self, word: str) -> np.ndarray:
         if word not in self._phosc_cache:
@@ -83,8 +111,11 @@ class WordImageDataset:
             "word": s.word,
             "context": self.tokenizer.encode(s.word),
             "writer": np.int32(self.registry[s.writer] if s.writer in self.registry else 0),
-            "latent": self.latent_cache[s.image],
         }
+        if self.latent_cache is not None:
+            rec["latent"] = self.latent_cache[s.image]
+        else:
+            rec["image"] = normalize_to_unit(self._load_image(s))
         if self.use_phosc:
             rec["phosc"] = self._phosc(s.word)
         return rec

@@ -1,7 +1,6 @@
-"""Batching iterator with background prefetch (PIL-free copy of the
-training path of ``worddiffusion_tpu/data/loader.py``: ``batches``,
-``prefetch`` and ``epoch_batches``; that module imports the PIL-backed
-dataset).
+"""Batching iterator with background prefetch (copy of
+``worddiffusion_tpu/data/loader.py``'s ``batches``, ``prefetch`` and
+``epoch_batches``).
 
 Batches are assembled on a worker thread while the previous step runs;
 ``map_fn`` (the Trainer's device staging: pinned memory, non-blocking
@@ -12,7 +11,7 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator
+from typing import Iterator, Optional
 
 import numpy as np
 
@@ -28,13 +27,22 @@ def _stack(records: list[dict]) -> dict:
     return out
 
 
-def batches(dataset, batch_size: int, rng: np.random.Generator) -> Iterator[dict]:
-    """Full batches in the order ``rng`` shuffles; the remainder is dropped."""
+def batches(dataset, batch_size: int, rng: Optional[np.random.Generator] = None,
+            shuffle: bool = True, drop_remainder: bool = True) -> Iterator[dict]:
+    """Batches in the order ``rng`` shuffles (or in dataset order without
+    ``shuffle``). ``drop_remainder`` drops a short last batch; without it
+    the last batch is filled by wrapping to the front of its own indices
+    (``data.latent_cache``'s pass, which then drops the repeats by
+    name)."""
     order = np.arange(len(dataset))
-    rng.shuffle(order)
-    end = len(order) - (len(order) % batch_size)
+    if shuffle:
+        (rng or np.random.default_rng(0)).shuffle(order)
+    end = len(order) - (len(order) % batch_size) if drop_remainder else len(order)
     for start in range(0, end, batch_size):
-        yield _stack([dataset[int(i)] for i in order[start : start + batch_size]])
+        idx = order[start : start + batch_size]
+        if len(idx) < batch_size:
+            idx = np.concatenate([idx, idx[: batch_size - len(idx)]])
+        yield _stack([dataset[int(i)] for i in idx])
 
 
 def prefetch(it: Iterator[dict], depth: int = 2) -> Iterator[dict]:

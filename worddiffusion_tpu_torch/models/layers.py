@@ -15,6 +15,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import gn_conv, groupnorm
+
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int,
                        max_period: float = 10000.0) -> torch.Tensor:
@@ -42,18 +44,38 @@ def char_positional_encoding(max_seq_len: int, dim: int) -> torch.Tensor:
     return pe[:, :dim]
 
 
+def _nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> the kernels' NHWC; a view (no copy) for channels_last memory."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
 class GroupNorm32(nn.GroupNorm):
-    """GroupNorm with fp32 statistics and affine, cast back to the input
-    dtype. Defaults are the UNet's: ``min(32, c)`` groups, eps 1e-5; the
-    VAE and the OCR pass their own groups and eps."""
+    """GroupNorm with fp32 statistics (``E[x²] - mu²``, the JAX
+    ``GroupNorm32`` formula) and affine, cast back to the input dtype,
+    through ``ops.groupnorm`` (kernel B.5 on the card). ``silu`` applies
+    SiLU in fp32 before the cast. Defaults are the UNet's: ``min(32, c)``
+    groups, eps 1e-5; the VAE and the OCR pass their own groups and eps.
+    Takes NCHW (channels_last memory on the card)."""
 
     def __init__(self, channels: int, groups: int | None = None, eps: float = 1e-5):
         super().__init__(groups or min(32, channels), channels, eps=eps)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.group_norm(
-            x.float(), self.num_groups, self.weight, self.bias, self.eps
-        ).to(x.dtype)
+    def forward(self, x: torch.Tensor, silu: bool = False) -> torch.Tensor:
+        out = groupnorm.fused_groupnorm(_nhwc(x), self.weight, self.bias, self.num_groups,
+                                        self.eps, silu)
+        return out.permute(0, 3, 1, 2)
+
+
+def gn_silu_conv(norm: GroupNorm32, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv(silu(norm(x)))`` on NCHW x: one ``ops.gn_conv`` call (kernel
+    B.6 on the card) where the conv is 3x3, stride 1, padding 1 and keeps
+    the width; otherwise ``norm`` with SiLU (B.5), then the conv."""
+    if (conv.in_channels != conv.out_channels or conv.kernel_size != (3, 3)
+            or conv.stride != (1, 1) or conv.padding != (1, 1)):
+        return conv(norm(x, silu=True))
+    out = gn_conv.fused_gn_silu_conv3x3(_nhwc(x), norm.weight, norm.bias, conv.weight,
+                                        conv.bias, norm.num_groups, norm.eps)
+    return out.permute(0, 3, 1, 2)
 
 
 class Conv2D(nn.Conv2d):

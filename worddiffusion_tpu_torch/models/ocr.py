@@ -41,8 +41,8 @@ class ConvBlock(nn.Module):
         self.gn1 = GroupNorm32(features, groups=min(32, features), eps=1e-6)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.relu(self.gn0(self.conv0(x)).to(self.dtype))
-        x = F.relu(self.gn1(self.conv1(x)).to(self.dtype))
+        x = F.relu(self.gn0(self.conv0(x).to(self.dtype)))
+        x = F.relu(self.gn1(self.conv1(x).to(self.dtype)))
         if self.pool != (1, 1):
             x = F.max_pool2d(x, self.pool, self.pool)
         return x

@@ -25,7 +25,9 @@ import torch.nn as nn
 from ..configs.config import UNetConfig
 from .attention import SpatialTransformer
 from .encoders import CharacterEncoder
-from .layers import Conv2D, Dense, Downsample, GroupNorm32, Upsample, timestep_embedding
+from .layers import (
+    Conv2D, Dense, Downsample, GroupNorm32, Upsample, gn_silu_conv, timestep_embedding,
+)
 
 _UNPORTED_CONFIG = (
     "style_vec_dim", "use_char_images", "img_conditioned",
@@ -37,7 +39,8 @@ _UNPORTED_CONFIG = (
 class ResBlock(nn.Module):
     """GroupNorm-SiLU-conv residual block with the timestep embedding
     added between the convs (reference keys ``in_layers``,
-    ``emb_layers``, ``out_layers``, ``skip_connection``)."""
+    ``emb_layers``, ``out_layers``, ``skip_connection``; the Sequentials
+    hold the parameters, ``forward`` runs the fused ops on them)."""
 
     def __init__(self, in_ch: int, out_ch: int, emb_dim: int, dropout: float = 0.0):
         super().__init__()
@@ -50,9 +53,13 @@ class ResBlock(nn.Module):
         self.skip_connection = Conv2D(in_ch, out_ch, 1) if in_ch != out_ch else nn.Identity()
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-        h = self.in_layers(x)
+        # each GroupNorm -> SiLU -> conv runs as one fused op on the
+        # Sequentials' parameters (B.6 where the conv keeps the width, else
+        # B.5 + SiLU then the conv); Dropout is 0 (training with dropout
+        # raises in UNet.forward)
+        h = gn_silu_conv(self.in_layers[0], self.in_layers[2], x)
         h = h + self.emb_layers(emb)[:, :, None, None]
-        return self.skip_connection(x) + self.out_layers(h)
+        return self.skip_connection(x) + gn_silu_conv(self.out_layers[0], self.out_layers[3], h)
 
 
 class TimestepBlock(nn.ModuleList):
@@ -174,4 +181,4 @@ class UNet(nn.Module):
         h = self.middle_block(h, emb, context)
         for block in self.output_blocks:
             h = block(torch.cat([h, hs.pop()], dim=1), emb, context)
-        return self.out(h).float().permute(0, 2, 3, 1)
+        return gn_silu_conv(self.out[0], self.out[2], h).float().permute(0, 2, 3, 1)

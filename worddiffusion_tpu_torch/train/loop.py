@@ -2,8 +2,9 @@
 epochs, checkpoints, previews, stop flag, resume.
 
 The data comes from a latent cache (``data.dataset``), the production
-fast path of the JAX trainer; the batches are staged on the device by
-the prefetch worker.
+fast path of the JAX trainer, or from word images that the step encodes
+with the frozen VAE (``encode_fn``); the batches (latents or images) are
+staged on the device by the prefetch worker.
 """
 
 from __future__ import annotations
@@ -35,8 +36,11 @@ class Trainer:
         dataset,
         preview_fn: Optional[Callable] = None,
         device: torch.device | str = "cuda",
+        encode_fn: Optional[Callable] = None,
     ):
         """``preview_fn(state, epoch)`` renders the fixed probe words.
+        ``encode_fn(images, generator) -> latent [B, 8, 32, 4]`` maps image
+        batches into the diffusion space (the VAE encode), inside the step.
 
         The FF sub-layer: ``use_pallas_ffn`` None or True runs the forward
         kernel and the backward kernel on a CUDA device, False the plain
@@ -50,6 +54,7 @@ class Trainer:
         self.exp = exp
         self.dataset = dataset
         self.preview_fn = preview_fn
+        self.encode_fn = encode_fn
         self.device = torch.device(device)
         self.schedule = NoiseSchedule.linear(
             exp.diffusion.num_steps, exp.diffusion.beta_start, exp.diffusion.beta_end
@@ -78,8 +83,9 @@ class Trainer:
         return t.to(self.device)
 
     def _device_batch(self, batch: dict) -> dict:
+        key = "latent" if "latent" in batch else "image"
         out = {
-            "latent": self._to_device(batch["latent"].astype("float32", copy=False)),
+            key: self._to_device(batch[key].astype("float32", copy=False)),
             "context": self._to_device(batch["context"].astype("int64")),
             "writer": self._to_device(batch["writer"].astype("int64")),
         }
@@ -100,7 +106,8 @@ class Trainer:
         ``(seed, epoch)`` —
 
         - per-step randomness: ``step.step_generator(seed, state.step)``,
-          seeded from (seed + 1, step), draws t, noise and the CFG drop;
+          seeded from (seed + 1, step), draws the VAE posterior's noise
+          (image batches), then t, noise and the CFG drop;
         - batch order for epoch ``e``: the ``np.random.default_rng((seed,
           e))`` permutation of the dataset (``data/loader.epoch_batches``);
         - EMA warmup counter: ``state.step`` itself.
@@ -127,7 +134,7 @@ class Trainer:
             log.info("resumed from step %d (epoch %d, %d batches into it)",
                      state.step, start_epoch, skip_batches)
 
-        step_fn = make_train_step(self.schedule, self.exp)
+        step_fn = make_train_step(self.schedule, self.exp, self.encode_fn)
         history = []
         stopped = False
         self.epoch_seconds = []

@@ -8,6 +8,8 @@ handed in, which is how the parity tests feed JAX's draws to the port.
 
 Batch dict layout (``data.loader``, staged on the device):
   ``latent``  [B, 8, 32, 4] float32 — VAE latents, already * 0.18215
+              (or ``image`` [B, H, W, 3] float32 in [-1, 1], encoded by
+              the step's ``encode_fn``)
   ``context`` [B, L] int64 char ids
   ``writer``  [B] int64 dense writer index
   ``phosc``   [B, P] int64 PHOSC ids (``use_phosc`` models)
@@ -16,7 +18,7 @@ Batch dict layout (``data.loader``, staged on the device):
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -91,15 +93,29 @@ def loss_fn(model, schedule: NoiseSchedule, exp: Experiment, batch: dict,
     return mse, {"mse": mse.detach(), "loss": mse.detach()}
 
 
-def make_train_step(schedule: NoiseSchedule, exp: Experiment):
+def make_train_step(schedule: NoiseSchedule, exp: Experiment,
+                    encode_fn: Optional[Callable] = None):
     """-> ``train_step(state, batch, draws=None) -> metrics``; updates
     ``state`` in place. Without ``draws`` the step draws its own from
-    ``step_generator(exp.train.seed, state.step)``."""
+    ``step_generator(exp.train.seed, state.step)``.
+
+    A batch of images (``image`` [B, H, W, 3] in [-1, 1], no ``latent``)
+    is first encoded by ``encode_fn(images, generator) -> latent`` under
+    no_grad, with the step's generator (the posterior sample's noise is
+    its first draw), so a resumed run stays bitwise the uninterrupted one."""
     tcfg = exp.train
 
     def train_step(state: TrainState, batch: dict, draws: Optional[StepDraws] = None):
+        gen = None
+        if "latent" not in batch:
+            if encode_fn is None:
+                raise ValueError("a batch of images needs the train step's encode_fn (the VAE)")
+            gen = step_generator(tcfg.seed, state.step, batch["image"].device)
+            with torch.no_grad():
+                batch = {**batch, "latent": encode_fn(batch["image"], gen)}
         if draws is None:
-            gen = step_generator(tcfg.seed, state.step, batch["latent"].device)
+            if gen is None:
+                gen = step_generator(tcfg.seed, state.step, batch["latent"].device)
             draws = draw_step(schedule, exp, batch["latent"], gen)
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(state.model, schedule, exp, batch, draws)

@@ -1,8 +1,12 @@
-"""Regeneration output naming, preview grids and a stdlib PNG writer.
+"""Word-crop resizing, normalisation, regeneration output naming, preview
+grids and a stdlib PNG writer.
 
-``regen_filename``, ``save_single_images`` and ``save_image_grid`` are
-copied from ``worddiffusion_tpu/utils/images.py`` (that module imports
-PIL); the PNG encoder here uses only ``zlib`` and ``struct``.
+``resize_and_pad``, ``normalize_to_unit``, ``regen_filename``,
+``save_single_images`` and ``save_image_grid`` are copied from
+``worddiffusion_tpu/utils/images.py``, which uses PIL (and a native
+library for the normalisation): here the resize is PIL's ``BILINEAR``
+resampling written out in numpy, and the PNG encoder uses only ``zlib``
+and ``struct``. (Reading PNGs: ``data.png``.)
 """
 
 from __future__ import annotations
@@ -16,6 +20,75 @@ import numpy as np
 
 # PNG color type by channel count: gray, gray+alpha, RGB, RGBA
 _COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}
+
+
+_PRECISION_BITS = 22  # PIL's fixed-point coefficients for 8-bit images (32 - 8 - 2)
+
+
+def _bilinear_taps(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray]:
+    """PIL's resampling coefficients (``Resample.c::precompute_coeffs`` with
+    the triangle filter, support 1 widened by the downscale factor, then
+    ``normalize_coeffs_8bpc``): for each output index its input indices and
+    fixed-point integer weights, [out_size, taps] each (unused taps weigh 0)."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ss = 1.0 / filterscale
+    taps = int(np.ceil(support)) * 2 + 1
+    idx = np.zeros((out_size, taps), np.int64)
+    wts = np.zeros((out_size, taps), np.int64)
+    for xx in range(out_size):
+        center = (xx + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size) - xmin
+        ws, total = [], 0.0
+        for x in range(xmax):
+            arg = abs((x + xmin - center + 0.5) * ss)
+            wgt = 1.0 - arg if arg < 1.0 else 0.0
+            ws.append(wgt)
+            total += wgt
+        for x, wgt in enumerate(ws):
+            k = wgt / total if total != 0.0 else wgt
+            idx[xx, x] = xmin + x
+            wts[xx, x] = int(0.5 + k * (1 << _PRECISION_BITS))
+    return idx, wts
+
+
+def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of PIL's separable resize along ``axis`` (0 rows, 1 columns)
+    of uint8 [H, W, C]: integer sums rounded at half and clipped to uint8."""
+    idx, wts = _bilinear_taps(img.shape[axis], out_size)
+    src = np.moveaxis(img, axis, 0).astype(np.int64)
+    acc = np.zeros((out_size,) + src.shape[1:], np.int64)
+    for k in range(idx.shape[1]):
+        acc += wts[:, k].reshape((-1,) + (1,) * (src.ndim - 1)) * src[idx[:, k]]
+    out = np.clip((acc + (1 << (_PRECISION_BITS - 1))) >> _PRECISION_BITS, 0, 255)
+    return np.moveaxis(out.astype(np.uint8), 0, axis)
+
+
+def resize_and_pad(img: np.ndarray, height: int = 64, width: int = 256,
+                   pad_value: int = 255) -> np.ndarray:
+    """uint8 HWC (or HW / HW1) -> [height, width, ...]: scale to the target
+    height (and down to the target width if needed) with PIL's BILINEAR
+    resampling (horizontal pass, then vertical, as PIL runs them),
+    right-pad with white."""
+    squeeze2d = img.ndim == 2
+    a = img[:, :, None] if squeeze2d else img
+    h, w = a.shape[:2]
+    new_w = max(1, min(width, int(round(w * height / h))))
+    if new_w != w:
+        a = _resample_axis(a, new_w, axis=1)
+    if height != h:
+        a = _resample_axis(a, height, axis=0)
+    canvas = np.full((height, width) + img.shape[2:], pad_value, np.uint8)
+    canvas[:, :new_w] = a[:, :, 0] if squeeze2d else a
+    return canvas
+
+
+def normalize_to_unit(img: np.ndarray) -> np.ndarray:
+    """uint8 -> float32 in [-1, 1] (ToTensor + Normalize(0.5, 0.5),
+    ``trainModifyCondition.py:933-935``)."""
+    return (img.astype(np.float32) / 255.0 - 0.5) / 0.5
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
