@@ -10,7 +10,12 @@ Phases, each of which must pass (any failure exits non-zero):
 2. build: compiles the CUDA kernels from ``worddiffusion_tpu_torch/csrc``.
 3. kernel vs plain: the fused LN + GEGLU FFN kernel against its plain
    PyTorch version at the main path's shapes (d=320, inner=1280,
-   M = 16*256, 16*64) and a ragged M, with errors and median times.
+   M = 16*256, 16*64) and a ragged M, with errors and median times; then
+   the bare GEGLU FFN (B.2, ``ops.ffn.fused_geglu_ffn``, the same kernel
+   without LayerNorm and residual; no path calls it, as in JAX) at
+   M = 16*256, 128*256 and a ragged 1000: against its plain version,
+   bitwise repeatability, kernel / plain / bound times, and its Function's
+   output and five gradients against plain autograd at M = 128*256.
 4. whole UNet: one full-width ``iam`` UNet call with every kernel against
    the all-plain UNet (``use_pallas_ffn=False``, the plain attention and
    the plain GroupNorm / GN -> SiLU -> conv swapped in) on the same weights
@@ -45,9 +50,10 @@ Phases, each of which must pass (any failure exits non-zero):
    version at the shapes of every path (4 heads of 80; regeneration B=16
    and training B=128; Nq 256 and 64; Nk 42 for ``iam``, Nq for the
    self-attention and 42 + 769 = 811 for the cross-attention of
-   ``iam_phosc``) and a ragged case, with errors and median times; the
-   Function's output and gradients against plain autograd at B=128,
-   Nq=256, Nk=811.
+   ``iam_phosc``), a ragged case and a 2048-key context, with errors,
+   bitwise repeatability, and kernel / plain / ``scaled_dot_product_attention``
+   / bound times and the kernel's share of its bound; the Function's output
+   and gradients against plain autograd at B=128, Nq=256, Nk=811.
 9. ``iam_phosc`` regeneration: the regeneration CLI with ``--preset
    iam_phosc`` (self-attention, then cross-attention over the characters
    and the PHOSC tokens), seeded random weights: one UNet call all-kernel
@@ -79,8 +85,8 @@ Phases, each of which must pass (any failure exits non-zero):
    shape (UNet B=16 and 128, VAE decoder B=16 and encoder B=128, ragged
    C=48 and 5x13), bitwise repeatability, kernel / plain / library (stock
    ``F.group_norm`` [+ ``F.silu``]; ``F.group_norm`` -> ``F.silu`` ->
-   cuDNN ``F.conv2d``) / bound times, and both Functions' gradients
-   against plain autograd at [128, 8, 32, 320].
+   cuDNN ``F.conv2d``) / bound times, B.6's tile and its share of its bound,
+   and both Functions' gradients against plain autograd at [128, 8, 32, 320].
 15. the whole SD VAE at full width on seeded weights: encode (B=128) and
    decode (B=16) all-kernel against all-plain, 18 B.6 + 4 B.5 launches per
    encode and 26 + 4 per decode, times.
@@ -88,7 +94,10 @@ Phases, each of which must pass (any failure exits non-zero):
    N_IMAGES seeded word PNGs (grey and RGB, 30-150 x 20-600, written by the
    port's PNG writer, resized on the host) with ``--stable_dif_path`` (a
    safetensors file of the seeded VAE), B=64, ``--deterministic 1``: the npz
-   against a direct posterior-mean encode, launches per batch, images/s.
+   against a direct posterior-mean encode, launches per batch, images/s;
+   then one regeneration batch through the regeneration CLI's main with
+   ``--stable_dif_path`` (that file's decode half) and ``--ddim 50``: 50 UNet
+   calls.
 17. training from those images through the train CLI (no
    ``--latent_cache``): B=128, 2 epochs of 3 steps, each step one encode
    (4 B.5 + 18 B.6) and the UNet's forward and plain-recompute backwards;
@@ -97,7 +106,9 @@ Phases, each of which must pass (any failure exits non-zero):
 
 Every training phase counts 9 B.5 and 12 B.6 launches and Function
 backward calls per step, and 9 * 50 + 4 and 12 * 50 + 26 per DDIM-50
-preview.
+preview. Kernel, plain and library times are per call over 10 calls
+back to back (``launch_ms``), so that the host's launch path overlaps
+the device work.
 
 The second-to-last line is a JSON summary of the kernels (each with its
 bound: the larger of its bytes over the card's memory rate and its
@@ -146,6 +157,7 @@ ATTN_SHAPES = (
     (TRAIN_B, 256, 256), (TRAIN_B, 64, 64),                   # iam_phosc training
     (TRAIN_B, 256, 811), (TRAIN_B, 64, 811),
     (2, 40, 13),                                              # ragged Nq and Nk
+    (4, 256, 2048),                                           # a long context
 )
 # bf16 output: the kernel and the plain version differ in the order of the
 # fp32 sums, which can move one bf16 rounding of p or of the output (0.4%
@@ -221,6 +233,15 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def launch_ms(fn, calls: int = 10, reps: int = 10) -> float:
+    """Device time per call of ``fn()`` in ms: the median over ``reps`` of
+    ``calls`` back-to-back calls between two CUDA events, divided by
+    ``calls``, so that the host's launch path (tens of microseconds a call)
+    overlaps the device work instead of adding to it; a kernel shorter than
+    its launch path still shows the launch path."""
+    return cuda_ms(lambda: [fn() for _ in range(calls)], reps=reps, warmup=1) / calls
+
+
 def cuda_ms(fn, reps: int = 30, warmup: int = 5) -> float:
     """Median device time of ``fn()`` in ms (CUDA events, after warm-up)."""
     import torch
@@ -281,7 +302,8 @@ def reset_counts() -> None:
     """Every kernel's launch and backward count to 0."""
     from worddiffusion_tpu_torch.ops import attention, ffn, fold_attention, gn_conv, groupnorm
 
-    ffn.launches = ffn.bwd_launches = attention.launches = attention.bwd_calls = 0
+    ffn.launches = ffn.bwd_launches = ffn.geglu_launches = 0
+    attention.launches = attention.bwd_calls = 0
     fold_attention.launches = fold_attention.bwd_calls = 0
     groupnorm.launches = groupnorm.bwd_calls = gn_conv.launches = gn_conv.bwd_calls = 0
 
@@ -314,16 +336,17 @@ def phase8_attention(smi: str) -> dict:
         want = attention.attention_reference(q, k, v, scale)
         err = (got.float() - want.float()).abs().max().item()
         rel = err / want.float().abs().max().item()
-        ms = cuda_ms(lambda: attention.fused_attention(q, k, v, scale))
-        plain_ms = cuda_ms(lambda: attention.attention_reference(q, k, v, scale))
+        ms = launch_ms(lambda: attention.fused_attention(q, k, v, scale))
+        plain_ms = launch_ms(lambda: attention.attention_reference(q, k, v, scale))
         # the yardstick: one PyTorch call of the same function (the port never calls it)
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+        library_ms = launch_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
         bound_ms, bound_by = bound(nbytes(q, k, v, got), 4 * b * HEADS * nq * nk * D_HEAD)
-        log(f"attention B={b} H={HEADS} Nq={nq} Nk={nk} D={D_HEAD}: max_abs_err {err:.6g} "
-            f"max_rel_err {rel:.6g} (tol {ATTN_REL_TOL}); bitwise repeatable "
-            f"{torch.equal(got, again)}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        tile = attention._lib().wd_attention_tile_rows(b * HEADS, nq)
+        log(f"attention B={b} H={HEADS} Nq={nq} Nk={nk} D={D_HEAD} ({tile}-query tile): "
+            f"max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {ATTN_REL_TOL}); bitwise "
+            f"repeatable {torch.equal(got, again)}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
             f"scaled_dot_product_attention {library_ms:.4f} ms bound {bound_ms:.4f} ms "
-            f"({bound_by}) [{smi}]")
+            f"({bound_by}), kernel at {bound_ms / ms:.1%} of the bound [{smi}]")
         assert got.shape == want.shape and got.dtype == torch.bfloat16
         assert bool(torch.isfinite(got.float()).all()), f"non-finite attention at {b, nq, nk}"
         assert torch.equal(got, again), f"attention differs between two runs at {b, nq, nk}"
@@ -389,6 +412,67 @@ def bwd_inputs(m: int, seed: int):
     return {k: t[k] for k in ("x", "dy", "gamma", "beta", "w1", "b1", "w2")}
 
 
+GEGLU_SHAPES = (B * 256, TRAIN_B * 256, 1000)  # B.2: no path calls it; B.1's sites
+
+
+def phase3_geglu(smi: str) -> dict:
+    """B.2, the bare GEGLU FFN launch mode, against its plain version at
+    B.1's shapes, bitwise repeatability, and its Function (kernel forward,
+    autograd of the unfused composition backward, as JAX's custom_vjp)
+    against plain autograd of that composition: output and five gradients."""
+    import torch
+
+    from worddiffusion_tpu_torch.ops import ffn
+
+    rows = []
+    for i, m in enumerate(GEGLU_SHAPES):
+        t = ffn_inputs(m, seed=40 + i)
+        a = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"])
+        n0 = ffn.geglu_launches
+        got, again = ffn.fused_geglu_ffn(*a), ffn.fused_geglu_ffn(*a)
+        torch.cuda.synchronize()
+        assert ffn.geglu_launches == n0 + 2, ffn.geglu_launches - n0
+        want = ffn.geglu_ffn_reference(*a)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        ms = launch_ms(lambda: ffn.fused_geglu_ffn(*a))
+        plain_ms = launch_ms(lambda: ffn.geglu_ffn_reference(*a))
+        bound_ms, bound_by = bound(nbytes(*a, got), 6 * m * D * INNER)
+        log(f"geglu_ffn (B.2) M={m} d={D} inner={INNER}: max_abs_err {err:.6g} max_rel_err "
+            f"{rel:.6g} (tol {FFN_REL_TOL}); bitwise repeatable {torch.equal(got, again)}; kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.1%} of the bound [{smi}]")
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        assert bool(torch.isfinite(got.float()).all()), f"non-finite B.2 output at M={m}"
+        assert torch.equal(got, again), f"B.2 differs between two runs at M={m}"
+        assert rel <= FFN_REL_TOL, f"B.2 kernel disagrees with plain at M={m}: rel {rel}"
+        rows.append(dict(m=m, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         bound_by=bound_by))
+        del t, a, got, again, want
+
+    m = TRAIN_B * 256
+    t = ffn_inputs(m, seed=45)
+    dy = (0.1 * torch.randn(m, D, generator=torch.Generator().manual_seed(46))).bfloat16().cuda()
+    names = ("x", "w1", "b1", "w2", "b2")
+
+    def fwd_bwd(fn):
+        leaves = [t[k].clone().requires_grad_() for k in names]
+        out = fn(*leaves)
+        out.backward(dy)
+        return [out.detach()] + [v.grad for v in leaves]
+
+    got, want = fwd_bwd(ffn.fused_geglu_ffn), fwd_bwd(ffn.geglu_ffn_xla_baseline)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("out",) + tuple("d" + k for k in names), got, want):
+        err = (g.float() - w.float()).abs().max().item()
+        share = err / w.float().abs().max().item()
+        log(f"geglu_ffn Function vs plain autograd M={m} {name}: max_abs_err {err:.6g} share of "
+            f"max |plain| {share:.6g} (tol {FFN_REL_TOL}); bitwise {torch.equal(g, w)}")
+        assert g.shape == w.shape and g.dtype == w.dtype and bool(torch.isfinite(g).all()), name
+        assert share <= FFN_REL_TOL, f"B.2 Function disagrees: {name} {share}"
+    return dict(rows=rows)
+
+
 def ffn_bound(inputs: dict, out) -> tuple[float, str]:
     """The forward's bound: its inputs and output, and the two products
     x W1 [M, d] x [d, 2 inner] and act W2 [M, inner] x [inner, d]."""
@@ -412,8 +496,8 @@ def phase6_ffn_backward(smi: str) -> dict:
         want = ffn.ln_geglu_ffn_reference(**f)
         err = (got.float() - want.float()).abs().max().item()
         rel = err / want.float().abs().max().item()
-        ms = cuda_ms(lambda: ffn.fused_ln_geglu_ffn(**f), reps=20)
-        plain_ms = cuda_ms(lambda: ffn.ln_geglu_ffn_reference(**f), reps=20)
+        ms = launch_ms(lambda: ffn.fused_ln_geglu_ffn(**f))
+        plain_ms = launch_ms(lambda: ffn.ln_geglu_ffn_reference(**f))
         bound_ms, bound_by = ffn_bound(f, got)
         log(f"ffn fwd M={m}: max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {FFN_REL_TOL}) "
             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
@@ -439,8 +523,8 @@ def phase6_ffn_backward(smi: str) -> dict:
             log(f"ffn bwd M={m} {name}: max_abs_err {err:.6g} share of max |plain| "
                 f"{share:.6g} (tol {BWD_REL_TOL}); bitwise repeatable")
             assert share <= BWD_REL_TOL, f"backward kernel disagrees at M={m}: {name} {share}"
-        ms = cuda_ms(lambda: ffn.ln_geglu_ffn_bwd(**a), reps=20)
-        plain_ms = cuda_ms(lambda: ffn.ln_geglu_ffn_bwd_reference(**a), reps=20)
+        ms = launch_ms(lambda: ffn.ln_geglu_ffn_bwd(**a))
+        plain_ms = launch_ms(lambda: ffn.ln_geglu_ffn_bwd_reference(**a))
         # the backward recomputes h = LN(x) W1 and does four more products of
         # the same size: 16 M d inner operations in all
         bound_ms, bound_by = bound(nbytes(*a.values(), *got), 16 * m * D * INNER)
@@ -549,12 +633,12 @@ def phase7_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     state = trainer.run(epochs=epochs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, bwd = ffn.launches, ffn.bwd_launches
+    fwd, bwd, geglu = ffn.launches, ffn.bwd_launches, ffn.geglu_launches
     attn, attn_bwd = attention.launches, attention.bwd_calls
     gn, conv, gn_bwd, conv_bwd = norm_counts()
 
     ck = CheckpointManager(trainer.ckpt.directory)
-    saved = torch.load(ck.path(steps), map_location="cpu", weights_only=True)
+    saved =torch.load(ck.path(steps), map_location="cpu", weights_only=True)
     loss = saved["metrics"]["loss"]
     changed = {k: (v - initial[k]).abs().max().item()
                for k, v in state.model.state_dict().items()}
@@ -579,7 +663,7 @@ def phase7_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     assert all(torch.isfinite(p).all() for p in state.model.parameters())
     assert all(changed[k] > 0 for k in ff_keys) and len(ff_keys) == 8, ff_keys
     assert ema_equal, "the EMA must equal the parameters during warmup"
-    assert bwd == 4 * steps, bwd
+    assert bwd == 4 * steps and geglu == 0, (bwd, geglu)
     assert preview_launches == [4 * 50] * 2, preview_launches
     assert fwd - sum(preview_launches) == 4 * steps, fwd
     assert preview_attn == [8 * 50] * 2 and preview_fold == [0, 0], (preview_attn, preview_fold)
@@ -633,7 +717,7 @@ def phase7_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     log(f"train resume: stopped at step {kill_at}, resumed to {resumed.step}; max param diff "
         f"vs the uninterrupted run {diff:.6g} (max |param| {scale:.4g}); must be bitwise 0")
     assert diff == 0, f"the resumed run is not bitwise the uninterrupted one: {diff}"
-    return dict(fwd=fwd, bwd=bwd, attn=attn, gn=gn, conv=conv, s_per_step=k_s / k_n,
+    return dict(fwd=fwd, bwd=bwd, geglu=geglu, attn=attn, gn=gn, conv=conv, s_per_step=k_s / k_n,
                 plain_s_per_step=p_s / p_n, resume_diff=diff)
 
 
@@ -694,12 +778,12 @@ def phase10_phosc_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     state = trainer.run(epochs=epochs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, bwd = ffn.launches, ffn.bwd_launches
+    fwd, bwd, geglu = ffn.launches, ffn.bwd_launches, ffn.geglu_launches
     attn, attn_bwd = attention.launches, attention.bwd_calls
     gn, conv, gn_bwd, conv_bwd = norm_counts()
 
     ck = CheckpointManager(trainer.ckpt.directory)
-    loss = torch.load(ck.path(steps), map_location="cpu", weights_only=True)["metrics"]["loss"]
+    loss =torch.load(ck.path(steps), map_location="cpu", weights_only=True)["metrics"]["loss"]
     changed = {k: (v - initial[k]).abs().max().item()
                for k, v in state.model.state_dict().items()}
     qkv = [k for k in changed if any(f".attn{i}.to_{w}." in k for i in (1, 2) for w in "qkv")]
@@ -723,7 +807,8 @@ def phase10_phosc_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     assert attn - sum(preview_attn) == 8 * steps and attn_bwd == 8 * steps, (attn, attn_bwd)
     assert preview_attn == [8 * 50] and preview_ffn == [4 * 50], (preview_attn, preview_ffn)
     assert fwd - sum(preview_ffn) == 4 * steps and bwd == 4 * steps, (fwd, bwd)
-    return dict(fwd=fwd, bwd=bwd, attn=attn, gn=gn, conv=conv, s_per_step=s_ / n_)
+    assert geglu == 0, geglu
+    return dict(fwd=fwd, bwd=bwd, geglu=geglu, attn=attn, gn=gn, conv=conv, s_per_step=s_ / n_)
 
 
 def fold_inputs(b: int, n: int, l: int, seed: int) -> dict:
@@ -772,7 +857,7 @@ def phase11_fold(smi: str) -> dict:
         want = plain()
         err = max((g.float() - want.float()).abs().max().item() for g in (got, got7))
         rel = err / want.float().abs().max().item()
-        ms, ms7, plain_ms = cuda_ms(per_head), cuda_ms(flat), cuda_ms(plain)
+        ms, ms7, plain_ms = launch_ms(per_head), launch_ms(flat), launch_ms(plain)
         bound_ms, bound_by = bound(nbytes(*t.values(), got), 4 * b * n * D * HEADS * l)
         log(f"fold attention B={b} N={n} C={D} H={HEADS} L={l}: max_abs_err {err:.6g} "
             f"max_rel_err {rel:.6g} (tol {FOLD_REL_TOL}); bitwise repeatable "
@@ -929,8 +1014,9 @@ def phase13_fold_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
         reset_counts()
         state = trainer.run(epochs=epochs)
         torch.cuda.synchronize()
-        counts = dict(ffn=ffn.launches, ffn_bwd=ffn.bwd_launches, attn=attention.launches,
-                      attn_bwd=attention.bwd_calls, fold=fold_attention.launches,
+        counts = dict(ffn=ffn.launches, ffn_bwd=ffn.bwd_launches, geglu=ffn.geglu_launches,
+                      attn=attention.launches, attn_bwd=attention.bwd_calls,
+                      fold=fold_attention.launches,
                       fold_bwd=fold_attention.bwd_calls,
                       **dict(zip(("gn", "conv", "gn_bwd", "conv_bwd"), norm_counts())))
         return trainer, state, initial, counts, previews, torch.cuda.max_memory_allocated()
@@ -951,7 +1037,7 @@ def phase13_fold_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     assert len(proj) == 4 * 2 * 5 and all(changed[k] > 0 for k in proj), proj
     assert p_fold == [8 * 50] and p_attn == [0] and p_ffn == [4 * 50], (p_fold, p_attn, p_ffn)
     (gn_p, conv_p), (gn_u, conv_u) = preview_norm_launches(), UNET_NORMS
-    assert counts == dict(ffn=4 * steps + 4 * 50, ffn_bwd=4 * steps, attn=0, attn_bwd=0,
+    assert counts == dict(ffn=4 * steps + 4 * 50, ffn_bwd=4 * steps, geglu=0, attn=0, attn_bwd=0,
                           fold=8 * steps + 8 * 50, fold_bwd=8 * steps, gn=gn_u * steps + gn_p,
                           conv=conv_u * steps + conv_p, gn_bwd=gn_u * steps,
                           conv_bwd=conv_u * steps), counts
@@ -1019,15 +1105,15 @@ def phase14_norms(smi: str) -> dict:
         want = groupnorm.groupnorm_reference(*args)
         err = (got.float() - want.float()).abs().max().item()
         rel = err / want.float().abs().max().item()
-        ms = cuda_ms(lambda: groupnorm.fused_groupnorm(*args))
-        plain_ms = cuda_ms(lambda: groupnorm.groupnorm_reference(*args))
+        ms = launch_ms(lambda: groupnorm.fused_groupnorm(*args))
+        plain_ms = launch_ms(lambda: groupnorm.groupnorm_reference(*args))
         # the yardstick (the port never calls it): F.group_norm on the NCHW
         # (channels_last) view with bf16 affine, and F.silu after it with silu
         nchw, ws, bs = t["x"].permute(0, 3, 1, 2), t["scale"].bfloat16(), t["bias"].bfloat16()
         if silu:
-            library_ms = cuda_ms(lambda: F.silu(F.group_norm(nchw, groups, ws, bs, 1e-6)))
+            library_ms = launch_ms(lambda: F.silu(F.group_norm(nchw, groups, ws, bs, 1e-6)))
         else:
-            library_ms = cuda_ms(lambda: F.group_norm(nchw, groups, ws, bs, 1e-6))
+            library_ms = launch_ms(lambda: F.group_norm(nchw, groups, ws, bs, 1e-6))
         bound_ms, bound_by = bound(nbytes(*t.values(), got), 0)
         log(f"groupnorm B={b} {h}x{w} C={c} G={groups} silu={silu}: max_abs_err {err:.6g} "
             f"max_rel_err {rel:.6g} (tol {NORM_REL_TOL}); bitwise repeatable "
@@ -1054,20 +1140,24 @@ def phase14_norms(smi: str) -> dict:
         want = gn_conv.gn_silu_conv3x3_reference(*args)
         err = (got.float() - want.float()).abs().max().item()
         rel = err / want.float().abs().max().item()
-        ms = cuda_ms(lambda: gn_conv.fused_gn_silu_conv3x3(*args))
-        plain_ms = cuda_ms(lambda: gn_conv.gn_silu_conv3x3_reference(*args))
+        ms = launch_ms(lambda: gn_conv.fused_gn_silu_conv3x3(*args))
+        plain_ms = launch_ms(lambda: gn_conv.gn_silu_conv3x3_reference(*args))
         # the TPU file's own yardstick (resblock_pallas.py:126): three stock
         # calls, F.group_norm -> F.silu -> cuDNN F.conv2d, on bf16 operands
         nchw, ws, bs = t["x"].permute(0, 3, 1, 2), t["scale"].bfloat16(), t["bias"].bfloat16()
         wb, cbb = wt.bfloat16().contiguous(memory_format=torch.channels_last), cb.bfloat16()
-        library_ms = cuda_ms(lambda: F.conv2d(F.silu(F.group_norm(nchw, groups, ws, bs, 1e-6)),
-                                              wb, cbb, padding=1))
+        library_ms = launch_ms(lambda: F.conv2d(F.silu(F.group_norm(nchw, groups, ws, bs, 1e-6)),
+                                                wb, cbb, padding=1))
         bound_ms, bound_by = bound(nbytes(*t.values(), got, cb) + wt.numel() * 2,
                                    2 * 9 * c * c * b * h * w)
-        log(f"gn_silu_conv3x3 B={b} {h}x{w} C={c} G={groups}: max_abs_err {err:.6g} max_rel_err "
-            f"{rel:.6g} (tol {NORM_REL_TOL}); bitwise repeatable {torch.equal(got, again)}; "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms F.group_norm + F.silu + F.conv2d (3 "
-            f"calls) {library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) [{smi}]")
+        tile = gn_conv._lib().wd_gn_silu_conv3x3_tile(b, h, w, c)
+        log(f"gn_silu_conv3x3 B={b} {h}x{w} C={c} G={groups} ({tile >> 16} pixels x "
+            f"{tile & 0xffff} channels a CTA, {'wgmma' if tile >> 16 > 64 else 'mma.sync'}): "
+            f"max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {NORM_REL_TOL}); bitwise "
+            f"repeatable {torch.equal(got, again)}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"F.group_norm + F.silu + F.conv2d (3 calls) {library_ms:.4f} ms bound "
+            f"{bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / ms:.1%} of the bound, "
+            f"{2 * 9 * c * c * b * h * w / ms / 1e9:.0f} TFLOP/s [{smi}]")
         assert got.shape == want.shape and got.dtype == torch.bfloat16
         assert bool(torch.isfinite(got.float()).all()), f"non-finite conv at {b, h, w, c}"
         assert torch.equal(got, again), f"gn_silu_conv3x3 differs between two runs at {b, h, w, c}"
@@ -1227,6 +1317,7 @@ def phase16_cache(smi: str, work: str, corpus) -> dict:
     from worddiffusion_tpu_torch.data.dataset import LatentLookup
     from worddiffusion_tpu_torch.data.loader import batches
     from worddiffusion_tpu_torch.models.vae import encode_to_latent
+    from worddiffusion_tpu_torch.ops import ffn
 
     crops, gt, vae_file = corpus
     out = os.path.join(work, "built.npz")
@@ -1238,6 +1329,7 @@ def phase16_cache(smi: str, work: str, corpus) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     gn, conv = norm_counts()[:2]
+    geglu = ffn.geglu_launches
     lookup = LatentLookup.load(out)
     n_batches = -(-N_IMAGES // 64)
 
@@ -1259,7 +1351,44 @@ def phase16_cache(smi: str, work: str, corpus) -> dict:
     assert all(lookup[n].shape == (8, 32, 4) and np.isfinite(lookup[n]).all() for n in names)
     assert (gn, conv) == tuple(k * n_batches for k in ENCODER_NORMS), (gn, conv)
     assert diff <= 1e-6 * scale, f"cache differs from the direct encode: {diff}"
-    return dict(gn=gn, conv=conv, imgs_per_s=N_IMAGES / wall, cache=out)
+    assert geglu == 0, geglu
+    return dict(gn=gn, conv=conv, geglu=geglu, imgs_per_s=N_IMAGES / wall, cache=out)
+
+
+def phase16_ddim_regen(smi: str, cli, gt: str, work: str, vae_file: str) -> dict:
+    """One regeneration batch through the regeneration CLI's main with
+    ``--stable_dif_path`` (phase 16's safetensors VAE, its decode half) and
+    ``--ddim 50``: 50 UNet calls (4 FF, 8 attention, 9 B.5, 12 B.6 launches
+    each), one decode and one OCR call."""
+    import torch
+
+    from worddiffusion_tpu_torch.models.vae import load_diffusers_vae
+    from worddiffusion_tpu_torch.ops import attention, ffn
+    from worddiffusion_tpu_torch.utils.safetensors import load_file
+
+    argv = ["--gt_file", gt, "--dump_path", os.path.join(work, "regen_ddim"), "--batch_size",
+            str(B), "--max_batches", "1", "--keep_rejected", "1", "--seed", "0",
+            "--stable_dif_path", vae_file, "--ddim", "50"]
+    regen, _ = cli.build(cli.build_parser().parse_args(argv))
+    want = load_diffusers_vae(load_file(vae_file), regen.sampler.exp.vae, False).state_dict()
+    got = regen.sampler.vae.state_dict()
+    assert regen.sampler.ddim_steps == 50 and not regen.sampler.vae.with_encoder
+    assert got.keys() == want.keys() and all(torch.equal(got[k].cpu(), want[k]) for k in got)
+    del regen
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = (ffn.launches, attention.launches, *norm_counts()[:2])
+    calls = ffn.launches // 4
+    want_counts = (4 * 50, 8 * 50, 50 * UNET_NORMS[0] + DECODER_NORMS[0] + OCR_NORMS[0],
+                   50 * UNET_NORMS[1] + DECODER_NORMS[1] + OCR_NORMS[1])
+    log(f"regen CLI --ddim 50 --stable_dif_path: {stats.generated} generated in one batch of {B}, "
+        f"{calls} UNet calls; launches (FF, attention, B.5, B.6) {counts} (expect {want_counts}); "
+        f"{wall:.3f} s incl. the CLI's set-up [{smi}]")
+    assert stats.generated == B and calls == 50 and counts == want_counts, (stats, counts)
+    return dict(calls=calls, wall=wall)
 
 
 def phase17_train_images(smi: str, work: str, corpus, cache: str) -> dict:
@@ -1294,8 +1423,8 @@ def phase17_train_images(smi: str, work: str, corpus, cache: str) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    counts = dict(ffn=ffn.launches, ffn_bwd=ffn.bwd_launches, attn=attention.launches,
-                  attn_bwd=attention.bwd_calls,
+    counts = dict(ffn=ffn.launches, ffn_bwd=ffn.bwd_launches, geglu=ffn.geglu_launches,
+                  attn=attention.launches, attn_bwd=attention.bwd_calls,
                   **dict(zip(("gn", "conv", "gn_bwd", "conv_bwd"), norm_counts())))
     changed = {k: (v - initial[k]).abs().max().item()
                for k, v in state.model.state_dict().items()}
@@ -1322,7 +1451,8 @@ def phase17_train_images(smi: str, work: str, corpus, cache: str) -> dict:
     assert max(changed.values()) > 0 and ema_equal
     assert p_norms == [(gn_p, conv_p)] and p_ffn == [4 * 50] and p_attn == [8 * 50]
     assert counts == dict(
-        ffn=4 * steps + 4 * 50, ffn_bwd=4 * steps, attn=8 * steps + 8 * 50, attn_bwd=8 * steps,
+        ffn=4 * steps + 4 * 50, ffn_bwd=4 * steps, geglu=0, attn=8 * steps + 8 * 50,
+        attn_bwd=8 * steps,
         gn=(gn_u + ENCODER_NORMS[0]) * steps + gn_p, conv=(conv_u + ENCODER_NORMS[1]) * steps
         + conv_p, gn_bwd=gn_u * steps, conv_bwd=conv_u * steps), counts
 
@@ -1447,6 +1577,7 @@ def drive_regen(smi: str, regen, samples, seed: int, label: str,
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     got = (ffn.launches, attention.launches, fold_attention.launches, *norm_counts()[:2])
+    geglu = ffn.geglu_launches
 
     dump = regen.out_dir
     n_batches = -(-len(samples) // B)
@@ -1459,7 +1590,7 @@ def drive_regen(smi: str, regen, samples, seed: int, label: str,
         f"gn_silu_conv3x3): {got} (expect ({per_call} x {calls} calls + {per_batch}) x "
         f"{n_batches} batches = {want})")
     assert calls == 120, calls
-    assert got == want, (got, want)
+    assert got == want and geglu == 0, (got, want, geglu)
     assert stats.generated == len(samples) == 40, stats
     assert len(checks) == n_batches, len(checks)
     for finite, ishape, idt, fshape, fdt in checks:
@@ -1473,7 +1604,7 @@ def drive_regen(smi: str, regen, samples, seed: int, label: str,
     first = os.path.join(dump, pngs[0]) if pngs else os.path.join(dump, "rejected", rejected[0])
     assert png_size(first) == (256, 64), png_size(first)
     sampler.decode = decode
-    return dict(zip(("ffn", "attn", "fold", "gn", "conv"), got),
+    return dict(zip(("ffn", "attn", "fold", "gn", "conv"), got), geglu=geglu,
                 s_per_batch=elapsed / n_batches, imgs_per_s=stats.generated / elapsed)
 
 
@@ -1541,8 +1672,8 @@ def main() -> int:
         want = ffn.ln_geglu_ffn_reference(**a)
         err = (got.float() - want.float()).abs().max().item()
         rel = err / want.float().abs().max().item()
-        ms = cuda_ms(lambda: ffn.fused_ln_geglu_ffn(**a))
-        plain_ms = cuda_ms(lambda: ffn.ln_geglu_ffn_reference(**a))
+        ms = launch_ms(lambda: ffn.fused_ln_geglu_ffn(**a))
+        plain_ms = launch_ms(lambda: ffn.ln_geglu_ffn_reference(**a))
         bound_ms, bound_by = ffn_bound(a, got)
         log(f"ffn M={m} d={D} inner={INNER}: max_abs_err {err:.6g} max_rel_err {rel:.6g} "
             f"(tol {FFN_REL_TOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
@@ -1551,6 +1682,8 @@ def main() -> int:
         assert rel <= FFN_REL_TOL, f"kernel disagrees with plain at M={m}: rel {rel}"
         ffn_rows.append(dict(m=m, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by))
+
+    geglu = phase3_geglu(smi)
 
     # The regeneration pipeline as the CLI builds it, on the card.
     work = tempfile.mkdtemp(prefix="wd_chip_smoke_")
@@ -1614,12 +1747,21 @@ def main() -> int:
     # -- 14. GroupNorm (B.5) and GN -> SiLU -> conv3x3 (B.6) kernels vs plain ---------------
     norms = phase14_norms(smi)
 
+    # the redesigned kernels against their library calls at the B=128 shapes
+    a = next(r for r in attn["rows"] if (r["b"], r["nq"], r["nk"]) == (TRAIN_B, 256, 811))
+    convs = {r["shape"][1:4]: r for r in norms["conv_rows"] if r["shape"][0] == TRAIN_B}
+    log(f"redesign targets [{smi}]: attention B={TRAIN_B} Nq=256 Nk=811 {a['ms']:.4f} ms vs "
+        f"scaled_dot_product_attention {a['library_ms']:.4f} ms; gn_silu_conv3x3 B={TRAIN_B} "
+        + "; ".join(f"{h}x{w} C={c} {r['ms']:.4f} ms vs the 3-call sequence {r['library_ms']:.4f} ms"
+                    for (h, w, c), r in convs.items()))
+
     # -- 15. the whole VAE, all kernels vs all plain -------------------------------------
     vae = phase15_vae(smi)
 
     # -- 16. building the latent cache through its CLI ---------------------------------
     images = write_image_corpus(work)
     built = phase16_cache(smi, work, images)
+    phase16_ddim_regen(smi, cli, gt, work, images[2])
 
     # -- 17. training from word images through the train CLI ------------------------------
     train_i = phase17_train_images(smi, work, images, built["cache"])
@@ -1642,6 +1784,9 @@ def main() -> int:
     conv_paths = by_path(regen_iam["conv"], regen_phosc["conv"], regen_fold["conv"],
                          train["conv"], train_p["conv"], train_f["conv"], built["conv"],
                          train_i["conv"])
+    geglu_paths = by_path(regen_iam["geglu"], regen_phosc["geglu"], regen_fold["geglu"],
+                          train["geglu"], train_p["geglu"], train_f["geglu"], built["geglu"],
+                          train_i["geglu"])
     main_row, bwd_row, attn_row = ffn_rows[0], bwd["rows"][0], attn["rows"][0]
     fold_row = fold["rows"][0]
     # B.5's and B.6's rows: the UNet regeneration call's first site (B=16, 8x32)
@@ -1688,6 +1833,11 @@ def main() -> int:
         entry("gn_silu_conv3x3", "worddiffusion_tpu_torch/csrc/gn_silu_conv3x3.cu",
               "bench_kernels/resblock_pallas.py:39", conv_paths, norms["conv_rows"], conv_row,
               conv_row["library_ms"]),
+        # B.2: no path of the port (or of the JAX package) calls it; each
+        # path's run read its count and asserted 0
+        entry("geglu_ffn", "worddiffusion_tpu_torch/csrc/ln_geglu_ffn.cu",
+              "worddiffusion_tpu/ops/ffn_pallas.py:41", geglu_paths,
+              geglu["rows"], geglu["rows"][0], None),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -169,3 +169,70 @@ def test_function_grads_match_plain_and_reach_master_weights(dtype):
         scale = plain[k].float().abs().max().item()
         torch.testing.assert_close(fn[k].float(), plain[k].float(), rtol=0, atol=tol * scale + 1e-12,
                                    msg=k)
+
+
+# -- the bare GEGLU FFN (ffn_pallas.py::fused_geglu_ffn, its _ffn_kernel) ---------------
+
+def _geglu_inputs(m, d, inner, seed):
+    a = _inputs(m, d, inner, seed)
+    return {k: a[k].astype(np.float32) for k in ("x", "w1", "b1", "w2", "b2")}
+
+
+def test_geglu_reference_matches_jax_kernel_fp32():
+    """fp32 at the flagship width (d=320, inner=1280), M = 2*256: the plain
+    version against JAX's fused_geglu_ffn, whose Pallas kernel runs in
+    interpret mode here; other summation orders -> 2e-4 abs, as
+    tests/test_pallas_ops.py allows the kernel against XLA."""
+    from worddiffusion_tpu.ops.ffn_pallas import fused_geglu_ffn
+
+    a = _geglu_inputs(2 * 256, 320, 1280, seed=6)
+    want = np.asarray(fused_geglu_ffn(*(jnp.asarray(a[k]) for k in a)))
+    got = ffn.geglu_ffn_reference(*(torch.from_numpy(a[k]) for k in a)).numpy()
+    assert got.shape == want.shape == (512, 320)
+    assert np.abs(got - want).max() <= 2e-4
+
+
+def test_geglu_reference_matches_jax_kernel_bf16_ragged():
+    """bf16 x and weights at a ragged M=100 (the JAX kernel pads it to its
+    row tile, the port masks): the same dtype contract (fp32 products and
+    GEGLU, one bf16 rounding of act and of the output) -> 1% of max |JAX|."""
+    from worddiffusion_tpu.ops.ffn_pallas import fused_geglu_ffn
+
+    a = _geglu_inputs(100, 64, 256, seed=7)
+    bf = ("x", "w1", "w2")
+    want = fused_geglu_ffn(*(jnp.asarray(a[k], jnp.bfloat16 if k in bf else jnp.float32)
+                             for k in a), block_m=64)
+    want = np.asarray(want.astype(jnp.float32))
+    got = ffn.geglu_ffn_reference(*(torch.from_numpy(a[k]).to(
+        torch.bfloat16 if k in bf else torch.float32) for k in a))
+    assert got.dtype == torch.bfloat16
+    assert np.abs(got.float().numpy() - want).max() <= 1e-2 * np.abs(want).max()
+
+
+def test_geglu_function_grads_match_jax_fp32():
+    """The GegluFFN Function's gradients on the CPU against
+    jax.grad(fused_geglu_ffn) (its custom_vjp differentiates _xla_baseline)
+    at d=32, inner=64, fp32: 1e-4 abs, as tests/test_pallas_ops.py."""
+    import jax
+
+    from worddiffusion_tpu.ops.ffn_pallas import fused_geglu_ffn
+
+    a = _geglu_inputs(8, 32, 64, seed=8)
+    names = tuple(a)
+    want = jax.grad(lambda *t: jnp.sum(fused_geglu_ffn(*t)), argnums=tuple(range(5)))(
+        *(jnp.asarray(a[k]) for k in names))
+    leaves = [torch.from_numpy(a[k]).requires_grad_() for k in names]
+    ffn.fused_geglu_ffn(*leaves).sum().backward()
+    for name, t, w in zip(names, leaves, want):
+        assert t.grad.dtype == torch.float32 and t.grad.shape == t.shape, name
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=0, atol=1e-4,
+                                   err_msg=name)
+
+
+def test_geglu_takes_plain_path_on_cpu_and_refuses_other_devices():
+    t = [torch.from_numpy(v) for v in _geglu_inputs(100, 64, 256, seed=9).values()]
+    out = ffn.fused_geglu_ffn(*t)
+    torch.testing.assert_close(out, ffn.geglu_ffn_reference(*t), rtol=0, atol=0)
+    assert ffn.geglu_launches == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        ffn.fused_geglu_ffn(*(v.to("meta") for v in t))

@@ -76,6 +76,65 @@ def test_kernel_refuses_what_it_does_not_take(cuda, bad):
     assert ffn.launches == before
 
 
+@pytest.mark.parametrize("m", [16 * 256, 128 * 256, 1000])
+def test_geglu_kernel_matches_plain(cuda, m):
+    """B.2, the bare GEGLU FFN launch mode (no LayerNorm, no residual): the
+    kernel keeps the hidden in fp32 as the plain version does; the two differ
+    in the order of the fp32 sums -> within 1% of max |out|; bitwise
+    repeatable."""
+    t = _inputs(m, cuda, seed=5)
+    a = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"])
+    before = ffn.geglu_launches
+    got, again = ffn.fused_geglu_ffn(*a), ffn.fused_geglu_ffn(*a)
+    torch.cuda.synchronize()
+    assert ffn.geglu_launches == before + 2
+    want = ffn.geglu_ffn_reference(*a)
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape and torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("bad", ["fp32_x", "strided_x", "b2_dtype", "narrow_inner", "wide_d"])
+def test_geglu_kernel_refuses_what_it_does_not_take(cuda, bad):
+    t = _inputs(64, cuda)
+    if bad == "fp32_x":
+        t["x"] = t["x"].float()
+    elif bad == "strided_x":
+        t["x"] = torch.cat([t["x"], t["x"]], dim=1)[:, ::2]
+    elif bad == "b2_dtype":
+        t["b2"] = t["b2"].bfloat16()
+    elif bad == "narrow_inner":
+        t["w1"], t["b1"] = t["w1"][:, :2 * 96].contiguous(), t["b1"][:2 * 96].contiguous()
+        t["w2"] = t["w2"][:96].contiguous()
+    else:
+        t["x"] = torch.zeros(64, 368, dtype=torch.bfloat16, device=cuda)
+        t["w1"] = torch.zeros(368, 2 * INNER, dtype=torch.bfloat16, device=cuda)
+        t["w2"] = torch.zeros(INNER, 368, dtype=torch.bfloat16, device=cuda)
+        t["b2"] = torch.zeros(368, device=cuda)
+    before = ffn.geglu_launches
+    with pytest.raises(ValueError):
+        ffn.fused_geglu_ffn(t["x"], t["w1"], t["b1"], t["w2"], t["b2"])
+    assert ffn.geglu_launches == before
+
+
+def test_geglu_function_grads_are_autograd_of_the_unfused_composition(cuda):
+    """The Function's backward is autograd of geglu_ffn_xla_baseline on the
+    saved inputs (what JAX's custom_vjp differentiates): bitwise the same
+    gradients, each in its input's dtype."""
+    t = _inputs(8 * 256, cuda, seed=6)
+    names = ("x", "w1", "b1", "w2", "b2")
+    dy = (0.1 * torch.randn(8 * 256, D, generator=torch.Generator().manual_seed(7)))
+    dy = dy.bfloat16().to(cuda)
+    grads = []
+    for fn in (ffn.fused_geglu_ffn, ffn.geglu_ffn_xla_baseline):
+        leaves = [t[k].clone().requires_grad_() for k in names]
+        fn(*leaves).backward(dy)
+        grads.append([v.grad for v in leaves])
+    torch.cuda.synchronize()
+    for name, a, b in zip(names, *grads):
+        assert a.dtype == t[name].dtype and torch.equal(a, b), name
+
+
 def _bwd_inputs(m, device, seed=0):
     t = _inputs(m, device, seed)
     t.pop("b2")
@@ -166,7 +225,8 @@ def test_block_backward_goes_through_the_kernels(cuda):
 # PHOSC tokens), at the regeneration batch of 16 and the training batch of
 # 128, and a ragged case; 4 heads of 80.
 ATTN_SHAPES = [(16, 256, 42), (16, 64, 42), (16, 256, 256), (16, 64, 64), (16, 256, 811),
-               (16, 64, 811), (128, 256, 42), (128, 256, 811), (128, 64, 811), (2, 40, 13)]
+               (16, 64, 811), (128, 256, 42), (128, 64, 42), (128, 256, 256), (128, 64, 64),
+               (128, 256, 811), (128, 64, 811), (2, 40, 13)]
 
 
 def _qkv(b, nq, nk, device, d=80, seed=0):
@@ -176,7 +236,9 @@ def _qkv(b, nq, nk, device, d=80, seed=0):
 
 @pytest.mark.parametrize("b,nq,nk", ATTN_SHAPES)
 def test_attention_kernel_matches_plain(cuda, b, nq, nk):
-    """bf16 out: the two differ in the order of the fp32 sums, which can
+    """bf16 out: the two differ in the order of the fp32 sums, and the
+    one-pass kernel rounds exp(s - running max) to bf16 before it
+    normalises, where the plain version rounds the normalised p: each can
     move one bf16 rounding -> within 1% of max |out|; bitwise repeatable."""
     from worddiffusion_tpu_torch.ops import attention
 
@@ -193,7 +255,23 @@ def test_attention_kernel_matches_plain(cuda, b, nq, nk):
     assert err <= 1e-2 * want.float().abs().max().item(), err
 
 
-@pytest.mark.parametrize("bad", ["fp32", "d_72", "non_contiguous", "nk_over_limit"])
+@pytest.mark.parametrize("nq,nk", [(256, 2048), (100, 1500)])
+def test_attention_kernel_takes_long_contexts(cuda, nq, nk):
+    """The one-pass kernel has no limit on Nk: 2048 keys (and a ragged
+    1500 under a ragged Nq), within 1% of plain, bitwise repeatable."""
+    from worddiffusion_tpu_torch.ops import attention
+
+    q, k, v = _qkv(4, nq, nk, cuda, seed=1)
+    got = attention.fused_attention(q, k, v, 80 ** -0.5)
+    again = attention.fused_attention(q, k, v, 80 ** -0.5)
+    torch.cuda.synchronize()
+    want = attention.attention_reference(q, k, v, 80 ** -0.5)
+    assert torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("bad", ["fp32", "d_72", "non_contiguous", "nk_zero"])
 def test_attention_refuses_what_it_does_not_take(cuda, bad):
     from worddiffusion_tpu_torch.ops import attention
 
@@ -205,7 +283,7 @@ def test_attention_refuses_what_it_does_not_take(cuda, bad):
     elif bad == "non_contiguous":
         q = q.transpose(1, 2).contiguous().transpose(1, 2)  # [B, N, H, D] memory
     else:
-        q, k, v = _qkv(1, 16, attention._lib().wd_attention_max_nk() + 1, cuda)
+        q, k, v = _qkv(1, 16, 0, cuda)
     before = attention.launches
     with pytest.raises(ValueError):
         attention.fused_attention(q, k, v, 0.1)
@@ -395,11 +473,17 @@ def test_groupnorm_kernel_matches_plain(cuda, b, h, w, c, groups, silu):
     assert err <= 1e-2 * want.float().abs().max().item(), err
 
 
-# GN -> SiLU -> conv3x3, B.6: the UNet's two resolutions at B=16 and 128, the
-# VAE's four levels, a ragged image (5 x 13) and a ragged width (C=48).
-CONV_SHAPES = [(16, 8, 32, 320, 32), (128, 8, 32, 320, 32), (128, 4, 16, 320, 32),
+# GN -> SiLU -> conv3x3, B.6: chip_smoke.py's sites (the UNet's two resolutions
+# at B=16 and 128, the VAE decoder's levels at B=16 and the encoder's at B=128),
+# the VAE's levels at B=4, a ragged image (5 x 13) and a ragged width (C=48).
+# They take every tile the kernel has: 256 and 128 pixels (wgmma) and 64 pixels
+# (mma.sync), 128, 160 and 64 channels.
+CONV_SHAPES = [(16, 8, 32, 320, 32), (16, 4, 16, 320, 32), (128, 8, 32, 320, 32),
+               (128, 4, 16, 320, 32), (16, 8, 32, 512, 32), (16, 16, 64, 512, 32),
+               (16, 32, 128, 256, 32), (16, 64, 256, 128, 32), (128, 64, 256, 128, 32),
+               (128, 32, 128, 256, 32), (128, 16, 64, 512, 32), (128, 8, 32, 512, 32),
                (4, 64, 256, 128, 32), (4, 32, 128, 256, 32), (4, 16, 64, 512, 32),
-               (16, 8, 32, 512, 32), (2, 5, 13, 64, 32), (2, 5, 13, 48, 48)]
+               (2, 5, 13, 64, 32), (2, 5, 13, 48, 48)]
 
 
 def _conv_inputs(b, h, w, c, device, seed=0):

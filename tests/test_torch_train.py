@@ -8,6 +8,7 @@ JAX's draws of t, noise and the CFG keep flag are handed to the port
 their gradients) onto the port's parameter names.
 """
 
+import dataclasses
 import os
 
 import jax
@@ -84,8 +85,8 @@ def _jax_params(seed=3):
         lambda s: (0.05 * rng.standard_normal(s.shape)).astype(np.float32), shapes)
 
 
-def _port_model(params):
-    m = UNet(port_cfg(CFG))
+def _port_model(params, cfg=CFG):
+    m = UNet(port_cfg(cfg))
     m.load_state_dict(state_dict_to_torch(export_reference_unet(params, CFG)), strict=True)
     return m
 
@@ -133,12 +134,16 @@ def test_ddim_matches_jax(steps):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("drop_prob,warmup", [(0.1, 0), (1.0, 5)])
-def test_train_step_matches_jax(drop_prob, warmup):
+@pytest.mark.parametrize("drop_prob,warmup,dropout", [(0.1, 0, 0.0), (1.0, 5, 0.0),
+                                                       (0.1, 0, 0.1)],
+                         ids=["0.1-0", "1.0-5", "0.1-0-dropout0.1"])
+def test_train_step_matches_jax(drop_prob, warmup, dropout):
     """One step under fp32: loss, every gradient, the parameters after
     AdamW and the EMA, against JAX's make_train_step on the same
     weights, batch and draws. drop_prob 1.0 drops the writer embedding
-    (keep = 0) and warmup 5 takes the EMA's reset branch.
+    (keep = 0) and warmup 5 takes the EMA's reset branch. dropout 0.1:
+    JAX's step applies the UNet with deterministic=True, so the port's
+    UNet (in train mode) must apply no dropout either.
 
     Tolerances: loss 1e-5 relative; each gradient 1e-4 of its largest
     entry (fp32, other summation orders through a 4-block UNet), floored
@@ -156,11 +161,12 @@ def test_train_step_matches_jax(drop_prob, warmup):
     that a dropped or coupled decay exceeds the tolerance; the test
     asserts that it does for most entries."""
     exp = tiny_exp(cfg_drop_prob=drop_prob, ema_warmup_steps=warmup, lr=1e-3, weight_decay=1.0)
+    exp = exp.replace(unet=dataclasses.replace(CFG, dropout=dropout))
     sched = NoiseSchedule.linear(T)
     params = _jax_params()
     batch = _batch()
 
-    jmodel = JaxUNet(CFG)
+    jmodel = JaxUNet(exp.unet)
     rng = jax.random.PRNGKey(7)
     step_rng = jax.random.fold_in(rng, 0)  # make_train_step folds in state.step = 0
     loss_fn = jstep.make_loss_fn(jmodel, sched, exp)
@@ -179,7 +185,8 @@ def test_train_step_matches_jax(drop_prob, warmup):
     noise = np.asarray(jax.random.normal(n_rng, (2, 8, 32, 4), jnp.float32))
     keep = float(jax.random.uniform(d_rng, ()) >= drop_prob)
 
-    model = _port_model(params)
+    model = _port_model(params, exp.unet)
+    assert model.training
     state = TrainState.create(model, make_optimizer(model.parameters(), exp.train.lr,
                                                     exp.train.weight_decay))
     draws = StepDraws(torch.from_numpy(t.copy()).long(), torch.from_numpy(noise.copy()),

@@ -5,11 +5,21 @@ OCR-filtered, resumable dataset regeneration on one GPU.
         --torch_ckpt unet.pt --vae_pt vae.pt --ocr_pt ocr.pt --dump_path ./regen
 
 ``--torch_ckpt`` is a reference-keyed UNet state dict, as
-``worddiffusion_tpu.cli.export_torch`` writes from a JAX run;
-``--vae_pt`` / ``--ocr_pt`` are ``torch.save``d state dicts in the
-port's keys (``models.convert.jax_vae_to_torch(..., decoder_only=True)``
-and ``jax_ocr_to_torch``). Each weight set that is not given is a
-seeded random initialisation, with a warning.
+``worddiffusion_tpu.cli.export_torch`` writes from a JAX run (or the
+``ema_unet.pt`` of the port's train CLI). The VAE's decode half comes
+from a diffusers ``--stable_dif_path`` safetensors file or from
+``--vae_pt``, a ``torch.save``d state dict in the port's keys (full or
+decoder-only, ``models.convert.jax_vae_to_torch``); ``--ocr_pt`` is one
+of the CTC recognizer (``jax_ocr_to_torch``). Each weight set that is
+not given is a seeded random initialisation, with a warning.
+``--ddim N`` samples with N deterministic DDIM steps instead of the DDPM
+schedules.
+
+Every option of the JAX CLI is here. The orbax directories
+(``--ckpt_dir``, ``--vae_ckpt``, ``--ocr_ckpt``) are converted offline
+by the JAX package, so they, ``--use_ema 0`` (the exported file is one
+parameter set) and the unported model paths (``--hiGanArch 1``,
+``--latent 0``) raise with the reason.
 """
 
 from __future__ import annotations
@@ -34,14 +44,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=256)
     p.add_argument("--fullSampling", type=int, default=0,
                    help="1: full 599 model calls, stochastic; 0: skip-step schedule")
+    p.add_argument("--ddim", type=int, default=0,
+                   help="DDIM with N steps instead of the DDPM schedules")
     p.add_argument("--keep_rejected", type=int, default=0,
                    help="also write OCR-rejected images under <dump_path>/rejected")
     p.add_argument("--epoch", type=int, default=0, help="skip-schedule epoch knob")
     p.add_argument("--sidChange", type=int, default=0)
-    p.add_argument("--vae_pt", default="", help="VAE decoder state dict (port keys)")
+    p.add_argument("--stable_dif_path", default="", help="diffusers VAE (safetensors)")
+    p.add_argument("--vae_pt", default="",
+                   help="VAE state dict in the port's keys (full or decoder-only)")
     p.add_argument("--ocr_pt", default="", help="CTCRecognizer state dict (port keys)")
     p.add_argument("--no_ocr_filter", type=int, default=0)
     p.add_argument("--flagGen", default="", help="stop-flag file")
+    p.add_argument("--ckpt_dir", default="", help="orbax checkpoint (not readable here)")
+    p.add_argument("--use_ema", type=int, default=1,
+                   help="the --torch_ckpt file holds one parameter set; 0 is refused")
+    p.add_argument("--ocr_ckpt", default="", help="orbax OCR checkpoint (not readable here)")
+    p.add_argument("--vae_ckpt", default="", help="orbax VAE checkpoint (not readable here)")
+    p.add_argument("--hiGanArch", type=int, default=0)
+    p.add_argument("--latent", type=int, default=1)
     p.add_argument("--partialLoad", type=float, default=0.0)
     p.add_argument("--max_batches", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)
@@ -84,6 +105,30 @@ def _writer_registry(writers_dict: str, samples, gt_registry):
     return registry
 
 
+_CONVERT = "python -m worddiffusion_tpu.cli.export_torch (the JAX package)"
+
+
+def _refuse_unported(args) -> None:
+    """The JAX CLI's options that this one cannot honour, with the reason."""
+    offline = {
+        "--ckpt_dir": (args.ckpt_dir, f"convert it with {_CONVERT} and pass --torch_ckpt"),
+        "--vae_ckpt": (args.vae_ckpt, "convert it with models.convert.jax_vae_to_torch and "
+                                      "pass --vae_pt"),
+        "--ocr_ckpt": (args.ocr_ckpt, "convert it with models.convert.jax_ocr_to_torch and "
+                                      "pass --ocr_pt"),
+    }
+    for flag, (value, how) in offline.items():
+        if value:
+            raise SystemExit(f"{flag} is an orbax checkpoint, which the port does not read: {how}")
+    if not args.use_ema:
+        raise SystemExit(f"--use_ema 0: --torch_ckpt holds one parameter set; pick it when "
+                         f"exporting ({_CONVERT} --use_ema 0)")
+    if args.hiGanArch:
+        raise NotImplementedError("--hiGanArch 1 (the HiGAN+ denoiser) is not ported yet")
+    if not args.latent:
+        raise NotImplementedError("--latent 0 (pixel-space sampling) is not ported yet")
+
+
 def build(args):
     """Everything but the run: -> (Regenerator, samples)."""
     import torch
@@ -96,19 +141,25 @@ def build(args):
     from ..generate.sample import WordSampler
     from ..models.ocr import CTCRecognizer
     from ..models.unet import UNet
-    from ..models.vae import AutoencoderKL
+    from ..models.vae import make_vae
 
+    _refuse_unported(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
 
     exp = presets.get(args.preset)
     unet = _load_or_init(UNet(exp.unet), args.torch_ckpt, "UNet", args.seed).to(device)
-    vae = _load_or_init(AutoencoderKL(exp.vae), args.vae_pt, "VAE", args.seed).to(device)
+    vae = make_vae(exp.vae, args.stable_dif_path, args.vae_pt, with_encoder=False,
+                   seed=args.seed).to(device)
     mask = regen_call_mask(exp.diffusion.num_steps, epoch=args.epoch,
                            full_sampling=bool(args.fullSampling))
-    logging.info("denoiser calls per batch: %d of %d steps",
-                 int(mask[1:].sum()), exp.diffusion.num_steps - 1)
+    # the JAX CLI's log of the reference's modelCall counter
+    if args.ddim:
+        logging.info("denoiser calls per batch: %d (DDIM)", args.ddim)
+    else:
+        logging.info("denoiser calls per batch: %d of %d steps",
+                     int(mask[1:].sum()), exp.diffusion.num_steps - 1)
 
     ocr_alphabet = {"nor": OCR_NOR, "cvl": OCR_CVL}.get(exp.data.alphabet, OCR_ENG)
     ocr = None
@@ -119,8 +170,9 @@ def build(args):
         ocr = _load_or_init(CTCRecognizer(num_classes=len(ocr_alphabet)), args.ocr_pt,
                             "OCR", args.seed).to(device).eval()
 
-    sampler = WordSampler(exp, unet, vae, call_mask=mask,
-                          stochastic=bool(args.fullSampling), ocr_apply=ocr)
+    sampler = WordSampler(exp, unet, vae, call_mask=None if args.ddim else mask,
+                          stochastic=bool(args.fullSampling), ocr_apply=ocr,
+                          ddim_steps=args.ddim)
     samples, gt_registry = parse_gt(args.gt_file, partial_load=args.partialLoad)
     registry = _writer_registry(args.writers_dict, samples, gt_registry)
     regen = Regenerator(

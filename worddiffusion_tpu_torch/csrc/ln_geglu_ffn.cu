@@ -32,6 +32,15 @@
 //     memory, then accumulates out[64, d] += act . W2[chunk, :] in wmma
 //     accumulator fragments that stay in registers across the whole loop;
 //   - epilogue: + b2 + the fp32 residual, stored as bf16.
+//
+// A second launch mode, wd_geglu_ffn, replaces the Pallas TPU kernel
+// worddiffusion_tpu/ops/ffn_pallas.py::_ffn_kernel (reached through
+// fused_geglu_ffn -> _geglu_ffn_pallas -> _run_ffn_pallas -> pl.pallas_call):
+// the bare GEGLU feed-forward out = bf16(act . W2 + b2), with no LayerNorm and
+// no residual. The x tile goes into the xn buffer as it is (16-byte copies)
+// and the epilogue leaves the residual out; everything else is shared. It is
+// bound the same way: 6*M*d*inner operations on the tensor cores against
+// 4*M*d bytes of x and out, far above the ridge.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,6 +106,9 @@ using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::ro
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
+// LN: the LayerNorm + residual sub-layer (_ln_ffn_kernel); otherwise the bare
+// FFN (_ffn_kernel), which reads neither gamma, beta nor eps.
+template <bool LN>
 __global__ void __launch_bounds__(THREADS, 1)
 ln_geglu_ffn_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gamma,
                     const float* __restrict__ beta, const __nv_bfloat16* __restrict__ w1,
@@ -116,8 +128,19 @@ ln_geglu_ffn_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int row0 = blockIdx.x * BM;
 
+  if (!LN) {
+    // The x tile as it is, 16 bytes a thread. Rows past M are zero-filled.
+    const int row_vecs = d / 8;
+    for (int v = tid; v < BM * row_vecs; v += THREADS) {
+      const int r = v / row_vecs, vec = v - r * row_vecs;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (row0 + r < M)
+        val = *reinterpret_cast<const uint4*>(x + size_t(row0 + r) * d + vec * 8);
+      *reinterpret_cast<uint4*>(xn_s + r * L.ldx + vec * 8) = val;
+    }
+  }
   // LayerNorm: one warp per row. Rows past M are zero-filled; they are never stored.
-  for (int r = warp; r < BM; r += WARPS) {
+  for (int r = warp; LN && r < BM; r += WARPS) {
     __nv_bfloat16* dst = xn_s + r * L.ldx;
     const int gr = row0 + r;
     if (gr < M) {
@@ -225,7 +248,8 @@ ln_geglu_ffn_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
   }
 
   // Epilogue: the fp32 tile goes through shared memory (it reuses the W1 staging
-  // area), then + b2 + fp32 residual, stored as bf16 for the rows below M.
+  // area), then + b2 (+ the fp32 residual with LN), stored as bf16 for the rows
+  // below M.
 #pragma unroll
   for (int i = 0; i < MAX_TILES; ++i) {
     const int ct = pcol0 + 2 * i;
@@ -239,9 +263,30 @@ ln_geglu_ffn_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict
     const int gr = row0 + r;
     if (gr < M) {
       const size_t gi = size_t(gr) * d + c;
-      out[gi] = __float2bfloat16(__bfloat162float(x[gi]) + (out_s[r * L.ldo + c] + b2[c]));
+      const float y = out_s[r * L.ldo + c] + b2[c];
+      out[gi] = __float2bfloat16(LN ? __bfloat162float(x[gi]) + y : y);
     }
   }
+}
+
+template <bool LN>
+int launch(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1,
+           const void* w2, const void* b2, void* out, int M, int d, int inner, float eps,
+           void* stream) {
+  if (M <= 0) return cudaSuccess;
+  if (d <= 0 || d % 16 || d > 2 * MAX_TILES * 16 || inner <= 0 || inner % NC)
+    return cudaErrorInvalidValue;
+  const size_t smem = make_layout(d).total;
+  cudaError_t err = cudaFuncSetAttribute(
+      ln_geglu_ffn_kernel<LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((M + BM - 1) / BM);
+  ln_geglu_ffn_kernel<LN><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
+      static_cast<const float*>(beta), static_cast<const __nv_bfloat16*>(w1),
+      static_cast<const float*>(b1), static_cast<const __nv_bfloat16*>(w2),
+      static_cast<const float*>(b2), static_cast<__nv_bfloat16*>(out), M, d, inner, eps);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -251,24 +296,19 @@ extern "C" {
 // Largest feature width the kernel takes (its per-warp accumulator budget).
 int wd_ln_geglu_ffn_max_d() { return 2 * MAX_TILES * 16; }
 
-// Launches the kernel on `stream`; returns the CUDA error code (0 on success).
+// Launches the LN + FFN + residual kernel on `stream`; returns the CUDA error
+// code (0 on success).
 int wd_ln_geglu_ffn(const void* x, const void* gamma, const void* beta, const void* w1,
                     const void* b1, const void* w2, const void* b2, void* out, int M, int d,
                     int inner, float eps, void* stream) {
-  if (M <= 0) return cudaSuccess;
-  if (d <= 0 || d % 16 || d > 2 * MAX_TILES * 16 || inner <= 0 || inner % NC)
-    return cudaErrorInvalidValue;
-  const size_t smem = make_layout(d).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_geglu_ffn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((M + BM - 1) / BM);
-  ln_geglu_ffn_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const __nv_bfloat16*>(w1),
-      static_cast<const float*>(b1), static_cast<const __nv_bfloat16*>(w2),
-      static_cast<const float*>(b2), static_cast<__nv_bfloat16*>(out), M, d, inner, eps);
-  return cudaGetLastError();
+  return launch<true>(x, gamma, beta, w1, b1, w2, b2, out, M, d, inner, eps, stream);
+}
+
+// The bare GEGLU FFN, out = act . W2 + b2 (no LayerNorm, no residual), with the
+// same operands and constraints; x must be 16-byte aligned.
+int wd_geglu_ffn(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
+                 void* out, int M, int d, int inner, void* stream) {
+  return launch<false>(x, nullptr, nullptr, w1, b1, w2, b2, out, M, d, inner, 0.f, stream);
 }
 
 const char* wd_cuda_error_string(int code) {

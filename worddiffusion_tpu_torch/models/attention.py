@@ -60,10 +60,12 @@ def fold_weights(context, wq, wk, wv, wo, heads, dim_head, dtype):
 
 class CrossAttention(nn.Module):
     """Multi-head attention: no q/k/v biases, output projection with bias
-    (reference keys ``to_q``, ``to_k``, ``to_v``, ``to_out.0``)."""
+    (reference keys ``to_q``, ``to_k``, ``to_v``, ``to_out.0``; the
+    reference's Dropout after ``to_out.0`` is inert in JAX, which applies it
+    with ``deterministic=True``, and is left out)."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None,
-                 heads: int = 8, dim_head: int = 64, dropout: float = 0.0):
+                 heads: int = 8, dim_head: int = 64):
         super().__init__()
         inner = heads * dim_head
         context_dim = context_dim or query_dim
@@ -71,7 +73,7 @@ class CrossAttention(nn.Module):
         self.to_q = Dense(query_dim, inner, bias=False)
         self.to_k = Dense(context_dim, inner, bias=False)
         self.to_v = Dense(context_dim, inner, bias=False)
-        self.to_out = nn.Sequential(Dense(inner, query_dim), nn.Dropout(dropout))
+        self.to_out = nn.Sequential(Dense(inner, query_dim))
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         context = x if context is None else context
@@ -112,7 +114,7 @@ class BasicTransformerBlock(nn.Module):
     takes the unfolded path."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int,
-                 context_dim: Optional[int] = None, dropout: float = 0.0,
+                 context_dim: Optional[int] = None,
                  attn1_cross: bool = True, dtype: torch.dtype = torch.bfloat16,
                  use_pallas_ffn: Optional[bool] = None, fold_context: bool = False):
         super().__init__()
@@ -121,9 +123,9 @@ class BasicTransformerBlock(nn.Module):
         self.use_pallas_ffn = use_pallas_ffn
         self.fold_context = fold_context
         self.attn1 = CrossAttention(dim, context_dim if attn1_cross else None,
-                                    n_heads, d_head, dropout)
-        self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head, dropout)
-        self.ff = FeedForward(dim, dropout=dropout)
+                                    n_heads, d_head)
+        self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head)
+        self.ff = FeedForward(dim)
         if not attn1_cross:
             self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
@@ -166,7 +168,7 @@ class SpatialTransformer(nn.Module):
     + residual. NCHW in and out; [B, H*W, C] tokens inside."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
-                 context_dim: Optional[int] = None, dropout: float = 0.0,
+                 context_dim: Optional[int] = None,
                  attn1_cross: bool = True, dtype: torch.dtype = torch.bfloat16,
                  use_pallas_ffn: Optional[bool] = None, fold_context: bool = False):
         super().__init__()
@@ -174,7 +176,7 @@ class SpatialTransformer(nn.Module):
         self.norm = GroupNorm32(in_channels)
         self.proj_in = Conv2D(in_channels, inner, 1)
         self.transformer_blocks = nn.ModuleList([
-            BasicTransformerBlock(inner, n_heads, d_head, context_dim, dropout,
+            BasicTransformerBlock(inner, n_heads, d_head, context_dim,
                                   attn1_cross, dtype, use_pallas_ffn, fold_context)
             for _ in range(depth)
         ])

@@ -116,12 +116,14 @@ class GEGLU(nn.Module):
 class FeedForward(nn.Module):
     """Transformer FF with GEGLU gating, mult 4 (reference keys
     ``net.0.proj``, ``net.2``). ``BasicTransformerBlock`` runs the whole
-    FF sub-layer through ``ops.ffn`` over these parameters."""
+    FF sub-layer through ``ops.ffn`` over these parameters. ``net.1`` is
+    the reference's Dropout slot, a no-op: JAX applies it with
+    ``deterministic=True`` in training and in sampling."""
 
-    def __init__(self, dim: int, mult: int = 4, dropout: float = 0.0):
+    def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         inner = dim * mult
-        self.net = nn.Sequential(GEGLU(dim, inner), nn.Dropout(dropout), Dense(inner, dim))
+        self.net = nn.Sequential(GEGLU(dim, inner), nn.Identity(), Dense(inner, dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net(x)

@@ -40,14 +40,16 @@ class ResBlock(nn.Module):
     """GroupNorm-SiLU-conv residual block with the timestep embedding
     added between the convs (reference keys ``in_layers``,
     ``emb_layers``, ``out_layers``, ``skip_connection``; the Sequentials
-    hold the parameters, ``forward`` runs the fused ops on them)."""
+    hold the parameters, ``forward`` runs the fused ops on them).
+    ``out_layers.2`` is the reference's Dropout slot, a no-op: JAX applies
+    the UNet with ``deterministic=True`` in training and in sampling."""
 
-    def __init__(self, in_ch: int, out_ch: int, emb_dim: int, dropout: float = 0.0):
+    def __init__(self, in_ch: int, out_ch: int, emb_dim: int):
         super().__init__()
         self.in_layers = nn.Sequential(GroupNorm32(in_ch), nn.SiLU(), Conv2D(in_ch, out_ch))
         self.emb_layers = nn.Sequential(nn.SiLU(), Dense(emb_dim, out_ch))
         self.out_layers = nn.Sequential(
-            GroupNorm32(out_ch), nn.SiLU(), nn.Dropout(dropout),
+            GroupNorm32(out_ch), nn.SiLU(), nn.Identity(),
             Conv2D(out_ch, out_ch, zero_init=True),
         )
         self.skip_connection = Conv2D(in_ch, out_ch, 1) if in_ch != out_ch else nn.Identity()
@@ -55,8 +57,7 @@ class ResBlock(nn.Module):
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         # each GroupNorm -> SiLU -> conv runs as one fused op on the
         # Sequentials' parameters (B.6 where the conv keeps the width, else
-        # B.5 + SiLU then the conv); Dropout is 0 (training with dropout
-        # raises in UNet.forward)
+        # B.5 + SiLU then the conv)
         h = gn_silu_conv(self.in_layers[0], self.in_layers[2], x)
         h = h + self.emb_layers(emb)[:, :, None, None]
         return self.skip_connection(x) + gn_silu_conv(self.out_layers[0], self.out_layers[3], h)
@@ -102,7 +103,7 @@ class UNet(nn.Module):
         def st(ch):
             return SpatialTransformer(
                 ch, cfg.num_heads, ch // cfg.num_heads, cfg.transformer_depth,
-                cfg.context_dim, cfg.dropout, cfg.attn1_cross, self.dtype,
+                cfg.context_dim, cfg.attn1_cross, self.dtype,
                 cfg.use_pallas_ffn, bool(cfg.attn_fold_context),
             )
 
@@ -111,7 +112,7 @@ class UNet(nn.Module):
         ch, ds = mc, 1
         for level, mult in enumerate(cfg.channel_mult):
             for _ in range(cfg.num_res_blocks):
-                layers = [ResBlock(ch, mult * mc, ted, cfg.dropout)]
+                layers = [ResBlock(ch, mult * mc, ted)]
                 ch = mult * mc
                 if ds in cfg.attention_resolutions:
                     layers.append(st(ch))
@@ -123,13 +124,13 @@ class UNet(nn.Module):
                 ds *= 2
 
         self.middle_block = TimestepBlock([
-            ResBlock(ch, ch, ted, cfg.dropout), st(ch), ResBlock(ch, ch, ted, cfg.dropout),
+            ResBlock(ch, ch, ted), st(ch), ResBlock(ch, ch, ted),
         ])
 
         self.output_blocks = nn.ModuleList()
         for level, mult in reversed(list(enumerate(cfg.channel_mult))):
             for i in range(cfg.num_res_blocks + 1):
-                layers = [ResBlock(ch + chans.pop(), mc * mult, ted, cfg.dropout)]
+                layers = [ResBlock(ch + chans.pop(), mc * mult, ted)]
                 ch = mc * mult
                 if ds in cfg.attention_resolutions:
                     layers.append(st(ch))
@@ -154,8 +155,6 @@ class UNet(nn.Module):
         given = [k for k, v in conditioning.items() if v is not None]
         if given:
             raise NotImplementedError(f"UNet conditioning not ported yet: {given}")
-        if self.training and self.cfg.dropout > 0:
-            raise NotImplementedError("UNet training (dropout) is not ported yet")
         cfg, dtype = self.cfg, self.dtype
         emb = self.time_embed(timestep_embedding(t, cfg.model_channels).to(dtype))
         if writer_id is not None:

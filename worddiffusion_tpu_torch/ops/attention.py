@@ -83,15 +83,16 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wd_attention.argtypes = [p] * 4 + [i] * 4 + [ctypes.c_float, p]
     lib.wd_attention.restype = i
-    for fn in ("wd_attention_max_d", "wd_attention_max_nk"):
-        getattr(lib, fn).argtypes = []
-        getattr(lib, fn).restype = i
+    lib.wd_attention_max_d.argtypes = []
+    lib.wd_attention_max_d.restype = i
+    lib.wd_attention_tile_rows.argtypes = [i, i]
+    lib.wd_attention_tile_rows.restype = i
     lib.wd_cuda_error_string.argtypes = [i]
     lib.wd_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check_operands(q, k, v, max_d, max_nk):
+def _check_operands(q, k, v, max_d):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(
             f"fused_attention: q, k, v must be [B, H, N, D], got {tuple(q.shape)}, "
@@ -102,10 +103,10 @@ def _check_operands(q, k, v, max_d, max_nk):
         raise ValueError(
             f"fused_attention: k and v must be [{b}, {h}, Nk, {d}], got {tuple(k.shape)} "
             f"and {tuple(v.shape)}")
-    if d % 16 or d > max_d or not 1 <= nk <= max_nk:
+    if d % 16 or d > max_d or nk < 1:
         raise ValueError(
-            f"fused_attention: kernel needs D % 16 == 0, D <= {max_d} and "
-            f"1 <= Nk <= {max_nk}; got D={d}, Nk={nk}")
+            f"fused_attention: kernel needs D % 16 == 0, D <= {max_d} and Nk >= 1; "
+            f"got D={d}, Nk={nk}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"fused_attention: {name} is on {t.device}, q on {q.device}")
@@ -118,7 +119,7 @@ def _check_operands(q, k, v, max_d, max_nk):
 def _launch(q, k, v, scale):
     global launches
     lib = _lib()
-    _check_operands(q, k, v, lib.wd_attention_max_d(), lib.wd_attention_max_nk())
+    _check_operands(q, k, v, lib.wd_attention_max_d())
     b, h, nq, d = q.shape
     out = torch.empty_like(q)
     if b * h == 0 or nq == 0:

@@ -11,8 +11,18 @@ takes the plain PyTorch versions ``ln_geglu_ffn_reference`` and
 ``ln_geglu_ffn_bwd_reference``; a CUDA input the kernels do not take
 raises instead of falling back.
 
-``launches`` and ``bwd_launches`` count kernel launches, so that a run
-can show that its main path went through the kernels.
+The bare GEGLU feed-forward, ``act · W2 + b2`` with no LayerNorm and no
+residual, is the port of ``ffn_pallas.py::fused_geglu_ffn`` (its kernel
+``_ffn_kernel``): a launch mode of the same CUDA kernel
+(``wd_geglu_ffn``), behind the Function ``GegluFFN`` and
+``fused_geglu_ffn`` in the JAX layout; its plain version is
+``geglu_ffn_reference``. As in JAX, its backward is autograd of the
+unfused composition ``geglu_ffn_xla_baseline``, and nothing on the
+port's paths calls it (nothing in the JAX package does either).
+
+``launches``, ``bwd_launches`` and ``geglu_launches`` count kernel
+launches, so that a run can show that its main path went through the
+kernels.
 """
 
 from __future__ import annotations
@@ -28,6 +38,7 @@ from . import build
 
 launches = 0
 bwd_launches = 0
+geglu_launches = 0
 
 _GELU_C, _GELU_K = math.sqrt(2.0 / math.pi), 0.044715
 
@@ -49,6 +60,63 @@ def ln_geglu_ffn_reference(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5):
     act = (a * F.gelu(g, approximate="tanh")).to(dt)
     y = (act @ w2.to(dt)).float() + b2.float()
     return (xf + y).to(dt)
+
+
+def geglu_ffn_reference(x, w1, b1, w2, b2):
+    """Plain PyTorch version of the bare GEGLU FFN with the kernel's dtype
+    contract (``ffn_pallas.py::_ffn_core``): matmul operands in
+    ``x.dtype``, products accumulated and kept in fp32, fp32 bias and
+    tanh-GEGLU, the activation rounded to ``x.dtype``, the output in
+    ``x.dtype``. x [..., d]; w1 [d, 2*inner]; b1 [2*inner]; w2 [inner, d];
+    b2 [d]."""
+    dt = x.dtype
+    h = x.float() @ w1.to(dt).float() + b1.float()
+    a, g = h.chunk(2, dim=-1)
+    act = (a * F.gelu(g, approximate="tanh")).to(dt)
+    return (act.float() @ w2.to(dt).float() + b2.float()).to(dt)
+
+
+def geglu_ffn_xla_baseline(x, w1, b1, w2, b2):
+    """The unfused composition as JAX's ``ffn_pallas.py::_xla_baseline``
+    runs it (the function its custom_vjp differentiates): every product
+    and bias in ``x.dtype``."""
+    dt = x.dtype
+    h = x @ w1.to(dt) + b1.to(dt)
+    a, g = h.chunk(2, dim=-1)
+    return (a * F.gelu(g, approximate="tanh")) @ w2.to(dt) + b2.to(dt)
+
+
+class GegluFFN(torch.autograd.Function):
+    """``GEGLU-FFN(x)`` in the JAX layout: the kernel (CUDA) or the plain
+    version (CPU) forward; the backward is autograd of
+    ``geglu_ffn_xla_baseline`` on the saved inputs, what JAX's
+    ``_geglu_ffn_bwd`` differentiates, so each gradient comes back in its
+    input's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        if x.device.type == "cpu":
+            return geglu_ffn_reference(x, w1, b1, w2, b2)
+        if x.device.type != "cuda":
+            raise ValueError(f"fused_geglu_ffn: unsupported device {x.device}")
+        fmt = torch.contiguous_format
+        return _launch_geglu(x, w1.to(x.dtype, memory_format=fmt), b1,
+                             w2.to(x.dtype, memory_format=fmt), b2)
+
+    @staticmethod
+    def backward(ctx, dy):
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+            out = geglu_ffn_xla_baseline(*leaves)
+            return torch.autograd.grad(out, leaves, dy)
+
+
+def fused_geglu_ffn(x, w1, b1, w2, b2):
+    """GEGLU-FFN(x) = act · W2 + b2 for x [..., d], w1 [d, 2*inner],
+    w2 [inner, d] (the JAX function's layout): the kernel for a CUDA
+    tensor, the plain version for a CPU tensor; differentiable."""
+    return GegluFFN.apply(x, w1, b1, w2, b2)
 
 
 def _gelu_and_grad(u):
@@ -175,6 +243,8 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wd_ln_geglu_ffn.argtypes = [p] * 8 + [i, i, i, ctypes.c_float, p]
     lib.wd_ln_geglu_ffn.restype = i
+    lib.wd_geglu_ffn.argtypes = [p] * 6 + [i, i, i, p]
+    lib.wd_geglu_ffn.restype = i
     lib.wd_ln_geglu_ffn_bwd.argtypes = [p] * 18 + [i, i, i, ctypes.c_float, p]
     lib.wd_ln_geglu_ffn_bwd.restype = i
     for fn in ("wd_ln_geglu_ffn_max_d", "wd_ln_geglu_ffn_bwd_max_d",
@@ -198,6 +268,7 @@ def _check(name, t, shape, dtype, device):
 
 
 def _check_operands(x, gamma, beta, w1, b1, w2, max_d):
+    """The kernels' operands; gamma and beta None for the bare FFN."""
     d = x.shape[-1]
     inner = w2.shape[0]
     if d % 16 or inner % 64 or d > max_d:
@@ -207,8 +278,9 @@ def _check_operands(x, gamma, beta, w1, b1, w2, max_d):
         )
     dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
     _check("x", x, tuple(x.shape), bf16, dev)
-    _check("gamma", gamma, (d,), f32, dev)
-    _check("beta", beta, (d,), f32, dev)
+    if gamma is not None:
+        _check("gamma", gamma, (d,), f32, dev)
+        _check("beta", beta, (d,), f32, dev)
     _check("w1", w1, (d, 2 * inner), bf16, dev)
     _check("b1", b1, (2 * inner,), f32, dev)
     _check("w2", w2, (inner, d), bf16, dev)
@@ -240,6 +312,25 @@ def _launch(x, gamma, beta, w1, b1, w2, b2, eps):
         )
     _raise_on(err, "ln_geglu_ffn")
     launches += 1
+    return out
+
+
+def _launch_geglu(x, w1, b1, w2, b2):
+    global geglu_launches
+    lib = _lib()
+    d, inner = _check_operands(x, None, None, w1, b1, w2, lib.wd_ln_geglu_ffn_max_d())
+    _check("b2", b2, (d,), torch.float32, x.device)
+    out = torch.empty_like(x)
+    m = x.numel() // d
+    if m == 0:
+        return out
+    with torch.cuda.device(x.device):
+        err = lib.wd_geglu_ffn(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            out.data_ptr(), m, d, inner, torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    _raise_on(err, "geglu_ffn")
+    geglu_launches += 1
     return out
 
 

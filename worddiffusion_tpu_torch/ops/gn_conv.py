@@ -96,6 +96,8 @@ def _lib():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wd_gn_silu_conv3x3.argtypes = [p] * 8 + [i] * 5 + [ctypes.c_float, p]
     lib.wd_gn_silu_conv3x3.restype = i
+    lib.wd_gn_silu_conv3x3_tile.argtypes = [i] * 4
+    lib.wd_gn_silu_conv3x3_tile.restype = i
     lib.wd_groupnorm_tiles.argtypes = [i, i]
     lib.wd_groupnorm_tiles.restype = i
     lib.wd_groupnorm_max_c.argtypes = []
