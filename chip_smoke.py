@@ -8,9 +8,11 @@ Phases, each of which must pass (any failure exits non-zero):
 1. device: needs CUDA; prints the card's nvidia-smi name and power limit;
    TF32 off for the comparisons.
 2. build: compiles the CUDA kernels from ``worddiffusion_tpu_torch/csrc``.
-3. kernel vs plain: the fused LN + GEGLU FFN kernel against its plain
-   PyTorch version at the main path's shapes (d=320, inner=1280,
-   M = 16*256, 16*64) and a ragged M, with errors and median times; then
+3. kernel vs plain: the fused LN + GEGLU FFN kernel (B.1, a cluster launch
+   on ``wgmma``) against its plain PyTorch version at the main path's shapes
+   (d=320, inner=1280, M = 16*256, 16*64), a ragged M and the small M = 64
+   and 65, with errors, bitwise repeatability, the cluster size and median
+   times; then
    the bare GEGLU FFN (B.2, ``ops.ffn.fused_geglu_ffn``, the same kernel
    without LayerNorm and residual; no path calls it, as in JAX) at
    M = 16*256, 128*256 and a ragged 1000: against its plain version,
@@ -21,7 +23,9 @@ Phases, each of which must pass (any failure exits non-zero):
    the plain GroupNorm / GN -> SiLU -> conv swapped in) on the same weights
    and inputs; launches per call (4 FF, 8 attention, 9 B.5, 12 B.6); call
    times and profiled device busy time with all kernels, with plain B.5
-   and B.6, and all plain.
+   and B.6, and all plain; the profiled kernels per call by name (one B.5
+   kernel and one B.1 kernel per site, B.5's old three-kernel pass gone) and
+   in all (UNET_KERNELS).
 5. main path: the regeneration CLI's pipeline (Regenerator + WordSampler,
    ``iam`` UNet, default VAE and CTC recognizer, seeded random weights)
    over 40 words in batches of 16, with the 600-step skip-step schedule
@@ -33,7 +37,7 @@ Phases, each of which must pass (any failure exits non-zero):
 6. FFN forward + backward, kernel against plain: the forward and the
    backward kernel against their plain versions at the training shapes,
    M = 128*256, 128*64 and a ragged 1000 (the output and seven
-   gradients, each within its tolerance), bitwise repeatability, and the
+   gradients, each within its tolerance), bitwise repeatability of both, and the
    autograd Function (both kernels) against plain autograd at the two
    training M (output and gradients), with median times.
 7. training main path: the train CLI's Trainer (``iam`` preset at full
@@ -83,7 +87,9 @@ Phases, each of which must pass (any failure exits non-zero):
 14. GroupNorm (+ SiLU) (B.5, ``ops.groupnorm``) and GN -> SiLU -> conv3x3
    (B.6, ``ops.gn_conv``) against their plain versions at every site's
    shape (UNet B=16 and 128, VAE decoder B=16 and encoder B=128, ragged
-   C=48 and 5x13), bitwise repeatability, kernel / plain / library (stock
+   C=48 and 5x13, and both sides of the size where a CTA's range of x stops
+   fitting in shared memory), B.5's route (cluster size; x kept in shared
+   memory or read twice), bitwise repeatability, kernel / plain / library (stock
    ``F.group_norm`` [+ ``F.silu``]; ``F.group_norm`` -> ``F.silu`` ->
    cuDNN ``F.conv2d``) / bound times, B.6's tile and its share of its bound,
    and both Functions' gradients against plain autograd at [128, 8, 32, 320].
@@ -133,6 +139,7 @@ from unittest import mock
 T_START = time.perf_counter()
 D, INNER, B = 320, 1280, 16
 FFN_SHAPES = (B * 256, B * 64, 1000)   # M: full-res blocks, middle block, ragged
+FFN_SMALL_SHAPES = (64, 65)            # one row tile, and one row past it
 TRAIN_B = 128
 BWD_SHAPES = (TRAIN_B * 256, TRAIN_B * 64, 1000)
 TRAIN_STEPS_PER_EPOCH = 10
@@ -194,7 +201,9 @@ GN_SHAPES = tuple(
 ) + ((B, 32, 128, 512, 32, True), (B, 64, 256, 256, 32, True), (B, 8, 32, 512, 32, False),
      (B, 64, 256, 128, 32, True), (TRAIN_B, 32, 128, 128, 32, True),
      (TRAIN_B, 16, 64, 256, 32, True), (TRAIN_B, 8, 32, 512, 32, False),
-     (TRAIN_B, 8, 32, 512, 32, True), (2, 5, 13, 48, 48, False))
+     (TRAIN_B, 8, 32, 512, 32, True), (2, 5, 13, 48, 48, False),
+     # each side of the size where a CTA's range stops fitting in shared memory
+     (2, 8, 95, 512, 32, False), (2, 8, 96, 512, 32, False))
 # (B, H, W, C, groups) of B.6's sites: the UNet's two resolutions at B=16 and
 # 128, the decoder's levels at B=16, the encoder's at B=128, a ragged image
 # (5 x 13) and a ragged width (C=48 in 48 groups).
@@ -203,6 +212,8 @@ CONV_SHAPES = ((B, 8, 32, 320, 32), (B, 4, 16, 320, 32), (TRAIN_B, 8, 32, 320, 3
                (B, 32, 128, 256, 32), (B, 64, 256, 128, 32), (TRAIN_B, 64, 256, 128, 32),
                (TRAIN_B, 32, 128, 256, 32), (TRAIN_B, 16, 64, 512, 32),
                (TRAIN_B, 8, 32, 512, 32), (2, 5, 13, 64, 32), (2, 5, 13, 48, 48))
+# Kernels per iam UNet call at B=16 (torch.profiler), each B.5 site one.
+UNET_KERNELS = 422
 # bf16 output after fp32 arithmetic in another order (and, for B.6, one bf16
 # rounding of the activation): 1% of max |plain|. Measured on an H100 at these
 # shapes: at most 0.33% (B.5) and 0.72% (B.6).
@@ -491,7 +502,7 @@ def phase6_ffn_backward(smi: str) -> dict:
     rows, fwd_rows = [], []
     for i, m in enumerate(BWD_SHAPES):
         f = ffn_inputs(m, seed=10 + i)
-        got = ffn.fused_ln_geglu_ffn(**f)
+        got, again = ffn.fused_ln_geglu_ffn(**f), ffn.fused_ln_geglu_ffn(**f)
         torch.cuda.synchronize()
         want = ffn.ln_geglu_ffn_reference(**f)
         err = (got.float() - want.float()).abs().max().item()
@@ -499,14 +510,16 @@ def phase6_ffn_backward(smi: str) -> dict:
         ms = launch_ms(lambda: ffn.fused_ln_geglu_ffn(**f))
         plain_ms = launch_ms(lambda: ffn.ln_geglu_ffn_reference(**f))
         bound_ms, bound_by = ffn_bound(f, got)
-        log(f"ffn fwd M={m}: max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {FFN_REL_TOL}) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
-            f"[{smi}]")
+        log(f"ffn fwd M={m} (cluster of {ffn.cluster_size(m, INNER)}): max_abs_err {err:.6g} "
+            f"max_rel_err {rel:.6g} (tol {FFN_REL_TOL}); bitwise repeatable "
+            f"{torch.equal(got, again)}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+            f"{bound_ms:.4f} ms ({bound_by}) [{smi}]")
         assert bool(torch.isfinite(got.float()).all()), f"non-finite kernel output at M={m}"
+        assert torch.equal(got, again), f"B.1 differs between two runs at M={m}"
         assert rel <= FFN_REL_TOL, f"forward kernel disagrees with plain at M={m}: rel {rel}"
         fwd_rows.append(dict(m=m, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by))
-        del f, got, want
+        del f, got, again, want
 
         a = bwd_inputs(m, seed=10 + i)
         got = ffn.ln_geglu_ffn_bwd(**a)
@@ -922,11 +935,13 @@ def device_profile(fn, calls: int = 5) -> dict:
             fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_name = collections.Counter()
+    by_name, count = collections.Counter(), collections.Counter()
     for e in kernels:
         by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3 / calls
+        count[e.name[:60]] += 1
     return dict(busy_ms=sum(by_name.values()), kernels=len(kernels) / calls,
-                top=[(k, round(v, 4)) for k, v in by_name.most_common(5)])
+                top=[(k, round(v, 4)) for k, v in by_name.most_common(5)],
+                per_call={k: n / calls for k, n in count.items()})
 
 
 def register_fold_preset() -> None:
@@ -1115,7 +1130,9 @@ def phase14_norms(smi: str) -> dict:
         else:
             library_ms = launch_ms(lambda: F.group_norm(nchw, groups, ws, bs, 1e-6))
         bound_ms, bound_by = bound(nbytes(*t.values(), got), 0)
-        log(f"groupnorm B={b} {h}x{w} C={c} G={groups} silu={silu}: max_abs_err {err:.6g} "
+        cl, kept = groupnorm.route(t["x"], groups)
+        log(f"groupnorm B={b} {h}x{w} C={c} G={groups} silu={silu} (clusters of {cl}, x "
+            f"{'kept in shared memory' if kept else 'read twice'}): max_abs_err {err:.6g} "
             f"max_rel_err {rel:.6g} (tol {NORM_REL_TOL}); bitwise repeatable "
             f"{torch.equal(got, again)}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
             f"{'F.group_norm + F.silu' if silu else 'F.group_norm'} {library_ms:.4f} ms bound "
@@ -1126,7 +1143,7 @@ def phase14_norms(smi: str) -> dict:
         assert rel <= NORM_REL_TOL, f"groupnorm kernel disagrees at {b, h, w, c}: rel {rel}"
         gn_rows.append(dict(shape=(b, h, w, c, groups, silu), err=err, rel=rel, ms=ms,
                             plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                            bound_by=bound_by))
+                            bound_by=bound_by, cluster=cl, kept=kept))
         del t, got, again, want
 
     for i, (b, h, w, c, groups) in enumerate(CONV_SHAPES):
@@ -1525,19 +1542,26 @@ def unet_check(smi: str, unet, inputs, label: str, launches=(4, 8, 0, *UNET_NORM
         unet_ms = cuda_ms(lambda: unet(*inputs), reps=10)
         prof = device_profile(lambda: unet(*inputs))
     got = (n_ff, n_attn, n_fold, n_gn, n_conv)
+    by_name = {k: sum(n for name, n in prof["per_call"].items() if k in name)
+               for k in ("ffn_kernel<", "gn_cluster_kernel", "gn_partial_kernel",
+                         "gn_finalize_kernel")}
     log(f"unet B={B} ({label}, {unet.cfg.model_channels} ch): eps max_abs_err {err:.6g} "
         f"max_rel_err {rel:.6g} (tol {UNET_REL_TOL}) against all-plain; launches per call: "
         f"{n_ff} FF, {n_attn} attention, {n_fold} fold attention, {n_gn} groupnorm, {n_conv} "
         f"gn_silu_conv3x3; call {unet_ms:.3f} ms all kernels, {before_ms:.3f} ms with plain "
         f"B.5/B.6, {plain_ms:.3f} ms all plain; profiled device busy {prof['busy_ms']:.4f} ms "
         f"and {prof['kernels']:.0f} kernels per call ({prof_before['busy_ms']:.4f} ms and "
-        f"{prof_before['kernels']:.0f} with plain B.5/B.6); top kernels (ms/call) {prof['top']} "
-        f"[{smi}]")
+        f"{prof_before['kernels']:.0f} with plain B.5/B.6); profiled kernels per call by name "
+        f"{by_name}; top kernels (ms/call) {prof['top']} [{smi}]")
     assert got == tuple(launches), got
+    # one B.1 kernel per FF sub-layer and one B.5 kernel per GroupNorm; the
+    # statistics pass's two kernels only behind B.6
+    assert by_name == {"ffn_kernel<": n_ff, "gn_cluster_kernel": n_gn,
+                       "gn_partial_kernel": n_conv, "gn_finalize_kernel": n_conv}, by_name
     assert bool(torch.isfinite(eps_k).all()), "non-finite eps"
     assert rel <= UNET_REL_TOL, f"UNet all-kernel vs all-plain: rel {rel}"
     return dict(ms=unet_ms, before_ms=before_ms, plain_ms=plain_ms, err=err, rel=rel,
-                eps=eps_k, busy_ms=prof["busy_ms"], kernels=prof["kernels"],
+                eps=eps_k, busy_ms=prof["busy_ms"], kernels=prof["kernels"], top=prof["top"],
                 busy_before_ms=prof_before["busy_ms"], kernels_before=prof_before["kernels"])
 
 
@@ -1665,9 +1689,9 @@ def main() -> int:
 
     # -- 3. kernel vs plain ------------------------------------------------
     ffn_rows = []
-    for i, m in enumerate(FFN_SHAPES):
+    for i, m in enumerate(FFN_SHAPES + FFN_SMALL_SHAPES):
         a = ffn_inputs(m, seed=i)
-        got = ffn.fused_ln_geglu_ffn(**a)
+        got, again = ffn.fused_ln_geglu_ffn(**a), ffn.fused_ln_geglu_ffn(**a)
         torch.cuda.synchronize()
         want = ffn.ln_geglu_ffn_reference(**a)
         err = (got.float() - want.float()).abs().max().item()
@@ -1675,10 +1699,12 @@ def main() -> int:
         ms = launch_ms(lambda: ffn.fused_ln_geglu_ffn(**a))
         plain_ms = launch_ms(lambda: ffn.ln_geglu_ffn_reference(**a))
         bound_ms, bound_by = ffn_bound(a, got)
-        log(f"ffn M={m} d={D} inner={INNER}: max_abs_err {err:.6g} max_rel_err {rel:.6g} "
-            f"(tol {FFN_REL_TOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
-            f"{bound_ms:.4f} ms ({bound_by}) [{smi}]")
+        log(f"ffn M={m} d={D} inner={INNER} (cluster of {ffn.cluster_size(m, INNER)}): "
+            f"max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {FFN_REL_TOL}); bitwise "
+            f"repeatable {torch.equal(got, again)}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"bound {bound_ms:.4f} ms ({bound_by}) [{smi}]")
         assert bool(torch.isfinite(got.float()).all()), f"non-finite kernel output at M={m}"
+        assert torch.equal(got, again), f"B.1 differs between two runs at M={m}"
         assert rel <= FFN_REL_TOL, f"kernel disagrees with plain at M={m}: rel {rel}"
         ffn_rows.append(dict(m=m, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by))
@@ -1702,6 +1728,7 @@ def main() -> int:
 
     # -- 4. whole UNet: all kernels vs all plain ---------------------------
     unet = unet_check(smi, sampler.model, unet_inputs(sampler, words, phosc=False), "iam")
+    assert unet["kernels"] == UNET_KERNELS, (unet["kernels"], UNET_KERNELS)
 
     # -- 5. main path ------------------------------------------------------
     regen_iam = drive_regen(smi, regen, samples, seed=0, label="iam")
@@ -1747,13 +1774,18 @@ def main() -> int:
     # -- 14. GroupNorm (B.5) and GN -> SiLU -> conv3x3 (B.6) kernels vs plain ---------------
     norms = phase14_norms(smi)
 
-    # the redesigned kernels against their library calls at the B=128 shapes
-    a = next(r for r in attn["rows"] if (r["b"], r["nq"], r["nk"]) == (TRAIN_B, 256, 811))
-    convs = {r["shape"][1:4]: r for r in norms["conv_rows"] if r["shape"][0] == TRAIN_B}
-    log(f"redesign targets [{smi}]: attention B={TRAIN_B} Nq=256 Nk=811 {a['ms']:.4f} ms vs "
-        f"scaled_dot_product_attention {a['library_ms']:.4f} ms; gn_silu_conv3x3 B={TRAIN_B} "
-        + "; ".join(f"{h}x{w} C={c} {r['ms']:.4f} ms vs the 3-call sequence {r['library_ms']:.4f} ms"
-                    for (h, w, c), r in convs.items()))
+    # the redesigned kernels against their targets: B.5 at the UNet's B=16
+    # sites against one library call, B.1 at the main path's M and at the
+    # training M, B.2 against B.1 at the training M
+    gns = [r for r in norms["gn_rows"] if r["shape"][0] == B][:5]
+    f_train = next(r for r in bwd["fwd_rows"] if r["m"] == TRAIN_B * 256)
+    g_train = next(r for r in geglu["rows"] if r["m"] == TRAIN_B * 256)
+    log(f"redesign targets [{smi}]: groupnorm B={B} "
+        + "; ".join(f"{h}x{w} C={c} {r['ms']:.4f} ms vs {r['library_ms']:.4f} ms"
+                    for (_, h, w, c, _, _), r in ((r["shape"], r) for r in gns))
+        + f"; ln_geglu_ffn M={B * 256} {ffn_rows[0]['ms']:.4f} ms (target 0.10, plain "
+        f"{ffn_rows[0]['plain_ms']:.4f}), M={TRAIN_B * 256} {f_train['ms']:.4f} ms (target 0.50); "
+        f"geglu_ffn M={TRAIN_B * 256} {g_train['ms']:.4f} ms")
 
     # -- 15. the whole VAE, all kernels vs all plain -------------------------------------
     vae = phase15_vae(smi)

@@ -171,6 +171,20 @@ def test_function_grads_match_plain_and_reach_master_weights(dtype):
                                    msg=k)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_kernel_weights_are_contiguous_whatever_their_dtype(dtype):
+    """The backward kernel takes contiguous weights in the JAX layout. The
+    fault this guards against: ``w.t().to(bf16, memory_format=
+    torch.contiguous_format)`` returns the strided view unchanged when w is
+    already bf16, so LnGegluFFN on bf16 parameters raised on the card."""
+    w1 = torch.randn(2 * 64, 32).to(getattr(torch, dtype))  # proj.weight [2*inner, d]
+    w2 = torch.randn(32, 64).to(getattr(torch, dtype))      # out.weight [d, inner]
+    k1, k2 = ffn._kernel_weights(w1, w2, torch.bfloat16)
+    for k, w in ((k1, w1), (k2, w2)):
+        assert k.is_contiguous() and k.dtype == torch.bfloat16
+        assert torch.equal(k, w.t().bfloat16())
+
+
 # -- the bare GEGLU FFN (ffn_pallas.py::fused_geglu_ffn, its _ffn_kernel) ---------------
 
 def _geglu_inputs(m, d, inner, seed):

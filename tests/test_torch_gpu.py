@@ -10,6 +10,7 @@ This file imports no JAX, so that it runs on a machine without it:
 import pytest
 import torch
 
+import chip_smoke
 from worddiffusion_tpu_torch.ops import ffn
 
 pytestmark = pytest.mark.gpu
@@ -133,6 +134,98 @@ def test_geglu_function_grads_are_autograd_of_the_unfused_composition(cuda):
     torch.cuda.synchronize()
     for name, a, b in zip(names, *grads):
         assert a.dtype == t[name].dtype and torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("m", [64, 65, 1000, 1024, 4096, 32768])
+def test_ffn_kernels_are_bitwise_repeatable(cuda, m):
+    """B.1 and B.2 (one cluster launch each; the cluster size follows M) at
+    the small, ragged, main-path and training M: within 1% of max |out| of
+    their plain versions, and two calls give the same bits (no atomics, the
+    cluster's partial sums in rank order)."""
+    t = _inputs(m, cuda, seed=11)
+    a = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"])
+    n0, g0 = ffn.launches, ffn.geglu_launches
+    for fused, plain, args in ((ffn.fused_ln_geglu_ffn, ffn.ln_geglu_ffn_reference, t),
+                               (ffn.fused_geglu_ffn, ffn.geglu_ffn_reference, a)):
+        call = (lambda f: f(**args)) if isinstance(args, dict) else (lambda f: f(*args))
+        got, again = call(fused), call(fused)
+        torch.cuda.synchronize()
+        want = call(plain)
+        assert got.dtype == torch.bfloat16 and torch.equal(got, again), fused.__name__
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 1e-2 * want.float().abs().max().item(), (fused.__name__, err)
+    assert (ffn.launches - n0, ffn.geglu_launches - g0) == (2, 2)
+
+
+def test_sublayer_on_bf16_parameters_runs_both_kernels(cuda):
+    """LnGegluFFN with bf16 parameters in parameter layout (a model kept in
+    bf16): the forward kernel reads them as they are, the backward kernel
+    gets contiguous transposes; both launch, and the output and gradients
+    agree with plain autograd. (It raised before the cast helper kept bf16
+    weights contiguous.)"""
+    t = _inputs(1024, cuda, seed=15)
+    w1, w2 = t["w1"].t().contiguous(), t["w2"].t().contiguous()  # bf16 [2*inner, d], [d, inner]
+    dy = (0.1 * torch.randn(1024, D, generator=torch.Generator().manual_seed(16))).bfloat16()
+    dy = dy.to(cuda)
+    runs = []
+    for kernel in (True, False):
+        leaves = [t["x"].clone().requires_grad_(), w1.clone().requires_grad_(),
+                  w2.clone().requires_grad_()]
+        f0, b0 = ffn.launches, ffn.bwd_launches
+        x, a, b = leaves
+        if kernel:
+            out = ffn.LnGegluFFN.apply(x, t["gamma"], t["beta"], a, t["b1"], b, t["b2"], 1e-5)
+        else:
+            out = ffn.ln_geglu_ffn_reference(x, t["gamma"], t["beta"], a.t(), t["b1"], b.t(),
+                                             t["b2"])
+        out.backward(dy)
+        torch.cuda.synchronize()
+        runs.append((ffn.launches - f0, ffn.bwd_launches - b0, [out.detach()] +
+                     [v.grad for v in leaves]))
+    (kf, kb, got), (pf, pb, want) = runs
+    assert (kf, kb, pf, pb) == (1, 1, 0, 0)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= BWD_REL_TOL * w.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("m", [16 * 256, 128 * 256])
+def test_sublayer_on_parameter_layout_weights_matches_plain_autograd(cuda, m):
+    """LnGegluFFN as the block calls it: fp32 master weights in parameter
+    layout (proj.weight [2*inner, d], out.weight [d, inner]), which the
+    forward kernel reads after one cast each. Output within 1% and every
+    gradient within BWD_REL_TOL of plain autograd of the plain forward; the
+    weight gradients come back fp32 in parameter layout."""
+    t = _inputs(m, cuda, seed=12)
+    p = {k: t[k].float() for k in ("gamma", "beta", "b1", "b2")}
+    p["w1"] = t["w1"].float().t().contiguous()
+    p["w2"] = t["w2"].float().t().contiguous()
+    dy = (0.1 * torch.randn(m, D, generator=torch.Generator().manual_seed(13))).bfloat16()
+    dy = dy.to(cuda)
+    order = ("gamma", "beta", "w1", "b1", "w2", "b2")
+    runs = []
+    for kernel in (True, False):
+        x = t["x"].clone().requires_grad_()
+        lv = {k: p[k].clone().requires_grad_() for k in order}
+        f0 = ffn.launches
+        if kernel:
+            out = ffn.ffn_sublayer(x, lv["gamma"], lv["beta"], lv["w1"], lv["b1"], lv["w2"],
+                                   lv["b2"], 1e-5)
+        else:
+            out = ffn.ln_geglu_ffn_reference(x, lv["gamma"], lv["beta"], lv["w1"].t(), lv["b1"],
+                                             lv["w2"].t(), lv["b2"])
+        out.backward(dy)
+        torch.cuda.synchronize()
+        runs.append((ffn.launches - f0, out.detach(), [x.grad] + [lv[k].grad for k in order]))
+    (kn, out_k, gk), (pn, out_p, gp) = runs
+    assert (kn, pn) == (1, 0)
+    err = (out_k.float() - out_p.float()).abs().max().item()
+    assert err <= 1e-2 * out_p.float().abs().max().item(), err
+    for name, a, b in zip(("x",) + order, gk, gp):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= BWD_REL_TOL * b.float().abs().max().item(), (name, err)
 
 
 def _bwd_inputs(m, device, seed=0):
@@ -512,6 +605,45 @@ def test_gn_conv_kernel_matches_plain(cuda, b, h, w, c, groups):
     assert got.dtype == torch.bfloat16 and got.shape == want.shape and torch.equal(got, again)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 1e-2 * want.float().abs().max().item(), err
+
+
+# B.5 at every site chip_smoke.py drives: the UNet's at B=16 and 128, the VAE
+# encoder's and decoder's, a ragged C=48, and the two sides of the size where a
+# CTA's range of x stops fitting in shared memory (it is then read twice).
+GN_SITES = list(chip_smoke.GN_SHAPES)
+
+
+@pytest.mark.parametrize("b,h,w,c,groups,silu", GN_SITES)
+def test_groupnorm_one_launch_at_every_site(cuda, b, h, w, c, groups, silu):
+    """One cluster launch a call, within 1% of max |out| of the plain
+    version and bitwise repeatable, whichever route the shape takes (x kept
+    in shared memory or read twice; clusters of 1 to 8)."""
+    from worddiffusion_tpu_torch.ops import groupnorm
+
+    x, scale, bias = _gn_inputs((b, h, w, c), cuda, seed=3)
+    before = groupnorm.launches
+    got = groupnorm.fused_groupnorm(x, scale, bias, groups, 1e-6, silu)
+    again = groupnorm.fused_groupnorm(x, scale, bias, groups, 1e-6, silu)
+    torch.cuda.synchronize()
+    assert groupnorm.launches == before + 2
+    want = groupnorm.groupnorm_reference(x, scale, bias, groups, 1e-6, silu)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item(), err
+
+
+def test_groupnorm_routes_around_the_fit_boundaries(cuda):
+    """The route follows the shape: clusters of 8 CTAs at B = 2 and 16, of 2
+    at B = 128; a CTA's range of x kept in shared memory up to its limit
+    (95 rows of 512 channels a CTA, 76 of 640), read twice past it."""
+    from worddiffusion_tpu_torch.ops import groupnorm
+
+    def route(b, s, c):
+        return groupnorm.route(torch.empty(b, s, c, device="meta"), 32)
+
+    assert [route(2, 760, 512), route(2, 768, 512), route(16, 256, 640),
+            route(128, 152, 640), route(128, 160, 640), route(128, 256, 320)] == [
+        (8, True), (8, False), (8, True), (2, True), (2, False), (2, True)]
 
 
 @pytest.mark.parametrize("bad", ["fp32_x", "nchw_x", "c_not_8", "fp16_scale", "width_change"])

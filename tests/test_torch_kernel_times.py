@@ -1,5 +1,6 @@
-"""The kernel timing script's host side: its summary of two trees' runs, and
-its refusal without a CUDA device."""
+"""The kernel timing script's host side: its shape lists against the
+smoke run's, its summary of two trees' runs, and its refusal without a CUDA
+device."""
 
 import subprocess
 import sys
@@ -8,6 +9,7 @@ from pathlib import Path
 import pytest
 import torch
 
+import chip_smoke
 from worddiffusion_tpu_torch import kernel_times
 
 SCRIPT = Path(kernel_times.__file__)
@@ -18,6 +20,37 @@ def _run(tree, kernel, library):
     row = dict(shape=[128, 256, 811], kernel={m: kernel for m in METHODS},
                library={m: library for m in METHODS})
     return dict(tree=tree, attention=[row], conv=[])
+
+
+def test_shapes_cover_the_smoke_runs_unet_sites():
+    """Every B.1 M and every UNet B.5 site (8x32 and 4x16, 320 and 640
+    channels, B=16 and 128) that chip_smoke.py names is timed, so that the
+    before/after table covers the main path's shapes."""
+    assert set(chip_smoke.FFN_SHAPES) <= set(kernel_times.FFN_M)
+    assert chip_smoke.TRAIN_B * 256 in kernel_times.FFN_M
+    unet = {s for s in chip_smoke.GN_SHAPES if s[1:3] in ((8, 32), (4, 16)) and s[3] in (320, 640)}
+    assert len(unet) == 10 and unet <= set(kernel_times.GN_SHAPES)
+    # and one site whose per-CTA range does not fit in shared memory even at
+    # the largest cluster (8 CTAs of at most 112 KB)
+    assert any(h * w * c * 2 > 8 * 112 * 1024 for _, h, w, c, _, _ in kernel_times.GN_SHAPES)
+
+
+def test_summary_handles_every_kind_with_and_without_a_library():
+    """B.1 and B.2 have no library call (None): their lines leave it out;
+    B.5's carries F.group_norm's."""
+    def run(tree, t):
+        row = lambda shape, lib: dict(shape=shape, kernel={m: t for m in METHODS},
+                                      library=None if lib is None else {m: lib for m in METHODS})
+        return dict(tree=tree, attention=[], conv=[], ffn=[row([4096], None)],
+                    geglu=[row([32768], None)], groupnorm=[row([16, 8, 32, 640, 32, True], 0.06)])
+
+    lines = kernel_times.summary([run("parent", 0.3), run("this", 0.1), run("this", 0.1),
+                                  run("parent", 0.3)])
+    assert [ln.split(":")[0] for ln in lines] == [
+        "ffn [4096]", "geglu [32768]", "groupnorm [16, 8, 32, 640, 32, True]"]
+    assert "library" not in lines[0] and "library" not in lines[1]
+    for m in METHODS:
+        assert f"{m} this 0.1000 other 0.3000 (3.00x) library 0.0600" in lines[2]
 
 
 def test_summary_means_each_trees_runs_and_divides_other_by_this():

@@ -2,92 +2,211 @@
 //
 // Replaces the Pallas TPU kernel worddiffusion_tpu/ops/ffn_pallas.py::_ln_ffn_kernel
 // (reached through _ln_geglu_ffn_pallas -> _run_ffn_pallas -> pl.pallas_call). For
-// x [M, d] bf16, gamma/beta [d] fp32, W1 [d, 2*inner] bf16, b1 [2*inner] fp32,
-// W2 [inner, d] bf16 and b2 [d] fp32 (all row-major, contiguous):
+// x [M, d] bf16, gamma/beta [d] fp32, the weights in the port's parameter layout
+// W1 [2*inner, d] bf16 (proj.weight: a rows, then g rows) and W2 [d, inner] bf16
+// (out.weight), b1 [2*inner] fp32 and b2 [d] fp32 (all contiguous):
 //
 //   xn      = bf16((x - mean) * rsqrt(var + eps) * gamma + beta)   fp32 two-pass stats
-//   [a | g] = xn . W1 + b1                                           fp32 accumulate
+//   [a | g] = xn . W1^T + b1                                         fp32 accumulate
 //   act     = bf16(a * gelu_tanh(g))
-//   out     = bf16(fp32(x) + act . W2 + b2)
+//   out     = bf16(fp32(x) + act . W2^T + b2)
 //
-// What bounds it on this card. At the flagship width (d = 320, inner = 1280) and
-// M = 32768 rows the sub-layer does 6*M*d*inner = 80.5 GFLOP but needs only the
-// x-in and out streams (about 42 MB) plus 2.4 MB of weights, which stay resident
-// in the 50 MB L2: about 1,800 FLOP per byte of device memory, far above the
-// H100's bf16 ridge of about 295. The unfused form also writes and reads back the
-// [M, 2*inner] intermediate (about 168 MB at that M). So the fused form is bound
-// by the tensor cores, and the point of the kernel, as on the TPU, is that the
-// [M, 2*inner] intermediate never reaches device memory.
+// What bounds it on this card: operations. At the flagship width (d = 320,
+// inner = 1280) it does 6*M*d*inner operations (80.5 GFLOP at M = 32768)
+// against the x-in and out streams and 2.4 MB of weights that stay in the 50 MB
+// L2: about 1,800 FLOP per byte, far above the bf16 ridge of about 295. The
+// unfused form also writes and reads back the [M, 2*inner] hidden; here, as on
+// the TPU, it never leaves the SM. The TPU kernel walked the row tiles in order
+// on one core; on 132 SMs the main path's M (4096 and 1024 rows at B = 16) makes
+// only 64 and 16 tiles of 64 rows, so one CTA per tile leaves most SMs idle, and
+// the products have to run on wgmma, the only path to the tensor cores' rate.
 //
-// Design (simple first; wgmma, TMA, warp specialisation and persistent CTAs are
-// later work):
-//   - one CTA of 8 warps per 64-row tile; the ragged last tile is masked here
-//     (the TPU version padded instead);
-//   - LayerNorm with one warp per row, fp32 two-pass statistics, xn kept in
-//     shared memory as bf16;
-//   - a loop over inner in chunks of 64 columns. Each chunk stages the matching
-//     a- and g-slices of W1 and the 64 rows of W2 in shared memory, computes the
-//     [64, 64] a and g tiles with nvcuda::wmma bf16 16x16x16 (fp32 accumulate),
-//     applies bias + tanh-GEGLU in fp32 and keeps the bf16 act chunk in shared
-//     memory, then accumulates out[64, d] += act . W2[chunk, :] in wmma
-//     accumulator fragments that stay in registers across the whole loop;
-//   - epilogue: + b2 + the fp32 residual, stored as bf16.
+// Design:
+//   - a thread-block cluster of CL CTAs shares a 64-row tile and splits inner:
+//     CTA r takes the 64-column chunks [r*n/CL, (r+1)*n/CL) of the n = inner/64.
+//     CL is the smallest of 1, 2, 4, 8 that gives 90% of an SM a CTA (M = 4096:
+//     2, 128 CTAs; M = 1024: 8, 128 CTAs; M = 32768: 1, no reduction);
+//   - each CTA computes the tile's LayerNorm itself (d = 320 is cheap; fp32
+//     two-pass statistics, one warp a row) into xn, bf16 in shared memory, in
+//     the 128-byte swizzled K-major layout of a wgmma operand;
+//   - two warpgroups. Per chunk, product 1 is xn [64, d] . W1-slice^T on
+//     wgmma.m64n64k16, both operands from shared memory: warpgroup w takes the
+//     chunk's a columns 32w..32w+31 and the matching g columns, so one thread
+//     holds a and g of the same columns and applies bias + tanh-GEGLU in
+//     registers, writing the bf16 act chunk [64, 64] to shared memory (same
+//     layout). Product 2 is act . W2-slice^T on wgmma.m64n(d/2)k16: warpgroup w
+//     accumulates output columns [w*d/2, (w+1)*d/2) in fp32 registers over the
+//     CTA's chunks;
+//   - the weights stream through shared memory by cp.async, 2 units ahead of
+//     the products: a unit is one [128 rows x 64 K] panel of W1 (a ring of 4)
+//     or the chunk's [d x 64 K] slice of W2 (one slot), in the 128-byte
+//     swizzle; the products of one unit stay in flight while the next is
+//     fetched (wgmma.wait_group 1), and the weights come in parameter layout,
+//     which is the K-major layout wgmma reads, so the wrapper only casts them;
+//   - the epilogue: each CTA writes its partial out [64, d] fp32 to shared
+//     memory (over the weight ring), cluster.sync(), and CTA r sums rows
+//     [r*64/CL, (r+1)*64/CL) over the CL partials in rank order through
+//     distributed shared memory, adds b2 (+ the fp32 residual) and stores bf16;
+//     rows past M are never stored (the TPU version padded instead).
+// The product-2 width d/2 is an instruction constant: one instance, d = 320
+// (every UNet of the port is 320 wide); any other width raises in the wrapper.
+// Bitwise repeatable: no atomics, every sum in a fixed order (for a given M, CL
+// is fixed).
 //
 // A second launch mode, wd_geglu_ffn, replaces the Pallas TPU kernel
 // worddiffusion_tpu/ops/ffn_pallas.py::_ffn_kernel (reached through
 // fused_geglu_ffn -> _geglu_ffn_pallas -> _run_ffn_pallas -> pl.pallas_call):
-// the bare GEGLU feed-forward out = bf16(act . W2 + b2), with no LayerNorm and
-// no residual. The x tile goes into the xn buffer as it is (16-byte copies)
-// and the epilogue leaves the residual out; everything else is shared. It is
-// bound the same way: 6*M*d*inner operations on the tensor cores against
-// 4*M*d bytes of x and out, far above the ridge.
+// the bare GEGLU feed-forward out = bf16(act . W2^T + b2), with no LayerNorm and
+// no residual. The x tile goes into xn as it is and the epilogue leaves the
+// residual out; everything else is shared. It is bound the same way.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 
-using namespace nvcuda;
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int BM = 64;            // rows per CTA
-constexpr int NC = 64;            // inner columns per chunk
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int PAD = 8;            // bf16 row padding (16 bytes) against bank conflicts
-constexpr int LDW = NC + PAD;     // row stride of the staged W1 slices and of act
-constexpr int LDH = NC + 4;       // row stride of a warp's fp32 [16, a(32) | g(32)] scratch
-constexpr int MAX_TILES = 11;     // out tiles per warp: ceil(d / 32) for d <= 352
+using bf16 = __nv_bfloat16;
 
-struct Layout {
-  int ldx;                        // row stride of xn and of the staged W2 rows (bf16)
-  int ldo;                        // row stride of the fp32 epilogue tile
-  size_t xn, w1a, w1g, out, w2, h, act, total;  // byte offsets into shared memory
+constexpr int BM = 64;                  // rows per tile: one wgmma M
+constexpr int NC = 64;                  // inner columns per chunk
+constexpr int THREADS = 256;            // two warpgroups
+constexpr int PANEL = BM * 64;          // bf16 of a [64 rows x 64 K] swizzled panel (8 KB)
+constexpr int W1_UNIT = 2 * NC * 64;    // bf16 of a W1 unit, [128 rows x 64 K] (16 KB)
+constexpr int W1_STAGES = 4;            // AHEAD loading, one computing, one in flight
+constexpr int AHEAD = 2;                // units loading while one computes
+
+// Shared memory, byte offsets from a 1024-byte aligned base: the W1 ring, the
+// W2 slot [d rows x 64 K], xn [d/64 panels], act [one panel]; the epilogue's
+// fp32 partial out [64][d + 8] lies over the ring and the W2 slot.
+template <int D>
+struct Smem {
+  static constexpr int KP = D / 64;  // K panels of xn: W1 units per chunk
+  static constexpr int LDR = D + 8;  // fp32 row stride of the partial out
+  static constexpr size_t w2 = size_t(W1_STAGES) * W1_UNIT * 2;
+  static constexpr size_t xn = w2 + size_t(D) * 64 * 2;
+  static constexpr size_t act = xn + size_t(KP) * PANEL * 2;
+  static constexpr size_t total = act + size_t(PANEL) * 2 + 1024;  // + the alignment
+  static_assert(size_t(BM) * LDR * 4 <= xn, "the partial out fits over the weights");
 };
 
-__host__ __device__ inline size_t round_up(size_t v) { return (v + 127) / 128 * 128; }
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-__host__ __device__ inline Layout make_layout(int d) {
-  Layout L;
-  L.ldx = d + PAD;
-  L.ldo = d + 4;
-  const size_t xn_bytes = size_t(BM) * L.ldx * 2;
-  const size_t w1_bytes = round_up(size_t(d) * LDW * 2);
-  const size_t out_bytes = size_t(BM) * L.ldo * 4;
-  // The fp32 epilogue tile reuses the W1 staging area once the loop is done.
-  const size_t union_bytes = 2 * w1_bytes > out_bytes ? 2 * w1_bytes : out_bytes;
-  L.xn = 0;
-  L.w1a = round_up(xn_bytes);
-  L.w1g = L.w1a + w1_bytes;
-  L.out = L.w1a;
-  L.w2 = L.w1a + round_up(union_bytes);
-  L.h = L.w2 + round_up(size_t(NC) * L.ldx * 2);
-  L.act = L.h + round_up(size_t(WARPS) * 16 * LDH * 4);
-  L.total = L.act + round_up(size_t(BM) * LDW * 2);
-  return L;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// this thread's generic-proxy writes to shared memory, visible to wgmma's
+// async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// After wgmma.wait_group: the accumulators' values are those the products left
+// (no read of them moves above the wait). Never between a product's issue and
+// its wait, where it would serialize the products.
+template <int N>
+__device__ __forceinline__ void pin(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, K-major, 128-byte swizzle: rows of 64 bf16
+// (128 bytes), 8-row groups 1024 bytes apart; the 16-byte chunk j of row r
+// stored at chunk j ^ (r % 8). p is 1024-byte aligned but for the k offset.
+__device__ __forceinline__ uint64_t make_desc_sw128(const void* p) {
+  return uint64_t((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
+         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
+}
+
+// Element (r, k) of a swizzled [rows x 64 K] panel, in bf16 from its start.
+__device__ __forceinline__ int swz(int r, int k) {
+  return r * 64 + ((((k >> 3) ^ r) & 7) << 3) + (k & 7);
+}
+
+// D[64 x N] (+)= A[64 x 16] . B[16 x N], A and B K-major from shared memory
+// behind their descriptors, fp32 D; acc = 0 overwrites D. Overloads by N = 2 *
+// the accumulator count: 64 (product 1) and 160 (product 2 at d = 320).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[80], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "%80, %81, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&w[j]);
+    f[2 * j] = __low2float(p);
+    f[2 * j + 1] = __high2float(p);
+  }
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -102,213 +221,313 @@ __device__ __forceinline__ float gelu_tanh(float u) {
   return 0.5f * u * (1.0f + tanhf(c * (u + k * u * u * u)));
 }
 
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
 // LN: the LayerNorm + residual sub-layer (_ln_ffn_kernel); otherwise the bare
 // FFN (_ffn_kernel), which reads neither gamma, beta nor eps.
-template <bool LN>
+// grid (tiles * CL), cluster (CL, 1, 1): cluster t is row tile t.
+template <int D, bool LN>
 __global__ void __launch_bounds__(THREADS, 1)
-ln_geglu_ffn_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ gamma,
-                    const float* __restrict__ beta, const __nv_bfloat16* __restrict__ w1,
-                    const float* __restrict__ b1, const __nv_bfloat16* __restrict__ w2,
-                    const float* __restrict__ b2, __nv_bfloat16* __restrict__ out, int M, int d,
-                    int inner, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Layout L = make_layout(d);
-  __nv_bfloat16* xn_s = reinterpret_cast<__nv_bfloat16*>(smem + L.xn);
-  __nv_bfloat16* w1a_s = reinterpret_cast<__nv_bfloat16*>(smem + L.w1a);
-  __nv_bfloat16* w1g_s = reinterpret_cast<__nv_bfloat16*>(smem + L.w1g);
-  float* out_s = reinterpret_cast<float*>(smem + L.out);
-  __nv_bfloat16* w2_s = reinterpret_cast<__nv_bfloat16*>(smem + L.w2);
-  float* h_s = reinterpret_cast<float*>(smem + L.h);
-  __nv_bfloat16* act_s = reinterpret_cast<__nv_bfloat16*>(smem + L.act);
+    ffn_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+               const float* __restrict__ beta, const bf16* __restrict__ w1,
+               const float* __restrict__ b1, const bf16* __restrict__ w2,
+               const float* __restrict__ b2, bf16* __restrict__ out, int M, int inner,
+               float eps) {
+  using L = Smem<D>;
+  constexpr int KP = L::KP, UPC = KP + 1, N2 = D / 2, NV = D / 8;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cl = static_cast<int>(cluster.num_blocks());
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  bf16* ring = reinterpret_cast<bf16*>(sm);
+  bf16* w2s = reinterpret_cast<bf16*>(sm + L::w2);
+  bf16* xn = reinterpret_cast<bf16*>(sm + L::xn);
+  bf16* act = reinterpret_cast<bf16*>(sm + L::act);
+  float* red = reinterpret_cast<float*>(sm);
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, g8 = (lane >> 2) + 16 * (warp % 4), t4 = lane & 3;
+  const int row0 = (blockIdx.x / cl) * BM;
+  const int chunks = inner / NC;
+  const int c0 = rank * chunks / cl, c1 = (rank + 1) * chunks / cl;
+  const int units = (c1 - c0) * UPC;
 
-  if (!LN) {
-    // The x tile as it is, 16 bytes a thread. Rows past M are zero-filled.
-    const int row_vecs = d / 8;
-    for (int v = tid; v < BM * row_vecs; v += THREADS) {
-      const int r = v / row_vecs, vec = v - r * row_vecs;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (row0 + r < M)
-        val = *reinterpret_cast<const uint4*>(x + size_t(row0 + r) * d + vec * 8);
-      *reinterpret_cast<uint4*>(xn_s + r * L.ldx + vec * 8) = val;
-    }
-  }
-  // LayerNorm: one warp per row. Rows past M are zero-filled; they are never stored.
-  for (int r = warp; LN && r < BM; r += WARPS) {
-    __nv_bfloat16* dst = xn_s + r * L.ldx;
-    const int gr = row0 + r;
-    if (gr < M) {
-      const __nv_bfloat16* src = x + size_t(gr) * d;
-      float s = 0.f;
-      for (int c = lane; c < d; c += 32) s += __bfloat162float(src[c]);
-      const float mu = warp_sum(s) / d;
-      float v = 0.f;
-      for (int c = lane; c < d; c += 32) {
-        const float t = __bfloat162float(src[c]) - mu;
-        v += t * t;
+  // unit u = (chunk c0 + u / UPC, part u % UPC): parts 0..KP-1 are W1's K panels,
+  // part KP is W2's slice. Eight neighbouring threads fill the same 16 bytes of
+  // K of 8 rows (on 8 distinct bank groups, by the swizzle).
+  auto load_unit = [&](int u) {
+    const int lc = u / UPC, p = u % UPC, c = c0 + lc;
+    if (p < KP) {
+      // slot row n: warpgroup n / 64's a columns (n % 64 < 32), then its g columns
+      bf16* slot = ring + size_t((lc * KP + p) % W1_STAGES) * W1_UNIT;
+      for (int i = tid; i < 2 * NC * 8; i += THREADS) {
+        const int n = (i & 7) | ((i >> 6) << 3), v = (i >> 3) & 7;
+        const int col = c * NC + 32 * (n >> 6) + (n & 31) + ((n & 32) ? inner : 0);
+        cp_async16(slot + n * 64 + ((v ^ (n & 7)) << 3), w1 + size_t(col) * D + p * 64 + v * 8);
       }
-      const float rstd = rsqrtf(warp_sum(v) / d + eps);
-      for (int c = lane; c < d; c += 32)
-        dst[c] = __float2bfloat16((__bfloat162float(src[c]) - mu) * rstd * gamma[c] + beta[c]);
     } else {
-      for (int c = lane; c < d; c += 32) dst[c] = __float2bfloat16(0.f);
+      for (int i = tid; i < D * 8; i += THREADS) {
+        const int n = (i & 7) | ((i >> 6) << 3), v = (i >> 3) & 7;
+        cp_async16(w2s + n * 64 + ((v ^ (n & 7)) << 3), w2 + size_t(n) * inner + c * NC + v * 8);
+      }
     }
+  };
+#pragma unroll
+  for (int s = 0; s < AHEAD; ++s) {  // behind the LayerNorm
+    if (s < units) load_unit(s);
+    cp_async_commit();
   }
 
-  // Phase-1 tiles of a warp: row tile hrow, columns hcol..hcol+31 of both a and g.
-  const int hrow = warp >> 1;
-  const int hcol = (warp & 1) * 32;
-  float* h_w = h_s + warp * 16 * LDH;
-  // Phase-2 tiles of a warp: row tile prow, column tiles pcol0, pcol0 + 2, ...
-  const int n16 = d / 16;
-  const int prow = warp & 3;
-  const int pcol0 = warp >> 2;
-
-  FragC acc[MAX_TILES];
-#pragma unroll
-  for (int i = 0; i < MAX_TILES; ++i) wmma::fill_fragment(acc[i], 0.f);
-
-  for (int c0 = 0; c0 < inner; c0 += NC) {
-    // Stage W1[:, c0:c0+64], W1[:, inner+c0:inner+c0+64] and W2[c0:c0+64, :], 16 bytes a thread.
-    for (int v = tid; v < d * 16; v += THREADS) {
-      const int k = v >> 4, half = (v >> 3) & 1, vec = v & 7;
-      const uint4 val = *reinterpret_cast<const uint4*>(
-          w1 + size_t(k) * 2 * inner + size_t(half) * inner + c0 + vec * 8);
-      *reinterpret_cast<uint4*>((half ? w1g_s : w1a_s) + k * LDW + vec * 8) = val;
-    }
-    const int row_vecs = d / 8;
-    for (int v = tid; v < NC * row_vecs; v += THREADS) {
-      const int j = v / row_vecs, vec = v - j * row_vecs;
-      *reinterpret_cast<uint4*>(w2_s + j * L.ldx + vec * 8) =
-          *reinterpret_cast<const uint4*>(w2 + size_t(c0 + j) * d + vec * 8);
-    }
-    __syncthreads();
-
-    // Phase 1: [a | g] tiles = xn . W1 slices.
-    {
-      FragC ha[2], hg[2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fill_fragment(ha[j], 0.f);
-        wmma::fill_fragment(hg[j], 0.f);
-      }
-      FragA fa;
-      FragB fb;
-      for (int k = 0; k < d; k += 16) {
-        wmma::load_matrix_sync(fa, xn_s + hrow * 16 * L.ldx + k, L.ldx);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::load_matrix_sync(fb, w1a_s + k * LDW + hcol + j * 16, LDW);
-          wmma::mma_sync(ha[j], fa, fb, ha[j]);
-          wmma::load_matrix_sync(fb, w1g_s + k * LDW + hcol + j * 16, LDW);
-          wmma::mma_sync(hg[j], fa, fb, hg[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::store_matrix_sync(h_w + j * 16, ha[j], LDH, wmma::mem_row_major);
-        wmma::store_matrix_sync(h_w + 32 + j * 16, hg[j], LDH, wmma::mem_row_major);
-      }
-    }
-    __syncwarp();
-    // Bias + tanh-GEGLU in fp32 on the warp's own tiles; bf16 act chunk to shared memory.
-    for (int e = lane; e < 16 * 32; e += 32) {
-      const int r = e >> 5, cc = e & 31;
-      const int col = c0 + hcol + cc;
-      const float a = h_w[r * LDH + cc] + b1[col];
-      const float g = h_w[r * LDH + 32 + cc] + b1[inner + col];
-      act_s[(hrow * 16 + r) * LDW + hcol + cc] = __float2bfloat16(a * gelu_tanh(g));
-    }
-    __syncthreads();
-
-    // Phase 2: out[64, d] += act . W2[c0:c0+64, :].
-    {
-      FragA fa;
-      FragB fb;
-#pragma unroll
-      for (int k = 0; k < NC; k += 16) {
-        wmma::load_matrix_sync(fa, act_s + prow * 16 * LDW + k, LDW);
-#pragma unroll
-        for (int i = 0; i < MAX_TILES; ++i) {
-          const int ct = pcol0 + 2 * i;
-          if (ct < n16) {
-            wmma::load_matrix_sync(fb, w2_s + k * L.ldx + ct * 16, L.ldx);
-            wmma::mma_sync(acc[i], fa, fb, acc[i]);
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // Epilogue: the fp32 tile goes through shared memory (it reuses the W1 staging
-  // area), then + b2 (+ the fp32 residual with LN), stored as bf16 for the rows
-  // below M.
-#pragma unroll
-  for (int i = 0; i < MAX_TILES; ++i) {
-    const int ct = pcol0 + 2 * i;
-    if (ct < n16)
-      wmma::store_matrix_sync(out_s + prow * 16 * L.ldo + ct * 16, acc[i], L.ldo,
-                              wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int e = tid; e < BM * d; e += THREADS) {
-    const int r = e / d, c = e - r * d;
+  // xn: one warp a row, 8 channels a lane and vector; rows past M are zero
+  constexpr int PER = (NV + 31) / 32;
+  for (int r = warp; r < BM; r += THREADS / 32) {
     const int gr = row0 + r;
-    if (gr < M) {
-      const size_t gi = size_t(gr) * d + c;
-      const float y = out_s[r * L.ldo + c] + b2[c];
-      out[gi] = __float2bfloat16(LN ? __bfloat162float(x[gi]) + y : y);
+    uint4 v[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int vi = lane + 32 * k;
+      v[k] = (gr < M && vi < NV) ? *reinterpret_cast<const uint4*>(x + size_t(gr) * D + vi * 8)
+                                 : make_uint4(0u, 0u, 0u, 0u);
+    }
+    if (LN && gr < M) {
+      float f[PER][8];
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        unpack8(v[k], f[k]);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s += f[k][j];  // zero past d
+      }
+      const float mu = warp_sum(s) / D;
+      float q = 0.f;
+#pragma unroll
+      for (int k = 0; k < PER; ++k)
+        if (lane + 32 * k < NV)
+#pragma unroll
+          for (int j = 0; j < 8; ++j) q += (f[k][j] - mu) * (f[k][j] - mu);
+      const float rstd = rsqrtf(warp_sum(q) / D + eps);
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int vi = lane + 32 * k;
+        if (vi >= NV) break;
+        const float4 ga = *reinterpret_cast<const float4*>(gamma + vi * 8);
+        const float4 gb = *reinterpret_cast<const float4*>(gamma + vi * 8 + 4);
+        const float4 ba = *reinterpret_cast<const float4*>(beta + vi * 8);
+        const float4 bb = *reinterpret_cast<const float4*>(beta + vi * 8 + 4);
+        const float gm[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+        const float bt[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+        float y[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) y[j] = (f[k][j] - mu) * rstd * gm[j] + bt[j];
+        v[k] = make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]),
+                          pack_bf16(y[6], y[7]));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int vi = lane + 32 * k;
+      if (vi < NV)
+        *reinterpret_cast<uint4*>(xn + (vi >> 3) * PANEL + swz(r, (vi & 7) * 8)) = v[k];
     }
   }
+  fence_proxy_async();
+
+  // One iteration a chunk, its units unrolled, so that each product's
+  // accumulators stay in fixed registers between its issue and its wait. No
+  // other instruction writes them while a product is in flight (ptxas would
+  // then serialize the products, C7515): acc1 is zeroed once, before any
+  // product, and pinned after the GEGLU has read it; acc2 is never zeroed, the
+  // CTA's first product 2 overwrites it (every CTA has at least one chunk).
+  auto begin_unit = [&](int u) {
+    cp_async_wait<AHEAD - 1>();  // this thread's copies of unit u have landed
+    fence_proxy_async();         // and are visible to wgmma
+    __syncthreads();             // everyone's; both warpgroups past unit u - 2
+    if (u + AHEAD < units) load_unit(u + AHEAD);
+    cp_async_commit();
+  };
+  float acc1[32], acc2[N2 / 2];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc1[i] = 0.f;
+  for (int lc = 0; lc < c1 - c0; ++lc) {
+    // product 1, K panel by K panel: [a | g] of this warpgroup's 32 columns
+#pragma unroll
+    for (int p = 0; p < KP; ++p) {
+      begin_unit(lc * UPC + p);
+      const bf16* slot = ring + size_t((lc * KP + p) % W1_STAGES) * W1_UNIT + wg * 64 * 64;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        wgmma_ss(acc1, make_desc_sw128(xn + p * PANEL + ks * 16),
+                 make_desc_sw128(slot + ks * 16), p > 0 || ks > 0);
+      wgmma_commit();
+      if (p < KP - 1) wgmma_wait<1>();  // the accumulators are read after wait_group 0
+    }
+    wgmma_wait<0>();
+    pin(acc1);
+    // bias + tanh-GEGLU: thread (g8, t4) holds a and g of columns 8j + 2 t4, + 1
+    // (j < 4), rows g8 and g8 + 8; the bf16 act chunk to shared memory
+    const int cbase = (c0 + lc) * NC + 32 * wg;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int col = 8 * j + 2 * t4;
+      const float2 ba = *reinterpret_cast<const float2*>(b1 + cbase + col);
+      const float2 bg = *reinterpret_cast<const float2*>(b1 + inner + cbase + col);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float a0 = acc1[4 * j + 2 * h] + ba.x, a1 = acc1[4 * j + 2 * h + 1] + ba.y;
+        const float q0 = acc1[4 * (j + 4) + 2 * h] + bg.x;
+        const float q1 = acc1[4 * (j + 4) + 2 * h + 1] + bg.y;
+        *reinterpret_cast<uint32_t*>(act + swz(g8 + 8 * h, 32 * wg + col)) =
+            pack_bf16(a0 * gelu_tanh(q0), a1 * gelu_tanh(q1));
+      }
+    }
+    fence_proxy_async();  // read by product 2 after the next unit's barrier
+    pin(acc1);            // the GEGLU's reads stay above the next chunk's products
+
+    // product 2: out[:, this warpgroup's d/2 columns] += act . W2-slice^T
+    begin_unit(lc * UPC + KP);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss(acc2, make_desc_sw128(act + ks * 16),
+               make_desc_sw128(w2s + wg * N2 * 64 + ks * 16), lc > 0 || ks > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // in flight behind the next chunk's first unit
+  }
+  wgmma_wait<0>();
+  pin(acc2);
+  cp_async_wait<0>();
+  __syncthreads();  // every product done: the partial out goes over the weights
+
+#pragma unroll
+  for (int j = 0; j < N2 / 8; ++j) {
+    const int col = wg * N2 + 8 * j + 2 * t4;
+    *reinterpret_cast<float2*>(red + g8 * L::LDR + col) = make_float2(acc2[4 * j], acc2[4 * j + 1]);
+    *reinterpret_cast<float2*>(red + (g8 + 8) * L::LDR + col) =
+        make_float2(acc2[4 * j + 2], acc2[4 * j + 3]);
+  }
+  cluster.sync();
+
+  // rows [rank * 64 / CL, (rank + 1) * 64 / CL) of the tile: the CL partials in
+  // rank order, + b2 (+ the residual), 8 columns a thread and step
+  const int rows = BM / cl;
+  for (int i = tid; i < rows * NV; i += THREADS) {
+    const int r = rank * rows + i / NV, vi = i % NV, gr = row0 + r;
+    if (gr >= M) continue;
+    float y[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int q = 0; q < cl; ++q) {
+      const float* src = cluster.map_shared_rank(red, q) + r * L::LDR + vi * 8;
+      const float4 lo = *reinterpret_cast<const float4*>(src);
+      const float4 hi = *reinterpret_cast<const float4*>(src + 4);
+      y[0] += lo.x; y[1] += lo.y; y[2] += lo.z; y[3] += lo.w;
+      y[4] += hi.x; y[5] += hi.y; y[6] += hi.z; y[7] += hi.w;
+    }
+    const float4 ba = *reinterpret_cast<const float4*>(b2 + vi * 8);
+    const float4 bb = *reinterpret_cast<const float4*>(b2 + vi * 8 + 4);
+    const float bias[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+    float res[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    const size_t gi = size_t(gr) * D + vi * 8;
+    if (LN) unpack8(*reinterpret_cast<const uint4*>(x + gi), res);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) y[j] = LN ? res[j] + (y[j] + bias[j]) : y[j] + bias[j];
+    *reinterpret_cast<uint4*>(out + gi) = make_uint4(
+        pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]), pack_bf16(y[6], y[7]));
+  }
+  cluster.sync();  // every remote read done before any CTA of the cluster leaves
+}
+
+constexpr int D_TAKEN = 320;
+
+// The smallest cluster of 1, 2, 4, 8 that gives 90% of the SMs a CTA (no more
+// CTAs than inner has chunks).
+int cluster_size(int tiles, int chunks) {
+  int sms = 132, dev = 0;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int cl = 1;
+  while (cl < 8 && 2 * cl <= chunks && 10LL * tiles * cl < 9LL * sms) cl *= 2;
+  return cl;
+}
+
+template <int D, bool LN>
+cudaError_t launch(const void* x, const void* gamma, const void* beta, const void* w1,
+                   const void* b1, const void* w2, const void* b2, void* out, int M, int inner,
+                   float eps, cudaStream_t stream) {
+  constexpr size_t smem = Smem<D>::total;
+  // The shared memory limit is raised once per device for this instance: the
+  // attribute call costs host time of the order of the launch itself.
+  static std::atomic<unsigned long long> raised{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(raised.load() & bit)) {
+    e = cudaFuncSetAttribute(ffn_kernel<D, LN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             int(smem));
+    if (e != cudaSuccess) return e;
+    raised.fetch_or(bit);
+  }
+  const int tiles = (M + BM - 1) / BM;
+  const int cl = cluster_size(tiles, inner / NC);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(tiles) * cl);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, ffn_kernel<D, LN>, static_cast<const bf16*>(x),
+                         static_cast<const float*>(gamma), static_cast<const float*>(beta),
+                         static_cast<const bf16*>(w1), static_cast<const float*>(b1),
+                         static_cast<const bf16*>(w2), static_cast<const float*>(b2),
+                         static_cast<bf16*>(out), M, inner, eps);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }
 
 template <bool LN>
-int launch(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1,
-           const void* w2, const void* b2, void* out, int M, int d, int inner, float eps,
-           void* stream) {
+int dispatch(const void* x, const void* gamma, const void* beta, const void* w1, const void* b1,
+             const void* w2, const void* b2, void* out, int M, int d, int inner, float eps,
+             void* stream) {
   if (M <= 0) return cudaSuccess;
-  if (d <= 0 || d % 16 || d > 2 * MAX_TILES * 16 || inner <= 0 || inner % NC)
-    return cudaErrorInvalidValue;
-  const size_t smem = make_layout(d).total;
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_geglu_ffn_kernel<LN>, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((M + BM - 1) / BM);
-  ln_geglu_ffn_kernel<LN><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(gamma),
-      static_cast<const float*>(beta), static_cast<const __nv_bfloat16*>(w1),
-      static_cast<const float*>(b1), static_cast<const __nv_bfloat16*>(w2),
-      static_cast<const float*>(b2), static_cast<__nv_bfloat16*>(out), M, d, inner, eps);
-  return cudaGetLastError();
+  if (d != D_TAKEN || inner <= 0 || inner % NC) return cudaErrorInvalidValue;
+  return launch<D_TAKEN, LN>(x, gamma, beta, w1, b1, w2, b2, out, M, inner, eps,
+                             static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest feature width the kernel takes (its per-warp accumulator budget).
-int wd_ln_geglu_ffn_max_d() { return 2 * MAX_TILES * 16; }
+// The feature width the forward kernel takes.
+int wd_ln_geglu_ffn_d() { return D_TAKEN; }
+
+// The dynamic shared memory of a CTA, bytes.
+int wd_ln_geglu_ffn_smem() { return int(Smem<D_TAKEN>::total); }
+
+// The cluster size the forward kernel launches with at M rows.
+int wd_ln_geglu_ffn_cluster(int m, int inner) {
+  return m > 0 && inner >= NC ? cluster_size((m + BM - 1) / BM, inner / NC) : 0;
+}
 
 // Launches the LN + FFN + residual kernel on `stream`; returns the CUDA error
-// code (0 on success).
+// code (0 on success): a shape it does not take, or a launch the device refuses.
 int wd_ln_geglu_ffn(const void* x, const void* gamma, const void* beta, const void* w1,
                     const void* b1, const void* w2, const void* b2, void* out, int M, int d,
                     int inner, float eps, void* stream) {
-  return launch<true>(x, gamma, beta, w1, b1, w2, b2, out, M, d, inner, eps, stream);
+  return dispatch<true>(x, gamma, beta, w1, b1, w2, b2, out, M, d, inner, eps, stream);
 }
 
-// The bare GEGLU FFN, out = act . W2 + b2 (no LayerNorm, no residual), with the
-// same operands and constraints; x must be 16-byte aligned.
+// The bare GEGLU FFN, out = act . W2^T + b2 (no LayerNorm, no residual), with the
+// same operands and constraints.
 int wd_geglu_ffn(const void* x, const void* w1, const void* b1, const void* w2, const void* b2,
                  void* out, int M, int d, int inner, void* stream) {
-  return launch<false>(x, nullptr, nullptr, w1, b1, w2, b2, out, M, d, inner, 0.f, stream);
+  return dispatch<false>(x, nullptr, nullptr, w1, b1, w2, b2, out, M, d, inner, 0.f, stream);
 }
 
 const char* wd_cuda_error_string(int code) {

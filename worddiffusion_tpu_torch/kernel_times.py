@@ -1,6 +1,8 @@
-"""Time the attention kernel (B.4) and the GN -> SiLU -> conv3x3 kernel (B.6)
-of two source trees on one card, by three methods, and read what holds B.4
-back against ``scaled_dot_product_attention``.
+"""Time the port's redesigned kernels of two source trees on one card, by
+three methods: the attention kernel (B.4), GN -> SiLU -> conv3x3 (B.6),
+the LN + GEGLU FFN (B.1) and its bare mode (B.2), and GroupNorm (+ SiLU)
+(B.5); and read what holds B.4 back against
+``scaled_dot_product_attention``.
 
     python3 worddiffusion_tpu_torch/kernel_times.py --other DIR [--out FILE]
 
@@ -10,7 +12,14 @@ directory that ``.gitignore`` lists. Each tree runs in a process of its own,
 in the order other, this, this, other, so that a drift of the card shows as a
 difference between the two runs of one tree; each process builds its own
 tree's kernels. At every shape it times the kernel's op and its library
-yardstick (SDPA; ``F.group_norm`` -> ``F.silu`` -> cuDNN ``F.conv2d``):
+yardstick where one PyTorch call computes the same function (SDPA;
+``F.group_norm`` -> ``F.silu`` -> cuDNN ``F.conv2d``; ``F.group_norm``
+(+ ``F.silu``); none for B.1 and B.2). B.1 runs as the UNet calls it, the
+``LnGegluFFN`` Function on fp32 parameter-layout weights under no_grad
+(each tree casts or lays them out inside), and, in this tree only, on
+bf16 parameter-layout weights (``ffn_bf16``, which the kernel reads with
+no copy: the difference is the cost of the casts); B.2 through
+``fused_geglu_ffn`` on bf16 weights in the JAX layout:
 
 - ``single_ms``: one call between two CUDA events, the median of 30; the
   host's launch path adds to it where it is longer than the device work;
@@ -20,10 +29,14 @@ yardstick (SDPA; ``F.group_norm`` -> ``F.silu`` -> cuDNN ``F.conv2d``):
   ``torch.profiler``, per call over 10 calls.
 
 Then, in this tree only: the registers, stack, local (spilled) and static
-shared memory of each attention kernel instance as ``cuobjdump
--res-usage`` reads them from the built library, the CTAs per SM those and
-the dynamic shared memory allow, and B.4 against SDPA over Nk at B=128,
-Nq=256 (``kernel_ms``), fitted as a fixed cost plus a cost per 64-key chunk.
+shared memory of each instance of the attention, FFN and GroupNorm kernels
+as ``cuobjdump -res-usage`` reads them from the built library, the CTAs per
+SM those and the dynamic shared memory allow, the cluster sizes B.1 and
+B.5 launch with at each shape, B.5's kernel time at every route (cluster
+of 1, 2, 4, 8; x kept in shared memory or read twice) and, for the route
+it picks, stopped after its first pass and after its statistics
+(``wd_groupnorm_routed``), and B.4 against SDPA over Nk at B=128, Nq=256
+(``kernel_ms``), fitted as a fixed cost plus a cost per 64-key chunk.
 
 Prints one JSON object a process and a summary; writes everything to
 FILE (default ``build/kernel_times.json``).
@@ -49,6 +62,20 @@ ATTN_SHAPES = ((128, 256, 811), (128, 64, 811), (128, 256, 256), (128, 64, 64),
 CONV_SHAPES = ((128, 8, 32, 320), (128, 4, 16, 320), (128, 16, 64, 512), (128, 8, 32, 512),
                (128, 32, 128, 256), (128, 64, 256, 128), (16, 8, 32, 320), (16, 64, 256, 128))
 SWEEP_NK = (64, 256, 512, 811, 1024, 2048)
+D, INNER = 320, 1280
+# M of B.1: the UNet's regeneration sites (B=16 at 256 and 64 tokens), its
+# training site (B=128, 256 tokens) and a ragged M; of B.2: two of them
+FFN_M = (16 * 256, 16 * 64, 128 * 256, 1000)
+GEGLU_M = (16 * 256, 128 * 256)
+# (B, H, W, C, groups, silu) of B.5: every UNet site at B=16 and 128 (the
+# 640-channel output ResBlocks with SiLU, the 320-channel transformer norms
+# and the out norm), and a VAE decoder site whose per-CTA range does not fit
+# in shared memory
+GN_SHAPES = tuple((b, h, w, c, 32, silu) for b in (16, 128)
+                  for h, w, c, silu in ((8, 32, 640, True), (4, 16, 640, True),
+                                        (8, 32, 320, False), (4, 16, 320, False),
+                                        (8, 32, 320, True))) + ((16, 64, 256, 256, 32, True),)
+KINDS = ("attention", "conv", "ffn", "ffn_bf16", "geglu", "groupnorm")
 
 
 def single_ms(fn, reps: int = 30, warmup: int = 5) -> float:
@@ -118,18 +145,41 @@ def conv_inputs(b: int, h: int, w: int, c: int, seed: int):
     return x, scale, bias, wt, cb
 
 
+def ffn_inputs(m: int, seed: int):
+    """x, LayerNorm affine and biases; fp32 weights in parameter layout
+    (w1 [2*inner, d], w2 [d, inner]) as the UNet holds them."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)
+    t = dict(x=r(m, D).bfloat16(), gamma=1 + 0.1 * r(D), beta=0.1 * r(D),
+             w1=r(2 * INNER, D) / D ** 0.5, b1=0.02 * r(2 * INNER), w2=r(D, INNER) / INNER ** 0.5,
+             b2=0.02 * r(D))
+    return {k: v.cuda() for k, v in t.items()}
+
+
+def norm_inputs(shape, seed: int):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    c = shape[-1]
+    x = (2 * torch.randn(*shape, generator=g) + 0.5).bfloat16()
+    scale, bias = 1 + 0.1 * torch.randn(c, generator=g), 0.1 * torch.randn(c, generator=g)
+    return x.cuda(), scale.cuda(), bias.cuda()
+
+
 def worker(tree: str, deep: bool) -> dict:
     """Every time of one tree's kernels; with ``deep``, the resource use and
     the Nk sweep too."""
     import torch
     import torch.nn.functional as F
 
-    from worddiffusion_tpu_torch.ops import attention, build, gn_conv
+    from worddiffusion_tpu_torch.ops import attention, build, ffn, gn_conv, groupnorm
 
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     lib = build.build()
     scale = D_HEAD ** -0.5
-    out = dict(tree=tree, attention=[], conv=[])
+    out = dict(tree=tree, **{k: [] for k in KINDS})
     for i, (b, nq, nk) in enumerate(ATTN_SHAPES):
         q, k, v = attn_inputs(b, nq, nk, seed=30 + i)
         out["attention"].append(dict(
@@ -145,37 +195,134 @@ def worker(tree: str, deep: bool) -> dict:
             library=three_ways(lambda: F.conv2d(F.silu(F.group_norm(nchw, 32, ws, bs, 1e-6)),
                                                 wb, cbb, padding=1))))
         del x, nchw
+    for i, m in enumerate(FFN_M):
+        t = ffn_inputs(m, seed=300 + i)
+        a = (t["x"], t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"], t["b2"], 1e-5)
+
+        def sublayer():
+            with torch.no_grad():
+                return ffn.LnGegluFFN.apply(*a)
+
+        out["ffn"].append(dict(shape=[m], kernel=three_ways(sublayer), library=None))
+        if deep:
+            # this tree only: the same on bf16 parameter-layout weights, which
+            # the kernel reads as they are; the difference is what the two
+            # fp32 -> bf16 cast copies of a call cost
+            b16 = (*a[:3], t["w1"].bfloat16(), t["b1"], t["w2"].bfloat16(), *a[6:])
+
+            def sublayer_bf16():
+                with torch.no_grad():
+                    return ffn.LnGegluFFN.apply(*b16)
+
+            out["ffn_bf16"].append(dict(shape=[m], kernel=three_ways(sublayer_bf16),
+                                        library=None))
+        if m in GEGLU_M:
+            w1, w2 = t["w1"].t().bfloat16().contiguous(), t["w2"].t().bfloat16().contiguous()
+            out["geglu"].append(dict(shape=[m], kernel=three_ways(
+                lambda: ffn.fused_geglu_ffn(t["x"], w1, t["b1"], w2, t["b2"])), library=None))
+    for i, (b, h, w, c, g, silu) in enumerate(GN_SHAPES):
+        x, s_, bi = norm_inputs((b, h, w, c), seed=400 + i)
+        nchw, ws, bs = x.permute(0, 3, 1, 2), s_.bfloat16(), bi.bfloat16()
+        if silu:
+            library = lambda: F.silu(F.group_norm(nchw, g, ws, bs, 1e-6))
+        else:
+            library = lambda: F.group_norm(nchw, g, ws, bs, 1e-6)
+        out["groupnorm"].append(dict(
+            shape=[b, h, w, c, g, silu],
+            kernel=three_ways(lambda: groupnorm.fused_groupnorm(x, s_, bi, g, 1e-6, silu)),
+            library=three_ways(library)))
+        del x, nchw
     if deep:
         out["resources"] = resources(str(lib))
+        out["clusters"] = dict(
+            ffn={m: ffn.cluster_size(m, INNER) for m in FFN_M},
+            groupnorm={str(s[:4]): groupnorm.route(torch.empty(s[0], s[1] * s[2], s[3],
+                                                               device="meta"), s[4])
+                       for s in GN_SHAPES})
+        out["gn_routes"] = gn_routes(groupnorm)
         out["sweep"] = sweep(attention, scale)
     return out
 
 
+def gn_routes(groupnorm) -> list[dict]:
+    """B.5's kernel time at every route, at the UNet's B=128 sites, its
+    first B=16 site and the VAE site: cluster of 1, 2, 4, 8 CTAs a sample,
+    x kept in shared memory (where it fits) or read twice; and, for the
+    route ``wd_groupnorm`` picks, the time to the end of pass 1 (read and
+    sums) and of the statistics (group sums, cluster exchange)."""
+    import ctypes
+
+    import torch
+
+    lib = groupnorm._lib()
+    fn = lib.wd_groupnorm_routed
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 4 + [i] * 4 + [ctypes.c_float] + [i] * 4 + [p]
+    fn.restype = i
+    rows = []
+    for k, (b, h, w, c, g, silu) in enumerate(
+            [s for s in GN_SHAPES if s[0] == 128] + [GN_SHAPES[0], GN_SHAPES[-1]]):
+        x, sc, bi = norm_inputs((b, h, w, c), seed=500 + k)
+        out = torch.empty_like(x)
+
+        def run(cl, keep, stop=0):
+            err = fn(x.data_ptr(), sc.data_ptr(), bi.data_ptr(), out.data_ptr(), b, h * w, c, g,
+                     1e-6, int(silu), cl, keep, stop, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"wd_groupnorm_routed failed ({err})")
+
+        times = {}
+        for cl in (1, 2, 4, 8):
+            for keep in (1, 0):
+                if keep and 16 * g + 2 * 256 * 8 * 4 + -(-h * w // cl) * c * 2 > 112 * 1024:
+                    continue
+                times[f"{cl}{'kept' if keep else 'reread'}"] = kernel_ms(lambda: run(cl, keep))[0]
+        cl, kept = groupnorm.route(x, g)
+        phases = {name: kernel_ms(lambda: run(cl, int(kept), stop))[0]
+                  for name, stop in (("pass1", 1), ("stats", 2), ("whole", 0))}
+        rows.append(dict(shape=[b, h, w, c, g, silu], picked=[cl, kept], routes=times,
+                         phases=phases, bound_ms=4 * x.numel() / 3.35e12 * 1e3))
+    return rows
+
+
 def resources(lib: str) -> list[dict]:
-    """``cuobjdump -res-usage`` of each attention kernel instance at D=80,
-    and the CTAs per SM its registers and shared memory allow (65536
-    registers a SM, allocated per warp in units of 256; 228 KB of shared
-    memory a SM, 1 KB of it reserved per CTA; at most 2048 threads)."""
+    """``cuobjdump -res-usage`` of each instance of the attention kernel at
+    D=80, the FFN kernel and the GroupNorm cluster kernel, and the CTAs per
+    SM its registers and shared memory allow (65536 registers a SM,
+    allocated per warp in units of 256; 228 KB of shared memory a SM, 1 KB
+    of it reserved per CTA; at most 2048 threads). The dynamic shared memory:
+    the attention kernel's from its tile, the FFN kernel's from the library
+    (``wd_ln_geglu_ffn_smem``), the GroupNorm kernel's at most FIT_BYTES."""
+    import ctypes
+
     cuobjdump = os.path.join(os.path.dirname(os.path.dirname(build_nvcc())), "bin", "cuobjdump")
     text = subprocess.run([cuobjdump, "-res-usage", lib], capture_output=True, text=True,
                           check=True).stdout
+    cdll = ctypes.CDLL(lib)
     rows = []
     lines = text.splitlines()
     for i, line in enumerate(lines):
-        m = re.search(r"attention_kernelILi80ELi(\d+)ELi(\d+)E", line)
-        if not m or "Function" not in line or i + 1 >= len(lines):
+        if "Function" not in line or i + 1 >= len(lines):
             continue
         usage = dict((k, int(v)) for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)",
                                                         lines[i + 1]))
-        warps, mt = int(m.group(1)), int(m.group(2))
-        bq = 16 * mt * warps
-        dyn = (bq + 2 * 2 * 64) * (D_HEAD + 8) * 2  # q tile + 2 stages of k and v chunks
+        if m := re.search(r"attention_kernelILi80ELi(\d+)ELi(\d+)E", line):
+            warps, mt = int(m.group(1)), int(m.group(2))
+            name = f"attention<80, {warps}, {mt}>"
+            dyn = (16 * mt * warps + 2 * 2 * 64) * (D_HEAD + 8) * 2  # q tile + 2 stages of k, v
+        elif m := re.search(r"ffn_kernelILi(\d+)ELb([01])E", line):
+            warps = 8
+            name = f"ffn<{m.group(1)}, {'LN' if m.group(2) == '1' else 'bare'}>"
+            dyn = cdll.wd_ln_geglu_ffn_smem()
+        elif "gn_cluster_kernel" in line:
+            warps, name, dyn = 8, "gn_cluster", 112 * 1024
+        else:
+            continue
         per_warp = -(-usage["REG"] * 32 // 256) * 256
         ctas = min(65536 // (per_warp * warps), (228 * 1024) // (dyn + usage["SHARED"] + 1024),
                    2048 // (32 * warps), 32)
-        rows.append(dict(warps=warps, m_tiles=mt, query_rows=bq, dynamic_shared=dyn,
-                         ctas_per_sm=ctas, warps_per_sm=ctas * warps, **usage,
-                         raw=lines[i + 1].strip()))
+        rows.append(dict(kernel=name, warps=warps, dynamic_shared=dyn, ctas_per_sm=ctas,
+                         warps_per_sm=ctas * warps, **usage, raw=lines[i + 1].strip()))
     return rows
 
 
@@ -219,22 +366,26 @@ def run_tree(tree: str, deep: bool) -> dict:
 
 
 def summary(runs: list[dict]) -> list[str]:
-    """Per shape and method: each tree's time (mean of its two runs), the
-    library's, and other / this."""
+    """Per kind, shape and method: each tree's time (mean of its two runs),
+    the library's where the kind has one, and other / this."""
     lines = []
     by_tree = {}
     for r in runs:
         by_tree.setdefault(r["tree"], []).append(r)
     (other, o_runs), (this, t_runs) = by_tree.items()
-    for kind in ("attention", "conv"):
-        for j, row in enumerate(t_runs[0][kind]):
+    for kind in KINDS:
+        if not o_runs[0].get(kind):
+            continue  # timed in this tree only
+        for j, row in enumerate(t_runs[0].get(kind, [])):
             parts = []
             for method in ("single_ms", "launch_ms", "kernel_ms"):
                 t = statistics.mean(r[kind][j]["kernel"][method] for r in t_runs)
                 o = statistics.mean(r[kind][j]["kernel"][method] for r in o_runs)
-                lib = statistics.mean(r[kind][j]["library"][method] for r in t_runs)
-                parts.append(f"{method} this {t:.4f} other {o:.4f} ({o / t:.2f}x) library "
-                             f"{lib:.4f}")
+                part = f"{method} this {t:.4f} other {o:.4f} ({o / t:.2f}x)"
+                if row["library"] is not None:
+                    lib = statistics.mean(r[kind][j]["library"][method] for r in t_runs)
+                    part += f" library {lib:.4f}"
+                parts.append(part)
             lines.append(f"{kind} {row['shape']}: " + "; ".join(parts))
     return lines
 
@@ -269,7 +420,14 @@ def main(argv=None) -> int:
         json.dump(result, f, indent=1)
     deep = next(r for r in runs if "resources" in r)
     for r in deep["resources"]:
-        print("attention resources", json.dumps(r))
+        print("resources", json.dumps(r))
+    print("clusters", json.dumps(deep["clusters"]))
+    for r in deep["gn_routes"]:
+        print("groupnorm routes", json.dumps(r))
+    for w32, w16 in zip(deep["ffn"], deep["ffn_bf16"]):
+        print(f"ffn {w32['shape']} fp32 weights (two cast copies) / bf16 weights: " + "; ".join(
+            f"{m} {w32['kernel'][m]:.4f} / {w16['kernel'][m]:.4f}" for m in
+            ("single_ms", "launch_ms", "kernel_ms")))
     print("attention Nk sweep", json.dumps(deep["sweep"]))
     if args.other:
         for line in summary(runs):

@@ -103,9 +103,10 @@ class BasicTransformerBlock(nn.Module):
     the context through one shared ``norm2``; otherwise attn1 is
     self-attention behind ``norm1``.
 
-    ``use_pallas_ffn``: None and True run the FF sub-layer through the
-    ``LnGegluFFN`` Function (the forward and backward kernels for a CUDA
-    tensor); False forces the plain autograd version.
+    ``use_pallas_ffn``: None and True run the FF sub-layer through
+    ``ffn.ffn_sublayer`` (the ``LnGegluFFN`` Function's forward and
+    backward kernels for a CUDA tensor); False forces the plain autograd
+    version.
 
     ``fold_context``: an attention over a context of L tokens with
     ``heads * L <= dim`` runs, with its pre-norm and residual, as one
@@ -157,10 +158,10 @@ class BasicTransformerBlock(nn.Module):
         if self.use_pallas_ffn is False:
             return ffn.ln_geglu_ffn_reference(x, norm.weight, norm.bias, proj.weight.t(),
                                               proj.bias, out.weight.t(), out.bias, norm.eps)
-        # the fp32 master weights in parameter layout: the Function casts
-        # them itself, so their gradients come back in fp32
-        return ffn.LnGegluFFN.apply(x, norm.weight, norm.bias, proj.weight, proj.bias,
-                                    out.weight, out.bias, norm.eps)
+        # the fp32 master weights in parameter layout: the op casts them
+        # itself, so their gradients come back in fp32
+        return ffn.ffn_sublayer(x, norm.weight, norm.bias, proj.weight, proj.bias,
+                                out.weight, out.bias, norm.eps)
 
 
 class SpatialTransformer(nn.Module):

@@ -104,3 +104,24 @@ def _run_all(cmds: list[list[str]]) -> None:
 def load() -> ctypes.CDLL:
     """The built kernel library (built on first call)."""
     return ctypes.CDLL(str(build()))
+
+
+@functools.cache
+def _raw_stream():
+    import torch
+
+    fast = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return fast or (lambda dev: torch.cuda.current_stream(dev).cuda_stream)
+
+
+def launch_on(x, call):
+    """``call(stream)`` with the current stream of CUDA tensor ``x``'s device
+    as an int: under ``torch.cuda.device`` only where x is not on the current
+    device, as the kernels launch on the current device."""
+    import torch
+
+    dev = x.get_device()
+    if dev == torch._C._cuda_getDevice():
+        return call(_raw_stream()(dev))
+    with torch.cuda.device(dev):
+        return call(_raw_stream()(dev))

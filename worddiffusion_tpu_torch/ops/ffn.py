@@ -5,11 +5,13 @@ Port of ``worddiffusion_tpu/ops/ffn_pallas.py::fused_ln_geglu_ffn_kbwd``:
 the forward kernel ``csrc/ln_geglu_ffn.cu`` and the backward kernel
 ``csrc/ln_geglu_ffn_bwd.cu`` (behind ``ln_geglu_ffn_bwd``), paired by
 the ``torch.autograd.Function`` ``LnGegluFFN``, which takes the weights
-in parameter layout; ``fused_ln_geglu_ffn`` takes them in the JAX
-function's layout. A CUDA tensor launches the kernels; a CPU tensor
-takes the plain PyTorch versions ``ln_geglu_ffn_reference`` and
-``ln_geglu_ffn_bwd_reference``; a CUDA input the kernels do not take
-raises instead of falling back.
+in parameter layout (the forward kernel reads them so, cast to x's
+dtype; the backward kernel in the JAX layout); ``ffn_sublayer`` skips
+the Function where no gradient is wanted, and ``fused_ln_geglu_ffn``
+takes the weights in the JAX function's layout. A CUDA tensor launches
+the kernels; a CPU tensor takes the plain PyTorch versions
+``ln_geglu_ffn_reference`` and ``ln_geglu_ffn_bwd_reference``; a CUDA
+input the kernels do not take raises instead of falling back.
 
 The bare GEGLU feed-forward, ``act · W2 + b2`` with no LayerNorm and no
 residual, is the port of ``ffn_pallas.py::fused_geglu_ffn`` (its kernel
@@ -100,9 +102,9 @@ class GegluFFN(torch.autograd.Function):
             return geglu_ffn_reference(x, w1, b1, w2, b2)
         if x.device.type != "cuda":
             raise ValueError(f"fused_geglu_ffn: unsupported device {x.device}")
-        fmt = torch.contiguous_format
-        return _launch_geglu(x, w1.to(x.dtype, memory_format=fmt), b1,
-                             w2.to(x.dtype, memory_format=fmt), b2)
+        bf16 = torch.bfloat16
+        return _launch_geglu(x, _contiguous_as(w1.t(), bf16), b1,
+                             _contiguous_as(w2.t(), bf16), b2)
 
     @staticmethod
     def backward(ctx, dy):
@@ -167,12 +169,20 @@ def ln_geglu_ffn_bwd_reference(x, dy, gamma, beta, w1, b1, w2, eps: float = 1e-5
     )
 
 
+def _contiguous_as(w, dt):
+    """w in ``dt``, contiguous: itself where it is so, else one copy.
+    (``w.to(dt, memory_format=torch.contiguous_format)`` returns a strided
+    w unchanged when it already has ``dt``.)"""
+    if w.dtype == dt:
+        return w.contiguous()
+    return w.to(dt, memory_format=torch.contiguous_format)
+
+
 def _kernel_weights(w1, w2, dt):
     """Parameter-layout weights (w1 [2*inner, d], w2 [d, inner]) ->
-    the kernels' contiguous [d, 2*inner] and [inner, d] in ``dt``: one
-    cast-and-transpose copy each."""
-    fmt = torch.contiguous_format
-    return w1.t().to(dt, memory_format=fmt), w2.t().to(dt, memory_format=fmt)
+    the backward kernel's contiguous [d, 2*inner] and [inner, d] in
+    ``dt``: one cast-and-transpose copy each."""
+    return _contiguous_as(w1.t(), dt), _contiguous_as(w2.t(), dt)
 
 
 class LnGegluFFN(torch.autograd.Function):
@@ -180,18 +190,18 @@ class LnGegluFFN(torch.autograd.Function):
     plain versions on the CPU; the transformer block's FF sub-layer.
 
     The weights come in parameter layout and dtype (``proj.weight``
-    [2*inner, d], ``out.weight`` [d, inner], fp32 masters): the cast to
-    x.dtype and the transpose happen inside, so the weight gradients
-    come back in fp32 and in parameter layout, as JAX returns them in
-    the master dtype (``ffn_pallas.py:721-726``). The inputs are saved
-    and LN + GEGLU recomputed in the backward (``_ln_ffn_kbwd``)."""
+    [2*inner, d], ``out.weight`` [d, inner], fp32 masters): the forward
+    kernel reads that layout and the cast to x.dtype happens inside (one
+    copy per weight), so the weight gradients come back in fp32 and in
+    parameter layout, as JAX returns them in the master dtype
+    (``ffn_pallas.py:721-726``). The inputs are saved and LN + GEGLU
+    recomputed in the backward (``_ln_ffn_kbwd``)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps):
         ctx.save_for_backward(x, gamma, beta, w1, b1, w2, b2)
         ctx.eps = eps
-        w1k, w2k = _kernel_weights(w1, w2, x.dtype)
-        return _ffn(x, gamma, beta, w1k, b1, w2k, b2, eps)
+        return _sublayer(x, gamma, beta, w1, b1, w2, b2, eps)
 
     @staticmethod
     def backward(ctx, dy):
@@ -208,22 +218,35 @@ class LnGegluFFN(torch.autograd.Function):
         )
 
 
+def ffn_sublayer(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5):
+    """x + GEGLU-FFN(LayerNorm(x)) with parameter-layout weights (w1
+    [2*inner, d], w2 [d, inner]): ``LnGegluFFN`` where a gradient is
+    wanted, else its forward alone (regeneration runs under no_grad)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in
+                                       (x, gamma, beta, w1, b1, w2, b2)):
+        return LnGegluFFN.apply(x, gamma, beta, w1, b1, w2, b2, eps)
+    return _sublayer(x, gamma, beta, w1, b1, w2, b2, eps)
+
+
 def fused_ln_geglu_ffn(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5):
     """x + GEGLU-FFN(LayerNorm(x)) with the JAX function's layout
-    (w1 [d, 2*inner], w2 [inner, d]): ``LnGegluFFN`` on the transposed
+    (w1 [d, 2*inner], w2 [inner, d]): ``ffn_sublayer`` on the transposed
     views, so the kernels for a CUDA tensor and the plain versions for a
     CPU tensor; differentiable."""
-    return LnGegluFFN.apply(x, gamma, beta, w1.t(), b1, w2.t(), b2, eps)
+    return ffn_sublayer(x, gamma, beta, w1.t(), b1, w2.t(), b2, eps)
 
 
-def _ffn(x, gamma, beta, w1, b1, w2, b2, eps):
-    """The forward in kernel layout: the CUDA kernel for a CUDA tensor, the
-    plain version for a CPU tensor."""
+def _sublayer(x, gamma, beta, w1, b1, w2, b2, eps):
+    """The forward with parameter-layout weights: the CUDA kernel on their
+    bf16 copies for a CUDA tensor, the plain version for a CPU tensor."""
     if x.device.type == "cpu":
-        return ln_geglu_ffn_reference(x, gamma, beta, w1, b1, w2, b2, eps)
+        w1k, w2k = _kernel_weights(w1, w2, x.dtype)
+        return ln_geglu_ffn_reference(x, gamma, beta, w1k, b1, w2k, b2, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fused_ln_geglu_ffn: unsupported device {x.device}")
-    return _launch(x, gamma, beta, w1, b1, w2, b2, eps)
+    bf16 = torch.bfloat16
+    return _launch(x, gamma, beta, _contiguous_as(w1, bf16), b1, _contiguous_as(w2, bf16), b2,
+                   eps)
 
 
 def ln_geglu_ffn_bwd(x, dy, gamma, beta, w1, b1, w2, eps: float = 1e-5):
@@ -247,19 +270,25 @@ def _lib():
     lib.wd_geglu_ffn.restype = i
     lib.wd_ln_geglu_ffn_bwd.argtypes = [p] * 18 + [i, i, i, ctypes.c_float, p]
     lib.wd_ln_geglu_ffn_bwd.restype = i
-    for fn in ("wd_ln_geglu_ffn_max_d", "wd_ln_geglu_ffn_bwd_max_d",
-               "wd_ln_geglu_ffn_bwd_block_m"):
-        getattr(lib, fn).argtypes = []
+    for fn, args in (("wd_ln_geglu_ffn_d", []), ("wd_ln_geglu_ffn_cluster", [i, i]),
+                     ("wd_ln_geglu_ffn_bwd_max_d", []), ("wd_ln_geglu_ffn_bwd_block_m", [])):
+        getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = i
     lib.wd_cuda_error_string.argtypes = [i]
     lib.wd_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _check(name, t, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"fused_ln_geglu_ffn: {name} is on {t.device}, x on {device}")
-    if tuple(t.shape) != shape:
+def cluster_size(m: int, inner: int) -> int:
+    """The CTAs per row tile (thread-block cluster) the forward kernel
+    launches with at M rows."""
+    return _lib().wd_ln_geglu_ffn_cluster(m, inner)
+
+
+def _check(name, t, shape, dtype, dev):
+    if t.get_device() != dev:
+        raise ValueError(f"fused_ln_geglu_ffn: {name} is on {t.device}, x on device {dev}")
+    if t.shape != shape:
         raise ValueError(f"fused_ln_geglu_ffn: {name} has shape {tuple(t.shape)}, want {shape}")
     if t.dtype != dtype:
         raise ValueError(f"fused_ln_geglu_ffn: {name} is {t.dtype}, want {dtype}")
@@ -267,23 +296,36 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"fused_ln_geglu_ffn: {name} must be contiguous and 16-byte aligned")
 
 
-def _check_operands(x, gamma, beta, w1, b1, w2, max_d):
-    """The kernels' operands; gamma and beta None for the bare FFN."""
+def _check_operands(x, gamma, beta, w1, b1, w2, d_ok, d_rule, param_layout):
+    """The kernels' operands; gamma and beta None for the bare FFN. The
+    forward kernel takes the weights in parameter layout (w1 [2*inner, d],
+    w2 [d, inner]), the backward kernel in the JAX layout (w1 [d, 2*inner],
+    w2 [inner, d])."""
     d = x.shape[-1]
-    inner = w2.shape[0]
-    if d % 16 or inner % 64 or d > max_d:
+    inner = w2.shape[-1] if param_layout else w2.shape[0]
+    if not d_ok(d) or inner % 64 or inner < 64:
         raise ValueError(
-            f"fused_ln_geglu_ffn: kernel needs d % 16 == 0, inner % 64 == 0 and "
-            f"d <= {max_d}; got d={d}, inner={inner}"
+            f"fused_ln_geglu_ffn: kernel needs {d_rule} and inner % 64 == 0; "
+            f"got d={d}, inner={inner}"
         )
-    dev, bf16, f32 = x.device, torch.bfloat16, torch.float32
-    _check("x", x, tuple(x.shape), bf16, dev)
+    dev, bf16, f32 = x.get_device(), torch.bfloat16, torch.float32
+    _check("x", x, x.shape, bf16, dev)
     if gamma is not None:
         _check("gamma", gamma, (d,), f32, dev)
         _check("beta", beta, (d,), f32, dev)
-    _check("w1", w1, (d, 2 * inner), bf16, dev)
+    _check("w1", w1, (2 * inner, d) if param_layout else (d, 2 * inner), bf16, dev)
     _check("b1", b1, (2 * inner,), f32, dev)
-    _check("w2", w2, (inner, d), bf16, dev)
+    _check("w2", w2, (d, inner) if param_layout else (inner, d), bf16, dev)
+    return d, inner
+
+
+def _check_fwd(x, gamma, beta, w1, b1, w2, b2):
+    d_taken = _lib().wd_ln_geglu_ffn_d()
+    d, inner = _check_operands(
+        x, gamma, beta, w1, b1, w2, lambda d: d == d_taken,
+        f"d == {d_taken} (other widths: use_pallas_ffn=False, the plain path)",
+        param_layout=True)
+    _check("b2", b2, (d,), torch.float32, x.get_device())
     return d, inner
 
 
@@ -296,40 +338,33 @@ def _raise_on(err, what):
 
 
 def _launch(x, gamma, beta, w1, b1, w2, b2, eps):
+    """B.1 on parameter-layout bf16 weights (w1 [2*inner, d], w2 [d, inner])."""
     global launches
     lib = _lib()
-    d, inner = _check_operands(x, gamma, beta, w1, b1, w2, lib.wd_ln_geglu_ffn_max_d())
-    _check("b2", b2, (d,), torch.float32, x.device)
+    d, inner = _check_fwd(x, gamma, beta, w1, b1, w2, b2)
     out = torch.empty_like(x)
     m = x.numel() // d
     if m == 0:
         return out
-    with torch.cuda.device(x.device):
-        err = lib.wd_ln_geglu_ffn(
-            x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            m, d, inner, eps, torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _raise_on(err, "ln_geglu_ffn")
+    _raise_on(build.launch_on(x, lambda stream: lib.wd_ln_geglu_ffn(
+        x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+        w2.data_ptr(), b2.data_ptr(), out.data_ptr(), m, d, inner, eps, stream)), "ln_geglu_ffn")
     launches += 1
     return out
 
 
 def _launch_geglu(x, w1, b1, w2, b2):
+    """B.2 on parameter-layout bf16 weights."""
     global geglu_launches
     lib = _lib()
-    d, inner = _check_operands(x, None, None, w1, b1, w2, lib.wd_ln_geglu_ffn_max_d())
-    _check("b2", b2, (d,), torch.float32, x.device)
+    d, inner = _check_fwd(x, None, None, w1, b1, w2, b2)
     out = torch.empty_like(x)
     m = x.numel() // d
     if m == 0:
         return out
-    with torch.cuda.device(x.device):
-        err = lib.wd_geglu_ffn(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            out.data_ptr(), m, d, inner, torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _raise_on(err, "geglu_ffn")
+    _raise_on(build.launch_on(x, lambda stream: lib.wd_geglu_ffn(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        out.data_ptr(), m, d, inner, stream)), "geglu_ffn")
     geglu_launches += 1
     return out
 
@@ -337,10 +372,12 @@ def _launch_geglu(x, w1, b1, w2, b2):
 def _launch_bwd(x, dy, gamma, beta, w1, b1, w2, eps):
     global bwd_launches
     lib = _lib()
-    d, inner = _check_operands(x, gamma, beta, w1, b1, w2, lib.wd_ln_geglu_ffn_bwd_max_d())
+    max_d = lib.wd_ln_geglu_ffn_bwd_max_d()
+    d, inner = _check_operands(x, gamma, beta, w1, b1, w2, lambda d: d % 16 == 0 and d <= max_d,
+                               f"d % 16 == 0, d <= {max_d}", param_layout=False)
     if x.dim() != 2:
         raise ValueError(f"ln_geglu_ffn_bwd: x must be [M, d], got {tuple(x.shape)}")
-    _check("dy", dy, tuple(x.shape), torch.bfloat16, x.device)
+    _check("dy", dy, x.shape, torch.bfloat16, x.get_device())
     m = x.shape[0]
     f32 = dict(dtype=torch.float32, device=x.device)
     new = torch.zeros if m == 0 else torch.empty  # no rows: the sums are zero
