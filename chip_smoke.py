@@ -35,11 +35,13 @@ Phases, each of which must pass (any failure exits non-zero):
    then single batches with the attention kernel and with the plain
    attention in turns, for s/batch with and without it.
 6. FFN forward + backward, kernel against plain: the forward and the
-   backward kernel against their plain versions at the training shapes,
-   M = 128*256, 128*64 and a ragged 1000 (the output and seven
-   gradients, each within its tolerance), bitwise repeatability of both, and the
-   autograd Function (both kernels) against plain autograd at the two
-   training M (output and gradients), with median times.
+   backward kernel (B.3: rows, weight gradients and partial sums, on
+   ``wgmma``; its cluster size printed) against their plain versions at the
+   training shapes, M = 128*256, 128*64 and a ragged 1000 (the output and
+   seven gradients, each within its tolerance), bitwise repeatability of
+   both, each beside its bound, and the autograd Function (both kernels)
+   against plain autograd at the two training M (output and gradients),
+   with median times, the pair against plain autograd at M = 128*256.
 7. training main path: the train CLI's Trainer (``iam`` preset at full
    width, B=128, seeded random weights) on a latent cache of seeded
    latents, 2 epochs with a checkpoint and a DDIM-50 preview each; then
@@ -49,7 +51,9 @@ Phases, each of which must pass (any failure exits non-zero):
    bitwise the uninterrupted one; times s/step with the kernels and with
    the plain FF. Every attention runs the attention kernel forward (8 per
    step and per preview call) and its Function's plain backward (8 per
-   step).
+   step). Then three steps on a fresh state under ``torch.profiler``: the
+   step's device busy time, and per step 4 B.1 kernels, 4 of each of B.3's
+   three and 8 attention kernels, by name.
 8. attention kernel vs plain: the fused attention against its plain
    version at the shapes of every path (4 heads of 80; regeneration B=16
    and training B=128; Nq 256 and 64; Nk 42 for ``iam``, Nq for the
@@ -70,10 +74,13 @@ Phases, each of which must pass (any failure exits non-zero):
    attention backward calls and 4 FF backward launches per step; s/step.
 11. fold attention kernel vs plain: the context-folded attention sub-layer
    (``ops.fold_attention``) in both entry layouts (B.7's folds [B, C, H*L],
-   B.8's per-head [B, H, C, L]) against its plain version at the fold
-   path's shapes (C=320, H=4, L=42; B 16 and 128; N 256 and 64) and a
-   ragged one, bitwise repeatability, and the Function's gradients
-   against plain autograd; kernel, plain and bound times.
+   B.8's per-head [B, H, C, L], as ``build_folds`` lays them out and with
+   the L stride padded to 8) against its plain version at the fold path's
+   shapes (C=320, H=4, L=42; B 16 and 128; N 256 and 64) and a ragged one, bitwise
+   repeatability and the layouts bitwise equal, its route at each shape
+   (rows a tile, CTAs a cluster splitting the heads, how wt's rows are
+   copied), and the Function's gradients against plain autograd; kernel,
+   plain and bound times.
 12. fold regeneration: the regeneration CLI with ``--preset iam_fold``
    (``iam`` with ``attn_fold_context``, registered in the port's presets):
    one UNet call with the fold kernel against the plain fold, and against
@@ -83,7 +90,8 @@ Phases, each of which must pass (any failure exits non-zero):
 13. fold training: the train CLI with ``--preset iam_fold`` at B=128 on
    the phase-7 latent corpus, 2 epochs of 10 steps, twice: 8 fold
    launches, 8 fold backward calls and 4 FF backward launches per step,
-   the two runs bitwise equal; s/step and peak memory.
+   the two runs bitwise equal; s/step and peak memory; then three steps
+   profiled as in phase 7 (8 fold kernels a step, no attention kernel).
 14. GroupNorm (+ SiLU) (B.5, ``ops.groupnorm``) and GN -> SiLU -> conv3x3
    (B.6, ``ops.gn_conv``) against their plain versions at every site's
    shape (UNet B=16 and 128, VAE decoder B=16 and encoder B=128, ragged
@@ -315,7 +323,7 @@ def reset_counts() -> None:
 
     ffn.launches = ffn.bwd_launches = ffn.geglu_launches = 0
     attention.launches = attention.bwd_calls = 0
-    fold_attention.launches = fold_attention.bwd_calls = 0
+    fold_attention.launches = fold_attention.bwd_calls = fold_attention.flat_launches = 0
     groupnorm.launches = groupnorm.bwd_calls = gn_conv.launches = gn_conv.bwd_calls = 0
 
 
@@ -541,8 +549,9 @@ def phase6_ffn_backward(smi: str) -> dict:
         # the backward recomputes h = LN(x) W1 and does four more products of
         # the same size: 16 M d inner operations in all
         bound_ms, bound_by = bound(nbytes(*a.values(), *got), 16 * m * D * INNER)
-        log(f"ffn bwd M={m}: kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms "
-            f"({bound_by}) [{smi}]")
+        log(f"ffn bwd (B.3) M={m} (cluster of {ffn.bwd_cluster_size(m, INNER)}): kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{bound_ms / ms:.1%} of the bound [{smi}]")
         rows.append(dict(m=m, err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                          bound_by=bound_by))
 
@@ -589,7 +598,7 @@ def phase6_ffn_backward(smi: str) -> dict:
             pair_ms = cuda_ms(lambda: fwd_bwd(True), reps=20)
             plain_pair_ms = cuda_ms(lambda: fwd_bwd(False), reps=20)
             log(f"ffn fwd+bwd M={m}: kernel pair {pair_ms:.4f} ms, plain autograd "
-                f"{plain_pair_ms:.4f} ms [{smi}]")
+                f"{plain_pair_ms:.4f} ms ({plain_pair_ms / pair_ms:.2f}x) [{smi}]")
     return dict(rows=rows, fwd_rows=fwd_rows, pair_ms=pair_ms, plain_pair_ms=plain_pair_ms)
 
 
@@ -620,7 +629,7 @@ def phase7_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
 
     from worddiffusion_tpu_torch.cli import train as train_cli
     from worddiffusion_tpu_torch.models.unet import UNet
-    from worddiffusion_tpu_torch.ops import attention, ffn
+    from worddiffusion_tpu_torch.ops import attention, ffn, fold_attention
     from worddiffusion_tpu_torch.train.checkpoint import CheckpointManager
     from worddiffusion_tpu_torch.train.loop import Trainer
     from worddiffusion_tpu_torch.train.state import TrainState, make_optimizer
@@ -647,6 +656,7 @@ def phase7_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd, geglu = ffn.launches, ffn.bwd_launches, ffn.geglu_launches
+    fold7 = fold_attention.flat_launches
     attn, attn_bwd = attention.launches, attention.bwd_calls
     gn, conv, gn_bwd, conv_bwd = norm_counts()
 
@@ -676,7 +686,7 @@ def phase7_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     assert all(torch.isfinite(p).all() for p in state.model.parameters())
     assert all(changed[k] > 0 for k in ff_keys) and len(ff_keys) == 8, ff_keys
     assert ema_equal, "the EMA must equal the parameters during warmup"
-    assert bwd == 4 * steps and geglu == 0, (bwd, geglu)
+    assert bwd == 4 * steps and geglu == 0 and fold7 == 0, (bwd, geglu, fold7)
     assert preview_launches == [4 * 50] * 2, preview_launches
     assert fwd - sum(preview_launches) == 4 * steps, fwd
     assert preview_attn == [8 * 50] * 2 and preview_fold == [0, 0], (preview_attn, preview_fold)
@@ -730,8 +740,10 @@ def phase7_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     log(f"train resume: stopped at step {kill_at}, resumed to {resumed.step}; max param diff "
         f"vs the uninterrupted run {diff:.6g} (max |param| {scale:.4g}); must be bitwise 0")
     assert diff == 0, f"the resumed run is not bitwise the uninterrupted one: {diff}"
-    return dict(fwd=fwd, bwd=bwd, geglu=geglu, attn=attn, gn=gn, conv=conv, s_per_step=k_s / k_n,
-                plain_s_per_step=p_s / p_n, resume_diff=diff)
+    prof = step_profile(smi, trainer, "iam", folds=0)
+    return dict(fwd=fwd, bwd=bwd, geglu=geglu, fold_b7=fold7, attn=attn, gn=gn, conv=conv,
+                s_per_step=k_s / k_n,
+                plain_s_per_step=p_s / p_n, resume_diff=diff, step_busy_ms=prof["busy_ms"])
 
 
 def preview_norm_launches() -> tuple[int, int]:
@@ -770,7 +782,7 @@ def phase10_phosc_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     import torch
 
     from worddiffusion_tpu_torch.cli import train as train_cli
-    from worddiffusion_tpu_torch.ops import attention, ffn
+    from worddiffusion_tpu_torch.ops import attention, ffn, fold_attention
     from worddiffusion_tpu_torch.train.checkpoint import CheckpointManager
 
     gt, cache = corpus
@@ -792,6 +804,7 @@ def phase10_phosc_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd, geglu = ffn.launches, ffn.bwd_launches, ffn.geglu_launches
+    fold7 = fold_attention.flat_launches
     attn, attn_bwd = attention.launches, attention.bwd_calls
     gn, conv, gn_bwd, conv_bwd = norm_counts()
 
@@ -820,8 +833,9 @@ def phase10_phosc_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     assert attn - sum(preview_attn) == 8 * steps and attn_bwd == 8 * steps, (attn, attn_bwd)
     assert preview_attn == [8 * 50] and preview_ffn == [4 * 50], (preview_attn, preview_ffn)
     assert fwd - sum(preview_ffn) == 4 * steps and bwd == 4 * steps, (fwd, bwd)
-    assert geglu == 0, geglu
-    return dict(fwd=fwd, bwd=bwd, geglu=geglu, attn=attn, gn=gn, conv=conv, s_per_step=s_ / n_)
+    assert geglu == 0 and fold7 == 0, (geglu, fold7)
+    return dict(fwd=fwd, bwd=bwd, geglu=geglu, fold_b7=fold7, attn=attn, gn=gn, conv=conv,
+                s_per_step=s_ / n_)
 
 
 def fold_inputs(b: int, n: int, l: int, seed: int) -> dict:
@@ -840,9 +854,12 @@ def fold_inputs(b: int, n: int, l: int, seed: int) -> dict:
 
 def phase11_fold(smi: str) -> dict:
     """The fold attention kernel against its plain version at the fold
-    path's shapes, through both entries (B.8's per-head folds and B.7's
-    [B, C, H*L] folds), and the Function against plain autograd."""
+    path's shapes, through both entries (B.8's per-head folds as
+    build_folds lays them out and with a padded L stride, B.7's [B, C, H*L]
+    folds), its route at each shape, and the Function against plain
+    autograd."""
     import torch
+    import torch.nn.functional as F
 
     from worddiffusion_tpu_torch.ops import fold_attention as fa
 
@@ -850,7 +867,11 @@ def phase11_fold(smi: str) -> dict:
     for i, (b, n, l) in enumerate(FOLD_SHAPES):
         t = fold_inputs(b, n, l, seed=70 + i)
         vecs = (t["gamma"], t["beta"], t["b_out"])
-        # B.7's layout of the same folds: wt [B, C, H*L] (a copy), vw [B, H*L, C] (the same memory)
+        # B.8's folds as build_folds lays them out (contiguous), and with wt4 the
+        # [..., :L] view of an L stride rounded up to 8 (16-byte row copies);
+        # B.7's layout of the same folds: wt [B, C, H*L] (a copy), vw [B, H*L, C]
+        # (the same memory)
+        wt4p = F.pad(t["wt4"], (0, -l % 8))[..., :l]
         wt = t["wt4"].permute(0, 2, 1, 3).reshape(b, D, HEADS * l).contiguous()
         vw = t["vw4"].view(b, HEADS * l, D)
 
@@ -865,22 +886,28 @@ def phase11_fold(smi: str) -> dict:
 
         n0 = fa.launches
         got, again, got7 = per_head(), per_head(), flat()
+        padded = fa.fold_attention_heads(t["x"], wt4p, t["vw4"], *vecs)
         torch.cuda.synchronize()
-        assert fa.launches == n0 + 3, fa.launches - n0
+        assert fa.launches == n0 + 4, fa.launches - n0
         want = plain()
         err = max((g.float() - want.float()).abs().max().item() for g in (got, got7))
         rel = err / want.float().abs().max().item()
         ms, ms7, plain_ms = launch_ms(per_head), launch_ms(flat), launch_ms(plain)
         bound_ms, bound_by = bound(nbytes(*t.values(), got), 4 * b * n * D * HEADS * l)
-        log(f"fold attention B={b} N={n} C={D} H={HEADS} L={l}: max_abs_err {err:.6g} "
+        bm, cl = fa.route(b, n, HEADS)
+        log(f"fold attention B={b} N={n} C={D} H={HEADS} L={l} (route: {bm}-row tiles, "
+            f"{cl} CTAs a cluster of {HEADS // cl} heads each; wt rows copied "
+            f"{fa.wt_route(t['wt4'])}, B.7's {fa.wt_route(wt.view(b, D, HEADS, l).transpose(1, 2))}, "
+            f"L stride padded {fa.wt_route(wt4p)}): max_abs_err {err:.6g} "
             f"max_rel_err {rel:.6g} (tol {FOLD_REL_TOL}); bitwise repeatable "
             f"{torch.equal(got, again)}; B.7 layout == B.8 layout {torch.equal(got, got7)}; "
             f"kernel {ms:.4f} ms (B.7 layout {ms7:.4f} ms) plain {plain_ms:.4f} ms bound "
-            f"{bound_ms:.4f} ms ({bound_by}) [{smi}]")
+            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of the bound [{smi}]")
         assert got.shape == want.shape and got.dtype == torch.bfloat16
         assert bool(torch.isfinite(got.float()).all()), f"non-finite fold at {b, n, l}"
         assert torch.equal(got, again), f"fold attention differs between two runs at {b, n, l}"
-        assert torch.equal(got, got7), f"the two layouts differ at {b, n, l}"
+        assert torch.equal(got, got7) and torch.equal(got, padded), \
+            f"the layouts differ at {b, n, l}"
         assert rel <= FOLD_REL_TOL, f"fold attention kernel disagrees at {b, n, l}: rel {rel}"
         rows.append(dict(b=b, n=n, l=l, err=err, ms=ms, ms7=ms7, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by))
@@ -934,7 +961,9 @@ def device_profile(fn, calls: int = 5) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # device events, less the optimizer step's annotation range (not a kernel)
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not e.name.startswith("Optimizer.")]
     by_name, count = collections.Counter(), collections.Counter()
     for e in kernels:
         by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3 / calls
@@ -942,6 +971,41 @@ def device_profile(fn, calls: int = 5) -> dict:
     return dict(busy_ms=sum(by_name.values()), kernels=len(kernels) / calls,
                 top=[(k, round(v, 4)) for k, v in by_name.most_common(5)],
                 per_call={k: n / calls for k, n in count.items()})
+
+
+# B.3's three kernels (rows, weight gradients, the partials' sum), each once
+# per FF sub-layer backward
+BWD_KERNELS = ("ffn_bwd_rows_kernel", "ffn_bwd_weights_kernel", "ffn_bwd_reduce_kernel")
+
+
+def step_profile(smi: str, trainer, label: str, folds: int) -> dict:
+    """Three training steps of ``trainer``'s step function on a fresh state
+    and its first batch, profiled: the step's device busy time and kernels,
+    and per step 4 B.1 kernels, 4 of each of B.3's, ``folds`` fold kernels
+    and 8 - ``folds`` attention kernels, by name."""
+    import torch
+
+    from worddiffusion_tpu_torch.data.loader import epoch_batches
+    from worddiffusion_tpu_torch.train.step import make_train_step
+
+    state = trainer.init_state()
+    step_fn = make_train_step(trainer.schedule, trainer.exp, trainer.encode_fn)
+    batch = next(iter(epoch_batches(trainer.dataset, trainer.exp.data.batch_size, epoch=0,
+                                    seed=trainer.exp.train.seed, map_fn=trainer._device_batch)))
+    d = device_profile(lambda: step_fn(state, batch), calls=3)
+
+    def per_step(name: str) -> float:
+        return sum(n for k, n in d["per_call"].items() if name in k)
+
+    counts = {k: per_step(k) for k in ("ffn_kernel", *BWD_KERNELS, "fold_attention_kernel",
+                                       "attention_kernel")}
+    counts["attention_kernel"] -= counts["fold_attention_kernel"]
+    log(f"train step {label} B={TRAIN_B}: profiled device busy {d['busy_ms']:.3f} ms, "
+        f"{d['kernels']:.0f} kernels a step; by name {counts}; top kernels (ms) {d['top']} [{smi}]")
+    want = {"ffn_kernel": 4, **{k: 4 for k in BWD_KERNELS}, "fold_attention_kernel": folds,
+            "attention_kernel": 8 - folds}
+    assert counts == want, (counts, want)
+    return dict(busy_ms=d["busy_ms"], kernels=d["kernels"])
 
 
 def register_fold_preset() -> None:
@@ -1031,7 +1095,7 @@ def phase13_fold_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
         torch.cuda.synchronize()
         counts = dict(ffn=ffn.launches, ffn_bwd=ffn.bwd_launches, geglu=ffn.geglu_launches,
                       attn=attention.launches, attn_bwd=attention.bwd_calls,
-                      fold=fold_attention.launches,
+                      fold=fold_attention.launches, fold_b7=fold_attention.flat_launches,
                       fold_bwd=fold_attention.bwd_calls,
                       **dict(zip(("gn", "conv", "gn_bwd", "conv_bwd"), norm_counts())))
         return trainer, state, initial, counts, previews, torch.cuda.max_memory_allocated()
@@ -1053,7 +1117,8 @@ def phase13_fold_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     assert p_fold == [8 * 50] and p_attn == [0] and p_ffn == [4 * 50], (p_fold, p_attn, p_ffn)
     (gn_p, conv_p), (gn_u, conv_u) = preview_norm_launches(), UNET_NORMS
     assert counts == dict(ffn=4 * steps + 4 * 50, ffn_bwd=4 * steps, geglu=0, attn=0, attn_bwd=0,
-                          fold=8 * steps + 8 * 50, fold_bwd=8 * steps, gn=gn_u * steps + gn_p,
+                          fold=8 * steps + 8 * 50, fold_b7=0, fold_bwd=8 * steps,
+                          gn=gn_u * steps + gn_p,
                           conv=conv_u * steps + conv_p, gn_bwd=gn_u * steps,
                           conv_bwd=conv_u * steps), counts
 
@@ -1086,7 +1151,8 @@ def phase13_fold_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     log(f"train iam_fold: a second identical run ends with max param diff {diff:.6g} "
         f"(must be bitwise 0)")
     assert diff == 0, f"two identical fold training runs differ: {diff}"
-    return dict(counts, s_per_step=s_ / n_, peak_bytes=peak)
+    prof = step_profile(smi, trainer, "iam_fold", folds=8)
+    return dict(counts, s_per_step=s_ / n_, peak_bytes=peak, step_busy_ms=prof["busy_ms"])
 
 
 def norm_inputs(shape, seed: int) -> dict:
@@ -1334,7 +1400,7 @@ def phase16_cache(smi: str, work: str, corpus) -> dict:
     from worddiffusion_tpu_torch.data.dataset import LatentLookup
     from worddiffusion_tpu_torch.data.loader import batches
     from worddiffusion_tpu_torch.models.vae import encode_to_latent
-    from worddiffusion_tpu_torch.ops import ffn
+    from worddiffusion_tpu_torch.ops import ffn, fold_attention
 
     crops, gt, vae_file = corpus
     out = os.path.join(work, "built.npz")
@@ -1346,7 +1412,7 @@ def phase16_cache(smi: str, work: str, corpus) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     gn, conv = norm_counts()[:2]
-    geglu = ffn.geglu_launches
+    geglu, fold7 = ffn.geglu_launches, fold_attention.flat_launches
     lookup = LatentLookup.load(out)
     n_batches = -(-N_IMAGES // 64)
 
@@ -1368,8 +1434,9 @@ def phase16_cache(smi: str, work: str, corpus) -> dict:
     assert all(lookup[n].shape == (8, 32, 4) and np.isfinite(lookup[n]).all() for n in names)
     assert (gn, conv) == tuple(k * n_batches for k in ENCODER_NORMS), (gn, conv)
     assert diff <= 1e-6 * scale, f"cache differs from the direct encode: {diff}"
-    assert geglu == 0, geglu
-    return dict(gn=gn, conv=conv, geglu=geglu, imgs_per_s=N_IMAGES / wall, cache=out)
+    assert geglu == 0 and fold7 == 0, (geglu, fold7)
+    return dict(gn=gn, conv=conv, geglu=geglu, fold_b7=fold7, imgs_per_s=N_IMAGES / wall,
+                cache=out)
 
 
 def phase16_ddim_regen(smi: str, cli, gt: str, work: str, vae_file: str) -> dict:
@@ -1416,7 +1483,7 @@ def phase17_train_images(smi: str, work: str, corpus, cache: str) -> dict:
     import torch
 
     from worddiffusion_tpu_torch.cli import train as train_cli
-    from worddiffusion_tpu_torch.ops import attention, ffn
+    from worddiffusion_tpu_torch.ops import attention, ffn, fold_attention
 
     crops, gt, vae_file = corpus
     epochs, spe = 2, N_IMAGES // TRAIN_B
@@ -1441,6 +1508,7 @@ def phase17_train_images(smi: str, work: str, corpus, cache: str) -> dict:
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     counts = dict(ffn=ffn.launches, ffn_bwd=ffn.bwd_launches, geglu=ffn.geglu_launches,
+                  fold_b7=fold_attention.flat_launches,
                   attn=attention.launches, attn_bwd=attention.bwd_calls,
                   **dict(zip(("gn", "conv", "gn_bwd", "conv_bwd"), norm_counts())))
     changed = {k: (v - initial[k]).abs().max().item()
@@ -1468,8 +1536,8 @@ def phase17_train_images(smi: str, work: str, corpus, cache: str) -> dict:
     assert max(changed.values()) > 0 and ema_equal
     assert p_norms == [(gn_p, conv_p)] and p_ffn == [4 * 50] and p_attn == [8 * 50]
     assert counts == dict(
-        ffn=4 * steps + 4 * 50, ffn_bwd=4 * steps, geglu=0, attn=8 * steps + 8 * 50,
-        attn_bwd=8 * steps,
+        ffn=4 * steps + 4 * 50, ffn_bwd=4 * steps, geglu=0, fold_b7=0,
+        attn=8 * steps + 8 * 50, attn_bwd=8 * steps,
         gn=(gn_u + ENCODER_NORMS[0]) * steps + gn_p, conv=(conv_u + ENCODER_NORMS[1]) * steps
         + conv_p, gn_bwd=gn_u * steps, conv_bwd=conv_u * steps), counts
 
@@ -1601,7 +1669,7 @@ def drive_regen(smi: str, regen, samples, seed: int, label: str,
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     got = (ffn.launches, attention.launches, fold_attention.launches, *norm_counts()[:2])
-    geglu = ffn.geglu_launches
+    geglu, fold7 = ffn.geglu_launches, fold_attention.flat_launches
 
     dump = regen.out_dir
     n_batches = -(-len(samples) // B)
@@ -1614,7 +1682,7 @@ def drive_regen(smi: str, regen, samples, seed: int, label: str,
         f"gn_silu_conv3x3): {got} (expect ({per_call} x {calls} calls + {per_batch}) x "
         f"{n_batches} batches = {want})")
     assert calls == 120, calls
-    assert got == want and geglu == 0, (got, want, geglu)
+    assert got == want and geglu == 0 and fold7 == 0, (got, want, geglu, fold7)
     assert stats.generated == len(samples) == 40, stats
     assert len(checks) == n_batches, len(checks)
     for finite, ishape, idt, fshape, fdt in checks:
@@ -1628,7 +1696,7 @@ def drive_regen(smi: str, regen, samples, seed: int, label: str,
     first = os.path.join(dump, pngs[0]) if pngs else os.path.join(dump, "rejected", rejected[0])
     assert png_size(first) == (256, 64), png_size(first)
     sampler.decode = decode
-    return dict(zip(("ffn", "attn", "fold", "gn", "conv"), got), geglu=geglu,
+    return dict(zip(("ffn", "attn", "fold", "gn", "conv"), got), geglu=geglu, fold_b7=fold7,
                 s_per_batch=elapsed / n_batches, imgs_per_s=stats.generated / elapsed)
 
 
@@ -1780,6 +1848,13 @@ def main() -> int:
     gns = [r for r in norms["gn_rows"] if r["shape"][0] == B][:5]
     f_train = next(r for r in bwd["fwd_rows"] if r["m"] == TRAIN_B * 256)
     g_train = next(r for r in geglu["rows"] if r["m"] == TRAIN_B * 256)
+    b3 = next(r for r in bwd["rows"] if r["m"] == TRAIN_B * 256)
+    f8 = {(r["b"], r["n"]): r for r in fold["rows"]}
+    log(f"redesign targets [{smi}]: ln_geglu_ffn_bwd M={TRAIN_B * 256} {b3['ms']:.4f} ms "
+        f"(target 1.75, parent 3.5062); fwd+bwd pair {bwd['pair_ms']:.4f} ms vs plain autograd "
+        f"{bwd['plain_pair_ms']:.4f} ms; fold B={TRAIN_B} N=256 {f8[TRAIN_B, 256]['ms']:.4f} ms "
+        f"(target 0.10, parent 0.3084); fold B={B} N=256 / 64 {f8[B, 256]['ms']:.4f} / "
+        f"{f8[B, 64]['ms']:.4f} ms")
     log(f"redesign targets [{smi}]: groupnorm B={B} "
         + "; ".join(f"{h}x{w} C={c} {r['ms']:.4f} ms vs {r['library_ms']:.4f} ms"
                     for (_, h, w, c, _, _), r in ((r["shape"], r) for r in gns))
@@ -1811,6 +1886,9 @@ def main() -> int:
     attn_paths = by_path(regen_iam["attn"], regen_phosc["attn"], regen_fold["attn"],
                          train["attn"], train_p["attn"], train_f["attn"], 0, train_i["attn"])
     fold_paths = by_path(0, 0, regen_fold["fold"], 0, 0, train_f["fold"], 0, 0)
+    fold7_paths = by_path(regen_iam["fold_b7"], regen_phosc["fold_b7"], regen_fold["fold_b7"],
+                          train["fold_b7"], train_p["fold_b7"], train_f["fold_b7"],
+                          built["fold_b7"], train_i["fold_b7"])
     gn_paths = by_path(regen_iam["gn"], regen_phosc["gn"], regen_fold["gn"], train["gn"],
                        train_p["gn"], train_f["gn"], built["gn"], train_i["gn"])
     conv_paths = by_path(regen_iam["conv"], regen_phosc["conv"], regen_fold["conv"],
@@ -1856,9 +1934,13 @@ def main() -> int:
               "bench_kernels/attention_pallas.py:25", attn_paths, attn["rows"], attn_row,
               attn_row["library_ms"]),
         entry("fold_attention", "worddiffusion_tpu_torch/csrc/fold_attention.cu",
-              "bench_kernels/attn_fold_pallas.py:36; "
               "bench_kernels/attn_fold_sublayer_pallas.py:100", fold_paths, fold["rows"],
               fold_row, None),
+        # B.7: the same kernel through B.7's [B, C, H*L] folds; no path of the
+        # port (or of the JAX package) calls that entry, as each path's count shows
+        entry("fold_attention_flat", "worddiffusion_tpu_torch/csrc/fold_attention.cu",
+              "bench_kernels/attn_fold_pallas.py:36", fold7_paths, fold["rows"],
+              dict(fold_row, ms=fold_row["ms7"]), None),
         entry("groupnorm", "worddiffusion_tpu_torch/csrc/groupnorm.cu",
               "bench_kernels/groupnorm_pallas.py:26", gn_paths, norms["gn_rows"], gn_row,
               gn_row["library_ms"]),

@@ -83,6 +83,22 @@ def test_build_raises_with_compiler_output(tmp_path):
     assert not list((tmp_path / "out").rglob("*.so"))
 
 
+def test_digest_covers_the_headers(tmp_path, monkeypatch):
+    """An edit to a header under csrc/ alone changes the library's digest,
+    so the build never reuses a library compiled against the old header;
+    an unchanged tree keeps its digest."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    header = tmp_path / "h.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    sources = build._sources()
+    assert [s.name for s in sources] == ["k.cu"]
+    before = build._digest(sources)
+    assert build._digest(build._sources()) == before
+    header.write_text("// two\n")
+    assert build._digest(build._sources()) != before
+
+
 def _bwd_inputs(m=23, d=32, inner=64, seed=2):
     """The shapes of tests/test_pallas_ops.py's backward-kernel case (m=23
     pads the JAX grid), with a cotangent."""
@@ -105,6 +121,44 @@ def test_bwd_reference_matches_jax_kernel_fp32():
         w = np.asarray(w).reshape(tuple(g.shape))
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=2e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_function_cpu_grads_match_jax_bwd_kernel_in_parameter_layout(dtype):
+    """LnGegluFFN on the CPU, with fp32 weights in parameter layout (w1
+    [2*inner, d], w2 [d, inner]) and x in ``dtype``: its seven gradients
+    against the JAX backward kernel in interpret mode, fed the same x, dy and
+    the weights in x's dtype (the Function casts them so); each weight
+    gradient comes back fp32, contiguous and in parameter layout. fp32: 2e-4
+    abs, as test_bwd_reference_matches_jax_kernel_fp32; bf16: the two round
+    dact, dh and dxn at other places -> 2% of each gradient's max."""
+    from worddiffusion_tpu.ops.ffn_pallas import _ln_ffn_bwd_pallas
+
+    dt = getattr(torch, dtype)
+    a = _bwd_inputs(m=40, d=64, inner=128, seed=11)
+    x = torch.from_numpy(a["x"]).to(dt).requires_grad_()
+    p = {k: torch.from_numpy(a[k]).requires_grad_() for k in ("gamma", "beta", "b1")}
+    w1 = torch.from_numpy(a["w1"].T.copy()).requires_grad_()  # proj.weight [2*inner, d]
+    w2 = torch.from_numpy(a["w2"].T.copy()).requires_grad_()  # out.weight [d, inner]
+    b2 = torch.zeros(64, requires_grad=True)
+    dy = torch.from_numpy(a["dy"]).to(dt)
+    out = ffn.LnGegluFFN.apply(x, p["gamma"], p["beta"], w1, p["b1"], w2, b2, 1e-5)
+    out.backward(dy)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jx = lambda t: jnp.asarray(t.detach().float().numpy(), jdt)
+    want = _ln_ffn_bwd_pallas(jx(x), jx(dy), a["gamma"], a["beta"], jx(w1.t()), a["b1"],
+                              jx(w2.t()), interpret=True)
+    dx, dg, dbt, dw1, db1, dw2, db2 = (np.asarray(w, np.float32) for w in want)
+    got = {"x": (x.grad, dx), "gamma": (p["gamma"].grad, dg), "beta": (p["beta"].grad, dbt),
+           "w1": (w1.grad, dw1.T), "b1": (p["b1"].grad, db1), "w2": (w2.grad, dw2.T),
+           "b2": (b2.grad, db2)}
+    for name, (g, w) in got.items():
+        w = w.reshape(tuple(g.shape))
+        if name != "x":
+            assert g.dtype == torch.float32 and g.is_contiguous(), name
+        tol = 2e-4 if dtype == "float32" else 2e-2 * np.abs(w).max()
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=0, atol=tol, err_msg=name)
+    assert w1.grad.shape == (256, 64) and w2.grad.shape == (64, 128)
 
 
 def test_bwd_dispatcher_takes_plain_path_on_cpu_and_refuses_other_devices():

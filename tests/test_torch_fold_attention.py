@@ -132,6 +132,43 @@ def test_fold_functions_match_jax(dtype_name):
         np.testing.assert_allclose(got, want, rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("l", [13, 29])
+@pytest.mark.parametrize("stride", ["contiguous", "padded"])
+def test_build_folds_match_jax_and_the_b8_kernel_at_either_l_stride(dtype_name, l, stride):
+    """build_folds' folds: the same values as JAX's build_folds (1e-5
+    relative in fp32, 1% of max in bf16, as test_fold_functions_match_jax),
+    and the sub-layer on them, with wt4 contiguous or as the [..., :L] view
+    of an L stride rounded up to 8 (the layout the CUDA kernel copies 16
+    bytes a row at a time), as B.8's kernel (interpret mode) computes it on
+    JAX's folds."""
+    jdt, tdt = DTYPES[dtype_name]
+    n = 24
+    a = _sublayer_inputs(n, l, seed=6)
+    ctx, ws = _context_inputs(l, seed=7)
+    jctx = jnp.asarray(ctx, jdt)
+    jwt4, jvw4 = b8.build_folds(jctx, *ws, H, C // H, jdt)
+    tws = [torch.from_numpy(w.T.copy()) for w in ws]
+    wt4, vw4 = attention.build_folds(_to_torch(jctx, tdt), *tws, H, C // H, tdt)
+    assert tuple(wt4.shape) == (B, H, C, l) and wt4.is_contiguous() and vw4.is_contiguous()
+    assert wt4.dtype == vw4.dtype == tdt
+    if stride == "padded":
+        lp = -(-l // 8) * 8
+        wt4 = torch.nn.functional.pad(wt4, (0, lp - l))[..., :l]
+        assert wt4.stride() == (H * C * lp, C * lp, lp, 1)
+    for got, want in ((wt4, jwt4), (vw4, jvw4)):
+        got, want = got.float().numpy(), np.asarray(want, np.float32)
+        tol = (1e-5 if dtype_name == "float32" else 1e-2) * np.abs(want).max()
+        np.testing.assert_allclose(got, want, rtol=0, atol=tol)
+    want = b8.fused_fold_attention(jnp.asarray(a["x"], jdt), jwt4, jvw4, a["gamma"], a["beta"],
+                                   a["bo"], interpret=True)
+    got = fold_attention.fold_attention_heads(
+        _to_torch(a["x"], tdt), wt4, vw4, _to_torch(a["gamma"], torch.float32),
+        _to_torch(a["beta"], torch.float32), _to_torch(a["bo"], torch.float32))
+    assert got.dtype == tdt and got.shape == (B, n, C)
+    _check(got, want, dtype_name)
+
+
 @pytest.mark.parametrize("layout", ["b7", "b8"])
 def test_fold_function_grads_match_jax(layout):
     """FoldAttention's backward (the plain version recomputed under autograd)

@@ -237,7 +237,7 @@ def _bwd_inputs(m, device, seed=0):
     return {k: t[k] for k in order}
 
 
-@pytest.mark.parametrize("m", [128 * 256, 128 * 64, 1000])
+@pytest.mark.parametrize("m", [128 * 256, 128 * 64, 1000, 64, 65])
 def test_bwd_kernel_matches_plain(cuda, m):
     t = _bwd_inputs(m, cuda)
     before = ffn.bwd_launches
@@ -263,8 +263,10 @@ def test_bwd_kernel_is_bitwise_repeatable(cuda):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("bad", ["fp32_dy", "dy_shape", "w2_dtype", "wide_d"])
+@pytest.mark.parametrize("bad", ["fp32_dy", "dy_shape", "w2_dtype", "wide_d", "narrow_d"])
 def test_bwd_kernel_refuses_what_it_does_not_take(cuda, bad):
+    """Only d = 320 (as the forward kernel); other widths take the plain
+    path (use_pallas_ffn=False)."""
     t = _bwd_inputs(64, cuda)
     if bad == "fp32_dy":
         t["dy"] = t["dy"].float()
@@ -272,12 +274,43 @@ def test_bwd_kernel_refuses_what_it_does_not_take(cuda, bad):
         t["dy"] = t["dy"][:32].contiguous()
     elif bad == "w2_dtype":
         t["w2"] = t["w2"].float()
-    else:
+    elif bad == "wide_d":
         t["x"] = torch.zeros(64, 368, dtype=torch.bfloat16, device=cuda)
+    else:
+        t = _bwd_inputs(64, "cpu")
+        d = 256
+        t = dict(t, x=t["x"][:, :d], dy=t["dy"][:, :d], gamma=t["gamma"][:d], beta=t["beta"][:d],
+                 w1=t["w1"][:d], w2=t["w2"][:, :d])
+        t = {k: v.contiguous().to(cuda) for k, v in t.items()}
     before = ffn.bwd_launches
     with pytest.raises(ValueError):
         ffn.ln_geglu_ffn_bwd(**t)
     assert ffn.bwd_launches == before
+
+
+def test_bwd_gradients_come_back_contiguous_in_parameter_layout(cuda):
+    """The backward kernels write dW1 [2*inner, d] and dW2 [d, inner], the
+    parameters' layout, so LnGegluFFN returns them as they are: contiguous
+    fp32 tensors of the parameters' shapes, equal to the JAX-layout entry's
+    gradients transposed, bit for bit."""
+    t = _bwd_inputs(1000, cuda, seed=7)
+    w1, w2 = t["w1"].t().contiguous(), t["w2"].t().contiguous()
+    got = ffn._bwd_params(t["x"], t["dy"], t["gamma"], t["beta"], w1, t["b1"], w2, 1e-5)
+    jax_layout = ffn.ln_geglu_ffn_bwd(**t)
+    torch.cuda.synchronize()
+    assert got[3].shape == (2 * INNER, D) and got[5].shape == (D, INNER)
+    assert got[3].is_contiguous() and got[5].is_contiguous()
+    for name, a, b in zip(GRADS, got, jax_layout):
+        assert torch.equal(a, b.t() if name in ("dw1", "dw2") else b), name
+    p = {k: v.float().t().contiguous().requires_grad_() for k, v in (("w1", t["w1"]),
+                                                                     ("w2", t["w2"]))}
+    b2 = torch.zeros(D, device=cuda)
+    out = ffn.LnGegluFFN.apply(t["x"], t["gamma"], t["beta"], p["w1"], t["b1"], p["w2"], b2,
+                               1e-5)
+    out.backward(t["dy"])
+    for k in ("w1", "w2"):
+        g = p[k].grad
+        assert g.dtype == torch.float32 and g.shape == p[k].shape and g.is_contiguous(), k
 
 
 def test_block_backward_goes_through_the_kernels(cuda):
@@ -426,7 +459,8 @@ def test_block_backward_reaches_qkv_through_the_attention_kernel(cuda):
 # the iam UNet with attn_fold_context), at the regeneration batch of 16 and
 # the training batch of 128, full-resolution and middle blocks, and a ragged
 # case (L = 13 pads to 16, N = 40 ends mid-tile).
-FOLD_SHAPES = [(16, 256, 42), (16, 64, 42), (128, 256, 42), (128, 64, 42), (2, 40, 13)]
+FOLD_SHAPES = [(16, 256, 42), (16, 64, 42), (128, 256, 42), (128, 64, 42), (2, 40, 13),
+               (2, 64, 80), (2, 40, 42)]
 
 
 def _fold_inputs(b, n, l, device, c=D, heads=4, seed=0):
@@ -438,12 +472,17 @@ def _fold_inputs(b, n, l, device, c=D, heads=4, seed=0):
     return {k: v.to(device) for k, v in t.items()}
 
 
-@pytest.mark.parametrize("layout", ["b7", "b8"])
+@pytest.mark.parametrize("layout", ["b7", "b8", "b8_padded"])
 @pytest.mark.parametrize("b,n,l", FOLD_SHAPES)
 def test_fold_kernel_matches_plain(cuda, layout, b, n, l):
     """bf16 out: the two differ in the order of the fp32 sums, which can
-    move one bf16 rounding -> within 1% of max |out|; bitwise repeatable.
-    B.7's entry takes the folds as [B, C, H*L] and [B, H*L, C]."""
+    move one bf16 rounding -> within 1% of max |out|; bitwise repeatable,
+    and bitwise the contiguous per-head layout's result whatever the
+    layout, as the copy route never changes the arithmetic. B.7's entry
+    takes the folds as [B, C, H*L] and [B, H*L, C]; "b8_padded" is wt4 as
+    the [..., :L] view of an L stride rounded up to 8. L=42 copies wt's rows
+    16 bytes (padded), 4 bytes (B.7's and the contiguous layout) at a time,
+    L=13 element by element."""
     from worddiffusion_tpu_torch.ops import fold_attention as fa
 
     t = _fold_inputs(b, n, l, cuda)
@@ -451,17 +490,75 @@ def test_fold_kernel_matches_plain(cuda, layout, b, n, l):
     if layout == "b7":
         wt = t["wt4"].permute(0, 2, 1, 3).reshape(b, D, 4 * l).contiguous()
         run = lambda: fa.fold_attention(t["x"], wt, t["vw4"].reshape(b, 4 * l, D), *vecs, 4)
+    elif layout == "b8_padded":
+        lp = -(-l // 8) * 8
+        wt4 = torch.nn.functional.pad(t["wt4"], (0, lp - l))[..., :l]
+        assert fa.wt_route(wt4) == "16-byte"
+        run = lambda: fa.fold_attention_heads(t["x"], wt4, t["vw4"], *vecs)
     else:
         run = lambda: fa.fold_attention_heads(t["x"], t["wt4"], t["vw4"], *vecs)
     before = fa.launches
     got, again = run(), run()
+    contiguous = fa.fold_attention_heads(t["x"], t["wt4"], t["vw4"], *vecs)
     torch.cuda.synchronize()
-    assert fa.launches == before + 2
+    assert fa.launches == before + 3
     want = fa.fold_attention_reference(t["x"], t["wt4"], t["vw4"], *vecs)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
-    assert torch.equal(got, again)
+    assert torch.equal(got, again) and torch.equal(got, contiguous)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 1e-2 * want.float().abs().max().item(), err
+
+
+def test_fold_routes_fill_the_card_and_copy_rows_as_they_lie(cuda):
+    """At B=16 the heads split across a cluster (and 32-row tiles at N=64),
+    so that the small batch still gives 90% of the SMs a CTA; at B=128 one
+    CTA takes a tile's four heads. wt's rows are copied 4 bytes at a time in
+    build_folds' layout (L=42) and B.7's, 16 bytes at a time where the L
+    stride is padded to a multiple of 8, element by element for an odd L."""
+    from worddiffusion_tpu_torch.models.attention import build_folds
+    from worddiffusion_tpu_torch.ops import fold_attention as fa
+
+    assert fa.route(16, 256, 4) == (64, 2) and fa.route(16, 64, 4) == (32, 4)
+    assert fa.route(128, 256, 4) == (64, 1) and fa.route(128, 64, 4) == (64, 1)
+    g = torch.Generator().manual_seed(0)
+    ctx = torch.randn(2, 42, 320, generator=g).bfloat16().to(cuda)
+    ws = [(torch.randn(320, 320, generator=g) / 320 ** 0.5).to(cuda) for _ in range(4)]
+    wt4, _ = build_folds(ctx, *ws, 4, 80, torch.bfloat16)
+    assert wt4.is_contiguous() and fa.wt_route(wt4) == "4-byte"
+    padded = torch.nn.functional.pad(wt4, (0, 6))[..., :42]
+    assert fa.wt_route(padded) == "16-byte"
+    flat = wt4.permute(0, 2, 1, 3).reshape(2, 320, 168)
+    assert fa.wt_route(flat.view(2, 320, 4, 42).permute(0, 2, 1, 3)) == "4-byte"
+    odd = torch.zeros(2, 4, 320, 13, dtype=torch.bfloat16, device=cuda)
+    assert fa.wt_route(odd) == "element"
+
+
+@pytest.mark.parametrize("case,route", [("tail_short", "4-byte"), ("tail_room", "16-byte"),
+                                        ("expanded_short", "4-byte"),
+                                        ("expanded_room", "16-byte")])
+def test_fold_kernel_reads_wt_inside_its_allocation(cuda, case, route):
+    """wt4 with an L stride of 48 at L=42: its rows may be copied 16 bytes at
+    a time (48 elements) only where the last row's 48 lie inside the
+    allocation. "short" ends the storage at the last row's L (as_strided),
+    "room" leaves the stride's 6; "expanded" is one sample's folds expanded
+    over the batch (sample stride 0). Bitwise the contiguous folds' result."""
+    from worddiffusion_tpu_torch.ops import fold_attention as fa
+
+    b, n, l, h = 2, 64, 42, 4
+    t = _fold_inputs(b, n, l, cuda)
+    vecs = (t["gamma"], t["beta"], t["b_out"])
+    nb = 1 if case.startswith("expanded") else b
+    size = nb * h * D * 48 - (6 if case.endswith("short") else 0)
+    buf = torch.empty(size, dtype=torch.bfloat16, device=cuda)
+    wt4 = buf.as_strided((nb, h, D, l), (h * D * 48, D * 48, 48, 1))
+    wt4.copy_(t["wt4"][:nb])
+    if nb == 1:
+        wt4 = wt4.expand(b, -1, -1, -1)
+    assert fa.wt_route(wt4) == route
+    got = fa.fold_attention_heads(t["x"], wt4, t["vw4"], *vecs)
+    want = fa.fold_attention_heads(t["x"], wt4.contiguous(), t["vw4"], *vecs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("bad", ["fp32_x", "c_not_16", "l_over_limit", "heads_l_over_c",

@@ -23,10 +23,15 @@ def _run(tree, kernel, library):
 
 
 def test_shapes_cover_the_smoke_runs_unet_sites():
-    """Every B.1 M and every UNet B.5 site (8x32 and 4x16, 320 and 640
-    channels, B=16 and 128) that chip_smoke.py names is timed, so that the
-    before/after table covers the main path's shapes."""
+    """Every B.1 and B.3 M, every UNet B.5 site (8x32 and 4x16, 320 and 640
+    channels, B=16 and 128) and every fold sub-layer of the main path (B.8 at
+    L=42, and B.7's layout at both batches) that chip_smoke.py names is timed,
+    so that the before/after table covers the main path's shapes."""
     assert set(chip_smoke.FFN_SHAPES) <= set(kernel_times.FFN_M)
+    assert set(chip_smoke.BWD_SHAPES) <= set(kernel_times.FFN_BWD_M)
+    folds = {(b, n) for b, n, l in chip_smoke.FOLD_SHAPES if l == kernel_times.FOLD_L}
+    assert len(folds) == 4 and folds <= set(kernel_times.FOLD_BN)
+    assert {b for b, _ in kernel_times.FOLD_B7_BN} == {chip_smoke.B, chip_smoke.TRAIN_B}
     assert chip_smoke.TRAIN_B * 256 in kernel_times.FFN_M
     unet = {s for s in chip_smoke.GN_SHAPES if s[1:3] in ((8, 32), (4, 16)) and s[3] in (320, 640)}
     assert len(unet) == 10 and unet <= set(kernel_times.GN_SHAPES)

@@ -64,6 +64,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 #include <atomic>
 #include <cstddef>
 #include <cstdint>
@@ -72,7 +74,7 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace hopper;
 
 constexpr int BM = 64;                  // rows per tile: one wgmma M
 constexpr int NC = 64;                  // inner columns per chunk
@@ -95,131 +97,6 @@ struct Smem {
   static constexpr size_t total = act + size_t(PANEL) * 2 + 1024;  // + the alignment
   static_assert(size_t(BM) * LDR * 4 <= xn, "the partial out fits over the weights");
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// this thread's generic-proxy writes to shared memory, visible to wgmma's
-// async proxy
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// After wgmma.wait_group: the accumulators' values are those the products left
-// (no read of them moves above the wait). Never between a product's issue and
-// its wait, where it would serialize the products.
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor, K-major, 128-byte swizzle: rows of 64 bf16
-// (128 bytes), 8-row groups 1024 bytes apart; the 16-byte chunk j of row r
-// stored at chunk j ^ (r % 8). p is 1024-byte aligned but for the k offset.
-__device__ __forceinline__ uint64_t make_desc_sw128(const void* p) {
-  return uint64_t((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-
-// Element (r, k) of a swizzled [rows x 64 K] panel, in bf16 from its start.
-__device__ __forceinline__ int swz(int r, int k) {
-  return r * 64 + ((((k >> 3) ^ r) & 7) << 3) + (k & 7);
-}
-
-// D[64 x N] (+)= A[64 x 16] . B[16 x N], A and B K-major from shared memory
-// behind their descriptors, fp32 D; acc = 0 overwrites D. Overloads by N = 2 *
-// the accumulator count: 64 (product 1) and 160 (product 2 at d = 320).
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-__device__ __forceinline__ void wgmma_ss(float (&d)[80], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %82, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
-      "%80, %81, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&w[j]);
-    f[2 * j] = __low2float(p);
-    f[2 * j + 1] = __high2float(p);
-  }
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// tanh-approximate gelu, as flax.linen.gelu and ffn_pallas.py::_gelu_and_grad
-__device__ __forceinline__ float gelu_tanh(float u) {
-  const float c = 0.7978845608028654f, k = 0.044715f;
-  return 0.5f * u * (1.0f + tanhf(c * (u + k * u * u * u)));
-}
 
 // LN: the LayerNorm + residual sub-layer (_ln_ffn_kernel); otherwise the bare
 // FFN (_ffn_kernel), which reads neither gamma, beta nor eps.
@@ -357,7 +234,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)
-        wgmma_ss(acc1, make_desc_sw128(xn + p * PANEL + ks * 16),
+        wgmma_ss<0, 0>(acc1, make_desc_sw128(xn + p * PANEL + ks * 16),
                  make_desc_sw128(slot + ks * 16), p > 0 || ks > 0);
       wgmma_commit();
       if (p < KP - 1) wgmma_wait<1>();  // the accumulators are read after wait_group 0
@@ -389,7 +266,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks)
-      wgmma_ss(acc2, make_desc_sw128(act + ks * 16),
+      wgmma_ss<0, 0>(acc2, make_desc_sw128(act + ks * 16),
                make_desc_sw128(w2s + wg * N2 * 64 + ks * 16), lc > 0 || ks > 0);
     wgmma_commit();
     wgmma_wait<1>();  // in flight behind the next chunk's first unit

@@ -1,10 +1,12 @@
 """Time the port's redesigned kernels of two source trees on one card, by
 three methods: the attention kernel (B.4), GN -> SiLU -> conv3x3 (B.6),
-the LN + GEGLU FFN (B.1) and its bare mode (B.2), and GroupNorm (+ SiLU)
-(B.5); and read what holds B.4 back against
+the LN + GEGLU FFN (B.1) and its bare mode (B.2), its backward (B.3),
+GroupNorm (+ SiLU) (B.5) and the context-folded attention sub-layer (B.8,
+and once through B.7's layout); and read what holds B.4 back against
 ``scaled_dot_product_attention``.
 
     python3 worddiffusion_tpu_torch/kernel_times.py --other DIR [--out FILE]
+        [--kinds ffn_bwd,fold]
 
 DIR is another checkout of the repo, or just its ``worddiffusion_tpu_torch``
 package, for example an earlier commit unpacked with ``git archive`` into a
@@ -19,7 +21,13 @@ yardstick where one PyTorch call computes the same function (SDPA;
 (each tree casts or lays them out inside), and, in this tree only, on
 bf16 parameter-layout weights (``ffn_bf16``, which the kernel reads with
 no copy: the difference is the cost of the casts); B.2 through
-``fused_geglu_ffn`` on bf16 weights in the JAX layout:
+``fused_geglu_ffn`` on bf16 weights in the JAX layout; B.3 as the
+``LnGegluFFN`` Function's backward alone (``torch.autograd.grad`` of a
+kept graph, fp32 parameter-layout weights), its kernel time also split by
+kernel name; B.8 through ``fold_attention_heads`` on folds as
+``build_folds`` lays them out and B.7 through ``fold_attention`` on its
+[B, C, H*L] folds; one ``iam`` and one ``iam_fold`` training step at
+B=128 (``train_step``). ``--kinds`` keeps only the named kinds:
 
 - ``single_ms``: one call between two CUDA events, the median of 30; the
   host's launch path adds to it where it is longer than the device work;
@@ -67,6 +75,13 @@ D, INNER = 320, 1280
 # training site (B=128, 256 tokens) and a ragged M; of B.2: two of them
 FFN_M = (16 * 256, 16 * 64, 128 * 256, 1000)
 GEGLU_M = (16 * 256, 128 * 256)
+# M of B.3: the training step's sites (B=128 at 256 and 64 tokens) and a ragged M
+FFN_BWD_M = (128 * 256, 128 * 64, 1000)
+# (B, N) of B.8 (C=320, H=4, L=42): regeneration (B=16) and training (B=128)
+# at the full-resolution and middle blocks; B.7's layout at the first and third
+FOLD_BN = ((16, 256), (16, 64), (128, 256), (128, 64))
+FOLD_B7_BN = ((16, 256), (128, 256))
+FOLD_L = 42
 # (B, H, W, C, groups, silu) of B.5: every UNet site at B=16 and 128 (the
 # 640-channel output ResBlocks with SiLU, the 320-channel transformer norms
 # and the out norm), and a VAE decoder site whose per-CTA range does not fit
@@ -75,7 +90,9 @@ GN_SHAPES = tuple((b, h, w, c, 32, silu) for b in (16, 128)
                   for h, w, c, silu in ((8, 32, 640, True), (4, 16, 640, True),
                                         (8, 32, 320, False), (4, 16, 320, False),
                                         (8, 32, 320, True))) + ((16, 64, 256, 256, 32, True),)
-KINDS = ("attention", "conv", "ffn", "ffn_bf16", "geglu", "groupnorm")
+KINDS = ("attention", "conv", "ffn", "ffn_bf16", "geglu", "ffn_bwd", "groupnorm", "fold",
+         "fold_b7", "train_step")
+TRAIN_B = 128
 
 
 def single_ms(fn, reps: int = 30, warmup: int = 5) -> float:
@@ -98,10 +115,11 @@ def launch_ms(fn, calls: int = 10, reps: int = 10) -> float:
     return single_ms(lambda: [fn() for _ in range(calls)], reps=reps, warmup=1) / calls
 
 
-def kernel_ms(fn, calls: int = 10) -> tuple[float, list[str]]:
-    """Device time per call of the kernels ``fn`` launches, and their names.
-    A trace that caught no kernel event (seen now and then on the card) is
-    taken again, up to three times."""
+def kernel_ms(fn, calls: int = 10, per_call: int | None = None) -> tuple[float, dict]:
+    """Device time per call of the kernels ``fn`` launches, and the same by
+    kernel name. A trace that caught no kernel event, or (``per_call``: the
+    kernels one call launches) not every launch's (both seen now and then on
+    the card), is taken again, up to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -114,15 +132,19 @@ def kernel_ms(fn, calls: int = 10) -> tuple[float, list[str]]:
                 fn()
             torch.cuda.synchronize()
         kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if kernels:
-            names = sorted({e.name[:80] for e in kernels})
-            return sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / calls, names
-    raise RuntimeError("torch.profiler caught no kernel in three traces")
+        # an annotation range (the optimizer's step), not a kernel
+        kernels = [e for e in kernels if not e.name.startswith("Optimizer.")]
+        if kernels and (per_call is None or len(kernels) == per_call * calls):
+            split = {}
+            for e in kernels:
+                split[e.name[:80]] = split.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3
+            return sum(split.values()) / calls, {k: v / calls for k, v in sorted(split.items())}
+    raise RuntimeError("torch.profiler caught no (or not every) kernel in three traces")
 
 
-def three_ways(fn) -> dict:
-    k, names = kernel_ms(fn)
-    return dict(single_ms=single_ms(fn), launch_ms=launch_ms(fn), kernel_ms=k, kernels=names)
+def three_ways(fn, per_call: int | None = None) -> dict:
+    k, split = kernel_ms(fn, per_call=per_call)
+    return dict(single_ms=single_ms(fn), launch_ms=launch_ms(fn), kernel_ms=k, split=split)
 
 
 def attn_inputs(b: int, nq: int, nk: int, seed: int):
@@ -158,6 +180,20 @@ def ffn_inputs(m: int, seed: int):
     return {k: v.cuda() for k, v in t.items()}
 
 
+def fold_inputs(b: int, n: int, seed: int):
+    """x, the LayerNorm affine and out bias, and B.8's folds as
+    ``models.attention.build_folds`` returns them: wt4 [B, H, C, L] and
+    vw4 [B, H, L, C], contiguous."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)
+    t = dict(x=r(b, n, D).bfloat16(), wt4=(r(b, HEADS, D, FOLD_L) / D ** 0.5).bfloat16(),
+             vw4=r(b, HEADS, FOLD_L, D).bfloat16(), gamma=1 + 0.1 * r(D), beta=0.1 * r(D),
+             b_out=0.02 * r(D))
+    return {k: v.cuda() for k, v in t.items()}
+
+
 def norm_inputs(shape, seed: int):
     import torch
 
@@ -168,24 +204,24 @@ def norm_inputs(shape, seed: int):
     return x.cuda(), scale.cuda(), bias.cuda()
 
 
-def worker(tree: str, deep: bool) -> dict:
-    """Every time of one tree's kernels; with ``deep``, the resource use and
-    the Nk sweep too."""
+def worker(tree: str, deep: bool, kinds: tuple[str, ...] = KINDS) -> dict:
+    """Every time of one tree's kernels of ``kinds``; with ``deep``, the
+    resource use, the routes and the Nk sweep too."""
     import torch
     import torch.nn.functional as F
 
-    from worddiffusion_tpu_torch.ops import attention, build, ffn, gn_conv, groupnorm
+    from worddiffusion_tpu_torch.ops import attention, build, ffn, fold_attention, gn_conv, groupnorm
 
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     lib = build.build()
     scale = D_HEAD ** -0.5
     out = dict(tree=tree, **{k: [] for k in KINDS})
-    for i, (b, nq, nk) in enumerate(ATTN_SHAPES):
+    for i, (b, nq, nk) in enumerate(ATTN_SHAPES if "attention" in kinds else ()):
         q, k, v = attn_inputs(b, nq, nk, seed=30 + i)
         out["attention"].append(dict(
             shape=[b, nq, nk], kernel=three_ways(lambda: attention.fused_attention(q, k, v, scale)),
             library=three_ways(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))))
-    for i, (b, h, w, c) in enumerate(CONV_SHAPES):
+    for i, (b, h, w, c) in enumerate(CONV_SHAPES if "conv" in kinds else ()):
         x, s, bi, wt, cb = conv_inputs(b, h, w, c, seed=120 + i)
         nchw, ws, bs = x.permute(0, 3, 1, 2), s.bfloat16(), bi.bfloat16()
         wb, cbb = wt.bfloat16().contiguous(memory_format=torch.channels_last), cb.bfloat16()
@@ -195,7 +231,7 @@ def worker(tree: str, deep: bool) -> dict:
             library=three_ways(lambda: F.conv2d(F.silu(F.group_norm(nchw, 32, ws, bs, 1e-6)),
                                                 wb, cbb, padding=1))))
         del x, nchw
-    for i, m in enumerate(FFN_M):
+    for i, m in enumerate(FFN_M if {"ffn", "geglu"} & set(kinds) else ()):
         t = ffn_inputs(m, seed=300 + i)
         a = (t["x"], t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"], t["b2"], 1e-5)
 
@@ -203,8 +239,9 @@ def worker(tree: str, deep: bool) -> dict:
             with torch.no_grad():
                 return ffn.LnGegluFFN.apply(*a)
 
-        out["ffn"].append(dict(shape=[m], kernel=three_ways(sublayer), library=None))
-        if deep:
+        if "ffn" in kinds:
+            out["ffn"].append(dict(shape=[m], kernel=three_ways(sublayer), library=None))
+        if deep and "ffn" in kinds:
             # this tree only: the same on bf16 parameter-layout weights, which
             # the kernel reads as they are; the difference is what the two
             # fp32 -> bf16 cast copies of a call cost
@@ -216,11 +253,36 @@ def worker(tree: str, deep: bool) -> dict:
 
             out["ffn_bf16"].append(dict(shape=[m], kernel=three_ways(sublayer_bf16),
                                         library=None))
-        if m in GEGLU_M:
+        if m in GEGLU_M and "geglu" in kinds:
             w1, w2 = t["w1"].t().bfloat16().contiguous(), t["w2"].t().bfloat16().contiguous()
             out["geglu"].append(dict(shape=[m], kernel=three_ways(
                 lambda: ffn.fused_geglu_ffn(t["x"], w1, t["b1"], w2, t["b2"])), library=None))
-    for i, (b, h, w, c, g, silu) in enumerate(GN_SHAPES):
+    for i, m in enumerate(FFN_BWD_M if "ffn_bwd" in kinds else ()):
+        # the Function's backward alone, as a training step runs it: the
+        # graph of one forward kept, its gradients taken again and again
+        t = ffn_inputs(m, seed=350 + i)
+        leaves = [t[k].requires_grad_() for k in ("x", "gamma", "beta", "w1", "b1", "w2", "b2")]
+        y = ffn.LnGegluFFN.apply(*leaves, 1e-5)
+        dy = (0.1 * torch.randn(m, D, generator=torch.Generator().manual_seed(360 + i))).bfloat16()
+        dy = dy.cuda()
+        out["ffn_bwd"].append(dict(shape=[m], kernel=three_ways(
+            lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)), library=None))
+        del t, leaves, y
+    for i, (b, n) in enumerate(FOLD_BN if {"fold", "fold_b7"} & set(kinds) else ()):
+        t = fold_inputs(b, n, seed=600 + i)
+        vecs = (t["gamma"], t["beta"], t["b_out"])
+        if "fold" in kinds:
+            out["fold"].append(dict(shape=[b, n, FOLD_L], kernel=three_ways(
+                lambda: fold_attention.fold_attention_heads(t["x"], t["wt4"], t["vw4"], *vecs),
+                per_call=1),
+                library=None))
+        if (b, n) in FOLD_B7_BN and "fold_b7" in kinds:
+            wt = t["wt4"].permute(0, 2, 1, 3).reshape(b, D, HEADS * FOLD_L).contiguous()
+            vw = t["vw4"].view(b, HEADS * FOLD_L, D)
+            out["fold_b7"].append(dict(shape=[b, n, FOLD_L], kernel=three_ways(
+                lambda: fold_attention.fold_attention(t["x"], wt, vw, *vecs, HEADS), per_call=1),
+                library=None))
+    for i, (b, h, w, c, g, silu) in enumerate(GN_SHAPES if "groupnorm" in kinds else ()):
         x, s_, bi = norm_inputs((b, h, w, c), seed=400 + i)
         nchw, ws, bs = x.permute(0, 3, 1, 2), s_.bfloat16(), bi.bfloat16()
         if silu:
@@ -239,8 +301,21 @@ def worker(tree: str, deep: bool) -> dict:
             groupnorm={str(s[:4]): groupnorm.route(torch.empty(s[0], s[1] * s[2], s[3],
                                                                device="meta"), s[4])
                        for s in GN_SHAPES})
-        out["gn_routes"] = gn_routes(groupnorm)
-        out["sweep"] = sweep(attention, scale)
+        if hasattr(ffn, "bwd_cluster_size"):
+            out["clusters"]["ffn_bwd"] = {m: ffn.bwd_cluster_size(m, INNER) for m in FFN_BWD_M}
+        if hasattr(fold_attention, "route"):
+            out["clusters"]["fold"] = {
+                str(bn): fold_attention.route(bn[0], bn[1], HEADS) for bn in FOLD_BN}
+        if "groupnorm" in kinds:
+            out["gn_routes"] = gn_routes(groupnorm)
+        if "fold" in kinds:
+            out["fold_routes"] = fold_routes(fold_attention)
+        if "attention" in kinds:
+            out["sweep"] = sweep(attention, scale)
+    # last: after profiling a training step's thousands of kernels, traces of
+    # one-kernel calls came back short on the card
+    for i, fold in enumerate((False, True) if "train_step" in kinds else ()):
+        out["train_step"].append(train_step(fold, seed=800 + i))
     return out
 
 
@@ -285,6 +360,82 @@ def gn_routes(groupnorm) -> list[dict]:
     return rows
 
 
+def train_step(fold: bool, seed: int) -> dict:
+    """One training step of the ``iam`` preset (``fold``: with
+    ``attn_fold_context``) at full width, B=128, seeded weights and latents,
+    as the Trainer runs it (forward, backward, AdamW, EMA): its device time
+    by the three methods, and the kernels' time by name."""
+    import dataclasses
+
+    import torch
+
+    from worddiffusion_tpu_torch.configs import presets
+    from worddiffusion_tpu_torch.diffusion.schedule import NoiseSchedule
+    from worddiffusion_tpu_torch.models.unet import UNet
+    from worddiffusion_tpu_torch.train.state import TrainState, make_optimizer
+    from worddiffusion_tpu_torch.train.step import make_train_step
+
+    exp = presets.iam()
+    exp = exp.replace(unet=dataclasses.replace(exp.unet, attn_fold_context=fold or None))
+    torch.manual_seed(seed)
+    model = UNet(exp.unet).cuda()
+    state = TrainState.create(model, make_optimizer(model.parameters(), 1e-4))
+    d = exp.diffusion
+    step = make_train_step(NoiseSchedule.linear(d.num_steps, d.beta_start, d.beta_end), exp)
+    g = torch.Generator().manual_seed(seed)
+    batch = dict(latent=0.8 * torch.randn(TRAIN_B, 8, 32, 4, generator=g),
+                 context=torch.randint(1, 53, (TRAIN_B, exp.unet.max_seq_len), generator=g),
+                 writer=torch.randint(0, 339, (TRAIN_B,), generator=g))
+    batch = {k: v.cuda() for k, v in batch.items()}
+    return dict(shape=["iam_fold" if fold else "iam", TRAIN_B],
+                kernel=three_ways(lambda: step(state, batch)), library=None)
+
+
+FOLD_ROUTES = ((64, 1), (64, 2), (64, 4), (32, 1), (32, 2), (32, 4))
+
+
+def fold_routes(fold_attention) -> list[dict]:
+    """B.8's kernel time at every route (rows a tile, CTAs a cluster
+    splitting the heads, fold buffers) at each FOLD_BN shape, the route it
+    picks, with wt4's L stride padded to 8, and, on
+    that route, stopped after the LayerNorm, with the fold copies and no
+    product, with the products and no fold copy, and whole."""
+    import ctypes
+
+    import torch
+    import torch.nn.functional as F
+
+    lib = fold_attention._lib()
+    rows = []
+    for i, (b, n) in enumerate(FOLD_BN):
+        t = fold_inputs(b, n, seed=700 + i)
+        vecs = [t[k].data_ptr() for k in ("gamma", "beta", "b_out")]
+        out = torch.empty_like(t["x"])
+        wt4 = t["wt4"]
+
+        def run(bm, cl, bufs=0, stop=0):
+            err = lib.wd_fold_attention_routed(
+                t["x"].data_ptr(), wt4.data_ptr(), t["vw4"].data_ptr(), *vecs, out.data_ptr(),
+                b, n, D, HEADS, FOLD_L, *wt4.stride()[:3], fold_attention.wt_room(wt4),
+                ctypes.c_float(1e-5), bm, cl, bufs, stop, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"wd_fold_attention_routed failed ({err})")
+
+        # every route with one and (where a CTA takes more than one head) two
+        # fold buffers
+        times = {f"{bm}x{cl}b{bufs}": kernel_ms(lambda: run(bm, cl, bufs), per_call=1)[0]
+                 for bm, cl in FOLD_ROUTES for bufs in (1, 2) if bufs == 1 or cl < HEADS}
+        picked = fold_attention.route(b, n, HEADS)
+        phases = {name: kernel_ms(lambda: run(*picked, 0, stop), per_call=1)[0] for name, stop in (
+            ("layernorm", 1), ("copies", 2), ("products", 3), ("whole", 0))}
+        # the same folds with their L stride padded to 48 (16-byte copies of
+        # wt's rows in place of 4-byte ones)
+        wt4 = F.pad(t["wt4"], (0, -FOLD_L % 8))[..., :FOLD_L]
+        phases["whole, L stride padded to 8"] = kernel_ms(lambda: run(*picked), per_call=1)[0]
+        rows.append(dict(shape=[b, n, FOLD_L], picked=list(picked), routes=times, phases=phases))
+    return rows
+
+
 def resources(lib: str) -> list[dict]:
     """``cuobjdump -res-usage`` of each instance of the attention kernel at
     D=80, the FFN kernel and the GroupNorm cluster kernel, and the CTAs per
@@ -316,6 +467,14 @@ def resources(lib: str) -> list[dict]:
             dyn = cdll.wd_ln_geglu_ffn_smem()
         elif "gn_cluster_kernel" in line:
             warps, name, dyn = 8, "gn_cluster", 112 * 1024
+        elif "ffn_bwd_rows_kernel" in line:
+            warps, name, dyn = 8, "ffn_bwd_rows", cdll.wd_ln_geglu_ffn_bwd_smem(0)
+        elif "ffn_bwd_weights_kernel" in line:
+            warps, name, dyn = 8, "ffn_bwd_weights", cdll.wd_ln_geglu_ffn_bwd_smem(1)
+        elif m := re.search(r"fold_attention_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi0E", line):
+            lp, bm, bufs = int(m.group(1)), int(m.group(2)), int(m.group(3))
+            warps, name = bm // 8, f"fold_attention<{lp}, {bm}, {bufs}>"
+            dyn = cdll.wd_fold_attention_smem(bm, D, lp, bufs)
         else:
             continue
         per_warp = -(-usage["REG"] * 32 // 256) * 256
@@ -354,9 +513,10 @@ def sweep(attention, scale: float) -> dict:
     return dict(rows=rows, fit=fit)
 
 
-def run_tree(tree: str, deep: bool) -> dict:
+def run_tree(tree: str, deep: bool, kinds: tuple[str, ...] = KINDS) -> dict:
     """One worker process on ``tree``'s package."""
-    cmd = [sys.executable, os.path.abspath(__file__), "--worker", os.path.abspath(tree)]
+    cmd = [sys.executable, os.path.abspath(__file__), "--worker", os.path.abspath(tree),
+           "--kinds", ",".join(kinds)]
     if deep:
         cmd.append("--deep")
     res = subprocess.run(cmd, capture_output=True, text=True)
@@ -396,9 +556,14 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="build/kernel_times.json")
     p.add_argument("--worker", help=argparse.SUPPRESS)
     p.add_argument("--deep", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--kinds", default=",".join(KINDS),
+                   help=f"comma-separated kinds to time (default all: {','.join(KINDS)})")
     args = p.parse_args(argv)
+    kinds = tuple(k for k in args.kinds.split(",") if k)
+    if unknown := set(kinds) - set(KINDS):
+        p.error(f"unknown kinds {sorted(unknown)}")
     if args.worker:
-        print(json.dumps(worker(args.worker, args.deep)))
+        print(json.dumps(worker(args.worker, args.deep, kinds)))
         return 0
     import torch
 
@@ -413,7 +578,7 @@ def main(argv=None) -> int:
         order = [(args.other, False), (here, True), (here, False), (args.other, False)]
     else:
         order = [(here, True)]
-    runs = [run_tree(tree, deep) for tree, deep in order]
+    runs = [run_tree(tree, deep, kinds) for tree, deep in order]
     result = dict(device=smi, runs=runs)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
@@ -422,13 +587,24 @@ def main(argv=None) -> int:
     for r in deep["resources"]:
         print("resources", json.dumps(r))
     print("clusters", json.dumps(deep["clusters"]))
-    for r in deep["gn_routes"]:
+    for r in deep.get("gn_routes", []):
         print("groupnorm routes", json.dumps(r))
+    for r in deep.get("fold_routes", []):
+        print("fold routes", json.dumps(r))
     for w32, w16 in zip(deep["ffn"], deep["ffn_bf16"]):
         print(f"ffn {w32['shape']} fp32 weights (two cast copies) / bf16 weights: " + "; ".join(
             f"{m} {w32['kernel'][m]:.4f} / {w16['kernel'][m]:.4f}" for m in
             ("single_ms", "launch_ms", "kernel_ms")))
-    print("attention Nk sweep", json.dumps(deep["sweep"]))
+    if "sweep" in deep:
+        print("attention Nk sweep", json.dumps(deep["sweep"]))
+    for r in runs:
+        for kind in ("ffn_bwd", "fold", "fold_b7", "train_step"):
+            for row in r.get(kind, []):
+                k = row["kernel"]
+                print(f"{r['tree']} {kind} {row['shape']}: " + "; ".join(
+                    f"{m} {k[m]:.4f}" for m in ("single_ms", "launch_ms", "kernel_ms"))
+                    + " | by kernel " + ", ".join(f"{n} {v:.4f}" for n, v in sorted(
+                        k["split"].items(), key=lambda nv: -nv[1])[:12]))
     if args.other:
         for line in summary(runs):
             print(line)

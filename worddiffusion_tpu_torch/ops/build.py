@@ -10,7 +10,8 @@ started together, then one link::
 
 The library lands in ``build/wd_torch_kernels/<hash>/`` beside the
 package (``.gitignore`` lists ``build/``); the hash covers the sources
-and the flags, so an edited kernel is rebuilt and an unchanged one is
+(``csrc/*.cu``) with the headers they include (``csrc/*.cuh``) and the
+flags, so an edited kernel or header is rebuilt and an unchanged one is
 reused. A missing nvcc or a failed compile raises ``RuntimeError`` with
 nvcc's output: there is no fallback.
 """
@@ -53,9 +54,14 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers() -> list[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _digest(sources: list[Path]) -> str:
+    """Hash of the flags, the sources and every header beside them."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *_headers()]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -5,8 +5,9 @@ Port of ``worddiffusion_tpu/ops/ffn_pallas.py::fused_ln_geglu_ffn_kbwd``:
 the forward kernel ``csrc/ln_geglu_ffn.cu`` and the backward kernel
 ``csrc/ln_geglu_ffn_bwd.cu`` (behind ``ln_geglu_ffn_bwd``), paired by
 the ``torch.autograd.Function`` ``LnGegluFFN``, which takes the weights
-in parameter layout (the forward kernel reads them so, cast to x's
-dtype; the backward kernel in the JAX layout); ``ffn_sublayer`` skips
+in parameter layout (both kernels read them so, cast to x's dtype once in
+the forward and kept for the backward, and the backward kernel returns
+the weight gradients so); ``ffn_sublayer`` skips
 the Function where no gradient is wanted, and ``fused_ln_geglu_ffn``
 takes the weights in the JAX function's layout. A CUDA tensor launches
 the kernels; a CPU tensor takes the plain PyTorch versions
@@ -180,8 +181,8 @@ def _contiguous_as(w, dt):
 
 def _kernel_weights(w1, w2, dt):
     """Parameter-layout weights (w1 [2*inner, d], w2 [d, inner]) ->
-    the backward kernel's contiguous [d, 2*inner] and [inner, d] in
-    ``dt``: one cast-and-transpose copy each."""
+    the JAX layout's contiguous [d, 2*inner] and [inner, d] in ``dt``:
+    one cast-and-transpose copy each (the plain versions' layout)."""
     return _contiguous_as(w1.t(), dt), _contiguous_as(w2.t(), dt)
 
 
@@ -190,32 +191,48 @@ class LnGegluFFN(torch.autograd.Function):
     plain versions on the CPU; the transformer block's FF sub-layer.
 
     The weights come in parameter layout and dtype (``proj.weight``
-    [2*inner, d], ``out.weight`` [d, inner], fp32 masters): the forward
-    kernel reads that layout and the cast to x.dtype happens inside (one
-    copy per weight), so the weight gradients come back in fp32 and in
+    [2*inner, d], ``out.weight`` [d, inner], fp32 masters). The forward
+    casts them to x.dtype (one copy per weight, none where they already
+    are) and keeps the casts for the backward; both kernels read that
+    layout, so the weight gradients come back in fp32, contiguous and in
     parameter layout, as JAX returns them in the master dtype
     (``ffn_pallas.py:721-726``). The inputs are saved and LN + GEGLU
     recomputed in the backward (``_ln_ffn_kbwd``)."""
 
     @staticmethod
     def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps):
-        ctx.save_for_backward(x, gamma, beta, w1, b1, w2, b2)
+        w1k, w2k = _contiguous_as(w1, x.dtype), _contiguous_as(w2, x.dtype)
+        ctx.save_for_backward(x, gamma, beta, w1k, b1, w2k)
         ctx.eps = eps
-        return _sublayer(x, gamma, beta, w1, b1, w2, b2, eps)
+        ctx.dtypes = (w1.dtype, w2.dtype, b2.dtype)
+        return _sublayer(x, gamma, beta, w1k, b1, w2k, b2, eps)
 
     @staticmethod
     def backward(ctx, dy):
-        x, gamma, beta, w1, b1, w2, b2 = ctx.saved_tensors
+        x, gamma, beta, w1k, b1, w2k = ctx.saved_tensors
         d = x.shape[-1]
-        w1k, w2k = _kernel_weights(w1, w2, x.dtype)
-        dx, dg, dbt, dw1, db1, dw2, db2 = ln_geglu_ffn_bwd(
+        dx, dg, dbt, dw1, db1, dw2, db2 = _bwd_params(
             x.reshape(-1, d), dy.reshape(-1, d).to(x.dtype).contiguous(), gamma, beta,
             w1k, b1, w2k, ctx.eps)
+        w1_dt, w2_dt, b2_dt = ctx.dtypes
         return (
-            dx.reshape(x.shape), dg.to(gamma.dtype), dbt.to(beta.dtype),
-            dw1.t().to(w1.dtype), db1.to(b1.dtype), dw2.t().to(w2.dtype),
-            db2.to(b2.dtype), None,
+            dx.reshape(x.shape), dg.to(gamma.dtype), dbt.to(beta.dtype), dw1.to(w1_dt),
+            db1.to(b1.dtype), dw2.to(w2_dt), db2.to(b2_dt), None,
         )
+
+
+def _bwd_params(x, dy, gamma, beta, w1, b1, w2, eps):
+    """The backward with parameter-layout weights (w1 [2*inner, d], w2
+    [d, inner]) for flat x, dy [M, d]; the weight gradients come back
+    contiguous in that layout: the CUDA kernels for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if x.device.type == "cpu":
+        dx, dg, dbt, dw1, db1, dw2, db2 = ln_geglu_ffn_bwd_reference(
+            x, dy, gamma, beta, w1.t(), b1, w2.t(), eps)
+        return dx, dg, dbt, dw1.t().contiguous(), db1, dw2.t().contiguous(), db2
+    if x.device.type != "cuda":
+        raise ValueError(f"ln_geglu_ffn_bwd: unsupported device {x.device}")
+    return _launch_bwd(x, dy, gamma, beta, w1, b1, w2, eps)
 
 
 def ffn_sublayer(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5):
@@ -238,7 +255,8 @@ def fused_ln_geglu_ffn(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5):
 
 def _sublayer(x, gamma, beta, w1, b1, w2, b2, eps):
     """The forward with parameter-layout weights: the CUDA kernel on their
-    bf16 copies for a CUDA tensor, the plain version for a CPU tensor."""
+    bf16 copies (none where they already are) for a CUDA tensor, the plain
+    version for a CPU tensor."""
     if x.device.type == "cpu":
         w1k, w2k = _kernel_weights(w1, w2, x.dtype)
         return ln_geglu_ffn_reference(x, gamma, beta, w1k, b1, w2k, b2, eps)
@@ -251,13 +269,18 @@ def _sublayer(x, gamma, beta, w1, b1, w2, b2, eps):
 
 def ln_geglu_ffn_bwd(x, dy, gamma, beta, w1, b1, w2, eps: float = 1e-5):
     """The FF sub-layer's backward for flat x, dy [M, d], with the
-    operands and returns of the JAX ``_ln_ffn_bwd_pallas``: the CUDA
-    kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    operands and returns of the JAX ``_ln_ffn_bwd_pallas`` (w1 [d, 2*inner],
+    w2 [inner, d]; dw1 and dw2 in that layout): the CUDA kernels for a CUDA
+    tensor (on contiguous parameter-layout copies of the weights, which
+    must be bf16; the weight gradients returned as transposed views), the
+    plain version for a CPU tensor."""
     if x.device.type == "cpu":
         return ln_geglu_ffn_bwd_reference(x, dy, gamma, beta, w1, b1, w2, eps)
     if x.device.type != "cuda":
         raise ValueError(f"ln_geglu_ffn_bwd: unsupported device {x.device}")
-    return _launch_bwd(x, dy, gamma, beta, w1, b1, w2, eps)
+    dx, dg, dbt, dw1, db1, dw2, db2 = _launch_bwd(
+        x, dy, gamma, beta, w1.t().contiguous(), b1, w2.t().contiguous(), eps)
+    return dx, dg, dbt, dw1.t(), db1, dw2.t(), db2
 
 
 @functools.cache
@@ -271,9 +294,11 @@ def _lib():
     lib.wd_ln_geglu_ffn_bwd.argtypes = [p] * 18 + [i, i, i, ctypes.c_float, p]
     lib.wd_ln_geglu_ffn_bwd.restype = i
     for fn, args in (("wd_ln_geglu_ffn_d", []), ("wd_ln_geglu_ffn_cluster", [i, i]),
-                     ("wd_ln_geglu_ffn_bwd_max_d", []), ("wd_ln_geglu_ffn_bwd_block_m", [])):
+                     ("wd_ln_geglu_ffn_bwd_d", []), ("wd_ln_geglu_ffn_bwd_cluster", [i, i])):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = i
+    lib.wd_ln_geglu_ffn_bwd_part_floats.argtypes = [i, i, i]
+    lib.wd_ln_geglu_ffn_bwd_part_floats.restype = ctypes.c_longlong
     lib.wd_cuda_error_string.argtypes = [i]
     lib.wd_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -283,6 +308,12 @@ def cluster_size(m: int, inner: int) -> int:
     """The CTAs per row tile (thread-block cluster) the forward kernel
     launches with at M rows."""
     return _lib().wd_ln_geglu_ffn_cluster(m, inner)
+
+
+def bwd_cluster_size(m: int, inner: int) -> int:
+    """The CTAs per row tile (thread-block cluster) the backward's row
+    kernel launches with at M rows."""
+    return _lib().wd_ln_geglu_ffn_bwd_cluster(m, inner)
 
 
 def _check(name, t, shape, dtype, dev):
@@ -296,35 +327,30 @@ def _check(name, t, shape, dtype, dev):
         raise ValueError(f"fused_ln_geglu_ffn: {name} must be contiguous and 16-byte aligned")
 
 
-def _check_operands(x, gamma, beta, w1, b1, w2, d_ok, d_rule, param_layout):
-    """The kernels' operands; gamma and beta None for the bare FFN. The
-    forward kernel takes the weights in parameter layout (w1 [2*inner, d],
-    w2 [d, inner]), the backward kernel in the JAX layout (w1 [d, 2*inner],
-    w2 [inner, d])."""
+def _check_operands(x, gamma, beta, w1, b1, w2, d_taken):
+    """The kernels' operands; gamma and beta None for the bare FFN. Both
+    kernels take the weights in parameter layout (w1 [2*inner, d],
+    w2 [d, inner]) and one width, d_taken."""
     d = x.shape[-1]
-    inner = w2.shape[-1] if param_layout else w2.shape[0]
-    if not d_ok(d) or inner % 64 or inner < 64:
+    inner = w2.shape[-1]
+    if d != d_taken or inner % 64 or inner < 64:
         raise ValueError(
-            f"fused_ln_geglu_ffn: kernel needs {d_rule} and inner % 64 == 0; "
-            f"got d={d}, inner={inner}"
+            f"fused_ln_geglu_ffn: kernel needs d == {d_taken} (other widths: "
+            f"use_pallas_ffn=False, the plain path) and inner % 64 == 0; got d={d}, inner={inner}"
         )
     dev, bf16, f32 = x.get_device(), torch.bfloat16, torch.float32
     _check("x", x, x.shape, bf16, dev)
     if gamma is not None:
         _check("gamma", gamma, (d,), f32, dev)
         _check("beta", beta, (d,), f32, dev)
-    _check("w1", w1, (2 * inner, d) if param_layout else (d, 2 * inner), bf16, dev)
+    _check("w1", w1, (2 * inner, d), bf16, dev)
     _check("b1", b1, (2 * inner,), f32, dev)
-    _check("w2", w2, (d, inner) if param_layout else (inner, d), bf16, dev)
+    _check("w2", w2, (d, inner), bf16, dev)
     return d, inner
 
 
 def _check_fwd(x, gamma, beta, w1, b1, w2, b2):
-    d_taken = _lib().wd_ln_geglu_ffn_d()
-    d, inner = _check_operands(
-        x, gamma, beta, w1, b1, w2, lambda d: d == d_taken,
-        f"d == {d_taken} (other widths: use_pallas_ffn=False, the plain path)",
-        param_layout=True)
+    d, inner = _check_operands(x, gamma, beta, w1, b1, w2, _lib().wd_ln_geglu_ffn_d())
     _check("b2", b2, (d,), torch.float32, x.get_device())
     return d, inner
 
@@ -370,11 +396,11 @@ def _launch_geglu(x, w1, b1, w2, b2):
 
 
 def _launch_bwd(x, dy, gamma, beta, w1, b1, w2, eps):
+    """B.3 on parameter-layout bf16 weights (w1 [2*inner, d], w2 [d, inner]);
+    dw1 [2*inner, d] and dw2 [d, inner] come back so, contiguous."""
     global bwd_launches
     lib = _lib()
-    max_d = lib.wd_ln_geglu_ffn_bwd_max_d()
-    d, inner = _check_operands(x, gamma, beta, w1, b1, w2, lambda d: d % 16 == 0 and d <= max_d,
-                               f"d % 16 == 0, d <= {max_d}", param_layout=False)
+    d, inner = _check_operands(x, gamma, beta, w1, b1, w2, lib.wd_ln_geglu_ffn_bwd_d())
     if x.dim() != 2:
         raise ValueError(f"ln_geglu_ffn_bwd: x must be [M, d], got {tuple(x.shape)}")
     _check("dy", dy, x.shape, torch.bfloat16, x.get_device())
@@ -383,22 +409,18 @@ def _launch_bwd(x, dy, gamma, beta, w1, b1, w2, eps):
     new = torch.zeros if m == 0 else torch.empty  # no rows: the sums are zero
     dx = torch.empty_like(x)
     dg, dbt, db2 = (new(d, **f32) for _ in range(3))
-    dw1, db1 = new(d, 2 * inner, **f32), new(2 * inner, **f32)
-    dw2 = new(inner, d, **f32)
+    dw1, db1 = new(2 * inner, d, **f32), new(2 * inner, **f32)
+    dw2 = new(d, inner, **f32)
     if m == 0:
         return dx, dg, dbt, dw1, db1, dw2, db2
-    # scratch for the weight-gradient pass, and per-row-tile partial sums
+    # scratch for the weight-gradient kernel, and the partial sums
     xn = torch.empty_like(x)
     dhc = torch.empty(m, 2 * inner, dtype=x.dtype, device=x.device)
     act = torch.empty(m, inner, dtype=x.dtype, device=x.device)
-    bm = lib.wd_ln_geglu_ffn_bwd_block_m()
-    part = torch.empty(-(-m // bm), 3 * d + 2 * inner, **f32)
+    part = torch.empty(lib.wd_ln_geglu_ffn_bwd_part_floats(m, d, inner), **f32)
     ptrs = [t.data_ptr() for t in (x, dy, gamma, beta, w1, b1, w2, dx, dg, dbt, dw1, db1,
                                    dw2, db2, xn, dhc, act, part)]
-    with torch.cuda.device(x.device):
-        err = lib.wd_ln_geglu_ffn_bwd(
-            *ptrs, m, d, inner, eps, torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    _raise_on(err, "ln_geglu_ffn_bwd")
+    _raise_on(build.launch_on(x, lambda stream: lib.wd_ln_geglu_ffn_bwd(
+        *ptrs, m, d, inner, eps, stream)), "ln_geglu_ffn_bwd")
     bwd_launches += 1
     return dx, dg, dbt, dw1, db1, dw2, db2

@@ -24,9 +24,10 @@ backward kernel (both ``custom_vjp``s recompute through XLA), so the
 Function's backward recomputes ``fold_attention_reference`` under plain
 autograd.
 
-``launches`` counts kernel launches and ``bwd_calls`` the Function's
-backward calls, so that a run can show that its main path went through
-them.
+``launches`` counts kernel launches (through either entry),
+``flat_launches`` those through B.7's entry, and ``bwd_calls`` the
+Function's backward calls, so that a run can show that its main path went
+through them.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ import torch
 from . import build
 
 launches = 0
+flat_launches = 0
 bwd_calls = 0
 
 
@@ -70,10 +72,10 @@ class FoldAttention(torch.autograd.Function):
     for bit (the trainer's bitwise resume rests on it)."""
 
     @staticmethod
-    def forward(ctx, x, wt4, vw4, gamma, beta, b_out, eps):
+    def forward(ctx, x, wt4, vw4, gamma, beta, b_out, eps, flat=False):
         ctx.save_for_backward(x, wt4, vw4, gamma, beta, b_out)
         ctx.eps = eps
-        return _fold(x, wt4, vw4, gamma, beta, b_out, eps)
+        return _fold(x, wt4, vw4, gamma, beta, b_out, eps, flat)
 
     @staticmethod
     def backward(ctx, dy):
@@ -83,14 +85,15 @@ class FoldAttention(torch.autograd.Function):
             y = fold_attention_reference(*leaves, ctx.eps)
             grads = torch.autograd.grad(y, leaves, dy)
         bwd_calls += 1
-        return (*grads, None)
+        return (*grads, None, None)
 
 
 def fold_attention(x, wt, vw, gamma, beta, b_out, heads: int, eps: float = 1e-5):
     """B.7's entry: wt [B, C, H·L] (scaled folds), vw [B, H·L, C]."""
     l = wt.shape[-1] // heads
     wt4 = wt.unflatten(-1, (heads, l)).permute(0, 2, 1, 3)  # a view, no copy
-    return FoldAttention.apply(x, wt4, vw.unflatten(1, (heads, l)), gamma, beta, b_out, eps)
+    return FoldAttention.apply(x, wt4, vw.unflatten(1, (heads, l)), gamma, beta, b_out, eps,
+                               True)
 
 
 def fold_attention_heads(x, wt4, vw4, gamma, beta, b_out, eps: float = 1e-5):
@@ -98,26 +101,56 @@ def fold_attention_heads(x, wt4, vw4, gamma, beta, b_out, eps: float = 1e-5):
     return FoldAttention.apply(x, wt4, vw4, gamma, beta, b_out, eps)
 
 
-def _fold(x, wt4, vw4, gamma, beta, b_out, eps):
+def _fold(x, wt4, vw4, gamma, beta, b_out, eps, flat):
     if x.device.type == "cpu":
         return fold_attention_reference(x, wt4, vw4, gamma, beta, b_out, eps)
     if x.device.type != "cuda":
         raise ValueError(f"fold_attention: unsupported device {x.device}")
-    return _launch(x, wt4, vw4, gamma, beta, b_out, eps)
+    return _launch(x, wt4, vw4, gamma, beta, b_out, eps, flat)
 
 
 @functools.cache
 def _lib():
     lib = build.load()
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.wd_fold_attention.argtypes = [p] * 7 + [i] * 5 + [ll] * 3 + [ctypes.c_float, p]
+    lib.wd_fold_attention.argtypes = [p] * 7 + [i] * 5 + [ll] * 4 + [ctypes.c_float, p]
     lib.wd_fold_attention.restype = i
+    lib.wd_fold_attention_routed.argtypes = [p] * 7 + [i] * 5 + [ll] * 4 + [ctypes.c_float, i,
+                                                                            i, i, i, p]
+    lib.wd_fold_attention_routed.restype = i
     for fn in ("wd_fold_attention_max_c", "wd_fold_attention_max_l"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = i
+    lib.wd_fold_attention_route.argtypes = [i, i, i]
+    lib.wd_fold_attention_route.restype = i
+    lib.wd_fold_attention_wt_route.argtypes = [p] + [i] * 4 + [ll] * 4
+    lib.wd_fold_attention_wt_route.restype = i
     lib.wd_cuda_error_string.argtypes = [i]
     lib.wd_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+WT_ROUTES = ("16-byte", "4-byte", "element")
+
+
+def route(b: int, n: int, heads: int) -> tuple[int, int]:
+    """The kernel's route at these shapes: (rows a tile, CTAs a cluster,
+    each taking heads / CTAs of the heads)."""
+    code = _lib().wd_fold_attention_route(b, n, heads)
+    return code // 16, code % 16
+
+
+def wt_route(wt4) -> str:
+    """How the kernel copies wt4's rows into shared memory, from its
+    alignment, strides and allocation: 16-byte, 4-byte or element copies."""
+    return WT_ROUTES[_lib().wd_fold_attention_wt_route(
+        wt4.data_ptr(), *wt4.shape, *wt4.stride()[:3], wt_room(wt4))]
+
+
+def wt_room(wt4) -> int:
+    """The elements from wt4's first to the end of its allocation: a
+    16-byte copy of a row past L must stay inside it."""
+    return wt4.untyped_storage().nbytes() // wt4.element_size() - wt4.storage_offset()
 
 
 def _check_operands(x, wt4, vw4, vecs, max_c, max_l):
@@ -151,27 +184,27 @@ def _check_operands(x, wt4, vw4, vecs, max_c, max_l):
                              f"{tuple(v.shape)} on {v.device}")
 
 
-def _launch(x, wt4, vw4, gamma, beta, b_out, eps):
-    global launches
+def _launch(x, wt4, vw4, gamma, beta, b_out, eps, flat):
+    global launches, flat_launches
     lib = _lib()
     _check_operands(x, wt4, vw4, (gamma, beta, b_out), lib.wd_fold_attention_max_c(),
                     lib.wd_fold_attention_max_l())
     b, n, c = x.shape
     h, l = wt4.shape[1], wt4.shape[3]
-    # the [C] vectors in fp32, as the kernel reads them (the parameters already are)
+    # the [C] vectors in fp32 and 16-byte aligned, as the kernel reads them
+    # (the parameters already are)
     vecs = [v.float().contiguous() for v in (gamma, beta, b_out)]
+    vecs = [v if v.data_ptr() % 16 == 0 else v.clone() for v in vecs]
     out = torch.empty_like(x)
     if b == 0 or n == 0:
         return out
-    with torch.cuda.device(x.device):
-        err = lib.wd_fold_attention(
-            x.data_ptr(), wt4.data_ptr(), vw4.data_ptr(), *(v.data_ptr() for v in vecs),
-            out.data_ptr(), b, n, c, h, l, wt4.stride(0), wt4.stride(1), wt4.stride(2),
-            float(eps), torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    err = build.launch_on(x, lambda stream: lib.wd_fold_attention(
+        x.data_ptr(), wt4.data_ptr(), vw4.data_ptr(), *(v.data_ptr() for v in vecs),
+        out.data_ptr(), b, n, c, h, l, *wt4.stride()[:3], wt_room(wt4), float(eps), stream))
     if err:
         raise RuntimeError(
             f"fold attention kernel launch failed: {lib.wd_cuda_error_string(err).decode()} "
             f"(code {err})")
     launches += 1
+    flat_launches += flat
     return out
