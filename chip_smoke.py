@@ -117,10 +117,33 @@ Phases, each of which must pass (any failure exits non-zero):
    (4 B.5 + 18 B.6) and the UNet's forward and plain-recompute backwards;
    launches, loss, update, EMA, a max_steps stop and a bitwise resume;
    s/step against latent-cache training on phase 16's cache; peak memory.
+18. the ResBlock variants: one full-width ``iam`` UNet call at B=16 with
+   FiLM ResBlocks, with the split decoder skip and with both, on seeded
+   weights (the zero-initialised convs too), each all-kernel against
+   all-plain as in phase 4, with its B.5 / B.6 launches per call (17 / 4,
+   9 / 12, 17 / 4: FiLM's out_layers run B.5 without SiLU; the split skip
+   runs the concat form, the same math) and by profiled kernel name.
+19. conditioned training through the train CLI at full width, B=128, on
+   the phase-7 latents, 2 epochs of 3 steps with one checkpoint and one
+   DDIM-50 preview: (a) ``--ocrTraining 1 --imgConditioned 1`` (the CTC
+   aux head's 4 B.5 a call, its loss finite, the head and conv_in's
+   reference-latent channels trained, a max_steps stop and a resume
+   bitwise the uninterrupted run); (b) ``--wrdChrWrStyl 1 --style_dict``
+   (a seeded 4096-d vector per writer; the style projection trained, every
+   attention at Nk = 1). Launches per step and per preview, 3 profiled
+   steps each (4 B.1, 4 of each of B.3's three, 8 attention kernels),
+   s/step and peak memory.
+20. the sampling CLI (``cli.sample.main``) at full width with phase 16's
+   VAE, 6 words, DDIM-50: seeded weights with ``--writer 3 --writer2 7
+   --mix_rate 0.5 --cfg_scale 3`` (100 UNet calls); ``--imgConditioned 1
+   --cond_image`` (a phase-16 PNG, encoded once) on phase 19(a)'s EMA
+   checkpoint; ``--wrdChrWrStyl 1`` on 19(b)'s. Each: the PNGs under the
+   JAX CLI's names, launches, s/batch.
 
 Every training phase counts 9 B.5 and 12 B.6 launches and Function
-backward calls per step, and 9 * 50 + 4 and 12 * 50 + 26 per DDIM-50
-preview. Kernel, plain and library times are per call over 10 calls
+backward calls per step (13 B.5 with the CTC aux head), and 9 * 50 + 4 and
+12 * 50 + 26 per DDIM-50 preview. Phase 14 also runs B.5 at the CTC head's
+[128, 8, 32, 256]. Kernel, plain and library times are per call over 10 calls
 back to back (``launch_ms``), so that the host's launch path overlaps
 the device work.
 
@@ -134,6 +157,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import statistics
@@ -197,6 +221,14 @@ FOLD_VS_UNFOLDED_TOL = 4e-2
 # block). GN -> SiLU -> conv3x3, B.6, per call: 12 in a UNet call, 18 in a VAE
 # encoder call, 26 in a decoder call. As (B.5, B.6):
 UNET_NORMS, ENCODER_NORMS, DECODER_NORMS, OCR_NORMS = (9, 12), (4, 18), (4, 26), (10, 0)
+# The ResBlock variants' UNet calls, as (B.5, B.6): FiLM moves the 8 out_layers
+# from B.6 to B.5 without SiLU (a stock conv after the modulation); the split
+# skip runs the concat form (the same math on the same parameters), so it
+# keeps iam's counts. The CTC aux head adds 4 B.5 (32 groups, eps 1e-6, no
+# SiLU) a call.
+VARIANT_NORMS = {"film": (17, 4), "split_skip": (9, 12), "film_split_skip": (17, 4)}
+CTC_HEAD_NORMS = (4, 0)
+COND_STEPS_PER_EPOCH = 3  # phase 19's training runs: 2 epochs of 3 steps
 # (B, H, W, C, groups, silu) of B.5's sites: UNet regeneration (B=16) and
 # training (B=128) at 8x32 and 4x16 (the 640-channel output ResBlocks with
 # SiLU, the 320-channel transformer norms and the out norm); the VAE decoder
@@ -211,7 +243,9 @@ GN_SHAPES = tuple(
      (TRAIN_B, 16, 64, 256, 32, True), (TRAIN_B, 8, 32, 512, 32, False),
      (TRAIN_B, 8, 32, 512, 32, True), (2, 5, 13, 48, 48, False),
      # each side of the size where a CTA's range stops fitting in shared memory
-     (2, 8, 95, 512, 32, False), (2, 8, 96, 512, 32, False))
+     (2, 8, 95, 512, 32, False), (2, 8, 96, 512, 32, False),
+     # the CTC aux head's norms at the training batch (eps 1e-6 as every row here)
+     (TRAIN_B, 8, 32, 256, 32, False))
 # (B, H, W, C, groups) of B.6's sites: the UNet's two resolutions at B=16 and
 # 128, the decoder's levels at B=16, the encoder's at B=128, a ragged image
 # (5 x 13) and a ragged width (C=48 in 48 groups).
@@ -650,11 +684,14 @@ def phase7_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     preview_launches, preview_attn, preview_fold, preview_norms = count_previews(trainer)
     initial = {k: v.clone() for k, v in trainer.init_state().model.state_dict().items()}
 
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     reset_counts()
     t0 = time.perf_counter()
     state = trainer.run(epochs=epochs)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before  # the run's own, above what lay there
     fwd, bwd, geglu = ffn.launches, ffn.bwd_launches, ffn.geglu_launches
     fold7 = fold_attention.flat_launches
     attn, attn_bwd = attention.launches, attention.bwd_calls
@@ -669,7 +706,8 @@ def phase7_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     ema_equal = all(torch.equal(e, p) for e, p in
                     zip(state.ema.parameters(), state.model.parameters()))
     log(f"train: {state.step} steps of B={TRAIN_B} in {wall:.2f} s incl. 2 checkpoints and "
-        f"2 DDIM-50 previews; epoch-1 loss {loss:.6g}; "
+        f"2 DDIM-50 previews (peak memory above the run's start {peak / 2 ** 30:.3f} GiB); "
+        f"epoch-1 loss {loss:.6g}; "
         f"ffn launches: {bwd} backward, {fwd - sum(preview_launches)} forward in steps, "
         f"{preview_launches} forward in previews; attention launches: "
         f"{attn - sum(preview_attn)} in steps, {preview_attn} in previews, {attn_bwd} Function "
@@ -742,7 +780,7 @@ def phase7_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     assert diff == 0, f"the resumed run is not bitwise the uninterrupted one: {diff}"
     prof = step_profile(smi, trainer, "iam", folds=0)
     return dict(fwd=fwd, bwd=bwd, geglu=geglu, fold_b7=fold7, attn=attn, gn=gn, conv=conv,
-                s_per_step=k_s / k_n,
+                s_per_step=k_s / k_n, peak_bytes=peak,
                 plain_s_per_step=p_s / p_n, resume_diff=diff, step_busy_ms=prof["busy_ms"])
 
 
@@ -1555,6 +1593,247 @@ def phase17_train_images(smi: str, work: str, corpus, cache: str) -> dict:
     return dict(counts, s_per_step=s_ / n_, cached_s_per_step=c_s / c_n, peak_bytes=peak)
 
 
+def phase18_variants(smi: str, sampler, words) -> dict:
+    """The ResBlock variants' full-width ``iam`` UNet calls at B=16 (FiLM, the
+    split skip, both) on seeded weights, the zero-initialised convs too:
+    each all-kernel against all-plain within UNET_REL_TOL, with its B.5 / B.6
+    launches per call (VARIANT_NORMS) and by profiled kernel name."""
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.models.unet import UNet
+
+    flags = {"film": dict(use_scale_shift_norm=True), "split_skip": dict(split_skip_conv=True),
+             "film_split_skip": dict(use_scale_shift_norm=True, split_skip_conv=True)}
+    inputs = unet_inputs(sampler, words, phosc=False)
+    out = {}
+    for label, kw in flags.items():
+        unet = UNet(dataclasses.replace(sampler.model.cfg, **kw))
+        unet = init_weights_(unet, seed=0, zero_init=False).cuda().eval()
+        r = unet_check(smi, unet, inputs, f"iam {label}",
+                       launches=(4, 8, 0, *VARIANT_NORMS[label]))
+        out[label] = dict(ms=r["ms"], rel=r["rel"], busy_ms=r["busy_ms"],
+                          counts=(4, 8, 0, *VARIANT_NORMS[label]))
+        del unet
+    return out
+
+
+def cond_corpus(work: str, corpus: tuple[str, str]) -> tuple[str, str, str]:
+    """Phase 19's corpus: the first 2 * COND_STEPS_PER_EPOCH + 1 batches' worth
+    of the phase-7 gt file over its latent cache (a half batch to drop), and
+    a seeded style dict (4096-d per writer id of the corpus)."""
+    import numpy as np
+
+    gt, cache = corpus
+    n = COND_STEPS_PER_EPOCH * TRAIN_B + TRAIN_B // 2
+    with open(gt) as f:
+        lines = f.readlines()[:n]
+    sub = os.path.join(work, "cond.filter27")
+    with open(sub, "w") as f:
+        f.writelines(lines)
+    writers = sorted({line.split(",")[0] for line in lines})
+    rng = np.random.default_rng(19)
+    styles = os.path.join(work, "styles.npz")
+    np.savez(styles, **{w: rng.standard_normal(4096).astype(np.float32) for w in writers})
+    return sub, cache, styles
+
+
+def phase19_cond_train(smi: str, work: str, corpus: tuple[str, str, str]) -> dict:
+    """The train CLI at full width, B=128, 2 epochs of COND_STEPS_PER_EPOCH
+    steps with one checkpoint and one DDIM-50 preview: (a) ``--ocrTraining 1
+    --imgConditioned 1``: finite loss and ctc, the aux head and conv_in's
+    reference-latent channels trained, launches per step, a max_steps stop
+    and a resume bitwise the uninterrupted run (the CTC loss's determinism);
+    (b) ``--wrdChrWrStyl 1 --style_dict``: the style projection trained and
+    every attention at Nk = 1 (the style token replaces the context). Both:
+    3 profiled steps (4 B.1, 4 of each of B.3's three, 8 attention kernels a
+    step), s/step and peak memory."""
+    from unittest import mock
+
+    import torch
+
+    from worddiffusion_tpu_torch.cli import train as train_cli
+    from worddiffusion_tpu_torch.data.loader import epoch_batches
+    from worddiffusion_tpu_torch.ops import attention, ffn, fold_attention
+    from worddiffusion_tpu_torch.train.step import make_train_step
+
+    gt, cache, styles = corpus
+    epochs, steps = 2, 2 * COND_STEPS_PER_EPOCH
+
+    def build(save: str, *flags: str):
+        return train_cli.build(train_cli.build_parser().parse_args([
+            "--preset", "iam", "--gt_train", gt, "--latent_cache", cache, "--batch_size",
+            str(TRAIN_B), "--epochs", str(epochs), "--ckpt_every_epochs", "2", "--save_path",
+            os.path.join(work, save), "--seed", "0", "--device", "cuda", *flags]))
+
+    def run(save: str, *flags: str):
+        trainer = build(save, *flags)
+        previews = count_previews(trainer)
+        initial = {k: v.clone() for k, v in trainer.init_state().model.state_dict().items()}
+        gc.collect()  # the earlier runs' states
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        reset_counts()
+        state = trainer.run(epochs=epochs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - before  # the run's own
+        counts = dict(ffn=ffn.launches, ffn_bwd=ffn.bwd_launches, geglu=ffn.geglu_launches,
+                      attn=attention.launches, attn_bwd=attention.bwd_calls,
+                      fold=fold_attention.launches, fold_b7=fold_attention.flat_launches,
+                      **dict(zip(("gn", "conv", "gn_bwd", "conv_bwd"), norm_counts())))
+        changed = {k: (v - initial[k]).abs() for k, v in state.model.state_dict().items()}
+        # the parameters the run ended with (init_state below re-initialises
+        # the trainer's one model in place)
+        final = [p.detach().clone() for p in state.model.parameters()]
+        s_, n_ = trainer.epoch_seconds[1]
+        loss = torch.load(trainer.ckpt.path(steps), map_location="cpu",
+                          weights_only=True)["metrics"]["loss"]
+        # one more step on a fresh state for its metrics (ctc), and the
+        # attention's key lengths
+        nks = []
+        fused = attention.fused_attention
+
+        def recorded(q, k, v, scale):
+            nks.append(k.shape[2])
+            return fused(q, k, v, scale)
+
+        step_fn = make_train_step(trainer.schedule, trainer.exp, trainer.encode_fn)
+        batch = next(iter(epoch_batches(trainer.dataset, TRAIN_B, epoch=0, seed=0,
+                                        map_fn=trainer._device_batch)))
+        with mock.patch.object(attention, "fused_attention", recorded):
+            metrics = {k: v.item() for k, v in step_fn(trainer.init_state(), batch).items()}
+        return dict(trainer=trainer, state=state, final=final, counts=counts, previews=previews,
+                    changed=changed, s_per_step=s_ / n_, peak=peak, loss=loss, metrics=metrics,
+                    nks=nks)
+
+    out = {}
+    for label, flags in (("ocr_img", ("--ocrTraining", "1", "--imgConditioned", "1")),
+                         ("style", ("--wrdChrWrStyl", "1", "--style_dict", styles))):
+        r = run(f"run_{label}", *flags)
+        trainer, counts, changed = r["trainer"], r["counts"], r["changed"]
+        p_ffn, p_attn, _, p_norms = r["previews"]
+        cfg = trainer.exp.unet
+        head = CTC_HEAD_NORMS if cfg.ocr_head else (0, 0)
+        per_call = tuple(u + h for u, h in zip(UNET_NORMS, head))
+        log(f"train {label} ({' '.join(flags[::2])}): {r['state'].step} steps of B={TRAIN_B} "
+            f"incl. 1 checkpoint and 1 DDIM-50 preview; last-epoch loss {r['loss']:.6g}; a fresh "
+            f"step's metrics {r['metrics']}; launches {counts} (preview: FF {p_ffn}, attention "
+            f"{p_attn}, B.5 / B.6 {p_norms}); attention key lengths in a step "
+            f"{sorted(set(r['nks']))}; epoch 1 {r['s_per_step']:.4f} s/step; peak memory above "
+            f"the run's start {r['peak'] / 2 ** 30:.3f} GiB [{smi}]")
+        assert r["state"].step == steps, r["state"].step
+        assert all(torch.isfinite(torch.tensor(v)) for v in r["metrics"].values()), r["metrics"]
+        assert torch.isfinite(torch.tensor(r["loss"])), r["loss"]
+        assert all(torch.isfinite(p).all() for p in r["final"])
+        assert p_ffn == [4 * 50] and p_attn == [8 * 50], (p_ffn, p_attn)
+        preview = tuple(50 * n + d for n, d in zip(per_call, DECODER_NORMS))
+        assert p_norms == [preview], (p_norms, preview)
+        assert counts == dict(
+            ffn=4 * steps + 4 * 50, ffn_bwd=4 * steps, geglu=0, attn=8 * steps + 8 * 50,
+            attn_bwd=8 * steps, fold=0, fold_b7=0, gn=per_call[0] * steps + preview[0],
+            conv=per_call[1] * steps + preview[1], gn_bwd=per_call[0] * steps,
+            conv_bwd=per_call[1] * steps), counts
+        assert len(r["nks"]) == 8, r["nks"]
+        if label == "ocr_img":
+            assert cfg.ocr_head and cfg.img_conditioned and "ctc" in r["metrics"]
+            assert changed["auxhead.lin2.weight"].max() > 0
+            assert changed["auxhead.temporal_i.1.weight"].max() > 0
+            assert changed["input_blocks.0.0.weight"][:, 4:].max() > 0
+            assert set(r["nks"]) == {42}, r["nks"]
+        else:
+            assert cfg.style_vec_dim == 4096 and cfg.style_replace_context
+            assert changed["wrd_proj.weight"].max() > 0
+            assert set(r["nks"]) == {1}, r["nks"]
+        prof = step_profile(smi, trainer, f"iam {label}", folds=0)
+        out[label] = dict(counts, s_per_step=r["s_per_step"], peak_bytes=r["peak"],
+                          step_busy_ms=prof["busy_ms"], ckpt=trainer.ckpt.path(
+                              steps, "ema_unet.pt"), save=os.path.join(work, f"run_{label}"))
+        if label == "ocr_img":
+            # a max_steps stop, then a resume, against the uninterrupted run
+            kill_at = COND_STEPS_PER_EPOCH + 1
+            part = build("resume_ocr_img", *flags).run(epochs=epochs, max_steps=kill_at)
+            assert part.step == kill_at, part.step
+            resumed = build("resume_ocr_img", *flags, "--loadPrev", "1").run(epochs=epochs,
+                                                                             resume=True)
+            diff = max((a - b).abs().max().item() for a, b in
+                       zip(resumed.model.parameters(), r["final"]))
+            log(f"train ocr_img resume: stopped at step {kill_at}, resumed to {resumed.step}; "
+                f"max param diff vs the uninterrupted run {diff:.6g}; must be bitwise 0 (the "
+                f"CTC loss and its gradient repeat bit for bit)")
+            assert resumed.step == steps and diff == 0, (resumed.step, diff)
+            out[label]["resume_diff"] = diff
+            del part, resumed
+        del r, trainer, changed
+    return out
+
+
+def phase20_sample(smi: str, work: str, vae_file: str, cond_image: str, trained: dict,
+                   style_dict: str) -> dict:
+    """The sampling CLI (``cli.sample.main``) at full width on the card:
+    (1) seeded weights, a few words with ``--writer 3 --writer2 7 --mix_rate
+    0.5 --cfg_scale 3 --ddim 50``: 100 UNet calls, the PNGs under the JAX
+    CLI's names; (2) ``--imgConditioned 1 --cond_image`` against phase 19(a)'s
+    EMA checkpoint (its aux head left unread); (3) ``--wrdChrWrStyl 1
+    --style_dict`` against phase 19(b)'s. Counts set to 0 before each run
+    and read after it; s/batch of each (one batch, the CLI's set-up apart)."""
+    import torch
+
+    from worddiffusion_tpu_torch.cli import sample as sample_cli
+    from worddiffusion_tpu_torch.ops import attention, ffn, fold_attention
+
+    words = "the,of,and,to,in,is"
+    runs = {
+        "sample_cfg_mix": (["--writer", "3", "--writer2", "7", "--mix_rate", "0.5",
+                            "--cfg_scale", "3"], 100, (0, 0)),
+        "sample_img": (["--writer", "3", "--imgConditioned", "1", "--cond_image", cond_image,
+                        "--torch_ckpt", trained["ocr_img"]["ckpt"]], 50, ENCODER_NORMS),
+        "sample_style": (["--writer", "3", "--wrdChrWrStyl", "1", "--style_dict", style_dict,
+                          "--torch_ckpt", trained["style"]["ckpt"], "--writers_dict",
+                          os.path.join(trained["style"]["save"], "writers_dict_train.json")],
+                         50, (0, 0)),
+    }
+    out = {}
+    for label, (flags, calls, encode) in runs.items():
+        argv = ["--words", words, "--ddim", "50", "--stable_dif_path", vae_file, "--seed", "0",
+                "--save_path", os.path.join(work, label), "--device", "cuda", *flags]
+        reset_counts()
+        t0 = time.perf_counter()
+        names = sample_cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(ffn=ffn.launches, attn=attention.launches, fold=fold_attention.launches,
+                      geglu=ffn.geglu_launches, fold_b7=fold_attention.flat_launches,
+                      **dict(zip(("gn", "conv"), norm_counts()[:2])))
+        want = dict(ffn=4 * calls, attn=8 * calls, fold=0, geglu=0, fold_b7=0,
+                    gn=UNET_NORMS[0] * calls + DECODER_NORMS[0] + encode[0],
+                    conv=UNET_NORMS[1] * calls + DECODER_NORMS[1] + encode[1])
+        mix = "_mix0.500" if "--writer2" in flags else ""
+        want_names = [f"{i:05d}_3_{w}{mix}.png" for i, w in enumerate(words.split(","))]
+        sampler, pairs, style, cond, _ = sample_cli.build(sample_cli.build_parser().parse_args(
+            argv))
+        cond_kw = {}
+        if style is not None:
+            cond_kw["style_vec"] = [style[raw] for _, _, raw in pairs]
+        if cond is not None:
+            cond_kw["cond_latents"] = cond.repeat(len(pairs), 0)
+        if "--writer2" in flags:
+            cond_kw.update(writer_ids2=[7] * len(pairs), mix_rate=0.5)
+        w_, i_ = [p[0] for p in pairs], [p[1] for p in pairs]
+        secs = []
+        for r in range(2):
+            gen = torch.Generator(device="cuda").manual_seed(r)
+            t1 = time.perf_counter()
+            sampler.sample_async(w_, i_, gen, **cond_kw).cpu()
+            secs.append(time.perf_counter() - t1)
+        log(f"sample CLI {label}: {len(names)} PNGs {names[:2]}...; {counts['ffn'] // 4} UNet "
+            f"calls; launches {counts} (expect {want}); {wall:.3f} s incl. the CLI's set-up; one "
+            f"batch of {len(w_)}: {secs} s/batch [{smi}]")
+        assert names == want_names, names
+        assert all(png_size(os.path.join(work, label, n)) == (256, 64) for n in names)
+        assert counts == want, (counts, want)
+        out[label] = dict(counts, s_per_batch=min(secs), wall=wall)
+        del sampler
+    return out
+
+
 def png_size(path: str) -> tuple[int, int]:
     with open(path, "rb") as f:
         head = f.read(24)
@@ -1873,30 +2152,48 @@ def main() -> int:
     # -- 17. training from word images through the train CLI ------------------------------
     train_i = phase17_train_images(smi, work, images, built["cache"])
 
+    # -- 18. the ResBlock variants' UNet calls, all kernels vs all plain ---------------------
+    variants = phase18_variants(smi, sampler, words)
+
+    # -- 19. conditioned training through the train CLI -----------------------------------
+    cond = cond_corpus(work, corpus)
+    cond_train = phase19_cond_train(smi, work, cond)
+
+    # -- 20. the sampling CLI --------------------------------------------------------------
+    sampled = phase20_sample(smi, work, images[2], os.path.join(images[0], "c01-0000u-00.png"),
+                             cond_train, cond[2])
+
     paths = ("regenerate", "regenerate_iam_phosc", "regenerate_iam_fold", "train",
              "train_iam_phosc", "train_iam_fold", "build_latent_cache", "train_from_images")
+    # the paths of phases 18-20, each with its counts under chip_smoke's keys
+    new_paths = {**{f"unet_{k}": dict(zip(("ffn", "attn", "fold", "gn", "conv"), v["counts"]),
+                                      ffn_bwd=0, fold_b7=0, geglu=0) for k, v in variants.items()},
+                 **{f"train_{k}": v for k, v in cond_train.items()},
+                 **{k: dict(v, ffn_bwd=0) for k, v in sampled.items()}}
 
-    def by_path(*counts):
-        return dict(zip(paths, counts))
+    def by_path(*counts, key=None):
+        """The earlier paths' counts in order, then the new paths' ``key``."""
+        return {**dict(zip(paths, counts)), **{p: c[key] for p, c in new_paths.items()}}
 
     ffn_paths = by_path(regen_iam["ffn"], regen_phosc["ffn"], regen_fold["ffn"], train["fwd"],
-                        train_p["fwd"], train_f["ffn"], 0, train_i["ffn"])
+                        train_p["fwd"], train_f["ffn"], 0, train_i["ffn"], key="ffn")
     bwd_paths = by_path(0, 0, 0, train["bwd"], train_p["bwd"], train_f["ffn_bwd"], 0,
-                        train_i["ffn_bwd"])
+                        train_i["ffn_bwd"], key="ffn_bwd")
     attn_paths = by_path(regen_iam["attn"], regen_phosc["attn"], regen_fold["attn"],
-                         train["attn"], train_p["attn"], train_f["attn"], 0, train_i["attn"])
-    fold_paths = by_path(0, 0, regen_fold["fold"], 0, 0, train_f["fold"], 0, 0)
+                         train["attn"], train_p["attn"], train_f["attn"], 0, train_i["attn"],
+                         key="attn")
+    fold_paths = by_path(0, 0, regen_fold["fold"], 0, 0, train_f["fold"], 0, 0, key="fold")
     fold7_paths = by_path(regen_iam["fold_b7"], regen_phosc["fold_b7"], regen_fold["fold_b7"],
                           train["fold_b7"], train_p["fold_b7"], train_f["fold_b7"],
-                          built["fold_b7"], train_i["fold_b7"])
+                          built["fold_b7"], train_i["fold_b7"], key="fold_b7")
     gn_paths = by_path(regen_iam["gn"], regen_phosc["gn"], regen_fold["gn"], train["gn"],
-                       train_p["gn"], train_f["gn"], built["gn"], train_i["gn"])
+                       train_p["gn"], train_f["gn"], built["gn"], train_i["gn"], key="gn")
     conv_paths = by_path(regen_iam["conv"], regen_phosc["conv"], regen_fold["conv"],
                          train["conv"], train_p["conv"], train_f["conv"], built["conv"],
-                         train_i["conv"])
+                         train_i["conv"], key="conv")
     geglu_paths = by_path(regen_iam["geglu"], regen_phosc["geglu"], regen_fold["geglu"],
                           train["geglu"], train_p["geglu"], train_f["geglu"], built["geglu"],
-                          train_i["geglu"])
+                          train_i["geglu"], key="geglu")
     main_row, bwd_row, attn_row = ffn_rows[0], bwd["rows"][0], attn["rows"][0]
     fold_row = fold["rows"][0]
     # B.5's and B.6's rows: the UNet regeneration call's first site (B=16, 8x32)
@@ -1910,12 +2207,21 @@ def main() -> int:
         f"{regen_iam['s_per_batch']:.4f}, iam_phosc {regen_phosc['s_per_batch']:.4f}, iam_fold "
         f"{regen_fold['s_per_batch']:.4f}; imgs/s iam {regen_iam['imgs_per_s']:.3f}, iam_phosc "
         f"{regen_phosc['imgs_per_s']:.3f}, iam_fold {regen_fold['imgs_per_s']:.3f}; train s/step "
-        f"iam {train['s_per_step']:.4f}, iam_phosc {train_p['s_per_step']:.4f}, iam_fold "
-        f"{train_f['s_per_step']:.4f}, from images {train_i['s_per_step']:.4f} (from their cache "
-        f"{train_i['cached_s_per_step']:.4f}, peak {train_i['peak_bytes'] / 2 ** 30:.3f} GiB); "
+        f"iam {train['s_per_step']:.4f} (peak above start "
+        f"{train['peak_bytes'] / 2 ** 30:.3f} GiB), iam_phosc {train_p['s_per_step']:.4f}, "
+        f"iam_fold {train_f['s_per_step']:.4f}, from images {train_i['s_per_step']:.4f} (from "
+        f"their cache {train_i['cached_s_per_step']:.4f}, peak "
+        f"{train_i['peak_bytes'] / 2 ** 30:.3f} GiB); "
         f"VAE encode B={TRAIN_B} {vae['enc_ms']:.3f} ms (plain B.5/B.6 {vae['enc_plain_ms']:.3f}), "
         f"decode B={B} {vae['dec_ms']:.3f} ms (plain {vae['dec_plain_ms']:.3f}); cache build "
-        f"{built['imgs_per_s']:.2f} images/s; whole run {time.perf_counter() - T_START:.1f} s")
+        f"{built['imgs_per_s']:.2f} images/s; UNet call "
+        + ", ".join(f"{k} {v['ms']:.3f} ms" for k, v in variants.items())
+        + "; train s/step " + ", ".join(f"{k} {v['s_per_step']:.4f} (peak above start "
+                                        f"{v['peak_bytes'] / 2 ** 30:.3f} GiB)"
+                                        for k, v in cond_train.items())
+        + "; sample s/batch " + ", ".join(f"{k} {v['s_per_batch']:.3f}"
+                                          for k, v in sampled.items())
+        + f"; whole run {time.perf_counter() - T_START:.1f} s")
 
     def entry(name, source, replaces, paths_, rows, row, library_ms):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

@@ -1,5 +1,5 @@
 """The port's CLIs against the JAX CLIs' options: every option of the
-three JAX parsers is in the port's parser, the regeneration CLI's
+four JAX parsers is in the port's parser, the regeneration CLI's
 ``--stable_dif_path`` and ``--ddim`` run on the CPU at a tiny preset, and
 the options the port cannot honour raise with their reason."""
 
@@ -12,6 +12,7 @@ import torch
 
 from worddiffusion_tpu.cli import build_latent_cache as jcache_cli
 from worddiffusion_tpu.cli import regenerate as jregen_cli
+from worddiffusion_tpu.cli import sample as jsample_cli
 from worddiffusion_tpu.cli import train as jtrain_cli
 from worddiffusion_tpu.configs.config import DataConfig, Experiment
 from test_torch_copies import port_cfg
@@ -19,6 +20,7 @@ from test_torch_train import tiny_exp
 from test_torch_vae_ocr import PORT_VAE_CFG, VAE_CFG
 from worddiffusion_tpu_torch.cli import build_latent_cache as cache_cli
 from worddiffusion_tpu_torch.cli import regenerate as regen_cli
+from worddiffusion_tpu_torch.cli import sample as sample_cli
 from worddiffusion_tpu_torch.cli import train as train_cli
 from worddiffusion_tpu_torch.configs import presets
 from worddiffusion_tpu_torch.models.layers import init_weights_
@@ -49,12 +51,13 @@ def _options(parser: argparse.ArgumentParser) -> set[str]:
     return {o for a in parser._actions for o in a.option_strings} - {"-h", "--help"}
 
 
-@pytest.mark.parametrize("name", ["regenerate", "train", "build_latent_cache"])
+@pytest.mark.parametrize("name", ["regenerate", "train", "build_latent_cache", "sample"])
 def test_port_parsers_hold_every_jax_option(name):
     jax_parser, port_parser = {
         "regenerate": (jregen_cli.build_parser, regen_cli.build_parser),
         "train": (jtrain_cli.build_parser, train_cli.build_parser),
         "build_latent_cache": (_jax_cache_parser, cache_cli.build_parser),
+        "sample": (jsample_cli.build_parser, sample_cli.build_parser),
     }[name]
     jax_opts, port_opts = _options(jax_parser()), _options(port_parser())
     assert jax_opts <= port_opts, sorted(jax_opts - port_opts)

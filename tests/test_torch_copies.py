@@ -1,6 +1,7 @@
 """The port's copies of the JAX package's jax-free modules (configs, data
-tables and parsers, the noise schedule) against their originals, value
-for value.
+tables and parsers, the noise schedule) and functions (the CTC label
+encoder, the sampling CLI's writer-dict helpers) against their originals,
+value for value.
 
 ``port_cfg`` is the helper the other port tests use to hand the port the
 values of a JAX config: the same fields, in the port's own class.
@@ -11,6 +12,7 @@ import dataclasses
 import numpy as np
 import pytest
 
+from worddiffusion_tpu.cli import sample as jsample_cli
 from worddiffusion_tpu.configs import presets as jpresets
 from worddiffusion_tpu.data import alphabets as jalphabets
 from worddiffusion_tpu.data import gt as jgt
@@ -19,12 +21,15 @@ from worddiffusion_tpu.data import phos as jphos
 from worddiffusion_tpu.data.phosc import phosc_vector as jphosc_vector
 from worddiffusion_tpu.data.tokenizer import Tokenizer as JTokenizer
 from worddiffusion_tpu.diffusion.schedule import NoiseSchedule as JNoiseSchedule
+from worddiffusion_tpu.ops.ctc import encode_ocr_labels as jax_encode_ocr_labels
+from worddiffusion_tpu_torch.cli import sample as sample_cli
 from worddiffusion_tpu_torch.configs import config as port_config
 from worddiffusion_tpu_torch.configs import presets
 from worddiffusion_tpu_torch.data import alphabets, gt, phoc, phos
 from worddiffusion_tpu_torch.data.phosc import phosc_vector
 from worddiffusion_tpu_torch.data.tokenizer import Tokenizer
 from worddiffusion_tpu_torch.diffusion.schedule import NoiseSchedule
+from worddiffusion_tpu_torch.ops.ctc import encode_ocr_labels
 
 WORDS = ["Hello", "word", "the", "A", "don't", "x", "Nørd", "Æble", "quickly"]
 
@@ -127,3 +132,44 @@ def test_parse_gt_and_writer_registry_equal(tmp_path):
                    jgt.WriterRegistry.from_json(str(tmp_path / "ours.json")))
     assert back.mapping == jback.mapping == jreg.mapping
     assert gt.sniff_format(str(path)) == jgt.sniff_format(str(path))
+
+
+def test_writer_dict_helpers_equal(tmp_path):
+    """``cli.sample``'s copies of ``load_writers_dict`` and
+    ``resolve_writer_registry``: the same registry from an explicit file and
+    from a checkpoint directory or its parent, None where there is none,
+    the gt registry without a dict, and the same refusals."""
+    ckpt = tmp_path / "run" / "ckpt"
+    ckpt.mkdir(parents=True)
+    (tmp_path / "run" / "writers_dict_train.json").write_text('{"000": 0, "007": 1}')
+    gt_path = tmp_path / "words.filter27"
+    gt_path.write_text("007,a01-000u-00 the\n000,a01-000u-01 of\n")
+    samples, gt_reg = gt.parse_gt(str(gt_path))
+    jsamples, jgt_reg = jgt.parse_gt(str(gt_path))
+    for path, ckpt_dir in (("", str(ckpt)), (str(tmp_path / "run" / "writers_dict_train.json"),
+                                             ""), ("", str(tmp_path)), ("", "")):
+        got, want = (sample_cli.load_writers_dict(path, ckpt_dir),
+                     jsample_cli.load_writers_dict(path, ckpt_dir))
+        assert (got is None) == (want is None) and (got is None or got.mapping == want.mapping)
+        got = sample_cli.resolve_writer_registry(path, ckpt_dir, samples, gt_reg)
+        want = jsample_cli.resolve_writer_registry(path, ckpt_dir, jsamples, jgt_reg)
+        assert got.mapping == want.mapping
+    (tmp_path / "run" / "writers_dict_train.json").write_text('{"000": 0}')
+    for fn, s_, r_ in ((sample_cli.resolve_writer_registry, samples, gt_reg),
+                       (jsample_cli.resolve_writer_registry, jsamples, jgt_reg)):
+        with pytest.raises(SystemExit, match="not in the training writers dict"):
+            fn("", str(ckpt), s_, r_)
+    for fn in (sample_cli.load_writers_dict, jsample_cli.load_writers_dict):
+        with pytest.raises(SystemExit, match="not found"):
+            fn(str(tmp_path / "none.json"), "")
+
+
+def test_encode_ocr_labels_equal():
+    words = ["Hello", "the", "", "a b", "zz9", "quickly!"]
+    for alphabet, max_len in ((" _ABCDEFGHIJKLMNOPQRSTUVWXYZabcdefghijklmnopqrstuvwxyz", 10),
+                              ("abc", 3)):
+        got, want = encode_ocr_labels(words, alphabet, max_len), \
+            jax_encode_ocr_labels(words, alphabet, max_len)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)

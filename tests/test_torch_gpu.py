@@ -633,7 +633,8 @@ def test_block_backward_reaches_projections_through_the_fold_kernel(cuda):
 # a ragged C=48 with one group per channel, and tokens [B, S, C].
 GN_SHAPES = [(16, 8, 32, 640, 32, True), (128, 4, 16, 640, 32, True), (16, 8, 32, 320, 32, False),
              (16, 64, 256, 128, 32, True), (16, 32, 128, 256, 32, True),
-             (16, 8, 32, 512, 32, False), (2, 5, 13, 48, 48, False), (2, 40, None, 96, 32, True)]
+             (16, 8, 32, 512, 32, False), (2, 5, 13, 48, 48, False), (2, 40, None, 96, 32, True),
+             (128, 8, 32, 256, 32, False)]  # the CTC aux head's norms (eps 1e-6, no SiLU)
 
 
 def _gn_inputs(shape, device, seed=0):
@@ -823,3 +824,87 @@ def test_vae_encoder_runs_the_kernels(cuda):
     assert got.shape == (2, 8, 32, 4) and bool(torch.isfinite(got).all())
     err = (got - want).abs().max().item()
     assert err <= 3e-2 * want.abs().max().item(), err
+
+
+# FiLM -> (B.5, B.6) launches of one decoder ResBlock (640 -> 320): the
+# concat form runs B.5 + a stock conv in and B.6 out; FiLM's out half is B.5
+# without SiLU then a stock conv.
+RESBLOCK_LAUNCHES = {False: (1, 1), True: (2, 0)}
+
+
+@pytest.mark.parametrize("film", sorted(RESBLOCK_LAUNCHES))
+def test_resblock_variants_run_the_norm_kernels(cuda, film):
+    """One iam decoder ResBlock (640 -> 320 channels, 8 x 32, B=16, bf16,
+    seeded weights, the zero-initialised out conv too), with and without
+    FiLM: its B.5 / B.6 launches, and its output within 2% of max |out| of
+    the same block with the plain norms (two bf16 roundings of the
+    activations in another order)."""
+    from unittest import mock
+
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.models.unet import ResBlock
+    from worddiffusion_tpu_torch.ops import gn_conv, groupnorm
+
+    torch.backends.cudnn.allow_tf32 = False
+    blk = init_weights_(ResBlock(640, 320, 1280, scale_shift=film), seed=0,
+                        zero_init=False).to(cuda)
+    g = torch.Generator().manual_seed(1)
+    x, skip = (torch.randn(16, 320, 8, 32, generator=g).bfloat16().to(
+        cuda, memory_format=torch.channels_last) for _ in range(2))
+    emb = torch.randn(16, 1280, generator=g).bfloat16().to(cuda)
+
+    def run():
+        return blk(torch.cat([x, skip], dim=1), emb)
+
+    with torch.no_grad():
+        n0, c0 = groupnorm.launches, gn_conv.launches
+        got = run()
+        torch.cuda.synchronize()
+        assert (groupnorm.launches - n0, gn_conv.launches - c0) == RESBLOCK_LAUNCHES[film]
+        with mock.patch.object(groupnorm, "fused_groupnorm", groupnorm.groupnorm_reference), \
+                mock.patch.object(gn_conv, "fused_gn_silu_conv3x3",
+                                  gn_conv.gn_silu_conv3x3_reference):
+            want = run()
+    assert got.shape == (16, 320, 8, 32) and bool(torch.isfinite(got).all())
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
+def test_ctc_head_and_loss_on_the_card(cuda):
+    """The CTC aux head at the training shape (B=128, bf16 eps [128, 4, 8,
+    32]): 4 B.5 launches (32 groups, eps 1e-6, no SiLU), logits within 2% of
+    max |logits| of the plain norms'; the CTC loss and its gradient through
+    the head bitwise equal in two runs (no atomics in its backward)."""
+    from unittest import mock
+
+    from worddiffusion_tpu_torch.models.ctc_head import CTCHead
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.ops import groupnorm
+    from worddiffusion_tpu_torch.ops.ctc import ctc_loss
+
+    head = init_weights_(CTCHead(nclasses=80), seed=0).to(cuda)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(128, 4, 8, 32, generator=g).bfloat16().to(
+        cuda, memory_format=torch.channels_last)
+    labels = torch.randint(1, 54, (128, 42), generator=g).to(cuda)
+    lens = torch.randint(1, 12, (128,), generator=g).to(cuda)
+    n0 = groupnorm.launches
+    with torch.no_grad():
+        logits = head(x)
+        torch.cuda.synchronize()
+        assert groupnorm.launches - n0 == 4
+        with mock.patch.object(groupnorm, "fused_groupnorm", groupnorm.groupnorm_reference):
+            want = head(x)
+    assert logits.shape == (256, 128, 80) and logits.dtype == torch.float32
+    err = (logits - want).abs().max().item()
+    assert err <= 2e-2 * want.abs().max().item(), err
+
+    def loss_and_grads():
+        head.zero_grad(set_to_none=True)
+        loss = ctc_loss(head(x).transpose(0, 1), labels, lens, blank_id=0).mean()
+        loss.backward()
+        return [loss.detach()] + [p.grad.clone() for p in head.parameters()]
+
+    first, second = loss_and_grads(), loss_and_grads()
+    assert bool(torch.isfinite(first[0]))
+    assert all(torch.equal(a, b) for a, b in zip(first, second))

@@ -207,3 +207,40 @@ def test_safetensors_reader_and_writer_match_the_package(tmp_path):
     for k, v in tensors.items():
         assert back[k].dtype == np.float32
         np.testing.assert_array_equal(back[k], v.float().numpy())
+
+
+def _crop_cases(kind: str, n: int, seed: int):
+    """n seeded uint8 images of one kind, grey [H, W] or RGB [H, W, 3]."""
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        h, w = int(rng.integers(1, 40)), int(rng.integers(1, 120))
+        if kind == "word_rgb":
+            yield _word_image(max(h, 9), max(w, 30), seed * 1000 + i)
+        elif kind == "word_grey":
+            yield _word_image(max(h, 9), max(w, 30), seed * 1000 + i)[..., 0]
+        elif kind == "noise_rgb":
+            yield rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        elif kind == "noise_grey":
+            yield rng.integers(0, 256, (h, w), dtype=np.uint8)
+        elif kind == "two_level":  # a bimodal page: ink spots on paper
+            img = np.full((h, w), rng.integers(128, 256), np.uint8)
+            img[rng.random((h, w)) < rng.random() * 0.2] = rng.integers(0, 128)
+            yield img
+        else:  # "flat": all white, all ink, one grey level, and one ink pixel
+            level = (255, 0, int(rng.integers(1, 255)))[i % 3]
+            img = np.full((h, w) if i % 2 else (h, w, 3), level, np.uint8)
+            if i % 4 == 3:
+                img[rng.integers(0, h), rng.integers(0, w)] = 0
+            yield img
+
+
+@pytest.mark.parametrize("kind", ["word_rgb", "word_grey", "noise_rgb", "noise_grey",
+                                  "two_level", "flat"])
+def test_crop_whitespace_matches_jax(kind):
+    """The numpy Otsu crop bitwise against JAX's cv2 crop on 60 seeded
+    uint8 images of each kind (360 in all), grey and RGB, all-white and
+    all-ink ones among them."""
+    pytest.importorskip("cv2")
+    for img in _crop_cases(kind, 60, seed=zlib.crc32(kind.encode()) % 1000):
+        got, want = images.crop_whitespace(img), jimages.crop_whitespace(img)
+        assert got.shape == want.shape and np.array_equal(got, want), img.shape

@@ -1,9 +1,10 @@
 """The port imports no JAX and nothing of the JAX package: every module of
 worddiffusion_tpu_torch is imported, and the regeneration CLI (the iam,
 the context-folded iam and the PHOSC layout), the train CLI (from a latent
-cache and from PNGs) and the latent-cache CLI run a tiny slice
-on the CPU, in a fresh interpreter, with tiny presets registered in the
-port's own ``presets.PRESETS``; then jax, flax, optax, PIL, safetensors
+cache, with the CTC aux loss and reference latents, and from PNGs), the
+sampling CLI and the latent-cache CLI run a tiny slice on the CPU, in a
+fresh interpreter, with tiny presets registered in the port's own
+``presets.PRESETS``; then jax, flax, optax, PIL, safetensors
 and every ``worddiffusion_tpu`` module must be absent. A static scan of the port's
 sources and ``chip_smoke.py`` finds no import of ``worddiffusion_tpu``."""
 
@@ -77,6 +78,13 @@ presets.PRESETS["tiny_phosc"] = lambda: Experiment(
 stats = cli.main(["--preset", "tiny_phosc", "--gt_file", gt, "--dump_path", dump + "_phosc",
                   "--batch_size", "2", "--no_ocr_filter", "1", "--device", "cpu"])
 assert stats.generated == stats.accepted == 3, stats
+
+# the sampling CLI: CFG, a writer mix, DDIM
+from worddiffusion_tpu_torch.cli import sample as sample_cli
+names = sample_cli.main(["--preset", "tiny", "--words", "Hello,word", "--writer", "1",
+                         "--writer2", "2", "--mix_rate", "0.5", "--cfg_scale", "2", "--ddim", "2",
+                         "--save_path", os.path.join(out, "samples"), "--device", "cpu"])
+assert names == ["00000_1_Hello_mix0.500.png", "00001_1_word_mix0.500.png"], names
 print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "PIL",
                                                       "safetensors")
                      or m.split(".")[0] == "worddiffusion_tpu"))
@@ -123,6 +131,11 @@ state = cli.main(["--preset", "tiny", "--gt_train", gt, "--latent_cache",
                   "--device", "cpu"])
 assert state.step == 2, state.step
 assert os.listdir(os.path.join(out, "run", "ckpt")) == ["2"]
+state = cli.main(["--preset", "tiny", "--gt_train", gt, "--latent_cache",
+                  os.path.join(out, "lat.npz"), "--batch_size", "2", "--epochs", "1",
+                  "--preview_ddim", "2", "--save_path", os.path.join(out, "run_ocr"),
+                  "--ocrTraining", "1", "--imgConditioned", "1", "--device", "cpu"])
+assert state.step == 2, state.step
 
 # building a latent cache and training from images, on PNGs the port writes
 from worddiffusion_tpu_torch.cli import build_latent_cache as cache_cli

@@ -37,7 +37,7 @@ from worddiffusion_tpu_torch.data.tokenizer import Tokenizer
 from worddiffusion_tpu_torch.diffusion.forward import q_sample, sample_timesteps
 from worddiffusion_tpu_torch.diffusion.sampler import ddim_sample
 from worddiffusion_tpu_torch.diffusion.schedule import NoiseSchedule as PortSchedule
-from worddiffusion_tpu_torch.models.convert import state_dict_to_torch
+from worddiffusion_tpu_torch.models.convert import jax_unet_extras_to_torch, state_dict_to_torch
 from worddiffusion_tpu_torch.models.unet import UNet
 from worddiffusion_tpu_torch.train.checkpoint import CheckpointManager
 from worddiffusion_tpu_torch.train.loop import Trainer
@@ -75,19 +75,27 @@ def _batch(b=2, seed=0):
     }
 
 
-def _jax_params(seed=3):
+def _jax_params(seed=3, cfg=CFG, extra=None):
     b = _batch()
-    shapes = jax.eval_shape(JaxUNet(CFG).init, jax.random.PRNGKey(0), b["latent"],
-                            np.array([5, 9], np.int32), b["context"], b["writer"])
+    shapes = jax.eval_shape(lambda r, *a: JaxUNet(cfg).init(r, *a, **(extra or {})),
+                            jax.random.PRNGKey(0), b["latent"], np.array([5, 9], np.int32),
+                            b["context"], b["writer"])
     rng = np.random.default_rng(seed)
     # every parameter random: the zero-initialised output convs would hide sub-paths
     return jax.tree_util.tree_map(
         lambda s: (0.05 * rng.standard_normal(s.shape)).astype(np.float32), shapes)
 
 
+def _port_sd(tree, cfg=CFG) -> dict:
+    """A Flax UNet tree (parameters or their gradients) in the port's keys."""
+    sd = export_reference_unet(tree, cfg)
+    sd.update(jax_unet_extras_to_torch(tree, cfg))
+    return sd
+
+
 def _port_model(params, cfg=CFG):
     m = UNet(port_cfg(cfg))
-    m.load_state_dict(state_dict_to_torch(export_reference_unet(params, CFG)), strict=True)
+    m.load_state_dict(state_dict_to_torch(_port_sd(params, cfg)), strict=True)
     return m
 
 
@@ -134,16 +142,33 @@ def test_ddim_matches_jax(steps):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("drop_prob,warmup,dropout", [(0.1, 0, 0.0), (1.0, 5, 0.0),
-                                                       (0.1, 0, 0.1)],
-                         ids=["0.1-0", "1.0-5", "0.1-0-dropout0.1"])
-def test_train_step_matches_jax(drop_prob, warmup, dropout):
+# the conditioned training steps: the UNet config, the train config and the
+# batch's extra keys (numpy) of each
+VARIANTS = {
+    None: ({}, {}, lambda rng: {}),
+    "ctc": (dict(ocr_head=True, ocr_hidden=64, ocr_classes=20), dict(ctc_weight=0.1),
+            lambda rng: {"ocr_ids": rng.integers(1, 20, (2, 10)).astype(np.int32),
+                         "ocr_len": np.array([4, 10], np.int32)}),
+    "img_conditioned": (dict(img_conditioned=True), {}, lambda rng: {}),
+    "style_replace": (dict(style_vec_dim=24, style_replace_context=True), {},
+                      lambda rng: {"style_vec": rng.standard_normal((2, 24)).astype(np.float32)}),
+}
+
+
+@pytest.mark.parametrize("drop_prob,warmup,dropout,variant", [
+    (0.1, 0, 0.0, None), (1.0, 5, 0.0, None), (0.1, 0, 0.1, None),
+    (0.1, 0, 0.0, "ctc"), (0.1, 0, 0.0, "img_conditioned"), (0.1, 0, 0.0, "style_replace"),
+], ids=["0.1-0", "1.0-5", "0.1-0-dropout0.1", "ctc", "img_conditioned", "style_replace"])
+def test_train_step_matches_jax(drop_prob, warmup, dropout, variant):
     """One step under fp32: loss, every gradient, the parameters after
     AdamW and the EMA, against JAX's make_train_step on the same
     weights, batch and draws. drop_prob 1.0 drops the writer embedding
     (keep = 0) and warmup 5 takes the EMA's reset branch. dropout 0.1:
     JAX's step applies the UNet with deterministic=True, so the port's
-    UNet (in train mode) must apply no dropout either.
+    UNet (in train mode) must apply no dropout either. The conditioned
+    steps: the CTC aux head with ``ctc_weight`` 0.1 (the metrics' ``ctc``
+    too, 1e-5 relative), reference latents (the batch's clean latent, by
+    default) and writer style vectors replacing the context.
 
     Tolerances: loss 1e-5 relative; each gradient 1e-4 of its largest
     entry (fp32, other summation orders through a 4-block UNet), floored
@@ -160,11 +185,17 @@ def test_train_step_matches_jax(drop_prob, warmup, dropout):
     moves a parameter by lr * wd * |p|, about 5e-5 at these weights, so
     that a dropped or coupled decay exceeds the tolerance; the test
     asserts that it does for most entries."""
-    exp = tiny_exp(cfg_drop_prob=drop_prob, ema_warmup_steps=warmup, lr=1e-3, weight_decay=1.0)
-    exp = exp.replace(unet=dataclasses.replace(CFG, dropout=dropout))
+    unet_kw, train_kw, batch_extra = VARIANTS[variant]
+    exp = tiny_exp(cfg_drop_prob=drop_prob, ema_warmup_steps=warmup, lr=1e-3, weight_decay=1.0,
+                   **train_kw)
+    cfg = dataclasses.replace(CFG, dropout=dropout, **unet_kw)
+    exp = exp.replace(unet=cfg)
     sched = NoiseSchedule.linear(T)
-    params = _jax_params()
-    batch = _batch()
+    batch = {**_batch(), **batch_extra(np.random.default_rng(5))}
+    init_extra = {k: batch[k] for k in ("style_vec",) if k in batch}
+    if cfg.img_conditioned:
+        init_extra["cond_latents"] = batch["latent"]
+    params = _jax_params(cfg=cfg, extra=init_extra)
 
     jmodel = JaxUNet(exp.unet)
     rng = jax.random.PRNGKey(7)
@@ -175,11 +206,11 @@ def test_train_step_matches_jax(drop_prob, warmup, dropout):
 
     @jax.jit
     def grads_and_step(state):  # one program: XLA shares the forward and backward
-        (loss, _), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+        (loss, jmetrics), grads = jax.value_and_grad(loss_fn, has_aux=True)(
             state.params, batch, step_rng)
-        return loss, grads, train_step(state, batch, rng)[0]
+        return loss, jmetrics, grads, train_step(state, batch, rng)[0]
 
-    jloss, jgrads, jnew = grads_and_step(jstate.TrainState.create(params, tx))
+    jloss, jmetrics, jgrads, jnew = grads_and_step(jstate.TrainState.create(params, tx))
     t_rng, n_rng, d_rng = jax.random.split(step_rng, 3)
     t = np.asarray(jforward.sample_timesteps(sched, t_rng, 2))
     noise = np.asarray(jax.random.normal(n_rng, (2, 8, 32, 4), jnp.float32))
@@ -191,15 +222,17 @@ def test_train_step_matches_jax(drop_prob, warmup, dropout):
                                                     exp.train.weight_decay))
     draws = StepDraws(torch.from_numpy(t.copy()).long(), torch.from_numpy(noise.copy()),
                       torch.tensor(keep))
-    tb = {"latent": torch.from_numpy(batch["latent"]),
-          "context": torch.from_numpy(batch["context"]).long(),
-          "writer": torch.from_numpy(batch["writer"]).long()}
+    tb = {k: torch.from_numpy(v).long() if v.dtype == np.int32 else torch.from_numpy(v)
+          for k, v in batch.items()}
     metrics = make_train_step(PortSchedule.linear(T), port_cfg(exp))(state, tb, draws)
     assert state.step == 1
     np.testing.assert_allclose(metrics["loss"].item(), float(jloss), rtol=1e-5)
+    assert sorted(metrics) == sorted(jmetrics)
+    for k in metrics:
+        np.testing.assert_allclose(metrics[k].item(), float(jmetrics[k]), rtol=1e-5, err_msg=k)
 
     named = dict(model.named_parameters())
-    want_g = export_reference_unet(jgrads, CFG)
+    want_g = _port_sd(jgrads, cfg)
     assert set(want_g) == set(named)
     floor = 1e-2 * max(np.abs(w).max() for w in want_g.values())
     for k, w in want_g.items():
@@ -209,6 +242,12 @@ def test_train_step_matches_jax(drop_prob, warmup, dropout):
         np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=1e-4 * scale, err_msg=k)
     if drop_prob == 1.0:  # the writer embedding was dropped: no gradient reaches it
         assert not named["label_emb.weight"].grad.any()
+    # the variant's own parameters take a gradient: the head, the style
+    # projection, conv_in's reference-latent input channels
+    own = {"ctc": "auxhead.lin2.weight", "style_replace": "wrd_proj.weight",
+           "img_conditioned": "input_blocks.0.0.weight"}.get(variant)
+    if own:
+        assert named[own].grad[:, -4:].abs().max() > 0, own
 
     def f(g):
         return g / (np.abs(g) + 1e-8)
@@ -216,11 +255,11 @@ def test_train_step_matches_jax(drop_prob, warmup, dropout):
     adam_diff = {k: exp.train.lr * np.abs(f(named[k].grad.numpy()) - f(w))
                  for k, w in want_g.items()}
     ema_weight = 1.0 if warmup else 1.0 - exp.train.ema_beta
-    old_p = export_reference_unet(params, CFG)
+    old_p = _port_sd(params, cfg)
     seen, total = 0, 0
     for tree, module, weight in ((jnew.params, model, 1.0), (jnew.ema_params, state.ema,
                                                              ema_weight)):
-        want_p = export_reference_unet(tree, CFG)
+        want_p = _port_sd(tree, cfg)
         for k, p in module.named_parameters():
             err = np.abs(p.detach().numpy() - want_p[k])
             tol = 2e-6 + weight * adam_diff[k]
@@ -344,17 +383,78 @@ def test_train_cli_runs_from_latent_cache(tmp_path, monkeypatch):
                zip(regen.sampler.model.parameters(), state.ema.parameters()))
 
 
-@pytest.mark.parametrize("flags", [
-    ["--synthetic", "1"], ["--ocrTraining", "1"], ["--wrdChrWrStyl", "1"],
-    ["--charImages", "1"], ["--imgConditioned", "1"], ["--hiGanArch", "1"], ["--augMaps", "1"],
-    ["--mesh_data", "2"], ["--latent", "0"], ["--vae_ckpt", "vae_dir"],
+@pytest.mark.parametrize("flags,error,match", [
+    (["--synthetic", "1"], NotImplementedError, "synthetic"),
+    (["--charImages", "1"], NotImplementedError, "render_word"),
+    (["--hiGanArch", "1"], NotImplementedError, "HiGAN"),
+    (["--augMaps", "1"], NotImplementedError, "augMaps"),
+    (["--mesh_data", "2"], NotImplementedError, "mesh"),
+    (["--latent", "0"], NotImplementedError, "pixel-space"),
+    (["--vae_ckpt", "vae_dir"], NotImplementedError, "jax_vae_to_torch"),
+    (["--allow_random_style", "1"], NotImplementedError, "StyleEncoder"),
+    (["--wrdChrWrStyl", "1"], SystemExit, "--style_dict"),
 ])
-def test_train_cli_refuses_unported(tmp_path, flags):
+def test_train_cli_refuses_unported(tmp_path, flags, error, match):
     gt, cache = _cli_files(tmp_path, n=2)
     argv = ["--gt_train", gt, "--latent_cache", cache, "--device", "cpu",
             "--save_path", str(tmp_path / "run")] + flags
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error, match=match):
         train_cli.main(argv)
+
+
+def test_train_cli_conditioned_runs(tmp_path, monkeypatch):
+    """The train CLI on --device cpu at a tiny preset with --ocrTraining 1
+    --imgConditioned 1 (the words' CTC targets in the preset's alphabet
+    after the blank class 0), then with --wrdChrWrStyl 1 and a
+    --style_dict: 3 steps each; the aux head, conv_in's reference-latent
+    channels and the style projection are trained, and ``ctc`` is logged."""
+    monkeypatch.setitem(presets.PRESETS, "tiny", lambda: port_cfg(tiny_exp(log_every=1)))
+    gt, cache = _cli_files(tmp_path)
+    argv = ["--preset", "tiny", "--gt_train", gt, "--latent_cache", cache, "--batch_size", "4",
+            "--epochs", "1", "--preview_ddim", "2", "--device", "cpu"]
+
+    def run(save, *flags):
+        trainer = train_cli.build(train_cli.build_parser().parse_args(
+            argv + ["--save_path", str(tmp_path / save), *flags]))
+        initial = {k: v.clone() for k, v in trainer.init_state().model.state_dict().items()}
+        state = trainer.run(epochs=1)
+        assert state.step == 3
+        return trainer, {k: (v - initial[k]).abs().max().item()
+                         for k, v in state.model.state_dict().items()}
+
+    trainer, changed = run("ocr", "--ocrTraining", "1", "--imgConditioned", "1")
+    cfg = trainer.exp.unet
+    assert cfg.ocr_head and cfg.img_conditioned and trainer.exp.train.ctc_weight == 0.1
+    rec = trainer.dataset[0]
+    assert rec["word"] == "the" and rec["ocr_ids"][:3].tolist() == [46, 34, 31]  # t h e, + 1
+    assert rec["ocr_len"] == 3
+    assert changed["auxhead.lin2.weight"] > 0 and changed["auxhead.temporal_i.1.weight"] > 0
+    assert changed["input_blocks.0.0.weight"] > 0
+    logged = [line for line in open(tmp_path / "ocr" / "metrics.jsonl") if '"ctc"' in line]
+    assert logged, "no ctc metric logged"
+
+    writers = sorted({line.split(",")[0] for line in open(gt)})
+    np.savez(tmp_path / "styles.npz", **{w: np.random.default_rng(int(w)).standard_normal(
+        4096).astype(np.float32) for w in writers})
+    trainer, changed = run("style", "--wrdChrWrStyl", "1", "--style_dict",
+                           str(tmp_path / "styles.npz"))
+    assert trainer.exp.unet.style_vec_dim == 4096 and trainer.exp.unet.style_replace_context
+    assert changed["wrd_proj.weight"] > 0
+
+
+def test_jax_train_cli_ocr_training_has_no_targets(tmp_path, monkeypatch):
+    """The reference-side fault the port's train CLI repairs: the JAX train
+    CLI builds its dataset with ocr_alphabet=None, so --ocrTraining 1 fails
+    at its first step reading batch["ocr_ids"]."""
+    from worddiffusion_tpu.cli import train as jtrain_cli
+    from worddiffusion_tpu.configs import presets as jpresets
+
+    monkeypatch.setitem(jpresets.PRESETS, "iam", lambda: tiny_exp())
+    gt, cache = _cli_files(tmp_path, n=4)
+    with pytest.raises(KeyError, match="ocr_ids"):
+        jtrain_cli.main(["--gt_train", gt, "--latent_cache", cache, "--batch_size", "2",
+                         "--epochs", "1", "--mesh_data", "1", "--ocrTraining", "1",
+                         "--save_path", str(tmp_path / "run")])
 
 
 def test_train_cli_refuses_cpu_fallback(monkeypatch, tmp_path):

@@ -17,7 +17,14 @@ CLI's ``--torch_ckpt``. Epoch previews are written to
 a full or decoder-only state dict in the port's keys, or
 ``--stable_dif_path``, or a seeded random decoder).
 
-Every flag whose path is not ported raises ``NotImplementedError``.
+The conditioning variants: ``--ocrTraining 1`` adds the CTC aux head and
+its loss (weight 0.1), with the words' labels in the preset's alphabet
+after a reserved blank class 0; ``--wrdChrWrStyl 1 --style_dict S.npz``
+replaces the character context with the writers' 4096-d style vectors
+(an npz of writer id -> vector, as ``worddiffusion_tpu.cli.train_style``
+writes); ``--imgConditioned 1`` conditions each sample on its own clean
+latent, concatenated at ``conv_in``. Every flag whose path is not ported
+raises ``NotImplementedError`` with the reason.
 """
 
 from __future__ import annotations
@@ -83,18 +90,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     unported = {
-        "--synthetic": args.synthetic,
-        "--ocrTraining": args.ocrTraining,
-        "--wrdChrWrStyl": args.wrdChrWrStyl,
-        "--charImages": args.charImages,
-        "--imgConditioned": args.imgConditioned,
-        "--hiGanArch": args.hiGanArch,
-        "--augMaps": args.augMaps,
-        "--vae_ckpt": args.vae_ckpt,
+        "--synthetic": (args.synthetic, "the synthetic corpus renders words with PIL "
+                                        "(ROADMAP A.2)"),
+        "--charImages": (args.charImages, "glyph images are drawn by render_word with PIL's "
+                                          "ImageFont (ROADMAP A.6); the UNet side is ported"),
+        "--allow_random_style": (args.allow_random_style,
+                                 "random style vectors come from the StyleEncoder, which is "
+                                 "not ported (ROADMAP A.8); pass --style_dict"),
+        "--hiGanArch": (args.hiGanArch, "the HiGAN+ denoiser is not ported"),
+        "--augMaps": (args.augMaps, "the augmentation is not ported"),
+        "--vae_ckpt": (args.vae_ckpt, "an orbax VAE checkpoint is not readable here; convert "
+                                      "it with models.convert.jax_vae_to_torch (--vae_pt)"),
     }
-    for flag, value in unported.items():
+    for flag, (value, why) in unported.items():
         if value:
-            raise NotImplementedError(f"{flag} is not ported to PyTorch yet")
+            raise NotImplementedError(f"{flag} is not ported to PyTorch yet: {why}")
     if not args.latent:
         raise NotImplementedError("--latent 0 (pixel-space training) is not ported yet")
     if not args.gt_train:
@@ -103,6 +113,9 @@ def _refuse_unported(args) -> None:
             "ported yet")
     if args.mesh_data > 1 or args.mesh_model > 1:
         raise NotImplementedError("a mesh larger than one device is not ported yet")
+    if args.wrdChrWrStyl and not args.style_dict:
+        raise SystemExit("--wrdChrWrStyl 1 needs --style_dict (train one: python -m "
+                         "worddiffusion_tpu.cli.train_style)")
 
 
 def experiment_from_args(args):
@@ -122,10 +135,43 @@ def experiment_from_args(args):
         train=dataclasses.replace(
             exp.train, lr=args.lr, epochs=args.epochs, save_path=args.save_path,
             stop_flag_file=args.stopFlagFile or None, seed=args.seed,
+            ctc_weight=0.1 if args.ocrTraining else 0.0,
             **({"ckpt_every_epochs": args.ckpt_every_epochs}
                if args.ckpt_every_epochs else {}),
         ),
+        unet=dataclasses.replace(
+            exp.unet, ocr_head=bool(args.ocrTraining),
+            style_vec_dim=4096 if args.wrdChrWrStyl else 0,
+            # --wrdChrWrStyl 1: the projected style REPLACES the char context
+            # (reference unet.py:1616-1618)
+            style_replace_context=bool(args.wrdChrWrStyl),
+            img_conditioned=bool(args.imgConditioned),
+        ),
     )
+
+
+def ocr_alphabet(exp) -> str:
+    """The CTC targets' alphabet: the preset's characters after a reserved
+    class 0, the aux loss's blank. (The JAX CLI passes no alphabet, so its
+    batches carry no targets; its preset alphabet's first character would
+    be class 0, the blank.)"""
+    from ..data.alphabets import ALPHABETS
+
+    alphabet = "\0" + ALPHABETS[exp.data.alphabet]
+    if len(alphabet) > exp.unet.ocr_classes:
+        raise SystemExit(
+            f"--ocrTraining with the {exp.data.alphabet!r} alphabet needs {len(alphabet)} CTC "
+            f"classes (a blank and {len(alphabet) - 1} characters); the UNet's aux head has "
+            f"ocr_classes {exp.unet.ocr_classes}")
+    return alphabet
+
+
+def style_lookup(path: str) -> dict:
+    """writer id -> style vector, from a ``--style_dict`` npz."""
+    import numpy as np
+
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k].astype(np.float32) for k in z.files}
 
 
 def _vae(args, exp, device, with_encoder: bool):
@@ -178,8 +224,10 @@ def build(args):
     registry.dump_json(f"{args.save_path}/writers_dict_train.json")
     tokenizer = Tokenizer.from_name(exp.data.alphabet, exp.data.max_chars)
     cache = LatentLookup.load(args.latent_cache) if args.latent_cache else None
-    dataset = WordImageDataset(samples, registry, tokenizer, exp.data, latent_cache=cache,
-                               use_phosc=exp.unet.use_phosc)
+    dataset = WordImageDataset(
+        samples, registry, tokenizer, exp.data, latent_cache=cache, use_phosc=exp.unet.use_phosc,
+        ocr_alphabet=ocr_alphabet(exp) if exp.train.ctc_weight > 0 else None,
+        style_lookup=style_lookup(args.style_dict) if exp.unet.style_vec_dim else None)
     vae = _vae(args, exp, device, with_encoder=cache is None)
     encode_fn = None
     if cache is None:

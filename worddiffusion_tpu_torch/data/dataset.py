@@ -7,9 +7,12 @@ A record is ``{image_name, word, context, writer}`` plus either
 ``latent`` [8, 32, 4] (the sample's entry in the latent cache) or
 ``image`` [H, W, 3] float32 in [-1, 1] (the word crop from
 ``cfg.image_dir``, resize-padded to H x W), and ``phosc`` [P] int32 (the
-word's PHOSC ids) with ``use_phosc``. A sample with neither a cache entry
-nor an image file raises ``FileNotFoundError``: the JAX dataset's
-fallback, the synthetic renderer, is not ported (ROADMAP A.2).
+word's PHOSC ids) with ``use_phosc``. The options add ``style_vec`` [D]
+float32 (the writer's entry in ``style_lookup``) and ``ocr_ids``
+[max_chars] / ``ocr_len`` int32 (the word's CTC targets in
+``ocr_alphabet``). A sample with neither a cache entry nor an image file
+raises ``FileNotFoundError``: the JAX dataset's fallback, the synthetic
+renderer, is not ported (ROADMAP A.2), nor are glyph images (A.6).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Optional, Sequence
 import numpy as np
 
 from ..configs.config import DataConfig
+from ..ops.ctc import encode_ocr_labels
 from ..utils.images import normalize_to_unit, resize_and_pad
 from .gt import Sample, WriterRegistry
 from .phosc import phosc_vector
@@ -58,6 +62,8 @@ class WordImageDataset:
         cfg: DataConfig,
         latent_cache: Optional[LatentLookup] = None,
         use_phosc: bool = False,
+        ocr_alphabet: Optional[str] = None,
+        style_lookup: Optional[dict] = None,
     ):
         """Every sample comes from ``latent_cache`` or, without one, from
         its image file; a cache that holds some of the samples but not all
@@ -68,6 +74,8 @@ class WordImageDataset:
         self.cfg = cfg
         self.latent_cache = latent_cache
         self.use_phosc = use_phosc
+        self.ocr_alphabet = ocr_alphabet
+        self.style_lookup = style_lookup
         self._phosc_cache: dict[str, np.ndarray] = {}
         if latent_cache is not None:
             missing = [s.image for s in self.samples if s.image not in latent_cache]
@@ -118,4 +126,12 @@ class WordImageDataset:
             rec["image"] = normalize_to_unit(self._load_image(s))
         if self.use_phosc:
             rec["phosc"] = self._phosc(s.word)
+        if self.style_lookup is not None:
+            if s.writer not in self.style_lookup:
+                raise KeyError(f"style_lookup has no vector for writer {s.writer!r} (the "
+                               "--style_dict must cover every writer of the corpus)")
+            rec["style_vec"] = np.asarray(self.style_lookup[s.writer], np.float32)
+        if self.ocr_alphabet is not None:
+            ids, lens = encode_ocr_labels([s.word], self.ocr_alphabet, self.cfg.max_chars)
+            rec["ocr_ids"], rec["ocr_len"] = ids[0], lens[0]
         return rec

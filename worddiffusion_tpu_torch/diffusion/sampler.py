@@ -5,7 +5,9 @@ The JAX version is one compiled ``lax.scan``; here it is a Python loop
 over t = T-1 .. 1 whose work is queued on the device without a host
 sync. A step whose call-mask entry is off reuses the previous eps
 (zeros before the first call); the update math and the latent carry
-are fp32; no noise is added at the last step.
+are fp32; no noise is added at the last step. Classifier-free guidance
+(``cfg_scale`` > 0 with an ``uncond_eps_fn``) replaces eps by ``uncond +
+cfg_scale * (cond - uncond)`` on the steps that call the model.
 """
 
 from __future__ import annotations
@@ -18,6 +20,19 @@ import torch
 from .schedule import NoiseSchedule
 
 EpsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def _guided(eps_fn: EpsFn, cfg_scale: float, uncond_eps_fn: Optional[EpsFn]) -> EpsFn:
+    """eps_fn, or its classifier-free guided form where ``cfg_scale`` > 0
+    and there is an unconditional model call."""
+    if cfg_scale <= 0.0 or uncond_eps_fn is None:
+        return eps_fn
+
+    def guided(x, t):
+        uncond = uncond_eps_fn(x, t)
+        return uncond + cfg_scale * (eps_fn(x, t) - uncond)
+
+    return guided
 
 
 def regen_call_mask(
@@ -58,6 +73,8 @@ def ddpm_sample(
     call_mask: Optional[np.ndarray] = None,
     generator: Optional[torch.Generator] = None,
     noise_seq: Optional[torch.Tensor] = None,
+    cfg_scale: float = 0.0,
+    uncond_eps_fn: Optional[EpsFn] = None,
 ) -> torch.Tensor:
     """Run the reverse process from ``x_init`` and return the final
     latent (fp32, ``x_init``'s layout).
@@ -67,6 +84,7 @@ def ddpm_sample(
     comes from ``noise_seq[t]`` when given (timestep-indexed, for tests
     that feed both frameworks the same noise), else from ``generator``.
     """
+    eps_fn = _guided(eps_fn, cfg_scale, uncond_eps_fn)
     T = schedule.num_steps
     mask = np.ones(T, dtype=bool) if call_mask is None else np.asarray(call_mask)
     one = np.float32(1.0)
@@ -95,10 +113,19 @@ def ddim_sample(
     x_init: torch.Tensor,
     *,
     num_steps: int = 50,
+    eta: float = 0.0,
+    cfg_scale: float = 0.0,
+    uncond_eps_fn: Optional[EpsFn] = None,
+    generator: Optional[torch.Generator] = None,
+    noise_seq: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Deterministic DDIM (``eta=0``) over a subsampled timestep grid
-    (port of ``ddim_sample``): ``num_steps`` model calls from t = T-1
-    down to 0. The step coefficients are fp32, as in the JAX scan."""
+    """DDIM over a subsampled timestep grid (port of ``ddim_sample``):
+    ``num_steps`` model calls from t = T-1 down to 0. ``eta`` 0 is
+    deterministic; with ``eta`` > 0 each step but the last adds
+    ``sigma * noise``, the noise from ``noise_seq[idx]`` when given (for
+    tests that feed both frameworks the same noise), else from
+    ``generator``. The step coefficients are fp32, as in the JAX scan."""
+    eps_fn = _guided(eps_fn, cfg_scale, uncond_eps_fn)
     T = schedule.num_steps
     # the JAX grid is a float32 linspace, rounded half to even
     ts = np.linspace(T - 1, 0, num_steps + 1, dtype=np.float32).round().astype(np.int64)
@@ -110,9 +137,17 @@ def ddim_sample(
                                    device=x.device)).float()
         a_cur = schedule.alpha_hat[t_cur]
         a_next = schedule.alpha_hat[t_next] if t_next > 0 else f32(1.0)
+        sigma = f32(eta) * np.sqrt((f32(1) - a_next) / (f32(1) - a_cur)) * np.sqrt(
+            f32(1) - a_cur / a_next)
         x0 = (x - float(np.sqrt(f32(1) - a_cur)) * eps) / float(np.sqrt(a_cur))
-        dir_xt = float(np.sqrt(f32(1) - a_next)) * eps
+        dir_xt = float(np.sqrt(np.maximum(f32(1) - a_next - sigma ** 2, f32(0)))) * eps
         x = float(np.sqrt(a_next)) * x0 + dir_xt
+        if eta > 0 and t_next > 0:
+            if noise_seq is not None:
+                noise = noise_seq[idx].to(x.device, torch.float32)
+            else:
+                noise = torch.randn(x.shape, generator=generator, device=x.device)
+            x = x + float(sigma) * noise
     return x
 
 

@@ -3,7 +3,9 @@
 The UNet needs no loader here: its parameter names are the reference
 torch keys, so ``worddiffusion_tpu.models.convert.export_reference_unet``
 (jax-free, numpy only) already emits a state dict that
-``UNet.load_state_dict(strict=True)`` takes. This module adds the VAE
+``UNet.load_state_dict(strict=True)`` takes, but for the parameters that
+exporter leaves out (the CTC aux head and the glyph encoder), which
+``jax_unet_extras_to_torch`` maps. This module adds the VAE
 (diffusers key names; the inverse of
 ``worddiffusion_tpu.models.vae.convert_diffusers_vae``) and the OCR
 recognizer. Each function takes a nested dict of numpy arrays and
@@ -51,6 +53,33 @@ def _linear(node, key, out):
 def _norm(node, key, out):
     out[key + ".weight"] = _t(node["scale"])
     out[key + ".bias"] = _t(node["bias"])
+
+
+def jax_unet_extras_to_torch(params: Mapping, cfg) -> dict[str, np.ndarray]:
+    """The Flax UNet's parameters that ``export_reference_unet`` does not
+    export -> the port's keys: the CTC aux head (``aux_head`` ->
+    ``auxhead.*``, its GroupNorms ``temporal_*_gn`` -> ``.1``) with
+    ``ocr_head``, the glyph encoder (``glyph_conv1``, ``glyph_conv2``,
+    ``glyph_proj``) with ``use_char_images``. Merged with the exporter's
+    dict, the port's UNet loads it with ``strict=True``."""
+    p = _params(params)
+    out: dict[str, np.ndarray] = {}
+    if cfg.ocr_head:
+        head = p["aux_head"]
+        names = ["temporal_i"] + [f"temporal_m{i}" for i in range(cfg.ocr_layers)]
+        keys = ["auxhead.temporal_i"] + [f"auxhead.temporal_m.{i}" for i in range(cfg.ocr_layers)]
+        for name, key in zip(names, keys):
+            _conv(head[name]["Conv_0"], key + ".0", out)
+            if cfg.ocr_norm == "group":
+                _norm(head[name + "_gn"], key + ".1", out)
+        _conv(head["temporal_o"]["Conv_0"], "auxhead.temporal_o", out)
+        for lin in ("lin1", "lin2"):
+            _linear(head[lin]["Dense_0"], "auxhead." + lin, out)
+    if cfg.use_char_images:
+        for conv in ("glyph_conv1", "glyph_conv2"):
+            _conv(p[conv]["Conv_0"], conv, out)
+        _linear(p["glyph_proj"]["Dense_0"], "glyph_proj", out)
+    return out
 
 
 def _vae_key(part: str, name: str, n_levels: int) -> str:

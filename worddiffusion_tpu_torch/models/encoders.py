@@ -1,4 +1,4 @@
-"""Character conditioning encoder (port of
+"""Character conditioning encoder and the writer-style projection (port of
 ``worddiffusion_tpu/models/encoders.py``).
 
 ``WordAttention`` is single-head attention with no 1/sqrt(d) scaling
@@ -75,3 +75,13 @@ class CharacterEncoder(nn.Module):
         if L <= self.max_seq_len:
             emb = emb + self.pe[:L].to(emb.dtype)
         return self.attention(emb)
+
+
+class StyleProjection(Dense):
+    """Writer-style feature vector -> context tokens (reference ``wrd_proj``,
+    ``unet.py:1243``): [B, D] -> one token [B, 1, context_dim]; [B, S, D]
+    -> S tokens."""
+
+    def forward(self, style_vec: torch.Tensor) -> torch.Tensor:
+        out = super().forward(style_vec)
+        return out if out.dim() == 3 else out[:, None, :]

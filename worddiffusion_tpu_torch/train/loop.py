@@ -89,8 +89,10 @@ class Trainer:
             "context": self._to_device(batch["context"].astype("int64")),
             "writer": self._to_device(batch["writer"].astype("int64")),
         }
-        if "phosc" in batch:
-            out["phosc"] = self._to_device(batch["phosc"].astype("int64"))
+        for k, dtype in (("phosc", "int64"), ("ocr_ids", "int64"), ("ocr_len", "int64"),
+                         ("style_vec", "float32"), ("char_images", "float32")):
+            if k in batch:
+                out[k] = self._to_device(batch[k].astype(dtype, copy=False))
         return out
 
     def run(

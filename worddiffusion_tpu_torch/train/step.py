@@ -1,5 +1,5 @@
 """The training step (port of ``worddiffusion_tpu/train/step.py``):
-q_sample -> UNet -> MSE(eps) -> backward -> AdamW -> EMA.
+q_sample -> UNet -> MSE(eps) [+ CTC aux] -> backward -> AdamW -> EMA.
 
 The step's randomness (timesteps, noise, the writer-conditioning drop)
 is drawn from a ``torch.Generator`` that is a pure function of
@@ -13,6 +13,12 @@ Batch dict layout (``data.loader``, staged on the device):
   ``context`` [B, L] int64 char ids
   ``writer``  [B] int64 dense writer index
   ``phosc``   [B, P] int64 PHOSC ids (``use_phosc`` models)
+  ``ocr_ids`` [B, L] int64 CTC targets, ``ocr_len`` [B] their lengths
+              (``ctc_weight`` > 0 with the aux head)
+  ``style_vec``    [B, D] float32 writer-style vectors (``style_vec_dim``)
+  ``char_images``  [B, L, gh, gw, 1] glyph crops (``use_char_images``)
+  ``cond_latents`` [B, 8, 32, 4] reference latents (``img_conditioned``;
+                   defaults to the clean ``latent``)
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 from ..configs.config import Experiment
 from ..diffusion.forward import q_sample, sample_timesteps
 from ..diffusion.schedule import NoiseSchedule
+from ..ops.ctc import ctc_loss
 from .state import TrainState, ema_update
 
 
@@ -87,10 +94,27 @@ def loss_fn(model, schedule: NoiseSchedule, exp: Experiment, batch: dict,
         # one draw per batch: the whole batch keeps or drops its writer
         # (reference train.py:284-285)
         writer_mask = torch.ones(latent.shape[0], device=latent.device) * draws.keep
-    eps = model(x_t, draws.t, batch["context"], batch["writer"], phosc_ids=batch.get("phosc"),
-                writer_mask=writer_mask)
+    cond_latents = None
+    if exp.unet.img_conditioned:
+        # the clean latents of the same batch condition it (reference
+        # trainModifyCondition.py:733)
+        cond_latents = batch.get("cond_latents", latent)
+    out = model(x_t, draws.t, batch["context"], batch["writer"], phosc_ids=batch.get("phosc"),
+                writer_mask=writer_mask, style_vec=batch.get("style_vec"),
+                char_images=batch.get("char_images"), cond_latents=cond_latents)
+    eps, ocr_logits = out if exp.unet.ocr_head else (out, None)
     mse = (eps.float() - draws.noise).square().mean()
-    return mse, {"mse": mse.detach(), "loss": mse.detach()}
+    metrics = {"mse": mse.detach()}
+    loss = mse
+    if exp.train.ctc_weight > 0 and ocr_logits is not None:
+        # the mean over the batch of each sequence's NLL (jnp.mean of
+        # optax.ctc_loss), blank 0; the head gives [T, B, K]
+        ctc = ctc_loss(ocr_logits.transpose(0, 1), batch["ocr_ids"], batch["ocr_len"],
+                       blank_id=0).mean()
+        loss = loss + exp.train.ctc_weight * ctc
+        metrics["ctc"] = ctc.detach()
+    metrics["loss"] = loss.detach()
+    return loss, metrics
 
 
 def make_train_step(schedule: NoiseSchedule, exp: Experiment,
@@ -120,6 +144,9 @@ def make_train_step(schedule: NoiseSchedule, exp: Experiment,
         state.optimizer.zero_grad(set_to_none=True)
         loss, metrics = loss_fn(state.model, schedule, exp, batch, draws)
         loss.backward()
+        for p in state.model.parameters():
+            if p.grad is None:  # unused by this config (a replaced context): AdamW
+                p.grad = torch.zeros_like(p)  # still decays it, as optax.adamw does
         state.optimizer.step()
         ema_update(state.ema, state.model, state.step, tcfg.ema_beta, tcfg.ema_warmup_steps)
         state.step += 1

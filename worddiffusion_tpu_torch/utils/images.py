@@ -1,12 +1,14 @@
 """Word-crop resizing, normalisation, regeneration output naming, preview
 grids and a stdlib PNG writer.
 
-``resize_and_pad``, ``normalize_to_unit``, ``regen_filename``,
-``save_single_images`` and ``save_image_grid`` are copied from
-``worddiffusion_tpu/utils/images.py``, which uses PIL (and a native
-library for the normalisation): here the resize is PIL's ``BILINEAR``
-resampling written out in numpy, and the PNG encoder uses only ``zlib``
-and ``struct``. (Reading PNGs: ``data.png``.)
+``resize_and_pad``, ``normalize_to_unit``, ``crop_whitespace``,
+``regen_filename``, ``save_single_images`` and ``save_image_grid`` are
+copied from ``worddiffusion_tpu/utils/images.py``, which uses PIL and
+OpenCV (and a native library for the normalisation): here the resize is
+PIL's ``BILINEAR`` resampling and the whitespace crop OpenCV's
+grey conversion, Otsu threshold and bounding box, written out in numpy,
+and the PNG encoder uses only ``zlib`` and ``struct``. (Reading PNGs:
+``data.png``.)
 """
 
 from __future__ import annotations
@@ -121,6 +123,47 @@ def denormalize_to_uint8(img: np.ndarray) -> np.ndarray:
     if img.dtype == np.uint8:
         return img
     return (np.clip(img, 0.0, 1.0) * 255.0).round().astype(np.uint8)
+
+
+def _otsu_threshold(gray: np.ndarray) -> int:
+    """OpenCV's Otsu threshold of a uint8 image (``getThreshVal_Otsu_8u``):
+    the first level that maximises the between-class variance, in float64,
+    levels where either class holds under FLT_EPSILON of the mass skipped."""
+    hist = np.bincount(gray.ravel(), minlength=256).astype(np.float64)
+    scale = 1.0 / gray.size
+    mu = float((np.arange(256) * hist).sum()) * scale
+    flt_eps = float(np.finfo(np.float32).eps)
+    mu1 = q1 = max_sigma = 0.0
+    best = 0
+    for i in range(256):
+        p_i = hist[i] * scale
+        mu1 *= q1
+        q1 += p_i
+        q2 = 1.0 - q1
+        if min(q1, q2) < flt_eps or max(q1, q2) > 1.0 - flt_eps:
+            continue
+        mu1 = (mu1 + i * p_i) / q1
+        mu2 = (mu - q1 * mu1) / q2
+        sigma = q1 * q2 * (mu1 - mu2) * (mu1 - mu2)
+        if sigma > max_sigma:
+            max_sigma, best = sigma, i
+    return best
+
+
+def crop_whitespace(img: np.ndarray) -> np.ndarray:
+    """Otsu-threshold bounding-box crop of a uint8 word image, grey [H, W]
+    or RGB [H, W, 3] (``sampling.py:16-23``): the box of the pixels at or
+    below the threshold (the ink); the image unchanged when there are none.
+    The grey level is OpenCV's ``COLOR_RGB2GRAY`` fixed-point rounding."""
+    if img.ndim == 2:
+        gray = img
+    else:
+        r, g, b = (img[..., i].astype(np.int32) for i in range(3))
+        gray = ((r * 4899 + g * 9617 + b * 1868 + (1 << 13)) >> 14).astype(np.uint8)
+    ys, xs = np.nonzero(gray <= _otsu_threshold(gray))
+    if ys.size == 0:
+        return img
+    return img[ys.min() : ys.max() + 1, xs.min() : xs.max() + 1]
 
 
 def regen_filename(image_id: str, writer: str | int, word: str) -> str:
