@@ -139,13 +139,27 @@ Phases, each of which must pass (any failure exits non-zero):
    --cond_image`` (a phase-16 PNG, encoded once) on phase 19(a)'s EMA
    checkpoint; ``--wrdChrWrStyl 1`` on 19(b)'s. Each: the PNGs under the
    JAX CLI's names, launches, s/batch.
+21. the PHOSC zero-shot recognizer at full width (PHOSCNet(trunk="resnet18"):
+   phos 165, phoc 604, hidden 4096, bf16, seeded weights, B=64, 50x250):
+   (a) one forward all-kernel against all-plain, 16 B.5 launches (every
+   GroupNorm input channels_last, so no copy), by profiled kernel name 16
+   ``gn_cluster_kernel`` and no library GroupNorm, device busy time; (b)
+   ``cli.train_phosc.main`` --model resnet18, 2 epochs at B=64 on 256 seeded
+   word PNGs over 32 words (64 over 8 unseen words validate): 16 B.5 launches
+   and 16 GroupNormFn backward calls a step, the parameters moved, log.csv,
+   ``best_params.pkl`` in the JAX layout, s/step, peak memory, 3 profiled
+   steps; (c) ``cli.train_charcounter.main`` (VGG, 1 epoch, no kernel), then
+   ``train_phosc --mode test --len_counter``: every testresults.txt value
+   finite, images/s; (d) that checkpoint in a fresh model on the card (bf16)
+   against the host (fp32); (e) ``--model vgg``, 1 epoch of 2 steps.
 
 Every training phase counts 9 B.5 and 12 B.6 launches and Function
 backward calls per step (13 B.5 with the CTC aux head), and 9 * 50 + 4 and
 12 * 50 + 26 per DDIM-50 preview. Phase 14 also runs B.5 at the CTC head's
-[128, 8, 32, 256]. Kernel, plain and library times are per call over 10 calls
-back to back (``launch_ms``), so that the host's launch path overlaps
-the device work.
+[128, 8, 32, 256] and at the PHOSC trunk's four sites (B=64: 25x125 C=64,
+13x63 C=128, 256 and 512), and B.5's Function at [64, 25, 125, 64]. Kernel,
+plain and library times are per call over 10 calls back to back
+(``launch_ms``), so that the host's launch path overlaps the device work.
 
 The second-to-last line is a JSON summary of the kernels (each with its
 bound: the larger of its bytes over the card's memory rate and its
@@ -229,6 +243,19 @@ UNET_NORMS, ENCODER_NORMS, DECODER_NORMS, OCR_NORMS = (9, 12), (4, 18), (4, 26),
 VARIANT_NORMS = {"film": (17, 4), "split_skip": (9, 12), "film_split_skip": (17, 4)}
 CTC_HEAD_NORMS = (4, 0)
 COND_STEPS_PER_EPOCH = 3  # phase 19's training runs: 2 epochs of 3 steps
+# The PHOSC recognizer (phase 21): PHOSCNet(trunk="resnet18") at the CLI's
+# widths and batch; its 16 GroupNorms (32 groups, eps 1e-6, no SiLU) run B.5
+# at [64, 25, 125, 64] x4 and [64, 13, 63, 128 / 256 / 512] x4 each.
+PHOSC_B, PHOSC_NORMS = 64, 16
+PHOSC_TRAIN, PHOSC_VALID = 256, 64  # phase 21's word PNGs: 32 trained words, 8 unseen
+# bf16 recognizer all-kernel vs all-plain: each of the 16 B.5 outputs may
+# round one bf16 ulp (0.4%) away from the plain version's, carried through
+# the bf16 convs after it, as in the UNet: 3% of max |plain|.
+PHOSC_REL_TOL = 3e-2
+# The bf16 recognizer on the card against the fp32 one on the host (the same
+# carried weights): every conv, Dense and GroupNorm output rounded to bf16
+# (8 significant bits) over 17 convs and 3 Dense layers: 5% of max |fp32|.
+PHOSC_BF16_TOL = 5e-2
 # (B, H, W, C, groups, silu) of B.5's sites: UNet regeneration (B=16) and
 # training (B=128) at 8x32 and 4x16 (the 640-channel output ResBlocks with
 # SiLU, the 320-channel transformer norms and the out norm); the VAE decoder
@@ -245,7 +272,10 @@ GN_SHAPES = tuple(
      # each side of the size where a CTA's range stops fitting in shared memory
      (2, 8, 95, 512, 32, False), (2, 8, 96, 512, 32, False),
      # the CTC aux head's norms at the training batch (eps 1e-6 as every row here)
-     (TRAIN_B, 8, 32, 256, 32, False))
+     (TRAIN_B, 8, 32, 256, 32, False)) + tuple(
+    # the PHOSC recognizer's resnet18 trunk at B=64 (16 a forward, 4 at each)
+    (PHOSC_B, h, w, c, 32, False) for h, w, c in ((25, 125, 64), (13, 63, 128),
+                                                  (13, 63, 256), (13, 63, 512)))
 # (B, H, W, C, groups) of B.6's sites: the UNet's two resolutions at B=16 and
 # 128, the decoder's levels at B=16, the encoder's at B=128, a ragged image
 # (5 x 13) and a ragged width (C=48 in 48 groups).
@@ -995,13 +1025,23 @@ def device_profile(fn, calls: int = 5) -> dict:
 
     fn()
     torch.cuda.synchronize()
+    # The profiler may miss the kernels launched just after it starts (on the
+    # H100, now and then the first 17 or more of a PHOSC forward). So one call
+    # inside the window takes that loss, and a marker kernel (torch's
+    # spin_kernel) parts it from the counted calls.
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
     # device events, less the optimizer step's annotation range (not a kernel)
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not e.name.startswith("Optimizer.")]
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
+                     and not e.name.startswith("Optimizer.")), key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
+    assert len(marks) == 1, f"{len(marks)} marker kernels profiled"
+    kernels = events[marks[0] + 1:]
     by_name, count = collections.Counter(), collections.Counter()
     for e in kernels:
         by_name[e.name[:60]] += e.time_range.elapsed_us() / 1e3 / calls
@@ -1325,6 +1365,32 @@ def phase14_norms(smi: str) -> dict:
                          cuda_ms(lambda: fwd_bwd(plain), reps=10))
         log(f"{name} fwd+bwd B={TRAIN_B} 8x32 C={D}: Function {pair_ms[name][0]:.4f} ms, plain "
             f"autograd {pair_ms[name][1]:.4f} ms [{smi}]")
+
+    # B.5's Function at the recognizer's widest site (64 channels in 32 groups
+    # of 2, no SiLU, eps 1e-6), as the PHOSC train step calls it
+    t = norm_inputs((PHOSC_B, 25, 125, 64), seed=182)
+    dy = (0.1 * torch.randn(PHOSC_B, 25, 125, 64, generator=g)).bfloat16().cuda()
+
+    def gn_fwd_bwd(fn):
+        leaves = [t[k].clone().requires_grad_() for k in ("x", "scale", "bias")]
+        out = fn(*leaves, 32, 1e-6, False)
+        out.backward(dy)
+        return [out.detach()] + [v.grad for v in leaves]
+
+    got = gn_fwd_bwd(groupnorm.fused_groupnorm)
+    want = gn_fwd_bwd(groupnorm.groupnorm_reference)
+    for gname, a, w_ in zip(("out", "dx", "dscale", "dbias"), got, want):
+        share = (a.float() - w_.float()).abs().max().item() / w_.float().abs().max().item()
+        log(f"groupnorm Function vs plain autograd B={PHOSC_B} 25x125 C=64 G=32 {gname}: share "
+            f"of max |plain| {share:.6g} (tol {NORM_REL_TOL}); bitwise {torch.equal(a, w_)}")
+        assert a.shape == w_.shape and a.dtype == w_.dtype and bool(torch.isfinite(a).all())
+        assert share <= NORM_REL_TOL, f"groupnorm Function disagrees at the PHOSC site: {gname}"
+    pair_ms["groupnorm_phosc"] = (cuda_ms(lambda: gn_fwd_bwd(groupnorm.fused_groupnorm), reps=10),
+                                  cuda_ms(lambda: gn_fwd_bwd(groupnorm.groupnorm_reference),
+                                          reps=10))
+    log(f"groupnorm fwd+bwd B={PHOSC_B} 25x125 C=64: Function "
+        f"{pair_ms['groupnorm_phosc'][0]:.4f} ms, plain autograd "
+        f"{pair_ms['groupnorm_phosc'][1]:.4f} ms [{smi}]")
     return dict(gn_rows=gn_rows, conv_rows=conv_rows, pair_ms=pair_ms)
 
 
@@ -1834,6 +1900,291 @@ def phase20_sample(smi: str, work: str, vae_file: str, cond_image: str, trained:
     return out
 
 
+def all_counts() -> dict:
+    """Every kernel's launches so far, under the kernels' JSON keys."""
+    from worddiffusion_tpu_torch.ops import attention, ffn, fold_attention
+
+    gn, conv = norm_counts()[:2]
+    return dict(ffn=ffn.launches, ffn_bwd=ffn.bwd_launches, attn=attention.launches,
+                fold=fold_attention.launches, fold_b7=fold_attention.flat_launches, gn=gn,
+                conv=conv, geglu=ffn.geglu_launches)
+
+
+def only_groupnorm(gn: int) -> dict:
+    """The counts of a path that launches B.5 ``gn`` times and no other kernel."""
+    return dict(ffn=0, ffn_bwd=0, attn=0, fold=0, fold_b7=0, gn=gn, conv=0, geglu=0)
+
+
+@contextlib.contextmanager
+def count_forwards(cls):
+    """Records the batch of every ``cls.forward`` call (of the models the CLIs
+    build inside)."""
+    batches = []
+    forward = cls.forward
+
+    def counted(self, x, *a, **k):
+        batches.append(x.shape[0])
+        return forward(self, x, *a, **k)
+
+    with mock.patch.object(cls, "forward", counted):
+        yield batches
+
+
+def phosc_images(n: int, seed: int):
+    """n seeded word crops resized to the recognizer's uint8 [n, 50, 250, 3]."""
+    import numpy as np
+
+    from worddiffusion_tpu_torch.utils.images import resize_and_pad
+
+    rgb = [np.dstack([im] * 3) if im.ndim == 2 else im for im in word_images(n, seed)]
+    return np.stack([resize_and_pad(im, 50, 250) for im in rgb])
+
+
+def write_phosc_corpus(work: str) -> tuple[str, str, str, str]:
+    """PHOSC_TRAIN word PNGs over 32 words (the training gt file), PHOSC_VALID
+    over 8 words never trained (validation, and the zero-shot test split), and
+    a gt file of the first 2 * PHOSC_B training PNGs."""
+    from worddiffusion_tpu_torch.utils.images import encode_png
+
+    crops = os.path.join(work, "phosc_crops")
+    os.makedirs(crops)
+    words = ("the of and to in is was that for it with as his on be at by had are but from "
+             "not this have which one were all they she you her an there been their we").split()
+    files = {}
+    for split, n, vocab, seed in (("train", PHOSC_TRAIN, words[:32], 31),
+                                  ("valid", PHOSC_VALID, words[32:40], 32)):
+        files[split] = os.path.join(work, f"phosc_{split}.filter27")
+        with open(files[split], "w") as f:
+            for i, img in enumerate(word_images(n, seed)):
+                name = f"p{split[0]}1-{i:04d}u-00"
+                with open(os.path.join(crops, name + ".png"), "wb") as png:
+                    png.write(encode_png(img))
+                f.write(f"{i % 50:03d},{name} {vocab[i % len(vocab)]}\n")
+    small = os.path.join(work, "phosc_small.filter27")
+    with open(files["train"]) as f, open(small, "w") as g:
+        g.writelines(f.readlines()[:2 * PHOSC_B])
+    return crops, files["train"], files["valid"], small
+
+
+def phase21_phosc(smi: str, work: str) -> dict:
+    """The PHOSC recognizer at full width on the card (seeded weights, bf16):
+    (a) one PHOSCNet(trunk="resnet18") forward at B=64 all-kernel against
+    all-plain, 16 B.5 launches, by profiled kernel name; (b) the train_phosc
+    CLI, --model resnet18, 2 epochs at B=64 on seeded word PNGs: 16 B.5
+    launches and 16 GroupNormFn backward calls a step, the JAX-layout
+    checkpoint, s/step, peak memory, 3 profiled steps; (c) train_charcounter
+    (1 epoch), then train_phosc --mode test on (b)'s checkpoint with
+    --len_counter on its params.pkl: every result finite, images/s; (d) (b)'s
+    checkpoint read into a fresh model on the card (bf16) and on the host
+    (fp32); (e) --model vgg (the CLI's default), 1 epoch of 2 steps. Counts
+    set to 0 before each run and read after it."""
+    import ast
+
+    import numpy as np
+    import torch
+
+    from worddiffusion_tpu_torch.cli import train_charcounter, train_phosc
+    from worddiffusion_tpu_torch.data.phoc import phoc_labels
+    from worddiffusion_tpu_torch.data.phos import phos_labels
+    from worddiffusion_tpu_torch.models.charcounter import CharacterCounterNet
+    from worddiffusion_tpu_torch.models.convert import (jax_phoscnet_to_torch,
+                                                        read_params_pickle, state_dict_to_torch)
+    from worddiffusion_tpu_torch.models.layers import GroupNorm32, init_weights_
+    from worddiffusion_tpu_torch.models.phoscnet import PHOSCNet
+    from worddiffusion_tpu_torch.train.plateau import ReduceOnPlateau
+    from worddiffusion_tpu_torch.train.state import make_optimizer
+
+    cl = torch.channels_last
+    paths = {}
+    # (a) one forward, all-kernel against all-plain
+    model = init_weights_(PHOSCNet(trunk="resnet18"), seed=0).cuda().to(memory_format=cl)
+    model.eval().requires_grad_(False)
+    x = train_phosc.dev_norm(phosc_images(PHOSC_B, seed=21), "cuda")
+    layouts = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: layouts.append(
+        a[0].is_contiguous(memory_format=cl))) for m in model.modules()
+        if isinstance(m, GroupNorm32)]
+    with torch.no_grad():
+        reset_counts()
+        out = model(x, return_features=True)
+        paths["phosc_forward"] = all_counts()
+        for h in hooks:
+            h.remove()
+        with plain_norms():
+            ref = model(x, return_features=True)
+            plain_ms = cuda_ms(lambda: model(x), reps=10)
+        ms = cuda_ms(lambda: model(x), reps=10)
+        prof = device_profile(lambda: model(x), calls=3)
+    rels = {k: ((out[k] - ref[k]).abs().max() / ref[k].abs().max()).item() for k in ref}
+    gn_kernels = sum(n for k, n in prof["per_call"].items() if "gn_cluster_kernel" in k)
+    library_gn = [k for k in prof["per_call"] if "rowwisemoments" in k.lower()
+                  or "groupnorm" in k.lower().replace("_", "")]
+    log(f"phosc forward resnet18 B={PHOSC_B} 50x250: phos {tuple(out['phos'].shape)} phoc "
+        f"{tuple(out['phoc'].shape)} features {tuple(out['features'].shape)}; launches "
+        f"{paths['phosc_forward']}; all-kernel vs all-plain max_rel_err {rels} (tol "
+        f"{PHOSC_REL_TOL}); GroupNorm inputs channels_last {sum(layouts)}/{len(layouts)}; "
+        f"{ms:.3f} ms a forward (plain B.5 {plain_ms:.3f}); profiled: device busy "
+        f"{prof['busy_ms']:.3f} ms, {prof['kernels']:.0f} kernels, {gn_kernels:.0f} "
+        f"gn_cluster_kernel a forward, library GroupNorm kernels {library_gn}; top (ms) "
+        f"{prof['top']} [{smi}]")
+    assert paths["phosc_forward"] == only_groupnorm(PHOSC_NORMS), paths["phosc_forward"]
+    assert out["phos"].shape == (PHOSC_B, 165) and out["phoc"].shape == (PHOSC_B, 604)
+    assert out["features"].shape == (PHOSC_B, 4096)
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
+    assert max(rels.values()) <= PHOSC_REL_TOL, rels
+    assert len(layouts) == PHOSC_NORMS and all(layouts), layouts
+    assert gn_kernels == PHOSC_NORMS and not library_gn, (gn_kernels, library_gn)
+    del model, x, out, ref
+
+    # (b) the train CLI, --model resnet18, 2 epochs at B=64
+    crops, train_gt, valid_gt, small_gt = write_phosc_corpus(work)
+    save = os.path.join(work, "phosc_resnet18")
+    common = ["--image_dir", crops, "--batch_size", str(PHOSC_B), "--device", "cuda"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with count_forwards(PHOSCNet) as fwd:
+        t0 = time.perf_counter()
+        run = train_phosc.main(["--train_csv", train_gt, "--valid_csv", valid_gt, "--model",
+                                "resnet18", "--epochs", "2", "--save_dir", save, *common])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    paths["train_phosc"] = all_counts()
+    gn_bwd = norm_counts()[2]
+    peak = torch.cuda.max_memory_allocated() - base
+    hist = run["history"]
+    steps = sum(h["steps"] for h in hist)
+    s_per_step = hist[1]["train_seconds"] / hist[1]["steps"]
+    fresh = init_weights_(PHOSCNet(trunk="resnet18"), seed=0)
+    moved = sum(not torch.equal(p.detach().cpu(), q) for p, q in
+                zip(run["model"].parameters(), fresh.parameters()))
+    with open(os.path.join(save, "log.csv")) as f:
+        rows = f.read().splitlines()
+    best = read_params_pickle(os.path.join(save, "best_params.pkl"))
+    stem = best["params"]["trunk"]["stem"]["kernel"]
+    log(f"train_phosc resnet18 B={PHOSC_B}: {steps} steps in 2 epochs, {len(fwd)} forwards "
+        f"(steps + validation); launches {paths['train_phosc']}, GroupNormFn backward calls "
+        f"{gn_bwd}; history {hist}; {moved} of {len(fresh.state_dict())} parameter tensors "
+        f"moved; log.csv {rows}; best_params.pkl keys {sorted(best['params'])[:4]}..., stem "
+        f"kernel {type(stem).__name__} {stem.dtype} {stem.shape}; epoch 2 {s_per_step:.4f} "
+        f"s/step (host batches from the crop cache included); {wall:.2f} s in all; peak memory "
+        f"above the phase's start {peak / 2 ** 30:.3f} GiB [{smi}]")
+    assert steps == 2 * (PHOSC_TRAIN // PHOSC_B), steps
+    assert len(fwd) == steps + 2 * -(-PHOSC_VALID // PHOSC_B), fwd
+    assert paths["train_phosc"] == only_groupnorm(PHOSC_NORMS * len(fwd)), paths["train_phosc"]
+    assert gn_bwd == PHOSC_NORMS * steps, gn_bwd
+    assert all(np.isfinite(h["loss"]) for h in hist) and moved == len(fresh.state_dict())
+    assert len(rows) == 3 and rows[0] == "epoch,loss,zsl_acc,lr", rows
+    assert set(best) == {"params"} and {"trunk", "phos_fc0", "phos_fc1", "phos_out", "phoc_fc0",
+                                        "phoc_fc1", "phoc_out"} == set(best["params"])
+    assert isinstance(stem, np.ndarray) and stem.dtype == np.float32 and stem.shape == (7, 7, 3, 64)
+
+    # three profiled steps of the CLI's train step on the trained model
+    trained = run["model"]
+    optimizer = make_optimizer(trained.parameters(), 1e-4, weight_decay=5e-5)
+    plateau = ReduceOnPlateau(factor=0.25, patience=20, cooldown=8, atol=1e-4)
+    vocab = ("the of and to in is was that for it with as his on be at by had are but from not "
+             "this have which one were all they she you her an").split()
+    batch_words = [vocab[i % len(vocab)] for i in range(PHOSC_B)]
+    phos_map, phoc_map = phos_labels(vocab, "eng"), phoc_labels(vocab, "eng")
+    tp = torch.from_numpy(np.stack([phos_map[w] for w in batch_words])).float().cuda()
+    tc = torch.from_numpy(np.stack([phoc_map[w] for w in batch_words])).float().cuda()
+    imgs = train_phosc.dev_norm(phosc_images(PHOSC_B, seed=22), "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sprof = device_profile(lambda: train_phosc.train_step(trained, optimizer, imgs, tp, tc, gen,
+                                                          plateau, 1e-4, 1e9), calls=3)
+    step_gn = sum(n for k, n in sprof["per_call"].items() if "gn_cluster_kernel" in k)
+    # the same steps with the plain GroupNorm forward (the backward is the
+    # same plain recompute in both): what B.5 saves a step
+    with plain_norms():
+        pprof = device_profile(lambda: train_phosc.train_step(trained, optimizer, imgs, tp, tc,
+                                                              gen, plateau, 1e-4, 1e9), calls=3)
+    log(f"train_phosc step resnet18 B={PHOSC_B}: profiled device busy {sprof['busy_ms']:.3f} ms, "
+        f"{sprof['kernels']:.0f} kernels, {step_gn:.0f} gn_cluster_kernel a step; top (ms) "
+        f"{sprof['top']}; with the plain GroupNorm forward {pprof['busy_ms']:.3f} ms, "
+        f"{pprof['kernels']:.0f} kernels; top (ms) {pprof['top']} [{smi}]")
+    assert step_gn == PHOSC_NORMS, step_gn
+    del trained, optimizer, run, imgs
+
+    # (c) the character counter, then test mode with --len_counter
+    counter_dir = os.path.join(work, "charcounter")
+    reset_counts()
+    with count_forwards(CharacterCounterNet) as cfwd:
+        t0 = time.perf_counter()
+        train_charcounter.main(["--gt_train", train_gt, "--epochs", "1", "--save_dir",
+                                counter_dir, *common])
+        torch.cuda.synchronize()
+        counter_wall = time.perf_counter() - t0
+    paths["train_charcounter"] = all_counts()
+    assert paths["train_charcounter"] == only_groupnorm(0), paths["train_charcounter"]
+    assert len(cfwd) == 2 * (PHOSC_TRAIN // PHOSC_B), cfwd  # a step's forward and its accuracy
+    reset_counts()
+    with count_forwards(PHOSCNet) as tfwd:
+        t0 = time.perf_counter()
+        res = train_phosc.main(["--mode", "test", "--train_csv", train_gt, "--test_csv", valid_gt,
+                                "--model", "resnet18", "--save_dir", save, "--len_counter",
+                                os.path.join(counter_dir, "params.pkl"), *common])
+        torch.cuda.synchronize()
+        test_wall = time.perf_counter() - t0
+    paths["train_phosc_test"] = all_counts()
+    with open(os.path.join(save, "testresults.txt")) as f:
+        results = dict(line.split("=", 1) for line in f.read().splitlines())
+    keys = ["zsl", "by_len", "gzsl_seen", "gzsl_unseen", "gzsl_harmonic", "gzsl_calibrated_gamma",
+            "gzsl_calibrated_seen", "gzsl_calibrated_unseen", "gzsl_calibrated_harmonic",
+            "gzsl_valmargin_gamma", "gzsl_valmargin_seen", "gzsl_valmargin_unseen",
+            "gzsl_valmargin_harmonic", "len_zsl", "len_gzsl", "length_accuracy",
+            "length_fuzzy_accuracy"]
+    values = [float(results[k]) for k in keys if k != "by_len"]
+    values += list(ast.literal_eval(results["by_len"]).values())
+    log(f"train_charcounter VGG B={PHOSC_B}: 1 epoch of {PHOSC_TRAIN // PHOSC_B} steps in "
+        f"{counter_wall:.2f} s, launches {paths['train_charcounter']}; train_phosc --mode test "
+        f"--len_counter: {sum(tfwd)} images through the recognizer in {len(tfwd)} forwards, "
+        f"launches {paths['train_phosc_test']}, {test_wall:.2f} s, "
+        f"{sum(tfwd) / test_wall:.1f} images/s (the counter's forwards and host batches "
+        f"included); results {res} [{smi}]")
+    assert paths["train_phosc_test"] == only_groupnorm(PHOSC_NORMS * len(tfwd))
+    assert list(results) == keys and all(np.isfinite(v) for v in values), results
+
+    # (d) the checkpoint carried into a fresh model on the card and on the host
+    sd = state_dict_to_torch(jax_phoscnet_to_torch(best))
+    card, host = PHOSCNet(trunk="resnet18"), PHOSCNet(trunk="resnet18", dtype=torch.float32)
+    card.load_state_dict(sd)
+    host.load_state_dict(sd)
+    card = card.cuda().to(memory_format=cl).eval()
+    imgs = phosc_images(8, seed=23)
+    with torch.no_grad():
+        reset_counts()
+        a = card(train_phosc.dev_norm(imgs, "cuda"), return_features=True)
+        carried = all_counts()
+        b = host(train_phosc.dev_norm(imgs, "cpu"), return_features=True)
+    carried_rel = {k: ((a[k].cpu() - b[k]).abs().max() / b[k].abs().max()).item() for k in b}
+    log(f"best_params.pkl on the card (bf16, B.5) vs on the host (fp32): max_rel_err "
+        f"{carried_rel} (tol {PHOSC_BF16_TOL}); launches {carried} [{smi}]")
+    assert carried == only_groupnorm(PHOSC_NORMS), carried
+    assert max(carried_rel.values()) <= PHOSC_BF16_TOL, carried_rel
+
+    # (e) the CLI's default trunk, 1 epoch of 2 steps
+    vgg_dir = os.path.join(work, "phosc_vgg")
+    reset_counts()
+    t0 = time.perf_counter()
+    vrun = train_phosc.main(["--train_csv", small_gt, "--valid_csv", valid_gt, "--epochs", "1",
+                             "--save_dir", vgg_dir, *common])
+    torch.cuda.synchronize()
+    paths["train_phosc_vgg"] = all_counts()
+    vgg_best = read_params_pickle(os.path.join(vgg_dir, "best_params.pkl"))
+    log(f"train_phosc --model vgg B={PHOSC_B}: history {vrun['history']}, launches "
+        f"{paths['train_phosc_vgg']}, {time.perf_counter() - t0:.2f} s [{smi}]")
+    assert vrun["history"][0]["steps"] == 2 and np.isfinite(vrun["history"][0]["loss"])
+    assert paths["train_phosc_vgg"] == only_groupnorm(0), paths["train_phosc_vgg"]
+    assert sorted(vgg_best["params"]["trunk"]) == sorted(f"conv{i}" for i in range(13))
+    return dict(paths=paths, fwd_ms=ms, fwd_plain_ms=plain_ms, busy_ms=prof["busy_ms"],
+                kernels=prof["kernels"], s_per_step=s_per_step, peak_bytes=peak,
+                step_busy_ms=sprof["busy_ms"], step_kernels=sprof["kernels"],
+                step_plain_busy_ms=pprof["busy_ms"],
+                test_imgs_per_s=sum(tfwd) / test_wall)
+
+
 def png_size(path: str) -> tuple[int, int]:
     with open(path, "rb") as f:
         head = f.read(24)
@@ -2163,13 +2514,17 @@ def main() -> int:
     sampled = phase20_sample(smi, work, images[2], os.path.join(images[0], "c01-0000u-00.png"),
                              cond_train, cond[2])
 
+    # -- 21. the PHOSC recognizer: forward, train_phosc, train_charcounter, test mode ------------
+    phosc = phase21_phosc(smi, work)
+
     paths = ("regenerate", "regenerate_iam_phosc", "regenerate_iam_fold", "train",
              "train_iam_phosc", "train_iam_fold", "build_latent_cache", "train_from_images")
     # the paths of phases 18-20, each with its counts under chip_smoke's keys
     new_paths = {**{f"unet_{k}": dict(zip(("ffn", "attn", "fold", "gn", "conv"), v["counts"]),
                                       ffn_bwd=0, fold_b7=0, geglu=0) for k, v in variants.items()},
                  **{f"train_{k}": v for k, v in cond_train.items()},
-                 **{k: dict(v, ffn_bwd=0) for k, v in sampled.items()}}
+                 **{k: dict(v, ffn_bwd=0) for k, v in sampled.items()},
+                 **phosc["paths"]}
 
     def by_path(*counts, key=None):
         """The earlier paths' counts in order, then the new paths' ``key``."""
@@ -2221,6 +2576,13 @@ def main() -> int:
                                         for k, v in cond_train.items())
         + "; sample s/batch " + ", ".join(f"{k} {v['s_per_batch']:.3f}"
                                           for k, v in sampled.items())
+        + f"; PHOSCNet resnet18 B={PHOSC_B} forward {phosc['fwd_ms']:.3f} ms (plain B.5 "
+        f"{phosc['fwd_plain_ms']:.3f}), busy {phosc['busy_ms']:.3f} ms, {phosc['kernels']:.0f} "
+        f"kernels; train_phosc {phosc['s_per_step']:.4f} s/step (step busy "
+        f"{phosc['step_busy_ms']:.3f} ms, plain B.5 forward {phosc['step_plain_busy_ms']:.3f}, "
+        f"{phosc['step_kernels']:.0f} kernels; peak above start "
+        f"{phosc['peak_bytes'] / 2 ** 30:.3f} GiB), test mode {phosc['test_imgs_per_s']:.1f} "
+        f"images/s"
         + f"; whole run {time.perf_counter() - T_START:.1f} s")
 
     def entry(name, source, replaces, paths_, rows, row, library_ms):

@@ -1,5 +1,5 @@
 """The port's CLIs against the JAX CLIs' options: every option of the
-four JAX parsers is in the port's parser, the regeneration CLI's
+six JAX parsers is in the port's parser, the regeneration CLI's
 ``--stable_dif_path`` and ``--ddim`` run on the CPU at a tiny preset, and
 the options the port cannot honour raise with their reason."""
 
@@ -14,6 +14,8 @@ from worddiffusion_tpu.cli import build_latent_cache as jcache_cli
 from worddiffusion_tpu.cli import regenerate as jregen_cli
 from worddiffusion_tpu.cli import sample as jsample_cli
 from worddiffusion_tpu.cli import train as jtrain_cli
+from worddiffusion_tpu.cli import train_charcounter as jcounter_cli
+from worddiffusion_tpu.cli import train_phosc as jphosc_cli
 from worddiffusion_tpu.configs.config import DataConfig, Experiment
 from test_torch_copies import port_cfg
 from test_torch_train import tiny_exp
@@ -22,6 +24,8 @@ from worddiffusion_tpu_torch.cli import build_latent_cache as cache_cli
 from worddiffusion_tpu_torch.cli import regenerate as regen_cli
 from worddiffusion_tpu_torch.cli import sample as sample_cli
 from worddiffusion_tpu_torch.cli import train as train_cli
+from worddiffusion_tpu_torch.cli import train_charcounter as counter_cli
+from worddiffusion_tpu_torch.cli import train_phosc as phosc_cli
 from worddiffusion_tpu_torch.configs import presets
 from worddiffusion_tpu_torch.models.layers import init_weights_
 from worddiffusion_tpu_torch.models.vae import AutoencoderKL, decode_from_latent
@@ -34,8 +38,8 @@ class _Parsed(Exception):
     """Raised in place of parsing, carrying the parser."""
 
 
-def _jax_cache_parser():
-    """The JAX cache CLI builds its parser inside ``main``: stop it at
+def _parser_of(main):
+    """A JAX CLI that builds its parser inside ``main``: stop it at
     ``parse_args`` and keep the parser."""
     def grab(self, *a, **k):
         raise _Parsed(self)
@@ -43,26 +47,35 @@ def _jax_cache_parser():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(argparse.ArgumentParser, "parse_args", grab)
         with pytest.raises(_Parsed) as got:
-            jcache_cli.main([])
+            main([])
     return got.value.args[0]
+
+
+def _jax_cache_parser():
+    return _parser_of(jcache_cli.main)
 
 
 def _options(parser: argparse.ArgumentParser) -> set[str]:
     return {o for a in parser._actions for o in a.option_strings} - {"-h", "--help"}
 
 
-@pytest.mark.parametrize("name", ["regenerate", "train", "build_latent_cache", "sample"])
+@pytest.mark.parametrize("name", ["regenerate", "train", "build_latent_cache", "sample",
+                                  "train_phosc", "train_charcounter"])
 def test_port_parsers_hold_every_jax_option(name):
     jax_parser, port_parser = {
         "regenerate": (jregen_cli.build_parser, regen_cli.build_parser),
         "train": (jtrain_cli.build_parser, train_cli.build_parser),
         "build_latent_cache": (_jax_cache_parser, cache_cli.build_parser),
         "sample": (jsample_cli.build_parser, sample_cli.build_parser),
+        "train_phosc": (jphosc_cli.build_parser, phosc_cli.build_parser),
+        "train_charcounter": (lambda: _parser_of(jcounter_cli.main), counter_cli.build_parser),
     }[name]
     jax_opts, port_opts = _options(jax_parser()), _options(port_parser())
     assert jax_opts <= port_opts, sorted(jax_opts - port_opts)
-    # the port's own: its weight files, the device and the cache's posterior seed
-    own = {"--torch_ckpt", "--vae_pt", "--ocr_pt", "--device", "--seed"}
+    # the port's own: its weight files, the device and the cache's posterior
+    # seed; the recognizer CLIs add the device only
+    own = ({"--device"} if name.startswith("train_") else
+           {"--torch_ckpt", "--vae_pt", "--ocr_pt", "--device", "--seed"})
     assert port_opts - jax_opts <= own, \
         sorted(port_opts - jax_opts)
 

@@ -1,7 +1,8 @@
 """The port's copies of the JAX package's jax-free modules (configs, data
-tables and parsers, the noise schedule) and functions (the CTC label
-encoder, the sampling CLI's writer-dict helpers) against their originals,
-value for value.
+tables and parsers, the dataset manipulations, the noise schedule) and
+functions (the CTC label encoder, the sampling CLI's writer-dict helpers,
+the FID harness's numpy functions) against their originals, value for
+value.
 
 ``port_cfg`` is the helper the other port tests use to hand the port the
 values of a JAX config: the same fields, in the port's own class.
@@ -16,19 +17,22 @@ from worddiffusion_tpu.cli import sample as jsample_cli
 from worddiffusion_tpu.configs import presets as jpresets
 from worddiffusion_tpu.data import alphabets as jalphabets
 from worddiffusion_tpu.data import gt as jgt
+from worddiffusion_tpu.data import manipulate as jmanipulate
 from worddiffusion_tpu.data import phoc as jphoc
 from worddiffusion_tpu.data import phos as jphos
 from worddiffusion_tpu.data.phosc import phosc_vector as jphosc_vector
 from worddiffusion_tpu.data.tokenizer import Tokenizer as JTokenizer
 from worddiffusion_tpu.diffusion.schedule import NoiseSchedule as JNoiseSchedule
+from worddiffusion_tpu.eval import fid as jfid
 from worddiffusion_tpu.ops.ctc import encode_ocr_labels as jax_encode_ocr_labels
 from worddiffusion_tpu_torch.cli import sample as sample_cli
 from worddiffusion_tpu_torch.configs import config as port_config
 from worddiffusion_tpu_torch.configs import presets
-from worddiffusion_tpu_torch.data import alphabets, gt, phoc, phos
+from worddiffusion_tpu_torch.data import alphabets, gt, manipulate, phoc, phos
 from worddiffusion_tpu_torch.data.phosc import phosc_vector
 from worddiffusion_tpu_torch.data.tokenizer import Tokenizer
 from worddiffusion_tpu_torch.diffusion.schedule import NoiseSchedule
+from worddiffusion_tpu_torch.eval import fid
 from worddiffusion_tpu_torch.ops.ctc import encode_ocr_labels
 
 WORDS = ["Hello", "word", "the", "A", "don't", "x", "Nørd", "Æble", "quickly"]
@@ -173,3 +177,57 @@ def test_encode_ocr_labels_equal():
         for g, w in zip(got, want):
             assert g.dtype == w.dtype
             np.testing.assert_array_equal(g, w)
+
+
+def _samples(cls, n: int = 60):
+    rng = np.random.default_rng(0)
+    words = ["the", "of", "a", "don't", "quickly", "Nørd", "x" * 40, "two words"]
+    return [cls(image=f"a01-{i:03d}u{'_aug' if i % 7 == 0 else ''}.png", writer=str(i % 5),
+                word=words[int(rng.integers(len(words)))]) for i in range(n)]
+
+
+def test_manipulate_equal():
+    """``data/manipulate``'s copies (all but ``resize_dataset``, OpenCV's)
+    on a seeded sample list: the same samples in the same order."""
+    ours, theirs = _samples(gt.Sample), _samples(jgt.Sample)
+
+    def rows(samples):
+        return [dataclasses.astuple(s) for s in samples]
+
+    for target, seed in ((3, 0), (12, 5)):
+        assert rows(manipulate.balance_by_word(ours, target, seed)) == rows(
+            jmanipulate.balance_by_word(theirs, target, seed))
+        assert rows(manipulate.balance_by_length(ours, target, seed)) == rows(
+            jmanipulate.balance_by_length(theirs, target, seed))
+    for kw in ({}, {"min_len": 2, "max_len": 7}, {"alphabet": "abcdefghijklmnopqrstuvwxyz_'"}):
+        assert rows(manipulate.trim_dataset(ours, **kw)) == rows(
+            jmanipulate.trim_dataset(theirs, **kw))
+    assert rows(manipulate.isolate_original(ours)) == rows(jmanipulate.isolate_original(theirs))
+    assert {k: rows(v) for k, v in manipulate.group_by(ours, lambda s: s.writer).items()} == {
+        k: rows(v) for k, v in jmanipulate.group_by(theirs, lambda s: s.writer).items()}
+    assert not hasattr(manipulate, "resize_dataset")
+
+
+def test_fid_copies_equal():
+    """``eval/fid``'s copies: Gaussian statistics, the Frechet distance, the
+    covariance-free FID (1e-10 of the value), features and the resize to the
+    recognizer's 50x250."""
+    rng = np.random.default_rng(4)
+    real = rng.standard_normal((40, 12))
+    fake = 0.5 + 1.3 * rng.standard_normal((30, 12))
+    for a, b in zip(fid.gaussian_stats(real), jfid.gaussian_stats(real)):
+        assert np.array_equal(a, b)
+    stats = (*fid.gaussian_stats(real), *fid.gaussian_stats(fake))
+    assert fid.frechet_distance(*stats) == jfid.frechet_distance(*stats)
+    want = jfid.fid_score(real, fake)
+    assert abs(fid.fid_score(real, fake) - want) <= 1e-10 * abs(want)
+    assert abs(fid.fid_score(real, fake) - fid.frechet_distance(*stats)) <= 1e-6 * want
+    batches = [real[:7], real[7:]]
+    assert np.array_equal(fid.compute_features(lambda b: 2 * b, batches),
+                          jfid.compute_features(lambda b: 2 * b, batches))
+    with pytest.raises(ValueError):
+        fid.fid_score(real[:1], fake)
+    imgs = rng.uniform(-1, 1, (3, 40, 120, 3)).astype(np.float32)
+    assert np.array_equal(fid.phosc_resize(imgs), jfid.phosc_resize(imgs))
+    full = rng.uniform(-1, 1, (2, 50, 250, 3)).astype(np.float32)
+    assert np.array_equal(fid.phosc_resize(full), full)  # already the recognizer's size

@@ -908,3 +908,55 @@ def test_ctc_head_and_loss_on_the_card(cuda):
     first, second = loss_and_grads(), loss_and_grads()
     assert bool(torch.isfinite(first[0]))
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_phoscnet_runs_every_groupnorm_through_the_kernel(cuda):
+    """PHOSCNet(trunk="resnet18") at its full width (bf16, B=16 of 50x250):
+    16 B.5 launches a forward, outputs within chip_smoke's PHOSC_REL_TOL of
+    the plain norms'; one train step (dropout from a generator on the card)
+    makes 16 more and 16 GroupNormFn backward calls, and its loss and the
+    phoc output layer's gradients agree with the plain norms' step on the
+    same weights."""
+    from unittest import mock
+
+    from worddiffusion_tpu_torch.cli.train_phosc import dev_norm
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.models.phoscnet import PHOSCNet, phosc_loss
+    from worddiffusion_tpu_torch.ops import groupnorm
+
+    model = init_weights_(PHOSCNet(trunk="resnet18"), seed=0).to(
+        cuda, memory_format=torch.channels_last)
+    x = dev_norm(chip_smoke.phosc_images(16, seed=5), cuda)
+    g = torch.Generator().manual_seed(6)
+    tp = torch.randint(0, 3, (16, 165), generator=g).float().to(cuda)
+    tc = (torch.rand(16, 604, generator=g) < 0.1).float().to(cuda)
+    n0 = groupnorm.launches
+    with torch.no_grad():
+        out = model(x, return_features=True)
+        torch.cuda.synchronize()
+        assert groupnorm.launches - n0 == 16
+        with mock.patch.object(groupnorm, "fused_groupnorm", groupnorm.groupnorm_reference):
+            want = model(x, return_features=True)
+    for k in want:
+        err = (out[k] - want[k]).abs().max().item()
+        assert err <= chip_smoke.PHOSC_REL_TOL * want[k].abs().max().item(), (k, err)
+
+    def step():
+        model.zero_grad(set_to_none=True)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        loss = phosc_loss(model(x, deterministic=False, generator=gen), tp, tc)
+        loss.backward()
+        # the phoc output layer's: no ReLU lies between it and the loss. Deeper
+        # gradients are not compared element by element: where a pre-ReLU
+        # value lies within the forwards' bf16 difference of 0, one step
+        # passes a row of gradient that the other stops
+        return loss.item(), [p.grad.clone() for p in model.phoc_out.parameters()]
+
+    n0, b0 = groupnorm.launches, groupnorm.bwd_calls
+    loss, grads = step()
+    assert groupnorm.launches - n0 == 16 and groupnorm.bwd_calls - b0 == 16
+    with mock.patch.object(groupnorm, "fused_groupnorm", groupnorm.groupnorm_reference):
+        plain_loss, plain_grads = step()
+    assert abs(loss - plain_loss) <= chip_smoke.PHOSC_REL_TOL * abs(plain_loss)
+    for a, b in zip(grads, plain_grads):
+        assert (a - b).abs().max().item() <= chip_smoke.PHOSC_REL_TOL * b.abs().max().item()

@@ -4,7 +4,8 @@ the context-folded iam and the PHOSC layout), the train CLI (from a latent
 cache, with the CTC aux loss and reference latents, and from PNGs), the
 sampling CLI and the latent-cache CLI run a tiny slice on the CPU, in a
 fresh interpreter, with tiny presets registered in the port's own
-``presets.PRESETS``; then jax, flax, optax, PIL, safetensors
+``presets.PRESETS``, and the recognizer CLIs train and test a narrow
+PHOSCNet; then jax, flax, optax, PIL, safetensors, OpenCV (cv2)
 and every ``worddiffusion_tpu`` module must be absent. A static scan of the port's
 sources and ``chip_smoke.py`` finds no import of ``worddiffusion_tpu``."""
 
@@ -86,7 +87,7 @@ names = sample_cli.main(["--preset", "tiny", "--words", "Hello,word", "--writer"
                          "--save_path", os.path.join(out, "samples"), "--device", "cpu"])
 assert names == ["00000_1_Hello_mix0.500.png", "00001_1_word_mix0.500.png"], names
 print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "PIL",
-                                                      "safetensors")
+                                                      "safetensors", "cv2")
                      or m.split(".")[0] == "worddiffusion_tpu"))
 """
 
@@ -155,7 +156,47 @@ state = cli.main(["--preset", "tiny", "--gt_train", gt, "--iam_path", crops, "--
                   os.path.join(out, "run_img"), "--device", "cpu"])
 assert state.step == 2, state.step
 print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "PIL",
-                                                      "safetensors")
+                                                      "safetensors", "cv2")
+                     or m.split(".")[0] == "worddiffusion_tpu"))
+"""
+
+
+RECOGNIZER_SCRIPT = r"""
+import functools, os, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from worddiffusion_tpu_torch.cli import train_charcounter, train_phosc
+from worddiffusion_tpu_torch.eval import fid, zsl
+from worddiffusion_tpu_torch.models import phoscnet
+from worddiffusion_tpu_torch.utils.images import encode_png
+
+# the CLIs' recognizer at hidden 32 (its trunk keeps its widths)
+phoscnet.PHOSCNet = functools.partial(phoscnet.PHOSCNet, hidden=32)
+out = tempfile.mkdtemp()
+gt = os.path.join(out, "words.filter27")
+with open(gt, "w") as f:
+    for i, w in enumerate(["the", "of", "and", "to"]):
+        img = np.full((40, 60 + 30 * i), 250, np.uint8)
+        img[10:30, 5:40] = 30
+        with open(os.path.join(out, f"a01-000u-{i:02d}.png"), "wb") as png:
+            png.write(encode_png(img))
+        f.write(f"000,a01-000u-{i:02d} {w}\n")
+common = ["--image_dir", out, "--batch_size", "2", "--device", "cpu"]
+run = train_phosc.main(["--train_csv", gt, "--valid_csv", gt, "--model", "resnet18",
+                        "--epochs", "1", "--save_dir", os.path.join(out, "phosc"), *common])
+assert run["history"][0]["steps"] == 2
+train_charcounter.main(["--gt_train", gt, "--epochs", "1", "--save_dir",
+                        os.path.join(out, "counter"), *common])
+res = train_phosc.main(["--mode", "test", "--train_csv", gt, "--test_csv", gt, "--model",
+                        "resnet18", "--save_dir", os.path.join(out, "phosc"), "--len_counter",
+                        os.path.join(out, "counter", "params.pkl"), *common])
+assert set(res["with_length"]) == {"zsl", "gzsl", "length_accuracy", "length_fuzzy_accuracy"}
+feats = fid.phosc_featurizer(os.path.join(out, "phosc", "best_params.pkl"), trunk="resnet18",
+                             device="cpu")(np.zeros((2, 50, 250, 3), np.float32))
+assert feats.shape == (2, 4096)
+print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "PIL",
+                                                      "safetensors", "cv2")
                      or m.split(".")[0] == "worddiffusion_tpu"))
 """
 
@@ -177,6 +218,14 @@ def test_train_cli_runs_without_jax():
     latent-cache CLI and training from PNGs import and run with no
     jax, flax, optax, PIL, safetensors or JAX-package module."""
     _run_jax_free(TRAIN_SCRIPT)
+
+
+def test_recognizer_runs_without_jax():
+    """The PHOSC recognizer's slice (models/phoscnet, models/charcounter,
+    eval/zsl, eval/fid, train/plateau, the train_phosc CLI in both modes and
+    the train_charcounter CLI) runs with no jax, flax, optax, PIL, OpenCV or
+    JAX-package module."""
+    _run_jax_free(RECOGNIZER_SCRIPT)
 
 
 def _imported_modules(path: Path) -> set[str]:

@@ -8,9 +8,11 @@ exporter leaves out (the CTC aux head and the glyph encoder), which
 ``jax_unet_extras_to_torch`` maps. This module adds the VAE
 (diffusers key names; the inverse of
 ``worddiffusion_tpu.models.vae.convert_diffusers_vae``) and the OCR
-recognizer. Each function takes a nested dict of numpy arrays and
-returns ``{key: np.ndarray}``; wrap the values with ``torch.from_numpy``
-or pass the dict to ``state_dict_to_torch``.
+recognizer, and the PHOSC recognizer and the character counter in both
+directions (their CLIs read and write the JAX CLIs' pickles). Each
+function from flax takes a nested dict of numpy arrays and returns
+``{key: np.ndarray}``; wrap the values with ``torch.from_numpy`` or pass
+the dict to ``state_dict_to_torch``.
 
 Layout transforms: conv HWIO -> OIHW, 1-D conv [k, in, out] ->
 [out, in, k], Dense [in, out] -> Linear [out, in], norm ``scale`` ->
@@ -19,6 +21,8 @@ Layout transforms: conv HWIO -> OIHW, 1-D conv [k, in, out] ->
 
 from __future__ import annotations
 
+import os
+import pickle
 import re
 from typing import Mapping
 
@@ -144,3 +148,70 @@ def jax_ocr_to_torch(variables: Mapping) -> dict[str, np.ndarray]:
             for sub, leaf in node.items():
                 (_norm if sub.startswith("gn") else _conv)(leaf, f"{name}.{sub}", out)
     return out
+
+
+def _tree_to_sd(node: Mapping, prefix: str, out: dict) -> None:
+    for name, child in node.items():
+        key = prefix + name
+        if not isinstance(child, Mapping):  # a bare parameter (the prompter's patch)
+            out[key] = _t(child)
+        elif "kernel" in child:
+            (_conv if np.ndim(child["kernel"]) == 4 else _linear)(child, key, out)
+        elif "scale" in child:
+            _norm(child, key, out)
+        else:
+            _tree_to_sd(child, key + ".", out)
+
+
+def jax_phoscnet_to_torch(variables: Mapping) -> dict[str, np.ndarray]:
+    """Flax ``PHOSCNet`` (or ``CharacterCounterNet``) variables -> the port's
+    state dict: the module names are the flax names, convs HWIO -> OIHW,
+    Dense [in, out] -> Linear [out, in], GroupNorm ``scale`` -> ``weight``."""
+    out: dict[str, np.ndarray] = {}
+    _tree_to_sd(_params(variables), "", out)
+    return out
+
+
+# the counter's tree follows the same rules (``trunk.conv*``, ``head``)
+jax_charcounter_to_torch = jax_phoscnet_to_torch
+
+
+def torch_phoscnet_to_jax(sd: Mapping) -> dict:
+    """The inverse of ``jax_phoscnet_to_torch``: the port's state dict (numpy
+    or torch values) -> ``{"params": tree}`` of float32 numpy arrays under
+    flax's names, the layout the JAX CLIs pickle."""
+    tree: dict = {}
+    for key, value in sd.items():
+        a = _t(value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else value)
+        *path, leaf = key.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        if leaf == "weight" and a.ndim == 4:  # conv OIHW -> HWIO
+            leaf, a = "kernel", a.transpose(2, 3, 1, 0)
+        elif leaf == "weight" and a.ndim == 2:  # Linear [out, in] -> Dense [in, out]
+            leaf, a = "kernel", a.T
+        elif leaf == "weight":  # a GroupNorm's
+            leaf = "scale"
+        node[leaf] = np.ascontiguousarray(a)
+    return {"params": tree}
+
+
+torch_charcounter_to_jax = torch_phoscnet_to_jax
+
+
+def read_params_pickle(path: str) -> dict:
+    """A JAX CLI's ``best_params.pkl`` / ``params.pkl`` (a pickled tree of
+    numpy arrays; reading it needs numpy only). Unpickle only files this
+    program or the JAX package wrote."""
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def write_params_pickle(tree: Mapping, path: str) -> None:
+    """Pickle ``tree`` to ``path`` atomically (a reader, or a kill, never
+    sees half a file)."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(tree, f)
+    os.replace(tmp, path)
