@@ -152,6 +152,30 @@ Phases, each of which must pass (any failure exits non-zero):
    ``train_phosc --mode test --len_counter``: every testresults.txt value
    finite, images/s; (d) that checkpoint in a fresh model on the card (bf16)
    against the host (fp32); (e) ``--model vgg``, 1 epoch of 2 steps.
+22. the synthetic renderer and the side models at full width: (a) the
+   PIL-free ``render_word`` against the committed check renders
+   (``data/render_check.npz``: 6 settings x 532 words, bitwise) and its
+   host ms per image at 64x256 and 50x250; (b) phase 14's rows at the
+   style encoder's 11 B.5 sites at B=48 (C = 64 in groups of 2 at 16x64 to
+   C = 2048 at 2x8) and the OCR's 5 at train_ocr's B=32; (c)
+   ``StyleEncoder(out_dim=4096)`` at B=48 all-kernel against all-plain, 48
+   B.5 launches and 48 ``gn_cluster_kernel`` a forward by profiled name; (d)
+   ``cli.train_style.main --synthetic 1`` (B=16 triplets, 8 steps; 48 x 3
+   GroupNormFn backwards a step), its ``style_dict.npz`` conditioning one
+   ``cli.train --wrdChrWrStyl 1`` step, and ``--allow_random_style 1``; (e)
+   ``cli.train_ocr.main --synthetic 1`` (B=32, 4 steps, 10 B.5 and 10
+   backwards a step, the held-out exact match), its ``ocr.pt`` read by one
+   regeneration batch through ``--ocr_pt``; (f) ``cli.train_vae.main
+   --synthetic 1`` at SD's widths, B=16, 2 epochs of a step (8 B.5 and 44 B.6 a forward, as many
+   backwards a step), its ``vae.pt`` read by ``build_latent_cache --synthetic
+   1 --vae_pt``; (g) ``cli.train --synthetic 1 --charImages 1`` at ``iam``
+   width, B=32, 4 steps and a DDIM-10 preview, a bitwise resume; (h)
+   ``cli.evaluate.main`` over phase 16's PNGs against phase 16's regeneration
+   dump with a seeded torchvision-layout Inception (first held on the card
+   against the host, fp32 with TF32 off), phase 21's PHOSC checkpoint and
+   (e)'s OCR, then the style-encoder fallback: every JSON key, images/s per
+   featurizer; (i) ``masked_ddpm_sample`` with the ``iam``
+   UNet, B=16, 599 calls.
 
 Every training phase counts 9 B.5 and 12 B.6 launches and Function
 backward calls per step (13 B.5 with the CTC aux head), and 9 * 50 + 4 and
@@ -256,6 +280,26 @@ PHOSC_REL_TOL = 3e-2
 # carried weights): every conv, Dense and GroupNorm output rounded to bf16
 # (8 significant bits) over 17 convs and 3 Dense layers: 5% of max |fp32|.
 PHOSC_BF16_TOL = 5e-2
+# The writer-style encoder (phase 22): StyleEncoder(out_dim=4096) at one
+# triplet batch, its 48 GroupNorms (min(32, C) groups, eps 1e-6, no SiLU) B.5.
+STYLE_B, STYLE_NORMS = 48, 48
+# bf16 encoder all-kernel vs all-plain: 48 B.5 outputs, each one bf16 rounding
+# (0.4%) away from the plain version's at most, through 53 bf16 convs and the
+# global max pool: 3% of max |plain|, as the PHOSC trunk's (measured on the
+# H100 at B=48: 1.2%).
+STYLE_REL_TOL = 3e-2
+# (H, W, C) of its B.5 sites on 64x256 crops: the stage-entry 1x1 norms at the
+# stage's input resolution, the 3x3 and expansion norms at its output (C = 64
+# in 32 groups of 2 at 16x64 ... C = 2048 at 2x8, B.5's widest C)
+STYLE_SITES = ((16, 64, 64), (16, 64, 256), (16, 64, 128), (8, 32, 128), (8, 32, 512),
+               (8, 32, 256), (4, 16, 256), (4, 16, 1024), (4, 16, 512), (2, 8, 512),
+               (2, 8, 2048))
+# Inception on the card (fp32, TF32 off) against the host: the same
+# arithmetic in other cuDNN / oneDNN orders, through 94 convs: 1e-4 of max |host|.
+INCEPTION_TOL = 1e-4
+# the OCR's 10 at train_ocr's B=32 (two a conv block: 64x256, 32x128, 16x64, 8x64, 4x64)
+OCR_TRAIN_B = 32
+OCR_SITES = ((64, 256, 64), (32, 128, 128), (16, 64, 256), (8, 64, 256), (4, 64, 512))
 # (B, H, W, C, groups, silu) of B.5's sites: UNet regeneration (B=16) and
 # training (B=128) at 8x32 and 4x16 (the 640-channel output ResBlocks with
 # SiLU, the 320-channel transformer norms and the out norm); the VAE decoder
@@ -275,7 +319,10 @@ GN_SHAPES = tuple(
      (TRAIN_B, 8, 32, 256, 32, False)) + tuple(
     # the PHOSC recognizer's resnet18 trunk at B=64 (16 a forward, 4 at each)
     (PHOSC_B, h, w, c, 32, False) for h, w, c in ((25, 125, 64), (13, 63, 128),
-                                                  (13, 63, 256), (13, 63, 512)))
+                                                  (13, 63, 256), (13, 63, 512))) + tuple(
+    # the writer-style encoder at one triplet batch, and the OCR in training
+    (STYLE_B, h, w, c, min(32, c), False) for h, w, c in STYLE_SITES) + tuple(
+    (OCR_TRAIN_B, h, w, c, 32, False) for h, w, c in OCR_SITES)
 # (B, H, W, C, groups) of B.6's sites: the UNet's two resolutions at B=16 and
 # 128, the decoder's levels at B=16, the encoder's at B=128, a ragged image
 # (5 x 13) and a ragged width (C=48 in 48 groups).
@@ -314,6 +361,11 @@ def nbytes(*tensors) -> int:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def stamp(phase: str) -> None:
+    """The whole run's seconds so far, after ``phase``."""
+    log(f"[phase {phase} done at {time.perf_counter() - T_START:.1f} s]")
 
 
 def launch_ms(fn, calls: int = 10, reps: int = 10) -> float:
@@ -2185,6 +2237,462 @@ def phase21_phosc(smi: str, work: str) -> dict:
                 test_imgs_per_s=sum(tfwd) / test_wall)
 
 
+def phase22a_renderer(smi: str) -> dict:
+    """(a) The PIL-free renderer: every committed check render (6 settings x
+    532 words, ``data/render_check.npz``) bitwise, then host ms per image
+    at 64x256 and 50x250 (writer-styled, jittered: the training renders)."""
+    import hashlib
+
+    import numpy as np
+
+    from worddiffusion_tpu_torch.data import make_glyph_table as mgt
+    from worddiffusion_tpu_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    ours = mgt.check_renders(synthetic.render_word)
+    wall = time.perf_counter() - t0
+    with np.load(mgt.CHECK_FILE) as z:
+        want = {k: z[k] for k in z.files}
+    equal = [str(a) == str(b) for a, b in zip(ours["sha256"], want["sha256"])]
+    bitmaps = {k: bool(np.array_equal(ours[k], want[k])) for k in want if k.startswith("bitmap_")}
+    words = mgt.WORD_LISTS[:200]
+    ms = {}
+    for h, w in ((64, 256), (50, 250)):
+        t0 = time.perf_counter()
+        for i, word in enumerate(words):
+            synthetic.render_word(word, h, w, seed=i, style=synthetic.writer_style(str(i % 16)))
+        ms[f"{h}x{w}"] = (time.perf_counter() - t0) / len(words) * 1e3
+    digest = hashlib.sha256(synthetic.render_word("affine", 64, 256).tobytes()).hexdigest()[:16]
+    log(f"renderer: {len(ours['sha256'])} settings x {len(mgt.WORD_LISTS)} words drawn in "
+        f"{wall:.2f} s, per setting bitwise the committed renders {equal}, bitmaps {bitmaps}; "
+        f"PIL loaded {'PIL' in sys.modules}; host ms per image (styled, jittered) "
+        f"{ {k: round(v, 4) for k, v in ms.items()} }; 'affine' sha256 {digest}")
+    assert all(equal) and len(equal) == len(mgt.CHECK_SETTINGS) and all(bitmaps.values())
+    return dict(ms=ms)
+
+
+def style_batch(n: int, h: int = 64, w: int = 256):
+    """n writer-styled renders in [-1, 1], NHWC float32 on the card."""
+    import numpy as np
+    import torch
+
+    from worddiffusion_tpu_torch.data import synthetic
+    from worddiffusion_tpu_torch.utils.images import normalize_to_unit
+
+    words = synthetic.word_list(n)
+    imgs = [synthetic.render_word(words[i], h, w, seed=i, style=synthetic.writer_style(str(i % 16)))
+            for i in range(n)]
+    return torch.from_numpy(normalize_to_unit(np.stack(imgs))).cuda()
+
+
+def phase22c_style_forward(smi: str) -> dict:
+    """(c) StyleEncoder(out_dim=4096) at B=48 (one triplet batch), seeded,
+    bf16: all-kernel against all-plain, 48 B.5 launches, every GroupNorm
+    input channels_last, 48 ``gn_cluster_kernel`` a forward by profiled
+    name and no library GroupNorm, device busy ms."""
+    import torch
+
+    from worddiffusion_tpu_torch.models.layers import GroupNorm32, init_weights_
+    from worddiffusion_tpu_torch.models.style import StyleEncoder
+
+    cl = torch.channels_last
+    enc = init_weights_(StyleEncoder(out_dim=4096), seed=0).cuda().to(memory_format=cl)
+    enc.eval().requires_grad_(False)
+    x = style_batch(STYLE_B)
+    layouts = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: layouts.append(
+        a[0].is_contiguous(memory_format=cl))) for m in enc.modules()
+        if isinstance(m, GroupNorm32)]
+    with torch.no_grad():
+        reset_counts()
+        out = enc(x)
+        counts = all_counts()
+        for h in hooks:
+            h.remove()
+        with plain_norms():
+            ref = enc(x)
+            plain_ms = cuda_ms(lambda: enc(x), reps=10)
+        ms = cuda_ms(lambda: enc(x), reps=10)
+        prof = device_profile(lambda: enc(x), calls=3)
+    rel = ((out - ref).abs().max() / ref.abs().max()).item()
+    gn_kernels = sum(n for k, n in prof["per_call"].items() if "gn_cluster_kernel" in k)
+    library_gn = [k for k in prof["per_call"] if "rowwisemoments" in k.lower()
+                  or "groupnorm" in k.lower().replace("_", "")]
+    log(f"style encoder B={STYLE_B} 64x256 out 4096: {tuple(out.shape)}; launches {counts}; "
+        f"all-kernel vs all-plain max_rel_err {rel:.6g} (tol {STYLE_REL_TOL}); GroupNorm inputs "
+        f"channels_last {sum(layouts)}/{len(layouts)}; {ms:.3f} ms a forward (plain B.5 "
+        f"{plain_ms:.3f}); profiled: device busy {prof['busy_ms']:.3f} ms, "
+        f"{prof['kernels']:.0f} kernels, {gn_kernels:.0f} gn_cluster_kernel a forward, library "
+        f"GroupNorm kernels {library_gn}; top (ms) {prof['top']} [{smi}]")
+    assert counts == only_groupnorm(STYLE_NORMS), counts
+    assert out.shape == (STYLE_B, 4096) and bool(torch.isfinite(out).all())
+    assert rel <= STYLE_REL_TOL, rel
+    assert len(layouts) == STYLE_NORMS and all(layouts), layouts
+    assert gn_kernels == STYLE_NORMS and not library_gn, (gn_kernels, library_gn)
+    return dict(paths={"style_forward": counts}, ms=ms, plain_ms=plain_ms,
+                busy_ms=prof["busy_ms"], kernels=prof["kernels"], rel=rel)
+
+
+def phase22d_train_style(smi: str, work: str) -> dict:
+    """(d) ``cli.train_style.main --synthetic 1`` at out_dim 4096, B=16
+    triplets, 2 epochs of 4 steps: 48 B.5 launches a forward (3 a step and
+    the corpus encodes) and 48 x 3 GroupNormFn backwards a step, s/step,
+    peak memory; its ``style_dict.npz`` conditions one ``cli.train
+    --wrdChrWrStyl 1 --style_dict`` step, and ``--allow_random_style 1`` one
+    more (a random StyleEncoder encodes up to 4 renders a writer)."""
+    import numpy as np
+    import torch
+
+    from worddiffusion_tpu_torch.cli import train as train_cli
+    from worddiffusion_tpu_torch.cli import train_style
+    from worddiffusion_tpu_torch.models.style import StyleEncoder
+
+    save = os.path.join(work, "style")
+    writers, per_writer = 16, 4
+    paths = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with count_forwards(StyleEncoder) as fwd:
+        run = train_style.main(["--synthetic", "1", "--writers", str(writers),
+                                "--samples_per_writer", str(per_writer), "--epochs", "2",
+                                "--batch_size", "16", "--out_dim", "4096", "--save_dir", save,
+                                "--device", "cuda"])
+        torch.cuda.synchronize()
+    paths["train_style_cli"] = all_counts()
+    gn_bwd = norm_counts()[2]
+    peak = torch.cuda.max_memory_allocated() - base
+    hist = run["history"][1]
+    steps = sum(h["steps"] for h in run["history"])
+    with np.load(os.path.join(save, "style_dict.npz")) as z:
+        styles = {k: z[k] for k in z.files}
+    log(f"train_style B=16 triplets, out 4096: {steps} steps, epoch 2 "
+        f"{hist['train_seconds'] / hist['steps']:.4f} s/step (host triplet assembly included), "
+        f"{len(fwd)} forwards, launches {paths['train_style_cli']}, GroupNormFn backward "
+        f"calls {gn_bwd}; history {run['history']}; style_dict {len(styles)} writers x "
+        f"{next(iter(styles.values())).shape}; peak memory above the phase's start "
+        f"{peak / 2 ** 30:.3f} GiB [{smi}]")
+    # three forwards a step; each epoch's retrieval and the final dict encode
+    # every writer's stack once
+    assert steps == 2 * writers * per_writer // 16 and len(fwd) == 3 * steps + 3 * writers, fwd
+    assert paths["train_style_cli"] == only_groupnorm(STYLE_NORMS * len(fwd)), paths
+    assert gn_bwd == STYLE_NORMS * 3 * steps, gn_bwd
+    assert sorted(styles) == sorted(str(i) for i in range(writers))
+    assert all(v.shape == (4096,) and np.isfinite(v).all() for v in styles.values())
+
+    def one_step(label, *extra):
+        reset_counts()
+        trainer = train_cli.build(train_cli.build_parser().parse_args([
+            "--preset", "iam", "--synthetic", "1", "--vocab_size", "8", "--samples_per_word",
+            "2", "--batch_size", "16", "--epochs", "1", "--wrdChrWrStyl", "1", "--save_path",
+            os.path.join(work, label), "--seed", "0", "--device", "cuda", *extra]))
+        built = all_counts()
+        reset_counts()
+        state = trainer.run(epochs=1)
+        torch.cuda.synchronize()
+        paths[label] = all_counts()
+        loss = torch.load(trainer.ckpt.path(1), map_location="cpu",
+                          weights_only=True)["metrics"]["loss"]
+        log(f"train --wrdChrWrStyl 1 {' '.join(extra)}: {state.step} step of B=16, loss "
+            f"{loss:.6g}; launches while building {built}, in the step {paths[label]} [{smi}]")
+        assert state.step == 1 and np.isfinite(loss)
+        step_norms = tuple(u + e for u, e in zip(UNET_NORMS, ENCODER_NORMS))
+        assert (paths[label]["gn"], paths[label]["conv"]) == step_norms, paths[label]
+        return trainer, built
+
+    trainer, _ = one_step("train_style_dict", "--style_dict",
+                          os.path.join(save, "style_dict.npz"))
+    assert all(np.array_equal(trainer.dataset.style_lookup[k], styles[k]) for k in styles)
+    _, built = one_step("train_random_style", "--allow_random_style", "1")
+    # 8 writers, 2 renders each, one random-encoder forward a writer
+    assert built == only_groupnorm(STYLE_NORMS * 8), built
+    paths["train_random_style"] = {k: v + built[k]
+                                   for k, v in paths["train_random_style"].items()}
+    return dict(paths=paths, s_per_step=hist["train_seconds"] / hist["steps"], peak_bytes=peak)
+
+
+def phase22e_train_ocr(smi: str, work: str, cli, gt: str) -> dict:
+    """(e) ``cli.train_ocr.main --synthetic 1``: 2 epochs of 2 steps at
+    B=32 (16 words x 4 renders), 10 B.5 launches a forward and 10
+    GroupNormFn backwards a step, the held-out exact match; its ``ocr.pt``
+    read by one regeneration batch through ``--ocr_pt`` (10 B.5 more for
+    the filter)."""
+    import torch
+
+    from worddiffusion_tpu_torch.cli import train_ocr
+    from worddiffusion_tpu_torch.models.ocr import CTCRecognizer
+
+    save = os.path.join(work, "ocr")
+    reset_counts()
+    with count_forwards(CTCRecognizer) as fwd:
+        run = train_ocr.main(["--synthetic", "1", "--vocab_size", "16", "--samples_per_word", "4",
+                              "--batch_size", "32", "--epochs", "2", "--eval_renders", "2",
+                              "--save_dir", save, "--device", "cuda"])
+        torch.cuda.synchronize()
+    paths = {"train_ocr_cli": all_counts()}
+    gn_bwd = norm_counts()[2]
+    steps = sum(h["steps"] for h in run["history"])
+    s_per_step = run["history"][1]["train_seconds"] / run["history"][1]["steps"]
+    log(f"train_ocr B=32: {steps} steps, {s_per_step:.4f} s/step (epoch 2, host renders "
+        f"included), {len(fwd)} forwards, launches {paths['train_ocr_cli']}, GroupNormFn backward "
+        f"calls {gn_bwd}; held-out exact match {run['metrics']['heldout_exact_match']} over "
+        f"{run['metrics']['eval_images']} images; metrics {run['metrics']} [{smi}]")
+    assert steps == 4 and len(fwd) == steps + 2, fwd
+    assert paths["train_ocr_cli"] == only_groupnorm(OCR_NORMS[0] * len(fwd)), paths["train_ocr_cli"]
+    assert gn_bwd == OCR_NORMS[0] * steps, gn_bwd
+
+    pt = os.path.join(save, "ocr.pt")
+    argv = ["--gt_file", gt, "--dump_path", os.path.join(work, "regen_ocr"), "--batch_size",
+            str(B), "--max_batches", "1", "--keep_rejected", "1", "--seed", "0", "--ddim", "10",
+            "--ocr_pt", pt]
+    regen, _ = cli.build(cli.build_parser().parse_args(argv))
+    sd = torch.load(pt, map_location="cpu", weights_only=True)
+    assert all(torch.equal(v.cpu(), sd[k]) for k, v in regen.sampler.ocr_apply.state_dict().items())
+    del regen
+    reset_counts()
+    stats = cli.main(argv)
+    torch.cuda.synchronize()
+    paths["regen_ocr_pt"] = all_counts()
+    log(f"regen CLI --ocr_pt (train_ocr's) --ddim 10: {stats.generated} generated, "
+        f"{stats.accepted} accepted by the trained filter; launches {paths['regen_ocr_pt']} "
+        f"[{smi}]")
+    assert stats.generated == B
+    assert paths["regen_ocr_pt"]["gn"] == 10 * UNET_NORMS[0] + DECODER_NORMS[0] + OCR_NORMS[0]
+    return dict(paths=paths, s_per_step=s_per_step,
+                exact=run["metrics"]["heldout_exact_match"], pt=pt)
+
+
+def phase22f_train_vae(smi: str, work: str) -> dict:
+    """(f) ``cli.train_vae.main --synthetic 1`` at full width (SD's VAE),
+    B=16, 2 epochs of one step: 8 B.5 and 44 B.6 launches a forward (encode
+    4 + 18, decode 4 + 26) and as many Function backwards a step, s/step,
+    peak memory; its ``vae.pt`` read by ``build_latent_cache --synthetic 1
+    --vae_pt``."""
+    import numpy as np
+    import torch
+
+    from worddiffusion_tpu_torch.cli import build_latent_cache as cache_cli
+    from worddiffusion_tpu_torch.cli import train_vae
+
+    save = os.path.join(work, "vae_trained")
+    per_fwd = tuple(e + d for e, d in zip(ENCODER_NORMS, DECODER_NORMS))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    run = train_vae.main(["--synthetic", "1", "--vocab_size", "8", "--samples_per_word", "2",
+                          "--batch_size", "16", "--epochs", "2", "--log_every", "1", "--save_dir",
+                          save, "--device", "cuda"])
+    torch.cuda.synchronize()
+    paths = {"train_vae_cli": all_counts()}
+    gn_bwd, conv_bwd = norm_counts()[2:]
+    peak = torch.cuda.max_memory_allocated() - base
+    steps = run["metrics"]["steps"]
+    s_per_step = run["epoch_seconds"][1]  # epoch 2: one step of B=16
+    log(f"train_vae B=16 full width: {steps} steps, epoch 2 {s_per_step:.4f} s/step, launches "
+        f"{paths['train_vae_cli']}, Function backward calls "
+        f"B.5 {gn_bwd} B.6 {conv_bwd}; metrics {run['metrics']}; peak memory above the phase's "
+        f"start {peak / 2 ** 30:.3f} GiB [{smi}]")
+    assert steps == 2 and np.isfinite(run["metrics"]["heldout_mse"])
+    # the steps' forwards and the held-out probe's
+    assert (paths["train_vae_cli"]["gn"], paths["train_vae_cli"]["conv"]) == tuple(
+        n * (steps + 1) for n in per_fwd), paths["train_vae_cli"]
+    assert (gn_bwd, conv_bwd) == tuple(n * steps for n in per_fwd), (gn_bwd, conv_bwd)
+
+    pt = os.path.join(save, "vae.pt")
+    argv = ["--preset", "iam", "--synthetic", "1", "--vocab_size", "4", "--samples_per_word",
+            "4", "--vae_pt", pt, "--batch_size", "16", "--deterministic", "1", "--out",
+            os.path.join(work, "vae_trained_cache.npz"), "--device", "cuda"]
+    _, vae = cache_cli.build(cache_cli.build_parser().parse_args(argv))
+    sd = torch.load(pt, map_location="cpu", weights_only=True)
+    assert sd.keys() == vae.state_dict().keys()
+    assert all(torch.equal(v.cpu(), sd[k]) for k, v in vae.state_dict().items())
+    del vae
+    reset_counts()
+    cache = cache_cli.main(argv)
+    torch.cuda.synchronize()
+    paths["cache_vae_pt"] = all_counts()
+    log(f"build_latent_cache --synthetic 1 --vae_pt (train_vae's): {len(cache)} latents, "
+        f"launches {paths['cache_vae_pt']} [{smi}]")
+    assert len(cache) == 16
+    assert (paths["cache_vae_pt"]["gn"], paths["cache_vae_pt"]["conv"]) == ENCODER_NORMS
+    return dict(paths=paths, s_per_step=s_per_step, peak_bytes=peak)
+
+
+def phase22g_train_glyphs(smi: str, work: str) -> dict:
+    """(g) ``cli.train --synthetic 1 --charImages 1`` at ``iam`` width
+    (glyph crops as 10 more context tokens), B=32 from rendered words
+    encoded each step, 2 epochs of 2 steps and a DDIM-10 preview; a
+    max_steps stop and a resume bitwise the uninterrupted run."""
+    import torch
+
+    from worddiffusion_tpu_torch.cli import train as train_cli
+
+    def args(save: str, *extra: str):
+        return train_cli.build_parser().parse_args([
+            "--preset", "iam", "--synthetic", "1", "--vocab_size", "8", "--samples_per_word",
+            "8", "--charImages", "1", "--batch_size", "32", "--epochs", "2",
+            "--ckpt_every_epochs", "2", "--preview_ddim", "10", "--save_path",
+            os.path.join(work, save), "--seed", "0", "--device", "cuda", *extra])
+
+    trainer = train_cli.build(args("glyph"))
+    assert trainer.exp.unet.use_char_images and trainer.dataset.char_images
+    glyph0 = trainer.init_state().model.glyph_conv1.weight.detach().cpu().clone()
+    reset_counts()
+    state = trainer.run(epochs=2)
+    torch.cuda.synchronize()
+    counts = all_counts()
+    gn_bwd, conv_bwd = norm_counts()[2:]
+    steps = state.step
+    k_s, k_n = trainer.epoch_seconds[1]
+    step_norms = [u + e for u, e in zip(UNET_NORMS, ENCODER_NORMS)]
+    preview = [10 * u + d for u, d in zip(UNET_NORMS, DECODER_NORMS)]
+    log(f"train --synthetic 1 --charImages 1 B=32: {steps} steps, {k_s / k_n:.4f} s/step "
+        f"(epoch 2, renders and encodes included); launches {counts}, Function backward calls "
+        f"B.5 {gn_bwd} B.6 {conv_bwd} [{smi}]")
+    assert steps == 4 and (counts["gn"], counts["conv"]) == tuple(
+        n * steps + p for n, p in zip(step_norms, preview)), counts
+    assert (gn_bwd, conv_bwd) == tuple(n * steps for n in UNET_NORMS), (gn_bwd, conv_bwd)
+    assert counts["ffn_bwd"] == 4 * steps and counts["attn"] == 8 * steps + 8 * 10, counts
+
+    part = train_cli.build(args("glyph_resume")).run(epochs=2, max_steps=3)
+    assert part.step == 3, part.step
+    resumed = train_cli.build(args("glyph_resume", "--loadPrev", "1")).run(epochs=2, resume=True)
+    diff = max((a - b).abs().max().item() for a, b in
+               zip(resumed.model.parameters(), state.model.parameters()))
+    moved = not torch.equal(state.model.glyph_conv1.weight.detach().cpu(), glyph0)
+    log(f"train --charImages 1 resume: stopped at 3, resumed to {resumed.step}; max param diff "
+        f"vs the uninterrupted run {diff:.6g} (must be bitwise 0); glyph_conv1 weight moved "
+        f"{moved}")
+    assert resumed.step == steps and diff == 0 and moved, (diff, moved)
+    return dict(paths={"train_char_images": counts}, s_per_step=k_s / k_n)
+
+
+def phase22h_evaluate(smi: str, work: str, real_dir: str, phosc_pkl: str, ocr_pt: str) -> dict:
+    """(h) ``cli.evaluate.main`` over phase 16's word PNGs (real) against
+    phase 16's regeneration dump (``{img}_{writer}_{word}.png``), with a
+    seeded torchvision-layout Inception ``.pt``, phase 21's PHOSC checkpoint
+    and 22(e)'s OCR; then the style-encoder fallback. Every JSON key, images/s
+    per featurizer, B.5 launches (16 a PHOSC batch, 10 an OCR batch, 48 a
+    style-encoder batch); and the Inception featurizer on the card against
+    the host."""
+    import logging
+    import shutil
+
+    import torch
+
+    from worddiffusion_tpu_torch.cli import evaluate
+    from worddiffusion_tpu_torch.eval.inception import (load_inception_featurizer,
+                                                        seeded_torchvision_state_dict)
+
+    fake = os.path.join(work, "eval_fake")
+    os.makedirs(fake)
+    dump = os.path.join(work, "regen_ddim")
+    for d in (dump, os.path.join(dump, "rejected")):
+        for n in os.listdir(d):
+            if n.endswith(".png"):
+                shutil.copy(os.path.join(d, n), fake)
+    inc = os.path.join(work, "inception.pt")
+    torch.save(seeded_torchvision_state_dict(0), inc)
+    # the featurizer on the card (fp32, TF32 off) against the host
+    x = evaluate._load_dir(real_dir, 64, 256, limit=8)[0]
+    on_card = load_inception_featurizer(inc, "cuda")(x)
+    on_host = load_inception_featurizer(inc, "cpu")(x)
+    inc_rel = float(abs(on_card - on_host).max() / abs(on_host).max())
+    log(f"inception features of 8 real crops, card vs host: max_rel_err {inc_rel:.6g} (tol "
+        f"{INCEPTION_TOL}) [{smi}]")
+    assert inc_rel <= INCEPTION_TOL, inc_rel
+    lines = []
+
+    class Grab(logging.Handler):
+        def emit(self, record):
+            if record.getMessage().startswith("featurizer "):
+                lines.append(record.getMessage())
+
+    handler, root = Grab(), logging.getLogger()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        base = ["--real_dir", real_dir, "--fake_dir", fake, "--device", "cuda"]
+        reset_counts()
+        full = evaluate.main(base + ["--inception_weights", inc, "--phosc_params", phosc_pkl,
+                                     "--phosc_trunk", "resnet18", "--ocr_pt", ocr_pt])
+        torch.cuda.synchronize()
+        paths = {"evaluate": all_counts()}
+        reset_counts()
+        fallback = evaluate.main(base)
+        torch.cuda.synchronize()
+        paths["evaluate_style"] = all_counts()
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    n_real, n_fake = (sum(n.endswith(".png") for n in os.listdir(d)) for d in (real_dir, fake))
+    bs = 32
+    phosc_batches = -(-n_real // bs) + -(-n_fake // bs) + -(-full.get("phosc_zsl_n", n_fake) // bs)
+    log(f"evaluate: {n_real} real, {n_fake} generated; JSON {full}; fallback JSON {fallback}; "
+        f"{lines}; launches {paths} [{smi}]")
+    assert set(full) >= {"fid_inception", "fid_phosc", "ocr_exact_match", "phosc_zsl_accuracy"}
+    assert set(full) <= {"fid_inception", "fid_phosc", "ocr_exact_match", "phosc_zsl_accuracy",
+                         "phosc_zsl_n", "phosc_zsl_note"}
+    assert list(fallback) == ["fid_style_encoder"] and len(lines) == 7, lines
+    assert all(v == v for v in list(full.values()) + list(fallback.values()))  # no NaN
+    assert paths["evaluate"]["gn"] == PHOSC_NORMS * phosc_batches + OCR_NORMS[0] * -(-n_fake // bs)
+    assert paths["evaluate_style"]["gn"] == STYLE_NORMS * (-(-n_real // bs) + -(-n_fake // bs))
+    return dict(paths=paths, json=full, fallback=fallback, rates=lines)
+
+
+def phase22i_masked(smi: str, unet, sampler, words) -> dict:
+    """(i) ``diffusion.masking.masked_ddpm_sample`` with the ``iam`` UNet
+    (seeded, B=16) over the preset's 600 steps: 599 UNet calls, kernels per
+    call, time."""
+    import torch
+
+    from worddiffusion_tpu_torch.diffusion.masking import masked_ddpm_sample
+
+    x, _, ctx, wid, _ = unet_inputs(sampler, words, phosc=False)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    ref = torch.randn(x.shape, generator=g, device="cuda") * 0.5 + 0.3
+    schedule = sampler.schedule
+    with torch.no_grad():
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = masked_ddpm_sample(schedule, lambda xx, tt: unet(xx, tt, ctx, wid).float(), ref,
+                                    generator=g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = all_counts()
+    calls = schedule.num_steps - 1
+    per_call = {k: v / calls for k, v in counts.items()}
+    log(f"masked_ddpm_sample iam B={B}: {calls} UNet calls in {wall:.3f} s "
+        f"({wall / calls * 1e3:.3f} ms a call); launches {counts}, per call {per_call}; output "
+        f"finite {bool(torch.isfinite(out).all())} [{smi}]")
+    assert calls == 599 and bool(torch.isfinite(out).all())
+    assert counts == dict(ffn=4 * calls, ffn_bwd=0, attn=8 * calls, fold=0, fold_b7=0,
+                          gn=UNET_NORMS[0] * calls, conv=UNET_NORMS[1] * calls, geglu=0), counts
+    return dict(paths={"masked_sample": counts}, s=wall, ms_per_call=wall / calls * 1e3)
+
+
+def phase22_side(smi: str, work: str, cli, gt: str, sampler, words, real_dir: str) -> dict:
+    """Phase 22: the synthetic renderer, the writer-style encoder, the OCR,
+    VAE and style trainers, the evaluation CLI and the masked sampler."""
+    out = dict(renderer=phase22a_renderer(smi))
+    out["style"] = phase22c_style_forward(smi)
+    out["train_style"] = phase22d_train_style(smi, work)
+    out["train_ocr"] = phase22e_train_ocr(smi, work, cli, gt)
+    out["train_vae"] = phase22f_train_vae(smi, work)
+    out["glyphs"] = phase22g_train_glyphs(smi, work)
+    out["evaluate"] = phase22h_evaluate(smi, work, real_dir,
+                                        os.path.join(work, "phosc_resnet18", "best_params.pkl"),
+                                        out["train_ocr"]["pt"])
+    out["masked"] = phase22i_masked(smi, sampler.model, sampler, words)
+    out["paths"] = {k: v for part in out.values() if "paths" in part
+                    for k, v in part["paths"].items()}
+    return out
+
+
 def png_size(path: str) -> tuple[int, int]:
     with open(path, "rb") as f:
         head = f.read(24)
@@ -2380,11 +2888,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    stamp("1")
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     lib = build.build()
     log(f"build: {lib} in {time.perf_counter() - t0:.2f} s")
 
+    stamp("2")
     # -- 3. kernel vs plain ------------------------------------------------
     ffn_rows = []
     for i, m in enumerate(FFN_SHAPES + FFN_SMALL_SHAPES):
@@ -2424,25 +2934,31 @@ def main() -> int:
     # sub-layer and each attention reaches eps
     init_weights_(sampler.model, seed=0, zero_init=False)
 
+    stamp("3")
     # -- 4. whole UNet: all kernels vs all plain ---------------------------
     unet = unet_check(smi, sampler.model, unet_inputs(sampler, words, phosc=False), "iam")
     assert unet["kernels"] == UNET_KERNELS, (unet["kernels"], UNET_KERNELS)
 
+    stamp("4")
     # -- 5. main path ------------------------------------------------------
     regen_iam = drive_regen(smi, regen, samples, seed=0, label="iam")
     batch_seconds(smi, sampler, words[:B], "iam")
 
+    stamp("5")
     # -- 6. FFN forward + backward: kernel vs plain -------------------------
     bwd = phase6_ffn_backward(smi)
 
+    stamp("6")
     # -- 7. training main path -----------------------------------------------
     n = TRAIN_B * TRAIN_STEPS_PER_EPOCH + TRAIN_B // 2  # a half batch to drop_remainder
     corpus = write_latent_corpus(work, n)
     train = phase7_train(smi, work, corpus)
 
+    stamp("7")
     # -- 8. attention kernel vs plain -----------------------------------------
     attn = phase8_attention(smi)
 
+    stamp("8")
     # -- 9. iam_phosc regeneration ---------------------------------------------
     regen_p, samples_p = cli.build(regen_cli_args(cli, gt, os.path.join(work, "regen_phosc"),
                                                   "--preset", "iam_phosc"))
@@ -2456,19 +2972,24 @@ def main() -> int:
     batch_seconds(smi, sampler_p, words[:B], "iam_phosc", phosc_ids(words[:B], "eng"))
     del regen_p, sampler_p
 
+    stamp("9")
     # -- 10. iam_phosc training --------------------------------------------------
     train_p = phase10_phosc_train(smi, work, corpus)
 
+    stamp("10")
     # -- 11. fold attention kernel vs plain ----------------------------------------
     fold = phase11_fold(smi)
 
+    stamp("11")
     # -- 12. iam_fold regeneration ---------------------------------------------------
     register_fold_preset()
     regen_fold = phase12_fold_regen(smi, cli, gt, work, words)
 
+    stamp("12")
     # -- 13. iam_fold training ----------------------------------------------------------
     train_f = phase13_fold_train(smi, work, corpus)
 
+    stamp("13")
     # -- 14. GroupNorm (B.5) and GN -> SiLU -> conv3x3 (B.6) kernels vs plain ---------------
     norms = phase14_norms(smi)
 
@@ -2492,31 +3013,43 @@ def main() -> int:
         f"{ffn_rows[0]['plain_ms']:.4f}), M={TRAIN_B * 256} {f_train['ms']:.4f} ms (target 0.50); "
         f"geglu_ffn M={TRAIN_B * 256} {g_train['ms']:.4f} ms")
 
+    stamp("14")
     # -- 15. the whole VAE, all kernels vs all plain -------------------------------------
     vae = phase15_vae(smi)
 
+    stamp("15")
     # -- 16. building the latent cache through its CLI ---------------------------------
     images = write_image_corpus(work)
     built = phase16_cache(smi, work, images)
     phase16_ddim_regen(smi, cli, gt, work, images[2])
 
+    stamp("16")
     # -- 17. training from word images through the train CLI ------------------------------
     train_i = phase17_train_images(smi, work, images, built["cache"])
 
+    stamp("17")
     # -- 18. the ResBlock variants' UNet calls, all kernels vs all plain ---------------------
     variants = phase18_variants(smi, sampler, words)
 
+    stamp("18")
     # -- 19. conditioned training through the train CLI -----------------------------------
     cond = cond_corpus(work, corpus)
     cond_train = phase19_cond_train(smi, work, cond)
 
+    stamp("19")
     # -- 20. the sampling CLI --------------------------------------------------------------
     sampled = phase20_sample(smi, work, images[2], os.path.join(images[0], "c01-0000u-00.png"),
                              cond_train, cond[2])
 
+    stamp("20")
     # -- 21. the PHOSC recognizer: forward, train_phosc, train_charcounter, test mode ------------
     phosc = phase21_phosc(smi, work)
 
+    stamp("21")
+    # -- 22. renderer, style encoder, side-model trainers, evaluation, masked sampling ---------
+    side = phase22_side(smi, work, cli, gt, sampler, words, images[0])
+
+    stamp("22")
     paths = ("regenerate", "regenerate_iam_phosc", "regenerate_iam_fold", "train",
              "train_iam_phosc", "train_iam_fold", "build_latent_cache", "train_from_images")
     # the paths of phases 18-20, each with its counts under chip_smoke's keys
@@ -2524,7 +3057,7 @@ def main() -> int:
                                       ffn_bwd=0, fold_b7=0, geglu=0) for k, v in variants.items()},
                  **{f"train_{k}": v for k, v in cond_train.items()},
                  **{k: dict(v, ffn_bwd=0) for k, v in sampled.items()},
-                 **phosc["paths"]}
+                 **phosc["paths"], **side["paths"]}
 
     def by_path(*counts, key=None):
         """The earlier paths' counts in order, then the new paths' ``key``."""
@@ -2582,7 +3115,16 @@ def main() -> int:
         f"{phosc['step_busy_ms']:.3f} ms, plain B.5 forward {phosc['step_plain_busy_ms']:.3f}, "
         f"{phosc['step_kernels']:.0f} kernels; peak above start "
         f"{phosc['peak_bytes'] / 2 ** 30:.3f} GiB), test mode {phosc['test_imgs_per_s']:.1f} "
-        f"images/s"
+        f"images/s; renderer ms/image "
+        + ", ".join(f"{k} {v:.4f}" for k, v in side["renderer"]["ms"].items())
+        + f"; StyleEncoder B={STYLE_B} forward {side['style']['ms']:.3f} ms (plain B.5 "
+        f"{side['style']['plain_ms']:.3f}), busy {side['style']['busy_ms']:.3f} ms; s/step "
+        f"train_style {side['train_style']['s_per_step']:.4f} (peak "
+        f"{side['train_style']['peak_bytes'] / 2 ** 30:.3f} GiB), train_ocr "
+        f"{side['train_ocr']['s_per_step']:.4f}, train_vae {side['train_vae']['s_per_step']:.4f} "
+        f"(peak {side['train_vae']['peak_bytes'] / 2 ** 30:.3f} GiB), --charImages "
+        f"{side['glyphs']['s_per_step']:.4f}; masked_ddpm_sample {side['masked']['s']:.3f} s "
+        f"({side['masked']['ms_per_call']:.3f} ms a UNet call)"
         + f"; whole run {time.perf_counter() - T_START:.1f} s")
 
     def entry(name, source, replaces, paths_, rows, row, library_ms):

@@ -231,3 +231,68 @@ def test_fid_copies_equal():
     assert np.array_equal(fid.phosc_resize(imgs), jfid.phosc_resize(imgs))
     full = rng.uniform(-1, 1, (2, 50, 250, 3)).astype(np.float32)
     assert np.array_equal(fid.phosc_resize(full), full)  # already the recognizer's size
+
+
+def test_native_numpy_bodies_equal(monkeypatch):
+    """``data/native.py``'s numpy bodies against the JAX module's fallbacks
+    (its ctypes library switched off), value for value."""
+    from worddiffusion_tpu.data import native as jnative
+    from worddiffusion_tpu_torch.data import native
+
+    monkeypatch.setattr(jnative, "preferred", lambda: False)
+    rng = np.random.default_rng(0)
+    imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in ((30, 90), (64, 300))]
+    assert np.array_equal(native.batch_resize_pad_normalize(imgs, 64, 256),
+                          jnative.batch_resize_pad_normalize(imgs, 64, 256))
+    assert np.array_equal(native.batch_normalize(imgs[0]), jnative.batch_normalize(imgs[0]))
+    f = rng.uniform(-0.2, 1.2, (2, 5, 7)).astype(np.float32)
+    assert np.array_equal(native.batch_denormalize(f), jnative.batch_denormalize(f))
+    xs = np.array([-3, 0, 4, 89, 200])
+    assert np.array_equal(native.vertical_lines(imgs[0].copy(), xs, 7),
+                          jnative.vertical_lines(imgs[0].copy(), xs, 7))
+
+
+def test_style_retrieval_accuracy_equal():
+    from worddiffusion_tpu.cli import train_style as jtrain_style
+    from worddiffusion_tpu_torch.cli import train_style
+
+    rng = np.random.default_rng(1)
+    vecs = {str(w): rng.normal(w % 3, 1.0, (int(rng.integers(1, 5)), 6)).astype(np.float32)
+            for w in range(7)}
+    assert (train_style.retrieval_accuracy(vecs)
+            == jtrain_style._retrieval_accuracy(vecs))
+
+
+def test_synthetic_copies_equal():
+    """``data/synthetic.py``'s copies (the word lists, seeds, writer styles,
+    corpora) against their originals; then ``make_glyph_table.pil_render_word``
+    (a copy of the JAX ``render_word``, the generator's reference)."""
+    from worddiffusion_tpu.data import synthetic as jsyn
+    from worddiffusion_tpu_torch.configs.config import DataConfig as PortDataConfig
+    from worddiffusion_tpu_torch.data import synthetic
+
+    for name in ("WORDS_200", "WORDS_NOR", "WORDS_CVL"):
+        assert getattr(synthetic, name) == getattr(jsyn, name), name
+    for name in ("x", "writer-3", "ø"):
+        assert synthetic.stable_seed(name) == jsyn.stable_seed(name)
+        assert synthetic.writer_style(name) == jsyn.writer_style(name)
+    for lang in ("eng", "nor", "cvl", "gw"):
+        for n in (5, 204, 300):
+            assert synthetic.word_list(n, lang) == jsyn.word_list(n, lang)
+    for alphabet, phos in (("eng_main", "eng"), ("cvl", "eng"), ("nor", "nor"), ("gw", "gw")):
+        cfg = PortDataConfig(alphabet=alphabet, phos_version=phos)
+        assert synthetic.corpus_lang(cfg) == jsyn.corpus_lang(cfg)
+    assert [tuple(vars(s).values()) for s in synthetic.synthetic_corpus(["a", "b"], 3, 2)] == [
+        tuple(vars(s).values()) for s in jsyn.synthetic_corpus(["a", "b"], 3, 2)]
+
+
+def test_pil_render_word_copy_equal():
+    from worddiffusion_tpu.data import synthetic as jsyn
+    from worddiffusion_tpu_torch.data import make_glyph_table
+
+    font, _ = make_glyph_table.load_font()
+    words = jsyn.WORDS_200 + jsyn.WORDS_NOR + jsyn.WORDS_CVL
+    for i, word in enumerate(words[::37]):
+        style = jsyn.writer_style(str(i)) if i % 2 else None
+        assert np.array_equal(make_glyph_table.pil_render_word(font, word, seed=i, style=style),
+                              jsyn.render_word(word, seed=i, style=style))

@@ -634,7 +634,10 @@ def test_block_backward_reaches_projections_through_the_fold_kernel(cuda):
 GN_SHAPES = [(16, 8, 32, 640, 32, True), (128, 4, 16, 640, 32, True), (16, 8, 32, 320, 32, False),
              (16, 64, 256, 128, 32, True), (16, 32, 128, 256, 32, True),
              (16, 8, 32, 512, 32, False), (2, 5, 13, 48, 48, False), (2, 40, None, 96, 32, True),
-             (128, 8, 32, 256, 32, False)]  # the CTC aux head's norms (eps 1e-6, no SiLU)
+             (128, 8, 32, 256, 32, False),  # the CTC aux head's norms (eps 1e-6, no SiLU)
+             # the writer-style encoder's widest site (C = 2048, B.5's widest, at S = 16)
+             # and its narrowest (C = 64 in 32 groups of 2)
+             (48, 2, 8, 2048, 32, False), (48, 16, 64, 64, 32, False)]
 
 
 def _gn_inputs(shape, device, seed=0):
@@ -960,3 +963,106 @@ def test_phoscnet_runs_every_groupnorm_through_the_kernel(cuda):
     assert abs(loss - plain_loss) <= chip_smoke.PHOSC_REL_TOL * abs(plain_loss)
     for a, b in zip(grads, plain_grads):
         assert (a - b).abs().max().item() <= chip_smoke.PHOSC_REL_TOL * b.abs().max().item()
+
+
+def test_style_encoder_runs_every_groupnorm_through_the_kernel(cuda):
+    """StyleEncoder(out_dim=4096) at its full width (bf16, B=8 of 64x256): 48
+    B.5 launches a forward, the output within chip_smoke's STYLE_REL_TOL of
+    the plain norms'; one triplet step (three forwards) makes 144 more and
+    144 GroupNormFn backward calls, its loss finite. (The hinge loss itself
+    is not compared: it is a small difference of two squared distances
+    near 10^3, which the forwards' bf16 difference can move past 0.)"""
+    from unittest import mock
+
+    from worddiffusion_tpu_torch.cli.train_style import make_optimizer, train_step
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.models.style import StyleEncoder
+    from worddiffusion_tpu_torch.ops import groupnorm
+
+    enc = init_weights_(StyleEncoder(out_dim=4096), seed=0).to(
+        cuda, memory_format=torch.channels_last)
+    x = chip_smoke.style_batch(8)
+    n0 = groupnorm.launches
+    with torch.no_grad():
+        out = enc(x)
+        torch.cuda.synchronize()
+        assert groupnorm.launches - n0 == 48
+        with mock.patch.object(groupnorm, "fused_groupnorm", groupnorm.groupnorm_reference):
+            want = enc(x)
+    err = (out - want).abs().max().item()
+    assert err <= chip_smoke.STYLE_REL_TOL * want.abs().max().item(), err
+
+    n0, b0 = groupnorm.launches, groupnorm.bwd_calls
+    loss = train_step(enc, make_optimizer(enc, 1e-4), x[:2], x[2:4], x[4:6], 0.2)
+    torch.cuda.synchronize()
+    assert groupnorm.launches - n0 == 144 and groupnorm.bwd_calls - b0 == 144
+    assert bool(torch.isfinite(loss))
+    assert all(bool(torch.isfinite(p).all()) for p in enc.parameters())
+
+
+def test_ocr_train_step_runs_the_norm_kernels(cuda):
+    """The recognizer's training step on the card: 10 B.5 launches and 10
+    GroupNormFn backward calls, dropout drawn on the card from a generator
+    (the same seed gives the same step), the clip at 1.0."""
+    from worddiffusion_tpu_torch.cli import train_ocr
+    from worddiffusion_tpu_torch.data.alphabets import OCR_ENG, OCR_ENG_BLANK
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.models.ocr import CTCRecognizer
+    from worddiffusion_tpu_torch.ops import groupnorm
+    from worddiffusion_tpu_torch.ops.ctc import encode_ocr_labels
+
+    words = ["the", "of", "and", "word"]
+    labels, lens = (torch.from_numpy(a).to(cuda) for a in encode_ocr_labels(words, OCR_ENG, 42))
+    x = chip_smoke.style_batch(4)[..., :1].contiguous()
+
+    def run():
+        model = init_weights_(CTCRecognizer(num_classes=len(OCR_ENG)), seed=0).to(
+            cuda, memory_format=torch.channels_last)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        n0, b0 = groupnorm.launches, groupnorm.bwd_calls
+        loss = train_ocr.train_step(model, train_ocr.make_optimizer(model, 3e-4), x, labels,
+                                    lens, OCR_ENG_BLANK, gen)
+        torch.cuda.synchronize()
+        assert groupnorm.launches - n0 == 10 and groupnorm.bwd_calls - b0 == 10
+        return loss, [p.detach().clone() for p in model.parameters()]
+
+    (l1, p1), (l2, p2) = run(), run()
+    assert bool(torch.isfinite(l1)) and torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for a, b in zip(p1, p2))
+
+
+def test_vae_train_step_runs_the_norm_kernels(cuda):
+    """The SD VAE's training step at its full width (B=2 of 64x256): 8 B.5
+    and 44 B.6 launches (encode 4 + 18, decode 4 + 26) and as many
+    Function backward calls; the loss finite."""
+    from worddiffusion_tpu_torch.cli import train_vae
+    from worddiffusion_tpu_torch.configs.config import VAEConfig
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.models.vae import AutoencoderKL
+    from worddiffusion_tpu_torch.ops import gn_conv, groupnorm
+
+    vae = init_weights_(AutoencoderKL(VAEConfig(), with_encoder=True), seed=0).to(
+        cuda, memory_format=torch.channels_last)
+    x = chip_smoke.style_batch(2)
+    before = (groupnorm.launches, gn_conv.launches, groupnorm.bwd_calls, gn_conv.bwd_calls)
+    loss, mse, kl = train_vae.train_step(vae, train_vae.make_optimizer(vae, 1e-4), x, 1e-6,
+                                         generator=torch.Generator(device=cuda).manual_seed(0))
+    torch.cuda.synchronize()
+    after = (groupnorm.launches, gn_conv.launches, groupnorm.bwd_calls, gn_conv.bwd_calls)
+    assert tuple(b - a for a, b in zip(before, after)) == (8, 44, 8, 44)
+    assert all(bool(torch.isfinite(v)) for v in (loss, mse, kl))
+
+
+def test_inception_on_the_card_matches_the_host(cuda, tmp_path):
+    """The Inception featurizer (fp32 convs, TF32 off) on seeded
+    torchvision-layout weights: the card's features within chip_smoke's
+    INCEPTION_TOL of the host's, on a 64x256 batch resized up to 299."""
+    from worddiffusion_tpu_torch.eval.inception import (load_inception_featurizer,
+                                                        seeded_torchvision_state_dict)
+
+    torch.save(seeded_torchvision_state_dict(0), tmp_path / "inception.pt")
+    x = chip_smoke.style_batch(4).cpu().numpy()
+    on_card = load_inception_featurizer(str(tmp_path / "inception.pt"), cuda)(x)
+    on_host = load_inception_featurizer(str(tmp_path / "inception.pt"), "cpu")(x)
+    assert on_card.shape == (4, 2048)
+    assert abs(on_card - on_host).max() <= chip_smoke.INCEPTION_TOL * abs(on_host).max()

@@ -4,8 +4,9 @@ the context-folded iam and the PHOSC layout), the train CLI (from a latent
 cache, with the CTC aux loss and reference latents, and from PNGs), the
 sampling CLI and the latent-cache CLI run a tiny slice on the CPU, in a
 fresh interpreter, with tiny presets registered in the port's own
-``presets.PRESETS``, and the recognizer CLIs train and test a narrow
-PHOSCNet; then jax, flax, optax, PIL, safetensors, OpenCV (cv2)
+``presets.PRESETS``, the recognizer CLIs train and test a narrow
+PHOSCNet, and the renderer, the side-model trainers, the evaluation CLI and
+the masked sampler run; then jax, flax, optax, PIL, safetensors, OpenCV (cv2)
 and every ``worddiffusion_tpu`` module must be absent. A static scan of the port's
 sources and ``chip_smoke.py`` finds no import of ``worddiffusion_tpu``."""
 
@@ -201,6 +202,67 @@ print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "
 """
 
 
+SIDE_SCRIPT = r"""
+import functools, hashlib, os, sys, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from worddiffusion_tpu_torch.cli import evaluate, train_ocr, train_style, train_vae
+from worddiffusion_tpu_torch.configs import presets
+from worddiffusion_tpu_torch.configs.config import DataConfig, Experiment, VAEConfig
+from worddiffusion_tpu_torch.data import make_glyph_table, synthetic
+from worddiffusion_tpu_torch.diffusion import masking
+from worddiffusion_tpu_torch.diffusion.schedule import NoiseSchedule
+from worddiffusion_tpu_torch.eval import inception
+from worddiffusion_tpu_torch.models import ocr, style
+from worddiffusion_tpu_torch.utils.images import encode_png
+
+# the renderer draws the committed check renders of one setting without PIL
+check = np.load(make_glyph_table.CHECK_FILE)
+digest = hashlib.sha256()
+for si, wi, word, h, w, jitter, st in make_glyph_table.render_settings():
+    if si == 2:
+        digest.update(synthetic.render_word(word, h, w, seed=wi, jitter=jitter,
+                                            style=st)[..., 0].tobytes())
+assert digest.hexdigest() == str(check["sha256"][2])
+
+out = tempfile.mkdtemp()
+ocr.CTCRecognizer = functools.partial(ocr.CTCRecognizer, widths=(8, 16, 16, 16, 32),
+                                      dtype=torch.float32)
+train_ocr.main(["--synthetic", "1", "--vocab_size", "2", "--samples_per_word", "1",
+                "--batch_size", "2", "--epochs", "1", "--eval_renders", "1", "--save_dir",
+                os.path.join(out, "ocr"), "--device", "cpu"])
+presets.PRESETS["tiny"] = lambda: Experiment(
+    vae=VAEConfig(base_channels=32, channel_mult=(1, 2, 4, 4), num_res_blocks=1,
+                  dtype="float32"), data=DataConfig(max_chars=10, alphabet="eng_main"))
+train_vae.main(["--preset", "tiny", "--synthetic", "1", "--vocab_size", "2",
+                "--samples_per_word", "1", "--batch_size", "2", "--epochs", "1", "--save_dir",
+                os.path.join(out, "vae"), "--device", "cpu"])
+style.StyleEncoder = functools.partial(style.StyleEncoder, dtype=torch.float32)
+train_style.main(["--synthetic", "1", "--writers", "2", "--samples_per_writer", "2",
+                  "--img_size", "32,64", "--out_dim", "8", "--epochs", "1", "--batch_size", "2",
+                  "--save_dir", os.path.join(out, "style"), "--device", "cpu"])
+for d in ("real", "fake"):
+    os.makedirs(os.path.join(out, d))
+    for i, w in enumerate(["the", "of"]):
+        with open(os.path.join(out, d, f"{i:05d}_1_{w}.png"), "wb") as f:
+            f.write(encode_png(synthetic.render_word(w, seed=i)))
+torch.save(inception.seeded_torchvision_state_dict(0), os.path.join(out, "inc.pt"))
+res = evaluate.main(["--real_dir", os.path.join(out, "real"), "--fake_dir",
+                     os.path.join(out, "fake"), "--inception_weights",
+                     os.path.join(out, "inc.pt"), "--ocr_pt",
+                     os.path.join(out, "ocr", "ocr.pt"), "--device", "cpu"])
+assert set(res) == {"fid_inception", "ocr_exact_match"}, res
+x, _ = masking.masked_ddpm_sample(NoiseSchedule.linear(6), lambda x, t: 0.1 * x,
+                                  torch.zeros(1, 8, 32, 4),
+                                  generator=torch.Generator().manual_seed(0))
+assert torch.isfinite(x).all()
+print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "PIL",
+                                                      "safetensors", "cv2")
+                     or m.split(".")[0] == "worddiffusion_tpu"))
+"""
+
+
 def _run_jax_free(script):
     env = {k: v for k, v in os.environ.items() if k != "WD_PLATFORM"}
     proc = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
@@ -226,6 +288,14 @@ def test_recognizer_runs_without_jax():
     the train_charcounter CLI) runs with no jax, flax, optax, PIL, OpenCV or
     JAX-package module."""
     _run_jax_free(RECOGNIZER_SCRIPT)
+
+
+def test_side_models_run_without_jax():
+    """The PIL-free renderer (one setting of the committed check renders,
+    bitwise), the OCR, VAE and style trainers, the evaluation CLI (Inception
+    and OCR) and the masked sampler run with no jax, flax, optax, PIL,
+    OpenCV or JAX-package module."""
+    _run_jax_free(SIDE_SCRIPT)
 
 
 def _imported_modules(path: Path) -> set[str]:

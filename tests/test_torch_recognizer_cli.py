@@ -6,7 +6,8 @@ JAX-written checkpoints and must write the same results. Both packages'
 models are narrowed to hidden 32 heads and fp32 compute by patching the
 class each CLI builds (the trunks keep their widths), so the decisions
 compare exactly. Also: the port's CLIs train and write the JAX layout, which
-the JAX CLI evaluates; every path the port cannot take raises; a JAX-written
+the JAX CLI evaluates; every path the port cannot take raises, and the
+synthetic split and missing crops are drawn as the JAX CLI draws them; a JAX-written
 pickle unpickles without jax or flax; and the JAX CLI's ``--prompt 1`` is a
 no-op (the hazard the port refuses)."""
 
@@ -183,13 +184,8 @@ def test_jax_prompt_flag_changes_nothing(corpus, jax_trained, tmp_path):
 
 @pytest.mark.parametrize("flags,error,match", [
     (["--prompt", "1"], NotImplementedError, "silent no-op"),
-    (["--synthetic", "1"], NotImplementedError, "ROADMAP A.6"),
-    (["--augment", "10"], NotImplementedError, "ROADMAP A.6"),
-    (["--writer_styles", "1"], NotImplementedError, "ROADMAP A.6"),
-    (["--train_csv", ""], NotImplementedError, "ROADMAP A.6"),
-    (["--valid_csv", ""], NotImplementedError, "ROADMAP A.6"),
-    (["--image_dir", "missing"], FileNotFoundError, "ROADMAP A.6"),
-    (["--image_dir", ""], FileNotFoundError, "ROADMAP A.6"),
+    (["--augment", "10"], NotImplementedError, "slice 12"),
+    (["--synthetic", "1", "--augment", "5"], NotImplementedError, "slice 12"),
     (["--mode", "test"], SystemExit, "needs trained weights"),
 ])
 def test_train_phosc_refuses_what_it_cannot_honour(corpus, tmp_path, flags, error, match):
@@ -204,7 +200,7 @@ def test_non_png_crop_raises(corpus, tmp_path):
     (crops / "a01-000u-00.png").write_bytes(b"\xff\xd8\xff\xe0 a JPEG")
     gt = tmp_path / "one.filter27"
     gt.write_text("000,a01-000u-00 the\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
+    with pytest.raises(NotImplementedError, match="slice 12"):
         phosc_cli.main(["--train_csv", str(gt), "--valid_csv", str(gt), "--image_dir",
                         str(crops), "--batch_size", "1", "--save_dir", str(tmp_path / "r"),
                         "--device", "cpu"])
@@ -213,8 +209,13 @@ def test_non_png_crop_raises(corpus, tmp_path):
 @pytest.mark.parametrize("flags", [["--synthetic", "1"], ["--gt_train", ""],
                                    ["--image_dir", "missing"]])
 def test_train_charcounter_refuses_what_it_cannot_honour(corpus, tmp_path, flags):
-    with pytest.raises((NotImplementedError, FileNotFoundError), match="ROADMAP A.6"):
-        counter_cli.main(_counter_args(corpus, tmp_path / "c") + ["--device", "cpu"] + flags)
+    """What it refused before the renderer was ported it now honours: the
+    synthetic corpus (10 words, one render each) and crops drawn where the
+    files are missing train one epoch and write the JAX-layout params.pkl."""
+    counter_cli.main(_counter_args(corpus, tmp_path / "c") + [
+        "--device", "cpu", "--samples_per_word", "1"] + flags)
+    with open(tmp_path / "c" / "params.pkl", "rb") as f:
+        assert "trunk" in pickle.load(f)["params"]
 
 
 def test_recognizer_clis_refuse_cpu_fallback(corpus, tmp_path, monkeypatch):
@@ -223,3 +224,72 @@ def test_recognizer_clis_refuse_cpu_fallback(corpus, tmp_path, monkeypatch):
         phosc_cli.main(_train_args(corpus, tmp_path / "p"))
     with pytest.raises(SystemExit, match="--device cpu"):
         counter_cli.main(_counter_args(corpus, tmp_path / "c"))
+
+
+def test_synthetic_epoch_loop_bookkeeping_matches_jax(tmp_path, monkeypatch):
+    """Both packages' train_phosc --synthetic 1 --writer_styles 1 with a
+    calibration holdout, 5 epochs, on the same injected validation scores
+    (each package's ``zsl_accuracy`` replaced by one that returns a scripted
+    accuracy per epoch and records what it was handed): the same training
+    batches step by step (words, and writer-styled renders bitwise: the
+    port draws them without PIL), the same validation images and lexicon,
+    the same calibration words, the same log.csv epochs, accuracies and
+    plateau learning rates (the value fed each step is the last validation
+    accuracy negated, +1e9 before the first), and best_params.pkl written
+    at the epochs whose accuracy improved. The weights are not compared: the
+    inits differ."""
+    from worddiffusion_tpu.eval import zsl as jzsl
+    from worddiffusion_tpu_torch.eval import zsl
+
+    accs = [0.1, 0.3, 0.3, 0.3, 0.2]
+    seen = {"jax": [], "port": []}
+
+    def scripted(key):
+        it = iter(accs)
+
+        def fake(apply_fn, batches, lexicon, version="eng"):
+            imgs, words = zip(*[(np.asarray(b), list(w)) for b, w in batches])
+            seen[key].append(("valid", np.concatenate(imgs), sum(words, []), list(lexicon)))
+            return next(it), {}
+        return fake
+
+    def recording(key, fn):
+        def wrapped(samples, image_dir, batch_size, rng=None, *a, **k):
+            for imgs, words in fn(samples, image_dir, batch_size, rng, *a, **k):
+                if rng is not None:
+                    seen[key].append(("train", np.array(imgs), list(words)))
+                yield imgs, words
+        return wrapped
+
+    saved = []
+    real_save = phosc_cli._save_best
+    monkeypatch.setattr(jzsl, "zsl_accuracy", scripted("jax"))
+    monkeypatch.setattr(zsl, "zsl_accuracy", scripted("port"))
+    monkeypatch.setattr(jphosc_cli, "_image_batches", recording("jax", jphosc_cli._image_batches))
+    monkeypatch.setattr(phosc_cli, "_image_batches", recording("port", phosc_cli._image_batches))
+    monkeypatch.setattr(phosc_cli, "_save_best",
+                        lambda *a: (saved.append(len(seen["port"])), real_save(*a)))
+    _narrow(monkeypatch)
+    argv = ["--synthetic", "1", "--writer_styles", "1", "--n_synth", "16", "--model",
+            "resnet18", "--batch_size", "4", "--epochs", "5", "--calib_words_fraction", "0.25",
+            "--plateau_patience", "1"]
+    jphosc_cli.main(argv + ["--save_dir", str(tmp_path / "jax")])
+    phosc_cli.main(argv + ["--save_dir", str(tmp_path / "port"), "--device", "cpu"])
+
+    assert len(seen["port"]) == len(seen["jax"]) > len(accs)
+    for ours, theirs in zip(seen["port"], seen["jax"]):
+        assert ours[0] == theirs[0]
+        for a, b in zip(ours[1:], theirs[1:]):
+            assert (np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b)
+    for name in ("calib_words.json", "log.csv"):
+        assert (tmp_path / "port" / name).exists()
+    assert ((tmp_path / "port" / "calib_words.json").read_text()
+            == (tmp_path / "jax" / "calib_words.json").read_text())
+    rows = [[line.split(",") for line in (tmp_path / d / "log.csv").read_text().splitlines()]
+            for d in ("port", "jax")]
+    assert [(r[0], float(r[2]), float(r[3])) for r in rows[0][1:]] == [
+        (r[0], float(r[2]), float(r[3])) for r in rows[1][1:]]
+    assert len({r[3] for r in rows[0][1:]}) > 1  # the plateau cut the rate
+    # the checkpoint follows each improvement: after validations 1 and 2
+    valid_at = [i for i, rec in enumerate(seen["port"]) if rec[0] == "valid"]
+    assert saved == [valid_at[0] + 1, valid_at[1] + 1]

@@ -229,7 +229,7 @@ def test_sample_cli_conditioned_models(tiny_sample):
     (["--ckpt_dir", "ckpt"], SystemExit, "export_torch"),
     (["--vae_ckpt", "vae"], SystemExit, "jax_vae_to_torch"),
     (["--use_ema", "0"], SystemExit, "one parameter set"),
-    (["--charImages", "1"], NotImplementedError, "render_word"),
+    (["--charImages", "1", "--hiGanArch", "1"], NotImplementedError, "HiGAN.*slice 12"),
     (["--hiGanArch", "1"], NotImplementedError, "HiGAN"),
     (["--latent", "0"], NotImplementedError, "pixel-space"),
     (["--imgConditioned", "1"], SystemExit, "--cond_image"),

@@ -384,14 +384,14 @@ def test_train_cli_runs_from_latent_cache(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--synthetic", "1"], NotImplementedError, "synthetic"),
-    (["--charImages", "1"], NotImplementedError, "render_word"),
+    (["--synthetic", "1", "--augMaps", "1"], NotImplementedError, "augMaps.*slice 12"),
+    (["--charImages", "1", "--hiGanArch", "1"], NotImplementedError, "HiGAN.*slice 12"),
     (["--hiGanArch", "1"], NotImplementedError, "HiGAN"),
     (["--augMaps", "1"], NotImplementedError, "augMaps"),
     (["--mesh_data", "2"], NotImplementedError, "mesh"),
     (["--latent", "0"], NotImplementedError, "pixel-space"),
     (["--vae_ckpt", "vae_dir"], NotImplementedError, "jax_vae_to_torch"),
-    (["--allow_random_style", "1"], NotImplementedError, "StyleEncoder"),
+    (["--mesh_model", "2"], NotImplementedError, "mesh.*slice 12"),
     (["--wrdChrWrStyl", "1"], SystemExit, "--style_dict"),
 ])
 def test_train_cli_refuses_unported(tmp_path, flags, error, match):

@@ -9,8 +9,12 @@ a corpus of word crops on one GPU -> npz cache of ``image name -> [8, 32,
 
 The VAE comes from a diffusers ``--stable_dif_path`` safetensors file or
 a full ``--vae_pt`` state dict in the port's keys, or is seeded random
-with a warning. Every flag whose path is not ported raises
-``NotImplementedError``.
+with a warning. Without ``--gt_train``, or with ``--synthetic 1``, the
+corpus is the synthetic one (``--vocab_size`` words of the preset's list,
+``--samples_per_word`` renders each), drawn by ``data.synthetic.render_word``
+(in each writer's style with ``--writer_styled 1``, the cache a
+``--wrdChrWrStyl`` training needs); so is any crop missing from
+``--iam_path``. ``--vae_ckpt`` (orbax) raises.
 """
 
 from __future__ import annotations
@@ -37,7 +41,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic", type=int, default=0)
     p.add_argument("--vocab_size", type=int, default=10)
     p.add_argument("--samples_per_word", type=int, default=8)
-    p.add_argument("--writer_styled", type=int, default=0)
+    p.add_argument("--writer_styled", type=int, default=0,
+                   help="1: synthetic renders use per-writer styles "
+                        "(required for a --wrdChrWrStyl training cache)")
     p.add_argument("--seed", type=int, default=0, help="seed of the posterior samples")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cpu must be asked for explicitly")
@@ -45,13 +51,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    for flag, value in {"--synthetic": args.synthetic, "--vae_ckpt": args.vae_ckpt,
-                        "--writer_styled": args.writer_styled}.items():
-        if value:
-            raise NotImplementedError(f"{flag} is not ported to PyTorch yet")
-    if not args.gt_train:
-        raise NotImplementedError(
-            "a cache without --gt_train covers the synthetic corpus, which is not ported yet")
+    if args.vae_ckpt:
+        raise NotImplementedError("--vae_ckpt is not ported to PyTorch yet: an orbax VAE "
+                                  "checkpoint is not readable here; convert it with "
+                                  "models.convert.jax_vae_to_torch (--vae_pt)")
 
 
 def build(args):
@@ -60,9 +63,9 @@ def build(args):
 
     from ..configs import presets
     from ..data.dataset import WordImageDataset
-    from ..data.gt import parse_gt
     from ..data.tokenizer import Tokenizer
     from ..models.vae import make_vae
+    from .train import corpus
 
     _refuse_unported(args)
     device = torch.device(args.device)
@@ -70,9 +73,10 @@ def build(args):
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
     exp = presets.get(args.preset)
     exp = exp.replace(data=dataclasses.replace(exp.data, image_dir=args.iam_path))
-    samples, registry = parse_gt(args.gt_train)
+    samples, registry = corpus(args, exp)
     tok = Tokenizer.from_name(exp.data.alphabet, exp.data.max_chars)
-    dataset = WordImageDataset(samples, registry, tok, exp.data)
+    dataset = WordImageDataset(samples, registry, tok, exp.data,
+                               writer_styled=bool(args.writer_styled))
     vae = make_vae(exp.vae, args.stable_dif_path, args.vae_pt, with_encoder=True,
                    seed=args.seed)
     return dataset, vae.to(device).eval().requires_grad_(False)

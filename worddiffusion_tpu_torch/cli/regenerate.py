@@ -110,6 +110,8 @@ _CONVERT = "python -m worddiffusion_tpu.cli.export_torch (the JAX package)"
 
 def _refuse_unported(args) -> None:
     """The JAX CLI's options that this one cannot honour, with the reason."""
+    from .train import SLICE_12
+
     offline = {
         "--ckpt_dir": (args.ckpt_dir, f"convert it with {_CONVERT} and pass --torch_ckpt"),
         "--vae_ckpt": (args.vae_ckpt, "convert it with models.convert.jax_vae_to_torch and "
@@ -124,9 +126,11 @@ def _refuse_unported(args) -> None:
         raise SystemExit(f"--use_ema 0: --torch_ckpt holds one parameter set; pick it when "
                          f"exporting ({_CONVERT} --use_ema 0)")
     if args.hiGanArch:
-        raise NotImplementedError("--hiGanArch 1 (the HiGAN+ denoiser) is not ported yet")
+        raise NotImplementedError("--hiGanArch 1 (the HiGAN+ denoiser) is not ported yet; "
+                                  f"it waits for {SLICE_12}")
     if not args.latent:
-        raise NotImplementedError("--latent 0 (pixel-space sampling) is not ported yet")
+        raise NotImplementedError("--latent 0 (pixel-space sampling) is not ported yet; it "
+                                  f"waits for {SLICE_12}")
 
 
 def build(args):

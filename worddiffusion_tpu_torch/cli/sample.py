@@ -23,8 +23,10 @@ names them.
 Every option of the JAX CLI is here. The orbax checkpoints
 (``--ckpt_dir``, ``--vae_ckpt``) are converted offline by the JAX
 package, so they and ``--use_ema 0`` exit with the conversion to run;
-``--charImages 1``, ``--hiGanArch 1`` and ``--latent 0`` raise
-``NotImplementedError`` with the reason.
+``--charImages 1`` conditions on the words' glyph crops
+(``data.dataset.char_glyphs``, as the training renders them);
+``--hiGanArch 1`` and ``--latent 0`` raise ``NotImplementedError`` naming
+slice 12 of the port.
 """
 
 from __future__ import annotations
@@ -144,6 +146,8 @@ _CONVERT = "python -m worddiffusion_tpu.cli.export_torch (the JAX package)"
 
 def _refuse_unported(args) -> None:
     """The JAX CLI's options that this one cannot honour, with the reason."""
+    from .train import SLICE_12
+
     if args.ckpt_dir:
         raise SystemExit(f"--ckpt_dir is an orbax checkpoint, which the port does not read: "
                          f"convert it with {_CONVERT} and pass --torch_ckpt")
@@ -153,14 +157,12 @@ def _refuse_unported(args) -> None:
     if not args.use_ema:
         raise SystemExit(f"--use_ema 0: --torch_ckpt holds one parameter set; pick it when "
                          f"exporting ({_CONVERT} --use_ema 0)")
-    if args.charImages:
-        raise NotImplementedError(
-            "--charImages 1: the glyph crops are drawn by render_word with PIL's ImageFont, "
-            "which is not ported (ROADMAP A.6); the UNet's glyph encoder is")
     if args.hiGanArch:
-        raise NotImplementedError("--hiGanArch 1 (the HiGAN+ denoiser) is not ported yet")
+        raise NotImplementedError("--hiGanArch 1 (the HiGAN+ denoiser) is not ported yet; "
+                                  f"it waits for {SLICE_12}")
     if not args.latent:
-        raise NotImplementedError("--latent 0 (pixel-space sampling) is not ported yet")
+        raise NotImplementedError("--latent 0 (pixel-space sampling) is not ported yet; it "
+                                  f"waits for {SLICE_12}")
     if args.imgConditioned and not args.cond_image:
         raise SystemExit("--imgConditioned 1 needs --cond_image")
     if args.wrdChrWrStyl and not args.style_dict:
@@ -177,6 +179,7 @@ def experiment(args):
     exp = presets.get(args.preset)
     return dataclasses.replace(exp, unet=dataclasses.replace(
         exp.unet, img_conditioned=bool(args.imgConditioned),
+        use_char_images=bool(args.charImages) or exp.unet.use_char_images,
         style_vec_dim=4096 if args.wrdChrWrStyl else exp.unet.style_vec_dim,
         # match training: the style REPLACES the char context
         style_replace_context=bool(args.wrdChrWrStyl) or exp.unet.style_replace_context,
@@ -274,6 +277,7 @@ def main(argv=None) -> list[str]:
     """-> the written file names, in order."""
     import torch
 
+    from ..data.dataset import char_glyphs
     from ..generate.sample import phosc_ids
     from ..utils.images import crop_whitespace, encode_png, save_single_images
 
@@ -282,7 +286,7 @@ def main(argv=None) -> list[str]:
     sampler, pairs, style_lookup, cond_lat1, rng_np = build(args)
     exp = sampler.exp
     os.makedirs(args.save_path, exist_ok=True)
-    written = []
+    written, glyph_cache = [], {}
     for start in range(0, len(pairs), B):
         chunk = pairs[start : start + B]
         words_b = [w for w, _, _ in chunk]
@@ -301,6 +305,10 @@ def main(argv=None) -> list[str]:
             mix = (np.full((len(chunk),), args.mix_rate, np.float32) if args.mix_rate >= 0
                    else rng_np.uniform(0.0, 1.0, len(chunk)).astype(np.float32))
             cond.update(writer_ids2=[args.writer2] * len(chunk), mix_rate=mix)
+        if exp.unet.use_char_images:
+            cond["char_images"] = np.stack([char_glyphs(w, exp.data.max_chars,
+                                                        exp.unet.char_image_size, glyph_cache)
+                                            for w in words_b])
         if cond_lat1 is not None:
             cond["cond_latents"] = np.repeat(cond_lat1, len(chunk), axis=0)
         seed = int(np.random.SeedSequence([args.seed, start]).generate_state(1)[0])

@@ -23,8 +23,15 @@ after a reserved blank class 0; ``--wrdChrWrStyl 1 --style_dict S.npz``
 replaces the character context with the writers' 4096-d style vectors
 (an npz of writer id -> vector, as ``worddiffusion_tpu.cli.train_style``
 writes); ``--imgConditioned 1`` conditions each sample on its own clean
-latent, concatenated at ``conv_in``. Every flag whose path is not ported
-raises ``NotImplementedError`` with the reason.
+latent, concatenated at ``conv_in``; ``--charImages 1`` conditions on
+per-character glyph crops (``data.dataset.char_glyphs``). Without
+``--gt_train``, or with ``--synthetic 1``, the corpus is the synthetic one
+(``--vocab_size`` words of the preset's list, ``--samples_per_word``
+renders each), drawn by ``data.synthetic.render_word`` (in each writer's
+style under ``--wrdChrWrStyl 1``); so is any crop missing from
+``--iam_path``. ``--allow_random_style 1`` builds the style vectors with a
+random-init ``StyleEncoder`` (plumbing runs only). Every flag whose path is
+not ported raises ``NotImplementedError`` naming the slice it waits for.
 """
 
 from __future__ import annotations
@@ -88,17 +95,15 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+SLICE_12 = "slice 12 of the port (ROADMAP A)"  # what the refusals wait for
+
+
 def _refuse_unported(args) -> None:
     unported = {
-        "--synthetic": (args.synthetic, "the synthetic corpus renders words with PIL "
-                                        "(ROADMAP A.2)"),
-        "--charImages": (args.charImages, "glyph images are drawn by render_word with PIL's "
-                                          "ImageFont (ROADMAP A.6); the UNet side is ported"),
-        "--allow_random_style": (args.allow_random_style,
-                                 "random style vectors come from the StyleEncoder, which is "
-                                 "not ported (ROADMAP A.8); pass --style_dict"),
-        "--hiGanArch": (args.hiGanArch, "the HiGAN+ denoiser is not ported"),
-        "--augMaps": (args.augMaps, "the augmentation is not ported"),
+        "--hiGanArch": (args.hiGanArch,
+                        f"the HiGAN+ denoiser is not ported; it waits for {SLICE_12}"),
+        "--augMaps": (args.augMaps, "the augmentation (PIL, OpenCV) is not ported; it waits "
+                                    f"for {SLICE_12}"),
         "--vae_ckpt": (args.vae_ckpt, "an orbax VAE checkpoint is not readable here; convert "
                                       "it with models.convert.jax_vae_to_torch (--vae_pt)"),
     }
@@ -106,16 +111,16 @@ def _refuse_unported(args) -> None:
         if value:
             raise NotImplementedError(f"{flag} is not ported to PyTorch yet: {why}")
     if not args.latent:
-        raise NotImplementedError("--latent 0 (pixel-space training) is not ported yet")
-    if not args.gt_train:
-        raise NotImplementedError(
-            "training without --gt_train uses the synthetic corpus, which is not "
-            "ported yet")
+        raise NotImplementedError(f"--latent 0 (pixel-space training) is not ported yet; it "
+                                  f"waits for {SLICE_12}")
     if args.mesh_data > 1 or args.mesh_model > 1:
-        raise NotImplementedError("a mesh larger than one device is not ported yet")
-    if args.wrdChrWrStyl and not args.style_dict:
+        raise NotImplementedError("a mesh larger than one device is not ported yet; it waits "
+                                  f"for {SLICE_12}")
+    if args.wrdChrWrStyl and not args.style_dict and not args.allow_random_style:
         raise SystemExit("--wrdChrWrStyl 1 needs --style_dict (train one: python -m "
-                         "worddiffusion_tpu.cli.train_style)")
+                         "worddiffusion_tpu_torch.cli.train_style). Random-init style vectors "
+                         "train a model conditioned on noise; pass --allow_random_style 1 only "
+                         "for plumbing tests.")
 
 
 def experiment_from_args(args):
@@ -145,6 +150,7 @@ def experiment_from_args(args):
             # --wrdChrWrStyl 1: the projected style REPLACES the char context
             # (reference unet.py:1616-1618)
             style_replace_context=bool(args.wrdChrWrStyl),
+            use_char_images=bool(args.charImages),
             img_conditioned=bool(args.imgConditioned),
         ),
     )
@@ -172,6 +178,46 @@ def style_lookup(path: str) -> dict:
 
     with np.load(path, allow_pickle=False) as z:
         return {k: z[k].astype(np.float32) for k in z.files}
+
+
+def random_style_lookup(exp, samples, registry, tokenizer, device) -> dict:
+    """``--allow_random_style 1``: writer id -> the mean of a random-init
+    ``StyleEncoder(out_dim=4096)`` over up to 4 of the writer's images (the
+    JAX CLI's ``_build_style_dict`` without ``--style_dict``)."""
+    import numpy as np
+    import torch
+
+    from ..data.dataset import WordImageDataset
+    from ..models.layers import init_weights_
+    from ..models.style import StyleEncoder, build_style_dict
+
+    logging.warning("--allow_random_style: building writer style vectors with a randomly "
+                    "initialised StyleEncoder (NOT meaningful styles)")
+    probe = WordImageDataset(samples, registry, tokenizer, exp.data)
+    by_writer: dict = {}
+    for i, s in enumerate(samples):
+        if len(by_writer.setdefault(s.writer, [])) < 4:
+            by_writer[s.writer].append(np.asarray(probe[i]["image"], np.float32))
+    enc = init_weights_(StyleEncoder(out_dim=4096), seed=0)
+    enc = enc.to(device, memory_format=torch.channels_last).eval()
+    return build_style_dict(enc, {w: np.stack(v) for w, v in by_writer.items()})
+
+
+def corpus(args, exp):
+    """(samples, writer registry): the gt file's (``--partialLoad`` where the
+    CLI has it), or without one (or with ``--synthetic``) the synthetic
+    corpus of the preset's word list: the train and cache CLIs' corpus."""
+    from ..data.gt import WriterRegistry, parse_gt
+    from ..data.synthetic import corpus_lang, synthetic_corpus, word_list
+
+    if args.synthetic or not args.gt_train:
+        samples = synthetic_corpus(words=word_list(args.vocab_size, lang=corpus_lang(exp.data)),
+                                   samples_per_word=args.samples_per_word)
+        registry = WriterRegistry()
+        for s in samples:
+            registry.add(s.writer)
+        return samples, registry
+    return parse_gt(args.gt_train, partial_load=getattr(args, "partialLoad", 0.0))
 
 
 def _vae(args, exp, device, with_encoder: bool):
@@ -208,7 +254,6 @@ def build(args):
     import torch
 
     from ..data.dataset import LatentLookup, WordImageDataset
-    from ..data.gt import parse_gt
     from ..data.tokenizer import Tokenizer
     from ..models.vae import encode_to_latent
     from ..train.loop import Trainer
@@ -218,16 +263,23 @@ def build(args):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
     exp = experiment_from_args(args)
-    samples, registry = parse_gt(args.gt_train, partial_load=args.partialLoad)
+    samples, registry = corpus(args, exp)
     os.makedirs(args.save_path, exist_ok=True)
     # writers_dict_train.json compat (trainModifyCondition.py:1061-1064)
     registry.dump_json(f"{args.save_path}/writers_dict_train.json")
     tokenizer = Tokenizer.from_name(exp.data.alphabet, exp.data.max_chars)
     cache = LatentLookup.load(args.latent_cache) if args.latent_cache else None
+    styles = None
+    if exp.unet.style_vec_dim:
+        styles = (style_lookup(args.style_dict) if args.style_dict else
+                  random_style_lookup(exp, samples, registry, tokenizer, device))
     dataset = WordImageDataset(
         samples, registry, tokenizer, exp.data, latent_cache=cache, use_phosc=exp.unet.use_phosc,
         ocr_alphabet=ocr_alphabet(exp) if exp.train.ctc_weight > 0 else None,
-        style_lookup=style_lookup(args.style_dict) if exp.unet.style_vec_dim else None)
+        style_lookup=styles, char_images=exp.unet.use_char_images,
+        char_image_size=exp.unet.char_image_size,
+        # synthetic corpora carry a writer-style signal only when asked for
+        writer_styled=bool(args.wrdChrWrStyl and (args.synthetic or not args.gt_train)))
     vae = _vae(args, exp, device, with_encoder=cache is None)
     encode_fn = None
     if cache is None:

@@ -7,7 +7,9 @@ length 1..17 from the word image, trained with Adam (optax's defaults).
 
 ``params.pkl`` is the JAX CLI's: a pickled tree of numpy arrays under
 flax's names, which ``train_phosc --len_counter`` of either package reads.
-The crops are PNGs (``data.png``); the synthetic corpus raises.
+The crops are PNGs (``data.png``); without ``--gt_train``, or with
+``--synthetic 1``, the corpus is the JAX CLI's synthetic one, and a
+missing crop is drawn by ``data.synthetic.render_word``.
 """
 
 from __future__ import annotations
@@ -32,9 +34,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--balance", type=int, default=0,
                    help="balance samples per word length")
     p.add_argument("--synthetic", type=int, default=0,
-                   help="synthetic corpus: not ported (ROADMAP A.6)")
+                   help="the synthetic corpus (rendered words)")
     p.add_argument("--samples_per_word", type=int, default=16,
-                   help="synthetic mode (not ported): renders per vocabulary word")
+                   help="synthetic mode: renders per vocabulary word")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cpu must be asked for explicitly")
@@ -45,28 +47,29 @@ def main(argv=None):
     """-> the trained model (its parameters also in ``save_dir/params.pkl``)."""
     from ..data.gt import parse_gt
     from ..data.manipulate import balance_by_length
+    from ..data.synthetic import synthetic_corpus
     from ..models.charcounter import CharacterCounterNet, counter_loss, length_onehot
     from ..models.convert import torch_charcounter_to_jax, write_params_pickle
     from ..models.layers import init_weights_
     from ..utils.images import normalize_to_unit
-    from .train_phosc import _UNPORTED_IMAGES, _load_crop
+    from .train_phosc import _load_crop
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = build_parser().parse_args(argv)
-    if args.synthetic or not args.gt_train:
-        raise NotImplementedError("training without --gt_train, or with --synthetic 1, uses "
-                                  f"the synthetic corpus, {_UNPORTED_IMAGES}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
 
-    samples, _ = parse_gt(args.gt_train)
+    if args.synthetic or not args.gt_train:
+        samples = synthetic_corpus(samples_per_word=args.samples_per_word)
+    else:
+        samples, _ = parse_gt(args.gt_train)
     if args.balance:
         samples = balance_by_length(samples, args.balance, args.seed)
 
     def load(s):
         path = os.path.join(args.image_dir, s.image) if args.image_dir else ""
-        return normalize_to_unit(_load_crop(path))
+        return normalize_to_unit(_load_crop(path, s))
 
     model = init_weights_(CharacterCounterNet(outputs=args.outputs), seed=args.seed)
     model = model.to(device, memory_format=torch.channels_last)

@@ -12,8 +12,11 @@ Checkpoints are the JAX CLI's: ``best_params.pkl`` is a pickled tree of
 numpy arrays under flax's names (``models.convert``), so a checkpoint of
 either package evaluates in the other. The word crops are PNGs read with
 ``data.png``; batches are uint8 [B, 50, 250, 3] in the JAX CLI's order, and
-the [-1, 1] normalisation runs on the device. What needs the synthetic
-renderer or the augmentation (PIL, OpenCV) raises.
+the [-1, 1] normalisation runs on the device. Without a gt file, or with
+``--synthetic 1``, the splits are the JAX CLI's synthetic zero-shot split,
+and a missing crop is drawn by ``data.synthetic.render_word`` (in its
+writer's style with ``--writer_styles 1``). The augmentation (PIL and
+OpenCV) and non-PNG crops raise: they wait for slice 12 of the port.
 """
 
 from __future__ import annotations
@@ -28,8 +31,7 @@ import time
 import numpy as np
 import torch
 
-_UNPORTED_IMAGES = ("which needs the synthetic word renderer, not ported yet "
-                    "(PIL; ROADMAP A.6)")
+from .train import SLICE_12
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,16 +61,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reduce-on-plateau patience in EPOCHS (reference "
                         "ReduceLROnPlateau patience=5)")
     p.add_argument("--n_synth", type=int, default=200,
-                   help="synthetic mode (not ported): training-set size")
+                   help="synthetic mode: training-set size")
     p.add_argument("--synthetic", type=int, default=0,
-                   help="synthetic corpus: not ported (ROADMAP A.6)")
+                   help="synthetic zero-shot split (rendered words)")
     p.add_argument("--renders_per_word", type=int, default=8,
-                   help="synthetic mode (not ported): renders per vocabulary word")
+                   help="synthetic mode: renders per vocabulary word")
     p.add_argument("--augment", type=int, default=0,
                    help="train-time augmentation probability in percent: only 0 "
-                        "is ported (ROADMAP A.6)")
+                        f"is ported ({SLICE_12})")
     p.add_argument("--writer_styles", type=int, default=0,
-                   help="synthetic mode (not ported): per-writer render styles")
+                   help="render each synthetic sample in its writer's style")
     p.add_argument("--len_counter", default="",
                    help="test mode: charcounter params.pkl; adds the "
                         "length-estimation evaluation")
@@ -92,53 +94,75 @@ def _refuse_unported(args) -> None:
             "--prompt 1 is refused: the JAX CLI initialises a FixedPatchPrompter and "
             "never applies or trains it, so its visual prompt tuning is a silent "
             "no-op (ROADMAP C)")
-    if args.synthetic:
-        raise NotImplementedError(f"--synthetic 1 is not ported: {_UNPORTED_IMAGES}")
-    if args.writer_styles:
-        raise NotImplementedError(f"--writer_styles 1 is not ported: {_UNPORTED_IMAGES}")
     if args.augment:
         raise NotImplementedError("--augment > 0 is not ported: the augmentation uses "
-                                  "PIL and OpenCV (ROADMAP A.6)")
+                                  f"PIL and OpenCV ({SLICE_12})")
 
 
-def _load_split(path: str, split: str):
-    """The samples of a gt file. The JAX CLI renders a synthetic split where
-    no file is given; the port raises."""
+def _load_split(path: str, synthetic: int, language: str, n_synth: int = 200,
+                split: str = "train", renders_per_word: int = 8):
+    """The samples of a gt file; without one, or with ``synthetic``, the JAX
+    CLI's zero-shot split: the first 80% of ``word_list(max(10, n_synth //
+    8))`` trains (``renders_per_word`` renders each, capped at ``n_synth *
+    renders_per_word // 8``), the rest validates and tests (8 renders each)."""
     from ..data.gt import parse_gt
+    from ..data.synthetic import synthetic_corpus, word_list
 
-    if not path:
-        raise NotImplementedError(f"no gt file for the {split} split: the JAX CLI then "
-                                  f"renders a synthetic split, {_UNPORTED_IMAGES}")
+    if synthetic or not path:
+        vocab = word_list(max(10, n_synth // 8), language)
+        cut = max(1, int(len(vocab) * 0.8))
+        words = vocab[:cut] if split == "train" else vocab[cut:]
+        per_word = renders_per_word if split == "train" else 8
+        samples = synthetic_corpus(words=words, samples_per_word=per_word)
+        if split == "train":
+            samples = samples[: n_synth * renders_per_word // 8]
+        return samples
     samples, _ = parse_gt(path)
     return samples
 
 
-# key (image path, word). Bounded: on a real corpus (100k+ crops at
-# 50x250x3 each) an unbounded cache grows to several GB; past the cap the
-# oldest-inserted entry goes.
+def _split(args, path: str, split: str):
+    return _load_split(path, args.synthetic, args.language, n_synth=args.n_synth, split=split,
+                       renders_per_word=args.renders_per_word)
+
+
+# key (image, word, writer when styled): split image names can collide.
+# Bounded: on a real corpus (100k+ crops at 50x250x3 each) an unbounded
+# cache grows to several GB; past the cap the oldest-inserted entry goes.
 _RENDER_CACHE: dict = {}
 _RENDER_CACHE_CAP = 20_000
 
 
-def _load_crop(path: str) -> np.ndarray:
+def _load_crop(path: str, sample=None, style: dict | None = None) -> np.ndarray:
+    """The crop at ``path`` resize-padded to 50 x 250; where there is no
+    file, ``sample``'s word drawn by the synthetic renderer (seeded by its
+    image name, in ``style``)."""
     from ..data.png import read_png
+    from ..data.synthetic import render_word, stable_seed
     from ..utils.images import resize_and_pad
 
-    if not path or not os.path.exists(path):
-        raise FileNotFoundError(f"no crop at {path!r} (--image_dir names the crops' folder); "
-                                f"the JAX CLI then renders the word, {_UNPORTED_IMAGES}")
-    try:
-        return resize_and_pad(read_png(path), 50, 250)
-    except ValueError as e:
-        raise NotImplementedError(f"{e}: the port reads 8-bit PNG crops only (other "
-                                  "formats: ROADMAP A.6)") from e
+    if path and os.path.exists(path):
+        try:
+            arr = read_png(path)
+        except ValueError as e:
+            raise NotImplementedError(f"{e}: the port reads 8-bit PNG crops only (other "
+                                      f"formats: {SLICE_12})") from e
+    elif sample is None:
+        raise FileNotFoundError(f"no crop at {path!r} (--image_dir names the crops' folder)")
+    else:
+        arr = render_word(sample.word, 50, 250, seed=stable_seed(sample.image), style=style)
+    return resize_and_pad(arr, 50, 250)
 
 
 def _image_batches(samples, image_dir: str, batch_size: int,
-                   rng: np.random.Generator | None = None, drop_remainder: bool = True):
+                   rng: np.random.Generator | None = None, writer_styles: bool = False,
+                   drop_remainder: bool = True):
     """Yield (images uint8 [B, 50, 250, 3], words) in the JAX CLI's order
     (one ``rng.shuffle`` of the sample order). ``drop_remainder=False``
-    (every evaluation) also yields the last partial batch."""
+    (every evaluation) also yields the last partial batch. A sample without
+    a crop is rendered, in its writer's style with ``writer_styles``."""
+    from ..data.synthetic import writer_style
+
     order = np.arange(len(samples))
     if rng is not None:
         rng.shuffle(order)
@@ -147,13 +171,14 @@ def _image_batches(samples, image_dir: str, batch_size: int,
         imgs, words = [], []
         for i in order[start:start + batch_size]:
             s = samples[int(i)]
-            path = os.path.join(image_dir, s.image) if image_dir else ""
-            arr = _RENDER_CACHE.get((path, s.word))
+            key = (s.image, s.word, s.writer if writer_styles else "")
+            arr = _RENDER_CACHE.get(key)
             if arr is None:
-                arr = _load_crop(path)
+                path = os.path.join(image_dir, s.image) if image_dir else ""
+                arr = _load_crop(path, s, writer_style(s.writer) if writer_styles else None)
                 if len(_RENDER_CACHE) >= _RENDER_CACHE_CAP:
                     _RENDER_CACHE.pop(next(iter(_RENDER_CACHE)))
-                _RENDER_CACHE[(path, s.word)] = arr
+                _RENDER_CACHE[key] = arr
             imgs.append(arr)
             words.append(s.word)
         yield np.stack(imgs), words
@@ -263,7 +288,7 @@ def _train(args, model, train_samples, valid_samples, calib_payload, device) -> 
         t0 = time.perf_counter()
         losses = []
         for imgs, batch_words in _image_batches(train_samples, args.image_dir, args.batch_size,
-                                                np_rng):
+                                                np_rng, writer_styles=bool(args.writer_styles)):
             tp = torch.from_numpy(np.stack([phos_map[w] for w in batch_words])).to(device)
             tc = torch.from_numpy(np.stack([phoc_map[w] for w in batch_words])).to(device)
             losses.append(train_step(model, optimizer, dev_norm(imgs, device), tp.float(),
@@ -404,12 +429,12 @@ def main(argv=None):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
 
-    train_samples = _load_split(args.train_csv, "train")
+    train_samples = _split(args, args.train_csv, "train")
     if args.mode == "test":
         from ..models.convert import read_params_pickle
 
         model = build_model(args, device, read_params_pickle(best_path))
-        return _test(args, model, train_samples, _load_split(args.test_csv, "test"), device)
+        return _test(args, model, train_samples, _split(args, args.test_csv, "test"), device)
 
     # GZSL margin-calibration holdout: a fraction of the TRAIN vocabulary kept
     # out of training entirely (calib_words.json). The record on disk always
@@ -426,7 +451,7 @@ def main(argv=None):
         train_samples = [s for s in train_samples if s.word not in held]
         logging.info("calibration holdout: %d words held out, %d words trained",
                      len(held), len({s.word for s in train_samples}))
-    valid_samples = _load_split(args.valid_csv, "valid")
+    valid_samples = _split(args, args.valid_csv, "valid")
     model = build_model(args, device)
     return dict(model=model, history=_train(args, model, train_samples, valid_samples,
                                             calib_payload, device))

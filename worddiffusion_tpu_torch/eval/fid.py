@@ -8,7 +8,7 @@ a JAX-layout pickle (``models.convert.read_params_pickle``). The Frechet
 distance is exact; the features are the trained recognizer's pooled trunk
 vector (the JAX package's default FID protocol), which is not comparable
 with published Inception-FID numbers: use it for relative comparisons.
-The Inception featurizer (``eval/inception.py``) is not ported yet.
+The Inception featurizer is ``eval/inception.py``.
 """
 
 from __future__ import annotations

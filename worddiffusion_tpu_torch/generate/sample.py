@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..configs.config import Experiment
+from ..data.dataset import char_glyphs
 from ..data.phosc import phosc_vector
 from ..data.tokenizer import PAD_TOKEN, Tokenizer
 from ..diffusion.sampler import ddim_sample, ddpm_sample, latent_to_image
@@ -171,13 +172,18 @@ class WordSampler:
         """Fixed-probe-word preview -> uint8 [n, H, W, 3] on the host; the
         writer id is forced to ones like the reference epoch preview
         (``trainModifyCondition.py:574``). A reference-latent model gets a
-        neutral (zero) reference, as in the JAX preview; a style model's
+        neutral (zero) reference and a glyph model the words' glyph crops, as
+        in the JAX preview; a style model's
         preview has no style vector, and its context stays the words'."""
         words = list(words or ["text", "getting", "prop"][:n])
         phosc = None
         if self.exp.unet.use_phosc:
             phosc = phosc_ids(words, self.exp.data.phos_version)
         cond = {}
+        if self.exp.unet.use_char_images:
+            cond["char_images"] = np.stack([char_glyphs(w, self.exp.data.max_chars,
+                                                        self.exp.unet.char_image_size)
+                                            for w in words])
         if self.exp.unet.img_conditioned:
             cond["cond_latents"] = np.zeros((len(words),) + self.latent_shape, np.float32)
         out = self.sample_async(words, [1] * len(words), generator, phosc, **cond)

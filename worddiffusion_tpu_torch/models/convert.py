@@ -8,8 +8,9 @@ exporter leaves out (the CTC aux head and the glyph encoder), which
 ``jax_unet_extras_to_torch`` maps. This module adds the VAE
 (diffusers key names; the inverse of
 ``worddiffusion_tpu.models.vae.convert_diffusers_vae``) and the OCR
-recognizer, and the PHOSC recognizer and the character counter in both
-directions (their CLIs read and write the JAX CLIs' pickles). Each
+recognizer, and the PHOSC recognizer, the character counter and the
+writer-style encoder in both directions (their CLIs read and write the JAX
+CLIs' pickles). Each
 function from flax takes a nested dict of numpy arrays and returns
 ``{key: np.ndarray}``; wrap the values with ``torch.from_numpy`` or pass
 the dict to ``state_dict_to_torch``.
@@ -172,8 +173,10 @@ def jax_phoscnet_to_torch(variables: Mapping) -> dict[str, np.ndarray]:
     return out
 
 
-# the counter's tree follows the same rules (``trunk.conv*``, ``head``)
+# the counter's tree follows the same rules (``trunk.conv*``, ``head``), and so
+# does the writer-style encoder's (``stem``, ``s0b0.c1`` / ``.n1``, ``proj``)
 jax_charcounter_to_torch = jax_phoscnet_to_torch
+jax_style_to_torch = jax_phoscnet_to_torch
 
 
 def torch_phoscnet_to_jax(sd: Mapping) -> dict:
@@ -198,6 +201,7 @@ def torch_phoscnet_to_jax(sd: Mapping) -> dict:
 
 
 torch_charcounter_to_jax = torch_phoscnet_to_jax
+torch_style_to_jax = torch_phoscnet_to_jax
 
 
 def read_params_pickle(path: str) -> dict:

@@ -1,8 +1,10 @@
 """CTC word recognizer for the regeneration filter (port of
-``worddiffusion_tpu/models/ocr.py``, forward only).
+``worddiffusion_tpu/models/ocr.py``).
 
 Input: grayscale word image [B, 64, W, 1] in [-1, 1], NHWC. Output:
-CTC logits [B, W/4, num_classes] fp32. Parameter names follow the
+CTC logits [B, W/4, num_classes] fp32. In training (``deterministic=False``)
+the sequence takes flax's ``Dropout(0.25)`` before the head, its keep mask
+drawn from an explicit ``torch.Generator`` or handed in. Parameter names follow the
 Flax module tree (``b1.conv0``, ``b1.gn0``, ..., ``t0``, ``head``);
 ``models.convert.jax_ocr_to_torch`` maps a Flax tree onto them.
 """
@@ -65,7 +67,12 @@ class CTCRecognizer(nn.Module):
         self.t0, self.t1, self.t2 = (_Conv1D(w5, dil) for dil in (1, 2, 4))
         self.head = Dense(w5, num_classes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: bool = True,
+                generator: torch.Generator | None = None,
+                keep: torch.Tensor | None = None) -> torch.Tensor:
+        """x NHWC [B, 64, W, 1] -> logits [B, W/4, K]. ``deterministic=False``
+        applies the dropout: ``keep`` (bool [B, W/4, C], the flax layout)
+        when given, else a mask drawn from ``generator``."""
         if x.shape[1] != 64:
             raise ValueError(
                 f"CTCRecognizer expects 64-px-high input, got {tuple(x.shape)} "
@@ -77,4 +84,20 @@ class CTCRecognizer(nn.Module):
         seq = h[:, :, 0, :] if h.shape[2] == 1 else h.mean(dim=2)  # [B, C, T]
         for conv in (self.t0, self.t1, self.t2):
             seq = F.relu(conv(seq)) + seq
-        return self.head(seq.transpose(1, 2)).float()  # [B, T, K]
+        seq = seq.transpose(1, 2)  # [B, T, C]
+        if not deterministic:
+            seq = self._dropout(seq, generator, keep)
+        return self.head(seq).float()  # [B, T, K]
+
+    @staticmethod
+    def _dropout(seq: torch.Tensor, generator: torch.Generator | None,
+                 keep: torch.Tensor | None, rate: float = 0.25) -> torch.Tensor:
+        """flax ``nn.Dropout(rate)``: keep with probability 1 - rate and scale
+        the kept by 1 / (1 - rate)."""
+        if keep is None:
+            if generator is None:
+                raise ValueError("CTCRecognizer: training-mode dropout needs a torch.Generator "
+                                 "or a keep mask")
+            keep = torch.rand(seq.shape, generator=generator, device=seq.device) < 1.0 - rate
+        return torch.where(keep.to(seq.device), seq / (1.0 - rate),
+                           torch.zeros((), dtype=seq.dtype, device=seq.device))

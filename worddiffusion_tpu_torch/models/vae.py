@@ -216,6 +216,21 @@ class AutoencoderKL(nn.Module):
         zc = z.permute(0, 3, 1, 2).to(self.decoder.dtype)
         return self.decoder(self.post_quant_conv(zc)).permute(0, 2, 3, 1)
 
+    def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """The training forward (JAX ``AutoencoderKL.__call__``): encode,
+        sample the posterior with the unit normal ``noise`` (parity tests
+        hand in JAX's draw) or one drawn from ``generator``, decode. ->
+        (reconstruction [B, H, W, 3] fp32, mean, logvar)."""
+        mean, logvar = self.encode(x)
+        if noise is None:
+            if generator is None:
+                raise ValueError("AutoencoderKL: sampling the posterior needs the noise or a "
+                                 "torch.Generator")
+            noise = torch.randn(mean.shape, generator=generator, device=mean.device)
+        z = mean + torch.exp(0.5 * logvar) * noise
+        return self.decode(z), mean, logvar
+
 
 def encode_to_latent(vae: AutoencoderKL, x: torch.Tensor,
                      generator: Optional[torch.Generator] = None,
