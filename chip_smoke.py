@@ -176,6 +176,40 @@ Phases, each of which must pass (any failure exits non-zero):
    (e)'s OCR, then the style-encoder fallback: every JSON key, images/s per
    featurizer; (i) ``masked_ddpm_sample`` with the ``iam``
    UNet, B=16, 599 calls.
+23. pixel space (``--latent 0``, the ``iam`` UNet at full width on 64x256x3
+   images): (a) B.5 at its 5 site shapes ([16, 64, 256, 640] down to [16,
+   32, 128, 320]; the route printed), B.6 at [16, 64, 256, 320] and [16, 32,
+   128, 320], B.4 at Nq 16384 and 4096 over the 42-token context and at
+   iam_phosc's self-attention (Nq = Nk = 16384; its plain version in query
+   chunks of SELF_ATTN_CHUNK), B.1 and B.3 at M = 16 * 16384 and 16 * 4096,
+   each against its plain version, beside its bound and its library call;
+   (b) one UNet call all-kernel vs all-plain (4 / 8 / 9 / 12 launches, by
+   profiled name); (c) the regeneration CLI with ``--latent 0`` over one batch
+   of 16 words (no VAE: the OCR's launches only per batch), peak memory; (d) the train CLI with
+   ``--latent 0`` at the largest B of PIXEL_TRAIN_BS that fits (2 epochs of
+   2 steps on seeded 64x256 PNGs, a DDIM-10 preview; launches and Function
+   backwards a step; a max_steps stop and a bitwise resume; s/step, peak);
+   (e) the sampling CLI with ``--latent 0`` on its EMA weights (DDIM-10,
+   6 words, no decoder).
+24. the HiGAN+ denoiser (``--hiGanArch 1``) at ``iam`` width: a call at B=16
+   in latent and in pixel space all-kernel vs plain B.5 (13 B.5 launches, no
+   other kernel); the train CLI on the latent cache (B=128, 2 epochs of 3
+   steps; 13 B.5 and 13 GroupNormFn backwards a step; a bitwise resume), the
+   regeneration CLI (one batch of 16, 120 calls) and the sampling CLI
+   (DDIM-50) on its EMA weights.
+25. data parallel: the train CLI with ``--mesh_data 1`` in a process started
+   with torchrun's environment (world size 1, NCCL): the model under
+   ``DistributedDataParallel``, launches and Function backwards a step under
+   its hooks, a bitwise resume, and its parameters bitwise those of the same
+   run without a process group.
+26. ``return_attn``: the maps kernel (``attention_probs_kernel`` beside B.4,
+   from B.4's log-sum-exp) against the plain softmax at ``iam``'s shapes in
+   latent and pixel space, beside its bound; one ``return_attn`` UNet call in
+   each space: 8 maps from the kernel (8 B.4 and 8 maps launches) against
+   the plain maps of the same q and k.
+27. host data on this machine's CPU: each augmentation op's and
+   ``resize_dataset``'s ms per 64x256 image, the PNG reader's; whether
+   ``torchvision.io`` (a JPEG decoder) is present.
 
 Every training phase counts 9 B.5 and 12 B.6 launches and Function
 backward calls per step (13 B.5 with the CTC aux head), and 9 * 50 + 4 and
@@ -438,7 +472,7 @@ def reset_counts() -> None:
     from worddiffusion_tpu_torch.ops import attention, ffn, fold_attention, gn_conv, groupnorm
 
     ffn.launches = ffn.bwd_launches = ffn.geglu_launches = 0
-    attention.launches = attention.bwd_calls = 0
+    attention.launches = attention.bwd_calls = attention.probs_launches = 0
     fold_attention.launches = fold_attention.bwd_calls = fold_attention.flat_launches = 0
     groupnorm.launches = groupnorm.bwd_calls = gn_conv.launches = gn_conv.bwd_calls = 0
 
@@ -775,7 +809,7 @@ def phase7_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - before  # the run's own, above what lay there
     fwd, bwd, geglu = ffn.launches, ffn.bwd_launches, ffn.geglu_launches
-    fold7 = fold_attention.flat_launches
+    fold7, probs = fold_attention.flat_launches, attention.probs_launches
     attn, attn_bwd = attention.launches, attention.bwd_calls
     gn, conv, gn_bwd, conv_bwd = norm_counts()
 
@@ -861,8 +895,9 @@ def phase7_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
         f"vs the uninterrupted run {diff:.6g} (max |param| {scale:.4g}); must be bitwise 0")
     assert diff == 0, f"the resumed run is not bitwise the uninterrupted one: {diff}"
     prof = step_profile(smi, trainer, "iam", folds=0)
+    assert probs == 0, probs
     return dict(fwd=fwd, bwd=bwd, geglu=geglu, fold_b7=fold7, attn=attn, gn=gn, conv=conv,
-                s_per_step=k_s / k_n, peak_bytes=peak,
+                probs=probs, s_per_step=k_s / k_n, peak_bytes=peak,
                 plain_s_per_step=p_s / p_n, resume_diff=diff, step_busy_ms=prof["busy_ms"])
 
 
@@ -924,7 +959,7 @@ def phase10_phosc_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     fwd, bwd, geglu = ffn.launches, ffn.bwd_launches, ffn.geglu_launches
-    fold7 = fold_attention.flat_launches
+    fold7, probs = fold_attention.flat_launches, attention.probs_launches
     attn, attn_bwd = attention.launches, attention.bwd_calls
     gn, conv, gn_bwd, conv_bwd = norm_counts()
 
@@ -953,9 +988,9 @@ def phase10_phosc_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     assert attn - sum(preview_attn) == 8 * steps and attn_bwd == 8 * steps, (attn, attn_bwd)
     assert preview_attn == [8 * 50] and preview_ffn == [4 * 50], (preview_attn, preview_ffn)
     assert fwd - sum(preview_ffn) == 4 * steps and bwd == 4 * steps, (fwd, bwd)
-    assert geglu == 0 and fold7 == 0, (geglu, fold7)
+    assert geglu == 0 and fold7 == 0 and probs == 0, (geglu, fold7, probs)
     return dict(fwd=fwd, bwd=bwd, geglu=geglu, fold_b7=fold7, attn=attn, gn=gn, conv=conv,
-                s_per_step=s_ / n_)
+                probs=probs, s_per_step=s_ / n_)
 
 
 def fold_inputs(b: int, n: int, l: int, seed: int) -> dict:
@@ -1226,7 +1261,7 @@ def phase13_fold_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
         counts = dict(ffn=ffn.launches, ffn_bwd=ffn.bwd_launches, geglu=ffn.geglu_launches,
                       attn=attention.launches, attn_bwd=attention.bwd_calls,
                       fold=fold_attention.launches, fold_b7=fold_attention.flat_launches,
-                      fold_bwd=fold_attention.bwd_calls,
+                      fold_bwd=fold_attention.bwd_calls, probs=attention.probs_launches,
                       **dict(zip(("gn", "conv", "gn_bwd", "conv_bwd"), norm_counts())))
         return trainer, state, initial, counts, previews, torch.cuda.max_memory_allocated()
 
@@ -1250,7 +1285,7 @@ def phase13_fold_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
                           fold=8 * steps + 8 * 50, fold_b7=0, fold_bwd=8 * steps,
                           gn=gn_u * steps + gn_p,
                           conv=conv_u * steps + conv_p, gn_bwd=gn_u * steps,
-                          conv_bwd=conv_u * steps), counts
+                          conv_bwd=conv_u * steps, probs=0), counts
 
     # where the step's device time goes: the UNet's forward and backward at
     # B=128 (the step without its draws and AdamW), folded and unfolded on
@@ -1556,7 +1591,7 @@ def phase16_cache(smi: str, work: str, corpus) -> dict:
     from worddiffusion_tpu_torch.data.dataset import LatentLookup
     from worddiffusion_tpu_torch.data.loader import batches
     from worddiffusion_tpu_torch.models.vae import encode_to_latent
-    from worddiffusion_tpu_torch.ops import ffn, fold_attention
+    from worddiffusion_tpu_torch.ops import attention, ffn, fold_attention
 
     crops, gt, vae_file = corpus
     out = os.path.join(work, "built.npz")
@@ -1569,6 +1604,7 @@ def phase16_cache(smi: str, work: str, corpus) -> dict:
     wall = time.perf_counter() - t0
     gn, conv = norm_counts()[:2]
     geglu, fold7 = ffn.geglu_launches, fold_attention.flat_launches
+    probs = attention.probs_launches
     lookup = LatentLookup.load(out)
     n_batches = -(-N_IMAGES // 64)
 
@@ -1590,8 +1626,9 @@ def phase16_cache(smi: str, work: str, corpus) -> dict:
     assert all(lookup[n].shape == (8, 32, 4) and np.isfinite(lookup[n]).all() for n in names)
     assert (gn, conv) == tuple(k * n_batches for k in ENCODER_NORMS), (gn, conv)
     assert diff <= 1e-6 * scale, f"cache differs from the direct encode: {diff}"
-    assert geglu == 0 and fold7 == 0, (geglu, fold7)
-    return dict(gn=gn, conv=conv, geglu=geglu, fold_b7=fold7, imgs_per_s=N_IMAGES / wall,
+    assert geglu == 0 and fold7 == 0 and probs == 0, (geglu, fold7, probs)
+    return dict(gn=gn, conv=conv, geglu=geglu, fold_b7=fold7, probs=probs,
+                imgs_per_s=N_IMAGES / wall,
                 cache=out)
 
 
@@ -1664,7 +1701,7 @@ def phase17_train_images(smi: str, work: str, corpus, cache: str) -> dict:
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     counts = dict(ffn=ffn.launches, ffn_bwd=ffn.bwd_launches, geglu=ffn.geglu_launches,
-                  fold_b7=fold_attention.flat_launches,
+                  fold_b7=fold_attention.flat_launches, probs=attention.probs_launches,
                   attn=attention.launches, attn_bwd=attention.bwd_calls,
                   **dict(zip(("gn", "conv", "gn_bwd", "conv_bwd"), norm_counts())))
     changed = {k: (v - initial[k]).abs().max().item()
@@ -1695,7 +1732,7 @@ def phase17_train_images(smi: str, work: str, corpus, cache: str) -> dict:
         ffn=4 * steps + 4 * 50, ffn_bwd=4 * steps, geglu=0, fold_b7=0,
         attn=8 * steps + 8 * 50, attn_bwd=8 * steps,
         gn=(gn_u + ENCODER_NORMS[0]) * steps + gn_p, conv=(conv_u + ENCODER_NORMS[1]) * steps
-        + conv_p, gn_bwd=gn_u * steps, conv_bwd=conv_u * steps), counts
+        + conv_p, gn_bwd=gn_u * steps, conv_bwd=conv_u * steps, probs=0), counts
 
     kill_at = spe + 1
     part = train_cli.build(args("resume_img", "--iam_path", crops, "--stable_dif_path",
@@ -1729,7 +1766,7 @@ def phase18_variants(smi: str, sampler, words) -> dict:
         r = unet_check(smi, unet, inputs, f"iam {label}",
                        launches=(4, 8, 0, *VARIANT_NORMS[label]))
         out[label] = dict(ms=r["ms"], rel=r["rel"], busy_ms=r["busy_ms"],
-                          counts=(4, 8, 0, *VARIANT_NORMS[label]))
+                          counts=(4, 8, 0, *VARIANT_NORMS[label]), probs=r["probs"])
         del unet
     return out
 
@@ -1796,6 +1833,7 @@ def phase19_cond_train(smi: str, work: str, corpus: tuple[str, str, str]) -> dic
         counts = dict(ffn=ffn.launches, ffn_bwd=ffn.bwd_launches, geglu=ffn.geglu_launches,
                       attn=attention.launches, attn_bwd=attention.bwd_calls,
                       fold=fold_attention.launches, fold_b7=fold_attention.flat_launches,
+                      probs=attention.probs_launches,
                       **dict(zip(("gn", "conv", "gn_bwd", "conv_bwd"), norm_counts())))
         changed = {k: (v - initial[k]).abs() for k, v in state.model.state_dict().items()}
         # the parameters the run ended with (init_state below re-initialises
@@ -1848,7 +1886,7 @@ def phase19_cond_train(smi: str, work: str, corpus: tuple[str, str, str]) -> dic
             ffn=4 * steps + 4 * 50, ffn_bwd=4 * steps, geglu=0, attn=8 * steps + 8 * 50,
             attn_bwd=8 * steps, fold=0, fold_b7=0, gn=per_call[0] * steps + preview[0],
             conv=per_call[1] * steps + preview[1], gn_bwd=per_call[0] * steps,
-            conv_bwd=per_call[1] * steps), counts
+            conv_bwd=per_call[1] * steps, probs=0), counts
         assert len(r["nks"]) == 8, r["nks"]
         if label == "ocr_img":
             assert cfg.ocr_head and cfg.img_conditioned and "ctc" in r["metrics"]
@@ -1919,8 +1957,9 @@ def phase20_sample(smi: str, work: str, vae_file: str, cond_image: str, trained:
         wall = time.perf_counter() - t0
         counts = dict(ffn=ffn.launches, attn=attention.launches, fold=fold_attention.launches,
                       geglu=ffn.geglu_launches, fold_b7=fold_attention.flat_launches,
+                      probs=attention.probs_launches,
                       **dict(zip(("gn", "conv"), norm_counts()[:2])))
-        want = dict(ffn=4 * calls, attn=8 * calls, fold=0, geglu=0, fold_b7=0,
+        want = dict(ffn=4 * calls, attn=8 * calls, fold=0, geglu=0, fold_b7=0, probs=0,
                     gn=UNET_NORMS[0] * calls + DECODER_NORMS[0] + encode[0],
                     conv=UNET_NORMS[1] * calls + DECODER_NORMS[1] + encode[1])
         mix = "_mix0.500" if "--writer2" in flags else ""
@@ -1959,12 +1998,12 @@ def all_counts() -> dict:
     gn, conv = norm_counts()[:2]
     return dict(ffn=ffn.launches, ffn_bwd=ffn.bwd_launches, attn=attention.launches,
                 fold=fold_attention.launches, fold_b7=fold_attention.flat_launches, gn=gn,
-                conv=conv, geglu=ffn.geglu_launches)
+                conv=conv, geglu=ffn.geglu_launches, probs=attention.probs_launches)
 
 
 def only_groupnorm(gn: int) -> dict:
     """The counts of a path that launches B.5 ``gn`` times and no other kernel."""
-    return dict(ffn=0, ffn_bwd=0, attn=0, fold=0, fold_b7=0, gn=gn, conv=0, geglu=0)
+    return dict(ffn=0, ffn_bwd=0, attn=0, fold=0, fold_b7=0, gn=gn, conv=0, geglu=0, probs=0)
 
 
 @contextlib.contextmanager
@@ -2671,7 +2710,8 @@ def phase22i_masked(smi: str, unet, sampler, words) -> dict:
         f"finite {bool(torch.isfinite(out).all())} [{smi}]")
     assert calls == 599 and bool(torch.isfinite(out).all())
     assert counts == dict(ffn=4 * calls, ffn_bwd=0, attn=8 * calls, fold=0, fold_b7=0,
-                          gn=UNET_NORMS[0] * calls, conv=UNET_NORMS[1] * calls, geglu=0), counts
+                          gn=UNET_NORMS[0] * calls, conv=UNET_NORMS[1] * calls, geglu=0,
+                          probs=0), counts
     return dict(paths={"masked_sample": counts}, s=wall, ms_per_call=wall / calls * 1e3)
 
 
@@ -2732,10 +2772,10 @@ def unet_check(smi: str, unet, inputs, label: str, launches=(4, 8, 0, *UNET_NORM
     plain.load_state_dict(unet.state_dict())
     with torch.no_grad():
         f0, a0, d0 = ffn.launches, attention.launches, fold_attention.launches
-        n0 = norm_counts()
+        n0, p0 = norm_counts(), attention.probs_launches
         eps_k = unet(*inputs)
         n_ff, n_attn = ffn.launches - f0, attention.launches - a0
-        n_fold = fold_attention.launches - d0
+        n_fold, n_probs = fold_attention.launches - d0, attention.probs_launches - p0
         n_gn, n_conv = (b - a for a, b in zip(n0[:2], norm_counts()[:2]))
         with plain_norms():
             before_ms = cuda_ms(lambda: unet(*inputs), reps=10)
@@ -2759,7 +2799,7 @@ def unet_check(smi: str, unet, inputs, label: str, launches=(4, 8, 0, *UNET_NORM
         f"and {prof['kernels']:.0f} kernels per call ({prof_before['busy_ms']:.4f} ms and "
         f"{prof_before['kernels']:.0f} with plain B.5/B.6); profiled kernels per call by name "
         f"{by_name}; top kernels (ms/call) {prof['top']} [{smi}]")
-    assert got == tuple(launches), got
+    assert got == tuple(launches) and n_probs == 0, (got, n_probs)
     # one B.1 kernel per FF sub-layer and one B.5 kernel per GroupNorm; the
     # statistics pass's two kernels only behind B.6
     assert by_name == {"ffn_kernel<": n_ff, "gn_cluster_kernel": n_gn,
@@ -2767,17 +2807,17 @@ def unet_check(smi: str, unet, inputs, label: str, launches=(4, 8, 0, *UNET_NORM
     assert bool(torch.isfinite(eps_k).all()), "non-finite eps"
     assert rel <= UNET_REL_TOL, f"UNet all-kernel vs all-plain: rel {rel}"
     return dict(ms=unet_ms, before_ms=before_ms, plain_ms=plain_ms, err=err, rel=rel,
-                eps=eps_k, busy_ms=prof["busy_ms"], kernels=prof["kernels"], top=prof["top"],
+                probs=n_probs, eps=eps_k, busy_ms=prof["busy_ms"], kernels=prof["kernels"], top=prof["top"],
                 busy_before_ms=prof_before["busy_ms"], kernels_before=prof_before["kernels"])
 
 
 def drive_regen(smi: str, regen, samples, seed: int, label: str,
-                per_call=(4, 8, 0, *UNET_NORMS)) -> dict:
+                per_call=(4, 8, 0, *UNET_NORMS), decoder=DECODER_NORMS) -> dict:
     """The regeneration main path over ``samples``: counts set to 0 just
     before the run and read just after; checks shapes, finiteness, the
     PNGs and the FF, attention, fold attention, B.5 and B.6 launches per
-    denoiser call (``per_call``) plus, per batch, one VAE decode and one
-    OCR call's B.5 and B.6."""
+    denoiser call (``per_call``) plus, per batch, one VAE decode's
+    (``decoder``; none in pixel space) and one OCR call's B.5 and B.6."""
     import torch
 
     from worddiffusion_tpu_torch.generate.sample import phosc_ids
@@ -2808,20 +2848,21 @@ def drive_regen(smi: str, regen, samples, seed: int, label: str,
     elapsed = time.perf_counter() - t0
     got = (ffn.launches, attention.launches, fold_attention.launches, *norm_counts()[:2])
     geglu, fold7 = ffn.geglu_launches, fold_attention.flat_launches
+    probs = attention.probs_launches
 
     dump = regen.out_dir
     n_batches = -(-len(samples) // B)
     log(f"regen {label}: {stats.generated} generated, {stats.accepted} accepted, {n_batches} "
         f"batches of {B}, {calls} denoiser calls each; {elapsed / n_batches:.3f} s/batch, "
         f"{stats.generated / elapsed:.2f} imgs/s (incl. PNG writes) [{smi}]")
-    per_batch = (0, 0, 0, DECODER_NORMS[0] + OCR_NORMS[0], DECODER_NORMS[1] + OCR_NORMS[1])
+    per_batch = (0, 0, 0, decoder[0] + OCR_NORMS[0], decoder[1] + OCR_NORMS[1])
     want = tuple((k * calls + p) * n_batches for k, p in zip(per_call, per_batch))
     log(f"kernel launches in the {label} main path (FF, attention, fold attention, groupnorm, "
         f"gn_silu_conv3x3): {got} (expect ({per_call} x {calls} calls + {per_batch}) x "
         f"{n_batches} batches = {want})")
     assert calls == 120, calls
-    assert got == want and geglu == 0 and fold7 == 0, (got, want, geglu, fold7)
-    assert stats.generated == len(samples) == 40, stats
+    assert got == want and geglu == fold7 == probs == 0, (got, want, geglu, fold7, probs)
+    assert stats.generated == len(samples), stats
     assert len(checks) == n_batches, len(checks)
     for finite, ishape, idt, fshape, fdt in checks:
         assert bool(finite), "non-finite latents"
@@ -2835,7 +2876,8 @@ def drive_regen(smi: str, regen, samples, seed: int, label: str,
     assert png_size(first) == (256, 64), png_size(first)
     sampler.decode = decode
     return dict(zip(("ffn", "attn", "fold", "gn", "conv"), got), geglu=geglu, fold_b7=fold7,
-                s_per_batch=elapsed / n_batches, imgs_per_s=stats.generated / elapsed)
+                probs=probs, s_per_batch=elapsed / n_batches,
+                imgs_per_s=stats.generated / elapsed)
 
 
 def batch_seconds(smi: str, sampler, words, label: str, phosc=None) -> dict:
@@ -2865,12 +2907,709 @@ def regen_cli_args(cli, gt: str, dump: str, *extra: str):
     ])
 
 
-def main() -> int:
+PIX_H, PIX_W = 64, 256
+PIXEL_TRAIN_BS = (32, 16, 8)  # the largest of these that fits trains phase 23
+# The pixel-space iam UNet's kernel sites at B=16: B.5 at the decoder's
+# concatenated 640-channel inputs (+ SiLU), the spatial transformers' norms
+# (no SiLU) and the output norm; B.6 at both resolutions; B.4 over the
+# 42-token character context at 16384 and 4096 queries; B.1 over those
+# tokens. B.4's self-attention row is the iam_phosc / gw shape (attn1 over
+# the image itself), its plain version run in query chunks.
+PIXEL_GN_SHAPES = ((B, 64, 256, 640, 32, True), (B, 32, 128, 640, 32, True),
+                   (B, 64, 256, 320, 32, False), (B, 32, 128, 320, 32, False),
+                   (B, 64, 256, 320, 32, True))
+PIXEL_CONV_SHAPES = ((B, 64, 256, 320, 32), (B, 32, 128, 320, 32))
+PIXEL_ATTN_SHAPES = ((B, 16384, 42), (B, 4096, 42))
+PIXEL_SELF_ATTN = (B, 16384, 16384)
+SELF_ATTN_CHUNK = 512  # query rows a chunk of the plain self-attention: 2 GiB of scores
+PIXEL_FFN_M = (B * 16384, B * 4096)
+HIGAN_NORMS = 13  # B.5 launches a HiGAN+ call: 2 per block (6) + out_norm
+MAPS_ABS_TOL = 1e-4  # the maps kernel's fp32 probabilities against the plain softmax
+MAPS_SHAPES = ((B, 256, 42), (B, 64, 42), (B, 16384, 42), (B, 4096, 42))
+
+
+def pixel_kernel_rows(smi: str) -> dict:
+    """Phase 23(a): B.5, B.6, B.4, B.1 and B.3 at the pixel-space shapes
+    against their plain versions, each beside its bound and its library call."""
+    import torch
+    import torch.nn.functional as F
+
+    from worddiffusion_tpu_torch.ops import attention, ffn, gn_conv, groupnorm
+
+    gn_rows, conv_rows, attn_rows, ffn_rows, bwd_rows = [], [], [], [], []
+    for i, (b, h, w, c, groups, silu) in enumerate(PIXEL_GN_SHAPES):
+        t = norm_inputs((b, h, w, c), seed=300 + i)
+        args = (t["x"], t["scale"], t["bias"], groups, 1e-5, silu)
+        got, again = groupnorm.fused_groupnorm(*args), groupnorm.fused_groupnorm(*args)
+        torch.cuda.synchronize()
+        want = groupnorm.groupnorm_reference(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        ms = launch_ms(lambda: groupnorm.fused_groupnorm(*args))
+        plain_ms = launch_ms(lambda: groupnorm.groupnorm_reference(*args))
+        nchw, ws, bs = t["x"].permute(0, 3, 1, 2), t["scale"].bfloat16(), t["bias"].bfloat16()
+        library_ms = launch_ms(lambda: (F.silu if silu else (lambda y: y))(
+            F.group_norm(nchw, groups, ws, bs, 1e-5)))
+        bound_ms, bound_by = bound(nbytes(*t.values(), got), 0)
+        cl, kept = groupnorm.route(t["x"], groups)
+        log(f"pixel groupnorm B={b} {h}x{w} C={c} G={groups} silu={silu} (clusters of {cl}, x "
+            f"{'kept in shared memory' if kept else 'read twice'}): max_abs_err {err:.6g} "
+            f"max_rel_err {rel:.6g} (tol {NORM_REL_TOL}); bitwise repeatable "
+            f"{torch.equal(got, again)}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms library "
+            f"{library_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+            f"{bound_ms / ms:.1%} of the bound [{smi}]")
+        assert bool(torch.isfinite(got.float()).all()) and torch.equal(got, again), (b, h, w, c)
+        assert rel <= NORM_REL_TOL, f"groupnorm kernel disagrees at {b, h, w, c}: rel {rel}"
+        gn_rows.append(dict(shape=(b, h, w, c, groups, silu), err=err, rel=rel, ms=ms,
+                            plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, cluster=cl, kept=kept))
+        del t, got, again, want
+
+    for i, (b, h, w, c, groups) in enumerate(PIXEL_CONV_SHAPES):
+        t = norm_inputs((b, h, w, c), seed=320 + i)
+        g = torch.Generator().manual_seed(330 + i)
+        wt = (torch.randn(c, c, 3, 3, generator=g) / (9 * c) ** 0.5).cuda()
+        cb = (0.1 * torch.randn(c, generator=g)).cuda()
+        args = (t["x"], t["scale"], t["bias"], wt, cb, groups, 1e-5)
+        got, again = gn_conv.fused_gn_silu_conv3x3(*args), gn_conv.fused_gn_silu_conv3x3(*args)
+        torch.cuda.synchronize()
+        want = gn_conv.gn_silu_conv3x3_reference(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        ms = launch_ms(lambda: gn_conv.fused_gn_silu_conv3x3(*args))
+        plain_ms = launch_ms(lambda: gn_conv.gn_silu_conv3x3_reference(*args), calls=3)
+        nchw, ws, bs = t["x"].permute(0, 3, 1, 2), t["scale"].bfloat16(), t["bias"].bfloat16()
+        wb, cbb = wt.bfloat16().contiguous(memory_format=torch.channels_last), cb.bfloat16()
+        library_ms = launch_ms(lambda: F.conv2d(F.silu(F.group_norm(nchw, groups, ws, bs, 1e-5)),
+                                                wb, cbb, padding=1))
+        flops = 2 * 9 * c * c * b * h * w
+        bound_ms, bound_by = bound(nbytes(*t.values(), got, cb) + wt.numel() * 2, flops)
+        tile = gn_conv._lib().wd_gn_silu_conv3x3_tile(b, h, w, c)
+        log(f"pixel gn_silu_conv3x3 B={b} {h}x{w} C={c} ({tile >> 16} pixels x {tile & 0xffff} "
+            f"channels a CTA): max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {NORM_REL_TOL}); "
+            f"bitwise repeatable {torch.equal(got, again)}; kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms F.group_norm + F.silu + F.conv2d {library_ms:.4f} ms bound "
+            f"{bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / ms:.1%} of the bound, "
+            f"{flops / ms / 1e9:.0f} TFLOP/s [{smi}]")
+        assert bool(torch.isfinite(got.float()).all()) and torch.equal(got, again), (b, h, w, c)
+        assert rel <= NORM_REL_TOL, f"gn_silu_conv3x3 disagrees at {b, h, w, c}: rel {rel}"
+        conv_rows.append(dict(shape=(b, h, w, c, groups), err=err, rel=rel, ms=ms,
+                              plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                              bound_by=bound_by))
+        del t, got, again, want
+
+    scale = D_HEAD ** -0.5
+    for i, (b, nq, nk) in enumerate(PIXEL_ATTN_SHAPES + (PIXEL_SELF_ATTN,)):
+        q, k, v = attn_inputs(b, nq, nk, seed=340 + i)
+        got, again = (attention.fused_attention(q, k, v, scale) for _ in range(2))
+        torch.cuda.synchronize()
+        chunked = nq * nk > 2 ** 26  # the plain [B, H, Nq, Nk] fp32 scores in query chunks
+
+        def plain():
+            if not chunked:
+                return attention.attention_reference(q, k, v, scale)
+            return torch.cat([attention.attention_reference(
+                q[:, :, s:s + SELF_ATTN_CHUNK], k, v, scale)
+                for s in range(0, nq, SELF_ATTN_CHUNK)], dim=2)
+
+        want = plain()
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        ms = launch_ms(lambda: attention.fused_attention(q, k, v, scale), calls=3 if chunked else 10)
+        plain_ms = launch_ms(plain, calls=1, reps=3)
+        library_ms = launch_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
+                               calls=3 if chunked else 10)
+        bound_ms, bound_by = bound(nbytes(q, k, v, got), 4 * b * HEADS * nq * nk * D_HEAD)
+        log(f"pixel attention B={b} H={HEADS} Nq={nq} Nk={nk} D={D_HEAD} "
+            f"({attention._lib().wd_attention_tile_rows(b * HEADS, nq)}-query tile, "
+            f"{b * HEADS * -(-nq // 128)} CTAs; plain {'in query chunks' if chunked else 'whole'}): "
+            f"max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {ATTN_REL_TOL}); bitwise "
+            f"repeatable {torch.equal(got, again)}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"scaled_dot_product_attention {library_ms:.4f} ms bound {bound_ms:.4f} ms "
+            f"({bound_by}), kernel at {bound_ms / ms:.1%} of the bound [{smi}]")
+        assert bool(torch.isfinite(got.float()).all()) and torch.equal(got, again), (b, nq, nk)
+        assert rel <= ATTN_REL_TOL, f"attention kernel disagrees at {b, nq, nk}: rel {rel}"
+        attn_rows.append(dict(b=b, nq=nq, nk=nk, err=err, ms=ms, plain_ms=plain_ms,
+                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+        del q, k, v, got, again, want
+
+    for i, m in enumerate(PIXEL_FFN_M):
+        f = ffn_inputs(m, seed=360 + i)
+        got, again = ffn.fused_ln_geglu_ffn(**f), ffn.fused_ln_geglu_ffn(**f)
+        torch.cuda.synchronize()
+        want = ffn.ln_geglu_ffn_reference(**f)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        ms = launch_ms(lambda: ffn.fused_ln_geglu_ffn(**f))
+        plain_ms = launch_ms(lambda: ffn.ln_geglu_ffn_reference(**f), calls=3)
+        bound_ms, bound_by = ffn_bound(f, got)
+        log(f"pixel ffn M={m} (cluster of {ffn.cluster_size(m, INNER)}): max_abs_err {err:.6g} "
+            f"max_rel_err {rel:.6g} (tol {FFN_REL_TOL}); bitwise repeatable "
+            f"{torch.equal(got, again)}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+            f"{bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / ms:.1%} of the bound [{smi}]")
+        assert bool(torch.isfinite(got.float()).all()) and torch.equal(got, again), m
+        assert rel <= FFN_REL_TOL, f"ffn kernel disagrees at M={m}: rel {rel}"
+        ffn_rows.append(dict(m=m, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by))
+        del f, got, again, want
+
+        a = bwd_inputs(m, seed=370 + i)
+        got, again = ffn.ln_geglu_ffn_bwd(**a), ffn.ln_geglu_ffn_bwd(**a)
+        torch.cuda.synchronize()
+        want = ffn.ln_geglu_ffn_bwd_reference(**a)
+        errs = []
+        for name, g, w, g2 in zip(GRADS, got, want, again):
+            share = (g.float() - w.float()).abs().max().item() / w.float().abs().max().item()
+            errs.append((g.float() - w.float()).abs().max().item())
+            assert bool(torch.isfinite(g.float()).all()) and torch.equal(g, g2), (name, m)
+            assert share <= BWD_REL_TOL, f"backward kernel disagrees at M={m}: {name} {share}"
+        ms = launch_ms(lambda: ffn.ln_geglu_ffn_bwd(**a), calls=3)
+        plain_ms = launch_ms(lambda: ffn.ln_geglu_ffn_bwd_reference(**a), calls=1, reps=3)
+        bound_ms, bound_by = bound(nbytes(*a.values(), *got), 16 * m * D * INNER)
+        log(f"pixel ffn bwd (B.3) M={m} (cluster of {ffn.bwd_cluster_size(m, INNER)}): every "
+            f"gradient within {BWD_REL_TOL} of plain, bitwise repeatable; kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+            f"{bound_ms / ms:.1%} of the bound [{smi}]")
+        bwd_rows.append(dict(m=m, err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by))
+        del a, got, again, want
+    torch.cuda.empty_cache()
+    return dict(gn_rows=gn_rows, conv_rows=conv_rows, attn_rows=attn_rows, ffn_rows=ffn_rows,
+                bwd_rows=bwd_rows)
+
+
+def pixel_unet_inputs(sampler, words):
+    """One pixel-space UNet call's inputs at B=16: seeded x_t [16, 64, 256,
+    3], four timesteps, the words' char ids, writers 0..15."""
     import torch
 
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(B, PIX_H, PIX_W, 3, generator=g).cuda()
+    t = torch.tensor([599, 400, 200, 10] * (B // 4)).cuda()
+    ctx = torch.from_numpy(sampler.tokenizer.encode_batch(words[:B])).long().cuda()
+    return x, t, ctx, torch.arange(B).cuda(), None
+
+
+def write_pixel_corpus(work: str, n: int) -> tuple[str, str]:
+    """``n`` seeded 64x256 word PNGs and their gt file (phase 23's training)."""
+    from worddiffusion_tpu_torch.data.synthetic import render_word
+    from worddiffusion_tpu_torch.utils.images import encode_png
+
+    crops = os.path.join(work, "pixel_crops")
+    os.makedirs(crops)
+    words = "the of and to in is was that for it with as his on be at".split()
+    gt = os.path.join(work, "pixel.filter27")
+    with open(gt, "w") as f:
+        for i in range(n):
+            img = render_word(words[i % len(words)], PIX_H, PIX_W, seed=i)
+            with open(os.path.join(crops, f"p01-{i:04d}u-00.png"), "wb") as png:
+                png.write(encode_png(img))
+            f.write(f"{i % 50:03d},p01-{i:04d}u-00 {words[i % len(words)]}\n")
+    return crops, gt
+
+
+def phase23_pixel(smi: str, work: str, cli, gt: str, words) -> dict:
+    """Phase 23: pixel space (``--latent 0``) at full width: the kernels at
+    its shapes, one UNet call all-kernel vs all-plain, the regeneration CLI
+    at B=16 and the train CLI at the largest batch that fits, with a bitwise
+    resume."""
+    import torch
+
+    from worddiffusion_tpu_torch.cli import train as train_cli
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+
+    rows = pixel_kernel_rows(smi)
+
+    # (b) one UNet call all kernels against all plain, and (c) the regeneration CLI
+    regen, samples = cli.build(regen_cli_args(cli, gt, os.path.join(work, "regen_pixel"),
+                                              "--latent", "0"))
+    sampler = regen.sampler
+    assert sampler.vae is None and sampler.latent_shape == (PIX_H, PIX_W, 3)
+    assert sampler.model.cfg.in_channels == sampler.model.cfg.out_channels == 3
+    init_weights_(sampler.model, seed=0, zero_init=False)
+    torch.cuda.reset_peak_memory_stats()
+    unet = unet_check(smi, sampler.model, pixel_unet_inputs(sampler, words), "iam pixel")
+    regen_px = drive_regen(smi, regen, samples[:B], seed=0, label="iam pixel",
+                           decoder=(0, 0))
+    peak_regen = torch.cuda.max_memory_allocated()
+    log(f"pixel regeneration: peak memory {peak_regen / 2 ** 30:.3f} GiB [{smi}]")
+    del regen, sampler
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the train CLI: the largest of PIXEL_TRAIN_BS that fits
+    train_b, err = None, None
+    for tb in PIXEL_TRAIN_BS:
+        os.makedirs(os.path.join(work, f"px{tb}"))
+        crops, pgt = write_pixel_corpus(os.path.join(work, f"px{tb}"), 2 * tb + tb // 2)
+        try:
+            out = pixel_train(smi, work, crops, pgt, tb, train_cli)
+            train_b = tb
+            break
+        except torch.cuda.OutOfMemoryError as e:  # the next smaller batch
+            err = str(e).splitlines()[0]  # not the exception: its frames hold the tensors
+            log(f"pixel training at B={tb} does not fit: {err}")
+            gc.collect()
+            torch.cuda.empty_cache()
+    assert train_b is not None, f"no pixel-space batch of {PIXEL_TRAIN_BS} fits: {err}"
+    log(f"pixel training batch: B={train_b} (of {PIXEL_TRAIN_BS}), peak memory above the "
+        f"run's start {out['peak_bytes'] / 2 ** 30:.3f} GiB [{smi}]")
+
+    # (e) the sampling CLI on the trained EMA weights: DDIM-10, no decoder
+    from worddiffusion_tpu_torch.cli import sample as sample_cli
+
+    ckpt = os.path.join(work, f"pixel_run{train_b}", "ckpt", "4", "ema_unet.pt")
+    reset_counts()
+    names = sample_cli.main(["--words", ",".join(words[:6]), "--writer", "3", "--latent", "0",
+                             "--torch_ckpt", ckpt, "--ddim", "10", "--seed", "0",
+                             "--save_path", os.path.join(work, "sample_pixel")])
+    sampled = all_counts()
+    log(f"pixel sample: {len(names)} PNGs from the trained EMA weights, launches {sampled} "
+        f"[{smi}]")
+    assert names == [f"{i:05d}_3_{w}.png" for i, w in enumerate(words[:6])], names
+    assert sampled == dict(ffn=40, ffn_bwd=0, attn=80, fold=0, fold_b7=0, gn=10 * UNET_NORMS[0],
+                           conv=10 * UNET_NORMS[1], geglu=0, probs=0), sampled
+    assert png_size(os.path.join(work, "sample_pixel", names[0])) == (PIX_W, PIX_H)
+    return dict(rows=rows, unet=unet, regen=regen_px, train=out, train_b=train_b,
+                peak_regen=peak_regen, sample=sampled)
+
+
+def pixel_train(smi: str, work: str, crops: str, gt: str, tb: int, train_cli) -> dict:
+    """The train CLI with ``--latent 0`` at B=``tb``: 2 epochs of 2 steps on
+    the crops (x0 the image itself), a DDIM-10 preview at the end; launches
+    and Function backwards a step; a max_steps stop and a bitwise resume;
+    s/step and peak memory."""
+    import torch
+
+    from worddiffusion_tpu_torch.ops import attention, ffn
+
+    steps = 4
+
+    def args(save: str, *extra: str):
+        return train_cli.build_parser().parse_args([
+            "--preset", "iam", "--gt_train", gt, "--iam_path", crops, "--latent", "0",
+            "--batch_size", str(tb), "--epochs", "2", "--ckpt_every_epochs", "2",
+            "--preview_ddim", "10", "--save_path", os.path.join(work, save), "--seed", "0",
+            "--device", "cuda", *extra])
+
+    trainer = train_cli.build(args(f"pixel_run{tb}"))
+    assert trainer.encode_fn is None and trainer.exp.unet.in_channels == 3
+    initial = {k: v.clone() for k, v in trainer.init_state().model.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    t0 = time.perf_counter()
+    state = trainer.run(epochs=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    counts = all_counts()
+    _, _, gn_bwd, conv_bwd = norm_counts()
+    attn_bwd, ffn_bwd = attention.bwd_calls, ffn.bwd_launches
+    preview = 10  # DDIM-10: 10 UNet calls, no decode
+    log(f"pixel train B={tb}: {state.step} steps in {wall:.2f} s incl. one DDIM-10 preview; "
+        f"launches {counts}; backwards: attention {attn_bwd}, B.3 {ffn_bwd}, B.5 {gn_bwd}, B.6 "
+        f"{conv_bwd}; peak memory above the run's start {peak / 2 ** 30:.3f} GiB [{smi}]")
+    assert state.step == steps, state.step
+    want = dict(ffn=4 * (steps + preview), ffn_bwd=4 * steps, attn=8 * (steps + preview),
+                gn=UNET_NORMS[0] * (steps + preview), conv=UNET_NORMS[1] * (steps + preview))
+    assert all(counts[k] == v for k, v in want.items()), (counts, want)
+    assert counts["fold"] == counts["fold_b7"] == counts["geglu"] == counts["probs"] == 0, counts
+    assert (attn_bwd, gn_bwd, conv_bwd) == (8 * steps, *(n * steps for n in UNET_NORMS))
+    changed = max((v - initial[k]).abs().max().item()
+                  for k, v in state.model.state_dict().items())
+    assert changed > 0 and all(torch.isfinite(p).all() for p in state.model.parameters())
+    pngs = os.listdir(os.path.join(work, f"pixel_run{tb}", "images"))
+    assert pngs == ["epoch_0001.png"], pngs
+    s_per_step = trainer.epoch_seconds[1][0] / trainer.epoch_seconds[1][1]
+
+    part = train_cli.build(args(f"pixel_resume{tb}")).run(epochs=2, max_steps=3)
+    assert part.step == 3, part.step
+    resumed = train_cli.build(args(f"pixel_resume{tb}", "--loadPrev", "1")).run(
+        epochs=2, resume=True)
+    diff = max((a - b).abs().max().item() for a, b in
+               zip(resumed.model.parameters(), state.model.parameters()))
+    log(f"pixel train resume: stopped at step 3, resumed to {resumed.step}; max param diff vs "
+        f"the uninterrupted run {diff:.6g}; must be bitwise 0. s/step (epoch 1) "
+        f"{s_per_step:.4f} [{smi}]")
+    assert resumed.step == steps and diff == 0, (resumed.step, diff)
+    return dict(counts=dict(counts, ffn_bwd=ffn_bwd), s_per_step=s_per_step, peak_bytes=peak)
+
+
+def phase24_higan(smi: str, work: str, cli, gt: str, corpus: tuple[str, str]) -> dict:
+    """Phase 24: the HiGAN+ denoiser (``--hiGanArch 1``) at ``iam`` width:
+    one call all-kernel vs plain B.5 (13 launches), the same in pixel space
+    (B.5 at [16, 64, 256, 320]), the train CLI on the latent cache (13 B.5
+    and 13 GroupNormFn backwards a step, bitwise resume), the regeneration
+    CLI and the sampling CLI on its EMA weights."""
+    import torch
+
+    from worddiffusion_tpu_torch.cli import sample as sample_cli
+    from worddiffusion_tpu_torch.cli import train as train_cli
+    from worddiffusion_tpu_torch.configs import presets
+    from worddiffusion_tpu_torch.configs.pixel import pixel_space_exp
+    from worddiffusion_tpu_torch.models.higan import HiGanDenoiserAdapter
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.ops import groupnorm
+
+    out = {}
+    for space in ("latent", "pixel"):
+        exp = presets.get("iam")
+        if space == "pixel":
+            exp = pixel_space_exp(exp)
+        model = init_weights_(HiGanDenoiserAdapter(exp.unet), seed=0, zero_init=False).cuda()
+        model = model.to(memory_format=torch.channels_last).eval()
+        shape = (B, 8, 32, 4) if space == "latent" else (B, PIX_H, PIX_W, 3)
+        g = torch.Generator().manual_seed(5)
+        x = torch.randn(*shape, generator=g).cuda()
+        t = torch.tensor([599, 400, 200, 10] * (B // 4)).cuda()
+        ctx = torch.randint(1, 50, (B, 42), generator=g).cuda()
+        wid = torch.arange(B).cuda()
+        with torch.no_grad():
+            reset_counts()
+            got = model(x, t, ctx, wid)
+            counts = all_counts()
+            with plain_norms():
+                want = model(x, t, ctx, wid)
+                plain_ms = cuda_ms(lambda: model(x, t, ctx, wid), reps=10)
+            ms = cuda_ms(lambda: model(x, t, ctx, wid), reps=10)
+        rel = (got - want).abs().max().item() / want.abs().max().item()
+        log(f"higan {space} B={B} {shape[1]}x{shape[2]}: launches {counts}; all kernels vs "
+            f"plain B.5 max_rel_err {rel:.6g} (tol {UNET_REL_TOL}); call {ms:.3f} ms, with plain "
+            f"B.5 {plain_ms:.3f} ms [{smi}]")
+        assert counts == only_groupnorm(HIGAN_NORMS), counts
+        assert bool(torch.isfinite(got).all()) and rel <= UNET_REL_TOL, rel
+        out[f"{space}_ms"], out[f"{space}_plain_ms"] = ms, plain_ms
+        del model
+
+    # the train CLI on the latent cache: 2 epochs of 3 steps, then a bitwise resume
+    lat_gt, cache = short_corpus(os.path.join(work, "higan_corpus"), corpus)
+    steps = 6
+
+    def args(save: str, *extra: str):
+        return train_cli.build_parser().parse_args([
+            "--preset", "iam", "--gt_train", lat_gt, "--latent_cache", cache, "--hiGanArch", "1",
+            "--batch_size", str(TRAIN_B), "--epochs", "2", "--ckpt_every_epochs", "1",
+            "--save_path", os.path.join(work, save), "--seed", "0", "--device", "cuda", *extra])
+
+    trainer = train_cli.build(args("higan_run"))
+    assert isinstance(trainer.model, HiGanDenoiserAdapter) and trainer.preview_fn is None
+    reset_counts()
+    state = trainer.run(epochs=2)
+    torch.cuda.synchronize()
+    counts, gn_bwd = all_counts(), groupnorm.bwd_calls
+    log(f"higan train B={TRAIN_B}: {state.step} steps; launches {counts}; GroupNormFn backward "
+        f"calls {gn_bwd} [{smi}]")
+    assert state.step == steps and counts == only_groupnorm(HIGAN_NORMS * steps)
+    assert gn_bwd == HIGAN_NORMS * steps, gn_bwd
+    s_per_step = trainer.epoch_seconds[1][0] / trainer.epoch_seconds[1][1]
+    part = train_cli.build(args("higan_resume")).run(epochs=2, max_steps=4)
+    resumed = train_cli.build(args("higan_resume", "--loadPrev", "1")).run(epochs=2, resume=True)
+    diff = max((a - b).abs().max().item() for a, b in
+               zip(resumed.model.parameters(), state.model.parameters()))
+    log(f"higan train resume: stopped at {part.step}, resumed to {resumed.step}; max param diff "
+        f"{diff:.6g}; must be bitwise 0; s/step (epoch 1) {s_per_step:.4f} [{smi}]")
+    assert part.step == 4 and resumed.step == steps and diff == 0, (part.step, diff)
+    ckpt = os.path.join(work, "higan_run", "ckpt", str(steps), "ema_unet.pt")
+
+    # the regeneration CLI on those weights: 13 B.5 a call, the decode's and OCR's per batch
+    regen, samples = cli.build(regen_cli_args(cli, gt, os.path.join(work, "regen_higan"),
+                                              "--hiGanArch", "1", "--torch_ckpt", ckpt))
+    samples = samples[:B]
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = regen.run(samples, batch_size=B, seed=0)
+    torch.cuda.synchronize()
+    regen_s = time.perf_counter() - t0
+    regen_counts = all_counts()
+    want = dict(only_groupnorm(HIGAN_NORMS * 120 + DECODER_NORMS[0] + OCR_NORMS[0]),
+                conv=DECODER_NORMS[1] + OCR_NORMS[1])
+    log(f"higan regen: {stats.generated} generated in one batch of {B}, 120 calls, "
+        f"{regen_s:.3f} s; launches {regen_counts} [{smi}]")
+    assert stats.generated == B and regen_counts == want, (regen_counts, want)
+
+    # the sampling CLI: DDIM-50 on the same weights
+    reset_counts()
+    names = sample_cli.main(["--words", ",".join(words_of(samples)[:6]), "--writer", "3",
+                             "--hiGanArch", "1", "--torch_ckpt", ckpt, "--ddim", "50",
+                             "--save_path", os.path.join(work, "sample_higan"), "--seed", "0"])
+    sample_counts = all_counts()
+    log(f"higan sample: {len(names)} PNGs, launches {sample_counts} [{smi}]")
+    assert len(names) == 6 and sample_counts["gn"] == HIGAN_NORMS * 50 + DECODER_NORMS[0]
+    assert sample_counts["conv"] == DECODER_NORMS[1], sample_counts
+    return dict(out, train=dict(counts, ffn_bwd=0), regen=regen_counts, sample=sample_counts,
+                s_per_step=s_per_step, regen_s=regen_s, resume_diff=diff)
+
+
+def short_corpus(folder: str, corpus: tuple[str, str]) -> tuple[str, str]:
+    """The first 3.5 batches of the phase-7 latent corpus in ``folder``
+    (``train.filter27``, ``latents.npz``): 3 steps an epoch at B=128."""
+    import shutil
+
+    os.makedirs(folder)
+    gt = os.path.join(folder, "train.filter27")
+    with open(corpus[0]) as f:
+        lines = f.readlines()[:3 * TRAIN_B + TRAIN_B // 2]
+    with open(gt, "w") as f:
+        f.writelines(lines)
+    shutil.copy(corpus[1], os.path.join(folder, "latents.npz"))
+    return gt, os.path.join(folder, "latents.npz")
+
+
+def words_of(samples) -> list:
+    return [s.word for s in samples]
+
+
+DDP_WORKER_FLAG = "--ddp-worker"
+
+
+def ddp_worker(work: str) -> int:
+    """Phase 25's process (started by ``phase25_ddp`` with torchrun's
+    environment): the train CLI under ``DistributedDataParallel`` at world
+    size 1 on NCCL, counts set to 0 before and read after each run, then a
+    max_steps stop and a resume; writes what it saw as JSON."""
+    import torch
+
+    from worddiffusion_tpu_torch.cli import train as train_cli
+    from worddiffusion_tpu_torch.ops import attention, ffn
+
+    gt, cache = os.path.join(work, "train.filter27"), os.path.join(work, "latents.npz")
+
+    def args(save: str, *extra: str):
+        return train_cli.build_parser().parse_args([
+            "--preset", "iam", "--gt_train", gt, "--latent_cache", cache, "--mesh_data", "1",
+            "--batch_size", str(TRAIN_B), "--epochs", "2", "--ckpt_every_epochs", "2",
+            "--preview_ddim", "2", "--save_path", os.path.join(work, save), "--seed", "0",
+            "--device", "cuda", *extra])
+
+    trainer = train_cli.build(args("ddp_run"))
+    import torch.distributed as dist
+
+    assert dist.is_initialized() and dist.get_backend() == "nccl" and trainer.distributed
+    reset_counts()
+    state = trainer.run(epochs=2)
+    torch.cuda.synchronize()
+    counts = dict(all_counts(), attn_bwd=attention.bwd_calls, gn_bwd=norm_counts()[2],
+                  conv_bwd=norm_counts()[3])
+    assert type(trainer._ddp).__name__ == "DistributedDataParallel"
+    part = train_cli.build(args("ddp_resume")).run(epochs=2, max_steps=3)
+    resumed = train_cli.build(args("ddp_resume", "--loadPrev", "1")).run(epochs=2, resume=True)
+    diff = max((a - b).abs().max().item() for a, b in
+               zip(resumed.model.parameters(), state.model.parameters()))
+    torch.save(state.model.state_dict(), os.path.join(work, "ddp_final.pt"))
+    with open(os.path.join(work, "ddp.json"), "w") as f:
+        json.dump(dict(counts=counts, steps=state.step, part=part.step, resumed=resumed.step,
+                       resume_diff=diff, ffn_bwd=ffn.bwd_launches,
+                       epoch_seconds=trainer.epoch_seconds), f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase25_ddp(smi: str, work: str, corpus: tuple[str, str]) -> dict:
+    """Phase 25: the trainer under ``DistributedDataParallel`` at world size
+    1 on NCCL, in a process started with torchrun's environment: kernel
+    counts a step under DDP's hooks, a bitwise resume, and the result against
+    the same run without a process group."""
+    import socket
+
+    import torch
+
+    from worddiffusion_tpu_torch.cli import train as train_cli
+
+    ddp = os.path.join(work, "ddp")
+    short_corpus(ddp, corpus)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+               MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), DDP_WORKER_FLAG, ddp],
+                         env=env, capture_output=True, text=True, timeout=600)
+    log(res.stdout[-3000:])
+    assert res.returncode == 0, res.stderr[-6000:]
+    with open(os.path.join(ddp, "ddp.json")) as f:
+        got = json.load(f)
+    steps, preview = 6, 2
+    c = got["counts"]
+    log(f"ddp world size 1 (NCCL, torchrun env, {time.perf_counter() - t0:.1f} s with the "
+        f"process's start): {got['steps']} steps, launches {c}; resume {got['part']} -> "
+        f"{got['resumed']}, max param diff {got['resume_diff']:.6g} [{smi}]")
+    want = dict(ffn=4 * (steps + preview), ffn_bwd=4 * steps, attn=8 * (steps + preview),
+                gn=UNET_NORMS[0] * (steps + preview) + DECODER_NORMS[0],
+                conv=UNET_NORMS[1] * (steps + preview) + DECODER_NORMS[1],
+                attn_bwd=8 * steps, gn_bwd=UNET_NORMS[0] * steps, conv_bwd=UNET_NORMS[1] * steps,
+                fold=0, fold_b7=0, geglu=0, probs=0)
+    assert got["steps"] == steps and c == want, (c, want)
+    assert got["part"] == 3 and got["resumed"] == steps and got["resume_diff"] == 0, got
+
+    # the same run in this process, without a process group
+    plain = train_cli.build(train_cli.build_parser().parse_args([
+        "--preset", "iam", "--gt_train", os.path.join(ddp, "train.filter27"), "--latent_cache",
+        os.path.join(ddp, "latents.npz"), "--batch_size", str(TRAIN_B), "--epochs", "2",
+        "--ckpt_every_epochs", "2", "--preview_ddim", "2", "--save_path",
+        os.path.join(work, "ddp_plain"), "--seed", "0", "--device", "cuda"]))
+    assert not plain.distributed
+    ref = plain.run(epochs=2).model.state_dict()
+    ddp_sd = torch.load(os.path.join(ddp, "ddp_final.pt"), map_location="cuda")
+    diff = max((ddp_sd[k] - v).abs().max().item() for k, v in ref.items())
+    log(f"ddp world size 1 vs no process group: max param diff {diff:.6g} [{smi}]")
+    assert diff == 0, f"DDP at world size 1 is not the one-process run: {diff}"
+    return dict(counts={k: v for k, v in c.items() if k in want}, resume_diff=got["resume_diff"],
+                s_per_step=got["epoch_seconds"][1][0] / got["epoch_seconds"][1][1])
+
+
+def phase26_maps(smi: str, words) -> dict:
+    """Phase 26: ``return_attn``: the maps kernel against the plain maps at
+    ``iam``'s shapes (latent and pixel, B=16), then a ``return_attn`` UNet
+    call in each space: 8 maps from the kernel beside B.4, against the
+    plain maps of the same call's attentions."""
+    import dataclasses as dc
+
+    import torch
+
+    from worddiffusion_tpu_torch.configs import presets
+    from worddiffusion_tpu_torch.configs.pixel import pixel_space_exp
+    from worddiffusion_tpu_torch.data.tokenizer import Tokenizer
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.models.unet import UNet
+    from worddiffusion_tpu_torch.ops import attention
+
+    scale = D_HEAD ** -0.5
+    rows = []
+    for i, (b, nq, nk) in enumerate(MAPS_SHAPES):
+        q, k, v = attn_inputs(b, nq, nk, seed=400 + i)
+        with torch.no_grad():
+            lse = attention.attention_lse(q, k, v, scale)[1]
+            got = attention.attention_probs(q, k, lse, scale)
+            again = attention.attention_probs(q, k, lse, scale)
+            torch.cuda.synchronize()
+            want = attention.attention_probs_reference(q, k, scale)
+            err = (got - want).abs().max().item()
+            rowsum = (got.sum(-1) - 1).abs().max().item()
+            ms = launch_ms(lambda: attention.attention_probs(q, k, lse, scale))
+            plain_ms = launch_ms(lambda: attention.attention_probs_reference(q, k, scale))
+            # one PyTorch call of the same function: softmax of the fp32 scores
+            sims = torch.matmul(q.float(), k.float().transpose(-1, -2))
+            library_ms = launch_ms(lambda: torch.softmax(sims * scale, dim=-1))
+        bound_ms, bound_by = bound(nbytes(q, k, lse, got), 2 * b * HEADS * nq * nk * D_HEAD)
+        log(f"attention maps B={b} H={HEADS} Nq={nq} Nk={nk}: max_abs_err {err:.6g} (tol "
+            f"{MAPS_ABS_TOL}), rows sum to 1 within {rowsum:.3g}; bitwise repeatable "
+            f"{torch.equal(got, again)}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+            f"torch.softmax (on precomputed scores) {library_ms:.4f} ms bound {bound_ms:.4f} ms "
+            f"({bound_by}), kernel at {bound_ms / ms:.1%} of the bound [{smi}]")
+        assert got.dtype == torch.float32 and torch.equal(got, again), (b, nq, nk)
+        assert err <= MAPS_ABS_TOL and rowsum <= 1e-3, (err, rowsum)
+        rows.append(dict(b=b, nq=nq, nk=nk, err=err, ms=ms, plain_ms=plain_ms,
+                         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+        del q, k, v, got, again, want, sims
+
+    calls = {}
+    tok = Tokenizer.from_name("eng_main", 42)
+    for space in ("latent", "pixel"):
+        exp = presets.get("iam")
+        if space == "pixel":
+            exp = pixel_space_exp(exp)
+        cfg = dc.replace(exp.unet, return_attn=True)
+        unet = init_weights_(UNet(cfg), seed=0, zero_init=False).cuda().eval()
+        shape = (B, 8, 32, 4) if space == "latent" else (B, PIX_H, PIX_W, 3)
+        x = torch.randn(*shape, generator=torch.Generator().manual_seed(7)).cuda()
+        inputs = (x, torch.tensor([599, 400, 200, 10] * (B // 4)).cuda(),
+                  torch.from_numpy(tok.encode_batch(words[:B])).long().cuda(),
+                  torch.arange(B).cuda())
+        seen = {}
+        fwd = attention.attention_with_probs
+
+        def spy(q, k, v, s):  # keep each attention's q, k for the plain maps
+            seen[len(seen)] = (q, k)
+            return fwd(q, k, v, s)
+
+        with torch.no_grad(), mock.patch.object(attention, "attention_with_probs", spy):
+            reset_counts()
+            eps, maps = unet(*inputs)
+            counts = all_counts()
+        errs = [(maps[name] - attention.attention_probs_reference(*seen[i], scale)).abs().max()
+                .item() for i, (name, _) in enumerate(unet._attn_names)]
+        log(f"return_attn UNet call ({space}, B={B}): {len(maps)} maps "
+            f"{sorted({tuple(m.shape) for m in maps.values()})}; launches {counts}; maps vs the "
+            f"plain softmax of the same q, k: max_abs_err {max(errs):.6g} (tol {MAPS_ABS_TOL}) "
+            f"[{smi}]")
+        assert len(maps) == 8 and bool(torch.isfinite(eps).all())
+        assert counts == dict(ffn=4, ffn_bwd=0, attn=8, fold=0, fold_b7=0, gn=UNET_NORMS[0],
+                              conv=UNET_NORMS[1], geglu=0, probs=8), counts
+        assert max(errs) <= MAPS_ABS_TOL, errs
+        calls[space] = counts
+        del unet, maps, eps, seen
+        torch.cuda.empty_cache()
+    return dict(rows=rows, paths={f"unet_return_attn_{k}": dict(v) for k, v in calls.items()})
+
+
+def phase27_host(smi: str, work: str) -> dict:
+    """Phase 27: the host-side data code on this machine's CPU (numpy only;
+    no Pillow and no OpenCV here): each augmentation op's and
+    ``resize_dataset``'s ms per 64x256 image, and the PNG reader's ms per
+    image by variant; whether this machine could decode JPEG
+    (``torchvision.io``), for ROADMAP A.9's decision."""
+    import numpy as np
+
+    from worddiffusion_tpu_torch.data import augment
+    from worddiffusion_tpu_torch.data.manipulate import resize_dataset
+    from worddiffusion_tpu_torch.data.png import decode_png
+    from worddiffusion_tpu_torch.data.synthetic import render_word
+    from worddiffusion_tpu_torch.utils.images import encode_png
+
+    img = render_word("Mississippi", PIX_H, PIX_W, seed=0)
+    ops = {
+        "noise": lambda r: augment.noise(img, r), "shear_x": lambda r: augment.shear_x(img, 0.2),
+        "shear_y": lambda r: augment.shear_y(img, 0.03), "erode": lambda r: augment.erode(img),
+        "dilate": lambda r: augment.dilate(img), "blur": lambda r: augment.blur(img, 1.1),
+        "sharpness": lambda r: augment.sharpness(img, 1.7), "rotate": lambda r: augment.rotate(img, r),
+        "random_perspective": lambda r: augment.random_perspective(img, r, 0.3),
+        "random_erase": lambda r: augment.random_erase(img, r),
+        "random_augment": lambda r: augment.random_augment(img, r),
+        "resize_dataset": lambda r: resize_dataset([img])[0],
+    }
+    host_ms = {}
+    for name, fn in ops.items():
+        rng = np.random.default_rng(0)
+        out = fn(rng)
+        assert out.dtype == np.uint8 and out.shape[2] == 3, name
+        n = 20
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(rng)
+        host_ms[name] = (time.perf_counter() - t0) / n * 1e3
+    grey = np.ascontiguousarray(img[..., 0])
+    variants = {"rgb8": encode_png(img), "grey8": encode_png(grey[..., None])}
+    png_ms = {}
+    for name, data in variants.items():
+        assert (decode_png(data) == (img if name == "rgb8" else img[..., :1])).all(), name
+        t0 = time.perf_counter()
+        for _ in range(20):
+            decode_png(data)
+        png_ms[name] = (time.perf_counter() - t0) / 20 * 1e3
+    try:
+        import torchvision.io  # noqa: F401
+
+        jpeg = "torchvision.io is importable"
+    except Exception as e:  # the decision's input: what this machine has
+        jpeg = f"no torchvision.io ({type(e).__name__})"
+    log(f"host data, ms per 64x256 image on this machine's CPU: augmentation "
+        + ", ".join(f"{k} {v:.3f}" for k, v in host_ms.items())
+        + "; PNG decode " + ", ".join(f"{k} {v:.3f}" for k, v in png_ms.items())
+        + f"; JPEG: {jpeg} [{smi}]")
+    return dict(host_ms=host_ms, png_ms=png_ms, jpeg=jpeg)
+
+
+def main(argv=None) -> int:
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU", file=sys.stderr)
         return 1
+    if argv[:1] == [DDP_WORKER_FLAG]:
+        return ddp_worker(argv[1])
 
     from worddiffusion_tpu_torch.cli import regenerate as cli
     from worddiffusion_tpu_torch.generate.sample import phosc_ids
@@ -3050,17 +3789,21 @@ def main() -> int:
     side = phase22_side(smi, work, cli, gt, sampler, words, images[0])
 
     stamp("22")
+    # -- 23-27. pixel space, HiGAN+, DDP, attention maps, host data --------------------------
+    new = new_phases(smi, work, cli, gt, words, corpus)
+    px = new["pixel"]
     paths = ("regenerate", "regenerate_iam_phosc", "regenerate_iam_fold", "train",
              "train_iam_phosc", "train_iam_fold", "build_latent_cache", "train_from_images")
     # the paths of phases 18-20, each with its counts under chip_smoke's keys
     new_paths = {**{f"unet_{k}": dict(zip(("ffn", "attn", "fold", "gn", "conv"), v["counts"]),
-                                      ffn_bwd=0, fold_b7=0, geglu=0) for k, v in variants.items()},
+                                      ffn_bwd=0, fold_b7=0, geglu=0, probs=v["probs"])
+                    for k, v in variants.items()},
                  **{f"train_{k}": v for k, v in cond_train.items()},
                  **{k: dict(v, ffn_bwd=0) for k, v in sampled.items()},
-                 **phosc["paths"], **side["paths"]}
+                 **phosc["paths"], **side["paths"], **new["paths"]}
 
-    def by_path(*counts, key=None):
-        """The earlier paths' counts in order, then the new paths' ``key``."""
+    def by_path(*counts, key):
+        """The earlier paths' counts in order, then the later paths' ``key``."""
         return {**dict(zip(paths, counts)), **{p: c[key] for p, c in new_paths.items()}}
 
     ffn_paths = by_path(regen_iam["ffn"], regen_phosc["ffn"], regen_fold["ffn"], train["fwd"],
@@ -3082,6 +3825,11 @@ def main() -> int:
     geglu_paths = by_path(regen_iam["geglu"], regen_phosc["geglu"], regen_fold["geglu"],
                           train["geglu"], train_p["geglu"], train_f["geglu"], built["geglu"],
                           train_i["geglu"], key="geglu")
+    probs_paths = by_path(regen_iam["probs"], regen_phosc["probs"], regen_fold["probs"],
+                          train["probs"], train_p["probs"], train_f["probs"], built["probs"],
+                          train_i["probs"], key="probs")
+    # the maps kernel runs on the return_attn paths alone
+    assert all(n == 0 for p, n in probs_paths.items() if p not in new["maps"]["paths"]), probs_paths
     main_row, bwd_row, attn_row = ffn_rows[0], bwd["rows"][0], attn["rows"][0]
     fold_row = fold["rows"][0]
     # B.5's and B.6's rows: the UNet regeneration call's first site (B=16, 8x32)
@@ -3125,6 +3873,12 @@ def main() -> int:
         f"(peak {side['train_vae']['peak_bytes'] / 2 ** 30:.3f} GiB), --charImages "
         f"{side['glyphs']['s_per_step']:.4f}; masked_ddpm_sample {side['masked']['s']:.3f} s "
         f"({side['masked']['ms_per_call']:.3f} ms a UNet call)"
+        + f"; pixel: UNet call {px['unet']['ms']:.3f} ms (busy {px['unet']['busy_ms']:.3f} ms), "
+        f"regen s/batch {px['regen']['s_per_batch']:.4f}, train B={px['train_b']} "
+        f"{px['train']['s_per_step']:.4f} s/step (peak {px['train']['peak_bytes'] / 2 ** 30:.3f} "
+        f"GiB); higan call B={B} {new['higan']['latent_ms']:.3f} ms, train "
+        f"{new['higan']['s_per_step']:.4f} s/step; ddp world size 1 "
+        f"{new['ddp']['s_per_step']:.4f} s/step"
         + f"; whole run {time.perf_counter() - T_START:.1f} s")
 
     def entry(name, source, replaces, paths_, rows, row, library_ms):
@@ -3134,15 +3888,22 @@ def main() -> int:
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": library_ms}
 
+    rows_px = px["rows"]
     log(json.dumps({"kernels": [
         entry("ln_geglu_ffn", "worddiffusion_tpu_torch/csrc/ln_geglu_ffn.cu",
-              "worddiffusion_tpu/ops/ffn_pallas.py:48", ffn_paths, ffn_rows + bwd["fwd_rows"],
-              main_row, None),
+              "worddiffusion_tpu/ops/ffn_pallas.py:48", ffn_paths,
+              ffn_rows + bwd["fwd_rows"] + rows_px["ffn_rows"], main_row, None),
         entry("ln_geglu_ffn_bwd", "worddiffusion_tpu_torch/csrc/ln_geglu_ffn_bwd.cu",
-              "worddiffusion_tpu/ops/ffn_pallas.py:397", bwd_paths, bwd["rows"], bwd_row, None),
+              "worddiffusion_tpu/ops/ffn_pallas.py:397", bwd_paths,
+              bwd["rows"] + rows_px["bwd_rows"], bwd_row, None),
         entry("attention", "worddiffusion_tpu_torch/csrc/attention.cu",
-              "bench_kernels/attention_pallas.py:25", attn_paths, attn["rows"], attn_row,
-              attn_row["library_ms"]),
+              "bench_kernels/attention_pallas.py:25", attn_paths,
+              attn["rows"] + rows_px["attn_rows"], attn_row, attn_row["library_ms"]),
+        # the maps kernel beside B.4 (return_attn): no TPU kernel of its own;
+        # the JAX model forms the maps with XLA's softmax where it sows them
+        entry("attention_probs", "worddiffusion_tpu_torch/csrc/attention.cu",
+              "worddiffusion_tpu/models/attention.py:198", probs_paths, new["maps"]["rows"],
+              new["maps"]["rows"][0], new["maps"]["rows"][0]["library_ms"]),
         entry("fold_attention", "worddiffusion_tpu_torch/csrc/fold_attention.cu",
               "bench_kernels/attn_fold_sublayer_pallas.py:100", fold_paths, fold["rows"],
               fold_row, None),
@@ -3152,11 +3913,11 @@ def main() -> int:
               "bench_kernels/attn_fold_pallas.py:36", fold7_paths, fold["rows"],
               dict(fold_row, ms=fold_row["ms7"]), None),
         entry("groupnorm", "worddiffusion_tpu_torch/csrc/groupnorm.cu",
-              "bench_kernels/groupnorm_pallas.py:26", gn_paths, norms["gn_rows"], gn_row,
-              gn_row["library_ms"]),
+              "bench_kernels/groupnorm_pallas.py:26", gn_paths,
+              norms["gn_rows"] + rows_px["gn_rows"], gn_row, gn_row["library_ms"]),
         entry("gn_silu_conv3x3", "worddiffusion_tpu_torch/csrc/gn_silu_conv3x3.cu",
-              "bench_kernels/resblock_pallas.py:39", conv_paths, norms["conv_rows"], conv_row,
-              conv_row["library_ms"]),
+              "bench_kernels/resblock_pallas.py:39", conv_paths,
+              norms["conv_rows"] + rows_px["conv_rows"], conv_row, conv_row["library_ms"]),
         # B.2: no path of the port (or of the JAX package) calls it; each
         # path's run read its count and asserted 0
         entry("geglu_ffn", "worddiffusion_tpu_torch/csrc/ln_geglu_ffn.cu",
@@ -3167,6 +3928,34 @@ def main() -> int:
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}))
     return 0
+
+
+def new_phases(smi: str, work: str, cli, gt: str, words, corpus) -> dict:
+    """Phases 23-27, each path's counts under its key (``paths``)."""
+    out = {}
+    out["pixel"] = phase23_pixel(smi, work, cli, gt, words)
+    stamp("23")
+    out["higan"] = phase24_higan(smi, work, cli, gt, corpus)
+    stamp("24")
+    out["ddp"] = phase25_ddp(smi, work, corpus)
+    stamp("25")
+    out["maps"] = phase26_maps(smi, words)
+    stamp("26")
+    out["host"] = phase27_host(smi, work)
+    stamp("27")
+    px, hg = out["pixel"], out["higan"]
+    out["paths"] = {
+        "regenerate_pixel": dict(zip(("ffn", "attn", "fold", "gn", "conv"),
+                                     (px["regen"][k] for k in ("ffn", "attn", "fold", "gn",
+                                                               "conv"))),
+                                 ffn_bwd=0, fold_b7=px["regen"]["fold_b7"],
+                                 geglu=px["regen"]["geglu"], probs=px["regen"]["probs"]),
+        "train_pixel": px["train"]["counts"], "sample_pixel": px["sample"],
+        "train_higan": hg["train"],
+        "regenerate_higan": dict(hg["regen"], ffn_bwd=0), "sample_higan": hg["sample"],
+        "train_ddp": out["ddp"]["counts"], **out["maps"]["paths"],
+    }
+    return out
 
 
 if __name__ == "__main__":

@@ -132,9 +132,20 @@ def test_regen_ddim_calls_the_unet_n_times(tiny_regen, caplog):
 @pytest.mark.parametrize("flags,error", [
     (["--ckpt_dir", "ckpt"], SystemExit), (["--vae_ckpt", "vae"], SystemExit),
     (["--ocr_ckpt", "ocr"], SystemExit), (["--use_ema", "0"], SystemExit),
-    (["--hiGanArch", "1"], NotImplementedError), (["--latent", "0"], NotImplementedError),
+    (["--hiGanArch", "1"], None), (["--latent", "0"], None),
 ])
 def test_regen_refuses_what_it_cannot_honour(tiny_regen, flags, error):
+    """The orbax flags and --use_ema 0 exit; --hiGanArch 1 and --latent 0
+    (``error`` None) build the HiGAN+ denoiser or a VAE-less pixel sampler
+    and regenerate a batch."""
     build, _ = tiny_regen
-    with pytest.raises(error):
-        build(*flags)
+    if error is not None:
+        with pytest.raises(error):
+            build(*flags)
+        return
+    regen, samples = build("--ddim", "2", *flags)
+    if flags[0] == "--latent":
+        assert regen.sampler.vae is None and regen.sampler.latent_shape == (64, 256, 3)
+    else:
+        assert type(regen.sampler.model).__name__ == "HiGanDenoiserAdapter"
+    assert regen.run(samples, batch_size=2, seed=0).generated == 2

@@ -187,8 +187,9 @@ def _samples(cls, n: int = 60):
 
 
 def test_manipulate_equal():
-    """``data/manipulate``'s copies (all but ``resize_dataset``, OpenCV's)
-    on a seeded sample list: the same samples in the same order."""
+    """``data/manipulate``'s copies on a seeded sample list: the same samples
+    in the same order; ``resize_dataset`` (OpenCV's resize, written out in
+    numpy) bitwise on two crops (more: tests/test_torch_augment.py)."""
     ours, theirs = _samples(gt.Sample), _samples(jgt.Sample)
 
     def rows(samples):
@@ -205,7 +206,33 @@ def test_manipulate_equal():
     assert rows(manipulate.isolate_original(ours)) == rows(jmanipulate.isolate_original(theirs))
     assert {k: rows(v) for k, v in manipulate.group_by(ours, lambda s: s.writer).items()} == {
         k: rows(v) for k, v in jmanipulate.group_by(theirs, lambda s: s.writer).items()}
-    assert not hasattr(manipulate, "resize_dataset")
+    crops = [np.random.default_rng(i).integers(0, 256, (40 + i, 130 * (i + 1), 3), dtype=np.uint8)
+             for i in range(2)]
+    for a, b in zip(manipulate.resize_dataset(crops), jmanipulate.resize_dataset(crops)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_analysis_and_canvas_copies_equal():
+    """``utils/analysis.py`` (embedding correlation, word-length histogram)
+    and ``utils/images.center_on_canvas`` (crop and pad both ways)."""
+    from worddiffusion_tpu.utils import analysis as janalysis
+    from worddiffusion_tpu.utils.images import center_on_canvas as jcenter
+    from worddiffusion_tpu_torch.utils import analysis
+    from worddiffusion_tpu_torch.utils.images import center_on_canvas
+
+    rng = np.random.default_rng(0)
+    emb = {"w3": rng.standard_normal((5, 16)), "w1": rng.standard_normal(16),
+           "w2": rng.standard_normal((2, 16))}
+    keys, corr = analysis.embedding_correlation(emb)
+    jkeys, jcorr = janalysis.embedding_correlation(emb)
+    assert keys == jkeys
+    np.testing.assert_array_equal(corr, jcorr)
+    words = ["a", "the", "of", "words", "x"]
+    assert analysis.word_length_histogram(words) == janalysis.word_length_histogram(words)
+    imgs = rng.standard_normal((2, 30, 70, 3)).astype(np.float32)
+    for h, w, border in ((64, 256, 0.0), (20, 50, 1.0), (64, 40, -1.0)):
+        np.testing.assert_array_equal(center_on_canvas(imgs, h, w, border),
+                                      jcenter(imgs, h, w, border))
 
 
 def test_fid_copies_equal():

@@ -1066,3 +1066,101 @@ def test_inception_on_the_card_matches_the_host(cuda, tmp_path):
     on_host = load_inception_featurizer(str(tmp_path / "inception.pt"), "cpu")(x)
     assert on_card.shape == (4, 2048)
     assert abs(on_card - on_host).max() <= chip_smoke.INCEPTION_TOL * abs(on_host).max()
+
+
+# The maps kernel beside B.4 (return_attn): fp32 probabilities exp(q kᵀ ·
+# scale - lse) from B.4's log-sum-exp, against the plain softmax. Measured
+# bound: the lse comes from the online softmax's SFU exp2 over bf16 inputs,
+# the plain one from an fp32 softmax, so a probability moves by a relative
+# 1e-5 or so; within 1e-4 absolute.
+MAPS_ABS_TOL = 1e-4
+
+
+@pytest.mark.parametrize("b,nq,nk", [(16, 256, 42), (16, 64, 42), (2, 16384, 42),
+                                     (2, 300, 811), (1, 100, 1)])
+def test_attention_maps_kernel_matches_plain(cuda, b, nq, nk):
+    from worddiffusion_tpu_torch.ops import attention
+
+    q, k, v = _qkv(b, nq, nk, cuda, seed=5)
+    l0, p0 = attention.launches, attention.probs_launches
+    out, p = attention.attention_with_probs(q, k, v, 80 ** -0.5)
+    torch.cuda.synchronize()
+    assert (attention.launches - l0, attention.probs_launches - p0) == (1, 1)
+    assert torch.equal(out, attention.fused_attention(q, k, v, 80 ** -0.5))  # B.4's output
+    want = attention.attention_probs_reference(q, k, 80 ** -0.5)
+    assert p.dtype == torch.float32 and p.shape == (b, 4, nq, nk)
+    assert (p - want).abs().max().item() <= MAPS_ABS_TOL
+    assert (p.sum(-1) - 1).abs().max().item() <= 1e-3
+
+
+def test_attention_maps_are_forward_only_on_the_card(cuda):
+    from worddiffusion_tpu_torch.ops import attention
+
+    q, k, v = (t.requires_grad_() for t in _qkv(1, 16, 8, cuda))
+    with pytest.raises(ValueError, match="forward only"):
+        attention.attention_with_probs(q, k, v, 0.1)
+    with torch.no_grad():
+        assert attention.attention_with_probs(q, k, v, 0.1)[1].shape == (1, 4, 16, 8)
+
+
+@pytest.mark.parametrize("b,h,w,c,silu", [(2, 64, 256, 640, True), (2, 64, 256, 320, False),
+                                          (2, 32, 128, 640, True)])
+def test_groupnorm_at_pixel_sites(cuda, b, h, w, c, silu):
+    """B.5 at the pixel-space UNet's sites (a group 20 channels x 16384
+    positions: more than a CTA's shared memory, so x is read twice)."""
+    from worddiffusion_tpu_torch.ops import groupnorm
+
+    t = chip_smoke.norm_inputs((b, h, w, c), seed=7)
+    args = (t["x"], t["scale"], t["bias"], 32, 1e-5, silu)
+    got = groupnorm.fused_groupnorm(*args)
+    want = groupnorm.groupnorm_reference(*args)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= chip_smoke.NORM_REL_TOL * want.float().abs().max().item(), err
+    assert not groupnorm.route(t["x"], 32)[1]
+
+
+def test_gn_conv_and_ffn_at_pixel_shapes(cuda):
+    """B.6 at a pixel-space ResBlock ([2, 64, 256, 320]) and B.1 over its
+    32768 tokens, against their plain versions."""
+    from worddiffusion_tpu_torch.ops import gn_conv
+
+    t = chip_smoke.norm_inputs((2, 64, 256, 320), seed=8)
+    g = torch.Generator().manual_seed(9)
+    wt = (torch.randn(320, 320, 3, 3, generator=g) / (9 * 320) ** 0.5).to(cuda)
+    cb = (0.1 * torch.randn(320, generator=g)).to(cuda)
+    args = (t["x"], t["scale"], t["bias"], wt, cb, 32, 1e-5)
+    got, want = gn_conv.fused_gn_silu_conv3x3(*args), gn_conv.gn_silu_conv3x3_reference(*args)
+    assert (got.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
+    a = _inputs(2 * 64 * 256, cuda, seed=3)
+    got, want = ffn.fused_ln_geglu_ffn(**a), ffn.ln_geglu_ffn_reference(**a)
+    assert (got.float() - want.float()).abs().max() <= 1e-2 * want.float().abs().max()
+
+
+def test_higan_denoiser_runs_b5_on_the_card(cuda):
+    """The HiGAN+ denoiser at ``iam`` width (320 channels, 6 blocks), B=4:
+    13 B.5 launches a call (12 without SiLU, then out_norm with it), the
+    call within 3% of its max against the plain GroupNorm; the train step's
+    13 GroupNormFn backwards."""
+    from worddiffusion_tpu_torch.configs import presets
+    from worddiffusion_tpu_torch.models.higan import HiGanDenoiserAdapter
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.ops import groupnorm
+
+    cfg = presets.get("iam").unet
+    model = init_weights_(HiGanDenoiserAdapter(cfg), seed=0, zero_init=False).to(
+        cuda, memory_format=torch.channels_last)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4, 8, 32, 4, generator=g).to(cuda)
+    t = torch.tensor([1, 100, 300, 599], device=cuda)
+    ctx = torch.randint(1, 50, (4, 42), generator=g).to(cuda)
+    wid = torch.arange(4, device=cuda)
+    n0 = groupnorm.launches
+    with torch.no_grad():
+        got = model(x, t, ctx, wid)
+        assert groupnorm.launches - n0 == 13
+        with chip_smoke.plain_norms():
+            want = model(x, t, ctx, wid)
+    assert (got - want).abs().max() <= 3e-2 * want.abs().max()
+    b0 = groupnorm.bwd_calls
+    model(x, t, ctx, wid).square().mean().backward()
+    assert groupnorm.bwd_calls - b0 == 13

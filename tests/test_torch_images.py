@@ -98,18 +98,28 @@ def test_png_reader_undoes_every_filter(ftype):
 
 @pytest.mark.parametrize("kind", ["16-bit", "interlaced", "1-bit"])
 def test_png_reader_refuses_what_it_does_not_read(tmp_path, kind):
+    """16-bit, 1-bit and Adam7-interlaced PNGs read as PIL's convert("RGB")
+    reads them (every variant: tests/test_torch_augment.py); an interlace
+    method PNG does not define raises, naming the file."""
     path = tmp_path / f"{kind}.png"
     if kind == "16-bit":
         Image.fromarray(np.arange(64, dtype=np.uint16).reshape(8, 8) * 1000).save(path)
     elif kind == "1-bit":
         Image.fromarray(np.eye(8, dtype=bool)).save(path)
     else:
-        raw = bytearray(_filtered_png(_word_image(8, 8, 3), 0))
-        raw[28] = 1  # IHDR's interlace byte
+        from test_torch_augment import _encode
+
+        raw = bytearray(_encode(_word_image(13, 21, 3), 2, 8, 1))  # Adam7
+        path.write_bytes(bytes(raw))
+        np.testing.assert_array_equal(png.read_png(str(path)), _word_image(13, 21, 3))
+        raw[28] = 2  # IHDR's interlace byte: no such method
         raw[29:33] = struct.pack(">I", zlib.crc32(bytes(raw[12:29])) & 0xFFFFFFFF)
         path.write_bytes(bytes(raw))
-    with pytest.raises(ValueError, match=str(path)):
-        png.read_png(str(path))
+        with pytest.raises(ValueError, match=str(path)):
+            png.read_png(str(path))
+        return
+    np.testing.assert_array_equal(png.read_png(str(path)),
+                                  np.asarray(Image.open(path).convert("RGB")))
 
 
 @pytest.mark.parametrize("h,w,c", [(30, 20, 3), (150, 600, 3), (45, 300, 1), (100, 37, 3),

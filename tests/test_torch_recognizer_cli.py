@@ -184,23 +184,39 @@ def test_jax_prompt_flag_changes_nothing(corpus, jax_trained, tmp_path):
 
 @pytest.mark.parametrize("flags,error,match", [
     (["--prompt", "1"], NotImplementedError, "silent no-op"),
-    (["--augment", "10"], NotImplementedError, "slice 12"),
-    (["--synthetic", "1", "--augment", "5"], NotImplementedError, "slice 12"),
+    (["--augment", "10"], None, "augment"),
+    (["--synthetic", "1", "--augment", "50", "--n_synth", "16"], None, "augment"),
     (["--mode", "test"], SystemExit, "needs trained weights"),
 ])
-def test_train_phosc_refuses_what_it_cannot_honour(corpus, tmp_path, flags, error, match):
+def test_train_phosc_refuses_what_it_cannot_honour(corpus, tmp_path, flags, error, match,
+                                                   monkeypatch):
+    """The refusals; ``--augment P`` (``error`` None) trains, sending P% of
+    the training crops through ``random_augment`` on the epoch's
+    generator."""
     argv = _train_args(corpus, tmp_path / "run") + ["--device", "cpu"] + flags
-    with pytest.raises(error, match=match):
-        phosc_cli.main(argv)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            phosc_cli.main(argv)
+        return
+    from worddiffusion_tpu_torch.data import augment
+
+    calls = []
+    monkeypatch.setattr(augment, "random_augment",
+                        lambda img, rng, _f=augment.random_augment: calls.append(1) or _f(img, rng))
+    phosc_cli.main(argv)
+    assert calls and (tmp_path / "run" / "best_params.pkl").exists()
 
 
 def test_non_png_crop_raises(corpus, tmp_path):
+    """A JPEG crop (a PNG name, JPEG bytes) raises, naming slice 13 (JPEG
+    decoding is queued there, ROADMAP A.9); PNGs of every kind are read
+    (tests/test_torch_augment.py)."""
     crops = tmp_path / "crops"
     crops.mkdir()
     (crops / "a01-000u-00.png").write_bytes(b"\xff\xd8\xff\xe0 a JPEG")
     gt = tmp_path / "one.filter27"
     gt.write_text("000,a01-000u-00 the\n")
-    with pytest.raises(NotImplementedError, match="slice 12"):
+    with pytest.raises(NotImplementedError, match="slice 13"):
         phosc_cli.main(["--train_csv", str(gt), "--valid_csv", str(gt), "--image_dir",
                         str(crops), "--batch_size", "1", "--save_dir", str(tmp_path / "r"),
                         "--device", "cpu"])

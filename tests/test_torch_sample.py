@@ -229,16 +229,27 @@ def test_sample_cli_conditioned_models(tiny_sample):
     (["--ckpt_dir", "ckpt"], SystemExit, "export_torch"),
     (["--vae_ckpt", "vae"], SystemExit, "jax_vae_to_torch"),
     (["--use_ema", "0"], SystemExit, "one parameter set"),
-    (["--charImages", "1", "--hiGanArch", "1"], NotImplementedError, "HiGAN.*slice 12"),
-    (["--hiGanArch", "1"], NotImplementedError, "HiGAN"),
-    (["--latent", "0"], NotImplementedError, "pixel-space"),
+    (["--charImages", "1", "--hiGanArch", "1"], SystemExit, "hiGanArch 1 takes no glyph"),
+    (["--hiGanArch", "1"], None, "HiGanDenoiserAdapter"),
+    (["--latent", "0"], None, "pixel"),
     (["--imgConditioned", "1"], SystemExit, "--cond_image"),
     (["--wrdChrWrStyl", "1"], SystemExit, "--style_dict"),
 ])
 def test_sample_cli_refuses_what_it_cannot_honour(tiny_sample, flags, error, match):
-    argv, _ = tiny_sample
-    with pytest.raises(error, match=match):
-        sample_cli.main(argv + ["--words", "the"] + flags)
+    """The refusals; the HiGAN+ denoiser and pixel space (``error`` None)
+    sample one image (the pixel checkpoint without a VAE, as 3 channels)."""
+    argv, tmp = tiny_sample
+    if error is not None:
+        with pytest.raises(error, match=match):
+            sample_cli.main(argv + ["--words", "the"] + flags)
+        return
+    sampler = sample_cli.build(sample_cli.build_parser().parse_args(argv + ["--words", "the"]
+                                                                    + flags))[0]
+    if match == "pixel":
+        assert sampler.vae is None and sampler.latent_shape == (64, 256, 3)
+    else:
+        assert type(sampler.model).__name__ == match
+    assert sample_cli.main(argv + ["--words", "the", "--writer", "1"] + flags) == ["00000_1_the.png"]
 
 
 def test_sample_cli_refuses_cpu_fallback(monkeypatch):

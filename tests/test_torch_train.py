@@ -384,22 +384,48 @@ def test_train_cli_runs_from_latent_cache(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--synthetic", "1", "--augMaps", "1"], NotImplementedError, "augMaps.*slice 12"),
-    (["--charImages", "1", "--hiGanArch", "1"], NotImplementedError, "HiGAN.*slice 12"),
-    (["--hiGanArch", "1"], NotImplementedError, "HiGAN"),
-    (["--augMaps", "1"], NotImplementedError, "augMaps"),
-    (["--mesh_data", "2"], NotImplementedError, "mesh"),
-    (["--latent", "0"], NotImplementedError, "pixel-space"),
+    (["--synthetic", "1", "--augMaps", "1"], None, "augment"),
+    (["--charImages", "1", "--hiGanArch", "1"], SystemExit, "hiGanArch 1 takes no glyph images"),
+    (["--hiGanArch", "1"], None, "higan"),
+    (["--augMaps", "1"], None, "augment"),
+    (["--mesh_data", "2"], ValueError, "--mesh_data 2 must equal the number of processes"),
+    (["--latent", "0"], None, "pixel"),
     (["--vae_ckpt", "vae_dir"], NotImplementedError, "jax_vae_to_torch"),
-    (["--mesh_model", "2"], NotImplementedError, "mesh.*slice 12"),
+    (["--mesh_model", "2"], NotImplementedError, "mesh.*slice 13"),
     (["--wrdChrWrStyl", "1"], SystemExit, "--style_dict"),
 ])
-def test_train_cli_refuses_unported(tmp_path, flags, error, match):
+def test_train_cli_refuses_unported(tmp_path, monkeypatch, flags, error, match):
+    """The train CLI's refusals, and (``error`` None) flags whose paths it
+    runs: each builds and takes a step at a tiny preset, ``match`` naming what it checks -- the augmentation in the
+    dataset (rendered crops, encoded by the VAE), the HiGAN+ denoiser, pixel
+    space (3 channels, no VAE). A mesh above one process needs torchrun."""
     gt, cache = _cli_files(tmp_path, n=2)
     argv = ["--gt_train", gt, "--latent_cache", cache, "--device", "cpu",
             "--save_path", str(tmp_path / "run")] + flags
-    with pytest.raises(error, match=match):
-        train_cli.main(argv)
+    if error is not None:
+        with pytest.raises(error, match=match):
+            train_cli.main(argv)
+        return
+    monkeypatch.setitem(presets.PRESETS, "tiny", lambda: port_cfg(tiny_exp()))
+    argv = ["--preset", "tiny", "--batch_size", "2", "--img_size", "16,64", "--vocab_size", "1",
+            "--samples_per_word", "2", "--preview_ddim", "2"] + argv
+    if match != "higan":  # images, not the cache
+        i = argv.index("--latent_cache")
+        argv = argv[:i] + argv[i + 2:]
+    trainer = train_cli.build(train_cli.build_parser().parse_args(argv))
+    if match == "augment":
+        from worddiffusion_tpu_torch.data.augment import random_augment
+
+        assert trainer.dataset.augment_fn is random_augment and trainer.encode_fn is not None
+    elif match == "higan":
+        from worddiffusion_tpu_torch.models.higan import HiGanDenoiserAdapter
+
+        assert isinstance(trainer.model, HiGanDenoiserAdapter) and trainer.preview_fn is None
+    else:
+        assert trainer.encode_fn is None and trainer.exp.unet.in_channels == 3
+        assert trainer.dataset[0]["image"].shape == (16, 64, 3)
+    state = trainer.run(epochs=1, max_steps=1)
+    assert state.step == 1 and all(torch.isfinite(p).all() for p in state.model.parameters())
 
 
 def test_train_cli_conditioned_runs(tmp_path, monkeypatch):

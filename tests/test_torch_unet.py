@@ -115,10 +115,29 @@ def test_writer_mask_matches_jax():
 
 @pytest.mark.parametrize("option", [dict(return_attn=True), dict(fast_softmax=True)])
 def test_unported_config_raises(option):
-    """The two UNetConfig options still unported name their ROADMAP item
-    (the conditioning variants: tests/test_torch_unet_variants.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A.[48]"):
-        UNet(port_cfg(dataclasses.replace(CFG, **option)))
+    """``fast_softmax``, still unported, names its ROADMAP item.
+    ``return_attn`` builds and returns eps and the 8 maps keyed by JAX's
+    intermediates paths, each within 1e-6 of JAX's sown softmax
+    (tests/test_torch_attn_maps.py holds more)."""
+    cfg = dataclasses.replace(CFG, **option)
+    if not cfg.return_attn:
+        with pytest.raises(NotImplementedError, match="ROADMAP A.[48]"):
+            UNet(port_cfg(cfg))
+        return
+    params = _params(cfg)
+    inp = _inputs()
+    want, state = jax.jit(lambda p, *a: JaxUNet(cfg).apply(p, *a, mutable=["intermediates"]))(
+        params, *inp)
+    with torch.no_grad():
+        eps, maps = _port(cfg, params)(*(torch.from_numpy(a) for a in inp[:2]),
+                                       torch.from_numpy(inp[2]).long(),
+                                       torch.from_numpy(inp[3]).long())
+    np.testing.assert_allclose(eps.numpy(), np.asarray(want), rtol=1e-4, atol=1e-5)
+    sown = {"/".join(p.key for p in path[:-1]): np.asarray(v) for path, v in
+            jax.tree_util.tree_flatten_with_path(state["intermediates"])[0]}
+    assert len(maps) == 8 and sorted(maps) == sorted(sown)
+    for k, m in maps.items():
+        np.testing.assert_allclose(m.numpy(), sown[k], rtol=0, atol=1e-6, err_msg=k)
 
 
 @pytest.mark.parametrize("given", ["style_vec", "cond_latents", "char_images", "writer_id2"])

@@ -2,14 +2,16 @@
 
 The JAX package ``worddiffusion_tpu`` is the reference; this package
 mirrors its layout and names and is tested against it. It imports
-torch and never jax. Its jax-free modules (configs, data alphabets,
-tokenizer and gt parsing, the noise schedule, the stop flag) are reused
-from ``worddiffusion_tpu`` as they are.
+torch and never jax, nor anything of ``worddiffusion_tpu``: the modules it
+needs that hold no JAX (configs, data alphabets, tokenizer and gt parsing,
+the noise schedule, the stop flag, ...) are copies, each naming its
+original on its first line.
 
-Ported so far: the OCR-filtered regeneration path (character encoder,
-``iam`` UNet, skip-step DDPM, VAE decode, CTC recognizer, accept filter,
-PNG writer) with the fused LayerNorm + GEGLU feed-forward as a CUDA
-kernel for Hopper (``csrc/ln_geglu_ffn.cu``).
+The TPU kernels are hand-written CUDA kernels for Hopper under ``csrc/``;
+what is ported and what is left is listed in ROADMAP.md (A).
 """
 
 __version__ = "0.1.0"
+
+# where a refusal points for what is not ported yet
+NEXT_SLICE = "slice 13 of the port (ROADMAP A)"

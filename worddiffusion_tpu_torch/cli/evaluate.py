@@ -16,7 +16,7 @@ some filename words embed, or a ``phosc_zsl_note``). The word of each image
 is parsed from the regeneration name ``{img}_{writer}_{word}.png``.
 
 Where the port differs: images are PNGs (``data.png``), and a ``.jpg``
-raises (non-PNG decoding waits for slice 12 of the port); ``--ocr_ckpt``
+raises (JPEG decoding waits for slice 13 of the port, ROADMAP A.9); ``--ocr_ckpt``
 (orbax) exits naming the offline conversion, and ``--ocr_pt`` (the
 recognizer's state dict, as ``cli.train_ocr`` writes it) takes its place;
 the random-init style encoder, fp32 in JAX, runs fp32 on the CPU and bf16 on
@@ -41,7 +41,7 @@ def _load_dir(path: str, height: int, width: int, limit: int = 0):
     ``{img}_{writer}_{word}.png`` (falls back to the stem)."""
     from ..data.png import read_png
     from ..utils.images import normalize_to_unit, resize_and_pad
-    from .train import SLICE_12
+    from .. import NEXT_SLICE
 
     names = sorted(f for f in os.listdir(path) if f.lower().endswith((".png", ".jpg")))
     if limit:
@@ -49,7 +49,7 @@ def _load_dir(path: str, height: int, width: int, limit: int = 0):
     jpgs = [n for n in names if n.lower().endswith(".jpg")]
     if jpgs:
         raise NotImplementedError(f"{len(jpgs)} JPEG image(s) in {path} (first: {jpgs[0]!r}): "
-                                  f"the port reads PNG; non-PNG decoding waits for {SLICE_12}")
+                                  f"the port reads PNG; JPEG decoding waits for {NEXT_SLICE}")
     imgs, words = [], []
     for n in names:
         imgs.append(normalize_to_unit(resize_and_pad(read_png(os.path.join(path, n)),

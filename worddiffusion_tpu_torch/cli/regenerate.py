@@ -15,11 +15,19 @@ not given is a seeded random initialisation, with a warning.
 ``--ddim N`` samples with N deterministic DDIM steps instead of the DDPM
 schedules.
 
+``--latent 0`` regenerates with a pixel-space (3-channel) checkpoint and
+builds no VAE; ``--hiGanArch 1`` with the HiGAN+ denoiser (``--torch_ckpt``
+in the port's keys).
+
 Every option of the JAX CLI is here. The orbax directories
 (``--ckpt_dir``, ``--vae_ckpt``, ``--ocr_ckpt``) are converted offline
-by the JAX package, so they, ``--use_ema 0`` (the exported file is one
-parameter set) and the unported model paths (``--hiGanArch 1``,
-``--latent 0``) raise with the reason.
+by the JAX package, so they and ``--use_ema 0`` (the exported file is one
+parameter set) exit with the reason.
+
+Under ``torchrun --nproc_per_node N`` each process regenerates its
+``data.loader.host_shard`` of the corpus on its own card; the file names
+are the (image, writer, word) triples', so the processes' outputs together
+are the one-process output set.
 """
 
 from __future__ import annotations
@@ -110,8 +118,6 @@ _CONVERT = "python -m worddiffusion_tpu.cli.export_torch (the JAX package)"
 
 def _refuse_unported(args) -> None:
     """The JAX CLI's options that this one cannot honour, with the reason."""
-    from .train import SLICE_12
-
     offline = {
         "--ckpt_dir": (args.ckpt_dir, f"convert it with {_CONVERT} and pass --torch_ckpt"),
         "--vae_ckpt": (args.vae_ckpt, "convert it with models.convert.jax_vae_to_torch and "
@@ -125,12 +131,6 @@ def _refuse_unported(args) -> None:
     if not args.use_ema:
         raise SystemExit(f"--use_ema 0: --torch_ckpt holds one parameter set; pick it when "
                          f"exporting ({_CONVERT} --use_ema 0)")
-    if args.hiGanArch:
-        raise NotImplementedError("--hiGanArch 1 (the HiGAN+ denoiser) is not ported yet; "
-                                  f"it waits for {SLICE_12}")
-    if not args.latent:
-        raise NotImplementedError("--latent 0 (pixel-space sampling) is not ported yet; it "
-                                  f"waits for {SLICE_12}")
 
 
 def build(args):
@@ -143,19 +143,33 @@ def build(args):
     from ..diffusion.sampler import regen_call_mask
     from ..generate.regenerate import Regenerator
     from ..generate.sample import WordSampler
+    from ..data.loader import host_shard
+    from ..models.higan import HiGanDenoiserAdapter
     from ..models.ocr import CTCRecognizer
     from ..models.unet import UNet
     from ..models.vae import make_vae
+    from ..parallel.distributed import initialize_multihost, local_device
+    from ..configs.pixel import pixel_space_exp
+    from ..models.higan import refuse_conditioning
 
     _refuse_unported(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
+    rank, world = initialize_multihost(args.device)  # no-op in one process
+    device = local_device(args.device)
 
     exp = presets.get(args.preset)
-    unet = _load_or_init(UNet(exp.unet), args.torch_ckpt, "UNet", args.seed).to(device)
-    vae = make_vae(exp.vae, args.stable_dif_path, args.vae_pt, with_encoder=False,
-                   seed=args.seed).to(device)
+    if not args.latent:
+        exp = pixel_space_exp(exp)
+    if args.hiGanArch:
+        refuse_conditioning(exp.unet, "--hiGanArch 1", SystemExit)
+    denoiser = HiGanDenoiserAdapter(exp.unet) if args.hiGanArch else UNet(exp.unet)
+    unet = _load_or_init(denoiser, args.torch_ckpt, "denoiser", args.seed).to(device)
+    vae = None
+    if exp.data.latent:
+        vae = make_vae(exp.vae, args.stable_dif_path, args.vae_pt, with_encoder=False,
+                       seed=args.seed).to(device)
     mask = regen_call_mask(exp.diffusion.num_steps, epoch=args.epoch,
                            full_sampling=bool(args.fullSampling))
     # the JAX CLI's log of the reference's modelCall counter
@@ -179,6 +193,10 @@ def build(args):
                           ddim_steps=args.ddim)
     samples, gt_registry = parse_gt(args.gt_file, partial_load=args.partialLoad)
     registry = _writer_registry(args.writers_dict, samples, gt_registry)
+    if world > 1:
+        samples = host_shard(samples, rank, world)
+        logging.info("data parallel regeneration: process %d of %d, %d samples", rank, world,
+                     len(samples))
     regen = Regenerator(
         sampler,
         ocr_alphabet=ocr_alphabet,

@@ -25,8 +25,12 @@ Every option of the JAX CLI is here. The orbax checkpoints
 package, so they and ``--use_ema 0`` exit with the conversion to run;
 ``--charImages 1`` conditions on the words' glyph crops
 (``data.dataset.char_glyphs``, as the training renders them);
-``--hiGanArch 1`` and ``--latent 0`` raise ``NotImplementedError`` naming
-slice 12 of the port.
+``--latent 0`` samples a pixel-space checkpoint (3 channels, no VAE; a
+``--cond_image`` then conditions as the image itself); ``--hiGanArch 1``
+samples the HiGAN+ denoiser (``models.higan``; ``--torch_ckpt`` in the
+port's keys, as the train CLI's ``ema_unet.pt`` or
+``models.convert.jax_higan_to_torch`` give it), and exits with the reason
+when combined with a conditioning its generator does not take.
 """
 
 from __future__ import annotations
@@ -81,7 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="PNG whose VAE posterior mean conditions every sample")
     p.add_argument("--style_dict", default="", help="writer -> style-vector npz")
     p.add_argument("--hiGanArch", type=int, default=0)
-    p.add_argument("--latent", type=int, default=1)
+    p.add_argument("--latent", type=int, default=1,
+                   help="0: a pixel-space (3-channel) checkpoint, no VAE")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu; cpu must be asked for explicitly")
@@ -146,8 +151,6 @@ _CONVERT = "python -m worddiffusion_tpu.cli.export_torch (the JAX package)"
 
 def _refuse_unported(args) -> None:
     """The JAX CLI's options that this one cannot honour, with the reason."""
-    from .train import SLICE_12
-
     if args.ckpt_dir:
         raise SystemExit(f"--ckpt_dir is an orbax checkpoint, which the port does not read: "
                          f"convert it with {_CONVERT} and pass --torch_ckpt")
@@ -157,12 +160,6 @@ def _refuse_unported(args) -> None:
     if not args.use_ema:
         raise SystemExit(f"--use_ema 0: --torch_ckpt holds one parameter set; pick it when "
                          f"exporting ({_CONVERT} --use_ema 0)")
-    if args.hiGanArch:
-        raise NotImplementedError("--hiGanArch 1 (the HiGAN+ denoiser) is not ported yet; "
-                                  f"it waits for {SLICE_12}")
-    if not args.latent:
-        raise NotImplementedError("--latent 0 (pixel-space sampling) is not ported yet; it "
-                                  f"waits for {SLICE_12}")
     if args.imgConditioned and not args.cond_image:
         raise SystemExit("--imgConditioned 1 needs --cond_image")
     if args.wrdChrWrStyl and not args.style_dict:
@@ -175,8 +172,11 @@ def experiment(args):
     import dataclasses
 
     from ..configs import presets
+    from ..configs.pixel import pixel_space_exp
 
     exp = presets.get(args.preset)
+    if not args.latent:
+        exp = pixel_space_exp(exp)
     return dataclasses.replace(exp, unet=dataclasses.replace(
         exp.unet, img_conditioned=bool(args.imgConditioned),
         use_char_images=bool(args.charImages) or exp.unet.use_char_images,
@@ -186,15 +186,18 @@ def experiment(args):
     ))
 
 
-def load_unet(exp, path: str, seed: int):
+def load_unet(exp, path: str, seed: int, higan: bool = False):
     """The UNet from a reference-keyed state dict (less an aux head's keys:
-    sampling does not run the head), or seeded random with a warning."""
+    sampling does not run the head), or with ``higan`` the HiGAN+ denoiser
+    from one in the port's keys; seeded random with a warning without
+    ``path``."""
     import torch
 
+    from ..models.higan import HiGanDenoiserAdapter
     from ..models.layers import init_weights_
     from ..models.unet import UNet
 
-    unet = UNet(exp.unet)
+    unet = HiGanDenoiserAdapter(exp.unet) if higan else UNet(exp.unet)
     if not path:
         logging.warning("no --torch_ckpt: seeded random UNet (seed %d)", seed)
         return init_weights_(unet, seed)
@@ -209,7 +212,8 @@ def load_unet(exp, path: str, seed: int):
 def cond_latent(vae, path: str, exp, device):
     """The SD-scaled posterior mean [1, h, w, 4] of the PNG at ``path``,
     resized and padded to the preset's image size (the space the training's
-    reference latents live in)."""
+    reference latents live in); without a VAE (pixel space) the image
+    itself [1, H, W, 3] in [-1, 1]."""
     import torch
 
     from ..data.png import read_png
@@ -217,6 +221,8 @@ def cond_latent(vae, path: str, exp, device):
     from ..utils.images import normalize_to_unit, resize_and_pad
 
     img = resize_and_pad(read_png(path), exp.data.img_height, exp.data.img_width)
+    if vae is None:
+        return normalize_to_unit(img)[None].astype(np.float32)
     x = torch.from_numpy(normalize_to_unit(img)[None]).to(device)
     with torch.no_grad():
         return encode_to_latent(vae, x, sample=False).cpu().numpy()
@@ -237,15 +243,22 @@ def build(args):
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
     exp = experiment(args)
+    if args.hiGanArch:
+        from ..models.higan import refuse_conditioning
+
+        refuse_conditioning(exp.unet, "--hiGanArch 1", SystemExit,
+                            **{"a writer mix (--writer2)": args.writer2 >= 0})
     style_lookup = None
     if args.wrdChrWrStyl:
         from .train import style_lookup as read_style_dict
 
         style_lookup = read_style_dict(args.style_dict)
-    unet = load_unet(exp, args.torch_ckpt, args.seed).to(device)
-    vae = make_vae(exp.vae, args.stable_dif_path, args.vae_pt,
-                   with_encoder=bool(args.imgConditioned), seed=args.seed)
-    vae = vae.to(device).eval().requires_grad_(False)
+    unet = load_unet(exp, args.torch_ckpt, args.seed, bool(args.hiGanArch)).to(device)
+    vae = None
+    if exp.data.latent:
+        vae = make_vae(exp.vae, args.stable_dif_path, args.vae_pt,
+                       with_encoder=bool(args.imgConditioned), seed=args.seed)
+        vae = vae.to(device).eval().requires_grad_(False)
     sampler = WordSampler(exp, unet, vae, cfg_scale=args.cfg_scale, ddim_steps=args.ddim,
                           ddim_eta=args.ddim_eta)
     cond_lat1 = cond_latent(vae, args.cond_image, exp, device) if args.imgConditioned else None

@@ -30,8 +30,18 @@ per-character glyph crops (``data.dataset.char_glyphs``). Without
 renders each), drawn by ``data.synthetic.render_word`` (in each writer's
 style under ``--wrdChrWrStyl 1``); so is any crop missing from
 ``--iam_path``. ``--allow_random_style 1`` builds the style vectors with a
-random-init ``StyleEncoder`` (plumbing runs only). Every flag whose path is
-not ported raises ``NotImplementedError`` naming the slice it waits for.
+random-init ``StyleEncoder`` (plumbing runs only). ``--latent 0`` trains
+in pixel space (3 channels, the crops in [-1, 1] are x0; no VAE, no cache,
+previews without a decoder); ``--hiGanArch 1`` trains the HiGAN+ denoiser
+(``models.higan``; no previews, as the JAX CLI) and exits with the reason
+when combined with a conditioning its generator does not take;
+``--augMaps 1`` augments each crop (``data.augment.random_augment``).
+
+Data parallel: ``torchrun --nproc_per_node N -m worddiffusion_tpu_torch.cli.train
+--mesh_data N ...`` runs one process per card (``parallel.distributed``);
+``--batch_size`` is the global batch, each process steps on its rows of
+it, and the run equals the one-process run on the global batch.
+``--mesh_model > 1`` (tensor parallel) raises naming slice 13 of the port.
 """
 
 from __future__ import annotations
@@ -95,27 +105,18 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-SLICE_12 = "slice 12 of the port (ROADMAP A)"  # what the refusals wait for
-
-
 def _refuse_unported(args) -> None:
-    unported = {
-        "--hiGanArch": (args.hiGanArch,
-                        f"the HiGAN+ denoiser is not ported; it waits for {SLICE_12}"),
-        "--augMaps": (args.augMaps, "the augmentation (PIL, OpenCV) is not ported; it waits "
-                                    f"for {SLICE_12}"),
-        "--vae_ckpt": (args.vae_ckpt, "an orbax VAE checkpoint is not readable here; convert "
-                                      "it with models.convert.jax_vae_to_torch (--vae_pt)"),
-    }
-    for flag, (value, why) in unported.items():
-        if value:
-            raise NotImplementedError(f"{flag} is not ported to PyTorch yet: {why}")
-    if not args.latent:
-        raise NotImplementedError(f"--latent 0 (pixel-space training) is not ported yet; it "
-                                  f"waits for {SLICE_12}")
-    if args.mesh_data > 1 or args.mesh_model > 1:
-        raise NotImplementedError("a mesh larger than one device is not ported yet; it waits "
-                                  f"for {SLICE_12}")
+    from .. import NEXT_SLICE
+
+    if args.vae_ckpt:
+        raise NotImplementedError("--vae_ckpt is not ported to PyTorch yet: an orbax VAE "
+                                  "checkpoint is not readable here; convert it with "
+                                  "models.convert.jax_vae_to_torch (--vae_pt)")
+    if args.mesh_model > 1:
+        raise NotImplementedError(f"a tensor-parallel mesh (--mesh_model {args.mesh_model}) is "
+                                  f"not ported yet; it waits for {NEXT_SLICE}")
+    if not args.latent and args.latent_cache:
+        raise SystemExit("--latent 0 trains on the images: a --latent_cache holds VAE latents")
     if args.wrdChrWrStyl and not args.style_dict and not args.allow_random_style:
         raise SystemExit("--wrdChrWrStyl 1 needs --style_dict (train one: python -m "
                          "worddiffusion_tpu_torch.cli.train_style). Random-init style vectors "
@@ -130,11 +131,14 @@ def experiment_from_args(args):
     exp = presets.get(args.preset)
     if args.phosc or args.phos:
         exp = presets.get("iam_phosc") if args.preset == "iam" else exp
+    from ..configs.config import MeshConfig
+
     h, w = (int(v) for v in args.img_size.split(","))
     return exp.replace(
+        mesh=MeshConfig(data=args.mesh_data, model=args.mesh_model),
         data=dataclasses.replace(
             exp.data, gt_path=args.gt_train, image_dir=args.iam_path, img_height=h,
-            img_width=w, latent=True, latent_cache=args.latent_cache or None,
+            img_width=w, latent=bool(args.latent), latent_cache=args.latent_cache or None,
             batch_size=args.batch_size,
         ),
         train=dataclasses.replace(
@@ -152,6 +156,8 @@ def experiment_from_args(args):
             style_replace_context=bool(args.wrdChrWrStyl),
             use_char_images=bool(args.charImages),
             img_conditioned=bool(args.imgConditioned),
+            in_channels=4 if args.latent else 3,
+            out_channels=4 if args.latent else 3,
         ),
     )
 
@@ -240,7 +246,8 @@ def _preview_fn(args, exp, vae, device):
     from ..utils.images import save_image_grid
 
     def preview_fn(state, epoch):
-        sampler = WordSampler(exp, state.ema, vae, ddim_steps=args.preview_ddim)
+        sampler = WordSampler(exp, state.ema, vae if exp.data.latent else None,
+                              ddim_steps=args.preview_ddim)
         gen = torch.Generator(device=device).manual_seed(epoch)
         imgs = sampler.sample_preview(gen).astype(np.float32) / 255.0
         save_image_grid(imgs, f"{args.save_path}/images/epoch_{epoch:04d}.png", ncol=3)
@@ -253,20 +260,37 @@ def build(args):
     """Everything but the run: -> Trainer."""
     import torch
 
+    from ..data.augment import random_augment
     from ..data.dataset import LatentLookup, WordImageDataset
     from ..data.tokenizer import Tokenizer
     from ..models.vae import encode_to_latent
+    from ..parallel.distributed import initialize_multihost, local_device
+    from ..parallel.mesh import make_mesh
     from ..train.loop import Trainer
 
     _refuse_unported(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
+    # one process per card under torchrun (no-op otherwise), before any card use
+    rank, world = initialize_multihost(args.device)
+    device = local_device(args.device)
     exp = experiment_from_args(args)
+    make_mesh(exp.mesh)  # --mesh_data must be the world size
+    if world > 1:
+        logging.info("data parallel: process %d of %d, %d rows of each batch of %d", rank,
+                     world, exp.data.batch_size // world, exp.data.batch_size)
+    model = None
+    if args.hiGanArch:
+        from ..models.higan import HiGanDenoiserAdapter, refuse_conditioning
+
+        refuse_conditioning(exp.unet, "--hiGanArch 1", SystemExit)
+        model = HiGanDenoiserAdapter(exp.unet)
     samples, registry = corpus(args, exp)
     os.makedirs(args.save_path, exist_ok=True)
-    # writers_dict_train.json compat (trainModifyCondition.py:1061-1064)
-    registry.dump_json(f"{args.save_path}/writers_dict_train.json")
+    if rank == 0:
+        # writers_dict_train.json compat (trainModifyCondition.py:1061-1064)
+        registry.dump_json(f"{args.save_path}/writers_dict_train.json")
     tokenizer = Tokenizer.from_name(exp.data.alphabet, exp.data.max_chars)
     cache = LatentLookup.load(args.latent_cache) if args.latent_cache else None
     styles = None
@@ -279,15 +303,19 @@ def build(args):
         style_lookup=styles, char_images=exp.unet.use_char_images,
         char_image_size=exp.unet.char_image_size,
         # synthetic corpora carry a writer-style signal only when asked for
-        writer_styled=bool(args.wrdChrWrStyl and (args.synthetic or not args.gt_train)))
-    vae = _vae(args, exp, device, with_encoder=cache is None)
-    encode_fn = None
-    if cache is None:
-        def encode_fn(images, generator):
-            return encode_to_latent(vae, images, generator)
+        writer_styled=bool(args.wrdChrWrStyl and (args.synthetic or not args.gt_train)),
+        augment_fn=random_augment if args.augMaps else None, seed=args.seed)
+    vae = encode_fn = None
+    if exp.data.latent:
+        vae = _vae(args, exp, device, with_encoder=cache is None)
+        if cache is None:
+            def encode_fn(images, generator, noise=None):
+                return encode_to_latent(vae, images, generator, noise=noise)
 
-    return Trainer(exp, dataset, preview_fn=_preview_fn(args, exp, vae, device), device=device,
-                   encode_fn=encode_fn)
+    # the JAX CLI writes no previews of a HiGAN+ run
+    preview = None if args.hiGanArch else _preview_fn(args, exp, vae, device)
+    return Trainer(exp, dataset, preview_fn=preview, device=device, encode_fn=encode_fn,
+                   model=model)
 
 
 def main(argv=None):

@@ -15,8 +15,11 @@ either package evaluates in the other. The word crops are PNGs read with
 the [-1, 1] normalisation runs on the device. Without a gt file, or with
 ``--synthetic 1``, the splits are the JAX CLI's synthetic zero-shot split,
 and a missing crop is drawn by ``data.synthetic.render_word`` (in its
-writer's style with ``--writer_styles 1``). The augmentation (PIL and
-OpenCV) and non-PNG crops raise: they wait for slice 12 of the port.
+writer's style with ``--writer_styles 1``). ``--augment P`` applies one
+``data.augment.random_augment`` op to P% of the training crops each epoch,
+on the epoch's generator, as the JAX CLI. A PNG of any kind is read
+(``data.png``); a non-PNG crop (JPEG) raises: JPEG decoding waits for slice
+13 of the port (ROADMAP A.9).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import time
 import numpy as np
 import torch
 
-from .train import SLICE_12
+from .. import NEXT_SLICE
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -67,8 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--renders_per_word", type=int, default=8,
                    help="synthetic mode: renders per vocabulary word")
     p.add_argument("--augment", type=int, default=0,
-                   help="train-time augmentation probability in percent: only 0 "
-                        f"is ported ({SLICE_12})")
+                   help="train-time augmentation probability in percent "
+                        "(reference dataset_manipulation/augmentation.py ops)")
     p.add_argument("--writer_styles", type=int, default=0,
                    help="render each synthetic sample in its writer's style")
     p.add_argument("--len_counter", default="",
@@ -94,9 +97,6 @@ def _refuse_unported(args) -> None:
             "--prompt 1 is refused: the JAX CLI initialises a FixedPatchPrompter and "
             "never applies or trains it, so its visual prompt tuning is a silent "
             "no-op (ROADMAP C)")
-    if args.augment:
-        raise NotImplementedError("--augment > 0 is not ported: the augmentation uses "
-                                  f"PIL and OpenCV ({SLICE_12})")
 
 
 def _load_split(path: str, synthetic: int, language: str, n_synth: int = 200,
@@ -145,8 +145,8 @@ def _load_crop(path: str, sample=None, style: dict | None = None) -> np.ndarray:
         try:
             arr = read_png(path)
         except ValueError as e:
-            raise NotImplementedError(f"{e}: the port reads 8-bit PNG crops only (other "
-                                      f"formats: {SLICE_12})") from e
+            raise NotImplementedError(f"{e}: the port reads PNG crops only (JPEG decoding "
+                                      f"waits for {NEXT_SLICE})") from e
     elif sample is None:
         raise FileNotFoundError(f"no crop at {path!r} (--image_dir names the crops' folder)")
     else:
@@ -156,11 +156,14 @@ def _load_crop(path: str, sample=None, style: dict | None = None) -> np.ndarray:
 
 def _image_batches(samples, image_dir: str, batch_size: int,
                    rng: np.random.Generator | None = None, writer_styles: bool = False,
-                   drop_remainder: bool = True):
+                   drop_remainder: bool = True, augment_pct: int = 0):
     """Yield (images uint8 [B, 50, 250, 3], words) in the JAX CLI's order
     (one ``rng.shuffle`` of the sample order). ``drop_remainder=False``
     (every evaluation) also yields the last partial batch. A sample without
-    a crop is rendered, in its writer's style with ``writer_styles``."""
+    a crop is rendered, in its writer's style with ``writer_styles``.
+    ``augment_pct``: one ``random_augment`` op on that share of the images,
+    drawn from ``rng`` after each image (never cached)."""
+    from ..data.augment import random_augment
     from ..data.synthetic import writer_style
 
     order = np.arange(len(samples))
@@ -179,6 +182,8 @@ def _image_batches(samples, image_dir: str, batch_size: int,
                 if len(_RENDER_CACHE) >= _RENDER_CACHE_CAP:
                     _RENDER_CACHE.pop(next(iter(_RENDER_CACHE)))
                 _RENDER_CACHE[key] = arr
+            if augment_pct and rng is not None and rng.random() * 100 < augment_pct:
+                arr = np.ascontiguousarray(random_augment(arr, rng))
             imgs.append(arr)
             words.append(s.word)
         yield np.stack(imgs), words
@@ -288,7 +293,8 @@ def _train(args, model, train_samples, valid_samples, calib_payload, device) -> 
         t0 = time.perf_counter()
         losses = []
         for imgs, batch_words in _image_batches(train_samples, args.image_dir, args.batch_size,
-                                                np_rng, writer_styles=bool(args.writer_styles)):
+                                                np_rng, writer_styles=bool(args.writer_styles),
+                                                augment_pct=args.augment):
             tp = torch.from_numpy(np.stack([phos_map[w] for w in batch_words])).to(device)
             tc = torch.from_numpy(np.stack([phoc_map[w] for w in batch_words])).to(device)
             losses.append(train_step(model, optimizer, dev_norm(imgs, device), tp.float(),

@@ -55,6 +55,17 @@
 //
 // Bitwise repeatable: no atomics, and every sum runs in a fixed order (the
 // chunks in key order, the quad shuffles in lane order).
+//
+// Attention maps (UNetConfig.return_attn; the JAX model sows the fp32
+// softmax(q . k^T * scale) [B, H, Nq, Nk] of each attention). The online
+// softmax never forms them, so the kernel can also write each query row's
+// log-sum-exp, lse = ln(sum_j exp(s_j * scale)) = (m + log2 l) * ln 2 from its
+// final running maximum m and sum l (wd_attention), and a second kernel,
+// attention_probs_kernel, writes p = exp(s * scale - lse) in fp32 from q, k and
+// that lse: one more pass over q and k, each score recomputed once in fp32 on
+// the CUDA cores (a register-tiled fmaf chain over d, in d order), no reduction
+// over keys.
+// The output stays B.4's.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,6 +84,7 @@ constexpr int STAGES = 2;   // chunks in flight in the ring
 constexpr int PAD = 8;      // bf16 row padding (16 bytes): ldmatrix rows on distinct banks
 constexpr int MAX_D = 128;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
 __host__ __device__ constexpr int ld() { return D + PAD; }
@@ -164,8 +176,8 @@ __device__ __forceinline__ void load_chunk(bf16* kc, bf16* vc, const bf16* kb, c
 template <int D, int WARPS, int MT>
 __global__ void __launch_bounds__(WARPS * 32)
     attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out, int nq, int nk,
-                     float scale_log2) {
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, int nq, int nk, float scale_log2) {
   constexpr int THREADS = WARPS * 32, BQ = 16 * MT * WARPS, LD = ld<D>();
   constexpr int NT = KC / 8;  // score tiles per chunk
   constexpr int OT = D / 8;   // output tiles
@@ -340,8 +352,13 @@ __global__ void __launch_bounds__(WARPS * 32)
   bf16* ob = out + bh * nq * D;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
-    const float inv0 = 1.f / quad_sum(l[mt][0]), inv1 = 1.f / quad_sum(l[mt][1]);
+    const float la = quad_sum(l[mt][0]), lb = quad_sum(l[mt][1]);
+    const float inv0 = 1.f / la, inv1 = 1.f / lb;
     const int row_a = q0 + r0 + 16 * mt + g, row_b = row_a + 8;
+    if (lse != nullptr && t == 0) {
+      if (row_a < nq) lse[bh * nq + row_a] = (m[mt][0] + log2f(la)) * LN2;
+      if (row_b < nq) lse[bh * nq + row_b] = (m[mt][1] + log2f(lb)) * LN2;
+    }
 #pragma unroll
     for (int n = 0; n < OT; ++n) {
       const int col = n * 8 + 2 * t;
@@ -371,8 +388,8 @@ Cfg pick(int bh, int nq) {
 }
 
 template <int D, int WARPS, int MT>
-cudaError_t launch_cfg(const void* q, const void* k, const void* v, void* out, int bh, int nq,
-                       int nk, float scale, cudaStream_t stream) {
+cudaError_t launch_cfg(const void* q, const void* k, const void* v, void* out, float* lse,
+                       int bh, int nq, int nk, float scale, cudaStream_t stream) {
   constexpr int BQ = 16 * MT * WARPS;
   constexpr size_t smem = size_t(BQ + 2 * STAGES * KC) * ld<D>() * sizeof(bf16);
   const long long ctas = (long long)bh * ((nq + BQ - 1) / BQ);
@@ -393,17 +410,122 @@ cudaError_t launch_cfg(const void* q, const void* k, const void* v, void* out, i
   }
   attention_kernel<D, WARPS, MT><<<unsigned(ctas), WARPS * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), nq, nk, scale * LOG2E);
+      static_cast<bf16*>(out), lse, nq, nk, scale * LOG2E);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int bh, int nq,
-                   int nk, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+                   int nq, int nk, float scale, cudaStream_t stream) {
   const Cfg cfg = pick(bh, nq);
-  if (cfg.mt == 2) return launch_cfg<D, 4, 2>(q, k, v, out, bh, nq, nk, scale, stream);
-  if (cfg.warps == 4) return launch_cfg<D, 4, 1>(q, k, v, out, bh, nq, nk, scale, stream);
-  return launch_cfg<D, 2, 1>(q, k, v, out, bh, nq, nk, scale, stream);
+  if (cfg.mt == 2) return launch_cfg<D, 4, 2>(q, k, v, out, lse, bh, nq, nk, scale, stream);
+  if (cfg.warps == 4) return launch_cfg<D, 4, 1>(q, k, v, out, lse, bh, nq, nk, scale, stream);
+  return launch_cfg<D, 2, 1>(q, k, v, out, lse, bh, nq, nk, scale, stream);
+}
+
+// p [bh, nq, nk] fp32 = exp(q . k^T * scale - lse): grid (query tiles of PR
+// rows, bh). A CTA computes its PR x PK tile of p for each chunk of PK keys;
+// each thread 4 rows x 4 keys (16 fp32 accumulators, a register tile as in a
+// SIMT GEMM), from q and k staged in shared memory transposed and in fp32
+// ([D][PLD] each), so that the thread reads its 4 rows and its 4 keys of one d
+// with two 16-byte loads: 16 FMAs for two shared loads. The sum over d runs in
+// d order in each thread (bitwise repeatable).
+constexpr int PR = 64, PK = 64, PTHREADS = 256;
+constexpr int PLD = PR + 4;  // a row of 68 floats: 16-byte aligned, and the
+                             // transposed stores of consecutive d spread over banks
+static_assert(PR == PK, "one shared row pitch for both tiles");
+static_assert(PTHREADS == (PR / 4) * (PK / 4), "a thread a 4 x 4 tile");
+
+// Rows [r0, r0 + 64) of src [n, D] bf16 -> dst [D][PLD] fp32 transposed (rows
+// past n zero), 16 bytes (8 elements of a row) a thread a step; the 32 lanes
+// of a warp take 32 rows, so that their stores of one element fall on 32 banks.
+template <int D>
+__device__ __forceinline__ void stage_transposed(float* dst, const bf16* src, int r0, int n) {
+  constexpr int VPR = D / 8;
+  for (int i = threadIdx.x; i < PR * VPR; i += PTHREADS) {
+    const int r = i % PR, c = (i / PR) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r0 + r < n) v = *reinterpret_cast<const uint4*>(src + size_t(r0 + r) * D + c);
+    const bf16* e = reinterpret_cast<const bf16*>(&v);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[(c + j) * PLD + r] = __bfloat162float(e[j]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(PTHREADS)
+    attention_probs_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const float* __restrict__ lse, float* __restrict__ p, int nq,
+                           int nk, float scale) {
+  extern __shared__ __align__(16) float psm[];
+  float* qt = psm;             // [D][PLD]: q rows transposed
+  float* kt = psm + D * PLD;   // [D][PLD]: the chunk's keys transposed
+  const size_t bh = blockIdx.y;
+  const int row0 = blockIdx.x * PR;
+  const bf16* qb = q + bh * size_t(nq) * D;
+  const bf16* kb = k + bh * size_t(nk) * D;
+  stage_transposed<D>(qt, qb, row0, nq);
+  const int tr = threadIdx.x / (PK / 4), tk = threadIdx.x % (PK / 4);
+  float row_lse[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = row0 + 4 * tr + i;
+    row_lse[i] = row < nq ? lse[bh * nq + row] : 0.f;
+  }
+  for (int key0 = 0; key0 < nk; key0 += PK) {
+    __syncthreads();  // the previous chunk is read (and, the first time, q is staged)
+    stage_transposed<D>(kt, kb, key0, nk);
+    __syncthreads();
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      const float4 a = *reinterpret_cast<const float4*>(qt + d * PLD + 4 * tr);
+      const float4 b = *reinterpret_cast<const float4*>(kt + d * PLD + 4 * tk);
+      const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + 4 * tr + i;
+      if (row >= nq) continue;
+      float* prow = p + (bh * nq + row) * size_t(nk);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = key0 + 4 * tk + j;
+        if (key < nk) prow[key] = expf(acc[i][j] * scale - row_lse[i]);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_probs(const void* q, const void* k, const float* lse, float* p, int bh,
+                         int nq, int nk, float scale, cudaStream_t stream) {
+  if (bh > 65535) return cudaErrorInvalidValue;
+  constexpr size_t smem = size_t(2) * D * PLD * sizeof(float);
+  // raised once per device for this instance, as launch_cfg does
+  static std::atomic<unsigned long long> raised{0};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(raised.load() & bit)) {
+    e = cudaFuncSetAttribute(attention_probs_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (e != cudaSuccess) return e;
+    raised.fetch_or(bit);
+  }
+  const dim3 grid((nq + PR - 1) / PR, bh);
+  attention_probs_kernel<D><<<grid, PTHREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), lse, p, nq, nk, scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -420,20 +542,41 @@ int wd_attention_tile_rows(int bh, int nq) {
 
 // out [bh, nq, d] = softmax(q [bh, nq, d] . k [bh, nk, d]^T * scale) . v [bh, nk, d],
 // all bf16, contiguous and 16-byte aligned; d a multiple of 16 up to MAX_D,
-// nk >= 1, nq >= 1. Returns a cudaError_t (0 on success).
-int wd_attention(const void* q, const void* k, const void* v, void* out, int bh, int nq,
-                 int nk, int d, float scale, void* stream) {
+// nk >= 1, nq >= 1; with lse non-null, each query row's log-sum-exp [bh, nq]
+// fp32 too. Returns a cudaError_t (0 on success).
+int wd_attention(const void* q, const void* k, const void* v, void* out, float* lse,
+                 int bh, int nq, int nk, int d, float scale, void* stream) {
   if (bh < 1 || nq < 1 || nk < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return launch<16>(q, k, v, out, bh, nq, nk, scale, s);
-    case 32: return launch<32>(q, k, v, out, bh, nq, nk, scale, s);
-    case 48: return launch<48>(q, k, v, out, bh, nq, nk, scale, s);
-    case 64: return launch<64>(q, k, v, out, bh, nq, nk, scale, s);
-    case 80: return launch<80>(q, k, v, out, bh, nq, nk, scale, s);
-    case 96: return launch<96>(q, k, v, out, bh, nq, nk, scale, s);
-    case 112: return launch<112>(q, k, v, out, bh, nq, nk, scale, s);
-    case 128: return launch<128>(q, k, v, out, bh, nq, nk, scale, s);
+    case 16: return launch<16>(q, k, v, out, lse, bh, nq, nk, scale, s);
+    case 32: return launch<32>(q, k, v, out, lse, bh, nq, nk, scale, s);
+    case 48: return launch<48>(q, k, v, out, lse, bh, nq, nk, scale, s);
+    case 64: return launch<64>(q, k, v, out, lse, bh, nq, nk, scale, s);
+    case 80: return launch<80>(q, k, v, out, lse, bh, nq, nk, scale, s);
+    case 96: return launch<96>(q, k, v, out, lse, bh, nq, nk, scale, s);
+    case 112: return launch<112>(q, k, v, out, lse, bh, nq, nk, scale, s);
+    case 128: return launch<128>(q, k, v, out, lse, bh, nq, nk, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// p [bh, nq, nk] fp32 = exp(q . k^T * scale - lse) for q [bh, nq, d], k [bh, nk,
+// d] bf16 (contiguous) and lse [bh, nq] fp32 (wd_attention's): the
+// attention maps. bh <= 65535.
+int wd_attention_probs(const void* q, const void* k, const float* lse, float* p, int bh,
+                       int nq, int nk, int d, float scale, void* stream) {
+  if (bh < 1 || nq < 1 || nk < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 16: return launch_probs<16>(q, k, lse, p, bh, nq, nk, scale, s);
+    case 32: return launch_probs<32>(q, k, lse, p, bh, nq, nk, scale, s);
+    case 48: return launch_probs<48>(q, k, lse, p, bh, nq, nk, scale, s);
+    case 64: return launch_probs<64>(q, k, lse, p, bh, nq, nk, scale, s);
+    case 80: return launch_probs<80>(q, k, lse, p, bh, nq, nk, scale, s);
+    case 96: return launch_probs<96>(q, k, lse, p, bh, nq, nk, scale, s);
+    case 112: return launch_probs<112>(q, k, lse, p, bh, nq, nk, scale, s);
+    case 128: return launch_probs<128>(q, k, lse, p, bh, nq, nk, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

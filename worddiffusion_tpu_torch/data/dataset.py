@@ -19,7 +19,7 @@ writer's style with ``writer_styled``), as the JAX dataset does.
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 
@@ -88,13 +88,21 @@ class WordImageDataset:
         char_images: bool = False,
         char_image_size: tuple = (16, 16),
         writer_styled: bool = False,
+        augment_fn: Optional[Callable] = None,
+        seed: int = 0,
     ):
         """Every sample comes from ``latent_cache`` or, without one, from
         its image file or the renderer; a cache that holds some of the
         samples but not all raises (the batches would mix latents and
         images). ``writer_styled``: the renders use the writer's style
         (``synthetic.writer_style``), the signal style-vector training
-        needs."""
+        needs. ``augment_fn(uint8 image, rng)`` (``data.augment.random_augment``,
+        ``--augMaps``) transforms each loaded image with draws from
+        ``np.random.default_rng((seed, epoch, index))`` (``set_epoch``), so
+        that an image's draws do not depend on which process loads it or in
+        what order: n processes augment as one does, and a resumed run as
+        the uninterrupted one. The JAX dataset draws from one
+        ``default_rng(seed)`` stream in load order instead (ROADMAP C)."""
         self.samples = list(samples)
         self.registry = registry
         self.tokenizer = tokenizer
@@ -106,6 +114,8 @@ class WordImageDataset:
         self.char_images = char_images
         self.char_image_size = tuple(char_image_size)
         self.writer_styled = writer_styled
+        self.augment_fn = augment_fn
+        self.seed, self.epoch = seed, 0
         self._phosc_cache: dict[str, np.ndarray] = {}
         self._glyph_cache: dict[str, np.ndarray] = {}
         if latent_cache is not None:
@@ -119,7 +129,11 @@ class WordImageDataset:
     def __len__(self) -> int:
         return len(self.samples)
 
-    def _load_image(self, sample: Sample) -> np.ndarray:
+    def set_epoch(self, epoch: int) -> None:
+        """The epoch the augmentation draws of the next loads are keyed by."""
+        self.epoch = epoch
+
+    def _load_image(self, sample: Sample, idx: int) -> np.ndarray:
         path = os.path.join(self.cfg.image_dir, sample.image) if self.cfg.image_dir else ""
         if path and os.path.exists(path):
             img = read_png(path)
@@ -129,6 +143,8 @@ class WordImageDataset:
                               style=writer_style(sample.writer) if self.writer_styled else None)
         if img.shape[:2] != (self.cfg.img_height, self.cfg.img_width):
             img = resize_and_pad(img, self.cfg.img_height, self.cfg.img_width)
+        if self.augment_fn is not None:
+            img = self.augment_fn(img, np.random.default_rng((self.seed, self.epoch, idx)))
         return img
 
     def _phosc(self, word: str) -> np.ndarray:
@@ -148,7 +164,7 @@ class WordImageDataset:
         if self.latent_cache is not None:
             rec["latent"] = self.latent_cache[s.image]
         else:
-            rec["image"] = normalize_to_unit(self._load_image(s))
+            rec["image"] = normalize_to_unit(self._load_image(s, idx))
         if self.use_phosc:
             rec["phosc"] = self._phosc(s.word)
         if self.style_lookup is not None:

@@ -1,6 +1,6 @@
 """Batching iterator with background prefetch (copy of
-``worddiffusion_tpu/data/loader.py``'s ``batches``, ``prefetch`` and
-``epoch_batches``).
+``worddiffusion_tpu/data/loader.py``'s ``host_shard``, ``batches``,
+``prefetch`` and ``epoch_batches``).
 
 Batches are assembled on a worker thread while the previous step runs;
 ``map_fn`` (the Trainer's device staging: pinned memory, non-blocking
@@ -11,9 +11,15 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Sequence
 
 import numpy as np
+
+
+def host_shard(samples: Sequence, host_id: int, host_count: int) -> list:
+    """Round-robin share of ``samples`` for process ``host_id`` of
+    ``host_count``."""
+    return list(samples[host_id::host_count])
 
 
 def _stack(records: list[dict]) -> dict:
@@ -28,12 +34,14 @@ def _stack(records: list[dict]) -> dict:
 
 
 def batches(dataset, batch_size: int, rng: Optional[np.random.Generator] = None,
-            shuffle: bool = True, drop_remainder: bool = True) -> Iterator[dict]:
+            shuffle: bool = True, drop_remainder: bool = True,
+            rows: Optional[slice] = None) -> Iterator[dict]:
     """Batches in the order ``rng`` shuffles (or in dataset order without
     ``shuffle``). ``drop_remainder`` drops a short last batch; without it
     the last batch is filled by wrapping to the front of its own indices
     (``data.latent_cache``'s pass, which then drops the repeats by
-    name)."""
+    name). ``rows`` keeps only those rows of each batch (a process's
+    slice of the global batch): only their records are loaded."""
     order = np.arange(len(dataset))
     if shuffle:
         (rng or np.random.default_rng(0)).shuffle(order)
@@ -42,6 +50,8 @@ def batches(dataset, batch_size: int, rng: Optional[np.random.Generator] = None,
         idx = order[start : start + batch_size]
         if len(idx) < batch_size:
             idx = np.concatenate([idx, idx[: batch_size - len(idx)]])
+        if rows is not None:
+            idx = idx[rows]
         yield _stack([dataset[int(i)] for i in idx])
 
 
@@ -78,11 +88,16 @@ def epoch_batches(
     seed: int = 0,
     prefetch_depth: int = 2,
     map_fn=None,
+    rows: Optional[slice] = None,
 ) -> Iterator[dict]:
     """The epoch's batches in the ``np.random.default_rng((seed, epoch))``
-    permutation; ``map_fn`` runs on the prefetch worker thread."""
+    permutation; ``map_fn`` runs on the prefetch worker thread; ``rows``:
+    ``batches``'. A dataset with ``set_epoch`` (per-epoch augmentation
+    draws) is told the epoch first."""
+    if hasattr(dataset, "set_epoch"):
+        dataset.set_epoch(epoch)
     rng = np.random.default_rng((seed, epoch))
-    it = batches(dataset, batch_size, rng)
+    it = batches(dataset, batch_size, rng, rows=rows)
     if map_fn is not None:
         it = (map_fn(b) for b in it)
     return prefetch(it, prefetch_depth)

@@ -129,24 +129,34 @@ def _rank3(img: np.ndarray, op) -> np.ndarray:
     return op.reduce([p[dy : dy + h, dx : dx + w] for dy in range(3) for dx in range(3)])
 
 
-def _shear(img: np.ndarray, shear: float, fill: int = 255) -> np.ndarray:
-    """PIL's ``transform(size, AFFINE, (1, shear, 0, 0, 1, 0), fillcolor=fill)``
-    with its default NEAREST resampling (``Geometry.c::affine_fixed``): 16.16
-    fixed point, the output pixel (x, y) reads input column
-    ``(FIX(0.5 + shear/2) + y*FIX(shear) + x*FIX(1)) >> 16`` of row y, where
-    ``FIX(v) = floor(v * 65536 + 0.5)``; columns outside the image take
-    ``fill``."""
-    h, w = img.shape
+def _affine_nearest(img: np.ndarray, a: tuple, fill=255) -> np.ndarray:
+    """PIL's ``transform(size, AFFINE, a, fillcolor=...)`` with its default
+    NEAREST resampling (``Geometry.c::affine_fixed``) of an "L" [H, W] or
+    "RGB" [H, W, 3] image: 16.16 fixed point, the origin moved to the pixel
+    centre, so output pixel (x, y) reads input column ``(FIX(a2 + a1/2 +
+    a0/2) + y*FIX(a1) + x*FIX(a0)) >> 16`` and row ``(FIX(a5 + a4/2 + a3/2)
+    + y*FIX(a4) + x*FIX(a3)) >> 16``, where ``FIX(v) = floor(v * 65536 +
+    0.5)``; a source outside the image leaves ``fill`` (a value, or one per
+    channel)."""
+    h, w = img.shape[:2]
 
     def fix(v):
         return int(np.floor(v * 65536.0 + 0.5))
 
-    a0, a1, a2 = fix(1.0), fix(shear), fix(0.0 + 1.0 * 0.5 + shear * 0.5)
-    xx = a2 + np.arange(h, dtype=np.int64)[:, None] * a1 + np.arange(w, dtype=np.int64)[None] * a0
-    xin = xx >> 16
-    inside = (xin >= 0) & (xin < w)
-    rows = np.arange(h)[:, None].repeat(w, axis=1)
-    return np.where(inside, img[rows, np.clip(xin, 0, w - 1)], fill).astype(np.uint8)
+    xo, yo = fix(a[2] + a[1] * 0.5 + a[0] * 0.5), fix(a[5] + a[4] * 0.5 + a[3] * 0.5)
+    ys, xs = np.arange(h, dtype=np.int64)[:, None], np.arange(w, dtype=np.int64)[None]
+    xin = (xo + ys * fix(a[1]) + xs * fix(a[0])) >> 16
+    yin = (yo + ys * fix(a[4]) + xs * fix(a[3])) >> 16
+    inside = (xin >= 0) & (xin < w) & (yin >= 0) & (yin < h)
+    src = img[np.clip(yin, 0, h - 1), np.clip(xin, 0, w - 1)]
+    if img.ndim == 3:
+        inside = inside[..., None]
+    return np.where(inside, src, fill).astype(np.uint8)
+
+
+def _shear(img: np.ndarray, shear: float, fill: int = 255) -> np.ndarray:
+    """PIL's ``transform(size, AFFINE, (1, shear, 0, 0, 1, 0), fillcolor=fill)``."""
+    return _affine_nearest(img, (1, shear, 0, 0, 1, 0), fill)
 
 
 def _resize(img: np.ndarray, new_w: int, new_h: int) -> np.ndarray:

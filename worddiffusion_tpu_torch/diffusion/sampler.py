@@ -155,3 +155,10 @@ def latent_to_image(x: torch.Tensor, decode_fn, scaling: float = 0.18215) -> tor
     """VAE decode + [0, 1] clamp. NHWC float32."""
     img = decode_fn(x / scaling)
     return torch.clamp(img / 2.0 + 0.5, 0.0, 1.0)
+
+
+def pixel_to_uint8(x: torch.Tensor) -> torch.Tensor:
+    """The pixel-space path's images: [-1, 1] -> uint8, truncating as JAX's
+    ``astype(uint8)`` does (0.999 -> 254), in fp32 in the JAX order."""
+    x = (torch.clamp(x.float(), -1.0, 1.0) + 1.0) / 2.0
+    return (x * 255.0).to(torch.uint8)

@@ -10,7 +10,10 @@ Ported: the latent path with a VAE, DDPM and DDIM (``ddim_eta``), the
 fused OCR argmax, the training's preview, PHOSC conditioning (``phosc``),
 classifier-free guidance (``cfg_scale``), the interpolation between two
 writers (``writer_ids2``, ``mix_rate``) and the style, glyph-image and
-reference-latent conditioning. Not yet: pixel-space models, multi-GPU.
+reference-latent conditioning, pixel-space models (``exp.data.latent``
+False: no VAE, x_T is [B, H, W, 3] and the images come from
+``pixel_to_uint8``) and the HiGAN+ denoiser (any module with the UNet's
+call signature).
 
 Classifier-free guidance's unconditional call gives PAD character ids,
 writer mask 0 and the same PHOSC ids, as the JAX sampler's; unlike it,
@@ -31,7 +34,7 @@ from ..configs.config import Experiment
 from ..data.dataset import char_glyphs
 from ..data.phosc import phosc_vector
 from ..data.tokenizer import PAD_TOKEN, Tokenizer
-from ..diffusion.sampler import ddim_sample, ddpm_sample, latent_to_image
+from ..diffusion.sampler import ddim_sample, ddpm_sample, latent_to_image, pixel_to_uint8
 from ..diffusion.schedule import NoiseSchedule
 from ..models.unet import UNet
 from ..models.vae import AutoencoderKL, decode_from_latent
@@ -49,7 +52,7 @@ class WordSampler:
         self,
         exp: Experiment,
         model: UNet,
-        vae: AutoencoderKL,
+        vae: Optional[AutoencoderKL],
         call_mask: Optional[np.ndarray] = None,
         stochastic: bool = True,
         ocr_apply: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
@@ -64,12 +67,14 @@ class WordSampler:
         (uint8 images, int32 frame ids). ``ddim_steps`` > 0 samples with
         DDIM over that many steps (``ddim_eta`` 0: deterministic) instead
         of the DDPM loop; ``cfg_scale`` > 0 guides every model call, two
-        UNet calls each."""
-        if not exp.data.latent:
-            raise NotImplementedError("pixel-space sampling is not ported yet")
+        UNet calls each. A pixel-space ``exp`` (``data.latent`` False) takes
+        no ``vae``: the denoiser's output is the image."""
+        if exp.data.latent == (vae is None):
+            raise ValueError("a latent-space sampler needs the VAE and a pixel-space one "
+                             f"takes none (data.latent={exp.data.latent})")
         self.exp = exp
         self.model = model.eval()
-        self.vae = vae.eval()
+        self.vae = None if vae is None else vae.eval()
         self.ocr_apply = ocr_apply
         self.device = next(model.parameters()).device
         self.tokenizer = Tokenizer.from_name(exp.data.alphabet, exp.data.max_chars)
@@ -81,7 +86,9 @@ class WordSampler:
         self.ddim_steps = ddim_steps
         self.cfg_scale = cfg_scale
         self.ddim_eta = ddim_eta
-        self.latent_shape = (exp.data.img_height // 8, exp.data.img_width // 8, 4)
+        self.latent_shape = ((exp.data.img_height // 8, exp.data.img_width // 8, 4)
+                             if exp.data.latent else
+                             (exp.data.img_height, exp.data.img_width, 3))
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         t = torch.from_numpy(np.ascontiguousarray(a))
@@ -149,10 +156,13 @@ class WordSampler:
 
     @torch.no_grad()
     def decode(self, lat: torch.Tensor):
-        """latents -> uint8 images [B, H, W, 3] (+ int32 frame ids [B, T]
-        with ``ocr_apply``)."""
-        img = latent_to_image(lat, lambda z: decode_from_latent(self.vae, z * 0.18215))
-        img = (img * 255.0).to(torch.uint8)  # truncates, as astype does
+        """latents (or pixel-space images in [-1, 1]) -> uint8 images [B, H,
+        W, 3] (+ int32 frame ids [B, T] with ``ocr_apply``)."""
+        if self.vae is None:
+            img = pixel_to_uint8(lat)
+        else:
+            img = latent_to_image(lat, lambda z: decode_from_latent(self.vae, z * 0.18215))
+            img = (img * 255.0).to(torch.uint8)  # truncates, as astype does
         if self.ocr_apply is None:
             return img
         gray = img[..., :1].float() / 127.5 - 1.0

@@ -10,7 +10,11 @@ the card. With ``fold_context`` (``UNetConfig.attn_fold_context``) a
 cross-attention over a context of L tokens with ``heads * L <= dim``
 folds its q projection into K and its out projection into V
 (``build_folds``) and runs with its pre-norm and residual as one
-``ops.fold_attention`` sub-layer, the CUDA kernel on the card.
+``ops.fold_attention`` sub-layer, the CUDA kernel on the card. With
+``sow_attn`` (``UNetConfig.return_attn``) every attention also keeps its
+fp32 maps ``softmax(q kᵀ · scale)`` in ``attn_map`` (``ops.attention.
+attention_with_probs``: the maps kernel beside B.4 on the card), and none
+folds, as in the JAX model.
 """
 
 from __future__ import annotations
@@ -74,6 +78,8 @@ class CrossAttention(nn.Module):
         self.to_k = Dense(context_dim, inner, bias=False)
         self.to_v = Dense(context_dim, inner, bias=False)
         self.to_out = nn.Sequential(Dense(inner, query_dim))
+        self.sow_attn = False
+        self.attn_map: Optional[torch.Tensor] = None  # [B, H, Nq, Nk] fp32 with sow_attn
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         context = x if context is None else context
@@ -87,7 +93,10 @@ class CrossAttention(nn.Module):
         q = heads_first(self.to_q(x), nq)
         k = heads_first(self.to_k(context), nk)
         v = heads_first(self.to_v(context), nk)
-        out = attention.fused_attention(q, k, v, d ** -0.5)
+        if self.sow_attn:
+            out, self.attn_map = attention.attention_with_probs(q, k, v, d ** -0.5)
+        else:
+            out = attention.fused_attention(q, k, v, d ** -0.5)
         return self.to_out(out.transpose(1, 2).reshape(b, nq, h * d))
 
     def folds(self, context: torch.Tensor, dtype: torch.dtype):
@@ -117,15 +126,17 @@ class BasicTransformerBlock(nn.Module):
     def __init__(self, dim: int, n_heads: int, d_head: int,
                  context_dim: Optional[int] = None,
                  attn1_cross: bool = True, dtype: torch.dtype = torch.bfloat16,
-                 use_pallas_ffn: Optional[bool] = None, fold_context: bool = False):
+                 use_pallas_ffn: Optional[bool] = None, fold_context: bool = False,
+                 sow_attn: bool = False):
         super().__init__()
         self.dtype = dtype
         self.attn1_cross = attn1_cross
         self.use_pallas_ffn = use_pallas_ffn
-        self.fold_context = fold_context
+        self.fold_context = fold_context and not sow_attn
         self.attn1 = CrossAttention(dim, context_dim if attn1_cross else None,
                                     n_heads, d_head)
         self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head)
+        self.attn1.sow_attn = self.attn2.sow_attn = sow_attn
         self.ff = FeedForward(dim)
         if not attn1_cross:
             self.norm1 = nn.LayerNorm(dim, eps=1e-5)
@@ -171,14 +182,15 @@ class SpatialTransformer(nn.Module):
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
                  context_dim: Optional[int] = None,
                  attn1_cross: bool = True, dtype: torch.dtype = torch.bfloat16,
-                 use_pallas_ffn: Optional[bool] = None, fold_context: bool = False):
+                 use_pallas_ffn: Optional[bool] = None, fold_context: bool = False,
+                 sow_attn: bool = False):
         super().__init__()
         inner = n_heads * d_head
         self.norm = GroupNorm32(in_channels)
         self.proj_in = Conv2D(in_channels, inner, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, n_heads, d_head, context_dim,
-                                  attn1_cross, dtype, use_pallas_ffn, fold_context)
+                                  attn1_cross, dtype, use_pallas_ffn, fold_context, sow_attn)
             for _ in range(depth)
         ])
         self.proj_out = Conv2D(inner, in_channels, 1, zero_init=True)

@@ -8,7 +8,7 @@ exporter leaves out (the CTC aux head and the glyph encoder), which
 ``jax_unet_extras_to_torch`` maps. This module adds the VAE
 (diffusers key names; the inverse of
 ``worddiffusion_tpu.models.vae.convert_diffusers_vae``) and the OCR
-recognizer, and the PHOSC recognizer, the character counter and the
+recognizer, the HiGAN+ denoiser, and the PHOSC recognizer, the character counter and the
 writer-style encoder in both directions (their CLIs read and write the JAX
 CLIs' pickles). Each
 function from flax takes a nested dict of numpy arrays and returns
@@ -84,6 +84,33 @@ def jax_unet_extras_to_torch(params: Mapping, cfg) -> dict[str, np.ndarray]:
         for conv in ("glyph_conv1", "glyph_conv2"):
             _conv(p[conv]["Conv_0"], conv, out)
         _linear(p["glyph_proj"]["Dense_0"], "glyph_proj", out)
+    return out
+
+
+def jax_higan_to_torch(params: Mapping) -> dict[str, np.ndarray]:
+    """Flax ``HiGanDenoiserAdapter`` params -> the port's
+    ``models.higan.HiGanDenoiserAdapter`` keys (``block_{i}`` ->
+    ``blocks.{i}``; the text encoder's keys as the UNet's ``word_emb``)."""
+    g = _params(params)["generator"]
+    out: dict[str, np.ndarray] = {}
+    pre = "generator."
+    _linear(g["t_proj"]["Dense_0"], pre + "t_proj", out)
+    out[pre + "writer_emb.weight"] = _t(g["writer_emb"]["embedding"])
+    enc = g["text_enc"]
+    out[pre + "text_enc.embedding.weight"] = _t(enc["embedding"]["embedding"])
+    for lin in ("linear_query", "linear_key", "linear_value"):
+        _linear(enc["attention"][lin]["Dense_0"], f"{pre}text_enc.attention.{lin}", out)
+    for conv in ("conv_in", "conv_out"):
+        _conv(g[conv]["Conv_0"], pre + conv, out)
+    _norm(g["out_norm"], pre + "out_norm", out)
+    blocks = sorted((k for k in g if k.startswith("block_")), key=lambda k: int(k[6:]))
+    for i, name in enumerate(blocks):
+        node, key = g[name], f"{pre}blocks.{i}."
+        for sub in ("cgn1", "cgn2"):
+            _norm(node[sub], key + sub, out)
+            _linear(node[sub + "_proj"]["Dense_0"], key + sub + "_proj", out)
+        for conv in ("conv1", "conv2"):
+            _conv(node[conv]["Conv_0"], key + conv, out)
     return out
 
 

@@ -17,8 +17,11 @@ latents (``img_conditioned``), the CTC aux head (``ocr_head``), FiLM
 ResBlocks (``use_scale_shift_norm``). ``split_skip_conv`` is accepted and
 runs the concat form: the JAX option is the same math on the same
 parameters, emitted another way for the TPU, and two B.6 launches on the
-halves are slower on the card than one on the concat. ``return_attn`` and
-``fast_softmax`` raise ``NotImplementedError``.
+halves are slower on the card than one on the concat. ``return_attn``
+appends a dict of every attention's fp32 maps [B, H, Nq, Nk] to the output,
+keyed by the JAX model's ``intermediates`` paths (``in_0_0_attn/block_0/
+attn1/attn``); on the card they come from the maps kernel beside B.4.
+``fast_softmax`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -38,8 +41,6 @@ from .layers import (
 )
 
 _UNPORTED_CONFIG = {
-    "return_attn": "the attention maps [B, H, Nq, Nk], which the attention kernel's online "
-                   "softmax never forms, come with utils/analysis.py (ROADMAP A.8)",
     "fast_softmax": "a switch of JAX's XLA softmax; it waits for a decision on the attention "
                     "kernel's softmax precision (ROADMAP A.4)",
 }
@@ -131,12 +132,18 @@ class UNet(nn.Module):
             cfg.vocab_size, cfg.context_dim, cfg.max_seq_len, self.dtype
         )
 
-        def st(ch):
-            return SpatialTransformer(
+        self._attn_names: list[tuple[str, nn.Module]] = []  # (JAX path, attention)
+
+        def st(ch, name):
+            t = SpatialTransformer(
                 ch, cfg.num_heads, ch // cfg.num_heads, cfg.transformer_depth,
                 cfg.context_dim, cfg.attn1_cross, self.dtype,
-                cfg.use_pallas_ffn, bool(cfg.attn_fold_context),
+                cfg.use_pallas_ffn, bool(cfg.attn_fold_context), cfg.return_attn,
             )
+            for d, block in enumerate(t.transformer_blocks):
+                for a in ("attn1", "attn2"):
+                    self._attn_names.append((f"{name}/block_{d}/{a}/attn", getattr(block, a)))
+            return t
 
         def res(cin, cout):
             return ResBlock(cin, cout, ted, cfg.use_scale_shift_norm)
@@ -147,11 +154,11 @@ class UNet(nn.Module):
         chans = [mc]
         ch, ds = mc, 1
         for level, mult in enumerate(cfg.channel_mult):
-            for _ in range(cfg.num_res_blocks):
+            for i in range(cfg.num_res_blocks):
                 layers = [res(ch, mult * mc)]
                 ch = mult * mc
                 if ds in cfg.attention_resolutions:
-                    layers.append(st(ch))
+                    layers.append(st(ch, f"in_{level}_{i}_attn"))
                 self.input_blocks.append(TimestepBlock(layers))
                 chans.append(ch)
             if level != len(cfg.channel_mult) - 1:
@@ -159,7 +166,7 @@ class UNet(nn.Module):
                 chans.append(ch)
                 ds *= 2
 
-        self.middle_block = TimestepBlock([res(ch, ch), st(ch), res(ch, ch)])
+        self.middle_block = TimestepBlock([res(ch, ch), st(ch, "mid_attn"), res(ch, ch)])
 
         self.output_blocks = nn.ModuleList()
         for level, mult in reversed(list(enumerate(cfg.channel_mult))):
@@ -167,7 +174,7 @@ class UNet(nn.Module):
                 layers = [res(ch + chans.pop(), mc * mult)]
                 ch = mc * mult
                 if ds in cfg.attention_resolutions:
-                    layers.append(st(ch))
+                    layers.append(st(ch, f"out_{level}_{i}_attn"))
                 if level and i == cfg.num_res_blocks:
                     layers.append(Upsample(ch))
                     ds //= 2
@@ -217,7 +224,8 @@ class UNet(nn.Module):
                 mix_rate=None,
                 cond_latents: Optional[torch.Tensor] = None,
                 char_images: Optional[torch.Tensor] = None):
-        """``phosc_ids`` [B, P] int: the PHOSC descriptor as token ids, read
+        """-> eps [, CTC logits with ``ocr_head``] [, the maps dict with
+        ``return_attn``]. ``phosc_ids`` [B, P] int: the PHOSC descriptor as token ids, read
         only with ``use_phosc``. ``writer_mask`` [B] scales each sample's
         writer embedding (0 drops it: the training's classifier-free drop).
         ``writer_id2`` [B] and ``mix_rate`` (a float or [B]) mix two writers'
@@ -271,6 +279,10 @@ class UNet(nn.Module):
             h = block(torch.cat([h, hs.pop()], dim=1), emb, context)
         e = gn_silu_conv(self.out[0], self.out[2], h)
         eps = e.float().permute(0, 2, 3, 1)
-        if cfg.ocr_head:
-            return eps, self.auxhead(e)
-        return eps
+        out = (eps, self.auxhead(e)) if cfg.ocr_head else (eps,)
+        if cfg.return_attn:
+            maps = {}
+            for name, attn in self._attn_names:
+                maps[name], attn.attn_map = attn.attn_map, None
+            out = out + (maps,)
+        return out if len(out) > 1 else eps

@@ -12,9 +12,16 @@ kernel does not take raises instead of falling back. The JAX kernel has
 no backward (a bare ``pallas_call`` has no VJP), so the Function's
 backward recomputes ``attention_reference`` under plain autograd.
 
-``launches`` counts kernel launches and ``bwd_calls`` the Function's
-backward calls, so that a run can show that its main path went through
-them.
+``attention_with_probs`` is the attention-maps path (``UNetConfig.
+return_attn``): the output as above and the fp32 probabilities
+``softmax(q kᵀ · scale)`` [B, H, Nq, Nk], which on the card come from a
+second kernel of ``csrc/attention.cu`` that recomputes the scores and
+normalises them by the log-sum-exp B.4 writes beside its output; its plain
+version is ``attention_probs_reference``, the JAX model's sown softmax.
+
+``launches`` counts B.4's launches, ``probs_launches`` the maps kernel's and
+``bwd_calls`` the Function's backward calls, so that a run can show that its
+main path went through them.
 """
 
 from __future__ import annotations
@@ -27,7 +34,30 @@ import torch
 from . import build
 
 launches = 0
+probs_launches = 0
 bwd_calls = 0
+
+# The backward recomputes the plain version, which forms the fp32 scores and
+# probabilities [B, H, Nq, Nk] and their gradients: about four such tensors.
+# Above this many bytes a call raises before allocating them (self-attention
+# over a pixel-space image: Nq = Nk = 16384 is 68 GB at B = 16).
+BACKWARD_BYTES_LIMIT = 24 * 2 ** 30
+
+
+def backward_bytes(b: int, h: int, nq: int, nk: int) -> int:
+    """What the plain-recompute backward allocates for one call: four fp32
+    [B, H, Nq, Nk] tensors."""
+    return 4 * 4 * b * h * nq * nk
+
+
+def check_backward_size(b: int, h: int, nq: int, nk: int) -> None:
+    need = backward_bytes(b, h, nq, nk)
+    if need > BACKWARD_BYTES_LIMIT:
+        raise ValueError(
+            f"the attention backward at B={b}, H={h}, Nq={nq}, Nk={nk} would form "
+            f"{need / 2 ** 30:.1f} GiB of fp32 scores (limit {BACKWARD_BYTES_LIMIT / 2 ** 30:.0f} "
+            "GiB): train self-attention over a pixel-space image at a smaller batch, or in "
+            "latent space")
 
 
 def attention_reference(q, k, v, scale: float):
@@ -37,6 +67,13 @@ def attention_reference(q, k, v, scale: float):
     sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     p = sim.softmax(dim=-1).to(v.dtype)
     return torch.matmul(p.float(), v.float()).to(v.dtype)
+
+
+def attention_probs_reference(q, k, scale: float):
+    """Plain PyTorch attention maps: fp32 ``softmax(q kᵀ · scale)`` (the JAX
+    model's sown ``attn``, ``models/attention.py:198-209``)."""
+    sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    return sim.softmax(dim=-1)
 
 
 class Attention(torch.autograd.Function):
@@ -54,6 +91,8 @@ class Attention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         global bwd_calls
+        q, k = ctx.saved_tensors[:2]
+        check_backward_size(q.shape[0], q.shape[1], q.shape[2], k.shape[2])
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             out = attention_reference(*leaves, ctx.scale)
@@ -81,8 +120,10 @@ def _attend(q, k, v, scale):
 def _lib():
     lib = build.load()
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wd_attention.argtypes = [p] * 4 + [i] * 4 + [ctypes.c_float, p]
+    lib.wd_attention.argtypes = [p] * 5 + [i] * 4 + [ctypes.c_float, p]
     lib.wd_attention.restype = i
+    lib.wd_attention_probs.argtypes = [p] * 4 + [i] * 4 + [ctypes.c_float, p]
+    lib.wd_attention_probs.restype = i
     lib.wd_attention_max_d.argtypes = []
     lib.wd_attention_max_d.restype = i
     lib.wd_attention_tile_rows.argtypes = [i, i]
@@ -116,7 +157,13 @@ def _check_operands(q, k, v, max_d):
             raise ValueError(f"fused_attention: {name} must be contiguous and 16-byte aligned")
 
 
-def _launch(q, k, v, scale):
+def _raise_on(lib, err, what):
+    if err:
+        raise RuntimeError(f"{what} launch failed: {lib.wd_cuda_error_string(err).decode()} "
+                           f"(code {err})")
+
+
+def _launch(q, k, v, scale, lse=None):
     global launches
     lib = _lib()
     _check_operands(q, k, v, lib.wd_attention_max_d())
@@ -126,12 +173,59 @@ def _launch(q, k, v, scale):
         return out
     with torch.cuda.device(q.device):
         err = lib.wd_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, nq, k.shape[2],
-            d, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b * h, nq, k.shape[2], d, float(scale),
+            torch.cuda.current_stream(q.device).cuda_stream,
         )
-    if err:
-        raise RuntimeError(
-            f"attention kernel launch failed: {lib.wd_cuda_error_string(err).decode()} "
-            f"(code {err})")
+    _raise_on(lib, err, "attention kernel")
     launches += 1
     return out
+
+
+def attention_lse(q, k, v, scale: float):
+    """B.4 on CUDA tensors -> (out, lse [B, H, Nq] fp32, each query row's
+    ``log(sum exp(q kᵀ · scale))``). Forward only."""
+    b, h, nq, _ = q.shape
+    lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+    return _launch(q, k, v, scale, lse), lse
+
+
+def attention_probs(q, k, lse, scale: float):
+    """The maps kernel: ``exp(q kᵀ · scale - lse)`` [B, H, Nq, Nk] fp32 from
+    CUDA tensors q, k (B.4's operands) and B.4's ``lse``. Forward only."""
+    global probs_launches
+    lib = _lib()
+    _check_operands(q, k, k, lib.wd_attention_max_d())
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, nq)
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError(f"attention_probs: lse must be contiguous fp32 [{b}, {h}, {nq}] on "
+                         f"{q.device}")
+    if b * h > 65535:
+        raise ValueError(f"attention_probs: B*H = {b * h} exceeds the grid's 65535")
+    p = torch.empty((b, h, nq, nk), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = lib.wd_attention_probs(q.data_ptr(), k.data_ptr(), lse.data_ptr(), p.data_ptr(),
+                                     b * h, nq, nk, d, float(scale),
+                                     torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(lib, err, "attention maps kernel")
+    probs_launches += 1
+    return p
+
+
+def attention_with_probs(q, k, v, scale: float):
+    """-> (``softmax(q kᵀ · scale) v`` as ``fused_attention`` gives it, the
+    fp32 maps ``softmax(q kᵀ · scale)``): on a CUDA tensor B.4 with its
+    log-sum-exp, then the maps kernel; on a CPU tensor the plain versions.
+    Forward only (the maps are an analysis output)."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, scale), attention_probs_reference(q, k, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention_with_probs: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("the attention maps (return_attn) are forward only on the card: "
+                         "run the model under torch.no_grad()")
+    with torch.no_grad():
+        out, lse = attention_lse(q, k, v, scale)
+        return out, attention_probs(q, k, lse, scale)

@@ -3,8 +3,17 @@ epochs, checkpoints, previews, stop flag, resume.
 
 The data comes from a latent cache (``data.dataset``), the production
 fast path of the JAX trainer, or from word images that the step encodes
-with the frozen VAE (``encode_fn``); the batches (latents or images) are
-staged on the device by the prefetch worker.
+with the frozen VAE (``encode_fn``), or, in pixel space
+(``exp.data.latent`` False), from the images themselves; the batches
+(latents or images) are staged on the device by the prefetch worker.
+
+Data parallel (one process per card, ``parallel.distributed``): the model
+runs under ``DistributedDataParallel``, each process loads and steps on its
+rows of every global batch (``parallel.mesh.shard_rows``), and the step's
+draws are the global batch's, so an n-process step is the one-process step
+on the global batch (the JAX mesh step). Rank 0 alone writes checkpoints,
+EMA weights, previews and metrics, and reads the stop flag, which it
+broadcasts over a gloo group so that no step waits on the card for it.
 """
 
 from __future__ import annotations
@@ -14,12 +23,16 @@ import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
+import torch.nn as nn
 
 from ..configs.config import Experiment
 from ..data.loader import epoch_batches
 from ..diffusion.schedule import NoiseSchedule
 from ..models.layers import init_weights_
 from ..models.unet import UNet
+from ..ops import attention
+from ..parallel.mesh import make_mesh, shard_rows
 from ..utils.metrics import MetricsLogger, StepTimer
 from ..utils.stop_flag import StopFlag
 from .checkpoint import CheckpointManager
@@ -27,6 +40,22 @@ from .state import TrainState, make_optimizer
 from .step import make_train_step
 
 log = logging.getLogger("worddiffusion")
+
+
+def check_attention_backward(exp: Experiment, batch: int) -> None:
+    """Raise before the first step where a self-attention's plain-recompute
+    backward would not fit (``ops.attention.BACKWARD_BYTES_LIMIT``): the
+    UNet's attentions over ``H/ds x W/ds`` positions at each resolution ``ds``
+    of ``attention_resolutions``, in the space the model runs in."""
+    u = exp.unet
+    if u.attn1_cross:
+        return
+    h, w = exp.data.img_height, exp.data.img_width
+    if exp.data.latent:
+        h, w = h // 8, w // 8
+    for ds in u.attention_resolutions:
+        n = (h // ds) * (w // ds)
+        attention.check_backward_size(batch, u.num_heads, n, n)
 
 
 class Trainer:
@@ -37,6 +66,7 @@ class Trainer:
         preview_fn: Optional[Callable] = None,
         device: torch.device | str = "cuda",
         encode_fn: Optional[Callable] = None,
+        model: Optional[nn.Module] = None,
     ):
         """``preview_fn(state, epoch)`` renders the fixed probe words.
         ``encode_fn(images, generator) -> latent [B, 8, 32, 4]`` maps image
@@ -50,7 +80,11 @@ class Trainer:
         each other's run-to-run spread (the step is host-bound), and the
         kernel path's peak memory was 3.9 against 6.2 GiB (PERF.md), so
         None stays on the kernels for the memory; ``chip_smoke.py``
-        phase 7 times both."""
+        phase 7 times both.
+
+        ``model``: the denoiser (default ``UNet(exp.unet)``; the HiGAN+
+        adapter with ``--hiGanArch 1``). ``exp.mesh``'s data axis is the
+        process group (``parallel.mesh.make_mesh``)."""
         self.exp = exp
         self.dataset = dataset
         self.preview_fn = preview_fn
@@ -59,10 +93,20 @@ class Trainer:
         self.schedule = NoiseSchedule.linear(
             exp.diffusion.num_steps, exp.diffusion.beta_start, exp.diffusion.beta_end
         )
-        self.model = UNet(exp.unet).to(self.device)
+        self.model = (UNet(exp.unet) if model is None else model).to(self.device)
+        self.mesh = make_mesh(exp.mesh)
+        self.rank, self.world = self.mesh.rank, self.mesh.data
+        if isinstance(self.model, UNet):
+            check_attention_backward(exp, exp.data.batch_size // self.world)
+        self.rows = shard_rows(exp.data.batch_size, self.mesh) if self.world > 1 else None
+        # under torchrun (a process group), at any world size
+        self.distributed = dist.is_available() and dist.is_initialized()
+        self._ddp = None
+        self._control = None  # the gloo group the stop flag is broadcast over
         self.ckpt = CheckpointManager(f"{exp.train.save_path}/ckpt")
         self.stop = StopFlag(exp.train.stop_flag_file)
-        self.metrics = MetricsLogger(f"{exp.train.save_path}/metrics.jsonl")
+        self.metrics = (MetricsLogger(f"{exp.train.save_path}/metrics.jsonl")
+                        if self.rank == 0 else None)
         self.timer = StepTimer()
         # (wall seconds, steps) per completed epoch of the last run(): the
         # end-to-end training rate including host batch assembly
@@ -75,6 +119,41 @@ class Trainer:
         opt = make_optimizer(self.model.parameters(), self.exp.train.lr,
                              self.exp.train.weight_decay)
         return TrainState.create(self.model.train(), opt)
+
+    def _forward_model(self) -> Optional[nn.Module]:
+        """The ``DistributedDataParallel`` wrapper the step calls (made once:
+        each wrapper hooks the parameters), or None without a process group."""
+        if not self.distributed:
+            return None
+        if self._ddp is None:
+            from torch.nn.parallel import DistributedDataParallel
+
+            ids = [self.device.index] if self.device.type == "cuda" else None
+            # a replaced context leaves the character encoder without a
+            # gradient, and the CTC head without its loss weight; every other
+            # step uses every parameter, and DDP then skips the graph walk
+            u = self.exp.unet
+            unused = u.style_replace_context or (u.ocr_head and self.exp.train.ctc_weight <= 0)
+            self._ddp = DistributedDataParallel(self.model, device_ids=ids,
+                                                find_unused_parameters=bool(unused))
+            self._control = dist.new_group(backend="gloo")
+        return self._ddp
+
+    def _should_stop(self) -> bool:
+        """Rank 0's stop flag, on every process."""
+        if not self.distributed:
+            return self.stop.should_stop()
+        flag = torch.tensor([int(self.stop.should_stop()) if self.rank == 0 else 0])
+        dist.broadcast(flag, 0, group=self._control)
+        return bool(flag.item())
+
+    def _global_mean(self, t: torch.Tensor) -> torch.Tensor:
+        """The mean of ``t`` over the processes (``t`` itself in one)."""
+        if not self.distributed:
+            return t
+        t = t.clone()
+        dist.all_reduce(t)
+        return t / self.world
 
     def _to_device(self, a) -> torch.Tensor:
         t = torch.from_numpy(a)
@@ -136,7 +215,9 @@ class Trainer:
             log.info("resumed from step %d (epoch %d, %d batches into it)",
                      state.step, start_epoch, skip_batches)
 
-        step_fn = make_train_step(self.schedule, self.exp, self.encode_fn)
+        step_fn = make_train_step(self.schedule, self.exp, self.encode_fn,
+                                  forward=self._forward_model(), rows=self.rows,
+                                  world=self.world)
         history = []
         stopped = False
         self.epoch_seconds = []
@@ -148,10 +229,11 @@ class Trainer:
             losses = []
             for bi, batch in enumerate(epoch_batches(
                 self.dataset, bs, epoch=epoch, seed=tcfg.seed, map_fn=self._device_batch,
+                rows=self.rows,
             )):
                 if epoch == start_epoch and bi < skip_batches:
                     continue  # replay the interrupted epoch's permutation
-                if self.stop.should_stop():
+                if self._should_stop():
                     log.info("stop flag raised; finishing at epoch %d", epoch)
                     stopped = True
                     break
@@ -164,18 +246,24 @@ class Trainer:
                 self.timer.tick()
                 if state.step % max(tcfg.log_every, 1) == 0:
                     keys = sorted(metrics)
-                    vals = torch.stack([metrics[k] for k in keys]).tolist()
-                    self.metrics.log(state.step, **dict(zip(keys, vals)),
-                                     step_time=self.timer.step_time_ema or 0.0)
+                    vals = self._global_mean(torch.stack([metrics[k] for k in keys])).tolist()
+                    if self.metrics is not None:
+                        self.metrics.log(state.step, **dict(zip(keys, vals)),
+                                         step_time=self.timer.step_time_ema or 0.0)
             if losses:
-                mean_loss = torch.stack(losses).mean().item()  # the epoch's one sync
+                # the epoch's one sync
+                mean_loss = self._global_mean(torch.stack(losses).mean()).item()
                 history.append(mean_loss)
                 self.epoch_seconds.append((time.time() - t0, len(losses)))
                 log.info("epoch %d: loss %.4f (%d steps, %.1fs)",
                          epoch, mean_loss, len(losses), time.time() - t0)
-            if stopped or (epoch + 1) % tcfg.ckpt_every_epochs == 0 or epoch == epochs - 1:
+            save = stopped or (epoch + 1) % tcfg.ckpt_every_epochs == 0 or epoch == epochs - 1
+            if save and self.rank == 0:
                 self.ckpt.save(state.step, state, {"loss": history[-1] if history else 0.0})
-            if self.preview_fn is not None and (epoch + 1) % tcfg.ckpt_every_epochs == 0:
+            if save and self.distributed:
+                dist.barrier(group=self._control)  # the checkpoint is on disk for every rank
+            if (self.preview_fn is not None and self.rank == 0
+                    and (epoch + 1) % tcfg.ckpt_every_epochs == 0):
                 imgs = self.preview_fn(state, epoch)
                 if imgs is not None:
                     self.metrics.log_images(state.step, "preview", imgs)

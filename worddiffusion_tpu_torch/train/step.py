@@ -9,7 +9,8 @@ handed in, which is how the parity tests feed JAX's draws to the port.
 Batch dict layout (``data.loader``, staged on the device):
   ``latent``  [B, 8, 32, 4] float32 — VAE latents, already * 0.18215
               (or ``image`` [B, H, W, 3] float32 in [-1, 1], encoded by
-              the step's ``encode_fn``)
+              the step's ``encode_fn``, or itself x0 in pixel space:
+              ``exp.data.latent`` False)
   ``context`` [B, L] int64 char ids
   ``writer``  [B] int64 dense writer index
   ``phosc``   [B, P] int64 PHOSC ids (``use_phosc`` models)
@@ -71,11 +72,17 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 def draw_step(schedule: NoiseSchedule, exp: Experiment, latent: torch.Tensor,
-              generator: torch.Generator) -> StepDraws:
-    """t, noise and the CFG keep flag, in that order, on the latent's device."""
-    b, dev = latent.shape[0], latent.device
+              generator: torch.Generator, rows: Optional[slice] = None,
+              world: int = 1) -> StepDraws:
+    """t, noise and the CFG keep flag, in that order, on the latent's device.
+    Under data parallelism (``world`` processes, this one holding ``rows`` of
+    the global batch) every process draws the global batch's t and noise and
+    keeps its rows, so that the step is the one-process step."""
+    b, dev = latent.shape[0] * world, latent.device
     t = sample_timesteps(schedule, b, generator, dev)
-    noise = torch.randn(latent.shape, generator=generator, device=dev)
+    noise = torch.randn((b,) + tuple(latent.shape[1:]), generator=generator, device=dev)
+    if rows is not None:
+        t, noise = t[rows], noise[rows]
     keep = None
     if exp.train.cfg_drop_prob > 0:
         u = torch.rand((), generator=generator, device=dev)
@@ -102,7 +109,8 @@ def loss_fn(model, schedule: NoiseSchedule, exp: Experiment, batch: dict,
     out = model(x_t, draws.t, batch["context"], batch["writer"], phosc_ids=batch.get("phosc"),
                 writer_mask=writer_mask, style_vec=batch.get("style_vec"),
                 char_images=batch.get("char_images"), cond_latents=cond_latents)
-    eps, ocr_logits = out if exp.unet.ocr_head else (out, None)
+    out = out if isinstance(out, tuple) else (out,)  # (eps[, logits][, maps])
+    eps, ocr_logits = out[0], (out[1] if exp.unet.ocr_head else None)
     mse = (eps.float() - draws.noise).square().mean()
     metrics = {"mse": mse.detach()}
     loss = mse
@@ -118,7 +126,8 @@ def loss_fn(model, schedule: NoiseSchedule, exp: Experiment, batch: dict,
 
 
 def make_train_step(schedule: NoiseSchedule, exp: Experiment,
-                    encode_fn: Optional[Callable] = None):
+                    encode_fn: Optional[Callable] = None, forward: Optional[Callable] = None,
+                    rows: Optional[slice] = None, world: int = 1):
     """-> ``train_step(state, batch, draws=None) -> metrics``; updates
     ``state`` in place. Without ``draws`` the step draws its own from
     ``step_generator(exp.train.seed, state.step)``.
@@ -126,23 +135,41 @@ def make_train_step(schedule: NoiseSchedule, exp: Experiment,
     A batch of images (``image`` [B, H, W, 3] in [-1, 1], no ``latent``)
     is first encoded by ``encode_fn(images, generator) -> latent`` under
     no_grad, with the step's generator (the posterior sample's noise is
-    its first draw), so a resumed run stays bitwise the uninterrupted one."""
+    its first draw), so a resumed run stays bitwise the uninterrupted one.
+    In pixel space (``exp.data.latent`` False) the image is x0 itself.
+
+    Data parallelism: ``forward`` is the module the loss calls (the
+    ``DistributedDataParallel`` wrapper of ``state.model``, whose backward
+    averages the gradients over the processes), and the batch is this
+    process's ``rows`` of a global batch of ``world`` times its size; the
+    draws are the global batch's (``draw_step``), so the mean of the
+    processes' losses is the global batch's loss."""
     tcfg = exp.train
 
     def train_step(state: TrainState, batch: dict, draws: Optional[StepDraws] = None):
         gen = None
+        if "latent" not in batch and not exp.data.latent:
+            batch = {**batch, "latent": batch["image"]}
         if "latent" not in batch:
             if encode_fn is None:
                 raise ValueError("a batch of images needs the train step's encode_fn (the VAE)")
             gen = step_generator(tcfg.seed, state.step, batch["image"].device)
             with torch.no_grad():
-                batch = {**batch, "latent": encode_fn(batch["image"], gen)}
+                if world > 1:  # the global batch's posterior noise, this process's rows
+                    img = batch["image"]
+                    shape = (img.shape[0] * world, img.shape[1] // 8, img.shape[2] // 8,
+                             exp.vae.latent_channels)
+                    noise = torch.randn(shape, generator=gen, device=img.device)[rows]
+                    lat = encode_fn(img, gen, noise=noise)
+                else:
+                    lat = encode_fn(batch["image"], gen)
+                batch = {**batch, "latent": lat}
         if draws is None:
             if gen is None:
                 gen = step_generator(tcfg.seed, state.step, batch["latent"].device)
-            draws = draw_step(schedule, exp, batch["latent"], gen)
+            draws = draw_step(schedule, exp, batch["latent"], gen, rows, world)
         state.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = loss_fn(state.model, schedule, exp, batch, draws)
+        loss, metrics = loss_fn(forward or state.model, schedule, exp, batch, draws)
         loss.backward()
         for p in state.model.parameters():
             if p.grad is None:  # unused by this config (a replaced context): AdamW

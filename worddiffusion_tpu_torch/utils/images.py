@@ -166,6 +166,23 @@ def crop_whitespace(img: np.ndarray) -> np.ndarray:
     return img[ys.min() : ys.max() + 1, xs.min() : xs.max() + 1]
 
 
+def center_on_canvas(
+    imgs: np.ndarray, height: int, width: int, border_value: float = 0.0
+) -> np.ndarray:
+    """[B, h, w, C] float -> centered on [B, height, width, C] canvas
+    (crop if larger), like the reference tensor_centered call."""
+    b, h, w, c = imgs.shape
+    out = np.full((b, height, width, c), border_value, imgs.dtype)
+    sh = max(0, (h - height) // 2)
+    sw = max(0, (w - width) // 2)
+    ch = min(h, height)
+    cw = min(w, width)
+    dh = (height - ch) // 2
+    dw = (width - cw) // 2
+    out[:, dh : dh + ch, dw : dw + cw] = imgs[:, sh : sh + ch, sw : sw + cw]
+    return out
+
+
 def regen_filename(image_id: str, writer: str | int, word: str) -> str:
     """``{img}_{writer}_{word}.png`` naming of the regeneration output."""
     stem = os.path.splitext(image_id)[0]

@@ -1,13 +1,16 @@
-# Copy of worddiffusion_tpu/utils/metrics.py (MetricsLogger and StepTimer): the port imports nothing of the JAX package.
+# Copy of worddiffusion_tpu/utils/metrics.py (MetricsLogger and StepTimer; trace on torch.profiler): the port imports nothing of the JAX package.
 """Metrics logging — first-class observability.
 
 - ``MetricsLogger``: JSONL metrics stream + optional wandb mirror
   (wandb is used only if importable AND explicitly enabled),
-- ``StepTimer``: wall-clock per-step timing with EMA.
+- ``StepTimer``: wall-clock per-step timing with EMA,
+- ``trace``: a ``torch.profiler`` trace of a region (the JAX package's
+  ``jax.profiler`` trace), written as a Chrome trace into ``log_dir``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -72,3 +75,23 @@ class StepTimer:
             )
         self._last = now
         return dt
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """``torch.profiler`` trace over a region, the host and, where there is
+    one, the card; on exit the Chrome trace ``<log_dir>/trace.json``::
+
+        with trace('/tmp/trace'):
+            run_step()
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
