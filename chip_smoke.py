@@ -14,10 +14,14 @@ Phases, each of which must pass (any failure exits non-zero):
    and 65, with errors, bitwise repeatability, the cluster size and median
    times; then
    the bare GEGLU FFN (B.2, ``ops.ffn.fused_geglu_ffn``, the same kernel
-   without LayerNorm and residual; no path calls it, as in JAX) at
-   M = 16*256, 128*256 and a ragged 1000: against its plain version,
-   bitwise repeatability, kernel / plain / bound times, and its Function's
-   output and five gradients against plain autograd at M = 128*256.
+   without LayerNorm and residual; the tensor-parallel FF's local FFN) at
+   its tensor-parallel caller's M = 128*256 and 128*64 with the local inner
+   widths 640 and 320 (a model axis of 2 and 4) and at the preview's 3*256
+   and 3*64 with 640, then at M = 16*256, 128*256 and a
+   ragged 1000 at the full 1280: against its plain version, bitwise
+   repeatability, its cluster size, kernel / plain / bound times, and its
+   Function's output and five gradients against plain autograd at
+   M = 128*256.
 4. whole UNet: one full-width ``iam`` UNet call with every kernel against
    the all-plain UNet (``use_pallas_ffn=False``, the plain attention and
    the plain GroupNorm / GN -> SiLU -> conv swapped in) on the same weights
@@ -58,7 +62,9 @@ Phases, each of which must pass (any failure exits non-zero):
    version at the shapes of every path (4 heads of 80; regeneration B=16
    and training B=128; Nq 256 and 64; Nk 42 for ``iam``, Nq for the
    self-attention and 42 + 769 = 811 for the cross-attention of
-   ``iam_phosc``), a ragged case and a 2048-key context, with errors,
+   ``iam_phosc``), a ragged case and a 2048-key context, and the
+   tensor-parallel path's local heads (2 at training B=128 and at the
+   preview's B=3, 1 at B=128; Nq 256 and 64, Nk 42), with errors,
    bitwise repeatability, and kernel / plain / ``scaled_dot_product_attention``
    / bound times and the kernel's share of its bound; the Function's output
    and gradients against plain autograd at B=128, Nq=256, Nk=811.
@@ -210,6 +216,22 @@ Phases, each of which must pass (any failure exits non-zero):
 27. host data on this machine's CPU: each augmentation op's and
    ``resize_dataset``'s ms per 64x256 image, the PNG reader's; whether
    ``torchvision.io`` (a JPEG decoder) is present.
+28. tensor parallel: ``torchrun --nproc_per_node 2`` of this script
+   (``--tp-worker``) on the one card with ``WD_TORCH_SHARE_CARD=1`` (gloo on
+   CUDA tensors), each rank the train CLI at ``--preset iam --mesh_data 1
+   --mesh_model 2``, B=128 on phase 25's short corpus: 2 epochs of 3 steps
+   and a DDIM-2 preview, per rank 4 B.2 (inner 640) and 8 B.4 (2 heads)
+   launches a step and a preview call, no B.1 or B.3, B.5 / B.6 and the
+   Function backwards as one process; every replicated parameter (and the
+   EMA's) bitwise equal across the ranks; a max_steps stop after 3 steps
+   and a bitwise resume; 3 profiled steps (4 ``ffn_kernel``, 8
+   ``attention_kernel``, no B.3 kernel by name); ``iam_fold`` for an epoch
+   (8 B.8 launches a step on the gathered projections); then the same
+   ``iam`` run in this process: the gathered parameters against it, each
+   tensor on its own (TP_KEY_REL; TP_ZERO_GRAD_DIFF for the tensors whose
+   gradient is 0 in exact arithmetic) and every entry (TP_P99_DIFF), and its
+   s/step. Every B.2 and B.4 shape a rank launched must be one that phases
+   3 and 8 held against plain. Any rank's failure fails the phase.
 
 Every training phase counts 9 B.5 and 12 B.6 launches and Function
 backward calls per step (13 B.5 with the CTC aux head), and 9 * 50 + 4 and
@@ -269,6 +291,15 @@ ATTN_SHAPES = (
     (TRAIN_B, 256, 811), (TRAIN_B, 64, 811),
     (2, 40, 13),                                              # ragged Nq and Nk
     (4, 256, 2048),                                           # a long context
+)
+PREVIEW_N = 3  # the training preview's probe words (``WordSampler.sample_preview``)
+# (B, H, Nq, Nk) of the attentions on a model rank of the tensor-parallel
+# path: iam training and its preview at 2 local heads (a model axis of 2),
+# and training at 1 (an axis of 4)
+TP_ATTN_SHAPES = (
+    (TRAIN_B, HEADS // 2, 256, 42), (TRAIN_B, HEADS // 2, 64, 42),
+    (PREVIEW_N, HEADS // 2, 256, 42), (PREVIEW_N, HEADS // 2, 64, 42),
+    (TRAIN_B, HEADS // 4, 256, 42), (TRAIN_B, HEADS // 4, 64, 42),
 )
 # bf16 output: the kernel and the plain version differ in the order of the
 # fp32 sums, which can move one bf16 rounding of p or of the output (0.4%
@@ -477,19 +508,20 @@ def reset_counts() -> None:
     groupnorm.launches = groupnorm.bwd_calls = gn_conv.launches = gn_conv.bwd_calls = 0
 
 
-def attn_inputs(b: int, nq: int, nk: int, seed: int):
-    """Seeded bf16 q, k, v [b, 4, n, 80] with unit-scale entries, as the
+def attn_inputs(b: int, nq: int, nk: int, seed: int, heads: int = HEADS):
+    """Seeded bf16 q, k, v [b, heads, n, 80] with unit-scale entries, as the
     projections of LayerNormed tokens give them."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    return tuple(torch.randn(b, HEADS, n, D_HEAD, generator=g).bfloat16().cuda()
+    return tuple(torch.randn(b, heads, n, D_HEAD, generator=g).bfloat16().cuda()
                  for n in (nq, nk, nk))
 
 
 def phase8_attention(smi: str) -> dict:
     """The attention kernel against its plain version at every path's
-    shapes, and the Function against plain autograd."""
+    shapes (the tensor-parallel path's local heads too), and the Function
+    against plain autograd."""
     import torch
     import torch.nn.functional as F
 
@@ -497,8 +529,9 @@ def phase8_attention(smi: str) -> dict:
 
     scale = D_HEAD ** -0.5
     rows = []
-    for i, (b, nq, nk) in enumerate(ATTN_SHAPES):
-        q, k, v = attn_inputs(b, nq, nk, seed=30 + i)
+    shapes = [(b, HEADS, nq, nk) for b, nq, nk in ATTN_SHAPES] + list(TP_ATTN_SHAPES)
+    for i, (b, h, nq, nk) in enumerate(shapes):
+        q, k, v = attn_inputs(b, nq, nk, seed=30 + i, heads=h)
         got = attention.fused_attention(q, k, v, scale)
         again = attention.fused_attention(q, k, v, scale)
         torch.cuda.synchronize()
@@ -509,18 +542,19 @@ def phase8_attention(smi: str) -> dict:
         plain_ms = launch_ms(lambda: attention.attention_reference(q, k, v, scale))
         # the yardstick: one PyTorch call of the same function (the port never calls it)
         library_ms = launch_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-        bound_ms, bound_by = bound(nbytes(q, k, v, got), 4 * b * HEADS * nq * nk * D_HEAD)
-        tile = attention._lib().wd_attention_tile_rows(b * HEADS, nq)
-        log(f"attention B={b} H={HEADS} Nq={nq} Nk={nk} D={D_HEAD} ({tile}-query tile): "
+        bound_ms, bound_by = bound(nbytes(q, k, v, got), 4 * b * h * nq * nk * D_HEAD)
+        tile = attention._lib().wd_attention_tile_rows(b * h, nq)
+        log(f"attention B={b} H={h} Nq={nq} Nk={nk} D={D_HEAD} ({tile}-query tile): "
             f"max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {ATTN_REL_TOL}); bitwise "
             f"repeatable {torch.equal(got, again)}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
             f"scaled_dot_product_attention {library_ms:.4f} ms bound {bound_ms:.4f} ms "
             f"({bound_by}), kernel at {bound_ms / ms:.1%} of the bound [{smi}]")
+        at = (b, h, nq, nk)
         assert got.shape == want.shape and got.dtype == torch.bfloat16
-        assert bool(torch.isfinite(got.float()).all()), f"non-finite attention at {b, nq, nk}"
-        assert torch.equal(got, again), f"attention differs between two runs at {b, nq, nk}"
-        assert rel <= ATTN_REL_TOL, f"attention kernel disagrees at {b, nq, nk}: rel {rel}"
-        rows.append(dict(b=b, nq=nq, nk=nk, err=err, ms=ms, plain_ms=plain_ms,
+        assert bool(torch.isfinite(got.float()).all()), f"non-finite attention at {at}"
+        assert torch.equal(got, again), f"attention differs between two runs at {at}"
+        assert rel <= ATTN_REL_TOL, f"attention kernel disagrees at {at}: rel {rel}"
+        rows.append(dict(b=b, h=h, nq=nq, nk=nk, err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
 
     # The Function (kernel forward, plain-recompute backward) against plain
@@ -555,7 +589,7 @@ def phase8_attention(smi: str) -> dict:
     return dict(rows=rows, pair_ms=pair_ms, plain_pair_ms=plain_pair_ms)
 
 
-def ffn_inputs(m: int, seed: int):
+def ffn_inputs(m: int, seed: int, inner: int = INNER):
     """Seeded inputs scaled like the model's: a unit-scale residual stream,
     LayerNorm affine near identity, lecun-scaled weights."""
     import torch
@@ -564,8 +598,8 @@ def ffn_inputs(m: int, seed: int):
     r = lambda *s: torch.randn(*s, generator=g)
     t = dict(
         x=r(m, D).bfloat16(), gamma=1 + 0.1 * r(D), beta=0.1 * r(D),
-        w1=(r(D, 2 * INNER) / D ** 0.5).bfloat16(), b1=0.02 * r(2 * INNER),
-        w2=(r(INNER, D) / INNER ** 0.5).bfloat16(), b2=0.02 * r(D),
+        w1=(r(D, 2 * inner) / D ** 0.5).bfloat16(), b1=0.02 * r(2 * inner),
+        w2=(r(inner, D) / inner ** 0.5).bfloat16(), b2=0.02 * r(D),
     )
     return {k: v.cuda() for k, v in t.items()}
 
@@ -581,21 +615,29 @@ def bwd_inputs(m: int, seed: int):
     return {k: t[k] for k in ("x", "dy", "gamma", "beta", "w1", "b1", "w2")}
 
 
-GEGLU_SHAPES = (B * 256, TRAIN_B * 256, 1000)  # B.2: no path calls it; B.1's sites
+# (M, inner) of B.2: its tensor-parallel caller's local widths (a model axis
+# of 2 and of 4 cut 1280 to 640 and 320) at the training M of the
+# full-resolution and middle blocks and (axis 2) at the preview's, then B.1's
+# sites at the full width
+GEGLU_SHAPES = ((TRAIN_B * 256, INNER // 2), (TRAIN_B * 256, INNER // 4),
+                (TRAIN_B * 64, INNER // 2), (TRAIN_B * 64, INNER // 4),
+                (PREVIEW_N * 256, INNER // 2), (PREVIEW_N * 64, INNER // 2),
+                (B * 256, INNER), (TRAIN_B * 256, INNER), (1000, INNER))
 
 
 def phase3_geglu(smi: str) -> dict:
     """B.2, the bare GEGLU FFN launch mode, against its plain version at
-    B.1's shapes, bitwise repeatability, and its Function (kernel forward,
-    autograd of the unfused composition backward, as JAX's custom_vjp)
-    against plain autograd of that composition: output and five gradients."""
+    the tensor-parallel FF's local widths and at B.1's shapes, bitwise
+    repeatability, and its Function (kernel forward, autograd of the
+    unfused composition backward, as JAX's custom_vjp) against plain
+    autograd of that composition: output and five gradients."""
     import torch
 
     from worddiffusion_tpu_torch.ops import ffn
 
     rows = []
-    for i, m in enumerate(GEGLU_SHAPES):
-        t = ffn_inputs(m, seed=40 + i)
+    for i, (m, inner) in enumerate(GEGLU_SHAPES):
+        t = ffn_inputs(m, seed=40 + i, inner=inner)
         a = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"])
         n0 = ffn.geglu_launches
         got, again = ffn.fused_geglu_ffn(*a), ffn.fused_geglu_ffn(*a)
@@ -606,8 +648,9 @@ def phase3_geglu(smi: str) -> dict:
         rel = err / want.float().abs().max().item()
         ms = launch_ms(lambda: ffn.fused_geglu_ffn(*a))
         plain_ms = launch_ms(lambda: ffn.geglu_ffn_reference(*a))
-        bound_ms, bound_by = bound(nbytes(*a, got), 6 * m * D * INNER)
-        log(f"geglu_ffn (B.2) M={m} d={D} inner={INNER}: max_abs_err {err:.6g} max_rel_err "
+        bound_ms, bound_by = bound(nbytes(*a, got), 6 * m * D * inner)
+        log(f"geglu_ffn (B.2) M={m} d={D} inner={inner} (cluster of "
+            f"{ffn.cluster_size(m, inner)}): max_abs_err {err:.6g} max_rel_err "
             f"{rel:.6g} (tol {FFN_REL_TOL}); bitwise repeatable {torch.equal(got, again)}; kernel "
             f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), "
             f"{bound_ms / ms:.1%} of the bound [{smi}]")
@@ -615,8 +658,8 @@ def phase3_geglu(smi: str) -> dict:
         assert bool(torch.isfinite(got.float()).all()), f"non-finite B.2 output at M={m}"
         assert torch.equal(got, again), f"B.2 differs between two runs at M={m}"
         assert rel <= FFN_REL_TOL, f"B.2 kernel disagrees with plain at M={m}: rel {rel}"
-        rows.append(dict(m=m, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by))
+        rows.append(dict(m=m, inner=inner, err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by))
         del t, a, got, again, want
 
     m = TRAIN_B * 256
@@ -1123,9 +1166,11 @@ def device_profile(fn, calls: int = 5) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    # device events, less the optimizer step's annotation range (not a kernel)
+    # device events, less the annotation ranges of the optimizer step and of
+    # gloo's collectives (not kernels: the latter spans its host copies)
     events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA
-                     and not e.name.startswith("Optimizer.")), key=lambda e: e.time_range.start)
+                     and not e.name.startswith(("Optimizer.", "gloo:"))),
+                    key=lambda e: e.time_range.start)
     marks = [i for i, e in enumerate(events) if "spin_kernel" in e.name]
     assert len(marks) == 1, f"{len(marks)} marker kernels profiled"
     kernels = events[marks[0] + 1:]
@@ -1143,10 +1188,11 @@ def device_profile(fn, calls: int = 5) -> dict:
 BWD_KERNELS = ("ffn_bwd_rows_kernel", "ffn_bwd_weights_kernel", "ffn_bwd_reduce_kernel")
 
 
-def step_profile(smi: str, trainer, label: str, folds: int) -> dict:
+def step_profile(smi: str, trainer, label: str, folds: int, ffn_bwd: int = 4) -> dict:
     """Three training steps of ``trainer``'s step function on a fresh state
     and its first batch, profiled: the step's device busy time and kernels,
-    and per step 4 B.1 kernels, 4 of each of B.3's, ``folds`` fold kernels
+    and per step 4 FF forward kernels (B.1, or B.2 under a model axis: one
+    kernel template), ``ffn_bwd`` of each of B.3's, ``folds`` fold kernels
     and 8 - ``folds`` attention kernels, by name."""
     import torch
 
@@ -1167,7 +1213,7 @@ def step_profile(smi: str, trainer, label: str, folds: int) -> dict:
     counts["attention_kernel"] -= counts["fold_attention_kernel"]
     log(f"train step {label} B={TRAIN_B}: profiled device busy {d['busy_ms']:.3f} ms, "
         f"{d['kernels']:.0f} kernels a step; by name {counts}; top kernels (ms) {d['top']} [{smi}]")
-    want = {"ffn_kernel": 4, **{k: 4 for k in BWD_KERNELS}, "fold_attention_kernel": folds,
+    want = {"ffn_kernel": 4, **{k: ffn_bwd for k in BWD_KERNELS}, "fold_attention_kernel": folds,
             "attention_kernel": 8 - folds}
     assert counts == want, (counts, want)
     return dict(busy_ms=d["busy_ms"], kernels=d["kernels"])
@@ -3363,6 +3409,15 @@ def words_of(samples) -> list:
 DDP_WORKER_FLAG = "--ddp-worker"
 
 
+def free_port() -> int:
+    """A port on localhost that is free now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def ddp_worker(work: str) -> int:
     """Phase 25's process (started by ``phase25_ddp`` with torchrun's
     environment): the train CLI under ``DistributedDataParallel`` at world
@@ -3410,19 +3465,14 @@ def phase25_ddp(smi: str, work: str, corpus: tuple[str, str]) -> dict:
     1 on NCCL, in a process started with torchrun's environment: kernel
     counts a step under DDP's hooks, a bitwise resume, and the result against
     the same run without a process group."""
-    import socket
-
     import torch
 
     from worddiffusion_tpu_torch.cli import train as train_cli
 
     ddp = os.path.join(work, "ddp")
     short_corpus(ddp, corpus)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
     env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
-               MASTER_ADDR="localhost", MASTER_PORT=str(port))
+               MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, os.path.abspath(__file__), DDP_WORKER_FLAG, ddp],
                          env=env, capture_output=True, text=True, timeout=600)
@@ -3601,6 +3651,264 @@ def phase27_host(smi: str, work: str) -> dict:
     return dict(host_ms=host_ms, png_ms=png_ms, jpeg=jpeg)
 
 
+TP_WORKER_FLAG = "--tp-worker"
+# Parameters after 6 AdamW steps at lr 1e-4, the tensor-parallel run against
+# the one-process run. Each rank's partials are summed in another order than
+# one matmul's (bf16 products, fp32 sums), so gradients differ by rounding;
+# AdamW's first updates are about lr * sign(g), so the few entries whose
+# gradient is rounding noise on both sides may move by up to 2 lr a step
+# however close the gradients. Each tensor on its own: the norm of its
+# difference within a tenth of the norm of its movement in the one-process
+# run (a tensor whose gradient is wrong, not rounded, differs by about its
+# movement), and a tensor that run left unmoved equal; over all entries, 99%
+# within lr / 10.
+TP_KEY_REL, TP_P99_DIFF = 0.1, 1e-4 / 10
+# Tensors whose gradient is 0 in exact arithmetic, so rounding noise in both
+# runs, which AdamW turns into steps of up to lr: the character encoder's key
+# bias (adding q . b to every score of a row leaves its softmax unchanged).
+# Each entry within 2 lr x 6 steps of the one-process run.
+TP_ZERO_GRAD, TP_ZERO_GRAD_DIFF = ("word_emb.attention.linear_key.bias",), 2 * 1e-4 * 6
+
+
+def tp_param_check(got: dict, ref: dict, init: dict) -> dict:
+    """``got`` (the gathered tensor-parallel state dict) against ``ref``
+    (the one-process run's) after both moved from ``init``: per tensor
+    |got - ref| / |ref - init| (2-norms), the largest three with their keys,
+    the tensors left unmoved and the 99th percentile of every entry's
+    |got - ref|. Raises AssertionError on a tensor beyond TP_KEY_REL, an
+    unmoved tensor that differs, a TP_ZERO_GRAD entry beyond
+    TP_ZERO_GRAD_DIFF, or a 99th percentile beyond TP_P99_DIFF."""
+    import torch
+
+    assert set(got) == set(ref) and all(got[k].shape == v.shape for k, v in ref.items())
+    ratios, unmoved, zero_grad = {}, [], {}
+    for k, v in ref.items():
+        moved = (v.float() - init[k].float()).norm().item()
+        diff = (got[k].float() - v.float()).norm().item()
+        if k in TP_ZERO_GRAD:
+            zero_grad[k] = ((got[k].float() - v.float()).abs().max().item(), diff / moved)
+            assert zero_grad[k][0] <= TP_ZERO_GRAD_DIFF, (k, zero_grad[k])
+        elif moved == 0:
+            unmoved.append(k)
+            assert diff == 0, f"{k}: the one-process run left it, tensor parallel moved it"
+        else:
+            ratios[k] = diff / moved
+    diffs = torch.cat([(got[k].float() - v.float()).abs().flatten() for k, v in ref.items()])
+    p99 = diffs.sort().values[int(0.99 * (diffs.numel() - 1))].item()
+    worst = sorted(ratios.items(), key=lambda kv: -kv[1])[:3]
+    bad = {k: r for k, r in ratios.items() if not r <= TP_KEY_REL}
+    assert not bad, f"tensors beyond {TP_KEY_REL} of their movement: {bad}"
+    assert p99 <= TP_P99_DIFF, p99
+    return dict(worst=worst, unmoved=unmoved, p99=p99, max_diff=diffs.max().item(),
+                tensors=len(ratios), zero_grad=zero_grad)
+
+
+def record_shapes() -> dict:
+    """Records the (M, inner) of every B.2 launch and the (B, H, Nq, Nk) of
+    every B.4 launch from now on in this process (a wrapper around each
+    launch function that notes the shape and calls it)."""
+    from worddiffusion_tpu_torch.ops import attention, ffn
+
+    seen = {"geglu": set(), "attn": set()}
+
+    def wrap(fn, key, shape_of):
+        def launch(*a, **kw):
+            seen[key].add(shape_of(*a))
+            return fn(*a, **kw)
+        return launch
+
+    ffn._launch_geglu = wrap(ffn._launch_geglu, "geglu",
+                             lambda x, w1, b1, w2, b2: (x.numel() // x.shape[-1], w2.shape[-1]))
+    attention._launch = wrap(attention._launch, "attn",
+                             lambda q, k, *rest: (*q.shape[:3], k.shape[2]))
+    return seen
+
+
+def run_group(cmd, env, timeout: float):
+    """``cmd`` as the leader of a new process group: -> (returncode, stdout,
+    stderr); on the time limit every process of the group is killed, then
+    it raises."""
+    import signal
+
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise
+    return proc.returncode, out, err
+
+
+def tp_worker(work: str) -> int:
+    """Phase 28's process, one of two that ``torchrun`` starts on the one card
+    (gloo on CUDA tensors, ``WD_TORCH_SHARE_CARD=1``): the train CLI at
+    ``--mesh_data 1 --mesh_model 2``, counts set to 0 before and read after
+    the run; every replicated parameter against the other rank's; the
+    gathered parameters for the parent; a max_steps stop and a resume; three
+    profiled steps; then ``iam_fold`` under the same axis. Writes what it saw
+    as JSON, one file a rank."""
+    import torch
+    import torch.distributed as dist
+
+    from worddiffusion_tpu_torch.cli import train as train_cli
+    from worddiffusion_tpu_torch.ops import attention
+    from worddiffusion_tpu_torch.parallel.mesh import param_spec
+    from worddiffusion_tpu_torch.parallel.tensor import gather_state_dict
+
+    gt, cache = os.path.join(work, "train.filter27"), os.path.join(work, "latents.npz")
+    shapes = record_shapes()
+
+    def args(save: str, *extra: str, preset: str = "iam"):
+        return train_cli.build_parser().parse_args([
+            "--preset", preset, "--gt_train", gt, "--latent_cache", cache, "--mesh_data", "1",
+            "--mesh_model", "2", "--batch_size", str(TRAIN_B), "--epochs", "2",
+            "--ckpt_every_epochs", "2", "--preview_ddim", "2", "--save_path",
+            os.path.join(work, save), "--seed", "0", "--device", "cuda", *extra])
+
+    trainer = train_cli.build(args("tp_run"))
+    mesh = trainer.mesh
+    assert dist.get_backend() == "gloo" and (mesh.data, mesh.model) == (1, 2)
+    reset_counts()
+    state = trainer.run(epochs=2)
+    torch.cuda.synchronize()
+    counts = dict(all_counts(), attn_bwd=attention.bwd_calls, gn_bwd=norm_counts()[2],
+                  conv_bwd=norm_counts()[3])
+
+    replicated = 0
+    for sd in (state.model.state_dict(), state.ema.state_dict()):
+        for k, v in sd.items():
+            if param_spec(k) is None:
+                parts = [torch.empty_like(v) for _ in range(2)]
+                dist.all_gather(parts, v.contiguous(), group=mesh.model_group)
+                assert torch.equal(parts[0], parts[1]), f"replicated {k} differs across ranks"
+                replicated += 1
+    full = gather_state_dict(state.model.state_dict(), mesh)
+    if mesh.rank == 0:
+        torch.save(full, os.path.join(work, "tp_final.pt"))
+    part = train_cli.build(args("tp_resume")).run(epochs=2, max_steps=3)
+    resumed = train_cli.build(args("tp_resume", "--loadPrev", "1")).run(epochs=2, resume=True)
+    diff = max((a - b).abs().max().item() for a, b in
+               zip(resumed.model.parameters(), state.model.parameters()))
+    prof = step_profile("", trainer, "tp", folds=0, ffn_bwd=0)
+
+    register_fold_preset()
+    fold = train_cli.build(args("tp_fold", "--epochs", "1", preset="iam_fold"))
+    reset_counts()
+    fold_state = fold.run(epochs=1)
+    torch.cuda.synchronize()
+    fold_counts = dict(all_counts(), attn_bwd=attention.bwd_calls)
+    assert fold_state.step == 3 and all(bool(torch.isfinite(p).all())
+                                        for p in fold_state.model.parameters())
+    with open(os.path.join(work, f"tp_rank{mesh.rank}.json"), "w") as f:
+        json.dump(dict(counts=counts, steps=state.step, part=part.step, resumed=resumed.step,
+                       resume_diff=diff, replicated=replicated, busy_ms=prof["busy_ms"],
+                       kernels=prof["kernels"], epoch_seconds=trainer.epoch_seconds,
+                       fold_counts=fold_counts, fold_seconds=fold.epoch_seconds,
+                       shapes={k: sorted(v) for k, v in shapes.items()}), f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase28_tp(smi: str, work: str, corpus: tuple[str, str]) -> dict:
+    """Phase 28: tensor parallel (``--mesh_model 2``) on the one card: two
+    ranks under ``torchrun`` with gloo on CUDA tensors; per rank and step
+    4 B.2 (the local GEGLU FFN, inner 640) and 8 B.4 (2 local heads), no
+    B.1 or B.3; B.5 / B.6 as one process; a bitwise resume; the replicated
+    parameters bitwise equal across the ranks; the gathered parameters
+    against the same run in this process; s/step against it; ``iam_fold``
+    under the same axis (B.8 on gathered weights)."""
+    import torch
+
+    from worddiffusion_tpu_torch.cli import train as train_cli
+    from worddiffusion_tpu_torch.parallel.distributed import SHARE_CARD_ENV
+
+    tp = os.path.join(work, "tp")
+    short_corpus(tp, corpus)
+    env = dict(os.environ, OMP_NUM_THREADS="4", **{SHARE_CARD_ENV: "1"})
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    rc, out, err = run_group(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+         "--master_addr", "localhost", "--master_port", str(free_port()), os.path.abspath(__file__),
+         TP_WORKER_FLAG, tp], env, timeout=600)
+    seconds = time.perf_counter() - t0
+    log(out[-3000:])
+    assert rc == 0, f"a tensor-parallel rank failed (torchrun exit {rc}): {err[-6000:]}"
+    got = []
+    for r in range(2):
+        with open(os.path.join(tp, f"tp_rank{r}.json")) as f:
+            got.append(json.load(f))
+    steps, preview = 6, 2
+    c = got[0]["counts"]
+    want = dict(ffn=0, ffn_bwd=0, geglu=4 * (steps + preview), attn=8 * (steps + preview),
+                gn=UNET_NORMS[0] * (steps + preview) + DECODER_NORMS[0],
+                conv=UNET_NORMS[1] * (steps + preview) + DECODER_NORMS[1],
+                attn_bwd=8 * steps, gn_bwd=UNET_NORMS[0] * steps, conv_bwd=UNET_NORMS[1] * steps,
+                fold=0, fold_b7=0, probs=0)
+    fold_steps = 3
+    want_fold = dict(ffn=0, ffn_bwd=0, geglu=4 * fold_steps, attn=0, fold=8 * fold_steps,
+                     fold_b7=0, gn=UNET_NORMS[0] * fold_steps, conv=UNET_NORMS[1] * fold_steps,
+                     probs=0, attn_bwd=0)
+    s_per_step = [g["epoch_seconds"][1][0] / g["epoch_seconds"][1][1] for g in got]
+    log(f"tensor parallel, 2 ranks on one card (gloo, torchrun, {seconds:.1f} s with the "
+        f"processes' start): {got[0]['steps']} steps, launches per rank {c}; iam_fold "
+        f"{got[0]['fold_counts']}; resume {got[0]['part']} -> {got[0]['resumed']}, max param "
+        f"diff {max(g['resume_diff'] for g in got):.6g}; {got[0]['replicated']} replicated "
+        f"tensors bitwise equal across the ranks; s/step {s_per_step}; profiled device busy "
+        f"per rank {[round(g['busy_ms'], 3) for g in got]} ms a step, "
+        f"{got[0]['kernels']:.0f} kernels [{smi}]")
+    # every shape B.2 and B.4 took on a rank was held against plain in
+    # phases 3 and 8
+    held = dict(geglu=set(GEGLU_SHAPES),
+                attn={(b, HEADS, nq, nk) for b, nq, nk in ATTN_SHAPES} | set(TP_ATTN_SHAPES))
+    log(f"tensor parallel shapes: B.2 (M, inner) {got[0]['shapes']['geglu']}, B.4 (B, H, Nq, "
+        f"Nk) {got[0]['shapes']['attn']}")
+    for g in got:
+        assert g["steps"] == steps and g["counts"] == want, (g["counts"], want)
+        assert g["fold_counts"] == want_fold, (g["fold_counts"], want_fold)
+        assert g["part"] == 3 and g["resumed"] == steps and g["resume_diff"] == 0, g
+        assert g["replicated"] > 0
+        for key, seen in g["shapes"].items():
+            unheld = {tuple(x) for x in seen} - held[key]
+            assert seen and not unheld, f"{key} ran at shapes no phase checked: {unheld}"
+
+    # the same run in this process, without a process group
+    plain = train_cli.build(train_cli.build_parser().parse_args([
+        "--preset", "iam", "--gt_train", os.path.join(tp, "train.filter27"), "--latent_cache",
+        os.path.join(tp, "latents.npz"), "--batch_size", str(TRAIN_B), "--epochs", "2",
+        "--ckpt_every_epochs", "2", "--preview_ddim", "2", "--save_path",
+        os.path.join(work, "tp_plain"), "--seed", "0", "--device", "cuda"]))
+    init = {k: v.clone() for k, v in plain.init_state().model.state_dict().items()}
+    ref = plain.run(epochs=2).model.state_dict()
+    tp_sd = torch.load(os.path.join(tp, "tp_final.pt"), map_location="cuda")
+    moved = torch.cat([(v - init[k]).abs().flatten() for k, v in ref.items()])
+    one_s = plain.epoch_seconds[1][0] / plain.epoch_seconds[1][1]
+    log(f"tensor parallel vs one process, 6 steps: the one-process run moved the parameters by "
+        f"up to {moved.max().item():.6g} (median {moved.median().item():.6g}); s/step tp "
+        f"{s_per_step} vs one process {one_s:.4f} [{smi}]")
+    assert moved.median().item() > TP_P99_DIFF  # the steps moved most parameters
+    check = tp_param_check(tp_sd, ref, init)
+    log(f"tensor parallel vs one process, per tensor |diff| / |movement| (tol {TP_KEY_REL:g}) "
+        f"over {check['tensors']} moved tensors, the largest "
+        + ", ".join(f"{k} {r:.6g}" for k, r in check["worst"])
+        + "; gradient 0 in exact arithmetic (max |diff| per entry, tol "
+        f"{TP_ZERO_GRAD_DIFF:g}; |diff| / |movement|): "
+        + ", ".join(f"{k} {d:.6g} {r:.6g}" for k, (d, r) in check["zero_grad"].items())
+        + f"; {len(check['unmoved'])} unmoved tensors equal; every entry: max |diff| "
+        f"{check['max_diff']:.6g}, 99th percentile {check['p99']:.6g} (tol {TP_P99_DIFF:g}) "
+        f"[{smi}]")
+    fold_s = got[0]["fold_seconds"][0][0] / got[0]["fold_seconds"][0][1]
+    return dict(counts={k: v for k, v in c.items() if k in want},
+                fold_counts={k: v for k, v in got[0]["fold_counts"].items() if k in want_fold},
+                s_per_step=s_per_step, one_s_per_step=one_s, busy_ms=[g["busy_ms"] for g in got],
+                kernels=got[0]["kernels"], max_diff=check["max_diff"], p99=check["p99"],
+                worst_key_rel=check["worst"][0][1],
+                fold_s_per_step=fold_s, seconds=seconds)
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -3610,6 +3918,8 @@ def main(argv=None) -> int:
         return 1
     if argv[:1] == [DDP_WORKER_FLAG]:
         return ddp_worker(argv[1])
+    if argv[:1] == [TP_WORKER_FLAG]:
+        return tp_worker(argv[1])
 
     from worddiffusion_tpu_torch.cli import regenerate as cli
     from worddiffusion_tpu_torch.generate.sample import phosc_ids
@@ -3737,7 +4047,7 @@ def main(argv=None) -> int:
     # training M, B.2 against B.1 at the training M
     gns = [r for r in norms["gn_rows"] if r["shape"][0] == B][:5]
     f_train = next(r for r in bwd["fwd_rows"] if r["m"] == TRAIN_B * 256)
-    g_train = next(r for r in geglu["rows"] if r["m"] == TRAIN_B * 256)
+    g_train = next(r for r in geglu["rows"] if r["m"] == TRAIN_B * 256 and r["inner"] == INNER)
     b3 = next(r for r in bwd["rows"] if r["m"] == TRAIN_B * 256)
     f8 = {(r["b"], r["n"]): r for r in fold["rows"]}
     log(f"redesign targets [{smi}]: ln_geglu_ffn_bwd M={TRAIN_B * 256} {b3['ms']:.4f} ms "
@@ -3878,7 +4188,8 @@ def main(argv=None) -> int:
         f"{px['train']['s_per_step']:.4f} s/step (peak {px['train']['peak_bytes'] / 2 ** 30:.3f} "
         f"GiB); higan call B={B} {new['higan']['latent_ms']:.3f} ms, train "
         f"{new['higan']['s_per_step']:.4f} s/step; ddp world size 1 "
-        f"{new['ddp']['s_per_step']:.4f} s/step"
+        f"{new['ddp']['s_per_step']:.4f} s/step; tensor parallel (2 ranks, one card) "
+        f"{new['tp']['s_per_step']} s/step vs {new['tp']['one_s_per_step']:.4f} in one process"
         + f"; whole run {time.perf_counter() - T_START:.1f} s")
 
     def entry(name, source, replaces, paths_, rows, row, library_ms):
@@ -3918,8 +4229,8 @@ def main(argv=None) -> int:
         entry("gn_silu_conv3x3", "worddiffusion_tpu_torch/csrc/gn_silu_conv3x3.cu",
               "bench_kernels/resblock_pallas.py:39", conv_paths,
               norms["conv_rows"] + rows_px["conv_rows"], conv_row, conv_row["library_ms"]),
-        # B.2: no path of the port (or of the JAX package) calls it; each
-        # path's run read its count and asserted 0
+        # B.2: the tensor-parallel FF's local GEGLU FFN (train_tp, at inner
+        # 640); every other path read its count and asserted 0
         entry("geglu_ffn", "worddiffusion_tpu_torch/csrc/ln_geglu_ffn.cu",
               "worddiffusion_tpu/ops/ffn_pallas.py:41", geglu_paths,
               geglu["rows"], geglu["rows"][0], None),
@@ -3943,6 +4254,8 @@ def new_phases(smi: str, work: str, cli, gt: str, words, corpus) -> dict:
     stamp("26")
     out["host"] = phase27_host(smi, work)
     stamp("27")
+    out["tp"] = phase28_tp(smi, work, corpus)
+    stamp("28")
     px, hg = out["pixel"], out["higan"]
     out["paths"] = {
         "regenerate_pixel": dict(zip(("ffn", "attn", "fold", "gn", "conv"),
@@ -3954,6 +4267,7 @@ def new_phases(smi: str, work: str, cli, gt: str, words, corpus) -> dict:
         "train_higan": hg["train"],
         "regenerate_higan": dict(hg["regen"], ffn_bwd=0), "sample_higan": hg["sample"],
         "train_ddp": out["ddp"]["counts"], **out["maps"]["paths"],
+        "train_tp": out["tp"]["counts"], "train_tp_iam_fold": out["tp"]["fold_counts"],
     }
     return out
 

@@ -269,24 +269,30 @@ def test_single_process_without_torchrun_env(monkeypatch):
     assert mesh.shard_batch(batch, m)["x"].tolist() == list(range(8))
 
 
-@pytest.mark.parametrize("cfg,error,match", [
-    (MeshConfig(data=2), ValueError, "--mesh_data 2 must equal the number of processes"),
-    (MeshConfig(model=2), NotImplementedError, "tensor-parallel.*slice 13"),
+@pytest.mark.parametrize("make,error,match", [
+    (lambda: mesh.make_mesh(MeshConfig(data=2)), ValueError,
+     "--mesh_data 2 must equal the number of processes"),
+    # a rank beyond the cards without the card-sharing setting (no card here)
+    (lambda: distributed.card_index(1), RuntimeError, "has no card of its own.*"
+     + distributed.SHARE_CARD_ENV),
+    (lambda: mesh.make_mesh(MeshConfig(model=2)), ValueError,
+     "--mesh_data -1 x --mesh_model 2 must equal the number of processes"),
 ])
-def test_mesh_refusals(cfg, error, match):
+def test_mesh_refusals(make, error, match, monkeypatch):
+    monkeypatch.delenv(distributed.SHARE_CARD_ENV, raising=False)
     with pytest.raises(error, match=match):
-        mesh.make_mesh(cfg)
+        make()
 
 
 def test_shard_rows_of_a_global_batch():
-    """Rank r holds rows [r*B/n, (r+1)*B/n), as JAX's P('data') places them."""
+    """Data rank r holds rows [r*B/n, (r+1)*B/n), as JAX's P('data') places them."""
     parts = [mesh.shard_batch({"x": torch.arange(8), "y": np.arange(8) * 2, "s": 3},
-                              mesh.Mesh(data=4, rank=r)) for r in range(4)]
+                              mesh.Mesh(data=4, data_rank=r)) for r in range(4)]
     assert [p["x"].tolist() for p in parts] == [[0, 1], [2, 3], [4, 5], [6, 7]]
     assert [p["y"].tolist() for p in parts] == [[0, 2], [4, 6], [8, 10], [12, 14]]
     assert all(p["s"] == 3 for p in parts)
     with pytest.raises(ValueError, match="not divisible"):
-        mesh.shard_rows(6, mesh.Mesh(data=4, rank=0))
+        mesh.shard_rows(6, mesh.Mesh(data=4))
 
 
 REGEN_WORKER = textwrap.dedent('''

@@ -95,6 +95,36 @@ def test_geglu_kernel_matches_plain(cuda, m):
     assert err <= 1e-2 * want.float().abs().max().item(), err
 
 
+@pytest.mark.parametrize("inner", [INNER // 2, INNER // 4])
+def test_geglu_kernel_takes_the_tensor_parallel_widths(cuda, inner):
+    """B.2 at the local inner widths of the tensor-parallel FF (a model axis
+    of 2 and 4 over the 1280-wide FF) and the training M: within 1% of max
+    |out| of the plain version, bitwise repeatable."""
+    t = chip_smoke.ffn_inputs(128 * 256, seed=6, inner=inner)
+    a = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"])
+    got, again = ffn.fused_geglu_ffn(*a), ffn.fused_geglu_ffn(*a)
+    want = ffn.geglu_ffn_reference(*a)
+    assert torch.equal(got, again)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item(), err
+
+
+def test_tp_ffn_sublayer_raises_on_a_width_b2_does_not_take(cuda):
+    """A model axis of 8 leaves each rank 160 of the 1280 inner columns, not
+    a multiple of B.2's 64-column chunk: the tensor-parallel FF sub-layer
+    raises (before any collective) instead of running a plain FFN."""
+    from worddiffusion_tpu_torch.parallel.mesh import Mesh
+
+    t = _inputs(64, cuda)
+    w1 = t["w1"].t().float().reshape(2, 8, INNER // 8, D)[:, 0].reshape(-1, D)
+    w2 = t["w2"].t().float()[:, :INNER // 8].contiguous()
+    before = ffn.geglu_launches
+    with pytest.raises(ValueError, match="inner % 64 == 0"):
+        ffn.ffn_sublayer_tp(t["x"], t["gamma"], t["beta"], w1, t["b1"], w2, t["b2"],
+                            Mesh(data=1, model=8))
+    assert ffn.geglu_launches == before
+
+
 @pytest.mark.parametrize("bad", ["fp32_x", "strided_x", "b2_dtype", "narrow_inner", "wide_d"])
 def test_geglu_kernel_refuses_what_it_does_not_take(cuda, bad):
     t = _inputs(64, cuda)

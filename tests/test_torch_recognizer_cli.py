@@ -208,7 +208,7 @@ def test_train_phosc_refuses_what_it_cannot_honour(corpus, tmp_path, flags, erro
 
 
 def test_non_png_crop_raises(corpus, tmp_path):
-    """A JPEG crop (a PNG name, JPEG bytes) raises, naming slice 13 (JPEG
+    """A JPEG crop (a PNG name, JPEG bytes) raises, naming slice 14 (JPEG
     decoding is queued there, ROADMAP A.9); PNGs of every kind are read
     (tests/test_torch_augment.py)."""
     crops = tmp_path / "crops"
@@ -216,7 +216,7 @@ def test_non_png_crop_raises(corpus, tmp_path):
     (crops / "a01-000u-00.png").write_bytes(b"\xff\xd8\xff\xe0 a JPEG")
     gt = tmp_path / "one.filter27"
     gt.write_text("000,a01-000u-00 the\n")
-    with pytest.raises(NotImplementedError, match="slice 13"):
+    with pytest.raises(NotImplementedError, match="slice 14"):
         phosc_cli.main(["--train_csv", str(gt), "--valid_csv", str(gt), "--image_dir",
                         str(crops), "--batch_size", "1", "--save_dir", str(tmp_path / "r"),
                         "--device", "cpu"])

@@ -391,14 +391,15 @@ def test_train_cli_runs_from_latent_cache(tmp_path, monkeypatch):
     (["--mesh_data", "2"], ValueError, "--mesh_data 2 must equal the number of processes"),
     (["--latent", "0"], None, "pixel"),
     (["--vae_ckpt", "vae_dir"], NotImplementedError, "jax_vae_to_torch"),
-    (["--mesh_model", "2"], NotImplementedError, "mesh.*slice 13"),
+    (["--mesh_model", "3"], ValueError, "num_heads 4 is not divisible by the model axis 3"),
     (["--wrdChrWrStyl", "1"], SystemExit, "--style_dict"),
 ])
 def test_train_cli_refuses_unported(tmp_path, monkeypatch, flags, error, match):
     """The train CLI's refusals, and (``error`` None) flags whose paths it
     runs: each builds and takes a step at a tiny preset, ``match`` naming what it checks -- the augmentation in the
     dataset (rendered crops, encoded by the VAE), the HiGAN+ denoiser, pixel
-    space (3 channels, no VAE). A mesh above one process needs torchrun."""
+    space (3 channels, no VAE). A mesh above one process needs torchrun; a
+    model axis that does not divide the heads is refused before it starts."""
     gt, cache = _cli_files(tmp_path, n=2)
     argv = ["--gt_train", gt, "--latent_cache", cache, "--device", "cpu",
             "--save_path", str(tmp_path / "run")] + flags

@@ -16,7 +16,7 @@ some filename words embed, or a ``phosc_zsl_note``). The word of each image
 is parsed from the regeneration name ``{img}_{writer}_{word}.png``.
 
 Where the port differs: images are PNGs (``data.png``), and a ``.jpg``
-raises (JPEG decoding waits for slice 13 of the port, ROADMAP A.9); ``--ocr_ckpt``
+raises (JPEG decoding waits for slice 14 of the port, ROADMAP A.9); ``--ocr_ckpt``
 (orbax) exits naming the offline conversion, and ``--ocr_pt`` (the
 recognizer's state dict, as ``cli.train_ocr`` writes it) takes its place;
 the random-init style encoder, fp32 in JAX, runs fp32 on the CPU and bf16 on

@@ -40,8 +40,12 @@ when combined with a conditioning its generator does not take;
 Data parallel: ``torchrun --nproc_per_node N -m worddiffusion_tpu_torch.cli.train
 --mesh_data N ...`` runs one process per card (``parallel.distributed``);
 ``--batch_size`` is the global batch, each process steps on its rows of
-it, and the run equals the one-process run on the global batch.
-``--mesh_model > 1`` (tensor parallel) raises naming slice 13 of the port.
+it, and the run equals the one-process run on the global batch. Tensor
+parallel: ``torchrun --nproc_per_node D*M ... --mesh_data D --mesh_model M``
+shards each transformer block's heads and FF width over M ranks
+(``parallel.tensor``); checkpoints are written whole. Ranks that share a
+card (more processes than cards) need ``WD_TORCH_SHARE_CARD=1`` (gloo on
+the card; ``parallel.distributed``).
 """
 
 from __future__ import annotations
@@ -106,15 +110,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    from .. import NEXT_SLICE
-
     if args.vae_ckpt:
         raise NotImplementedError("--vae_ckpt is not ported to PyTorch yet: an orbax VAE "
                                   "checkpoint is not readable here; convert it with "
                                   "models.convert.jax_vae_to_torch (--vae_pt)")
-    if args.mesh_model > 1:
-        raise NotImplementedError(f"a tensor-parallel mesh (--mesh_model {args.mesh_model}) is "
-                                  f"not ported yet; it waits for {NEXT_SLICE}")
     if not args.latent and args.latent_cache:
         raise SystemExit("--latent 0 trains on the images: a --latent_cache holds VAE latents")
     if args.wrdChrWrStyl and not args.style_dict and not args.allow_random_style:
@@ -243,6 +242,7 @@ def _preview_fn(args, exp, vae, device):
     import torch
 
     from ..generate.sample import WordSampler
+    from ..parallel.distributed import process_index
     from ..utils.images import save_image_grid
 
     def preview_fn(state, epoch):
@@ -250,7 +250,8 @@ def _preview_fn(args, exp, vae, device):
                               ddim_steps=args.preview_ddim)
         gen = torch.Generator(device=device).manual_seed(epoch)
         imgs = sampler.sample_preview(gen).astype(np.float32) / 255.0
-        save_image_grid(imgs, f"{args.save_path}/images/epoch_{epoch:04d}.png", ncol=3)
+        if process_index() == 0:  # a sharded EMA samples on its whole model group
+            save_image_grid(imgs, f"{args.save_path}/images/epoch_{epoch:04d}.png", ncol=3)
         return imgs
 
     return preview_fn
@@ -264,22 +265,27 @@ def build(args):
     from ..data.dataset import LatentLookup, WordImageDataset
     from ..data.tokenizer import Tokenizer
     from ..models.vae import encode_to_latent
+    from ..models.unet import check_model_axis
     from ..parallel.distributed import initialize_multihost, local_device
     from ..parallel.mesh import make_mesh
     from ..train.loop import Trainer
 
     _refuse_unported(args)
+    exp = experiment_from_args(args)
+    if not args.hiGanArch:  # before any process starts waiting on the others
+        check_model_axis(exp.unet, args.mesh_model)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
     # one process per card under torchrun (no-op otherwise), before any card use
     rank, world = initialize_multihost(args.device)
     device = local_device(args.device)
-    exp = experiment_from_args(args)
-    make_mesh(exp.mesh)  # --mesh_data must be the world size
+    mesh = make_mesh(exp.mesh)  # --mesh_data x --mesh_model must be the world size
     if world > 1:
-        logging.info("data parallel: process %d of %d, %d rows of each batch of %d", rank,
-                     world, exp.data.batch_size // world, exp.data.batch_size)
+        logging.info("process %d of %d: data rank %d of %d (%d rows of each batch of %d), "
+                     "model rank %d of %d", rank, world, mesh.data_rank, mesh.data,
+                     exp.data.batch_size // mesh.data, exp.data.batch_size, mesh.model_rank,
+                     mesh.model)
     model = None
     if args.hiGanArch:
         from ..models.higan import HiGanDenoiserAdapter, refuse_conditioning
@@ -315,7 +321,7 @@ def build(args):
     # the JAX CLI writes no previews of a HiGAN+ run
     preview = None if args.hiGanArch else _preview_fn(args, exp, vae, device)
     return Trainer(exp, dataset, preview_fn=preview, device=device, encode_fn=encode_fn,
-                   model=model)
+                   model=model, mesh=mesh)
 
 
 def main(argv=None):

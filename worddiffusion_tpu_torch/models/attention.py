@@ -15,6 +15,17 @@ folds its q projection into K and its out projection into V
 fp32 maps ``softmax(q kᵀ · scale)`` in ``attn_map`` (``ops.attention.
 attention_with_probs``: the maps kernel beside B.4 on the card), and none
 folds, as in the JAX model.
+
+Under a model axis above 1 (``mesh``, tensor parallel; ``parallel.mesh``
+names the layout) each attention holds ``heads/M`` heads (its rows of
+``to_q``/``to_k``/``to_v`` and its columns of ``to_out.0``) and runs B.4 on
+them; its out-projection is a partial sum, which ``parallel.tensor.
+reduce_from_model`` adds up before the bias; the FF sub-layer is
+``ops.ffn.ffn_sublayer_tp`` (B.2 on the rank's slice of the inner width). A
+folded attention gathers the four projections (``gather_from_model``) and
+runs B.8 whole on every rank: B.8 adds the out bias and the residual
+inside, so a partial cannot be summed after it (JAX's partitioner likewise
+gathers sharded weights ahead of a Pallas call).
 """
 
 from __future__ import annotations
@@ -26,7 +37,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import attention, ffn, fold_attention
+from ..parallel.tensor import copy_to_model, gather_from_model, reduce_from_model
 from .layers import Conv2D, Dense, FeedForward, GroupNorm32
+
+
+def _model_axis(mesh):
+    """``mesh`` where its model axis is above 1, else None."""
+    return mesh if mesh is not None and mesh.model > 1 else None
 
 
 def build_folds(context, wq, wk, wv, wo, heads, dim_head, dtype):
@@ -66,11 +83,16 @@ class CrossAttention(nn.Module):
     """Multi-head attention: no q/k/v biases, output projection with bias
     (reference keys ``to_q``, ``to_k``, ``to_v``, ``to_out.0``; the
     reference's Dropout after ``to_out.0`` is inert in JAX, which applies it
-    with ``deterministic=True``, and is left out)."""
+    with ``deterministic=True``, and is left out). Under a model axis of M
+    (``mesh``) it holds heads/M of ``heads`` (``self.heads``) and
+    ``partial`` gives its share of the output."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None,
-                 heads: int = 8, dim_head: int = 64):
+                 heads: int = 8, dim_head: int = 64, mesh=None):
         super().__init__()
+        self.mesh = _model_axis(mesh)
+        self.all_heads = heads  # over every model rank
+        heads //= 1 if self.mesh is None else self.mesh.model
         inner = heads * dim_head
         context_dim = context_dim or query_dim
         self.heads, self.dim_head = heads, dim_head
@@ -81,7 +103,8 @@ class CrossAttention(nn.Module):
         self.sow_attn = False
         self.attn_map: Optional[torch.Tensor] = None  # [B, H, Nq, Nk] fp32 with sow_attn
 
-    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def _heads(self, x: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
+        """The heads' outputs [B, Nq, H*D], before the out-projection."""
         context = x if context is None else context
         b, nq, _ = x.shape
         nk = context.shape[1]
@@ -97,13 +120,25 @@ class CrossAttention(nn.Module):
             out, self.attn_map = attention.attention_with_probs(q, k, v, d ** -0.5)
         else:
             out = attention.fused_attention(q, k, v, d ** -0.5)
-        return self.to_out(out.transpose(1, 2).reshape(b, nq, h * d))
+        return out.transpose(1, 2).reshape(b, nq, h * d)
+
+    def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return self.to_out(self._heads(x, context))
+
+    def partial(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """This rank's heads through its columns of ``to_out.0``, without
+        the bias: its share of the output under a model axis."""
+        out = self._heads(x, context)
+        return F.linear(out, self.to_out[0].weight.to(out.dtype))
 
     def folds(self, context: torch.Tensor, dtype: torch.dtype):
-        """This attention's per-sample folds for ``context``, per head:
+        """This attention's per-sample folds for ``context``, per head, over
+        every head (the projections gathered under a model axis):
         wt4 [B, H, C, L] and vw4 [B, H, L, C] in ``dtype``."""
-        return build_folds(context, self.to_q.weight, self.to_k.weight, self.to_v.weight,
-                           self.to_out[0].weight, self.heads, self.dim_head, dtype)
+        ws = (self.to_q.weight, self.to_k.weight, self.to_v.weight, self.to_out[0].weight)
+        if self.mesh is not None:
+            ws = gather_from_model(self.mesh, ws, (0, 0, 0, 1))
+        return build_folds(context, *ws, self.all_heads, self.dim_head, dtype)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -121,23 +156,27 @@ class BasicTransformerBlock(nn.Module):
     ``heads * L <= dim`` runs, with its pre-norm and residual, as one
     ``FoldAttention`` call on its folds (JAX ``CrossAttention._folded``'s
     gate); any other attention (self-attention, PHOSC's long contexts)
-    takes the unfolded path."""
+    takes the unfolded path.
+
+    ``mesh``: a model axis above 1 shards the attentions by heads and the FF
+    by its inner width (tensor parallel; the module docstring)."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int,
                  context_dim: Optional[int] = None,
                  attn1_cross: bool = True, dtype: torch.dtype = torch.bfloat16,
                  use_pallas_ffn: Optional[bool] = None, fold_context: bool = False,
-                 sow_attn: bool = False):
+                 sow_attn: bool = False, mesh=None):
         super().__init__()
+        self.mesh = _model_axis(mesh)
         self.dtype = dtype
         self.attn1_cross = attn1_cross
         self.use_pallas_ffn = use_pallas_ffn
         self.fold_context = fold_context and not sow_attn
         self.attn1 = CrossAttention(dim, context_dim if attn1_cross else None,
-                                    n_heads, d_head)
-        self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head)
+                                    n_heads, d_head, mesh)
+        self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head, mesh)
         self.attn1.sow_attn = self.attn2.sow_attn = sow_attn
-        self.ff = FeedForward(dim)
+        self.ff = FeedForward(dim, model=1 if self.mesh is None else self.mesh.model)
         if not attn1_cross:
             self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
@@ -152,11 +191,22 @@ class BasicTransformerBlock(nn.Module):
                 context: Optional[torch.Tensor]) -> torch.Tensor:
         """x + attn(norm(x), context), folded where the gate allows."""
         fold = self.fold_context and context is not None
-        if fold and attn.heads * context.shape[1] <= x.shape[-1]:
+        if fold and attn.all_heads * context.shape[1] <= x.shape[-1]:
             wt4, vw4 = attn.folds(context, self.dtype)
             return fold_attention.fold_attention_heads(x, wt4, vw4, norm.weight, norm.bias,
                                                        attn.to_out[0].bias, norm.eps)
-        return x + attn(self._norm(norm, x), context)
+        if self.mesh is None:
+            return x + attn(self._norm(norm, x), context)
+        # column-parallel q/k/v: the replicated inputs' gradients are summed
+        # over the model ranks; row-parallel to_out: the partials are summed,
+        # then the bias is added once
+        h = self._norm(norm, x)
+        if context is None:
+            h = copy_to_model(self.mesh, h)
+        else:
+            h, context = copy_to_model(self.mesh, h, context)
+        out = reduce_from_model(self.mesh, attn.partial(h, context))
+        return x + (out + attn.to_out[0].bias.float()).to(x.dtype)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.attn1_cross:
@@ -166,6 +216,10 @@ class BasicTransformerBlock(nn.Module):
             x = self._attend(self.attn1, self.norm1, x, None)
             x = self._attend(self.attn2, self.norm2, x, context)
         proj, out, norm = self.ff.net[0].proj, self.ff.net[2], self.norm3
+        if self.mesh is not None:
+            return ffn.ffn_sublayer_tp(x, norm.weight, norm.bias, proj.weight, proj.bias,
+                                       out.weight, out.bias, self.mesh, norm.eps,
+                                       kernel=self.use_pallas_ffn is not False)
         if self.use_pallas_ffn is False:
             return ffn.ln_geglu_ffn_reference(x, norm.weight, norm.bias, proj.weight.t(),
                                               proj.bias, out.weight.t(), out.bias, norm.eps)
@@ -177,20 +231,22 @@ class BasicTransformerBlock(nn.Module):
 
 class SpatialTransformer(nn.Module):
     """GroupNorm -> 1x1 conv in -> token transformer -> 1x1 zero conv out
-    + residual. NCHW in and out; [B, H*W, C] tokens inside."""
+    + residual. NCHW in and out; [B, H*W, C] tokens inside. ``mesh``: the
+    blocks' model axis (the convs and the norm are replicated)."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
                  context_dim: Optional[int] = None,
                  attn1_cross: bool = True, dtype: torch.dtype = torch.bfloat16,
                  use_pallas_ffn: Optional[bool] = None, fold_context: bool = False,
-                 sow_attn: bool = False):
+                 sow_attn: bool = False, mesh=None):
         super().__init__()
         inner = n_heads * d_head
         self.norm = GroupNorm32(in_channels)
         self.proj_in = Conv2D(in_channels, inner, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, n_heads, d_head, context_dim,
-                                  attn1_cross, dtype, use_pallas_ffn, fold_context, sow_attn)
+                                  attn1_cross, dtype, use_pallas_ffn, fold_context, sow_attn,
+                                  mesh)
             for _ in range(depth)
         ])
         self.proj_out = Conv2D(inner, in_channels, 1, zero_init=True)

@@ -18,6 +18,9 @@ the dict to ``state_dict_to_torch``.
 Layout transforms: conv HWIO -> OIHW, 1-D conv [k, in, out] ->
 [out, in, k], Dense [in, out] -> Linear [out, in], norm ``scale`` ->
 ``weight``.
+
+A tensor-parallel UNet (``UNet(cfg, mesh)``) takes the full state dict
+these give, cut for its rank: ``parallel.tensor.shard_state_dict``.
 """
 
 from __future__ import annotations

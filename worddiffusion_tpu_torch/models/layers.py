@@ -118,12 +118,17 @@ class FeedForward(nn.Module):
     ``net.0.proj``, ``net.2``). ``BasicTransformerBlock`` runs the whole
     FF sub-layer through ``ops.ffn`` over these parameters. ``net.1`` is
     the reference's Dropout slot, a no-op: JAX applies it with
-    ``deterministic=True`` in training and in sampling."""
+    ``deterministic=True`` in training and in sampling. Under a model axis
+    of ``model`` ranks it holds a rank's 1/model of the inner width
+    (``parallel.mesh.param_spec``) but the whole, replicated, in-projection
+    bias, as JAX's layout has it (``ops.ffn.ffn_sublayer_tp`` cuts it)."""
 
-    def __init__(self, dim: int, mult: int = 4):
+    def __init__(self, dim: int, mult: int = 4, model: int = 1):
         super().__init__()
-        inner = dim * mult
+        inner = dim * mult // model
         self.net = nn.Sequential(GEGLU(dim, inner), nn.Identity(), Dense(inner, dim))
+        if model > 1:
+            self.net[0].proj.bias = nn.Parameter(torch.zeros(2 * inner * model))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.net(x)

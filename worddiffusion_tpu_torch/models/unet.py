@@ -22,6 +22,13 @@ appends a dict of every attention's fp32 maps [B, H, Nq, Nk] to the output,
 keyed by the JAX model's ``intermediates`` paths (``in_0_0_attn/block_0/
 attn1/attn``); on the card they come from the maps kernel beside B.4.
 ``fast_softmax`` raises ``NotImplementedError``.
+
+Tensor parallel (``mesh`` with a model axis M above 1): the
+SpatialTransformers' blocks hold 1/M of each attention's heads and of each
+FF's inner width (``models.attention``; the layout is
+``parallel.mesh.param_spec``); everything else is replicated, as JAX's
+patterns leave it. ``check_model_axis`` refuses a config whose heads or FF
+inner width the axis does not divide.
 """
 
 from __future__ import annotations
@@ -112,16 +119,40 @@ def _same_pad(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
     return F.pad(x, pads)
 
 
+def check_model_axis(cfg: UNetConfig, model: int) -> None:
+    """Raise unless a model axis of ``model`` ranks divides the heads and the
+    FF inner width (4 x channels) of every level; the attention maps
+    (``return_attn``, an analysis forward) are taken in one process."""
+    if model <= 1:
+        return
+    if cfg.return_attn:
+        raise ValueError(f"return_attn needs the whole model in one process, not a model axis "
+                         f"of {model} (--mesh_model)")
+    if cfg.num_heads % model:
+        raise ValueError(f"num_heads {cfg.num_heads} is not divisible by the model axis {model} "
+                         "(--mesh_model): each model rank holds num_heads / model heads")
+    for mult in cfg.channel_mult:
+        inner = 4 * mult * cfg.model_channels
+        if inner % model:
+            raise ValueError(f"the FF inner width {inner} is not divisible by the model axis "
+                             f"{model} (--mesh_model)")
+
+
 class UNet(nn.Module):
     """forward(x_t [B,H,W,C], t [B], context_ids [B,L], writer_id [B], ...)
     -> eps-hat [B,H,W,C] fp32, and the CTC logits [T,B,K] fp32 after it
-    with ``ocr_head``. NHWC at the interface, like the JAX UNet."""
+    with ``ocr_head``. NHWC at the interface, like the JAX UNet.
 
-    def __init__(self, cfg: UNetConfig):
+    ``mesh`` (``parallel.mesh.Mesh``): with a model axis above 1, this
+    rank's shard of the tensor-parallel UNet (load it with
+    ``parallel.tensor.shard_state_dict`` of a full state dict)."""
+
+    def __init__(self, cfg: UNetConfig, mesh=None):
         super().__init__()
         for name, why in _UNPORTED_CONFIG.items():
             if getattr(cfg, name):
                 raise NotImplementedError(f"UNetConfig.{name} is not ported to PyTorch: {why}")
+        check_model_axis(cfg, 1 if mesh is None else mesh.model)
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
         mc = cfg.model_channels
@@ -138,7 +169,7 @@ class UNet(nn.Module):
             t = SpatialTransformer(
                 ch, cfg.num_heads, ch // cfg.num_heads, cfg.transformer_depth,
                 cfg.context_dim, cfg.attn1_cross, self.dtype,
-                cfg.use_pallas_ffn, bool(cfg.attn_fold_context), cfg.return_attn,
+                cfg.use_pallas_ffn, bool(cfg.attn_fold_context), cfg.return_attn, mesh,
             )
             for d, block in enumerate(t.transformer_blocks):
                 for a in ("attn1", "attn2"):

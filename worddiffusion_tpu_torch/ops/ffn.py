@@ -20,8 +20,11 @@ residual, is the port of ``ffn_pallas.py::fused_geglu_ffn`` (its kernel
 (``wd_geglu_ffn``), behind the Function ``GegluFFN`` and
 ``fused_geglu_ffn`` in the JAX layout; its plain version is
 ``geglu_ffn_reference``. As in JAX, its backward is autograd of the
-unfused composition ``geglu_ffn_xla_baseline``, and nothing on the
-port's paths calls it (nothing in the JAX package does either).
+unfused composition ``geglu_ffn_xla_baseline``. Its caller is the
+tensor-parallel FF sub-layer, ``ffn_sublayer_tp``: LayerNorm, then B.2 on
+this rank's slice of the inner width, then the sum over the model ranks
+and the residual (nothing in the JAX package calls B.2: its partitioning
+rule gathers the sharded weights ahead of B.1).
 
 ``launches``, ``bwd_launches`` and ``geglu_launches`` count kernel
 launches, so that a run can show that its main path went through the
@@ -37,6 +40,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel.tensor import copy_to_model, reduce_from_model
 from . import build
 
 launches = 0
@@ -113,6 +117,30 @@ class GegluFFN(torch.autograd.Function):
             leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             out = geglu_ffn_xla_baseline(*leaves)
             return torch.autograd.grad(out, leaves, dy)
+
+
+def ffn_sublayer_tp(x, gamma, beta, w1, b1, w2, b2, mesh, eps: float = 1e-5,
+                    kernel: bool = True):
+    """x + GEGLU-FFN(LayerNorm(x)) with the FF sharded over the model axis
+    of ``mesh`` (Megatron's layout), in parameter layout: w1 [2*inner/M, d]
+    this rank's rows of each GEGLU half (a_r, then gate_r), w2 [d, inner/M]
+    its columns; gamma, beta, the full b1 [2*inner] and b2 replicated.
+
+    The LayerNorm runs plain (the unfused LN JAX computes in XLA), then
+    ``copy_to_model``, then B.2 (``GegluFFN``: the kernel on a CUDA tensor;
+    with ``kernel`` False ``geglu_ffn_xla_baseline``) on the local slice with
+    a zero b2, then ``reduce_from_model`` (the fp32 sum of the partials), and
+    b2 and the residual in fp32. b1's local slice is cut after
+    ``copy_to_model``, so its gradient, one slice per rank, is summed to the
+    full one on every rank and the replicated b1 stays replicated."""
+    dt = x.dtype
+    h = F.layer_norm(x.float(), (x.shape[-1],), gamma, beta, eps).to(dt)
+    h, b1 = copy_to_model(mesh, h, b1)
+    b1 = b1.reshape(2, mesh.model, -1)[:, mesh.model_rank].reshape(-1)
+    zero = torch.zeros_like(b2)
+    fn = GegluFFN.apply if kernel else geglu_ffn_xla_baseline
+    partial = fn(h, w1.t(), b1, w2.t(), zero)
+    return (x.float() + (reduce_from_model(mesh, partial) + b2.float())).to(dt)
 
 
 def fused_geglu_ffn(x, w1, b1, w2, b2):

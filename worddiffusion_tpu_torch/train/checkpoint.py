@@ -8,6 +8,13 @@ regeneration CLI's ``--torch_ckpt``. Both are written with
 ``torch.save`` into a temporary directory that ``os.replace`` then
 moves into place, so a reader never sees half a checkpoint. The newest
 ``max_to_keep`` are kept.
+
+Under a model axis above 1 (tensor parallel) the model, the EMA and the
+optimizer's moments are gathered over the model group before the write, so
+a checkpoint has the one-process run's keys and shapes whatever the mesh
+(the regeneration and sampling CLIs read it unchanged), and ``restore``
+cuts it for this rank: a run resumes bitwise at the same mesh and loads at
+any other.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ from typing import Optional
 
 import torch
 
+from ..parallel.mesh import param_spec
+from ..parallel.tensor import gather_state_dict, shard, shard_state_dict
 from .state import TrainState
 
 STATE_FILE = "state.pt"
@@ -38,16 +47,20 @@ class CheckpointManager:
     def path(self, step: int, name: str = STATE_FILE) -> str:
         return os.path.join(self.directory, str(step), name)
 
-    def save(self, step: int, state: TrainState, metrics: Optional[dict] = None) -> None:
+    def save(self, step: int, state: TrainState, metrics: Optional[dict] = None,
+             mesh=None) -> None:
+        """Write ``state``. Under a model axis above 1 (``mesh``) every rank
+        of the model group calls it: the shards are gathered over the group
+        and its model rank 0 writes."""
+        full = gathered(state, mesh)
+        if mesh is not None and mesh.model_rank != 0:
+            return
         tmp = tempfile.mkdtemp(prefix=".tmp-", dir=self.directory)
         torch.save({
-            "step": int(state.step),
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "ema": state.ema.state_dict(),
+            "step": int(state.step), **full,
             "metrics": {k: float(v) for k, v in (metrics or {}).items()},
         }, os.path.join(tmp, STATE_FILE))
-        torch.save(state.ema.state_dict(), os.path.join(tmp, EMA_FILE))
+        torch.save(full["ema"], os.path.join(tmp, EMA_FILE))
         final = os.path.join(self.directory, str(step))
         if os.path.exists(final):
             shutil.rmtree(final)
@@ -59,14 +72,55 @@ class CheckpointManager:
         steps = self.steps()
         return steps[-1] if steps else None
 
-    def restore(self, state: TrainState, step: Optional[int] = None) -> TrainState:
-        """Loads the checkpoint into ``state`` in place and returns it."""
+    def restore(self, state: TrainState, step: Optional[int] = None, mesh=None) -> TrainState:
+        """Loads the checkpoint into ``state`` in place and returns it; under
+        a model axis above 1 (``mesh``), this rank's shard of it."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint in {self.directory}")
         ck = torch.load(self.path(step), map_location="cpu", weights_only=True)
-        state.model.load_state_dict(ck["model"])
-        state.ema.load_state_dict(ck["ema"])
-        state.optimizer.load_state_dict(ck["optimizer"])
+        model, ema, opt = ck["model"], ck["ema"], ck["optimizer"]
+        if mesh is not None and mesh.model > 1:
+            model, ema = shard_state_dict(model, mesh), shard_state_dict(ema, mesh)
+            opt = _optimizer_shards(opt, _names(state), mesh)
+        state.model.load_state_dict(model)
+        state.ema.load_state_dict(ema)
+        state.optimizer.load_state_dict(opt)
         state.step = int(ck["step"])
         return state
+
+
+def _names(state: TrainState) -> list[str]:
+    """The optimizer's parameter indices' state-dict keys (it was made over
+    ``state.model.parameters()``, in that order)."""
+    return [n for n, _ in state.model.named_parameters()]
+
+
+def _moment_spec(names: list[str]):
+    """The layout of an optimizer state entry keyed ``(index, name)``: its
+    parameter's, for a tensor of the parameter's shape."""
+    return lambda key: param_spec(names[key[0]])
+
+
+def _optimizer_shards(opt: dict, names: list[str], mesh) -> dict:
+    """A full optimizer state dict cut for this model rank."""
+    state = {i: {k: (shard(v, param_spec(names[i]), mesh.model, mesh.model_rank)
+                     if v.dim() else v) for k, v in st.items()}
+             for i, st in opt["state"].items()}
+    return {**opt, "state": state}
+
+
+def gathered(state: TrainState, mesh=None) -> dict:
+    """{model, optimizer, ema}: the state dicts, full. Under a model axis
+    above 1 a collective over the model group (its ranks each call it)."""
+    model, ema = state.model.state_dict(), state.ema.state_dict()
+    opt = state.optimizer.state_dict()
+    if mesh is None or mesh.model == 1:
+        return dict(model=model, optimizer=opt, ema=ema)
+    names = _names(state)
+    moments = {(i, k): v for i, st in opt["state"].items() for k, v in st.items() if v.dim()}
+    moments = gather_state_dict(moments, mesh, _moment_spec(names))
+    full_opt = {**opt, "state": {i: {k: moments.get((i, k), v) for k, v in st.items()}
+                                 for i, st in opt["state"].items()}}
+    return dict(model=gather_state_dict(model, mesh), optimizer=full_opt,
+                ema=gather_state_dict(ema, mesh))

@@ -8,12 +8,20 @@ with the frozen VAE (``encode_fn``), or, in pixel space
 (latents or images) are staged on the device by the prefetch worker.
 
 Data parallel (one process per card, ``parallel.distributed``): the model
-runs under ``DistributedDataParallel``, each process loads and steps on its
-rows of every global batch (``parallel.mesh.shard_rows``), and the step's
-draws are the global batch's, so an n-process step is the one-process step
-on the global batch (the JAX mesh step). Rank 0 alone writes checkpoints,
-EMA weights, previews and metrics, and reads the stop flag, which it
-broadcasts over a gloo group so that no step waits on the card for it.
+runs under ``DistributedDataParallel`` over the data group, each process
+loads and steps on its data rank's rows of every global batch
+(``parallel.mesh.shard_rows``), and the step's draws are the global
+batch's, so an n-process step is the one-process step on the global batch
+(the JAX mesh step). Tensor parallel (``exp.mesh.model`` M > 1): the UNet
+is built sharded (``UNet(cfg, mesh)``), from the one-process run's seeded
+initialisation cut by ``parallel.tensor.shard_state_dict``; the M ranks of
+a model group hold the same rows. AdamW and the EMA run on the shards
+(both are elementwise). Checkpoints are written gathered by rank 0, the
+one-process run's keys and shapes (``train.checkpoint``), and previews
+come from the ranks of data rank 0 (a sharded forward needs its whole
+model group), rank 0 writing them. Rank 0 alone writes metrics and reads
+the stop flag, which it broadcasts over a gloo group so that no step waits
+on the card for it.
 """
 
 from __future__ import annotations
@@ -32,7 +40,8 @@ from ..diffusion.schedule import NoiseSchedule
 from ..models.layers import init_weights_
 from ..models.unet import UNet
 from ..ops import attention
-from ..parallel.mesh import make_mesh, shard_rows
+from ..parallel.mesh import Mesh, make_mesh, shard_rows
+from ..parallel.tensor import shard_state_dict
 from ..utils.metrics import MetricsLogger, StepTimer
 from ..utils.stop_flag import StopFlag
 from .checkpoint import CheckpointManager
@@ -42,11 +51,12 @@ from .step import make_train_step
 log = logging.getLogger("worddiffusion")
 
 
-def check_attention_backward(exp: Experiment, batch: int) -> None:
+def check_attention_backward(exp: Experiment, batch: int, model: int = 1) -> None:
     """Raise before the first step where a self-attention's plain-recompute
     backward would not fit (``ops.attention.BACKWARD_BYTES_LIMIT``): the
     UNet's attentions over ``H/ds x W/ds`` positions at each resolution ``ds``
-    of ``attention_resolutions``, in the space the model runs in."""
+    of ``attention_resolutions``, in the space the model runs in, on a model
+    rank's ``num_heads / model`` heads."""
     u = exp.unet
     if u.attn1_cross:
         return
@@ -55,7 +65,7 @@ def check_attention_backward(exp: Experiment, batch: int) -> None:
         h, w = h // 8, w // 8
     for ds in u.attention_resolutions:
         n = (h // ds) * (w // ds)
-        attention.check_backward_size(batch, u.num_heads, n, n)
+        attention.check_backward_size(batch, u.num_heads // model, n, n)
 
 
 class Trainer:
@@ -67,6 +77,7 @@ class Trainer:
         device: torch.device | str = "cuda",
         encode_fn: Optional[Callable] = None,
         model: Optional[nn.Module] = None,
+        mesh: Optional[Mesh] = None,
     ):
         """``preview_fn(state, epoch)`` renders the fixed probe words.
         ``encode_fn(images, generator) -> latent [B, 8, 32, 4]`` maps image
@@ -82,9 +93,11 @@ class Trainer:
         None stays on the kernels for the memory; ``chip_smoke.py``
         phase 7 times both.
 
-        ``model``: the denoiser (default ``UNet(exp.unet)``; the HiGAN+
-        adapter with ``--hiGanArch 1``). ``exp.mesh``'s data axis is the
-        process group (``parallel.mesh.make_mesh``)."""
+        ``model``: the denoiser (default ``UNet(exp.unet, mesh)``; the HiGAN+
+        adapter with ``--hiGanArch 1``, replicated over a model axis: nothing
+        of it is sharded, as in JAX). ``mesh``: the processes' layout, by
+        default ``parallel.mesh.make_mesh(exp.mesh)`` (which creates the
+        axes' process groups)."""
         self.exp = exp
         self.dataset = dataset
         self.preview_fn = preview_fn
@@ -93,16 +106,18 @@ class Trainer:
         self.schedule = NoiseSchedule.linear(
             exp.diffusion.num_steps, exp.diffusion.beta_start, exp.diffusion.beta_end
         )
-        self.model = (UNet(exp.unet) if model is None else model).to(self.device)
-        self.mesh = make_mesh(exp.mesh)
-        self.rank, self.world = self.mesh.rank, self.mesh.data
+        self.mesh = make_mesh(exp.mesh) if mesh is None else mesh
+        self.model = (UNet(exp.unet, self.mesh) if model is None else model).to(self.device)
+        self.rank = self.mesh.rank
         if isinstance(self.model, UNet):
-            check_attention_backward(exp, exp.data.batch_size // self.world)
-        self.rows = shard_rows(exp.data.batch_size, self.mesh) if self.world > 1 else None
+            check_attention_backward(exp, exp.data.batch_size // self.mesh.data, self.mesh.model)
+        self.rows = (shard_rows(exp.data.batch_size, self.mesh) if self.mesh.data > 1
+                     else None)
         # under torchrun (a process group), at any world size
         self.distributed = dist.is_available() and dist.is_initialized()
         self._ddp = None
-        self._control = None  # the gloo group the stop flag is broadcast over
+        # the gloo group the stop flag is broadcast over
+        self._control = dist.new_group(backend="gloo") if self.distributed else None
         self.ckpt = CheckpointManager(f"{exp.train.save_path}/ckpt")
         self.stop = StopFlag(exp.train.stop_flag_file)
         self.metrics = (MetricsLogger(f"{exp.train.save_path}/metrics.jsonl")
@@ -114,15 +129,21 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         """A fresh state from the seeded initialisation (every run() starts
-        from it, as every JAX run() inits its params)."""
-        init_weights_(self.model, self.exp.train.seed)
+        from it, as every JAX run() inits its params); a sharded UNet takes
+        its shard of the one-process initialisation."""
+        if self.mesh.model > 1 and isinstance(self.model, UNet):
+            full = init_weights_(UNet(self.exp.unet), self.exp.train.seed)
+            self.model.load_state_dict(shard_state_dict(full.state_dict(), self.mesh))
+        else:
+            init_weights_(self.model, self.exp.train.seed)
         opt = make_optimizer(self.model.parameters(), self.exp.train.lr,
                              self.exp.train.weight_decay)
         return TrainState.create(self.model.train(), opt)
 
     def _forward_model(self) -> Optional[nn.Module]:
-        """The ``DistributedDataParallel`` wrapper the step calls (made once:
-        each wrapper hooks the parameters), or None without a process group."""
+        """The ``DistributedDataParallel`` wrapper over the data group that the
+        step calls (made once: each wrapper hooks the parameters), or None
+        without a process group."""
         if not self.distributed:
             return None
         if self._ddp is None:
@@ -135,8 +156,8 @@ class Trainer:
             u = self.exp.unet
             unused = u.style_replace_context or (u.ocr_head and self.exp.train.ctc_weight <= 0)
             self._ddp = DistributedDataParallel(self.model, device_ids=ids,
+                                                process_group=self.mesh.data_group,
                                                 find_unused_parameters=bool(unused))
-            self._control = dist.new_group(backend="gloo")
         return self._ddp
 
     def _should_stop(self) -> bool:
@@ -148,12 +169,13 @@ class Trainer:
         return bool(flag.item())
 
     def _global_mean(self, t: torch.Tensor) -> torch.Tensor:
-        """The mean of ``t`` over the processes (``t`` itself in one)."""
-        if not self.distributed:
+        """The mean of ``t`` over the data group (``t`` itself on a data axis
+        of 1: the ranks of a model group hold the same loss)."""
+        if self.mesh.data == 1:
             return t
         t = t.clone()
-        dist.all_reduce(t)
-        return t / self.world
+        dist.all_reduce(t, group=self.mesh.data_group)
+        return t / self.mesh.data
 
     def _to_device(self, a) -> torch.Tensor:
         t = torch.from_numpy(a)
@@ -208,7 +230,7 @@ class Trainer:
         state = self.init_state()
         start_epoch, skip_batches = 0, 0
         if resume and self.ckpt.latest_step() is not None:
-            state = self.ckpt.restore(state)
+            state = self.ckpt.restore(state, mesh=self.mesh)
             steps_per_epoch = max(len(self.dataset) // bs, 1)
             start_epoch = state.step // steps_per_epoch
             skip_batches = state.step - start_epoch * steps_per_epoch
@@ -217,7 +239,7 @@ class Trainer:
 
         step_fn = make_train_step(self.schedule, self.exp, self.encode_fn,
                                   forward=self._forward_model(), rows=self.rows,
-                                  world=self.world)
+                                  world=self.mesh.data)
         history = []
         stopped = False
         self.epoch_seconds = []
@@ -258,14 +280,19 @@ class Trainer:
                 log.info("epoch %d: loss %.4f (%d steps, %.1fs)",
                          epoch, mean_loss, len(losses), time.time() - t0)
             save = stopped or (epoch + 1) % tcfg.ckpt_every_epochs == 0 or epoch == epochs - 1
-            if save and self.rank == 0:
-                self.ckpt.save(state.step, state, {"loss": history[-1] if history else 0.0})
+            # data rank 0's model group: rank 0, and under a model axis the
+            # ranks that hold the other shards (the gather and the sharded
+            # preview need each of them)
+            first = self.mesh.data_rank == 0
+            if save and first:
+                self.ckpt.save(state.step, state, {"loss": history[-1] if history else 0.0},
+                               mesh=self.mesh)
             if save and self.distributed:
                 dist.barrier(group=self._control)  # the checkpoint is on disk for every rank
-            if (self.preview_fn is not None and self.rank == 0
+            if (self.preview_fn is not None and first
                     and (epoch + 1) % tcfg.ckpt_every_epochs == 0):
                 imgs = self.preview_fn(state, epoch)
-                if imgs is not None:
+                if imgs is not None and self.metrics is not None:
                     self.metrics.log_images(state.step, "preview", imgs)
             if stopped:
                 break

@@ -4,7 +4,9 @@
 EMA semantics match the JAX package (reference ``train.py:140-170``):
 while the step before the update is below ``warmup`` the EMA copy is
 reset to the raw parameters; afterwards it is ``ema*beta + p*(1-beta)``.
-The port updates the EMA and the parameters in place.
+The port updates the EMA and the parameters in place. Under a model axis
+(tensor parallel) both run on each rank's shards as they are: AdamW and
+the EMA are elementwise.
 """
 
 from __future__ import annotations
