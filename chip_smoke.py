@@ -232,6 +232,23 @@ Phases, each of which must pass (any failure exits non-zero):
    gradient is 0 in exact arithmetic) and every entry (TP_P99_DIFF), and its
    s/step. Every B.2 and B.4 shape a rank launched must be one that phases
    3 and 8 held against plain. Any rank's failure fails the phase.
+29. checkpoints without the JAX package, and JPEG crops: (a) seeded
+   full-width ``iam`` weights written in the reference layout
+   (``middle_block1``, the research UNetModel's dead ``to_kv`` / ``attnc`` /
+   ``norm1`` tensors, a ``{"state_dict": ...}`` wrapper) and in the port's
+   keys, 16 words regenerated through the regeneration CLI's
+   ``--torch_ckpt`` from each: every PNG and the UNet's eps on a fixed input
+   bitwise equal, 4 B.1, 8 B.4, 9 B.5 and 12 B.6 launches a UNet call,
+   s/batch of both in turns; (b) ``--ckpt_dir`` on phase 7's checkpoint
+   directory with ``--use_ema 0``: the trained weights bitwise, one batch,
+   its launches; (c) ``cli.export_reference --middle_block1 1`` of it,
+   reloaded bitwise; (d) ``data/jpeg_check.npz`` decoded bitwise (no
+   Pillow here), the JPEG decoder's and the PNG reader's host ms per 64x256
+   crop; (e) ``cli.evaluate`` with ``--ocr_ckpt`` (phase 22(e)'s directory)
+   over a directory of 512 JPEG crops (32 renders by the check set's numpy
+   encoder, each under 16 names), in turns with the same crops as PNGs: the
+   JSON keys, B.5 launches (48 a style-encoder batch, 10 an OCR batch),
+   images/s of the whole call and the loading's ms per image apart.
 
 Every training phase counts 9 B.5 and 12 B.6 launches and Function
 backward calls per step (13 B.5 with the CTC aux head), and 9 * 50 + 4 and
@@ -3651,6 +3668,267 @@ def phase27_host(smi: str, work: str) -> dict:
     return dict(host_ms=host_ms, png_ms=png_ms, jpeg=jpeg)
 
 
+def reference_layout(unet, seed: int) -> dict:
+    """``unet``'s weights as a reference checkpoint holds them: the
+    ``--attentionMaps`` ``middle_block1`` layout, the research UNetModel's
+    dead ``to_kv`` / ``attnc`` / ``norm1`` tensors (seeded) and the
+    ``{"state_dict": ...}`` wrapper."""
+    import torch
+
+    from worddiffusion_tpu_torch.models.convert import port_unet_to_reference
+
+    g = torch.Generator().manual_seed(seed)
+    dead = {}
+    for k, v in unet.state_dict().items():
+        if k.endswith(".attn2.to_q.weight"):
+            tb, d = k[:-len(".attn2.to_q.weight")], v.shape[1]
+            dead[tb + ".attn1.to_kv.weight"] = torch.randn(2 * d, d, generator=g)
+            dead[tb + ".attnc.to_q.weight"] = torch.randn(d, d, generator=g)
+            dead[tb + ".norm1.weight"] = torch.randn(d, generator=g)
+            dead[tb + ".norm1.bias"] = torch.randn(d, generator=g)
+    sd = port_unet_to_reference({k: v.cpu() for k, v in unet.state_dict().items()}, unet.cfg,
+                                template=dead, middle_block1=True)
+    return {"state_dict": sd}
+
+
+def dump_files(dump: str) -> dict:
+    """name -> bytes of every PNG a regeneration dump holds (accepted and
+    rejected)."""
+    out = {}
+    for d in (dump, os.path.join(dump, "rejected")):
+        if os.path.isdir(d):
+            for n in sorted(os.listdir(d)):
+                if n.endswith(".png"):
+                    with open(os.path.join(d, n), "rb") as f:
+                        out[os.path.relpath(os.path.join(d, n), dump)] = f.read()
+    return out
+
+
+def phase29_checkpoints(smi: str, work: str, cli, gt: str, corpus: tuple[str, str],
+                        ocr_dir: str) -> dict:
+    """Phase 29: checkpoints without the JAX package, and JPEG crops. (a) the
+    seeded full-width ``iam`` weights written in the reference layout
+    (``reference_layout``) and in the port's keys; 16 words through the
+    regeneration CLI from each (``--torch_ckpt``): every PNG and the UNet's
+    eps on a fixed input bitwise equal, 4 / 8 / 9 / 12 B.1 / B.4 / B.5 / B.6
+    launches a UNet call, s/batch of both in turns; (b) ``--ckpt_dir`` on
+    phase 7's checkpoint with ``--use_ema 0`` (the trained weights, bitwise;
+    writers_dict_train.json found beside it), one batch; (c)
+    ``cli.export_reference --middle_block1 1`` of that checkpoint, reloaded
+    bitwise; (d) ``data/jpeg_check.npz`` decoded bitwise, the decoder's and
+    the PNG reader's host ms per 64x256 crop; (e) ``cli.evaluate`` over a
+    directory of 512 JPEG crops (32 renders written by the check set's numpy
+    encoder, each under 16 names, every file decoded anew) with
+    ``--ocr_ckpt`` (phase 22(e)'s directory), B.5 counted, against the same
+    crops as PNGs, in turns after a warm-up run: images/s of the whole call,
+    and the loading (``evaluate._load_dir``) timed apart from the CLI's fixed
+    set-up and the featurizers."""
+    import numpy as np
+    import torch
+
+    from worddiffusion_tpu_torch.cli import evaluate, export_reference
+    from worddiffusion_tpu_torch.configs import presets
+    from worddiffusion_tpu_torch.data.jpeg import decode_jpeg
+    from worddiffusion_tpu_torch.data.make_jpeg_check import CHECK_FILE, encode_baseline
+    from worddiffusion_tpu_torch.data.png import decode_png
+    from worddiffusion_tpu_torch.data.synthetic import render_word
+    from worddiffusion_tpu_torch.models.convert import reference_unet_to_port
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.models.unet import UNet
+    from worddiffusion_tpu_torch.utils.images import encode_png
+
+    t_phase = time.perf_counter()
+    unet = init_weights_(UNet(presets.get("iam").unet), seed=29, zero_init=False)
+    ref_pt, port_pt = os.path.join(work, "ref_ema_ckpt.pt"), os.path.join(work, "port_ema.pt")
+    ref = reference_layout(unet, seed=29)
+    torch.save(ref, ref_pt)
+    torch.save(unet.state_dict(), port_pt)
+    n_ref = len(ref["state_dict"])
+    with open(gt) as f:
+        lines = f.readlines()[:B]
+    gt16 = os.path.join(work, "words16.filter27")
+    with open(gt16, "w") as f:
+        f.writelines(lines)
+
+    runs = {}
+    for label, pt in (("reference", ref_pt), ("port", port_pt)):
+        regen, samples = cli.build(regen_cli_args(cli, gt16, os.path.join(work, f"regen_{label}"),
+                                                  "--torch_ckpt", pt))
+        runs[label] = dict(regen=regen, counts=drive_regen(smi, regen, samples, seed=0,
+                                                           label=f"29 {label} layout"),
+                           files=dump_files(regen.out_dir))
+    a, b = runs["reference"]["regen"].sampler, runs["port"]["regen"].sampler
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    same_weights = sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+    words = [ln.split()[-1] for ln in lines]
+    inputs = unet_inputs(a, words, phosc=False)
+    with torch.no_grad():
+        eps_a, eps_b = a.model(*inputs), b.model(*inputs)
+    fa, fb = runs["reference"]["files"], runs["port"]["files"]
+    same_pngs = fa.keys() == fb.keys() and all(fa[k] == fb[k] for k in fa)
+    times = {"reference": [], "port": []}
+    for r, label in enumerate(("reference", "port", "port", "reference")):
+        sampler = runs[label]["regen"].sampler
+        gen = torch.Generator(device="cuda").manual_seed(300 + r)
+        t0 = time.perf_counter()
+        sampler.sample_async(words, list(range(B)), gen)[0].cpu()
+        times[label].append(time.perf_counter() - t0)
+    log(f"29 regeneration from a reference-layout checkpoint ({n_ref} tensors: middle_block1, "
+        f"dead to_kv / attnc / norm1, state_dict wrapper) against the same weights in port keys: "
+        f"weights bitwise {same_weights}, eps on a fixed input bitwise "
+        f"{torch.equal(eps_a, eps_b)}, "
+        f"{len(fa)} PNGs bitwise {same_pngs}; s/batch (drive) reference "
+        f"{runs['reference']['counts']['s_per_batch']:.4f}, port "
+        f"{runs['port']['counts']['s_per_batch']:.4f}; one batch in turns (reference, port, port, "
+        f"reference): {times} s [{smi}]")
+    assert same_weights and torch.equal(eps_a, eps_b) and bool(torch.isfinite(eps_a).all())
+    assert same_pngs and len(fa) == B, (len(fa), len(fb))
+    ref_counts = runs["reference"]["counts"]
+    s_per_batch = {k: v["counts"]["s_per_batch"] for k, v in runs.items()}
+    del runs, a, b
+
+    # (b) the train CLI's checkpoint directory, trained weights
+    ckpt_dir = os.path.join(work, "run", "ckpt")
+    newest = max(int(n) for n in os.listdir(ckpt_dir) if n.isdigit())
+    saved = torch.load(os.path.join(ckpt_dir, str(newest), "state.pt"), map_location="cpu",
+                       weights_only=True)
+    regen, samples = cli.build(regen_cli_args(cli, corpus[0], os.path.join(work, "regen_ckpt_dir"),
+                                              "--ckpt_dir", ckpt_dir, "--use_ema", "0",
+                                              "--max_batches", "1"))
+    got = regen.sampler.model.state_dict()
+    assert all(torch.equal(got[k].cpu(), v) for k, v in saved["model"].items())
+    assert len(got) == len(saved["model"])
+    reset_counts()
+    t0 = time.perf_counter()
+    stats = regen.run(samples, batch_size=B, seed=0, max_batches=1)
+    torch.cuda.synchronize()
+    ckpt_s = time.perf_counter() - t0
+    ckpt_counts = all_counts()
+    log(f"29 regenerate --ckpt_dir {ckpt_dir} --use_ema 0 (step {newest}, trained weights "
+        f"bitwise): {stats.generated} generated in {ckpt_s:.3f} s, launches {ckpt_counts} [{smi}]")
+    per_batch = tuple(k * 120 + p for k, p in zip(
+        (4, 8, *UNET_NORMS), (0, 0, DECODER_NORMS[0] + OCR_NORMS[0],
+                              DECODER_NORMS[1] + OCR_NORMS[1])))
+    assert stats.generated == B
+    assert (ckpt_counts["ffn"], ckpt_counts["attn"], ckpt_counts["gn"],
+            ckpt_counts["conv"]) == per_batch, (ckpt_counts, per_batch)
+    del regen
+
+    # (c) export to the reference layout and back
+    out = os.path.join(work, "export_ref.pt")
+    exported = export_reference.main(["--preset", "iam", "--ckpt_dir", ckpt_dir, "--out", out,
+                                      "--middle_block1", "1"])
+    back = reference_unet_to_port(torch.load(out, weights_only=True), presets.get("iam").unet)
+    assert back.keys() == saved["ema"].keys()
+    assert all(np.array_equal(back[k], saved["ema"][k].numpy()) for k in back)
+    assert any(k.startswith("middle_block1.") for k in exported)
+    log(f"29 export_reference --middle_block1 1 of step {newest}'s EMA: {len(exported)} "
+        f"tensors, reloaded bitwise")
+
+    # (d) the JPEG decoder: the check set bitwise, host ms per crop
+    with np.load(CHECK_FILE) as z:
+        n = sum(1 for k in z.files if k.startswith("name_"))
+        files = [(str(z[f"name_{i}"]), z[f"jpeg_{i}"].tobytes(), z[f"rgb_{i}"]) for i in range(n)]
+        made_by = str(z["pillow"])
+    bad = [name for name, raw, want in files if not np.array_equal(decode_jpeg(raw, name), want)]
+    log(f"29 jpeg_check.npz: {n - len(bad)} of {n} files decoded bitwise as {made_by} "
+        f"decoded them; mismatches {bad}")
+    assert not bad, bad
+    crop = render_word("Mississippi", 64, 256, seed=0)
+    samples_ms = {}
+    timed = {"check 64x256 baseline 4:2:0 (noisy)": files[0][1],
+             "check 64x256 progressive 4:2:0 (noisy)": files[4][1],
+             "render 64x256 4:2:0 q75": encode_baseline(crop, factors=((2, 2), (1, 1), (1, 1))),
+             "render 64x256 4:4:4 q95": encode_baseline(crop, quality=95)}
+    for name, raw in timed.items():
+        decode_jpeg(raw)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            decode_jpeg(raw)
+        samples_ms[name] = (time.perf_counter() - t0) / 20 * 1e3
+    png = encode_png(crop)
+    t0 = time.perf_counter()
+    for _ in range(20):
+        decode_png(png)
+    png_ms = (time.perf_counter() - t0) / 20 * 1e3
+    log(f"29 host ms per crop on this machine's CPU: JPEG decode "
+        + ", ".join(f"{k} {v:.3f}" for k, v in samples_ms.items())
+        + f"; PNG decode (render 64x256 rgb8) {png_ms:.3f} [{smi}]")
+
+    # (e) evaluate over a directory of JPEG crops, and over the same crops as
+    # PNGs. 512 files, so the per-image costs (decode, featurizers) outweigh
+    # the CLI's fixed set-up (argument parsing, two model builds, ocr.pt)
+    dirs = {"jpeg": os.path.join(work, "eval_jpeg"), "png": os.path.join(work, "eval_png")}
+    eval_words = ("the of and to in is was that for it with as his on be at by had are but "
+                  "from not this have which one were all they she you her").split()[:32]
+    n_eval = 512
+    encoded = {"jpeg": [], "png": []}
+    for i, w in enumerate(eval_words):
+        img = render_word(w, 64, 256, seed=i)
+        encoded["jpeg"].append(encode_baseline(img, factors=((2, 2), (1, 1), (1, 1)),
+                                               quality=75 + i % 20))
+        encoded["png"].append(encode_png(img))
+    for label, d in dirs.items():
+        os.makedirs(d)
+        for i in range(n_eval):
+            name = f"{i:05d}_3_{eval_words[i % 32]}.{'jpg' if label == 'jpeg' else 'png'}"
+            with open(os.path.join(d, name), "wb") as f:
+                f.write(encoded[label][i % 32])
+    load_dir, load_s = evaluate._load_dir, []
+
+    def timed_load_dir(*a, **k):
+        t0 = time.perf_counter()
+        try:
+            return load_dir(*a, **k)
+        finally:
+            load_s.append(time.perf_counter() - t0)
+
+    evals = {}
+    evaluate._load_dir = timed_load_dir
+    try:
+        evaluate.main(["--real_dir", dirs["png"], "--fake_dir", dirs["png"], "--ocr_ckpt",
+                       ocr_dir, "--device", "cuda"])  # warm-up: the first run pays the set-up
+        for label in ("jpeg", "png", "png", "jpeg"):
+            load_s.clear()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = evaluate.main(["--real_dir", dirs[label], "--fake_dir", dirs[label],
+                                 "--ocr_ckpt", ocr_dir, "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            evals.setdefault(label, []).append(dict(
+                res=res, counts=all_counts(), imgs_per_s=2 * n_eval / wall,
+                load_ms=sum(load_s) / (2 * n_eval) * 1e3, rest_s=wall - sum(load_s)))
+    finally:
+        evaluate._load_dir = load_dir
+    batches = -(-n_eval // 32)
+    want_gn = STYLE_NORMS * 2 * batches + OCR_NORMS[0] * batches
+    log(f"29 evaluate --ocr_ckpt {ocr_dir} over {n_eval} JPEG crops (real = fake), in turns "
+        f"with the same crops as PNGs: JSON jpeg {evals['jpeg'][0]['res']}, png "
+        f"{evals['png'][0]['res']}; images/s of the whole call (real + fake) jpeg "
+        f"{[e['imgs_per_s'] for e in evals['jpeg']]}, png "
+        f"{[e['imgs_per_s'] for e in evals['png']]}; loading ms per image jpeg "
+        f"{[e['load_ms'] for e in evals['jpeg']]}, png {[e['load_ms'] for e in evals['png']]}; "
+        f"the rest of the call (set-up, featurizers) s jpeg "
+        f"{[e['rest_s'] for e in evals['jpeg']]}, png {[e['rest_s'] for e in evals['png']]}; "
+        f"launches {evals['jpeg'][0]['counts']} [{smi}]")
+    for e in evals["jpeg"] + evals["png"]:
+        assert e["counts"] == only_groupnorm(want_gn), (e["counts"], want_gn)
+        assert set(e["res"]) == {"fid_style_encoder", "ocr_exact_match"}, e["res"]
+        assert all(v == v for v in e["res"].values())  # no NaN
+    phase_s = time.perf_counter() - t_phase
+    log(f"29 phase: {phase_s:.1f} s")
+    keys = ("ffn", "attn", "fold", "gn", "conv", "geglu", "fold_b7", "probs")
+    return dict(paths={"regenerate_reference_ckpt": dict({k: ref_counts[k] for k in keys},
+                                                         ffn_bwd=0),
+                       "regenerate_ckpt_dir": ckpt_counts,
+                       "evaluate_jpeg": evals["jpeg"][0]["counts"]},
+                s_per_batch=s_per_batch, turns=times, jpeg_ms=samples_ms, png_ms=png_ms,
+                eval_imgs_per_s={k: [e["imgs_per_s"] for e in v] for k, v in evals.items()},
+                eval_load_ms={k: [e["load_ms"] for e in v] for k, v in evals.items()},
+                phase_s=phase_s)
+
+
 TP_WORKER_FLAG = "--tp-worker"
 # Parameters after 6 AdamW steps at lr 1e-4, the tensor-parallel run against
 # the one-process run. Each rank's partials are summed in another order than
@@ -4102,6 +4380,11 @@ def main(argv=None) -> int:
     # -- 23-27. pixel space, HiGAN+, DDP, attention maps, host data --------------------------
     new = new_phases(smi, work, cli, gt, words, corpus)
     px = new["pixel"]
+
+    # -- 29. reference-layout and port checkpoints, the export, JPEG crops ---------------------
+    ckpts = phase29_checkpoints(smi, work, cli, gt, corpus,
+                                os.path.dirname(side["train_ocr"]["pt"]))
+    stamp("29")
     paths = ("regenerate", "regenerate_iam_phosc", "regenerate_iam_fold", "train",
              "train_iam_phosc", "train_iam_fold", "build_latent_cache", "train_from_images")
     # the paths of phases 18-20, each with its counts under chip_smoke's keys
@@ -4110,7 +4393,7 @@ def main(argv=None) -> int:
                     for k, v in variants.items()},
                  **{f"train_{k}": v for k, v in cond_train.items()},
                  **{k: dict(v, ffn_bwd=0) for k, v in sampled.items()},
-                 **phosc["paths"], **side["paths"], **new["paths"]}
+                 **phosc["paths"], **side["paths"], **new["paths"], **ckpts["paths"]}
 
     def by_path(*counts, key):
         """The earlier paths' counts in order, then the later paths' ``key``."""
@@ -4190,6 +4473,12 @@ def main(argv=None) -> int:
         f"{new['higan']['s_per_step']:.4f} s/step; ddp world size 1 "
         f"{new['ddp']['s_per_step']:.4f} s/step; tensor parallel (2 ranks, one card) "
         f"{new['tp']['s_per_step']} s/step vs {new['tp']['one_s_per_step']:.4f} in one process"
+        + f"; regen s/batch from the reference layout {ckpts['s_per_batch']['reference']:.4f} "
+        f"vs port keys {ckpts['s_per_batch']['port']:.4f}; evaluate (512 crops) images/s over "
+        f"JPEG {ckpts['eval_imgs_per_s']['jpeg']} vs PNG {ckpts['eval_imgs_per_s']['png']}, "
+        f"loading ms/image JPEG {ckpts['eval_load_ms']['jpeg']} vs PNG "
+        f"{ckpts['eval_load_ms']['png']}; JPEG "
+        f"decode ms/crop " + ", ".join(f"{k} {v:.3f}" for k, v in ckpts["jpeg_ms"].items())
         + f"; whole run {time.perf_counter() - T_START:.1f} s")
 
     def entry(name, source, replaces, paths_, rows, row, library_ms):

@@ -135,7 +135,9 @@ def test_regen_ddim_calls_the_unet_n_times(tiny_regen, caplog):
     (["--hiGanArch", "1"], None), (["--latent", "0"], None),
 ])
 def test_regen_refuses_what_it_cannot_honour(tiny_regen, flags, error):
-    """The orbax flags and --use_ema 0 exit; --hiGanArch 1 and --latent 0
+    """A checkpoint directory flag naming no checkpoint (no <step>/state.pt,
+    vae.pt or ocr.pt in it) and --use_ema 0 without --ckpt_dir exit;
+    --hiGanArch 1 and --latent 0
     (``error`` None) build the HiGAN+ denoiser or a VAE-less pixel sampler
     and regenerate a batch."""
     build, _ = tiny_regen

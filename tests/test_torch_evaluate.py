@@ -5,7 +5,8 @@ fp32 heads) and a seeded torchvision-layout Inception ``.pt``. The JSON has
 the same keys; ``phosc_zsl_accuracy`` and ``phosc_zsl_n`` are equal, and the
 two FIDs agree within 1e-5 relative (fp32 features; measured 3.6e-7 for
 Inception, 8.2e-7 for PHOSC). Also: the style-encoder fallback's key and warning, a ``.jpg``
-refused naming slice 14, ``--ocr_ckpt`` exiting naming the conversion."""
+that is not a JPEG raising naming its file, ``--ocr_ckpt`` without an ``ocr.pt``
+exiting."""
 
 import functools
 import json
@@ -73,10 +74,10 @@ def test_evaluate_style_fallback_and_refusals(dirs, tmp_path, caplog):
         res = eval_cli.main(argv)
     assert list(res) == ["fid_style_encoder"] and np.isfinite(res["fid_style_encoder"])
     assert "RANDOM-INIT StyleEncoder" in caplog.text
-    with pytest.raises(SystemExit, match="jax_ocr_to_torch"):
+    with pytest.raises(SystemExit, match="no ocr.pt"):
         eval_cli.main(argv + ["--ocr_ckpt", "ckpt"])
     (tmp_path / "x.jpg").write_bytes(b"\xff\xd8\xff\xe0")
-    with pytest.raises(NotImplementedError, match="JPEG.*slice 14"):
+    with pytest.raises(ValueError, match="x.jpg: truncated"):
         eval_cli.main(["--real_dir", str(tmp_path), "--fake_dir", str(dirs / "fake"),
                        "--device", "cpu"])
 

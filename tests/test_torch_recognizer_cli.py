@@ -207,16 +207,18 @@ def test_train_phosc_refuses_what_it_cannot_honour(corpus, tmp_path, flags, erro
     assert calls and (tmp_path / "run" / "best_params.pkl").exists()
 
 
-def test_non_png_crop_raises(corpus, tmp_path):
-    """A JPEG crop (a PNG name, JPEG bytes) raises, naming slice 14 (JPEG
-    decoding is queued there, ROADMAP A.9); PNGs of every kind are read
-    (tests/test_torch_augment.py)."""
+@pytest.mark.parametrize("raw,match", [(b"\xff\xd8\xff\xe0 a JPEG", "truncated"),
+                                       (b"GIF89a a GIF", "GIF is not read")])
+def test_non_png_crop_raises(corpus, tmp_path, raw, match):
+    """A crop is read by its signature, not its name: a broken JPEG under a
+    PNG name raises naming the file, and a GIF names its format (PNGs of
+    every kind: tests/test_torch_augment.py; JPEGs: tests/test_torch_jpeg.py)."""
     crops = tmp_path / "crops"
     crops.mkdir()
-    (crops / "a01-000u-00.png").write_bytes(b"\xff\xd8\xff\xe0 a JPEG")
+    (crops / "a01-000u-00.png").write_bytes(raw)
     gt = tmp_path / "one.filter27"
     gt.write_text("000,a01-000u-00 the\n")
-    with pytest.raises(NotImplementedError, match="slice 14"):
+    with pytest.raises(ValueError, match=f"a01-000u-00.png: .*{match}"):
         phosc_cli.main(["--train_csv", str(gt), "--valid_csv", str(gt), "--image_dir",
                         str(crops), "--batch_size", "1", "--save_dir", str(tmp_path / "r"),
                         "--device", "cpu"])

@@ -226,8 +226,8 @@ def test_sample_cli_conditioned_models(tiny_sample):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--ckpt_dir", "ckpt"], SystemExit, "export_torch"),
-    (["--vae_ckpt", "vae"], SystemExit, "jax_vae_to_torch"),
+    (["--ckpt_dir", "ckpt"], SystemExit, "no checkpoint"),
+    (["--vae_ckpt", "vae"], SystemExit, "--vae_ckpt and --vae_pt both name the weights"),
     (["--use_ema", "0"], SystemExit, "one parameter set"),
     (["--charImages", "1", "--hiGanArch", "1"], SystemExit, "hiGanArch 1 takes no glyph"),
     (["--hiGanArch", "1"], None, "HiGanDenoiserAdapter"),

@@ -390,7 +390,7 @@ def test_train_cli_runs_from_latent_cache(tmp_path, monkeypatch):
     (["--augMaps", "1"], None, "augment"),
     (["--mesh_data", "2"], ValueError, "--mesh_data 2 must equal the number of processes"),
     (["--latent", "0"], None, "pixel"),
-    (["--vae_ckpt", "vae_dir"], NotImplementedError, "jax_vae_to_torch"),
+    (["--vae_ckpt", "vae_dir"], SystemExit, "no vae.pt"),
     (["--mesh_model", "3"], ValueError, "num_heads 4 is not divisible by the model axis 3"),
     (["--wrdChrWrStyl", "1"], SystemExit, "--style_dict"),
 ])

@@ -211,7 +211,7 @@ def test_cache_cli_refuses_unported_and_decoder_only(tmp_path):
     gt = _word_pngs(tmp_path / "crops", n=2)
     base = ["--gt_train", gt, "--iam_path", str(tmp_path / "crops"), "--out",
             str(tmp_path / "c.npz"), "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="jax_vae_to_torch"):
+    with pytest.raises(SystemExit, match="no vae.pt"):
         cache_cli.main(base + ["--vae_ckpt", "d"])
     half = init_weights_(AutoencoderKL(port_cfg(VAE_CFG)), seed=0)
     torch.save(half.state_dict(), tmp_path / "dec.pt")

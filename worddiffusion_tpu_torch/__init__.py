@@ -12,6 +12,3 @@ what is ported and what is left is listed in ROADMAP.md (A).
 """
 
 __version__ = "0.1.0"
-
-# where a refusal points for what is not ported yet
-NEXT_SLICE = "slice 14 of the port (ROADMAP A)"

@@ -14,7 +14,8 @@ corpus is the synthetic one (``--vocab_size`` words of the preset's list,
 ``--samples_per_word`` renders each), drawn by ``data.synthetic.render_word``
 (in each writer's style with ``--writer_styled 1``, the cache a
 ``--wrdChrWrStyl`` training needs); so is any crop missing from
-``--iam_path``. ``--vae_ckpt`` (orbax) raises.
+``--iam_path``. ``--vae_ckpt`` names ``cli.train_vae``'s ``--save_dir``
+(its ``vae.pt``); an orbax one (the JAX CLI's) exits with the reason.
 """
 
 from __future__ import annotations
@@ -30,9 +31,9 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="worddiffusion latent cache (PyTorch/CUDA)")
     p.add_argument("--preset", default="iam", choices=sorted(presets.PRESETS))
     p.add_argument("--gt_train", default="")
-    p.add_argument("--iam_path", default="", help="word-crop image dir (PNG)")
+    p.add_argument("--iam_path", default="", help="word-crop image dir (PNG or JPEG)")
     p.add_argument("--stable_dif_path", default="", help="diffusers VAE (safetensors)")
-    p.add_argument("--vae_ckpt", default="", help="orbax VAE dir (not readable here)")
+    p.add_argument("--vae_ckpt", default="", help="cli.train_vae's --save_dir (its vae.pt)")
     p.add_argument("--vae_pt", default="", help="full VAE state dict in the port's keys")
     p.add_argument("--out", required=True)
     p.add_argument("--batch_size", type=int, default=64)
@@ -50,13 +51,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    if args.vae_ckpt:
-        raise NotImplementedError("--vae_ckpt is not ported to PyTorch yet: an orbax VAE "
-                                  "checkpoint is not readable here; convert it with "
-                                  "models.convert.jax_vae_to_torch (--vae_pt)")
-
-
 def build(args):
     """Everything but the pass: -> (dataset, VAE on the device)."""
     import torch
@@ -65,9 +59,10 @@ def build(args):
     from ..data.dataset import WordImageDataset
     from ..data.tokenizer import Tokenizer
     from ..models.vae import make_vae
+    from ..train.checkpoint import weights_file
     from .train import corpus
 
-    _refuse_unported(args)
+    vae_pt = weights_file(args.vae_pt, args.vae_ckpt, "--vae_ckpt", "vae.pt")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
@@ -77,7 +72,7 @@ def build(args):
     tok = Tokenizer.from_name(exp.data.alphabet, exp.data.max_chars)
     dataset = WordImageDataset(samples, registry, tok, exp.data,
                                writer_styled=bool(args.writer_styled))
-    vae = make_vae(exp.vae, args.stable_dif_path, args.vae_pt, with_encoder=True,
+    vae = make_vae(exp.vae, args.stable_dif_path, vae_pt, with_encoder=True,
                    seed=args.seed)
     return dataset, vae.to(device).eval().requires_grad_(False)
 

@@ -15,11 +15,13 @@ with ``--ocr_pt``; ``phosc_zsl_accuracy`` (with ``phosc_zsl_n`` where only
 some filename words embed, or a ``phosc_zsl_note``). The word of each image
 is parsed from the regeneration name ``{img}_{writer}_{word}.png``.
 
-Where the port differs: images are PNGs (``data.png``), and a ``.jpg``
-raises (JPEG decoding waits for slice 14 of the port, ROADMAP A.9); ``--ocr_ckpt``
-(orbax) exits naming the offline conversion, and ``--ocr_pt`` (the
-recognizer's state dict, as ``cli.train_ocr`` writes it) takes its place;
-the random-init style encoder, fp32 in JAX, runs fp32 on the CPU and bf16 on
+The images are the ``.png`` and ``.jpg`` files, as the JAX CLI lists them,
+each read by its signature (``data.png.read_image``: PNG or JPEG, bitwise
+as PIL decodes them). The OCR is ``--ocr_pt`` (the recognizer's state dict,
+as ``cli.train_ocr`` writes it) or ``--ocr_ckpt``, that CLI's
+``--save_dir`` (its ``ocr.pt``); an orbax ``--ocr_ckpt`` (the JAX CLI's)
+exits with the reason. Where the port differs: the random-init style
+encoder, fp32 in JAX, runs fp32 on the CPU and bf16 on
 the card (B.5 takes bf16), which the log says. Its numbers cannot match
 JAX's either way: the inits differ.
 """
@@ -39,20 +41,15 @@ import torch
 def _load_dir(path: str, height: int, width: int, limit: int = 0):
     """Images + the word parsed from the regeneration name
     ``{img}_{writer}_{word}.png`` (falls back to the stem)."""
-    from ..data.png import read_png
+    from ..data.png import read_image
     from ..utils.images import normalize_to_unit, resize_and_pad
-    from .. import NEXT_SLICE
 
     names = sorted(f for f in os.listdir(path) if f.lower().endswith((".png", ".jpg")))
     if limit:
         names = names[:limit]
-    jpgs = [n for n in names if n.lower().endswith(".jpg")]
-    if jpgs:
-        raise NotImplementedError(f"{len(jpgs)} JPEG image(s) in {path} (first: {jpgs[0]!r}): "
-                                  f"the port reads PNG; JPEG decoding waits for {NEXT_SLICE}")
     imgs, words = [], []
     for n in names:
-        imgs.append(normalize_to_unit(resize_and_pad(read_png(os.path.join(path, n)),
+        imgs.append(normalize_to_unit(resize_and_pad(read_image(os.path.join(path, n)),
                                                      height, width)))
         stem = os.path.splitext(n)[0]
         words.append(stem.rsplit("_", 1)[-1] if "_" in stem else stem)
@@ -67,7 +64,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--width", type=int, default=256)
     p.add_argument("--limit", type=int, default=0)
     p.add_argument("--batch_size", type=int, default=32)
-    p.add_argument("--ocr_ckpt", default="", help="orbax OCR checkpoint (not readable here)")
+    p.add_argument("--ocr_ckpt", default="", help="cli.train_ocr's --save_dir (its ocr.pt)")
     p.add_argument("--ocr_pt", default="", help="CTCRecognizer state dict (port keys), as "
                                                 "cli.train_ocr writes it")
     p.add_argument("--phosc_params", default="",
@@ -99,12 +96,11 @@ def _features(name: str, fn, arr: np.ndarray, batch_size: int) -> np.ndarray:
 def main(argv=None) -> dict:
     from ..data.alphabets import OCR_CVL, OCR_ENG, OCR_NOR
     from ..eval.fid import fid_score, load_phosc_net, phosc_resize
+    from ..train.checkpoint import weights_file
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = build_parser().parse_args(argv)
-    if args.ocr_ckpt:
-        raise SystemExit("--ocr_ckpt is an orbax checkpoint, which the port does not read: "
-                         "convert it with models.convert.jax_ocr_to_torch and pass --ocr_pt")
+    ocr_pt = weights_file(args.ocr_pt, args.ocr_ckpt, "--ocr_ckpt", "ocr.pt")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
@@ -158,14 +154,14 @@ def main(argv=None) -> dict:
                 _features("style_encoder", feat, real, args.batch_size),
                 _features("style_encoder", feat, fake, args.batch_size))
 
-    if args.ocr_pt:
+    if ocr_pt:
         from ..models.ocr import CTCRecognizer
         from ..ops.ctc import collapse_and_decode, greedy_frame_ids
 
         # the alphabet follows --language (the nor/cvl recognizers have more classes)
         alphabet = {"nor": OCR_NOR, "cvl": OCR_CVL}.get(args.language, OCR_ENG)
         ocr = CTCRecognizer(num_classes=len(alphabet))
-        ocr.load_state_dict(torch.load(args.ocr_pt, map_location="cpu", weights_only=True))
+        ocr.load_state_dict(torch.load(ocr_pt, map_location="cpu", weights_only=True))
         ocr = ocr.to(device, memory_format=torch.channels_last).eval().requires_grad_(False)
         hits, t0 = 0, time.perf_counter()
         for s in range(0, len(fake), args.batch_size):

@@ -4,14 +4,22 @@ OCR-filtered, resumable dataset regeneration on one GPU.
     python -m worddiffusion_tpu_torch.cli.regenerate --gt_file words.filter27 \\
         --torch_ckpt unet.pt --vae_pt vae.pt --ocr_pt ocr.pt --dump_path ./regen
 
-``--torch_ckpt`` is a reference-keyed UNet state dict, as
-``worddiffusion_tpu.cli.export_torch`` writes from a JAX run (or the
-``ema_unet.pt`` of the port's train CLI). The VAE's decode half comes
-from a diffusers ``--stable_dif_path`` safetensors file or from
-``--vae_pt``, a ``torch.save``d state dict in the port's keys (full or
-decoder-only, ``models.convert.jax_vae_to_torch``); ``--ocr_pt`` is one
-of the CTC recognizer (``jax_ocr_to_torch``). Each weight set that is
-not given is a seeded random initialisation, with a warning.
+The UNet comes from ``--torch_ckpt``, a checkpoint in the reference
+layout (the reference's own ``ckpt_*.pt`` / ``ema_*.pt`` and their
+``--attentionMaps`` layout, the port train CLI's ``ema_unet.pt``,
+``cli.export_reference`` output; ``models.convert.reference_unet_to_port``
+reads it as JAX's ``sample --torch_ckpt`` does), or from ``--ckpt_dir``, the
+port train CLI's checkpoint directory (``<save_path>/ckpt``: its newest
+step's EMA weights, or the trained ones with ``--use_ema 0``; its
+``writers_dict_train.json`` is looked for beside it and in its parent, as
+the JAX CLI does). The VAE's decode half comes from a diffusers
+``--stable_dif_path`` safetensors file, from ``--vae_pt``, a
+``torch.save``d state dict in the port's keys (full or decoder-only,
+``models.convert.jax_vae_to_torch``), or from ``--vae_ckpt``, the
+``--save_dir`` of ``cli.train_vae`` (its ``vae.pt``); the CTC recognizer
+from ``--ocr_pt`` (``jax_ocr_to_torch``) or ``--ocr_ckpt`` (``cli.train_ocr``'s
+``--save_dir``: its ``ocr.pt``). Each weight set that is not given is a
+seeded random initialisation, with a warning.
 ``--ddim N`` samples with N deterministic DDIM steps instead of the DDPM
 schedules.
 
@@ -19,10 +27,10 @@ schedules.
 builds no VAE; ``--hiGanArch 1`` with the HiGAN+ denoiser (``--torch_ckpt``
 in the port's keys).
 
-Every option of the JAX CLI is here. The orbax directories
-(``--ckpt_dir``, ``--vae_ckpt``, ``--ocr_ckpt``) are converted offline
-by the JAX package, so they and ``--use_ema 0`` (the exported file is one
-parameter set) exit with the reason.
+Every option of the JAX CLI is here. A directory flag that names an orbax
+checkpoint (the JAX package's) exits with the reason
+(``train.checkpoint.ORBAX_REFUSAL``), as does ``--use_ema 0`` without
+``--ckpt_dir`` (a ``--torch_ckpt`` file holds one parameter set).
 
 Under ``torchrun --nproc_per_node N`` each process regenerates its
 ``data.loader.host_shard`` of the corpus on its own card; the file names
@@ -40,11 +48,13 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="worddiffusion regeneration (PyTorch/CUDA)")
     p.add_argument("--preset", default="iam")
     p.add_argument("--torch_ckpt", default="",
-                   help="reference-keyed UNet state dict (cli.export_torch output)")
+                   help="UNet checkpoint in the reference layout (the reference's "
+                        "ema_*.pt, the train CLI's ema_unet.pt, cli.export_reference's)")
     p.add_argument("--gt_file", required=True)
     p.add_argument("--writers_dict", default="",
-                   help="writers_dict_train.json from training; default: writer "
-                        "ids rebuilt first-seen from the gt file")
+                   help="writers_dict_train.json from training; default: looked for "
+                        "next to --ckpt_dir and in its parent, else writer ids rebuilt "
+                        "first-seen from the gt file")
     p.add_argument("--dump_path", default="./regen")
     p.add_argument("--prior_dump_paths", default="",
                    help="comma-separated previous dump folders (globs ok): crops "
@@ -64,11 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ocr_pt", default="", help="CTCRecognizer state dict (port keys)")
     p.add_argument("--no_ocr_filter", type=int, default=0)
     p.add_argument("--flagGen", default="", help="stop-flag file")
-    p.add_argument("--ckpt_dir", default="", help="orbax checkpoint (not readable here)")
+    p.add_argument("--ckpt_dir", default="",
+                   help="the train CLI's checkpoint directory (<save_path>/ckpt)")
     p.add_argument("--use_ema", type=int, default=1,
-                   help="the --torch_ckpt file holds one parameter set; 0 is refused")
-    p.add_argument("--ocr_ckpt", default="", help="orbax OCR checkpoint (not readable here)")
-    p.add_argument("--vae_ckpt", default="", help="orbax VAE checkpoint (not readable here)")
+                   help="--ckpt_dir's EMA weights (1) or trained ones (0)")
+    p.add_argument("--ocr_ckpt", default="", help="cli.train_ocr's --save_dir (its ocr.pt)")
+    p.add_argument("--vae_ckpt", default="", help="cli.train_vae's --save_dir (its vae.pt)")
     p.add_argument("--hiGanArch", type=int, default=0)
     p.add_argument("--latent", type=int, default=1)
     p.add_argument("--partialLoad", type=float, default=0.0)
@@ -93,46 +104,6 @@ def _load_or_init(module, path: str, what: str, seed: int):
     return module
 
 
-def _writer_registry(writers_dict: str, samples, gt_registry):
-    from ..data.gt import WriterRegistry
-
-    if not writers_dict:
-        logging.warning(
-            "no --writers_dict: writer ids rebuilt first-seen from the gt file; "
-            "conditioning matches training only if the corpora list writers in "
-            "the same order"
-        )
-        return gt_registry
-    registry = WriterRegistry.from_json(writers_dict)
-    unknown = sorted({s.writer for s in samples if s.writer not in registry})
-    if unknown:
-        raise SystemExit(
-            f"{len(unknown)} writer id(s) in the gt file are not in the training "
-            f"writers dict (first few: {unknown[:10]})"
-        )
-    return registry
-
-
-_CONVERT = "python -m worddiffusion_tpu.cli.export_torch (the JAX package)"
-
-
-def _refuse_unported(args) -> None:
-    """The JAX CLI's options that this one cannot honour, with the reason."""
-    offline = {
-        "--ckpt_dir": (args.ckpt_dir, f"convert it with {_CONVERT} and pass --torch_ckpt"),
-        "--vae_ckpt": (args.vae_ckpt, "convert it with models.convert.jax_vae_to_torch and "
-                                      "pass --vae_pt"),
-        "--ocr_ckpt": (args.ocr_ckpt, "convert it with models.convert.jax_ocr_to_torch and "
-                                      "pass --ocr_pt"),
-    }
-    for flag, (value, how) in offline.items():
-        if value:
-            raise SystemExit(f"{flag} is an orbax checkpoint, which the port does not read: {how}")
-    if not args.use_ema:
-        raise SystemExit(f"--use_ema 0: --torch_ckpt holds one parameter set; pick it when "
-                         f"exporting ({_CONVERT} --use_ema 0)")
-
-
 def build(args):
     """Everything but the run: -> (Regenerator, samples)."""
     import torch
@@ -144,15 +115,15 @@ def build(args):
     from ..generate.regenerate import Regenerator
     from ..generate.sample import WordSampler
     from ..data.loader import host_shard
-    from ..models.higan import HiGanDenoiserAdapter
     from ..models.ocr import CTCRecognizer
-    from ..models.unet import UNet
     from ..models.vae import make_vae
     from ..parallel.distributed import initialize_multihost, local_device
     from ..configs.pixel import pixel_space_exp
     from ..models.higan import refuse_conditioning
+    from ..train.checkpoint import weights_file
+    from .sample import check_weight_flags, load_unet, resolve_writer_registry
 
-    _refuse_unported(args)
+    check_weight_flags(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
@@ -164,11 +135,11 @@ def build(args):
         exp = pixel_space_exp(exp)
     if args.hiGanArch:
         refuse_conditioning(exp.unet, "--hiGanArch 1", SystemExit)
-    denoiser = HiGanDenoiserAdapter(exp.unet) if args.hiGanArch else UNet(exp.unet)
-    unet = _load_or_init(denoiser, args.torch_ckpt, "denoiser", args.seed).to(device)
+    unet = load_unet(exp, args, bool(args.hiGanArch)).to(device)
     vae = None
     if exp.data.latent:
-        vae = make_vae(exp.vae, args.stable_dif_path, args.vae_pt, with_encoder=False,
+        vae_pt = weights_file(args.vae_pt, args.vae_ckpt, "--vae_ckpt", "vae.pt")
+        vae = make_vae(exp.vae, args.stable_dif_path, vae_pt, with_encoder=False,
                        seed=args.seed).to(device)
     mask = regen_call_mask(exp.diffusion.num_steps, epoch=args.epoch,
                            full_sampling=bool(args.fullSampling))
@@ -180,19 +151,19 @@ def build(args):
                      int(mask[1:].sum()), exp.diffusion.num_steps - 1)
 
     ocr_alphabet = {"nor": OCR_NOR, "cvl": OCR_CVL}.get(exp.data.alphabet, OCR_ENG)
-    ocr = None
+    ocr, ocr_pt = None, weights_file(args.ocr_pt, args.ocr_ckpt, "--ocr_ckpt", "ocr.pt")
     if not args.no_ocr_filter:
-        if not args.ocr_pt:
+        if not ocr_pt:
             logging.warning("an untrained OCR filter accepts almost nothing; "
                             "--no_ocr_filter 1 keeps every image")
-        ocr = _load_or_init(CTCRecognizer(num_classes=len(ocr_alphabet)), args.ocr_pt,
+        ocr = _load_or_init(CTCRecognizer(num_classes=len(ocr_alphabet)), ocr_pt,
                             "OCR", args.seed).to(device).eval()
 
     sampler = WordSampler(exp, unet, vae, call_mask=None if args.ddim else mask,
                           stochastic=bool(args.fullSampling), ocr_apply=ocr,
                           ddim_steps=args.ddim)
     samples, gt_registry = parse_gt(args.gt_file, partial_load=args.partialLoad)
-    registry = _writer_registry(args.writers_dict, samples, gt_registry)
+    registry = resolve_writer_registry(args.writers_dict, args.ckpt_dir, samples, gt_registry)
     if world > 1:
         samples = host_shard(samples, rank, world)
         logging.info("data parallel regeneration: process %d of %d, %d samples", rank, world,

@@ -7,24 +7,31 @@ from a checkpoint for a word list or a whole gt file, on one GPU.
         [--wrdChrWrStyl 1 --style_dict styles.npz] \\
         [--imgConditioned 1 --cond_image ref.png] [--crop_whitespace 1]
 
-``--torch_ckpt`` is a reference-keyed UNet state dict (the ``ema_unet.pt``
-of the port's train CLI, or ``worddiffusion_tpu.cli.export_torch``
-output); the CTC aux head of an ``--ocrTraining`` checkpoint is left
-unread, as sampling does not run it. The VAE comes from a diffusers
-``--stable_dif_path`` file or ``--vae_pt`` (the port's keys; a full one
-with ``--imgConditioned``, whose ``--cond_image`` is encoded to its
-posterior mean). Weights not given are seeded random, with a warning.
+The UNet comes from ``--torch_ckpt``, a checkpoint in the reference layout
+(the reference's own ``ckpt_*.pt`` / ``ema_*.pt``, its ``--attentionMaps``
+ones, the port train CLI's ``ema_unet.pt``, ``cli.export_reference``
+output), read by ``models.convert.reference_unet_to_port`` as JAX's
+``--torch_ckpt`` is: a CTC aux head is loaded where the preset has
+``ocr_head`` and left unread where it has not. Or it comes from
+``--ckpt_dir``, the port train CLI's checkpoint directory
+(``<save_path>/ckpt``; its newest step's EMA weights, the trained ones with
+``--use_ema 0``), whose ``writers_dict_train.json`` is looked for beside it
+and in its parent. The VAE comes from a diffusers ``--stable_dif_path``
+file, ``--vae_pt`` (the port's keys; a full one with ``--imgConditioned``,
+whose ``--cond_image``, a PNG or JPEG, is encoded to its posterior mean) or
+``--vae_ckpt`` (``cli.train_vae``'s ``--save_dir``: its ``vae.pt``).
+Weights not given are seeded random, with a warning.
 ``--writer -1`` draws a writer per word, and a negative ``--mix_rate``
 draws one uniform(0, 1) per sample, from ``numpy.random.default_rng
 (--seed)`` in the JAX CLI's order. The files are
 ``{index:05d}_{writer}_{word}[_mix{rate:.3f}].png``, as the JAX CLI
 names them.
 
-Every option of the JAX CLI is here. The orbax checkpoints
-(``--ckpt_dir``, ``--vae_ckpt``) are converted offline by the JAX
-package, so they and ``--use_ema 0`` exit with the conversion to run;
-``--charImages 1`` conditions on the words' glyph crops
-(``data.dataset.char_glyphs``, as the training renders them);
+Every option of the JAX CLI is here. A directory flag that names an orbax
+checkpoint (the JAX package's) exits with the reason
+(``train.checkpoint.ORBAX_REFUSAL``); ``--charImages 1`` conditions on the
+words' glyph crops (``data.dataset.char_glyphs``, as the training renders
+them);
 ``--latent 0`` samples a pixel-space checkpoint (3 channels, no VAE; a
 ``--cond_image`` then conditions as the image itself); ``--hiGanArch 1``
 samples the HiGAN+ denoiser (``models.higan``; ``--torch_ckpt`` in the
@@ -47,14 +54,16 @@ B = 16  # samples per batch, as the JAX CLI's
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="worddiffusion sampler (PyTorch/CUDA)")
     p.add_argument("--preset", default="iam")
-    p.add_argument("--ckpt_dir", default="", help="orbax checkpoint (not readable here)")
+    p.add_argument("--ckpt_dir", default="",
+                   help="the train CLI's checkpoint directory (<save_path>/ckpt)")
     p.add_argument("--torch_ckpt", default="",
-                   help="reference-keyed UNet state dict (the train CLI's ema_unet.pt)")
+                   help="UNet checkpoint in the reference layout (the reference's "
+                        "ema_*.pt, the train CLI's ema_unet.pt, cli.export_reference's)")
     p.add_argument("--words", default="", help="comma-separated words")
     p.add_argument("--gt_file", default="", help="regenerate every (writer,word) pair")
     p.add_argument("--writers_dict", default="",
                    help="writers_dict_train.json from training; default: looked for next "
-                        "to --torch_ckpt")
+                        "to --ckpt_dir (or --torch_ckpt) and in its parent")
     p.add_argument("--writer", type=int, default=-1, help="-1: random per word")
     p.add_argument("--writer2", type=int, default=-1,
                    help="second writer id: interpolate between --writer and --writer2")
@@ -64,7 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--n", type=int, default=1, help="samples per word")
     p.add_argument("--save_path", default="./samples")
     p.add_argument("--use_ema", type=int, default=1,
-                   help="the --torch_ckpt file holds one parameter set; 0 is refused")
+                   help="--ckpt_dir's EMA weights (1) or trained ones (0)")
     p.add_argument("--cfg_scale", type=float, default=0.0)
     p.add_argument("--ddim", type=int, default=0,
                    help="use DDIM with N steps instead of full DDPM")
@@ -72,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stable_dif_path", default="", help="diffusers VAE (safetensors)")
     p.add_argument("--vae_pt", default="",
                    help="VAE state dict in the port's keys (full with --imgConditioned)")
-    p.add_argument("--vae_ckpt", default="", help="orbax VAE checkpoint (not readable here)")
+    p.add_argument("--vae_ckpt", default="",
+                   help="cli.train_vae's --save_dir (its vae.pt)")
     p.add_argument("--crop_whitespace", type=int, default=0)
     p.add_argument("--wrdChrWrStyl", type=int, default=0,
                    help="model trained with 4096-d writer-style replacement (needs "
@@ -82,7 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model trained with reference-latent conditioning (needs "
                         "--cond_image)")
     p.add_argument("--cond_image", default="",
-                   help="PNG whose VAE posterior mean conditions every sample")
+                   help="PNG or JPEG whose VAE posterior mean conditions every sample")
     p.add_argument("--style_dict", default="", help="writer -> style-vector npz")
     p.add_argument("--hiGanArch", type=int, default=0)
     p.add_argument("--latent", type=int, default=1,
@@ -146,20 +156,19 @@ def resolve_writer_registry(args_writers_dict, ckpt_dir, samples, gt_registry):
     return registry
 
 
-_CONVERT = "python -m worddiffusion_tpu.cli.export_torch (the JAX package)"
+def check_weight_flags(args) -> None:
+    """The UNet's weight flags, as the regeneration and sampling CLIs take
+    them: one source, and ``--use_ema 0`` only where it picks a set."""
+    if args.torch_ckpt and args.ckpt_dir:
+        raise SystemExit("--torch_ckpt and --ckpt_dir both name the UNet's weights: pass one")
+    if not args.use_ema and not args.ckpt_dir:
+        raise SystemExit("--use_ema 0 picks the trained weights of a --ckpt_dir checkpoint; "
+                         "a --torch_ckpt file holds one parameter set")
 
 
 def _refuse_unported(args) -> None:
-    """The JAX CLI's options that this one cannot honour, with the reason."""
-    if args.ckpt_dir:
-        raise SystemExit(f"--ckpt_dir is an orbax checkpoint, which the port does not read: "
-                         f"convert it with {_CONVERT} and pass --torch_ckpt")
-    if args.vae_ckpt:
-        raise SystemExit("--vae_ckpt is an orbax checkpoint, which the port does not read: "
-                         "convert it with models.convert.jax_vae_to_torch and pass --vae_pt")
-    if not args.use_ema:
-        raise SystemExit(f"--use_ema 0: --torch_ckpt holds one parameter set; pick it when "
-                         f"exporting ({_CONVERT} --use_ema 0)")
+    """The flag combinations this CLI cannot honour, with the reason."""
+    check_weight_flags(args)
     if args.imgConditioned and not args.cond_image:
         raise SystemExit("--imgConditioned 1 needs --cond_image")
     if args.wrdChrWrStyl and not args.style_dict:
@@ -186,41 +195,48 @@ def experiment(args):
     ))
 
 
-def load_unet(exp, path: str, seed: int, higan: bool = False):
-    """The UNet from a reference-keyed state dict (less an aux head's keys:
-    sampling does not run the head), or with ``higan`` the HiGAN+ denoiser
-    from one in the port's keys; seeded random with a warning without
-    ``path``."""
-    import torch
-
+def load_unet(exp, args, higan: bool = False):
+    """The UNet from ``--torch_ckpt`` (the reference layout, through
+    ``models.convert.reference_unet_to_port``) or ``--ckpt_dir`` (the train
+    CLI's checkpoint, ``--use_ema``), or with ``higan`` the HiGAN+ denoiser
+    from either in the port's keys; seeded random with a warning without
+    them. An orbax ``--ckpt_dir`` exits with the reason."""
+    from ..models.convert import load_torch_checkpoint, reference_unet_to_port
+    from ..models.convert import state_dict_to_torch
     from ..models.higan import HiGanDenoiserAdapter
     from ..models.layers import init_weights_
     from ..models.unet import UNet
+    from ..train.checkpoint import read_unet
 
     unet = HiGanDenoiserAdapter(exp.unet) if higan else UNet(exp.unet)
-    if not path:
-        logging.warning("no --torch_ckpt: seeded random UNet (seed %d)", seed)
-        return init_weights_(unet, seed)
-    sd = torch.load(path, map_location="cpu", weights_only=True)
-    dropped = [k for k in sd if k.startswith("auxhead.")]
-    if dropped:
-        logging.info("%d CTC aux head tensors in %s left unread", len(dropped), path)
-    unet.load_state_dict({k: v for k, v in sd.items() if k not in dropped}, strict=True)
+    if args.ckpt_dir:
+        try:
+            sd = read_unet(args.ckpt_dir, bool(args.use_ema))
+        except (FileNotFoundError, ValueError) as e:
+            raise SystemExit(f"--ckpt_dir {e}") from e
+    elif args.torch_ckpt:
+        sd = load_torch_checkpoint(args.torch_ckpt)
+    else:
+        logging.warning("no --torch_ckpt / --ckpt_dir: seeded random UNet (seed %d)", args.seed)
+        return init_weights_(unet, args.seed)
+    if not higan:
+        sd = state_dict_to_torch(reference_unet_to_port(sd, exp.unet))
+    unet.load_state_dict(sd, strict=True)
     return unet
 
 
 def cond_latent(vae, path: str, exp, device):
-    """The SD-scaled posterior mean [1, h, w, 4] of the PNG at ``path``,
+    """The SD-scaled posterior mean [1, h, w, 4] of the PNG or JPEG at ``path``,
     resized and padded to the preset's image size (the space the training's
     reference latents live in); without a VAE (pixel space) the image
     itself [1, H, W, 3] in [-1, 1]."""
     import torch
 
-    from ..data.png import read_png
+    from ..data.png import read_image
     from ..models.vae import encode_to_latent
     from ..utils.images import normalize_to_unit, resize_and_pad
 
-    img = resize_and_pad(read_png(path), exp.data.img_height, exp.data.img_width)
+    img = resize_and_pad(read_image(path), exp.data.img_height, exp.data.img_width)
     if vae is None:
         return normalize_to_unit(img)[None].astype(np.float32)
     x = torch.from_numpy(normalize_to_unit(img)[None]).to(device)
@@ -237,6 +253,7 @@ def build(args):
 
     from ..generate.sample import WordSampler
     from ..models.vae import make_vae
+    from ..train.checkpoint import weights_file
 
     _refuse_unported(args)
     device = torch.device(args.device)
@@ -253,10 +270,11 @@ def build(args):
         from .train import style_lookup as read_style_dict
 
         style_lookup = read_style_dict(args.style_dict)
-    unet = load_unet(exp, args.torch_ckpt, args.seed, bool(args.hiGanArch)).to(device)
+    unet = load_unet(exp, args, bool(args.hiGanArch)).to(device)
     vae = None
     if exp.data.latent:
-        vae = make_vae(exp.vae, args.stable_dif_path, args.vae_pt,
+        vae_pt = weights_file(args.vae_pt, args.vae_ckpt, "--vae_ckpt", "vae.pt")
+        vae = make_vae(exp.vae, args.stable_dif_path, vae_pt,
                        with_encoder=bool(args.imgConditioned), seed=args.seed)
         vae = vae.to(device).eval().requires_grad_(False)
     sampler = WordSampler(exp, unet, vae, cfg_scale=args.cfg_scale, ddim_steps=args.ddim,
@@ -264,7 +282,7 @@ def build(args):
     cond_lat1 = cond_latent(vae, args.cond_image, exp, device) if args.imgConditioned else None
 
     rng_np = np.random.default_rng(args.seed)
-    ckpt_dir = os.path.dirname(args.torch_ckpt) if args.torch_ckpt else ""
+    ckpt_dir = args.ckpt_dir or (os.path.dirname(args.torch_ckpt) if args.torch_ckpt else "")
     if args.gt_file:
         from ..data.gt import parse_gt
 

@@ -9,7 +9,8 @@ The latent cache is an npz of ``image name -> [8, 32, 4]`` VAE latents
 (``cli.build_latent_cache`` writes one). Without ``--latent_cache`` the
 word crops are read from ``--iam_path`` and each batch is encoded by the
 frozen VAE encoder inside the step: the VAE comes from a diffusers
-``--stable_dif_path`` file or a full ``--vae_pt`` state dict, or is
+``--stable_dif_path`` file, a full ``--vae_pt`` state dict or
+``--vae_ckpt`` (``cli.train_vae``'s ``--save_dir``: its ``vae.pt``), or is
 seeded random with a warning. Checkpoints land in
 ``<save_path>/ckpt/<step>/``; ``ema_unet.pt`` there is the regeneration
 CLI's ``--torch_ckpt``. Epoch previews are written to
@@ -83,7 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--preview_ddim", type=int, default=50,
                    help="DDIM steps for epoch previews; 0 = full DDPM "
                         "(the reference preview path)")
-    p.add_argument("--vae_ckpt", default="", help="orbax VAE dir (not readable here)")
+    p.add_argument("--vae_ckpt", default="", help="cli.train_vae's --save_dir (its vae.pt)")
     p.add_argument("--stable_dif_path", default="", help="diffusers VAE (safetensors)")
     p.add_argument("--vae_pt", default="",
                    help="VAE state dict in the port's keys: full (encoder too), or "
@@ -110,10 +111,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    if args.vae_ckpt:
-        raise NotImplementedError("--vae_ckpt is not ported to PyTorch yet: an orbax VAE "
-                                  "checkpoint is not readable here; convert it with "
-                                  "models.convert.jax_vae_to_torch (--vae_pt)")
     if not args.latent and args.latent_cache:
         raise SystemExit("--latent 0 trains on the images: a --latent_cache holds VAE latents")
     if args.wrdChrWrStyl and not args.style_dict and not args.allow_random_style:
@@ -229,8 +226,10 @@ def _vae(args, exp, device, with_encoder: bool):
     """The frozen VAE on ``device``: the full codec when the steps encode
     images, the decode half for the previews of latent-cache training."""
     from ..models.vae import make_vae
+    from ..train.checkpoint import weights_file
 
-    vae = make_vae(exp.vae, args.stable_dif_path, args.vae_pt, with_encoder=with_encoder,
+    vae_pt = weights_file(args.vae_pt, args.vae_ckpt, "--vae_ckpt", "vae.pt")
+    vae = make_vae(exp.vae, args.stable_dif_path, vae_pt, with_encoder=with_encoder,
                    seed=args.seed)
     return vae.to(device).eval().requires_grad_(False)
 

@@ -7,9 +7,9 @@ length 1..17 from the word image, trained with Adam (optax's defaults).
 
 ``params.pkl`` is the JAX CLI's: a pickled tree of numpy arrays under
 flax's names, which ``train_phosc --len_counter`` of either package reads.
-The crops are PNGs (``data.png``); without ``--gt_train``, or with
-``--synthetic 1``, the corpus is the JAX CLI's synthetic one, and a
-missing crop is drawn by ``data.synthetic.render_word``.
+The crops are PNGs or JPEGs (``data.png.read_image``); without
+``--gt_train``, or with ``--synthetic 1``, the corpus is the JAX CLI's
+synthetic one, and a missing crop is drawn by ``data.synthetic.render_word``.
 """
 
 from __future__ import annotations

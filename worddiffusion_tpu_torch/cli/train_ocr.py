@@ -126,7 +126,7 @@ def exact_match(model, imgs: np.ndarray, targets: list[str], alphabet: str,
 def main(argv=None):
     """-> {"model", "metrics", "history"}; writes ocr.pt and metrics.json."""
     from ..data.gt import parse_gt
-    from ..data.png import read_png
+    from ..data.png import read_image
     from ..data.synthetic import render_word, stable_seed, synthetic_corpus, word_list
     from ..models.layers import init_weights_
     from ..models.ocr import CTCRecognizer
@@ -148,7 +148,7 @@ def main(argv=None):
     def load(s):
         path = os.path.join(args.image_dir, s.image) if args.image_dir else ""
         if path and os.path.exists(path):
-            arr = grey(read_png(path))
+            arr = grey(read_image(path))
         else:
             arr = render_word(s.word, 64, 256, seed=stable_seed(s.image))[..., :1]
         return normalize_to_unit(resize_and_pad(arr, 64, 256))

@@ -10,16 +10,15 @@ testing, stop flag.
 
 Checkpoints are the JAX CLI's: ``best_params.pkl`` is a pickled tree of
 numpy arrays under flax's names (``models.convert``), so a checkpoint of
-either package evaluates in the other. The word crops are PNGs read with
-``data.png``; batches are uint8 [B, 50, 250, 3] in the JAX CLI's order, and
+either package evaluates in the other. The word crops are read with
+``data.png.read_image``; batches are uint8 [B, 50, 250, 3] in the JAX CLI's order, and
 the [-1, 1] normalisation runs on the device. Without a gt file, or with
 ``--synthetic 1``, the splits are the JAX CLI's synthetic zero-shot split,
 and a missing crop is drawn by ``data.synthetic.render_word`` (in its
 writer's style with ``--writer_styles 1``). ``--augment P`` applies one
 ``data.augment.random_augment`` op to P% of the training crops each epoch,
-on the epoch's generator, as the JAX CLI. A PNG of any kind is read
-(``data.png``); a non-PNG crop (JPEG) raises: JPEG decoding waits for slice
-13 of the port (ROADMAP A.9).
+on the epoch's generator, as the JAX CLI. A crop is a PNG or a JPEG of any
+kind the port reads (``data.png.read_image``), whatever its name.
 """
 
 from __future__ import annotations
@@ -33,8 +32,6 @@ import time
 
 import numpy as np
 import torch
-
-from .. import NEXT_SLICE
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -137,16 +134,12 @@ def _load_crop(path: str, sample=None, style: dict | None = None) -> np.ndarray:
     """The crop at ``path`` resize-padded to 50 x 250; where there is no
     file, ``sample``'s word drawn by the synthetic renderer (seeded by its
     image name, in ``style``)."""
-    from ..data.png import read_png
+    from ..data.png import read_image
     from ..data.synthetic import render_word, stable_seed
     from ..utils.images import resize_and_pad
 
     if path and os.path.exists(path):
-        try:
-            arr = read_png(path)
-        except ValueError as e:
-            raise NotImplementedError(f"{e}: the port reads PNG crops only (JPEG decoding "
-                                      f"waits for {NEXT_SLICE})") from e
+        arr = read_image(path)
     elif sample is None:
         raise FileNotFoundError(f"no crop at {path!r} (--image_dir names the crops' folder)")
     else:

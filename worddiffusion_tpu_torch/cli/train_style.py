@@ -13,8 +13,8 @@ the JAX CLI's: a pickled tree of numpy arrays under flax's names, which
 either package reads. ``style_dict.npz`` (writer id -> mean style vector of
 the best weights) is the ``--style_dict`` of ``cli.train --wrdChrWrStyl 1``.
 Without ``--gt_train``, or with ``--synthetic 1``, the corpus is rendered by
-``data.synthetic.render_word`` in each writer's style; real crops are PNGs
-(``data.png``).
+``data.synthetic.render_word`` in each writer's style; real crops are PNGs or
+JPEGs (``data.png.read_image``).
 """
 
 from __future__ import annotations
@@ -69,7 +69,7 @@ def corpus(args) -> dict[str, list[np.ndarray]]:
             by_writer[wid] = list(batch_normalize(np.stack(crops)))
     else:
         from ..data.gt import parse_gt
-        from ..data.png import read_png
+        from ..data.png import read_image
         from ..utils.images import resize_and_pad
 
         samples, _ = parse_gt(args.gt_train)
@@ -77,7 +77,7 @@ def corpus(args) -> dict[str, list[np.ndarray]]:
             p = os.path.join(args.image_dir, s.image) if args.image_dir else ""
             if not (p and os.path.exists(p)):
                 continue
-            arr = resize_and_pad(read_png(p), h, w)
+            arr = resize_and_pad(read_image(p), h, w)
             by_writer.setdefault(s.writer, []).append(batch_normalize(arr))
     return {k: v for k, v in by_writer.items() if len(v) >= 2}
 

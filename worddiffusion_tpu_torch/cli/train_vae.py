@@ -93,7 +93,7 @@ def main(argv=None):
     recon_grid.png, metrics.json."""
     from ..configs import presets
     from ..data.gt import parse_gt
-    from ..data.png import read_png
+    from ..data.png import read_image
     from ..data.synthetic import render_word, stable_seed, synthetic_corpus, word_list
     from ..models.layers import init_weights_
     from ..models.vae import AutoencoderKL
@@ -117,7 +117,7 @@ def main(argv=None):
     def load(s) -> np.ndarray:
         path = os.path.join(args.image_dir, s.image) if args.image_dir else ""
         if path and os.path.exists(path):
-            arr = read_png(path)
+            arr = read_image(path)
         else:
             arr = render_word(s.word, h, w, seed=stable_seed(s.image))
         return resize_and_pad(arr, h, w)

@@ -1,7 +1,7 @@
 """Word dataset: samples -> model-ready records (copy of
 ``worddiffusion_tpu/data/dataset.py``'s ``WordImageDataset`` and
-``LatentLookup``, reading images with the port's own PNG reader and
-numpy resize instead of PIL).
+``LatentLookup``, reading images with the port's own PNG and JPEG
+reader, ``data.png.read_image``, and numpy resize instead of PIL).
 
 A record is ``{image_name, word, context, writer}`` plus either
 ``latent`` [8, 32, 4] (the sample's entry in the latent cache) or
@@ -28,7 +28,7 @@ from ..ops.ctc import encode_ocr_labels
 from ..utils.images import normalize_to_unit, resize_and_pad
 from .gt import Sample, WriterRegistry
 from .phosc import phosc_vector
-from .png import read_png
+from .png import read_image
 from .synthetic import render_word, stable_seed, writer_style
 from .tokenizer import Tokenizer
 
@@ -136,7 +136,7 @@ class WordImageDataset:
     def _load_image(self, sample: Sample, idx: int) -> np.ndarray:
         path = os.path.join(self.cfg.image_dir, sample.image) if self.cfg.image_dir else ""
         if path and os.path.exists(path):
-            img = read_png(path)
+            img = read_image(path)
         else:
             img = render_word(sample.word, self.cfg.img_height, self.cfg.img_width,
                               seed=stable_seed(sample.image),

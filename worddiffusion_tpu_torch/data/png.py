@@ -11,6 +11,9 @@ or 255, 2- and 4-bit scaled by 85 and 17, 16-bit clipped at 255 as PIL's
 ``I;16`` to ``L``), 16-bit colour samples by their high byte, alpha and
 ``tRNS`` dropped, palette indices past the palette black (``convert("L")``
 is ``cli.train_ocr.grey`` of that). (Writing: ``utils.images.encode_png``.)
+
+``read_image`` is the port's one image reader: it dispatches on the file's
+signature to this decoder or to ``data.jpeg``, as PIL's ``Image.open`` does.
 """
 
 from __future__ import annotations
@@ -160,3 +163,24 @@ def read_png(path: str) -> np.ndarray:
     with open(path, "rb") as f:
         return decode_png(f.read(), path)
 
+
+
+# the signatures of the formats PIL also opens, for the refusal's message
+_OTHER_FORMATS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+                  (b"RIFF", "RIFF (WebP)"), (b"\x00\x00\x00\x0cjP", "JPEG 2000"))
+
+
+def read_image(path: str) -> np.ndarray:
+    """The PNG or JPEG at ``path`` (by its signature, not its name) -> uint8
+    [H, W, 3] RGB; any other format raises, naming it."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    if raw[:8] == _SIGNATURE:
+        return decode_png(raw, path)
+    if raw[:2] == b"\xff\xd8":
+        from .jpeg import decode_jpeg
+
+        return decode_jpeg(raw, path)
+    name = next((n for sig, n in _OTHER_FORMATS if raw.startswith(sig)),
+                f"an unknown format (first bytes {raw[:8].hex()})")
+    raise ValueError(f"{path}: {name} is not read here; the port reads PNG and JPEG")

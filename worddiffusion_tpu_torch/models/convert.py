@@ -1,11 +1,20 @@
-"""Flax parameter trees -> the port's state dicts.
+"""Checkpoint converters: the reference's UNet checkpoints, and Flax
+parameter trees, to and from the port's state dicts.
 
-The UNet needs no loader here: its parameter names are the reference
-torch keys, so ``worddiffusion_tpu.models.convert.export_reference_unet``
-(jax-free, numpy only) already emits a state dict that
-``UNet.load_state_dict(strict=True)`` takes, but for the parameters that
-exporter leaves out (the CTC aux head and the glyph encoder), which
-``jax_unet_extras_to_torch`` maps. This module adds the VAE
+The UNet's parameter names are the reference torch keys, so reading a
+reference checkpoint is a key-level normaliser, not a layout transform:
+``reference_unet_to_port`` (the counterpart of
+``worddiffusion_tpu.models.convert.convert_reference_unet``) takes the
+published ``ckpt_*.pt`` / ``ema_*.pt`` of WordStylist / WordDiffusion
+(``load_torch_checkpoint`` unwraps a ``{"state_dict": ...}``), their
+``--attentionMaps`` ``middle_block1`` layout, the research ``UNetModel``'s
+dead tensors (left unread) and the ``CTCtopC`` aux head's eval-mode
+BatchNorm (folded into its convs); ``port_unet_to_reference`` (the
+counterpart of ``export_reference_unet``) writes the reference layout back.
+Both walk the keys in JAX's construction order, so they take exactly the
+keys JAX's take. ``jax_unet_extras_to_torch`` maps the Flax UNet's
+parameters that JAX's exporter leaves out (the CTC aux head and the glyph
+encoder). This module adds the VAE
 (diffusers key names; the inverse of
 ``worddiffusion_tpu.models.vae.convert_diffusers_vae``) and the OCR
 recognizer, the HiGAN+ denoiser, and the PHOSC recognizer, the character counter and the
@@ -25,6 +34,7 @@ these give, cut for its rank: ``parallel.tensor.shard_state_dict``.
 
 from __future__ import annotations
 
+import logging
 import os
 import pickle
 import re
@@ -88,6 +98,198 @@ def jax_unet_extras_to_torch(params: Mapping, cfg) -> dict[str, np.ndarray]:
             _conv(p[conv]["Conv_0"], conv, out)
         _linear(p["glyph_proj"]["Dense_0"], "glyph_proj", out)
     return out
+
+
+# -- the reference UNet's checkpoints ------------------------------------------
+def load_torch_checkpoint(path: str) -> dict[str, torch.Tensor]:
+    """A reference ``.pt`` checkpoint (``ckpt_*.pt`` / ``ema_*.pt``, or the
+    port's ``ema_unet.pt``) -> its state dict, unwrapped from a
+    ``{"state_dict": ...}``."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return dict(sd)
+
+
+def _np(v) -> np.ndarray:
+    return _t(v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v)
+
+
+def _pairs(names, prefix: str = "") -> list[str]:
+    """The weight and bias keys of each module ``names`` under ``prefix``."""
+    pre = prefix + "." if prefix else ""
+    return [f"{pre}{n}.{leaf}" for n in names for leaf in ("weight", "bias")]
+
+
+def _resblock_keys(prefix: str, skip: bool) -> list[str]:
+    keys = _pairs(("in_layers.0", "in_layers.2", "emb_layers.1", "out_layers.0",
+                   "out_layers.3"), prefix)
+    return keys + _pairs(("skip_connection",), prefix) if skip else keys
+
+
+def _transformer_keys(prefix: str, cfg) -> list[str]:
+    keys = _pairs(("norm", "proj_in", "proj_out"), prefix)
+    for d in range(cfg.transformer_depth):
+        tb = f"{prefix}.transformer_blocks.{d}"
+        for attn in ("attn1", "attn2"):
+            keys += [f"{tb}.{attn}.to_{n}.weight" for n in "qkv"]
+            keys += _pairs(("to_out.0",), f"{tb}.{attn}")
+        keys += _pairs(("norm2", "norm3", "ff.net.0.proj", "ff.net.2"), tb)
+        if not cfg.attn1_cross:  # the WordStylist variant runs norm1
+            keys += _pairs(("norm1",), tb)
+    return keys
+
+
+def _unet_layout(cfg, has, middle_block1: bool) -> list[tuple[str, str]]:
+    """(port key, reference key) of every UNet tensor JAX's converters carry,
+    in their construction order (``convert_reference_unet``). ``has(key)``:
+    whether the source state dict holds a ResBlock's skip connection."""
+    keys = _pairs(("time_embed.0", "time_embed.2")) + ["label_emb.weight",
+                                                       "word_emb.embedding.weight"]
+    keys += _pairs(("linear_query", "linear_key", "linear_value"), "word_emb.attention")
+    if cfg.style_vec_dim:
+        keys += ["wrd_proj.weight", "wrd_proj.bias"]
+    keys += _pairs(("0",), "input_blocks.0")
+
+    def res(prefix):
+        return _resblock_keys(prefix, has(prefix + ".skip_connection.weight"))
+
+    idx, ds, levels = 1, 1, len(cfg.channel_mult)
+    for level in range(levels):
+        for _ in range(cfg.num_res_blocks):
+            keys += res(f"input_blocks.{idx}.0")
+            if ds in cfg.attention_resolutions:
+                keys += _transformer_keys(f"input_blocks.{idx}.1", cfg)
+            idx += 1
+        if level != levels - 1:
+            keys += _pairs(("0.op",), f"input_blocks.{idx}")
+            idx += 1
+            ds *= 2
+    pairs = [(k, k) for k in keys]
+    # --attentionMaps checkpoints hold the middle block as
+    # middle_block1 = [[ResBlock, ST], [ResBlock]] (reference unet.py:1336-1366)
+    mid = (("middle_block1.0.0", "middle_block1.0.1", "middle_block1.1.0") if middle_block1
+           else ("middle_block.0", "middle_block.1", "middle_block.2"))
+    for i, ref in enumerate(mid):
+        keys = _transformer_keys(ref, cfg) if i == 1 else res(ref)
+        pairs += [(f"middle_block.{i}" + k[len(ref):], k) for k in keys]
+    keys = []
+    idx = 0
+    for level in reversed(range(levels)):
+        for i in range(cfg.num_res_blocks + 1):
+            keys += res(f"output_blocks.{idx}.0")
+            layer = 1
+            if ds in cfg.attention_resolutions:
+                keys += _transformer_keys(f"output_blocks.{idx}.{layer}", cfg)
+                layer += 1
+            if level and i == cfg.num_res_blocks:
+                keys += _pairs((f"{layer}.conv",), f"output_blocks.{idx}")
+                ds //= 2
+            idx += 1
+    keys += _pairs(("out.0", "out.2"))
+    return pairs + [(k, k) for k in keys]
+
+
+def _glyph_keys(cfg) -> list[str]:
+    """The port's glyph encoder (``use_char_images``), which JAX's converters
+    do not carry; the port's own checkpoints hold it under these keys."""
+    return _pairs(("glyph_conv1", "glyph_conv2", "glyph_proj")) if cfg.use_char_images else []
+
+
+def _fold_bn_conv(sd, conv: str, bn: str, eps: float = 1e-5) -> tuple[np.ndarray, np.ndarray]:
+    """An eval-mode BatchNorm2d folded into the conv before it, in fp32 numpy
+    in JAX's order (``_fold_bn_conv``): s = gamma / sqrt(var + eps)."""
+    w, b = _np(sd[conv + ".weight"]), _np(sd[conv + ".bias"])
+    gamma, beta = _np(sd[bn + ".weight"]), _np(sd[bn + ".bias"])
+    mean, var = _np(sd[bn + ".running_mean"]), _np(sd[bn + ".running_var"])
+    s = gamma / np.sqrt(var + eps)
+    return w * s[:, None, None, None], (b - mean) * s + beta
+
+
+_OCR_NORM_REFUSAL = ("converted reference CTC heads fold BatchNorm into the convs; "
+                     "build the UNet with ocr_norm='none'")
+
+
+def _aux_head(sd, cfg, out: dict, read: set) -> None:
+    """The CTC aux head (``cfg.ocr_head``) into ``out``: the reference
+    ``CTCtopC``'s BatchNorm folded into its convs (``ocr_norm="none"``,
+    JAX's ``_ctc_head``), or, under ``ocr_norm="group"``, the port's own
+    GroupNorm head as its trainer saves it."""
+    pre = "auxhead"
+    convs = [f"{pre}.temporal_i"] + [f"{pre}.temporal_m.{i}" for i in range(cfg.ocr_layers)]
+    batchnorm = f"{pre}.temporal_i.1.running_mean" in sd
+    if cfg.ocr_norm != "none" and (batchnorm or cfg.ocr_norm != "group"):
+        raise ValueError(_OCR_NORM_REFUSAL)
+    plain = _pairs(("temporal_o", "lin1", "lin2"), pre)
+
+    def copy(keys):
+        out.update({k: _np(sd[k]) for k in keys})
+        read.update(keys)
+
+    def fold(name):
+        out[name + ".0.weight"], out[name + ".0.bias"] = _fold_bn_conv(
+            sd, name + ".0", name + ".1")
+        read.update(_pairs(("0", "1"), name) + [f"{name}.1.running_mean",
+                                                 f"{name}.1.running_var"])
+
+    if cfg.ocr_norm == "group":
+        copy([k for c in convs for k in _pairs(("0", "1"), c)] + plain)
+        return
+    fold(convs[0])  # JAX's order: temporal_i, temporal_o, lin1, lin2, temporal_m
+    copy(plain)
+    for name in convs[1:]:
+        fold(name)
+
+
+def reference_unet_to_port(sd: Mapping, cfg) -> dict[str, np.ndarray]:
+    """A reference UNet state dict (torch tensors or numpy; a
+    ``{"state_dict": ...}`` is unwrapped) -> the port's ``UNet(cfg)`` keys,
+    fp32 numpy (``state_dict_to_torch`` makes it loadable with
+    ``strict=True``). The counterpart of JAX's ``convert_reference_unet``:
+    the same keys in the same order, ``middle_block1`` read as
+    ``middle_block``, the ``to_kv`` / ``attnc`` / dead ``norm1`` tensors and
+    the buffers left unread (logged), a ``CTCtopC`` head's BatchNorm folded
+    under ``ocr_norm="none"``. A tensor the UNet needs and ``sd`` lacks raises
+    ``KeyError`` naming it."""
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    middle_block1 = "middle_block.0.in_layers.0.weight" not in sd
+    out, read = {}, set()
+    for port, ref in _unet_layout(cfg, lambda k: k in sd, middle_block1):
+        if ref not in sd:
+            raise KeyError(ref)
+        out[port] = _np(sd[ref])
+        read.add(ref)
+    for k in _glyph_keys(cfg):
+        out[k] = _np(sd[k])
+        read.add(k)
+    if cfg.ocr_head:
+        if "auxhead.temporal_i.0.weight" not in sd:
+            raise KeyError("auxhead.temporal_i.0.weight")
+        _aux_head(sd, cfg, out, read)
+    unread = [k for k in sd if k not in read]
+    if unread:
+        logging.info("reference UNet checkpoint: %d of %d tensors left unread (e.g. %s)",
+                     len(unread), len(sd), ", ".join(unread[:3]))
+    return out
+
+
+def port_unet_to_reference(sd: Mapping, cfg, template: Mapping | None = None,
+                           middle_block1: bool = False) -> dict[str, torch.Tensor]:
+    """The port's UNet state dict -> a reference state dict, fp32 tensors:
+    the counterpart of JAX's ``export_reference_unet``, with its key set and
+    values. ``template`` (an original reference state dict) fills every key
+    this does not write (dead tensors, buffers), so the reference module
+    loads the result with ``strict=True``; ``middle_block1`` writes the
+    ``--attentionMaps`` layout. The CTC aux head and the glyph encoder are
+    not exported (a converted head's BatchNorm was folded; retrain it or
+    keep the template's)."""
+    out = {ref: _np(sd[port]) for port, ref in _unet_layout(cfg, lambda k: k in sd,
+                                                             middle_block1)}
+    merged = {k: (v if isinstance(v, torch.Tensor) else torch.from_numpy(np.asarray(v)))
+              for k, v in (template or {}).items()}
+    merged.update(state_dict_to_torch(out))
+    return merged
 
 
 def jax_higan_to_torch(params: Mapping) -> dict[str, np.ndarray]:

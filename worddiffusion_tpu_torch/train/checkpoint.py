@@ -15,6 +15,13 @@ a checkpoint has the one-process run's keys and shapes whatever the mesh
 (the regeneration and sampling CLIs read it unchanged), and ``restore``
 cuts it for this rank: a run resumes bitwise at the same mesh and loads at
 any other.
+
+``read_unet`` reads a checkpoint's UNet without a Trainer: the directory the
+JAX CLIs' ``--ckpt_dir`` names, here the port train CLI's. The JAX package's
+own directories are orbax's, which the port recognises and refuses
+(``is_orbax``): their OCDBT manifest and data files are zstd-compressed,
+and neither Python's standard library nor anything the port depends on
+decodes zstd.
 """
 
 from __future__ import annotations
@@ -32,6 +39,77 @@ from .state import TrainState
 
 STATE_FILE = "state.pt"
 EMA_FILE = "ema_unet.pt"
+# the files by which an orbax checkpoint directory is known
+ORBAX_FILES = ("_CHECKPOINT_METADATA", "manifest.ocdbt")
+ORBAX_REFUSAL = ("an orbax checkpoint (the JAX package's); its OCDBT manifest and data files "
+                 "are zstd-compressed (frame magic 28 b5 2f fd), and neither Python's standard "
+                 "library nor the port's dependencies decode zstd, so the port cannot read it. "
+                 "The port's own trainers write what these flags read: cli.train's "
+                 "<save_path>/ckpt, cli.train_vae's and cli.train_ocr's --save_dir")
+
+
+def is_orbax(path: str, depth: int = 3) -> bool:
+    """Whether ``path`` is (or holds, ``depth`` levels down) an orbax
+    checkpoint, by its ``_CHECKPOINT_METADATA`` or ``manifest.ocdbt``."""
+    if not os.path.isdir(path):
+        return False
+    names = os.listdir(path)
+    if any(n in ORBAX_FILES for n in names):
+        return True
+    return depth > 0 and any(is_orbax(os.path.join(path, n), depth - 1) for n in names)
+
+
+def refuse_orbax(flag: str, path: str) -> None:
+    """Exit naming ``flag`` and the reason where ``path`` is an orbax
+    checkpoint."""
+    if path and is_orbax(path):
+        raise SystemExit(f"{flag} {path} is {ORBAX_REFUSAL}")
+
+
+def checkpoint_steps(directory: str) -> list[int]:
+    """The steps of ``directory``'s complete checkpoints, oldest first."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(n) for n in os.listdir(directory)
+                  if n.isdigit() and os.path.isfile(os.path.join(directory, n, STATE_FILE)))
+
+
+def weights_file(pt: str, ckpt_dir: str, flag: str, name: str) -> str:
+    """A side model's state dict: ``pt`` (``--vae_pt`` / ``--ocr_pt``), or
+    ``name`` in ``ckpt_dir`` (``--vae_ckpt`` / ``--ocr_ckpt`` name the
+    ``--save_dir`` that ``cli.train_vae`` / ``cli.train_ocr`` write ``vae.pt``
+    / ``ocr.pt`` into). Both given, an orbax directory, or a directory without
+    the file exit naming ``flag``."""
+    if not ckpt_dir:
+        return pt
+    if pt:
+        raise SystemExit(f"{flag} and --{name.replace('.', '_')} both name the weights: "
+                         f"pass one")
+    refuse_orbax(flag, ckpt_dir)
+    path = os.path.join(ckpt_dir, name)
+    if not os.path.isfile(path):
+        raise SystemExit(f"{flag} {ckpt_dir}: no {name} in it (the file the port's trainer "
+                         f"writes into its --save_dir)")
+    return path
+
+
+def read_unet(ckpt_dir: str, use_ema: bool = True, step: Optional[int] = None) -> dict:
+    """The UNet state dict (the one-process keys and shapes, whatever mesh
+    trained it) of ``ckpt_dir``'s newest checkpoint, or of ``step``: its EMA
+    weights, or with ``use_ema`` False the trained ones. An orbax directory
+    raises ``ValueError``, one without a checkpoint ``FileNotFoundError``;
+    each message starts with ``ckpt_dir``, so a CLI prefixes its flag."""
+    if is_orbax(ckpt_dir):
+        raise ValueError(f"{ckpt_dir} is {ORBAX_REFUSAL}")
+    steps = checkpoint_steps(ckpt_dir)
+    if not steps or (step is not None and step not in steps):
+        raise FileNotFoundError(f"{ckpt_dir} holds no checkpoint"
+                                f"{'' if step is None else f' of step {step}'} "
+                                f"(<step>/{STATE_FILE})")
+    step = steps[-1] if step is None else step
+    ck = torch.load(os.path.join(ckpt_dir, str(step), STATE_FILE), map_location="cpu",
+                    weights_only=True)
+    return ck["ema" if use_ema else "model"]
 
 
 class CheckpointManager:
@@ -41,8 +119,7 @@ class CheckpointManager:
         os.makedirs(self.directory, exist_ok=True)
 
     def steps(self) -> list[int]:
-        return sorted(int(n) for n in os.listdir(self.directory)
-                      if n.isdigit() and os.path.isfile(self.path(int(n), STATE_FILE)))
+        return checkpoint_steps(self.directory)
 
     def path(self, step: int, name: str = STATE_FILE) -> str:
         return os.path.join(self.directory, str(step), name)
