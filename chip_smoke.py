@@ -249,6 +249,19 @@ Phases, each of which must pass (any failure exits non-zero):
    encoder, each under 16 names), in turns with the same crops as PNGs: the
    JSON keys, B.5 launches (48 a style-encoder batch, 10 an OCR batch),
    images/s of the whole call and the loading's ms per image apart.
+30. the JAX package's orbax checkpoints, read without JAX, orbax or
+   zstandard (``train/orbax_check.npz``): (a) its four sets (a narrow random
+   TrainState, the full-width ``iam`` TrainState, the VAE and the OCR as
+   their JAX trainers write them) decoded bitwise, the zstd decoder's MB/s
+   on random (Huffman-coded) and tiled (match) chunks, the whole ``iam``
+   TrainState's read time; (b) ``cli.regenerate --ckpt_dir --vae_ckpt
+   --ocr_ckpt`` on the orbax directories, 16 words, against the same
+   weights in the port's keys: every PNG and eps on a fixed input bitwise,
+   4 / 8 / 9 / 12 B.1 / B.4 / B.5 / B.6 launches a UNet call, s/batch in
+   turns; (c) ``cli.export_reference`` of the orbax directory, reloaded
+   bitwise; (d) ``cli.train --loadPrev 1`` resuming the ``iam`` TrainState
+   (step 8) for 2 steps on phase 7's corpus: restored step, parameters and
+   moments, 4 B.1 and 4 B.3 launches a step.
 
 Every training phase counts 9 B.5 and 12 B.6 launches and Function
 backward calls per step (13 B.5 with the CTC aux head), and 9 * 50 + 4 and
@@ -3929,6 +3942,209 @@ def phase29_checkpoints(smi: str, work: str, cli, gt: str, corpus: tuple[str, st
                 phase_s=phase_s)
 
 
+def nest(flat: dict) -> dict:
+    """{"a.b.c": leaf} -> nested dicts (the Flax trees the converters take)."""
+    out: dict = {}
+    for key, v in flat.items():
+        node = out
+        *parents, leaf = key.split(".")
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def zstd_rate(store) -> tuple[float, int]:
+    """MB/s of ``utils.zstd`` over every zarr chunk of an OCDBT store (the
+    decoded bytes over the decode time), and the bytes decoded."""
+    from worddiffusion_tpu_torch.utils import zstd
+
+    frames = [store.read(k) for k in store.keys() if not k.endswith("/.zarray")]
+    t0 = time.perf_counter()
+    n = sum(len(zstd.decompress(f)) for f in frames)
+    return n / (time.perf_counter() - t0) / 1e6, n
+
+
+def phase30_orbax(smi: str, work: str, cli, gt: str, corpus: tuple[str, str]) -> dict:
+    """Phase 30: the JAX package's orbax checkpoints, read without JAX, orbax
+    or zstandard (``train/orbax_check.npz``, the committed check set). (a)
+    every set decoded bitwise to its expected arrays; the zstd decoder's MB/s
+    on the narrow set's random chunks (Huffman-coded literals) and on the
+    tiled full-width sets (long matches), the read time of the whole
+    full-width ``iam`` TrainState; (b) ``cli.regenerate --ckpt_dir <iam orbax>
+    --vae_ckpt <vae orbax> --ocr_ckpt <ocr orbax>`` on 16 words against the
+    seed rule's weights written in the port's keys (``--torch_ckpt``,
+    ``--vae_pt``, ``--ocr_pt``): every PNG and the UNet's eps on a fixed
+    input bitwise, 4 / 8 / 9 / 12 B.1 / B.4 / B.5 / B.6 launches a UNet call,
+    s/batch of both in turns; (c) ``cli.export_reference`` of the orbax
+    directory, reloaded bitwise; (d) ``cli.train --loadPrev 1`` from the
+    ``iam`` TrainState (step 8, zero moments) for 2 steps on phase 7's
+    corpus: the restored step, parameters and moments, 4 B.1 and 4 B.3 a
+    step; then ``ckpt/`` holds the JAX step and the port's, and
+    ``read_unet`` reads the port's."""
+    import numpy as np
+    import torch
+
+    from worddiffusion_tpu_torch.cli import export_reference
+    from worddiffusion_tpu_torch.cli import train as train_cli
+    from worddiffusion_tpu_torch.configs import presets
+    from worddiffusion_tpu_torch.models.convert import (
+        jax_ocr_to_torch, jax_unet_to_torch, jax_vae_to_torch, reference_unet_to_port,
+        state_dict_to_torch,
+    )
+    from worddiffusion_tpu_torch.ops import ffn
+    from worddiffusion_tpu_torch.train import orbax_check
+    from worddiffusion_tpu_torch.train.checkpoint import locate, read_unet
+    from worddiffusion_tpu_torch.train.orbax import read_orbax
+    from worddiffusion_tpu_torch.utils.ocdbt import OcdbtStore
+
+    t_phase = time.perf_counter()
+    exp = presets.get("iam")
+    # (a) the check set, bitwise; the decoder's rates
+    dirs, expected, read_s = {}, {}, {}
+    for name in orbax_check.SETS:
+        dirs[name] = orbax_check.unpack(name, os.path.join(work, f"orbax_{name}"))
+        expected[name] = orbax_check.expected(name)
+        t0 = time.perf_counter()
+        got = orbax_check.flatten(read_orbax(os.path.join(dirs[name], "ckpt")))
+        read_s[name] = time.perf_counter() - t0
+        want = expected[name]
+        bad = sorted(k for k in want if k not in got or got[k].dtype != want[k].dtype
+                     or got[k].tobytes() != want[k].tobytes())
+        assert sorted(got) == sorted(want) and not bad, (name, bad[:5])
+    rates = {}
+    for name in ("narrow", "iam"):
+        step = next(n for n in os.listdir(os.path.join(dirs[name], "ckpt")) if n.isdigit())
+        rates[name] = zstd_rate(OcdbtStore(os.path.join(dirs[name], "ckpt", step, "default")))
+    n_iam = sum(v.nbytes for v in expected["iam"].values())
+    n_ema = sum(v.nbytes for k, v in expected["iam"].items() if k.startswith("ema_params."))
+    log(f"30 orbax check set: {len(orbax_check.SETS)} sets decoded bitwise "
+        f"({', '.join(f'{k} {len(v)} leaves' for k, v in expected.items())}); read_orbax s "
+        + ", ".join(f"{k} {v:.3f}" for k, v in read_s.items())
+        + f" (iam: the whole TrainState, {n_iam / 1e6:.1f} MB); zstd MB/s on this machine's "
+        f"CPU: narrow random chunks (Huffman literals) {rates['narrow'][0]:.2f} over "
+        f"{rates['narrow'][1]} bytes, tiled iam chunks (long matches) {rates['iam'][0]:.1f} "
+        f"over {rates['iam'][1]} bytes; an iam EMA of real weights ({n_ema / 1e6:.1f} MB fp32, "
+        f"Huffman-coded) would read in about {n_ema / 1e6 / rates['narrow'][0]:.1f} s [{smi}]")
+
+    # (b) regeneration from the orbax directories against the same weights in port keys
+    trees = {k: nest(v) for k, v in expected.items() if k != "narrow"}
+    port = {"ema": state_dict_to_torch(jax_unet_to_torch(trees["iam"]["ema_params"], exp.unet)),
+            "vae": state_dict_to_torch(jax_vae_to_torch(trees["vae"], exp.vae)),
+            "ocr": state_dict_to_torch(jax_ocr_to_torch(trees["ocr"]))}
+    files = {k: os.path.join(work, f"orbax_port_{k}.pt") for k in port}
+    for k, sd in port.items():
+        torch.save(sd, files[k])
+    with open(gt) as f:
+        lines = f.readlines()[:B]
+    gt16 = os.path.join(work, "words16_orbax.filter27")
+    with open(gt16, "w") as f:
+        f.writelines(lines)
+    ckpt = {k: os.path.join(dirs[k], "ckpt") for k in ("iam", "vae", "ocr")}
+    sources = {"orbax": ("--ckpt_dir", ckpt["iam"], "--vae_ckpt", ckpt["vae"], "--ocr_ckpt",
+                         ckpt["ocr"]),
+               "port": ("--torch_ckpt", files["ema"], "--vae_pt", files["vae"], "--ocr_pt",
+                        files["ocr"])}
+    runs = {}
+    for label, flags in sources.items():
+        t0 = time.perf_counter()
+        regen, samples = cli.build(regen_cli_args(cli, gt16, os.path.join(
+            work, f"regen_orbax_{label}"), *flags))
+        build_s = time.perf_counter() - t0
+        runs[label] = dict(regen=regen, build_s=build_s, files=None,
+                           counts=drive_regen(smi, regen, samples, seed=0, label=f"30 {label}"))
+        runs[label]["files"] = dump_files(regen.out_dir)
+    a, b = runs["orbax"]["regen"].sampler, runs["port"]["regen"].sampler
+    for mod_a, mod_b in ((a.model, b.model), (a.vae, b.vae), (a.ocr_apply, b.ocr_apply)):
+        sa, sb = mod_a.state_dict(), mod_b.state_dict()
+        assert sa.keys() == sb.keys() and all(torch.equal(sa[k], sb[k]) for k in sa)
+    words = [ln.split()[-1] for ln in lines]
+    inputs = unet_inputs(a, words, phosc=False)
+    with torch.no_grad():
+        eps_a, eps_b = a.model(*inputs), b.model(*inputs)
+    fa, fb = runs["orbax"]["files"], runs["port"]["files"]
+    same_pngs = fa.keys() == fb.keys() and all(fa[k] == fb[k] for k in fa)
+    times = {"orbax": [], "port": []}
+    for r, label in enumerate(("orbax", "port", "port", "orbax")):
+        sampler = runs[label]["regen"].sampler
+        gen = torch.Generator(device="cuda").manual_seed(400 + r)
+        t0 = time.perf_counter()
+        sampler.sample_async(words, list(range(B)), gen)[0].cpu()
+        times[label].append(time.perf_counter() - t0)
+    log(f"30 regenerate --ckpt_dir / --vae_ckpt / --ocr_ckpt on the orbax directories against "
+        f"the seed rule's weights in port keys: UNet, VAE, OCR bitwise; eps on a fixed input "
+        f"bitwise {torch.equal(eps_a, eps_b)}; {len(fa)} PNGs bitwise {same_pngs}; CLI build s "
+        f"(weights read included) orbax {runs['orbax']['build_s']:.3f}, port "
+        f"{runs['port']['build_s']:.3f}; s/batch (drive) orbax "
+        f"{runs['orbax']['counts']['s_per_batch']:.4f}, port "
+        f"{runs['port']['counts']['s_per_batch']:.4f}; one batch in turns (orbax, port, port, "
+        f"orbax): {times} s [{smi}]")
+    assert torch.equal(eps_a, eps_b) and bool(torch.isfinite(eps_a).all())
+    assert same_pngs and len(fa) == B, (len(fa), len(fb))
+    regen_counts = dict(runs["orbax"]["counts"])
+    s_per_batch = {k: v["counts"]["s_per_batch"] for k, v in runs.items()}
+    build_s = {k: v["build_s"] for k, v in runs.items()}
+    del runs, a, b, sampler
+
+    # (c) the export of the orbax directory, reloaded
+    out = os.path.join(work, "export_orbax.pt")
+    exported = export_reference.main(["--preset", "iam", "--ckpt_dir", ckpt["iam"], "--out", out])
+    back = reference_unet_to_port(torch.load(out, weights_only=True), exp.unet)
+    assert back.keys() == port["ema"].keys()
+    assert all(np.array_equal(back[k], port["ema"][k].numpy()) for k in back)
+    log(f"30 export_reference of the orbax iam TrainState's EMA: {len(exported)} tensors, "
+        f"reloaded bitwise")
+
+    # (d) resuming the JAX run: 2 steps on phase 7's corpus
+    gt_train, cache = corpus
+    args = train_cli.build_parser().parse_args([
+        "--preset", "iam", "--gt_train", gt_train, "--latent_cache", cache, "--batch_size",
+        str(TRAIN_B), "--epochs", "1", "--ckpt_every_epochs", "1", "--save_path", dirs["iam"],
+        "--seed", "0", "--loadPrev", "1", "--device", "cuda"])
+    trainer = train_cli.build(args)
+    t0 = time.perf_counter()
+    restored = trainer.ckpt.restore(trainer.init_state())
+    restore_s = time.perf_counter() - t0
+    want_p = jax_unet_to_torch(trees["iam"]["params"], exp.unet)
+    opt = restored.optimizer.state_dict()["state"]
+    assert restored.step == orbax_check.STEP, restored.step
+    assert all(torch.equal(p.cpu(), torch.from_numpy(want_p[n]))
+               for n, p in restored.model.named_parameters())
+    assert all(st["step"].item() == orbax_check.STEP and not st["exp_avg"].any()
+               and not st["exp_avg_sq"].any() for st in opt.values())
+    assert len(opt) == len(want_p)
+    reset_counts()
+    t0 = time.perf_counter()
+    state = trainer.run(epochs=1, resume=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_counts = all_counts()
+    steps = state.step - orbax_check.STEP
+    log(f"30 train --loadPrev 1 from the orbax iam TrainState: restored step "
+        f"{restored.step} (parameters and zero moments as written) in {restore_s:.3f} s, then "
+        f"{steps} steps of B={TRAIN_B} to step {state.step} in {wall:.2f} s incl. a checkpoint "
+        f"and a DDIM-50 preview; launches {train_counts} [{smi}]")
+    assert steps == 2 and TRAIN_STEPS_PER_EPOCH == orbax_check.STEP + 2, steps
+    assert train_counts["ffn_bwd"] == 4 * steps, train_counts
+    assert train_counts["ffn"] == 4 * steps + 4 * 50, train_counts  # + the preview's 50 calls
+    assert all(torch.isfinite(p).all() for p in state.model.parameters())
+    assert trainer.ckpt.steps() == [state.step], trainer.ckpt.steps()
+    # ckpt/ now holds the JAX step and the port's: every reader takes the port's
+    ck_dir = os.path.join(dirs["iam"], "ckpt")
+    assert locate(ck_dir)[:2] == (False, state.step), locate(ck_dir)
+    assert locate(ck_dir, orbax_check.STEP)[:2] == (True, orbax_check.STEP)
+    sd, ema = read_unet(ck_dir, cfg=exp.unet), state.ema.state_dict()
+    assert sd.keys() == ema.keys() and all(torch.equal(sd[k], ema[k].cpu()) for k in ema)
+    log(f"30 after the resume, ckpt/ holds orbax step {orbax_check.STEP} and port step "
+        f"{state.step}: read_unet reads the port's EMA of step {state.step} bitwise")
+    phase_s = time.perf_counter() - t_phase
+    log(f"30 phase: {phase_s:.1f} s")
+    return dict(paths={"regenerate_orbax": dict(regen_counts, ffn_bwd=0),
+                       "train_resume_orbax": train_counts},
+                rates={k: v[0] for k, v in rates.items()}, read_s=read_s,
+                s_per_batch=s_per_batch, turns=times, build_s=build_s, phase_s=phase_s)
+
+
 TP_WORKER_FLAG = "--tp-worker"
 # Parameters after 6 AdamW steps at lr 1e-4, the tensor-parallel run against
 # the one-process run. Each rank's partials are summed in another order than
@@ -4385,6 +4601,9 @@ def main(argv=None) -> int:
     ckpts = phase29_checkpoints(smi, work, cli, gt, corpus,
                                 os.path.dirname(side["train_ocr"]["pt"]))
     stamp("29")
+    # -- 30. the JAX package's orbax checkpoints: regeneration, export, resume ------------------
+    orbax = phase30_orbax(smi, work, cli, gt, corpus)
+    stamp("30")
     paths = ("regenerate", "regenerate_iam_phosc", "regenerate_iam_fold", "train",
              "train_iam_phosc", "train_iam_fold", "build_latent_cache", "train_from_images")
     # the paths of phases 18-20, each with its counts under chip_smoke's keys
@@ -4393,7 +4612,8 @@ def main(argv=None) -> int:
                     for k, v in variants.items()},
                  **{f"train_{k}": v for k, v in cond_train.items()},
                  **{k: dict(v, ffn_bwd=0) for k, v in sampled.items()},
-                 **phosc["paths"], **side["paths"], **new["paths"], **ckpts["paths"]}
+                 **phosc["paths"], **side["paths"], **new["paths"], **ckpts["paths"],
+                 **orbax["paths"]}
 
     def by_path(*counts, key):
         """The earlier paths' counts in order, then the later paths' ``key``."""
@@ -4479,6 +4699,10 @@ def main(argv=None) -> int:
         f"loading ms/image JPEG {ckpts['eval_load_ms']['jpeg']} vs PNG "
         f"{ckpts['eval_load_ms']['png']}; JPEG "
         f"decode ms/crop " + ", ".join(f"{k} {v:.3f}" for k, v in ckpts["jpeg_ms"].items())
+        + f"; zstd MB/s narrow (Huffman) {orbax['rates']['narrow']:.2f}, tiled iam (matches) "
+        f"{orbax['rates']['iam']:.1f}; orbax iam TrainState read {orbax['read_s']['iam']:.3f} s; "
+        f"regen s/batch from orbax {orbax['s_per_batch']['orbax']:.4f} vs port keys "
+        f"{orbax['s_per_batch']['port']:.4f}"
         + f"; whole run {time.perf_counter() - T_START:.1f} s")
 
     def entry(name, source, replaces, paths_, rows, row, library_ms):

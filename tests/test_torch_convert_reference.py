@@ -28,6 +28,7 @@ from worddiffusion_tpu.configs.config import DataConfig, Experiment, UNetConfig
 from worddiffusion_tpu.models import convert as jconvert
 from worddiffusion_tpu.models.unet import UNet as JaxUNet
 from test_torch_copies import port_cfg
+from test_torch_orbax import tiny_presets, write_jax_run  # noqa: F401 (a fixture)
 from test_torch_train import tiny_exp
 from test_torch_vae_ocr import PORT_VAE_CFG, VAE_CFG
 from worddiffusion_tpu_torch.cli import evaluate as eval_cli
@@ -347,27 +348,41 @@ def test_export_cli_round_trips_bitwise(run_dir, use_ema, middle_block1, templat
 
 @pytest.fixture(scope="module")
 def orbax_dir(tmp_path_factory):
-    """A checkpoint directory written by orbax on the CPU, as the JAX
-    package's CheckpointManager writes one (StandardSave)."""
-    import orbax.checkpoint as ocp
-
-    path = str(tmp_path_factory.mktemp("orbax") / "ckpt")
-    mgr = ocp.CheckpointManager(path, options=ocp.CheckpointManagerOptions(create=True))
-    mgr.save(3, args=ocp.args.StandardSave({"params": {"w": np.ones((4, 4), np.float32)},
-                                            "step": np.int32(3)}))
-    mgr.wait_until_finished()
-    mgr.close()
-    return path
+    """The JAX CLIs' orbax directories (``test_torch_orbax.write_jax_run``: the
+    Trainer's TrainState at steps 4 and 8 with a writers dict beside it, the
+    VAE's and the OCR's managers) and the same weights in the port's files,
+    at the widths of the preset ``tiny_presets`` registers."""
+    return write_jax_run(tmp_path_factory.mktemp("orbax"))
 
 
 def test_orbax_files_are_zstd(orbax_dir):
-    """The refusal's reason: orbax's OCDBT files hold zstd frames."""
-    found = [os.path.join(d, n) for d, _, names in os.walk(orbax_dir) for n in names
-             if n == "manifest.ocdbt"]
-    assert found
-    for p in found:
-        with open(p, "rb") as f:
-            assert b"\x28\xb5\x2f\xfd" in f.read(64), p
+    """orbax's OCDBT manifests and nodes hold zstd frames; the port checks
+    each one's crc32c and decodes its body as zstandard does (each manifest
+    and each node that starts a data file)."""
+    zstandard = pytest.importorskip("zstandard")
+    from worddiffusion_tpu_torch.utils import ocdbt
+
+    found = 0
+    for d, _, names in os.walk(orbax_dir["root"]):
+        for n in names:
+            path = os.path.join(d, n)
+            with open(path, "rb") as f:
+                raw = f.read()
+            magic = int.from_bytes(raw[:4], "big")
+            if magic not in (ocdbt.MANIFEST_MAGIC, ocdbt.NODE_MAGIC):
+                continue
+            # a data file may hold a node and then values or more nodes: the
+            # node at its start, by its length field
+            raw = raw[:int.from_bytes(raw[4:12], "little")]
+            assert raw[14:18] == b"\x28\xb5\x2f\xfd", path
+            want = zstandard.ZstdDecompressor().decompressobj().decompress(raw[14:-4])
+            assert ocdbt.decode_file(raw, magic, path) == want, path
+            found += 1
+    assert found >= 8
+
+
+def _decode_half(sd):
+    return {k: v for k, v in sd.items() if not k.startswith(("encoder.", "quant_conv."))}
 
 
 @pytest.mark.parametrize("cli,flag", [
@@ -375,24 +390,66 @@ def test_orbax_files_are_zstd(orbax_dir):
     ("sample", "--ckpt_dir"), ("sample", "--vae_ckpt"), ("evaluate", "--ocr_ckpt"),
     ("export_reference", "--ckpt_dir"),
 ])
-def test_orbax_dirs_refused(run_dir, orbax_dir, cli, flag):
-    r = run_dir
-    if cli == "regenerate":
-        run = regen_cli.main
-        argv = ["--preset", "tiny_ckpt", "--gt_file", r["gt"], "--device", "cpu"]
-    elif cli == "sample":
-        run = sample_cli.main
-        argv = ["--preset", "tiny_ckpt", "--words", "the", "--device", "cpu"]
-    elif cli == "evaluate":
-        run = eval_cli.main
-        argv = ["--real_dir", str(r["tmp"]), "--fake_dir", str(r["tmp"]), "--device", "cpu"]
-    else:
-        run = export_cli.main
-        argv = ["--out", str(r["tmp"] / "x.pt")]
-    # the step directory itself is recognised as well as the manager's
-    for path in (orbax_dir, os.path.join(orbax_dir, "3")):
-        with pytest.raises(SystemExit, match=f"{flag} .* orbax checkpoint.*zstd"):
-            run(argv + [flag, path])
+def test_orbax_dirs_refused(run_dir, orbax_dir, tiny_presets, cli, flag):
+    """Each flag that once refused the JAX package's orbax directories now
+    reads them, the manager's directory and its newest step alike: the
+    modules the CLI builds hold the same weights as from the port's files
+    (the UNet's EMA, the VAE's decode half, the OCR), evaluate's numbers are
+    --ocr_pt's, and export_reference writes what JAX's export_torch computes
+    from the same directory (orbax's restore, then export_reference_unet),
+    bitwise."""
+    ocp = pytest.importorskip("orbax.checkpoint")
+    r, o, preset = run_dir, orbax_dir, tiny_presets
+    port = {"--ckpt_dir": torch.load(os.path.join(o["port"], "ema_unet_8.pt"), weights_only=True),
+            "--vae_ckpt": _decode_half(torch.load(os.path.join(o["port"], "vae.pt"),
+                                                  weights_only=True)),
+            "--ocr_ckpt": torch.load(os.path.join(o["port"], "ocr.pt"), weights_only=True)}
+    manager = {"--ckpt_dir": o["ckpt"], "--vae_ckpt": o["vae_ckpt"], "--ocr_ckpt": o["ocr_ckpt"]}
+    newest = {"--ckpt_dir": "8", "--vae_ckpt": "30", "--ocr_ckpt": "30"}
+    evaluated = {}
+    for path in (manager[flag], os.path.join(manager[flag], newest[flag])):
+        if cli == "regenerate":
+            regen, samples = regen_cli.build(regen_cli.build_parser().parse_args([
+                "--preset", preset, "--gt_file", r["gt"], "--device", "cpu", flag, path]))
+            module = {"--ckpt_dir": regen.sampler.model, "--vae_ckpt": regen.sampler.vae,
+                      "--ocr_ckpt": regen.sampler.ocr_apply}[flag]
+            assert _same(module, port[flag])
+            if flag == "--ckpt_dir" and path == manager[flag]:  # the dict beside it
+                assert [regen.writer_lookup(s.writer) for s in samples] == [5, 2]
+        elif cli == "sample":
+            sampler, pairs, *_ = sample_cli.build(sample_cli.build_parser().parse_args([
+                "--preset", preset, "--words", "the", "--writer", "2", "--device", "cpu",
+                flag, path]))
+            assert _same(sampler.model if flag == "--ckpt_dir" else sampler.vae, port[flag])
+            if flag == "--ckpt_dir" and path == manager[flag]:
+                assert pairs == [("the", 2, "w09")]
+        elif cli == "evaluate":
+            d = r["tmp"] / "imgs"
+            if not d.exists():
+                d.mkdir()
+                from worddiffusion_tpu_torch.utils.images import encode_png
+
+                rng = np.random.default_rng(0)
+                for i, w in enumerate(("the", "of")):
+                    (d / f"{i:05d}_0_{w}.png").write_bytes(
+                        encode_png(rng.integers(0, 255, (64, 256, 3), dtype=np.uint8)))
+            argv = ["--real_dir", str(d), "--fake_dir", str(d), "--device", "cpu"]
+            if "port" not in evaluated:
+                evaluated["port"] = eval_cli.main(argv + ["--ocr_pt",
+                                                          os.path.join(o["port"], "ocr.pt")])
+            got = eval_cli.main(argv + [flag, path])
+            assert "ocr_exact_match" in got and got == evaluated["port"]
+        else:
+            if "jax" not in evaluated:  # export_torch: orbax's restore, then the exporter
+                mgr = ocp.CheckpointManager(o["ckpt"])
+                restored = mgr.restore(8, args=ocp.args.StandardRestore())
+                mgr.close()
+                evaluated["jax"] = jconvert.export_reference_unet(restored["ema_params"], TINY)
+            out = r["tmp"] / "x.pt"
+            export_cli.main(["--preset", preset, "--out", str(out), flag, path])
+            got, jsd = torch.load(out, weights_only=True), evaluated["jax"]
+            assert got.keys() == jsd.keys()
+            assert all(got[k].numpy().tobytes() == np.asarray(jsd[k]).tobytes() for k in jsd)
 
 
 def test_export_cli_takes_the_jax_options():

@@ -27,13 +27,12 @@ from worddiffusion_tpu.configs.config import (
 from worddiffusion_tpu.diffusion import forward as jforward
 from worddiffusion_tpu.diffusion.schedule import NoiseSchedule
 from worddiffusion_tpu.models import attention as jattn
-from worddiffusion_tpu.models.convert import export_reference_unet
 from worddiffusion_tpu.models.unet import UNet as JaxUNet
 from worddiffusion_tpu.train import step as jstep
 from test_torch_copies import port_cfg
 from worddiffusion_tpu_torch.diffusion.schedule import NoiseSchedule as PortSchedule
 from worddiffusion_tpu_torch.models import attention
-from worddiffusion_tpu_torch.models.convert import state_dict_to_torch
+from worddiffusion_tpu_torch.models.convert import jax_unet_to_torch, state_dict_to_torch
 from worddiffusion_tpu_torch.models.layers import init_weights_
 from worddiffusion_tpu_torch.models.unet import UNet
 from worddiffusion_tpu_torch.ops import fold_attention
@@ -294,7 +293,7 @@ def _params(cfg, seed=3):
 
 def _port(cfg, params):
     m = UNet(port_cfg(cfg))
-    m.load_state_dict(state_dict_to_torch(export_reference_unet(params, cfg)), strict=True)
+    m.load_state_dict(state_dict_to_torch(jax_unet_to_torch(params, cfg)), strict=True)
     return m
 
 
@@ -382,7 +381,7 @@ def test_train_step_with_fold_matches_jax():
     np.testing.assert_allclose(metrics["loss"].item(), float(jloss), rtol=1e-5)
 
     named = dict(model.named_parameters())
-    want_g = export_reference_unet(jgrads, CFG)
+    want_g = jax_unet_to_torch(jgrads, CFG)
     assert set(want_g) == set(named)
     floor = 1e-2 * max(np.abs(w).max() for w in want_g.values())
     for k, w in want_g.items():

@@ -5,10 +5,12 @@ cache, with the CTC aux loss and reference latents, and from PNGs), the
 sampling CLI and the latent-cache CLI run a tiny slice on the CPU, in a
 fresh interpreter, with tiny presets registered in the port's own
 ``presets.PRESETS``, the recognizer CLIs train and test a narrow
-PHOSCNet, and the renderer, the side-model trainers, the evaluation CLI and
-the masked sampler run; then jax, flax, optax, PIL, safetensors, OpenCV (cv2)
-and every ``worddiffusion_tpu`` module must be absent. A static scan of the port's
-sources and ``chip_smoke.py`` finds no import of ``worddiffusion_tpu``."""
+PHOSCNet, and the renderer, the side-model trainers, the evaluation CLI, the
+orbax reader (the committed check set) and the masked sampler run; then jax,
+flax, optax, orbax, tensorstore, zstandard, PIL, safetensors, OpenCV (cv2)
+and every ``worddiffusion_tpu`` module must be absent. A static scan of the
+port's sources and ``chip_smoke.py`` finds no import of ``worddiffusion_tpu``,
+jax, orbax, tensorstore or zstandard."""
 
 import ast
 import os
@@ -87,7 +89,8 @@ names = sample_cli.main(["--preset", "tiny", "--words", "Hello,word", "--writer"
                          "--writer2", "2", "--mix_rate", "0.5", "--cfg_scale", "2", "--ddim", "2",
                          "--save_path", os.path.join(out, "samples"), "--device", "cpu"])
 assert names == ["00000_1_Hello_mix0.500.png", "00001_1_word_mix0.500.png"], names
-print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "PIL",
+print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "orbax",
+                                                      "tensorstore", "zstandard", "PIL",
                                                       "safetensors", "cv2")
                      or m.split(".")[0] == "worddiffusion_tpu"))
 """
@@ -156,7 +159,8 @@ state = cli.main(["--preset", "tiny", "--gt_train", gt, "--iam_path", crops, "--
                   "--epochs", "1", "--preview_ddim", "2", "--save_path",
                   os.path.join(out, "run_img"), "--device", "cpu"])
 assert state.step == 2, state.step
-print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "PIL",
+print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "orbax",
+                                                      "tensorstore", "zstandard", "PIL",
                                                       "safetensors", "cv2")
                      or m.split(".")[0] == "worddiffusion_tpu"))
 """
@@ -196,7 +200,8 @@ assert set(res["with_length"]) == {"zsl", "gzsl", "length_accuracy", "length_fuz
 feats = fid.phosc_featurizer(os.path.join(out, "phosc", "best_params.pkl"), trunk="resnet18",
                              device="cpu")(np.zeros((2, 50, 250, 3), np.float32))
 assert feats.shape == (2, 4096)
-print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "PIL",
+print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "orbax",
+                                                      "tensorstore", "zstandard", "PIL",
                                                       "safetensors", "cv2")
                      or m.split(".")[0] == "worddiffusion_tpu"))
 """
@@ -253,11 +258,20 @@ res = evaluate.main(["--real_dir", os.path.join(out, "real"), "--fake_dir",
                      os.path.join(out, "inc.pt"), "--ocr_pt",
                      os.path.join(out, "ocr", "ocr.pt"), "--device", "cpu"])
 assert set(res) == {"fid_inception", "ocr_exact_match"}, res
+# the JAX package's orbax checkpoints: the committed narrow check set, bitwise
+from worddiffusion_tpu_torch.train import orbax_check
+from worddiffusion_tpu_torch.train.orbax import read_orbax
+d = orbax_check.unpack("narrow", tempfile.mkdtemp())
+got = orbax_check.flatten(read_orbax(os.path.join(d, "ckpt")))
+want = orbax_check.expected("narrow")
+assert sorted(got) == sorted(want) and all(
+    got[k].tobytes() == want[k].tobytes() for k in want), sorted(got)
 x, _ = masking.masked_ddpm_sample(NoiseSchedule.linear(6), lambda x, t: 0.1 * x,
                                   torch.zeros(1, 8, 32, 4),
                                   generator=torch.Generator().manual_seed(0))
 assert torch.isfinite(x).all()
-print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "PIL",
+print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "orbax",
+                                                      "tensorstore", "zstandard", "PIL",
                                                       "safetensors", "cv2")
                      or m.split(".")[0] == "worddiffusion_tpu"))
 """
@@ -293,8 +307,9 @@ def test_recognizer_runs_without_jax():
 def test_side_models_run_without_jax():
     """The PIL-free renderer (one setting of the committed check renders,
     bitwise), the OCR, VAE and style trainers, the evaluation CLI (Inception
-    and OCR) and the masked sampler run with no jax, flax, optax, PIL,
-    OpenCV or JAX-package module."""
+    and OCR), the orbax reader on the committed narrow check set (bitwise)
+    and the masked sampler run with no jax, flax, optax, orbax, tensorstore,
+    zstandard, PIL, OpenCV or JAX-package module."""
     _run_jax_free(SIDE_SCRIPT)
 
 
@@ -316,9 +331,10 @@ def _imported_modules(path: Path) -> set[str]:
 def test_no_source_imports_the_jax_package():
     files = sorted((REPO / "worddiffusion_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 30
+    absent = ("worddiffusion_tpu", "jax", "orbax", "tensorstore", "zstandard")
     offenders = {
         str(f.relative_to(REPO)): sorted(m for m in _imported_modules(f)
-                                         if m.split(".")[0] == "worddiffusion_tpu")
+                                         if m.split(".")[0] in absent)
         for f in files
     }
     assert not {f: m for f, m in offenders.items() if m}, offenders

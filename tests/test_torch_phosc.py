@@ -27,7 +27,6 @@ from worddiffusion_tpu.diffusion.sampler import ddpm_sample, latent_to_image
 from worddiffusion_tpu.diffusion.sampler import regen_call_mask as jax_call_mask
 from worddiffusion_tpu.diffusion.schedule import NoiseSchedule
 from worddiffusion_tpu.models import vae as jvae
-from worddiffusion_tpu.models.convert import export_reference_unet
 from worddiffusion_tpu.models.unet import UNet as JaxUNet
 from worddiffusion_tpu.train import state as jstate
 from worddiffusion_tpu.train import step as jstep
@@ -41,7 +40,9 @@ from worddiffusion_tpu_torch.data.tokenizer import Tokenizer as PortTokenizer
 from worddiffusion_tpu_torch.diffusion.sampler import regen_call_mask
 from worddiffusion_tpu_torch.diffusion.schedule import NoiseSchedule as PortSchedule
 from worddiffusion_tpu_torch.generate.sample import WordSampler, phosc_ids
-from worddiffusion_tpu_torch.models.convert import jax_vae_to_torch, state_dict_to_torch
+from worddiffusion_tpu_torch.models.convert import (
+    jax_unet_to_torch, jax_vae_to_torch, state_dict_to_torch,
+)
 from worddiffusion_tpu_torch.models.unet import UNet
 from worddiffusion_tpu_torch.models.vae import AutoencoderKL
 from worddiffusion_tpu_torch.train.state import TrainState, make_optimizer
@@ -101,7 +102,7 @@ def _params(seed=3):
 def _port(params):
     m = UNet(port_cfg(CFG))
     # strict: norm1 of the self-attention layout crosses too
-    m.load_state_dict(state_dict_to_torch(export_reference_unet(params, CFG)), strict=True)
+    m.load_state_dict(state_dict_to_torch(jax_unet_to_torch(params, CFG)), strict=True)
     return m.eval()
 
 
@@ -218,7 +219,7 @@ def test_train_step_with_phosc_matches_jax():
     np.testing.assert_allclose(metrics["loss"].item(), float(jloss), rtol=1e-5)
 
     named = dict(model.named_parameters())
-    want_g = export_reference_unet(jgrads, CFG)
+    want_g = jax_unet_to_torch(jgrads, CFG)
     assert set(want_g) == set(named)
     floor = 1e-2 * max(np.abs(w).max() for w in want_g.values())
     for k, w in want_g.items():
@@ -228,7 +229,7 @@ def test_train_step_with_phosc_matches_jax():
                                    err_msg=k)
     assert named["word_emb.embedding.weight"].grad[:4].abs().max() > 0  # PHOSC ids 0..3
 
-    want_p = export_reference_unet(jnew.params, CFG)
+    want_p = jax_unet_to_torch(jnew.params, CFG)
     for k, p in model.named_parameters():
         g = named[k].grad.numpy()
         adam = exp.train.lr * np.abs(g / (np.abs(g) + 1e-8) - want_g[k] / (np.abs(want_g[k]) + 1e-8))

@@ -27,7 +27,6 @@ from worddiffusion_tpu.diffusion.sampler import regen_call_mask as jax_call_mask
 from worddiffusion_tpu.diffusion.schedule import NoiseSchedule
 from worddiffusion_tpu.models import ocr as jocr
 from worddiffusion_tpu.models import vae as jvae
-from worddiffusion_tpu.models.convert import export_reference_unet
 from worddiffusion_tpu.models.unet import UNet as JaxUNet
 from test_torch_copies import port_cfg
 from worddiffusion_tpu_torch.data.gt import Sample
@@ -36,7 +35,7 @@ from worddiffusion_tpu_torch.diffusion.schedule import NoiseSchedule as PortSche
 from worddiffusion_tpu_torch.generate.regenerate import Regenerator
 from worddiffusion_tpu_torch.generate.sample import WordSampler
 from worddiffusion_tpu_torch.models.convert import (
-    jax_ocr_to_torch, jax_vae_to_torch, state_dict_to_torch,
+    jax_ocr_to_torch, jax_unet_to_torch, jax_vae_to_torch, state_dict_to_torch,
 )
 from worddiffusion_tpu_torch.models.ocr import CTCRecognizer
 from worddiffusion_tpu_torch.models.unet import UNet
@@ -97,7 +96,7 @@ def _jax_pipeline(unet_p, vae_p, ocr_v, ctx, wid, x_init):
 
 def _port_sampler(unet_p, vae_p, ocr_v):
     unet = UNet(port_cfg(EXP.unet))
-    unet.load_state_dict(state_dict_to_torch(export_reference_unet(unet_p, EXP.unet)))
+    unet.load_state_dict(state_dict_to_torch(jax_unet_to_torch(unet_p, EXP.unet)))
     vae = AutoencoderKL(port_cfg(EXP.vae))
     vae.load_state_dict(state_dict_to_torch(jax_vae_to_torch(vae_p, port_cfg(EXP.vae),
                                                              decoder_only=True)))

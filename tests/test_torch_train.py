@@ -3,9 +3,9 @@ q_sample and DDIM, one training step (loss, gradients, AdamW, EMA),
 checkpoints, the Trainer's bitwise resume and the train CLI.
 
 JAX's draws of t, noise and the CFG keep flag are handed to the port
-(threefry is not torch's generator); gradients cross through
-``export_reference_unet``, which maps any Flax UNet tree (parameters or
-their gradients) onto the port's parameter names.
+(threefry is not torch's generator); gradients cross through the port's
+``jax_unet_to_torch``, which maps any Flax UNet tree (parameters or their
+gradients) onto the port's parameter names.
 """
 
 import dataclasses
@@ -23,7 +23,6 @@ from worddiffusion_tpu.configs.config import (
 from worddiffusion_tpu.diffusion import forward as jforward
 from worddiffusion_tpu.diffusion.sampler import ddim_sample as jax_ddim
 from worddiffusion_tpu.diffusion.schedule import NoiseSchedule
-from worddiffusion_tpu.models.convert import export_reference_unet
 from worddiffusion_tpu.models.unet import UNet as JaxUNet
 from worddiffusion_tpu.train import state as jstate
 from worddiffusion_tpu.train import step as jstep
@@ -37,7 +36,7 @@ from worddiffusion_tpu_torch.data.tokenizer import Tokenizer
 from worddiffusion_tpu_torch.diffusion.forward import q_sample, sample_timesteps
 from worddiffusion_tpu_torch.diffusion.sampler import ddim_sample
 from worddiffusion_tpu_torch.diffusion.schedule import NoiseSchedule as PortSchedule
-from worddiffusion_tpu_torch.models.convert import jax_unet_extras_to_torch, state_dict_to_torch
+from worddiffusion_tpu_torch.models.convert import jax_unet_to_torch, state_dict_to_torch
 from worddiffusion_tpu_torch.models.unet import UNet
 from worddiffusion_tpu_torch.train.checkpoint import CheckpointManager
 from worddiffusion_tpu_torch.train.loop import Trainer
@@ -88,9 +87,7 @@ def _jax_params(seed=3, cfg=CFG, extra=None):
 
 def _port_sd(tree, cfg=CFG) -> dict:
     """A Flax UNet tree (parameters or their gradients) in the port's keys."""
-    sd = export_reference_unet(tree, cfg)
-    sd.update(jax_unet_extras_to_torch(tree, cfg))
-    return sd
+    return jax_unet_to_torch(tree, cfg)
 
 
 def _port_model(params, cfg=CFG):

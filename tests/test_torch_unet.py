@@ -1,5 +1,5 @@
 """The port's UNet against the JAX UNet at a tiny width: weights go
-across through ``export_reference_unet`` -> ``load_state_dict(strict=True)``.
+across through the port's ``jax_unet_to_torch`` -> ``load_state_dict(strict=True)``.
 
 Random weights (numpy, seeded) over the whole JAX parameter tree, so
 the zero-initialised output convs do not hide sub-paths.
@@ -13,10 +13,9 @@ import pytest
 import torch
 
 from worddiffusion_tpu.configs.config import UNetConfig
-from worddiffusion_tpu.models.convert import export_reference_unet
 from worddiffusion_tpu.models.unet import UNet as JaxUNet
 from test_torch_copies import port_cfg
-from worddiffusion_tpu_torch.models.convert import state_dict_to_torch
+from worddiffusion_tpu_torch.models.convert import jax_unet_to_torch, state_dict_to_torch
 from worddiffusion_tpu_torch.models.unet import UNet
 
 torch.set_num_threads(1)
@@ -47,7 +46,7 @@ def _params(cfg, seed=3):
 
 def _port(cfg, params):
     m = UNet(port_cfg(cfg))
-    m.load_state_dict(state_dict_to_torch(export_reference_unet(params, cfg)), strict=True)
+    m.load_state_dict(state_dict_to_torch(jax_unet_to_torch(params, cfg)), strict=True)
     return m.eval()
 
 

@@ -2,8 +2,7 @@
 width, in fp32: FiLM and split-skip ResBlocks, writer style vectors
 (appended, replacing), reference latents, glyph images, the writer mix
 and the CTC aux head (both norms). The weights go across through
-``export_reference_unet`` + ``jax_unet_extras_to_torch`` and load with
-``strict=True``; every parameter is random (seeded numpy), the
+the port's ``jax_unet_to_torch`` and load with ``strict=True``; every parameter is random (seeded numpy), the
 zero-initialised output convs too, so no sub-path hides.
 
 64 channels: at 32 every channel is its own GroupNorm group, which would
@@ -20,10 +19,9 @@ import pytest
 import torch
 
 from worddiffusion_tpu.configs.config import UNetConfig
-from worddiffusion_tpu.models.convert import export_reference_unet
 from worddiffusion_tpu.models.unet import UNet as JaxUNet
 from test_torch_copies import port_cfg
-from worddiffusion_tpu_torch.models.convert import jax_unet_extras_to_torch, state_dict_to_torch
+from worddiffusion_tpu_torch.models.convert import jax_unet_to_torch, state_dict_to_torch
 from worddiffusion_tpu_torch.models.unet import UNet
 
 torch.set_num_threads(1)
@@ -77,9 +75,7 @@ def jax_params(cfg, extra, seed=3):
 
 def port_unet(cfg, params) -> UNet:
     m = UNet(port_cfg(cfg))
-    sd = export_reference_unet(params, cfg)
-    sd.update(jax_unet_extras_to_torch(params, cfg))
-    m.load_state_dict(state_dict_to_torch(sd), strict=True)
+    m.load_state_dict(state_dict_to_torch(jax_unet_to_torch(params, cfg)), strict=True)
     return m.eval()
 
 

@@ -15,7 +15,8 @@ corpus is the synthetic one (``--vocab_size`` words of the preset's list,
 (in each writer's style with ``--writer_styled 1``, the cache a
 ``--wrdChrWrStyl`` training needs); so is any crop missing from
 ``--iam_path``. ``--vae_ckpt`` names ``cli.train_vae``'s ``--save_dir``
-(its ``vae.pt``); an orbax one (the JAX CLI's) exits with the reason.
+(its ``vae.pt``) or the JAX CLI's orbax ``<save_dir>/ckpt``
+(``train.checkpoint.side_weights``).
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--gt_train", default="")
     p.add_argument("--iam_path", default="", help="word-crop image dir (PNG or JPEG)")
     p.add_argument("--stable_dif_path", default="", help="diffusers VAE (safetensors)")
-    p.add_argument("--vae_ckpt", default="", help="cli.train_vae's --save_dir (its vae.pt)")
+    p.add_argument("--vae_ckpt", default="",
+                   help="cli.train_vae's --save_dir (its vae.pt), or the JAX CLI's "
+                        "orbax <save_dir>/ckpt")
     p.add_argument("--vae_pt", default="", help="full VAE state dict in the port's keys")
     p.add_argument("--out", required=True)
     p.add_argument("--batch_size", type=int, default=64)
@@ -59,20 +62,22 @@ def build(args):
     from ..data.dataset import WordImageDataset
     from ..data.tokenizer import Tokenizer
     from ..models.vae import make_vae
-    from ..train.checkpoint import weights_file
+    from ..models.convert import jax_vae_to_torch
+    from ..train.checkpoint import side_weights
     from .train import corpus
 
-    vae_pt = weights_file(args.vae_pt, args.vae_ckpt, "--vae_ckpt", "vae.pt")
     device = torch.device(args.device)
+    exp = presets.get(args.preset)
+    vae_sd = side_weights(args.vae_pt, args.vae_ckpt, "--vae_ckpt", "vae.pt",
+                          lambda t: jax_vae_to_torch(t, exp.vae))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
-    exp = presets.get(args.preset)
     exp = exp.replace(data=dataclasses.replace(exp.data, image_dir=args.iam_path))
     samples, registry = corpus(args, exp)
     tok = Tokenizer.from_name(exp.data.alphabet, exp.data.max_chars)
     dataset = WordImageDataset(samples, registry, tok, exp.data,
                                writer_styled=bool(args.writer_styled))
-    vae = make_vae(exp.vae, args.stable_dif_path, vae_pt, with_encoder=True,
+    vae = make_vae(exp.vae, args.stable_dif_path, vae_sd, with_encoder=True,
                    seed=args.seed)
     return dataset, vae.to(device).eval().requires_grad_(False)
 

@@ -19,8 +19,9 @@ The images are the ``.png`` and ``.jpg`` files, as the JAX CLI lists them,
 each read by its signature (``data.png.read_image``: PNG or JPEG, bitwise
 as PIL decodes them). The OCR is ``--ocr_pt`` (the recognizer's state dict,
 as ``cli.train_ocr`` writes it) or ``--ocr_ckpt``, that CLI's
-``--save_dir`` (its ``ocr.pt``); an orbax ``--ocr_ckpt`` (the JAX CLI's)
-exits with the reason. Where the port differs: the random-init style
+``--save_dir`` (its ``ocr.pt``), or the JAX CLI's orbax ``--ocr_ckpt``
+(``<save_dir>/ckpt``, read without JAX: ``train.orbax``,
+``models.convert.jax_ocr_to_torch``). Where the port differs: the random-init style
 encoder, fp32 in JAX, runs fp32 on the CPU and bf16 on
 the card (B.5 takes bf16), which the log says. Its numbers cannot match
 JAX's either way: the inits differ.
@@ -64,7 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--width", type=int, default=256)
     p.add_argument("--limit", type=int, default=0)
     p.add_argument("--batch_size", type=int, default=32)
-    p.add_argument("--ocr_ckpt", default="", help="cli.train_ocr's --save_dir (its ocr.pt)")
+    p.add_argument("--ocr_ckpt", default="",
+                   help="cli.train_ocr's --save_dir (its ocr.pt), or the JAX CLI's "
+                        "orbax <save_dir>/ckpt")
     p.add_argument("--ocr_pt", default="", help="CTCRecognizer state dict (port keys), as "
                                                 "cli.train_ocr writes it")
     p.add_argument("--phosc_params", default="",
@@ -96,11 +99,12 @@ def _features(name: str, fn, arr: np.ndarray, batch_size: int) -> np.ndarray:
 def main(argv=None) -> dict:
     from ..data.alphabets import OCR_CVL, OCR_ENG, OCR_NOR
     from ..eval.fid import fid_score, load_phosc_net, phosc_resize
-    from ..train.checkpoint import weights_file
+    from ..models.convert import jax_ocr_to_torch
+    from ..train.checkpoint import side_weights
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = build_parser().parse_args(argv)
-    ocr_pt = weights_file(args.ocr_pt, args.ocr_ckpt, "--ocr_ckpt", "ocr.pt")
+    ocr_sd = side_weights(args.ocr_pt, args.ocr_ckpt, "--ocr_ckpt", "ocr.pt", jax_ocr_to_torch)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("CUDA is not available; pass --device cpu to run on the CPU")
@@ -154,14 +158,14 @@ def main(argv=None) -> dict:
                 _features("style_encoder", feat, real, args.batch_size),
                 _features("style_encoder", feat, fake, args.batch_size))
 
-    if ocr_pt:
+    if ocr_sd is not None:
         from ..models.ocr import CTCRecognizer
         from ..ops.ctc import collapse_and_decode, greedy_frame_ids
 
         # the alphabet follows --language (the nor/cvl recognizers have more classes)
         alphabet = {"nor": OCR_NOR, "cvl": OCR_CVL}.get(args.language, OCR_ENG)
         ocr = CTCRecognizer(num_classes=len(alphabet))
-        ocr.load_state_dict(torch.load(ocr_pt, map_location="cpu", weights_only=True))
+        ocr.load_state_dict(ocr_sd)
         ocr = ocr.to(device, memory_format=torch.channels_last).eval().requires_grad_(False)
         hits, t0 = 0, time.perf_counter()
         for s in range(0, len(fake), args.batch_size):

@@ -10,16 +10,20 @@ layout (the reference's own ``ckpt_*.pt`` / ``ema_*.pt`` and their
 ``cli.export_reference`` output; ``models.convert.reference_unet_to_port``
 reads it as JAX's ``sample --torch_ckpt`` does), or from ``--ckpt_dir``, the
 port train CLI's checkpoint directory (``<save_path>/ckpt``: its newest
-step's EMA weights, or the trained ones with ``--use_ema 0``; its
+step's EMA weights, or the trained ones with ``--use_ema 0``), or the JAX
+package's orbax directory (the JAX CLI's ``--ckpt_dir``, read without JAX:
+``train.orbax``, ``models.convert.jax_unet_to_torch``); its
 ``writers_dict_train.json`` is looked for beside it and in its parent, as
-the JAX CLI does). The VAE's decode half comes from a diffusers
+the JAX CLI does. The VAE's decode half comes from a diffusers
 ``--stable_dif_path`` safetensors file, from ``--vae_pt``, a
 ``torch.save``d state dict in the port's keys (full or decoder-only,
 ``models.convert.jax_vae_to_torch``), or from ``--vae_ckpt``, the
-``--save_dir`` of ``cli.train_vae`` (its ``vae.pt``); the CTC recognizer
-from ``--ocr_pt`` (``jax_ocr_to_torch``) or ``--ocr_ckpt`` (``cli.train_ocr``'s
-``--save_dir``: its ``ocr.pt``). Each weight set that is not given is a
-seeded random initialisation, with a warning.
+``--save_dir`` of ``cli.train_vae`` (its ``vae.pt``) or the JAX CLI's orbax
+``<save_dir>/ckpt`` (``jax_vae_to_torch``); the CTC recognizer from
+``--ocr_pt`` (``jax_ocr_to_torch``) or ``--ocr_ckpt`` (``cli.train_ocr``'s
+``--save_dir``: its ``ocr.pt``; or the JAX CLI's orbax ``<save_dir>/ckpt``).
+Each weight set that is not given is a seeded random initialisation, with a
+warning.
 ``--ddim N`` samples with N deterministic DDIM steps instead of the DDPM
 schedules.
 
@@ -27,10 +31,8 @@ schedules.
 builds no VAE; ``--hiGanArch 1`` with the HiGAN+ denoiser (``--torch_ckpt``
 in the port's keys).
 
-Every option of the JAX CLI is here. A directory flag that names an orbax
-checkpoint (the JAX package's) exits with the reason
-(``train.checkpoint.ORBAX_REFUSAL``), as does ``--use_ema 0`` without
-``--ckpt_dir`` (a ``--torch_ckpt`` file holds one parameter set).
+Every option of the JAX CLI is here. ``--use_ema 0`` without ``--ckpt_dir``
+exits (a ``--torch_ckpt`` file holds one parameter set).
 
 Under ``torchrun --nproc_per_node N`` each process regenerates its
 ``data.loader.host_shard`` of the corpus on its own card; the file names
@@ -75,11 +77,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_ocr_filter", type=int, default=0)
     p.add_argument("--flagGen", default="", help="stop-flag file")
     p.add_argument("--ckpt_dir", default="",
-                   help="the train CLI's checkpoint directory (<save_path>/ckpt)")
+                   help="the train CLI's checkpoint directory (<save_path>/ckpt), the "
+                        "port's or the JAX package's (orbax)")
     p.add_argument("--use_ema", type=int, default=1,
                    help="--ckpt_dir's EMA weights (1) or trained ones (0)")
-    p.add_argument("--ocr_ckpt", default="", help="cli.train_ocr's --save_dir (its ocr.pt)")
-    p.add_argument("--vae_ckpt", default="", help="cli.train_vae's --save_dir (its vae.pt)")
+    p.add_argument("--ocr_ckpt", default="",
+                   help="cli.train_ocr's --save_dir (its ocr.pt), or the JAX CLI's "
+                        "orbax <save_dir>/ckpt")
+    p.add_argument("--vae_ckpt", default="",
+                   help="cli.train_vae's --save_dir (its vae.pt), or the JAX CLI's "
+                        "orbax <save_dir>/ckpt")
     p.add_argument("--hiGanArch", type=int, default=0)
     p.add_argument("--latent", type=int, default=1)
     p.add_argument("--partialLoad", type=float, default=0.0)
@@ -90,13 +97,12 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _load_or_init(module, path: str, what: str, seed: int):
-    import torch
-
+def _load_or_init(module, src, what: str, seed: int):
+    """``src``: a state dict (``side_weights``), or None."""
     from ..models.layers import init_weights_
 
-    if path:
-        module.load_state_dict(torch.load(path, map_location="cpu", weights_only=True))
+    if src is not None:
+        module.load_state_dict(src)
     else:
         logging.warning("no %s weights given: seeded random initialisation (seed %d)",
                         what, seed)
@@ -120,7 +126,8 @@ def build(args):
     from ..parallel.distributed import initialize_multihost, local_device
     from ..configs.pixel import pixel_space_exp
     from ..models.higan import refuse_conditioning
-    from ..train.checkpoint import weights_file
+    from ..models.convert import jax_ocr_to_torch, jax_vae_to_torch
+    from ..train.checkpoint import side_weights
     from .sample import check_weight_flags, load_unet, resolve_writer_registry
 
     check_weight_flags(args)
@@ -138,8 +145,9 @@ def build(args):
     unet = load_unet(exp, args, bool(args.hiGanArch)).to(device)
     vae = None
     if exp.data.latent:
-        vae_pt = weights_file(args.vae_pt, args.vae_ckpt, "--vae_ckpt", "vae.pt")
-        vae = make_vae(exp.vae, args.stable_dif_path, vae_pt, with_encoder=False,
+        vae_sd = side_weights(args.vae_pt, args.vae_ckpt, "--vae_ckpt", "vae.pt",
+                              lambda t: jax_vae_to_torch(t, exp.vae))
+        vae = make_vae(exp.vae, args.stable_dif_path, vae_sd, with_encoder=False,
                        seed=args.seed).to(device)
     mask = regen_call_mask(exp.diffusion.num_steps, epoch=args.epoch,
                            full_sampling=bool(args.fullSampling))
@@ -151,12 +159,13 @@ def build(args):
                      int(mask[1:].sum()), exp.diffusion.num_steps - 1)
 
     ocr_alphabet = {"nor": OCR_NOR, "cvl": OCR_CVL}.get(exp.data.alphabet, OCR_ENG)
-    ocr, ocr_pt = None, weights_file(args.ocr_pt, args.ocr_ckpt, "--ocr_ckpt", "ocr.pt")
+    ocr, ocr_sd = None, side_weights(args.ocr_pt, args.ocr_ckpt, "--ocr_ckpt", "ocr.pt",
+                                     jax_ocr_to_torch)
     if not args.no_ocr_filter:
-        if not ocr_pt:
+        if ocr_sd is None:
             logging.warning("an untrained OCR filter accepts almost nothing; "
                             "--no_ocr_filter 1 keeps every image")
-        ocr = _load_or_init(CTCRecognizer(num_classes=len(ocr_alphabet)), ocr_pt,
+        ocr = _load_or_init(CTCRecognizer(num_classes=len(ocr_alphabet)), ocr_sd,
                             "OCR", args.seed).to(device).eval()
 
     sampler = WordSampler(exp, unet, vae, call_mask=None if args.ddim else mask,

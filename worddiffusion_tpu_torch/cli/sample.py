@@ -15,11 +15,14 @@ output), read by ``models.convert.reference_unet_to_port`` as JAX's
 ``ocr_head`` and left unread where it has not. Or it comes from
 ``--ckpt_dir``, the port train CLI's checkpoint directory
 (``<save_path>/ckpt``; its newest step's EMA weights, the trained ones with
-``--use_ema 0``), whose ``writers_dict_train.json`` is looked for beside it
-and in its parent. The VAE comes from a diffusers ``--stable_dif_path``
-file, ``--vae_pt`` (the port's keys; a full one with ``--imgConditioned``,
-whose ``--cond_image``, a PNG or JPEG, is encoded to its posterior mean) or
-``--vae_ckpt`` (``cli.train_vae``'s ``--save_dir``: its ``vae.pt``).
+``--use_ema 0``) or the JAX package's (its orbax directory, read without
+JAX by ``train.orbax``: ``ema_params`` or ``params`` alone, mapped by
+``models.convert.jax_unet_to_torch``), whose ``writers_dict_train.json`` is
+looked for beside it and in its parent. The VAE comes from a diffusers
+``--stable_dif_path`` file, ``--vae_pt`` (the port's keys; a full one with
+``--imgConditioned``, whose ``--cond_image``, a PNG or JPEG, is encoded to
+its posterior mean) or ``--vae_ckpt`` (``cli.train_vae``'s ``--save_dir``:
+its ``vae.pt``; or the JAX CLI's orbax ``<save_dir>/ckpt``).
 Weights not given are seeded random, with a warning.
 ``--writer -1`` draws a writer per word, and a negative ``--mix_rate``
 draws one uniform(0, 1) per sample, from ``numpy.random.default_rng
@@ -27,9 +30,7 @@ draws one uniform(0, 1) per sample, from ``numpy.random.default_rng
 ``{index:05d}_{writer}_{word}[_mix{rate:.3f}].png``, as the JAX CLI
 names them.
 
-Every option of the JAX CLI is here. A directory flag that names an orbax
-checkpoint (the JAX package's) exits with the reason
-(``train.checkpoint.ORBAX_REFUSAL``); ``--charImages 1`` conditions on the
+Every option of the JAX CLI is here. ``--charImages 1`` conditions on the
 words' glyph crops (``data.dataset.char_glyphs``, as the training renders
 them);
 ``--latent 0`` samples a pixel-space checkpoint (3 channels, no VAE; a
@@ -55,7 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="worddiffusion sampler (PyTorch/CUDA)")
     p.add_argument("--preset", default="iam")
     p.add_argument("--ckpt_dir", default="",
-                   help="the train CLI's checkpoint directory (<save_path>/ckpt)")
+                   help="the train CLI's checkpoint directory (<save_path>/ckpt), the "
+                        "port's or the JAX package's (orbax)")
     p.add_argument("--torch_ckpt", default="",
                    help="UNet checkpoint in the reference layout (the reference's "
                         "ema_*.pt, the train CLI's ema_unet.pt, cli.export_reference's)")
@@ -82,7 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--vae_pt", default="",
                    help="VAE state dict in the port's keys (full with --imgConditioned)")
     p.add_argument("--vae_ckpt", default="",
-                   help="cli.train_vae's --save_dir (its vae.pt)")
+                   help="cli.train_vae's --save_dir (its vae.pt), or the JAX CLI's "
+                        "orbax <save_dir>/ckpt")
     p.add_argument("--crop_whitespace", type=int, default=0)
     p.add_argument("--wrdChrWrStyl", type=int, default=0,
                    help="model trained with 4096-d writer-style replacement (needs "
@@ -198,9 +201,10 @@ def experiment(args):
 def load_unet(exp, args, higan: bool = False):
     """The UNet from ``--torch_ckpt`` (the reference layout, through
     ``models.convert.reference_unet_to_port``) or ``--ckpt_dir`` (the train
-    CLI's checkpoint, ``--use_ema``), or with ``higan`` the HiGAN+ denoiser
-    from either in the port's keys; seeded random with a warning without
-    them. An orbax ``--ckpt_dir`` exits with the reason."""
+    CLI's or the JAX package's orbax checkpoint, ``--use_ema``, read by
+    ``train.checkpoint.read_unet`` in the port's keys), or with ``higan`` the
+    HiGAN+ denoiser (``--torch_ckpt`` in the port's keys); seeded random with
+    a warning without them."""
     from ..models.convert import load_torch_checkpoint, reference_unet_to_port
     from ..models.convert import state_dict_to_torch
     from ..models.higan import HiGanDenoiserAdapter
@@ -211,16 +215,16 @@ def load_unet(exp, args, higan: bool = False):
     unet = HiGanDenoiserAdapter(exp.unet) if higan else UNet(exp.unet)
     if args.ckpt_dir:
         try:
-            sd = read_unet(args.ckpt_dir, bool(args.use_ema))
+            sd = read_unet(args.ckpt_dir, bool(args.use_ema), cfg=exp.unet, higan=higan)
         except (FileNotFoundError, ValueError) as e:
             raise SystemExit(f"--ckpt_dir {e}") from e
     elif args.torch_ckpt:
         sd = load_torch_checkpoint(args.torch_ckpt)
+        if not higan:
+            sd = state_dict_to_torch(reference_unet_to_port(sd, exp.unet))
     else:
         logging.warning("no --torch_ckpt / --ckpt_dir: seeded random UNet (seed %d)", args.seed)
         return init_weights_(unet, args.seed)
-    if not higan:
-        sd = state_dict_to_torch(reference_unet_to_port(sd, exp.unet))
     unet.load_state_dict(sd, strict=True)
     return unet
 
@@ -253,7 +257,8 @@ def build(args):
 
     from ..generate.sample import WordSampler
     from ..models.vae import make_vae
-    from ..train.checkpoint import weights_file
+    from ..models.convert import jax_vae_to_torch
+    from ..train.checkpoint import side_weights
 
     _refuse_unported(args)
     device = torch.device(args.device)
@@ -273,8 +278,9 @@ def build(args):
     unet = load_unet(exp, args, bool(args.hiGanArch)).to(device)
     vae = None
     if exp.data.latent:
-        vae_pt = weights_file(args.vae_pt, args.vae_ckpt, "--vae_ckpt", "vae.pt")
-        vae = make_vae(exp.vae, args.stable_dif_path, vae_pt,
+        vae_sd = side_weights(args.vae_pt, args.vae_ckpt, "--vae_ckpt", "vae.pt",
+                              lambda t: jax_vae_to_torch(t, exp.vae))
+        vae = make_vae(exp.vae, args.stable_dif_path, vae_sd,
                        with_encoder=bool(args.imgConditioned), seed=args.seed)
         vae = vae.to(device).eval().requires_grad_(False)
     sampler = WordSampler(exp, unet, vae, cfg_scale=args.cfg_scale, ddim_steps=args.ddim,

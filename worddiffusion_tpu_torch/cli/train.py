@@ -10,10 +10,14 @@ The latent cache is an npz of ``image name -> [8, 32, 4]`` VAE latents
 word crops are read from ``--iam_path`` and each batch is encoded by the
 frozen VAE encoder inside the step: the VAE comes from a diffusers
 ``--stable_dif_path`` file, a full ``--vae_pt`` state dict or
-``--vae_ckpt`` (``cli.train_vae``'s ``--save_dir``: its ``vae.pt``), or is
-seeded random with a warning. Checkpoints land in
+``--vae_ckpt`` (``cli.train_vae``'s ``--save_dir``: its ``vae.pt``; or the
+JAX CLI's orbax ``<save_dir>/ckpt``), or is seeded random with a warning. Checkpoints land in
 ``<save_path>/ckpt/<step>/``; ``ema_unet.pt`` there is the regeneration
-CLI's ``--torch_ckpt``. Epoch previews are written to
+CLI's ``--torch_ckpt``. ``--loadPrev 1`` resumes the newest of them, or,
+where ``<save_path>/ckpt`` holds only the JAX Trainer's orbax steps, the JAX
+run (its parameters, EMA, Adam moments and step;
+``train.checkpoint.restore_jax``), and writes the port's checkpoints from
+then on. Epoch previews are written to
 ``<save_path>/images/``, decoded by that VAE (with a cache: ``--vae_pt``,
 a full or decoder-only state dict in the port's keys, or
 ``--stable_dif_path``, or a seeded random decoder).
@@ -84,7 +88,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--preview_ddim", type=int, default=50,
                    help="DDIM steps for epoch previews; 0 = full DDPM "
                         "(the reference preview path)")
-    p.add_argument("--vae_ckpt", default="", help="cli.train_vae's --save_dir (its vae.pt)")
+    p.add_argument("--vae_ckpt", default="",
+                   help="cli.train_vae's --save_dir (its vae.pt), or the JAX CLI's "
+                        "orbax <save_dir>/ckpt")
     p.add_argument("--stable_dif_path", default="", help="diffusers VAE (safetensors)")
     p.add_argument("--vae_pt", default="",
                    help="VAE state dict in the port's keys: full (encoder too), or "
@@ -94,9 +100,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(reference: every 5 epochs)")
     p.add_argument("--stopFlagFile", default="")
     p.add_argument("--loadPrev", type=int, default=0,
-                   help="resume from the latest checkpoint; --epochs is the "
-                        "TOTAL target, and the resumed run continues "
-                        "bitwise like an uninterrupted one (Trainer.run)")
+                   help="resume from the latest checkpoint (the port's, else the JAX "
+                        "Trainer's orbax one); --epochs is the TOTAL target, and the "
+                        "resumed run continues bitwise like an uninterrupted one "
+                        "(Trainer.run)")
     p.add_argument("--partialLoad", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh_data", type=int, default=-1)
@@ -226,10 +233,12 @@ def _vae(args, exp, device, with_encoder: bool):
     """The frozen VAE on ``device``: the full codec when the steps encode
     images, the decode half for the previews of latent-cache training."""
     from ..models.vae import make_vae
-    from ..train.checkpoint import weights_file
+    from ..models.convert import jax_vae_to_torch
+    from ..train.checkpoint import side_weights
 
-    vae_pt = weights_file(args.vae_pt, args.vae_ckpt, "--vae_ckpt", "vae.pt")
-    vae = make_vae(exp.vae, args.stable_dif_path, vae_pt, with_encoder=with_encoder,
+    vae_sd = side_weights(args.vae_pt, args.vae_ckpt, "--vae_ckpt", "vae.pt",
+                          lambda t: jax_vae_to_torch(t, exp.vae))
+    vae = make_vae(exp.vae, args.stable_dif_path, vae_sd, with_encoder=with_encoder,
                    seed=args.seed)
     return vae.to(device).eval().requires_grad_(False)
 

@@ -12,7 +12,8 @@ over the W/4 = 64 frames, the recognizer's dropout drawn from a seeded
 ``torch.Generator``. Each epoch reports the exact match on held-out renders
 (the vocabulary at unseen seeds) and writes ``ocr.pt``, the recognizer's
 state dict in the port's keys, which ``cli.regenerate --ocr_pt`` and
-``cli.evaluate --ocr_pt`` read (the JAX CLI writes an orbax checkpoint).
+``cli.evaluate --ocr_pt`` read (the JAX CLI writes an orbax checkpoint,
+which their ``--ocr_ckpt`` reads).
 ``metrics.json`` has the JAX CLI's keys. Without ``--gt_train``, or with
 ``--synthetic 1``, the corpus is ``--vocab_size`` words of the language's
 list rendered by ``data.synthetic.render_word``; so is a missing crop.

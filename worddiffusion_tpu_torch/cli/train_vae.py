@@ -11,7 +11,8 @@ defaults and weight decay 1e-5, the posterior sampled with a seeded
 conv3x3 prologues kernel B.6 on the card, forward and backward (their
 Functions). ``vae.pt``, the full state dict in the port's keys (written at
 ``--save_every_epochs`` and at the end), is the ``--vae_pt`` of the cache,
-train and regeneration CLIs (the JAX CLI writes an orbax checkpoint).
+train and regeneration CLIs (the JAX CLI writes an orbax checkpoint, which
+their ``--vae_ckpt`` reads).
 ``recon_grid.png`` (held-out renders beside their reconstructions) is
 written with ``utils.images.encode_png``; ``metrics.json`` has the JAX
 CLI's keys. Without ``--gt_train``, or with ``--synthetic 1``, the corpus

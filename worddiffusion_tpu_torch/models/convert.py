@@ -12,9 +12,11 @@ dead tensors (left unread) and the ``CTCtopC`` aux head's eval-mode
 BatchNorm (folded into its convs); ``port_unet_to_reference`` (the
 counterpart of ``export_reference_unet``) writes the reference layout back.
 Both walk the keys in JAX's construction order, so they take exactly the
-keys JAX's take. ``jax_unet_extras_to_torch`` maps the Flax UNet's
-parameters that JAX's exporter leaves out (the CTC aux head and the glyph
-encoder). This module adds the VAE
+keys JAX's take. ``jax_unet_to_torch`` maps a Flax UNet tree (the JAX
+package's parameters, EMA, Adam moments) onto the port's keys: the port's
+copy of JAX's ``export_reference_unet`` walk, plus the parameters that
+exporter leaves out (the CTC aux head and the glyph encoder,
+``jax_unet_extras_to_torch``). This module adds the VAE
 (diffusers key names; the inverse of
 ``worddiffusion_tpu.models.vae.convert_diffusers_vae``) and the OCR
 recognizer, the HiGAN+ denoiser, and the PHOSC recognizer, the character counter and the
@@ -47,6 +49,8 @@ from ..configs.config import VAEConfig
 
 
 def _t(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):  # a bfloat16 leaf of an orbax checkpoint
+        a = a.detach().float().numpy()
     return np.ascontiguousarray(np.asarray(a, dtype=np.float32))
 
 
@@ -63,9 +67,10 @@ def _conv(node, key, out):
     out[key + ".bias"] = _t(node["bias"])
 
 
-def _linear(node, key, out):
+def _linear(node, key, out, bias: bool = True):
     out[key + ".weight"] = _t(np.asarray(node["kernel"]).T)
-    out[key + ".bias"] = _t(node["bias"])
+    if bias:
+        out[key + ".bias"] = _t(node["bias"])
 
 
 def _norm(node, key, out):
@@ -74,12 +79,12 @@ def _norm(node, key, out):
 
 
 def jax_unet_extras_to_torch(params: Mapping, cfg) -> dict[str, np.ndarray]:
-    """The Flax UNet's parameters that ``export_reference_unet`` does not
-    export -> the port's keys: the CTC aux head (``aux_head`` ->
-    ``auxhead.*``, its GroupNorms ``temporal_*_gn`` -> ``.1``) with
-    ``ocr_head``, the glyph encoder (``glyph_conv1``, ``glyph_conv2``,
-    ``glyph_proj``) with ``use_char_images``. Merged with the exporter's
-    dict, the port's UNet loads it with ``strict=True``."""
+    """The Flax UNet's parameters that JAX's ``export_reference_unet`` leaves
+    out (the reference has no such tensors) -> the port's keys: the CTC aux
+    head (``aux_head`` -> ``auxhead.*``, its GroupNorms ``temporal_*_gn`` ->
+    ``.1``) with ``ocr_head``, the glyph encoder (``glyph_conv1``,
+    ``glyph_conv2``, ``glyph_proj``) with ``use_char_images``. Part of
+    ``jax_unet_to_torch``."""
     p = _params(params)
     out: dict[str, np.ndarray] = {}
     if cfg.ocr_head:
@@ -97,6 +102,116 @@ def jax_unet_extras_to_torch(params: Mapping, cfg) -> dict[str, np.ndarray]:
         for conv in ("glyph_conv1", "glyph_conv2"):
             _conv(p[conv]["Conv_0"], conv, out)
         _linear(p["glyph_proj"]["Dense_0"], "glyph_proj", out)
+    return out
+
+def _resblock(node, key, out):
+    _norm(node["in_norm"], key + ".in_layers.0", out)
+    _conv(node["in_conv"]["Conv_0"], key + ".in_layers.2", out)
+    _linear(node["emb_proj"]["Dense_0"], key + ".emb_layers.1", out)
+    _norm(node["out_norm"], key + ".out_layers.0", out)
+    _conv(node["out_conv"]["Conv_0"], key + ".out_layers.3", out)
+    if "skip" in node:
+        _conv(node["skip"]["Conv_0"], key + ".skip_connection", out)
+
+
+def _attention(node, key, out):
+    for n in "qkv":
+        _linear(node[f"to_{n}"]["Dense_0"], f"{key}.to_{n}", out, bias=False)
+    _linear(node["to_out"]["Dense_0"], key + ".to_out.0", out)
+
+
+def _spatial_transformer(node, key, cfg, out):
+    _norm(node["norm"], key + ".norm", out)
+    _conv(node["proj_in"]["Conv_0"], key + ".proj_in", out)
+    _conv(node["proj_out"]["Conv_0"], key + ".proj_out", out)
+    for d in range(cfg.transformer_depth):
+        tb, block = f"{key}.transformer_blocks.{d}", node[f"block_{d}"]
+        _attention(block["attn1"], tb + ".attn1", out)
+        _attention(block["attn2"], tb + ".attn2", out)
+        _norm(block["norm2"], tb + ".norm2", out)
+        _norm(block["norm3"], tb + ".norm3", out)
+        _linear(block["ff"]["GEGLU_0"]["Dense_0"]["Dense_0"], tb + ".ff.net.0.proj", out)
+        _linear(block["ff"]["Dense_0"]["Dense_0"], tb + ".ff.net.2", out)
+        if not cfg.attn1_cross:
+            _norm(block["norm1"], tb + ".norm1", out)
+
+
+def _unet_blocks(cfg):
+    """(kind, port key prefix, Flax node path) of each block of the UNet in
+    JAX's construction order, the one walk of its layout: ``_unet_layout``
+    expands each block to its reference keys, ``jax_unet_to_torch`` maps
+    each Flax node. Kinds: ``linear``, ``embed``, ``conv``, ``norm``,
+    ``res`` (a ResBlock), ``attn`` (a SpatialTransformer)."""
+    yield "linear", "time_embed.0", ("time_mlp_1", "Dense_0")
+    yield "linear", "time_embed.2", ("time_mlp_2", "Dense_0")
+    yield "embed", "label_emb", ("label_emb",)
+    yield "embed", "word_emb.embedding", ("word_emb", "embedding")
+    for lin in ("linear_query", "linear_key", "linear_value"):
+        yield "linear", f"word_emb.attention.{lin}", ("word_emb", "attention", lin, "Dense_0")
+    if cfg.style_vec_dim:
+        yield "linear", "wrd_proj", ("style_proj", "wrd_proj", "Dense_0")
+    yield "conv", "input_blocks.0.0", ("conv_in", "Conv_0")
+    idx, ds, levels = 1, 1, len(cfg.channel_mult)
+    for level in range(levels):
+        for i in range(cfg.num_res_blocks):
+            yield "res", f"input_blocks.{idx}.0", (f"in_{level}_{i}_res",)
+            if ds in cfg.attention_resolutions:
+                yield "attn", f"input_blocks.{idx}.1", (f"in_{level}_{i}_attn",)
+            idx += 1
+        if level != levels - 1:
+            yield "conv", f"input_blocks.{idx}.0.op", (f"down_{level}", "Conv2D_0", "Conv_0")
+            idx += 1
+            ds *= 2
+    yield "res", "middle_block.0", ("mid_res1",)
+    yield "attn", "middle_block.1", ("mid_attn",)
+    yield "res", "middle_block.2", ("mid_res2",)
+    idx = 0
+    for level in reversed(range(levels)):
+        for i in range(cfg.num_res_blocks + 1):
+            yield "res", f"output_blocks.{idx}.0", (f"out_{level}_{i}_res",)
+            layer = 1
+            if ds in cfg.attention_resolutions:
+                yield "attn", f"output_blocks.{idx}.{layer}", (f"out_{level}_{i}_attn",)
+                layer += 1
+            if level and i == cfg.num_res_blocks:
+                yield ("conv", f"output_blocks.{idx}.{layer}.conv",
+                       (f"up_{level}", "Conv2D_0", "Conv_0"))
+                ds //= 2
+            idx += 1
+    yield "norm", "out.0", ("out_norm",)
+    yield "conv", "out.2", ("out_conv", "Conv_0")
+
+
+# the Flax UNet creates these only when its init was given writer ids / a style vector
+_OPTIONAL_NODES = ("label_emb", "style_proj")
+
+
+def jax_unet_to_torch(params: Mapping, cfg) -> dict[str, np.ndarray]:
+    """A Flax UNet tree (``{'params': ...}`` or its content: parameters, an
+    EMA copy, Adam moments, gradients) -> the port's ``UNet(cfg)`` keys,
+    fp32 numpy; ``state_dict_to_torch`` of it loads with ``strict=True``.
+    The port's counterpart of JAX's ``export_reference_unet`` (the same
+    walk, ``_unet_blocks``, without its ``template`` and ``middle_block1``
+    options: the port's keys are the reference's ``middle_block``), plus
+    what that exporter leaves out (``jax_unet_extras_to_torch``: the CTC aux
+    head, the glyph encoder)."""
+    p = _params(params)
+    out: dict[str, np.ndarray] = {}
+    for kind, key, path in _unet_blocks(cfg):
+        if path[0] in _OPTIONAL_NODES and path[0] not in p:
+            continue
+        node = p
+        for name in path:
+            node = node[name]
+        if kind == "res":
+            _resblock(node, key, out)
+        elif kind == "attn":
+            _spatial_transformer(node, key, cfg, out)
+        elif kind == "embed":
+            out[key + ".weight"] = _t(node["embedding"])
+        else:
+            {"linear": _linear, "conv": _conv, "norm": _norm}[kind](node, key, out)
+    out.update(jax_unet_extras_to_torch(params, cfg))
     return out
 
 
@@ -140,54 +255,30 @@ def _transformer_keys(prefix: str, cfg) -> list[str]:
     return keys
 
 
+# --attentionMaps checkpoints hold the middle block as
+# middle_block1 = [[ResBlock, ST], [ResBlock]] (reference unet.py:1336-1366)
+_MIDDLE_BLOCK1 = {"middle_block.0": "middle_block1.0.0", "middle_block.1": "middle_block1.0.1",
+                  "middle_block.2": "middle_block1.1.0"}
+
+
 def _unet_layout(cfg, has, middle_block1: bool) -> list[tuple[str, str]]:
     """(port key, reference key) of every UNet tensor JAX's converters carry,
-    in their construction order (``convert_reference_unet``). ``has(key)``:
-    whether the source state dict holds a ResBlock's skip connection."""
-    keys = _pairs(("time_embed.0", "time_embed.2")) + ["label_emb.weight",
-                                                       "word_emb.embedding.weight"]
-    keys += _pairs(("linear_query", "linear_key", "linear_value"), "word_emb.attention")
-    if cfg.style_vec_dim:
-        keys += ["wrd_proj.weight", "wrd_proj.bias"]
-    keys += _pairs(("0",), "input_blocks.0")
-
-    def res(prefix):
-        return _resblock_keys(prefix, has(prefix + ".skip_connection.weight"))
-
-    idx, ds, levels = 1, 1, len(cfg.channel_mult)
-    for level in range(levels):
-        for _ in range(cfg.num_res_blocks):
-            keys += res(f"input_blocks.{idx}.0")
-            if ds in cfg.attention_resolutions:
-                keys += _transformer_keys(f"input_blocks.{idx}.1", cfg)
-            idx += 1
-        if level != levels - 1:
-            keys += _pairs(("0.op",), f"input_blocks.{idx}")
-            idx += 1
-            ds *= 2
-    pairs = [(k, k) for k in keys]
-    # --attentionMaps checkpoints hold the middle block as
-    # middle_block1 = [[ResBlock, ST], [ResBlock]] (reference unet.py:1336-1366)
-    mid = (("middle_block1.0.0", "middle_block1.0.1", "middle_block1.1.0") if middle_block1
-           else ("middle_block.0", "middle_block.1", "middle_block.2"))
-    for i, ref in enumerate(mid):
-        keys = _transformer_keys(ref, cfg) if i == 1 else res(ref)
-        pairs += [(f"middle_block.{i}" + k[len(ref):], k) for k in keys]
-    keys = []
-    idx = 0
-    for level in reversed(range(levels)):
-        for i in range(cfg.num_res_blocks + 1):
-            keys += res(f"output_blocks.{idx}.0")
-            layer = 1
-            if ds in cfg.attention_resolutions:
-                keys += _transformer_keys(f"output_blocks.{idx}.{layer}", cfg)
-                layer += 1
-            if level and i == cfg.num_res_blocks:
-                keys += _pairs((f"{layer}.conv",), f"output_blocks.{idx}")
-                ds //= 2
-            idx += 1
-    keys += _pairs(("out.0", "out.2"))
-    return pairs + [(k, k) for k in keys]
+    in their construction order (``convert_reference_unet``; the blocks of
+    ``_unet_blocks``). ``has(key)``: whether the source state dict holds a
+    ResBlock's skip connection."""
+    pairs = []
+    for kind, port, _ in _unet_blocks(cfg):
+        ref = _MIDDLE_BLOCK1.get(port, port) if middle_block1 else port
+        if kind == "res":
+            keys = _resblock_keys(ref, has(ref + ".skip_connection.weight"))
+        elif kind == "attn":
+            keys = _transformer_keys(ref, cfg)
+        elif kind == "embed":
+            keys = [ref + ".weight"]
+        else:
+            keys = _pairs((ref,))
+        pairs += [(port + k[len(ref):], k) for k in keys]
+    return pairs
 
 
 def _glyph_keys(cfg) -> list[str]:

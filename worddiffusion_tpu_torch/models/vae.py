@@ -293,23 +293,23 @@ def load_diffusers_vae(sd: Mapping[str, torch.Tensor], cfg: VAEConfig = VAEConfi
     return vae
 
 
-def make_vae(cfg: VAEConfig, stable_dif_path: str = "", vae_pt: str = "",
+def make_vae(cfg: VAEConfig, stable_dif_path: str = "", vae_sd: Optional[dict] = None,
              with_encoder: bool = True, seed: int = 0) -> AutoencoderKL:
     """The frozen codec of the CLIs (JAX ``cli/sample.py::make_vae``): from a
-    diffusers ``--stable_dif_path`` safetensors file, from ``--vae_pt`` (a
-    state dict in the port's keys: a full one, or a decoder-only one for
-    the decode half), or seeded random with a warning. On the CPU; the
-    caller moves it."""
+    diffusers ``--stable_dif_path`` safetensors file, from ``vae_sd`` (a
+    state dict in the port's keys, ``train.checkpoint.side_weights``': a
+    full one, or a decoder-only one for the decode half), or seeded random
+    with a warning. On the CPU; the caller moves it."""
     from ..utils.safetensors import load_file
 
     if stable_dif_path:
         return load_diffusers_vae(load_file(stable_dif_path), cfg, with_encoder)
     vae = AutoencoderKL(cfg, with_encoder=with_encoder)
-    if vae_pt:
-        sd = torch.load(vae_pt, map_location="cpu", weights_only=True)
+    if vae_sd is not None:
+        sd = vae_sd
         has_encoder = any(k.startswith("encoder.") for k in sd)
         if with_encoder and not has_encoder:
-            raise ValueError(f"{vae_pt} is a decoder-only VAE state dict; encoding images "
+            raise ValueError("the VAE weights are a decoder-only state dict; encoding images "
                              "needs a full one (encoder.*, quant_conv.*)")
         if has_encoder and not with_encoder:
             sd = {k: v for k, v in sd.items() if not k.startswith(("encoder.", "quant_conv."))}
