@@ -67,7 +67,13 @@ Phases, each of which must pass (any failure exits non-zero):
    preview's B=3, 1 at B=128; Nq 256 and 64, Nk 42), with errors,
    bitwise repeatability, and kernel / plain / ``scaled_dot_product_attention``
    / bound times and the kernel's share of its bound; the Function's output
-   and gradients against plain autograd at B=128, Nq=256, Nk=811.
+   and gradients against plain autograd at B=128, Nq=256, Nk=811. At every
+   one of these shapes also B.4's fast mode (``fast=True``,
+   ``UNetConfig.fast_softmax=True``): the fast kernel against the plain fast
+   version (JAX's ``_attend(fast_softmax=True)`` order) within ATTN_REL_TOL,
+   the max and mean relative error of both kernel modes against that plain
+   fast version, bitwise repeatability, ms per call of the fast kernel and
+   of the plain fast version beside the default kernel's.
 9. ``iam_phosc`` regeneration: the regeneration CLI with ``--preset
    iam_phosc`` (self-attention, then cross-attention over the characters
    and the PHOSC tokens), seeded random weights: one UNet call all-kernel
@@ -189,6 +195,8 @@ Phases, each of which must pass (any failure exits non-zero):
    iam_phosc's self-attention (Nq = Nk = 16384; its plain version in query
    chunks of SELF_ATTN_CHUNK), B.1 and B.3 at M = 16 * 16384 and 16 * 4096,
    each against its plain version, beside its bound and its library call;
+   B.4's fast mode at the two cross-attention shapes, as in phase 8 (not at
+   the self-attention, whose plain version alone takes 364 ms);
    (b) one UNet call all-kernel vs all-plain (4 / 8 / 9 / 12 launches, by
    profiled name); (c) the regeneration CLI with ``--latent 0`` over one batch
    of 16 words (no VAE: the OCR's launches only per batch), peak memory; (d) the train CLI with
@@ -262,6 +270,22 @@ Phases, each of which must pass (any failure exits non-zero):
    bitwise; (d) ``cli.train --loadPrev 1`` resuming the ``iam`` TrainState
    (step 8) for 2 steps on phase 7's corpus: restored step, parameters and
    moments, 4 B.1 and 4 B.3 launches a step.
+31. the UNet's last two switches, set through ``UNetConfig`` as in JAX:
+   (b) ``fast_softmax=True`` (``--preset iam_fast``, registered here): one
+   full-width ``iam`` UNet call at B=16 with 8 B.4 launches, all in the fast
+   mode, against phase 4's default-mode eps on the same weights and inputs
+   (they must differ) and, through ``unet_check``, against its all-plain
+   fast version (4 / 8 / 9 / 12 launches, by profiled name); the regeneration
+   pipeline over one batch of 16 words (960 B.4 launches, all fast); one
+   Trainer step at B=128 (4 B.1, 4 B.3, 8 fast B.4 and 8 Function backwards
+   through the plain fast recompute); (c) ``remat=True``: latent ``iam``
+   training at B=128 and pixel training (phase 23's batch) for 2 steps each,
+   against the same 2 steps without it, from the same seed with every layer
+   random: parameters and loss bitwise equal, B.1 and B.4 forward launches
+   doubled (8 and 16 a step: the backward recomputes each block), B.3, B.5,
+   B.6 and the Function backwards unchanged, peak memory lower; s/step and
+   peak memory of both. The kernels line counts these paths' launches, B.4's
+   fast mode apart (``attention_fast``).
 
 Every training phase counts 9 B.5 and 12 B.6 launches and Function
 backward calls per step (13 B.5 with the CTC aux head), and 9 * 50 + 4 and
@@ -534,6 +558,7 @@ def reset_counts() -> None:
 
     ffn.launches = ffn.bwd_launches = ffn.geglu_launches = 0
     attention.launches = attention.bwd_calls = attention.probs_launches = 0
+    attention.fast_launches = 0
     fold_attention.launches = fold_attention.bwd_calls = fold_attention.flat_launches = 0
     groupnorm.launches = groupnorm.bwd_calls = gn_conv.launches = gn_conv.bwd_calls = 0
 
@@ -558,7 +583,7 @@ def phase8_attention(smi: str) -> dict:
     from worddiffusion_tpu_torch.ops import attention
 
     scale = D_HEAD ** -0.5
-    rows = []
+    rows, fast_rows = [], []
     shapes = [(b, HEADS, nq, nk) for b, nq, nk in ATTN_SHAPES] + list(TP_ATTN_SHAPES)
     for i, (b, h, nq, nk) in enumerate(shapes):
         q, k, v = attn_inputs(b, nq, nk, seed=30 + i, heads=h)
@@ -586,6 +611,7 @@ def phase8_attention(smi: str) -> dict:
         assert rel <= ATTN_REL_TOL, f"attention kernel disagrees at {at}: rel {rel}"
         rows.append(dict(b=b, h=h, nq=nq, nk=nk, err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+        fast_rows.append(fast_attention_row(smi, "attention", q, k, v, rows[-1], got))
 
     # The Function (kernel forward, plain-recompute backward) against plain
     # autograd at the widest training shape: output and q, k, v gradients.
@@ -616,7 +642,49 @@ def phase8_attention(smi: str) -> dict:
     plain_pair_ms = cuda_ms(lambda: fwd_bwd(attention.attention_reference), reps=10)
     log(f"attention fwd+bwd B={b} Nq={nq} Nk={nk}: Function {pair_ms:.4f} ms, plain autograd "
         f"{plain_pair_ms:.4f} ms [{smi}]")
-    return dict(rows=rows, pair_ms=pair_ms, plain_pair_ms=plain_pair_ms)
+    return dict(rows=rows, fast_rows=fast_rows, pair_ms=pair_ms, plain_pair_ms=plain_pair_ms)
+
+
+def fast_attention_row(smi: str, label: str, q, k, v, row: dict, default_out) -> dict:
+    """B.4's fast mode (``UNetConfig.fast_softmax=True``) at ``row``'s shape
+    against the plain fast version (JAX's ``_attend(fast_softmax=True)``
+    order), and the default mode's output ``default_out`` against the same:
+    each mode's max and mean |kernel - plain fast| over max |plain fast|;
+    ms per call of the fast mode (the default mode's is ``row['ms']``) and
+    of the plain fast version. The library call is ``row``'s SDPA (it has
+    no fast order); the bound is the default mode's (the same bytes and
+    products)."""
+    import torch
+
+    from worddiffusion_tpu_torch.ops import attention
+
+    scale = D_HEAD ** -0.5
+    got, again = (attention.fused_attention(q, k, v, scale, True) for _ in range(2))
+    torch.cuda.synchronize()
+    want = attention.attention_reference(q, k, v, scale, True).float()
+    top = want.abs().max().item()
+    rel = {}
+    for mode, out in (("fast", got), ("default", default_out)):
+        d = (out.float() - want).abs()
+        rel[mode] = (d.max().item() / top, d.mean().item() / top)
+    err = (got.float() - want).abs().max().item()
+    ms = launch_ms(lambda: attention.fused_attention(q, k, v, scale, True))
+    plain_ms = launch_ms(lambda: attention.attention_reference(q, k, v, scale, True))
+    at = (q.shape[0], q.shape[1], q.shape[2], k.shape[2])
+    log(f"{label} fast mode B={at[0]} H={at[1]} Nq={at[2]} Nk={at[3]}: against the plain fast "
+        f"version, fast kernel max_rel_err {rel['fast'][0]:.6g} mean_rel_err {rel['fast'][1]:.6g} "
+        f"(tol {ATTN_REL_TOL}), default kernel max_rel_err {rel['default'][0]:.6g} mean_rel_err "
+        f"{rel['default'][1]:.6g}; bitwise repeatable {torch.equal(got, again)}; fast kernel "
+        f"{ms:.4f} ms, default kernel {row['ms']:.4f} ms, plain fast {plain_ms:.4f} ms [{smi}]")
+    assert got.shape == q.shape and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all()), f"non-finite fast attention at {at}"
+    assert torch.equal(got, again), f"fast attention differs between two runs at {at}"
+    assert rel["fast"][0] <= ATTN_REL_TOL, f"fast attention kernel disagrees at {at}: {rel}"
+    return dict(b=at[0], h=at[1], nq=at[2], nk=at[3], err=err, rel=rel["fast"][0],
+                mean_rel=rel["fast"][1], default_rel=rel["default"][0],
+                default_mean_rel=rel["default"][1], ms=ms, default_ms=row["ms"],
+                plain_ms=plain_ms, library_ms=row["library_ms"], bound_ms=row["bound_ms"],
+                bound_by=row["bound_by"])
 
 
 def ffn_inputs(m: int, seed: int, inner: int = INNER):
@@ -1249,17 +1317,18 @@ def step_profile(smi: str, trainer, label: str, folds: int, ffn_bwd: int = 4) ->
     return dict(busy_ms=d["busy_ms"], kernels=d["kernels"])
 
 
-def register_fold_preset() -> None:
-    """``iam_fold``: the ``iam`` preset at full width with the context-folded
-    attention, in the port's presets, where both CLIs resolve --preset."""
+def register_iam_preset(name: str, **unet) -> None:
+    """``name``: the ``iam`` preset at full width with the UNet fields
+    ``unet`` set, in the port's presets, where the CLIs resolve --preset
+    (``iam_fold``: the context-folded attention; ``iam_fast``:
+    ``fast_softmax=True``)."""
     from worddiffusion_tpu_torch.configs import presets
 
-    def iam_fold():
+    def preset():
         exp = presets.iam()
-        return exp.replace(name="iam_fold",
-                           unet=dataclasses.replace(exp.unet, attn_fold_context=True))
+        return exp.replace(name=name, unet=dataclasses.replace(exp.unet, **unet))
 
-    presets.PRESETS["iam_fold"] = iam_fold
+    presets.PRESETS[name] = preset
 
 
 def phase12_fold_regen(smi: str, cli, gt: str, work: str, words) -> dict:
@@ -1923,9 +1992,9 @@ def phase19_cond_train(smi: str, work: str, corpus: tuple[str, str, str]) -> dic
         nks = []
         fused = attention.fused_attention
 
-        def recorded(q, k, v, scale):
+        def recorded(q, k, v, *rest):
             nks.append(k.shape[2])
-            return fused(q, k, v, scale)
+            return fused(q, k, v, *rest)
 
         step_fn = make_train_step(trainer.schedule, trainer.exp, trainer.encode_fn)
         batch = next(iter(epoch_batches(trainer.dataset, TRAIN_B, epoch=0, seed=0,
@@ -3012,7 +3081,7 @@ def pixel_kernel_rows(smi: str) -> dict:
 
     from worddiffusion_tpu_torch.ops import attention, ffn, gn_conv, groupnorm
 
-    gn_rows, conv_rows, attn_rows, ffn_rows, bwd_rows = [], [], [], [], []
+    gn_rows, conv_rows, attn_rows, ffn_rows, bwd_rows, fast_rows = [], [], [], [], [], []
     for i, (b, h, w, c, groups, silu) in enumerate(PIXEL_GN_SHAPES):
         t = norm_inputs((b, h, w, c), seed=300 + i)
         args = (t["x"], t["scale"], t["bias"], groups, 1e-5, silu)
@@ -3107,6 +3176,9 @@ def pixel_kernel_rows(smi: str) -> dict:
         assert rel <= ATTN_REL_TOL, f"attention kernel disagrees at {b, nq, nk}: rel {rel}"
         attn_rows.append(dict(b=b, nq=nq, nk=nk, err=err, ms=ms, plain_ms=plain_ms,
                               library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+        if not chunked:  # the self-attention's plain version alone takes 364 ms
+            fast_rows.append(fast_attention_row(smi, "pixel attention", q, k, v, attn_rows[-1],
+                                                got))
         del q, k, v, got, again, want
 
     for i, m in enumerate(PIXEL_FFN_M):
@@ -3151,7 +3223,7 @@ def pixel_kernel_rows(smi: str) -> dict:
         del a, got, again, want
     torch.cuda.empty_cache()
     return dict(gn_rows=gn_rows, conv_rows=conv_rows, attn_rows=attn_rows, ffn_rows=ffn_rows,
-                bwd_rows=bwd_rows)
+                bwd_rows=bwd_rows, attn_fast_rows=fast_rows)
 
 
 def pixel_unet_inputs(sampler, words):
@@ -3247,7 +3319,7 @@ def phase23_pixel(smi: str, work: str, cli, gt: str, words) -> dict:
                            conv=10 * UNET_NORMS[1], geglu=0, probs=0), sampled
     assert png_size(os.path.join(work, "sample_pixel", names[0])) == (PIX_W, PIX_H)
     return dict(rows=rows, unet=unet, regen=regen_px, train=out, train_b=train_b,
-                peak_regen=peak_regen, sample=sampled)
+                peak_regen=peak_regen, sample=sampled, corpus=(crops, pgt))
 
 
 def pixel_train(smi: str, work: str, crops: str, gt: str, tb: int, train_cli) -> dict:
@@ -4145,6 +4217,195 @@ def phase30_orbax(smi: str, work: str, cli, gt: str, corpus: tuple[str, str]) ->
                 s_per_batch=s_per_batch, turns=times, build_s=build_s, phase_s=phase_s)
 
 
+@contextlib.contextmanager
+def random_init():
+    """The Trainer's seeded initialisation with every layer random, the
+    zero-initialised output convs too: from the first step the loss's
+    gradient reaches every transformer block (with the zero convs it reaches
+    them only from the third step)."""
+    import functools
+
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.train import loop
+
+    with mock.patch.object(loop, "init_weights_", functools.partial(init_weights_,
+                                                                    zero_init=False)):
+        yield
+
+
+def switch_run(smi: str, work: str, trainer, label: str, steps: int, timed: bool = False,
+               **unet) -> dict:
+    """``trainer``'s experiment with the UNet switches ``unet`` set, a new
+    Trainer on its dataset (no previews) for ``steps`` steps from the same
+    seeded, fully random weights: counts set to 0 just before the run and
+    read just after, the attention's fast-mode launches and Function
+    backwards apart; peak memory above the run's start; s/step (the epoch's
+    wall time over its steps, host batch assembly included). ``timed``:
+    then, on the run's state and its first batch, the step function alone:
+    ms a step by CUDA events (the median of 3) and device busy ms of one
+    step (``device_profile``)."""
+    import torch
+
+    from worddiffusion_tpu_torch.data.loader import epoch_batches
+    from worddiffusion_tpu_torch.ops import attention, ffn
+    from worddiffusion_tpu_torch.train.loop import Trainer
+    from worddiffusion_tpu_torch.train.step import make_train_step
+
+    exp = trainer.exp
+    exp = exp.replace(unet=dataclasses.replace(exp.unet, **unet), train=dataclasses.replace(
+        exp.train, save_path=os.path.join(work, label)))
+    run = Trainer(exp, trainer.dataset, device="cuda", encode_fn=trainer.encode_fn)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counts()
+    with random_init():
+        state = run.run(epochs=1, max_steps=steps)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    counts = dict(all_counts(), attn_fast=attention.fast_launches)
+    attn_bwd, ffn_bwd, gn_bwd = attention.bwd_calls, ffn.bwd_launches, norm_counts()[2]
+    s_, n_ = run.epoch_seconds[0]
+    assert state.step == steps, state.step
+    params = [p.detach().clone() for p in state.model.parameters()]
+    loss = torch.load(run.ckpt.path(steps), map_location="cpu",
+                      weights_only=True)["metrics"]["loss"]
+    step_ms = busy_ms = None
+    if timed:
+        step_fn = make_train_step(run.schedule, exp, run.encode_fn)
+        batch = next(iter(epoch_batches(run.dataset, exp.data.batch_size, epoch=0,
+                                        seed=exp.train.seed, map_fn=run._device_batch)))
+        step_ms = cuda_ms(lambda: step_fn(state, batch), reps=3, warmup=0)
+        busy_ms = device_profile(lambda: step_fn(state, batch), calls=1)["busy_ms"]
+    log(f"{label}: {steps} steps of B={exp.data.batch_size} ({unet}), {s_ / n_:.4f} s/step, "
+        f"peak memory above the run's start {peak / 2 ** 30:.3f} GiB; launches {counts}; "
+        f"Function backwards: attention {attn_bwd}, B.3 {ffn_bwd}, B.5 {gn_bwd}; loss {loss:.6g}"
+        + (f"; then the step alone {step_ms:.2f} ms by CUDA events, device busy {busy_ms:.2f} ms"
+           if timed else "") + f" [{smi}]")
+    assert n_ == steps, n_
+    assert torch.isfinite(torch.tensor(loss)) and all(torch.isfinite(p).all() for p in params)
+    assert (attn_bwd, gn_bwd) == (8 * steps, UNET_NORMS[0] * steps), (attn_bwd, gn_bwd)
+    assert counts["fold"] == counts["fold_b7"] == counts["geglu"] == counts["probs"] == 0, counts
+    del run, state
+    return dict(counts=counts, attn_bwd=attn_bwd, params=params, peak_bytes=peak,
+                s_per_step=s_ / n_, loss=loss, step_ms=step_ms, busy_ms=busy_ms)
+
+
+def remat_pair(smi: str, work: str, trainer, label: str, steps: int = 2) -> dict:
+    """Phase 31(c) for one trainer: ``steps`` steps with remat off, then on,
+    from the same seed: the parameters bitwise equal; B.1 and B.4 forward
+    launches doubled by the recompute (the checkpointed blocks' forward runs
+    again in the backward), B.3, B.5, B.6 and the Function backwards
+    unchanged."""
+    import torch
+
+    off = switch_run(smi, work, trainer, f"{label}_remat0", steps, True, remat=False)
+    on = switch_run(smi, work, trainer, f"{label}_remat1", steps, True, remat=True)
+    equal = all(torch.equal(a, b) for a, b in zip(off["params"], on["params"]))
+    log(f"{label} remat: parameters after {steps} steps bitwise equal to remat off {equal}; "
+        f"s/step {off['s_per_step']:.4f} off, {on['s_per_step']:.4f} on; the step alone "
+        f"{off['step_ms']:.2f} / {on['step_ms']:.2f} ms, device busy {off['busy_ms']:.2f} / "
+        f"{on['busy_ms']:.2f} ms off / on; peak memory {off['peak_bytes'] / 2 ** 30:.3f} GiB off, "
+        f"{on['peak_bytes'] / 2 ** 30:.3f} GiB on [{smi}]")
+    c0, c1 = off["counts"], on["counts"]
+    assert c0["ffn"] == 4 * steps and c0["attn"] == 8 * steps, c0
+    assert (c1["ffn"], c1["attn"]) == (2 * c0["ffn"], 2 * c0["attn"]), (c0, c1)
+    assert all(c1[k] == c0[k] for k in ("ffn_bwd", "gn", "conv")) and c0["ffn_bwd"] == 4 * steps
+    assert c0["attn_fast"] == c1["attn_fast"] == 0
+    assert equal, f"{label}: the remat run's parameters differ from the run without it"
+    assert off["loss"] == on["loss"], (off["loss"], on["loss"])
+    assert on["peak_bytes"] < off["peak_bytes"], (on["peak_bytes"], off["peak_bytes"])
+    for r in (off, on):
+        del r["params"]
+    return dict(off=off, on=on)
+
+
+def phase31_switches(smi: str, work: str, cli, gt: str, words, corpus, default_eps,
+                     pixel: dict) -> dict:
+    """Phase 31: the UNet's last two switches. (b) ``fast_softmax=True`` at
+    full width: one ``iam`` UNet call at B=16 against its all-plain fast
+    version (8 B.4 launches, all in the fast mode) and against the default
+    mode's eps on the same weights and inputs (phase 4's), the regeneration
+    pipeline over one batch of 16 words, one Trainer step at B=128 (its
+    backward through the plain fast recompute); (c) ``remat=True``: latent
+    ``iam`` training at B=128 and pixel training at phase 23's batch, 2
+    steps each against the same steps without it."""
+    import torch
+
+    from worddiffusion_tpu_torch.cli import train as train_cli
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.ops import attention
+
+    out = {}
+    # (b) fast_softmax=True
+    register_iam_preset("iam_fast", fast_softmax=True)
+    regen, samples = cli.build(regen_cli_args(cli, gt, os.path.join(work, "regen_fast"),
+                                              "--preset", "iam_fast"))
+    sampler = regen.sampler
+    assert sampler.model.cfg.fast_softmax is True and sampler.model.cfg.model_channels == 320
+    init_weights_(sampler.model, seed=0, zero_init=False)  # phase 4's weights
+    inputs = unet_inputs(sampler, words, phosc=False)
+    reset_counts()
+    with torch.no_grad():
+        eps = sampler.model(*inputs)
+    torch.cuda.synchronize()
+    one_call = (attention.launches, attention.fast_launches)
+    shift = (eps - default_eps).abs().max().item() / default_eps.abs().max().item()
+    log(f"unet B={B} (iam fast_softmax): B.4 launches in one call {one_call[0]}, of them in the "
+        f"fast mode {one_call[1]}; eps against the default mode's on the same weights and "
+        f"inputs: max |diff| / max |eps| {shift:.6g} [{smi}]")
+    assert one_call == (8, 8), one_call
+    assert shift > 0, "fast_softmax=True gave the default mode's eps"
+    unet = unet_check(smi, sampler.model, inputs, "iam fast_softmax")
+    regen_fast = drive_regen(smi, regen, samples[:B], seed=0, label="iam fast_softmax")
+    regen_fast["attn_fast"] = attention.fast_launches
+    assert regen_fast["attn_fast"] == regen_fast["attn"] == 8 * 120, regen_fast
+    del regen, sampler
+
+    # the train CLI's trainer for the latent corpus (its dataset; its own
+    # model is freed before the runs)
+    gt_train, cache = corpus
+    latent = train_cli.build(train_cli.build_parser().parse_args([
+        "--preset", "iam", "--gt_train", gt_train, "--latent_cache", cache, "--batch_size",
+        str(TRAIN_B), "--epochs", "1", "--save_path", os.path.join(work, "switches"),
+        "--seed", "0", "--device", "cuda"]))
+    latent.model = None
+    train_fast = switch_run(smi, work, latent, "train_fast_softmax", 1, fast_softmax=True)
+    c = train_fast["counts"]
+    assert (c["ffn"], c["ffn_bwd"], c["attn"], c["attn_fast"]) == (4, 4, 8, 8), c
+    del train_fast["params"]
+
+    # (c) remat=True, latent B=128 and pixel space
+    out["remat"] = remat_pair(smi, work, latent, "train")
+    del latent
+    crops, pgt = pixel["corpus"]
+    px = train_cli.build(train_cli.build_parser().parse_args([
+        "--preset", "iam", "--gt_train", pgt, "--iam_path", crops, "--latent", "0",
+        "--batch_size", str(pixel["train_b"]), "--epochs", "1", "--save_path",
+        os.path.join(work, "switches_pixel"), "--seed", "0", "--device", "cuda"]))
+    px.model = None
+    out["remat_pixel"] = remat_pair(smi, work, px, "train_pixel")
+    del px
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def path(counts):
+        """A run's counts, the default-mode and the fast-mode B.4 launches apart."""
+        return dict(counts, attn=counts["attn"] - counts["attn_fast"])
+
+    regen_counts = {k: regen_fast[k] for k in ("ffn", "attn", "fold", "gn", "conv", "geglu",
+                                               "fold_b7", "probs", "attn_fast")}
+    out["paths"] = {
+        "regenerate_fast_softmax": path(dict(regen_counts, ffn_bwd=0)),
+        "train_fast_softmax": path(train_fast["counts"]),
+        "train_remat": path(out["remat"]["on"]["counts"]),
+        "train_pixel_remat": path(out["remat_pixel"]["on"]["counts"]),
+    }
+    out.update(unet=unet, regen=regen_fast, train_fast=train_fast, shift=shift)
+    return out
+
+
 TP_WORKER_FLAG = "--tp-worker"
 # Parameters after 6 AdamW steps at lr 1e-4, the tensor-parallel run against
 # the one-process run. Each rank's partials are summed in another order than
@@ -4287,7 +4548,7 @@ def tp_worker(work: str) -> int:
                zip(resumed.model.parameters(), state.model.parameters()))
     prof = step_profile("", trainer, "tp", folds=0, ffn_bwd=0)
 
-    register_fold_preset()
+    register_iam_preset("iam_fold", attn_fold_context=True)
     fold = train_cli.build(args("tp_fold", "--epochs", "1", preset="iam_fold"))
     reset_counts()
     fold_state = fold.run(epochs=1)
@@ -4525,7 +4786,7 @@ def main(argv=None) -> int:
 
     stamp("11")
     # -- 12. iam_fold regeneration ---------------------------------------------------
-    register_fold_preset()
+    register_iam_preset("iam_fold", attn_fold_context=True)
     regen_fold = phase12_fold_regen(smi, cli, gt, work, words)
 
     stamp("12")
@@ -4604,6 +4865,9 @@ def main(argv=None) -> int:
     # -- 30. the JAX package's orbax checkpoints: regeneration, export, resume ------------------
     orbax = phase30_orbax(smi, work, cli, gt, corpus)
     stamp("30")
+    # -- 31. the last two UNet switches: fast_softmax=True and remat -----------------------------
+    switches = phase31_switches(smi, work, cli, gt, words, corpus, unet["eps"], px)
+    stamp("31")
     paths = ("regenerate", "regenerate_iam_phosc", "regenerate_iam_fold", "train",
              "train_iam_phosc", "train_iam_fold", "build_latent_cache", "train_from_images")
     # the paths of phases 18-20, each with its counts under chip_smoke's keys
@@ -4613,7 +4877,7 @@ def main(argv=None) -> int:
                  **{f"train_{k}": v for k, v in cond_train.items()},
                  **{k: dict(v, ffn_bwd=0) for k, v in sampled.items()},
                  **phosc["paths"], **side["paths"], **new["paths"], **ckpts["paths"],
-                 **orbax["paths"]}
+                 **orbax["paths"], **switches["paths"]}
 
     def by_path(*counts, key):
         """The earlier paths' counts in order, then the later paths' ``key``."""
@@ -4641,6 +4905,11 @@ def main(argv=None) -> int:
     probs_paths = by_path(regen_iam["probs"], regen_phosc["probs"], regen_fold["probs"],
                           train["probs"], train_p["probs"], train_f["probs"], built["probs"],
                           train_i["probs"], key="probs")
+    # B.4's fast mode (fast_softmax=True) runs on phase 31's paths alone; "attn"
+    # counts the default mode's launches there
+    fast_paths = {**dict.fromkeys(paths, 0),
+                  **{p: c.get("attn_fast", 0) for p, c in new_paths.items()}}
+    assert all(n == 0 for p, n in fast_paths.items() if "fast_softmax" not in p), fast_paths
     # the maps kernel runs on the return_attn paths alone
     assert all(n == 0 for p, n in probs_paths.items() if p not in new["maps"]["paths"]), probs_paths
     main_row, bwd_row, attn_row = ffn_rows[0], bwd["rows"][0], attn["rows"][0]
@@ -4703,6 +4972,16 @@ def main(argv=None) -> int:
         f"{orbax['rates']['iam']:.1f}; orbax iam TrainState read {orbax['read_s']['iam']:.3f} s; "
         f"regen s/batch from orbax {orbax['s_per_batch']['orbax']:.4f} vs port keys "
         f"{orbax['s_per_batch']['port']:.4f}"
+        + f"; fast_softmax: UNet call {switches['unet']['ms']:.3f} ms, regen s/batch "
+        f"{switches['regen']['s_per_batch']:.4f}, train step {switches['train_fast']['s_per_step']:.4f} "
+        f"s; remat off / on: train B={TRAIN_B} {switches['remat']['off']['s_per_step']:.4f} / "
+        f"{switches['remat']['on']['s_per_step']:.4f} s/step, peak "
+        f"{switches['remat']['off']['peak_bytes'] / 2 ** 30:.3f} / "
+        f"{switches['remat']['on']['peak_bytes'] / 2 ** 30:.3f} GiB; pixel B={px['train_b']} "
+        f"{switches['remat_pixel']['off']['s_per_step']:.4f} / "
+        f"{switches['remat_pixel']['on']['s_per_step']:.4f} s/step, peak "
+        f"{switches['remat_pixel']['off']['peak_bytes'] / 2 ** 30:.3f} / "
+        f"{switches['remat_pixel']['on']['peak_bytes'] / 2 ** 30:.3f} GiB"
         + f"; whole run {time.perf_counter() - T_START:.1f} s")
 
     def entry(name, source, replaces, paths_, rows, row, library_ms):
@@ -4723,6 +5002,12 @@ def main(argv=None) -> int:
         entry("attention", "worddiffusion_tpu_torch/csrc/attention.cu",
               "bench_kernels/attention_pallas.py:25", attn_paths,
               attn["rows"] + rows_px["attn_rows"], attn_row, attn_row["library_ms"]),
+        # B.4's fast mode (UNetConfig.fast_softmax=True: JAX's bf16 softmax order),
+        # its launches apart from the default mode's
+        dict(entry("attention_fast", "worddiffusion_tpu_torch/csrc/attention.cu",
+                   "bench_kernels/attention_pallas.py:25", fast_paths,
+                   attn["fast_rows"] + rows_px["attn_fast_rows"], attn["fast_rows"][0],
+                   attn["fast_rows"][0]["library_ms"]), mode="fast"),
         # the maps kernel beside B.4 (return_attn): no TPU kernel of its own;
         # the JAX model forms the maps with XLA's softmax where it sows them
         entry("attention_probs", "worddiffusion_tpu_torch/csrc/attention.cu",

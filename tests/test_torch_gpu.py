@@ -427,6 +427,61 @@ def test_attention_kernel_takes_long_contexts(cuda, nq, nk):
     assert err <= 1e-2 * want.float().abs().max().item(), err
 
 
+@pytest.mark.parametrize("b,nq,nk", ATTN_SHAPES + [(4, 256, 2048)])
+def test_attention_fast_mode_matches_plain_fast(cuda, b, nq, nk):
+    """``fast=True`` (``UNetConfig.fast_softmax``): the kernel's fast mode
+    against the plain fast version (JAX's bf16 order): within 1% of max
+    |out| (where each p's bf16 rounding falls, and the order of the fp32
+    sums), nearer it on average than the default mode is (the fast mode
+    makes two of JAX's three roundings); bitwise repeatable; its launches
+    counted apart."""
+    from worddiffusion_tpu_torch.ops import attention
+
+    q, k, v = _qkv(b, nq, nk, cuda, seed=2)
+    a0, f0 = attention.launches, attention.fast_launches
+    got = attention.fused_attention(q, k, v, 80 ** -0.5, True)
+    again = attention.fused_attention(q, k, v, 80 ** -0.5, True)
+    default = attention.fused_attention(q, k, v, 80 ** -0.5)
+    torch.cuda.synchronize()
+    assert (attention.launches - a0, attention.fast_launches - f0) == (3, 2)
+    want = attention.attention_reference(q, k, v, 80 ** -0.5, True).float()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, again)
+    top = want.abs().max().item()
+    fast_err, default_err = ((o.float() - want).abs() for o in (got, default))
+    assert fast_err.max().item() <= 1e-2 * top, fast_err.max().item()
+    assert fast_err.mean() < default_err.mean(), (fast_err.mean(), default_err.mean())
+
+
+def test_remat_block_on_the_card_is_bitwise_and_recomputes_the_kernels(cuda):
+    """A full-width SpatialTransformer (B=16, 8x32, 320 channels) with
+    ``remat``: output and every gradient bitwise those without it; the
+    backward launches B.1 and B.4 once more per block (1 and 2), B.3 as
+    often."""
+    from worddiffusion_tpu_torch.models.attention import SpatialTransformer
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.ops import attention
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(16, 320, 8, 32, generator=g).bfloat16().to(cuda).to(
+        memory_format=torch.channels_last)
+    ctx = torch.randn(16, 42, 320, generator=g).bfloat16().to(cuda)
+    runs = []
+    for remat in (False, True):
+        st = init_weights_(SpatialTransformer(320, 4, 80, context_dim=320, remat=remat), seed=3,
+                           zero_init=False).to(cuda)
+        xi = x.clone().requires_grad_()
+        counts = (ffn.launches, attention.launches, ffn.bwd_launches)
+        (st(xi, ctx).float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        runs.append((tuple(b - a for a, b in zip(counts, (ffn.launches, attention.launches,
+                                                          ffn.bwd_launches))),
+                     {"x": xi.grad, **{n: p.grad for n, p in st.named_parameters()}}))
+    (n0, g0), (n1, g1) = runs
+    assert n0 == (1, 2, 1) and n1 == (2, 4, 1), (n0, n1)
+    for k in g0:
+        assert torch.equal(g0[k], g1[k]), k
+
+
 @pytest.mark.parametrize("bad", ["fp32", "d_72", "non_contiguous", "nk_zero"])
 def test_attention_refuses_what_it_does_not_take(cuda, bad):
     from worddiffusion_tpu_torch.ops import attention

@@ -17,7 +17,16 @@ on ``MeshConfig(data=2, model=2)``, one launch each. In them:
 - the Trainer's run (its own draws), a max_steps stop and a resume bitwise
   the uninterrupted run, its gathered checkpoint loaded in one process;
 - the train CLI with ``--mesh_model 2`` (and ``--mesh_data 2``), against
-  the one-process CLI run.
+  the one-process CLI run;
+- at 1x2, the two steps again with ``remat=True``: every parameter bitwise
+  the steps' without it, the recompute's forward all-reduces counted;
+- at 1x2, a JAX run resumed under the model axis (the JAX Trainer's orbax
+  steps, ``tests/test_torch_orbax.py::write_jax_run``): ``restore_jax``
+  gives each rank exactly ``shard_state_dict`` of the one-process restore
+  (model, EMA, both AdamW moments, the count), and the Trainer's next step
+  matches the one-process resumed step within ``chip_smoke.tp_param_check``'s
+  bounds (each tensor's difference within a tenth of its movement, 99% of
+  the entries within 1e-5).
 
 Tolerances (fp32): the model ranks' partial sums are added in another order
 than one process's matmul, so outputs and gradients differ by rounding: a
@@ -33,6 +42,7 @@ entries are held to 1e-7 besides.
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -54,13 +64,15 @@ from worddiffusion_tpu.parallel.mesh import param_sharding
 from worddiffusion_tpu.parallel.mesh import shard_batch as jax_shard
 from worddiffusion_tpu.train import state as jstate
 from worddiffusion_tpu.train import step as jstep
+from chip_smoke import tp_param_check
 from test_torch_copies import port_cfg
 from test_torch_ddp import _close, _free_port
+from test_torch_orbax import write_jax_run
 from test_torch_train import CFG, T, _cli_files, _jax_params, _port_model, _port_sd, tiny_exp
 from worddiffusion_tpu_torch.cli import train as train_cli
 from worddiffusion_tpu_torch.configs import presets
 from worddiffusion_tpu_torch.configs.config import (
-    DataConfig, DiffusionConfig, Experiment, VAEConfig)
+    DataConfig, DiffusionConfig, Experiment, TrainConfig, VAEConfig)
 from worddiffusion_tpu_torch.data.dataset import LatentLookup, WordImageDataset
 from worddiffusion_tpu_torch.data.gt import Sample, WriterRegistry
 from worddiffusion_tpu_torch.data.tokenizer import Tokenizer
@@ -68,7 +80,7 @@ from worddiffusion_tpu_torch.diffusion.schedule import NoiseSchedule as PortSche
 from worddiffusion_tpu_torch.models.unet import UNet
 from worddiffusion_tpu_torch.parallel import distributed, mesh
 from worddiffusion_tpu_torch.parallel.tensor import shard_state_dict, unshard
-from worddiffusion_tpu_torch.train.checkpoint import CheckpointManager
+from worddiffusion_tpu_torch.train.checkpoint import CheckpointManager, restore_jax
 from worddiffusion_tpu_torch.train.loop import Trainer
 from worddiffusion_tpu_torch.train.state import TrainState, make_optimizer
 from worddiffusion_tpu_torch.train.step import StepDraws, make_train_step
@@ -76,6 +88,7 @@ from worddiffusion_tpu_torch.train.step import StepDraws, make_train_step
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LR = 1e-5
+RESUME_LR = 1e-4  # the step after a JAX run's resume (tp_param_check's lr)
 B = 4  # global batch
 TP_CFG = dataclasses.replace(CFG, num_heads=4)  # 64 channels, 4 heads of 16
 # block cases: (attn1_cross, fold_context, context length); the fold gate
@@ -107,7 +120,9 @@ WORKER = textwrap.dedent('''
     from worddiffusion_tpu_torch.models.unet import UNet
     from worddiffusion_tpu_torch.parallel.distributed import initialize_multihost
     from worddiffusion_tpu_torch.parallel.mesh import make_mesh, param_spec, shard_batch, shard_rows
+    from worddiffusion_tpu_torch.parallel import tensor
     from worddiffusion_tpu_torch.parallel.tensor import gather_state_dict, shard_state_dict
+    from worddiffusion_tpu_torch.train.checkpoint import restore_jax
     from worddiffusion_tpu_torch.train.loop import Trainer
     from worddiffusion_tpu_torch.train.state import TrainState, make_optimizer
     from worddiffusion_tpu_torch.train.step import StepDraws, make_train_step
@@ -164,24 +179,43 @@ WORKER = textwrap.dedent('''
                      train=TrainConfig(lr=float(z["lr"]), save_path=out + "/run",
                                        ckpt_every_epochs=1, ema_warmup_steps=1, log_every=1),
                      mesh=MeshConfig(data=data, model=2))
-    model = UNet(cfg, mesh)
-    model.load_state_dict(shard_state_dict(
-        {k[3:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("sd.")}, mesh))
-    state = TrainState.create(model, make_optimizer(model.parameters(), exp.train.lr,
-                                                    exp.train.weight_decay))
-    rows = shard_rows(4, mesh) if data > 1 else None
-    ddp = DistributedDataParallel(model, process_group=mesh.data_group) if data > 1 else None
-    step = make_train_step(NoiseSchedule.linear(exp.diffusion.num_steps), exp, forward=ddp,
-                           rows=rows, world=data)
-    for s in range(2):
-        batch = {k: torch.from_numpy(z[f"b{s}.{k}"]) for k in ("latent", "context", "writer")}
-        t, n = torch.from_numpy(z[f"t{s}"]), torch.from_numpy(z[f"n{s}"])
-        if rows is not None:
-            batch, t, n = shard_batch(batch, mesh), t[rows], n[rows]
-        step(state, batch, StepDraws(t, n, torch.tensor(float(z[f"k{s}"]))))
+    reduces = []  # the model axis's fp32 all-reduces, each by its tensors' count
+    all_reduce = tensor._all_reduce_fp32
+    tensor._all_reduce_fp32 = lambda ts, m: reduces.append(len(ts)) or all_reduce(ts, m)
+
+    def two_steps(cfg):
+        """Two steps of a sharded UNet of ``cfg`` from the inputs' weights ->
+        (its state, the all-reduces they made)."""
+        model = UNet(cfg, mesh)
+        model.load_state_dict(shard_state_dict(
+            {k[3:]: torch.from_numpy(z[k]) for k in z.files if k.startswith("sd.")}, mesh))
+        state = TrainState.create(model, make_optimizer(model.parameters(), exp.train.lr,
+                                                        exp.train.weight_decay))
+        rows = shard_rows(4, mesh) if data > 1 else None
+        ddp = DistributedDataParallel(model, process_group=mesh.data_group) if data > 1 else None
+        step = make_train_step(NoiseSchedule.linear(exp.diffusion.num_steps), exp, forward=ddp,
+                               rows=rows, world=data)
+        reduces.clear()
+        for s in range(2):
+            batch = {k: torch.from_numpy(z[f"b{s}.{k}"]) for k in ("latent", "context", "writer")}
+            t, n = torch.from_numpy(z[f"t{s}"]), torch.from_numpy(z[f"n{s}"])
+            if rows is not None:
+                batch, t, n = shard_batch(batch, mesh), t[rows], n[rows]
+            step(state, batch, StepDraws(t, n, torch.tensor(float(z[f"k{s}"]))))
+        return state, len(reduces)
+
+    state, n_reduces = two_steps(cfg)
+    model = state.model
     check_replicated(model.state_dict())
     check_replicated(state.ema.state_dict())
     save("steps", gather_state_dict(model.state_dict(), mesh))
+    if data == 1:  # (b') the same steps with remat: bitwise, the recompute's collectives counted
+        remat, n_remat = two_steps(dataclasses.replace(cfg, remat=True))
+        for (k, a), b in zip(model.named_parameters(), remat.model.parameters()):
+            assert torch.equal(a, b), f"remat changed {k} on rank {rank}"
+        if rank == 0:
+            with open(out + "/reduces.json", "w") as f:
+                json.dump({"plain": n_reduces, "remat": n_remat}, f)
 
     # (c) the Trainer's own run: 8 samples from a latent cache, 2 steps; then a
     # max_steps stop after step 1 and a resume: bitwise the uninterrupted run
@@ -202,6 +236,30 @@ WORKER = textwrap.dedent('''
         for a, b in zip(list(resumed.model.parameters()) + list(resumed.ema.parameters()),
                         list(final.model.parameters()) + list(final.ema.parameters())):
             assert torch.equal(a, b), "the resumed TP run is not bitwise the uninterrupted one"
+
+    # (e) a JAX run's orbax step resumed under the model axis: this rank's
+    # restore, then the Trainer's next step (gathered)
+    if data == 1:
+        rcfg = UNetConfig(**json.loads(str(z["resume_unet"])))
+        rmodel = UNet(rcfg, mesh)
+        restored = restore_jax(TrainState.create(rmodel, make_optimizer(rmodel.parameters(), 1e-4)),
+                               str(z["jax_step"]), mesh)
+        opt = restored.optimizer.state_dict()["state"]
+        names = [n for n, _ in rmodel.named_parameters()]
+        np.savez(f"{out}/restored.{rank}.npz", step=restored.step,
+                 **{f"model.{k}": v.numpy() for k, v in rmodel.state_dict().items()},
+                 **{f"ema.{k}": v.numpy() for k, v in restored.ema.state_dict().items()},
+                 **{f"{m}.{n}": opt[i][m].numpy() for i, n in enumerate(names)
+                    for m in ("exp_avg", "exp_avg_sq", "step")})
+        rexp = Experiment(unet=rcfg, diffusion=exp.diffusion, data=exp.data,
+                          train=TrainConfig(lr=float(z["resume_lr"]), save_path=str(z["resume_tp"]),
+                                            ckpt_every_epochs=1, ema_warmup_steps=1, log_every=1),
+                          mesh=MeshConfig(data=1, model=2))
+        resumed = Trainer(rexp, ds, device="cpu").run(epochs=5, max_steps=9, resume=True)
+        assert resumed.step == 9, resumed.step
+        save("resumed", {**gather_state_dict(resumed.model.state_dict(), mesh),
+                         **{f"ema.{k}": v for k, v in
+                            gather_state_dict(resumed.ema.state_dict(), mesh).items()}})
 
     # (d) the train CLI, as a user runs it
     presets.PRESETS["tiny_tp"] = lambda: Experiment(
@@ -320,10 +378,20 @@ def _launch(tmp, data):
     blocks = {case: _jax_block(case) for case in BLOCK_CASES} if data == 1 else {}
     cache = np.random.default_rng(9).standard_normal((8, 8, 32, 4)).astype(np.float32)
     gt, lat = _cli_files(tmp, n=2 * B)
-    unet_kw = {k: getattr(port_cfg(TP_CFG), k) for k in (
-        "model_channels", "context_dim", "num_heads", "vocab_size", "num_writers", "max_seq_len",
-        "dtype")}
-    np.savez(tmp / "inputs.npz", unet=json.dumps(unet_kw), T=T, lr=LR, cache=cache,
+    def unet_kw(cfg):
+        return {k: getattr(port_cfg(cfg), k) for k in (
+            "model_channels", "context_dim", "num_heads", "vocab_size", "num_writers",
+            "max_seq_len", "dtype")}
+
+    # at 1x2: a JAX run to resume (its --save_path copied for each side)
+    jax_run = write_jax_run(tmp / "jax_run") if data == 1 else None
+    for side in ("resume_tp", "resume_one"):
+        if jax_run:
+            shutil.copytree(os.path.join(jax_run["root"], "run"), tmp / side)
+    np.savez(tmp / "inputs.npz", unet=json.dumps(unet_kw(TP_CFG)), T=T, lr=LR, cache=cache,
+             resume_unet=json.dumps(unet_kw(CFG)), resume_lr=RESUME_LR,
+             resume_tp=str(tmp / "resume_tp"),
+             jax_step=os.path.join(jax_run["ckpt"], "8") if jax_run else "",
              words=np.array(WORDS), cases=json.dumps(BLOCK_CASES),
              cli_argv=json.dumps(_cli_argv(gt, lat)),
              **{f"sd.{k}": v for k, v in sd.items()},
@@ -344,7 +412,7 @@ def _launch(tmp, data):
     res = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-6000:]
     return dict(tmp=tmp, exp=exp, params=params, batches=batches, draws=draws, sd=sd,
-                blocks=blocks, cache=cache, gt=gt, lat=lat,
+                blocks=blocks, cache=cache, gt=gt, lat=lat, jax_run=jax_run,
                 jax=_jax_steps(exp, params, data, batches, draws))
 
 
@@ -460,6 +528,71 @@ def test_tp_trainer_resumes_bitwise_and_its_checkpoint_loads_in_one_process(tp_1
         for name, v in st.items():
             assert saved["optimizer"]["state"][i][name].shape == v.shape, (i, name)
     UNet(single.model.cfg).load_state_dict(torch.load(ck.path(2, "ema_unet.pt")), strict=True)
+
+
+def test_tp_remat_steps_are_bitwise_and_recompute_the_forward_reduces(tp_1x2):
+    """The worker took the two steps again with ``remat=True`` on both ranks
+    and asserted every parameter bitwise the steps' without it. The model
+    axis's fp32 all-reduces: without remat 24 a step (each of the 4 blocks
+    sums 3 partials forward, attn1, attn2 and the FF, and 3 inputs' gradients
+    backward); with it, the backward's recompute of each block sums attn1's
+    and attn2's partials again: 8 more a step, the same on every rank. The
+    FF's forward sum is not repeated: the recompute stops once it has made
+    the last tensor the backward reads (the FF's saved input), which comes
+    before it."""
+    with open(tp_1x2["tmp"] / "reduces.json") as f:
+        reduces = json.load(f)
+    assert reduces == {"plain": 2 * 24, "remat": 2 * (24 + 8)}, reduces
+
+
+def test_tp_resumes_a_jax_run(tp_1x2):
+    """The JAX Trainer's orbax step 8 resumed under ``--mesh_model 2``:
+    each rank's model, EMA, AdamW moments and count are exactly
+    ``shard_state_dict`` of the one-process ``restore_jax`` (a moment keyed
+    by its parameter's name takes the parameter's layout); the Trainer's
+    next step (step 9, lr 1e-4) matches the one-process resumed step within
+    ``chip_smoke.tp_param_check``'s bounds, the model and the EMA."""
+    tmp, jax_run = tp_1x2["tmp"], tp_1x2["jax_run"]
+    cfg = port_cfg(CFG)
+    model = UNet(cfg)
+    state = restore_jax(TrainState.create(model, make_optimizer(model.parameters(), 1e-4)),
+                        os.path.join(jax_run["ckpt"], "8"))
+    assert state.step == 8
+    opt = state.optimizer.state_dict()["state"]
+    names = [n for n, _ in model.named_parameters()]
+    full = {"model": model.state_dict(), "ema": state.ema.state_dict(),
+            **{m: {n: opt[i][m] for i, n in enumerate(names)}
+               for m in ("exp_avg", "exp_avg_sq")}}
+    for r in range(2):
+        got = np.load(tmp / f"restored.{r}.npz")
+        assert int(got["step"]) == 8
+        rank = mesh.Mesh(data=1, model=2, model_rank=r)
+        for part, sd in full.items():
+            shards = shard_state_dict(sd, rank)
+            assert {k[len(part) + 1:] for k in got.files if k.startswith(part + ".")} == set(sd)
+            for k, v in shards.items():
+                assert got[f"{part}.{k}"].tobytes() == v.numpy().tobytes(), (r, part, k)
+        assert all(float(got[f"step.{n}"]) == float(opt[i]["step"]) == 8.0
+                   for i, n in enumerate(names))
+
+    samples = [Sample(f"s{i}.png", str(i % 3), w) for i, w in enumerate(WORDS)]
+    registry = WriterRegistry()
+    for s in samples:
+        registry.add(s.writer)
+    exp = Experiment(unet=cfg, diffusion=DiffusionConfig(num_steps=T),
+                     data=DataConfig(max_chars=10, alphabet="eng_main", batch_size=B),
+                     train=TrainConfig(lr=RESUME_LR, save_path=str(tmp / "resume_one"),
+                                       ckpt_every_epochs=1, ema_warmup_steps=1, log_every=1))
+    ds = WordImageDataset(samples, registry, Tokenizer.from_name("eng_main", 10), exp.data,
+                          latent_cache=LatentLookup({s.image: tp_1x2["cache"][i]
+                                                     for i, s in enumerate(samples)}))
+    one = Trainer(exp, ds, device="cpu").run(epochs=5, max_steps=9, resume=True)
+    assert one.step == 9
+    tp = np.load(tmp / "resumed.npz")
+    for prefix, module, start in (("", one.model, full["model"]), ("ema.", one.ema, full["ema"])):
+        got = {k: torch.from_numpy(tp[prefix + k]) for k in start}
+        report = tp_param_check(got, module.state_dict(), start)
+        assert report["tensors"] > len(start) // 2, report
 
 
 @pytest.mark.parametrize("grid", ["tp_1x2", "tp_2x2"])

@@ -82,7 +82,9 @@ class UNetConfig:
     # folded into the preceding convs by ``convert_reference_unet``.
     ocr_norm: str = "group"
     dtype: str = "bfloat16"        # activation/matmul dtype (params fp32)
-    remat: bool = False            # jax.checkpoint the transformer blocks
+    # jax.checkpoint the transformer blocks; in the port, a non-reentrant
+    # torch.utils.checkpoint of each block while autograd records
+    remat: bool = False
     # Fused GEGLU feed-forward (the one adopted Pallas kernel: keeps the
     # 2560-wide FF intermediate in VMEM; see ops/ffn_pallas.py).
     # None = auto: on when the backend is TPU (sampling/inference wins
@@ -108,7 +110,10 @@ class UNetConfig:
     # relative output drift per attention (fp32 softmax is the
     # reference's torch default). None = auto: on for TPU inference,
     # forced off inside Trainer (it perturbs gradients) and off on CPU
-    # so the torch-parity tests see the reference numerics.
+    # so the torch-parity tests see the reference numerics. The port
+    # resolves it once, in ``models.unet.UNet``: True is JAX's bf16 order
+    # (B.4's fast mode on the card); None and False are the fp32 softmax,
+    # JAX's resolution on every backend but the TPU, and in its Trainer.
     fast_softmax: bool | None = None
     # Decoder skip concatenation computed split instead of materialised:
     # GroupNorm(concat(h, skip)) -> conv splits exactly into per-half

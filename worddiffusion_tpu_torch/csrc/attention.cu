@@ -53,6 +53,21 @@
 // The exponentials are the SFU's exp2 of the scores scaled by scale * log2(e),
 // the scale folded into one FMA with the subtraction of the running maximum.
 //
+// Fast mode (FAST, UNetConfig.fast_softmax=True; the JAX model's _attend with
+// fast_softmax, worddiffusion_tpu/models/attention.py:88-93): JAX keeps the
+// scores and the max-subtract in fp32 and then rounds three times,
+//   e = bf16(exp(s - m)),  S = bf16(sum_f32 e),  p = bf16(e / S),
+// before p . v with fp32 accumulation. One pass makes the first two: l sums
+// the bf16-rounded exponentials (the values it packs as p . v's A operand)
+// instead of their fp32 values, and each row's final sum is rounded to bf16
+// before its reciprocal. The third, the rounding of each normalised p, cannot
+// be made before the final sum is known: here the fp32 product sum_j e_j v_j is
+// divided by S once at the end, so p's rounding falls elsewhere, a difference
+// within one bf16 rounding of each p (ROADMAP A.4). Where the running maximum
+// rises past a chunk (Nk > 64), that chunk's e were rounded against the older
+// maximum and rescaled in fp32; JAX rounds them against the final one. The
+// lse output stays the fp32 sum's (the maps path never runs fast).
+//
 // Bitwise repeatable: no atomics, and every sum runs in a fixed order (the
 // chunks in key order, the quad shuffles in lane order).
 //
@@ -137,6 +152,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// The sum of the two bf16 values packed in v (as pack_bf16 packs them), in fp32.
+__device__ __forceinline__ float bf16_sum(uint32_t v) {
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v);
+  return __low2float(b) + __high2float(b);
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // 2^x by the SFU (flushes denormal results to zero: they are below bf16's range
 // of p anyway)
 __device__ __forceinline__ float exp2_approx(float x) {
@@ -172,8 +197,9 @@ __device__ __forceinline__ void load_chunk(bf16* kc, bf16* vc, const bf16* kb, c
 }
 
 // grid (query tiles * B*H): the query tiles of one (batch, head) pair are
-// neighbours. WARPS warps of MT m16 tiles (16 * MT query rows) each.
-template <int D, int WARPS, int MT>
+// neighbours. WARPS warps of MT m16 tiles (16 * MT query rows) each. FAST: the
+// fast mode's roundings of the sums (the header).
+template <int D, int WARPS, int MT, bool FAST>
 __global__ void __launch_bounds__(WARPS * 32)
     attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -328,10 +354,15 @@ __global__ void __launch_bounds__(WARPS * 32)
           const float p1 = exp2_approx(fmaf(sj[1], scale_log2, -m0));
           const float p2 = exp2_approx(fmaf(sj[2], scale_log2, -m1));
           const float p3 = exp2_approx(fmaf(sj[3], scale_log2, -m1));
-          l[mt][0] += p0 + p1;
-          l[mt][1] += p2 + p3;
           pa[mt][2 * h] = pack_bf16(p0, p1);
           pa[mt][2 * h + 1] = pack_bf16(p2, p3);
+          if constexpr (FAST) {  // sum the bf16 values p . v takes, as JAX sums e
+            l[mt][0] += bf16_sum(pa[mt][2 * h]);
+            l[mt][1] += bf16_sum(pa[mt][2 * h + 1]);
+          } else {
+            l[mt][0] += p0 + p1;
+            l[mt][1] += p2 + p3;
+          }
         }
 #pragma unroll
       for (int n = 0; n < OT; n += 2) {
@@ -353,7 +384,9 @@ __global__ void __launch_bounds__(WARPS * 32)
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     const float la = quad_sum(l[mt][0]), lb = quad_sum(l[mt][1]);
-    const float inv0 = 1.f / la, inv1 = 1.f / lb;
+    // fast mode: the row's sum rounded to bf16 before the division, as JAX's S
+    const float inv0 = 1.f / (FAST ? round_bf16(la) : la);
+    const float inv1 = 1.f / (FAST ? round_bf16(lb) : lb);
     const int row_a = q0 + r0 + 16 * mt + g, row_b = row_a + 8;
     if (lse != nullptr && t == 0) {
       if (row_a < nq) lse[bh * nq + row_a] = (m[mt][0] + log2f(la)) * LN2;
@@ -387,7 +420,7 @@ Cfg pick(int bh, int nq) {
   return (long long)bh * ((nq + 63) / 64) >= SMS ? Cfg{4, 1} : Cfg{2, 1};
 }
 
-template <int D, int WARPS, int MT>
+template <int D, int WARPS, int MT, bool FAST>
 cudaError_t launch_cfg(const void* q, const void* k, const void* v, void* out, float* lse,
                        int bh, int nq, int nk, float scale, cudaStream_t stream) {
   constexpr int BQ = 16 * MT * WARPS;
@@ -403,24 +436,33 @@ cudaError_t launch_cfg(const void* q, const void* k, const void* v, void* out, f
   if (e != cudaSuccess) return e;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
   if (!(raised.load() & bit)) {
-    e = cudaFuncSetAttribute(attention_kernel<D, WARPS, MT>,
+    e = cudaFuncSetAttribute(attention_kernel<D, WARPS, MT, FAST>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return e;
     raised.fetch_or(bit);
   }
-  attention_kernel<D, WARPS, MT><<<unsigned(ctas), WARPS * 32, smem, stream>>>(
+  attention_kernel<D, WARPS, MT, FAST><<<unsigned(ctas), WARPS * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), lse, nq, nk, scale * LOG2E);
   return cudaGetLastError();
 }
 
+template <int D, bool FAST>
+cudaError_t launch_mode(const void* q, const void* k, const void* v, void* out, float* lse,
+                        int bh, int nq, int nk, float scale, cudaStream_t stream) {
+  const Cfg cfg = pick(bh, nq);
+  if (cfg.mt == 2)
+    return launch_cfg<D, 4, 2, FAST>(q, k, v, out, lse, bh, nq, nk, scale, stream);
+  if (cfg.warps == 4)
+    return launch_cfg<D, 4, 1, FAST>(q, k, v, out, lse, bh, nq, nk, scale, stream);
+  return launch_cfg<D, 2, 1, FAST>(q, k, v, out, lse, bh, nq, nk, scale, stream);
+}
+
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
-                   int nq, int nk, float scale, cudaStream_t stream) {
-  const Cfg cfg = pick(bh, nq);
-  if (cfg.mt == 2) return launch_cfg<D, 4, 2>(q, k, v, out, lse, bh, nq, nk, scale, stream);
-  if (cfg.warps == 4) return launch_cfg<D, 4, 1>(q, k, v, out, lse, bh, nq, nk, scale, stream);
-  return launch_cfg<D, 2, 1>(q, k, v, out, lse, bh, nq, nk, scale, stream);
+                   int nq, int nk, float scale, int fast, cudaStream_t stream) {
+  return fast ? launch_mode<D, true>(q, k, v, out, lse, bh, nq, nk, scale, stream)
+              : launch_mode<D, false>(q, k, v, out, lse, bh, nq, nk, scale, stream);
 }
 
 // p [bh, nq, nk] fp32 = exp(q . k^T * scale - lse): grid (query tiles of PR
@@ -543,20 +585,21 @@ int wd_attention_tile_rows(int bh, int nq) {
 // out [bh, nq, d] = softmax(q [bh, nq, d] . k [bh, nk, d]^T * scale) . v [bh, nk, d],
 // all bf16, contiguous and 16-byte aligned; d a multiple of 16 up to MAX_D,
 // nk >= 1, nq >= 1; with lse non-null, each query row's log-sum-exp [bh, nq]
-// fp32 too. Returns a cudaError_t (0 on success).
+// fp32 too; fast non-zero: the fast mode (UNetConfig.fast_softmax, the
+// header). Returns a cudaError_t (0 on success).
 int wd_attention(const void* q, const void* k, const void* v, void* out, float* lse,
-                 int bh, int nq, int nk, int d, float scale, void* stream) {
+                 int bh, int nq, int nk, int d, float scale, int fast, void* stream) {
   if (bh < 1 || nq < 1 || nk < 1) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 16: return launch<16>(q, k, v, out, lse, bh, nq, nk, scale, s);
-    case 32: return launch<32>(q, k, v, out, lse, bh, nq, nk, scale, s);
-    case 48: return launch<48>(q, k, v, out, lse, bh, nq, nk, scale, s);
-    case 64: return launch<64>(q, k, v, out, lse, bh, nq, nk, scale, s);
-    case 80: return launch<80>(q, k, v, out, lse, bh, nq, nk, scale, s);
-    case 96: return launch<96>(q, k, v, out, lse, bh, nq, nk, scale, s);
-    case 112: return launch<112>(q, k, v, out, lse, bh, nq, nk, scale, s);
-    case 128: return launch<128>(q, k, v, out, lse, bh, nq, nk, scale, s);
+    case 16: return launch<16>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
+    case 32: return launch<32>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
+    case 48: return launch<48>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
+    case 64: return launch<64>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
+    case 80: return launch<80>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
+    case 96: return launch<96>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
+    case 112: return launch<112>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
+    case 128: return launch<128>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -2,8 +2,15 @@
 ``worddiffusion_tpu/models/attention.py``).
 
 Every attention goes through ``ops.attention.fused_attention``, the CUDA
-kernel on the card, with fp32 scores and softmax (the reference numerics;
-the JAX package's bf16 ``fast_softmax`` is not ported). The block's FF
+kernel on the card, with fp32 scores and softmax (the reference numerics);
+with ``fast_softmax`` (``UNetConfig.fast_softmax=True``) the attentions that
+take the JAX model's ``_attend`` (unfolded, without ``sow_attn``) run its
+bf16 order instead (``fast=True``: the kernel's fast mode); the fold and the
+maps path ignore the switch, as JAX's ``_folded`` and sown softmax do. With
+``remat`` (``UNetConfig.remat``) ``SpatialTransformer`` checkpoints each
+block (``torch.utils.checkpoint``, non-reentrant) while autograd records, as
+JAX wraps the block in ``nn.remat``: the backward recomputes the block's
+forward, kernels included, instead of keeping its activations. The block's FF
 sub-layer (norm3 -> GEGLU FFN -> residual) goes through
 ``ops.ffn.LnGegluFFN``, the CUDA kernel pair (forward and backward) on
 the card. With ``fold_context`` (``UNetConfig.attn_fold_context``) a
@@ -35,6 +42,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import attention, ffn, fold_attention
 from ..parallel.tensor import copy_to_model, gather_from_model, reduce_from_model
@@ -101,6 +109,7 @@ class CrossAttention(nn.Module):
         self.to_v = Dense(context_dim, inner, bias=False)
         self.to_out = nn.Sequential(Dense(inner, query_dim))
         self.sow_attn = False
+        self.fast_softmax = False  # JAX's bf16 softmax order (not on the maps path)
         self.attn_map: Optional[torch.Tensor] = None  # [B, H, Nq, Nk] fp32 with sow_attn
 
     def _heads(self, x: torch.Tensor, context: Optional[torch.Tensor]) -> torch.Tensor:
@@ -119,7 +128,7 @@ class CrossAttention(nn.Module):
         if self.sow_attn:
             out, self.attn_map = attention.attention_with_probs(q, k, v, d ** -0.5)
         else:
-            out = attention.fused_attention(q, k, v, d ** -0.5)
+            out = attention.fused_attention(q, k, v, d ** -0.5, self.fast_softmax)
         return out.transpose(1, 2).reshape(b, nq, h * d)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -159,13 +168,16 @@ class BasicTransformerBlock(nn.Module):
     takes the unfolded path.
 
     ``mesh``: a model axis above 1 shards the attentions by heads and the FF
-    by its inner width (tensor parallel; the module docstring)."""
+    by its inner width (tensor parallel; the module docstring).
+
+    ``fast_softmax``: the unfolded attentions without ``sow_attn`` run JAX's
+    fast_softmax order (``ops.attention.fused_attention(fast=True)``)."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int,
                  context_dim: Optional[int] = None,
                  attn1_cross: bool = True, dtype: torch.dtype = torch.bfloat16,
                  use_pallas_ffn: Optional[bool] = None, fold_context: bool = False,
-                 sow_attn: bool = False, mesh=None):
+                 sow_attn: bool = False, mesh=None, fast_softmax: bool = False):
         super().__init__()
         self.mesh = _model_axis(mesh)
         self.dtype = dtype
@@ -176,6 +188,7 @@ class BasicTransformerBlock(nn.Module):
                                     n_heads, d_head, mesh)
         self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head, mesh)
         self.attn1.sow_attn = self.attn2.sow_attn = sow_attn
+        self.attn1.fast_softmax = self.attn2.fast_softmax = fast_softmax
         self.ff = FeedForward(dim, model=1 if self.mesh is None else self.mesh.model)
         if not attn1_cross:
             self.norm1 = nn.LayerNorm(dim, eps=1e-5)
@@ -232,21 +245,31 @@ class BasicTransformerBlock(nn.Module):
 class SpatialTransformer(nn.Module):
     """GroupNorm -> 1x1 conv in -> token transformer -> 1x1 zero conv out
     + residual. NCHW in and out; [B, H*W, C] tokens inside. ``mesh``: the
-    blocks' model axis (the convs and the norm are replicated)."""
+    blocks' model axis (the convs and the norm are replicated).
+
+    ``remat``: while autograd records, each block runs under a
+    non-reentrant ``torch.utils.checkpoint``, so its activations are
+    recomputed in the backward rather than kept (JAX's ``nn.remat``): the
+    block's kernels and, under a model axis, its forward collectives run
+    again, on every rank in the same order. The recompute takes the same
+    inputs through the same deterministic kernels, so the gradients are
+    bitwise those without it."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
                  context_dim: Optional[int] = None,
                  attn1_cross: bool = True, dtype: torch.dtype = torch.bfloat16,
                  use_pallas_ffn: Optional[bool] = None, fold_context: bool = False,
-                 sow_attn: bool = False, mesh=None):
+                 sow_attn: bool = False, mesh=None, fast_softmax: bool = False,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         inner = n_heads * d_head
         self.norm = GroupNorm32(in_channels)
         self.proj_in = Conv2D(in_channels, inner, 1)
         self.transformer_blocks = nn.ModuleList([
             BasicTransformerBlock(inner, n_heads, d_head, context_dim,
                                   attn1_cross, dtype, use_pallas_ffn, fold_context, sow_attn,
-                                  mesh)
+                                  mesh, fast_softmax)
             for _ in range(depth)
         ])
         self.proj_out = Conv2D(inner, in_channels, 1, zero_init=True)
@@ -258,7 +281,8 @@ class SpatialTransformer(nn.Module):
         c = x.shape[1]
         # tokens [B, H*W, C], contiguous whatever memory format the convs chose
         x = x.permute(0, 2, 3, 1).reshape(b, h * w, c).contiguous()
+        remat = self.remat and torch.is_grad_enabled()
         for block in self.transformer_blocks:
-            x = block(x, context)
+            x = checkpoint(block, x, context, use_reentrant=False) if remat else block(x, context)
         x = x.reshape(b, h, w, c).permute(0, 3, 1, 2)
         return self.proj_out(x) + x_in

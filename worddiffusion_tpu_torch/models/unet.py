@@ -21,7 +21,12 @@ halves are slower on the card than one on the concat. ``return_attn``
 appends a dict of every attention's fp32 maps [B, H, Nq, Nk] to the output,
 keyed by the JAX model's ``intermediates`` paths (``in_0_0_attn/block_0/
 attn1/attn``); on the card they come from the maps kernel beside B.4.
-``fast_softmax`` raises ``NotImplementedError``.
+``fast_softmax``: resolved once, here: True runs the unfolded attentions
+outside the maps path in the JAX model's bf16 softmax order (B.4's fast
+mode on the card); None and False keep the fp32 softmax, which is what JAX
+resolves them to on every backend but the TPU, and in its Trainer.
+``remat`` checkpoints every transformer block while autograd records
+(``models.attention.SpatialTransformer``), as JAX's ``nn.remat`` does.
 
 Tensor parallel (``mesh`` with a model axis M above 1): the
 SpatialTransformers' blocks hold 1/M of each attention's heads and of each
@@ -46,12 +51,6 @@ from .encoders import CharacterEncoder, StyleProjection
 from .layers import (
     Conv2D, Dense, Downsample, GroupNorm32, Upsample, gn_silu_conv, timestep_embedding,
 )
-
-_UNPORTED_CONFIG = {
-    "fast_softmax": "a switch of JAX's XLA softmax; it waits for a decision on the attention "
-                    "kernel's softmax precision (ROADMAP A.4)",
-}
-
 
 class ResBlock(nn.Module):
     """GroupNorm-SiLU-conv residual block with the timestep embedding
@@ -149,12 +148,11 @@ class UNet(nn.Module):
 
     def __init__(self, cfg: UNetConfig, mesh=None):
         super().__init__()
-        for name, why in _UNPORTED_CONFIG.items():
-            if getattr(cfg, name):
-                raise NotImplementedError(f"UNetConfig.{name} is not ported to PyTorch: {why}")
         check_model_axis(cfg, 1 if mesh is None else mesh.model)
         self.cfg = cfg
         self.dtype = getattr(torch, cfg.dtype)
+        # None resolves to the fp32 softmax: JAX's resolution off the TPU and in training
+        fast_softmax = cfg.fast_softmax is True
         mc = cfg.model_channels
         ted = mc * 4
         self.time_embed = nn.Sequential(Dense(mc, ted), nn.SiLU(), Dense(ted, ted))
@@ -170,6 +168,7 @@ class UNet(nn.Module):
                 ch, cfg.num_heads, ch // cfg.num_heads, cfg.transformer_depth,
                 cfg.context_dim, cfg.attn1_cross, self.dtype,
                 cfg.use_pallas_ffn, bool(cfg.attn_fold_context), cfg.return_attn, mesh,
+                fast_softmax, cfg.remat,
             )
             for d, block in enumerate(t.transformer_blocks):
                 for a in ("attn1", "attn2"):

@@ -19,9 +19,19 @@ second kernel of ``csrc/attention.cu`` that recomputes the scores and
 normalises them by the log-sum-exp B.4 writes beside its output; its plain
 version is ``attention_probs_reference``, the JAX model's sown softmax.
 
-``launches`` counts B.4's launches, ``probs_launches`` the maps kernel's and
-``bwd_calls`` the Function's backward calls, so that a run can show that its
-main path went through them.
+``fast=True`` (``UNetConfig.fast_softmax=True``) is the JAX model's
+``_attend(fast_softmax=True)`` order (``worddiffusion_tpu/models/attention.py:
+88-93``): fp32 scores and max-subtract, ``e = bf16(exp(s - m))``, ``S =
+bf16(sum_f32 e)``, ``p = bf16(e / S)``, fp32 ``p · v``. The plain version
+computes exactly that; the kernel runs its fast mode, which makes the first
+two roundings and differs from the plain version by where each p's bf16
+rounding falls (``csrc/attention.cu``'s header). The Function's backward
+recomputes the plain version in the same mode.
+
+``launches`` counts B.4's launches (both modes), ``fast_launches`` those in
+the fast mode, ``probs_launches`` the maps kernel's and ``bwd_calls`` the
+Function's backward calls, so that a run can show that its main path went
+through them.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ import torch
 from . import build
 
 launches = 0
+fast_launches = 0
 probs_launches = 0
 bwd_calls = 0
 
@@ -60,12 +71,18 @@ def check_backward_size(b: int, h: int, nq: int, nk: int) -> None:
             "latent space")
 
 
-def attention_reference(q, k, v, scale: float):
+def attention_reference(q, k, v, scale: float, fast: bool = False):
     """Plain PyTorch version with the kernel's dtype contract
     (``attention_pallas.py::_attn_kernel``): fp32 scores and softmax,
-    probabilities rounded to v's dtype, fp32 ``p · v``."""
+    probabilities rounded to v's dtype, fp32 ``p · v``. ``fast``: JAX's
+    ``_attend(fast_softmax=True)`` order, the exponentials, their row sum
+    and the probabilities each rounded to v's dtype."""
     sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    p = sim.softmax(dim=-1).to(v.dtype)
+    if fast:
+        e = (sim - sim.amax(dim=-1, keepdim=True)).exp().to(v.dtype)
+        p = e / e.sum(dim=-1, keepdim=True, dtype=torch.float32).to(v.dtype)
+    else:
+        p = sim.softmax(dim=-1).to(v.dtype)
     return torch.matmul(p.float(), v.float()).to(v.dtype)
 
 
@@ -79,48 +96,52 @@ def attention_probs_reference(q, k, scale: float):
 class Attention(torch.autograd.Function):
     """``softmax(q kᵀ · scale) v``: the kernel (CUDA) or the plain version
     (CPU) forward; the backward recomputes the plain version under
-    autograd, which runs in a fixed order, so two backward calls agree
-    bit for bit (the trainer's bitwise resume rests on it)."""
+    autograd, in the forward's mode (``fast``: JAX's training
+    differentiates through the fast order where it is set), which runs in a
+    fixed order, so two backward calls agree bit for bit (the trainer's
+    bitwise resume rests on it)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale):
+    def forward(ctx, q, k, v, scale, fast):
         ctx.save_for_backward(q, k, v)
-        ctx.scale = scale
-        return _attend(q, k, v, scale)
+        ctx.scale, ctx.fast = scale, fast
+        return _attend(q, k, v, scale, fast)
 
     @staticmethod
     def backward(ctx, dout):
         global bwd_calls
-        q, k = ctx.saved_tensors[:2]
+        saved = ctx.saved_tensors  # once: a checkpoint (remat) recomputes on each read
+        q, k = saved[:2]
         check_backward_size(q.shape[0], q.shape[1], q.shape[2], k.shape[2])
         with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in ctx.saved_tensors]
-            out = attention_reference(*leaves, ctx.scale)
+            leaves = [t.detach().requires_grad_() for t in saved]
+            out = attention_reference(*leaves, ctx.scale, ctx.fast)
             dq, dk, dv = torch.autograd.grad(out, leaves, dout)
         bwd_calls += 1
-        return dq, dk, dv, None
+        return dq, dk, dv, None, None
 
 
-def fused_attention(q, k, v, scale: float):
+def fused_attention(q, k, v, scale: float, fast: bool = False):
     """softmax(q kᵀ · scale) v for q [B, H, Nq, D], k/v [B, H, Nk, D]:
     the kernel for a CUDA tensor, the plain version for a CPU tensor;
-    differentiable."""
-    return Attention.apply(q, k, v, scale)
+    differentiable. ``fast``: JAX's fast_softmax order (the kernel's fast
+    mode)."""
+    return Attention.apply(q, k, v, scale, fast)
 
 
-def _attend(q, k, v, scale):
+def _attend(q, k, v, scale, fast):
     if q.device.type == "cpu":
-        return attention_reference(q, k, v, scale)
+        return attention_reference(q, k, v, scale, fast)
     if q.device.type != "cuda":
         raise ValueError(f"fused_attention: unsupported device {q.device}")
-    return _launch(q, k, v, scale)
+    return _launch(q, k, v, scale, fast=fast)
 
 
 @functools.cache
 def _lib():
     lib = build.load()
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wd_attention.argtypes = [p] * 5 + [i] * 4 + [ctypes.c_float, p]
+    lib.wd_attention.argtypes = [p] * 5 + [i] * 4 + [ctypes.c_float, i, p]
     lib.wd_attention.restype = i
     lib.wd_attention_probs.argtypes = [p] * 4 + [i] * 4 + [ctypes.c_float, p]
     lib.wd_attention_probs.restype = i
@@ -163,8 +184,8 @@ def _raise_on(lib, err, what):
                            f"(code {err})")
 
 
-def _launch(q, k, v, scale, lse=None):
-    global launches
+def _launch(q, k, v, scale, lse=None, fast=False):
+    global launches, fast_launches
     lib = _lib()
     _check_operands(q, k, v, lib.wd_attention_max_d())
     b, h, nq, d = q.shape
@@ -175,10 +196,11 @@ def _launch(q, k, v, scale, lse=None):
         err = lib.wd_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             None if lse is None else lse.data_ptr(), b * h, nq, k.shape[2], d, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            int(fast), torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(lib, err, "attention kernel")
     launches += 1
+    fast_launches += bool(fast)
     return out
 
 
