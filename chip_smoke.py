@@ -32,12 +32,12 @@ Phases, each of which must pass (any failure exits non-zero):
    in all (UNET_KERNELS).
 5. main path: the regeneration CLI's pipeline (Regenerator + WordSampler,
    ``iam`` UNet, default VAE and CTC recognizer, seeded random weights)
-   over 40 words in batches of 16, with the 600-step skip-step schedule
-   and the deterministic update; checks shapes, finiteness, the PNGs and
-   that every FF sub-layer, attention and GroupNorm went through its kernel
-   (per batch also the VAE decode's 4 B.5 + 26 B.6 and the OCR's 10 B.5);
-   then single batches with the attention kernel and with the plain
-   attention in turns, for s/batch with and without it.
+   over 24 words in batches of 16 (a full one and a ragged one), with the
+   600-step skip-step schedule and the deterministic update; checks shapes,
+   finiteness, the PNGs and that every FF sub-layer, attention and
+   GroupNorm went through its kernel (per batch also the VAE decode's 4 B.5
+   + 26 B.6 and the OCR's 10 B.5); then one batch with the attention kernel
+   and one with the plain attention, for s/batch with and without it.
 6. FFN forward + backward, kernel against plain: the forward and the
    backward kernel (B.3: rows, weight gradients and partial sums, on
    ``wgmma``; its cluster size printed) against their plain versions at the
@@ -80,7 +80,7 @@ Phases, each of which must pass (any failure exits non-zero):
    against all-plain, then the pipeline as in phase 5, 4 FF and 8
    attention launches per call, and single batches in turns as there.
 10. ``iam_phosc`` training: the train CLI with ``--preset iam --phosc 1``
-   at full width, B=128, on the seeded latent cache: 2 epochs of 10 steps
+   at full width, B=128, on the seeded latent cache: 2 epochs of 5 steps
    with one checkpoint and one DDIM-50 preview at the end; checks the
    loss, that q/k/v and the PHOSC path's encoder were updated, 8
    attention backward calls and 4 FF backward launches per step; s/step.
@@ -100,7 +100,7 @@ Phases, each of which must pass (any failure exits non-zero):
    phase 5 with 8 fold, 0 attention and 4 FF launches per call; single
    batches with the fold kernel and the plain fold in turns.
 13. fold training: the train CLI with ``--preset iam_fold`` at B=128 on
-   the phase-7 latent corpus, 2 epochs of 10 steps, twice: 8 fold
+   the phase-7 latent corpus, 2 epochs of 5 steps, twice: 8 fold
    launches, 8 fold backward calls and 4 FF backward launches per step,
    the two runs bitwise equal; s/step and peak memory; then three steps
    profiled as in phase 7 (8 fold kernels a step, no attention kernel).
@@ -187,7 +187,7 @@ Phases, each of which must pass (any failure exits non-zero):
    against the host, fp32 with TF32 off), phase 21's PHOSC checkpoint and
    (e)'s OCR, then the style-encoder fallback: every JSON key, images/s per
    featurizer; (i) ``masked_ddpm_sample`` with the ``iam``
-   UNet, B=16, 599 calls.
+   UNet, B=16, over a 120-step linear schedule (119 calls).
 23. pixel space (``--latent 0``, the ``iam`` UNet at full width on 64x256x3
    images): (a) B.5 at its 5 site shapes ([16, 64, 256, 640] down to [16,
    32, 128, 320]; the route printed), B.6 at [16, 64, 256, 320] and [16, 32,
@@ -215,7 +215,9 @@ Phases, each of which must pass (any failure exits non-zero):
    with torchrun's environment (world size 1, NCCL): the model under
    ``DistributedDataParallel``, launches and Function backwards a step under
    its hooks, a bitwise resume, and its parameters bitwise those of the same
-   run without a process group.
+   run without a process group. It runs last, beside phase 28's ranks,
+   while this process runs the one-process run both are held against and
+   then phase 32 (their s/step are taken with all of it on the card).
 26. ``return_attn``: the maps kernel (``attention_probs_kernel`` beside B.4,
    from B.4's log-sum-exp) against the plain softmax at ``iam``'s shapes in
    latent and pixel space, beside its bound; one ``return_attn`` UNet call in
@@ -239,7 +241,8 @@ Phases, each of which must pass (any failure exits non-zero):
    tensor on its own (TP_KEY_REL; TP_ZERO_GRAD_DIFF for the tensors whose
    gradient is 0 in exact arithmetic) and every entry (TP_P99_DIFF), and its
    s/step. Every B.2 and B.4 shape a rank launched must be one that phases
-   3 and 8 held against plain. Any rank's failure fails the phase.
+   3 and 8 held against plain. Any rank's failure fails the phase. It runs
+   beside phase 25 (see there).
 29. checkpoints without the JAX package, and JPEG crops: (a) seeded
    full-width ``iam`` weights written in the reference layout
    (``middle_block1``, the research UNetModel's dead ``to_kv`` / ``attnc`` /
@@ -253,8 +256,8 @@ Phases, each of which must pass (any failure exits non-zero):
    reloaded bitwise; (d) ``data/jpeg_check.npz`` decoded bitwise (no
    Pillow here), the JPEG decoder's and the PNG reader's host ms per 64x256
    crop; (e) ``cli.evaluate`` with ``--ocr_ckpt`` (phase 22(e)'s directory)
-   over a directory of 512 JPEG crops (32 renders by the check set's numpy
-   encoder, each under 16 names), in turns with the same crops as PNGs: the
+   over a directory of 256 JPEG crops (32 renders by the check set's numpy
+   encoder, each under 8 names), then the same crops as PNGs: the
    JSON keys, B.5 launches (48 a style-encoder batch, 10 an OCR batch),
    images/s of the whole call and the loading's ms per image apart.
 30. the JAX package's orbax checkpoints, read without JAX, orbax or
@@ -286,6 +289,23 @@ Phases, each of which must pass (any failure exits non-zero):
    B.6 and the Function backwards unchanged, peak memory lower; s/step and
    peak memory of both. The kernels line counts these paths' launches, B.4's
    fast mode apart (``attention_fast``).
+32. (run while phases 25 and 28's processes run) the iam chain (``python -m
+   worddiffusion_tpu_torch.chains iam --smoke --device cuda``, the JAX
+   repo's ``scripts/iam_chain.sh``) from an empty
+   runs directory at full width (the ``iam`` preset, the SD-shape VAE, the
+   CTC OCR, the VGG PHOSC trunk; epochs and corpus sizes cut by
+   ``chains.run.SMOKE``): every stage runs; its artifacts are there (the
+   OCR, VAE and UNet checkpoints, the 128-entry latent cache, three
+   regeneration dumps, the ddim dump's 128 crops accepted or rejected, the
+   five subsets, the PHOSC pickle, five ``evaluate`` JSONs); B.1, B.3, B.4,
+   B.5 and B.6 each launched; each stage's seconds, peak memory and
+   launches; then a second run skips every stage and launches nothing. The
+   untrained smoke filter accepts none of the 128 crops, so its subsets are
+   empty and the JSONs hold no FID: a third run stands in for a trained
+   filter (every other rejected crop, in name order, moved to the accepted
+   dump; the markers of ``subsets`` and the five ``eval_*`` stages deleted)
+   and reruns those six stages alone, which must fill every subset and give
+   each JSON a finite ``fid_phosc``.
 
 Every training phase counts 9 B.5 and 12 B.6 launches and Function
 backward calls per step (13 B.5 with the CTC aux head), and 9 * 50 + 4 and
@@ -314,6 +334,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 T_START = time.perf_counter()
@@ -322,7 +343,7 @@ FFN_SHAPES = (B * 256, B * 64, 1000)   # M: full-res blocks, middle block, ragge
 FFN_SMALL_SHAPES = (64, 65)            # one row tile, and one row past it
 TRAIN_B = 128
 BWD_SHAPES = (TRAIN_B * 256, TRAIN_B * 64, 1000)
-TRAIN_STEPS_PER_EPOCH = 10
+TRAIN_STEPS_PER_EPOCH = 5  # phases 7, 10 and 13: 2 epochs of 5 steps
 GRADS = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
 # bf16 keeps 8 significant bits (one rounding = 0.4% of a value). The kernel
 # keeps the [M, 2*inner] hidden in fp32 where the plain version rounds the
@@ -385,6 +406,7 @@ UNET_NORMS, ENCODER_NORMS, DECODER_NORMS, OCR_NORMS = (9, 12), (4, 18), (4, 26),
 # SiLU) a call.
 VARIANT_NORMS = {"film": (17, 4), "split_skip": (9, 12), "film_split_skip": (17, 4)}
 CTC_HEAD_NORMS = (4, 0)
+MASKED_STEPS = 120  # phase 22(i)'s schedule: the preset's 600 steps cut in depth
 COND_STEPS_PER_EPOCH = 3  # phase 19's training runs: 2 epochs of 3 steps
 # The PHOSC recognizer (phase 21): PHOSCNet(trunk="resnet18") at the CLI's
 # widths and batch; its 16 GroupNorms (32 groups, eps 1e-6, no SiLU) run B.5
@@ -563,13 +585,21 @@ def reset_counts() -> None:
     groupnorm.launches = groupnorm.bwd_calls = gn_conv.launches = gn_conv.bwd_calls = 0
 
 
+def card_generator(seed: int):
+    """A seeded generator on the card: the kernels' inputs are drawn there
+    (drawing the widest on the host took seconds of the run)."""
+    import torch
+
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
 def attn_inputs(b: int, nq: int, nk: int, seed: int, heads: int = HEADS):
     """Seeded bf16 q, k, v [b, heads, n, 80] with unit-scale entries, as the
     projections of LayerNormed tokens give them."""
     import torch
 
-    g = torch.Generator().manual_seed(seed)
-    return tuple(torch.randn(b, heads, n, D_HEAD, generator=g).bfloat16().cuda()
+    g = card_generator(seed)
+    return tuple(torch.randn(b, heads, n, D_HEAD, generator=g, device="cuda").bfloat16()
                  for n in (nq, nk, nk))
 
 
@@ -617,8 +647,8 @@ def phase8_attention(smi: str) -> dict:
     # autograd at the widest training shape: output and q, k, v gradients.
     b, nq, nk = TRAIN_B, 256, 811
     q, k, v = attn_inputs(b, nq, nk, seed=60)
-    dout = (0.1 * torch.randn(b, HEADS, nq, D_HEAD, generator=torch.Generator().manual_seed(61)))
-    dout = dout.bfloat16().cuda()
+    dout = (0.1 * torch.randn(b, HEADS, nq, D_HEAD, generator=card_generator(61),
+                              device="cuda")).bfloat16()
 
     def fwd_bwd(fn):
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -692,14 +722,13 @@ def ffn_inputs(m: int, seed: int, inner: int = INNER):
     LayerNorm affine near identity, lecun-scaled weights."""
     import torch
 
-    g = torch.Generator().manual_seed(seed)
-    r = lambda *s: torch.randn(*s, generator=g)
-    t = dict(
+    g = card_generator(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    return dict(
         x=r(m, D).bfloat16(), gamma=1 + 0.1 * r(D), beta=0.1 * r(D),
         w1=(r(D, 2 * inner) / D ** 0.5).bfloat16(), b1=0.02 * r(2 * inner),
         w2=(r(inner, D) / inner ** 0.5).bfloat16(), b2=0.02 * r(D),
     )
-    return {k: v.cuda() for k, v in t.items()}
 
 
 def bwd_inputs(m: int, seed: int):
@@ -708,8 +737,8 @@ def bwd_inputs(m: int, seed: int):
 
     t = ffn_inputs(m, seed)
     t.pop("b2")
-    g = torch.Generator().manual_seed(seed + 100)
-    t["dy"] = (0.1 * torch.randn(m, D, generator=g)).bfloat16().cuda()
+    g = card_generator(seed + 100)
+    t["dy"] = (0.1 * torch.randn(m, D, generator=g, device="cuda")).bfloat16()
     return {k: t[k] for k in ("x", "dy", "gamma", "beta", "w1", "b1", "w2")}
 
 
@@ -762,7 +791,7 @@ def phase3_geglu(smi: str) -> dict:
 
     m = TRAIN_B * 256
     t = ffn_inputs(m, seed=45)
-    dy = (0.1 * torch.randn(m, D, generator=torch.Generator().manual_seed(46))).bfloat16().cuda()
+    dy = (0.1 * torch.randn(m, D, generator=card_generator(46), device="cuda")).bfloat16()
     names = ("x", "w1", "b1", "w2", "b2")
 
     def fwd_bwd(fn):
@@ -855,8 +884,7 @@ def phase6_ffn_backward(smi: str) -> dict:
         p = {k: a[k].float() for k in ("gamma", "beta", "b1", "b2")}
         p["w1"] = a["w1"].float().t().contiguous()  # proj.weight [2*inner, d]
         p["w2"] = a["w2"].float().t().contiguous()  # out.weight [d, inner]
-        dy = (0.1 * torch.randn(m, D, generator=torch.Generator().manual_seed(21))).bfloat16()
-        dy = dy.cuda()
+        dy = (0.1 * torch.randn(m, D, generator=card_generator(21), device="cuda")).bfloat16()
 
         def fwd_bwd(kernel: bool):
             x = a["x"].clone().requires_grad_()
@@ -1140,12 +1168,11 @@ def fold_inputs(b: int, n: int, l: int, seed: int) -> dict:
     scores and outputs (B.8's per-head layout), small biases."""
     import torch
 
-    g = torch.Generator().manual_seed(seed)
-    r = lambda *s: torch.randn(*s, generator=g)
-    t = dict(x=r(b, n, D).bfloat16(), wt4=(r(b, HEADS, D, l) / D ** 0.5).bfloat16(),
-             vw4=r(b, HEADS, l, D).bfloat16(), gamma=1 + 0.1 * r(D), beta=0.1 * r(D),
-             b_out=0.02 * r(D))
-    return {k: v.cuda() for k, v in t.items()}
+    g = card_generator(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    return dict(x=r(b, n, D).bfloat16(), wt4=(r(b, HEADS, D, l) / D ** 0.5).bfloat16(),
+                vw4=r(b, HEADS, l, D).bfloat16(), gamma=1 + 0.1 * r(D), beta=0.1 * r(D),
+                b_out=0.02 * r(D))
 
 
 def phase11_fold(smi: str) -> dict:
@@ -1212,8 +1239,7 @@ def phase11_fold(smi: str) -> dict:
     # autograd at the training shape: the output and the six gradients.
     b, n, l = TRAIN_B, 256, 42
     t = fold_inputs(b, n, l, seed=80)
-    dy = (0.1 * torch.randn(b, n, D, generator=torch.Generator().manual_seed(81))).bfloat16()
-    dy = dy.cuda()
+    dy = (0.1 * torch.randn(b, n, D, generator=card_generator(81), device="cuda")).bfloat16()
     names = ("x", "wt4", "vw4", "gamma", "beta", "b_out")
 
     def fwd_bwd(fn):
@@ -1256,8 +1282,9 @@ def device_profile(fn, calls: int = 5) -> dict:
     # The profiler may miss the kernels launched just after it starts (on the
     # H100, now and then the first 17 or more of a PHOSC forward). So one call
     # inside the window takes that loss, and a marker kernel (torch's
-    # spin_kernel) parts it from the counted calls.
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # spin_kernel) parts it from the counted calls. Device activity alone:
+    # the host's ops add nothing read here and cost seconds to parse.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
         torch.cuda._sleep(1)
@@ -1470,11 +1497,10 @@ def norm_inputs(shape, seed: int) -> dict:
     residual stream gives the norms; GroupNorm affine near identity."""
     import torch
 
-    g = torch.Generator().manual_seed(seed)
+    g = card_generator(seed)
     c = shape[-1]
-    t = dict(x=(2 * torch.randn(*shape, generator=g) + 0.5).bfloat16(),
-             scale=1 + 0.1 * torch.randn(c, generator=g), bias=0.1 * torch.randn(c, generator=g))
-    return {k: v.cuda() for k, v in t.items()}
+    r = lambda *s: torch.randn(*s, generator=g, device="cuda")
+    return dict(x=(2 * r(*shape) + 0.5).bfloat16(), scale=1 + 0.1 * r(c), bias=0.1 * r(c))
 
 
 def phase14_norms(smi: str) -> dict:
@@ -1524,9 +1550,9 @@ def phase14_norms(smi: str) -> dict:
 
     for i, (b, h, w, c, groups) in enumerate(CONV_SHAPES):
         t = norm_inputs((b, h, w, c), seed=120 + i)
-        g = torch.Generator().manual_seed(150 + i)
-        wt = (torch.randn(c, c, 3, 3, generator=g) / (9 * c) ** 0.5).cuda()
-        cb = (0.1 * torch.randn(c, generator=g)).cuda()
+        g = card_generator(150 + i)
+        wt = torch.randn(c, c, 3, 3, generator=g, device="cuda") / (9 * c) ** 0.5
+        cb = 0.1 * torch.randn(c, generator=g, device="cuda")
         args = (t["x"], t["scale"], t["bias"], wt, cb, groups, 1e-6)
         got, again = gn_conv.fused_gn_silu_conv3x3(*args), gn_conv.fused_gn_silu_conv3x3(*args)
         torch.cuda.synchronize()
@@ -1563,10 +1589,10 @@ def phase14_norms(smi: str) -> dict:
     # The Functions (kernel forward, plain-recompute backward) against plain
     # autograd at the UNet's training shape: output and every gradient.
     t = norm_inputs((TRAIN_B, 8, 32, D), seed=180)
-    g = torch.Generator().manual_seed(181)
-    t["w"] = (torch.randn(D, D, 3, 3, generator=g) / (9 * D) ** 0.5).cuda()
-    t["b"] = (0.1 * torch.randn(D, generator=g)).cuda()
-    dy = (0.1 * torch.randn(TRAIN_B, 8, 32, D, generator=g)).bfloat16().cuda()
+    g = card_generator(181)
+    t["w"] = torch.randn(D, D, 3, 3, generator=g, device="cuda") / (9 * D) ** 0.5
+    t["b"] = 0.1 * torch.randn(D, generator=g, device="cuda")
+    dy = (0.1 * torch.randn(TRAIN_B, 8, 32, D, generator=g, device="cuda")).bfloat16()
     pairs = {
         "groupnorm": (lambda x, s, b_: groupnorm.fused_groupnorm(x, s, b_, 32, 1e-5, True),
                       lambda x, s, b_: groupnorm.groupnorm_reference(x, s, b_, 32, 1e-5, True),
@@ -1601,7 +1627,7 @@ def phase14_norms(smi: str) -> dict:
     # B.5's Function at the recognizer's widest site (64 channels in 32 groups
     # of 2, no SiLU, eps 1e-6), as the PHOSC train step calls it
     t = norm_inputs((PHOSC_B, 25, 125, 64), seed=182)
-    dy = (0.1 * torch.randn(PHOSC_B, 25, 125, 64, generator=g)).bfloat16().cuda()
+    dy = (0.1 * torch.randn(PHOSC_B, 25, 125, 64, generator=g, device="cuda")).bfloat16()
 
     def gn_fwd_bwd(fn):
         leaves = [t[k].clone().requires_grad_() for k in ("x", "scale", "bias")]
@@ -2119,12 +2145,9 @@ def phase20_sample(smi: str, work: str, vae_file: str, cond_image: str, trained:
         if "--writer2" in flags:
             cond_kw.update(writer_ids2=[7] * len(pairs), mix_rate=0.5)
         w_, i_ = [p[0] for p in pairs], [p[1] for p in pairs]
-        secs = []
-        for r in range(2):
-            gen = torch.Generator(device="cuda").manual_seed(r)
-            t1 = time.perf_counter()
-            sampler.sample_async(w_, i_, gen, **cond_kw).cpu()
-            secs.append(time.perf_counter() - t1)
+        t1 = time.perf_counter()
+        sampler.sample_async(w_, i_, card_generator(0), **cond_kw).cpu()
+        secs = [time.perf_counter() - t1]
         log(f"sample CLI {label}: {len(names)} PNGs {names[:2]}...; {counts['ffn'] // 4} UNet "
             f"calls; launches {counts} (expect {want}); {wall:.3f} s incl. the CLI's set-up; one "
             f"batch of {len(w_)}: {secs} s/batch [{smi}]")
@@ -2327,7 +2350,7 @@ def phase21_phosc(smi: str, work: str) -> dict:
     tp = torch.from_numpy(np.stack([phos_map[w] for w in batch_words])).float().cuda()
     tc = torch.from_numpy(np.stack([phoc_map[w] for w in batch_words])).float().cuda()
     imgs = train_phosc.dev_norm(phosc_images(PHOSC_B, seed=22), "cuda")
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = card_generator(0)
     sprof = device_profile(lambda: train_phosc.train_step(trained, optimizer, imgs, tp, tc, gen,
                                                           plateau, 1e-4, 1e9), calls=3)
     step_gn = sum(n for k, n in sprof["per_call"].items() if "gn_cluster_kernel" in k)
@@ -2829,16 +2852,19 @@ def phase22h_evaluate(smi: str, work: str, real_dir: str, phosc_pkl: str, ocr_pt
 
 def phase22i_masked(smi: str, unet, sampler, words) -> dict:
     """(i) ``diffusion.masking.masked_ddpm_sample`` with the ``iam`` UNet
-    (seeded, B=16) over the preset's 600 steps: 599 UNet calls, kernels per
+    (seeded, B=16) over a linear schedule of MASKED_STEPS steps (the
+    preset's 600 cut in depth): MASKED_STEPS - 1 UNet calls, kernels per
     call, time."""
     import torch
 
     from worddiffusion_tpu_torch.diffusion.masking import masked_ddpm_sample
+    from worddiffusion_tpu_torch.diffusion.schedule import NoiseSchedule
 
     x, _, ctx, wid, _ = unet_inputs(sampler, words, phosc=False)
-    g = torch.Generator(device="cuda").manual_seed(5)
+    g = card_generator(5)
     ref = torch.randn(x.shape, generator=g, device="cuda") * 0.5 + 0.3
-    schedule = sampler.schedule
+    assert sampler.schedule.num_steps == 600
+    schedule = NoiseSchedule.linear(MASKED_STEPS)
     with torch.no_grad():
         reset_counts()
         torch.cuda.synchronize()
@@ -2853,7 +2879,7 @@ def phase22i_masked(smi: str, unet, sampler, words) -> dict:
     log(f"masked_ddpm_sample iam B={B}: {calls} UNet calls in {wall:.3f} s "
         f"({wall / calls * 1e3:.3f} ms a call); launches {counts}, per call {per_call}; output "
         f"finite {bool(torch.isfinite(out).all())} [{smi}]")
-    assert calls == 599 and bool(torch.isfinite(out).all())
+    assert calls == MASKED_STEPS - 1 and bool(torch.isfinite(out).all())
     assert counts == dict(ffn=4 * calls, ffn_bwd=0, attn=8 * calls, fold=0, fold_b7=0,
                           gn=UNET_NORMS[0] * calls, conv=UNET_NORMS[1] * calls, geglu=0,
                           probs=0), counts
@@ -2957,12 +2983,15 @@ def unet_check(smi: str, unet, inputs, label: str, launches=(4, 8, 0, *UNET_NORM
 
 
 def drive_regen(smi: str, regen, samples, seed: int, label: str,
-                per_call=(4, 8, 0, *UNET_NORMS), decoder=DECODER_NORMS) -> dict:
+                per_call=(4, 8, 0, *UNET_NORMS), decoder=DECODER_NORMS,
+                warm: bool = True) -> dict:
     """The regeneration main path over ``samples``: counts set to 0 just
     before the run and read just after; checks shapes, finiteness, the
     PNGs and the FF, attention, fold attention, B.5 and B.6 launches per
     denoiser call (``per_call``) plus, per batch, one VAE decode's
-    (``decoder``; none in pixel space) and one OCR call's B.5 and B.6."""
+    (``decoder``; none in pixel space) and one OCR call's B.5 and B.6.
+    ``warm``: one untimed batch first (left out where an earlier phase ran
+    the same preset, so that nothing is paid for the first time)."""
     import torch
 
     from worddiffusion_tpu_torch.generate.sample import phosc_ids
@@ -2982,9 +3011,9 @@ def drive_regen(smi: str, regen, samples, seed: int, label: str,
     calls = int(sampler.call_mask[1:].sum())
     words = [s.word for s in samples[:B]]
     ph = phosc_ids(words, "eng") if sampler.exp.unet.use_phosc else None
-    warm = torch.Generator(device="cuda").manual_seed(123)
-    sampler.sample_async(words, list(range(B)), warm, ph)[0].cpu()  # warm-up batch
-    checks.clear()
+    if warm:
+        sampler.sample_async(words, list(range(B)), card_generator(123), ph)[0].cpu()
+        checks.clear()
 
     reset_counts()
     t0 = time.perf_counter()
@@ -3028,18 +3057,18 @@ def drive_regen(smi: str, regen, samples, seed: int, label: str,
 def batch_seconds(smi: str, sampler, words, label: str, phosc=None) -> dict:
     """Wall seconds of one queued batch (120 denoiser calls, decode, OCR)
     with the attention kernels and with the plain attentions (folded or
-    not), in turns (kernel, plain, plain, kernel): the host-bound batch
-    time drifts with the load on the host's shared cores."""
+    not), one after the other (the host-bound batch time drifts with the
+    load on the host's shared cores, so compare within one run)."""
     import torch
 
     times = {"kernel": [], "plain": []}
-    for r, kernel in enumerate((True, False, False, True)):
-        gen = torch.Generator(device="cuda").manual_seed(200 + r)
+    for r, kernel in enumerate((True, False)):
+        gen = card_generator(200 + r)
         with contextlib.nullcontext() if kernel else plain_attention():
             t0 = time.perf_counter()
             sampler.sample_async(words, list(range(len(words))), gen, phosc)[0].cpu()
             times["kernel" if kernel else "plain"].append(time.perf_counter() - t0)
-    log(f"regen {label} one batch of {len(words)} (120 calls + decode + OCR), in turns: "
+    log(f"regen {label} one batch of {len(words)} (120 calls + decode + OCR): "
         f"{times['kernel']} s with the attention kernel, {times['plain']} s with the plain "
         f"attention [{smi}]")
     return times
@@ -3112,9 +3141,9 @@ def pixel_kernel_rows(smi: str) -> dict:
 
     for i, (b, h, w, c, groups) in enumerate(PIXEL_CONV_SHAPES):
         t = norm_inputs((b, h, w, c), seed=320 + i)
-        g = torch.Generator().manual_seed(330 + i)
-        wt = (torch.randn(c, c, 3, 3, generator=g) / (9 * c) ** 0.5).cuda()
-        cb = (0.1 * torch.randn(c, generator=g)).cuda()
+        g = card_generator(330 + i)
+        wt = torch.randn(c, c, 3, 3, generator=g, device="cuda") / (9 * c) ** 0.5
+        cb = 0.1 * torch.randn(c, generator=g, device="cuda")
         args = (t["x"], t["scale"], t["bias"], wt, cb, groups, 1e-5)
         got, again = gn_conv.fused_gn_silu_conv3x3(*args), gn_conv.fused_gn_silu_conv3x3(*args)
         torch.cuda.synchronize()
@@ -3278,7 +3307,7 @@ def phase23_pixel(smi: str, work: str, cli, gt: str, words) -> dict:
     torch.cuda.reset_peak_memory_stats()
     unet = unet_check(smi, sampler.model, pixel_unet_inputs(sampler, words), "iam pixel")
     regen_px = drive_regen(smi, regen, samples[:B], seed=0, label="iam pixel",
-                           decoder=(0, 0))
+                           decoder=(0, 0), warm=False)
     peak_regen = torch.cuda.max_memory_allocated()
     log(f"pixel regeneration: peak memory {peak_regen / 2 ** 30:.3f} GiB [{smi}]")
     del regen, sampler
@@ -3521,7 +3550,7 @@ def free_port() -> int:
 
 
 def ddp_worker(work: str) -> int:
-    """Phase 25's process (started by ``phase25_ddp`` with torchrun's
+    """Phase 25's process (started by ``phases25_28_32`` with torchrun's
     environment): the train CLI under ``DistributedDataParallel`` at world
     size 1 on NCCL, counts set to 0 before and read after each run, then a
     max_steps stop and a resume; writes what it saw as JSON."""
@@ -3562,30 +3591,20 @@ def ddp_worker(work: str) -> int:
     return 0
 
 
-def phase25_ddp(smi: str, work: str, corpus: tuple[str, str]) -> dict:
+def phase25_ddp_check(smi: str, ddp: str, ref: dict, seconds: float) -> dict:
     """Phase 25: the trainer under ``DistributedDataParallel`` at world size
-    1 on NCCL, in a process started with torchrun's environment: kernel
-    counts a step under DDP's hooks, a bitwise resume, and the result against
-    the same run without a process group."""
+    1 on NCCL, in a process started with torchrun's environment (started by
+    ``phases25_28_32``): kernel counts a step under DDP's hooks, a bitwise
+    resume, and the result against ``ref``, the same run without a process
+    group."""
     import torch
 
-    from worddiffusion_tpu_torch.cli import train as train_cli
-
-    ddp = os.path.join(work, "ddp")
-    short_corpus(ddp, corpus)
-    env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
-               MASTER_ADDR="localhost", MASTER_PORT=str(free_port()))
-    t0 = time.perf_counter()
-    res = subprocess.run([sys.executable, os.path.abspath(__file__), DDP_WORKER_FLAG, ddp],
-                         env=env, capture_output=True, text=True, timeout=600)
-    log(res.stdout[-3000:])
-    assert res.returncode == 0, res.stderr[-6000:]
     with open(os.path.join(ddp, "ddp.json")) as f:
         got = json.load(f)
     steps, preview = 6, 2
     c = got["counts"]
-    log(f"ddp world size 1 (NCCL, torchrun env, {time.perf_counter() - t0:.1f} s with the "
-        f"process's start): {got['steps']} steps, launches {c}; resume {got['part']} -> "
+    log(f"ddp world size 1 (NCCL, torchrun env, {seconds:.1f} s with the process's start, "
+        f"beside phase 28's ranks): {got['steps']} steps, launches {c}; resume {got['part']} -> "
         f"{got['resumed']}, max param diff {got['resume_diff']:.6g} [{smi}]")
     want = dict(ffn=4 * (steps + preview), ffn_bwd=4 * steps, attn=8 * (steps + preview),
                 gn=UNET_NORMS[0] * (steps + preview) + DECODER_NORMS[0],
@@ -3594,15 +3613,6 @@ def phase25_ddp(smi: str, work: str, corpus: tuple[str, str]) -> dict:
                 fold=0, fold_b7=0, geglu=0, probs=0)
     assert got["steps"] == steps and c == want, (c, want)
     assert got["part"] == 3 and got["resumed"] == steps and got["resume_diff"] == 0, got
-
-    # the same run in this process, without a process group
-    plain = train_cli.build(train_cli.build_parser().parse_args([
-        "--preset", "iam", "--gt_train", os.path.join(ddp, "train.filter27"), "--latent_cache",
-        os.path.join(ddp, "latents.npz"), "--batch_size", str(TRAIN_B), "--epochs", "2",
-        "--ckpt_every_epochs", "2", "--preview_ddim", "2", "--save_path",
-        os.path.join(work, "ddp_plain"), "--seed", "0", "--device", "cuda"]))
-    assert not plain.distributed
-    ref = plain.run(epochs=2).model.state_dict()
     ddp_sd = torch.load(os.path.join(ddp, "ddp_final.pt"), map_location="cuda")
     diff = max((ddp_sd[k] - v).abs().max().item() for k, v in ref.items())
     log(f"ddp world size 1 vs no process group: max param diff {diff:.6g} [{smi}]")
@@ -3802,10 +3812,10 @@ def phase29_checkpoints(smi: str, work: str, cli, gt: str, corpus: tuple[str, st
     ``cli.export_reference --middle_block1 1`` of that checkpoint, reloaded
     bitwise; (d) ``data/jpeg_check.npz`` decoded bitwise, the decoder's and
     the PNG reader's host ms per 64x256 crop; (e) ``cli.evaluate`` over a
-    directory of 512 JPEG crops (32 renders written by the check set's numpy
-    encoder, each under 16 names, every file decoded anew) with
+    directory of 256 JPEG crops (32 renders written by the check set's numpy
+    encoder, each under 8 names, every file decoded anew) with
     ``--ocr_ckpt`` (phase 22(e)'s directory), B.5 counted, against the same
-    crops as PNGs, in turns after a warm-up run: images/s of the whole call,
+    crops as PNGs, after a warm-up run: images/s of the whole call,
     and the loading (``evaluate._load_dir``) timed apart from the CLI's fixed
     set-up and the featurizers."""
     import numpy as np
@@ -3840,7 +3850,8 @@ def phase29_checkpoints(smi: str, work: str, cli, gt: str, corpus: tuple[str, st
         regen, samples = cli.build(regen_cli_args(cli, gt16, os.path.join(work, f"regen_{label}"),
                                                   "--torch_ckpt", pt))
         runs[label] = dict(regen=regen, counts=drive_regen(smi, regen, samples, seed=0,
-                                                           label=f"29 {label} layout"),
+                                                           label=f"29 {label} layout",
+                                                           warm=False),
                            files=dump_files(regen.out_dir))
     a, b = runs["reference"]["regen"].sampler, runs["port"]["regen"].sampler
     sa, sb = a.model.state_dict(), b.model.state_dict()
@@ -3852,9 +3863,9 @@ def phase29_checkpoints(smi: str, work: str, cli, gt: str, corpus: tuple[str, st
     fa, fb = runs["reference"]["files"], runs["port"]["files"]
     same_pngs = fa.keys() == fb.keys() and all(fa[k] == fb[k] for k in fa)
     times = {"reference": [], "port": []}
-    for r, label in enumerate(("reference", "port", "port", "reference")):
+    for r, label in enumerate(("reference", "port")):
         sampler = runs[label]["regen"].sampler
-        gen = torch.Generator(device="cuda").manual_seed(300 + r)
+        gen = card_generator(300 + r)
         t0 = time.perf_counter()
         sampler.sample_async(words, list(range(B)), gen)[0].cpu()
         times[label].append(time.perf_counter() - t0)
@@ -3864,8 +3875,8 @@ def phase29_checkpoints(smi: str, work: str, cli, gt: str, corpus: tuple[str, st
         f"{torch.equal(eps_a, eps_b)}, "
         f"{len(fa)} PNGs bitwise {same_pngs}; s/batch (drive) reference "
         f"{runs['reference']['counts']['s_per_batch']:.4f}, port "
-        f"{runs['port']['counts']['s_per_batch']:.4f}; one batch in turns (reference, port, port, "
-        f"reference): {times} s [{smi}]")
+        f"{runs['port']['counts']['s_per_batch']:.4f}; one batch each (reference, port): "
+        f"{times} s [{smi}]")
     assert same_weights and torch.equal(eps_a, eps_b) and bool(torch.isfinite(eps_a).all())
     assert same_pngs and len(fa) == B, (len(fa), len(fb))
     ref_counts = runs["reference"]["counts"]
@@ -3941,12 +3952,12 @@ def phase29_checkpoints(smi: str, work: str, cli, gt: str, corpus: tuple[str, st
         + f"; PNG decode (render 64x256 rgb8) {png_ms:.3f} [{smi}]")
 
     # (e) evaluate over a directory of JPEG crops, and over the same crops as
-    # PNGs. 512 files, so the per-image costs (decode, featurizers) outweigh
+    # PNGs. 256 files, so the per-image costs (decode, featurizers) outweigh
     # the CLI's fixed set-up (argument parsing, two model builds, ocr.pt)
     dirs = {"jpeg": os.path.join(work, "eval_jpeg"), "png": os.path.join(work, "eval_png")}
     eval_words = ("the of and to in is was that for it with as his on be at by had are but "
                   "from not this have which one were all they she you her").split()[:32]
-    n_eval = 512
+    n_eval = 256
     encoded = {"jpeg": [], "png": []}
     for i, w in enumerate(eval_words):
         img = render_word(w, 64, 256, seed=i)
@@ -3972,8 +3983,8 @@ def phase29_checkpoints(smi: str, work: str, cli, gt: str, corpus: tuple[str, st
     evaluate._load_dir = timed_load_dir
     try:
         evaluate.main(["--real_dir", dirs["png"], "--fake_dir", dirs["png"], "--ocr_ckpt",
-                       ocr_dir, "--device", "cuda"])  # warm-up: the first run pays the set-up
-        for label in ("jpeg", "png", "png", "jpeg"):
+                       ocr_dir, "--limit", "32", "--device", "cuda"])  # the first run's set-up
+        for label in ("jpeg", "png"):
             load_s.clear()
             reset_counts()
             t0 = time.perf_counter()
@@ -3988,7 +3999,7 @@ def phase29_checkpoints(smi: str, work: str, cli, gt: str, corpus: tuple[str, st
         evaluate._load_dir = load_dir
     batches = -(-n_eval // 32)
     want_gn = STYLE_NORMS * 2 * batches + OCR_NORMS[0] * batches
-    log(f"29 evaluate --ocr_ckpt {ocr_dir} over {n_eval} JPEG crops (real = fake), in turns "
+    log(f"29 evaluate --ocr_ckpt {ocr_dir} over {n_eval} JPEG crops (real = fake), then "
         f"with the same crops as PNGs: JSON jpeg {evals['jpeg'][0]['res']}, png "
         f"{evals['png'][0]['res']}; images/s of the whole call (real + fake) jpeg "
         f"{[e['imgs_per_s'] for e in evals['jpeg']]}, png "
@@ -4124,7 +4135,8 @@ def phase30_orbax(smi: str, work: str, cli, gt: str, corpus: tuple[str, str]) ->
             work, f"regen_orbax_{label}"), *flags))
         build_s = time.perf_counter() - t0
         runs[label] = dict(regen=regen, build_s=build_s, files=None,
-                           counts=drive_regen(smi, regen, samples, seed=0, label=f"30 {label}"))
+                           counts=drive_regen(smi, regen, samples, seed=0, label=f"30 {label}",
+                                              warm=False))
         runs[label]["files"] = dump_files(regen.out_dir)
     a, b = runs["orbax"]["regen"].sampler, runs["port"]["regen"].sampler
     for mod_a, mod_b in ((a.model, b.model), (a.vae, b.vae), (a.ocr_apply, b.ocr_apply)):
@@ -4137,9 +4149,9 @@ def phase30_orbax(smi: str, work: str, cli, gt: str, corpus: tuple[str, str]) ->
     fa, fb = runs["orbax"]["files"], runs["port"]["files"]
     same_pngs = fa.keys() == fb.keys() and all(fa[k] == fb[k] for k in fa)
     times = {"orbax": [], "port": []}
-    for r, label in enumerate(("orbax", "port", "port", "orbax")):
+    for r, label in enumerate(("orbax", "port")):
         sampler = runs[label]["regen"].sampler
-        gen = torch.Generator(device="cuda").manual_seed(400 + r)
+        gen = card_generator(400 + r)
         t0 = time.perf_counter()
         sampler.sample_async(words, list(range(B)), gen)[0].cpu()
         times[label].append(time.perf_counter() - t0)
@@ -4149,8 +4161,8 @@ def phase30_orbax(smi: str, work: str, cli, gt: str, corpus: tuple[str, str]) ->
         f"(weights read included) orbax {runs['orbax']['build_s']:.3f}, port "
         f"{runs['port']['build_s']:.3f}; s/batch (drive) orbax "
         f"{runs['orbax']['counts']['s_per_batch']:.4f}, port "
-        f"{runs['port']['counts']['s_per_batch']:.4f}; one batch in turns (orbax, port, port, "
-        f"orbax): {times} s [{smi}]")
+        f"{runs['port']['counts']['s_per_batch']:.4f}; one batch each (orbax, port): "
+        f"{times} s [{smi}]")
     assert torch.equal(eps_a, eps_b) and bool(torch.isfinite(eps_a).all())
     assert same_pngs and len(fa) == B, (len(fa), len(fb))
     regen_counts = dict(runs["orbax"]["counts"])
@@ -4171,7 +4183,7 @@ def phase30_orbax(smi: str, work: str, cli, gt: str, corpus: tuple[str, str]) ->
     gt_train, cache = corpus
     args = train_cli.build_parser().parse_args([
         "--preset", "iam", "--gt_train", gt_train, "--latent_cache", cache, "--batch_size",
-        str(TRAIN_B), "--epochs", "1", "--ckpt_every_epochs", "1", "--save_path", dirs["iam"],
+        str(TRAIN_B), "--epochs", "2", "--ckpt_every_epochs", "1", "--save_path", dirs["iam"],
         "--seed", "0", "--loadPrev", "1", "--device", "cuda"])
     trainer = train_cli.build(args)
     t0 = time.perf_counter()
@@ -4187,7 +4199,7 @@ def phase30_orbax(smi: str, work: str, cli, gt: str, corpus: tuple[str, str]) ->
     assert len(opt) == len(want_p)
     reset_counts()
     t0 = time.perf_counter()
-    state = trainer.run(epochs=1, resume=True)
+    state = trainer.run(epochs=2, resume=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     train_counts = all_counts()
@@ -4196,7 +4208,7 @@ def phase30_orbax(smi: str, work: str, cli, gt: str, corpus: tuple[str, str]) ->
         f"{restored.step} (parameters and zero moments as written) in {restore_s:.3f} s, then "
         f"{steps} steps of B={TRAIN_B} to step {state.step} in {wall:.2f} s incl. a checkpoint "
         f"and a DDIM-50 preview; launches {train_counts} [{smi}]")
-    assert steps == 2 and TRAIN_STEPS_PER_EPOCH == orbax_check.STEP + 2, steps
+    assert steps == 2 and 2 * TRAIN_STEPS_PER_EPOCH == orbax_check.STEP + 2, steps
     assert train_counts["ffn_bwd"] == 4 * steps, train_counts
     assert train_counts["ffn"] == 4 * steps + 4 * 50, train_counts  # + the preview's 50 calls
     assert all(torch.isfinite(p).all() for p in state.model.parameters())
@@ -4358,7 +4370,8 @@ def phase31_switches(smi: str, work: str, cli, gt: str, words, corpus, default_e
     assert one_call == (8, 8), one_call
     assert shift > 0, "fast_softmax=True gave the default mode's eps"
     unet = unet_check(smi, sampler.model, inputs, "iam fast_softmax")
-    regen_fast = drive_regen(smi, regen, samples[:B], seed=0, label="iam fast_softmax")
+    regen_fast = drive_regen(smi, regen, samples[:B], seed=0, label="iam fast_softmax",
+                             warm=False)
     regen_fast["attn_fast"] = attention.fast_launches
     assert regen_fast["attn_fast"] == regen_fast["attn"] == 8 * 120, regen_fast
     del regen, sampler
@@ -4479,21 +4492,34 @@ def record_shapes() -> dict:
     return seen
 
 
-def run_group(cmd, env, timeout: float):
-    """``cmd`` as the leader of a new process group: -> (returncode, stdout,
-    stderr); on the time limit every process of the group is killed, then
-    it raises."""
+def start_group(cmd, env, out_path: str):
+    """``cmd`` as the leader of a new process group, its standard output
+    and error into ``out_path`` (a file: two groups run at once, and a
+    full pipe would stall one)."""
+    with open(out_path, "w") as out:
+        return subprocess.Popen(cmd, env=env, stdout=out, stderr=subprocess.STDOUT, text=True,
+                                start_new_session=True)
+
+
+def wait_group(proc, out_path: str, timeout: float) -> tuple[int, str]:
+    """-> (returncode, output) of ``start_group``'s process; on the time
+    limit every process of its group is killed, then it raises."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        kill_group(proc)
+        raise
+    with open(out_path) as f:
+        return proc.returncode, f.read()
+
+
+def kill_group(proc) -> None:
+    """Every process of ``start_group``'s group, unless it has ended."""
     import signal
 
-    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, start_new_session=True)
-    try:
-        out, err = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
+    if proc.poll() is None:
         os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        raise
-    return proc.returncode, out, err
+        proc.wait()
 
 
 def tp_worker(work: str) -> int:
@@ -4566,32 +4592,18 @@ def tp_worker(work: str) -> int:
     return 0
 
 
-def phase28_tp(smi: str, work: str, corpus: tuple[str, str]) -> dict:
+def phase28_tp_check(smi: str, tp: str, ref: dict, init: dict, one_s: float,
+                     seconds: float) -> dict:
     """Phase 28: tensor parallel (``--mesh_model 2``) on the one card: two
-    ranks under ``torchrun`` with gloo on CUDA tensors; per rank and step
-    4 B.2 (the local GEGLU FFN, inner 640) and 8 B.4 (2 local heads), no
-    B.1 or B.3; B.5 / B.6 as one process; a bitwise resume; the replicated
-    parameters bitwise equal across the ranks; the gathered parameters
-    against the same run in this process; s/step against it; ``iam_fold``
-    under the same axis (B.8 on gathered weights)."""
+    ranks under ``torchrun`` with gloo on CUDA tensors (started by
+    ``phases25_28_32``); per rank and step 4 B.2 (the local GEGLU FFN, inner
+    640) and 8 B.4 (2 local heads), no B.1 or B.3; B.5 / B.6 as one
+    process; a bitwise resume; the replicated parameters bitwise equal
+    across the ranks; the gathered parameters against ``ref``, the same run
+    in one process (from ``init``); s/step against it; ``iam_fold`` under
+    the same axis (B.8 on gathered weights)."""
     import torch
 
-    from worddiffusion_tpu_torch.cli import train as train_cli
-    from worddiffusion_tpu_torch.parallel.distributed import SHARE_CARD_ENV
-
-    tp = os.path.join(work, "tp")
-    short_corpus(tp, corpus)
-    env = dict(os.environ, OMP_NUM_THREADS="4", **{SHARE_CARD_ENV: "1"})
-    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
-        env.pop(k, None)
-    t0 = time.perf_counter()
-    rc, out, err = run_group(
-        [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
-         "--master_addr", "localhost", "--master_port", str(free_port()), os.path.abspath(__file__),
-         TP_WORKER_FLAG, tp], env, timeout=600)
-    seconds = time.perf_counter() - t0
-    log(out[-3000:])
-    assert rc == 0, f"a tensor-parallel rank failed (torchrun exit {rc}): {err[-6000:]}"
     got = []
     for r in range(2):
         with open(os.path.join(tp, f"tp_rank{r}.json")) as f:
@@ -4609,12 +4621,13 @@ def phase28_tp(smi: str, work: str, corpus: tuple[str, str]) -> dict:
                      probs=0, attn_bwd=0)
     s_per_step = [g["epoch_seconds"][1][0] / g["epoch_seconds"][1][1] for g in got]
     log(f"tensor parallel, 2 ranks on one card (gloo, torchrun, {seconds:.1f} s with the "
-        f"processes' start): {got[0]['steps']} steps, launches per rank {c}; iam_fold "
-        f"{got[0]['fold_counts']}; resume {got[0]['part']} -> {got[0]['resumed']}, max param "
-        f"diff {max(g['resume_diff'] for g in got):.6g}; {got[0]['replicated']} replicated "
-        f"tensors bitwise equal across the ranks; s/step {s_per_step}; profiled device busy "
-        f"per rank {[round(g['busy_ms'], 3) for g in got]} ms a step, "
-        f"{got[0]['kernels']:.0f} kernels [{smi}]")
+        f"processes' start, beside phase 25's): {got[0]['steps']} steps, launches per rank "
+        f"{c}; iam_fold {got[0]['fold_counts']}; resume {got[0]['part']} -> "
+        f"{got[0]['resumed']}, max param diff {max(g['resume_diff'] for g in got):.6g}; "
+        f"{got[0]['replicated']} replicated tensors bitwise equal across the ranks; s/step "
+        f"{s_per_step}; profiled device busy per rank "
+        f"{[round(g['busy_ms'], 3) for g in got]} ms a step, {got[0]['kernels']:.0f} kernels "
+        f"[{smi}]")
     # every shape B.2 and B.4 took on a rank was held against plain in
     # phases 3 and 8
     held = dict(geglu=set(GEGLU_SHAPES),
@@ -4630,20 +4643,11 @@ def phase28_tp(smi: str, work: str, corpus: tuple[str, str]) -> dict:
             unheld = {tuple(x) for x in seen} - held[key]
             assert seen and not unheld, f"{key} ran at shapes no phase checked: {unheld}"
 
-    # the same run in this process, without a process group
-    plain = train_cli.build(train_cli.build_parser().parse_args([
-        "--preset", "iam", "--gt_train", os.path.join(tp, "train.filter27"), "--latent_cache",
-        os.path.join(tp, "latents.npz"), "--batch_size", str(TRAIN_B), "--epochs", "2",
-        "--ckpt_every_epochs", "2", "--preview_ddim", "2", "--save_path",
-        os.path.join(work, "tp_plain"), "--seed", "0", "--device", "cuda"]))
-    init = {k: v.clone() for k, v in plain.init_state().model.state_dict().items()}
-    ref = plain.run(epochs=2).model.state_dict()
     tp_sd = torch.load(os.path.join(tp, "tp_final.pt"), map_location="cuda")
     moved = torch.cat([(v - init[k]).abs().flatten() for k, v in ref.items()])
-    one_s = plain.epoch_seconds[1][0] / plain.epoch_seconds[1][1]
     log(f"tensor parallel vs one process, 6 steps: the one-process run moved the parameters by "
         f"up to {moved.max().item():.6g} (median {moved.median().item():.6g}); s/step tp "
-        f"{s_per_step} vs one process {one_s:.4f} [{smi}]")
+        f"{s_per_step} vs one process {one_s:.4f} (the runs overlap on the card) [{smi}]")
     assert moved.median().item() > TP_P99_DIFF  # the steps moved most parameters
     check = tp_param_check(tp_sd, ref, init)
     log(f"tensor parallel vs one process, per tensor |diff| / |movement| (tol {TP_KEY_REL:g}) "
@@ -4664,10 +4668,77 @@ def phase28_tp(smi: str, work: str, corpus: tuple[str, str]) -> dict:
                 fold_s_per_step=fold_s, seconds=seconds)
 
 
+def phases25_28_32(smi: str, work: str, corpus: tuple[str, str]) -> dict:
+    """Phases 25 (DDP at world size 1) and 28 (tensor parallel, two ranks)
+    side by side: both process groups start together, each on its own copy
+    of phase 25's short corpus; meanwhile this process runs the one-process
+    run that both are held against (the same arguments, no process group),
+    then phase 32 (its counts are this process's own). Every process they
+    start is stopped before this returns or raises. -> each phase's result
+    (``ddp``, ``tp``, ``chain``) and the paths' counts (``paths``)."""
+    from worddiffusion_tpu_torch.cli import train as train_cli
+    from worddiffusion_tpu_torch.parallel.distributed import SHARE_CARD_ENV
+
+    ddp, tp = os.path.join(work, "ddp"), os.path.join(work, "tp")
+    short_corpus(ddp, corpus)
+    short_corpus(tp, corpus)
+    ports = [free_port()]
+    while len(ports) < 2:  # one for each group's rendezvous
+        ports += [p for p in [free_port()] if p not in ports]
+    ddp_env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", LOCAL_WORLD_SIZE="1",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(ports[0]))
+    tp_env = dict(os.environ, OMP_NUM_THREADS="4", **{SHARE_CARD_ENV: "1"})
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+        tp_env.pop(k, None)
+    script = os.path.abspath(__file__)
+    cmds = {"ddp": ([sys.executable, script, DDP_WORKER_FLAG, ddp], ddp_env),
+            "tp": ([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "2",
+                    "--master_addr", "localhost", "--master_port", str(ports[1]), script,
+                    TP_WORKER_FLAG, tp], tp_env)}
+    outs = {k: os.path.join(work, f"{k}.log") for k in cmds}
+    t0 = time.perf_counter()
+    procs, seconds = {}, {}
+    try:
+        for k, (cmd, env) in cmds.items():
+            procs[k] = start_group(cmd, env, outs[k])
+        plain = train_cli.build(train_cli.build_parser().parse_args([
+            "--preset", "iam", "--gt_train", os.path.join(tp, "train.filter27"),
+            "--latent_cache", os.path.join(tp, "latents.npz"), "--batch_size", str(TRAIN_B),
+            "--epochs", "2", "--ckpt_every_epochs", "2", "--preview_ddim", "2", "--save_path",
+            os.path.join(work, "one_process"), "--seed", "0", "--device", "cuda"]))
+        assert not plain.distributed
+        init = {k: v.clone() for k, v in plain.init_state().model.state_dict().items()}
+        ref = plain.run(epochs=2).model.state_dict()
+        one_s = plain.epoch_seconds[1][0] / plain.epoch_seconds[1][1]
+        del plain
+        chain = phase32_chain(smi, work)
+        for k, proc in procs.items():
+            rc, out = wait_group(proc, outs[k], timeout=600)
+            seconds[k] = time.perf_counter() - t0
+            log(out[-3000:])
+            phase = "25" if k == "ddp" else "28"
+            assert rc == 0, f"phase {phase}'s {k} run failed (exit {rc}): {out[-6000:]}"
+    finally:
+        for proc in procs.values():
+            kill_group(proc)
+    out = dict(ddp=phase25_ddp_check(smi, ddp, ref, seconds["ddp"]),
+               tp=phase28_tp_check(smi, tp, ref, init, one_s, seconds["tp"]), chain=chain)
+    out["paths"] = {"train_ddp": out["ddp"]["counts"], "train_tp": out["tp"]["counts"],
+                    "train_tp_iam_fold": out["tp"]["fold_counts"], **chain["paths"]}
+    return out
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] not in ([DDP_WORKER_FLAG], [TP_WORKER_FLAG]):
+        from worddiffusion_tpu_torch.ops import build  # no torch
+
+        # the kernels compile (one nvcc a source) while phase 1 imports
+        # torch and the port and starts the card
+        builder = ThreadPoolExecutor(1)
+        built = builder.submit(build.build)
     import torch
 
-    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this check needs a GPU", file=sys.stderr)
         return 1
@@ -4679,7 +4750,7 @@ def main(argv=None) -> int:
     from worddiffusion_tpu_torch.cli import regenerate as cli
     from worddiffusion_tpu_torch.generate.sample import phosc_ids
     from worddiffusion_tpu_torch.models.layers import init_weights_
-    from worddiffusion_tpu_torch.ops import build, ffn
+    from worddiffusion_tpu_torch.ops import ffn
 
     # -- 1. device ---------------------------------------------------------
     smi = subprocess.run(
@@ -4694,9 +4765,9 @@ def main(argv=None) -> int:
 
     stamp("1")
     # -- 2. build ----------------------------------------------------------
-    t0 = time.perf_counter()
-    lib = build.build()
-    log(f"build: {lib} in {time.perf_counter() - t0:.2f} s")
+    lib = built.result()
+    builder.shutdown()
+    log(f"build: {lib} in {time.perf_counter() - T_START:.2f} s from the run's start")
 
     stamp("2")
     # -- 3. kernel vs plain ------------------------------------------------
@@ -4728,7 +4799,7 @@ def main(argv=None) -> int:
     gt = os.path.join(work, "words.filter27")
     words = ("the of and to in is was that for it with as his on be at by had are "
              "but from not this have which one were all they she you her an there "
-             "been their we him would so when more can said no").split()[:40]
+             "been their we him would so when more can said no").split()[:24]
     with open(gt, "w") as f:
         for i, w in enumerate(words):
             f.write(f"{i % 7:03d},a01-{i:03d}u-00 {w}\n")
@@ -4854,7 +4925,7 @@ def main(argv=None) -> int:
     side = phase22_side(smi, work, cli, gt, sampler, words, images[0])
 
     stamp("22")
-    # -- 23-27. pixel space, HiGAN+, DDP, attention maps, host data --------------------------
+    # -- 23, 24, 26, 27. pixel space, HiGAN+, attention maps, host data ----------------------
     new = new_phases(smi, work, cli, gt, words, corpus)
     px = new["pixel"]
 
@@ -4868,6 +4939,10 @@ def main(argv=None) -> int:
     # -- 31. the last two UNet switches: fast_softmax=True and remat -----------------------------
     switches = phase31_switches(smi, work, cli, gt, words, corpus, unet["eps"], px)
     stamp("31")
+    # -- 25, 28 and 32. DDP and tensor parallel in their own processes, the iam chain here ------
+    par = phases25_28_32(smi, work, corpus)
+    chain = par["chain"]
+    stamp("25, 28 and 32")
     paths = ("regenerate", "regenerate_iam_phosc", "regenerate_iam_fold", "train",
              "train_iam_phosc", "train_iam_fold", "build_latent_cache", "train_from_images")
     # the paths of phases 18-20, each with its counts under chip_smoke's keys
@@ -4876,7 +4951,8 @@ def main(argv=None) -> int:
                     for k, v in variants.items()},
                  **{f"train_{k}": v for k, v in cond_train.items()},
                  **{k: dict(v, ffn_bwd=0) for k, v in sampled.items()},
-                 **phosc["paths"], **side["paths"], **new["paths"], **ckpts["paths"],
+                 **phosc["paths"], **side["paths"], **new["paths"], **par["paths"],
+                 **ckpts["paths"],
                  **orbax["paths"], **switches["paths"]}
 
     def by_path(*counts, key):
@@ -4960,10 +5036,10 @@ def main(argv=None) -> int:
         f"{px['train']['s_per_step']:.4f} s/step (peak {px['train']['peak_bytes'] / 2 ** 30:.3f} "
         f"GiB); higan call B={B} {new['higan']['latent_ms']:.3f} ms, train "
         f"{new['higan']['s_per_step']:.4f} s/step; ddp world size 1 "
-        f"{new['ddp']['s_per_step']:.4f} s/step; tensor parallel (2 ranks, one card) "
-        f"{new['tp']['s_per_step']} s/step vs {new['tp']['one_s_per_step']:.4f} in one process"
+        f"{par['ddp']['s_per_step']:.4f} s/step; tensor parallel (2 ranks, one card) "
+        f"{par['tp']['s_per_step']} s/step vs {par['tp']['one_s_per_step']:.4f} in one process"
         + f"; regen s/batch from the reference layout {ckpts['s_per_batch']['reference']:.4f} "
-        f"vs port keys {ckpts['s_per_batch']['port']:.4f}; evaluate (512 crops) images/s over "
+        f"vs port keys {ckpts['s_per_batch']['port']:.4f}; evaluate (256 crops) images/s over "
         f"JPEG {ckpts['eval_imgs_per_s']['jpeg']} vs PNG {ckpts['eval_imgs_per_s']['png']}, "
         f"loading ms/image JPEG {ckpts['eval_load_ms']['jpeg']} vs PNG "
         f"{ckpts['eval_load_ms']['png']}; JPEG "
@@ -4982,6 +5058,8 @@ def main(argv=None) -> int:
         f"{switches['remat_pixel']['on']['s_per_step']:.4f} s/step, peak "
         f"{switches['remat_pixel']['off']['peak_bytes'] / 2 ** 30:.3f} / "
         f"{switches['remat_pixel']['on']['peak_bytes'] / 2 ** 30:.3f} GiB"
+        + f"; iam chain --smoke {chain['seconds']:.1f} s, resumed run {chain['again_s']:.2f} s, "
+        + f"the split's six stages {chain['split_s']:.1f} s"
         + f"; whole run {time.perf_counter() - T_START:.1f} s")
 
     def entry(name, source, replaces, paths_, rows, row, library_ms):
@@ -5039,21 +5117,107 @@ def main(argv=None) -> int:
     return 0
 
 
+CHAIN_EVALS = ("realfloor", "filtered", "unfilt", "accbal", "rejbal")
+
+
+def phase32_chain(smi: str, work: str) -> dict:
+    """The iam chain at ``--smoke`` from an empty runs directory, then again
+    (every stage skipped), then the subsets and the five ``evaluate`` stages
+    over a split of the ddim dump that stands in for a trained filter.
+    -> its counts under ``paths``."""
+    import numpy as np
+    import torch
+
+    from worddiffusion_tpu_torch.chains import run as chains
+
+    runs = os.path.join(work, "chain_iam")
+    argv = ["iam", "--runs_dir", runs, "--device", "cuda", "--smoke"]
+    names = [s.name for s in chains.stages_of("iam")]
+    reset_counts()
+    t0 = time.perf_counter()
+    first = chains.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = all_counts()
+    assert [r["stage"] for r in first] == names, first
+    assert not any(r["skipped"] for r in first), first
+    for r in first:
+        log(f"chain iam --smoke stage {r['stage']}: {r['seconds']:.2f} s, peak "
+            f"{r['peak_bytes'] / 2 ** 30:.3f} GiB, launches {r['launches']} [{smi}]")
+    for k in ("ffn", "ffn_bwd", "attn", "gn", "conv"):
+        assert counts[k] > 0, f"the iam chain launched no {k} kernel: {counts}"
+    assert counts["probs"] == counts["fold"] == counts["geglu"] == 0, counts
+    n = int(chains.SMOKE["--vocab_size"]) * int(chains.SMOKE["--samples_per_word"])
+    for f in ("ocr_syn/ocr.pt", "vae_syn/vae.pt", "demo_latent/ckpt/1/state.pt",
+              "demo_latent/ckpt/1/ema_unet.pt", "phosc_syn3/best_params.pkl"):
+        assert os.path.getsize(os.path.join(runs, f)) > 0, f
+    with np.load(os.path.join(runs, "latents_demo.npz")) as z:
+        assert len(z.files) == n, len(z.files)
+        lat = z[z.files[0]]
+        assert lat.shape == (8, 32, 4) and np.isfinite(lat).all(), lat.shape
+    accepted = {}
+    for d in ("regen_demo", "regen_full", "regen_ddim"):
+        accepted[d] = sum(f.endswith(".png") for f in os.listdir(os.path.join(runs, d)))
+    rejected = sum(f.endswith(".png")
+                   for f in os.listdir(os.path.join(runs, "regen_ddim", "rejected")))
+    assert accepted["regen_ddim"] + rejected == n, (accepted, rejected)
+    evals = {}
+    for k in CHAIN_EVALS:
+        with open(os.path.join(runs, f"eval_fid_{k}.json")) as f:
+            evals[k] = json.load(f)
+        nums = [v for v in evals[k].values() if isinstance(v, (int, float))]
+        assert all(np.isfinite(v) for v in nums), evals[k]
+    assert "ocr_exact_match" in evals["filtered"], evals["filtered"]
+    sizes = {d: len(os.listdir(os.path.join(runs, d)))
+             for d in ("fid_floor_a", "fid_floor_b", "fid_unfilt", "fid_acc_bal", "fid_rej_bal")}
+    log(f"chain iam --smoke: {seconds:.1f} s; accepted of {n} {accepted}, rejected (ddim) "
+        f"{rejected}; subsets {sizes}; evaluate {evals}; counts {counts} [{smi}]")
+    reset_counts()
+    t0 = time.perf_counter()
+    again = chains.main(argv)
+    again_s = time.perf_counter() - t0
+    assert [r["stage"] for r in again] == names and all(r["skipped"] for r in again), again
+    assert not any(all_counts().values()), all_counts()
+    log(f"chain iam --smoke again: every stage skipped in {again_s:.2f} s")
+    # the untrained filter accepts none, so the subsets above are empty and
+    # evaluate computes no FID: stand in for a trained filter with half the
+    # ddim dump, then rerun the six stages that read it
+    rej_dir = os.path.join(runs, "regen_ddim", "rejected")
+    for f in sorted(f for f in os.listdir(rej_dir) if f.endswith(".png"))[::2]:
+        os.rename(os.path.join(rej_dir, f), os.path.join(runs, "regen_ddim", f))
+    rerun = ["subsets"] + [f"eval_{k}" for k in CHAIN_EVALS]
+    for name in rerun:
+        os.remove(os.path.join(runs, ".chains", "iam", f"{name}.done"))
+    t0 = time.perf_counter()
+    third = chains.main(argv)
+    split_s = time.perf_counter() - t0
+    assert [r["stage"] for r in third if not r["skipped"]] == rerun, third
+    sizes = {d: len(os.listdir(os.path.join(runs, d)))
+             for d in ("fid_floor_a", "fid_floor_b", "fid_unfilt", "fid_acc_bal", "fid_rej_bal")}
+    assert all(v > 1 for v in sizes.values()), sizes
+    for k in CHAIN_EVALS:
+        with open(os.path.join(runs, f"eval_fid_{k}.json")) as f:
+            evals[k] = json.load(f)
+        assert np.isfinite(evals[k].get("fid_phosc", np.nan)), (k, evals[k])
+    log(f"chain iam --smoke, half the ddim dump accepted: {split_s:.1f} s; subsets {sizes}; "
+        f"evaluate {evals} [{smi}]")
+    return {"paths": {"chain_iam": counts}, "seconds": seconds, "again_s": again_s,
+            "split_s": split_s}
+
+
 def new_phases(smi: str, work: str, cli, gt: str, words, corpus) -> dict:
-    """Phases 23-27, each path's counts under its key (``paths``)."""
+    """Phases 23, 24, 26 and 27, each path's counts under its key
+    (``paths``)."""
     out = {}
     out["pixel"] = phase23_pixel(smi, work, cli, gt, words)
     stamp("23")
     out["higan"] = phase24_higan(smi, work, cli, gt, corpus)
     stamp("24")
-    out["ddp"] = phase25_ddp(smi, work, corpus)
-    stamp("25")
+    # 25 and 28 run last, beside 32 (``phases25_28_32``)
     out["maps"] = phase26_maps(smi, words)
     stamp("26")
     out["host"] = phase27_host(smi, work)
     stamp("27")
-    out["tp"] = phase28_tp(smi, work, corpus)
-    stamp("28")
     px, hg = out["pixel"], out["higan"]
     out["paths"] = {
         "regenerate_pixel": dict(zip(("ffn", "attn", "fold", "gn", "conv"),
@@ -5064,8 +5228,7 @@ def new_phases(smi: str, work: str, cli, gt: str, words, corpus) -> dict:
         "train_pixel": px["train"]["counts"], "sample_pixel": px["sample"],
         "train_higan": hg["train"],
         "regenerate_higan": dict(hg["regen"], ffn_bwd=0), "sample_higan": hg["sample"],
-        "train_ddp": out["ddp"]["counts"], **out["maps"]["paths"],
-        "train_tp": out["tp"]["counts"], "train_tp_iam_fold": out["tp"]["fold_counts"],
+        **out["maps"]["paths"],
     }
     return out
 

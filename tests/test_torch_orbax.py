@@ -415,26 +415,35 @@ def test_regenerate_from_orbax_is_port_files_bitwise(jax_run, tiny_presets, tmp_
 
 def test_cache_and_train_clis_read_an_orbax_vae(jax_run, tiny_presets, tmp_path):
     """cli.build_latent_cache --vae_ckpt (orbax) writes the cache --vae_pt
-    writes, bitwise; cli.train --vae_ckpt builds the same VAE."""
+    writes, bitwise; cli.train --vae_ckpt builds the same VAE. Both read
+    ``--vae_ckpt <save_dir>/ckpt`` where ``<save_dir>`` holds the port
+    trainer's ``vae.pt`` and no ``ckpt/`` (``train.checkpoint.side_file``)
+    as that ``vae.pt``."""
     from worddiffusion_tpu_torch.cli import build_latent_cache as cache_cli
     from worddiffusion_tpu_torch.cli import train as train_cli
 
     r = jax_run
+    side = tmp_path / "vae_syn"
+    side.mkdir()
+    shutil.copy(os.path.join(r["port"], "vae.pt"), side / "vae.pt")
     argv = ["--preset", tiny_presets, "--gt_train", r["gt"], "--iam_path",
             str(tmp_path / "none"), "--deterministic", "1", "--device", "cpu"]
     cache_cli.main(argv + ["--vae_ckpt", r["vae_ckpt"], "--out", str(tmp_path / "a.npz")])
     cache_cli.main(argv + ["--vae_pt", os.path.join(r["port"], "vae.pt"), "--out",
                            str(tmp_path / "b.npz")])
-    a, b = np.load(tmp_path / "a.npz"), np.load(tmp_path / "b.npz")
-    assert sorted(a.files) == sorted(b.files) and len(a.files) == 2
-    assert all(a[k].tobytes() == b[k].tobytes() for k in a.files)
+    cache_cli.main(argv + ["--vae_ckpt", str(side / "ckpt"), "--out", str(tmp_path / "c.npz")])
+    a, b, c = (np.load(tmp_path / f"{k}.npz") for k in "abc")
+    assert sorted(a.files) == sorted(b.files) == sorted(c.files) and len(a.files) == 2
+    assert all(a[k].tobytes() == b[k].tobytes() == c[k].tobytes() for k in a.files)
     exp = port_cfg(_jax_exp())
     vaes = []
-    for flags in (["--vae_ckpt", r["vae_ckpt"]], ["--vae_pt", os.path.join(r["port"], "vae.pt")]):
+    for flags in (["--vae_ckpt", r["vae_ckpt"]], ["--vae_pt", os.path.join(r["port"], "vae.pt")],
+                  ["--vae_ckpt", str(side / "ckpt")]):
         args = train_cli.build_parser().parse_args(["--preset", tiny_presets, *flags])
         vaes.append(train_cli._vae(args, exp, torch.device("cpu"), with_encoder=True).state_dict())
-    assert vaes[0].keys() == vaes[1].keys()
-    assert all(torch.equal(vaes[0][k], vaes[1][k]) for k in vaes[0])
+    for other in vaes[1:]:
+        assert vaes[0].keys() == other.keys()
+        assert all(torch.equal(vaes[0][k], other[k]) for k in vaes[0])
 
 
 # -- resuming a JAX run --------------------------------------------------------------

@@ -339,3 +339,102 @@ def test_train_steps_match_jax():
             assert np.abs(a - b).max() <= 2 * lr
             assert np.abs(a - b)[clear].max() <= 1e-3 * lr
     assert scales == [1.0, 1.0, 0.25]
+
+
+def _rendered_words(n_words: int = 8, per_word: int = 4, b: int = 4):
+    """Renders of the first ``n_words`` synthetic words at 16x48 (3x5 block
+    means of the 50x250 crops, so that a CPU step takes a tenth of a second)
+    and their PHOS / PHOC targets, in batches of ``b``."""
+    from worddiffusion_tpu_torch.data.phoc import phoc_labels
+    from worddiffusion_tpu_torch.data.phos import phos_labels
+    from worddiffusion_tpu_torch.data.synthetic import render_word, word_list
+
+    words = word_list(n_words)
+    phos, phoc = phos_labels(words, "eng"), phoc_labels(words, "eng")
+    order = np.random.default_rng(5).permutation(n_words * per_word)
+    x, tp, tc = [], [], []
+    for i in order:
+        w = words[i % n_words]
+        crop = render_word(w, 50, 250, seed=1000 + int(i))[:48, :240] / 127.5 - 1.0
+        x.append(crop.reshape(16, 3, 48, 5, 3).mean(axis=(1, 3)))
+        tp.append(phos[w])
+        tc.append(phoc[w])
+    return [tuple(np.asarray(a[s:s + b], np.float32) for a in (x, tp, tc))
+            for s in range(0, len(x), b)]
+
+
+def test_train_steps_match_jax_along_a_trajectory():
+    """200 steps of the CLI's AdamW (weight decay 5e-5, lr 3e-4 as the
+    PHOSC recipes) under reduce-on-plateau (patience 5 and cooldown 2
+    epochs of 10 steps, a scripted validation accuracy that rises, then
+    stalls: the rate is cut twice), dropout 0, on the VGG trunk in fp32 over
+    rendered words and their PHOS / PHOC targets. Run free, the two
+    trajectories part within tens of steps (fp32 sums in another order,
+    amplified by Adam where a gradient is small against its history), so at
+    each step the port starts from JAX's parameters and Adam moments there.
+    Each step's loss (1e-5 relative) and plateau scale are JAX's; its
+    gradients are within 1e-3 of the model's largest gradient (where a
+    forward value lies within fp32 noise of a ReLU's zero or of a max-pool
+    tie, the two sides send that element's gradient different ways: up to
+    3.6e-4 of the largest in a few of the 200 steps, too much for a bound
+    per leaf); and the parameters after it are optax's update of the port's
+    own gradients, within 1e-3 of the step's rate and two fp32 spacings."""
+    batches = _rendered_words()
+    steps, epoch, lr = 200, 10, 3e-4
+    accs = [min(0.1 * e, 0.6) for e in range(steps // epoch)]
+    jmodel = jphoscnet.PHOSCNet(hidden=32, trunk="vgg", dropout=0.0, dtype=jnp.float32)
+    # jitted: op by op, flax's init compiles each layer's draws (14 s)
+    params = _randomize(jax.device_get(jax.jit(jmodel.init)(jax.random.PRNGKey(0),
+                                                            batches[0][0])), 0)
+    tx = optax.chain(optax.adamw(lr, weight_decay=5e-5), optax.contrib.reduce_on_plateau(
+        factor=0.25, patience=5 * epoch, cooldown=2 * epoch, atol=1e-4))
+
+    @jax.jit
+    def step_fn(p, state, x, tp, tc, value):
+        loss, grads = jax.value_and_grad(lambda q: jphoscnet.phosc_loss(
+            jmodel.apply(q, x, deterministic=False), tp, tc))(p)
+        updates, state = tx.update(grads, state, p, value=value)
+        return optax.apply_updates(p, updates), state, loss, grads
+
+    @jax.jit
+    def update_fn(p, state, grads, value):
+        return optax.apply_updates(p, tx.update(grads, state, p, value=value)[0])
+
+    port = phoscnet.PHOSCNet(hidden=32, trunk="vgg", dropout=0.0, dtype=torch.float32)
+    named = dict(port.named_parameters())
+    optimizer = make_optimizer(named.values(), lr, weight_decay=5e-5)
+    plateau = ReduceOnPlateau(factor=0.25, patience=5 * epoch, cooldown=2 * epoch, atol=1e-4)
+    gen = torch.Generator().manual_seed(0)
+    state, value, order, scales = tx.init(params), 1e9, None, []
+    for i in range(steps):
+        if i % epoch == 0:
+            value = -accs[i // epoch - 1] if i else 1e9
+            order = np.random.default_rng(i).permutation(len(batches))
+        x, tp, tc = batches[order[i % len(batches)]]
+        adam = state[0][0]
+        _load(port, jax.device_get(params))
+        mu, nu = (state_dict_to_torch(jax_phoscnet_to_torch(jax.device_get(t)))
+                  for t in (adam.mu, adam.nu))
+        for k, p in named.items():
+            # copies: the optimizer writes its moments in place, and a
+            # tensor from device_get's array may share JAX's buffer
+            optimizer.state[p] = {"step": torch.tensor(float(adam.count)),
+                                  "exp_avg": mu[k].clone(), "exp_avg_sq": nu[k].clone()}
+        new, new_state, loss, grads = step_fn(params, state, x, tp, tc, jnp.float32(value))
+        scales.append(float(new_state[1].scale))
+        got = train_step(port, optimizer, torch.from_numpy(x), torch.from_numpy(tp),
+                         torch.from_numpy(tc), gen, plateau, lr, value)
+        assert abs(got.item() - float(loss)) <= 1e-5 * abs(float(loss)), i
+        assert float(plateau.scale) == scales[-1], i
+        port_grads = torch_phoscnet_to_jax({k: p.grad for k, p in named.items()})
+        want = jax.device_get(update_fn(params, state, port_grads, jnp.float32(value)))
+        after = torch_phoscnet_to_jax(port.state_dict())
+        g_all = jax.tree_util.tree_leaves(jax.device_get(grads))
+        g_max = max(np.abs(g).max() for g in g_all)
+        for a, b, g_port, g in zip(*(jax.tree_util.tree_leaves(t) for t in (
+                after, want, port_grads)), g_all):
+            assert np.abs(np.asarray(g_port) - g).max() <= 1e-3 * g_max, i
+            a, b = np.asarray(a), np.asarray(b)
+            assert (np.abs(a - b) <= 1e-3 * lr * scales[-1] + 2 * np.spacing(np.abs(b))).all(), i
+        params, state = new, new_state
+    assert sorted(set(scales)) == [0.0625, 0.25, 1.0]

@@ -208,11 +208,15 @@ def load_unet(exp, args, higan: bool = False):
     from ..models.convert import load_torch_checkpoint, reference_unet_to_port
     from ..models.convert import state_dict_to_torch
     from ..models.higan import HiGanDenoiserAdapter
-    from ..models.layers import init_weights_
+    from ..models.layers import init_weights_, skip_default_init
     from ..models.unet import UNet
     from ..train.checkpoint import read_unet
 
-    unet = HiGanDenoiserAdapter(exp.unet) if higan else UNet(exp.unet)
+    if higan:
+        unet = HiGanDenoiserAdapter(exp.unet)
+    else:
+        with skip_default_init():  # every parameter is loaded or initialised below
+            unet = UNet(exp.unet)
     if args.ckpt_dir:
         try:
             sd = read_unet(args.ckpt_dir, bool(args.use_ema), cfg=exp.unet, higan=higan)

@@ -88,6 +88,29 @@ def _save(vae, path: str) -> None:
     os.replace(path + ".tmp", path)
 
 
+def heldout_eval(vae, h: int, w: int, device: torch.device, save_dir: str) -> tuple:
+    """The held-out reconstruction of 8 word renders at unseen seeds: writes
+    ``recon_grid.png`` (original | reconstruction strips) into ``save_dir``.
+    -> (MSE in [-1, 1], PSNR in dB on the [0, 1] scale)."""
+    from ..data.synthetic import render_word, word_list
+    from ..utils.images import encode_png, normalize_to_unit
+
+    probe = np.stack([render_word(wd, h, w, seed=77_000_000 + i)
+                      for i, wd in enumerate(word_list(8))])
+    probe_np = normalize_to_unit(probe)
+    with torch.no_grad():
+        recon, _, _ = vae(torch.from_numpy(probe_np).to(device),
+                          generator=torch.Generator(device=device).manual_seed(1))
+    recon = recon.float().cpu().numpy()
+    eval_mse = float(np.mean((recon - probe_np) ** 2))
+    eval_psnr = -10.0 * float(np.log10(max(eval_mse / 4.0, 1e-10)))
+    strip = np.concatenate([np.concatenate([o, r], axis=1)
+                            for o, r in zip(probe_np, np.clip(recon, -1, 1))], axis=0)
+    with open(os.path.join(save_dir, "recon_grid.png"), "wb") as f:
+        f.write(encode_png(((strip + 1) * 127.5).astype(np.uint8)))
+    return eval_mse, eval_psnr
+
+
 def main(argv=None):
     """-> {"vae", "metrics", "epoch_seconds"} (each epoch's seconds a step,
     host batches included, the checkpoint write not); writes vae.pt,
@@ -98,7 +121,7 @@ def main(argv=None):
     from ..data.synthetic import render_word, stable_seed, synthetic_corpus, word_list
     from ..models.layers import init_weights_
     from ..models.vae import AutoencoderKL
-    from ..utils.images import encode_png, normalize_to_unit, resize_and_pad
+    from ..utils.images import normalize_to_unit, resize_and_pad
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
     args = build_parser().parse_args(argv)
@@ -156,20 +179,7 @@ def main(argv=None):
         if (epoch + 1) % args.save_every_epochs == 0 or epoch == args.epochs - 1:
             _save(vae, ckpt)
 
-    # artifact: original | reconstruction strip over held-out renders
-    probe = np.stack([render_word(wd, h, w, seed=77_000_000 + i)
-                      for i, wd in enumerate(word_list(8))])
-    probe_np = normalize_to_unit(probe)
-    with torch.no_grad():
-        recon, _, _ = vae(torch.from_numpy(probe_np).to(device),
-                          generator=torch.Generator(device=device).manual_seed(1))
-    recon = recon.float().cpu().numpy()
-    eval_mse = float(np.mean((recon - probe_np) ** 2))
-    eval_psnr = -10.0 * float(np.log10(max(eval_mse / 4.0, 1e-10)))
-    strip = np.concatenate([np.concatenate([o, r], axis=1)
-                            for o, r in zip(probe_np, np.clip(recon, -1, 1))], axis=0)
-    with open(os.path.join(args.save_dir, "recon_grid.png"), "wb") as f:
-        f.write(encode_png(((strip + 1) * 127.5).astype(np.uint8)))
+    eval_mse, eval_psnr = heldout_eval(vae, h, w, device, args.save_dir)
     metrics = {"train_mse_last": last_mse, "heldout_mse": eval_mse,
                "heldout_psnr_db": eval_psnr, "steps": gstep, "train_images": len(images)}
     with open(os.path.join(args.save_dir, "metrics.json"), "w") as f:

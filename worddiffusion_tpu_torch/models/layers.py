@@ -9,7 +9,9 @@ layout without a copy.
 
 from __future__ import annotations
 
+import contextlib
 import math
+from collections import OrderedDict
 
 import torch
 import torch.nn as nn
@@ -157,6 +159,53 @@ class Downsample(nn.Module):
 
 
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
+# The draws of the last few initialisations (the SD-shape VAE's: 0.34 GB on
+# the host), by seed and the shapes drawn: a process that builds the same
+# model again copies them instead of drawing them anew, bit for bit.
+_DRAWS: OrderedDict = OrderedDict()
+_DRAWS_KEPT = 6
+
+
+def _is_kernel(m: nn.Module) -> bool:
+    return isinstance(m, (nn.Linear, nn.modules.conv._ConvNd))
+
+
+def _draws(seed: int, sites: tuple) -> list:
+    """``init_weights_``'s random draws for ``sites``, ("kernel" | "embedding",
+    shape) in its order, from one generator seeded with ``seed``."""
+    key = (seed, torch.get_default_dtype(), sites)
+    if key in _DRAWS:
+        _DRAWS.move_to_end(key)
+        return _DRAWS[key]
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for kind, shape in sites:
+        if kind == "kernel":
+            std = math.sqrt(1.0 / math.prod(shape[1:])) / _TRUNC_STD  # fan-in
+            w = torch.empty(shape)  # drawn on the host, whatever the device
+            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
+        else:
+            w = torch.randn(shape, generator=g) * shape[1] ** -0.5  # std 1/sqrt(features)
+        out.append(w)
+    _DRAWS[key] = out
+    while len(_DRAWS) > _DRAWS_KEPT:
+        _DRAWS.popitem(last=False)
+    return out
+
+
+@contextlib.contextmanager
+def skip_default_init():
+    """Linear and conv layers built inside skip torch's default
+    initialisation (a host draw the size of each layer, from torch's global
+    generator). Only for a model whose every parameter is written at once
+    after, by ``init_weights_`` or a strict ``load_state_dict``: until then
+    those layers hold uninitialised memory."""
+    saved = nn.Linear.reset_parameters, nn.modules.conv._ConvNd.reset_parameters
+    nn.Linear.reset_parameters = nn.modules.conv._ConvNd.reset_parameters = lambda self: None
+    try:
+        yield
+    finally:
+        nn.Linear.reset_parameters, nn.modules.conv._ConvNd.reset_parameters = saved
 
 
 @torch.no_grad()
@@ -165,20 +214,19 @@ def init_weights_(module: nn.Module, seed: int = 0, zero_init: bool = True) -> n
     (zeros where a layer is marked ``zero_init``, unless ``zero_init`` is
     False here), zero biases, unit norms, and embeddings with std
     1/sqrt(features)."""
-    g = torch.Generator().manual_seed(seed)
-    for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.modules.conv._ConvNd)):
-            if zero_init and getattr(m, "zero_init", False):
-                m.weight.zero_()
-            else:
-                std = math.sqrt(1.0 / m.weight[0].numel()) / _TRUNC_STD  # fan-in
-                w = torch.empty(m.weight.shape)  # drawn on the host, whatever the device
-                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=g)
-                m.weight.copy_(w)
-            if m.bias is not None:
-                m.bias.zero_()
-        elif isinstance(m, nn.Embedding):
-            m.weight.copy_(torch.randn(m.weight.shape, generator=g) * m.embedding_dim ** -0.5)
+    mods = list(module.modules())
+    drawn = lambda m: ((_is_kernel(m) and not (zero_init and getattr(m, "zero_init", False)))
+                       or isinstance(m, nn.Embedding))
+    sites = tuple(("kernel" if _is_kernel(m) else "embedding", tuple(m.weight.shape))
+                  for m in mods if drawn(m))
+    draws = iter(_draws(seed, sites))
+    for m in mods:
+        if drawn(m):
+            m.weight.copy_(next(draws))
+        elif _is_kernel(m):
+            m.weight.zero_()
+        if _is_kernel(m) and m.bias is not None:
+            m.bias.zero_()
         elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.zero_()

@@ -27,7 +27,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..configs.config import VAEConfig
-from .layers import Conv2D, Dense, GroupNorm32, Upsample, gn_silu_conv, init_weights_
+from .layers import (Conv2D, Dense, GroupNorm32, Upsample, gn_silu_conv, init_weights_,
+                     skip_default_init)
 
 
 def _gn(c: int) -> GroupNorm32:
@@ -288,7 +289,8 @@ def load_diffusers_vae(sd: Mapping[str, torch.Tensor], cfg: VAEConfig = VAEConfi
     if not with_encoder:
         port = {k: v for k, v in port.items()
                 if not k.startswith(("encoder.", "quant_conv."))}
-    vae = AutoencoderKL(cfg, with_encoder=with_encoder)
+    with skip_default_init():  # every parameter is loaded below
+        vae = AutoencoderKL(cfg, with_encoder=with_encoder)
     vae.load_state_dict(port, strict=True)
     return vae
 
@@ -304,7 +306,8 @@ def make_vae(cfg: VAEConfig, stable_dif_path: str = "", vae_sd: Optional[dict] =
 
     if stable_dif_path:
         return load_diffusers_vae(load_file(stable_dif_path), cfg, with_encoder)
-    vae = AutoencoderKL(cfg, with_encoder=with_encoder)
+    with skip_default_init():  # every parameter is loaded or initialised below
+        vae = AutoencoderKL(cfg, with_encoder=with_encoder)
     if vae_sd is not None:
         sd = vae_sd
         has_encoder = any(k.startswith("encoder.") for k in sd)

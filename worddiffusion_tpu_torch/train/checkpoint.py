@@ -92,9 +92,9 @@ def side_weights(pt: str, ckpt_dir: str, flag: str, name: str,
     (``--vae_pt`` / ``--ocr_pt``), or what ``ckpt_dir`` (``--vae_ckpt`` /
     ``--ocr_ckpt``) holds: the JAX CLI's orbax directory (``cli.train_vae`` /
     ``cli.train_ocr``'s ``<save_dir>/ckpt``), whose newest step ``from_jax``
-    maps onto the port's keys, or the port trainer's ``--save_dir`` with
-    ``name`` (``vae.pt`` / ``ocr.pt``). Both flags given, or a directory
-    with neither layout, exit naming ``flag``."""
+    maps onto the port's keys, or the port trainer's ``--save_dir`` (or its
+    ``ckpt/``: ``side_file``) with ``name`` (``vae.pt`` / ``ocr.pt``). Both
+    flags given, or a directory with neither layout, exit naming ``flag``."""
     if ckpt_dir and pt:
         raise SystemExit(f"{flag} and --{name.replace('.', '_')} both name the weights: "
                          f"pass one")
@@ -106,12 +106,26 @@ def side_weights(pt: str, ckpt_dir: str, flag: str, name: str,
                  os.path.basename(step_dir), time.perf_counter() - t0)
         return sd
     if ckpt_dir:
-        pt = os.path.join(ckpt_dir, name)
-        if not os.path.isfile(pt):
+        pt = side_file(ckpt_dir, name)
+        if pt is None:
             raise SystemExit(f"{flag} " + _neither(ckpt_dir, f"{name} in it (the file the "
                                                             f"port's trainer writes into its "
                                                             f"--save_dir)"))
     return torch.load(pt, map_location="cpu", weights_only=True) if pt else None
+
+
+def side_file(ckpt_dir: str, name: str) -> Optional[str]:
+    """The port trainer's ``name`` that ``ckpt_dir`` names, or None: the file
+    in ``ckpt_dir``, or where ``ckpt_dir`` is ``<save_dir>/ckpt`` (the
+    directory where the JAX trainers keep their weights, the path a JAX
+    command line gives ``--vae_ckpt`` / ``--ocr_ckpt``), the file that the
+    port's trainer writes into that ``<save_dir>``."""
+    inner = os.path.join(ckpt_dir, name)
+    if os.path.isfile(inner):
+        return inner
+    save_dir, last = os.path.split(os.path.normpath(ckpt_dir))
+    beside = os.path.join(save_dir, name)
+    return beside if last == "ckpt" and os.path.isfile(beside) else None
 
 
 def unet_from_jax(tree, cfg, higan: bool = False) -> dict:

@@ -37,7 +37,7 @@ import torch.nn as nn
 from ..configs.config import Experiment
 from ..data.loader import epoch_batches
 from ..diffusion.schedule import NoiseSchedule
-from ..models.layers import init_weights_
+from ..models.layers import init_weights_, skip_default_init
 from ..models.unet import UNet
 from ..ops import attention
 from ..parallel.mesh import Mesh, make_mesh, shard_rows
@@ -107,7 +107,10 @@ class Trainer:
             exp.diffusion.num_steps, exp.diffusion.beta_start, exp.diffusion.beta_end
         )
         self.mesh = make_mesh(exp.mesh) if mesh is None else mesh
-        self.model = (UNet(exp.unet, self.mesh) if model is None else model).to(self.device)
+        if model is None:
+            with skip_default_init():  # the seeded initialisation at once, as init_state's
+                model = init_weights_(UNet(exp.unet, self.mesh), exp.train.seed)
+        self.model = model.to(self.device)
         self.rank = self.mesh.rank
         if isinstance(self.model, UNet):
             check_attention_backward(exp, exp.data.batch_size // self.mesh.data, self.mesh.model)
@@ -132,7 +135,8 @@ class Trainer:
         from it, as every JAX run() inits its params); a sharded UNet takes
         its shard of the one-process initialisation."""
         if self.mesh.model > 1 and isinstance(self.model, UNet):
-            full = init_weights_(UNet(self.exp.unet), self.exp.train.seed)
+            with skip_default_init():
+                full = init_weights_(UNet(self.exp.unet), self.exp.train.seed)
             self.model.load_state_dict(shard_state_dict(full.state_dict(), self.mesh))
         else:
             init_weights_(self.model, self.exp.train.seed)
