@@ -306,6 +306,24 @@ Phases, each of which must pass (any failure exits non-zero):
    dump; the markers of ``subsets`` and the five ``eval_*`` stages deleted)
    and reruns those six stages alone, which must fill every subset and give
    each JSON a finite ``fid_phosc``.
+33. (after phase 22) the host C pass and the JAX repo's two program
+   descriptions, as the port's own: (a) ``data.native``'s library built
+   here (``g++ -O3 -march=native -fopenmp``, under ``build/wd_torch_host/``)
+   and loaded after torch, one OpenMP runtime mapped (``/proc/self/maps``);
+   ``batch_normalize`` and ``vertical_lines`` bitwise their numpy bodies,
+   ``batch_denormalize`` bitwise ``floor(clip(v) * 255 + 0.5)`` in float32
+   (128 of the 255 ties a level above the numpy body's half to even),
+   ``batch_resize_pad_normalize`` within the JAX package's bounds of the
+   PIL-exact numpy path (max < 1.0, mean < 0.03); ms per batch of 128
+   64x256x3 crops, library against numpy, for the four calls, beside the
+   CPUs this process may run on and the OpenMP thread count; (b)
+   ``scripts.profile_denoiser`` on 10 chained ``iam`` calls at B=128: ms a
+   call, the device time by bucket (summing to the device total within
+   1%), 4 / 8 / 9 / 12 B.1 / B.4 / B.5 / B.6 launches a call; (c)
+   ``scripts.roofline_dump``: the call's and the train step's ``model`` and
+   ``as_run`` counts finite, ``as_run``'s kernel-site bytes equal to the
+   sum of each logged site's bound bytes (its operands and output from
+   their shapes), (b)'s ms a call as a share of each bound.
 
 Every training phase counts 9 B.5 and 12 B.6 launches and Function
 backward calls per step (13 B.5 with the CTC aux head), and 9 * 50 + 4 and
@@ -2904,6 +2922,157 @@ def phase22_side(smi: str, work: str, cli, gt: str, sampler, words, real_dir: st
     return out
 
 
+HOST_CROPS = TRAIN_B  # phase 33(a)'s batch of 64x256x3 crops
+
+
+def batch_ms(fn, reps: int = 3) -> float:
+    """Host ms of ``fn()``, the best of ``reps``."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best * 1e3
+
+
+def phase33a_host_pass(smi: str) -> dict:
+    """(a) The host C pass built on this machine: where it lies, one OpenMP
+    runtime, each entry point against its numpy body, ms per batch."""
+    import ctypes
+
+    import numpy as np
+
+    from worddiffusion_tpu_torch.data import native
+
+    lib = native.build()
+    assert "wd_torch_host" in lib.parts and lib.parent.parent == native.BUILD_ROOT, lib
+    native.load()
+    runtimes = sorted({line.split()[-1] for line in open("/proc/self/maps")
+                       if "gomp" in line or "libomp" in line or "iomp" in line})
+    threads = ctypes.CDLL("libgomp.so.1").omp_get_max_threads()
+    cpus = len(os.sched_getaffinity(0))
+    assert len(runtimes) == 1, f"more than one OpenMP runtime mapped: {runtimes}"
+    rng = np.random.default_rng(33)
+    u8 = rng.integers(0, 256, (HOST_CROPS, PIX_H, PIX_W, 3), np.uint8)
+    crops = list(u8)
+    # the resize's bounds (C's bilinear against PIL's filter) are the JAX
+    # package's, on its own test crops (tests/test_native.py: seed 1, 48 rows,
+    # widths 100, 260, 80); 16 more ragged crops are printed beside them
+    jrng = np.random.default_rng(1)
+    ragged = [jrng.integers(0, 256, (48, w, 3), np.uint8) for w in (100, 260, 80)]
+    ragged += [rng.integers(0, 256, (48, int(w), 3), np.uint8) for w in rng.integers(60, 300, 16)]
+    f = np.clip(rng.normal(0.9, 0.2, u8.shape), -0.1, 1.1).astype(np.float32)
+    ties = ((np.arange(255) + 0.5) / 255).astype(np.float32)
+    f.reshape(-1)[:255] = ties
+    xs = [rng.integers(-20, PIX_W + 20, 15) for _ in range(HOST_CROPS)]
+    calls = {
+        "batch_resize_pad_normalize": lambda: native.batch_resize_pad_normalize(crops, PIX_H,
+                                                                                PIX_W),
+        "batch_normalize": lambda: native.batch_normalize(u8),
+        "batch_denormalize": lambda: native.batch_denormalize(f),
+        "vertical_lines": lambda: [native.vertical_lines(u8[i].copy(), xs[i], 255)
+                                   for i in range(HOST_CROPS)],
+    }
+    got = {k: fn() for k, fn in calls.items()}
+    host_ms = {k: dict(library=batch_ms(fn)) for k, fn in calls.items()}
+    with mock.patch.dict(os.environ, {"WD_NATIVE": "0"}):
+        assert not native.preferred()
+        want = {k: fn() for k, fn in calls.items()}
+        for k, fn in calls.items():
+            host_ms[k]["numpy"] = batch_ms(fn, reps=1 if k.startswith("batch_resize") else 3)
+        numpy_ties = native.batch_denormalize(ties)
+        ragged_numpy = native.batch_resize_pad_normalize(ragged, PIX_H, PIX_W)
+    half_up = np.floor(np.clip(f, 0, 1) * np.float32(255) + np.float32(0.5)).astype(np.uint8)
+    ragged_err = np.abs(native.batch_resize_pad_normalize(ragged, PIX_H, PIX_W) - ragged_numpy)
+    resize_err, more_err = ragged_err[:3], ragged_err[3:]
+    assert np.array_equal(got["batch_resize_pad_normalize"], want["batch_resize_pad_normalize"])
+    tie_diff = int((native.batch_denormalize(ties) != numpy_ties).sum())
+    lines_equal = all(np.array_equal(a, b)
+                      for a, b in zip(got["vertical_lines"], want["vertical_lines"]))
+    log(f"host C pass: {lib} (one OpenMP runtime: {runtimes}; {threads} OpenMP threads, "
+        f"{cpus} CPUs in this process's affinity); normalize bitwise numpy "
+        f"{np.array_equal(got['batch_normalize'], want['batch_normalize'])}, vertical_lines "
+        f"bitwise numpy {lines_equal}, "
+        f"denormalize bitwise half up {np.array_equal(got['batch_denormalize'], half_up)} "
+        f"({tie_diff} of 255 ties above the numpy body), resize bitwise numpy at 64x256 "
+        f"(no resampling), against PIL-exact on the JAX test's crops max {resize_err.max():.4f} "
+        f"mean {resize_err.mean():.5f} (16 more ragged crops: max {more_err.max():.4f} mean "
+        f"{more_err.mean():.5f}); ms per batch of {HOST_CROPS} "
+        f"{PIX_H}x{PIX_W}x3 (library / numpy) "
+        + ", ".join(f"{k} {v['library']:.3f} / {v['numpy']:.3f}" for k, v in host_ms.items())
+        + f" [{smi}]")
+    assert np.array_equal(got["batch_normalize"], want["batch_normalize"])
+    assert lines_equal
+    assert np.array_equal(got["batch_denormalize"], half_up) and tie_diff == 128, tie_diff
+    assert resize_err.max() < 1.0 and resize_err.mean() < 0.03, resize_err.max()
+    return dict(lib=str(lib), runtimes=runtimes, threads=threads, cpus=cpus, host_ms=host_ms)
+
+
+def site_bound_bytes(call: dict) -> int:
+    """A logged kernel site's bytes by the bound column's rule: each operand
+    read once and each output written once (a forward site writes one x-shaped
+    output; B.3 writes dx and the six parameter gradients in fp32)."""
+    import numpy as np
+
+    size = {"float32": 4, "bfloat16": 2}
+    shapes, dtypes = call["shapes"], call["dtypes"]
+    n = sum(int(np.prod(s)) * size[d] for s, d in zip(shapes, dtypes))
+    if call["site"] == "ln_geglu_ffn_bwd":
+        return n + int(np.prod(shapes[0])) * size[dtypes[0]] + 4 * (
+            sum(int(np.prod(s)) for s in shapes[2:]) + shapes[0][1])
+    return n + int(np.prod(shapes[0])) * size[dtypes[0]]
+
+
+def phase33_host_and_tools(smi: str) -> dict:
+    """Phase 33: the host C pass, ``profile_denoiser`` on 10 calls and
+    ``roofline_dump``'s counts."""
+    import math
+
+    from worddiffusion_tpu_torch.scripts import profile_denoiser as pdn
+    from worddiffusion_tpu_torch.scripts import roofline_dump as rd
+
+    out = phase33a_host_pass(smi)
+    # (b) the denoiser's time by bucket
+    model, inputs = pdn.flagship("cuda")
+    prof = pdn.profile(model, inputs, calls=10)
+    del model, inputs
+    total = prof["device_leaf_total_ms_per_call"]
+    buckets = prof["buckets_ms_per_call"]
+    launches = prof["launches_per_call"]
+    top = prof["top_ops_ms_per_call"][:5]
+    log(f"profile_denoiser (10 chained iam calls, B={TRAIN_B}): {prof['measured_ms_per_call']:.4f} "
+        f"ms a call, device {total:.4f} ms ({prof['kernels_per_call']:.0f} kernels a call); "
+        f"buckets (ms a call) { {k: round(v, 4) for k, v in buckets.items()} }; launches a call "
+        f"{launches}; top {[(t['layer'][:40], t['op'][:30], round(t['ms'], 4)) for t in top]} "
+        f"[{smi}]")
+    assert abs(sum(buckets.values()) - total) <= 0.01 * total, (buckets, total)
+    assert launches == {"ln_geglu_ffn": 4, "attention": 8, "groupnorm": UNET_NORMS[0],
+                        "gn_silu_conv3x3": UNET_NORMS[1]}, launches
+    # (c) the call's and the train step's work and bounds
+    call, train = rd.call_counts(), rd.train_counts()
+    nums = [v for c in (call["model"], call["as_run"], train["model"], train["as_run"])
+            for v in (c["flops"], c["bytes_accessed"])]
+    assert all(math.isfinite(v) and v > 0 for v in nums), nums
+    for run in (call["as_run"], train["as_run"]):
+        assert run["kernel_site_bytes"] == sum(site_bound_bytes(c) for c in run["calls"])
+    ms = prof["measured_ms_per_call"]
+    shares = {k: {"memory": call[k]["memory_bound_time_per_call_ms"] / ms,
+                  "tensor": call[k]["tensor_bound_time_per_call_ms"] / ms} for k in call}
+    attainable = call["as_run"]["attainable"]["attainable_time_per_call_ms"]
+    shares["as_run"]["attainable"] = attainable / ms
+    log(f"roofline_dump (B={TRAIN_B}): call model {call['model']['flops'] / 1e9:.2f} GFLOP "
+        f"{call['model']['gb_per_call']:.3f} GB, as_run {call['as_run']['gb_per_call']:.3f} GB "
+        f"(kernel sites {call['as_run']['kernel_site_bytes'] / 1e9:.3f} GB), attainable "
+        f"{attainable:.4f} ms; measured "
+        f"{ms:.4f} ms as a share of each bound {shares}; train step model "
+        f"{train['model']['flops'] / 1e12:.3f} TFLOP {train['model']['bytes_accessed'] / 1e9:.2f} "
+        f"GB ({train['model']['binding_resource']}), as_run {train['as_run']['flops'] / 1e12:.3f} "
+        f"TFLOP {train['as_run']['bytes_accessed'] / 1e9:.2f} GB "
+        f"({train['as_run']['binding_resource']}) [{smi}]")
+    reset_counts()
+    return dict(out, profile=prof, shares=shares)
+
+
 def png_size(path: str) -> tuple[int, int]:
     with open(path, "rb") as f:
         head = f.read(24)
@@ -4925,6 +5094,9 @@ def main(argv=None) -> int:
     side = phase22_side(smi, work, cli, gt, sampler, words, images[0])
 
     stamp("22")
+    # -- 33. the host C pass, the denoiser's time by bucket, its roofline -------------------------
+    host_tools = phase33_host_and_tools(smi)
+    stamp("33")
     # -- 23, 24, 26, 27. pixel space, HiGAN+, attention maps, host data ----------------------
     new = new_phases(smi, work, cli, gt, words, corpus)
     px = new["pixel"]
@@ -5058,6 +5230,11 @@ def main(argv=None) -> int:
         f"{switches['remat_pixel']['on']['s_per_step']:.4f} s/step, peak "
         f"{switches['remat_pixel']['off']['peak_bytes'] / 2 ** 30:.3f} / "
         f"{switches['remat_pixel']['on']['peak_bytes'] / 2 ** 30:.3f} GiB"
+        + f"; host C pass ms per batch of {TRAIN_B} (library / numpy) "
+        + ", ".join(f"{k} {v['library']:.3f} / {v['numpy']:.3f}"
+                    for k, v in host_tools["host_ms"].items())
+        + f"; iam B={TRAIN_B} call {host_tools['profile']['measured_ms_per_call']:.3f} ms, device "
+        f"{host_tools['profile']['device_leaf_total_ms_per_call']:.3f} ms"
         + f"; iam chain --smoke {chain['seconds']:.1f} s, resumed run {chain['again_s']:.2f} s, "
         + f"the split's six stages {chain['split_s']:.1f} s"
         + f"; whole run {time.perf_counter() - T_START:.1f} s")

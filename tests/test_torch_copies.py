@@ -262,11 +262,12 @@ def test_fid_copies_equal():
 
 def test_native_numpy_bodies_equal(monkeypatch):
     """``data/native.py``'s numpy bodies against the JAX module's fallbacks
-    (its ctypes library switched off), value for value."""
+    (both libraries switched off by ``WD_NATIVE=0``), value for value."""
     from worddiffusion_tpu.data import native as jnative
     from worddiffusion_tpu_torch.data import native
 
-    monkeypatch.setattr(jnative, "preferred", lambda: False)
+    monkeypatch.setenv("WD_NATIVE", "0")
+    assert not jnative.preferred() and not native.preferred()
     rng = np.random.default_rng(0)
     imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8) for h, w in ((30, 90), (64, 300))]
     assert np.array_equal(native.batch_resize_pad_normalize(imgs, 64, 256),
@@ -277,6 +278,20 @@ def test_native_numpy_bodies_equal(monkeypatch):
     xs = np.array([-3, 0, 4, 89, 200])
     assert np.array_equal(native.vertical_lines(imgs[0].copy(), xs, 7),
                           jnative.vertical_lines(imgs[0].copy(), xs, 7))
+
+
+def test_host_pass_source_is_a_copy():
+    """The port's host C pass is the JAX repo's source byte for byte after a
+    first line that names it."""
+    from pathlib import Path
+
+    from worddiffusion_tpu_torch.data import native
+
+    repo = Path(__file__).resolve().parent.parent
+    ours = native.SOURCE.read_bytes()
+    first, rest = ours.split(b"\n", 1)
+    assert b"native/src/wd_image.cpp" in first
+    assert rest == (repo / "native" / "src" / "wd_image.cpp").read_bytes()
 
 
 def test_style_retrieval_accuracy_equal():

@@ -159,6 +159,9 @@ state = cli.main(["--preset", "tiny", "--gt_train", gt, "--iam_path", crops, "--
                   "--epochs", "1", "--preview_ddim", "2", "--save_path",
                   os.path.join(out, "run_img"), "--device", "cpu"])
 assert state.step == 2, state.step
+# the crops went through the host C pass: the port's build, not the JAX repo's
+mapped = {line.split()[-1] for line in open("/proc/self/maps") if "libwdimage" in line}
+assert mapped and all("wd_torch_host" in m for m in mapped), mapped
 print("LOADED", sorted(m for m in sys.modules if m in ("jax", "flax", "optax", "orbax",
                                                       "tensorstore", "zstandard", "PIL",
                                                       "safetensors", "cv2")
@@ -292,7 +295,8 @@ def test_port_runs_without_jax():
 def test_train_cli_runs_without_jax():
     """The training slice (train/, data/, cli/train, diffusion/forward), the
     latent-cache CLI and training from PNGs import and run with no
-    jax, flax, optax, PIL, safetensors or JAX-package module."""
+    jax, flax, optax, PIL, safetensors or JAX-package module; the crops'
+    host C pass is the port's own build."""
     _run_jax_free(TRAIN_SCRIPT)
 
 
@@ -341,6 +345,22 @@ def test_no_source_imports_the_jax_package():
     # the scan sees imports: the port's own relative imports resolve into the port
     assert "worddiffusion_tpu_torch.configs.config" in _imported_modules(
         REPO / "worddiffusion_tpu_torch" / "models" / "unet.py")
+
+
+def test_no_source_names_the_jax_native_build():
+    """No port module and not ``chip_smoke.py`` names the JAX repo's
+    ``native/`` directory or its ``libwdimage.so``: the port builds and
+    loads its own copy of the host pass (``data/native.py``)."""
+    import re
+
+    files = sorted((REPO / "worddiffusion_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    names_it = re.compile(r"""(^|[^\w])native/|["']native["']""", re.M)
+    offenders = [str(f.relative_to(REPO)) for f in files if names_it.search(f.read_text())]
+    assert not offenders, offenders
+    # the scan sees such a name where one is written
+    assert names_it.search('os.path.join(root, "native")')
+    assert names_it.search("the JAX build (native/libwdimage.so)")
+    assert not names_it.search("data/native.py, build/wd_torch_host/<hash>/libwdimage.so")
 
 
 def test_cli_refuses_cpu_fallback(monkeypatch, tmp_path):

@@ -4,7 +4,8 @@ grids and a stdlib PNG writer.
 ``resize_and_pad``, ``normalize_to_unit``, ``crop_whitespace``,
 ``regen_filename``, ``save_single_images`` and ``save_image_grid`` are
 copied from ``worddiffusion_tpu/utils/images.py``, which uses PIL and
-OpenCV (and a native library for the normalisation): here the resize is
+OpenCV (and a native library for the normalisation, here
+``data.native``'s copy of it): here the resize is
 PIL's ``BILINEAR`` resampling and the whitespace crop OpenCV's
 grey conversion, Otsu threshold and bounding box, written out in numpy,
 and the PNG encoder uses only ``zlib`` and ``struct``. (Reading PNGs:
@@ -89,7 +90,12 @@ def resize_and_pad(img: np.ndarray, height: int = 64, width: int = 256,
 
 def normalize_to_unit(img: np.ndarray) -> np.ndarray:
     """uint8 -> float32 in [-1, 1] (ToTensor + Normalize(0.5, 0.5),
-    ``trainModifyCondition.py:933-935``)."""
+    ``trainModifyCondition.py:933-935``). uint8 input takes the host C pass
+    (``data.native.batch_normalize``), as in the JAX package."""
+    if img.dtype == np.uint8:
+        from ..data import native
+
+        return native.batch_normalize(img)
     return (img.astype(np.float32) / 255.0 - 0.5) / 0.5
 
 
@@ -119,9 +125,15 @@ def encode_png(img: np.ndarray) -> bytes:
 
 def denormalize_to_uint8(img: np.ndarray) -> np.ndarray:
     """float [0, 1] -> uint8 rounded to nearest; uint8 passes through
-    unchanged."""
+    unchanged. float32 takes the host C pass
+    (``data.native.batch_denormalize``: half rounds up, as the JAX package's
+    PNGs do); other floats round half to even."""
     if img.dtype == np.uint8:
         return img
+    if img.dtype == np.float32:
+        from ..data import native
+
+        return native.batch_denormalize(img)
     return (np.clip(img, 0.0, 1.0) * 255.0).round().astype(np.uint8)
 
 
