@@ -343,6 +343,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -514,6 +515,47 @@ def bound(n_bytes: float, flops: float) -> tuple[float, str]:
     return (mem, "bytes") if mem >= ops else (ops, "operations")
 
 
+# The SFU's exp2 rate on Hopper: 16 a clock an SM, at the card's maximum SM
+# clock as nvidia-smi reads it. B.4's third floor: one exponential a score.
+SFU_EXP_PER_CLOCK = 16
+
+
+@functools.cache
+def exp_per_s() -> float:
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    return SFU_EXP_PER_CLOCK * torch.cuda.get_device_properties(0).multi_processor_count * mhz * 1e6
+
+
+def attn_floors(q, k, v, out) -> dict:
+    """B.4's three floors in ms (bytes: q, k, v read and out written once;
+    tensor: the two products in bf16; exp: one exponential a score on the
+    SFU) and the largest of them."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    f = dict(bytes_ms=nbytes(q, k, v, out) / HBM_BYTES_PER_S * 1e3,
+             tensor_ms=4 * b * h * nq * nk * d / BF16_FLOP_PER_S * 1e3,
+             exp_ms=b * h * nq * nk / exp_per_s() * 1e3)
+    f["largest_ms"] = max(f.values())
+    return f
+
+
+def attn_plan_text(b: int, h: int, nq: int, nk: int) -> str:
+    from worddiffusion_tpu_torch.ops import attention
+
+    p = attention.plan(b * h, nq, nk, D_HEAD)
+    return (f"{p['rows']}-query tile, {p['keys']}-key chunks, {p['ctas']} CTAs, {p['q_slots']} q "
+            f"slots, {p['kv_stages']} k/v stages")
+
+
+def floors_text(f: dict, ms: float) -> str:
+    return (f"floors bytes {f['bytes_ms']:.4f} tensor {f['tensor_ms']:.4f} exp {f['exp_ms']:.4f} ms, "
+            f"kernel at {f['largest_ms'] / ms:.1%} of the largest")
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -646,19 +688,20 @@ def phase8_attention(smi: str) -> dict:
         # the yardstick: one PyTorch call of the same function (the port never calls it)
         library_ms = launch_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
         bound_ms, bound_by = bound(nbytes(q, k, v, got), 4 * b * h * nq * nk * D_HEAD)
-        tile = attention._lib().wd_attention_tile_rows(b * h, nq)
-        log(f"attention B={b} H={h} Nq={nq} Nk={nk} D={D_HEAD} ({tile}-query tile): "
+        floors = attn_floors(q, k, v, got)
+        log(f"attention B={b} H={h} Nq={nq} Nk={nk} D={D_HEAD} ({attn_plan_text(b, h, nq, nk)}): "
             f"max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {ATTN_REL_TOL}); bitwise "
             f"repeatable {torch.equal(got, again)}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
             f"scaled_dot_product_attention {library_ms:.4f} ms bound {bound_ms:.4f} ms "
-            f"({bound_by}), kernel at {bound_ms / ms:.1%} of the bound [{smi}]")
+            f"({bound_by}), kernel at {bound_ms / ms:.1%} of the bound; {floors_text(floors, ms)} "
+            f"[{smi}]")
         at = (b, h, nq, nk)
         assert got.shape == want.shape and got.dtype == torch.bfloat16
         assert bool(torch.isfinite(got.float()).all()), f"non-finite attention at {at}"
         assert torch.equal(got, again), f"attention differs between two runs at {at}"
         assert rel <= ATTN_REL_TOL, f"attention kernel disagrees at {at}: rel {rel}"
         rows.append(dict(b=b, h=h, nq=nq, nk=nk, err=err, ms=ms, plain_ms=plain_ms,
-                         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+                         library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, **floors))
         fast_rows.append(fast_attention_row(smi, "attention", q, k, v, rows[-1], got))
 
     # The Function (kernel forward, plain-recompute backward) against plain
@@ -3363,17 +3406,20 @@ def pixel_kernel_rows(smi: str) -> dict:
         library_ms = launch_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale),
                                calls=3 if chunked else 10)
         bound_ms, bound_by = bound(nbytes(q, k, v, got), 4 * b * HEADS * nq * nk * D_HEAD)
+        floors = attn_floors(q, k, v, got)
         log(f"pixel attention B={b} H={HEADS} Nq={nq} Nk={nk} D={D_HEAD} "
-            f"({attention._lib().wd_attention_tile_rows(b * HEADS, nq)}-query tile, "
-            f"{b * HEADS * -(-nq // 128)} CTAs; plain {'in query chunks' if chunked else 'whole'}): "
+            f"({attn_plan_text(b, HEADS, nq, nk)}; plain "
+            f"{'in query chunks' if chunked else 'whole'}): "
             f"max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {ATTN_REL_TOL}); bitwise "
             f"repeatable {torch.equal(got, again)}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
             f"scaled_dot_product_attention {library_ms:.4f} ms bound {bound_ms:.4f} ms "
-            f"({bound_by}), kernel at {bound_ms / ms:.1%} of the bound [{smi}]")
+            f"({bound_by}), kernel at {bound_ms / ms:.1%} of the bound; {floors_text(floors, ms)} "
+            f"[{smi}]")
         assert bool(torch.isfinite(got.float()).all()) and torch.equal(got, again), (b, nq, nk)
         assert rel <= ATTN_REL_TOL, f"attention kernel disagrees at {b, nq, nk}: rel {rel}"
         attn_rows.append(dict(b=b, nq=nq, nk=nk, err=err, ms=ms, plain_ms=plain_ms,
-                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
+                              **floors))
         if not chunked:  # the self-attention's plain version alone takes 364 ms
             fast_rows.append(fast_attention_row(smi, "pixel attention", q, k, v, attn_rows[-1],
                                                 got))

@@ -427,6 +427,115 @@ def test_attention_kernel_takes_long_contexts(cuda, nq, nk):
     assert err <= 1e-2 * want.float().abs().max().item(), err
 
 
+def _qkvh(b, h, nq, nk, d, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(b, h, n, d, generator=g).bfloat16().to(device) for n in (nq, nk, nk))
+
+
+def _check_attention(q, k, v, fast=False):
+    """The kernel against ``attention_reference`` (in its mode) within
+    ATTN_REL_TOL of max |plain|, bitwise repeatable, both launches counted."""
+    from worddiffusion_tpu_torch.ops import attention
+
+    scale = q.shape[-1] ** -0.5
+    before = attention.launches
+    got = attention.fused_attention(q, k, v, scale, fast)
+    again = attention.fused_attention(q, k, v, scale, fast)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 2
+    want = attention.attention_reference(q, k, v, scale, fast).float()
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    assert bool(torch.isfinite(got.float()).all()) and torch.equal(got, again)
+    err = (got.float() - want).abs().max().item()
+    assert err <= chip_smoke.ATTN_REL_TOL * want.abs().max().item(), err
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("d", [16, 64, 80, 128])
+def test_attention_kernel_takes_every_head_width(cuda, d, fast):
+    """Every D the kernel takes loads as 16-column panels with the 32-byte
+    swizzle (D = 64 and 128 fill whole 128-byte rows, 80 does not), in both
+    modes and every instance family: a long ragged context over enough
+    pairs for two consumer warpgroups (128-key chunks), the same over few
+    pairs (one warpgroup, 64-key chunks), and a short context (one 48-key
+    chunk)."""
+    from worddiffusion_tpu_torch.ops import attention
+
+    for i, (b, nq, nk, rows, keys) in enumerate(((36, 200, 300, 128, 128), (4, 200, 300, 64, 64),
+                                                 (2, 64, 42, 64, 48))):
+        p = attention.plan(b * 4, nq, nk, d)
+        assert (p["rows"], p["keys"]) == (rows, keys), p
+        _check_attention(*_qkvh(b, 4, nq, nk, d, cuda, seed=d + i), fast)
+
+
+@pytest.mark.parametrize("nk", [1, 42, 48, 65, 811])
+@pytest.mark.parametrize("nq", [1, 40, 64, 65, 256])
+def test_attention_kernel_over_query_and_key_lengths(cuda, nq, nk):
+    """Nk on each side of the chunk widths (1 and 42 round up to 16 and 48,
+    48 fills its chunk, 65 spills one key into a second 64-key chunk, 811 is
+    13 chunks, the last ragged) against Nq on each side of the 64- and
+    128-row tiles; rows past Nq are not stored, keys past Nk score -inf."""
+    _check_attention(*_qkvh(2, 4, nq, nk, 80, cuda, seed=nq * 1000 + nk))
+
+
+def test_attention_kernel_streams_a_long_query_over_few_keys(cuda):
+    """The pixel cross-attention's form: 16384 queries over 42 keys, many
+    items a persistent CTA, the next q tiles loading while one computes."""
+    _check_attention(*_qkvh(2, 4, 16384, 42, 80, cuda, seed=7))
+
+
+@pytest.mark.parametrize("h", [1, 2])
+def test_attention_kernel_at_tensor_parallel_head_counts(cuda, h):
+    """A model rank's local heads under tensor parallelism: training at B=128
+    and the preview at B=3 (fewer items than SMs: one warpgroup a CTA)."""
+    _check_attention(*_qkvh(128, h, 256, 42, 80, cuda, seed=h))
+    _check_attention(*_qkvh(3, h, 64, 42, 80, cuda, seed=h + 10))
+    _check_attention(*_qkvh(3, h, 256, 42, 80, cuda, seed=h + 20), fast=True)
+
+
+@pytest.mark.parametrize("nq,nk", [(256, 42), (65, 811)])
+def test_attention_lse_is_the_logsumexp_of_the_scores(cuda, nq, nk):
+    """B.4's lse (the maps kernel's input): each query row's ln sum exp(s *
+    scale) against ``torch.logsumexp`` of the plain fp32 scores, within 1e-4
+    of max |lse| (the SFU's exp2 and log2, fp32 sums in another order);
+    bitwise repeatable; the output as ``fused_attention`` gives it."""
+    from worddiffusion_tpu_torch.ops import attention
+
+    q, k, v = _qkvh(4, 4, nq, nk, 80, cuda, seed=nq + nk)
+    scale = 80 ** -0.5
+    before = attention.launches
+    (out, lse), (out2, lse2) = (attention.attention_lse(q, k, v, scale) for _ in range(2))
+    torch.cuda.synchronize()
+    assert attention.launches == before + 2
+    want = torch.logsumexp(torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale, dim=-1)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    assert torch.equal(lse, lse2) and torch.equal(out, out2)
+    assert (lse - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+    assert torch.equal(out, attention.fused_attention(q, k, v, scale))
+
+
+def test_attention_plan_follows_its_rule(cuda):
+    """Two consumer warpgroups (128 query rows) where Nq > 64 and the
+    128-row items fill the card, else one (64 rows); keys a chunk: Nk
+    rounded up to 16 up to 48, else 64, and 128 with two warpgroups where
+    Nk > 256; at most one or two CTAs an SM, never more than the items;
+    setmaxnreg only with two warpgroups."""
+    from worddiffusion_tpu_torch.ops import attention
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    p = attention.plan(128 * 4, 256, 811)
+    assert (p["rows"], p["keys"], p["ctas"]) == (128, 128, sms)
+    assert attention.plan(128 * 4, 256, 256)["keys"] == 64
+    assert p["producer_regs"] < p["consumer_regs"]
+    p = attention.plan(16 * 4, 64, 42)
+    assert (p["rows"], p["keys"], p["ctas"]) == (64, 48, 64)
+    assert p["producer_regs"] == p["consumer_regs"] == 0
+    assert attention.plan(3 * 2, 256, 42)["rows"] == 64  # 12 items: fewer than SMs
+    assert attention.plan(2, 1, 1)["keys"] == 16
+    assert attention.plan(16 * 4, 16384, 42)["ctas"] == sms
+    assert attention._lib().wd_attention_tile_rows(128 * 4, 256) == 128
+
+
 @pytest.mark.parametrize("b,nq,nk", ATTN_SHAPES + [(4, 256, 2048)])
 def test_attention_fast_mode_matches_plain_fast(cuda, b, nq, nk):
     """``fast=True`` (``UNetConfig.fast_softmax``): the kernel's fast mode

@@ -9,41 +9,61 @@
 //   p   = softmax(s)                  fp32, one pass (online softmax, below)
 //   out = bf16(p . v)                 bf16 p, fp32 accumulate
 //
-// What bounds it on this card. At the UNet's shapes (D = 80, Nq = 256 or 64, Nk =
-// 42, 64, 256 or 811) one (batch, head) pair does 4*Nq*Nk*D FLOP against
-// 2*(Nq + 2*Nk)*D bytes of q, k, v plus 2*Nq*D of output: 66 MFLOP over 0.4 MB
-// at Nq = 256, Nk = 811, about 160 FLOP per byte, below the H100's bf16 ridge
-// of about 295. So device memory bounds it (and, close behind, the exp of the
-// softmax and the tensor cores); its point, as on the TPU, is that the
-// [Nq, Nk] matrix never reaches device memory, and then that q, k and v are
-// read as few times as possible.
+// What bounds it on this card: three floors of one size at the UNet's shapes
+// (D = 80), and the kernel is built to overlap them rather than take them in turn.
+//   - bytes: q, k, v read once and out written once, over 3.35 TB/s. It leads
+//     where Nk is short (the iam characters' 42, every pixel cross-attention):
+//     there the kernel is a stream of q in and out back;
+//   - tensor: 4 * Nq * Nk * D products a pair, over 989 TFLOP/s, and
+//   - exp: Nq * Nk exponentials a pair on the SFU (16 ex2 a clock an SM);
+//     these two lead where Nk is long (811 keys, the 16384^2 self-attention),
+//     within 1.4x of each other.
 //
 // Design:
 //   - one pass over the keys with an online softmax: each query row keeps its
 //     running maximum m and sum l; a chunk of keys whose scores raise m
 //     rescales l and the fp32 p . v accumulators by exp(m_old - m_new), and the
-//     output is divided by l once at the end. q . k^T is computed once and k and
-//     v are read once per query tile; nothing of size Nq x Nk is stored, and any
-//     Nk is taken;
-//   - one CTA of 16 * MT * WARPS query rows per (batch*head, query tile); each
-//     warp owns MT m16 tiles of rows and keeps their q fragments in registers.
-//     128 rows wherever Nq >= 128 (4 warps of 32 rows: each k and v fragment
-//     loaded from shared memory serves two m16 tiles), so k and v are read once
-//     per 128 queries; a shorter Nq takes 4 warps of 16 rows, or 2 where 4
-//     would leave most of the 132 SMs idle (the UNet's middle block at B = 16
-//     has 64 (batch, head) pairs). The query tiles of one pair are neighbours
-//     in the grid, so the second reads k and v from L2;
-//   - k and v stream through a ring of STAGES chunks of 64 keys in shared
-//     memory, filled by cp.async 16 bytes a thread: the next chunk loads while
-//     the current one computes (one __syncthreads per chunk);
-//   - the products are mma.sync.m16n8k16 bf16 with fp32 accumulators. At 160
-//     FLOP per byte the kernel sits below the ridge, so mma.sync's rate is not
-//     what bounds it. The B fragments come from ldmatrix (k as it is, v
-//     transposed by ldmatrix.trans); the score accumulators are reused in
-//     registers as the A operand of p . v;
-//   - keys past Nk score -inf and their staged k and v rows are zero
-//     (cp.async's zero fill), so a ragged Nk (42, 811) needs no padding of the
-//     inputs; query rows past Nq are computed on zeros and not stored.
+//     output is divided by l once at the end; nothing of size Nq x Nk is stored
+//     and any Nk is taken;
+//   - warp roles (one CTA of NWG consumer warpgroups and a producer): the
+//     producer's one thread issues every load as a TMA box of a
+//     rank-3 tensor map over [B*H, N, D] into shared memory, completing on an
+//     mbarrier, and gives its registers to the consumers (setmaxnreg); the
+//     consumers never wait on device memory while loads are in flight ahead
+//     of them: the q tiles through a ring of QST slots, the k and v chunks
+//     through a ring of ST stages, each slot with a full and an empty barrier;
+//   - both products on wgmma: s = q . k^T with both operands in shared memory,
+//     and p . v with p from registers (the score accumulators, exponentiated
+//     and packed to bf16, are already the layout of wgmma's register A
+//     operand) and v read MN-major (transposed) from shared memory;
+//   - overlap of the tensor cores with the exponentials: inside a warpgroup,
+//     chunk j + 1's score product is issued before chunk j's p . v, and chunk
+//     j + 1's softmax runs while that p . v is in flight; across the two
+//     warpgroups of a CTA, a ping-pong on named barriers lets one issue its
+//     products while the other exponentiates;
+//   - the bytes: CTAs are persistent and walk (pair, query tile) items in
+//     pair-major order (where Nk spans chunks, the query tiles of one pair run
+//     side by side on neighbouring CTAs, so its chunks come from L2); the
+//     producer issues the next items' q tiles while this
+//     item computes, and the output leaves through shared memory by a TMA
+//     store that runs on while the next item computes. Where Nk fits one
+//     chunk, a CTA takes a contiguous run of items, so that one pair's k and
+//     v are loaded once for all its query tiles, and the chunk is as narrow
+//     as wgmma allows: Nk rounded up to 16 (48 keys for Nk = 42). Longer
+//     contexts take chunks of 64 keys, or 128 with two consumer warpgroups
+//     where Nk > 256: the loop is bound by latency (the score product's, the
+//     softmax's, the barriers'), which a wider chunk pays once for twice the
+//     work;
+//   - shared memory is in 16-column panels with TMA's 32-byte swizzle (an
+//     8-row group of 256 bytes), the one layout wgmma reads K-major (q, k) and
+//     MN-major (v) at every D in 16..128, so that D = 80's 160-byte rows need
+//     no other route than D = 64's or 128's;
+//   - the rank-3 maps clip each box at its own pair's N: k and v rows past Nk
+//     arrive as zeros (their scores are masked to -inf), and out rows past Nq
+//     are not stored;
+//   - a CTA of 128 query rows (two consumer warpgroups, one CTA an SM) where
+//     that leaves at least one item an SM; else 64 rows (one consumer
+//     warpgroup, two CTAs an SM), as for the UNet's middle block at B = 16.
 //
 // Rounding, against the TPU body: it rounds the NORMALISED p to bf16 before
 // p . v; one pass cannot know the final sum yet, so this kernel rounds
@@ -69,7 +89,8 @@
 // lse output stays the fp32 sum's (the maps path never runs fast).
 //
 // Bitwise repeatable: no atomics, and every sum runs in a fixed order (the
-// chunks in key order, the quad shuffles in lane order).
+// chunks in key order, the k-steps of each product in order, the quad
+// shuffles in lane order).
 //
 // Attention maps (UNetConfig.return_attn; the JAX model sows the fp32
 // softmax(q . k^T * scale) [B, H, Nq, Nk] of each attention). The online
@@ -81,82 +102,47 @@
 // the CUDA cores (a register-tiled fmaf chain over d, in d order), no reduction
 // over keys.
 // The output stays B.4's.
+//
+// The host encodes the tensor maps with the driver's cuTensorMapEncodeTiled,
+// reached through the runtime's cudaGetDriverEntryPoint, so that the library
+// links without libcuda; a failed encode is returned as an error, as a
+// refused launch is.
 
+#include <cuda.h>  // CUtensorMap and the encode's enums (header only)
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <atomic>
+#include <climits>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-constexpr int KC = 64;      // keys per chunk
-constexpr int STAGES = 2;   // chunks in flight in the ring
-constexpr int PAD = 8;      // bf16 row padding (16 bytes): ldmatrix rows on distinct banks
 constexpr int MAX_D = 128;
+constexpr int MAX_KC = 64;    // keys a chunk where Nk is longer
+constexpr int WIDE_KC = 128;  // ... with two consumer warpgroups and Nk > WIDE_MIN_NK
+constexpr int WIDE_MIN_NK = 256;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+constexpr int SCHED_BAR = 1;  // named barriers 1, 2: the warpgroups' turns to issue products
+constexpr int EPI_BAR = 3;    // 3, 4: a warpgroup's output staging
+// With two consumer warpgroups the producer is a whole warpgroup, as
+// setmaxnreg acts on whole warpgroups: 3 x 128 threads launch with 168
+// registers a thread; the producer drops to 24 and the 256 consumer threads
+// take the 128 x 144 it frees, up to 240. With one consumer warpgroup (two
+// CTAs an SM) the producer is one warp and every thread keeps what it has.
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+static_assert(128 * (168 - PRODUCER_REGS) >= 256 * (CONSUMER_REGS - 168), "what the producer frees");
 
-template <int D>
-__host__ __device__ constexpr int ld() { return D + PAD; }
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// 16 bytes global -> shared; src_bytes 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Two neighbouring bf16 (the lower column in the low half, as mma expects).
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// The sum of the two bf16 values packed in v (as pack_bf16 packs them), in fp32.
-__device__ __forceinline__ float bf16_sum(uint32_t v) {
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v);
-  return __low2float(b) + __high2float(b);
-}
+__host__ __device__ constexpr int cta_threads(int nwg) { return nwg == 2 ? 384 : 160; }
 
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
@@ -181,281 +167,511 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Keys [key0, key0 + KC) of k and v [nk, D] -> the ring stage's kc, vc
-// [KC][D + PAD] by cp.async; keys past nk are zero.
-template <int D, int THREADS>
-__device__ __forceinline__ void load_chunk(bf16* kc, bf16* vc, const bf16* kb, const bf16* vb,
-                                           int key0, int nk) {
-  constexpr int VPR = D / 8;  // 16-byte vectors per row
-  for (int i = threadIdx.x; i < KC * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8;
-    const bool in = key0 + r < nk;
-    const size_t off = in ? size_t(key0 + r) * D + c : 0;
-    cp_async16(kc + r * ld<D>() + c, kb + off, in ? 16 : 0);
-    cp_async16(vc + r * ld<D>() + c, vb + off, in ? 16 : 0);
-  }
-}
-
-// grid (query tiles * B*H): the query tiles of one (batch, head) pair are
-// neighbours. WARPS warps of MT m16 tiles (16 * MT query rows) each. FAST: the
-// fast mode's roundings of the sums (the header).
-template <int D, int WARPS, int MT, bool FAST>
-__global__ void __launch_bounds__(WARPS * 32)
-    attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, bf16* __restrict__ out,
-                     float* __restrict__ lse, int nq, int nk, float scale_log2) {
-  constexpr int THREADS = WARPS * 32, BQ = 16 * MT * WARPS, LD = ld<D>();
-  constexpr int NT = KC / 8;  // score tiles per chunk
-  constexpr int OT = D / 8;   // output tiles
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // [BQ][LD]
-  bf16* ring = qs + BQ * LD;                     // STAGES x (k [KC][LD], v [KC][LD])
-
-  const int qtiles = (nq + BQ - 1) / BQ;
-  const size_t bh = blockIdx.x / qtiles;
-  const int q0 = (blockIdx.x % qtiles) * BQ;
-  const bf16* kb = k + bh * nk * D;
-  const bf16* vb = v + bh * nk * D;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 * MT;
-  const int chunks = (nk + KC - 1) / KC;
-
-  // the q tile (rows past nq zero) and the ring's first chunks, all by cp.async
-  // in flight together, q in the first chunk's group
-  {
-    constexpr int VPR = D / 8;
-    const bf16* qb = q + bh * nq * D;
-    for (int i = threadIdx.x; i < BQ * VPR; i += THREADS) {
-      const int r = i / VPR, c = (i % VPR) * 8;
-      const bool in = q0 + r < nq;
-      cp_async16(qs + r * LD + c, qb + (in ? size_t(q0 + r) * D + c : 0), in ? 16 : 0);
-    }
-  }
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < chunks)
-      load_chunk<D, THREADS>(ring + 2 * s * KC * LD, ring + (2 * s + 1) * KC * LD, kb, vb,
-                             s * KC, nk);
-    cp_async_commit();
-  }
-  // then the q tile's A fragments into registers
-  cp_async_wait<STAGES - 2>();
-  __syncthreads();
-  uint32_t qf[MT][D / 16][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const bf16* p = qs + (r0 + 16 * mt + g) * LD + ks * 16 + 2 * t;
-      qf[mt][ks][0] = ld32(p);
-      qf[mt][ks][1] = ld32(p + 8 * LD);
-      qf[mt][ks][2] = ld32(p + 8);
-      qf[mt][ks][3] = ld32(p + 8 * LD + 8);
-    }
-
-  // per m16 tile and row half: m (log2 domain) is quad-uniform; l is this
-  // thread's share of its row's sum
-  float m[MT][2], l[MT][2];
-  float o[MT][OT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    m[mt][0] = m[mt][1] = -INFINITY;
-    l[mt][0] = l[mt][1] = 0.f;
-#pragma unroll
-    for (int n = 0; n < OT; ++n) o[mt][n][0] = o[mt][n][1] = o[mt][n][2] = o[mt][n][3] = 0.f;
-  }
-
-  // ldmatrix lane roles: matrix mi = lane / 8, its row lr = lane % 8
-  const int mi = lane >> 3, lr = lane & 7;
-
-  for (int c = 0; c < chunks; ++c) {
-    // refill the stage that chunk c - 1 used (every thread is past it)
-    const int next = c + STAGES - 1;
-    if (next < chunks) {
-      const int s = next % STAGES;
-      load_chunk<D, THREADS>(ring + 2 * s * KC * LD, ring + (2 * s + 1) * KC * LD, kb, vb,
-                             next * KC, nk);
-    }
-    cp_async_commit();
-    cp_async_wait<STAGES - 1>();  // this thread's copies of chunk c have landed
-    __syncthreads();              // and everyone's
-    const bf16* kc = ring + 2 * (c % STAGES) * KC * LD;
-    const bf16* vc = kc + KC * LD;
-    const int key0 = c * KC;
-
-    // s = q . k^T for the warp's rows and the chunk's KC keys; each k
-    // fragment serves the warp's MT m16 tiles
-    float s[MT][NT][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < NT; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-#pragma unroll
-      for (int j = 0; j < NT; j += 2) {
-        // matrices: keys 8j.. (k lo, k hi), keys 8(j+1).. (k lo, k hi)
-        uint32_t b[4];
-        ldmatrix_x4(b, kc + ((j + (mi >> 1)) * 8 + lr) * LD + ks * 16 + (mi & 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][j], qf[mt][ks], b[0], b[1]);
-          mma_bf16(s[mt][j + 1], qf[mt][ks], b[2], b[3]);
-        }
-      }
-    }
-
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      // mask keys past nk (only the last chunk has any), the chunk's row maxima
-      float cm[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        float* sj = s[mt][j];
-        if (key0 + KC > nk) {
-          const int col = key0 + j * 8 + 2 * t;
-          if (col >= nk) sj[0] = sj[2] = -INFINITY;
-          if (col + 1 >= nk) sj[1] = sj[3] = -INFINITY;
-        }
-        cm[0] = fmaxf(cm[0], fmaxf(sj[0], sj[1]));
-        cm[1] = fmaxf(cm[1], fmaxf(sj[2], sj[3]));
-      }
-      // the online step, in the log2 domain (scale > 0, so the maximum of the
-      // scaled scores is the scaled maximum): m_new is finite (the chunk holds
-      // a key); the first chunk's alpha is exp2(-inf) = 0
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float mn = fmaxf(m[mt][r], quad_max(cm[r]) * scale_log2);
-        const float alpha = exp2_approx(m[mt][r] - mn);
-        m[mt][r] = mn;
-        l[mt][r] *= alpha;
-#pragma unroll
-        for (int n = 0; n < OT; ++n) {
-          o[mt][n][2 * r] *= alpha;
-          o[mt][n][2 * r + 1] *= alpha;
-        }
-      }
-    }
-
-    // p = exp2(s - m) in fp32 into l, in bf16 as the A operand of p . v; each
-    // v fragment serves the warp's MT m16 tiles
-#pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      // score tiles 2kk and 2kk + 1 are the A fragment of keys 16kk .. 16kk + 15
-      uint32_t pa[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float* sj = s[mt][2 * kk + h];
-          const float m0 = m[mt][0], m1 = m[mt][1];
-          const float p0 = exp2_approx(fmaf(sj[0], scale_log2, -m0));
-          const float p1 = exp2_approx(fmaf(sj[1], scale_log2, -m0));
-          const float p2 = exp2_approx(fmaf(sj[2], scale_log2, -m1));
-          const float p3 = exp2_approx(fmaf(sj[3], scale_log2, -m1));
-          pa[mt][2 * h] = pack_bf16(p0, p1);
-          pa[mt][2 * h + 1] = pack_bf16(p2, p3);
-          if constexpr (FAST) {  // sum the bf16 values p . v takes, as JAX sums e
-            l[mt][0] += bf16_sum(pa[mt][2 * h]);
-            l[mt][1] += bf16_sum(pa[mt][2 * h + 1]);
-          } else {
-            l[mt][0] += p0 + p1;
-            l[mt][1] += p2 + p3;
-          }
-        }
-#pragma unroll
-      for (int n = 0; n < OT; n += 2) {
-        // matrices: (keys lo, d tile n), (keys hi, n), (keys lo, n + 1), (keys hi, n + 1)
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, vc + (kk * 16 + (mi & 1) * 8 + lr) * LD + (n + (mi >> 1)) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(o[mt][n], pa[mt], b[0], b[1]);
-          mma_bf16(o[mt][n + 1], pa[mt], b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();  // the stage is free for the refill STAGES - 1 chunks on
-  }
-  cp_async_wait<0>();
-
-  bf16* ob = out + bh * nq * D;
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    const float la = quad_sum(l[mt][0]), lb = quad_sum(l[mt][1]);
-    // fast mode: the row's sum rounded to bf16 before the division, as JAX's S
-    const float inv0 = 1.f / (FAST ? round_bf16(la) : la);
-    const float inv1 = 1.f / (FAST ? round_bf16(lb) : lb);
-    const int row_a = q0 + r0 + 16 * mt + g, row_b = row_a + 8;
-    if (lse != nullptr && t == 0) {
-      if (row_a < nq) lse[bh * nq + row_a] = (m[mt][0] + log2f(la)) * LN2;
-      if (row_b < nq) lse[bh * nq + row_b] = (m[mt][1] + log2f(lb)) * LN2;
-    }
-#pragma unroll
-    for (int n = 0; n < OT; ++n) {
-      const int col = n * 8 + 2 * t;
-      if (row_a < nq)
-        *reinterpret_cast<uint32_t*>(ob + size_t(row_a) * D + col) =
-            pack_bf16(o[mt][n][0] * inv0, o[mt][n][1] * inv0);
-      if (row_b < nq)
-        *reinterpret_cast<uint32_t*>(ob + size_t(row_b) * D + col) =
-            pack_bf16(o[mt][n][2] * inv1, o[mt][n][3] * inv1);
-    }
-  }
-}
-
-constexpr int SMS = 132;
-
-// The CTA for this shape, as (warps, m16 tiles per warp): 128 query rows
-// wherever Nq >= 128, as 4 warps of 32 rows (each k and v fragment serves two
-// m16 tiles); below, 4 warps of 16 rows unless that leaves fewer CTAs than
-// SMs, then 2.
-struct Cfg {
-  int warps, mt;
+// Shared memory of one CTA, in bytes from a 256-byte aligned base: QST q tiles
+// (QROWS rows), ST stages of a k chunk and a v chunk (KC rows), one output
+// tile a consumer warpgroup (64 rows), each as D / 16 panels of [rows][16]
+// bf16 with the 32-byte swizzle; then the barriers. Two consumer warpgroups
+// take one CTA an SM (227 KB), one takes two (113 KB each). A chunk of 64
+// keys or more (Nk > 48) is most often one of many, so it keeps q at 2 slots
+// and deepens the k / v ring; a narrower one is Nk's only chunk,
+// so an item is a q tile and one k / v stage, and both rings take as many
+// items as fit, up to 4 (the next items' q in flight).
+struct Smem {
+  int qrows, q_bytes, kv_bytes, o_bytes, st, qst, q, k, v, o, bars, size;
 };
 
-Cfg pick(int bh, int nq) {
-  if (nq >= 128) return {4, 2};
-  return (long long)bh * ((nq + 63) / 64) >= SMS ? Cfg{4, 1} : Cfg{2, 1};
+__host__ __device__ constexpr int smem_budget(int nwg) { return nwg == 2 ? 232448 : 115712; }
+
+__host__ __device__ constexpr Smem smem_layout(int d, int kc, int nwg) {
+  Smem s{};
+  s.qrows = 64 * nwg;
+  s.q_bytes = s.qrows * d * 2;
+  s.kv_bytes = kc * d * 2;  // one chunk of k, or of v
+  s.o_bytes = 64 * d * 2;
+  const int avail = smem_budget(nwg) - 256 - nwg * s.o_bytes - 8 * 16;
+  const int deep_kv = (avail - 2 * s.q_bytes) / (2 * s.kv_bytes);
+  const int deep_item = avail / (s.q_bytes + 2 * s.kv_bytes);
+  s.st = kc >= MAX_KC ? (deep_kv < 4 ? deep_kv : 4) : (deep_item < 4 ? deep_item : 4);
+  s.qst = kc >= MAX_KC ? 2 : s.st;
+  s.q = 0;
+  s.k = s.q + s.qst * s.q_bytes;
+  s.v = s.k + s.st * s.kv_bytes;
+  s.o = s.v + s.st * s.kv_bytes;
+  s.bars = s.o + nwg * s.o_bytes;
+  s.size = s.bars + 8 * 2 * (s.qst + s.st) + 256;  // + the base's alignment
+  return s;
 }
 
-template <int D, int WARPS, int MT, bool FAST>
-cudaError_t launch_cfg(const void* q, const void* k, const void* v, void* out, float* lse,
-                       int bh, int nq, int nk, float scale, cudaStream_t stream) {
-  constexpr int BQ = 16 * MT * WARPS;
-  constexpr size_t smem = size_t(BQ + 2 * STAGES * KC) * ld<D>() * sizeof(bf16);
-  const long long ctas = (long long)bh * ((nq + BQ - 1) / BQ);
-  if (ctas > 0x7fffffffLL) return cudaErrorInvalidValue;
-  // The shared memory limit is raised once per device for this instance (its
-  // smem is a constant): the attribute call costs host time of the order of
-  // the launch itself, and the small shapes are bound by the host.
-  static std::atomic<unsigned long long> raised{0};
+// Descriptor of a 16-column panel group with the 32-byte swizzle (8-row groups
+// of 256 bytes); lbo: K-major 16 (unused), MN-major the panel stride.
+__device__ __forceinline__ uint64_t desc_sw32(const void* p, uint32_t lbo) {
+  return make_desc(p, lbo, 256, SW32);
+}
+
+// The CTA's items. Where k and v fit one chunk, a contiguous run of items,
+// so that one pair's query tiles follow each other and its k and v are loaded
+// once; else every gridDim-th item, so that the query tiles of one pair run on
+// neighbouring CTAs at once and its chunks come from L2.
+struct Items {
+  int first, end, step;
+};
+
+__device__ __forceinline__ Items cta_items(int items, bool single) {
+  if (!single) return {int(blockIdx.x), items, int(gridDim.x)};
+  return {int((long long)blockIdx.x * items / gridDim.x),
+          int((long long)(blockIdx.x + 1) * items / gridDim.x), 1};
+}
+
+// The producer's one thread: for each of the CTA's items, its q tile
+// into the q ring, then its k and v chunks into the k / v ring (a single
+// chunk only where the pair changes), each slot after its empty barrier,
+// each completing on its full barrier.
+template <int D, int KC, int NWG>
+__device__ __forceinline__ void produce(unsigned char* sm, const CUtensorMap* qmap,
+                                        const CUtensorMap* kmap, const CUtensorMap* vmap, int nk,
+                                        int qtiles, int items) {
+  constexpr Smem S = smem_layout(D, KC, NWG);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + S.bars);
+  uint64_t* q_empty = q_full + S.qst;
+  uint64_t* kv_full = q_empty + S.qst;
+  uint64_t* kv_empty = kv_full + S.st;
+  const int chunks = (nk + KC - 1) / KC;
+  const Items r = cta_items(items, chunks == 1);
+  uint32_t qi = 0, kvi = 0;
+  int held = -1;  // the pair whose single chunk the ring holds
+  for (int it = r.first; it < r.end; it += r.step, ++qi) {
+    const int bh = it / qtiles, q0 = (it % qtiles) * S.qrows;
+    const uint32_t qs = qi % S.qst;
+    mbar_wait(q_empty + qs, ((qi / S.qst) & 1) ^ 1);
+    mbar_expect_tx(q_full + qs, S.q_bytes);
+    unsigned char* qd = sm + S.q + qs * S.q_bytes;
+#pragma unroll
+    for (int p = 0; p < D / 16; ++p)
+      tma_load_3d(qd + p * S.qrows * 32, qmap, q_full + qs, 16 * p, q0, bh);
+    if (chunks == 1) {
+      if (bh == held) continue;
+      held = bh;
+    }
+    for (int c = 0; c < chunks; ++c, ++kvi) {
+      const uint32_t st = kvi % S.st;
+      mbar_wait(kv_empty + st, ((kvi / S.st) & 1) ^ 1);
+      mbar_expect_tx(kv_full + st, 2 * S.kv_bytes);
+      unsigned char* kd = sm + S.k + st * S.kv_bytes;
+      unsigned char* vd = sm + S.v + st * S.kv_bytes;
+#pragma unroll
+      for (int p = 0; p < D / 16; ++p) {
+        tma_load_3d(kd + p * KC * 32, kmap, kv_full + st, 16 * p, c * KC, bh);
+        tma_load_3d(vd + p * KC * 32, vmap, kv_full + st, 16 * p, c * KC, bh);
+      }
+    }
+  }
+}
+
+// One chunk's softmax step on the scores s of a consumer thread (rows g and
+// g + 8 of its warp's 16, key columns 8j + 2t, + 1 of n-tile j): mask keys
+// past nk, the online update of m (log2 domain, scaled) and l, and s replaced
+// by p = exp2(s * scale_log2 - m) in fp32 (packed to bf16 by pack_p once the
+// p . v that reads the last chunk's p has completed). alpha: the factor the
+// p . v accumulators take before this chunk's product is added.
+template <int KC, bool FAST>
+__device__ __forceinline__ void softmax_chunk(float (&s)[KC / 2], float (&m)[2], float (&l)[2],
+                                              float (&alpha)[2], int key0, int nk,
+                                              float scale_log2, int t) {
+  // each row's maximum and sum in two interleaved partials (n-tiles j even,
+  // odd) to halve the dependent chains; a fixed order, so bitwise repeatable
+  float cm[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+#pragma unroll
+  for (int j = 0; j < KC / 8; ++j) {
+    float* sj = s + 4 * j;
+    if (key0 + KC > nk) {  // only the last chunk has keys past nk
+      const int col = key0 + j * 8 + 2 * t;
+      if (col >= nk) sj[0] = sj[2] = -INFINITY;
+      if (col + 1 >= nk) sj[1] = sj[3] = -INFINITY;
+    }
+    cm[0][j & 1] = fmaxf(cm[0][j & 1], fmaxf(sj[0], sj[1]));
+    cm[1][j & 1] = fmaxf(cm[1][j & 1], fmaxf(sj[2], sj[3]));
+  }
+  // scale > 0, so the maximum of the scaled scores is the scaled maximum; the
+  // new m is finite (the chunk holds a key), and the first chunk's alpha is
+  // exp2(-inf) = 0
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m[r], quad_max(fmaxf(cm[r][0], cm[r][1])) * scale_log2);
+    alpha[r] = exp2_approx(m[r] - mn);
+    m[r] = mn;
+  }
+  float cs[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int j = 0; j < KC / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float* e = s + 4 * j + 2 * r;
+      e[0] = exp2_approx(fmaf(e[0], scale_log2, -m[r]));
+      e[1] = exp2_approx(fmaf(e[1], scale_log2, -m[r]));
+      if constexpr (FAST) {  // sum the bf16 values p . v takes, as JAX sums e
+        const __nv_bfloat162 b = __floats2bfloat162_rn(e[0], e[1]);
+        cs[r][j & 1] += __low2float(b) + __high2float(b);
+      } else {
+        cs[r][j & 1] += e[0] + e[1];
+      }
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = fmaf(l[r], alpha[r], cs[r][0] + cs[r][1]);
+}
+
+// p in bf16 as p . v's A fragments: n-tiles 2kb and 2kb + 1 of the scores
+// are the fragment of keys 16kb .. 16kb + 15 (a0 = row g's two keys of the
+// first n-tile, a1 = row g + 8's, a2, a3 the second n-tile's).
+template <int KC>
+__device__ __forceinline__ void pack_p(const float (&s)[KC / 2], uint32_t (&p)[KC / 16][4]) {
+#pragma unroll
+  for (int kb = 0; kb < KC / 16; ++kb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) p[kb][e] = pack_bf16(s[8 * kb + 2 * e], s[8 * kb + 2 * e + 1]);
+}
+
+// o += p . v for one chunk: KC / 16 k-steps of m64 x D x k16, A from registers
+// (after a wgmma.fence that follows the last write of o and p).
+template <int D, int KC>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], uint32_t (&p)[KC / 16][4],
+                                         const unsigned char* vs) {
+  const uint64_t vd = desc_sw32(vs, KC * 32);
+#pragma unroll
+  for (int kb = 0; kb < KC / 16; ++kb) wgmma_rs<1>(o, p[kb], vd + ((kb * 16 * 32) >> 4), 1);
+  wgmma_commit();
+}
+
+// s = q . k^T for the warpgroup's 64 rows and a chunk's KC keys: D / 16
+// k-steps of m64 x KC x k16, both operands K-major in shared memory; with PV,
+// the previous chunk's o += p . v behind them (KC / 16 k-steps of m64 x D x
+// k16, A from registers, v MN-major), its own commit group. With two
+// consumer warpgroups, issued in this warpgroup's turn (a ping-pong on named
+// barriers). One wgmma.fence before both: every register they read was
+// written above it.
+template <int D, int KC, int NWG, bool PV>
+__device__ __forceinline__ void issue_scores(float (&s)[KC / 2], uint64_t qd,
+                                             const unsigned char* ks, int wg, float (&o)[D / 2],
+                                             uint32_t (&p)[KC / 16][4], const unsigned char* vs) {
+  constexpr int QROWS = 64 * NWG;
+  const uint64_t kd = desc_sw32(ks, 16);
+  if constexpr (NWG == 2) bar_sync(SCHED_BAR + wg, 256);  // this warpgroup's turn
+  pin(s);
+  pin(o);
+#pragma unroll
+  for (int kb = 0; kb < KC / 16; ++kb) pin(p[kb]);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k)
+    wgmma_ss<0, 0>(s, qd + ((k * QROWS * 32) >> 4), kd + ((k * KC * 32) >> 4), k > 0);
+  wgmma_commit();
+  if constexpr (PV) issue_pv<D, KC>(o, p, vs);
+  if constexpr (NWG == 2) bar_arrive(SCHED_BAR + (wg ^ 1), 256);  // the other's turn
+}
+
+template <int D>
+__device__ __forceinline__ void rescale(float (&o)[D / 2], const float (&alpha)[2]) {
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+// A consumer warpgroup: 64 query rows of each of the CTA's items.
+template <int D, int KC, int NWG, bool FAST>
+__device__ __forceinline__ void consume(unsigned char* sm, const CUtensorMap* omap,
+                                        float* __restrict__ lse, int nq, int nk, int qtiles,
+                                        int items, float scale_log2, int wg) {
+  constexpr Smem S = smem_layout(D, KC, NWG);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + S.bars);
+  uint64_t* q_empty = q_full + S.qst;
+  uint64_t* kv_full = q_empty + S.qst;
+  uint64_t* kv_empty = kv_full + S.st;
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int chunks = (nk + KC - 1) / KC;
+  const Items r = cta_items(items, chunks == 1);
+  unsigned char* ob = sm + S.o + wg * S.o_bytes;
+
+  if (NWG == 2 && wg == 1) bar_arrive(SCHED_BAR, 256);  // warpgroup 0 issues first
+
+  float s[KC / 2], o[D / 2];
+  uint32_t p[KC / 16][4];
+#pragma unroll
+  for (int i = 0; i < KC / 2; ++i) s[i] = 0.f;
+  uint32_t qi = 0, kvi = 0, prev = 0;  // prev: the stage whose p . v is pending
+  int held = -1;                        // the pair whose single chunk stage prev holds
+  for (int it = r.first; it < r.end; it += r.step, ++qi) {
+    const int bh = it / qtiles, q0 = (it % qtiles) * S.qrows;
+    const uint32_t qs = qi % S.qst;
+    mbar_wait(q_full + qs, (qi / S.qst) & 1);
+    const uint64_t qd = desc_sw32(sm + S.q + qs * S.q_bytes + wg * 64 * 32, 16);
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    // chunk 0 (a single chunk: the pair's, loaded when the pair changed):
+    // its scores and softmax, no p . v in flight yet
+    if (chunks > 1 || bh != held) {
+      if (chunks == 1 && held >= 0 && lane == 0) mbar_arrive(kv_empty + prev);  // the last pair's
+      prev = kvi % S.st;
+      mbar_wait(kv_full + prev, (kvi / S.st) & 1);
+      ++kvi;
+      held = bh;
+    }
+    issue_scores<D, KC, NWG, false>(s, qd, sm + S.k + prev * S.kv_bytes, wg, o, p, nullptr);
+    wgmma_wait<0>();
+    pin(s);
+    if (chunks == 1 && lane == 0) mbar_arrive(q_empty + qs);  // this warp's q rows are read
+    softmax_chunk<KC, FAST>(s, m, l, alpha, 0, nk, scale_log2, t);
+    pack_p<KC>(s, p);
+    // chunk c's scores, then chunk c - 1's p . v behind them; chunk c's
+    // softmax while that p . v runs
+    for (int c = 1; c < chunks; ++c, ++kvi) {
+      const uint32_t st = kvi % S.st;
+      mbar_wait(kv_full + st, (kvi / S.st) & 1);
+      rescale<D>(o, alpha);  // before the products' fence: nothing written while one runs
+      issue_scores<D, KC, NWG, true>(s, qd, sm + S.k + st * S.kv_bytes, wg, o, p,
+                               sm + S.v + prev * S.kv_bytes);
+      wgmma_wait<1>();
+      pin(s);
+      if (c == chunks - 1 && lane == 0) mbar_arrive(q_empty + qs);
+      softmax_chunk<KC, FAST>(s, m, l, alpha, c * KC, nk, scale_log2, t);
+      wgmma_wait<0>();
+      pin(o);
+      if (lane == 0) mbar_arrive(kv_empty + prev);
+      pack_p<KC>(s, p);  // the last p . v has read the old p
+      prev = st;
+    }
+    rescale<D>(o, alpha);
+    pin(o);
+#pragma unroll
+    for (int kb = 0; kb < KC / 16; ++kb) pin(p[kb]);
+    wgmma_fence();
+    issue_pv<D, KC>(o, p, sm + S.v + prev * S.kv_bytes);
+    wgmma_wait<0>();
+    pin(o);
+    if (chunks > 1 && lane == 0) mbar_arrive(kv_empty + prev);  // a single chunk stays
+
+    // out = o / l through this warpgroup's staging tile and a TMA store
+    float inv[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float lr = quad_sum(l[r]);
+      // fast mode: the row's sum rounded to bf16 before the division, as JAX's S
+      inv[r] = 1.f / (FAST ? round_bf16(lr) : lr);
+      const int row = q0 + wg * 64 + 16 * warp + g + 8 * r;
+      if (lse != nullptr && t == 0 && row < nq) lse[size_t(bh) * nq + row] = (m[r] + log2f(lr)) * LN2;
+    }
+    if (tid == 0) bulk_wait_read<0>();  // the last item's store has read the tile
+    bar_sync(EPI_BAR + wg, 128);
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = 16 * warp + g + 8 * r;
+        const int chunk = (i & 1) ^ ((row >> 2) & 1);
+        *reinterpret_cast<uint32_t*>(ob + (i >> 1) * 64 * 32 + row * 32 + chunk * 16 + 4 * t) =
+            pack_bf16(o[4 * i + 2 * r] * inv[r], o[4 * i + 2 * r + 1] * inv[r]);
+      }
+    fence_proxy_async();
+    bar_sync(EPI_BAR + wg, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int pi = 0; pi < D / 16; ++pi)
+        tma_store_3d(omap, ob + pi * 64 * 32, 16 * pi, q0 + wg * 64, bh);
+      bulk_commit();
+    }
+  }
+  if (NWG == 2 && wg == 0) bar_sync(SCHED_BAR, 256);  // warpgroup 1's last turn
+  if (tid == 0) bulk_wait<0>();
+}
+
+// grid: persistent CTAs over items = B*H * qtiles (pair-major); NWG consumer
+// warpgroups (threads 0 .. 128 NWG - 1), then the producer.
+template <int D, int KC, int NWG, bool FAST>
+__global__ void __launch_bounds__(cta_threads(NWG), NWG == 2 ? 1 : 2)
+    attention_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const __grid_constant__ CUtensorMap omap, float* __restrict__ lse, int nq,
+                     int nk, int qtiles, int items, float scale_log2) {
+  constexpr Smem S = smem_layout(D, KC, NWG);
+  static_assert(S.st >= 2 && S.qst >= 2 && S.size <= smem_budget(NWG), "the rings fit");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((256 - (smem_addr(smem_raw) & 255)) & 255);
+  if (threadIdx.x == 0) {
+    uint64_t* bar = reinterpret_cast<uint64_t*>(sm + S.bars);
+    for (int i = 0; i < S.qst; ++i) {
+      mbar_init(bar + i, 1);                        // q full: the producer's expect_tx
+      mbar_init(bar + S.qst + i, 4 * NWG);         // q empty: each consumer warp
+    }
+    for (int i = 0; i < S.st; ++i) {
+      mbar_init(bar + 2 * S.qst + i, 1);
+      mbar_init(bar + 2 * S.qst + S.st + i, 4 * NWG);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
+  if (wg == NWG) {
+    if constexpr (NWG == 2) setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == NWG * 128) produce<D, KC, NWG>(sm, &qmap, &kmap, &vmap, nk, qtiles, items);
+  } else {
+    if constexpr (NWG == 2) setmaxnreg_inc<CONSUMER_REGS>();
+    consume<D, KC, NWG, FAST>(sm, &omap, lse, nq, nk, qtiles, items, scale_log2, wg);
+  }
+}
+
+int sm_count() {
+  static std::atomic<int> cached[64];  // zero: not yet read
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0) return 132;
+  if (dev < 64 && cached[dev].load()) return cached[dev].load();
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
+    return 132;
+  if (dev < 64) cached[dev].store(n);
+  return n;
+}
+
+// The launch plan of a shape: consumer warpgroups a CTA (2: 128 query rows,
+// one CTA an SM, wherever that leaves at least one item an SM and Nq > 64;
+// else 1: 64 rows, two CTAs an SM), the chunk width (Nk rounded up to 16 up
+// to 48, else 64, or 128 with two warpgroups where Nk > WIDE_MIN_NK), and the
+// persistent grid.
+struct Plan {
+  int nwg, kc, rows, ctas;
+};
+
+Plan plan(int bh, int nq, int nk) {
+  const int sms = sm_count();
+  Plan p;
+  p.nwg = nq <= 64 || (long long)bh * ((nq + 127) / 128) < sms ? 1 : 2;
+  p.kc = nk <= 16 ? 16 : nk <= 32 ? 32 : nk <= 48 ? 48
+      : p.nwg == 2 && nk > WIDE_MIN_NK ? WIDE_KC : MAX_KC;
+  p.rows = 64 * p.nwg;
+  const long long items = (long long)bh * ((nq + p.rows - 1) / p.rows);
+  p.ctas = int(std::min<long long>(items, (long long)sms * (p.nwg == 2 ? 1 : 2)));
+  return p;
+}
+
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+// The driver's cuTensorMapEncodeTiled through the runtime (no -lcuda), once.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                                                  &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
+                                                                    : nullptr;
+  }();
+  return fn;
+}
+
+// A rank-3 map over x [bh, n, d] bf16 with boxes of 16 columns x `rows` rows of
+// one pair, 32-byte swizzle; out-of-range elements load as zeros and are not
+// stored.
+bool encode(CUtensorMap* map, const void* x, int d, int n, int bh, int rows) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {cuuint64_t(d), cuuint64_t(n), cuuint64_t(bh)};
+  const cuuint64_t strides[2] = {cuuint64_t(d) * 2, cuuint64_t(n) * d * 2};
+  const cuuint32_t box[3] = {16, cuuint32_t(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Raise a kernel instance's dynamic shared memory limit once per device: the
+// attribute call costs host time of the order of the launch itself, and the
+// small shapes are bound by the host.
+template <typename Kernel>
+cudaError_t raise_smem_once(Kernel kernel, int bytes, std::atomic<unsigned long long>& raised) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
   if (!(raised.load() & bit)) {
-    e = cudaFuncSetAttribute(attention_kernel<D, WARPS, MT, FAST>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     raised.fetch_or(bit);
   }
-  attention_kernel<D, WARPS, MT, FAST><<<unsigned(ctas), WARPS * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), lse, nq, nk, scale * LOG2E);
+  return cudaSuccess;
+}
+
+// Encode through a small direct-mapped cache per host thread: a map is a pure
+// function of its key, encoding one costs host time of the order of the launch
+// (the small shapes are bound by the host), and a caller's tensors recur
+// (PyTorch's caching allocator hands back the same blocks).
+bool encode_cached(CUtensorMap* map, const void* x, int d, int n, int bh, int rows) {
+  struct Entry {
+    CUtensorMap map;
+    const void* x;
+    int d, n, bh, rows;
+  };
+  static thread_local Entry cache[64];
+  const uintptr_t h = (reinterpret_cast<uintptr_t>(x) >> 8) ^ uintptr_t(n) * 131 ^
+                      uintptr_t(bh) * 8191 ^ uintptr_t(rows) * 7 ^ uintptr_t(d);
+  Entry& e = cache[h % 64];
+  if (e.x != x || e.d != d || e.n != n || e.bh != bh || e.rows != rows) {
+    if (!encode(&e.map, x, d, n, bh, rows)) {
+      e.x = nullptr;
+      return false;
+    }
+    e.x = x;
+    e.d = d;
+    e.n = n;
+    e.bh = bh;
+    e.rows = rows;
+  }
+  *map = e.map;
+  return true;
+}
+
+template <int D, int KC, int NWG, bool FAST>
+cudaError_t launch_cfg(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+                       int nq, int nk, float scale, int ctas, cudaStream_t stream) {
+  constexpr Smem S = smem_layout(D, KC, NWG);
+  const long long qtiles = (nq + S.qrows - 1) / S.qrows, items = bh * qtiles;
+  if (items > INT_MAX) return cudaErrorInvalidValue;
+  CUtensorMap maps[4];
+  if (!encode_cached(&maps[0], q, D, nq, bh, S.qrows) ||
+      !encode_cached(&maps[1], k, D, nk, bh, KC) || !encode_cached(&maps[2], v, D, nk, bh, KC) ||
+      !encode_cached(&maps[3], out, D, nq, bh, 64))
+    return cudaErrorInvalidValue;
+  static std::atomic<unsigned long long> raised{0};
+  const cudaError_t e = raise_smem_once(attention_kernel<D, KC, NWG, FAST>, S.size, raised);
+  if (e != cudaSuccess) return e;
+  attention_kernel<D, KC, NWG, FAST><<<ctas, cta_threads(NWG), S.size, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], lse, nq, nk, int(qtiles), int(items), scale * LOG2E);
   return cudaGetLastError();
+}
+
+template <int D, int KC, bool FAST>
+cudaError_t launch_kc(const void* q, const void* k, const void* v, void* out, float* lse, int bh,
+                      int nq, int nk, float scale, const Plan& p, cudaStream_t stream) {
+  return p.nwg == 2
+             ? launch_cfg<D, KC, 2, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p.ctas, stream)
+             : launch_cfg<D, KC, 1, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p.ctas, stream);
 }
 
 template <int D, bool FAST>
 cudaError_t launch_mode(const void* q, const void* k, const void* v, void* out, float* lse,
                         int bh, int nq, int nk, float scale, cudaStream_t stream) {
-  const Cfg cfg = pick(bh, nq);
-  if (cfg.mt == 2)
-    return launch_cfg<D, 4, 2, FAST>(q, k, v, out, lse, bh, nq, nk, scale, stream);
-  if (cfg.warps == 4)
-    return launch_cfg<D, 4, 1, FAST>(q, k, v, out, lse, bh, nq, nk, scale, stream);
-  return launch_cfg<D, 2, 1, FAST>(q, k, v, out, lse, bh, nq, nk, scale, stream);
+  const Plan p = plan(bh, nq, nk);
+  switch (p.kc) {
+    case 16: return launch_kc<D, 16, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p, stream);
+    case 32: return launch_kc<D, 32, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p, stream);
+    case 48: return launch_kc<D, 48, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p, stream);
+    case MAX_KC: return launch_kc<D, MAX_KC, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p, stream);
+    default:  // WIDE_KC: two consumer warpgroups only
+      return launch_cfg<D, WIDE_KC, 2, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p.ctas, stream);
+  }
 }
 
 template <int D>
@@ -552,18 +768,9 @@ cudaError_t launch_probs(const void* q, const void* k, const float* lse, float* 
                          int nq, int nk, float scale, cudaStream_t stream) {
   if (bh > 65535) return cudaErrorInvalidValue;
   constexpr size_t smem = size_t(2) * D * PLD * sizeof(float);
-  // raised once per device for this instance, as launch_cfg does
   static std::atomic<unsigned long long> raised{0};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  const cudaError_t e = raise_smem_once(attention_probs_kernel<D>, int(smem), raised);
   if (e != cudaSuccess) return e;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (!(raised.load() & bit)) {
-    e = cudaFuncSetAttribute(attention_probs_kernel<D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-    if (e != cudaSuccess) return e;
-    raised.fetch_or(bit);
-  }
   const dim3 grid((nq + PR - 1) / PR, bh);
   attention_probs_kernel<D><<<grid, PTHREADS, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), lse, p, nq, nk, scale);
@@ -577,16 +784,28 @@ extern "C" {
 int wd_attention_max_d() { return MAX_D; }
 
 // Query rows per CTA that the kernel picks for this shape.
-int wd_attention_tile_rows(int bh, int nq) {
-  const Cfg cfg = pick(bh, nq);
-  return 16 * cfg.warps * cfg.mt;
+int wd_attention_tile_rows(int bh, int nq) { return plan(bh, nq, 1).rows; }
+
+// The launch plan of a shape at head width d: out[0] query rows a CTA, out[1] keys a chunk, out[2] CTAs (persistent,
+// at most one or two an SM), out[3] dynamic shared memory bytes, out[4] q ring
+// slots, out[5] k / v ring stages, out[6] and out[7] the producer's and the
+// consumers' registers a thread after setmaxnreg (0: not used).
+int wd_attention_plan(int bh, int nq, int nk, int d, int* out) {
+  if (bh < 1 || nq < 1 || nk < 1 || d < 16 || d % 16 || d > MAX_D) return cudaErrorInvalidValue;
+  const Plan p = plan(bh, nq, nk);
+  const Smem s = smem_layout(d, p.kc, p.nwg);
+  const int filled[8] = {p.rows, p.kc, p.ctas, s.size, s.qst, s.st,
+                         p.nwg == 2 ? PRODUCER_REGS : 0, p.nwg == 2 ? CONSUMER_REGS : 0};
+  std::copy(filled, filled + 8, out);
+  return cudaSuccess;
 }
 
 // out [bh, nq, d] = softmax(q [bh, nq, d] . k [bh, nk, d]^T * scale) . v [bh, nk, d],
 // all bf16, contiguous and 16-byte aligned; d a multiple of 16 up to MAX_D,
 // nk >= 1, nq >= 1; with lse non-null, each query row's log-sum-exp [bh, nq]
 // fp32 too; fast non-zero: the fast mode (UNetConfig.fast_softmax, the
-// header). Returns a cudaError_t (0 on success).
+// header). Returns a cudaError_t (0 on success; a failed tensor-map encode is
+// cudaErrorInvalidValue).
 int wd_attention(const void* q, const void* k, const void* v, void* out, float* lse,
                  int bh, int nq, int nk, int d, float scale, int fast, void* stream) {
   if (bh < 1 || nq < 1 || nk < 1) return cudaErrorInvalidValue;

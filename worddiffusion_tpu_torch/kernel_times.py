@@ -44,7 +44,10 @@ B.5 launch with at each shape, B.5's kernel time at every route (cluster
 of 1, 2, 4, 8; x kept in shared memory or read twice) and, for the route
 it picks, stopped after its first pass and after its statistics
 (``wd_groupnorm_routed``), and B.4 against SDPA over Nk at B=128, Nq=256
-(``kernel_ms``), fitted as a fixed cost plus a cost per 64-key chunk.
+(``kernel_ms``), fitted as a fixed cost plus a cost per key chunk of the
+kernel's plan. For the attention kernel's instances it also reports the
+plan's shared memory, ring depths and the registers setmaxnreg gives the
+producer warp and the consumer warpgroups (cuobjdump reads the launch's).
 
 Prints one JSON object a process and a summary; writes everything to
 FILE (default ``build/kernel_times.json``).
@@ -61,10 +64,12 @@ import subprocess
 import sys
 
 HEADS, D_HEAD = 4, 80
-# (B, Nq, Nk): every B=128 attention of the training step, and the iam
-# regeneration's widest
+# (B, Nq, Nk): every B=128 attention of the training step, the iam
+# regeneration's widest, and pixel space's cross-attentions and
+# self-attention at B=16
 ATTN_SHAPES = ((128, 256, 811), (128, 64, 811), (128, 256, 256), (128, 64, 64),
-               (128, 256, 42), (128, 64, 42), (16, 256, 42))
+               (128, 256, 42), (128, 64, 42), (16, 256, 42), (16, 16384, 42), (16, 4096, 42),
+               (16, 16384, 16384))
 # (B, H, W, C): every B=128 B.6 site (UNet and VAE encoder), and the UNet's and
 # the decoder's widest at B=16
 CONV_SHAPES = ((128, 8, 32, 320), (128, 4, 16, 320), (128, 16, 64, 512), (128, 8, 32, 512),
@@ -455,12 +460,26 @@ def resources(lib: str) -> list[dict]:
     for i, line in enumerate(lines):
         if "Function" not in line or i + 1 >= len(lines):
             continue
+        extra = {}
         usage = dict((k, int(v)) for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)",
                                                         lines[i + 1]))
-        if m := re.search(r"attention_kernelILi80ELi(\d+)ELi(\d+)E", line):
-            warps, mt = int(m.group(1)), int(m.group(2))
-            name = f"attention<80, {warps}, {mt}>"
-            dyn = (16 * mt * warps + 2 * 2 * 64) * (D_HEAD + 8) * 2  # q tile + 2 stages of k, v
+        if m := re.search(r"attention_kernelILi80ELi(\d+)ELi(\d+)ELb([01])E", line):
+            kc, nwg, fast = int(m.group(1)), int(m.group(2)), m.group(3) == "1"
+            warps = 4 * nwg + 1  # the consumer warpgroups and the producer warp
+            name = f"attention<80, {kc} keys, {nwg} warpgroups{', fast' if fast else ''}>"
+            # the plan of a shape that takes this instance: Nk = the chunk (or
+            # past it), and Nq = 64 (one warpgroup) or 128 over enough pairs to
+            # fill the card (two)
+            plan = (ctypes.c_int * 8)()
+            for nk in (kc, 2 * kc + 1):  # one chunk, or the longer contexts' chunk
+                if cdll.wd_attention_plan(1024, 64 * nwg, nk, D_HEAD, plan):
+                    raise RuntimeError("wd_attention_plan refused a shape")
+                if plan[1] == kc:
+                    break
+            dyn = plan[3]
+            # setmaxnreg splits the launch's registers: the producer's and the consumers'
+            extra = dict(producer_regs=plan[6], consumer_regs=plan[7], q_slots=plan[4],
+                         kv_stages=plan[5])
         elif m := re.search(r"ffn_kernelILi(\d+)ELb([01])E", line):
             warps = 8
             name = f"ffn<{m.group(1)}, {'LN' if m.group(2) == '1' else 'bare'}>"
@@ -481,7 +500,7 @@ def resources(lib: str) -> list[dict]:
         ctas = min(65536 // (per_warp * warps), (228 * 1024) // (dyn + usage["SHARED"] + 1024),
                    2048 // (32 * warps), 32)
         rows.append(dict(kernel=name, warps=warps, dynamic_shared=dyn, ctas_per_sm=ctas,
-                         warps_per_sm=ctas * warps, **usage, raw=lines[i + 1].strip()))
+                         warps_per_sm=ctas * warps, **usage, **extra, raw=lines[i + 1].strip()))
     return rows
 
 
@@ -496,16 +515,18 @@ def build_nvcc() -> str:
 
 def sweep(attention, scale: float) -> dict:
     """B.4 and SDPA device time over Nk at B=128, Nq=256, and a least-squares
-    line through each: fixed ms + ms per 64-key chunk."""
+    line through each: fixed ms + ms per key chunk of the kernel's plan
+    (``attention.plan``'s keys a chunk at each Nk)."""
     import torch.nn.functional as F
 
     rows = []
     for i, nk in enumerate(SWEEP_NK):
         q, k, v = attn_inputs(128, 256, nk, seed=200 + i)
-        rows.append(dict(nk=nk, kernel_ms=kernel_ms(
-            lambda: attention.fused_attention(q, k, v, scale))[0], library_ms=kernel_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))[0]))
-    chunks = [-(-r["nk"] // 64) for r in rows]
+        rows.append(dict(nk=nk, chunk_keys=attention.plan(128 * HEADS, 256, nk, D_HEAD)["keys"],
+                         kernel_ms=kernel_ms(lambda: attention.fused_attention(q, k, v, scale))[0],
+                         library_ms=kernel_ms(
+                             lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))[0]))
+    chunks = [-(-r["nk"] // r["chunk_keys"]) for r in rows]
     fit = {}
     for key in ("kernel_ms", "library_ms"):
         slope, intercept = statistics.linear_regression(chunks, [r[key] for r in rows])

@@ -149,6 +149,8 @@ def _lib():
     lib.wd_attention_max_d.restype = i
     lib.wd_attention_tile_rows.argtypes = [i, i]
     lib.wd_attention_tile_rows.restype = i
+    lib.wd_attention_plan.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.wd_attention_plan.restype = i
     lib.wd_cuda_error_string.argtypes = [i]
     lib.wd_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -192,16 +194,29 @@ def _launch(q, k, v, scale, lse=None, fast=False):
     out = torch.empty_like(q)
     if b * h == 0 or nq == 0:
         return out
-    with torch.cuda.device(q.device):
-        err = lib.wd_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if lse is None else lse.data_ptr(), b * h, nq, k.shape[2], d, float(scale),
-            int(fast), torch.cuda.current_stream(q.device).cuda_stream,
-        )
+    err = build.launch_on(q, lambda stream: lib.wd_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), b * h, nq, k.shape[2], d, float(scale),
+        int(fast), stream))
     _raise_on(lib, err, "attention kernel")
     launches += 1
     fast_launches += bool(fast)
     return out
+
+
+PLAN_KEYS = ("rows", "keys", "ctas", "smem", "q_slots", "kv_stages", "producer_regs",
+             "consumer_regs")
+
+
+def plan(bh: int, nq: int, nk: int, d: int = 80) -> dict:
+    """The kernel's launch plan for B*H = ``bh`` pairs of Nq, Nk at head
+    width d: query rows a CTA, keys a chunk, persistent CTAs, dynamic shared
+    memory, q ring slots, k / v ring stages, and the producer's and the
+    consumers' registers after setmaxnreg (0 where it is not used)."""
+    lib = _lib()
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    _raise_on(lib, lib.wd_attention_plan(bh, nq, nk, d, out), "attention plan")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def attention_lse(q, k, v, scale: float):
@@ -227,10 +242,9 @@ def attention_probs(q, k, lse, scale: float):
     if b * h > 65535:
         raise ValueError(f"attention_probs: B*H = {b * h} exceeds the grid's 65535")
     p = torch.empty((b, h, nq, nk), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        err = lib.wd_attention_probs(q.data_ptr(), k.data_ptr(), lse.data_ptr(), p.data_ptr(),
-                                     b * h, nq, nk, d, float(scale),
-                                     torch.cuda.current_stream(q.device).cuda_stream)
+    err = build.launch_on(q, lambda stream: lib.wd_attention_probs(
+        q.data_ptr(), k.data_ptr(), lse.data_ptr(), p.data_ptr(), b * h, nq, nk, d,
+        float(scale), stream))
     _raise_on(lib, err, "attention maps kernel")
     probs_launches += 1
     return p
