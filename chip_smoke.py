@@ -86,13 +86,14 @@ Phases, each of which must pass (any failure exits non-zero):
    attention backward calls and 4 FF backward launches per step; s/step.
 11. fold attention kernel vs plain: the context-folded attention sub-layer
    (``ops.fold_attention``) in both entry layouts (B.7's folds [B, C, H*L],
-   B.8's per-head [B, H, C, L], as ``build_folds`` lays them out and with
-   the L stride padded to 8) against its plain version at the fold path's
-   shapes (C=320, H=4, L=42; B 16 and 128; N 256 and 64) and a ragged one, bitwise
-   repeatability and the layouts bitwise equal, its route at each shape
-   (rows a tile, CTAs a cluster splitting the heads, how wt's rows are
-   copied), and the Function's gradients against plain autograd; kernel,
-   plain and bound times.
+   B.8's per-head [B, H, C, L], as ``build_folds`` lays them out, with the
+   L stride padded to 8, and contiguous) against its plain version at the
+   fold path's shapes (C=320, H=4, L=42; B 16 and 128; N 256 and 64) and a
+   ragged one, bitwise repeatability and the layouts bitwise equal, its
+   route at each shape (the persistent CTAs launched, no cluster; how wt
+   reaches shared memory), and the
+   Function's gradients against plain autograd; kernel, plain and bound
+   times.
 12. fold regeneration: the regeneration CLI with ``--preset iam_fold``
    (``iam`` with ``attn_fold_context``, registered in the port's presets):
    one UNet call with the fold kernel against the plain fold, and against
@@ -1239,9 +1240,9 @@ def fold_inputs(b: int, n: int, l: int, seed: int) -> dict:
 def phase11_fold(smi: str) -> dict:
     """The fold attention kernel against its plain version at the fold
     path's shapes, through both entries (B.8's per-head folds as
-    build_folds lays them out and with a padded L stride, B.7's [B, C, H*L]
-    folds), its route at each shape, and the Function against plain
-    autograd."""
+    build_folds lays them out, with the L stride padded, and contiguous;
+    B.7's [B, C, H*L] folds), its route at each shape, and the Function
+    against plain autograd."""
     import torch
     import torch.nn.functional as F
 
@@ -1251,16 +1252,16 @@ def phase11_fold(smi: str) -> dict:
     for i, (b, n, l) in enumerate(FOLD_SHAPES):
         t = fold_inputs(b, n, l, seed=70 + i)
         vecs = (t["gamma"], t["beta"], t["b_out"])
-        # B.8's folds as build_folds lays them out (contiguous), and with wt4 the
-        # [..., :L] view of an L stride rounded up to 8 (16-byte row copies);
-        # B.7's layout of the same folds: wt [B, C, H*L] (a copy), vw [B, H*L, C]
-        # (the same memory)
+        # B.8's folds as build_folds lays them out (wt4 the [..., :L] view of an L
+        # stride rounded up to 8: the kernel's TMA route) and contiguous (the
+        # producer's copy route); B.7's layout of the same folds: wt [B, C, H*L]
+        # (a copy), vw [B, H*L, C] (the same memory)
         wt4p = F.pad(t["wt4"], (0, -l % 8))[..., :l]
         wt = t["wt4"].permute(0, 2, 1, 3).reshape(b, D, HEADS * l).contiguous()
         vw = t["vw4"].view(b, HEADS * l, D)
 
         def per_head():
-            return fa.fold_attention_heads(t["x"], t["wt4"], t["vw4"], *vecs)
+            return fa.fold_attention_heads(t["x"], wt4p, t["vw4"], *vecs)
 
         def flat():
             return fa.fold_attention(t["x"], wt, vw, *vecs, HEADS)
@@ -1270,31 +1271,35 @@ def phase11_fold(smi: str) -> dict:
 
         n0 = fa.launches
         got, again, got7 = per_head(), per_head(), flat()
-        padded = fa.fold_attention_heads(t["x"], wt4p, t["vw4"], *vecs)
+        contiguous = fa.fold_attention_heads(t["x"], t["wt4"], t["vw4"], *vecs)
         torch.cuda.synchronize()
         assert fa.launches == n0 + 4, fa.launches - n0
         want = plain()
-        err = max((g.float() - want.float()).abs().max().item() for g in (got, got7))
+        err = max((g.float() - want.float()).abs().max().item() for g in (got, got7, contiguous))
         rel = err / want.float().abs().max().item()
         ms, ms7, plain_ms = launch_ms(per_head), launch_ms(flat), launch_ms(plain)
         bound_ms, bound_by = bound(nbytes(*t.values(), got), 4 * b * n * D * HEADS * l)
-        bm, cl = fa.route(b, n, HEADS)
-        log(f"fold attention B={b} N={n} C={D} H={HEADS} L={l} (route: {bm}-row tiles, "
-            f"{cl} CTAs a cluster of {HEADS // cl} heads each; wt rows copied "
-            f"{fa.wt_route(t['wt4'])}, B.7's {fa.wt_route(wt.view(b, D, HEADS, l).transpose(1, 2))}, "
-            f"L stride padded {fa.wt_route(wt4p)}): max_abs_err {err:.6g} "
-            f"max_rel_err {rel:.6g} (tol {FOLD_REL_TOL}); bitwise repeatable "
-            f"{torch.equal(got, again)}; B.7 layout == B.8 layout {torch.equal(got, got7)}; "
+        wt_routes = {name: fa.wt_route(w) for name, w in (
+            ("build_folds", wt4p), ("contiguous", t["wt4"]),
+            ("B.7", wt.view(b, D, HEADS, l).transpose(1, 2)))}
+        ctas = fa.ctas(b, n, l)
+        log(f"fold attention B={b} N={n} C={D} H={HEADS} L={l} (route: {ctas} persistent CTAs "
+            f"for {b * -(-n // 64)} tiles of 64 rows and {HEADS} heads, cluster 1; wt arrives "
+            f"{wt_routes}): "
+            f"max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {FOLD_REL_TOL}); bitwise "
+            f"repeatable {torch.equal(got, again)}; B.7 layout == B.8 layout "
+            f"{torch.equal(got, got7)}; contiguous == build_folds' {torch.equal(got, contiguous)}; "
             f"kernel {ms:.4f} ms (B.7 layout {ms7:.4f} ms) plain {plain_ms:.4f} ms bound "
             f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of the bound [{smi}]")
         assert got.shape == want.shape and got.dtype == torch.bfloat16
         assert bool(torch.isfinite(got.float()).all()), f"non-finite fold at {b, n, l}"
         assert torch.equal(got, again), f"fold attention differs between two runs at {b, n, l}"
-        assert torch.equal(got, got7) and torch.equal(got, padded), \
+        assert torch.equal(got, got7) and torch.equal(got, contiguous), \
             f"the layouts differ at {b, n, l}"
+        assert wt_routes["build_folds"] == "tma", wt_routes
         assert rel <= FOLD_REL_TOL, f"fold attention kernel disagrees at {b, n, l}: rel {rel}"
         rows.append(dict(b=b, n=n, l=l, err=err, ms=ms, ms7=ms7, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by))
+                         bound_ms=bound_ms, bound_by=bound_by, ctas=ctas))
 
     # The Function (kernel forward, plain-recompute backward) against plain
     # autograd at the training shape: the output and the six gradients.

@@ -137,10 +137,10 @@ def test_fold_functions_match_jax(dtype_name):
 def test_build_folds_match_jax_and_the_b8_kernel_at_either_l_stride(dtype_name, l, stride):
     """build_folds' folds: the same values as JAX's build_folds (1e-5
     relative in fp32, 1% of max in bf16, as test_fold_functions_match_jax),
-    and the sub-layer on them, with wt4 contiguous or as the [..., :L] view
-    of an L stride rounded up to 8 (the layout the CUDA kernel copies 16
-    bytes a row at a time), as B.8's kernel (interpret mode) computes it on
-    JAX's folds."""
+    and the sub-layer on them, with wt4 as build_folds returns it (the
+    [..., :L] view of an L stride rounded up to 8, which the CUDA kernel
+    reads through a tensor map) or made contiguous, as B.8's kernel
+    (interpret mode) computes it on JAX's folds."""
     jdt, tdt = DTYPES[dtype_name]
     n = 24
     a = _sublayer_inputs(n, l, seed=6)
@@ -149,12 +149,11 @@ def test_build_folds_match_jax_and_the_b8_kernel_at_either_l_stride(dtype_name, 
     jwt4, jvw4 = b8.build_folds(jctx, *ws, H, C // H, jdt)
     tws = [torch.from_numpy(w.T.copy()) for w in ws]
     wt4, vw4 = attention.build_folds(_to_torch(jctx, tdt), *tws, H, C // H, tdt)
-    assert tuple(wt4.shape) == (B, H, C, l) and wt4.is_contiguous() and vw4.is_contiguous()
-    assert wt4.dtype == vw4.dtype == tdt
-    if stride == "padded":
-        lp = -(-l // 8) * 8
-        wt4 = torch.nn.functional.pad(wt4, (0, lp - l))[..., :l]
-        assert wt4.stride() == (H * C * lp, C * lp, lp, 1)
+    lp = -(-l // 8) * 8
+    assert tuple(wt4.shape) == (B, H, C, l) and wt4.stride() == (H * C * lp, C * lp, lp, 1)
+    assert vw4.is_contiguous() and wt4.dtype == vw4.dtype == tdt
+    if stride == "contiguous":
+        wt4 = wt4.contiguous()
     for got, want in ((wt4, jwt4), (vw4, jvw4)):
         got, want = got.float().numpy(), np.asarray(want, np.float32)
         tol = (1e-5 if dtype_name == "float32" else 1e-2) * np.abs(want).max()
@@ -166,6 +165,47 @@ def test_build_folds_match_jax_and_the_b8_kernel_at_either_l_stride(dtype_name, 
         _to_torch(a["beta"], torch.float32), _to_torch(a["bo"], torch.float32))
     assert got.dtype == tdt and got.shape == (B, n, C)
     _check(got, want, dtype_name)
+
+
+@pytest.mark.parametrize("dtype_name", sorted(DTYPES))
+@pytest.mark.parametrize("l", [13, 42, 48])
+def test_build_folds_padded_layout_keeps_the_values(dtype_name, l):
+    """wt4's padded L stride changes no value: bitwise the folds of the
+    contiguous layout build_folds returned before (the fp32 folds rounded
+    to the dtype, row-major), and as close to B.8's build_folds as
+    test_fold_functions_match_jax allows; gradients flow through the view
+    to every projection as through the contiguous folds, bitwise."""
+    jdt, tdt = DTYPES[dtype_name]
+    ctx, ws = _context_inputs(l, seed=11)
+    jwt4, jvw4 = b8.build_folds(jnp.asarray(ctx, jdt), *ws, H, C // H, jdt)
+    tctx = _to_torch(ctx, tdt)
+
+    def contiguous_folds(context, wq, wk, wv, wo):
+        b, n, _ = context.shape
+        kh = (context @ wk.to(tdt).t()).reshape(b, n, H, C // H)
+        vh = (context @ wv.to(tdt).t()).reshape(b, n, H, C // H)
+        wq3 = wq.to(tdt).t().reshape(-1, H, C // H)
+        wo3 = wo.to(tdt).t().reshape(H, C // H, -1)
+        wt4 = torch.einsum("chd,blhd->bhcl", wq3.float(), kh.float()) * (C // H) ** -0.5
+        vw4 = torch.einsum("blhd,hdf->bhlf", vh.float(), wo3.float())
+        return tuple(f.to(tdt, memory_format=torch.contiguous_format).contiguous()
+                     for f in (wt4, vw4))
+
+    grads = []
+    for fn in (lambda *a: attention.build_folds(*a, H, C // H, tdt), contiguous_folds):
+        tws = [torch.from_numpy(w.T.copy()).requires_grad_() for w in ws]
+        wt4, vw4 = fn(tctx, *tws)
+        co = torch.from_numpy(np.random.default_rng(12).standard_normal(wt4.shape)).float()
+        ((wt4.float() * co).sum() + vw4.float().square().sum()).backward()
+        grads.append(((wt4, vw4), [w.grad for w in tws]))
+    (got, got_g), (before, before_g) = grads
+    assert got[0].stride()[-2:] == (-(-l // 8) * 8, 1)
+    for a, b in zip(got + tuple(got_g), before + tuple(before_g)):
+        assert a.shape == b.shape and torch.equal(a, b)
+    for g, want in zip(got, (jwt4, jvw4)):
+        g, want = g.float().detach().numpy(), np.asarray(want, np.float32)
+        tol = (1e-5 if dtype_name == "float32" else 1e-2) * np.abs(want).max()
+        np.testing.assert_allclose(g, want, rtol=0, atol=tol)
 
 
 @pytest.mark.parametrize("layout", ["b7", "b8"])

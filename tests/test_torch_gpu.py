@@ -672,24 +672,30 @@ def test_fold_kernel_matches_plain(cuda, layout, b, n, l):
     """bf16 out: the two differ in the order of the fp32 sums, which can
     move one bf16 rounding -> within 1% of max |out|; bitwise repeatable,
     and bitwise the contiguous per-head layout's result whatever the
-    layout, as the copy route never changes the arithmetic. B.7's entry
-    takes the folds as [B, C, H*L] and [B, H*L, C]; "b8_padded" is wt4 as
-    the [..., :L] view of an L stride rounded up to 8. L=42 copies wt's rows
-    16 bytes (padded), 4 bytes (B.7's and the contiguous layout) at a time,
-    L=13 element by element."""
+    layout, as the route of wt's loads never changes the arithmetic. B.7's
+    entry takes the folds as [B, C, H*L] and [B, H*L, C] (wt copied by the
+    producer's threads: a head's columns start off 16 bytes); "b8_padded"
+    is wt4 as the [..., :L] view of an L stride rounded up to 8, as
+    build_folds returns it (TMA); the contiguous layout is copied by the
+    producer's threads unless L is a multiple of 8."""
     from worddiffusion_tpu_torch.ops import fold_attention as fa
 
     t = _fold_inputs(b, n, l, cuda)
     vecs = (t["gamma"], t["beta"], t["b_out"])
+    wt4, vw4 = t["wt4"], t["vw4"]
     if layout == "b7":
         wt = t["wt4"].permute(0, 2, 1, 3).reshape(b, D, 4 * l).contiguous()
-        run = lambda: fa.fold_attention(t["x"], wt, t["vw4"].reshape(b, 4 * l, D), *vecs, 4)
+        vw = t["vw4"].reshape(b, 4 * l, D)
+        wt4, vw4 = wt.view(b, D, 4, l).permute(0, 2, 1, 3), vw.view(b, 4, l, D)
+        assert fa.wt_route(wt4) == "copy"
+        run = lambda: fa.fold_attention(t["x"], wt, vw, *vecs, 4)
     elif layout == "b8_padded":
         lp = -(-l // 8) * 8
         wt4 = torch.nn.functional.pad(t["wt4"], (0, lp - l))[..., :l]
-        assert fa.wt_route(wt4) == "16-byte"
+        assert fa.wt_route(wt4) == "tma"
         run = lambda: fa.fold_attention_heads(t["x"], wt4, t["vw4"], *vecs)
     else:
+        assert fa.wt_route(wt4) == ("tma" if l % 8 == 0 else "copy")
         run = lambda: fa.fold_attention_heads(t["x"], t["wt4"], t["vw4"], *vecs)
     before = fa.launches
     got, again = run(), run()
@@ -699,43 +705,72 @@ def test_fold_kernel_matches_plain(cuda, layout, b, n, l):
     want = fa.fold_attention_reference(t["x"], t["wt4"], t["vw4"], *vecs)
     assert got.dtype == torch.bfloat16 and got.shape == want.shape
     assert torch.equal(got, again) and torch.equal(got, contiguous)
+    tol = 1e-2 * want.float().abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= tol, err
+
+
+@pytest.mark.parametrize("c,heads,b,n,l", [(64, 4, 2, 40, 13), (128, 1, 2, 64, 80),
+                                           (160, 4, 3, 100, 40), (304, 2, 2, 64, 42)])
+def test_fold_kernel_matches_plain_below_full_width(cuda, c, heads, b, n, l):
+    """A width C < 320 (C % 16 == 0) runs padded to 320, its columns past C
+    zero: within 1% of plain's max |out|, bitwise repeatable, wt4 by TMA (L
+    stride padded to 8) and as it lies (copied where L % 8) giving the same
+    bits. C = 64 and 160 leave whole boxes of x, vw and wt past C."""
+    from worddiffusion_tpu_torch.ops import fold_attention as fa
+
+    t = _fold_inputs(b, n, l, cuda, c=c, heads=heads, seed=c)
+    vecs = (t["gamma"], t["beta"], t["b_out"])
+    wt4p = torch.nn.functional.pad(t["wt4"], (0, -l % 8))[..., :l]
+    assert fa.wt_route(wt4p) == "tma"
+    assert fa.wt_route(t["wt4"]) == ("tma" if l % 8 == 0 else "copy")
+    before = fa.launches
+    got, again = (fa.fold_attention_heads(t["x"], wt4p, t["vw4"], *vecs) for _ in range(2))
+    contiguous = fa.fold_attention_heads(t["x"], t["wt4"], t["vw4"], *vecs)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 3
+    want = fa.fold_attention_reference(t["x"], t["wt4"], t["vw4"], *vecs)
+    assert got.shape == want.shape
+    assert torch.equal(got, again) and torch.equal(got, contiguous)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 1e-2 * want.float().abs().max().item(), err
 
 
 def test_fold_routes_fill_the_card_and_copy_rows_as_they_lie(cuda):
-    """At B=16 the heads split across a cluster (and 32-row tiles at N=64),
-    so that the small batch still gives 90% of the SMs a CTA; at B=128 one
-    CTA takes a tile's four heads. wt's rows are copied 4 bytes at a time in
-    build_folds' layout (L=42) and B.7's, 16 bytes at a time where the L
-    stride is padded to a multiple of 8, element by element for an odd L."""
+    """One CTA a tile while the tiles are fewer than the SMs (B=16: 64 at
+    N=256, 16 at N=64), and at B=128 one persistent CTA an SM (the card's
+    shared memory holds one) walking the tiles; a CTA takes all four heads
+    of its tiles. build_folds
+    pads wt4's L stride to 48, so its wt4 arrives by TMA; the contiguous
+    L=42 layout, an odd L and B.7's flat rows are copied."""
     from worddiffusion_tpu_torch.models.attention import build_folds
     from worddiffusion_tpu_torch.ops import fold_attention as fa
 
-    assert fa.route(16, 256, 4) == (64, 2) and fa.route(16, 64, 4) == (32, 4)
-    assert fa.route(128, 256, 4) == (64, 1) and fa.route(128, 64, 4) == (64, 1)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert fa.ctas(16, 256, 42) == 64 and fa.ctas(16, 64, 42) == 16
+    assert fa.ctas(128, 256, 42) == min(512, sms) and fa.ctas(128, 64, 42) == min(128, sms)
     g = torch.Generator().manual_seed(0)
     ctx = torch.randn(2, 42, 320, generator=g).bfloat16().to(cuda)
     ws = [(torch.randn(320, 320, generator=g) / 320 ** 0.5).to(cuda) for _ in range(4)]
     wt4, _ = build_folds(ctx, *ws, 4, 80, torch.bfloat16)
-    assert wt4.is_contiguous() and fa.wt_route(wt4) == "4-byte"
-    padded = torch.nn.functional.pad(wt4, (0, 6))[..., :42]
-    assert fa.wt_route(padded) == "16-byte"
+    assert wt4.stride() == (4 * 320 * 48, 320 * 48, 48, 1) and fa.wt_route(wt4) == "tma"
+    assert fa.wt_route(wt4.contiguous()) == "copy"
     flat = wt4.permute(0, 2, 1, 3).reshape(2, 320, 168)
-    assert fa.wt_route(flat.view(2, 320, 4, 42).permute(0, 2, 1, 3)) == "4-byte"
+    assert fa.wt_route(flat.view(2, 320, 4, 42).permute(0, 2, 1, 3)) == "copy"
     odd = torch.zeros(2, 4, 320, 13, dtype=torch.bfloat16, device=cuda)
-    assert fa.wt_route(odd) == "element"
+    assert fa.wt_route(odd) == "copy"
 
 
-@pytest.mark.parametrize("case,route", [("tail_short", "4-byte"), ("tail_room", "16-byte"),
-                                        ("expanded_short", "4-byte"),
-                                        ("expanded_room", "16-byte")])
+@pytest.mark.parametrize("case,route", [("tail_short", "tma"), ("tail_room", "tma"),
+                                        ("expanded_short", "copy"),
+                                        ("expanded_room", "copy")])
 def test_fold_kernel_reads_wt_inside_its_allocation(cuda, case, route):
-    """wt4 with an L stride of 48 at L=42: its rows may be copied 16 bytes at
-    a time (48 elements) only where the last row's 48 lie inside the
-    allocation. "short" ends the storage at the last row's L (as_strided),
-    "room" leaves the stride's 6; "expanded" is one sample's folds expanded
-    over the batch (sample stride 0). Bitwise the contiguous folds' result."""
+    """wt4 with an L stride of 48 at L=42: a tensor map of L columns reads
+    no element past a row's L, so the storage may end at the last row's L
+    (as_strided: "short") or leave the stride's 6 ("room"); "expanded" is
+    one sample's folds expanded over the batch (sample stride 0), which no
+    tensor map takes, so the producer's threads copy it. Bitwise the
+    contiguous folds' result."""
     from worddiffusion_tpu_torch.ops import fold_attention as fa
 
     b, n, l, h = 2, 64, 42, 4
@@ -755,13 +790,15 @@ def test_fold_kernel_reads_wt_inside_its_allocation(cuda, case, route):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("bad", ["fp32_x", "c_not_16", "l_over_limit", "heads_l_over_c",
-                                 "strided_x", "wt_l_strided"])
+@pytest.mark.parametrize("bad", ["fp32_x", "c_not_16", "c_over_320", "l_over_limit",
+                                 "heads_l_over_c", "strided_x", "wt_l_strided"])
 def test_fold_kernel_refuses_what_it_does_not_take(cuda, bad):
     from worddiffusion_tpu_torch.ops import fold_attention as fa
 
     if bad == "c_not_16":
         t = _fold_inputs(2, 64, 13, cuda, c=72)
+    elif bad == "c_over_320":
+        t = _fold_inputs(2, 64, 13, cuda, c=336)
     elif bad == "l_over_limit":
         t = _fold_inputs(2, 64, fa._lib().wd_fold_attention_max_l() + 1, cuda, heads=1)
     elif bad == "heads_l_over_c":

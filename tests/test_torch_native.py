@@ -12,9 +12,29 @@ and the PNG rounding it repairs.
   and the library differ at 128 of the 255 ties;
 - a build with a compiler that fails raises, naming the command; with
   ``$CXX`` failing the build takes ``g++``, and raises where that fails too.
+
+The JAX package's loader builds ``native/libwdimage.so`` with ``make`` in
+place and caches a failed load for the life of the process. Under
+``pytest -n``, every worker collects ``tests/test_native.py``, whose
+``skipif`` runs that loader at import time, so on a tree without the
+library the workers' builds race and a worker can be left with the
+failure cached. The module fixture ``jax_library`` makes the library
+whole first: under a file lock it loads it, or builds it with the
+Makefile's own command into a temporary file and renames that over the
+target, retrying for a bounded time while another worker's ``make`` may
+still be writing; then it clears the loader's cached failure. The tests
+still compare the port's library with the one the JAX module loads.
 """
 
+import fcntl
 import os
+import re
+import shlex
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -26,10 +46,88 @@ from worddiffusion_tpu_torch.data.png import read_image
 from worddiffusion_tpu_torch.utils import images
 
 TIES = ((np.arange(255) + 0.5) / 255).astype(np.float32)
+REPO = Path(__file__).resolve().parents[1]
+MAKEFILE = REPO / "native" / "Makefile"
+# the library's ABI version, as the JAX loader checks it
+WD_VERSION = 1
+
+
+def make_command(target: Path) -> list[str]:
+    """``native/Makefile``'s recipe, ``$(CXX) $(CXXFLAGS) -shared -o $@ $<``,
+    with its defaults for ``CXX`` and ``CXXFLAGS`` where the environment
+    sets neither (``?=``), writing to ``target``."""
+    defaults = dict(re.findall(r"^(CXX|CXXFLAGS) \?= (.*)$", MAKEFILE.read_text(), re.M))
+    cxx = os.environ.get("CXX") or defaults["CXX"]
+    flags = os.environ.get("CXXFLAGS") or defaults["CXXFLAGS"]
+    return [*shlex.split(cxx), *shlex.split(flags), "-shared", "-o", str(target),
+            str(MAKEFILE.parent / "src" / "wd_image.cpp")]
+
+
+def _loads(target: Path) -> bool:
+    """Whether ``target`` loads and reports the expected version, tried in
+    a child process: mapping a library cut short can kill the process
+    with SIGBUS, and a loaded library cannot be unloaded."""
+    probe = ("import ctypes, sys; lib = ctypes.CDLL(sys.argv[1]); "
+             "lib.wd_version.restype = ctypes.c_int; print(lib.wd_version())")
+    res = subprocess.run([sys.executable, "-c", probe, str(target)], capture_output=True,
+                         text=True, timeout=60)
+    return res.returncode == 0 and res.stdout.strip() == str(WD_VERSION)
+
+
+def ensure_library(target: Path, timeout: float = 120.0) -> None:
+    """Leave a library at ``target`` that loads and has the expected
+    version: load it, or build it with the Makefile's command into a
+    temporary file beside it and rename that onto ``target``, and load
+    again. A build that fails raises, naming the command; a library that
+    still will not load (another process may be writing the same path)
+    is retried until ``timeout`` seconds have passed."""
+    deadline = time.monotonic() + timeout
+    while not _loads(target):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"{target} does not load after {timeout:.0f} s")
+        fd, tmp = tempfile.mkstemp(suffix=".so", prefix=".build-", dir=target.parent)
+        os.close(fd)
+        cmd = make_command(Path(tmp))
+        try:
+            res = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+            if res.returncode != 0:
+                raise RuntimeError(f"{shlex.join(cmd)} failed to build {target.name} "
+                                   f"({res.returncode}): {res.stderr[-2000:]}")
+            os.replace(tmp, target)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+        if not _loads(target):
+            time.sleep(1.0)
+
+
+def restore_jax_library(mp: pytest.MonkeyPatch, target: Path, lock_path: Path) -> None:
+    """Make the JAX package's library at ``target`` whole under a file lock
+    (``ensure_library``), then clear the JAX loader's cached result (``mp``
+    undoes it), so that its own loader loads ``target`` afresh."""
+    lock_path.parent.mkdir(exist_ok=True)
+    with open(lock_path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            ensure_library(target)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    mp.setattr(jnative, "_tried", False)
+    mp.setattr(jnative, "_lib", None)
+    mp.delenv("WD_NATIVE", raising=False)
+    assert jnative.preferred()
+
+
+@pytest.fixture(scope="module")
+def jax_library():
+    """The JAX package's library, whole and loaded by its own loader."""
+    with pytest.MonkeyPatch.context() as mp:
+        restore_jax_library(mp, Path(jnative._LIB_PATH), REPO / "build" / "jax_native.lock")
+        yield
 
 
 @pytest.fixture(autouse=True)
-def library_on(monkeypatch):
+def library_on(monkeypatch, jax_library):
     monkeypatch.delenv("WD_NATIVE", raising=False)
     assert jnative.preferred() and native.preferred()
 
@@ -153,3 +251,49 @@ def test_failed_build_raises(monkeypatch, tmp_path):
             native.batch_normalize(np.zeros(3, np.uint8))
     finally:
         native.load.cache_clear()
+
+
+def test_ensure_library_rebuilds_a_truncated_library(tmp_path):
+    """A library cut short (as a reader sees one another process is still
+    writing) is rebuilt by the Makefile's command and then loads."""
+    target = tmp_path / "libwdimage.so"
+    target.write_bytes(Path(jnative._LIB_PATH).read_bytes()[:4096])
+    assert not _loads(target)
+    ensure_library(target)
+    assert _loads(target)
+    assert not list(tmp_path.glob(".build-*"))
+
+
+def test_ensure_library_raises_naming_the_failed_command(monkeypatch, tmp_path):
+    monkeypatch.setenv("CXX", "/bin/false")
+    target = tmp_path / "libwdimage.so"
+    with pytest.raises(RuntimeError, match=r"^/bin/false .*-shared -o .*failed to build"):
+        ensure_library(target, timeout=5.0)
+    assert not target.exists() and not list(tmp_path.glob(".build-*"))
+
+
+@pytest.mark.parametrize("state", ["missing", "truncated", "not_a_library"])
+def test_jax_loader_recovers_from_a_cached_failure(monkeypatch, tmp_path, state):
+    """The state that failed this module's tests under ``pytest -n``: the
+    JAX loader has cached a failed load (``_tried`` set, no library) of a
+    library that is missing, cut short or not yet a library. The module
+    fixture's logic rebuilds it and clears the cache; the JAX loader then
+    loads it itself, and its entry points equal the port's, bitwise."""
+    target = tmp_path / "libwdimage.so"
+    if state == "truncated":
+        target.write_bytes(Path(jnative._LIB_PATH).read_bytes()[:4096])
+    elif state == "not_a_library":
+        target.write_bytes(b"half-written\n")
+    monkeypatch.setattr(jnative, "_LIB_PATH", str(target))
+    monkeypatch.setattr(jnative, "_tried", True)
+    monkeypatch.setattr(jnative, "_lib", None)
+    assert not jnative.preferred()
+    restore_jax_library(monkeypatch, target, tmp_path / "jax_native.lock")
+    assert jnative.preferred() and _loads(target)
+    assert os.path.samefile(jnative._load()._name, target)
+    imgs = crops(7, 3)
+    assert np.array_equal(jnative.batch_resize_pad_normalize(imgs, 64, 256),
+                          native.batch_resize_pad_normalize(imgs, 64, 256))
+    x = decoder_like(8)
+    assert np.array_equal(jnative.batch_denormalize(x), native.batch_denormalize(x))
+    assert np.array_equal(jnative.batch_denormalize(TIES), np.arange(1, 256))

@@ -22,8 +22,8 @@
 // B.8 sums the heads in fp32 one after another, B.7 contracts over H*L in one dot;
 // here each head's product accumulates in fp32 registers and the heads' sums are
 // added in head order. The orders differ only in fp32 rounding, far below the
-// output's bf16 rounding; the staging route never changes the arithmetic, so the
-// two layouts give the same bits.
+// output's bf16 rounding; how the folds are loaded never changes the arithmetic,
+// so the two layouts give the same bits.
 //
 // What bounds it on this card. At the iam UNet's shapes (C = 320, H = 4, L = 42,
 // N = 256 or 64 tokens) the work is 4*B*N*C*H*L FLOP on B*N*C*2 bytes of x, as many
@@ -35,124 +35,145 @@
 // writes LN(x), the [N, H, L] scores and probabilities and the [N, C] product to
 // memory between them; here none of them leaves the SM.
 //
-// Design:
-//   - a thread-block cluster of CL CTAs (1, 2 or 4) shares a tile of BM rows (64,
-//     or 32 where 64-row tiles leave SMs idle) of one sample and splits the heads:
-//     CTA r takes heads [r*H/CL, (r+1)*H/CL) and stages only their folds. The
-//     route (BM, CL) is the first of (64, 1), (64, 2), (64, 4), (32, 1..4) that
-//     gives 90% of the SMs a CTA (B = 16: 128 CTAs instead of 64 or 16; B = 128:
-//     one CTA a tile, which takes all four heads);
-//   - the folds are copied into shared memory as they lie, by cp.async: wt_h as
-//     [C rows x L] (16-byte copies where its rows start on 16-byte boundaries,
-//     an L stride that is a multiple of 8, and the last row's L rounded up to 8
-//     lies inside wt's allocation; 4-byte copies for an even L, such as
-//     build_folds' contiguous rows at 84*c bytes and B.7's at 84*h + 336*c; element
-//     copies for an odd L), vw_h as
-//     [L rows x C] in 16-byte copies; the next head's folds are copied behind the
-//     current head's products where two sets fit. The mma fragments come from
-//     ldmatrix (xn) and ldmatrix.trans (wt_h and vw_h, which are k-by-n
-//     row-major), so nothing is transposed element by element;
-//   - each CTA copies its x tile into shared memory (cp.async, ahead of the first
-//     folds) and computes the tile's LayerNorm from it in fp32, one warp a row, 16
-//     bytes a lane, into xn (bf16, shared memory) while the first folds land; the
-//     epilogue reads x from the same tile;
-//   - warp w owns rows 16*(w % (BM/16)) and the output columns of half
-//     w / (BM/16); it computes its rows' [16, Lp] scores with mma.sync.m16n8k16
-//     (Lp = L rounded up to 16; columns past L score -inf), the exact fp32 softmax
-//     over the row in registers (Lp <= 80, no online rescaling), rounds p to bf16
-//     in the score registers, which are the A operand of p . vw_h, accumulated
-//     over the CTA's heads in a [16, C/2] fp32 register tile;
-//   - the epilogue: each CTA writes its partial [BM, C] fp32 to shared memory,
-//     cluster barrier, and CTA r sums rows [r*BM/CL, (r+1)*BM/CL) over the CL
-//     partials in rank (head) order through distributed shared memory, adds x and
-//     b_out in fp32 and rounds once, 16-byte stores.
-// Bitwise repeatable: no atomics; for a given shape the route and every sum's
-// order are fixed.
+// Design (the parts of attention.cu's B.4, csrc/hopper.cuh):
+//   - a CTA is a consumer warpgroup and a producer warpgroup, one CTA an SM
+//     (227 KB of shared memory, 255 registers a thread, so setmaxnreg has
+//     nothing to move); the producer's thread 0 issues every load as a TMA box
+//     into shared memory completing on an mbarrier;
+//   - the work is units of 64-row tiles, and the CTAs are persistent, as many
+//     as are resident (one an SM), each walking its units, so that the
+//     producer runs ahead into the next tile. At B = 16 that leaves SMs idle
+//     (64 CTAs at N = 256, 16 at N = 64); splitting a tile's heads across a
+//     cluster of 2 or 4 CTAs, their fp32 partials summed through distributed
+//     shared memory, gave more SMs work but read slower at both shapes (the
+//     partials' round trip and the cluster's barriers; PERF.md), so there is
+//     one launch policy;
+//   - shared memory: two x tiles (the next tile's x lands in one while the
+//     consumer works in the other) and a ring of head stages (2 at L = 42), each
+//     wt_h and vw_h with a full and an empty barrier apiece, so that the next
+//     head's wt lands behind this head's softmax and p . vw, and its vw behind
+//     the next score product. x, xn, y and vw_h are in 64-column atoms with the
+//     128-byte swizzle; wt_h, whose LP columns (L rounded up to 16) are the
+//     score product's N, in 16-column panels with the 32-byte swizzle, so that
+//     N is 48 and not a 64-column atom (the 32 score registers of N = 64 pushed
+//     the consumer's o into local memory);
+//   - the consumer, per tile: o [64, 320] fp32 in registers starts as x + b_out,
+//     read from the raw tile; the LayerNorm in place (two passes for the
+//     statistics, one to write); then per head the score product s_h = xn .
+//     wt_h on wgmma (m64 x LP x k16 over C / 16 steps, both operands in shared
+//     memory), the exact fp32 softmax of the row's L columns in registers
+//     (columns past L score -inf, LP <= 80, no online rescaling), p rounded to
+//     bf16 in the score registers, which are the layout of wgmma's register A
+//     operand, and o += p_h . vw_h on wgmma (m64 x (128, 128, 64) x k16 over
+//     LP / 16 steps); then y = bf16(o) into the tile's own buffer and TMA
+//     stores (rows past N clipped);
+//   - TMA needs the folds' global strides in multiples of 16 bytes, and a box
+//     whose first column starts off a 16-byte boundary faults (B.7's head h at
+//     column h * 42 of its [B, C, H*L] rows did, on the H100): wt4 with its L
+//     stride a multiple of 8 (build_folds pads it to 48 for L = 42) is read
+//     through a rank-4 map [B, H, C, L]; any other wt4 (B.7's layout, the
+//     contiguous L = 42 layout, an odd L) is copied by the producer
+//     warpgroup's 128 threads into the same panels. vw4 is contiguous, so
+//     always TMA;
+//   - a narrower width (C % 16 == 0, C < 320) runs as C = 320 with the
+//     columns past C zero: the tensor maps have C columns, so TMA fills the
+//     rest of every box with zeros and clips the stores, and the LayerNorm
+//     takes its statistics over the C columns only. The padding adds zeros
+//     to the sums, and costs the full width's work.
+// The residual joins the fp32 sum first (o = x + b_out, then each head's
+// product in head order), one rounding at the end, as the contract above: the
+// association differs from B.8's body, (x + sum_h) + b_out, only in fp32
+// rounding. Bitwise repeatable: no atomics, and every sum's order is fixed,
+// whatever the route of wt's loads.
+//
+// The host encodes the tensor maps with the driver's cuTensorMapEncodeTiled,
+// reached through the runtime's cudaGetDriverEntryPoint (no -lcuda), and caches
+// them per host thread.
 
-#include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and the encode's enums (header only)
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <atomic>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
+#include <initializer_list>
 
-namespace cg = cooperative_groups;
+#include "hopper.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-constexpr int PAD = 8;      // bf16 row padding (16 bytes): ldmatrix rows on distinct banks
-constexpr int MAX_C = 320;  // the per-warp accumulator is [16, C / 2] fp32
+constexpr int C = 320;      // the register tile's width: o [64, C] fp32 is the consumer's
+                            // registers (a narrower width runs padded to it)
 constexpr int MAX_L = 80;   // = C / H at the UNet's widths: one head per 80 channels
-constexpr int MAX_CT = MAX_C / 16;  // 8-column output tiles per warp
-constexpr int SMEM_LIMIT = 227 * 1024;
+constexpr int BM = 64;      // rows a tile: one wgmma M
+constexpr int ATOMS = C / 64;         // 64-column atoms of the 128-byte swizzle across C
+constexpr int ATOM = BM * 128;        // an x tile's atom: [64 rows][64] bf16
+constexpr int XN_BYTES = BM * C * 2;  // an x tile: ATOMS atoms
+constexpr int WT_BOX = C / 2;         // rows of a wt box (a box has at most 256)
+constexpr int THREADS = 256;          // the consumer warpgroup, then the producer's
+constexpr int CONS_BAR = 1, PROD_BAR = 2;  // named barriers of each warpgroup
+constexpr int SMEM = 232448;  // a CTA's most: one CTA an SM
+constexpr int MAX_STAGES = 4;
 
-// How wt's rows are copied: 16-byte, 4-byte or element copies.
-enum WtRoute { WT16 = 0, WT4 = 1, WT1 = 2 };
+// How wt reaches shared memory: TMA boxes of a rank-4 map [B, H, C, L], or
+// copies by the producer's threads.
+enum WtMode { WT_TMA = 0, WT_COPY = 1 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// Shared memory of a CTA, bytes from a 1024-byte aligned base: two x tiles
+// (x lands in one, is normalised in place into xn and, after the tile's last
+// score product, holds y for the TMA store, while the next tile's x lands in
+// the other); then the ring's head stages, each wt_h [C][LP] and vw_h [LP][C],
+// as many as fit;
+// then the barriers (x full 2, x empty 2; per stage wt full, wt empty, vw
+// full, vw empty). x, xn and vw_h are in 64-column atoms of [rows][64] bf16
+// with the 128-byte swizzle (TMA's, and the one wgmma reads): the 16-byte
+// chunk j of row r is stored at chunk j ^ (r % 8); wt_h, whose LP columns are
+// the scores' N, in 16-column panels of [C][16] with the 32-byte swizzle
+// (chunk j ^ (r / 4) % 2), so that N is LP and not a whole 64-column atom
+// (the 32 score registers of N = 64 spilled the consumer's o).
+struct Smem {
+  int wt, vw, stage, nst, stages, bars, size;
+};
+
+__host__ __device__ constexpr Smem smem_layout(int lp) {
+  Smem s{};
+  s.wt = C * lp * 2;
+  s.vw = lp * C * 2;
+  s.stage = s.wt + s.vw;
+  s.stages = 2 * XN_BYTES;
+  const int n = (SMEM - 1024 - 8 * (4 + 4 * MAX_STAGES) - s.stages) / s.stage;
+  s.nst = n > MAX_STAGES ? MAX_STAGES : n;
+  s.bars = s.stages + s.nst * s.stage;
+  s.size = s.bars + 8 * (4 + 4 * s.nst) + 1024;  // + the base's alignment
+  return s;
 }
 
-__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
-  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    __nv_bfloat162 p = *reinterpret_cast<const __nv_bfloat162*>(&w[j]);
-    f[2 * j] = __low2float(p);
-    f[2 * j + 1] = __high2float(p);
+// Until the barrier's phase of parity `parity` has completed. A phase that
+// does not complete within seconds is a fault of the launch (a load that never
+// landed, an arrival that never came): the kernel traps, and the launch fails
+// with an error, rather than spin on.
+__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
   }
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
 }
 
 // The four threads of a quad (t = 0..3) hold one row between them.
@@ -166,366 +187,398 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Shared memory of a CTA, bf16 elements: with two fold buffers, the x tile
-// [BM][C + PAD] apart; xn [BM][C + PAD] (which, with one buffer, first holds
-// the x tile and is normalised in place); then the `bufs` fold buffers, each
-// wt_h [C][LP + PAD] and vw_h [LP][C + PAD]. The epilogue's fp32 partial [BM][C
-// + 4] lies over xn and the folds.
-struct Layout {
-  int ldx, ldw, buf;  // row strides of x, xn, vw_h and of wt_h; a buffer's elements
-  int xn;             // xn's offset, elements
-  size_t total;       // bytes
-};
-
-__host__ __device__ inline Layout make_layout(int bm, int c, int lp, int bufs) {
-  Layout L;
-  L.ldx = c + PAD;
-  L.ldw = lp + PAD;
-  L.buf = c * L.ldw + lp * L.ldx;
-  L.xn = bufs == 2 ? bm * L.ldx : 0;
-  const size_t bytes = 2 * (size_t(L.xn) + size_t(bm) * L.ldx + size_t(bufs) * L.buf);
-  const size_t red = 2 * size_t(L.xn) + size_t(bm) * (c + 4) * 4;
-  L.total = bytes > red ? bytes : red;
-  return L;
+// Byte offset of element (r, c) (c < 64) in a [rows][64] atom, 128-byte swizzle.
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
 }
 
-// x, out [B, N, C]; wt element (b, h, c, l) at b*wt_sb + h*wt_sh + c*wt_sc + l;
-// vw [B, H, L, C] contiguous; gamma, beta, bo [C] fp32. LP = L rounded up to 16.
-// grid (tiles * CL, B), cluster (CL, 1, 1). BUFS fold buffers (1 or 2). STOP is
-// 0 on every path; kernel_times' phase timing builds its own instances, which
-// end after the LayerNorm (1), copy the folds but run no product (2), or run
-// the products on folds never copied (3).
-template <int LP, int BM, int BUFS, int STOP>
-__global__ void __launch_bounds__(BM * 4)
-    fold_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wt,
-                          const bf16* __restrict__ vw, const float* __restrict__ gamma,
-                          const float* __restrict__ beta, const float* __restrict__ bo,
-                          bf16* __restrict__ out, int n, int c, int heads, int l,
-                          long long wt_sb, long long wt_sh, long long wt_sc, float eps,
-                          int route) {
-  constexpr int ST = LP / 8;          // score tiles
-  constexpr int WARPS = BM / 8;       // BM / 16 row groups x 2 column halves
-  constexpr int THREADS = WARPS * 32;
-  constexpr int RG = BM / 16;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int cl = static_cast<int>(cluster.num_blocks());
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay = make_layout(BM, c, LP, BUFS);
-  const int ldx = lay.ldx, ldw = lay.ldw;
-  // the x tile: apart where there are two fold buffers (the epilogue reads x
-  // from it), else xn itself (the epilogue reads x from device memory)
-  constexpr bool keep_x = BUFS == 2;
-  bf16* xs = reinterpret_cast<bf16*>(smem);  // [BM][ldx]
-  bf16* xn = xs + lay.xn;                    // [BM][ldx]
-  bf16* folds = xn + BM * ldx;
-  float* red = reinterpret_cast<float*>(xn);
+// Descriptor of an MN-major matrix in 64-column atoms `lbo` bytes apart,
+// 128-byte swizzle (8-row groups of 1024 bytes along K).
+__device__ __forceinline__ uint64_t desc_mn(const void* p, uint32_t lbo) {
+  return make_desc(p, lbo, 1024, SW128);
+}
 
-  const int b = blockIdx.y;
-  const int row0 = (blockIdx.x / cl) * BM;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int mi = lane >> 3, lr = lane & 7;  // ldmatrix: this lane's matrix and row
-  const bf16* xb = x + size_t(b) * n * c;
-  const int hpc = heads / cl, h0 = rank * hpc;  // this CTA's heads
-  const int nh = STOP == 1 ? 0 : hpc;
-  const int cv = c / 8;
+// Descriptor of an MN-major matrix in 16-column panels `lbo` bytes apart,
+// 32-byte swizzle (8-row groups of 256 bytes along K).
+__device__ __forceinline__ uint64_t desc_mn32(const void* p, uint32_t lbo) {
+  return make_desc(p, lbo, 256, SW32);
+}
 
-  // head h0 + i's folds into buffer i % BUFS: wt_h rows as they lie (columns
-  // past L are left as they are: their scores are overwritten with -inf), vw_h
-  // rows in 16-byte copies, rows l .. LP zero
-  auto stage = [&](int i) {
-    if constexpr (STOP == 3) return;
-    bf16* wts = folds + (i % BUFS) * lay.buf;
-    bf16* vws = wts + c * ldw;
-    const int h = h0 + i;
-    const bf16* wth = wt + b * wt_sb + h * wt_sh;
-    if (route == WT16) {
-      const int per = (l + 7) / 8;
-      for (int k = tid; k < c * per; k += THREADS) {
-        const int cc = k / per, j = k % per;
-        cp_async16_zfill(wts + cc * ldw + j * 8, wth + cc * wt_sc + j * 8, true);
-      }
-    } else if (route == WT4) {
-      const int per = l / 2;
-      for (int k = tid; k < c * per; k += THREADS) {
-        const int cc = k / per, j = k % per;
-        cp_async4(wts + cc * ldw + j * 2, wth + cc * wt_sc + j * 2);
-      }
-    } else {
-      for (int k = tid; k < c * l; k += THREADS) {
-        const int cc = k / l, j = k % l;
-        wts[cc * ldw + j] = wth[cc * wt_sc + j];
-      }
-    }
-    const bf16* vwh = vw + (size_t(b) * heads + h) * l * c;
-    for (int k = tid; k < LP * cv; k += THREADS) {
-      const int r = k / cv, j = k % cv;
-      cp_async16_zfill(vws + r * ldx + j * 8, vwh + (r < l ? size_t(r) * c + j * 8 : 0), r < l);
-    }
-  };
-  // the x tile (rows past n zero), then head 0's folds: two copy groups
-  for (int k = tid; k < BM * cv; k += THREADS) {
-    const int r = k / cv, j = k % cv, row = row0 + r;
-    cp_async16_zfill(xs + r * ldx + j * 8, xb + (row < n ? size_t(row) * c + j * 8 : 0), row < n);
-  }
-  cp_async_commit();
-  stage(0);
-  cp_async_commit();
-  // gamma and beta of this lane's channels 8 (lane + 32 k) .. + 7
-  float gm[2][8], bt[2][8];
+// Byte offset of 16-byte chunk j (0, 1) of row r of a 32-byte swizzled panel.
+__device__ __forceinline__ int chunk32(int r, int j) {
+  return r * 32 + ((j ^ (r >> 2)) & 1) * 16;
+}
+
+// wt_h [c x l] (element (r, j) at wth[r * sc + j]) into a stage's wt panels,
+// columns past l and rows past c zero, by the producer warpgroup's 128 threads: 8 columns a
+// thread and step, read 4 bytes at a time where wt's rows start on 4-byte
+// boundaries (B.7's layout and the contiguous one at an even L), else 2;
+// 16-byte stores.
+template <int LP>
+__device__ __forceinline__ void copy_wt(unsigned char* dst, const bf16* wth, long long sc, int c,
+                                        int l, int pt) {
+  constexpr int Q = LP / 8;
+  const unsigned short* src = reinterpret_cast<const unsigned short*>(wth);
+  const bool pairs = ((reinterpret_cast<uintptr_t>(wth) | uintptr_t(sc * 2)) & 3) == 0;
+#pragma unroll 4
+  for (int i = pt; i < C * Q; i += 128) {
+    const int r = i / Q, q = i % Q;
+    const unsigned short* row = src + r * sc + 8 * q;
+    const int lr = r < c ? l : 0;  // the row's columns to read
+    uint32_t w[4];
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int j = lane + 32 * k;
-#pragma unroll
-    for (int e = 0; e < 8; e += 4) {
-      const float4 g4 = j < cv ? *reinterpret_cast<const float4*>(gamma + j * 8 + e)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 b4 = j < cv ? *reinterpret_cast<const float4*>(beta + j * 8 + e)
-                               : make_float4(0.f, 0.f, 0.f, 0.f);
-      gm[k][e] = g4.x; gm[k][e + 1] = g4.y; gm[k][e + 2] = g4.z; gm[k][e + 3] = g4.w;
-      bt[k][e] = b4.x; bt[k][e + 1] = b4.y; bt[k][e + 2] = b4.z; bt[k][e + 3] = b4.w;
+    for (int e = 0; e < 4; ++e) {
+      const int j = 8 * q + 2 * e;
+      if (pairs && j + 1 < lr) {
+        w[e] = *reinterpret_cast<const uint32_t*>(row + 2 * e);
+      } else {
+        const uint32_t lo = j < lr ? row[2 * e] : 0u, hi = j + 1 < lr ? row[2 * e + 1] : 0u;
+        w[e] = lo | (hi << 16);
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + (q >> 1) * C * 32 + chunk32(r, q & 1)) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// The producer warpgroup, unit after unit: thread 0 issues the CTA's i-th
+// unit's x tile into x buffer i % 2 once the store of the tile before last has
+// read it, then each head's wt_h and vw_h into the next head stage, each after
+// its empty barrier. The copy route copies wt_h with all 128 threads.
+template <int LP>
+__device__ __forceinline__ void produce(unsigned char* sm, const CUtensorMap* xmap,
+                                        const CUtensorMap* wtmap, const CUtensorMap* vwmap,
+                                        const bf16* __restrict__ wt, long long wt_sb,
+                                        long long wt_sh, long long wt_sc, int c, int heads,
+                                        int l, int wt_mode, int units, int groups) {
+  constexpr Smem S = smem_layout(LP);
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(sm + S.bars);
+  uint64_t* xempty = xfull + 2;
+  uint64_t* wfull = xfull + 4;
+  uint64_t* wempty = wfull + S.nst;
+  uint64_t* vfull = wempty + S.nst;
+  uint64_t* vempty = vfull + S.nst;
+  const int pt = threadIdx.x - 128;
+  int m = 0, i = 0;  // heads and units so far
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+    const int b = u / groups, row0 = (u % groups) * BM, xb = i & 1;
+    if (pt == 0) {
+      wait_phase(xempty + xb, ((i >> 1) & 1) ^ 1);
+      mbar_expect_tx(xfull + xb, XN_BYTES);
+      for (int a = 0; a < ATOMS; ++a)
+        tma_load_3d(sm + xb * XN_BYTES + a * ATOM, xmap, xfull + xb, 64 * a, row0, b);
+    }
+    for (int h = 0; h < heads; ++h, ++m) {
+      const int st = m % S.nst;
+      const uint32_t parity = ((m / S.nst) & 1) ^ 1;
+      unsigned char* wd = sm + S.stages + st * S.stage;
+      unsigned char* vd = wd + S.wt;
+      if (wt_mode == WT_COPY) {
+        wait_phase(wempty + st, parity);
+        copy_wt<LP>(wd, wt + b * wt_sb + h * wt_sh, wt_sc, c, l, pt);
+        fence_proxy_async();  // this thread's stores, visible to wgmma
+        bar_sync(PROD_BAR, 128);
+        if (pt == 0) mbar_arrive(wfull + st);
+      } else if (pt == 0) {  // wt_h: LP / 16 panels of two boxes of WT_BOX rows
+        wait_phase(wempty + st, parity);
+        mbar_expect_tx(wfull + st, S.wt);
+        for (int q = 0; q < 2 * (LP / 16); ++q)
+          tma_load_4d(wd + (q >> 1) * C * 32 + (q & 1) * WT_BOX * 32, wtmap, wfull + st,
+                      16 * (q >> 1), (q & 1) * WT_BOX, h, b);
+      }
+      if (pt == 0) {  // vw_h: ATOMS atoms of [LP][64]
+        wait_phase(vempty + st, parity);
+        mbar_expect_tx(vfull + st, S.vw);
+        for (int a = 0; a < ATOMS; ++a)
+          tma_load_4d(vd + a * LP * 128, vwmap, vfull + st, 64 * a, 0, h, b);
+      }
     }
   }
-  cp_async_wait<1>();  // this thread's copies of the x tile have landed
+}
+
+// LayerNorm of an x tile in place (rows past n arrive as zeros and are
+// computed on, not stored): lane l of warp w takes rows 16 w + 4 q + l / 8 (q
+// = 0..3), each the 8-column chunk l % 8 of every atom, so that a warp's
+// 16-byte reads of an atom are 512 contiguous bytes; fp32 statistics in two
+// passes over shared memory (the mean, then the centred squares), then a third
+// that writes, the four rows of a lane side by side, so that few registers are
+// live beside o. Columns past c (zeros) are left out of the statistics and
+// left zero.
+__device__ __forceinline__ void layer_norm(unsigned char* xn, const float* __restrict__ gamma,
+                                           const float* __restrict__ beta, float eps, int c,
+                                           int warp, int lane) {
+  const int c8 = lane & 7, r0 = 16 * warp + (lane >> 3);
+  float mu[4] = {0.f, 0.f, 0.f, 0.f}, rs[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int a = 0; a < ATOMS; ++a)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float f[8];
+      unpack8(*reinterpret_cast<const uint4*>(xn + a * ATOM + sw128(r0 + 4 * q, 8 * c8)), f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) mu[q] += f[e];
+    }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    mu[q] += __shfl_xor_sync(0xffffffffu, mu[q], 1);
+    mu[q] += __shfl_xor_sync(0xffffffffu, mu[q], 2);
+    mu[q] += __shfl_xor_sync(0xffffffffu, mu[q], 4);
+    mu[q] /= float(c);
+  }
+#pragma unroll
+  for (int a = 0; a < ATOMS; ++a) {
+    if (64 * a + 8 * c8 >= c) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float f[8];
+      unpack8(*reinterpret_cast<const uint4*>(xn + a * ATOM + sw128(r0 + 4 * q, 8 * c8)), f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) rs[q] += (f[e] - mu[q]) * (f[e] - mu[q]);
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    rs[q] += __shfl_xor_sync(0xffffffffu, rs[q], 1);
+    rs[q] += __shfl_xor_sync(0xffffffffu, rs[q], 2);
+    rs[q] += __shfl_xor_sync(0xffffffffu, rs[q], 4);
+    rs[q] = rsqrtf(rs[q] / float(c) + eps);
+  }
+#pragma unroll
+  for (int a = 0; a < ATOMS; ++a) {
+    const int c0 = 64 * a + 8 * c8;
+    if (c0 >= c) continue;
+    const float4 g0 = __ldg(reinterpret_cast<const float4*>(gamma + c0));
+    const float4 g1 = __ldg(reinterpret_cast<const float4*>(gamma + c0 + 4));
+    const float4 b0 = __ldg(reinterpret_cast<const float4*>(beta + c0));
+    const float4 b1 = __ldg(reinterpret_cast<const float4*>(beta + c0 + 4));
+    const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    const float bt[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint4* at = reinterpret_cast<uint4*>(xn + a * ATOM + sw128(r0 + 4 * q, 8 * c8));
+      float f[8], y[8];
+      unpack8(*at, f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) y[e] = (f[e] - mu[q]) * rs[q] * gm[e] + bt[e];
+      *at = make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]),
+                       pack_bf16(y[6], y[7]));
+    }
+  }
+}
+
+// One arrival of each consumer warp (lane 0) on an empty barrier.
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+  __syncwarp();
+}
+
+// A full barrier's phase, then the warp converged for the wgmma that follow.
+__device__ __forceinline__ void wait_full(uint64_t* bar, uint32_t parity) {
+  wait_phase(bar, parity);
+  __syncwarp();
+}
+
+// The columns of o's three accumulators: [0, 128), [128, 256), [256, 320).
+constexpr int O_A = 0, O_B = 128, O_C = 256;
+
+// fn(col, d0, d1, d2, d3) for each 8-column group of the thread's fragment of
+// o, by reference (d0, d1: row g, columns col, col + 1; d2, d3: row g + 8).
+template <typename Fn>
+__device__ __forceinline__ void for_fragment(float (&oa)[64], float (&ob)[64], float (&oc)[32],
+                                             int t, Fn fn) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    fn(O_A + 8 * j + 2 * t, oa[4 * j], oa[4 * j + 1], oa[4 * j + 2], oa[4 * j + 3]);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+    fn(O_B + 8 * j + 2 * t, ob[4 * j], ob[4 * j + 1], ob[4 * j + 2], ob[4 * j + 3]);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    fn(O_C + 8 * j + 2 * t, oc[4 * j], oc[4 * j + 1], oc[4 * j + 2], oc[4 * j + 3]);
+}
+
+// The bf16 pair at (r, col), (r, col + 1) of an x tile, as fp32.
+__device__ __forceinline__ float2 pair_at(const unsigned char* xt, int r, int col) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+      xt + (col >> 6) * ATOM + sw128(r, col & 63)));
+}
+
+// grid: persistent CTAs (as many as are resident at once), each walking its
+// units; threads 0..127 consume, 128..255 produce; y leaves by TMA stores.
+template <int LP>
+__global__ void __launch_bounds__(THREADS, 1)
+    fold_attention_kernel(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap wtmap,
+                          const __grid_constant__ CUtensorMap vwmap,
+                          const __grid_constant__ CUtensorMap omap,
+                          const bf16* __restrict__ wt, const float* __restrict__ gamma,
+                          const float* __restrict__ beta, const float* __restrict__ bo, int c,
+                          int heads, int l, long long wt_sb, long long wt_sh, long long wt_sc,
+                          float eps, int wt_mode, int units, int groups) {
+  constexpr Smem S = smem_layout(LP);
+  static_assert(S.nst >= 1 && S.size <= SMEM, "the ring fits");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(sm + S.bars);
+  uint64_t* xempty = xfull + 2;
+  uint64_t* wfull = xfull + 4;
+  uint64_t* wempty = wfull + S.nst;
+  uint64_t* vfull = wempty + S.nst;
+  uint64_t* vempty = vfull + S.nst;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(xfull + i, 1);   // the producer's expect_tx
+      mbar_init(xempty + i, 1);  // consumer thread 0, once the tile's store has read it
+    }
+    for (int i = 0; i < S.nst; ++i) {
+      mbar_init(wfull + i, 1);  // the producer's arrival
+      mbar_init(vfull + i, 1);
+      mbar_init(wempty + i, 4);  // each consumer warp
+      mbar_init(vempty + i, 4);
+    }
+    fence_mbar_init();
+  }
   __syncthreads();
 
-  // LayerNorm from the x tile, one warp a row, 8 channels a lane and vector;
-  // rows past n are zero (computed on, not stored).
-  for (int r = warp; r < BM; r += WARPS) {
-    bf16* dst = xn + r * ldx;
-    const int row = row0 + r;
-    if (row >= n) {
-      for (int j = lane; j < cv; j += 32)
-        *reinterpret_cast<uint4*>(dst + j * 8) = make_uint4(0u, 0u, 0u, 0u);
-      continue;
-    }
-    const bf16* src = xs + r * ldx;
-    float f[2][8];
-    float s = 0.f;
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int j = lane + 32 * k;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) f[k][e] = 0.f;
-      if (j < cv) unpack8(*reinterpret_cast<const uint4*>(src + j * 8), f[k]);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) s += f[k][e];
-    }
-    const float mu = warp_sum(s) / c;
-    float v = 0.f;
-#pragma unroll
-    for (int k = 0; k < 2; ++k)
-      if (lane + 32 * k < cv)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) v += (f[k][e] - mu) * (f[k][e] - mu);
-    const float rstd = rsqrtf(warp_sum(v) / c + eps);
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const int j = lane + 32 * k;
-      if (j >= cv) break;
-      float y[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e)
-        y[e] = (f[k][e] - mu) * rstd * gm[k][e] + bt[k][e];
-      *reinterpret_cast<uint4*>(dst + j * 8) = make_uint4(
-          pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]), pack_bf16(y[6], y[7]));
-    }
+  if (threadIdx.x >= 128) {
+    produce<LP>(sm, &xmap, &wtmap, &vwmap, wt, wt_sb, wt_sh, wt_sc, c, heads, l, wt_mode, units,
+                groups);
+    return;
   }
 
-  const int r0 = (warp % RG) * 16;      // this warp's rows in the tile
-  const int ct = c / 16;                // its 8-column output tiles
-  const int c0 = (warp / RG) * (c / 2); // its first output column
-  float acc[MAX_CT][4];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  float s[LP / 2], oa[64], ob[64], oc[32];
+  uint32_t p[LP / 16][4];
 #pragma unroll
-  for (int i = 0; i < MAX_CT; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < LP / 2; ++i) s[i] = 0.f;
+  int m = 0, i = 0;
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+    const int b = u / groups, row0 = (u % groups) * BM;
+    unsigned char* xn = sm + (i & 1) * XN_BYTES;
+    wait_phase(xfull + (i & 1), (i >> 1) & 1);
+    // o starts as x + b_out, from the raw tile before it is normalised in place
+    const int r0 = 16 * warp + g;
+    for_fragment(oa, ob, oc, t, [&](int col, float& d0, float& d1, float& d2, float& d3) {
+      const float2 bv = col < c ? __ldg(reinterpret_cast<const float2*>(bo + col))
+                                : make_float2(0.f, 0.f);
+      const float2 x0 = pair_at(xn, r0, col), x1 = pair_at(xn, r0 + 8, col);
+      d0 = x0.x + bv.x;
+      d1 = x0.y + bv.y;
+      d2 = x1.x + bv.x;
+      d3 = x1.y + bv.y;
+    });
+    __syncwarp();  // the warp's rows are read before its lanes normalise them
+    layer_norm(xn, gamma, beta, eps, c, warp, lane);
+    fence_proxy_async();  // xn's stores, visible to wgmma
+    bar_sync(CONS_BAR, 128);
+    for (int h = 0; h < heads; ++h, ++m) {
+      const int st = m % S.nst;
+      const uint32_t parity = (m / S.nst) & 1;
+      const unsigned char* ws = sm + S.stages + st * S.stage;
+      const unsigned char* vs = ws + S.wt;
+      // s = xn . wt_h: C / 16 steps of m64 x LP x k16; xn K-major, wt_h MN-major
+      // (panels C * 32 bytes apart)
+      wait_full(wfull + st, parity);
+      const uint64_t wd = desc_mn32(ws, C * 32);
+      pin(s);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < C / 16; ++k)
+        wgmma_ss<0, 1>(s, make_desc_sw128(xn + (k >> 2) * ATOM + (k & 3) * 32),
+                       wd + ((k * 16 * 32) >> 4), k > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(s);
+      release(wempty + st, lane);
 
-  for (int i = 0; i < nh; ++i) {
-    cp_async_wait<0>();
-    __syncthreads();  // head i's folds (and, the first time, xn) are in for all;
-                      // every warp is done with head i - 1's buffer
-    if (BUFS == 2 && i + 1 < hpc) {
-      stage(i + 1);  // into head i - 1's buffer, behind this head's products
-      cp_async_commit();
-    }
-    if constexpr (STOP == 2) continue;
-    const bf16* wts = folds + (i % BUFS) * lay.buf;
-    const bf16* vws = wts + c * ldw;
+      // exact fp32 softmax over the row's l columns (s[4j..4j+1] row g, s[4j+2..]
+      // row g + 8, columns 8j + 2t, + 1)
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < LP / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (col >= l) s[4 * j] = s[4 * j + 2] = -INFINITY;
+        if (col + 1 >= l) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      mx[0] = quad_max(mx[0]);
+      mx[1] = quad_max(mx[1]);
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < LP / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * j + e] = __expf(s[4 * j + e] - mx[e >> 1]);
+          sum[e >> 1] += s[4 * j + e];
+        }
+      const float inv[2] = {1.f / quad_sum(sum[0]), 1.f / quad_sum(sum[1])};
+      // p in bf16 as p . vw's A fragments: n-tiles 2kb and 2kb + 1 are keys 16kb .. + 15
+#pragma unroll
+      for (int kb = 0; kb < LP / 16; ++kb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          p[kb][e] = pack_bf16(s[8 * kb + 2 * e] * inv[e & 1], s[8 * kb + 2 * e + 1] * inv[e & 1]);
 
-    // s = xn . wt_h for the warp's 16 rows: s[j] is the m16n8 accumulator of
-    // columns 8j .. 8j + 7 (s[j][0..1] row g, s[j][2..3] row g + 8)
-    float s[ST][4];
+      // o += p . vw_h: LP / 16 steps of m64 x (128, 128, 64) x k16 (vw_h MN-major,
+      // atoms LP * 128 bytes apart)
+      wait_full(vfull + st, parity);
+      const uint64_t vd = desc_mn(vs, LP * 128);
+      pin(oa);
+      pin(ob);
+      pin(oc);
 #pragma unroll
-    for (int j = 0; j < ST; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    // Each step's fragments are all loaded before its products issue, so
-    // their latencies overlap one another and the last step's products.
-    for (int ks = 0; ks < c / 16; ++ks) {
-      uint32_t a[4], bb[ST / 2][4];  // bb[q]: k rows 16 ks .., columns 16q .. + 15 of wt_h
-      ldmatrix_x4(a, xn + (r0 + lr + (mi & 1) * 8) * ldx + ks * 16 + (mi >> 1) * 8);
+      for (int kb = 0; kb < LP / 16; ++kb) pin(p[kb]);
+      wgmma_fence();
 #pragma unroll
-      for (int q = 0; q < ST / 2; ++q)
-        ldmatrix_x4_trans(bb[q], wts + (ks * 16 + (mi & 1) * 8 + lr) * ldw + (2 * q + (mi >> 1)) * 8);
-#pragma unroll
-      for (int q = 0; q < ST / 2; ++q) {
-        mma_bf16(s[2 * q], a, bb[q][0], bb[q][1]);
-        mma_bf16(s[2 * q + 1], a, bb[q][2], bb[q][3]);
+      for (int kb = 0; kb < LP / 16; ++kb) {
+        const uint64_t k0 = (kb * 16 * 128) >> 4;
+        wgmma_rs<1>(oa, p[kb], vd + k0, 1);
+        wgmma_rs<1>(ob, p[kb], vd + k0 + ((2 * LP * 128) >> 4), 1);
+        wgmma_rs<1>(oc, p[kb], vd + k0 + ((4 * LP * 128) >> 4), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(oa);
+      pin(ob);
+      pin(oc);
+      release(vempty + st, lane);
+      if (h == 0 && i > 0 && tid == 0) {
+        // the last tile's store has read its x buffer: the tile after this may land there
+        bulk_wait_read<0>();
+        mbar_arrive(xempty + ((i - 1) & 1));
       }
     }
-
-    // exact fp32 softmax over the row's L columns
-    float m[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < ST; ++j) {
-      const int col = j * 8 + 2 * t;
-      if (col >= l) s[j][0] = s[j][2] = -INFINITY;
-      if (col + 1 >= l) s[j][1] = s[j][3] = -INFINITY;
-      m[0] = fmaxf(m[0], fmaxf(s[j][0], s[j][1]));
-      m[1] = fmaxf(m[1], fmaxf(s[j][2], s[j][3]));
-    }
-    m[0] = quad_max(m[0]);
-    m[1] = quad_max(m[1]);
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < ST; ++j) {
-      s[j][0] = __expf(s[j][0] - m[0]);
-      s[j][1] = __expf(s[j][1] - m[0]);
-      s[j][2] = __expf(s[j][2] - m[1]);
-      s[j][3] = __expf(s[j][3] - m[1]);
-      sum[0] += s[j][0] + s[j][1];
-      sum[1] += s[j][2] + s[j][3];
-    }
-    sum[0] = quad_sum(sum[0]);
-    sum[1] = quad_sum(sum[1]);
-
-    // acc += bf16(p) . vw_h: the accumulators of score tiles 2kk and 2kk + 1 are
-    // the A fragment of columns 16kk .. 16kk + 15
-#pragma unroll
-    for (int kk = 0; kk < LP / 16; ++kk) {
-      uint32_t pa[4];
-#pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {
-        const int j = 2 * kk + hh;
-        pa[2 * hh] = pack_bf16(s[j][0] / sum[0], s[j][1] / sum[0]);
-        pa[2 * hh + 1] = pack_bf16(s[j][2] / sum[1], s[j][3] / sum[1]);
-      }
-      // five fragment loads, then their ten products, twice
-#pragma unroll
-      for (int n0 = 0; n0 < MAX_CT; n0 += 10) {
-        uint32_t bb[5][4];  // bb[q]: k rows 16 kk .., columns c0 + 8 (n0 + 2q) .. + 15 of vw_h
-#pragma unroll
-        for (int q = 0; q < 5; ++q)
-          if (n0 + 2 * q < ct)
-            ldmatrix_x4_trans(bb[q], vws + (kk * 16 + (mi & 1) * 8 + lr) * ldx + c0 +
-                                         (n0 + 2 * q + (mi >> 1)) * 8);
-#pragma unroll
-        for (int q = 0; q < 5; ++q)
-          if (n0 + 2 * q < ct) {
-            mma_bf16(acc[n0 + 2 * q], pa, bb[q][0], bb[q][1]);
-            mma_bf16(acc[n0 + 2 * q + 1], pa, bb[q][2], bb[q][3]);
-          }
-      }
-    }
-    if (BUFS == 1 && i + 1 < hpc) {
-      __syncthreads();  // every warp done with the one buffer
-      stage(i + 1);
-      cp_async_commit();
+    // y = bf16(o) into xn, its last reader (the score products) done in every
+    // warp; then TMA stores, rows past n clipped
+    bar_sync(CONS_BAR, 128);
+    for_fragment(oa, ob, oc, t, [&](int col, float& d0, float& d1, float& d2, float& d3) {
+      unsigned char* at = xn + (col >> 6) * ATOM;
+      *reinterpret_cast<uint32_t*>(at + sw128(r0, col & 63)) = pack_bf16(d0, d1);
+      *reinterpret_cast<uint32_t*>(at + sw128(r0 + 8, col & 63)) = pack_bf16(d2, d3);
+    });
+    fence_proxy_async();  // y's stores, visible to the TMA store
+    bar_sync(CONS_BAR, 128);
+    if (tid == 0) {
+      for (int a = 0; a < ATOMS; ++a) tma_store_3d(&omap, xn + a * ATOM, 64 * a, row0, b);
+      bulk_commit();
     }
   }
-  cp_async_wait<0>();
-  __syncthreads();  // every product done: the partial goes over xn and the folds
-
-  const int ldr = c + 4;
-#pragma unroll
-  for (int nt = 0; nt < MAX_CT; ++nt) {
-    if (nt < ct) {
-      const int col = c0 + nt * 8 + 2 * t;
-      *reinterpret_cast<float2*>(red + (r0 + g) * ldr + col) = make_float2(acc[nt][0], acc[nt][1]);
-      *reinterpret_cast<float2*>(red + (r0 + g + 8) * ldr + col) =
-          make_float2(acc[nt][2], acc[nt][3]);
-    }
-  }
-  cluster.sync();
-
-  // rows [rank * BM / CL, ...) of the tile: y = bf16(x + sum of the CL partials
-  // in head order + b_out), 8 columns a thread and step
-  const int rows = BM / cl;
-  bf16* ob = out + size_t(b) * n * c;
-#pragma unroll 4
-  for (int k = tid; k < rows * cv; k += THREADS) {
-    const int r = rank * rows + k / cv, j = k % cv, row = row0 + r;
-    if (row >= n) continue;
-    float y[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int q = 0; q < cl; ++q) {
-      const float* src = cluster.map_shared_rank(red, q) + r * ldr + j * 8;
-      const float4 lo = *reinterpret_cast<const float4*>(src);
-      const float4 hi = *reinterpret_cast<const float4*>(src + 4);
-      y[0] += lo.x; y[1] += lo.y; y[2] += lo.z; y[3] += lo.w;
-      y[4] += hi.x; y[5] += hi.y; y[6] += hi.z; y[7] += hi.w;
-    }
-    float xv[8];
-    unpack8(*reinterpret_cast<const uint4*>(keep_x ? xs + r * ldx + j * 8
-                                                   : xb + size_t(row) * c + j * 8), xv);
-    const float4 b0 = *reinterpret_cast<const float4*>(bo + j * 8);
-    const float4 b1 = *reinterpret_cast<const float4*>(bo + j * 8 + 4);
-    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-    float o[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) o[e] = xv[e] + y[e] + bv[e];
-    *reinterpret_cast<uint4*>(ob + size_t(row) * c + j * 8) = make_uint4(
-        pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3]), pack_bf16(o[4], o[5]), pack_bf16(o[6], o[7]));
-  }
-  cluster.sync();  // every remote read done before any CTA of the cluster leaves
+  if (tid == 0) bulk_wait<0>();
 }
 
-// The SMs of the current device, read once.
 int sm_count() {
-  static std::atomic<int> cached{0};
-  int sms = cached.load();
-  if (sms) return sms;
+  static std::atomic<int> cached[64];  // zero: not yet read
   int dev = 0;
-  sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cached.store(sms);
-  return sms;
-}
-
-// The route: (BM, CL), the first of (64, 1), (64, 2), (64, 4), (32, 1), (32,
-// 2), (32, 4) that gives 90% of the SMs a CTA (the last where none does); CL
-// divides heads. More CTAs than that only repeat the LayerNorm and add the
-// cluster's exchange (kernel_times.py: fold routes).
-void pick_route(int b, int n, int heads, int* bm, int* cl) {
-  const int sms = sm_count();
-  const int opts[6][2] = {{64, 1}, {64, 2}, {64, 4}, {32, 1}, {32, 2}, {32, 4}};
-  *bm = 64;
-  *cl = 1;
-  for (const auto& o : opts) {
-    if (heads % o[1]) continue;
-    *bm = o[0];
-    *cl = o[1];
-    if (10LL * b * ((n + o[0] - 1) / o[0]) * o[1] >= 9LL * sms) break;
-  }
-}
-
-// How wt's rows can be copied: 16 bytes at a time where every row starts on a
-// 16-byte boundary and its copy of L rounded up to 8 stays inside wt's
-// allocation (room: the elements from wt to its end), 4 bytes at a time for an
-// even L on 4-byte boundaries, else element by element.
-int wt_route(const void* wt, int b, int heads, int c, int l, long long sb, long long sh,
-             long long sc, long long room) {
-  const uintptr_t p = reinterpret_cast<uintptr_t>(wt);
-  const long long last = (b - 1) * sb + (heads - 1) * sh + (c - 1) * sc;  // the last row
-  if (p % 16 == 0 && sb % 8 == 0 && sh % 8 == 0 && sc % 8 == 0 &&
-      (l % 8 == 0 || last + (l + 7) / 8 * 8 <= room))
-    return WT16;
-  if (l % 2 == 0 && p % 4 == 0 && sb % 2 == 0 && sh % 2 == 0 && sc % 2 == 0) return WT4;
-  return WT1;
-}
-
-// Fold buffers: two (the next head's folds copied behind the current head's
-// products, the x tile kept) where a CTA takes more than one head and they fit.
-int auto_bufs(int bm, int c, int lp, int hpc) {
-  return hpc > 1 && make_layout(bm, c, lp, 2).total <= size_t(SMEM_LIMIT) ? 2 : 1;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0) return 132;
+  if (dev < 64 && cached[dev].load()) return cached[dev].load();
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess || n < 1)
+    return 132;
+  if (dev < 64) cached[dev].store(n);
+  return n;
 }
 
 // The operands of a launch, as wd_fold_attention takes them.
@@ -533,154 +586,237 @@ struct Args {
   const void *x, *wt, *vw, *gamma, *beta, *bo;
   void* out;
   int b, n, c, heads, l;
-  long long wt_sb, wt_sh, wt_sc, wt_room;
+  long long wt_sb, wt_sh, wt_sc;
   float eps;
 };
 
-template <int LP, int BM, int BUFS, int STOP>
-cudaError_t launch(const Args& a, int cl, cudaStream_t stream) {
-  const size_t smem = make_layout(BM, a.c, LP, BUFS).total;
-  if (smem > size_t(SMEM_LIMIT)) return cudaErrorInvalidValue;
-  // The instance's shared memory limit is raised to the most a CTA may have,
-  // once per device: the attribute call costs host time of the order of the
-  // launch itself.
-  static std::atomic<unsigned long long> raised{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (!(raised.load() & bit)) {
-    err = cudaFuncSetAttribute(fold_attention_kernel<LP, BM, BUFS, STOP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_LIMIT);
-    if (err != cudaSuccess) return err;
-    raised.fetch_or(bit);
+bool valid(const Args& a) {
+  return a.b >= 1 && a.b <= 65535 && a.n >= 1 && a.heads >= 1 && a.l >= 1 && a.l <= MAX_L &&
+         a.heads * a.l <= a.c && a.c % 16 == 0 && a.c <= C;
+}
+
+int lp_of(int l) { return (l + 15) / 16 * 16; }
+
+int row_tiles(int n) { return (n + BM - 1) / BM; }
+
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+// The driver's cuTensorMapEncodeTiled through the runtime (no -lcuda), once.
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                                                  &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
+                                                                    : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor map of rank 3 or 4 (dims innermost first, strides in bytes of
+// dims 1..), boxes of 64 innermost columns with the 128-byte swizzle (or
+// 16 with the 32-byte swizzle);
+// out-of-range elements load as zeros. Encoded through a small direct-mapped
+// cache per host thread: a map is a pure function of its key, encoding costs
+// host time of the order of the launch, and a caller's tensors recur.
+struct MapKey {
+  const void* base;
+  int rank, swizzle;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4];
+};
+
+MapKey key(const void* base, int rank, std::initializer_list<long long> dims,
+           std::initializer_list<long long> strides, std::initializer_list<int> box,
+           CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  MapKey k;
+  std::memset(&k, 0, sizeof k);  // padding and unused dims compare equal
+  k.base = base;
+  k.rank = rank;
+  k.swizzle = int(swizzle);
+  int i = 0;
+  for (long long d : dims) k.dims[i++] = cuuint64_t(d);
+  i = 0;
+  for (long long s : strides) k.strides[i++] = cuuint64_t(s);
+  i = 0;
+  for (int bx : box) k.box[i++] = cuuint32_t(bx);
+  return k;
+}
+
+bool encode(CUtensorMap* map, const MapKey& k) {
+  struct Entry {
+    MapKey key;
+    CUtensorMap map;
+    bool ok;
+  };
+  static thread_local Entry cache[64];
+  uintptr_t h = reinterpret_cast<uintptr_t>(k.base) >> 4;
+  for (int i = 0; i < 4; ++i) h = h * 31 + k.dims[i] * 7 + k.box[i];
+  for (int i = 0; i < 3; ++i) h = h * 31 + k.strides[i];
+  Entry& e = cache[h % 64];
+  if (!e.ok || std::memcmp(&e.key, &k, sizeof k) != 0) {
+    const EncodeTiled fn = encoder();
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    std::memcpy(&e.key, &k, sizeof k);
+    e.ok = fn != nullptr &&
+           fn(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cuuint32_t(k.rank), const_cast<void*>(k.base),
+              k.dims, k.strides, k.box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+              CUtensorMapSwizzle(k.swizzle), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+    if (!e.ok) return false;
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(unsigned((a.n + BM - 1) / BM) * cl, unsigned(a.b));
-  cfg.blockDim = dim3(BM * 4);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cl;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, fold_attention_kernel<LP, BM, BUFS, STOP>, static_cast<const bf16*>(a.x),
-      static_cast<const bf16*>(a.wt), static_cast<const bf16*>(a.vw),
-      static_cast<const float*>(a.gamma), static_cast<const float*>(a.beta),
-      static_cast<const float*>(a.bo), static_cast<bf16*>(a.out), a.n, a.c, a.heads, a.l,
-      a.wt_sb, a.wt_sh, a.wt_sc, a.eps,
-      wt_route(a.wt, a.b, a.heads, a.c, a.l, a.wt_sb, a.wt_sh, a.wt_sc, a.wt_room));
+  *map = e.map;
+  return true;
+}
+
+// How wt reaches shared memory, and its map: per head by TMA where every
+// stride is a multiple of 8 elements and they do not overlap in the order l,
+// c, h, b (a stride of a dimension of size 1 taken as the one it would have),
+// else copies.
+int wt_mode(const Args& a, CUtensorMap* map) {
+  if (reinterpret_cast<uintptr_t>(a.wt) % 16) return WT_COPY;
+  const long long sc = a.wt_sc;
+  const long long sh = a.heads == 1 ? a.c * sc : a.wt_sh;
+  const long long sb = a.b == 1 ? a.heads * sh : a.wt_sb;
+  if (sc % 8 == 0 && sh % 8 == 0 && sb % 8 == 0 && sc >= a.l && sh >= a.c * sc &&
+      sb >= a.heads * sh &&
+      encode(map, key(a.wt, 4, {a.l, a.c, a.heads, a.b}, {2 * sc, 2 * sh, 2 * sb},
+                      {16, WT_BOX, 1, 1}, CU_TENSOR_MAP_SWIZZLE_32B)))
+    return WT_TMA;
+  return WT_COPY;
+}
+
+// The CTAs of the instance at LP resident at once on the device (one an SM by
+// its shared memory), into *resident, once the instance may take its shared
+// memory; read once per instance and device.
+template <int LP>
+cudaError_t resident_ctas(int* resident) {
+  constexpr Smem S = smem_layout(LP);
+  static std::atomic<int> cached[64];  // zero: not yet read
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if ((*resident = cached[dev].load())) return cudaSuccess;
+  e = cudaFuncSetAttribute(fold_attention_kernel<LP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           S.size);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fold_attention_kernel<LP>, THREADS,
+                                                    S.size);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  *resident = per_sm * sm_count();
+  cached[dev].store(*resident);
+  return cudaSuccess;
+}
+
+// The CTAs a launch at LP of `units` tiles takes: as many as are resident, at
+// most one a tile; 0 on an error.
+template <int LP>
+int ctas(int units) {
+  int resident = 0;
+  return resident_ctas<LP>(&resident) == cudaSuccess ? std::min(units, resident) : 0;
+}
+
+template <int LP>
+cudaError_t launch(const Args& a, int mode, const CUtensorMap& wtmap, cudaStream_t stream) {
+  constexpr Smem S = smem_layout(LP);
+  CUtensorMap xmap, vwmap, omap;
+  // C columns (a.c <= C): TMA fills the boxes' columns past a.c with zeros
+  const long long c = a.c, nc = (long long)a.n * c, lc = (long long)a.l * c;
+  if (!encode(&xmap, key(a.x, 3, {c, a.n, a.b}, {2 * c, 2 * nc}, {64, BM, 1})) ||
+      !encode(&omap, key(a.out, 3, {c, a.n, a.b}, {2 * c, 2 * nc}, {64, BM, 1})) ||
+      !encode(&vwmap, key(a.vw, 4, {c, a.l, a.heads, a.b}, {2 * c, 2 * lc, 2 * lc * a.heads},
+                          {64, LP, 1, 1})))
+    return cudaErrorInvalidValue;
+  int resident = 0;
+  cudaError_t err = resident_ctas<LP>(&resident);
   if (err != cudaSuccess) return err;
+  const int groups = row_tiles(a.n), units = a.b * groups;
+  fold_attention_kernel<LP><<<std::min(units, resident), THREADS, S.size, stream>>>(
+      xmap, mode == WT_COPY ? xmap : wtmap, vwmap, omap, static_cast<const bf16*>(a.wt),
+      static_cast<const float*>(a.gamma), static_cast<const float*>(a.beta),
+      static_cast<const float*>(a.bo), a.c, a.heads, a.l, a.wt_sb, a.wt_sh, a.wt_sc, a.eps, mode,
+      units, groups);
   return cudaGetLastError();
 }
 
-template <int LP, int BM, int STOP>
-cudaError_t launch_bufs(const Args& a, int cl, int bufs, cudaStream_t s) {
-  return bufs == 2 ? launch<LP, BM, 2, STOP>(a, cl, s) : launch<LP, BM, 1, STOP>(a, cl, s);
-}
-
-// The instance for L's LP; the phase-timing instances (STOP > 0) are built for
-// LP = 48 only (33 <= L <= 48: the UNet's 42).
-template <int BM, int STOP>
-cudaError_t launch_lp(const Args& a, int cl, int bufs, cudaStream_t s) {
-  const int lp = (a.l + 15) / 16 * 16;
-  if constexpr (STOP > 0) {
-    return lp == 48 ? launch_bufs<48, BM, STOP>(a, cl, bufs, s) : cudaErrorInvalidValue;
-  } else {
-    switch (lp) {
-      case 16: return launch_bufs<16, BM, 0>(a, cl, bufs, s);
-      case 32: return launch_bufs<32, BM, 0>(a, cl, bufs, s);
-      case 48: return launch_bufs<48, BM, 0>(a, cl, bufs, s);
-      case 64: return launch_bufs<64, BM, 0>(a, cl, bufs, s);
-      case 80: return launch_bufs<80, BM, 0>(a, cl, bufs, s);
-      default: return cudaErrorInvalidValue;
-    }
-  }
-}
-
-template <int BM>
-cudaError_t launch_stop(const Args& a, int cl, int bufs, int stop, cudaStream_t s) {
-  switch (stop) {
-    case 0: return launch_lp<BM, 0>(a, cl, bufs, s);
-    case 1: return launch_lp<BM, 1>(a, cl, bufs, s);
-    case 2: return launch_lp<BM, 2>(a, cl, bufs, s);
-    case 3: return launch_lp<BM, 3>(a, cl, bufs, s);
+cudaError_t run(const Args& a, int mode, const CUtensorMap& wtmap, cudaStream_t s) {
+  switch (lp_of(a.l)) {
+    case 16: return launch<16>(a, mode, wtmap, s);
+    case 32: return launch<32>(a, mode, wtmap, s);
+    case 48: return launch<48>(a, mode, wtmap, s);
+    case 64: return launch<64>(a, mode, wtmap, s);
+    case 80: return launch<80>(a, mode, wtmap, s);
     default: return cudaErrorInvalidValue;
   }
-}
-
-bool valid(const Args& a) {
-  return a.b >= 1 && a.b <= 65535 && a.n >= 1 && a.heads >= 1 && a.l >= 1 && a.l <= MAX_L &&
-         a.heads * a.l <= a.c && a.c % 16 == 0 && a.c <= MAX_C;
 }
 
 }  // namespace
 
 extern "C" {
 
-int wd_fold_attention_max_c() { return MAX_C; }
+int wd_fold_attention_max_c() { return C; }
 int wd_fold_attention_max_l() { return MAX_L; }
 
-// The dynamic shared memory of a CTA, bytes.
-int wd_fold_attention_smem(int bm, int c, int lp, int bufs) {
-  return int(make_layout(bm, c, lp, bufs).total);
+// The dynamic shared memory of a CTA at LP (L rounded up to 16), bytes.
+int wd_fold_attention_smem(int lp) {
+  if (lp < 16 || lp > MAX_L || lp % 16) return 0;
+  return smem_layout(lp).size;
 }
 
-// The route at these shapes: BM * 16 + CL (rows a tile; CTAs a cluster).
-int wd_fold_attention_route(int b, int n, int heads) {
-  int bm, cl;
-  pick_route(b, n, heads, &bm, &cl);
-  return bm * 16 + cl;
+// Head stages a CTA's ring holds at LP.
+int wd_fold_attention_stages(int lp) {
+  if (lp < 16 || lp > MAX_L || lp % 16) return 0;
+  return smem_layout(lp).nst;
 }
 
-// How wt's rows are copied at these shapes and strides, with wt_room elements
-// from wt to the end of its allocation: 0 16-byte, 1 4-byte, 2 element copies.
-int wd_fold_attention_wt_route(const void* wt, int b, int heads, int c, int l, long long wt_sb,
-                               long long wt_sh, long long wt_sc, long long wt_room) {
-  return wt_route(wt, b, heads, c, l, wt_sb, wt_sh, wt_sc, wt_room);
+// The persistent CTAs a launch at these shapes takes (0 on an error).
+int wd_fold_attention_ctas(int b, int n, int l) {
+  const int units = b * row_tiles(n);
+  switch (lp_of(l)) {
+    case 16: return ctas<16>(units);
+    case 32: return ctas<32>(units);
+    case 48: return ctas<48>(units);
+    case 64: return ctas<64>(units);
+    case 80: return ctas<80>(units);
+    default: return 0;
+  }
+}
+
+// How wt reaches shared memory at these shapes and strides: 0 TMA, 1 copies by
+// the producer's threads.
+int wd_fold_attention_wt_mode(const void* wt, int b, int heads, int c, int l, long long wt_sb,
+                              long long wt_sh, long long wt_sc) {
+  const Args a{nullptr, wt, nullptr, nullptr, nullptr, nullptr, nullptr, b, 1, c, heads, l,
+               wt_sb, wt_sh, wt_sc, 0.f};
+  if (!valid(a)) return -1;
+  CUtensorMap map;
+  return wt_mode(a, &map);
 }
 
 // out [b, n, c] = x + sum_h softmax(LN(x) . wt_h) . vw_h + bo, with x and out bf16
 // [b, n, c] contiguous and 16-byte aligned; wt bf16, element (b, h, c, l) at
-// b*wt_sb + h*wt_sh + c*wt_sc + l, with wt_room elements from wt to the end of
-// its allocation; vw bf16 [b, heads, l, c] contiguous and 16-byte aligned;
-// gamma, beta, bo fp32 [c]. Needs c % 16 == 0, c <= MAX_C, 1 <= l <= MAX_L and
-// heads * l <= c. Returns a cudaError_t (0 on success).
+// b*wt_sb + h*wt_sh + c*wt_sc + l; vw bf16 [b, heads, l, c] contiguous and
+// 16-byte aligned; gamma, beta, bo fp32 [c], 16-byte aligned. Needs c % 16 == 0,
+// c <= 320, 1 <= l <= MAX_L and heads * l <= c. Returns a cudaError_t (0 on
+// success; a failed tensor-map encode is cudaErrorInvalidValue).
 int wd_fold_attention(const void* x, const void* wt, const void* vw, const void* gamma,
                       const void* beta, const void* bo, void* out, int b, int n, int c,
                       int heads, int l, long long wt_sb, long long wt_sh, long long wt_sc,
-                      long long wt_room, float eps, void* stream) {
-  const Args a{x, wt, vw, gamma, beta, bo, out, b, n, c, heads, l, wt_sb, wt_sh, wt_sc, wt_room,
-               eps};
+                      float eps, void* stream) {
+  const Args a{x, wt, vw, gamma, beta, bo, out, b, n, c, heads, l, wt_sb, wt_sh, wt_sc, eps};
   if (!valid(a)) return cudaErrorInvalidValue;
-  int bm, cl;
-  pick_route(b, n, heads, &bm, &cl);
-  const int bufs = auto_bufs(bm, c, (l + 15) / 16 * 16, heads / cl);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bm == 64 ? launch_lp<64, 0>(a, cl, bufs, s) : launch_lp<32, 0>(a, cl, bufs, s);
-}
-
-// As wd_fold_attention on a route given (kernel_times sweeps it): bm 64 or 32,
-// cl 1, 2 or 4 dividing heads, bufs 1 or 2 fold buffers (0: as
-// wd_fold_attention picks), and stop 0 (the whole kernel) or, for
-// 33 <= l <= 48, a phase to stop at (see the kernel).
-int wd_fold_attention_routed(const void* x, const void* wt, const void* vw, const void* gamma,
-                             const void* beta, const void* bo, void* out, int b, int n, int c,
-                             int heads, int l, long long wt_sb, long long wt_sh, long long wt_sc,
-                             long long wt_room, float eps, int bm, int cl, int bufs, int stop,
-                             void* stream) {
-  const Args a{x, wt, vw, gamma, beta, bo, out, b, n, c, heads, l, wt_sb, wt_sh, wt_sc, wt_room,
-               eps};
-  if (!valid(a) || (bm != 64 && bm != 32) || (cl != 1 && cl != 2 && cl != 4) || heads % cl ||
-      bufs < 0 || bufs > 2)
-    return cudaErrorInvalidValue;
-  if (!bufs) bufs = auto_bufs(bm, c, (l + 15) / 16 * 16, heads / cl);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bm == 64 ? launch_stop<64>(a, cl, bufs, stop, s) : launch_stop<32>(a, cl, bufs, stop, s);
+  CUtensorMap wtmap;
+  const int mode = wt_mode(a, &wtmap);
+  return run(a, mode, wtmap, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

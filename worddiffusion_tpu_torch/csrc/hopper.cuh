@@ -1,10 +1,11 @@
 // Device helpers shared by the port's wgmma kernels (sm_90a): cp.async, the
 // wgmma fence / commit / wait, shared-memory matrix descriptors and their
-// swizzles, wgmma with both operands from shared memory (B.1, B.2, B.3, B.4)
-// and with A from registers (B.4's p . v), mbarriers, TMA tensor loads and
-// stores with their bulk groups, named barriers and setmaxnreg (B.4), bf16
-// pack / unpack, and the tanh-approximate gelu. Included by ln_geglu_ffn.cu
-// (B.1, B.2), ln_geglu_ffn_bwd.cu (B.3) and attention.cu (B.4).
+// swizzles, wgmma with both operands from shared memory (B.1, B.2, B.3, B.4,
+// B.7/B.8) and with A from registers (B.4's and B.7/B.8's p . v), mbarriers,
+// TMA tensor loads and stores with their bulk groups, named barriers and
+// setmaxnreg (B.4), bf16 pack / unpack, and the tanh-approximate gelu.
+// Included by ln_geglu_ffn.cu (B.1, B.2), ln_geglu_ffn_bwd.cu (B.3),
+// attention.cu (B.4) and fold_attention.cu (B.7/B.8).
 
 #pragma once
 
@@ -166,6 +167,24 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[40], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p, 1, 1, %43, %44;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(da), "l"(db), "r"(acc), "n"(TA), "n"(TB));
 }
 
@@ -416,6 +435,17 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, uint64_t
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// As tma_load_3d for a rank-4 map (c3 outermost).
+__device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
       : "memory");
 }
 

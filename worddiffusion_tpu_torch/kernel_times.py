@@ -187,16 +187,20 @@ def ffn_inputs(m: int, seed: int):
 
 def fold_inputs(b: int, n: int, seed: int):
     """x, the LayerNorm affine and out bias, and B.8's folds as
-    ``models.attention.build_folds`` returns them: wt4 [B, H, C, L] and
-    vw4 [B, H, L, C], contiguous."""
+    ``models.attention.build_folds`` returns them: wt4 [B, H, C, L] as the
+    [..., :L] view of an L stride rounded up to 8, vw4 [B, H, L, C]
+    contiguous."""
     import torch
+    import torch.nn.functional as F
 
     g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g)
     t = dict(x=r(b, n, D).bfloat16(), wt4=(r(b, HEADS, D, FOLD_L) / D ** 0.5).bfloat16(),
              vw4=r(b, HEADS, FOLD_L, D).bfloat16(), gamma=1 + 0.1 * r(D), beta=0.1 * r(D),
              b_out=0.02 * r(D))
-    return {k: v.cuda() for k, v in t.items()}
+    t = {k: v.cuda() for k, v in t.items()}
+    t["wt4"] = F.pad(t["wt4"], (0, -FOLD_L % 8))[..., :FOLD_L]
+    return t
 
 
 def norm_inputs(shape, seed: int):
@@ -308,13 +312,11 @@ def worker(tree: str, deep: bool, kinds: tuple[str, ...] = KINDS) -> dict:
                        for s in GN_SHAPES})
         if hasattr(ffn, "bwd_cluster_size"):
             out["clusters"]["ffn_bwd"] = {m: ffn.bwd_cluster_size(m, INNER) for m in FFN_BWD_M}
-        if hasattr(fold_attention, "route"):
-            out["clusters"]["fold"] = {
-                str(bn): fold_attention.route(bn[0], bn[1], HEADS) for bn in FOLD_BN}
+        if hasattr(fold_attention, "ctas"):
+            out["clusters"]["fold_ctas"] = {
+                str(bn): fold_attention.ctas(bn[0], bn[1], FOLD_L) for bn in FOLD_BN}
         if "groupnorm" in kinds:
             out["gn_routes"] = gn_routes(groupnorm)
-        if "fold" in kinds:
-            out["fold_routes"] = fold_routes(fold_attention)
         if "attention" in kinds:
             out["sweep"] = sweep(attention, scale)
     # last: after profiling a training step's thousands of kernels, traces of
@@ -396,51 +398,6 @@ def train_step(fold: bool, seed: int) -> dict:
                 kernel=three_ways(lambda: step(state, batch)), library=None)
 
 
-FOLD_ROUTES = ((64, 1), (64, 2), (64, 4), (32, 1), (32, 2), (32, 4))
-
-
-def fold_routes(fold_attention) -> list[dict]:
-    """B.8's kernel time at every route (rows a tile, CTAs a cluster
-    splitting the heads, fold buffers) at each FOLD_BN shape, the route it
-    picks, with wt4's L stride padded to 8, and, on
-    that route, stopped after the LayerNorm, with the fold copies and no
-    product, with the products and no fold copy, and whole."""
-    import ctypes
-
-    import torch
-    import torch.nn.functional as F
-
-    lib = fold_attention._lib()
-    rows = []
-    for i, (b, n) in enumerate(FOLD_BN):
-        t = fold_inputs(b, n, seed=700 + i)
-        vecs = [t[k].data_ptr() for k in ("gamma", "beta", "b_out")]
-        out = torch.empty_like(t["x"])
-        wt4 = t["wt4"]
-
-        def run(bm, cl, bufs=0, stop=0):
-            err = lib.wd_fold_attention_routed(
-                t["x"].data_ptr(), wt4.data_ptr(), t["vw4"].data_ptr(), *vecs, out.data_ptr(),
-                b, n, D, HEADS, FOLD_L, *wt4.stride()[:3], fold_attention.wt_room(wt4),
-                ctypes.c_float(1e-5), bm, cl, bufs, stop, torch.cuda.current_stream().cuda_stream)
-            if err:
-                raise RuntimeError(f"wd_fold_attention_routed failed ({err})")
-
-        # every route with one and (where a CTA takes more than one head) two
-        # fold buffers
-        times = {f"{bm}x{cl}b{bufs}": kernel_ms(lambda: run(bm, cl, bufs), per_call=1)[0]
-                 for bm, cl in FOLD_ROUTES for bufs in (1, 2) if bufs == 1 or cl < HEADS}
-        picked = fold_attention.route(b, n, HEADS)
-        phases = {name: kernel_ms(lambda: run(*picked, 0, stop), per_call=1)[0] for name, stop in (
-            ("layernorm", 1), ("copies", 2), ("products", 3), ("whole", 0))}
-        # the same folds with their L stride padded to 48 (16-byte copies of
-        # wt's rows in place of 4-byte ones)
-        wt4 = F.pad(t["wt4"], (0, -FOLD_L % 8))[..., :FOLD_L]
-        phases["whole, L stride padded to 8"] = kernel_ms(lambda: run(*picked), per_call=1)[0]
-        rows.append(dict(shape=[b, n, FOLD_L], picked=list(picked), routes=times, phases=phases))
-    return rows
-
-
 def resources(lib: str) -> list[dict]:
     """``cuobjdump -res-usage`` of each instance of the attention kernel at
     D=80, the FFN kernel and the GroupNorm cluster kernel, and the CTAs per
@@ -490,10 +447,11 @@ def resources(lib: str) -> list[dict]:
             warps, name, dyn = 8, "ffn_bwd_rows", cdll.wd_ln_geglu_ffn_bwd_smem(0)
         elif "ffn_bwd_weights_kernel" in line:
             warps, name, dyn = 8, "ffn_bwd_weights", cdll.wd_ln_geglu_ffn_bwd_smem(1)
-        elif m := re.search(r"fold_attention_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi0E", line):
-            lp, bm, bufs = int(m.group(1)), int(m.group(2)), int(m.group(3))
-            warps, name = bm // 8, f"fold_attention<{lp}, {bm}, {bufs}>"
-            dyn = cdll.wd_fold_attention_smem(bm, D, lp, bufs)
+        elif m := re.search(r"fold_attention_kernelILi(\d+)EE", line):
+            lp = int(m.group(1))
+            warps, name = 8, f"fold_attention<{lp}>"
+            dyn = cdll.wd_fold_attention_smem(lp)
+            extra = dict(stages=cdll.wd_fold_attention_stages(lp))
         else:
             continue
         per_warp = -(-usage["REG"] * 32 // 256) * 256
@@ -610,8 +568,6 @@ def main(argv=None) -> int:
     print("clusters", json.dumps(deep["clusters"]))
     for r in deep.get("gn_routes", []):
         print("groupnorm routes", json.dumps(r))
-    for r in deep.get("fold_routes", []):
-        print("fold routes", json.dumps(r))
     for w32, w16 in zip(deep["ffn"], deep["ffn_bf16"]):
         print(f"ffn {w32['shape']} fp32 weights (two cast copies) / bf16 weights: " + "; ".join(
             f"{m} {w32['kernel'][m]:.4f} / {w16['kernel'][m]:.4f}" for m in

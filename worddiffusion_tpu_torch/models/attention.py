@@ -64,7 +64,12 @@ def build_folds(context, wq, wk, wv, wo, heads, dim_head, dtype):
 
     The k/v projections run in ``dtype``; wt4 and vw4 accumulate in fp32,
     wt4 is scaled in fp32, and both are rounded to ``dtype``. Weights are
-    in parameter layout ([out, in])."""
+    in parameter layout ([out, in]).
+
+    vw4 is contiguous; wt4 is the ``[..., :L]`` view of an allocation whose
+    L stride is L rounded up to 8 (48 for the 42 context tokens), so that
+    its rows start on 16-byte boundaries, which the fold kernel's tensor
+    maps need; its values are those of the contiguous layout."""
     b, n, _ = context.shape
     ctx = context.to(dtype)
     kh = (ctx @ wk.to(dtype).t()).reshape(b, n, heads, dim_head)
@@ -74,8 +79,8 @@ def build_folds(context, wq, wk, wv, wo, heads, dim_head, dtype):
     wt4 = torch.einsum("chd,blhd->bhcl", wq3.float(), kh.float()) * dim_head ** -0.5
     vw4 = torch.einsum("blhd,hdf->bhlf", vh.float(), wo3.float())
     # einsum may return a permuted layout: the kernel reads the folds row-major
-    return tuple(f.to(dtype, memory_format=torch.contiguous_format).contiguous()
-                 for f in (wt4, vw4))
+    padded = wt4.new_empty((*wt4.shape[:-1], -(-n // 8) * 8), dtype=dtype)[..., :n]
+    return padded.copy_(wt4), vw4.to(dtype, memory_format=torch.contiguous_format).contiguous()
 
 
 def fold_weights(context, wq, wk, wv, wo, heads, dim_head, dtype):

@@ -113,44 +113,41 @@ def _fold(x, wt4, vw4, gamma, beta, b_out, eps, flat):
 def _lib():
     lib = build.load()
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.wd_fold_attention.argtypes = [p] * 7 + [i] * 5 + [ll] * 4 + [ctypes.c_float, p]
+    lib.wd_fold_attention.argtypes = [p] * 7 + [i] * 5 + [ll] * 3 + [ctypes.c_float, p]
     lib.wd_fold_attention.restype = i
-    lib.wd_fold_attention_routed.argtypes = [p] * 7 + [i] * 5 + [ll] * 4 + [ctypes.c_float, i,
-                                                                            i, i, i, p]
-    lib.wd_fold_attention_routed.restype = i
     for fn in ("wd_fold_attention_max_c", "wd_fold_attention_max_l"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = i
-    lib.wd_fold_attention_route.argtypes = [i, i, i]
-    lib.wd_fold_attention_route.restype = i
-    lib.wd_fold_attention_wt_route.argtypes = [p] + [i] * 4 + [ll] * 4
-    lib.wd_fold_attention_wt_route.restype = i
+    lib.wd_fold_attention_ctas.argtypes = [i] * 3
+    lib.wd_fold_attention_ctas.restype = i
+    lib.wd_fold_attention_wt_mode.argtypes = [p] + [i] * 4 + [ll] * 3
+    lib.wd_fold_attention_wt_mode.restype = i
     lib.wd_cuda_error_string.argtypes = [i]
     lib.wd_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-WT_ROUTES = ("16-byte", "4-byte", "element")
+# how wt4 reaches shared memory: TMA boxes of a per-head tensor map, or
+# copies by the producer warpgroup's threads
+WT_ROUTES = ("tma", "copy")
 
 
-def route(b: int, n: int, heads: int) -> tuple[int, int]:
-    """The kernel's route at these shapes: (rows a tile, CTAs a cluster,
-    each taking heads / CTAs of the heads)."""
-    code = _lib().wd_fold_attention_route(b, n, heads)
-    return code // 16, code % 16
+def ctas(b: int, n: int, l: int) -> int:
+    """The persistent CTAs the kernel launches at these shapes: as many as
+    are resident on the card (one an SM), at most one a 64-row tile; each
+    walks its tiles with all H heads."""
+    return _lib().wd_fold_attention_ctas(b, n, l)
 
 
 def wt_route(wt4) -> str:
-    """How the kernel copies wt4's rows into shared memory, from its
-    alignment, strides and allocation: 16-byte, 4-byte or element copies."""
-    return WT_ROUTES[_lib().wd_fold_attention_wt_route(
-        wt4.data_ptr(), *wt4.shape, *wt4.stride()[:3], wt_room(wt4))]
-
-
-def wt_room(wt4) -> int:
-    """The elements from wt4's first to the end of its allocation: a
-    16-byte copy of a row past L must stay inside it."""
-    return wt4.untyped_storage().nbytes() // wt4.element_size() - wt4.storage_offset()
+    """How the kernel brings wt4 into shared memory, from its alignment and
+    strides: "tma" (a per-head tensor map: strides of multiples of 8
+    elements, as build_folds lays wt4 out) or "copy" (B.7's [B, C, H*L]
+    rows, the contiguous layout at L = 42, an odd L)."""
+    mode = _lib().wd_fold_attention_wt_mode(wt4.data_ptr(), *wt4.shape, *wt4.stride()[:3])
+    if mode < 0:
+        raise ValueError(f"fold_attention: the kernel does not take wt4 {tuple(wt4.shape)}")
+    return WT_ROUTES[mode]
 
 
 def _check_operands(x, wt4, vw4, vecs, max_c, max_l):
@@ -200,7 +197,7 @@ def _launch(x, wt4, vw4, gamma, beta, b_out, eps, flat):
         return out
     err = build.launch_on(x, lambda stream: lib.wd_fold_attention(
         x.data_ptr(), wt4.data_ptr(), vw4.data_ptr(), *(v.data_ptr() for v in vecs),
-        out.data_ptr(), b, n, c, h, l, *wt4.stride()[:3], wt_room(wt4), float(eps), stream))
+        out.data_ptr(), b, n, c, h, l, *wt4.stride()[:3], float(eps), stream))
     if err:
         raise RuntimeError(
             f"fold attention kernel launch failed: {lib.wd_cuda_error_string(err).decode()} "
