@@ -28,8 +28,8 @@ Phases, each of which must pass (any failure exits non-zero):
    and inputs; launches per call (4 FF, 8 attention, 9 B.5, 12 B.6); call
    times and profiled device busy time with all kernels, with plain B.5
    and B.6, and all plain; the profiled kernels per call by name (one B.5
-   kernel and one B.1 kernel per site, B.5's old three-kernel pass gone) and
-   in all (UNET_KERNELS).
+   kernel, one B.1 kernel and one B.6 kernel per site: the conv sites take
+   their GroupNorm statistics in the kernel) and in all (UNET_KERNELS).
 5. main path: the regeneration CLI's pipeline (Regenerator + WordSampler,
    ``iam`` UNet, default VAE and CTC recognizer, seeded random weights)
    over 24 words in batches of 16 (a full one and a ragged one), with the
@@ -40,7 +40,7 @@ Phases, each of which must pass (any failure exits non-zero):
    and one with the plain attention, for s/batch with and without it.
 6. FFN forward + backward, kernel against plain: the forward and the
    backward kernel (B.3: rows, weight gradients and partial sums, on
-   ``wgmma``; its cluster size printed) against their plain versions at the
+   ``wgmma`` fed by TMA; its plan printed) against their plain versions at the
    training shapes, M = 128*256, 128*64 and a ragged 1000 (the output and
    seven gradients, each within its tolerance), bitwise repeatability of
    both, each beside its bound, and the autograd Function (both kernels)
@@ -112,7 +112,8 @@ Phases, each of which must pass (any failure exits non-zero):
    fitting in shared memory), B.5's route (cluster size; x kept in shared
    memory or read twice), bitwise repeatability, kernel / plain / library (stock
    ``F.group_norm`` [+ ``F.silu``]; ``F.group_norm`` -> ``F.silu`` ->
-   cuDNN ``F.conv2d``) / bound times, B.6's tile and its share of its bound,
+   cuDNN ``F.conv2d``) / bound times, B.6's plan (tile, ring stages, CTAs,
+   the cluster that takes the statistics) and its share of its bound,
    and both Functions' gradients against plain autograd at [128, 8, 32, 320].
 15. the whole SD VAE at full width on seeded weights: encode (B=128) and
    decode (B=16) all-kernel against all-plain, 18 B.6 + 4 B.5 launches per
@@ -493,7 +494,7 @@ CONV_SHAPES = ((B, 8, 32, 320, 32), (B, 4, 16, 320, 32), (TRAIN_B, 8, 32, 320, 3
                (TRAIN_B, 32, 128, 256, 32), (TRAIN_B, 16, 64, 512, 32),
                (TRAIN_B, 8, 32, 512, 32), (2, 5, 13, 64, 32), (2, 5, 13, 48, 48))
 # Kernels per iam UNet call at B=16 (torch.profiler), each B.5 site one.
-UNET_KERNELS = 422
+UNET_KERNELS = 398
 # bf16 output after fp32 arithmetic in another order (and, for B.6, one bf16
 # rounding of the activation): 1% of max |plain|. Measured on an H100 at these
 # shapes: at most 0.33% (B.5) and 0.72% (B.6).
@@ -555,6 +556,29 @@ def attn_plan_text(b: int, h: int, nq: int, nk: int) -> str:
 def floors_text(f: dict, ms: float) -> str:
     return (f"floors bytes {f['bytes_ms']:.4f} tensor {f['tensor_ms']:.4f} exp {f['exp_ms']:.4f} ms, "
             f"kernel at {f['largest_ms'] / ms:.1%} of the largest")
+
+
+def bwd_plan_text(m: int) -> str:
+    """B.3's launch plan at M rows, as a log fragment."""
+    from worddiffusion_tpu_torch.ops import ffn
+
+    p = ffn.bwd_plan(m, INNER)
+    return (f"rows: {p['rows_tile']}-row tiles, {p['rows_stages']} ring stages, "
+            f"{p['rows_ctas']} CTAs, clusters of {p['rows_cluster']} a tile; weights: "
+            f"{p['weights_ctas']} CTAs in clusters of {p['weights_cluster']}, "
+            f"{p['weights_stages']} ring stages")
+
+
+def conv_plan_text(b: int, h: int, w: int, c: int, groups: int) -> str:
+    """B.6's launch plan at this shape, as a log fragment."""
+    from worddiffusion_tpu_torch.ops import gn_conv
+
+    p = gn_conv.plan(b, h, w, c, groups)
+    stats = (f"statistics in the kernel, clusters of {p['cluster']}" if p["cluster"]
+             else "statistics by B.5's launch first")
+    return (f"{p['pixels']} pixels x {p['channels']} channels a CTA"
+            f"{', K split across the warpgroups' if p['k_split'] else ''}, {p['ctas']} CTAs, "
+            f"{p['stages']} ring stages, {stats}")
 
 
 def nbytes(*tensors) -> int:
@@ -644,6 +668,7 @@ def reset_counts() -> None:
     attention.fast_launches = 0
     fold_attention.launches = fold_attention.bwd_calls = fold_attention.flat_launches = 0
     groupnorm.launches = groupnorm.bwd_calls = gn_conv.launches = gn_conv.bwd_calls = 0
+    gn_conv.stats_launches = 0
 
 
 def card_generator(seed: int):
@@ -931,7 +956,7 @@ def phase6_ffn_backward(smi: str) -> dict:
         # the backward recomputes h = LN(x) W1 and does four more products of
         # the same size: 16 M d inner operations in all
         bound_ms, bound_by = bound(nbytes(*a.values(), *got), 16 * m * D * INNER)
-        log(f"ffn bwd (B.3) M={m} (cluster of {ffn.bwd_cluster_size(m, INNER)}): kernel "
+        log(f"ffn bwd (B.3) M={m} ({bwd_plan_text(m)}): kernel "
             f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), "
             f"{bound_ms / ms:.1%} of the bound [{smi}]")
         rows.append(dict(m=m, err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1333,7 +1358,12 @@ def phase11_fold(smi: str) -> dict:
     return dict(rows=rows, pair_ms=pair_ms, plain_pair_ms=plain_pair_ms)
 
 
-def device_profile(fn, calls: int = 5) -> dict:
+# Calls a device_profile counts (after one call before its window and one in
+# it that may lose its first kernels).
+PROFILE_CALLS = 5
+
+
+def device_profile(fn, calls: int = PROFILE_CALLS) -> dict:
     """``fn`` run ``calls`` times under ``torch.profiler``: device busy ms and
     kernels per call (kernel events only: the aten ops carry their kernels'
     time too), and the five kernels that take the most time."""
@@ -1635,9 +1665,8 @@ def phase14_norms(smi: str) -> dict:
                                                 wb, cbb, padding=1))
         bound_ms, bound_by = bound(nbytes(*t.values(), got, cb) + wt.numel() * 2,
                                    2 * 9 * c * c * b * h * w)
-        tile = gn_conv._lib().wd_gn_silu_conv3x3_tile(b, h, w, c)
-        log(f"gn_silu_conv3x3 B={b} {h}x{w} C={c} G={groups} ({tile >> 16} pixels x "
-            f"{tile & 0xffff} channels a CTA, {'wgmma' if tile >> 16 > 64 else 'mma.sync'}): "
+        log(f"gn_silu_conv3x3 B={b} {h}x{w} C={c} G={groups} "
+            f"({conv_plan_text(b, h, w, c, groups)}): "
             f"max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {NORM_REL_TOL}); bitwise "
             f"repeatable {torch.equal(got, again)}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
             f"F.group_norm + F.silu + F.conv2d (3 calls) {library_ms:.4f} ms bound "
@@ -3154,17 +3183,18 @@ def unet_check(smi: str, unet, inputs, label: str, launches=(4, 8, 0, *UNET_NORM
     import torch
 
     from worddiffusion_tpu_torch.models.unet import UNet
-    from worddiffusion_tpu_torch.ops import attention, ffn, fold_attention
+    from worddiffusion_tpu_torch.ops import attention, ffn, fold_attention, gn_conv
 
     plain = UNet(dataclasses.replace(unet.cfg, use_pallas_ffn=False)).cuda().eval()
     plain.load_state_dict(unet.state_dict())
     with torch.no_grad():
         f0, a0, d0 = ffn.launches, attention.launches, fold_attention.launches
-        n0, p0 = norm_counts(), attention.probs_launches
+        n0, p0, s0 = norm_counts(), attention.probs_launches, gn_conv.stats_launches
         eps_k = unet(*inputs)
         n_ff, n_attn = ffn.launches - f0, attention.launches - a0
         n_fold, n_probs = fold_attention.launches - d0, attention.probs_launches - p0
         n_gn, n_conv = (b - a for a, b in zip(n0[:2], norm_counts()[:2]))
+        n_stats = gn_conv.stats_launches - s0
         with plain_norms():
             before_ms = cuda_ms(lambda: unet(*inputs), reps=10)
             prof_before = device_profile(lambda: unet(*inputs))
@@ -3174,11 +3204,32 @@ def unet_check(smi: str, unet, inputs, label: str, launches=(4, 8, 0, *UNET_NORM
         err = (eps_k - eps_p).abs().max().item()
         rel = err / eps_p.abs().max().item()
         unet_ms = cuda_ms(lambda: unet(*inputs), reps=10)
-        prof = device_profile(lambda: unet(*inputs))
+        # one B.1 kernel per FF sub-layer, one B.5 kernel per GroupNorm and one
+        # B.6 kernel per conv site, and B.5's statistics launch before a conv
+        # site only where its sample is more CTAs than a cluster holds (pixel
+        # space's images; the latent UNet's 8 x 32 and 4 x 16 sites take their
+        # statistics in the conv kernel). The wrappers' counters are read over
+        # the same window as the trace and must count every call's launches
+        # exactly; the profiler now and then misses a kernel event on the card
+        # (one gn_cluster_kernel of 105 in a pixel-space window), so a trace
+        # short of what the counters of its own window show launched is logged
+        # beside them and taken again, up to three times
+        want = {"ffn_kernel<": n_ff, "gn_cluster_kernel": n_gn + n_stats, "conv_kernel<": n_conv}
+        window = lambda: (ffn.launches, norm_counts()[0] + gn_conv.stats_launches,
+                          norm_counts()[1])
+        for attempt in range(3):
+            c0 = window()
+            prof = device_profile(lambda: unet(*inputs), calls=PROFILE_CALLS)
+            counted = {k: (b - a) / (PROFILE_CALLS + 2)  # device_profile's calls
+                       for k, a, b in zip(want, c0, window())}
+            assert counted == want, f"launches counted in the profiled window {counted}, {want}"
+            by_name = {k: sum(n for name, n in prof["per_call"].items() if k in name)
+                       for k in want}
+            if by_name == want:
+                break
+            log(f"unet B={B} ({label}): trace {attempt + 1} holds {by_name} kernels per call by "
+                f"name, its window's counters {counted}: a kernel event missed; traced again")
     got = (n_ff, n_attn, n_fold, n_gn, n_conv)
-    by_name = {k: sum(n for name, n in prof["per_call"].items() if k in name)
-               for k in ("ffn_kernel<", "gn_cluster_kernel", "gn_partial_kernel",
-                         "gn_finalize_kernel")}
     log(f"unet B={B} ({label}, {unet.cfg.model_channels} ch): eps max_abs_err {err:.6g} "
         f"max_rel_err {rel:.6g} (tol {UNET_REL_TOL}) against all-plain; launches per call: "
         f"{n_ff} FF, {n_attn} attention, {n_fold} fold attention, {n_gn} groupnorm, {n_conv} "
@@ -3188,10 +3239,8 @@ def unet_check(smi: str, unet, inputs, label: str, launches=(4, 8, 0, *UNET_NORM
         f"{prof_before['kernels']:.0f} with plain B.5/B.6); profiled kernels per call by name "
         f"{by_name}; top kernels (ms/call) {prof['top']} [{smi}]")
     assert got == tuple(launches) and n_probs == 0, (got, n_probs)
-    # one B.1 kernel per FF sub-layer and one B.5 kernel per GroupNorm; the
-    # statistics pass's two kernels only behind B.6
-    assert by_name == {"ffn_kernel<": n_ff, "gn_cluster_kernel": n_gn,
-                       "gn_partial_kernel": n_conv, "gn_finalize_kernel": n_conv}, by_name
+    assert by_name == want, (by_name, want)
+    assert n_stats == (n_conv if unet.cfg.in_channels == 3 else 0), n_stats
     assert bool(torch.isfinite(eps_k).all()), "non-finite eps"
     assert rel <= UNET_REL_TOL, f"UNet all-kernel vs all-plain: rel {rel}"
     return dict(ms=unet_ms, before_ms=before_ms, plain_ms=plain_ms, err=err, rel=rel,
@@ -3375,9 +3424,8 @@ def pixel_kernel_rows(smi: str) -> dict:
                                                 wb, cbb, padding=1))
         flops = 2 * 9 * c * c * b * h * w
         bound_ms, bound_by = bound(nbytes(*t.values(), got, cb) + wt.numel() * 2, flops)
-        tile = gn_conv._lib().wd_gn_silu_conv3x3_tile(b, h, w, c)
-        log(f"pixel gn_silu_conv3x3 B={b} {h}x{w} C={c} ({tile >> 16} pixels x {tile & 0xffff} "
-            f"channels a CTA): max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {NORM_REL_TOL}); "
+        log(f"pixel gn_silu_conv3x3 B={b} {h}x{w} C={c} "
+            f"({conv_plan_text(b, h, w, c, groups)}): max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {NORM_REL_TOL}); "
             f"bitwise repeatable {torch.equal(got, again)}; kernel {ms:.4f} ms plain "
             f"{plain_ms:.4f} ms F.group_norm + F.silu + F.conv2d {library_ms:.4f} ms bound "
             f"{bound_ms:.4f} ms ({bound_by}), kernel at {bound_ms / ms:.1%} of the bound, "
@@ -3463,7 +3511,7 @@ def pixel_kernel_rows(smi: str) -> dict:
         ms = launch_ms(lambda: ffn.ln_geglu_ffn_bwd(**a), calls=3)
         plain_ms = launch_ms(lambda: ffn.ln_geglu_ffn_bwd_reference(**a), calls=1, reps=3)
         bound_ms, bound_by = bound(nbytes(*a.values(), *got), 16 * m * D * INNER)
-        log(f"pixel ffn bwd (B.3) M={m} (cluster of {ffn.bwd_cluster_size(m, INNER)}): every "
+        log(f"pixel ffn bwd (B.3) M={m} ({bwd_plan_text(m)}): every "
             f"gradient within {BWD_REL_TOL} of plain, bitwise repeatable; kernel {ms:.4f} ms "
             f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), kernel at "
             f"{bound_ms / ms:.1%} of the bound [{smi}]")

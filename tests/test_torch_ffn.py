@@ -124,6 +124,32 @@ def test_bwd_reference_matches_jax_kernel_fp32():
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_reference_matches_jax_kernel_at_the_kernels_width_ragged_m(dtype):
+    """The plain backward against the JAX backward kernel in interpret mode
+    at the width the CUDA kernel takes (d = 320, inner = 1280) and a ragged
+    M (65: one full 64-row tile and one row, whose zero rows past M must add
+    nothing to the sums), x, dy and the weights in ``dtype``: fp32, 1e-4 of
+    each gradient's max |JAX| (the same arithmetic summed in another order);
+    bf16, 2% (bf16 operands rounded at other places)."""
+    from worddiffusion_tpu.ops.ffn_pallas import _ln_ffn_bwd_pallas
+
+    a = _bwd_inputs(m=65, d=320, inner=1280, seed=5)
+    order = ("x", "dy", "gamma", "beta", "w1", "b1", "w2")
+    low = ("x", "dy", "w1", "w2") if dtype == "bfloat16" else ()
+    jx = {k: jnp.asarray(a[k], jnp.bfloat16 if k in low else jnp.float32) for k in order}
+    want = _ln_ffn_bwd_pallas(*(jx[k] for k in order), interpret=True)
+    tx = {k: torch.from_numpy(a[k]).to(torch.bfloat16 if k in low else torch.float32)
+          for k in order}
+    got = ffn.ln_geglu_ffn_bwd_reference(*(tx[k] for k in order))
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for name, g, w in zip(("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2"), got, want):
+        w = np.asarray(w, np.float32).reshape(tuple(g.shape))
+        assert bool(torch.isfinite(g).all()), name
+        err = np.abs(g.float().numpy() - w).max()
+        assert err <= tol * np.abs(w).max(), (name, err)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_function_cpu_grads_match_jax_bwd_kernel_in_parameter_layout(dtype):
     """LnGegluFFN on the CPU, with fp32 weights in parameter layout (w1
     [2*inner, d], w2 [d, inner]) and x in ``dtype``: its seven gradients

@@ -44,6 +44,11 @@ def _oihw(w_hwio: np.ndarray) -> torch.Tensor:
     (2, 8, 32, 64, 32),     # the UNet's grouping
     (2, 4, 16, 48, 48),     # one group per channel
     (2, 5, 13, 64, 32),     # an odd image: the halo's zero padding at every edge
+    (2, 4, 16, 320, 32),    # the UNet's middle block (five 64-channel chunks)
+    (1, 3, 5, 128, 32),     # the VAE's widths at a small image
+    (1, 2, 3, 256, 32),
+    (2, 1, 9, 64, 32),      # one row: every tap row but the middle one is padding
+    (2, 7, 1, 64, 32),      # one column
 ])
 def test_reference_matches_pallas_bf16(b, h, w, c, groups):
     x, gs, gb, wt, bias = _inputs(b, h, w, c)
@@ -122,3 +127,35 @@ def test_models_route_through_the_fused_ops(in_ch, out_ch, kernel):
     assert (gn_conv.bwd_calls - c0, groupnorm.bwd_calls - g0) == ((1, 0) if fused else (0, 1))
     want = conv(torch.nn.functional.silu(norm(x)))
     torch.testing.assert_close(out, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("h,w", [(1, 9), (7, 1), (3, 5)])
+def test_padding_is_after_the_activation(h, w):
+    """The plain version pads silu(GroupNorm(x)) with zeros, as the Pallas
+    body does (resblock_pallas.py:57); padding x before the activation would
+    give silu((0 - mu) * r * g + b) != 0 at the border instead. Both against
+    the same products in numpy (fp32), at the images where the halo is
+    mostly padding."""
+    x, gs, gb, wt, bias = _inputs(2, h, w, 64, seed=4)
+    gs, gb = gs + 0.5, gb + 0.5  # a border activation far from 0
+    args = (torch.from_numpy(gs), torch.from_numpy(gb), _oihw(wt), torch.from_numpy(bias), 32,
+            1e-5)
+    got = gn_conv.gn_silu_conv3x3_reference(torch.from_numpy(x), *args).numpy()
+
+    def conv(padded):
+        return sum(np.einsum("bhwc,cd->bhwd", padded[:, dy:dy + h, dx:dx + w], wt[dy, dx])
+                   for dy in range(3) for dx in range(3)) + bias
+
+    act = groupnorm.groupnorm_reference(torch.from_numpy(x), torch.from_numpy(gs),
+                                        torch.from_numpy(gb), 32, 1e-5, True).numpy()
+    after = conv(np.pad(act, ((0, 0), (1, 1), (1, 1), (0, 0))))
+    np.testing.assert_allclose(got, after, rtol=0, atol=1e-5)
+    # the same statistics, with the border taking the activation of a zero pixel
+    xf = torch.from_numpy(x).reshape(2, -1, 32, 2)
+    mu = xf.mean(dim=(1, 3), keepdim=True)
+    var = (xf.square().mean(dim=(1, 3), keepdim=True) - mu.square()).clamp_min(0.0)
+    zero = ((0 - mu) * torch.rsqrt(var + 1e-5)).expand(2, 1, 32, 2).reshape(2, 1, 1, 64)
+    zero = zero * args[0] + args[1]
+    before = np.broadcast_to(torch.nn.functional.silu(zero).numpy(), (2, h + 2, w + 2, 64)).copy()
+    before[:, 1:-1, 1:-1] = act
+    assert np.abs(conv(before) - got).max() > 1e-2 * np.abs(got).max()

@@ -267,7 +267,13 @@ def _bwd_inputs(m, device, seed=0):
     return {k: t[k] for k in order}
 
 
-@pytest.mark.parametrize("m", [128 * 256, 128 * 64, 1000, 64, 65])
+# B.3's M: the training step's two sites (B=128 at 256 and 64 tokens), a ragged
+# M, one tile and one tile and a row (the clusters that share a tile), and a
+# pixel-space site (B=16 at 64 x 256 tokens: 4096 tiles)
+BWD_M = [128 * 256, 128 * 64, 1000, 64, 65, 16 * 64 * 256]
+
+
+@pytest.mark.parametrize("m", BWD_M)
 def test_bwd_kernel_matches_plain(cuda, m):
     t = _bwd_inputs(m, cuda)
     before = ffn.bwd_launches
@@ -282,10 +288,12 @@ def test_bwd_kernel_matches_plain(cuda, m):
         assert err <= BWD_REL_TOL * w.float().abs().max().item(), (name, err)
 
 
-def test_bwd_kernel_is_bitwise_repeatable(cuda):
+@pytest.mark.parametrize("m", [128 * 64 + 40, 65, 128 * 256])
+def test_bwd_kernel_is_bitwise_repeatable(cuda, m):
     """No atomics: the sums run in a fixed order, so two runs agree bit
-    for bit (the trainer's bitwise resume rests on it)."""
-    t = _bwd_inputs(128 * 64 + 40, cuda, seed=3)
+    for bit (the trainer's bitwise resume rests on it), with one CTA a tile
+    (a ragged last tile) and with clusters that share a tile."""
+    t = _bwd_inputs(m, cuda, seed=3)
     first = ffn.ln_geglu_ffn_bwd(**t)
     second = ffn.ln_geglu_ffn_bwd(**t)
     torch.cuda.synchronize()
@@ -900,15 +908,18 @@ def test_groupnorm_kernel_matches_plain(cuda, b, h, w, c, groups, silu):
 
 # GN -> SiLU -> conv3x3, B.6: chip_smoke.py's sites (the UNet's two resolutions
 # at B=16 and 128, the VAE decoder's levels at B=16 and the encoder's at B=128),
-# the VAE's levels at B=4, a ragged image (5 x 13) and a ragged width (C=48).
-# They take every tile the kernel has: 256 and 128 pixels (wgmma) and 64 pixels
-# (mma.sync), 128, 160 and 64 channels.
+# the VAE's levels at B=4, a ragged image (5 x 13), a ragged width (C=48), a
+# pixel-space ResBlock and images of one row and of one column. They take
+# every plan the kernel has: 128 pixels, and 64 with K split across the two
+# warpgroups; 128, 160 and 64 channels; the statistics in the kernel (a
+# sample's CTAs one cluster) or by B.5's launch first.
 CONV_SHAPES = [(16, 8, 32, 320, 32), (16, 4, 16, 320, 32), (128, 8, 32, 320, 32),
                (128, 4, 16, 320, 32), (16, 8, 32, 512, 32), (16, 16, 64, 512, 32),
                (16, 32, 128, 256, 32), (16, 64, 256, 128, 32), (128, 64, 256, 128, 32),
                (128, 32, 128, 256, 32), (128, 16, 64, 512, 32), (128, 8, 32, 512, 32),
                (4, 64, 256, 128, 32), (4, 32, 128, 256, 32), (4, 16, 64, 512, 32),
-               (2, 5, 13, 64, 32), (2, 5, 13, 48, 48)]
+               (2, 5, 13, 64, 32), (2, 5, 13, 48, 48), (16, 64, 256, 320, 32),
+               (2, 1, 9, 64, 32), (2, 7, 1, 64, 32)]
 
 
 def _conv_inputs(b, h, w, c, device, seed=0):
@@ -937,6 +948,110 @@ def test_gn_conv_kernel_matches_plain(cuda, b, h, w, c, groups):
     assert got.dtype == torch.bfloat16 and got.shape == want.shape and torch.equal(got, again)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= 1e-2 * want.float().abs().max().item(), err
+
+
+def _kernel_names(fn):
+    """The device kernels one call of ``fn`` launches, by name, in order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    return [e.name for e in events]
+
+
+@pytest.mark.parametrize("b,h,w,c,stats_launch", [
+    (16, 8, 32, 320, False), (16, 4, 16, 320, False), (128, 8, 32, 320, False),
+    (128, 4, 16, 320, False), (2, 5, 13, 48, False), (16, 64, 256, 128, True),
+    (4, 32, 128, 256, True)])
+def test_gn_conv_launches_a_call_by_name(cuda, b, h, w, c, stats_launch):
+    """One conv launch a call, and before it one launch of B.5's cluster
+    kernel for the statistics only where a sample is more CTAs than a
+    cluster holds (the VAE's images); the UNet's sites take their
+    statistics in the conv kernel. The plan says the same."""
+    from worddiffusion_tpu_torch.ops import gn_conv
+
+    groups = 48 if c == 48 else 32
+    t = _conv_inputs(b, h, w, c, cuda)
+    wk = t["w"].to(torch.bfloat16)  # the weight's cast, outside the profiled call
+    names = _kernel_names(lambda: gn_conv._launch(t["x"], t["gn_scale"], t["gn_bias"], wk, t["b"],
+                                                  groups, 1e-5))
+    names = [n for n in names if "conv_kernel" in n or "gn_" in n]
+    assert [("conv_kernel" in n, "gn_cluster_kernel" in n) for n in names] == (
+        [(False, True)] if stats_launch else []) + [(True, False)], names
+    assert (gn_conv.plan(b, h, w, c, groups)["cluster"] == 0) == stats_launch
+
+
+@pytest.mark.parametrize("b,h,w,c", [(16, 8, 32, 320), (2, 5, 13, 64), (4, 4, 16, 128)])
+def test_gn_conv_every_plan_matches_plain(cuda, b, h, w, c):
+    """Every plan the kernel has (128 pixels, or 64 with K split; x 160, 128
+    or 64 channels where C takes them), through the measurements' entry
+    wd_gn_silu_conv3x3_planned, within 1% of max |out| of the plain version
+    and bitwise repeatable."""
+    import ctypes
+
+    from worddiffusion_tpu_torch.ops import gn_conv
+
+    torch.backends.cudnn.allow_tf32 = False
+    t = _conv_inputs(b, h, w, c, cuda, seed=4)
+    want = gn_conv.gn_silu_conv3x3_reference(**t, groups=32).float()
+    lib = gn_conv._lib()
+    fn = lib.wd_gn_silu_conv3x3_planned
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_float] + [i] * 3 + [p]
+    fn.restype = i
+    wk = gn_conv.kernel_weight(t["w"])
+    stats = torch.empty(b * 32 * 2, device=cuda)
+    for px, bn, split in ((128, 160, 0), (128, 128, 0), (128, 64, 0), (64, 160, 1), (64, 128, 1),
+                          (64, 64, 1)):
+        if bn != 64 and c % bn:
+            continue
+        outs = []
+        for _ in range(2):
+            out = torch.zeros_like(t["x"])
+            err = fn(t["x"].data_ptr(), t["gn_scale"].data_ptr(), t["gn_bias"].data_ptr(),
+                     wk.data_ptr(), t["b"].data_ptr(), out.data_ptr(), stats.data_ptr(), b, h, w, c,
+                     32, 1e-5, px, bn, split, torch.cuda.current_stream().cuda_stream)
+            assert err == 0, (px, bn, split, err)
+            outs.append(out)
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], outs[1]), (px, bn, split)
+        e = (outs[0].float() - want).abs().max().item()
+        assert e <= 1e-2 * want.abs().max().item(), (px, bn, split, e)
+
+
+def test_b3_and_b6_kernels_are_wgmma_and_tma(cuda):
+    """The built library's SASS (cuobjdump -sass): every instance of B.3's
+    row and weight-gradient kernels and of B.6's conv kernel issues HGMMA
+    (wgmma) and UTMALDG (TMA loads), and none HMMA (mma.sync) or LDGSTS
+    (cp.async)."""
+    import os
+    import re
+    import subprocess
+
+    from worddiffusion_tpu_torch.ops import build
+
+    lib = build.build()
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)[1:]
+    wanted = ("ffn_bwd_rows_kernel", "ffn_bwd_weights_kernel", "conv_kernel")
+    seen = {k: 0 for k in wanted}
+    for f in funcs:
+        name = f.split("\n", 1)[0]
+        for k in wanted:
+            if k in name:
+                seen[k] += 1
+                assert "HGMMA" in f and "UTMALDG" in f, name
+                assert not re.search(r"\bHMMA\b|\bLDGSTS\b", f), name
+    assert seen["ffn_bwd_rows_kernel"] >= 1 and seen["ffn_bwd_weights_kernel"] >= 1, seen
+    assert seen["conv_kernel"] == 6, seen  # 64, 128, 160 channels x 128 px / K split
 
 
 # B.5 at every site chip_smoke.py drives: the UNet's at B=16 and 128, the VAE

@@ -40,6 +40,26 @@ def test_shapes_cover_the_smoke_runs_unet_sites():
     assert any(h * w * c * 2 > 8 * 112 * 1024 for _, h, w, c, _, _ in kernel_times.GN_SHAPES)
 
 
+def test_conv_shapes_cover_both_unet_resolutions_at_both_batches():
+    """B.6 is timed at the UNet's 8 x 32 and 4 x 16 sites at B=16 and 128 (the
+    4 x 16 ones take the K-split plan), as chip_smoke.py drives them, and at
+    a pixel-space ResBlock's [16, 64, 256, 320]; B.3 at the training sites."""
+    unet = {s[:4] for s in chip_smoke.CONV_SHAPES if s[1:3] in ((8, 32), (4, 16)) and s[3] == 320}
+    assert unet == {(b, h, w, 320) for b in (chip_smoke.B, chip_smoke.TRAIN_B)
+                    for h, w in ((8, 32), (4, 16))}
+    assert unet <= set(kernel_times.CONV_SHAPES)
+    assert (chip_smoke.B, 64, 256, 320) in kernel_times.CONV_SHAPES
+    assert {s[:4] for s in chip_smoke.PIXEL_CONV_SHAPES} & set(kernel_times.CONV_SHAPES)
+    assert {chip_smoke.TRAIN_B * 256, chip_smoke.TRAIN_B * 64} <= set(kernel_times.FFN_BWD_M)
+
+
+def test_ffn_bwd_shapes_cover_the_pixel_sites():
+    """B.3 is timed at pixel space's two sites (B=16 at 64 x 256 and 32 x 128
+    tokens), as chip_smoke.py drives them, beside the training step's."""
+    assert set(chip_smoke.PIXEL_FFN_M) <= set(kernel_times.FFN_BWD_M)
+    assert chip_smoke.B * 64 * 256 in kernel_times.FFN_BWD_M
+
+
 def test_summary_handles_every_kind_with_and_without_a_library():
     """B.1 and B.2 have no library call (None): their lines leave it out;
     B.5's carries F.group_norm's."""

@@ -103,10 +103,10 @@
 // over keys.
 // The output stays B.4's.
 //
-// The host encodes the tensor maps with the driver's cuTensorMapEncodeTiled,
-// reached through the runtime's cudaGetDriverEntryPoint, so that the library
-// links without libcuda; a failed encode is returned as an error, as a
-// refused launch is.
+// The host encodes the tensor maps with hopper.cuh's encode (the driver's
+// cuTensorMapEncodeTiled, reached through the runtime's
+// cudaGetDriverEntryPoint, so that the library links without libcuda); a
+// failed encode is returned as an error, as a refused launch is.
 
 #include <cuda.h>  // CUtensorMap and the encode's enums (header only)
 #include <cudaTypedefs.h>
@@ -552,39 +552,12 @@ Plan plan(int bh, int nq, int nk) {
   return p;
 }
 
-using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
-
-// The driver's cuTensorMapEncodeTiled through the runtime (no -lcuda), once.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
-                                                  &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
-                                                                    : nullptr;
-  }();
-  return fn;
-}
-
 // A rank-3 map over x [bh, n, d] bf16 with boxes of 16 columns x `rows` rows of
 // one pair, 32-byte swizzle; out-of-range elements load as zeros and are not
-// stored.
-bool encode(CUtensorMap* map, const void* x, int d, int n, int bh, int rows) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {cuuint64_t(d), cuuint64_t(n), cuuint64_t(bh)};
-  const cuuint64_t strides[2] = {cuuint64_t(d) * 2, cuuint64_t(n) * d * 2};
-  const cuuint32_t box[3] = {16, cuuint32_t(rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_32B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// stored. Through hopper.cuh's encode, which caches maps per host thread.
+bool encode_cached(CUtensorMap* map, const void* x, int d, int n, int bh, int rows) {
+  return encode(map, map_key(x, 3, {d, n, bh}, {2LL * d, 2LL * n * d}, {16, rows, 1},
+                             CU_TENSOR_MAP_SWIZZLE_32B));
 }
 
 // Raise a kernel instance's dynamic shared memory limit once per device: the
@@ -602,35 +575,6 @@ cudaError_t raise_smem_once(Kernel kernel, int bytes, std::atomic<unsigned long 
     raised.fetch_or(bit);
   }
   return cudaSuccess;
-}
-
-// Encode through a small direct-mapped cache per host thread: a map is a pure
-// function of its key, encoding one costs host time of the order of the launch
-// (the small shapes are bound by the host), and a caller's tensors recur
-// (PyTorch's caching allocator hands back the same blocks).
-bool encode_cached(CUtensorMap* map, const void* x, int d, int n, int bh, int rows) {
-  struct Entry {
-    CUtensorMap map;
-    const void* x;
-    int d, n, bh, rows;
-  };
-  static thread_local Entry cache[64];
-  const uintptr_t h = (reinterpret_cast<uintptr_t>(x) >> 8) ^ uintptr_t(n) * 131 ^
-                      uintptr_t(bh) * 8191 ^ uintptr_t(rows) * 7 ^ uintptr_t(d);
-  Entry& e = cache[h % 64];
-  if (e.x != x || e.d != d || e.n != n || e.bh != bh || e.rows != rows) {
-    if (!encode(&e.map, x, d, n, bh, rows)) {
-      e.x = nullptr;
-      return false;
-    }
-    e.x = x;
-    e.d = d;
-    e.n = n;
-    e.bh = bh;
-    e.rows = rows;
-  }
-  *map = e.map;
-  return true;
 }
 
 template <int D, int KC, int NWG, bool FAST>

@@ -86,9 +86,9 @@
 // rounding. Bitwise repeatable: no atomics, and every sum's order is fixed,
 // whatever the route of wt's loads.
 //
-// The host encodes the tensor maps with the driver's cuTensorMapEncodeTiled,
-// reached through the runtime's cudaGetDriverEntryPoint (no -lcuda), and caches
-// them per host thread.
+// The host encodes the tensor maps with hopper.cuh's encode (the driver's
+// cuTensorMapEncodeTiled through the runtime, no -lcuda, cached per host
+// thread).
 
 #include <cuda.h>  // CUtensorMap and the encode's enums (header only)
 #include <cudaTypedefs.h>
@@ -153,27 +153,6 @@ __host__ __device__ constexpr Smem smem_layout(int lp) {
   s.bars = s.stages + s.nst * s.stage;
   s.size = s.bars + 8 * (4 + 4 * s.nst) + 1024;  // + the base's alignment
   return s;
-}
-
-// Until the barrier's phase of parity `parity` has completed. A phase that
-// does not complete within seconds is a fault of the launch (a load that never
-// landed, an arrival that never came): the kernel traps, and the launch fails
-// with an error, rather than spin on.
-__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
-  for (uint32_t tries = 0;; ++tries) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries == (1u << 26)) __trap();
-  }
 }
 
 // The four threads of a quad (t = 0..3) hold one row between them.
@@ -599,82 +578,6 @@ int lp_of(int l) { return (l + 15) / 16 * 16; }
 
 int row_tiles(int n) { return (n + BM - 1) / BM; }
 
-using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
-
-// The driver's cuTensorMapEncodeTiled through the runtime (no -lcuda), once.
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
-                                                  &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
-                                                                    : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 tensor map of rank 3 or 4 (dims innermost first, strides in bytes of
-// dims 1..), boxes of 64 innermost columns with the 128-byte swizzle (or
-// 16 with the 32-byte swizzle);
-// out-of-range elements load as zeros. Encoded through a small direct-mapped
-// cache per host thread: a map is a pure function of its key, encoding costs
-// host time of the order of the launch, and a caller's tensors recur.
-struct MapKey {
-  const void* base;
-  int rank, swizzle;
-  cuuint64_t dims[4], strides[3];
-  cuuint32_t box[4];
-};
-
-MapKey key(const void* base, int rank, std::initializer_list<long long> dims,
-           std::initializer_list<long long> strides, std::initializer_list<int> box,
-           CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
-  MapKey k;
-  std::memset(&k, 0, sizeof k);  // padding and unused dims compare equal
-  k.base = base;
-  k.rank = rank;
-  k.swizzle = int(swizzle);
-  int i = 0;
-  for (long long d : dims) k.dims[i++] = cuuint64_t(d);
-  i = 0;
-  for (long long s : strides) k.strides[i++] = cuuint64_t(s);
-  i = 0;
-  for (int bx : box) k.box[i++] = cuuint32_t(bx);
-  return k;
-}
-
-bool encode(CUtensorMap* map, const MapKey& k) {
-  struct Entry {
-    MapKey key;
-    CUtensorMap map;
-    bool ok;
-  };
-  static thread_local Entry cache[64];
-  uintptr_t h = reinterpret_cast<uintptr_t>(k.base) >> 4;
-  for (int i = 0; i < 4; ++i) h = h * 31 + k.dims[i] * 7 + k.box[i];
-  for (int i = 0; i < 3; ++i) h = h * 31 + k.strides[i];
-  Entry& e = cache[h % 64];
-  if (!e.ok || std::memcmp(&e.key, &k, sizeof k) != 0) {
-    const EncodeTiled fn = encoder();
-    const cuuint32_t unit[4] = {1, 1, 1, 1};
-    std::memcpy(&e.key, &k, sizeof k);
-    e.ok = fn != nullptr &&
-           fn(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cuuint32_t(k.rank), const_cast<void*>(k.base),
-              k.dims, k.strides, k.box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-              CUtensorMapSwizzle(k.swizzle), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-    if (!e.ok) return false;
-  }
-  *map = e.map;
-  return true;
-}
-
 // How wt reaches shared memory, and its map: per head by TMA where every
 // stride is a multiple of 8 elements and they do not overlap in the order l,
 // c, h, b (a stride of a dimension of size 1 taken as the one it would have),
@@ -686,7 +589,7 @@ int wt_mode(const Args& a, CUtensorMap* map) {
   const long long sb = a.b == 1 ? a.heads * sh : a.wt_sb;
   if (sc % 8 == 0 && sh % 8 == 0 && sb % 8 == 0 && sc >= a.l && sh >= a.c * sc &&
       sb >= a.heads * sh &&
-      encode(map, key(a.wt, 4, {a.l, a.c, a.heads, a.b}, {2 * sc, 2 * sh, 2 * sb},
+      encode(map, map_key(a.wt, 4, {a.l, a.c, a.heads, a.b}, {2 * sc, 2 * sh, 2 * sb},
                       {16, WT_BOX, 1, 1}, CU_TENSOR_MAP_SWIZZLE_32B)))
     return WT_TMA;
   return WT_COPY;
@@ -731,9 +634,9 @@ cudaError_t launch(const Args& a, int mode, const CUtensorMap& wtmap, cudaStream
   CUtensorMap xmap, vwmap, omap;
   // C columns (a.c <= C): TMA fills the boxes' columns past a.c with zeros
   const long long c = a.c, nc = (long long)a.n * c, lc = (long long)a.l * c;
-  if (!encode(&xmap, key(a.x, 3, {c, a.n, a.b}, {2 * c, 2 * nc}, {64, BM, 1})) ||
-      !encode(&omap, key(a.out, 3, {c, a.n, a.b}, {2 * c, 2 * nc}, {64, BM, 1})) ||
-      !encode(&vwmap, key(a.vw, 4, {c, a.l, a.heads, a.b}, {2 * c, 2 * lc, 2 * lc * a.heads},
+  if (!encode(&xmap, map_key(a.x, 3, {c, a.n, a.b}, {2 * c, 2 * nc}, {64, BM, 1})) ||
+      !encode(&omap, map_key(a.out, 3, {c, a.n, a.b}, {2 * c, 2 * nc}, {64, BM, 1})) ||
+      !encode(&vwmap, map_key(a.vw, 4, {c, a.l, a.heads, a.b}, {2 * c, 2 * lc, 2 * lc * a.heads},
                           {64, LP, 1, 1})))
     return cudaErrorInvalidValue;
   int resident = 0;

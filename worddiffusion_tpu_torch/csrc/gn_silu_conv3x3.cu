@@ -19,656 +19,566 @@
 // whole image and its normalised copy in VMEM; the VAE's largest image ([64,
 // 256, 128], 4 MB in bf16) does not fit an SM's shared memory, so this is an
 // implicit GEMM over pixel tiles, M = pixels, N = output channels, K = 9 taps x
-// C input channels:
-//   - the statistics come first, from groupnorm.cu's two-launch pass
-//     (wd_groupnorm_stats), into stats [B, G] (mu, rsqrt(var + eps));
-//   - one CTA of WARPS warps computes BM = 16 * WARPS pixels (a TH x TW
-//     rectangle, TW = 32, or 16 for images 16 or fewer wide) for BN output
-//     channels (128, or 160 where C is a multiple of 160 and not of 128, as the
-//     UNet's 320; 64 for narrow C). The weights are the operand that repeats:
-//     every pixel tile reads all of them, so the device-wide weight traffic
-//     is (pixels / BM) * 9 C^2; a 256-pixel tile reads them a quarter as often
-//     as the earlier 64-pixel one;
-//   - K runs in units of (chunk of KC = 64 input channels, tap). A unit's
-//     weights, BN x KC bf16, stream through a ring of 3 or 4 slots by cp.async,
-//     AHEAD = 2 units ahead of the products, one __syncthreads per unit. At the
-//     start of each chunk the tile's (TH + 2) x (TW + 2) pixel halo is
-//     normalised and activated into a bf16 halo in shared memory (zero outside
-//     the image and past C);
-//   - the products, two ways:
-//       * 128- and 256-pixel tiles (conv_wgmma_kernel): wgmma.m64nBNk16 bf16,
-//         one warpgroup per 64 pixels and all BN channels, fp32 accumulators in
-//         registers, B (the weights, in the ring as K-major rows of KC bf16 =
-//         128 bytes with the 128-byte swizzle, which spreads wgmma's reads of
-//         a row group over all banks) from shared memory behind a descriptor,
-//         A (the activation) from registers. Each tap's A operand is
-//         the halo shifted by (dy, dx), which no descriptor describes, so each
-//         warp loads its 16 pixel rows by ldmatrix from the halo at the tap's
-//         offset, in the m16n8k16 fragment layout that wgmma's register A takes.
-//         A unit's products stay in flight while the next unit is fetched and
-//         its A loaded (wgmma.wait_group 1; the A fragments of two units
-//         alternate). The next chunk's raw halo is fetched by cp.async a chunk
-//         ahead, in the weights' copy groups, and activated from shared memory,
-//         so no load from device memory waits in the products' path;
-//       * 64-pixel tiles (conv_mma_kernel: the UNet's regeneration sites, B =
-//         16, and its 4 x 16 level): mma.sync.m16n8k16, 2 x 2 warps of 32 pixels
-//         x BN / 2 channels, A and B by ldmatrix from the halo and the ring
-//         (rows padded to 144 bytes); the halo comes from device memory at the
-//         chunk's start, 4 loads in flight a thread. On these tiles a single
-//         warpgroup keeps too few wgmma in flight, and it ran slower than
-//         mma.sync on the H100;
-//   - the tile follows the shape: the largest of 256 and 128 pixels x BN, and
-//     64 pixels x BN or x 64, that gives at least one CTA per SM (a tile of
-//     twice an image's rows is passed over), so the UNet's regeneration sites
-//     do not leave most SMs idle;
-//   - the epilogue adds b in fp32 and stores bf16; pixels past H or W and
-//     channels past C are masked, so ragged images (5 x 13) and C % 64 != 0
-//     (48) need no padding of the inputs.
+// C input channels, in units of (chunk of KC = 64 input channels, tap).
+//
+// Design (the parts of csrc/hopper.cuh; one launch policy, pick_plan; each
+// CTA's sums in a fixed order):
+//   - a CTA is two consumer warpgroups and a producer warpgroup. The
+//     producer's thread 0 issues every load as a TMA box
+//     completing on an mbarrier: each unit's weights, w[n0 .. n0 + BN, tap,
+//     c0 .. c0 + 64], a [BN][64] box of a rank-3 map over w ([C_in, 9, C_out])
+//     into a ring of 3 to 8 stages (as many as fit), K-major with the 128-byte
+//     swizzle that wgmma reads; and each chunk's raw halo, a [TH + 2][TW + 2][64]
+//     box of a rank-4 map over x ([C, W, H, B]) at (c0, x0 - 1, y0 - 1, b), into
+//     two raw slots, so the next chunk's halo lands behind this chunk's
+//     products. The box's pixels outside the image and channels past C arrive
+//     as zeros;
+//   - a zero raw pixel is not a zero activation (silu((0 - mu) * r * g + b) is
+//     not 0): each chunk's raw halo (read through its swizzle) is normalised
+//     and activated into one of two activated halos of 144-byte rows
+//     (ldmatrix's 8 rows on distinct banks), with 0 written at every position
+//     outside the image, as the TPU kernel pads after SiLU: chunk 0 by all the
+//     CTA's threads, chunk i + 1 by the producer warpgroup's other three warps
+//     while the consumers run chunk i's units, each halo on a full and an
+//     empty mbarrier (no setmaxnreg: those warps need their registers);
+//   - the products: wgmma.m64nBNk16 with A from registers and B (the unit's
+//     weights) from the ring. Each tap's A is the halo shifted by (dy, dx),
+//     which no descriptor describes (a tile's rows are TW pixels of a halo row
+//     of TW + 2), so each warp loads its 16 pixel rows by ldmatrix at the
+//     tap's offset, in the m16n8k16 fragment layout wgmma's register A takes.
+//     Each warpgroup waits for a unit's products before it loads the next
+//     unit's A (wgmma.wait_group 0), and releases the unit's stage then; the
+//     other warpgroup's products keep the tensor cores busy meanwhile.
+//     (Tried on the H100 and not kept, none faster: a wait_group 1 pipeline
+//     with two A register sets; A from shared memory in three dx-shifted
+//     copies of the halo; the activation spread over the units.)
+//   - the tile: 128 pixels (a TH x TW rectangle, TW = 32, or 16 for images 16
+//     or fewer wide), a warpgroup on each 64, x BN output channels (128, or 160
+//     where C is a multiple of 160 and not of 128, as the UNet's 320; else 64),
+//     wherever the tile has fewer than twice the image's rows (the fastest
+//     plan at every such shape measured); else 64 pixels with K split across
+//     the two warpgroups (each takes two of a unit's four k16 steps), x BN or
+//     x 64, the first that gives 90% of the SMs a CTA, else the one with the
+//     more CTAs;
+//   - the GroupNorm statistics: where a sample's CTAs (pixel tiles x channel
+//     tiles) are at most 8, they are one thread-block cluster and the kernel
+//     computes them itself with B.5's steps (gn_stats.cuh): each CTA sums x
+//     and x^2 over its share of the sample's pixels, the group sums go through
+//     distributed shared memory in rank order, and every CTA of the cluster
+//     holds the same (mu, rstd) before its first activation (the UNet's 8 x 32
+//     and 4 x 16 sites: one launch a call). Larger images take B.5's one
+//     cluster launch, stopped after its statistics (groupnorm.cu,
+//     wd_groupnorm_cluster_stats), into stats [B, G]: two launches a call. The
+//     plan decides, here and nowhere else: the caller always passes stats, and
+//     the entry says whether it launched the statistics;
+//   - the epilogue: the fp32 sums through shared memory (with K split, the two
+//     warpgroups' added in order), b added in fp32, bf16 out in 16-byte
+//     stores; pixels past H or W and channels past C are masked, so ragged
+//     images (5 x 13) and C % 64 != 0 (48) need no padding of the inputs.
 // Bitwise repeatable: no atomics, and every sum runs in a fixed order.
 
+#include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
-#include <type_traits>
 
-extern "C" int wd_groupnorm_stats(const void* x, void* partial, void* stats, int b, int s,
-                                  int c, int groups, float eps, void* stream);
+#include "gn_stats.cuh"
+#include "hopper.cuh"
+
+extern "C" int wd_groupnorm_cluster_stats(const void* x, void* stats, int b, int s, int c,
+                                          int groups, float eps, void* stream);
+extern "C" int wd_groupnorm_max_c();
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-constexpr int KC = 64;            // input channels per chunk
-constexpr int LDK = KC + 8;       // bf16 row stride of the halo (and of the mma.sync
-                                  // ring): 144 bytes, ldmatrix's 8 rows on distinct banks
-constexpr int VPR = KC / 8;       // 16-byte vectors per staged row
-constexpr int AHEAD = 2;          // weight units loading while one computes
-constexpr int SMS = 132;
+constexpr int KC = 64;        // input channels per chunk: one 128-byte row a pixel
+constexpr int LDK = KC + 8;   // bf16 row stride of the activated halo: 144 bytes, so
+                              // that ldmatrix's 8 rows fall on distinct banks
+constexpr int CONS = 256;     // the two consumer warpgroups' threads
+constexpr int THREADS = CONS + 128;  // and the producer warpgroup
+constexpr int CONS_BAR = 1;   // named barrier of the consumers
+constexpr int ACT_THREADS = 96;  // the producer warpgroup's warps 1..3 activate the halos
+constexpr int SMEM_BUDGET = 232448;  // a CTA's most (227 KB)
+constexpr int MAX_STAGES = 8;        // < 10: the prologue (that many units) asks for no halo
+                                     // but chunk 1's, whose slot is free, so it never waits
+                                     // on the consumers
+constexpr int MIN_STAGES = 3;
+constexpr int MAX_CLUSTER = 8;       // portable cluster size
+constexpr int RED_BYTES = 2 * CONS * 8 * 4;  // the statistics pass's per-channel sums
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+// The launch's shapes and shared-memory layout (bytes from a 1024-byte aligned
+// base), by value.
+struct Geo {
+  int h, w, c, groups, tw, th, ptx, ntiles, chunks, units, stages, cluster;
+  int ring, raw, raw_slot, act, act_slot, stat, part, bars, size;
+  float eps;
+};
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
+struct Plan {
+  int px, bn, split;  // pixels a CTA, output channels, K split across the warpgroups
+  Geo g;
+  long long ctas;
+};
 
-// 16 bytes global -> shared; src_bytes 0 writes zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
-}
+__host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// this thread's generic-proxy writes to shared memory, visible to wgmma's
-// async proxy
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keep the accumulators in place across the asynchronous products.
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor, K-major, 128-byte swizzle: rows of 64 bf16
-// (128 bytes), 8-row groups 1024 bytes apart; the 16-byte chunk j of row r
-// stored at chunk j ^ (r % 8). p is 1024-byte aligned but for the k offset.
-__device__ __forceinline__ uint64_t make_desc_sw128(const void* p) {
-  return uint64_t((smem_addr(p) & 0x3FFFF) >> 4) | (uint64_t(1) << 16) |
-         (uint64_t(1024 >> 4) << 32) | (uint64_t(1) << 62);
-}
-
-// D[64 x N] += A[64 x 16] (registers, m16n8k16 A fragments, warp w of the
-// warpgroup holding rows 16w .. 16w + 15) . B[16 x N] (shared memory, the
-// descriptor), fp32 D; overloads by N = 2 * the accumulator count.
-__device__ __forceinline__ void wgmma(float (&d)[32], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma(float (&d)[64], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma(float (&d)[80], const uint32_t (&a)[4], uint64_t desc) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %85, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
-      "{%80, %81, %82, %83}, %84, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Weight units in the ring: AHEAD loading, the one computing and, with wgmma,
-// the one still in flight.
-__host__ __device__ constexpr int stages(bool wg) { return AHEAD + (wg ? 2 : 1); }
-
-// The chunk's per-channel GroupNorm affine (mu, rstd * scale, bias) into
-// shared memory, by the first KC threads.
-__device__ __forceinline__ void chunk_affine(float* ch_mu, float* ch_s, float* ch_b,
-                                             const float2* stats, const float* gn_scale,
-                                             const float* gn_bias, int b, int c, int groups,
-                                             int c0) {
-  if (threadIdx.x < KC) {
-    const int ch = c0 + threadIdx.x;
-    float mu = 0.f, s = 0.f, bb = 0.f;
-    if (ch < c) {
-      const float2 st = stats[size_t(b) * groups + ch / (c / groups)];
-      mu = st.x;
-      s = st.y * gn_scale[ch];
-      bb = gn_bias[ch];
-    }
-    ch_mu[threadIdx.x] = mu;
-    ch_s[threadIdx.x] = s;
-    ch_b[threadIdx.x] = bb;
-  }
-}
-
-// bf16(silu(GroupNorm(x))) of the 8 channels v * 8 .. v * 8 + 7 of the chunk.
-__device__ __forceinline__ uint4 activate8(uint4 raw, int v, const float* ch_mu,
-                                           const float* ch_s, const float* ch_b) {
-  const uint32_t rw[4] = {raw.x, raw.y, raw.z, raw.w};
+// silu(GroupNorm(x)) of 8 channels as bf16, from their affine
+__device__ __forceinline__ uint4 activate8(uint4 raw, const float (&mu)[8], const float (&sc)[8],
+                                           const float (&bb)[8]) {
+  float f[8];
+  unpack8(raw, f);
   uint32_t o[4];
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const __nv_bfloat162 pr = *reinterpret_cast<const __nv_bfloat162*>(&rw[j]);
-    const int k = v * 8 + 2 * j;
-    const float a0 = (__low2float(pr) - ch_mu[k]) * ch_s[k] + ch_b[k];
-    const float a1 = (__high2float(pr) - ch_mu[k + 1]) * ch_s[k + 1] + ch_b[k + 1];
+    const float a0 = (f[2 * j] - mu[2 * j]) * sc[2 * j] + bb[2 * j];
+    const float a1 = (f[2 * j + 1] - mu[2 * j + 1]) * sc[2 * j + 1] + bb[2 * j + 1];
     o[j] = pack_bf16(__fdividef(a0, 1.f + __expf(-a0)), __fdividef(a1, 1.f + __expf(-a1)));
   }
   return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
-// The tile and its place: BM = 16 * warps pixels (th x tw) x BN channels.
-struct Place {
-  int th, hw, y0, x0, n0, b;
-  __device__ Place(int bm, int bn, int h, int wd, int c, int tw) {
-    th = bm / tw;
-    hw = tw + 2;  // halo width
-    const int n_tiles = (c + bn - 1) / bn, tiles_x = (wd + tw - 1) / tw;
-    const int nt = blockIdx.x % n_tiles, pt = blockIdx.x / n_tiles;
-    y0 = (pt / tiles_x) * th;
-    x0 = (pt % tiles_x) * tw;
-    n0 = nt * bn;
-    b = blockIdx.y;
-  }
-  // halo pixel p, 8-channel vector v of the chunk at c0: inside the image and C
-  __device__ bool inside(int p, int v, int c0, int h, int wd, int c) const {
-    const int yy = y0 + p / hw - 1, xx = x0 + p % hw - 1;
-    return yy >= 0 && yy < h && xx >= 0 && xx < wd && c0 + v * 8 < c;
-  }
-  __device__ size_t offset(int p, int v, int c0, int wd, int c) const {
-    return (size_t(y0 + p / hw - 1) * wd + x0 + p % hw - 1) * c + c0 + v * 8;
-  }
-};
-
-// out pixels p and p + 8 (one tile row), channels co and co + 1 (+ b), masked
-__device__ __forceinline__ void store_pair(bf16* out, const float* bias, const Place& pl, int p,
-                                           int co, int h, int wd, int c, int tw, float d0,
-                                           float d1, float d2, float d3) {
-  const int yy = pl.y0 + p / tw, xa = pl.x0 + p % tw, xb = xa + 8;
-  if (yy >= h || co >= c) return;  // co even, C % 8 == 0: co + 1 < C too
-  bf16* orow = out + (size_t(pl.b) * h + yy) * wd * c;
-  const float b0 = bias[co], b1 = bias[co + 1];
-  if (xa < wd)
-    *reinterpret_cast<uint32_t*>(orow + size_t(xa) * c + co) = pack_bf16(d0 + b0, d1 + b1);
-  if (xb < wd)
-    *reinterpret_cast<uint32_t*>(orow + size_t(xb) * c + co) = pack_bf16(d2 + b0, d3 + b1);
+// One consumer warp's arrival (lane 0) on an empty barrier.
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+  __syncwarp();
 }
 
-// ---- 128- and 256-pixel tiles: wgmma -------------------------------------------------
-//
-// Shared memory, in bf16 elements: the ring [4][BN][KC] (1024-byte aligned, the
-// 16-byte chunk j of row n at chunk j ^ (n % 8)), the halo
-// [(th + 2) * (tw + 2)][LDK], the next chunk's raw halo [(th + 2) * (tw + 2)][KC].
-constexpr int WG_STAGES = AHEAD + 2;  // AHEAD loading, one computing, one in flight
+// grid (pixel tiles * channel tiles, B), in clusters of a sample's CTAs where
+// g.cluster > 0; threads 0 .. 255 consume, 256 .. 383 produce.
+template <int BN, bool SPLIT>
+__global__ void __launch_bounds__(THREADS, 1)
+    conv_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+                const bf16* __restrict__ x, const float2* __restrict__ stats,
+                const float* __restrict__ gn_scale, const float* __restrict__ gn_bias,
+                const float* __restrict__ bias, bf16* __restrict__ out, const Geo g) {
+  constexpr int SLOT = BN * 128;  // a weight stage: [BN][64] bf16
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* wfull = reinterpret_cast<uint64_t*>(sm + g.bars);
+  uint64_t* wempty = wfull + g.stages;
+  uint64_t* rfull = wempty + g.stages;
+  uint64_t* rempty = rfull + 2;
+  uint64_t* afull = rempty + 2;
+  uint64_t* aempty = afull + 2;
+  float2* stat = reinterpret_cast<float2*>(sm + g.stat);
+  float2* part = reinterpret_cast<float2*>(sm + g.part);
+  const int tid = threadIdx.x;
+  const int b = blockIdx.y, nt = blockIdx.x % g.ntiles, pt = blockIdx.x / g.ntiles;
+  const int y0 = (pt / g.ptx) * g.th, x0 = (pt % g.ptx) * g.tw, n0 = nt * BN;
+  const int hw = g.tw + 2, halo = (g.th + 2) * hw;
+  if (tid == 0) {
+    for (int i = 0; i < g.stages; ++i) {
+      mbar_init(wfull + i, 1);           // the producer's expect_tx
+      mbar_init(wempty + i, CONS / 32);  // each consumer warp
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(rfull + i, 1);
+      mbar_init(rempty + i, ACT_THREADS / 32);  // each activating warp
+      mbar_init(afull + i, ACT_THREADS / 32);
+      mbar_init(aempty + i, CONS / 32);         // each consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
 
-__host__ __device__ constexpr size_t halo_elems(int th, int tw) {
-  return size_t(th + 2) * (tw + 2) * LDK;
-}
+  // the producer's thread 0: chunk cc's raw halo into slot cc % 2, unit u's
+  // weights into stage u % stages, each after its slot's last reader is done;
+  // chunk cc + 1's halo right behind the first unit of chunk cc
+  auto issue_raw = [&](int cc) {
+    const int slot = cc & 1;
+    wait_phase(rempty + slot, ((cc >> 1) & 1) ^ 1);
+    mbar_expect_tx(rfull + slot, uint32_t(halo) * KC * 2);
+    tma_load_4d(sm + g.raw + slot * g.raw_slot, &xmap, rfull + slot, cc * KC, x0 - 1, y0 - 1, b);
+  };
+  auto issue_unit = [&](int u) {
+    const int s = u % g.stages;
+    wait_phase(wempty + s, ((u / g.stages) & 1) ^ 1);
+    mbar_expect_tx(wfull + s, SLOT);
+    tma_load_3d(sm + g.ring + s * SLOT, &wmap, wfull + s, (u / 9) * KC, u % 9, n0);
+    if (u % 9 == 0 && u / 9 + 1 < g.chunks) issue_raw(u / 9 + 1);
+  };
+  const int ahead = g.stages < g.units ? g.stages : g.units;
+  if (tid == CONS) {  // the first loads fly while the statistics are taken
+    issue_raw(0);
+    for (int u = 0; u < ahead; ++u) issue_unit(u);
+  }
 
-size_t wg_smem_bytes(int bn, int th, int tw) {
-  return (size_t(WG_STAGES) * bn * KC + halo_elems(th, tw) + size_t(th + 2) * (tw + 2) * KC) *
-             sizeof(bf16) + 1024;
-}
+  if (g.cluster) {
+    // the sample's statistics by the consumers (gn_stats.cuh): this CTA's
+    // share of the sample's pixels, 8 channels a thread, summed over the
+    // activated halos' space, then the cluster's sums in rank order
+    cg::cluster_group cluster = cg::this_cluster();
+    const int s = g.h * g.w, nv = g.c / 8, par = CONS / nv;
+    if (tid < CONS) {
+      const int rank = int(cluster.block_rank()), cv = tid % nv, rp = tid / nv;
+      const int r0 = int((long long)rank * s / g.cluster);
+      const int r1 = int((long long)(rank + 1) * s / g.cluster);
+      float* red = reinterpret_cast<float*>(sm + g.act);
+      if (rp < par) {
+        float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        float sq[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+        gn_stats::sum_rows<4>(x + size_t(b) * s * g.c + cv * 8, r0 + rp, r1, par, g.c, sum, sq);
+        gn_stats::store_sums<CONS>(red, rp, cv, g.c, sum, sq);
+      }
+      bar_sync(CONS_BAR, CONS);
+      gn_stats::group_sums<CONS>(red, par, g.c, g.groups, part);
+    }
+    cluster.sync();
+    if (tid < CONS)
+      gn_stats::cluster_stats<CONS>(part, stat, g.groups, g.cluster,
+                                    float(s) * float(g.c / g.groups), g.eps);
+    cluster.sync();  // every remote read done; stat visible
+  } else {
+    for (int i = tid; i < g.groups; i += THREADS) stat[i] = stats[size_t(b) * g.groups + i];
+    __syncthreads();
+  }
 
-// grid (n tiles * pixel tiles, B); WARPS / 4 warpgroups of 64 pixels x BN
-template <int WARPS, int BN>
-__global__ void __launch_bounds__(WARPS * 32)
-    conv_wgmma_kernel(const bf16* __restrict__ x, const float2* __restrict__ stats,
-                      const float* __restrict__ gn_scale, const float* __restrict__ gn_bias,
-                      const bf16* __restrict__ w, const float* __restrict__ bias,
-                      bf16* __restrict__ out, int h, int wd, int c, int groups, int tw) {
-  constexpr int THREADS = WARPS * 32, STAGES = WG_STAGES;
-  static_assert(WARPS % 4 == 0, "whole warpgroups");
-  extern __shared__ __align__(1024) unsigned char smem_raw[];
-  __shared__ float ch_mu[KC], ch_s[KC], ch_b[KC];  // the chunk's per-channel affine
-  const Place pl(WARPS * 16, BN, h, wd, c, tw);
-  // the ring 1024-byte aligned for the swizzle
-  bf16* ring = reinterpret_cast<bf16*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  bf16* halo = ring + size_t(STAGES) * BN * KC;
-  bf16* raw = halo + halo_elems(pl.th, tw);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
+  const int lane = tid % 32;
+  const int cpg = g.c / g.groups;
+  // Chunk cc's raw halo activated into activated halo cc % 2 (silu(GroupNorm
+  // (x)), 0 outside the image and past C: the SAME padding after the
+  // activation) by n threads, this one the t-th
+  auto activate = [&](int cc, int t, int n) {
+    const int slot = cc & 1, v = t & 7, c0 = cc * KC + 8 * v;
+    const unsigned char* raw = sm + g.raw + slot * g.raw_slot;
+    bf16* dst = reinterpret_cast<bf16*>(sm + g.act + slot * g.act_slot);
+    float mu[8], sc[8], bb[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int ch = c0 + e;
+      mu[e] = sc[e] = bb[e] = 0.f;
+      if (ch < g.c) {
+        const float2 st = stat[ch / cpg];
+        mu[e] = st.x;
+        sc[e] = st.y * gn_scale[ch];
+        bb[e] = gn_bias[ch];
+      }
+    }
+    for (int p = t >> 3; p < halo; p += n / 8) {
+      const int yy = y0 - 1 + p / hw, xx = x0 - 1 + p % hw;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (yy >= 0 && yy < g.h && xx >= 0 && xx < g.w)
+        val = activate8(*reinterpret_cast<const uint4*>(raw + p * 128 + (((v ^ p) & 7) << 4)), mu,
+                        sc, bb);
+      *reinterpret_cast<uint4*>(dst + p * LDK + 8 * v) = val;
+    }
+  };
+  // chunk 0 by every thread, then chunk cc by the producer warpgroup's warps
+  // 1..3 while the consumers run chunk cc - 1's units
+  wait_phase(rfull, 0);
+  activate(0, tid, THREADS);
+  __syncthreads();
+  if (tid >= CONS) {
+    if (tid == CONS) {
+      for (int u = ahead; u < g.units; ++u) issue_unit(u);
+    } else if (tid >= CONS + 32) {
+      const int at = tid - (CONS + 32);
+      if (lane == 0) {
+        mbar_arrive(rempty);  // chunk 0's raw slot read
+        mbar_arrive(afull);   // and its activated halo written
+      }
+      for (int cc = 1; cc < g.chunks; ++cc) {
+        const int slot = cc & 1;
+        wait_phase(aempty + slot, ((cc >> 1) & 1) ^ 1);
+        wait_phase(rfull + slot, (cc >> 1) & 1);
+        activate(cc, at, ACT_THREADS);
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(rempty + slot);
+          mbar_arrive(afull + slot);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = tid / 128, cw = tid / 32;
+  const int g8 = lane >> 2, t4 = lane & 3;
   const int mi = lane >> 3, lr = lane & 7;  // ldmatrix: matrix, row
-  const bf16* xb = x + size_t(pl.b) * h * wd * c;
-  const int chunks = (c + KC - 1) / KC, units = chunks * 9;
-  const int halo_vecs = (pl.th + 2) * pl.hw * VPR;
+  // the warpgroup's 64 pixels start at pw: 64 wg (128-pixel tiles) or 0 (K
+  // split); the warp's 16 pixels, one tile row, at p0
+  const int pw = SPLIT ? 0 : 64 * wg, p0 = pw + 16 * (cw & 3);
+  constexpr int KS = SPLIT ? 2 : 4;  // k16 steps of a unit this warpgroup takes
+  const int ks0 = SPLIT ? 2 * wg : 0;
+  // this lane's ldmatrix row in an activated halo at tap (0, 0)
+  const int a_off = ((p0 / g.tw) * hw + p0 % g.tw + (mi & 1) * 8 + lr) * LDK + (mi >> 1) * 8 +
+                    ks0 * 16;
 
-  // unit u = (chunk u / 9, tap u % 9): w[n0 .. n0 + BN, tap, c0 .. c0 + KC] -> its
-  // slot. Eight neighbouring threads fill the same 16 bytes of K of 8 rows (on
-  // 8 distinct bank groups, by the swizzle) and a warp reads 64 contiguous
-  // bytes of each of 8 rows.
-  auto load_unit = [&](int u) {
-    bf16* slot = ring + size_t(u % STAGES) * BN * KC;
-    const int c0 = (u / 9) * KC, tap = u % 9;
-    for (int i = threadIdx.x; i < BN * VPR; i += THREADS) {
-      const int n = (i & 7) | ((i >> 6) << 3), v = (i >> 3) & 7;
-      const int co = pl.n0 + n, ch = c0 + v * 8;
-      const bool in = co < c && ch < c;
-      const size_t off = in ? (size_t(co) * 9 + tap) * c + ch : 0;
-      cp_async16(slot + n * 64 + ((v ^ (n & 7)) * 8), w + off, in ? 16 : 0);
-    }
-  };
-  // chunk cc's raw halo -> raw (zeros outside the image and past C)
-  auto load_raw = [&](int cc) {
-    for (int i = threadIdx.x; i < halo_vecs; i += THREADS) {
-      const int p = i / VPR, v = i % VPR;
-      const bool in = pl.inside(p, v, cc * KC, h, wd, c);
-      cp_async16(raw + size_t(p) * KC + v * 8, xb + (in ? pl.offset(p, v, cc * KC, wd, c) : 0),
-                 in ? 16 : 0);
-    }
-  };
-
-  // the warp's 16 pixels 16 warp .. + 15 (its warpgroup's rows 16 (warp % 4)):
-  // this lane's ldmatrix row in the halo at tap (0, 0)
-  const int p0 = 16 * warp;
-  const bf16* a_base =
-      halo + size_t((p0 / tw) * pl.hw + p0 % tw + (mi & 1) * 8 + lr) * LDK + (mi >> 1) * 8;
-
-  float acc[BN / 2];  // [n8 tile][4]
+  float acc[BN / 2];
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-  uint32_t a[2][KC / 16][4];  // the A fragments of two units: one in flight, one loading
+  uint32_t a[KS][4];
 
-  load_raw(0);  // in unit 0's group
+  for (int cc = 0; cc < g.chunks; ++cc) {
+    const int slot = cc & 1;
+    wait_phase(afull + slot, (cc >> 1) & 1);
+    const bf16* act = reinterpret_cast<const bf16*>(sm + g.act + slot * g.act_slot) + a_off;
+    for (int tap = 0; tap < 9; ++tap) {
+      // unit u: A by ldmatrix at the tap's shift (dy, dx); its products, then
+      // its stage free
+      const int u = cc * 9 + tap, s = u % g.stages;
+      wait_phase(wfull + s, (u / g.stages) & 1);
+      __syncwarp();
+      const bf16* ap = act + ((tap / 3) * hw + tap % 3) * LDK;
 #pragma unroll
-  for (int s = 0; s < AHEAD; ++s) {
-    if (s < units) load_unit(s);
-    cp_async_commit();
-  }
-
-  // unit u; par = u % 2 at compile time (the loop below runs units in pairs)
-  auto unit = [&](int u, auto par) {
-    constexpr int P = decltype(par)::value;
-    cp_async_wait<AHEAD - 1>();  // this thread's copies of unit u have landed
-    fence_proxy_async();         // and are visible to wgmma
-    __syncthreads();             // everyone's; every warpgroup is done with unit u - 2
-    const int tap = u % 9;
-    if (tap == 0) {
-      // a new chunk: its affine, then the halo from its raw copy, normalised and
-      // activated; zero outside the image and past C
-      const int c0 = (u / 9) * KC;
-      chunk_affine(ch_mu, ch_s, ch_b, stats, gn_scale, gn_bias, pl.b, c, groups, c0);
-      __syncthreads();
-      for (int i = threadIdx.x; i < halo_vecs; i += THREADS) {
-        const int p = i / VPR, v = i % VPR;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (pl.inside(p, v, c0, h, wd, c))
-          val = activate8(*reinterpret_cast<const uint4*>(raw + size_t(p) * KC + v * 8), v,
-                          ch_mu, ch_s, ch_b);
-        *reinterpret_cast<uint4*>(halo + size_t(p) * LDK + v * 8) = val;
-      }
-      __syncthreads();
-      // the next chunk's raw halo loads behind this chunk's products
-      if (u / 9 + 1 < chunks) load_raw(u / 9 + 1);
-    }
-    if (u + AHEAD < units) load_unit(u + AHEAD);  // into unit u - 2's slot
-    cp_async_commit();
-
-    const bf16* ap = a_base + ((tap / 3) * pl.hw + tap % 3) * LDK;  // shifted by (dy, dx)
+      for (int k = 0; k < KS; ++k) ldmatrix_x4(a[k], ap + k * 16);
+      if (tap == 8) release(aempty + slot, lane);  // the chunk's halo read
+      const unsigned char* ws = sm + g.ring + s * SLOT;
 #pragma unroll
-    for (int ks = 0; ks < KC / 16; ++ks) ldmatrix_x4(a[P][ks], ap + ks * 16);
-    const bf16* slot = ring + size_t(u % STAGES) * BN * KC;
-    wgmma_fence();
+      for (int k = 0; k < KS; ++k) pin(a[k]);
+      wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < KC / 16; ++ks)
-      // k16 step ks: 32 bytes into each 128-byte row
-      wgmma(acc, a[P][ks], make_desc_sw128(slot + ks * 16));
-    pin(acc);
-    wgmma_commit();
-    wgmma_wait<1>();  // unit u - 1's products are done; unit u's may run on
-    pin(acc);
-  };
-  for (int u = 0; u < units; u += 2) {
-    unit(u, std::integral_constant<int, 0>());
-    if (u + 1 < units) unit(u + 1, std::integral_constant<int, 1>());
-  }
-  wgmma_wait<0>();
-  pin(acc);
-  cp_async_wait<0>();
-
-  // thread (g, t) holds pixels p0 + g and + 8, channels 8 j + 2 t and + 1
-#pragma unroll
-  for (int j = 0; j < BN / 8; ++j)
-    store_pair(out, bias, pl, p0 + g, pl.n0 + 8 * j + 2 * t, h, wd, c, tw, acc[4 * j],
-               acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
-}
-
-// ---- 64-pixel tiles: mma.sync ------------------------------------------------------
-//
-// Shared memory, in bf16 elements: the ring [3][BN][LDK], the halo
-// [(th + 2) * (tw + 2)][LDK]. The halo is loaded at the start of its chunk, 4
-// loads in flight a thread.
-constexpr int MMA_STAGES = AHEAD + 1;  // AHEAD loading, one computing
-constexpr int MMA_WARPS = 4;           // 2 along the pixels x 2 along the channels
-
-size_t mma_smem_bytes(int bn, int th, int tw) {
-  return (size_t(MMA_STAGES) * bn * LDK + halo_elems(th, tw)) * sizeof(bf16);
-}
-
-// grid (n tiles * pixel tiles, B)
-template <int BN>
-__global__ void __launch_bounds__(MMA_WARPS * 32)
-    conv_mma_kernel(const bf16* __restrict__ x, const float2* __restrict__ stats,
-                    const float* __restrict__ gn_scale, const float* __restrict__ gn_bias,
-                    const bf16* __restrict__ w, const float* __restrict__ bias,
-                    bf16* __restrict__ out, int h, int wd, int c, int groups, int tw) {
-  constexpr int THREADS = MMA_WARPS * 32, STAGES = MMA_STAGES;
-  constexpr int NW = BN / 16;  // n8 tiles per warp (BN / 2 channels)
-  static_assert(NW % 2 == 0, "B fragments load two n8 tiles at a time");
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __shared__ float ch_mu[KC], ch_s[KC], ch_b[KC];  // the chunk's per-channel affine
-  const Place pl(MMA_WARPS * 16, BN, h, wd, c, tw);
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [STAGES][BN][LDK]
-  bf16* halo = ring + size_t(STAGES) * BN * LDK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int mi = lane >> 3, lr = lane & 7;  // ldmatrix: matrix, row
-  const int wm = warp % 2, wn = warp / 2;
-  const bf16* xb = x + size_t(pl.b) * h * wd * c;
-  const int chunks = (c + KC - 1) / KC, units = chunks * 9;
-  const int halo_vecs = (pl.th + 2) * pl.hw * VPR;
-
-  // unit u = (chunk u / 9, tap u % 9): w[n0 .. n0 + BN, tap, c0 .. c0 + KC] -> its slot
-  auto load_unit = [&](int u) {
-    bf16* slot = ring + size_t(u % STAGES) * BN * LDK;
-    const int c0 = (u / 9) * KC, tap = u % 9;
-    for (int i = threadIdx.x; i < BN * VPR; i += THREADS) {
-      const int n = i / VPR, v = i % VPR;
-      const int co = pl.n0 + n, ch = c0 + v * 8;
-      const bool in = co < c && ch < c;
-      const size_t off = in ? (size_t(co) * 9 + tap) * c + ch : 0;
-      cp_async16(slot + n * LDK + v * 8, w + off, in ? 16 : 0);
-    }
-  };
-
-  // the warp's m16 tiles i = 0, 1 at pixels 32 wm + 16 i (one tile row each):
-  // this lane's ldmatrix row in the halo at tap (0, 0)
-  const bf16* a_base[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int q = 32 * wm + 16 * i;
-    a_base[i] =
-        halo + size_t((q / tw) * pl.hw + q % tw + (mi & 1) * 8 + lr) * LDK + (mi >> 1) * 8;
-  }
-
-  float acc[2][NW][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < NW; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < AHEAD; ++s) {
-    if (s < units) load_unit(s);
-    cp_async_commit();
-  }
-
-  for (int u = 0; u < units; ++u) {
-    cp_async_wait<AHEAD - 1>();  // this thread's copies of unit u have landed
-    __syncthreads();             // everyone's; and every warp is past unit u - 1
-    if (u + AHEAD < units) load_unit(u + AHEAD);  // into unit u - 1's slot
-    cp_async_commit();
-
-    const int tap = u % 9;
-    if (tap == 0) {
-      // a new chunk: its affine, then the halo, normalised and activated; zero
-      // outside the image and past C
-      const int c0 = (u / 9) * KC;
-      chunk_affine(ch_mu, ch_s, ch_b, stats, gn_scale, gn_bias, pl.b, c, groups, c0);
-      __syncthreads();
-      for (int i0 = threadIdx.x; i0 < halo_vecs; i0 += 4 * THREADS) {
-        uint4 r4[4];
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = i0 + r * THREADS, p = i / VPR, v = i % VPR;
-          const bool in = i < halo_vecs && pl.inside(p, v, c0, h, wd, c);
-          r4[r] = in ? *reinterpret_cast<const uint4*>(xb + pl.offset(p, v, c0, wd, c))
-                     : make_uint4(0u, 0u, 0u, 0u);
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int i = i0 + r * THREADS, p = i / VPR, v = i % VPR;
-          if (i >= halo_vecs) break;
-          *reinterpret_cast<uint4*>(halo + size_t(p) * LDK + v * 8) =
-              pl.inside(p, v, c0, h, wd, c) ? activate8(r4[r], v, ch_mu, ch_s, ch_b)
-                                            : make_uint4(0u, 0u, 0u, 0u);
-        }
-      }
-      __syncthreads();
-    }
-
-    const bf16* slot = ring + size_t(u % STAGES) * BN * LDK;
-    const int a_off = ((tap / 3) * pl.hw + tap % 3) * LDK;  // the halo shifted by (dy, dx)
-#pragma unroll
-    for (int ks = 0; ks < KC / 16; ++ks) {
-      uint32_t am[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) ldmatrix_x4(am[i], a_base[i] + a_off + ks * 16);
-#pragma unroll
-      for (int j = 0; j < NW; j += 2) {
-        // matrices: (n tile j, k lo), (j, k hi), (j + 1, k lo), (j + 1, k hi)
-        uint32_t bw[4];
-        ldmatrix_x4(bw, slot + size_t(wn * (BN / 2) + (j + (mi >> 1)) * 8 + lr) * LDK +
-                            ks * 16 + (mi & 1) * 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_bf16(acc[i][j], am[i], bw[0], bw[1]);
-          mma_bf16(acc[i][j + 1], am[i], bw[2], bw[3]);
-        }
-      }
+      for (int k = 0; k < KS; ++k)  // k16 step: 32 bytes into each 128-byte row
+        wgmma_rs<0>(acc, a[k], make_desc_sw128(ws + (ks0 + k) * 32), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      pin(acc);
+      release(wempty + s, lane);
     }
   }
-  cp_async_wait<0>();
 
-  // thread (g, t) holds pixels 32 wm + 16 i + g and + 8, channels 8 j + 2 t and + 1
+  // Each warpgroup's fp32 sums over the ring (every product done, every load
+  // landed): [64 pixels][BN] from pixel pw; then, by all 256 threads, bias
+  // added (with K split, warpgroup 0's sums + warpgroup 1's, in that order),
+  // bf16, 16 bytes a store, pixels past the image and channels past C masked.
+  // No instruction but wgmma writes an accumulator.
+  float* red = reinterpret_cast<float*>(sm + g.ring);
+  constexpr int LDR = BN + 8, PART = 64 * LDR;
+  bar_sync(CONS_BAR, CONS);
+  {
+    const int row = 16 * (cw & 3) + g8;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      *reinterpret_cast<float2*>(red + wg * PART + row * LDR + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(red + wg * PART + (row + 8) * LDR + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+  bar_sync(CONS_BAR, CONS);
+  constexpr int PIX = SPLIT ? 64 : 128;
+  for (int i = tid; i < PIX * (BN / 8); i += CONS) {
+    const int p = i / (BN / 8), q = i % (BN / 8), co = n0 + 8 * q;
+    const int yy = y0 + p / g.tw, xx = x0 + p % g.tw;
+    if (yy >= g.h || xx >= g.w || co >= g.c) continue;  // C % 8 == 0: all 8 or none
+    const float* r = red + (SPLIT ? p * LDR : (p >> 6) * PART + (p & 63) * LDR) + 8 * q;
+    float y[8];
 #pragma unroll
-    for (int j = 0; j < NW; ++j)
-      store_pair(out, bias, pl, 32 * wm + 16 * i + g, pl.n0 + wn * (BN / 2) + 8 * j + 2 * t, h,
-                 wd, c, tw, acc[i][j][0], acc[i][j][1], acc[i][j][2], acc[i][j][3]);
+    for (int e = 0; e < 8; ++e) y[e] = (SPLIT ? r[e] + r[e + PART] : r[e]) + bias[co + e];
+    *reinterpret_cast<uint4*>(out + ((size_t(b) * g.h + yy) * g.w + xx) * g.c + co) =
+        make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]),
+                   pack_bf16(y[6], y[7]));
+  }
 }
 
-// ---- the tile and the launch ------------------------------------------------------
+// ---- the plan and the launch --------------------------------------------------------
 
-struct Tile {
-  int warps, bn, tw;  // 16 or 8 warps: wgmma; 4: mma.sync
-};
-
-long long ctas(const Tile& t, int b, int h, int wd, int c) {
-  const int th = t.warps * 16 / t.tw;
-  return (long long)b * ((h + th - 1) / th) * ((wd + t.tw - 1) / t.tw) * ((c + t.bn - 1) / t.bn);
+// The shapes and layout of a tile of px pixels x bn channels at this shape;
+// size 0 where it does not fit.
+Geo geometry(int px, int bn, int h, int w, int c, int groups) {
+  Geo g{};
+  g.h = h;
+  g.w = w;
+  g.c = c;
+  g.groups = groups;
+  g.tw = w <= 16 ? 16 : 32;
+  g.th = px / g.tw;
+  g.ptx = (w + g.tw - 1) / g.tw;
+  g.ntiles = (c + bn - 1) / bn;
+  g.chunks = (c + KC - 1) / KC;
+  g.units = 9 * g.chunks;
+  const int ptiles = ((h + g.th - 1) / g.th) * g.ptx, per_sample = ptiles * g.ntiles;
+  g.cluster = per_sample <= MAX_CLUSTER ? per_sample : 0;
+  const int halo = (g.th + 2) * (g.tw + 2);
+  g.raw_slot = round_up(halo * KC * 2, 1024);
+  // the ring at the base, then the two raw halo slots (1024-byte aligned for
+  // the swizzle), the two activated halos (which also hold the statistics'
+  // sums before the first chunk), stat, part, the barriers
+  g.act_slot = round_up(halo * LDK * 2, 16);
+  const int act = 2 * g.act_slot > RED_BYTES ? 2 * g.act_slot : RED_BYTES;
+  const int fixed = 2 * g.raw_slot + act + 2 * round_up(groups * 8, 16) + 8 * (2 * MAX_STAGES + 8);
+  const int slot = bn * 128;
+  int stages = (SMEM_BUDGET - 1024 - fixed) / slot;
+  stages = stages > MAX_STAGES ? MAX_STAGES : stages;
+  if (stages < MIN_STAGES || stages * slot < 2 * 64 * (bn + 8) * 4) return Geo{};
+  g.stages = stages;
+  g.ring = 0;
+  g.raw = stages * slot;
+  g.act = g.raw + 2 * g.raw_slot;
+  g.stat = g.act + act;
+  g.part = g.stat + round_up(groups * 8, 16);
+  g.bars = g.part + round_up(groups * 8, 16);
+  g.size = g.bars + 8 * (2 * stages + 8) + 1024;  // + the base's alignment
+  return g;
 }
 
-// The largest tile that gives at least one CTA per SM, else the one with the
-// most CTAs; a 128- or 256-pixel tile with twice the image's rows is passed
-// over.
-Tile pick_tile(int b, int h, int wd, int c) {
+long long ctas_of(const Geo& g, int b) {
+  return (long long)b * ((g.h + g.th - 1) / g.th) * g.ptx * g.ntiles;
+}
+
+Plan make_plan(int px, int bn, int split, int b, int h, int w, int c, int groups) {
+  Plan p{px, bn, split, geometry(px, bn, h, w, c, groups), 0};
+  if (p.g.size) p.ctas = ctas_of(p.g, b);
+  return p;
+}
+
+// The plan: 128 pixels x BN where the tile has fewer than twice the image's
+// rows (measured the fastest at every such shape: the weights are read once
+// for more pixels); else, with K split over 64 pixels, the first of x BN and
+// x 64 channels that gives 90% of the SMs a CTA, else the one with the more
+// CTAs.
+Plan pick_plan(int b, int h, int w, int c, int groups) {
   const int bn = c % 128 == 0 ? 128 : c % 160 == 0 ? 160 : 64;
-  const int tw = wd <= 16 ? 16 : 32;
-  const Tile cands[4] = {{16, bn, tw}, {8, bn, tw}, {4, bn, tw}, {4, 64, tw}};
-  Tile best = cands[3];
-  long long best_n = -1;
-  for (const Tile& t : cands) {
-    if (t.warps > 4 && t.warps * 16 / t.tw >= 2 * h) continue;
-    const long long n = ctas(t, b, h, wd, c);
-    if (n >= SMS) return t;
-    if (n > best_n) best = t, best_n = n;
+  const int sms = [] {
+    int n = 132, dev = 0;
+    if (cudaGetDevice(&dev) == cudaSuccess) cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n;
+  }();
+  const Plan wide = make_plan(128, bn, 0, b, h, w, c, groups);
+  if (wide.g.size && wide.g.th < 2 * h) return wide;
+  Plan best{};
+  best.ctas = -1;
+  for (const int n : {bn, 64}) {
+    const Plan p = make_plan(64, n, 1, b, h, w, c, groups);
+    if (p.g.size == 0) continue;
+    if (10 * p.ctas >= 9LL * sms) return p;
+    if (p.ctas > best.ctas) best = p;
   }
   return best;
 }
 
+template <typename Kernel>
+cudaError_t raise_smem_once(Kernel kernel, std::atomic<unsigned long long>& raised) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (!(raised.load() & bit)) {
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BUDGET);
+    if (e != cudaSuccess) return e;
+    raised.fetch_or(bit);
+  }
+  return cudaSuccess;
+}
+
 struct Args {
-  const bf16* x;
-  const float2* stats;
-  const float *gn_scale, *gn_bias;
-  const bf16* w;
-  const float* bias;
-  bf16* out;
-  int b, h, wd, c, groups;
+  const void *x, *gn_scale, *gn_bias, *w, *bias;
+  void *out, *stats;
+  int b;
 };
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, int warps, size_t smem, const Tile& t, const Args& a,
-                   cudaStream_t stream) {
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+template <int BN, bool SPLIT>
+cudaError_t launch(const Plan& p, const Args& a, cudaStream_t stream) {
+  static std::atomic<unsigned long long> raised{0};
+  cudaError_t e = raise_smem_once(conv_kernel<BN, SPLIT>, raised);
   if (e != cudaSuccess) return e;
-  const long long n = ctas(t, 1, a.h, a.wd, a.c);
-  if (n > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<dim3(unsigned(n), a.b), warps * 32, smem, stream>>>(
-      a.x, a.stats, a.gn_scale, a.gn_bias, a.w, a.bias, a.out, a.h, a.wd, a.c, a.groups, t.tw);
-  return cudaGetLastError();
+  const Geo& g = p.g;
+  const long long c = g.c;
+  CUtensorMap xmap, wmap;
+  if (!encode(&xmap, map_key(a.x, 4, {c, g.w, g.h, a.b}, {2 * c, 2 * c * g.w, 2 * c * g.w * g.h},
+                             {KC, g.tw + 2, g.th + 2, 1})) ||
+      !encode(&wmap, map_key(a.w, 3, {c, 9, c}, {2 * c, 18 * c}, {KC, 1, BN})))
+    return cudaErrorInvalidValue;
+  const long long per_sample = ctas_of(g, 1);
+  if (per_sample > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(unsigned(per_sample), unsigned(a.b));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = g.size;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = g.cluster ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, conv_kernel<BN, SPLIT>, xmap, wmap, static_cast<const bf16*>(a.x),
+                         static_cast<const float2*>(a.stats), static_cast<const float*>(a.gn_scale),
+                         static_cast<const float*>(a.gn_bias), static_cast<const float*>(a.bias),
+                         static_cast<bf16*>(a.out), g);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <int WARPS>
-cudaError_t launch_wgmma(const Tile& t, const Args& a, cudaStream_t s) {
-  const size_t smem = wg_smem_bytes(t.bn, WARPS * 16 / t.tw, t.tw);
-  if (t.bn == 128) return launch(conv_wgmma_kernel<WARPS, 128>, WARPS, smem, t, a, s);
-  if (t.bn == 160) return launch(conv_wgmma_kernel<WARPS, 160>, WARPS, smem, t, a, s);
-  return launch(conv_wgmma_kernel<WARPS, 64>, WARPS, smem, t, a, s);
+bool shape_ok(int b, int h, int w, int c, int groups) {
+  return b >= 1 && b <= 65535 && h >= 1 && w >= 1 && c >= 8 && c % 8 == 0 &&
+         c <= wd_groupnorm_max_c() && groups >= 1 && c % groups == 0;
 }
 
-cudaError_t launch_mma(const Tile& t, const Args& a, cudaStream_t s) {
-  const size_t smem = mma_smem_bytes(t.bn, MMA_WARPS * 16 / t.tw, t.tw);
-  if (t.bn == 128) return launch(conv_mma_kernel<128>, MMA_WARPS, smem, t, a, s);
-  if (t.bn == 160) return launch(conv_mma_kernel<160>, MMA_WARPS, smem, t, a, s);
-  return launch(conv_mma_kernel<64>, MMA_WARPS, smem, t, a, s);
+// Launch on plan p: B.5's statistics first where the plan takes no cluster
+// (then *stats_launched = 1, else 0, where stats_launched is not null).
+int run(Plan p, int b, const void* x, const void* gn_scale, const void* gn_bias, const void* w,
+        const void* bias, void* out, void* stats, float eps, int* stats_launched, void* stream) {
+  if (p.ctas <= 0 || stats == nullptr) return cudaErrorInvalidValue;
+  p.g.eps = eps;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!p.g.cluster) {
+    const int err = wd_groupnorm_cluster_stats(x, stats, b, p.g.h * p.g.w, p.g.c, p.g.groups,
+                                               eps, stream);
+    if (err) return err;
+  }
+  if (stats_launched != nullptr) *stats_launched = p.g.cluster ? 0 : 1;
+  const Args a{x, gn_scale, gn_bias, w, bias, out, stats, b};
+  if (p.bn == 128) return p.split ? launch<128, true>(p, a, s) : launch<128, false>(p, a, s);
+  if (p.bn == 160) return p.split ? launch<160, true>(p, a, s) : launch<160, false>(p, a, s);
+  return p.split ? launch<64, true>(p, a, s) : launch<64, false>(p, a, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// The tile the kernel picks for this shape, as (pixels << 16) | channels.
-int wd_gn_silu_conv3x3_tile(int b, int h, int wd, int c) {
-  const Tile t = pick_tile(b, h, wd, c);
-  return (t.warps * 16) << 16 | t.bn;
+// The plan at this shape into out[0..7]: pixels a CTA, output channels a CTA,
+// K split across the two warpgroups (0 or 1), the cluster of a sample's CTAs
+// (0: the statistics come from a launch before, into stats), CTAs, weight
+// stages of the ring, dynamic shared memory bytes, tile width. Returns 0, or
+// cudaErrorInvalidValue for a shape the kernel does not take.
+int wd_gn_silu_conv3x3_plan(int b, int h, int w, int c, int groups, int* out) {
+  if (!shape_ok(b, h, w, c, groups)) return cudaErrorInvalidValue;
+  const Plan p = pick_plan(b, h, w, c, groups);
+  if (p.ctas <= 0) return cudaErrorInvalidValue;
+  const int v[8] = {p.px, p.bn, p.split, p.g.cluster, int(p.ctas), p.g.stages, p.g.size, p.g.tw};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
+  return 0;
 }
 
 // out [B, H, W, C] = conv3x3(silu(GroupNorm(x)), w) + b; x and out bf16, w
 // [C][3][3][C] bf16 (output channel, tap row, tap column, input channel), all
-// contiguous and 16-byte aligned; gn_scale, gn_bias, b [C] fp32; partial and
-// stats as wd_groupnorm_stats takes them. Returns a cudaError_t.
+// contiguous and 16-byte aligned; gn_scale, gn_bias, b [C] fp32; stats [B, G]
+// float2 scratch (used where the plan's cluster is 0). One launch, or two
+// where the statistics take B.5's: *stats_launched (a host int) says which, 0
+// or 1. Returns a cudaError_t.
 int wd_gn_silu_conv3x3(const void* x, const void* gn_scale, const void* gn_bias, const void* w,
-                       const void* bias, void* out, void* partial, void* stats, int b, int h,
-                       int wd, int c, int groups, float eps, void* stream) {
-  if (b < 1 || b > 65535 || h < 1 || wd < 1) return cudaErrorInvalidValue;
-  int err = wd_groupnorm_stats(x, partial, stats, b, h * wd, c, groups, eps, stream);
-  if (err) return err;
-  const Tile t = pick_tile(b, h, wd, c);
-  const Args a{static_cast<const bf16*>(x),     static_cast<const float2*>(stats),
-               static_cast<const float*>(gn_scale), static_cast<const float*>(gn_bias),
-               static_cast<const bf16*>(w),     static_cast<const float*>(bias),
-               static_cast<bf16*>(out),         b, h, wd, c, groups};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (t.warps == 16) return launch_wgmma<16>(t, a, s);
-  if (t.warps == 8) return launch_wgmma<8>(t, a, s);
-  return launch_mma(t, a, s);
+                       const void* bias, void* out, void* stats, int b, int h, int wd, int c,
+                       int groups, float eps, int* stats_launched, void* stream) {
+  if (!shape_ok(b, h, wd, c, groups)) return cudaErrorInvalidValue;
+  return run(pick_plan(b, h, wd, c, groups), b, x, gn_scale, gn_bias, w, bias, out, stats, eps,
+             stats_launched, stream);
+}
+
+// For measurements (worddiffusion_tpu_torch/kernel_times.py): wd_gn_silu_conv3x3
+// on the plan of px pixels (64 or 128) x bn channels (64, 128 or 160), K split
+// or not, where it fits the shape, instead of the one it picks.
+int wd_gn_silu_conv3x3_planned(const void* x, const void* gn_scale, const void* gn_bias,
+                               const void* w, const void* bias, void* out, void* stats, int b,
+                               int h, int wd, int c, int groups, float eps, int px, int bn,
+                               int split, void* stream) {
+  if (!shape_ok(b, h, wd, c, groups) || (px != 64 && px != 128) ||
+      (bn != 64 && bn != 128 && bn != 160) || (split != 0 && split != 1) ||
+      (px == 64) != (split == 1))
+    return cudaErrorInvalidValue;
+  return run(make_plan(px, bn, split, b, h, wd, c, groups), b, x, gn_scale, gn_bias, w, bias,
+             out, stats, eps, nullptr, stream);
 }
 
 }  // extern "C"

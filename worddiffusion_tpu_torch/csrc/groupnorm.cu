@@ -31,7 +31,7 @@
 //   - cluster.sync(); every CTA reads the CL partial sums of each group through
 //     distributed shared memory (map_shared_rank) and adds them in rank order,
 //     so all CTAs hold the same (mu, rstd); cluster.sync() again before any CTA
-//     leaves;
+//     leaves (these steps are gn_stats.cuh's, shared with the conv kernel);
 //   - each CTA normalises its own range. Where the range fits in shared memory
 //     (FIT_BYTES) the first pass brought it there by cp.async, every row in
 //     flight at once, and device memory sees x once and out once; where it
@@ -49,9 +49,10 @@
 // Nothing goes through a global scratch buffer and there are no atomics: two
 // runs give the same bits (the trainer's bitwise resume rests on it).
 //
-// wd_groupnorm_stats, the two-launch statistics pass (per-tile partial sums,
-// then a finalize), stays for the GN -> SiLU -> conv3x3 kernel
-// (gn_silu_conv3x3.cu), which reads stats [B, G] from device memory.
+// wd_groupnorm_cluster_stats runs the same launch stopped after the
+// statistics, rank 0 of each cluster writing stats [B, G] (mu, rstd) to device
+// memory, for the GN -> SiLU -> conv3x3 kernel (gn_silu_conv3x3.cu) where a
+// sample is more of its CTAs than one cluster holds.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -61,6 +62,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "gn_stats.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -69,7 +72,6 @@ using bf16 = __nv_bfloat16;
 
 constexpr int THREADS = 256;
 constexpr int MAX_C = 8 * THREADS;  // one 8-channel vector column per thread at most
-constexpr int ROWS_PER_THREAD = 8;  // pixel rows a thread sums in the partial pass
 constexpr int UNROLL = 4;           // 16-byte loads in flight a thread (cluster kernel)
 constexpr int MIN_CTAS = 4;         // cluster kernel CTAs an SM holds at once (<= 64 registers)
 // Shared memory of one cluster CTA: its group sums, the cluster's statistics,
@@ -81,10 +83,6 @@ constexpr int RED_BYTES = 2 * THREADS * 8 * 4;
 constexpr int KEEP_NONE = 0, KEEP_SMEM = 1;
 // Where a measurement stops the kernel.
 constexpr int STOP_NONE = 0, STOP_PASS1 = 1, STOP_STATS = 2;
-
-// vector columns (8 channels each) and rows summed in parallel by one CTA
-__host__ __device__ inline int par_rows(int c) { return THREADS / (c / 8); }
-__host__ __device__ inline int tile_rows(int c) { return par_rows(c) * ROWS_PER_THREAD; }
 
 __device__ __forceinline__ void unpack8(const uint4& v, float (&f)[8]) {
   const uint32_t w[4] = {v.x, v.y, v.z, v.w};
@@ -128,25 +126,26 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 // keep == KEEP_SMEM, the CTA's rows of x as 16-byte vectors [rows][C / 8]. Each
 // thread owns one 8-channel column cv and the rows rp, rp + par, ... of the
 // range, in both passes, so a kept vector is read back by the thread that
-// stored it. stop (0 but for wd_groupnorm_routed's measurements) ends the
-// kernel after pass 1 (STOP_PASS1) or after the statistics (STOP_STATS).
+// stored it. stop (0 but for wd_groupnorm_routed's measurements and
+// wd_groupnorm_cluster_stats) ends the kernel after pass 1 (STOP_PASS1) or
+// after the statistics (STOP_STATS); stats_out, where not null, takes them
+// ([B, G] float2, from rank 0).
 __global__ void __launch_bounds__(THREADS, MIN_CTAS)
     gn_cluster_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
                       const float* __restrict__ bias, bf16* __restrict__ out, int s, int c,
-                      int groups, float eps, int silu, int keep, int stop) {
+                      int groups, float eps, int silu, int keep, int stop,
+                      float2* __restrict__ stats_out) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int cl = static_cast<int>(cluster.num_blocks());
   extern __shared__ __align__(16) unsigned char smem[];
   float2* part = reinterpret_cast<float2*>(smem);
   float2* stat = part + groups;
-  float* red_s = reinterpret_cast<float*>(stat + groups);
-  float* red_q = red_s + THREADS * 8;
-  uint4* kept = reinterpret_cast<uint4*>(red_q + THREADS * 8);
+  float* red = reinterpret_cast<float*>(stat + groups);  // [2][THREADS * 8]
+  uint4* kept = reinterpret_cast<uint4*>(red + 2 * THREADS * 8);
 
   const int nv = c / 8, par = THREADS / nv, cpg = c / groups;
   const int cv = threadIdx.x % nv, rp = threadIdx.x / nv;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int span = (s + cl - 1) / cl, r0 = rank * span, r1 = min(s, r0 + span);
   const size_t base = size_t(blockIdx.y) * s * c + cv * 8;
   const bf16* xb = x + base;
@@ -157,82 +156,26 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
   // is used.
   float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   float sq[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  auto add = [&](const uint4& v) {
-    float f[8];
-    unpack8(v, f);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      sum[j] += f[j];
-      sq[j] += f[j] * f[j];
-    }
-  };
   if (rp < par && keep == KEEP_SMEM) {
     for (int r = r0 + rp; r < r1; r += par)
       cp_async16(kept + (r - r0) * nv + cv, xb + size_t(r) * c);
     asm volatile("cp.async.commit_group;\n");
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // this thread's own rows
-    for (int r = r0 + rp; r < r1; r += par) add(kept[(r - r0) * nv + cv]);
+    for (int r = r0 + rp; r < r1; r += par) gn_stats::add8(kept[(r - r0) * nv + cv], sum, sq);
   } else if (rp < par) {
-    for (int r = r0 + rp; r < r1; r += UNROLL * par) {
-      uint4 v[UNROLL];
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u) {
-        const int rr = r + u * par;
-        v[u] = rr < r1 ? *reinterpret_cast<const uint4*>(xb + size_t(rr) * c)
-                       : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int u = 0; u < UNROLL; ++u)
-        if (r + u * par < r1) add(v[u]);
-    }
+    gn_stats::sum_rows<UNROLL>(xb, r0 + rp, r1, par, c, sum, sq);
   }
-  if (rp < par) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      red_s[rp * c + cv * 8 + j] = sum[j];
-      red_q[rp * c + cv * 8 + j] = sq[j];
-    }
-  }
+  if (rp < par) gn_stats::store_sums<THREADS>(red, rp, cv, c, sum, sq);
   __syncthreads();
   if (stop == STOP_PASS1) return;
-  // per group, a warp: lane l adds the group's (row set, channel) sums l,
-  // l + 32, ... in order, then a fixed butterfly over the lanes
-  const int per_group = par * cpg;
-  for (int g = warp; g < groups; g += THREADS / 32) {
-    float ts = 0.f, tq = 0.f;
-    for (int e = lane; e < per_group; e += 32) {
-      const int i = (e / cpg) * c + g * cpg + e % cpg;
-      ts += red_s[i];
-      tq += red_q[i];
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      ts += __shfl_xor_sync(0xffffffffu, ts, o);
-      tq += __shfl_xor_sync(0xffffffffu, tq, o);
-    }
-    if (lane == 0) part[g] = make_float2(ts, tq);
-  }
-
-  // the cluster's sums through distributed shared memory: per group, a warp;
-  // lane q reads rank q's sums (all ranks at once), lane 0 adds them in rank order
+  gn_stats::group_sums<THREADS>(red, par, c, groups, part);
   cluster.sync();
-  const float n = float(s) * float(cpg);
-  for (int g = warp; g < groups; g += THREADS / 32) {
-    float2 p = make_float2(0.f, 0.f);
-    if (lane < cl) p = cluster.map_shared_rank(part, lane)[g];
-    float ts = 0.f, tq = 0.f;
-    for (int q = 0; q < cl; ++q) {
-      ts += __shfl_sync(0xffffffffu, p.x, q);
-      tq += __shfl_sync(0xffffffffu, p.y, q);
-    }
-    if (lane == 0) {
-      const float mu = ts / n;
-      const float var = fmaxf(tq / n - mu * mu, 0.f);
-      stat[g] = make_float2(mu, rsqrtf(var + eps));
-    }
-  }
+  gn_stats::cluster_stats<THREADS>(part, stat, groups, cl, float(s) * float(cpg), eps);
   cluster.sync();  // every remote read done before any CTA leaves; stat visible
 
+  if (stats_out != nullptr && rank == 0)
+    for (int g = threadIdx.x; g < groups; g += THREADS)
+      stats_out[size_t(blockIdx.y) * groups + g] = stat[g];
   if (rp >= par || stop == STOP_STATS) return;
   float mu[8], sc[8], bi[8];
 #pragma unroll
@@ -267,67 +210,6 @@ __global__ void __launch_bounds__(THREADS, MIN_CTAS)
       }
       *reinterpret_cast<uint4*>(ob + size_t(rr) * c) = pack8(f);
     }
-  }
-}
-
-// ---- the statistics pass of gn_silu_conv3x3.cu ---------------------------------------------
-
-// grid (tiles, B). partial[(b * tiles + tile) * G + g] = (sum x, sum x^2).
-__global__ void __launch_bounds__(THREADS)
-    gn_partial_kernel(const bf16* __restrict__ x, float2* __restrict__ partial, int s, int c,
-                      int groups) {
-  __shared__ float red_s[MAX_C], red_q[MAX_C];
-  const int nv = c / 8, par = THREADS / nv, rows = par * ROWS_PER_THREAD;
-  const int tile = blockIdx.x, b = blockIdx.y, tiles = gridDim.x;
-  const int cv = threadIdx.x % nv, rp = threadIdx.x / nv;
-  float sum[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float sq[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  if (rp < par) {
-    const int end = min(s, (tile + 1) * rows);
-    const bf16* xb = x + size_t(b) * s * c + cv * 8;
-    for (int r = tile * rows + rp; r < end; r += par) {
-      float f[8];
-      unpack8(*reinterpret_cast<const uint4*>(xb + size_t(r) * c), f);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        sum[j] += f[j];
-        sq[j] += f[j] * f[j];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      red_s[rp * c + cv * 8 + j] = sum[j];
-      red_q[rp * c + cv * 8 + j] = sq[j];
-    }
-  }
-  __syncthreads();
-  const int cpg = c / groups;
-  for (int g = threadIdx.x; g < groups; g += THREADS) {
-    float ts = 0.f, tq = 0.f;
-    for (int ch = g * cpg; ch < (g + 1) * cpg; ++ch)
-      for (int p = 0; p < par; ++p) {
-        ts += red_s[p * c + ch];
-        tq += red_q[p * c + ch];
-      }
-    partial[(size_t(b) * tiles + tile) * groups + g] = make_float2(ts, tq);
-  }
-}
-
-// grid B. stats[b * G + g] = (mu, rsqrt(max(var, 0) + eps)).
-__global__ void __launch_bounds__(THREADS)
-    gn_finalize_kernel(const float2* __restrict__ partial, float2* __restrict__ stats,
-                       int tiles, int groups, float n, float eps) {
-  const int b = blockIdx.x;
-  for (int g = threadIdx.x; g < groups; g += THREADS) {
-    float ts = 0.f, tq = 0.f;
-    for (int t = 0; t < tiles; ++t) {
-      const float2 p = partial[(size_t(b) * tiles + t) * groups + g];
-      ts += p.x;
-      tq += p.y;
-    }
-    const float mu = ts / n;
-    const float var = fmaxf(tq / n - mu * mu, 0.f);
-    stats[size_t(b) * groups + g] = make_float2(mu, rsqrtf(var + eps));
   }
 }
 
@@ -377,7 +259,8 @@ cudaError_t raise_limit_once() {
 }
 
 int launch(const void* x, const void* scale, const void* bias, void* out, int b, int s, int c,
-           int groups, float eps, int silu, const Route& r, int stop, cudaStream_t stream) {
+           int groups, float eps, int silu, const Route& r, int stop, cudaStream_t stream,
+           void* stats_out = nullptr) {
   cudaError_t e = raise_limit_once();
   if (e != cudaSuccess) return e;
   cudaLaunchConfig_t cfg = {};
@@ -394,7 +277,8 @@ int launch(const void* x, const void* scale, const void* bias, void* out, int b,
   cfg.numAttrs = 1;
   e = cudaLaunchKernelEx(&cfg, gn_cluster_kernel, static_cast<const bf16*>(x),
                          static_cast<const float*>(scale), static_cast<const float*>(bias),
-                         static_cast<bf16*>(out), s, c, groups, eps, silu, r.keep, stop);
+                         static_cast<bf16*>(out), s, c, groups, eps, silu, r.keep, stop,
+                         static_cast<float2*>(stats_out));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -413,28 +297,18 @@ int wd_groupnorm_route(int b, int s, int c, int groups) {
   return r.cl << 1 | r.keep;
 }
 
-// Number of pixel tiles of the partial pass: partial holds B * tiles * G
-// float2 (the wrapper allocates it).
-int wd_groupnorm_tiles(int s, int c) {
-  if (c < 8 || c % 8 || c > MAX_C || s < 1) return 0;
-  return (s + tile_rows(c) - 1) / tile_rows(c);
-}
-
-// stats [B, G] float2 (mu, rsqrt(var + eps)) of x [B, S, C] bf16 (contiguous,
-// 16-byte aligned), in two launches through `partial`. Returns a cudaError_t.
-int wd_groupnorm_stats(const void* x, void* partial, void* stats, int b, int s, int c,
-                       int groups, float eps, void* stream) {
+// stats [B, G] float2 (mu, rsqrt(max(var, 0) + eps)) of x [B, S, C] bf16
+// (contiguous, 16-byte aligned): the cluster launch of wd_groupnorm, its range
+// of x read once and not kept, stopped after the statistics. Returns a
+// cudaError_t.
+int wd_groupnorm_cluster_stats(const void* x, void* stats, int b, int s, int c, int groups,
+                               float eps, void* stream) {
   if (!shape_ok(b, s, c, groups)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = wd_groupnorm_tiles(s, c);
-  gn_partial_kernel<<<dim3(tiles, b), THREADS, 0, st>>>(
-      static_cast<const bf16*>(x), static_cast<float2*>(partial), s, c, groups);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  gn_finalize_kernel<<<b, THREADS, 0, st>>>(static_cast<const float2*>(partial),
-                                           static_cast<float2*>(stats), tiles, groups,
-                                           float(s) * float(c / groups), eps);
-  return cudaGetLastError();
+  Route r = pick_route(b, s, c, groups);
+  r.keep = KEEP_NONE;
+  r.smem = 16 * groups + RED_BYTES;
+  return launch(x, nullptr, nullptr, nullptr, b, s, c, groups, eps, 0, r, STOP_STATS,
+                static_cast<cudaStream_t>(stream), stats);
 }
 
 // out [B, S, C] = GroupNorm(x) (+ SiLU), bf16, in one cluster launch; x and out

@@ -1,18 +1,25 @@
 // Device helpers shared by the port's wgmma kernels (sm_90a): cp.async, the
 // wgmma fence / commit / wait, shared-memory matrix descriptors and their
 // swizzles, wgmma with both operands from shared memory (B.1, B.2, B.3, B.4,
-// B.7/B.8) and with A from registers (B.4's and B.7/B.8's p . v), mbarriers,
-// TMA tensor loads and stores with their bulk groups, named barriers and
-// setmaxnreg (B.4), bf16 pack / unpack, and the tanh-approximate gelu.
-// Included by ln_geglu_ffn.cu (B.1, B.2), ln_geglu_ffn_bwd.cu (B.3),
-// attention.cu (B.4) and fold_attention.cu (B.7/B.8).
+// B.7/B.8) and with A from registers (B.4's and B.7/B.8's p . v, B.6's
+// tap-shifted activation by ldmatrix), mbarriers (with bounded
+// waits), TMA tensor loads and stores with their bulk groups,
+// named barriers, setmaxnreg, bf16 pack / unpack, and the tanh-approximate
+// gelu; and on the host, the one encoder of TMA tensor maps
+// (cuTensorMapEncodeTiled) with its cache. Included by ln_geglu_ffn.cu (B.1,
+// B.2), ln_geglu_ffn_bwd.cu (B.3), attention.cu (B.4), gn_silu_conv3x3.cu
+// (B.6) and fold_attention.cu (B.7/B.8).
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and the encode's enums (header only: no -lcuda)
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cstring>
+#include <initializer_list>
 
 namespace hopper {
 
@@ -378,6 +385,29 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
 }
 
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[80], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p, 1, 1, %86;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(TB));
+}
+
 // Registers a product in flight reads (its A operand): pinned before the
 // wgmma.fence that precedes it, so that every write to them is above the fence.
 template <int N>
@@ -426,6 +456,36 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// As mbar_wait, bounded: a phase that does not complete within seconds is a
+// fault of the launch (a load that never landed, an arrival that never came),
+// so the kernel traps and the launch fails with an error rather than spin on.
+__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
+  for (uint32_t tries = 0;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
+  }
+}
+
+// As tma_load_3d for a rank-2 map.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, uint64_t* bar, int c0,
+                                            int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // One box of a rank-3 tensor map at element coordinates (c0 innermost, c1,
 // c2) into shared memory at dst, completing on bar (its bytes counted by
 // mbar_expect_tx). Elements outside the tensor arrive as zeros.
@@ -447,6 +507,15 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map, uint64_t
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
       : "memory");
+}
+
+// One box from shared memory at src to a rank-2 tensor map at (c0, c1);
+// elements outside the tensor are not written. Tracked by bulk groups.
+__device__ __forceinline__ void tma_store_2d(const void* map, const void* src, int c0, int c1) {
+  asm volatile("cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::
+                   "l"(reinterpret_cast<uint64_t>(map)),
+               "r"(smem_addr(src)), "r"(c0), "r"(c1)
+               : "memory");
 }
 
 // One box from shared memory at src to a rank-3 tensor map at (c0, c1, c2);
@@ -495,6 +564,14 @@ __device__ __forceinline__ void setmaxnreg_dec() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+// The four 8 x 8 bf16 matrices of a 16 x 16 A fragment (rows at p, per lane)
+// into the m16n8k16 register layout that wgmma's register A takes.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -521,6 +598,86 @@ constexpr float GELU_C = 0.7978845608028654f, GELU_K = 0.044715f;
 // tanh-approximate gelu, as flax.linen.gelu and ffn_pallas.py::_gelu_and_grad
 __device__ __forceinline__ float gelu_tanh(float u) {
   return 0.5f * u * (1.0f + tanhf(GELU_C * (u + GELU_K * u * u * u)));
+}
+
+// --- host: TMA tensor maps ---
+
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+// The driver's cuTensorMapEncodeTiled through the runtime (no -lcuda), once.
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault,
+                                                  &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(f)
+                                                                    : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 tensor map of rank 2 to 4: dims innermost first, the byte strides of
+// dims 1.., the box, the swizzle; out-of-range elements load as zeros and are
+// not stored.
+struct MapKey {
+  const void* base;
+  int rank, swizzle;
+  cuuint64_t dims[4], strides[3];
+  cuuint32_t box[4];
+};
+
+inline MapKey map_key(const void* base, int rank, std::initializer_list<long long> dims,
+                      std::initializer_list<long long> strides, std::initializer_list<int> box,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  MapKey k;
+  std::memset(&k, 0, sizeof k);  // padding and unused dims compare equal
+  k.base = base;
+  k.rank = rank;
+  k.swizzle = int(swizzle);
+  int i = 0;
+  for (long long d : dims) k.dims[i++] = cuuint64_t(d);
+  i = 0;
+  for (long long s : strides) k.strides[i++] = cuuint64_t(s);
+  i = 0;
+  for (int bx : box) k.box[i++] = cuuint32_t(bx);
+  return k;
+}
+
+// Encoded through a small direct-mapped cache per host thread: a map is a pure
+// function of its key, encoding one costs host time of the order of a launch,
+// and a caller's tensors recur (PyTorch's caching allocator hands back the
+// same blocks). False where the driver refuses the map.
+inline bool encode(CUtensorMap* map, const MapKey& k) {
+  struct Entry {
+    MapKey key;
+    CUtensorMap map;
+    bool ok;
+  };
+  static thread_local Entry cache[64];
+  uintptr_t h = reinterpret_cast<uintptr_t>(k.base) >> 4;
+  for (int i = 0; i < 4; ++i) h = h * 31 + k.dims[i] * 7 + k.box[i];
+  for (int i = 0; i < 3; ++i) h = h * 31 + k.strides[i];
+  h = h * 31 + uintptr_t(k.swizzle);
+  Entry& e = cache[h % 64];
+  if (!e.ok || std::memcmp(&e.key, &k, sizeof k) != 0) {
+    const EncodeTiled fn = encoder();
+    const cuuint32_t unit[4] = {1, 1, 1, 1};
+    std::memcpy(&e.key, &k, sizeof k);
+    e.ok = fn != nullptr &&
+           fn(&e.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, cuuint32_t(k.rank), const_cast<void*>(k.base),
+              k.dims, k.strides, k.box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+              CUtensorMapSwizzle(k.swizzle), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+    if (!e.ok) return false;
+  }
+  *map = e.map;
+  return true;
 }
 
 }  // namespace hopper

@@ -28,39 +28,52 @@
 // Design. CTAs run in parallel and in no order, and fp32 atomics would make the
 // gradients depend on the order in which CTAs finish, which would break the
 // trainer's bitwise resume; so every sum is taken in a fixed order, in three
-// launches on one stream, all products on wgmma with both operands in shared
-// memory:
-//   A. rows: a thread-block cluster of CL CTAs shares a 64-row tile and splits
-//      inner in chunks of 32 columns, as the forward does (CL from 1, 2, 4, 8:
-//      the smallest that gives 90% of the SMs a CTA; 1 from M = 8192 on). Each
-//      CTA recomputes the tile's LayerNorm into xn and stages dy, both bf16 in
-//      shared memory, K-major in the 64-byte swizzle. Per chunk, with its W1
-//      rows [64 x d] and W2 columns [d x 32] staged through a cp.async double
-//      buffer in parameter layout, warpgroup w computes [a | u] of its 16
-//      columns (wgmma m64n32, W1 K-major) and dact of the same columns (m64n16,
-//      W2 MN-major: wgmma transposes 16-bit B), applies GEGLU and its
-//      derivative in the accumulators' registers (the forward's tanhf, so act
-//      and gelu' come from the tanh that B.1 and the TPU kernel use), writes dhc to shared memory in the 128-byte swizzle and act
-//      beside it, and both warpgroups then accumulate dxn [64, d] += dhc . W1
-//      (m64n160 each: the same staged W1 rows read MN-major). act and dhc go to
-//      device memory as 16-byte stores, behind the dxn product. After the last
-//      chunk the CL partial dxn (fp32) are summed in rank order through
-//      distributed shared memory, CTA r taking rows [r*64/CL, (r+1)*64/CL),
-//      which then run the LayerNorm backward into dx and per-tile column
-//      partials of dgamma, dbeta, db2; db1's partials are written per chunk.
+// launches on one stream, every product on wgmma with both operands in shared
+// memory, every operand tile brought by TMA (csrc/hopper.cuh):
+//   A. rows: a CTA is two consumer warpgroups and a producer warpgroup
+//      (setmaxnreg 24 / 240) on a 64-row tile. The producer's thread 0 loads
+//      the tile's x and dy (TMA boxes of [64 rows][64 d], 128-byte swizzle),
+//      then walks inner in chunks of 16 columns into a ring of 4 stages, each
+//      chunk's W1 rows [32 x d] (a rows, then u rows: one box of a rank-3 view
+//      [2, inner, d] per 32 d, 64-byte swizzle) and W2 columns [d x 16]
+//      (32-byte swizzle), each stage on a full and an empty mbarrier. Each CTA
+//      walks its chunks from its own start (rotated by its tile), so that the
+//      card's CTAs read different weights from L2 at once rather than all the
+//      same lines. Where the row tiles are too few for the card
+//      (under 90% of the SMs: M up to about 7600) a cluster of 2, 4 or 8 CTAs
+//      shares one tile, each CTA a range of the chunks. The consumers
+//      normalise x into xn in place (xn also leaves by TMA stores, for B), then
+//      take the CTA's chunks in pairs: warpgroup w takes chunk 2j + w's [a | u]
+//      of its 16 columns (wgmma m64n32 over d, W1 K-major), dact (m64n16, W2
+//      MN-major: wgmma transposes 16-bit B), GEGLU and its derivative in the
+//      accumulators' registers (the forward's tanhf), writes dhc to shared
+//      memory in the 64-byte swizzle (double-buffered by the pair) and act
+//      beside it; then each warpgroup adds the pair's dhc . W1-rows into its
+//      own half of dxn's columns (m64n160, K = 32 a chunk: the staged W1 rows
+//      read MN-major), 80 fp32 registers a thread (a whole [64, d] dxn a
+//      warpgroup, with the recompute's accumulators beside it, spilled). dxn
+//      stays in flight while act and dhc go to device memory as 16-byte
+//      stores and the column sums of dh (db1's partials) are written. After
+//      the last pair the cluster's partials (where it shares a tile) are added
+//      in rank order through distributed shared memory, CTA r taking rows
+//      [r*64/CL, (r+1)*64/CL), which then run the LayerNorm backward into dx
+//      and per-tile column partials of dgamma, dbeta, db2.
 //   B. weights: dW1 = dhc^T . xn and dW2 (as its transpose act^T . dy) on
-//      wgmma with both operands M-major (transposed): one CTA per 128 x 160
-//      output tile, a cluster of 2 CTAs a tile splitting M in halves, each
-//      walking its half in 64-row steps through a 4-stage cp.async ring in the
-//      128-byte swizzle; the two fp32 partials summed in rank order through
-//      distributed shared memory and stored in parameter layout.
+//      wgmma with both operands M-major (transposed): a CTA per 128 x 160 output
+//      tile and quarter of M, two consumer warpgroups of 64 output rows and a
+//      producer warpgroup whose thread 0 brings each 64-row step's dhc (or act)
+//      [64 x 128] and xn (or dy) [64 x 192] by TMA into a 4-stage ring
+//      (128-byte swizzle; rows past M and columns past the matrix arrive as
+//      zeros); a cluster of 4 CTAs a tile, 240 CTAs on the 132 SMs, the four
+//      fp32 partials summed in rank order through distributed shared memory.
 //   C. the per-tile partials of dgamma, dbeta, db2 and db1 summed in order.
-// No atomics anywhere; for a given M the cluster sizes, and so every sum's
-// order, are fixed: bitwise repeatable.
+// No atomics anywhere; for a given M the clusters, and so every sum's order,
+// are fixed: bitwise repeatable.
 // Scratch: xn [M, d], dhc [M, 2*inner], act [M, inner] (bf16), written by A and
 // read by B; the partials [tiles*CL, 3*d] and [tiles, 2*inner] (fp32).
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -78,318 +91,390 @@ using namespace hopper;
 
 constexpr int D_TAKEN = 320;
 constexpr int BM = 64;         // rows per tile of kernel A: one wgmma M
-constexpr int NC = 32;         // inner columns per chunk
-constexpr int THREADS = 256;   // two warpgroups
-constexpr int SW64_BLOCK = BM * 64;  // bytes of a [64 rows x 32 K] 64-byte swizzled block
+constexpr int NC = 16;         // inner columns per chunk (a ring stage)
+constexpr int CONS = 256;      // two consumer warpgroups
+constexpr int THREADS = CONS + 128;  // and the producer warpgroup
+constexpr int CONS_BAR = 1;    // named barriers: the consumers', then each warpgroup's (2, 3)
+constexpr int WG_BAR = 2;
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+static_assert(128 * (168 - PRODUCER_REGS) >= CONS * (CONSUMER_REGS - 168), "what the producer frees");
+constexpr int STAGES = 4;      // kernel A's ring
+constexpr int SMEM_MAX = 232448;
 
-// Kernel A's shared memory, byte offsets from a 1024-byte aligned base: the W1
-// double buffer ([64 rows x d] in d/32 blocks of [64 x 32]), the W2 double
-// buffer (each warpgroup's [d rows x 16 columns], 32-byte swizzle), xn and dy
-// (d/32 blocks of [64 x 32]), dhc [64 x 64] (128-byte swizzle), act [64 x 32]
-// (64-byte swizzle), db1's per-warp column sums, the row statistics. The
-// epilogue's fp32 dxn [64][d + 8] lies over the weight buffers.
+// Kernel A's shared memory, byte offsets from a 1024-byte aligned base: the ring
+// (per stage W1's 32 rows in d/32 blocks of [32][32] and W2's columns [d][16]),
+// the x (then xn) and dy tiles (5 atoms of [64][64] each), a chunk pair's dhc
+// [64 x 32] per chunk (64-byte swizzle), double-buffered by the pair's parity;
+// per warpgroup act [64][16] and db1's per-warp column sums, the row
+// statistics, the barriers. The epilogue's fp32 dxn [64][d + 8] lies over the
+// ring.
 template <int D>
 struct SmemA {
-  static constexpr int NB = D / 32;           // K blocks
-  static constexpr int LDR = D + 8;           // fp32 row stride of dxn
-  static constexpr size_t W1_SLOT = size_t(NB) * SW64_BLOCK;
-  static constexpr size_t W2_HALF = size_t(D) * 32;
-  static constexpr size_t W2_SLOT = 2 * W2_HALF;
-  static constexpr size_t w1 = 0;
-  static constexpr size_t w2 = w1 + 2 * W1_SLOT;
-  static constexpr size_t xn = w2 + 2 * W2_SLOT;
-  static constexpr size_t dy = xn + W1_SLOT;
-  static constexpr size_t dhc = dy + W1_SLOT;
-  static constexpr size_t act = dhc + size_t(BM) * 128;
-  static constexpr size_t db1 = act + size_t(BM) * 64;
-  static constexpr size_t mu = db1 + 2 * 4 * NC * 4;
-  static constexpr size_t rstd = mu + BM * 4;
-  static constexpr size_t total = rstd + BM * 4 + 1024;  // + the alignment
-  static_assert(size_t(BM) * LDR * 4 <= xn, "dxn fits over the weight buffers");
-  static_assert(W2_HALF % 256 == 0 && dhc % 1024 == 0, "swizzle alignment");
+  static constexpr int ATOMS = D / 64;
+  static constexpr int NB = D / 32;             // W1's 32-column blocks
+  static constexpr int BLOCK = 32 * 64;         // a block: [32 rows][32 d], 64-byte swizzle
+  static constexpr int LDR = D + 8;             // fp32 row stride of dxn
+  static constexpr int W1_BYTES = NB * BLOCK;   // 32 rows of W1
+  static constexpr int W2_BYTES = D * NC * 2;   // d rows of 16 columns of W2
+  static constexpr int STAGE = W1_BYTES + W2_BYTES;
+  static constexpr int TILE = BM * D * 2;
+  static constexpr int ring = 0;
+  static constexpr int xs = ring + STAGES * STAGE;
+  static constexpr int dys = xs + TILE;
+  static constexpr int dhc = dys + TILE;                 // [2 pair parities][2 chunks][64][32] bf16
+  static constexpr int act = dhc + 4 * BM * 64;          // 2 x [64][16] bf16
+  static constexpr int db1 = act + 2 * BM * 32;          // 2 x [4 warps][32] fp32
+  static constexpr int mu = db1 + 2 * 4 * 32 * 4;
+  static constexpr int rstd = mu + BM * 4;
+  static constexpr int bars = rstd + BM * 4;             // full, empty per stage; x full
+  static constexpr int total = bars + 8 * (2 * STAGES + 1) + 1024;  // + the alignment
+  static_assert(D % 64 == 0 && STAGE % 1024 == 0 && TILE % 1024 == 0, "swizzle alignment");
+  static_assert(BM * LDR * 4 <= STAGES * STAGE, "dxn fits over the ring");
+  static_assert(total <= SMEM_MAX, "a CTA's shared memory");
 };
 
-// The smallest cluster of 1, 2, 4, 8 that gives 90% of the SMs a CTA (every
-// CTA at least one chunk).
-int cluster_size(int tiles, int chunks) {
+// Kernel A's clusters at M rows: CL CTAs share a tile (the smallest of 1, 2,
+// 4, 8 that gives 90% of the SMs a CTA, each CTA two chunks at least).
+struct RowsPlan {
+  int tiles, cl;
+  int ctas() const { return tiles * cl; }
+};
+
+int sm_count() {
   int sms = 132, dev = 0;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  int cl = 1;
-  while (cl < 8 && 2 * cl <= chunks && 10LL * tiles * cl < 9LL * sms) cl *= 2;
-  return cl;
+  return sms;
 }
 
-// grid (tiles * CL), cluster (CL, 1, 1): cluster t is row tile t.
-// part1 [tiles * CL][3 D]: dgamma | dbeta | db2 over CTA r's rows of tile t at
-// row t * CL + r; part2 [tiles][2 inner]: db1 over tile t's rows.
+RowsPlan rows_plan(int m, int inner) {
+  RowsPlan p{(m + BM - 1) / BM, 1};
+  const int sms = sm_count();
+  while (p.cl < 8 && 2 * p.cl <= inner / NC && 10LL * p.tiles * p.cl < 9LL * sms) p.cl *= 2;
+  return p;
+}
+
+// Byte offset of element (r, c) (c < 64) in a [rows][64] atom, 128-byte swizzle.
+__device__ __forceinline__ int sw128(int r, int c) {
+  return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// One consumer warp's arrival (lane 0) on an empty barrier.
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+  __syncwarp();
+}
+
+// grid (tiles * CL), clusters of CL CTAs: cluster t is row tile t and CTA r
+// takes the r-th of CL ranges of its chunks. part1 [tiles * CL][3 D]: dgamma |
+// dbeta | db2 over CTA r's rows of the epilogue at row t * CL + r; part2
+// [tiles][2 inner]: db1 over tile t's rows.
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-    ffn_bwd_rows_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
+    ffn_bwd_rows_kernel(const __grid_constant__ CUtensorMap xmap,
+                        const __grid_constant__ CUtensorMap dymap,
+                        const __grid_constant__ CUtensorMap w1map,
+                        const __grid_constant__ CUtensorMap w2map,
+                        const __grid_constant__ CUtensorMap xnmap, const bf16* __restrict__ x,
                         const float* __restrict__ gamma, const float* __restrict__ beta,
-                        const bf16* __restrict__ w1, const float* __restrict__ b1,
-                        const bf16* __restrict__ w2, bf16* __restrict__ dx,
-                        bf16* __restrict__ xn_g, bf16* __restrict__ dhc_g,
-                        bf16* __restrict__ act_g, float* __restrict__ part1,
-                        float* __restrict__ part2, int M, int inner, float eps) {
+                        const float* __restrict__ b1, bf16* __restrict__ dx,
+                        bf16* __restrict__ dhc_g, bf16* __restrict__ act_g,
+                        float* __restrict__ part1, float* __restrict__ part2, int M, int inner,
+                        int cl, float eps) {
   using L = SmemA<D>;
-  constexpr int NB = L::NB, NV = D / 8, N3 = D / 2;
+  constexpr int NV = D / 8, PER = (NV + 31) / 32;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  const int cl = static_cast<int>(cluster.num_blocks());
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* xns = sm + L::xn;
-  unsigned char* dys = sm + L::dy;
-  unsigned char* dhcs = sm + L::dhc;
-  unsigned char* acts = sm + L::act;
-  float* db1s = reinterpret_cast<float*>(sm + L::db1);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  unsigned char* xs = sm + L::xs;
+  unsigned char* dys = sm + L::dys;
   float* mus = reinterpret_cast<float*>(sm + L::mu);
   float* rstds = reinterpret_cast<float*>(sm + L::rstd);
-  float* red = reinterpret_cast<float*>(sm);
+  float* red = reinterpret_cast<float*>(sm + L::ring);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::bars);
+  uint64_t* empty = full + STAGES;
+  uint64_t* xfull = empty + STAGES;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wg = warp / 4, w4 = warp % 4, g8 = (lane >> 2) + 16 * w4, t4 = lane & 3;
-  const int tile = blockIdx.x / cl, row0 = tile * BM;
+  const int tid = threadIdx.x;
+  // this CTA's tile and range of chunks
+  const int tile = blockIdx.x / cl;
+  const int split = rank;
+  const int row0 = tile * BM;
   const int chunks = inner / NC;
-  const int c0 = rank * chunks / cl, nch = (rank + 1) * chunks / cl - c0;
+  const int c0 = split * chunks / cl, nch = (split + 1) * chunks / cl - c0;
+  // The CTA walks its chunks from its own start (its lc-th chunk is c0 + (lc +
+  // rot) % nch), so that at any time the card's
+  // CTAs read different weights from L2 rather than all the same lines; the
+  // order of dxn's sums is the CTA's own, fixed
+  const int rot = nch ? tile % nch : 0;
+  auto chunk_of = [&](int lc) { return c0 + (lc + rot < nch ? lc + rot : lc + rot - nch); };
   const int two_inner = 2 * inner;
-  const int rows = BM / cl, r_lo = rank * rows;  // this CTA's rows of the epilogue
+  const int rows = BM / cl, r_lo = split * rows;  // this CTA's rows of the epilogue
 
-  // [64 rows x D] bf16 from device memory (row stride D) into d/32 blocks of
-  // the 64-byte swizzle; rows past M read as zero. A warp fills 8 rows x 64
-  // bytes of one block a step: 64 contiguous bytes of each row.
-  auto load_rows = [&](unsigned char* dst, const bf16* src) {
-    for (int u = warp; u < 8 * NB; u += THREADS / 32) {
-      const int r = (u % 8) * 8 + lane / 4, j = lane % 4, blk = u / 8;
-      const int gr = row0 + r;
-      cp_async16_zfill(dst + blk * SW64_BLOCK + swz_chunk<64>(r, j),
-                       src + size_t(gr < M ? gr : 0) * D + blk * 32 + j * 8, gr < M);
+  if (tid == 0) {
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(full + i, 1);           // this CTA's producer's expect_tx
+      mbar_init(empty + i, 8);          // every consumer warp
     }
-  };
-  // chunk lc's W1 rows (slot row n: warpgroup n / 32's a columns, then its u
-  // columns) and each warpgroup's 16 W2 columns
-  auto load_chunk = [&](int lc, int buf) {
-    const int c = (c0 + lc) * NC;
-    unsigned char* w1s = sm + L::w1 + buf * L::W1_SLOT;
-    for (int u = warp; u < 8 * NB; u += THREADS / 32) {
-      const int n = (u % 8) * 8 + lane / 4, j = lane % 4, blk = u / 8;
-      const int col = c + 16 * (n >> 5) + (n & 15) + ((n & 16) ? inner : 0);
-      cp_async16(w1s + blk * SW64_BLOCK + swz_chunk<64>(n, j),
-                 w1 + size_t(col) * D + blk * 32 + j * 8);
-    }
-    unsigned char* w2s = sm + L::w2 + buf * L::W2_SLOT;
-    for (int u = warp; u < 2 * (D / 16); u += THREADS / 32) {
-      const int h = u / (D / 16), k = (u % (D / 16)) * 16 + lane / 2, j = lane % 2;
-      cp_async16(w2s + h * L::W2_HALF + swz_chunk<32>(k, j),
-                 w2 + size_t(k) * inner + c + 16 * h + j * 8);
-    }
-  };
+    mbar_init(xfull, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
 
-  load_rows(dys, dy);
-  load_chunk(0, 0);
-  cp_async_commit();
-
-  // LayerNorm of the tile, one warp a row, 8 channels a lane and vector; rows
-  // past M are zero. This CTA's rows of the epilogue also go to xn_g for B.
-  constexpr int PER = (NV + 31) / 32;
-  for (int r = warp; r < BM; r += THREADS / 32) {
-    const int gr = row0 + r;
-    uint4 v[PER];
-#pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int vi = lane + 32 * k;
-      v[k] = (gr < M && vi < NV) ? *reinterpret_cast<const uint4*>(x + size_t(gr) * D + vi * 8)
-                                 : make_uint4(0u, 0u, 0u, 0u);
-    }
-    if (gr < M) {
-      float f[PER][8];
-      float s = 0.f;
-#pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        unpack8(v[k], f[k]);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s += f[k][j];  // zero past d
+  if (tid >= CONS) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == CONS) {
+      mbar_expect_tx(xfull, 2 * L::TILE);
+      for (int a = 0; a < L::ATOMS; ++a) {
+        tma_load_2d(xs + a * BM * 128, &xmap, xfull, 64 * a, row0);
+        tma_load_2d(dys + a * BM * 128, &dymap, xfull, 64 * a, row0);
       }
-      const float mu = warp_sum(s) / D;
-      float q = 0.f;
-#pragma unroll
-      for (int k = 0; k < PER; ++k)
-        if (lane + 32 * k < NV)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) q += (f[k][j] - mu) * (f[k][j] - mu);
-      const float rstd = rsqrtf(warp_sum(q) / D + eps);
-      if (lane == 0) {
-        mus[r] = mu;
-        rstds[r] = rstd;
-      }
-#pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        const int vi = lane + 32 * k;
-        if (vi >= NV) break;
-        const float4 ga = *reinterpret_cast<const float4*>(gamma + vi * 8);
-        const float4 gb = *reinterpret_cast<const float4*>(gamma + vi * 8 + 4);
-        const float4 ba = *reinterpret_cast<const float4*>(beta + vi * 8);
-        const float4 bb = *reinterpret_cast<const float4*>(beta + vi * 8 + 4);
-        const float gm[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
-        const float bt[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
-        float y[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) y[j] = (f[k][j] - mu) * rstd * gm[j] + bt[j];
-        v[k] = make_uint4(pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]),
-                          pack_bf16(y[6], y[7]));
-        if (r / rows == rank) *reinterpret_cast<uint4*>(xn_g + size_t(gr) * D + vi * 8) = v[k];
+      // chunk lc: W1 boxes 0 .. NB - 1 ([2][16][32] at d 32 i), W2 boxes NB,
+      // NB + 1 ([160][16] at d 0, 160)
+      for (int lc = 0; lc < nch; ++lc) {
+        const int s = lc % STAGES, c = chunk_of(lc) * NC;
+        wait_phase(empty + s, ((lc / STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, L::STAGE);
+        unsigned char* st = sm + L::ring + s * L::STAGE;
+        for (int i = 0; i < L::NB; ++i)
+          tma_load_3d(st + i * L::BLOCK, &w1map, full + s, 32 * i, c, 0);
+        for (int i = 0; i < 2; ++i)
+          tma_load_2d(st + L::W1_BYTES + i * (D / 2) * 32, &w2map, full + s, c, i * (D / 2));
       }
     }
+    cluster.sync();  // the consumers' partials written
+    cluster.sync();  // every remote read done
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, w4 = warp % 4, g8 = (lane >> 2) + 16 * w4, t4 = lane & 3;
+
+  // LayerNorm of the tile in place: warp w takes rows 8w .. 8w + 7, four at a
+  // time, 8 lanes a row, lane l the 8-column chunk l % 8 of every atom; fp32
+  // statistics in two passes (the mean, then the centred squares). Rows past M
+  // arrive as zeros and stay zero.
+  wait_phase(xfull, 0);
 #pragma unroll
-    for (int k = 0; k < PER; ++k) {
-      const int vi = lane + 32 * k;
-      if (vi < NV)
-        *reinterpret_cast<uint4*>(xns + (vi >> 2) * SW64_BLOCK + swz_chunk<64>(r, vi & 3)) = v[k];
+  for (int q = 0; q < 2; ++q) {
+    const int r = 8 * warp + 4 * q + (lane >> 3), c8 = lane & 7;
+    float f[L::ATOMS][8];
+    float s = 0.f;
+#pragma unroll
+    for (int a = 0; a < L::ATOMS; ++a) {
+      unpack8(*reinterpret_cast<const uint4*>(xs + a * BM * 128 + sw128(r, 8 * c8)), f[a]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) s += f[a][e];
+    }
+    s += __shfl_xor_sync(0xffffffffu, s, 1);
+    s += __shfl_xor_sync(0xffffffffu, s, 2);
+    s += __shfl_xor_sync(0xffffffffu, s, 4);
+    const float mu = s / D;
+    float v = 0.f;
+#pragma unroll
+    for (int a = 0; a < L::ATOMS; ++a)
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v += (f[a][e] - mu) * (f[a][e] - mu);
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    v += __shfl_xor_sync(0xffffffffu, v, 2);
+    v += __shfl_xor_sync(0xffffffffu, v, 4);
+    const float rs = rsqrtf(v / D + eps);
+    const bool in = row0 + r < M;
+    if (c8 == 0) {
+      mus[r] = mu;
+      rstds[r] = rs;
+    }
+#pragma unroll
+    for (int a = 0; a < L::ATOMS; ++a) {
+      const int col = 64 * a + 8 * c8;
+      const float4 ga = *reinterpret_cast<const float4*>(gamma + col);
+      const float4 gb = *reinterpret_cast<const float4*>(gamma + col + 4);
+      const float4 ba = *reinterpret_cast<const float4*>(beta + col);
+      const float4 bb = *reinterpret_cast<const float4*>(beta + col + 4);
+      const float gm[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+      const float bt[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+      float y[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) y[e] = in ? (f[a][e] - mu) * rs * gm[e] + bt[e] : 0.f;
+      *reinterpret_cast<uint4*>(xs + a * BM * 128 + sw128(r, 8 * c8)) = make_uint4(
+          pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]), pack_bf16(y[6], y[7]));
     }
   }
+  fence_proxy_async();  // xn's stores, visible to wgmma and the TMA store
+  bar_sync(CONS_BAR, CONS);
+  if (tid == 0 && split == 0) {  // xn for kernel B; rows past M clipped
+    for (int a = 0; a < L::ATOMS; ++a) tma_store_2d(&xnmap, xs + a * BM * 128, 64 * a, row0);
+    bulk_commit();
+  }
 
-  // One chunk an iteration. acc1 ([a | u] of the warpgroup's 16 columns) and
-  // dact are overwritten by each chunk's first product and read after
-  // wait_group 0; acc3 (dxn, this warpgroup's d/2 columns) is overwritten by the
-  // first chunk's first product and stays in flight only from its issue to the
-  // next iteration's wait. No other instruction writes an accumulator while a
-  // product is in flight (ptxas would then serialize the products, C7515).
-  float acc1[16], dact[8], acc3[N3 / 2];
-  float db1a[2][2], db1u[2][2];
-  for (int lc = 0; lc < nch; ++lc) {
-    const int buf = lc & 1;
-    wgmma_wait<0>();  // this warpgroup's dxn of the last chunk
-    __syncthreads();  // everyone's: the other buffer, dhc, act and db1 are free
-    if (lc + 1 < nch) load_chunk(lc + 1, buf ^ 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this thread's copies of chunk lc (and dy) have landed
-    fence_proxy_async(); // and, with xn, dhc and act's writes, are visible to wgmma
-    __syncthreads();
-
-    const unsigned char* w1s = sm + L::w1 + buf * L::W1_SLOT;
-    const unsigned char* w2s = sm + L::w2 + buf * L::W2_SLOT + wg * L::W2_HALF;
-    wgmma_fence();
+  // The CTA's chunks in pairs (2j, 2j + 1): warpgroup wg takes chunk 2j + wg's
+  // [a | u] (its 16 columns), dact, GEGLU and dhc, then both add the pair's
+  // dhc . W1-rows into their half of dxn's columns, d/2 each. acc1 and dact
+  // are overwritten by each chunk's first product and read after wait_group 0;
+  // dxn accumulates over the pairs and is in flight from its issue to the
+  // next pair's wait. No other instruction writes an accumulator while a
+  // product is in flight.
+  unsigned char* acts = sm + L::act + wg * BM * 32;
+  float* db1s = reinterpret_cast<float*>(sm + L::db1) + wg * 4 * 32;
+  const int wtid = tid % 128;
+  const int pairs = (nch + 1) / 2;
+  float acc1[16], dact[8], dxn[D / 4];
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) {
-      const int off = (ks >> 1) * SW64_BLOCK + (ks & 1) * 32;
-      wgmma_ss<0, 0>(acc1, make_desc(xns + off, 16, 512, SW64),
-                     make_desc(w1s + off + wg * 32 * 64, 16, 512, SW64), ks > 0);
-      wgmma_ss<0, 1>(dact, make_desc(dys + off, 16, 512, SW64),
-                     make_desc(w2s + ks * 16 * 32, 16, 256, SW32), ks > 0);
+  for (int i = 0; i < D / 4; ++i) dxn[i] = 0.f;
+  // the stages of pair j, released by each warp of both warpgroups once both
+  // warpgroups' products of the pair are done
+  auto release_pair = [&](int j) {
+    for (int c = 0; c < 2; ++c)
+      if (2 * j + c < nch) release(empty + (2 * j + c) % STAGES, lane);
+  };
+  for (int j = 0; j < pairs; ++j) {
+    const int lc = 2 * j + wg;
+    const bool mine = lc < nch;
+    const unsigned char* w1s = sm + L::ring + (lc % STAGES) * L::STAGE;
+    if (mine) {
+      const unsigned char* w2s = w1s + L::W1_BYTES;
+      wait_phase(full + lc % STAGES, (lc / STAGES) & 1);
+      __syncwarp();
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const int off = (ks >> 2) * BM * 128 + (ks & 3) * 32;
+        wgmma_ss<0, 0>(acc1, make_desc_sw128(xs + off),
+                       make_desc(w1s + (ks >> 1) * L::BLOCK + (ks & 1) * 32, 16, 512, SW64),
+                       ks > 0);
+        wgmma_ss<0, 1>(dact, make_desc_sw128(dys + off),
+                       make_desc(w2s + ks * 16 * 32, 16, 256, SW32), ks > 0);
+      }
+      wgmma_commit();
     }
-    wgmma_commit();
-    wgmma_wait<0>();
+    wgmma_wait<0>();  // and the last pair's dxn: its stages are free
     pin(acc1);
     pin(dact);
+    pin(dxn);
+    if (j > 0) release_pair(j - 1);
+    bar_sync(WG_BAR + wg, 128);  // every warp's stores of the last pair's act done
 
     // GEGLU and its derivative: thread (g8, t4) holds a (acc1 j = 0, 1), u
-    // (j = 2, 3) and dact (j = 0, 1) of columns 8j + 2 t4, + 1 of the
-    // warpgroup's 16, rows g8 and g8 + 8
-    const int cb = (c0 + lc) * NC + 16 * wg;
+    // (j = 2, 3) and dact (j = 0, 1) of columns 8q + 2 t4, + 1 of the chunk's
+    // 16, rows g8 and g8 + 8
+    unsigned char* dhcs = sm + L::dhc + ((j & 1) * 2 + wg) * BM * 64;
+    const int cb = chunk_of(lc) * NC;
+    if (mine) {
+      float db1a[2][2], db1u[2][2];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int col = 8 * j + 2 * t4;
-      const float2 ba = *reinterpret_cast<const float2*>(b1 + cb + col);
-      const float2 bu = *reinterpret_cast<const float2*>(b1 + inner + cb + col);
+      for (int q = 0; q < 2; ++q) {
+        const int col = 8 * q + 2 * t4;
+        const float2 ba = *reinterpret_cast<const float2*>(b1 + cb + col);
+        const float2 bu = *reinterpret_cast<const float2*>(b1 + inner + cb + col);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float act2[2], da2[2], du2[2];
+        for (int h = 0; h < 2; ++h) {
+          float act2[2], da2[2], du2[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float a = acc1[4 * q + 2 * h + e] + (e ? ba.y : ba.x);
+            const float u = acc1[4 * (q + 2) + 2 * h + e] + (e ? bu.y : bu.x);
+            const float t = tanhf(GELU_C * (u + GELU_K * u * u * u));
+            const float gu = 0.5f * u * (1.f + t);
+            const float dgu =
+                0.5f * (1.f + t) + 0.5f * u * (1.f - t * t) * GELU_C * (1.f + 3.f * GELU_K * u * u);
+            const float dd = dact[4 * q + 2 * h + e];
+            act2[e] = a * gu;
+            da2[e] = dd * gu;
+            du2[e] = dd * a * dgu;
+            db1a[q][e] = (h ? db1a[q][e] : 0.f) + da2[e];
+            db1u[q][e] = (h ? db1u[q][e] : 0.f) + du2[e];
+          }
+          const int r = g8 + 8 * h;
+          *reinterpret_cast<uint32_t*>(acts + r * 32 + col * 2) = pack_bf16(act2[0], act2[1]);
+          *reinterpret_cast<uint32_t*>(dhcs + swz_chunk<64>(r, col >> 3) + (col & 7) * 2) =
+              pack_bf16(da2[0], da2[1]);
+          *reinterpret_cast<uint32_t*>(dhcs + swz_chunk<64>(r, 2 + (col >> 3)) + (col & 7) * 2) =
+              pack_bf16(du2[0], du2[1]);
+        }
+      }
+      // db1: the column sums of dh over the warp's 16 rows (the 8 lanes of a
+      // column, in a fixed butterfly), then over the 4 warps in order below
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float a = acc1[4 * j + 2 * h + e] + (e ? ba.y : ba.x);
-          const float u = acc1[4 * (j + 2) + 2 * h + e] + (e ? bu.y : bu.x);
-          const float t = tanhf(GELU_C * (u + GELU_K * u * u * u));
-          const float gu = 0.5f * u * (1.f + t);
-          const float dgu =
-              0.5f * (1.f + t) + 0.5f * u * (1.f - t * t) * GELU_C * (1.f + 3.f * GELU_K * u * u);
-          const float dd = dact[4 * j + 2 * h + e];
-          act2[e] = a * gu;
-          da2[e] = dd * gu;
-          du2[e] = dd * a * dgu;
-          db1a[j][e] = (h ? db1a[j][e] : 0.f) + da2[e];
-          db1u[j][e] = (h ? db1u[j][e] : 0.f) + du2[e];
+          float sa = db1a[q][e], su = db1u[q][e];
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) {
+            sa += __shfl_xor_sync(0xffffffffu, sa, o);
+            su += __shfl_xor_sync(0xffffffffu, su, o);
+          }
+          if (lane < 4) {
+            db1s[w4 * 32 + 8 * q + 2 * t4 + e] = sa;
+            db1s[w4 * 32 + 16 + 8 * q + 2 * t4 + e] = su;
+          }
         }
-        const int r = g8 + 8 * h;
-        *reinterpret_cast<uint32_t*>(acts + swz_chunk<64>(r, wg * 2 + j) + t4 * 4) =
-            pack_bf16(act2[0], act2[1]);
-        bf16* dr = reinterpret_cast<bf16*>(dhcs);
-        *reinterpret_cast<uint32_t*>(dr + swz(r, 32 * wg + col)) = pack_bf16(da2[0], da2[1]);
-        *reinterpret_cast<uint32_t*>(dr + swz(r, 32 * wg + 16 + col)) = pack_bf16(du2[0], du2[1]);
-      }
     }
-    // db1: the column sums of dh over the warp's 16 rows (the 8 lanes of a
-    // column, in a fixed butterfly), then over the 4 warps in order below
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float sa = db1a[j][e], su = db1u[j][e];
-#pragma unroll
-        for (int o = 4; o < 32; o <<= 1) {
-          sa += __shfl_xor_sync(0xffffffffu, sa, o);
-          su += __shfl_xor_sync(0xffffffffu, su, o);
-        }
-        if (lane < 4) {
-          float* d = db1s + (wg * 4 + w4) * NC;
-          d[8 * j + 2 * t4 + e] = sa;
-          d[16 + 8 * j + 2 * t4 + e] = su;
-        }
-      }
-    fence_proxy_async();  // dhc, read by the dxn product
-    __syncthreads();
+    fence_proxy_async();  // dhc, read by both warpgroups' dxn products
+    bar_sync(CONS_BAR, CONS);  // the pair's dhc complete
 
-    // dxn[:, this warpgroup's d/2 columns] += dhc . W1-rows: K = the 64 slot
-    // rows, W1's rows read MN-major (atoms of 32 columns, one block apart)
+    // dxn[:, wg d/2 .. (wg + 1) d/2) += dhc_c . W1-rows_c over the pair's chunks:
+    // K = a chunk's 32 rows, W1's rows read MN-major (blocks of 32 columns)
     wgmma_fence();
+    for (int c = 0; c < 2; ++c) {
+      const int lc2 = 2 * j + c;
+      if (lc2 >= nch) break;
+      wait_phase(full + lc2 % STAGES, (lc2 / STAGES) & 1);  // landed: read here too
+      __syncwarp();
+      const unsigned char* ws = sm + L::ring + (lc2 % STAGES) * L::STAGE + wg * (L::NB / 2) * L::BLOCK;
+      const unsigned char* dh = sm + L::dhc + ((j & 1) * 2 + c) * BM * 64;
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wgmma_ss<0, 1>(acc3, make_desc_sw128(dhcs + ks * 32),
-                     make_desc(w1s + (NB / 2) * wg * SW64_BLOCK + ks * 16 * 64, SW64_BLOCK, 512,
-                               SW64),
-                     lc > 0 || ks > 0);
+      for (int ks = 0; ks < 2; ++ks)
+        wgmma_ss<0, 1>(dxn, make_desc(dh + ks * 32, 16, 512, SW64),
+                       make_desc(ws + ks * 16 * 64, L::BLOCK, 512, SW64), 1);
+    }
     wgmma_commit();
 
     // behind it: act and dhc to device memory, 16 bytes a store, and db1
-    {
-      const int r = tid / 4, j = tid % 4, gr = row0 + r;
-      if (gr < M)
-        *reinterpret_cast<uint4*>(act_g + size_t(gr) * inner + (c0 + lc) * NC + 8 * j) =
-            *reinterpret_cast<const uint4*>(acts + swz_chunk<64>(r, j));
-    }
-    for (int i = tid; i < BM * 8; i += THREADS) {
-      const int r = i / 8, q = i % 8, gr = row0 + r;
-      if (gr >= M) continue;
-      const int col = ((q & 2) ? inner : 0) + (c0 + lc) * NC + 16 * (q >> 2) + 8 * (q & 1);
-      *reinterpret_cast<uint4*>(dhc_g + size_t(gr) * two_inner + col) =
-          *reinterpret_cast<const uint4*>(dhcs + swz_chunk<128>(r, q));
-    }
-    if (tid < 2 * NC) {
-      const int h = tid / NC, k = tid % NC;
-      const float* s = db1s + h * 4 * NC + k;
-      const int col = ((k & 16) ? inner : 0) + (c0 + lc) * NC + 16 * h + (k & 15);
-      part2[size_t(tile) * two_inner + col] = s[0] + s[NC] + s[2 * NC] + s[3 * NC];
+    if (mine) {
+      {
+        const int r = wtid / 2, q = wtid % 2, gr = row0 + r;
+        if (gr < M)
+          *reinterpret_cast<uint4*>(act_g + size_t(gr) * inner + cb + 8 * q) =
+              *reinterpret_cast<const uint4*>(acts + r * 32 + q * 16);
+      }
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int i = wtid + 128 * k, r = i / 4, q = i % 4, gr = row0 + r;
+        if (gr < M)
+          *reinterpret_cast<uint4*>(dhc_g + size_t(gr) * two_inner + ((q & 2) ? inner : 0) + cb +
+                                    8 * (q & 1)) =
+              *reinterpret_cast<const uint4*>(dhcs + swz_chunk<64>(r, q));
+      }
+      if (wtid < 32) {
+        const float* sp = db1s + wtid;
+        const int col = ((wtid & 16) ? inner : 0) + cb + (wtid & 15);
+        part2[size_t(tile) * two_inner + col] = sp[0] + sp[32] + sp[64] + sp[96];
+      }
     }
   }
   wgmma_wait<0>();
-  pin(acc3);
-  cp_async_wait<0>();
-  __syncthreads();  // every product done: dxn goes over the weight buffers
-
+  pin(dxn);
+  if (pairs > 0) release_pair(pairs - 1);
+  // every product of both warpgroups done (the ring free: every chunk landed
+  // and was read): each warpgroup's half of dxn over the ring
+  bar_sync(CONS_BAR, CONS);
 #pragma unroll
-  for (int j = 0; j < N3 / 8; ++j) {
-    const int col = wg * N3 + 8 * j + 2 * t4;
-    *reinterpret_cast<float2*>(red + g8 * L::LDR + col) = make_float2(acc3[4 * j], acc3[4 * j + 1]);
+  for (int q = 0; q < D / 16; ++q) {
+    const int col = wg * (D / 2) + 8 * q + 2 * t4;
+    *reinterpret_cast<float2*>(red + g8 * L::LDR + col) = make_float2(dxn[4 * q], dxn[4 * q + 1]);
     *reinterpret_cast<float2*>(red + (g8 + 8) * L::LDR + col) =
-        make_float2(acc3[4 * j + 2], acc3[4 * j + 3]);
+        make_float2(dxn[4 * q + 2], dxn[4 * q + 3]);
   }
   cluster.sync();
 
   // The LayerNorm backward of this CTA's rows, one warp a row: dxn summed over
-  // the cluster's partials in rank order (kept in this CTA's own rows for the
+  // the tile's CL partials in rank order (kept in this CTA's own rows for the
   // column sums), then dx.
-  for (int r = r_lo + warp; r < r_lo + rows; r += THREADS / 32) {
+  for (int r = r_lo + warp; r < r_lo + rows; r += CONS / 32) {
     const int gr = row0 + r;
     if (gr >= M) continue;
     const float mu = mus[r], rstd = rstds[r];
@@ -409,8 +494,8 @@ __global__ void __launch_bounds__(THREADS, 1)
         dn[k][4] += hi.x; dn[k][5] += hi.y; dn[k][6] += hi.z; dn[k][7] += hi.w;
       }
       unpack8(*reinterpret_cast<const uint4*>(x + size_t(gr) * D + vi * 8), xh[k]);
-      unpack8(*reinterpret_cast<const uint4*>(dys + (vi >> 2) * SW64_BLOCK +
-                                              swz_chunk<64>(r, vi & 3)), dyv[k]);
+      unpack8(*reinterpret_cast<const uint4*>(dys + (vi >> 3) * BM * 128 + sw128(r, (vi & 7) * 8)),
+              dyv[k]);
       const float4 ga = *reinterpret_cast<const float4*>(gamma + vi * 8);
       const float4 gb = *reinterpret_cast<const float4*>(gamma + vi * 8 + 4);
       const float gm[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
@@ -448,17 +533,17 @@ __global__ void __launch_bounds__(THREADS, 1)
       *reinterpret_cast<float4*>(d + 4) = make_float4(dn[k][4], dn[k][5], dn[k][6], dn[k][7]);
     }
   }
-  __syncthreads();
+  bar_sync(CONS_BAR, CONS);
 
   // column partials over this CTA's rows, in row order
-  float* p1 = part1 + size_t(tile * cl + rank) * 3 * D;
-  for (int c = tid; c < D; c += THREADS) {
+  float* p1 = part1 + size_t(tile * cl + split) * 3 * D;
+  for (int c = tid; c < D; c += CONS) {
     float sg = 0.f, sb = 0.f, sy = 0.f;
     for (int r = r_lo; r < r_lo + rows && row0 + r < M; ++r) {
       const float dn = red[r * L::LDR + c];
       const float xh = (__bfloat162float(x[size_t(row0 + r) * D + c]) - mus[r]) * rstds[r];
-      const bf16 dyv = *reinterpret_cast<const bf16*>(
-          dys + (c >> 5) * SW64_BLOCK + swz_chunk<64>(r, (c >> 3) & 3) + (c & 7) * 2);
+      const bf16 dyv =
+          *reinterpret_cast<const bf16*>(dys + (c >> 6) * BM * 128 + sw128(r, c & 63));
       sg += dn * xh;
       sb += dn;
       sy += __bfloat162float(dyv);
@@ -467,6 +552,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     p1[D + c] = sb;
     p1[2 * D + c] = sy;
   }
+  if (tid == 0 && split == 0) bulk_wait<0>();  // xn's store has read the tile
   cluster.sync();  // every remote read done before any CTA of the cluster leaves
 }
 
@@ -475,102 +561,101 @@ __global__ void __launch_bounds__(THREADS, 1)
 //   dW2^T [inner, D] = X^T . Y, X = act [M, inner], Y = dy [M, D], stored as dW2 [D, inner];
 // grid (tiles * SPLIT), cluster (SPLIT, 1, 1): CTA r of a cluster walks the r-th
 // of SPLIT equal runs of M's 64-row steps.
-constexpr int SPLIT = 2;
+constexpr int SPLIT = 4;
 constexpr int WR = 128, WN = 160, WK = 64;  // tile rows, columns; M rows a step
-constexpr int W_STAGES = 4, W_AHEAD = 2;
-constexpr size_t WX_BYTES = size_t(WK) * WR * 2;  // two [64 x 64] atoms of X^T
-constexpr size_t WY_BYTES = size_t(WK) * 192 * 2; // three of Y (the last one half used)
-constexpr size_t W_STAGE = WX_BYTES + WY_BYTES;
+constexpr int W_STAGES = 4;
+constexpr int WX_BYTES = WK * WR * 2;   // two [64 x 64] atoms of X^T
+constexpr int WY_BYTES = WK * 192 * 2;  // three of Y (the last one half used)
+constexpr int W_STAGE = WX_BYTES + WY_BYTES;
 constexpr int W_LDR = WN + 8;
-constexpr size_t W_SMEM = W_STAGES * W_STAGE + 1024;
-static_assert(size_t(WR) * W_LDR * 4 <= W_STAGES * W_STAGE, "the partial fits over the ring");
+constexpr int W_SMEM = W_STAGES * W_STAGE + 8 * 2 * W_STAGES + 1024;
+static_assert(WR * W_LDR * 4 <= W_STAGES * W_STAGE, "the partial fits over the ring");
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
-    ffn_bwd_weights_kernel(const bf16* __restrict__ xn_g, const bf16* __restrict__ dhc_g,
-                           const bf16* __restrict__ act_g, const bf16* __restrict__ dy,
-                           float* __restrict__ dw1, float* __restrict__ dw2, int M, int inner) {
+    ffn_bwd_weights_kernel(const __grid_constant__ CUtensorMap dhcmap,
+                           const __grid_constant__ CUtensorMap xnmap,
+                           const __grid_constant__ CUtensorMap actmap,
+                           const __grid_constant__ CUtensorMap dymap, float* __restrict__ dw1,
+                           float* __restrict__ dw2, int M, int inner) {
   static_assert(D == 2 * WN, "two column tiles");
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   float* red = reinterpret_cast<float*>(sm);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + W_STAGES * W_STAGE);
+  uint64_t* empty = full + W_STAGES;
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wg = warp / 4, g8 = (lane >> 2) + 16 * (warp % 4), t4 = lane & 3;
+  const int tid = threadIdx.x;
   const int two_inner = 2 * inner;
   const int t1 = 2 * ((two_inner + WR - 1) / WR);
   int t = blockIdx.x / SPLIT;
   const bool first = t < t1;
   if (!first) t -= t1;
   const int r0 = (t / 2) * WR, n0 = (t % 2) * WN;
-  const bf16* X = first ? dhc_g : act_g;
-  const bf16* Y = first ? xn_g : dy;
   const int R = first ? two_inner : inner;  // X's columns: the output's rows
   const int steps = (M + WK - 1) / WK;
   const int s0 = rank * steps / SPLIT, s1 = (rank + 1) * steps / SPLIT;
-  const int n = s1 > s0 ? s1 - s0 : 1;  // an empty run takes one step of zeros
+  const int n = s1 - s0;
 
-  // step i into stage slot: X rows [m0, m0 + 64) x columns [r0, r0 + 128) and
-  // Y rows x columns [n0, n0 + 160), each as 64-column atoms of the 128-byte
-  // swizzle, rows along M; rows past M or past the run, and X columns past R,
-  // are zero. A warp fills 4 rows x 128 bytes of an atom a step.
-  auto load = [&](int i) {
-    unsigned char* xs = sm + (i % W_STAGES) * W_STAGE;
-    unsigned char* ys = xs + WX_BYTES;
-    const int m0 = (s0 + i) * WK;
-    const bool run = s0 + i < s1;
-    for (int u = warp; u < 2 * 16; u += THREADS / 32) {
-      const int atom = u / 16, r = (u % 16) * 4 + lane / 8, j = lane % 8;
-      const int m = m0 + r, col = r0 + atom * 64 + j * 8;
-      const bool ok = run && m < M && col < R;
-      cp_async16_zfill(xs + atom * 8192 + swz_chunk<128>(r, j),
-                       X + (ok ? size_t(m) * R + col : 0), ok);
+  if (tid == 0) {
+    for (int i = 0; i < W_STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 8);  // each consumer warp
     }
-    for (int u = warp; u < 2 * 16 + 8; u += THREADS / 32) {
-      int atom, r, j;
-      if (u < 32) {
-        atom = u / 16, r = (u % 16) * 4 + lane / 8, j = lane % 8;
-      } else {
-        atom = 2, r = (u - 32) * 8 + lane / 4, j = lane % 4;
-      }
-      const int m = m0 + r;
-      const bool ok = run && m < M;
-      cp_async16_zfill(ys + atom * 8192 + swz_chunk<128>(r, j),
-                       Y + (ok ? size_t(m) * D + n0 + atom * 64 + j * 8 : 0), ok);
-    }
-  };
-
-#pragma unroll
-  for (int s = 0; s < W_AHEAD; ++s) {
-    if (s < n) load(s);
-    cp_async_commit();
+    fence_mbar_init();
   }
-  // acc is overwritten by the first product (every CTA takes at least one
-  // step) and read after wait_group 0
+  __syncthreads();
+
+  if (tid >= CONS) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == CONS) {
+      const CUtensorMap* xm = first ? &dhcmap : &actmap;
+      const CUtensorMap* ym = first ? &xnmap : &dymap;
+      for (int i = 0; i < n; ++i) {
+        const int s = i % W_STAGES, m0 = (s0 + i) * WK;
+        wait_phase(empty + s, ((i / W_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, W_STAGE);
+        unsigned char* xs = sm + s * W_STAGE;
+        for (int a = 0; a < 2; ++a) tma_load_2d(xs + a * 8192, xm, full + s, r0 + 64 * a, m0);
+        for (int a = 0; a < 3; ++a)
+          tma_load_2d(xs + WX_BYTES + a * 8192, ym, full + s, n0 + 64 * a, m0);
+      }
+    }
+    cluster.sync();
+    cluster.sync();
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, g8 = (lane >> 2) + 16 * (warp % 4), t4 = lane & 3;
   float acc[WN / 2];
+#pragma unroll
+  for (int i = 0; i < WN / 2; ++i) acc[i] = 0.f;
   for (int i = 0; i < n; ++i) {
-    cp_async_wait<W_AHEAD - 1>();
-    fence_proxy_async();
-    __syncthreads();  // step i landed for all; every product of step i - 2 done
-    if (i + W_AHEAD < n) load(i + W_AHEAD);
-    cp_async_commit();
-    const unsigned char* xs = sm + (i % W_STAGES) * W_STAGE;
+    const int s = i % W_STAGES;
+    wait_phase(full + s, (i / W_STAGES) & 1);
+    __syncwarp();
+    const unsigned char* xs = sm + s * W_STAGE;
     const unsigned char* ys = xs + WX_BYTES;
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < WK / 16; ++ks)
       wgmma_ss<1, 1>(acc, make_desc(xs + wg * 8192 + ks * 2048, 8192, 1024, SW128),
-                     make_desc(ys + ks * 2048, 8192, 1024, SW128), i > 0 || ks > 0);
+                     make_desc(ys + ks * 2048, 8192, 1024, SW128), 1);
     wgmma_commit();
     wgmma_wait<1>();
+    if (i > 0) {  // step i - 1's products are done: its stage is free
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + (i - 1) % W_STAGES);
+      __syncwarp();
+    }
   }
   wgmma_wait<0>();
   pin(acc);
-  cp_async_wait<0>();
-  __syncthreads();  // every product done: the partial goes over the ring
+  bar_sync(CONS_BAR, CONS);  // every product done, every load landed: the partial goes over the ring
 
   // warpgroup wg holds rows [64 wg, 64 wg + 64) of the tile
 #pragma unroll
@@ -586,7 +671,7 @@ __global__ void __launch_bounds__(THREADS, 1)
   constexpr int ROWS = WR / SPLIT;
   const int lo = rank * ROWS;
   if (first) {
-    for (int i = tid; i < ROWS * (WN / 4); i += THREADS) {
+    for (int i = tid; i < ROWS * (WN / 4); i += CONS) {
       const int r = lo + i / (WN / 4), c = (i % (WN / 4)) * 4;
       if (r0 + r >= R) continue;
       float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -599,7 +684,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     }
   } else {
     // dW2 [D, inner]: neighbouring threads take neighbouring rows of the tile
-    for (int i = tid; i < ROWS * WN; i += THREADS) {
+    for (int i = tid; i < ROWS * WN; i += CONS) {
       const int r = lo + i % ROWS, c = i / ROWS;
       if (r0 + r >= R) continue;
       float s = 0.f;
@@ -613,26 +698,28 @@ __global__ void __launch_bounds__(THREADS, 1)
 // Kernel C: column j of [dgamma | dbeta | db2] (j < 3 D, over part1's n1 rows)
 // or of db1 (over part2's n2 rows); the 8 warps take rows w, w + 8, ..., and
 // their 8 sums are added in warp order.
-__global__ void __launch_bounds__(THREADS)
+constexpr int C_THREADS = 256;
+
+__global__ void __launch_bounds__(C_THREADS)
     ffn_bwd_reduce_kernel(const float* __restrict__ part1, int n1, const float* __restrict__ part2,
                           int n2, int d, int inner, float* __restrict__ dgamma,
                           float* __restrict__ dbeta, float* __restrict__ db2,
                           float* __restrict__ db1) {
-  __shared__ float sums[THREADS / 32][32];
+  __shared__ float sums[C_THREADS / 32][32];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int j = blockIdx.x * 32 + lane, w1 = 3 * d, width = w1 + 2 * inner;
   float s = 0.f;
   if (j < w1) {
-    for (int r = warp; r < n1; r += THREADS / 32) s += part1[size_t(r) * w1 + j];
+    for (int r = warp; r < n1; r += C_THREADS / 32) s += part1[size_t(r) * w1 + j];
   } else if (j < width) {
-    for (int r = warp; r < n2; r += THREADS / 32) s += part2[size_t(r) * 2 * inner + j - w1];
+    for (int r = warp; r < n2; r += C_THREADS / 32) s += part2[size_t(r) * 2 * inner + j - w1];
   }
   sums[warp][lane] = s;
   __syncthreads();
   if (warp || j >= width) return;
   s = 0.f;
 #pragma unroll
-  for (int w = 0; w < THREADS / 32; ++w) s += sums[w][lane];
+  for (int w = 0; w < C_THREADS / 32; ++w) s += sums[w][lane];
   if (j < d) dgamma[j] = s;
   else if (j < 2 * d) dbeta[j - d] = s;
   else if (j < 3 * d) db2[j - 2 * d] = s;
@@ -673,7 +760,9 @@ cudaError_t launch_cluster(K kernel, int grid, int cl, size_t smem, cudaStream_t
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-int tiles_of(int m) { return (m + BM - 1) / BM; }
+int weight_tiles(int inner) {
+  return 2 * ((2 * inner + WR - 1) / WR) + 2 * ((inner + WR - 1) / WR);
+}
 
 template <int D>
 cudaError_t launch_all(const void* x, const void* dy, const void* gamma, const void* beta,
@@ -687,25 +776,35 @@ cudaError_t launch_all(const void* x, const void* dy, const void* gamma, const v
   if (e != cudaSuccess) return e;
   e = raise_smem(ffn_bwd_weights_kernel<D>, W_SMEM, raised_b);
   if (e != cudaSuccess) return e;
-  const auto bf = [](const void* p) { return static_cast<const bf16*>(p); };
-  const auto f32 = [](const void* p) { return static_cast<const float*>(p); };
-  const int tiles = tiles_of(M), cl = cluster_size(tiles, inner / NC);
+  const long long m = M, d = D, in = inner;
+  CUtensorMap xmap, dymap, w1map, w2map, xnmap, dhcmap, actmap;
+  if (!encode(&xmap, map_key(x, 2, {d, m}, {2 * d}, {64, BM})) ||
+      !encode(&dymap, map_key(dy, 2, {d, m}, {2 * d}, {64, BM})) ||
+      !encode(&w1map, map_key(w1, 3, {d, in, 2}, {2 * d, 2 * d * in}, {32, NC, 2},
+                              CU_TENSOR_MAP_SWIZZLE_64B)) ||
+      !encode(&w2map, map_key(w2, 2, {in, d}, {2 * in}, {NC, D / 2}, CU_TENSOR_MAP_SWIZZLE_32B)) ||
+      !encode(&xnmap, map_key(xn, 2, {d, m}, {2 * d}, {64, BM})) ||
+      !encode(&dhcmap, map_key(dhc, 2, {2 * in, m}, {4 * in}, {64, WK})) ||
+      !encode(&actmap, map_key(act, 2, {in, m}, {2 * in}, {64, WK})))
+    return cudaErrorInvalidValue;
+  const RowsPlan p = rows_plan(M, inner);
   float* part1 = static_cast<float*>(part);
-  float* part2 = part1 + size_t(tiles) * cl * 3 * D;
-  e = launch_cluster(ffn_bwd_rows_kernel<D>, tiles * cl, cl, smem_a, s, bf(x), bf(dy), f32(gamma),
-                     f32(beta), bf(w1), f32(b1), bf(w2), static_cast<bf16*>(dx),
-                     static_cast<bf16*>(xn), static_cast<bf16*>(dhc), static_cast<bf16*>(act),
-                     part1, part2, M, inner, eps);
+  float* part2 = part1 + size_t(p.ctas()) * 3 * D;
+  const auto f32 = [](const void* q) { return static_cast<const float*>(q); };
+  e = launch_cluster(ffn_bwd_rows_kernel<D>, p.ctas(), p.cl, smem_a, s, xmap, dymap,
+                     w1map, w2map, xnmap, static_cast<const bf16*>(x), f32(gamma), f32(beta),
+                     f32(b1), static_cast<bf16*>(dx), static_cast<bf16*>(dhc),
+                     static_cast<bf16*>(act), part1, part2, M, inner, p.cl, eps);
   if (e != cudaSuccess) return e;
-  const int wtiles = 2 * ((2 * inner + WR - 1) / WR) + 2 * ((inner + WR - 1) / WR);
-  e = launch_cluster(ffn_bwd_weights_kernel<D>, wtiles * SPLIT, SPLIT, W_SMEM, s, bf(xn),
-                     bf(dhc), bf(act), bf(dy), static_cast<float*>(dw1), static_cast<float*>(dw2),
-                     M, inner);
+  e = launch_cluster(ffn_bwd_weights_kernel<D>, weight_tiles(inner) * SPLIT, SPLIT, W_SMEM, s,
+                     dhcmap, xnmap, actmap, dymap, static_cast<float*>(dw1),
+                     static_cast<float*>(dw2), M, inner);
   if (e != cudaSuccess) return e;
   const int width = 3 * D + 2 * inner;
-  ffn_bwd_reduce_kernel<<<(width + 31) / 32, THREADS, 0, s>>>(
-      part1, tiles * cl, part2, tiles, D, inner, static_cast<float*>(dgamma),
-      static_cast<float*>(dbeta), static_cast<float*>(db2), static_cast<float*>(db1));
+  ffn_bwd_reduce_kernel<<<(width + 31) / 32, C_THREADS, 0, s>>>(
+      part1, p.ctas(), part2, p.tiles, D, inner,
+      static_cast<float*>(dgamma), static_cast<float*>(dbeta), static_cast<float*>(db2),
+      static_cast<float*>(db1));
   return cudaGetLastError();
 }
 
@@ -716,9 +815,17 @@ extern "C" {
 // The feature width the backward kernels take.
 int wd_ln_geglu_ffn_bwd_d() { return D_TAKEN; }
 
-// The cluster size of kernel A (CTAs per 64-row tile) at M rows.
-int wd_ln_geglu_ffn_bwd_cluster(int m, int inner) {
-  return m > 0 && inner >= 2 * NC ? cluster_size(tiles_of(m), inner / NC) : 0;
+// The plan at M rows into out[0..6]: the row kernel's rows a tile, ring stages,
+// CTAs and cluster size (CTAs sharing a tile); the weight kernel's CTAs,
+// cluster size (M split) and ring stages. Returns 0, or cudaErrorInvalidValue
+// for M < 1 or an inner the kernels do not take.
+int wd_ln_geglu_ffn_bwd_plan(int m, int inner, int* out) {
+  if (m < 1 || inner <= 0 || inner % 64) return cudaErrorInvalidValue;
+  const RowsPlan p = rows_plan(m, inner);
+  const int v[7] = {BM, STAGES, p.ctas(), p.cl, weight_tiles(inner) * SPLIT, SPLIT,
+                    W_STAGES};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
 }
 
 // The dynamic shared memory of a CTA of the row kernel (0) or the
@@ -730,16 +837,17 @@ int wd_ln_geglu_ffn_bwd_smem(int which) {
 // fp32 elements of the partial-sum scratch at M rows.
 long long wd_ln_geglu_ffn_bwd_part_floats(int m, int d, int inner) {
   if (m <= 0) return 0;
-  const long long tiles = tiles_of(m);
-  return tiles * wd_ln_geglu_ffn_bwd_cluster(m, inner) * 3 * d + tiles * 2 * inner;
+  const RowsPlan p = rows_plan(m, inner);
+  return (long long)p.ctas() * 3 * d + (long long)p.tiles * 2 * inner;
 }
 
 // Launches the three kernels on `stream`; returns the CUDA error code (0 on
 // success): a shape they do not take (d != 320, inner not a positive multiple
-// of 64), or a launch the device refuses. Weights in parameter layout (w1
-// [2 inner, d], w2 [d, inner]); dw1 [2 inner, d] and dw2 [d, inner] come back
-// so. Scratch: xn [M, d], dhc [M, 2 inner], act [M, inner] (bf16) and part
-// (wd_ln_geglu_ffn_bwd_part_floats fp32), all written before they are read.
+// of 64), a tensor map the driver refuses, or a launch the device refuses.
+// Weights in parameter layout (w1 [2 inner, d], w2 [d, inner]); dw1 [2 inner,
+// d] and dw2 [d, inner] come back so. Scratch: xn [M, d], dhc [M, 2 inner], act
+// [M, inner] (bf16) and part (wd_ln_geglu_ffn_bwd_part_floats fp32), all
+// written before they are read; every tensor 16-byte aligned.
 int wd_ln_geglu_ffn_bwd(const void* x, const void* dy, const void* gamma, const void* beta,
                         const void* w1, const void* b1, const void* w2, void* dx, void* dgamma,
                         void* dbeta, void* dw1, void* db1, void* dw2, void* db2, void* xn,

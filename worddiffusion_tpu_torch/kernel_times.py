@@ -43,7 +43,8 @@ SM those and the dynamic shared memory allow, the cluster sizes B.1 and
 B.5 launch with at each shape, B.5's kernel time at every route (cluster
 of 1, 2, 4, 8; x kept in shared memory or read twice) and, for the route
 it picks, stopped after its first pass and after its statistics
-(``wd_groupnorm_routed``), and B.4 against SDPA over Nk at B=128, Nq=256
+(``wd_groupnorm_routed``), B.6's kernel time at the UNet's sites on every
+plan (``wd_gn_silu_conv3x3_planned``), and B.4 against SDPA over Nk at B=128, Nq=256
 (``kernel_ms``), fitted as a fixed cost plus a cost per key chunk of the
 kernel's plan. For the attention kernel's instances it also reports the
 plan's shared memory, ring depths and the registers setmaxnreg gives the
@@ -70,18 +71,20 @@ HEADS, D_HEAD = 4, 80
 ATTN_SHAPES = ((128, 256, 811), (128, 64, 811), (128, 256, 256), (128, 64, 64),
                (128, 256, 42), (128, 64, 42), (16, 256, 42), (16, 16384, 42), (16, 4096, 42),
                (16, 16384, 16384))
-# (B, H, W, C): every B=128 B.6 site (UNet and VAE encoder), and the UNet's and
-# the decoder's widest at B=16
+# (B, H, W, C): every B=128 B.6 site (UNet and VAE encoder), the UNet's two
+# resolutions and the decoder's widest at B=16, and a pixel-space ResBlock's
 CONV_SHAPES = ((128, 8, 32, 320), (128, 4, 16, 320), (128, 16, 64, 512), (128, 8, 32, 512),
-               (128, 32, 128, 256), (128, 64, 256, 128), (16, 8, 32, 320), (16, 64, 256, 128))
+               (128, 32, 128, 256), (128, 64, 256, 128), (16, 8, 32, 320), (16, 4, 16, 320),
+               (16, 64, 256, 128), (16, 64, 256, 320))
 SWEEP_NK = (64, 256, 512, 811, 1024, 2048)
 D, INNER = 320, 1280
 # M of B.1: the UNet's regeneration sites (B=16 at 256 and 64 tokens), its
 # training site (B=128, 256 tokens) and a ragged M; of B.2: two of them
 FFN_M = (16 * 256, 16 * 64, 128 * 256, 1000)
 GEGLU_M = (16 * 256, 128 * 256)
-# M of B.3: the training step's sites (B=128 at 256 and 64 tokens) and a ragged M
-FFN_BWD_M = (128 * 256, 128 * 64, 1000)
+# M of B.3: the training step's sites (B=128 at 256 and 64 tokens), a ragged M
+# and pixel space's two sites (B=16 at 64 x 256 and 32 x 128 tokens)
+FFN_BWD_M = (128 * 256, 128 * 64, 1000, 16 * 64 * 256, 16 * 32 * 128)
 # (B, N) of B.8 (C=320, H=4, L=42): regeneration (B=16) and training (B=128)
 # at the full-resolution and middle blocks; B.7's layout at the first and third
 FOLD_BN = ((16, 256), (16, 64), (128, 256), (128, 64))
@@ -310,13 +313,17 @@ def worker(tree: str, deep: bool, kinds: tuple[str, ...] = KINDS) -> dict:
             groupnorm={str(s[:4]): groupnorm.route(torch.empty(s[0], s[1] * s[2], s[3],
                                                                device="meta"), s[4])
                        for s in GN_SHAPES})
-        if hasattr(ffn, "bwd_cluster_size"):
-            out["clusters"]["ffn_bwd"] = {m: ffn.bwd_cluster_size(m, INNER) for m in FFN_BWD_M}
+        if hasattr(ffn, "bwd_plan"):
+            out["clusters"]["ffn_bwd"] = {m: ffn.bwd_plan(m, INNER) for m in FFN_BWD_M}
+        if hasattr(gn_conv, "plan"):
+            out["clusters"]["conv"] = {str(s): gn_conv.plan(*s, 32) for s in CONV_SHAPES}
         if hasattr(fold_attention, "ctas"):
             out["clusters"]["fold_ctas"] = {
                 str(bn): fold_attention.ctas(bn[0], bn[1], FOLD_L) for bn in FOLD_BN}
         if "groupnorm" in kinds:
             out["gn_routes"] = gn_routes(groupnorm)
+        if "conv" in kinds and hasattr(gn_conv, "plan"):
+            out["conv_plans"] = conv_sweep(gn_conv)
         if "attention" in kinds:
             out["sweep"] = sweep(attention, scale)
     # last: after profiling a training step's thousands of kernels, traces of
@@ -364,6 +371,45 @@ def gn_routes(groupnorm) -> list[dict]:
                   for name, stop in (("pass1", 1), ("stats", 2), ("whole", 0))}
         rows.append(dict(shape=[b, h, w, c, g, silu], picked=[cl, kept], routes=times,
                          phases=phases, bound_ms=4 * x.numel() / 3.35e12 * 1e3))
+    return rows
+
+
+def conv_sweep(gn_conv) -> list[dict]:
+    """B.6's kernel time at the UNet's four sites (8 x 32 and 4 x 16, B=16 and
+    128, C=320) on every plan (pixels x channels a CTA, K split) that fits,
+    through ``wd_gn_silu_conv3x3_planned``; the plan the kernel picks is
+    marked."""
+    import ctypes
+
+    import torch
+
+    lib = gn_conv._lib()
+    fn = lib.wd_gn_silu_conv3x3_planned
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_float] + [i] * 3 + [p]
+    fn.restype = i
+    rows = []
+    for k, (b, h, w, c) in enumerate(s for s in CONV_SHAPES if s[1:] in ((8, 32, 320),
+                                                                         (4, 16, 320))):
+        x, sc, bi, wt, cb = conv_inputs(b, h, w, c, seed=700 + k)
+        wk = gn_conv.kernel_weight(wt)
+        out = torch.empty_like(x)
+        stats = torch.empty(b * 32 * 2, dtype=torch.float32, device=x.device)
+        picked = gn_conv.plan(b, h, w, c, 32)
+        times = {}
+        for px, bn, split in ((128, 160, 0), (128, 64, 0), (64, 160, 1), (64, 64, 1)):
+            def run():
+                err = fn(x.data_ptr(), sc.data_ptr(), bi.data_ptr(), wk.data_ptr(), cb.data_ptr(),
+                         out.data_ptr(), stats.data_ptr(), b, h, w, c, 32, 1e-6, px, bn, split,
+                         torch.cuda.current_stream().cuda_stream)
+                if err:
+                    raise RuntimeError(f"wd_gn_silu_conv3x3_planned failed ({err})")
+
+            # the statistics launch first where a sample's CTAs exceed a cluster
+            ctas = (-(-h // (px // (16 if w <= 16 else 32)))) * (-(-w // (16 if w <= 16 else 32)))
+            per_call = 1 if ctas * -(-c // bn) <= 8 else 2
+            times[f"{px}px x {bn}{' split' if split else ''}"] = kernel_ms(run, per_call=per_call)[0]
+        rows.append(dict(shape=[b, h, w, c], picked=picked, times=times))
     return rows
 
 
@@ -444,9 +490,15 @@ def resources(lib: str) -> list[dict]:
         elif "gn_cluster_kernel" in line:
             warps, name, dyn = 8, "gn_cluster", 112 * 1024
         elif "ffn_bwd_rows_kernel" in line:
-            warps, name, dyn = 8, "ffn_bwd_rows", cdll.wd_ln_geglu_ffn_bwd_smem(0)
+            warps, name, dyn = 12, "ffn_bwd_rows", cdll.wd_ln_geglu_ffn_bwd_smem(0)
         elif "ffn_bwd_weights_kernel" in line:
-            warps, name, dyn = 8, "ffn_bwd_weights", cdll.wd_ln_geglu_ffn_bwd_smem(1)
+            warps, name, dyn = 12, "ffn_bwd_weights", cdll.wd_ln_geglu_ffn_bwd_smem(1)
+        elif m := re.search(r"conv_kernelILi(\d+)ELb([01])E", line):
+            # B.6: two consumer warpgroups and the producer; the largest plan's
+            # shared memory of its instances (the UNet's and the VAE's sites)
+            warps, name = 12, f"conv<{m.group(1)}, {'K split' if m.group(2) == '1' else '128 px'}>"
+            dyn = max((p["smem"] for p in conv_plans() if p["channels"] == int(m.group(1))
+                       and p["k_split"] == int(m.group(2))), default=0)
         elif m := re.search(r"fold_attention_kernelILi(\d+)EE", line):
             lp = int(m.group(1))
             warps, name = 8, f"fold_attention<{lp}>"
@@ -460,6 +512,13 @@ def resources(lib: str) -> list[dict]:
         rows.append(dict(kernel=name, warps=warps, dynamic_shared=dyn, ctas_per_sm=ctas,
                          warps_per_sm=ctas * warps, **usage, **extra, raw=lines[i + 1].strip()))
     return rows
+
+
+def conv_plans() -> list[dict]:
+    """B.6's plan at every shape of CONV_SHAPES."""
+    from worddiffusion_tpu_torch.ops import gn_conv
+
+    return [gn_conv.plan(*s, 32) for s in CONV_SHAPES]
 
 
 def build_nvcc() -> str:
@@ -568,6 +627,8 @@ def main(argv=None) -> int:
     print("clusters", json.dumps(deep["clusters"]))
     for r in deep.get("gn_routes", []):
         print("groupnorm routes", json.dumps(r))
+    for r in deep.get("conv_plans", []):
+        print("conv plans", json.dumps(r))
     for w32, w16 in zip(deep["ffn"], deep["ffn_bf16"]):
         print(f"ffn {w32['shape']} fp32 weights (two cast copies) / bf16 weights: " + "; ".join(
             f"{m} {w32['kernel'][m]:.4f} / {w16['kernel'][m]:.4f}" for m in
@@ -575,7 +636,7 @@ def main(argv=None) -> int:
     if "sweep" in deep:
         print("attention Nk sweep", json.dumps(deep["sweep"]))
     for r in runs:
-        for kind in ("ffn_bwd", "fold", "fold_b7", "train_step"):
+        for kind in ("ffn_bwd", "conv", "fold", "fold_b7", "train_step"):
             for row in r.get(kind, []):
                 k = row["kernel"]
                 print(f"{r['tree']} {kind} {row['shape']}: " + "; ".join(

@@ -322,7 +322,8 @@ def _lib():
     lib.wd_ln_geglu_ffn_bwd.argtypes = [p] * 18 + [i, i, i, ctypes.c_float, p]
     lib.wd_ln_geglu_ffn_bwd.restype = i
     for fn, args in (("wd_ln_geglu_ffn_d", []), ("wd_ln_geglu_ffn_cluster", [i, i]),
-                     ("wd_ln_geglu_ffn_bwd_d", []), ("wd_ln_geglu_ffn_bwd_cluster", [i, i])):
+                     ("wd_ln_geglu_ffn_bwd_d", []),
+                     ("wd_ln_geglu_ffn_bwd_plan", [i, i, ctypes.POINTER(i)])):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = i
     lib.wd_ln_geglu_ffn_bwd_part_floats.argtypes = [i, i, i]
@@ -338,10 +339,19 @@ def cluster_size(m: int, inner: int) -> int:
     return _lib().wd_ln_geglu_ffn_cluster(m, inner)
 
 
-def bwd_cluster_size(m: int, inner: int) -> int:
-    """The CTAs per row tile (thread-block cluster) the backward's row
-    kernel launches with at M rows."""
-    return _lib().wd_ln_geglu_ffn_bwd_cluster(m, inner)
+BWD_PLAN_KEYS = ("rows_tile", "rows_stages", "rows_ctas", "rows_cluster", "weights_ctas",
+                 "weights_cluster", "weights_stages")
+
+
+def bwd_plan(m: int, inner: int) -> dict:
+    """The backward's launch plan at M rows: the row kernel's rows a tile,
+    ring stages, CTAs and cluster size (the CTAs that share a tile); the
+    weight-gradient kernel's CTAs, cluster size (its split of M) and ring
+    stages."""
+    out = (ctypes.c_int * len(BWD_PLAN_KEYS))()
+    if _lib().wd_ln_geglu_ffn_bwd_plan(m, inner, out):
+        raise ValueError(f"ln_geglu_ffn_bwd: no plan for M={m}, inner={inner}")
+    return dict(zip(BWD_PLAN_KEYS, out))
 
 
 def _check(name, t, shape, dtype, dev):

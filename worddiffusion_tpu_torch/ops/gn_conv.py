@@ -19,8 +19,10 @@ falling back. A conv that changes the width (C_in != C_out) raises: those
 sites run ``ops.groupnorm`` with SiLU and then their conv. The backward
 recomputes the plain version under autograd.
 
-``launches`` counts kernel launches and ``bwd_calls`` the Function's
-backward calls.
+``launches`` counts calls that launched the kernel, ``stats_launches``
+those of them that launched B.5's statistics kernel before it (the C entry
+says so; ``plan`` shows the same: a sample is more CTAs than a cluster
+holds), and ``bwd_calls`` the Function's backward calls.
 """
 
 from __future__ import annotations
@@ -32,9 +34,10 @@ import torch
 import torch.nn.functional as F
 
 from . import build
-from .groupnorm import check_norm_operands, groupnorm_reference, stats_scratch
+from .groupnorm import check_norm_operands, groupnorm_reference
 
 launches = 0
+stats_launches = 0
 bwd_calls = 0
 
 
@@ -94,17 +97,33 @@ def _gn_conv(x, gn_scale, gn_bias, w, b, groups, eps):
 def _lib():
     lib = build.load()
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.wd_gn_silu_conv3x3.argtypes = [p] * 8 + [i] * 5 + [ctypes.c_float, p]
+    lib.wd_gn_silu_conv3x3.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_float,
+                                                           ctypes.POINTER(ctypes.c_int), p]
     lib.wd_gn_silu_conv3x3.restype = i
-    lib.wd_gn_silu_conv3x3_tile.argtypes = [i] * 4
-    lib.wd_gn_silu_conv3x3_tile.restype = i
-    lib.wd_groupnorm_tiles.argtypes = [i, i]
-    lib.wd_groupnorm_tiles.restype = i
+    lib.wd_gn_silu_conv3x3_plan.argtypes = [i] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    lib.wd_gn_silu_conv3x3_plan.restype = i
     lib.wd_groupnorm_max_c.argtypes = []
     lib.wd_groupnorm_max_c.restype = i
     lib.wd_cuda_error_string.argtypes = [i]
     lib.wd_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+PLAN_KEYS = ("pixels", "channels", "k_split", "cluster", "ctas", "stages", "smem", "tile_w")
+
+
+@functools.lru_cache(maxsize=256)
+def plan(b: int, h: int, w: int, c: int, groups: int) -> dict:
+    """The kernel's plan at this shape: pixels and output channels a CTA,
+    whether the two consumer warpgroups split K (``k_split``), the cluster
+    of a sample's CTAs that takes the GroupNorm statistics in the kernel (0:
+    B.5's statistics launch runs first), CTAs, weight stages of the ring,
+    shared memory bytes a CTA and the tile's width in pixels."""
+    out = (ctypes.c_int * 8)()
+    err = _lib().wd_gn_silu_conv3x3_plan(b, h, w, c, groups, out)
+    if err:
+        raise ValueError(f"gn_silu_conv3x3: no plan for B={b} {h}x{w} C={c} G={groups}")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def kernel_weight(w):
@@ -113,7 +132,7 @@ def kernel_weight(w):
 
 
 def _launch(x, gn_scale, gn_bias, w, b, groups, eps):
-    global launches
+    global launches, stats_launches
     lib = _lib()
     if x.dim() != 4:
         raise ValueError(f"fused_gn_silu_conv3x3: x is {tuple(x.shape)}, takes [B, H, W, C]")
@@ -126,16 +145,17 @@ def _launch(x, gn_scale, gn_bias, w, b, groups, eps):
     bsz, h, wd, c = x.shape
     wk = kernel_weight(w)
     out = torch.empty_like(x)
-    partial, stats = stats_scratch(lib, x, groups)
-    with torch.cuda.device(x.device):
-        err = lib.wd_gn_silu_conv3x3(
-            x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(), wk.data_ptr(), b.data_ptr(),
-            out.data_ptr(), partial.data_ptr(), stats.data_ptr(), bsz, h, wd, c, groups,
-            float(eps), torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    # B.5's statistics [B, G] (mu, rstd), where the kernel does not take them itself
+    stats = torch.empty(bsz * groups * 2, dtype=torch.float32, device=x.device)
+    stats_launched = ctypes.c_int(0)
+    err = build.launch_on(x, lambda stream: lib.wd_gn_silu_conv3x3(
+        x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(), wk.data_ptr(), b.data_ptr(),
+        out.data_ptr(), stats.data_ptr(), bsz, h, wd, c, groups, float(eps),
+        ctypes.byref(stats_launched), stream))
     if err:
         raise RuntimeError(
             f"gn_silu_conv3x3 kernel launch failed: {lib.wd_cuda_error_string(err).decode()} "
             f"(code {err})")
     launches += 1
+    stats_launches += stats_launched.value
     return out

@@ -93,9 +93,8 @@ def _lib():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.wd_groupnorm.argtypes = [p] * 4 + [i] * 4 + [f, i, p]
     lib.wd_groupnorm.restype = i
-    for fn, n in (("wd_groupnorm_tiles", 2), ("wd_groupnorm_route", 4)):
-        getattr(lib, fn).argtypes = [i] * n
-        getattr(lib, fn).restype = i
+    lib.wd_groupnorm_route.argtypes = [i] * 4
+    lib.wd_groupnorm_route.restype = i
     lib.wd_groupnorm_max_c.argtypes = []
     lib.wd_groupnorm_max_c.restype = i
     lib.wd_cuda_error_string.argtypes = [i]
@@ -139,16 +138,6 @@ def check_norm_operands(name: str, x, vectors, groups: int, max_c: int) -> None:
                 or v.get_device() != dev):
             raise ValueError(f"{name}: {vname} is {v.dtype} {tuple(v.shape)} on {v.device}; "
                              f"takes fp32 [{c}], contiguous, on x's device")
-
-
-def stats_scratch(lib, x, groups: int):
-    """The GN -> SiLU -> conv3x3 kernel's statistics scratch: partial sums
-    [B, tiles, G] and stats [B, G], as float2."""
-    b, c = x.shape[0], x.shape[-1]
-    s = x.numel() // (b * c)
-    tiles = lib.wd_groupnorm_tiles(s, c)
-    return (torch.empty(b * tiles * groups * 2, dtype=torch.float32, device=x.device),
-            torch.empty(b * groups * 2, dtype=torch.float32, device=x.device))
 
 
 def _launch(x, scale, bias, groups, eps, silu):
