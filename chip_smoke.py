@@ -13,12 +13,16 @@ Phases, each of which must pass (any failure exits non-zero):
    (d=320, inner=1280, M = 16*256, 16*64), a ragged M and the small M = 64
    and 65, with errors, bitwise repeatability, the cluster size and median
    times; then
+   B.1 above the presets' width (FFN_WIDE_SHAPES: d = 640 at M = 16*64 and
+   128*64, channel_mult (1, 2)'s middle block, and d = 768 at M = 4096, the
+   widest the kernel takes; inner = 4d; each with its plan); then
    the bare GEGLU FFN (B.2, ``ops.ffn.fused_geglu_ffn``, the same kernel
    without LayerNorm and residual; the tensor-parallel FF's local FFN) at
    its tensor-parallel caller's M = 128*256 and 128*64 with the local inner
    widths 640 and 320 (a model axis of 2 and 4) and at the preview's 3*256
    and 3*64 with 640, then at M = 16*256, 128*256 and a
-   ragged 1000 at the full 1280: against its plain version, bitwise
+   ragged 1000 at the full 1280, and at d = 640 (M = 128*64, inner 2560):
+   against its plain version, bitwise
    repeatability, its cluster size, kernel / plain / bound times, and its
    Function's output and five gradients against plain autograd at
    M = 128*256.
@@ -64,7 +68,9 @@ Phases, each of which must pass (any failure exits non-zero):
    self-attention and 42 + 769 = 811 for the cross-attention of
    ``iam_phosc``), a ragged case and a 2048-key context, and the
    tensor-parallel path's local heads (2 at training B=128 and at the
-   preview's B=3, 1 at B=128; Nq 256 and 64, Nk 42), with errors,
+   preview's B=3, 1 at B=128; Nq 256 and 64, Nk 42) and the heads above 128
+   (ATTN_WIDE_SHAPES: 4 heads of 160 at B=16 and 128, Nq 64, Nk 42, channel_mult
+   (1, 2)'s middle block; one row at D = 256), with errors,
    bitwise repeatability, and kernel / plain / ``scaled_dot_product_attention``
    / bound times and the kernel's share of its bound; the Function's output
    and gradients against plain autograd at B=128, Nq=256, Nk=811. At every
@@ -275,6 +281,15 @@ Phases, each of which must pass (any failure exits non-zero):
    bitwise; (d) ``cli.train --loadPrev 1`` resuming the ``iam`` TrainState
    (step 8) for 2 steps on phase 7's corpus: restored step, parameters and
    moments, 4 B.1 and 4 B.3 launches a step.
+34. (after phase 12) channel_mult (1, 2): the regeneration CLI with
+   ``--preset iam_wide`` (``iam`` with ``channel_mult=(1, 2)``, registered
+   here): one UNet call at B=16 all-kernel against all-plain within
+   UNET_REL_TOL (4 B.1, 8 B.4, 10 B.5, 11 B.6 a call, by profiled name too,
+   B.6's statistics in the kernel at the 640-wide 4 x 16 sites), the kernels
+   by width in a profile (3 B.1 at d = 320 and 1 at 640, 6 B.4 at D = 80 and
+   2 at 160), no plain FF sub-layer (``ops.ffn.plain_calls``) and the device's
+   idle share; then one batch of 16 through the pipeline (120 calls, decode,
+   OCR, PNGs). The kernels line counts it as ``regenerate_iam_wide``.
 31. the UNet's last two switches, set through ``UNetConfig`` as in JAX:
    (b) ``fast_softmax=True`` (``--preset iam_fast``, registered here): one
    full-width ``iam`` UNet call at B=16 with 8 B.4 launches, all in the fast
@@ -364,6 +379,10 @@ FFN_SHAPES = (B * 256, B * 64, 1000)   # M: full-res blocks, middle block, ragge
 FFN_SMALL_SHAPES = (64, 65)            # one row tile, and one row past it
 TRAIN_B = 128
 BWD_SHAPES = (TRAIN_B * 256, TRAIN_B * 64, 1000)
+# (M, d) of B.1 at the widths above 320: channel_mult (1, 2)'s middle block
+# (d = 640, 4 heads of 160) at B = 16 and 128, and the widest d the kernel
+# takes (JAX's fits_vmem(d, 4d) holds up to 768); inner = 4d
+FFN_WIDE_SHAPES = ((B * 64, 640), (TRAIN_B * 64, 640), (4096, 768))
 TRAIN_STEPS_PER_EPOCH = 5  # phases 7, 10 and 13: 2 epochs of 5 steps
 GRADS = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
 # bf16 keeps 8 significant bits (one rounding = 0.4% of a value). The kernel
@@ -401,6 +420,10 @@ TP_ATTN_SHAPES = (
 # fp32 sums, which can move one bf16 rounding of p or of the output (0.4%
 # of a value); bound at 1% of max |plain|.
 ATTN_REL_TOL = 1e-2
+# (B, Nq, Nk, D) of B.4 at head widths above 128: channel_mult (1, 2)'s middle
+# block (4 heads of 160 over 64 tokens, the 42 characters) at B = 16 and 128,
+# and the widest head the kernel takes
+ATTN_WIDE_SHAPES = ((B, 64, 42, 160), (TRAIN_B, 64, 42, 160), (B, 64, 42, 256))
 # (B, N, L) of the fold path's sub-layers (C=320, H=4): regeneration B=16 and
 # training B=128 at the full-resolution (N=256) and middle (N=64) blocks,
 # and a ragged case (L=13 pads to 16, N=40 ends mid-tile)
@@ -545,10 +568,10 @@ def attn_floors(q, k, v, out) -> dict:
     return f
 
 
-def attn_plan_text(b: int, h: int, nq: int, nk: int) -> str:
+def attn_plan_text(b: int, h: int, nq: int, nk: int, d: int = D_HEAD) -> str:
     from worddiffusion_tpu_torch.ops import attention
 
-    p = attention.plan(b * h, nq, nk, D_HEAD)
+    p = attention.plan(b * h, nq, nk, d)
     return (f"{p['rows']}-query tile, {p['keys']}-key chunks, {p['ctas']} CTAs, {p['q_slots']} q "
             f"slots, {p['kv_stages']} k/v stages")
 
@@ -679,13 +702,13 @@ def card_generator(seed: int):
     return torch.Generator(device="cuda").manual_seed(seed)
 
 
-def attn_inputs(b: int, nq: int, nk: int, seed: int, heads: int = HEADS):
-    """Seeded bf16 q, k, v [b, heads, n, 80] with unit-scale entries, as the
+def attn_inputs(b: int, nq: int, nk: int, seed: int, heads: int = HEADS, d: int = D_HEAD):
+    """Seeded bf16 q, k, v [b, heads, n, d] with unit-scale entries, as the
     projections of LayerNormed tokens give them."""
     import torch
 
     g = card_generator(seed)
-    return tuple(torch.randn(b, heads, n, D_HEAD, generator=g, device="cuda").bfloat16()
+    return tuple(torch.randn(b, heads, n, d, generator=g, device="cuda").bfloat16()
                  for n in (nq, nk, nk))
 
 
@@ -698,11 +721,13 @@ def phase8_attention(smi: str) -> dict:
 
     from worddiffusion_tpu_torch.ops import attention
 
-    scale = D_HEAD ** -0.5
     rows, fast_rows = [], []
-    shapes = [(b, HEADS, nq, nk) for b, nq, nk in ATTN_SHAPES] + list(TP_ATTN_SHAPES)
-    for i, (b, h, nq, nk) in enumerate(shapes):
-        q, k, v = attn_inputs(b, nq, nk, seed=30 + i, heads=h)
+    shapes = ([(b, HEADS, nq, nk, D_HEAD) for b, nq, nk in ATTN_SHAPES]
+              + [(b, h, nq, nk, D_HEAD) for b, h, nq, nk in TP_ATTN_SHAPES]
+              + [(b, HEADS, nq, nk, d) for b, nq, nk, d in ATTN_WIDE_SHAPES])
+    for i, (b, h, nq, nk, dh) in enumerate(shapes):
+        scale = dh ** -0.5
+        q, k, v = attn_inputs(b, nq, nk, seed=30 + i, heads=h, d=dh)
         got = attention.fused_attention(q, k, v, scale)
         again = attention.fused_attention(q, k, v, scale)
         torch.cuda.synchronize()
@@ -713,26 +738,27 @@ def phase8_attention(smi: str) -> dict:
         plain_ms = launch_ms(lambda: attention.attention_reference(q, k, v, scale))
         # the yardstick: one PyTorch call of the same function (the port never calls it)
         library_ms = launch_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
-        bound_ms, bound_by = bound(nbytes(q, k, v, got), 4 * b * h * nq * nk * D_HEAD)
+        bound_ms, bound_by = bound(nbytes(q, k, v, got), 4 * b * h * nq * nk * dh)
         floors = attn_floors(q, k, v, got)
-        log(f"attention B={b} H={h} Nq={nq} Nk={nk} D={D_HEAD} ({attn_plan_text(b, h, nq, nk)}): "
+        log(f"attention B={b} H={h} Nq={nq} Nk={nk} D={dh} ({attn_plan_text(b, h, nq, nk, dh)}): "
             f"max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {ATTN_REL_TOL}); bitwise "
             f"repeatable {torch.equal(got, again)}; kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
             f"scaled_dot_product_attention {library_ms:.4f} ms bound {bound_ms:.4f} ms "
             f"({bound_by}), kernel at {bound_ms / ms:.1%} of the bound; {floors_text(floors, ms)} "
             f"[{smi}]")
-        at = (b, h, nq, nk)
+        at = (b, h, nq, nk, dh)
         assert got.shape == want.shape and got.dtype == torch.bfloat16
         assert bool(torch.isfinite(got.float()).all()), f"non-finite attention at {at}"
         assert torch.equal(got, again), f"attention differs between two runs at {at}"
         assert rel <= ATTN_REL_TOL, f"attention kernel disagrees at {at}: rel {rel}"
-        rows.append(dict(b=b, h=h, nq=nq, nk=nk, err=err, ms=ms, plain_ms=plain_ms,
+        rows.append(dict(b=b, h=h, nq=nq, nk=nk, d=dh, err=err, ms=ms, plain_ms=plain_ms,
                          library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by, **floors))
         fast_rows.append(fast_attention_row(smi, "attention", q, k, v, rows[-1], got))
 
     # The Function (kernel forward, plain-recompute backward) against plain
     # autograd at the widest training shape: output and q, k, v gradients.
     b, nq, nk = TRAIN_B, 256, 811
+    scale = D_HEAD ** -0.5
     q, k, v = attn_inputs(b, nq, nk, seed=60)
     dout = (0.1 * torch.randn(b, HEADS, nq, D_HEAD, generator=card_generator(61),
                               device="cuda")).bfloat16()
@@ -775,7 +801,7 @@ def fast_attention_row(smi: str, label: str, q, k, v, row: dict, default_out) ->
 
     from worddiffusion_tpu_torch.ops import attention
 
-    scale = D_HEAD ** -0.5
+    scale = q.shape[-1] ** -0.5
     got, again = (attention.fused_attention(q, k, v, scale, True) for _ in range(2))
     torch.cuda.synchronize()
     want = attention.attention_reference(q, k, v, scale, True).float()
@@ -804,7 +830,7 @@ def fast_attention_row(smi: str, label: str, q, k, v, row: dict, default_out) ->
                 bound_by=row["bound_by"])
 
 
-def ffn_inputs(m: int, seed: int, inner: int = INNER):
+def ffn_inputs(m: int, seed: int, inner: int = INNER, d: int = D):
     """Seeded inputs scaled like the model's: a unit-scale residual stream,
     LayerNorm affine near identity, lecun-scaled weights."""
     import torch
@@ -812,9 +838,9 @@ def ffn_inputs(m: int, seed: int, inner: int = INNER):
     g = card_generator(seed)
     r = lambda *s: torch.randn(*s, generator=g, device="cuda")
     return dict(
-        x=r(m, D).bfloat16(), gamma=1 + 0.1 * r(D), beta=0.1 * r(D),
-        w1=(r(D, 2 * inner) / D ** 0.5).bfloat16(), b1=0.02 * r(2 * inner),
-        w2=(r(inner, D) / inner ** 0.5).bfloat16(), b2=0.02 * r(D),
+        x=r(m, d).bfloat16(), gamma=1 + 0.1 * r(d), beta=0.1 * r(d),
+        w1=(r(d, 2 * inner) / d ** 0.5).bfloat16(), b1=0.02 * r(2 * inner),
+        w2=(r(inner, d) / inner ** 0.5).bfloat16(), b2=0.02 * r(d),
     )
 
 
@@ -837,6 +863,8 @@ GEGLU_SHAPES = ((TRAIN_B * 256, INNER // 2), (TRAIN_B * 256, INNER // 4),
                 (TRAIN_B * 64, INNER // 2), (TRAIN_B * 64, INNER // 4),
                 (PREVIEW_N * 256, INNER // 2), (PREVIEW_N * 64, INNER // 2),
                 (B * 256, INNER), (TRAIN_B * 256, INNER), (1000, INNER))
+# (M, d) of B.2 at channel_mult (1, 2)'s middle-block width, inner = 4d
+GEGLU_WIDE_SHAPES = ((TRAIN_B * 64, 640),)
 
 
 def phase3_geglu(smi: str) -> dict:
@@ -850,8 +878,10 @@ def phase3_geglu(smi: str) -> dict:
     from worddiffusion_tpu_torch.ops import ffn
 
     rows = []
-    for i, (m, inner) in enumerate(GEGLU_SHAPES):
-        t = ffn_inputs(m, seed=40 + i, inner=inner)
+    shapes = [(m, inner, D) for m, inner in GEGLU_SHAPES] + [
+        (m, 4 * d, d) for m, d in GEGLU_WIDE_SHAPES]
+    for i, (m, inner, d) in enumerate(shapes):
+        t = ffn_inputs(m, seed=40 + i, inner=inner, d=d)
         a = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"])
         n0 = ffn.geglu_launches
         got, again = ffn.fused_geglu_ffn(*a), ffn.fused_geglu_ffn(*a)
@@ -862,8 +892,8 @@ def phase3_geglu(smi: str) -> dict:
         rel = err / want.float().abs().max().item()
         ms = launch_ms(lambda: ffn.fused_geglu_ffn(*a))
         plain_ms = launch_ms(lambda: ffn.geglu_ffn_reference(*a))
-        bound_ms, bound_by = bound(nbytes(*a, got), 6 * m * D * inner)
-        log(f"geglu_ffn (B.2) M={m} d={D} inner={inner} (cluster of "
+        bound_ms, bound_by = bound(nbytes(*a, got), 6 * m * d * inner)
+        log(f"geglu_ffn (B.2) M={m} d={d} inner={inner} (cluster of "
             f"{ffn.cluster_size(m, inner)}): max_abs_err {err:.6g} max_rel_err "
             f"{rel:.6g} (tol {FFN_REL_TOL}); bitwise repeatable {torch.equal(got, again)}; kernel "
             f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), "
@@ -872,7 +902,7 @@ def phase3_geglu(smi: str) -> dict:
         assert bool(torch.isfinite(got.float()).all()), f"non-finite B.2 output at M={m}"
         assert torch.equal(got, again), f"B.2 differs between two runs at M={m}"
         assert rel <= FFN_REL_TOL, f"B.2 kernel disagrees with plain at M={m}: rel {rel}"
-        rows.append(dict(m=m, inner=inner, err=err, ms=ms, plain_ms=plain_ms,
+        rows.append(dict(m=m, inner=inner, d=d, err=err, ms=ms, plain_ms=plain_ms,
                          bound_ms=bound_ms, bound_by=bound_by))
         del t, a, got, again, want
 
@@ -902,8 +932,8 @@ def phase3_geglu(smi: str) -> dict:
 def ffn_bound(inputs: dict, out) -> tuple[float, str]:
     """The forward's bound: its inputs and output, and the two products
     x W1 [M, d] x [d, 2 inner] and act W2 [M, inner] x [inner, d]."""
-    m = inputs["x"].shape[0]
-    return bound(nbytes(*inputs.values(), out), 6 * m * D * INNER)
+    m, d = inputs["x"].shape
+    return bound(nbytes(*inputs.values(), out), 6 * m * d * inputs["w2"].shape[0])
 
 
 def phase6_ffn_backward(smi: str) -> dict:
@@ -1498,6 +1528,55 @@ def phase12_fold_regen(smi: str, cli, gt: str, work: str, words) -> dict:
                       per_call=(4, 0, 8, *UNET_NORMS))
     batch_seconds(smi, sampler, words[:B], "iam_fold")
     return dict(out, unet_ms=unet["ms"], unfolded_ms=unfolded_ms, vs_unfolded=rel)
+
+
+# B.5 and B.6 launches a UNet call at channel_mult (1, 2) (attention at the
+# first level only, as iam's): B.5 at the 320 -> 640 ResBlock's in_layers and
+# the four decoder concats (1280, 960 at 4 x 16; 960, 640 at 8 x 32), the 4
+# transformer norms and the out norm; B.6 at the 8 out_layers and the in_layers
+# whose width does not change (the first level's and the middle block's two)
+WIDE_NORMS = (10, 11)
+
+
+def phase34_wide(smi: str, cli, gt: str, work: str, words) -> dict:
+    """The regeneration CLI on ``--preset iam_wide`` (``iam`` with
+    channel_mult (1, 2): 640 channels at the second level and in the middle
+    block, whose transformer runs B.1 at d = 640 and B.4 at 4 heads of 160):
+    one UNet call against the all-plain UNet on the same weights, its
+    kernels by name and width in a profile (4 B.1, one at d = 640; 8 B.4,
+    two at D = 160; no plain FF sub-layer) with the device's idle share, then
+    one batch through the pipeline (120 calls, decode, OCR, PNGs)."""
+    import torch
+
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.ops import ffn
+
+    regen, samples = cli.build(regen_cli_args(cli, gt, os.path.join(work, "regen_wide"),
+                                              "--preset", "iam_wide"))
+    sampler = regen.sampler
+    cfg = sampler.model.cfg
+    assert tuple(cfg.channel_mult) == (1, 2) and cfg.model_channels == 320, cfg
+    init_weights_(sampler.model, seed=0, zero_init=False)
+    inputs = unet_inputs(sampler, words, phosc=False)
+    plain0 = ffn.plain_calls
+    unet = unet_check(smi, sampler.model, inputs, "iam_wide", launches=(4, 8, 0, *WIDE_NORMS))
+    with torch.no_grad():
+        prof = device_profile(lambda: sampler.model(*inputs))
+    by_width = {f"{name}<{d},": sum(n for k, n in prof["per_call"].items()
+                                    if f"{name}<{d}," in k)
+                for name, widths in (("ffn_kernel", (320, 640)), ("attention_kernel", (80, 160)))
+                for d in widths}
+    idle = 1 - prof["busy_ms"] / unet["ms"]
+    log(f"unet B={B} iam_wide, profiled: kernels per call by width {by_width}; plain FF "
+        f"sub-layers {ffn.plain_calls - plain0}; device busy {prof['busy_ms']:.4f} ms/call, "
+        f"{prof['kernels']:.0f} kernels/call, idle {idle:.1%} of the unprofiled call "
+        f"({unet['ms']:.3f} ms); top kernels (ms/call) {prof['top']} [{smi}]")
+    assert by_width == {"ffn_kernel<320,": 3, "ffn_kernel<640,": 1, "attention_kernel<80,": 6,
+                        "attention_kernel<160,": 2}, by_width
+    out = drive_regen(smi, regen, samples[:B], seed=0, label="iam_wide",
+                      per_call=(4, 8, 0, *WIDE_NORMS))
+    assert ffn.plain_calls == plain0, ffn.plain_calls - plain0
+    return dict(out, unet_ms=unet["ms"], busy_ms=prof["busy_ms"], idle=idle, rel=unet["rel"])
 
 
 def phase13_fold_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
@@ -5060,6 +5139,30 @@ def main(argv=None) -> int:
         ffn_rows.append(dict(m=m, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by))
 
+    for i, (m, d) in enumerate(FFN_WIDE_SHAPES):
+        a = ffn_inputs(m, seed=20 + i, inner=4 * d, d=d)
+        n0 = ffn.launches
+        got, again = ffn.fused_ln_geglu_ffn(**a), ffn.fused_ln_geglu_ffn(**a)
+        torch.cuda.synchronize()
+        assert ffn.launches == n0 + 2, ffn.launches - n0
+        want = ffn.ln_geglu_ffn_reference(**a)
+        err = (got.float() - want.float()).abs().max().item()
+        rel = err / want.float().abs().max().item()
+        ms = launch_ms(lambda: ffn.fused_ln_geglu_ffn(**a))
+        plain_ms = launch_ms(lambda: ffn.ln_geglu_ffn_reference(**a))
+        bound_ms, bound_by = ffn_bound(a, got)
+        log(f"ffn M={m} d={d} inner={4 * d} (cluster of {ffn.cluster_size(m, 4 * d)}, plan "
+            f"{ffn.plan(d)}): max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {FFN_REL_TOL}); "
+            f"bitwise repeatable {torch.equal(got, again)}; kernel {ms:.4f} ms plain "
+            f"{plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of the "
+            f"bound [{smi}]")
+        assert bool(torch.isfinite(got.float()).all()), f"non-finite kernel output at d={d}"
+        assert torch.equal(got, again), f"B.1 differs between two runs at M={m} d={d}"
+        assert rel <= FFN_REL_TOL, f"kernel disagrees with plain at M={m} d={d}: rel {rel}"
+        ffn_rows.append(dict(m=m, d=d, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by))
+        del a, got, again, want
+
     geglu = phase3_geglu(smi)
 
     # The regeneration pipeline as the CLI builds it, on the card.
@@ -5129,6 +5232,11 @@ def main(argv=None) -> int:
     regen_fold = phase12_fold_regen(smi, cli, gt, work, words)
 
     stamp("12")
+    # -- 34. channel_mult (1, 2): B.1 at d = 640 and B.4 at D = 160 on the main path ----------
+    register_iam_preset("iam_wide", channel_mult=(1, 2))
+    regen_wide = phase34_wide(smi, cli, gt, work, words)
+
+    stamp("34")
     # -- 13. iam_fold training ----------------------------------------------------------
     train_f = phase13_fold_train(smi, work, corpus)
 
@@ -5217,7 +5325,10 @@ def main(argv=None) -> int:
     paths = ("regenerate", "regenerate_iam_phosc", "regenerate_iam_fold", "train",
              "train_iam_phosc", "train_iam_fold", "build_latent_cache", "train_from_images")
     # the paths of phases 18-20, each with its counts under chip_smoke's keys
-    new_paths = {**{f"unet_{k}": dict(zip(("ffn", "attn", "fold", "gn", "conv"), v["counts"]),
+    new_paths = {"regenerate_iam_wide": dict(
+                     {k: regen_wide[k] for k in ("ffn", "attn", "fold", "gn", "conv", "geglu",
+                                                 "fold_b7", "probs")}, ffn_bwd=0),
+                 **{f"unet_{k}": dict(zip(("ffn", "attn", "fold", "gn", "conv"), v["counts"]),
                                       ffn_bwd=0, fold_b7=0, geglu=0, probs=v["probs"])
                     for k, v in variants.items()},
                  **{f"train_{k}": v for k, v in cond_train.items()},

@@ -303,8 +303,8 @@ def test_bwd_kernel_is_bitwise_repeatable(cuda, m):
 
 @pytest.mark.parametrize("bad", ["fp32_dy", "dy_shape", "w2_dtype", "wide_d", "narrow_d"])
 def test_bwd_kernel_refuses_what_it_does_not_take(cuda, bad):
-    """Only d = 320 (as the forward kernel); other widths take the plain
-    path (use_pallas_ffn=False)."""
+    """Only d = 320: B.3 is built for the presets' width (training at
+    channel_mult (1, 2) is the next slice); the forward takes d = 64..768."""
     t = _bwd_inputs(64, cuda)
     if bad == "fp32_dy":
         t["dy"] = t["dy"].float()
@@ -876,7 +876,9 @@ GN_SHAPES = [(16, 8, 32, 640, 32, True), (128, 4, 16, 640, 32, True), (16, 8, 32
              (128, 8, 32, 256, 32, False),  # the CTC aux head's norms (eps 1e-6, no SiLU)
              # the writer-style encoder's widest site (C = 2048, B.5's widest, at S = 16)
              # and its narrowest (C = 64 in 32 groups of 2)
-             (48, 2, 8, 2048, 32, False), (48, 16, 64, 64, 32, False)]
+             (48, 2, 8, 2048, 32, False), (48, 16, 64, 64, 32, False),
+             # channel_mult (1, 2)'s decoder concats (1280 and 960 at 4 x 16, 960 at 8 x 32)
+             (16, 4, 16, 1280, 32, True), (16, 4, 16, 960, 32, True), (16, 8, 32, 960, 32, True)]
 
 
 def _gn_inputs(shape, device, seed=0):
@@ -919,7 +921,9 @@ CONV_SHAPES = [(16, 8, 32, 320, 32), (16, 4, 16, 320, 32), (128, 8, 32, 320, 32)
                (128, 32, 128, 256, 32), (128, 16, 64, 512, 32), (128, 8, 32, 512, 32),
                (4, 64, 256, 128, 32), (4, 32, 128, 256, 32), (4, 16, 64, 512, 32),
                (2, 5, 13, 64, 32), (2, 5, 13, 48, 48), (16, 64, 256, 320, 32),
-               (2, 1, 9, 64, 32), (2, 7, 1, 64, 32)]
+               (2, 1, 9, 64, 32), (2, 7, 1, 64, 32),
+               # channel_mult (1, 2)'s 640-wide second level
+               (16, 4, 16, 640, 32), (128, 4, 16, 640, 32)]
 
 
 def _conv_inputs(b, h, w, c, device, seed=0):
@@ -968,7 +972,7 @@ def _kernel_names(fn):
 @pytest.mark.parametrize("b,h,w,c,stats_launch", [
     (16, 8, 32, 320, False), (16, 4, 16, 320, False), (128, 8, 32, 320, False),
     (128, 4, 16, 320, False), (2, 5, 13, 48, False), (16, 64, 256, 128, True),
-    (4, 32, 128, 256, True)])
+    (4, 32, 128, 256, True), (16, 4, 16, 640, False), (128, 4, 16, 640, False)])
 def test_gn_conv_launches_a_call_by_name(cuda, b, h, w, c, stats_launch):
     """One conv launch a call, and before it one launch of B.5's cluster
     kernel for the statistics only where a sample is more CTAs than a
@@ -1510,3 +1514,126 @@ def test_higan_denoiser_runs_b5_on_the_card(cuda):
     b0 = groupnorm.bwd_calls
     model(x, t, ctx, wid).square().mean().backward()
     assert groupnorm.bwd_calls - b0 == 13
+
+
+# ---- widths above 320: channel_mult (1, 2) and the kernels' whole ranges ----
+
+def _wide_ffn(m, d, seed):
+    return chip_smoke.ffn_inputs(m, seed=seed, inner=4 * d, d=d)
+
+
+@pytest.mark.parametrize("d", [64, 128, 256, 320, 512, 640, 768])
+def test_kernel_matches_plain_at_every_width(cuda, d):
+    """B.1 at widths across its range (each plan: 2 warpgroups with W2's
+    slice in a slot, W2 in the ring below 192, 4 warpgroups above 512) at a
+    clustered M and the training middle block's: within 1% of max |out| of
+    the plain version, bitwise repeatable."""
+    for i, m in enumerate((1024, 8192)):
+        t = _wide_ffn(m, d, seed=d + i)
+        before = ffn.launches
+        got, again = ffn.fused_ln_geglu_ffn(**t), ffn.fused_ln_geglu_ffn(**t)
+        torch.cuda.synchronize()
+        assert ffn.launches == before + 2
+        want = ffn.ln_geglu_ffn_reference(**t)
+        assert got.shape == want.shape and torch.equal(got, again)
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= 1e-2 * want.float().abs().max().item(), (m, err)
+    assert ffn.plan(d)["warpgroups"] == (4 if d > 512 else 2)
+
+
+def test_geglu_kernel_matches_plain_at_d640(cuda):
+    """B.2 at channel_mult (1, 2)'s middle-block width."""
+    t = _wide_ffn(128 * 64, 640, seed=7)
+    a = (t["x"], t["w1"], t["b1"], t["w2"], t["b2"])
+    before = ffn.geglu_launches
+    got, again = ffn.fused_geglu_ffn(*a), ffn.fused_geglu_ffn(*a)
+    torch.cuda.synchronize()
+    assert ffn.geglu_launches == before + 2 and torch.equal(got, again)
+    want = ffn.geglu_ffn_reference(*a)
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 1e-2 * want.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize("fast", [False, True])
+@pytest.mark.parametrize("d", [144, 160, 192, 256])
+def test_attention_kernel_at_wide_heads(cuda, d, fast):
+    """B.4 above D = 128 (one plan: one consumer warpgroup, 64-key chunks,
+    one CTA an SM) at the (1, 2) middle block's shape and over a long ragged
+    context, in both modes, within ATTN_REL_TOL of plain."""
+    from worddiffusion_tpu_torch.ops import attention
+
+    for i, (b, nq, nk) in enumerate(((16, 64, 42), (2, 200, 300))):
+        p = attention.plan(b * 4, nq, nk, d)
+        assert (p["rows"], p["keys"]) == (64, 64), p
+        _check_attention(*_qkvh(b, 4, nq, nk, d, cuda, seed=d + i), fast)
+
+
+@pytest.mark.parametrize("d", [160, 256])
+def test_attention_maps_kernel_at_wide_heads(cuda, d):
+    """The maps kernel (``return_attn``) takes B.4's head widths: the fp32
+    probabilities from B.4's lse against the plain softmax."""
+    from worddiffusion_tpu_torch.ops import attention
+
+    q, k, v = _qkv(16, 64, 42, cuda, d=d, seed=8)
+    out, p = attention.attention_with_probs(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    want = attention.attention_probs_reference(q, k, d ** -0.5)
+    assert p.shape == (16, 4, 64, 42) and torch.equal(out, attention.fused_attention(q, k, v, d ** -0.5))
+    assert (p - want).abs().max().item() <= MAPS_ABS_TOL
+
+
+def test_unet_channel_mult_12_on_the_kernels(cuda):
+    """The full-width iam UNet at channel_mult (1, 2), B = 4: every FF
+    sub-layer through B.1 (one at d = 640), every attention through B.4 (two
+    at D = 160), no plain FF; eps within UNET_REL_TOL of the all-plain UNet
+    on the same weights."""
+    import dataclasses
+
+    from worddiffusion_tpu_torch.configs import presets
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.models.unet import UNet
+    from worddiffusion_tpu_torch.ops import attention
+
+    cfg = dataclasses.replace(presets.iam().unet, channel_mult=(1, 2))
+    unet = init_weights_(UNet(cfg), seed=0, zero_init=False).cuda().eval()
+    plain = UNet(dataclasses.replace(cfg, use_pallas_ffn=False)).cuda().eval()
+    plain.load_state_dict(unet.state_dict())
+    g = torch.Generator().manual_seed(0)
+    b = 4
+    x = torch.randn(b, 8, 32, 4, generator=g).cuda()
+    t = torch.tensor([599, 400, 200, 10]).cuda()
+    ctx = torch.randint(1, 50, (b, cfg.max_seq_len), generator=g).cuda()
+    wid = torch.arange(b).cuda()
+    f0, a0, p0 = ffn.launches, attention.launches, ffn.plain_calls
+    with torch.no_grad():
+        got = unet(x, t, ctx, wid)
+        assert (ffn.launches - f0, attention.launches - a0, ffn.plain_calls - p0) == (4, 8, 0)
+        with chip_smoke.all_plain():
+            want = plain(x, t, ctx, wid)
+    assert bool(torch.isfinite(got).all())
+    err = (got - want).abs().max().item()
+    assert err <= chip_smoke.UNET_REL_TOL * want.abs().max().item(), err
+
+
+def test_out_of_range_widths_raise(cuda):
+    """No fallback on a CUDA tensor: B.1 raises for a d that is not a
+    multiple of 64 or is past 768, B.4 for a head past 256, and the FF
+    Function raises at d = 640 where a gradient is wanted (B.3 takes 320)."""
+    from worddiffusion_tpu_torch.ops import attention
+
+    for d in (100, 336, 832):
+        t = _wide_ffn(64, d, seed=3)
+        before = ffn.launches
+        with pytest.raises(ValueError, match="64 <= d <= 768"):
+            ffn.fused_ln_geglu_ffn(**t)
+        assert ffn.launches == before
+    q = torch.zeros(1, 2, 8, 272, dtype=torch.bfloat16, device=cuda)
+    before = attention.launches
+    with pytest.raises(ValueError, match="D <= 256"):
+        attention.fused_attention(q, q, q, 0.1)
+    assert attention.launches == before
+    assert ffn._lib().wd_ln_geglu_ffn_bwd_d() == ffn.BWD_D
+    t = _wide_ffn(64, 640, seed=4)
+    x = t["x"].clone().requires_grad_()
+    with pytest.raises(ValueError, match=r"ROADMAP A\.3"):
+        ffn.fused_ln_geglu_ffn(x, t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"], t["b2"])

@@ -13,7 +13,7 @@ import chip_smoke
 from worddiffusion_tpu_torch import kernel_times
 
 SCRIPT = Path(kernel_times.__file__)
-METHODS = ("single_ms", "launch_ms", "kernel_ms")
+METHODS = kernel_times.METHODS
 
 
 def _run(tree, kernel, library):
@@ -84,7 +84,41 @@ def test_summary_means_each_trees_runs_and_divides_other_by_this():
     (line,) = kernel_times.summary(runs)
     assert line.startswith("attention [128, 256, 811]: ")
     for m in METHODS:
-        assert f"{m} this 0.1500 other 0.6000 (4.00x) library 0.1200" in line
+        assert f"{m} this 0.1500 other 0.6000 (4.00x) library 0.1200 runs this " \
+               "0.1000-0.2000 other 0.6000-0.6000" in line
+
+
+def test_conv_shapes_cover_the_wide_unets_middle_sites():
+    """B.6 is timed (and its plans swept) at the 640-wide 4 x 16 sites of
+    channel_mult=(1, 2) at both batches, where the plan keeps the statistics
+    in the kernel."""
+    assert {(chip_smoke.B, 4, 16, 640), (chip_smoke.TRAIN_B, 4, 16, 640)} <= set(
+        kernel_times.CONV_SHAPES)
+
+
+def test_takes_lets_only_the_other_tree_refuse_a_width():
+    """A width the other (earlier) tree's kernel refuses is recorded as not
+    taken; this tree's refusal raises."""
+    def refuse():
+        raise ValueError("kernel needs d % 64 == 0 with 64 <= d <= 320")
+
+    assert kernel_times.takes(refuse, may_refuse=True) is None
+    with pytest.raises(ValueError, match="kernel needs"):
+        kernel_times.takes(refuse, may_refuse=False)
+
+
+@pytest.mark.parametrize("rounds", [1, 2])
+def test_run_order_balances_the_trees(rounds):
+    """Each tree runs 2 * rounds times, this tree's first run is the deep
+    one and the only one, and with two rounds each tree runs first once."""
+    order = kernel_times.run_order("this", "other", rounds)
+    assert len(order) == 4 * rounds
+    for tree in ("this", "other"):
+        assert sum(t == tree for t, _ in order) == 2 * rounds
+    assert [(t, d) for t, d in order if d] == [("this", True)]
+    firsts = {order[4 * r][0] for r in range(rounds)}
+    assert firsts == ({"other"} if rounds == 1 else {"this", "other"})
+    assert kernel_times.run_order("this", None) == [("this", True)]
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a card")

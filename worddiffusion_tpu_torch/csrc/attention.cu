@@ -63,7 +63,15 @@
 //     are not stored;
 //   - a CTA of 128 query rows (two consumer warpgroups, one CTA an SM) where
 //     that leaves at least one item an SM; else 64 rows (one consumer
-//     warpgroup, two CTAs an SM), as for the UNet's middle block at B = 16.
+//     warpgroup, two CTAs an SM), as for the UNet's middle block at B = 16;
+//   - head widths above 128 (D = 144 .. 256, a UNet whose heads are wider:
+//     channel_mult (1, 2)'s second level has 4 heads of 160) take one plan of
+//     their own: one consumer warpgroup of 64 query rows, chunks of 64 keys
+//     (Nk = 42 is one masked chunk), one CTA an SM. O's accumulator is D / 2
+//     registers a thread (128 at D = 256), which two CTAs an SM could not hold
+//     beside the scores; q [64, D] in two slots and the k / v ring take the
+//     227 KB of one CTA (two stages at D = 256). One plan, and no other chunk
+//     width, keeps the build's instances at two a width (the two modes).
 //
 // Rounding, against the TPU body: it rounds the NORMALISED p to bf16 before
 // p . v; one pass cannot know the final sum yet, so this kernel rounds
@@ -126,7 +134,8 @@ namespace {
 
 using namespace hopper;
 
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 256;
+constexpr int MAX_PLANNED_D = 128;  // widths with every chunk / warpgroup plan
 constexpr int MAX_KC = 64;    // keys a chunk where Nk is longer
 constexpr int WIDE_KC = 128;  // ... with two consumer warpgroups and Nk > WIDE_MIN_NK
 constexpr int WIDE_MIN_NK = 256;
@@ -180,7 +189,14 @@ struct Smem {
   int qrows, q_bytes, kv_bytes, o_bytes, st, qst, q, k, v, o, bars, size;
 };
 
-__host__ __device__ constexpr int smem_budget(int nwg) { return nwg == 2 ? 232448 : 115712; }
+// One CTA an SM with two consumer warpgroups or a head width above 128, else two.
+__host__ __device__ constexpr bool one_cta_an_sm(int d, int nwg) {
+  return nwg == 2 || d > MAX_PLANNED_D;
+}
+
+__host__ __device__ constexpr int smem_budget(int d, int nwg) {
+  return one_cta_an_sm(d, nwg) ? 232448 : 115712;
+}
 
 __host__ __device__ constexpr Smem smem_layout(int d, int kc, int nwg) {
   Smem s{};
@@ -188,7 +204,7 @@ __host__ __device__ constexpr Smem smem_layout(int d, int kc, int nwg) {
   s.q_bytes = s.qrows * d * 2;
   s.kv_bytes = kc * d * 2;  // one chunk of k, or of v
   s.o_bytes = 64 * d * 2;
-  const int avail = smem_budget(nwg) - 256 - nwg * s.o_bytes - 8 * 16;
+  const int avail = smem_budget(d, nwg) - 256 - nwg * s.o_bytes - 8 * 16;
   const int deep_kv = (avail - 2 * s.q_bytes) / (2 * s.kv_bytes);
   const int deep_item = avail / (s.q_bytes + 2 * s.kv_bytes);
   s.st = kc >= MAX_KC ? (deep_kv < 4 ? deep_kv : 4) : (deep_item < 4 ? deep_item : 4);
@@ -486,14 +502,14 @@ __device__ __forceinline__ void consume(unsigned char* sm, const CUtensorMap* om
 // grid: persistent CTAs over items = B*H * qtiles (pair-major); NWG consumer
 // warpgroups (threads 0 .. 128 NWG - 1), then the producer.
 template <int D, int KC, int NWG, bool FAST>
-__global__ void __launch_bounds__(cta_threads(NWG), NWG == 2 ? 1 : 2)
+__global__ void __launch_bounds__(cta_threads(NWG), one_cta_an_sm(D, NWG) ? 1 : 2)
     attention_kernel(const __grid_constant__ CUtensorMap qmap,
                      const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
                      const __grid_constant__ CUtensorMap omap, float* __restrict__ lse, int nq,
                      int nk, int qtiles, int items, float scale_log2) {
   constexpr Smem S = smem_layout(D, KC, NWG);
-  static_assert(S.st >= 2 && S.qst >= 2 && S.size <= smem_budget(NWG), "the rings fit");
+  static_assert(S.st >= 2 && S.qst >= 2 && S.size <= smem_budget(D, NWG), "the rings fit");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* sm = smem_raw + ((256 - (smem_addr(smem_raw) & 255)) & 255);
   if (threadIdx.x == 0) {
@@ -535,20 +551,26 @@ int sm_count() {
 // one CTA an SM, wherever that leaves at least one item an SM and Nq > 64;
 // else 1: 64 rows, two CTAs an SM), the chunk width (Nk rounded up to 16 up
 // to 48, else 64, or 128 with two warpgroups where Nk > WIDE_MIN_NK), and the
-// persistent grid.
+// persistent grid. A head width above 128: one warpgroup, 64 keys a chunk, one
+// CTA an SM.
 struct Plan {
   int nwg, kc, rows, ctas;
 };
 
-Plan plan(int bh, int nq, int nk) {
+Plan plan(int bh, int nq, int nk, int d) {
   const int sms = sm_count();
   Plan p;
-  p.nwg = nq <= 64 || (long long)bh * ((nq + 127) / 128) < sms ? 1 : 2;
-  p.kc = nk <= 16 ? 16 : nk <= 32 ? 32 : nk <= 48 ? 48
-      : p.nwg == 2 && nk > WIDE_MIN_NK ? WIDE_KC : MAX_KC;
+  if (d > MAX_PLANNED_D) {
+    p.nwg = 1;
+    p.kc = MAX_KC;
+  } else {
+    p.nwg = nq <= 64 || (long long)bh * ((nq + 127) / 128) < sms ? 1 : 2;
+    p.kc = nk <= 16 ? 16 : nk <= 32 ? 32 : nk <= 48 ? 48
+        : p.nwg == 2 && nk > WIDE_MIN_NK ? WIDE_KC : MAX_KC;
+  }
   p.rows = 64 * p.nwg;
   const long long items = (long long)bh * ((nq + p.rows - 1) / p.rows);
-  p.ctas = int(std::min<long long>(items, (long long)sms * (p.nwg == 2 ? 1 : 2)));
+  p.ctas = int(std::min<long long>(items, (long long)sms * (one_cta_an_sm(d, p.nwg) ? 1 : 2)));
   return p;
 }
 
@@ -607,14 +629,18 @@ cudaError_t launch_kc(const void* q, const void* k, const void* v, void* out, fl
 template <int D, bool FAST>
 cudaError_t launch_mode(const void* q, const void* k, const void* v, void* out, float* lse,
                         int bh, int nq, int nk, float scale, cudaStream_t stream) {
-  const Plan p = plan(bh, nq, nk);
-  switch (p.kc) {
-    case 16: return launch_kc<D, 16, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p, stream);
-    case 32: return launch_kc<D, 32, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p, stream);
-    case 48: return launch_kc<D, 48, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p, stream);
-    case MAX_KC: return launch_kc<D, MAX_KC, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p, stream);
-    default:  // WIDE_KC: two consumer warpgroups only
-      return launch_cfg<D, WIDE_KC, 2, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p.ctas, stream);
+  const Plan p = plan(bh, nq, nk, D);
+  if constexpr (D > MAX_PLANNED_D) {  // the one plan of a wide head
+    return launch_cfg<D, MAX_KC, 1, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p.ctas, stream);
+  } else {
+    switch (p.kc) {
+      case 16: return launch_kc<D, 16, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p, stream);
+      case 32: return launch_kc<D, 32, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p, stream);
+      case 48: return launch_kc<D, 48, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p, stream);
+      case MAX_KC: return launch_kc<D, MAX_KC, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p, stream);
+      default:  // WIDE_KC: two consumer warpgroups only
+        return launch_cfg<D, WIDE_KC, 2, FAST>(q, k, v, out, lse, bh, nq, nk, scale, p.ctas, stream);
+    }
   }
 }
 
@@ -727,8 +753,9 @@ extern "C" {
 
 int wd_attention_max_d() { return MAX_D; }
 
-// Query rows per CTA that the kernel picks for this shape.
-int wd_attention_tile_rows(int bh, int nq) { return plan(bh, nq, 1).rows; }
+// Query rows per CTA that the kernel picks for this shape, at a head width up
+// to 128 (a wider head always takes 64).
+int wd_attention_tile_rows(int bh, int nq) { return plan(bh, nq, 1, MAX_PLANNED_D).rows; }
 
 // The launch plan of a shape at head width d: out[0] query rows a CTA, out[1] keys a chunk, out[2] CTAs (persistent,
 // at most one or two an SM), out[3] dynamic shared memory bytes, out[4] q ring
@@ -736,7 +763,7 @@ int wd_attention_tile_rows(int bh, int nq) { return plan(bh, nq, 1).rows; }
 // consumers' registers a thread after setmaxnreg (0: not used).
 int wd_attention_plan(int bh, int nq, int nk, int d, int* out) {
   if (bh < 1 || nq < 1 || nk < 1 || d < 16 || d % 16 || d > MAX_D) return cudaErrorInvalidValue;
-  const Plan p = plan(bh, nq, nk);
+  const Plan p = plan(bh, nq, nk, d);
   const Smem s = smem_layout(d, p.kc, p.nwg);
   const int filled[8] = {p.rows, p.kc, p.ctas, s.size, s.qst, s.st,
                          p.nwg == 2 ? PRODUCER_REGS : 0, p.nwg == 2 ? CONSUMER_REGS : 0};
@@ -763,6 +790,14 @@ int wd_attention(const void* q, const void* k, const void* v, void* out, float* 
     case 96: return launch<96>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
     case 112: return launch<112>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
     case 128: return launch<128>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
+    case 144: return launch<144>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
+    case 160: return launch<160>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
+    case 176: return launch<176>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
+    case 192: return launch<192>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
+    case 208: return launch<208>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
+    case 224: return launch<224>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
+    case 240: return launch<240>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
+    case 256: return launch<256>(q, k, v, out, lse, bh, nq, nk, scale, fast, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -783,6 +818,14 @@ int wd_attention_probs(const void* q, const void* k, const float* lse, float* p,
     case 96: return launch_probs<96>(q, k, lse, p, bh, nq, nk, scale, s);
     case 112: return launch_probs<112>(q, k, lse, p, bh, nq, nk, scale, s);
     case 128: return launch_probs<128>(q, k, lse, p, bh, nq, nk, scale, s);
+    case 144: return launch_probs<144>(q, k, lse, p, bh, nq, nk, scale, s);
+    case 160: return launch_probs<160>(q, k, lse, p, bh, nq, nk, scale, s);
+    case 176: return launch_probs<176>(q, k, lse, p, bh, nq, nk, scale, s);
+    case 192: return launch_probs<192>(q, k, lse, p, bh, nq, nk, scale, s);
+    case 208: return launch_probs<208>(q, k, lse, p, bh, nq, nk, scale, s);
+    case 224: return launch_probs<224>(q, k, lse, p, bh, nq, nk, scale, s);
+    case 240: return launch_probs<240>(q, k, lse, p, bh, nq, nk, scale, s);
+    case 256: return launch_probs<256>(q, k, lse, p, bh, nq, nk, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -27,8 +27,14 @@ kept graph, fp32 parameter-layout weights), its kernel time also split by
 kernel name; B.8 through ``fold_attention_heads`` on folds as
 ``build_folds`` lays them out and B.7 through ``fold_attention`` on its
 [B, C, H*L] folds; one ``iam`` and one ``iam_fold`` training step at
-B=128 (``train_step``). ``--kinds`` keeps only the named kinds:
+B=128 (``train_step``); B.1 at the widths of ``channel_mult=(1, 2)``
+(``ffn_wide``: d = 320 and 640 at its middle block's M, and d = 768) and
+B.4 at its head widths (``attention_wide``: D = 80, 160 and 256 at its
+middle block's shape), where a tree whose kernel refuses a width records it
+as not taken. ``--kinds`` keeps only the named kinds:
 
+- ``host_ms``: the host's time to issue one call, 10 calls back to back on
+  the host's clock without waiting for the card, the median of 10;
 - ``single_ms``: one call between two CUDA events, the median of 30; the
   host's launch path adds to it where it is longer than the device work;
 - ``launch_ms``: per call over 10 calls back to back between two events, the
@@ -43,15 +49,19 @@ SM those and the dynamic shared memory allow, the cluster sizes B.1 and
 B.5 launch with at each shape, B.5's kernel time at every route (cluster
 of 1, 2, 4, 8; x kept in shared memory or read twice) and, for the route
 it picks, stopped after its first pass and after its statistics
-(``wd_groupnorm_routed``), B.6's kernel time at the UNet's sites on every
-plan (``wd_gn_silu_conv3x3_planned``), and B.4 against SDPA over Nk at B=128, Nq=256
+(``wd_groupnorm_routed``), B.6's time by all four methods at the UNet's
+sites (C=320, and C=640 of channel_mult=(1, 2)) on every plan
+(``wd_gn_silu_conv3x3_planned``), and B.4 against SDPA over Nk at B=128, Nq=256
 (``kernel_ms``), fitted as a fixed cost plus a cost per key chunk of the
 kernel's plan. For the attention kernel's instances it also reports the
 plan's shared memory, ring depths and the registers setmaxnreg gives the
 producer warp and the consumer warpgroups (cuobjdump reads the launch's).
 
-Prints one JSON object a process and a summary; writes everything to
-FILE (default ``build/kernel_times.json``).
+With ``--rounds 2`` the order other, this, this, other is followed by this,
+other, other, this, so that each tree runs first once. Prints one JSON
+object a process and a summary (each tree's mean over its runs, and their
+least and most); writes everything to FILE (default
+``build/kernel_times.json``).
 """
 
 from __future__ import annotations
@@ -72,10 +82,11 @@ ATTN_SHAPES = ((128, 256, 811), (128, 64, 811), (128, 256, 256), (128, 64, 64),
                (128, 256, 42), (128, 64, 42), (16, 256, 42), (16, 16384, 42), (16, 4096, 42),
                (16, 16384, 16384))
 # (B, H, W, C): every B=128 B.6 site (UNet and VAE encoder), the UNet's two
-# resolutions and the decoder's widest at B=16, and a pixel-space ResBlock's
+# resolutions and the decoder's widest at B=16, a pixel-space ResBlock's, and
+# channel_mult=(1, 2)'s 640-wide middle sites at B=16 and 128
 CONV_SHAPES = ((128, 8, 32, 320), (128, 4, 16, 320), (128, 16, 64, 512), (128, 8, 32, 512),
                (128, 32, 128, 256), (128, 64, 256, 128), (16, 8, 32, 320), (16, 4, 16, 320),
-               (16, 64, 256, 128), (16, 64, 256, 320))
+               (16, 64, 256, 128), (16, 64, 256, 320), (16, 4, 16, 640), (128, 4, 16, 640))
 SWEEP_NK = (64, 256, 512, 811, 1024, 2048)
 D, INNER = 320, 1280
 # M of B.1: the UNet's regeneration sites (B=16 at 256 and 64 tokens), its
@@ -98,9 +109,17 @@ GN_SHAPES = tuple((b, h, w, c, 32, silu) for b in (16, 128)
                   for h, w, c, silu in ((8, 32, 640, True), (4, 16, 640, True),
                                         (8, 32, 320, False), (4, 16, 320, False),
                                         (8, 32, 320, True))) + ((16, 64, 256, 256, 32, True),)
+# (M, d) of B.1 at channel_mult (1, 2)'s widths: its middle block (d = 640)
+# at B = 16 and 128 beside d = 320 at the same M, and the widest d it takes;
+# inner = 4d. A tree whose kernel does not take a width records it as such.
+FFN_WIDE = ((16 * 64, 320), (128 * 64, 320), (16 * 64, 640), (128 * 64, 640), (4096, 768))
+# (B, Nq, Nk, D) of B.4 at the (1, 2) middle block's shape, D = 80 beside the
+# wider heads (160: 4 heads of 640; 256 the widest the kernel takes)
+ATTN_WIDE = tuple((b, 64, 42, d) for d in (80, 160, 256) for b in (16, 128))
 KINDS = ("attention", "conv", "ffn", "ffn_bf16", "geglu", "ffn_bwd", "groupnorm", "fold",
-         "fold_b7", "train_step")
+         "fold_b7", "train_step", "ffn_wide", "attention_wide")
 TRAIN_B = 128
+METHODS = ("host_ms", "single_ms", "launch_ms", "kernel_ms")
 
 
 def single_ms(fn, reps: int = 30, warmup: int = 5) -> float:
@@ -123,6 +142,22 @@ def launch_ms(fn, calls: int = 10, reps: int = 10) -> float:
     return single_ms(lambda: [fn() for _ in range(calls)], reps=reps, warmup=1) / calls
 
 
+def host_ms(fn, calls: int = 10, reps: int = 10) -> float:
+    import time
+
+    import torch
+
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) * 1e3 / calls)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def kernel_ms(fn, calls: int = 10, per_call: int | None = None) -> tuple[float, dict]:
     """Device time per call of the kernels ``fn`` launches, and the same by
     kernel name. A trace that caught no kernel event, or (``per_call``: the
@@ -134,33 +169,50 @@ def kernel_ms(fn, calls: int = 10, per_call: int | None = None) -> tuple[float, 
 
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        events = prof.events()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
         # an annotation range (the optimizer's step), not a kernel
         kernels = [e for e in kernels if not e.name.startswith("Optimizer.")]
+        seen.append((len(events), len(kernels)))
         if kernels and (per_call is None or len(kernels) == per_call * calls):
             split = {}
             for e in kernels:
                 split[e.name[:80]] = split.get(e.name[:80], 0.0) + e.time_range.elapsed_us() / 1e3
             return sum(split.values()) / calls, {k: v / calls for k, v in sorted(split.items())}
-    raise RuntimeError("torch.profiler caught no (or not every) kernel in three traces")
+    raise RuntimeError("torch.profiler caught no (or not every) kernel in three traces "
+                       f"((events, kernel events) of each: {seen})")
 
 
 def three_ways(fn, per_call: int | None = None) -> dict:
     k, split = kernel_ms(fn, per_call=per_call)
-    return dict(single_ms=single_ms(fn), launch_ms=launch_ms(fn), kernel_ms=k, split=split)
+    return dict(host_ms=host_ms(fn), single_ms=single_ms(fn), launch_ms=launch_ms(fn),
+                kernel_ms=k, split=split)
 
 
-def attn_inputs(b: int, nq: int, nk: int, seed: int):
+def attn_inputs(b: int, nq: int, nk: int, seed: int, d: int = D_HEAD):
     import torch
 
     g = torch.Generator().manual_seed(seed)
-    return tuple(torch.randn(b, HEADS, n, D_HEAD, generator=g).bfloat16().cuda()
+    return tuple(torch.randn(b, HEADS, n, d, generator=g).bfloat16().cuda()
                  for n in (nq, nk, nk))
+
+
+def takes(fn, may_refuse: bool):
+    """``three_ways(fn)``; with ``may_refuse`` (the other tree, an earlier
+    one, whose kernel may not take the width), None where it refuses the
+    shape. This tree's refusal raises."""
+    if may_refuse:
+        try:
+            fn()
+        except ValueError:
+            return None
+    return three_ways(fn)
 
 
 def conv_inputs(b: int, h: int, w: int, c: int, seed: int):
@@ -175,16 +227,16 @@ def conv_inputs(b: int, h: int, w: int, c: int, seed: int):
     return x, scale, bias, wt, cb
 
 
-def ffn_inputs(m: int, seed: int):
+def ffn_inputs(m: int, seed: int, d: int = D, inner: int = INNER):
     """x, LayerNorm affine and biases; fp32 weights in parameter layout
     (w1 [2*inner, d], w2 [d, inner]) as the UNet holds them."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g)
-    t = dict(x=r(m, D).bfloat16(), gamma=1 + 0.1 * r(D), beta=0.1 * r(D),
-             w1=r(2 * INNER, D) / D ** 0.5, b1=0.02 * r(2 * INNER), w2=r(D, INNER) / INNER ** 0.5,
-             b2=0.02 * r(D))
+    t = dict(x=r(m, d).bfloat16(), gamma=1 + 0.1 * r(d), beta=0.1 * r(d),
+             w1=r(2 * inner, d) / d ** 0.5, b1=0.02 * r(2 * inner), w2=r(d, inner) / inner ** 0.5,
+             b2=0.02 * r(d))
     return {k: v.cuda() for k, v in t.items()}
 
 
@@ -216,9 +268,10 @@ def norm_inputs(shape, seed: int):
     return x.cuda(), scale.cuda(), bias.cuda()
 
 
-def worker(tree: str, deep: bool, kinds: tuple[str, ...] = KINDS) -> dict:
+def worker(tree: str, deep: bool, kinds: tuple[str, ...] = KINDS, other: bool = False) -> dict:
     """Every time of one tree's kernels of ``kinds``; with ``deep``, the
-    resource use, the routes and the Nk sweep too."""
+    resource use, the routes and the Nk sweep too; ``other``: the tree is
+    the other one, whose kernels may refuse the wide shapes."""
     import torch
     import torch.nn.functional as F
 
@@ -233,6 +286,22 @@ def worker(tree: str, deep: bool, kinds: tuple[str, ...] = KINDS) -> dict:
         out["attention"].append(dict(
             shape=[b, nq, nk], kernel=three_ways(lambda: attention.fused_attention(q, k, v, scale)),
             library=three_ways(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))))
+    for i, (b, nq, nk, dh) in enumerate(ATTN_WIDE if "attention_wide" in kinds else ()):
+        q, k, v = attn_inputs(b, nq, nk, seed=70 + i, d=dh)
+        sc = dh ** -0.5
+        out["attention_wide"].append(dict(
+            shape=[b, nq, nk, dh], kernel=takes(lambda: attention.fused_attention(q, k, v, sc), other),
+            library=three_ways(lambda: F.scaled_dot_product_attention(q, k, v, scale=sc))))
+    for i, (m, d) in enumerate(FFN_WIDE if "ffn_wide" in kinds else ()):
+        t = ffn_inputs(m, seed=320 + i, d=d, inner=4 * d)
+        a = (t["x"], t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"], t["b2"], 1e-5)
+
+        def sublayer():
+            with torch.no_grad():
+                return ffn.LnGegluFFN.apply(*a)
+
+        out["ffn_wide"].append(dict(shape=[m, d], kernel=takes(sublayer, other), library=None))
+        del t, a
     for i, (b, h, w, c) in enumerate(CONV_SHAPES if "conv" in kinds else ()):
         x, s, bi, wt, cb = conv_inputs(b, h, w, c, seed=120 + i)
         nchw, ws, bs = x.permute(0, 3, 1, 2), s.bfloat16(), bi.bfloat16()
@@ -375,10 +444,10 @@ def gn_routes(groupnorm) -> list[dict]:
 
 
 def conv_sweep(gn_conv) -> list[dict]:
-    """B.6's kernel time at the UNet's four sites (8 x 32 and 4 x 16, B=16 and
-    128, C=320) on every plan (pixels x channels a CTA, K split) that fits,
-    through ``wd_gn_silu_conv3x3_planned``; the plan the kernel picks is
-    marked."""
+    """B.6's times by all four methods at the UNet's sites (8 x 32 and 4 x 16
+    at C=320, 4 x 16 at C=640; B=16 and 128) on every plan (pixels x channels
+    a CTA, K split) whose channels divide C, through
+    ``wd_gn_silu_conv3x3_planned``; the plan the kernel picks is marked."""
     import ctypes
 
     import torch
@@ -389,15 +458,19 @@ def conv_sweep(gn_conv) -> list[dict]:
     fn.argtypes = [p] * 7 + [i] * 5 + [ctypes.c_float] + [i] * 3 + [p]
     fn.restype = i
     rows = []
-    for k, (b, h, w, c) in enumerate(s for s in CONV_SHAPES if s[1:] in ((8, 32, 320),
-                                                                         (4, 16, 320))):
+    for k, (b, h, w, c) in enumerate(s for s in CONV_SHAPES if s[1:] in (
+            (8, 32, 320), (4, 16, 320), (4, 16, 640))):
         x, sc, bi, wt, cb = conv_inputs(b, h, w, c, seed=700 + k)
         wk = gn_conv.kernel_weight(wt)
         out = torch.empty_like(x)
         stats = torch.empty(b * 32 * 2, dtype=torch.float32, device=x.device)
         picked = gn_conv.plan(b, h, w, c, 32)
         times = {}
-        for px, bn, split in ((128, 160, 0), (128, 64, 0), (64, 160, 1), (64, 64, 1)):
+        for px, bn, split in ((128, 160, 0), (128, 128, 0), (128, 64, 0), (64, 160, 1),
+                              (64, 128, 1), (64, 64, 1)):
+            if c % bn:
+                continue
+
             def run():
                 err = fn(x.data_ptr(), sc.data_ptr(), bi.data_ptr(), wk.data_ptr(), cb.data_ptr(),
                          out.data_ptr(), stats.data_ptr(), b, h, w, c, 32, 1e-6, px, bn, split,
@@ -408,7 +481,9 @@ def conv_sweep(gn_conv) -> list[dict]:
             # the statistics launch first where a sample's CTAs exceed a cluster
             ctas = (-(-h // (px // (16 if w <= 16 else 32)))) * (-(-w // (16 if w <= 16 else 32)))
             per_call = 1 if ctas * -(-c // bn) <= 8 else 2
-            times[f"{px}px x {bn}{' split' if split else ''}"] = kernel_ms(run, per_call=per_call)[0]
+            t = three_ways(run, per_call=per_call)
+            del t["split"]
+            times[f"{px}px x {bn}{' split' if split else ''}"] = t
         rows.append(dict(shape=[b, h, w, c], picked=picked, times=times))
     return rows
 
@@ -451,7 +526,7 @@ def resources(lib: str) -> list[dict]:
     allocated per warp in units of 256; 228 KB of shared memory a SM, 1 KB
     of it reserved per CTA; at most 2048 threads). The dynamic shared memory:
     the attention kernel's from its tile, the FFN kernel's from the library
-    (``wd_ln_geglu_ffn_smem``), the GroupNorm kernel's at most FIT_BYTES."""
+    (``wd_ln_geglu_ffn_plan``), the GroupNorm kernel's at most FIT_BYTES."""
     import ctypes
 
     cuobjdump = os.path.join(os.path.dirname(os.path.dirname(build_nvcc())), "bin", "cuobjdump")
@@ -466,16 +541,18 @@ def resources(lib: str) -> list[dict]:
         extra = {}
         usage = dict((k, int(v)) for k, v in re.findall(r"(REG|STACK|SHARED|LOCAL):(\d+)",
                                                         lines[i + 1]))
-        if m := re.search(r"attention_kernelILi80ELi(\d+)ELi(\d+)ELb([01])E", line):
-            kc, nwg, fast = int(m.group(1)), int(m.group(2)), m.group(3) == "1"
+        m = re.search(r"attention_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb([01])E", line)
+        if m and (int(m.group(1)) == D_HEAD or int(m.group(1)) > 128):
+            dh, kc, nwg, fast = (int(m.group(1)), int(m.group(2)), int(m.group(3)),
+                                 m.group(4) == "1")
             warps = 4 * nwg + 1  # the consumer warpgroups and the producer warp
-            name = f"attention<80, {kc} keys, {nwg} warpgroups{', fast' if fast else ''}>"
+            name = f"attention<{dh}, {kc} keys, {nwg} warpgroups{', fast' if fast else ''}>"
             # the plan of a shape that takes this instance: Nk = the chunk (or
             # past it), and Nq = 64 (one warpgroup) or 128 over enough pairs to
             # fill the card (two)
             plan = (ctypes.c_int * 8)()
             for nk in (kc, 2 * kc + 1):  # one chunk, or the longer contexts' chunk
-                if cdll.wd_attention_plan(1024, 64 * nwg, nk, D_HEAD, plan):
+                if cdll.wd_attention_plan(1024, 64 * nwg, nk, dh, plan):
                     raise RuntimeError("wd_attention_plan refused a shape")
                 if plan[1] == kc:
                     break
@@ -484,9 +561,14 @@ def resources(lib: str) -> list[dict]:
             extra = dict(producer_regs=plan[6], consumer_regs=plan[7], q_slots=plan[4],
                          kv_stages=plan[5])
         elif m := re.search(r"ffn_kernelILi(\d+)ELb([01])E", line):
-            warps = 8
+            # B.1 (LN) / B.2 (bare) of width d: its plan's threads and shared
+            # memory (wd_ln_geglu_ffn_plan)
+            plan = (ctypes.c_int * 5)()
+            if cdll.wd_ln_geglu_ffn_plan(int(m.group(1)), plan):
+                raise RuntimeError("wd_ln_geglu_ffn_plan refused a width")
+            warps, dyn = plan[1] // 32, plan[0]
             name = f"ffn<{m.group(1)}, {'LN' if m.group(2) == '1' else 'bare'}>"
-            dyn = cdll.wd_ln_geglu_ffn_smem()
+            extra = dict(warpgroups=plan[2], stages=plan[3], w2_ring=plan[4])
         elif "gn_cluster_kernel" in line:
             warps, name, dyn = 8, "gn_cluster", 112 * 1024
         elif "ffn_bwd_rows_kernel" in line:
@@ -551,12 +633,24 @@ def sweep(attention, scale: float) -> dict:
     return dict(rows=rows, fit=fit)
 
 
-def run_tree(tree: str, deep: bool, kinds: tuple[str, ...] = KINDS) -> dict:
+def run_order(here: str, other: str | None, rounds: int = 1) -> list[tuple[str, bool]]:
+    """The worker processes, (tree, deep) in turn: other, this, this, other,
+    and in a second round this, other, other, this; this tree alone without
+    ``other``. One of this tree's runs is the deep one."""
+    if other is None:
+        return [(here, True)]
+    order = [(other, False), (here, True), (here, False), (other, False)]
+    return order + [(here, False), (other, False), (other, False), (here, False)][:4 * (rounds - 1)]
+
+
+def run_tree(tree: str, deep: bool, kinds: tuple[str, ...] = KINDS, other: bool = False) -> dict:
     """One worker process on ``tree``'s package."""
     cmd = [sys.executable, os.path.abspath(__file__), "--worker", os.path.abspath(tree),
            "--kinds", ",".join(kinds)]
     if deep:
         cmd.append("--deep")
+    if other:
+        cmd.append("--other-tree")
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"worker on {tree} failed ({res.returncode}):\n{res.stderr[-4000:]}")
@@ -564,26 +658,37 @@ def run_tree(tree: str, deep: bool, kinds: tuple[str, ...] = KINDS) -> dict:
 
 
 def summary(runs: list[dict]) -> list[str]:
-    """Per kind, shape and method: each tree's time (mean of its two runs),
-    the library's where the kind has one, and other / this."""
+    """Per kind, shape and method: each tree's time (the mean of its runs),
+    the library's where the kind has one, other / this, and each tree's
+    least and most run."""
     lines = []
     by_tree = {}
     for r in runs:
         by_tree.setdefault(r["tree"], []).append(r)
     (other, o_runs), (this, t_runs) = by_tree.items()
+
+    def spread(tree_runs, kind, j, method):
+        v = [r[kind][j]["kernel"][method] for r in tree_runs]
+        return statistics.mean(v), f"{min(v):.4f}-{max(v):.4f}"
+
     for kind in KINDS:
         if not o_runs[0].get(kind):
             continue  # timed in this tree only
         for j, row in enumerate(t_runs[0].get(kind, [])):
+            if any(r[kind][j]["kernel"] is None for r in o_runs):
+                lines.append(f"{kind} {row['shape']}: " + "; ".join(
+                    f"{m} this {spread(t_runs, kind, j, m)[0]:.4f}" for m in METHODS)
+                    + " (other: not taken)")
+                continue
             parts = []
-            for method in ("single_ms", "launch_ms", "kernel_ms"):
-                t = statistics.mean(r[kind][j]["kernel"][method] for r in t_runs)
-                o = statistics.mean(r[kind][j]["kernel"][method] for r in o_runs)
+            for method in METHODS:
+                (t, t_range), (o, o_range) = (spread(t_runs, kind, j, method),
+                                              spread(o_runs, kind, j, method))
                 part = f"{method} this {t:.4f} other {o:.4f} ({o / t:.2f}x)"
                 if row["library"] is not None:
                     lib = statistics.mean(r[kind][j]["library"][method] for r in t_runs)
                     part += f" library {lib:.4f}"
-                parts.append(part)
+                parts.append(part + f" runs this {t_range} other {o_range}")
             lines.append(f"{kind} {row['shape']}: " + "; ".join(parts))
     return lines
 
@@ -594,6 +699,9 @@ def main(argv=None) -> int:
     p.add_argument("--out", default="build/kernel_times.json")
     p.add_argument("--worker", help=argparse.SUPPRESS)
     p.add_argument("--deep", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--other-tree", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--rounds", type=int, choices=(1, 2), default=1,
+                   help="2: run the trees again in the reverse order")
     p.add_argument("--kinds", default=",".join(KINDS),
                    help=f"comma-separated kinds to time (default all: {','.join(KINDS)})")
     args = p.parse_args(argv)
@@ -601,7 +709,7 @@ def main(argv=None) -> int:
     if unknown := set(kinds) - set(KINDS):
         p.error(f"unknown kinds {sorted(unknown)}")
     if args.worker:
-        print(json.dumps(worker(args.worker, args.deep, kinds)))
+        print(json.dumps(worker(args.worker, args.deep, kinds, args.other_tree)))
         return 0
     import torch
 
@@ -612,11 +720,8 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(smi, flush=True)
-    if args.other:
-        order = [(args.other, False), (here, True), (here, False), (args.other, False)]
-    else:
-        order = [(here, True)]
-    runs = [run_tree(tree, deep, kinds) for tree, deep in order]
+    runs = [run_tree(tree, deep, kinds, tree == args.other)
+            for tree, deep in run_order(here, args.other, args.rounds)]
     result = dict(device=smi, runs=runs)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
@@ -631,8 +736,7 @@ def main(argv=None) -> int:
         print("conv plans", json.dumps(r))
     for w32, w16 in zip(deep["ffn"], deep["ffn_bf16"]):
         print(f"ffn {w32['shape']} fp32 weights (two cast copies) / bf16 weights: " + "; ".join(
-            f"{m} {w32['kernel'][m]:.4f} / {w16['kernel'][m]:.4f}" for m in
-            ("single_ms", "launch_ms", "kernel_ms")))
+            f"{m} {w32['kernel'][m]:.4f} / {w16['kernel'][m]:.4f}" for m in METHODS))
     if "sweep" in deep:
         print("attention Nk sweep", json.dumps(deep["sweep"]))
     for r in runs:
@@ -640,7 +744,7 @@ def main(argv=None) -> int:
             for row in r.get(kind, []):
                 k = row["kernel"]
                 print(f"{r['tree']} {kind} {row['shape']}: " + "; ".join(
-                    f"{m} {k[m]:.4f}" for m in ("single_ms", "launch_ms", "kernel_ms"))
+                    f"{m} {k[m]:.4f}" for m in METHODS)
                     + " | by kernel " + ", ".join(f"{n} {v:.4f}" for n, v in sorted(
                         k["split"].items(), key=lambda nv: -nv[1])[:12]))
     if args.other:

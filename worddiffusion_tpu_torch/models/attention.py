@@ -13,7 +13,10 @@ JAX wraps the block in ``nn.remat``: the backward recomputes the block's
 forward, kernels included, instead of keeping its activations. The block's FF
 sub-layer (norm3 -> GEGLU FFN -> residual) goes through
 ``ops.ffn.LnGegluFFN``, the CUDA kernel pair (forward and backward) on
-the card. With ``fold_context`` (``UNetConfig.attn_fold_context``) a
+the card, at every width where JAX's model takes its fused kernel
+(``ops.ffn.kernel_takes(d, 4d)``: d = 64k up to 768); a wider block runs the
+plain FF, as JAX runs its unfused one there (``ops.ffn.plain_calls``). With
+``fold_context`` (``UNetConfig.attn_fold_context``) a
 cross-attention over a context of L tokens with ``heads * L <= dim``
 folds its q projection into K and its out projection into V
 (``build_folds``) and runs with its pre-norm and residual as one
@@ -234,11 +237,15 @@ class BasicTransformerBlock(nn.Module):
             x = self._attend(self.attn1, self.norm1, x, None)
             x = self._attend(self.attn2, self.norm2, x, context)
         proj, out, norm = self.ff.net[0].proj, self.ff.net[2], self.norm3
+        kernel = self.use_pallas_ffn is not False
+        if kernel and not ffn.kernel_takes(x.shape[-1], 4 * x.shape[-1]):
+            # JAX's guard (fits_vmem) sends this width to the unfused path
+            ffn.plain_calls += 1
+            kernel = False
         if self.mesh is not None:
             return ffn.ffn_sublayer_tp(x, norm.weight, norm.bias, proj.weight, proj.bias,
-                                       out.weight, out.bias, self.mesh, norm.eps,
-                                       kernel=self.use_pallas_ffn is not False)
-        if self.use_pallas_ffn is False:
+                                       out.weight, out.bias, self.mesh, norm.eps, kernel=kernel)
+        if not kernel:
             return ffn.ln_geglu_ffn_reference(x, norm.weight, norm.bias, proj.weight.t(),
                                               proj.bias, out.weight.t(), out.bias, norm.eps)
         # the fp32 master weights in parameter layout: the op casts them

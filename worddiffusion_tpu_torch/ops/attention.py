@@ -8,7 +8,10 @@ softmax; the probabilities cast to v's dtype; fp32 ``p · v``; output in
 v's dtype. ``fused_attention`` is the autograd Function ``Attention``: a
 CUDA tensor launches the kernel ``csrc/attention.cu``, a CPU tensor takes
 the plain PyTorch version ``attention_reference``, and a CUDA input the
-kernel does not take raises instead of falling back. The JAX kernel has
+kernel does not take raises instead of falling back. The kernel takes head
+widths D % 16 == 0 up to 256: the presets' 80, and the 160 of a UNet with
+``channel_mult=(1, 2)`` (its middle block's 4 heads of 640), which JAX runs
+in XLA at any width. The JAX kernel has
 no backward (a bare ``pallas_call`` has no VJP), so the Function's
 backward recomputes ``attention_reference`` under plain autograd.
 

@@ -26,9 +26,15 @@ this rank's slice of the inner width, then the sum over the model ranks
 and the residual (nothing in the JAX package calls B.2: its partitioning
 rule gathers the sharded weights ahead of B.1).
 
+The forward kernel takes every d = 64k from 64 to 768 (any inner % 64 ==
+0): the widths at which JAX's model sends its FF sub-layer to the Pallas
+kernel, ``kernel_takes(d, 4d)``, the port's copy of that guard. The
+backward kernel takes d = 320 (``check_backward_width``).
+
 ``launches``, ``bwd_launches`` and ``geglu_launches`` count kernel
 launches, so that a run can show that its main path went through the
-kernels.
+kernels; ``plain_calls`` counts the FF sub-layers a model ran plain because
+``kernel_takes`` is false at their width (``models/attention.py``).
 """
 
 from __future__ import annotations
@@ -46,6 +52,12 @@ from . import build
 launches = 0
 bwd_launches = 0
 geglu_launches = 0
+plain_calls = 0
+
+# JAX's VMEM budget for the fused FF (ffn_pallas.py::pick_block_m), bytes
+_VMEM_BUDGET = 14 * 1024 * 1024
+# The width the backward kernel takes (csrc/ln_geglu_ffn_bwd.cu, D_TAKEN)
+BWD_D = 320
 
 _GELU_C, _GELU_K = math.sqrt(2.0 / math.pi), 0.044715
 
@@ -67,6 +79,35 @@ def ln_geglu_ffn_reference(x, gamma, beta, w1, b1, w2, b2, eps: float = 1e-5):
     act = (a * F.gelu(g, approximate="tanh")).to(dt)
     y = (act @ w2.to(dt)).float() + b2.float()
     return (xf + y).to(dt)
+
+
+def kernel_takes(d: int, inner: int) -> bool:
+    """Whether the model runs its FF sub-layer through the fused kernel at
+    these widths: the port's copy of JAX's guard
+    ``worddiffusion_tpu/ops/ffn_pallas.py::fits_vmem`` (``pick_block_m`` at
+    m = 8, whose only row tile is 8), which the model calls on bf16 (2-byte)
+    operands: both weight matrices, their fp32 biases, the double-buffered x
+    and out tiles, the fp32 [8, 2*inner] GEGLU intermediate and the gated
+    activation within the TPU's 14 MiB VMEM budget. The model reads it as
+    JAX's does, with inner = 4d: true for every d = 64k up to 768, false from
+    832 on, where both run the plain FF. It is a rule of the shape alone,
+    decided before any launch."""
+    weights = (d * 2 * inner + inner * d) * 2 + (2 * inner + d) * 4
+    bm = 8
+    tile = 2 * bm * d * 2 * 2 + bm * 2 * inner * 4 + bm * inner * 2
+    return weights + tile <= _VMEM_BUDGET
+
+
+def check_backward_width(d: int) -> None:
+    """Raises unless the backward kernel (B.3) takes width d: it is built for
+    d = 320, every UNet preset's width; training at another width is the
+    next slice of the port."""
+    if d != BWD_D:
+        raise ValueError(
+            f"ln_geglu_ffn_bwd: the FF backward kernel takes d = {BWD_D} only, got d = {d}. "
+            "Training a UNet of another width (channel_mult=(1, 2) runs its middle blocks at "
+            "d = 640) is queued as the next slice of the port (ROADMAP A.3: B.3 for "
+            "d = 64..768); regeneration and sampling run every d = 64k up to 768.")
 
 
 def geglu_ffn_reference(x, w1, b1, w2, b2):
@@ -229,6 +270,8 @@ class LnGegluFFN(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, gamma, beta, w1, b1, w2, b2, eps):
+        if x.device.type == "cuda" and any(ctx.needs_input_grad):
+            check_backward_width(x.shape[-1])  # before the forward, not in the backward
         w1k, w2k = _contiguous_as(w1, x.dtype), _contiguous_as(w2, x.dtype)
         ctx.save_for_backward(x, gamma, beta, w1k, b1, w2k)
         ctx.eps = eps
@@ -321,8 +364,10 @@ def _lib():
     lib.wd_geglu_ffn.restype = i
     lib.wd_ln_geglu_ffn_bwd.argtypes = [p] * 18 + [i, i, i, ctypes.c_float, p]
     lib.wd_ln_geglu_ffn_bwd.restype = i
-    for fn, args in (("wd_ln_geglu_ffn_d", []), ("wd_ln_geglu_ffn_cluster", [i, i]),
-                     ("wd_ln_geglu_ffn_bwd_d", []),
+    lib.wd_ln_geglu_ffn_d.argtypes = [ctypes.POINTER(i)]
+    lib.wd_ln_geglu_ffn_d.restype = None
+    for fn, args in (("wd_ln_geglu_ffn_plan", [i, ctypes.POINTER(i)]),
+                     ("wd_ln_geglu_ffn_cluster", [i, i]), ("wd_ln_geglu_ffn_bwd_d", []),
                      ("wd_ln_geglu_ffn_bwd_plan", [i, i, ctypes.POINTER(i)])):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = i
@@ -331,6 +376,27 @@ def _lib():
     lib.wd_cuda_error_string.argtypes = [i]
     lib.wd_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def forward_widths() -> tuple[int, int, int]:
+    """The widths the forward kernel takes: (least, most, step)."""
+    out = (ctypes.c_int * 3)()
+    _lib().wd_ln_geglu_ffn_d(out)
+    return tuple(out)
+
+
+PLAN_KEYS = ("smem", "threads", "warpgroups", "stages", "w2_ring")
+
+
+def plan(d: int) -> dict:
+    """The forward kernel's plan at width d: dynamic shared memory, threads
+    a CTA, consumer warpgroups, ring stages, and whether W2 streams through
+    the ring in K-quarters (1) or takes a slot of its own (0)."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    if _lib().wd_ln_geglu_ffn_plan(d, out):
+        raise ValueError(f"fused_ln_geglu_ffn: no plan for d={d}")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def cluster_size(m: int, inner: int) -> int:
@@ -365,16 +431,17 @@ def _check(name, t, shape, dtype, dev):
         raise ValueError(f"fused_ln_geglu_ffn: {name} must be contiguous and 16-byte aligned")
 
 
-def _check_operands(x, gamma, beta, w1, b1, w2, d_taken):
+def _check_operands(x, gamma, beta, w1, b1, w2, widths):
     """The kernels' operands; gamma and beta None for the bare FFN. Both
     kernels take the weights in parameter layout (w1 [2*inner, d],
-    w2 [d, inner]) and one width, d_taken."""
+    w2 [d, inner]) and the widths (least, most, step)."""
     d = x.shape[-1]
     inner = w2.shape[-1]
-    if d != d_taken or inner % 64 or inner < 64:
+    lo, hi, step = widths
+    if d % step or not lo <= d <= hi or inner % 64 or inner < 64:
         raise ValueError(
-            f"fused_ln_geglu_ffn: kernel needs d == {d_taken} (other widths: "
-            f"use_pallas_ffn=False, the plain path) and inner % 64 == 0; got d={d}, inner={inner}"
+            f"fused_ln_geglu_ffn: kernel needs d % {step} == 0 with {lo} <= d <= {hi} and "
+            f"inner % 64 == 0; got d={d}, inner={inner}"
         )
     dev, bf16, f32 = x.get_device(), torch.bfloat16, torch.float32
     _check("x", x, x.shape, bf16, dev)
@@ -388,7 +455,7 @@ def _check_operands(x, gamma, beta, w1, b1, w2, d_taken):
 
 
 def _check_fwd(x, gamma, beta, w1, b1, w2, b2):
-    d, inner = _check_operands(x, gamma, beta, w1, b1, w2, _lib().wd_ln_geglu_ffn_d())
+    d, inner = _check_operands(x, gamma, beta, w1, b1, w2, forward_widths())
     _check("b2", b2, (d,), torch.float32, x.get_device())
     return d, inner
 
@@ -438,7 +505,8 @@ def _launch_bwd(x, dy, gamma, beta, w1, b1, w2, eps):
     dw1 [2*inner, d] and dw2 [d, inner] come back so, contiguous."""
     global bwd_launches
     lib = _lib()
-    d, inner = _check_operands(x, gamma, beta, w1, b1, w2, lib.wd_ln_geglu_ffn_bwd_d())
+    check_backward_width(x.shape[-1])
+    d, inner = _check_operands(x, gamma, beta, w1, b1, w2, (BWD_D, BWD_D, 64))
     if x.dim() != 2:
         raise ValueError(f"ln_geglu_ffn_bwd: x must be [M, d], got {tuple(x.shape)}")
     _check("dy", dy, x.shape, torch.bfloat16, x.get_device())
