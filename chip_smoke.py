@@ -290,6 +290,25 @@ Phases, each of which must pass (any failure exits non-zero):
    2 at 160), no plain FF sub-layer (``ops.ffn.plain_calls``) and the device's
    idle share; then one batch of 16 through the pipeline (120 calls, decode,
    OCR, PNGs). The kernels line counts it as ``regenerate_iam_wide``.
+35. (after phase 34) channel_mult (1, 2) training and the fold at C = 640:
+   B.3 against its plain version at every width it takes (d = 64k from 64 to
+   768, M = 1024: the fused route up to 320, the split one above) and at the
+   (1, 2) training sites (d = 320 at M = 128*256, 640 at 128*64), each with
+   its plan, bitwise repeatability and kernel / plain / bound times; the fold
+   at C = 640 (4 heads, L = 42; B = 16 and 128 at N = 64) in both layouts;
+   (a) the train CLI's Trainer on ``--preset iam_wide`` at B=128 for 3 steps
+   (a max_steps stop and a checkpoint; 4 B.1 and 4 B.3 launches a step, no
+   plain FF sub-layer), one step profiled by kernel name and width (B.1 3 at
+   d = 320 and 1 at 640; B.3's fused kernels 3 at 320 and its split ones 1 at
+   640; B.4 6 at D = 80 and 2 at 160) with the device's idle share, one step
+   against the all-plain step on the same weights and draws (loss and every
+   gradient within WIDE_LOSS_TOL / WIDE_GRAD_TOL) and repeated bitwise; (b)
+   ``--preset iam_wide_fold`` (``iam_wide`` with ``attn_fold_context``): one
+   UNet call against all-plain with 8 fold launches (6 of the narrow kernel
+   at C = 320 and 2 of the wide one at 640, by profiled name), one
+   regeneration batch of 16 through the CLI, then 2 training steps (8 fold
+   launches and 8 plain-recompute fold backwards a step). The kernels line counts them as ``train_iam_wide``,
+   ``regenerate_iam_wide_fold`` and ``train_iam_wide_fold``.
 31. the UNet's last two switches, set through ``UNetConfig`` as in JAX:
    (b) ``fast_softmax=True`` (``--preset iam_fast``, registered here): one
    full-width ``iam`` UNet call at B=16 with 8 B.4 launches, all in the fast
@@ -581,15 +600,16 @@ def floors_text(f: dict, ms: float) -> str:
             f"kernel at {f['largest_ms'] / ms:.1%} of the largest")
 
 
-def bwd_plan_text(m: int) -> str:
-    """B.3's launch plan at M rows, as a log fragment."""
+def bwd_plan_text(m: int, d: int = D) -> str:
+    """B.3's launch plan at M rows and width d (inner = 4d), as a log fragment."""
     from worddiffusion_tpu_torch.ops import ffn
 
-    p = ffn.bwd_plan(m, INNER)
-    return (f"rows: {p['rows_tile']}-row tiles, {p['rows_stages']} ring stages, "
-            f"{p['rows_ctas']} CTAs, clusters of {p['rows_cluster']} a tile; weights: "
-            f"{p['weights_ctas']} CTAs in clusters of {p['weights_cluster']}, "
-            f"{p['weights_stages']} ring stages")
+    p = ffn.bwd_plan(m, d, 4 * d)
+    split = f", dxn {p['dxn_ctas']} CTAs" if p["route"] == "split" else ""
+    return (f"{p['route']} route; rows: {p['rows_tile']}-row tiles, {p['rows_stages']} ring "
+            f"stages, {p['rows_ctas']} CTAs, clusters of {p['rows_cluster']} a tile{split}; "
+            f"weights: {p['weights_ctas']} CTAs in clusters of {p['weights_cluster']}, "
+            f"{p['weights_stages']} ring stages, {p['weights_tile_n']}-column tiles")
 
 
 def conv_plan_text(b: int, h: int, w: int, c: int, groups: int) -> str:
@@ -929,6 +949,40 @@ def phase3_geglu(smi: str) -> dict:
     return dict(rows=rows)
 
 
+def bwd_row(smi: str, a: dict) -> dict:
+    """B.3 on kernel-layout inputs ``a`` (x, dy [M, d], JAX-layout weights)
+    against its plain version: the seven gradients, each within BWD_REL_TOL
+    of its max, bitwise repeatable; its plan; kernel / plain / bound times."""
+    import torch
+
+    from worddiffusion_tpu_torch.ops import ffn
+
+    (m, d), inner = a["x"].shape, a["w2"].shape[0]
+    n0 = ffn.bwd_launches
+    got, again = ffn.ln_geglu_ffn_bwd(**a), ffn.ln_geglu_ffn_bwd(**a)
+    torch.cuda.synchronize()
+    assert ffn.bwd_launches == n0 + 2, ffn.bwd_launches - n0
+    want = ffn.ln_geglu_ffn_bwd_reference(**a)
+    errs, shares = [], {}
+    for name, g, w, g2 in zip(GRADS, got, want, again):
+        assert bool(torch.isfinite(g.float()).all()), f"non-finite {name} at M={m} d={d}"
+        assert torch.equal(g, g2), f"{name} differs between two runs at M={m} d={d}"
+        errs.append((g.float() - w.float()).abs().max().item())
+        shares[name] = round(errs[-1] / w.float().abs().max().item(), 6)
+    ms = launch_ms(lambda: ffn.ln_geglu_ffn_bwd(**a))
+    plain_ms = launch_ms(lambda: ffn.ln_geglu_ffn_bwd_reference(**a))
+    # the backward recomputes h = LN(x) W1 and does four more products of
+    # the same size: 16 M d inner operations in all
+    bound_ms, bound_by = bound(nbytes(*a.values(), *got), 16 * m * d * inner)
+    log(f"ffn bwd (B.3) M={m} d={d} inner={inner} ({bwd_plan_text(m, d)}): share of max "
+        f"|plain| by gradient {shares} (tol {BWD_REL_TOL}); bitwise repeatable; kernel "
+        f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), "
+        f"{bound_ms / ms:.1%} of the bound [{smi}]")
+    assert max(shares.values()) <= BWD_REL_TOL, f"backward kernel disagrees at M={m} d={d}"
+    return dict(m=m, d=d, err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, route=ffn.bwd_plan(m, d, inner)["route"])
+
+
 def ffn_bound(inputs: dict, out) -> tuple[float, str]:
     """The forward's bound: its inputs and output, and the two products
     x W1 [M, d] x [d, 2 inner] and act W2 [M, inner] x [inner, d]."""
@@ -966,31 +1020,7 @@ def phase6_ffn_backward(smi: str) -> dict:
                              bound_by=bound_by))
         del f, got, again, want
 
-        a = bwd_inputs(m, seed=10 + i)
-        got = ffn.ln_geglu_ffn_bwd(**a)
-        again = ffn.ln_geglu_ffn_bwd(**a)
-        torch.cuda.synchronize()
-        want = ffn.ln_geglu_ffn_bwd_reference(**a)
-        errs = []
-        for name, g, w, g2 in zip(GRADS, got, want, again):
-            assert bool(torch.isfinite(g.float()).all()), f"non-finite {name} at M={m}"
-            assert torch.equal(g, g2), f"{name} differs between two runs at M={m}"
-            err = (g.float() - w.float()).abs().max().item()
-            share = err / w.float().abs().max().item()
-            errs.append(err)
-            log(f"ffn bwd M={m} {name}: max_abs_err {err:.6g} share of max |plain| "
-                f"{share:.6g} (tol {BWD_REL_TOL}); bitwise repeatable")
-            assert share <= BWD_REL_TOL, f"backward kernel disagrees at M={m}: {name} {share}"
-        ms = launch_ms(lambda: ffn.ln_geglu_ffn_bwd(**a))
-        plain_ms = launch_ms(lambda: ffn.ln_geglu_ffn_bwd_reference(**a))
-        # the backward recomputes h = LN(x) W1 and does four more products of
-        # the same size: 16 M d inner operations in all
-        bound_ms, bound_by = bound(nbytes(*a.values(), *got), 16 * m * D * INNER)
-        log(f"ffn bwd (B.3) M={m} ({bwd_plan_text(m)}): kernel "
-            f"{ms:.4f} ms plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}), "
-            f"{bound_ms / ms:.1%} of the bound [{smi}]")
-        rows.append(dict(m=m, err=max(errs), ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by))
+        rows.append(bwd_row(smi, bwd_inputs(m, seed=10 + i)))
 
     # The autograd Function (forward + backward kernels) against plain
     # autograd of the plain forward, on fp32 master weights in parameter
@@ -1279,7 +1309,7 @@ def phase10_phosc_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
                 probs=probs, s_per_step=s_ / n_)
 
 
-def fold_inputs(b: int, n: int, l: int, seed: int) -> dict:
+def fold_inputs(b: int, n: int, l: int, seed: int, c: int = D) -> dict:
     """Seeded sub-layer inputs scaled like the model's: a unit-scale residual
     stream, LayerNorm affine near identity, folds that give unit-scale
     scores and outputs (B.8's per-head layout), small biases."""
@@ -1287,9 +1317,68 @@ def fold_inputs(b: int, n: int, l: int, seed: int) -> dict:
 
     g = card_generator(seed)
     r = lambda *s: torch.randn(*s, generator=g, device="cuda")
-    return dict(x=r(b, n, D).bfloat16(), wt4=(r(b, HEADS, D, l) / D ** 0.5).bfloat16(),
-                vw4=r(b, HEADS, l, D).bfloat16(), gamma=1 + 0.1 * r(D), beta=0.1 * r(D),
-                b_out=0.02 * r(D))
+    return dict(x=r(b, n, c).bfloat16(), wt4=(r(b, HEADS, c, l) / c ** 0.5).bfloat16(),
+                vw4=r(b, HEADS, l, c).bfloat16(), gamma=1 + 0.1 * r(c), beta=0.1 * r(c),
+                b_out=0.02 * r(c))
+
+
+def fold_row(smi: str, b: int, n: int, l: int, seed: int, c: int = D) -> dict:
+    """The fold at one shape (4 heads) against its plain version through both
+    entries: B.8's folds as build_folds lays them out (wt4 the [..., :L] view
+    of an L stride rounded up to 8: the kernel's TMA route) and contiguous
+    (the producer's copy route at C <= 320, a copy to build_folds' stride
+    above), B.7's [B, C, H*L] folds (vw the same memory); bitwise repeatable,
+    the layouts bitwise equal; its route; kernel / plain / bound times."""
+    import torch
+    import torch.nn.functional as F
+
+    from worddiffusion_tpu_torch.ops import fold_attention as fa
+
+    t = fold_inputs(b, n, l, seed, c)
+    vecs = (t["gamma"], t["beta"], t["b_out"])
+    wt4p = F.pad(t["wt4"], (0, -l % 8))[..., :l]
+    wt = t["wt4"].permute(0, 2, 1, 3).reshape(b, c, HEADS * l).contiguous()
+    vw = t["vw4"].view(b, HEADS * l, c)
+
+    def per_head():
+        return fa.fold_attention_heads(t["x"], wt4p, t["vw4"], *vecs)
+
+    def flat():
+        return fa.fold_attention(t["x"], wt, vw, *vecs, HEADS)
+
+    def plain():
+        return fa.fold_attention_reference(t["x"], t["wt4"], t["vw4"], *vecs)
+
+    n0 = fa.launches
+    got, again, got7 = per_head(), per_head(), flat()
+    contiguous = fa.fold_attention_heads(t["x"], t["wt4"], t["vw4"], *vecs)
+    torch.cuda.synchronize()
+    assert fa.launches == n0 + 4, fa.launches - n0
+    want = plain()
+    err = max((g.float() - want.float()).abs().max().item() for g in (got, got7, contiguous))
+    rel = err / want.float().abs().max().item()
+    ms, ms7, plain_ms = launch_ms(per_head), launch_ms(flat), launch_ms(plain)
+    bound_ms, bound_by = bound(nbytes(*t.values(), got), 4 * b * n * c * HEADS * l)
+    wt_routes = {name: fa.wt_route(w) for name, w in (
+        ("build_folds", wt4p), ("contiguous", t["wt4"]),
+        ("B.7", wt.view(b, c, HEADS, l).transpose(1, 2)))}
+    ctas = fa.ctas(b, n, c, l)
+    log(f"fold attention B={b} N={n} C={c} H={HEADS} L={l} (route: {ctas} persistent CTAs "
+        f"for {b * -(-n // 64)} tiles of 64 rows and {HEADS} heads, cluster 1; wt arrives "
+        f"{wt_routes}): max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {FOLD_REL_TOL}); "
+        f"bitwise repeatable {torch.equal(got, again)}; B.7 layout == B.8 layout "
+        f"{torch.equal(got, got7)}; contiguous == build_folds' {torch.equal(got, contiguous)}; "
+        f"kernel {ms:.4f} ms (B.7 layout {ms7:.4f} ms) plain {plain_ms:.4f} ms bound "
+        f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of the bound [{smi}]")
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all()), f"non-finite fold at {b, n, l, c}"
+    assert torch.equal(got, again), f"fold attention differs between two runs at {b, n, l, c}"
+    assert torch.equal(got, got7) and torch.equal(got, contiguous), \
+        f"the layouts differ at {b, n, l, c}"
+    assert wt_routes["build_folds"] == "tma", wt_routes
+    assert rel <= FOLD_REL_TOL, f"fold attention kernel disagrees at {b, n, l, c}: rel {rel}"
+    return dict(b=b, n=n, l=l, c=c, err=err, ms=ms, ms7=ms7, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, ctas=ctas)
 
 
 def phase11_fold(smi: str) -> dict:
@@ -1299,62 +1388,10 @@ def phase11_fold(smi: str) -> dict:
     B.7's [B, C, H*L] folds), its route at each shape, and the Function
     against plain autograd."""
     import torch
-    import torch.nn.functional as F
 
     from worddiffusion_tpu_torch.ops import fold_attention as fa
 
-    rows = []
-    for i, (b, n, l) in enumerate(FOLD_SHAPES):
-        t = fold_inputs(b, n, l, seed=70 + i)
-        vecs = (t["gamma"], t["beta"], t["b_out"])
-        # B.8's folds as build_folds lays them out (wt4 the [..., :L] view of an L
-        # stride rounded up to 8: the kernel's TMA route) and contiguous (the
-        # producer's copy route); B.7's layout of the same folds: wt [B, C, H*L]
-        # (a copy), vw [B, H*L, C] (the same memory)
-        wt4p = F.pad(t["wt4"], (0, -l % 8))[..., :l]
-        wt = t["wt4"].permute(0, 2, 1, 3).reshape(b, D, HEADS * l).contiguous()
-        vw = t["vw4"].view(b, HEADS * l, D)
-
-        def per_head():
-            return fa.fold_attention_heads(t["x"], wt4p, t["vw4"], *vecs)
-
-        def flat():
-            return fa.fold_attention(t["x"], wt, vw, *vecs, HEADS)
-
-        def plain():
-            return fa.fold_attention_reference(t["x"], t["wt4"], t["vw4"], *vecs)
-
-        n0 = fa.launches
-        got, again, got7 = per_head(), per_head(), flat()
-        contiguous = fa.fold_attention_heads(t["x"], t["wt4"], t["vw4"], *vecs)
-        torch.cuda.synchronize()
-        assert fa.launches == n0 + 4, fa.launches - n0
-        want = plain()
-        err = max((g.float() - want.float()).abs().max().item() for g in (got, got7, contiguous))
-        rel = err / want.float().abs().max().item()
-        ms, ms7, plain_ms = launch_ms(per_head), launch_ms(flat), launch_ms(plain)
-        bound_ms, bound_by = bound(nbytes(*t.values(), got), 4 * b * n * D * HEADS * l)
-        wt_routes = {name: fa.wt_route(w) for name, w in (
-            ("build_folds", wt4p), ("contiguous", t["wt4"]),
-            ("B.7", wt.view(b, D, HEADS, l).transpose(1, 2)))}
-        ctas = fa.ctas(b, n, l)
-        log(f"fold attention B={b} N={n} C={D} H={HEADS} L={l} (route: {ctas} persistent CTAs "
-            f"for {b * -(-n // 64)} tiles of 64 rows and {HEADS} heads, cluster 1; wt arrives "
-            f"{wt_routes}): "
-            f"max_abs_err {err:.6g} max_rel_err {rel:.6g} (tol {FOLD_REL_TOL}); bitwise "
-            f"repeatable {torch.equal(got, again)}; B.7 layout == B.8 layout "
-            f"{torch.equal(got, got7)}; contiguous == build_folds' {torch.equal(got, contiguous)}; "
-            f"kernel {ms:.4f} ms (B.7 layout {ms7:.4f} ms) plain {plain_ms:.4f} ms bound "
-            f"{bound_ms:.4f} ms ({bound_by}), {bound_ms / ms:.1%} of the bound [{smi}]")
-        assert got.shape == want.shape and got.dtype == torch.bfloat16
-        assert bool(torch.isfinite(got.float()).all()), f"non-finite fold at {b, n, l}"
-        assert torch.equal(got, again), f"fold attention differs between two runs at {b, n, l}"
-        assert torch.equal(got, got7) and torch.equal(got, contiguous), \
-            f"the layouts differ at {b, n, l}"
-        assert wt_routes["build_folds"] == "tma", wt_routes
-        assert rel <= FOLD_REL_TOL, f"fold attention kernel disagrees at {b, n, l}: rel {rel}"
-        rows.append(dict(b=b, n=n, l=l, err=err, ms=ms, ms7=ms7, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by, ctas=ctas))
+    rows = [fold_row(smi, b, n, l, seed=70 + i) for i, (b, n, l) in enumerate(FOLD_SHAPES)]
 
     # The Function (kernel forward, plain-recompute backward) against plain
     # autograd at the training shape: the output and the six gradients.
@@ -1577,6 +1614,235 @@ def phase34_wide(smi: str, cli, gt: str, work: str, words) -> dict:
                       per_call=(4, 8, 0, *WIDE_NORMS))
     assert ffn.plain_calls == plain0, ffn.plain_calls - plain0
     return dict(out, unet_ms=unet["ms"], busy_ms=prof["busy_ms"], idle=idle, rel=unet["rel"])
+
+
+# (M, d) of B.3's rows in phase 35: every width the kernels take at M = 1024,
+# then channel_mult (1, 2)'s training sites at B = 128 (d = 320 at 256 tokens,
+# d = 640 at the middle block's 64); inner = 4d
+BWD_WIDE_SHAPES = tuple((1024, d) for d in range(64, 769, 64)) + (
+    (TRAIN_B * 256, 320), (TRAIN_B * 64, 640))
+# (B, N) of the fold at C = 640 (4 heads over the 42 characters): the (1, 2)
+# middle block at the regeneration and training batches
+FOLD_WIDE_C, FOLD_WIDE_SHAPES = 640, ((B, 64), (TRAIN_B, 64))
+# A (1, 2) training step all-kernel against all-plain on the same weights and
+# draws, bf16: each of the 4 FF sub-layers' backward differs by a few bf16
+# ulps of each gradient (BWD_REL_TOL bounds one at 2%), the attention and the
+# norms by one bf16 rounding, carried back through the bf16 layers before
+# them: 5% of each gradient's max, floored at 1% of the largest gradient
+# anywhere (a tensor whose gradient is near 0 is held to the step's scale, as
+# tests/test_torch_train.py argues); the loss, an fp32 mean over the batch of
+# the eps error, 1%.
+WIDE_GRAD_TOL, WIDE_GRAD_FLOOR, WIDE_LOSS_TOL = 5e-2, 1e-2, 1e-2
+WIDE_TRAIN_STEPS, WIDE_FOLD_STEPS = 3, 2
+
+
+def bwd_wide_rows(smi: str) -> list:
+    """B.3 at every width (M = 1024) and at the (1, 2) training sites against
+    its plain version (``bwd_row``), each on the route its width takes."""
+    import torch
+
+    rows = []
+    for i, (m, d) in enumerate(BWD_WIDE_SHAPES):
+        a = ffn_inputs(m, seed=300 + i, inner=4 * d, d=d)
+        a["dy"] = (0.1 * torch.randn(m, d, generator=card_generator(400 + i),
+                                     device="cuda")).bfloat16()
+        rows.append(bwd_row(smi, {k: a[k] for k in ("x", "dy", "gamma", "beta", "w1", "b1",
+                                                      "w2")}))
+        assert rows[-1]["route"] == ("fused" if d <= 320 else "split"), rows[-1]
+        del a
+    return rows
+
+
+def fold_wide_rows(smi: str) -> list:
+    """The fold at C = 640 against its plain version in both layouts
+    (``fold_row``)."""
+    return [fold_row(smi, b, n, 42, seed=500 + i, c=FOLD_WIDE_C)
+            for i, (b, n) in enumerate(FOLD_WIDE_SHAPES)]
+
+
+def by_width(prof: dict, patterns) -> dict:
+    """Kernels a call (or step) of a profile whose names hold each pattern."""
+    return {p: sum(n for k, n in prof["per_call"].items() if p in k) for p in patterns}
+
+
+# B.3's kernels by name and width a (1, 2) training step: the fused route at
+# d = 320 (3 FF sub-layers), the split route at d = 640 (the middle block)
+WIDE_STEP_KERNELS = {
+    "ffn_kernel<320,": 3, "ffn_kernel<640,": 1,
+    "ffn_bwd_rows_kernel<320>": 3, "ffn_bwd_weights_kernel<320>": 3,
+    "ffn_bwd_norm_kernel<640>": 1, "ffn_bwd_gate_kernel<640>": 1, "ffn_bwd_dxn_kernel<640>": 1,
+    "ffn_bwd_ln_kernel<640>": 1, "ffn_bwd_weights_kernel<640>": 1, "ffn_bwd_reduce_kernel": 4,
+}
+# the fold's kernels a call or step at (1, 2): the narrow one at the six
+# 320-wide attentions, the wide one (C = 640) at the middle block's two
+WIDE_FOLDS = {"fold_attention_kernel<": 6, "fold_attention_wide_kernel<": 2}
+
+
+def wide_train(smi: str, work: str, corpus, preset: str, steps: int, folds: int) -> dict:
+    """The train CLI's Trainer on ``preset`` at B=128 for ``steps`` steps (a
+    max_steps stop, one checkpoint), its launches counted from 0 over the
+    run; then, on one batch and a fresh state: one step profiled by kernel
+    name and width, with the device's idle share."""
+    import torch
+
+    from worddiffusion_tpu_torch.cli import train as train_cli
+    from worddiffusion_tpu_torch.data.loader import epoch_batches
+    from worddiffusion_tpu_torch.ops import attention, ffn, fold_attention
+    from worddiffusion_tpu_torch.train.step import make_train_step
+
+    gt, cache = corpus
+    trainer = train_cli.build(train_cli.build_parser().parse_args([
+        "--preset", preset, "--gt_train", gt, "--latent_cache", cache,
+        "--batch_size", str(TRAIN_B), "--epochs", "1", "--ckpt_every_epochs", "100",
+        "--save_path", os.path.join(work, preset), "--seed", "0", "--device", "cuda"]))
+    cfg = trainer.exp.unet
+    assert tuple(cfg.channel_mult) == (1, 2) and bool(cfg.attn_fold_context) == bool(folds), cfg
+    initial = {k: v.clone() for k, v in trainer.init_state().model.state_dict().items()}
+    reset_counts()
+    plain0 = ffn.plain_calls
+    t0 = time.perf_counter()
+    state = trainer.run(epochs=1, max_steps=steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(ffn=ffn.launches, ffn_bwd=ffn.bwd_launches, geglu=ffn.geglu_launches,
+                  attn=attention.launches, attn_bwd=attention.bwd_calls,
+                  fold=fold_attention.launches, fold_b7=fold_attention.flat_launches,
+                  fold_bwd=fold_attention.bwd_calls, probs=attention.probs_launches,
+                  attn_fast=attention.fast_launches,
+                  **dict(zip(("gn", "conv", "gn_bwd", "conv_bwd"), norm_counts())))
+    moved = [k for k, v in state.model.state_dict().items()
+             if ".ff.net." in k and k.endswith("weight") and not torch.equal(v, initial[k])]
+    log(f"train {preset}: {state.step} steps of B={TRAIN_B} in {wall:.2f} s incl. a checkpoint; "
+        f"launches {counts}; plain FF sub-layers {ffn.plain_calls - plain0}; FF weights moved "
+        f"{len(moved)} [{smi}]")
+    gn_u, conv_u = WIDE_NORMS
+    want = dict(ffn=4 * steps, ffn_bwd=4 * steps, geglu=0, attn=(8 - folds) * steps,
+                attn_bwd=(8 - folds) * steps, fold=folds * steps, fold_b7=0,
+                fold_bwd=folds * steps, probs=0, attn_fast=0, gn=gn_u * steps, conv=conv_u * steps,
+                gn_bwd=gn_u * steps, conv_bwd=conv_u * steps)
+    assert state.step == steps and counts == want, (state.step, counts, want)
+    assert ffn.plain_calls == plain0, ffn.plain_calls - plain0
+    assert len(moved) == 8 and all(torch.isfinite(p).all() for p in state.model.parameters())
+
+    step_fn = make_train_step(trainer.schedule, trainer.exp, trainer.encode_fn)
+    batch = next(iter(epoch_batches(trainer.dataset, TRAIN_B, epoch=0,
+                                    seed=trainer.exp.train.seed, map_fn=trainer._device_batch)))
+    fresh = trainer.init_state()
+    step_ms = cuda_ms(lambda: step_fn(fresh, batch), reps=3, warmup=1)
+    prof = device_profile(lambda: step_fn(fresh, batch), calls=3)
+    patterns = dict(WIDE_STEP_KERNELS, **(WIDE_FOLDS if folds else
+                                          {"attention_kernel<80,": 6, "attention_kernel<160,": 2}))
+    got = by_width(prof, patterns)
+    idle = 1 - prof["busy_ms"] / step_ms
+    log(f"train step {preset} B={TRAIN_B}: {step_ms:.3f} ms a step, profiled device busy "
+        f"{prof['busy_ms']:.3f} ms ({prof['kernels']:.0f} kernels), idle {idle:.1%}; kernels a "
+        f"step by name and width {got}; top kernels (ms) {prof['top']} [{smi}]")
+    assert got == patterns, (got, patterns)
+    return dict(counts, trainer=trainer, batch=batch, step_fn=step_fn, step_ms=step_ms,
+                busy_ms=prof["busy_ms"], idle=idle)
+
+
+def wide_step_vs_plain(smi: str, run: dict) -> dict:
+    """One (1, 2) training step on a fresh state, all-kernel, against the
+    all-plain step (plain FF, attention, B.5, B.6) on the same weights, batch
+    and draws: the loss and every gradient; then the all-kernel step twice:
+    gradients and updated parameters bitwise equal."""
+    import torch
+
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.models.unet import UNet
+    from worddiffusion_tpu_torch.train.state import TrainState, make_optimizer
+    from worddiffusion_tpu_torch.train.step import make_train_step
+
+    trainer, batch = run["trainer"], run["batch"]
+    exp = trainer.exp
+    plain_exp = exp.replace(unet=dataclasses.replace(exp.unet, use_pallas_ffn=False))
+    # every layer random, the zero-initialised output convs too: with them at
+    # zero no gradient reaches the layers below the last conv
+    init = init_weights_(trainer.init_state().model, seed=1, zero_init=False).state_dict()
+
+    def step(plain: bool):
+        e = plain_exp if plain else exp
+        model = UNet(e.unet).cuda()
+        model.load_state_dict(init)
+        state = TrainState.create(model, make_optimizer(model.parameters(), e.train.lr,
+                                                        e.train.weight_decay))
+        with all_plain() if plain else contextlib.nullcontext():
+            loss = make_train_step(trainer.schedule, e, trainer.encode_fn)(state, batch)["loss"]
+        torch.cuda.synchronize()
+        return loss.item(), {k: p.grad.clone() for k, p in model.named_parameters()}, \
+            {k: p.detach().clone() for k, p in model.named_parameters()}
+
+    (lk, gk, pk), (lp, gp, _), (lk2, gk2, pk2) = step(False), step(True), step(False)
+    floor = WIDE_GRAD_FLOOR * max(g.abs().max().item() for g in gp.values())
+    shares = {k: (gk[k].float() - w.float()).abs().max().item()
+              / max(w.abs().max().item(), floor) for k, w in gp.items()}
+    worst = sorted(shares.items(), key=lambda kv: -kv[1])[:3]
+    ff = [k for k in gp if ".ff.net." in k]
+    assert len(ff) == 16 and all(gp[k].abs().max() > 0 for k in ff), "no gradient reached the FF"
+    loss_rel = abs(lk - lp) / abs(lp)
+    bitwise = lk == lk2 and all(torch.equal(gk[k], gk2[k]) and torch.equal(pk[k], pk2[k])
+                                for k in gk)
+    log(f"train step {exp.name} B={TRAIN_B} all-kernel vs all-plain on the same weights and "
+        f"draws: loss {lk:.6g} vs {lp:.6g} (rel {loss_rel:.3g}, tol {WIDE_LOSS_TOL}); gradients' "
+        f"largest error as a share of max(|plain|, {WIDE_GRAD_FLOOR} of the largest) "
+        f"{worst} (tol {WIDE_GRAD_TOL}); two all-kernel steps bitwise equal {bitwise} [{smi}]")
+    assert loss_rel <= WIDE_LOSS_TOL, (lk, lp)
+    assert max(shares.values()) <= WIDE_GRAD_TOL, worst
+    assert bitwise, "two identical (1, 2) training steps differ"
+    return dict(loss_rel=loss_rel, grad_share=worst[0][1])
+
+
+def phase35_wide_train(smi: str, cli, gt: str, work: str, words, corpus) -> dict:
+    """channel_mult (1, 2) training and the fold at C = 640: B.3 at every
+    width and the fold at C = 640 against their plain versions; (a) the train
+    CLI's Trainer on ``--preset iam_wide`` at B=128 for 3 steps (B.3 at d = 320
+    3 a step, at 640 1 a step), a step profiled by kernel and width, one step
+    against the all-plain step and bitwise repeated; (b) ``--preset
+    iam_wide_fold``: one UNet call against all-plain (8 fold launches, 2 at
+    C = 640, by profiled name), one regeneration batch of 16 through the CLI,
+    and 2 training steps (the fold's backward the plain recompute)."""
+    import torch
+
+    from worddiffusion_tpu_torch.models.layers import init_weights_
+    from worddiffusion_tpu_torch.ops import ffn
+
+    bwd_rows, fold_rows = bwd_wide_rows(smi), fold_wide_rows(smi)
+    wide = wide_train(smi, work, corpus, "iam_wide", WIDE_TRAIN_STEPS, folds=0)
+    vs_plain = wide_step_vs_plain(smi, wide)
+
+    regen, samples = cli.build(regen_cli_args(cli, gt, os.path.join(work, "regen_wide_fold"),
+                                              "--preset", "iam_wide_fold"))
+    sampler = regen.sampler
+    cfg = sampler.model.cfg
+    assert tuple(cfg.channel_mult) == (1, 2) and cfg.attn_fold_context, cfg
+    init_weights_(sampler.model, seed=0, zero_init=False)
+    inputs = unet_inputs(sampler, words, phosc=False)
+    plain0 = ffn.plain_calls
+    unet = unet_check(smi, sampler.model, inputs, "iam_wide_fold",
+                      launches=(4, 0, 8, *WIDE_NORMS))
+    with torch.no_grad():
+        prof = device_profile(lambda: sampler.model(*inputs))
+    folds = by_width(prof, WIDE_FOLDS)
+    log(f"unet B={B} iam_wide_fold, profiled: fold kernels per call by width {folds}; device "
+        f"busy {prof['busy_ms']:.4f} ms/call, idle {1 - prof['busy_ms'] / unet['ms']:.1%} of "
+        f"the unprofiled call ({unet['ms']:.3f} ms) [{smi}]")
+    assert folds == WIDE_FOLDS, folds
+    out = drive_regen(smi, regen, samples[:B], seed=0, label="iam_wide_fold",
+                      per_call=(4, 0, 8, *WIDE_NORMS))
+    assert ffn.plain_calls == plain0, ffn.plain_calls - plain0
+    del regen, sampler
+    wide_fold = wide_train(smi, work, corpus, "iam_wide_fold", WIDE_FOLD_STEPS, folds=8)
+    keys = ("ffn", "ffn_bwd", "attn", "fold", "fold_b7", "gn", "conv", "geglu", "probs",
+            "attn_fast")
+    return dict(bwd_rows=bwd_rows, fold_rows=fold_rows, vs_plain=vs_plain, unet_rel=unet["rel"],
+                step_ms=wide["step_ms"], busy_ms=wide["busy_ms"], idle=wide["idle"],
+                fold_step_ms=wide_fold["step_ms"], paths={
+                    "train_iam_wide": {k: wide[k] for k in keys},
+                    "regenerate_iam_wide_fold": dict(
+                        {k: out[k] for k in ("ffn", "attn", "fold", "gn", "conv", "geglu",
+                                             "fold_b7", "probs")}, ffn_bwd=0, attn_fast=0),
+                    "train_iam_wide_fold": {k: wide_fold[k] for k in keys}})
 
 
 def phase13_fold_train(smi: str, work: str, corpus: tuple[str, str]) -> dict:
@@ -5237,6 +5503,11 @@ def main(argv=None) -> int:
     regen_wide = phase34_wide(smi, cli, gt, work, words)
 
     stamp("34")
+    # -- 35. channel_mult (1, 2) training: B.3 at every width, the fold at C = 640 --------
+    register_iam_preset("iam_wide_fold", channel_mult=(1, 2), attn_fold_context=True)
+    wide35 = phase35_wide_train(smi, cli, gt, work, words, corpus)
+
+    stamp("35")
     # -- 13. iam_fold training ----------------------------------------------------------
     train_f = phase13_fold_train(smi, work, corpus)
 
@@ -5335,7 +5606,7 @@ def main(argv=None) -> int:
                  **{k: dict(v, ffn_bwd=0) for k, v in sampled.items()},
                  **phosc["paths"], **side["paths"], **new["paths"], **par["paths"],
                  **ckpts["paths"],
-                 **orbax["paths"], **switches["paths"]}
+                 **orbax["paths"], **switches["paths"], **wide35["paths"]}
 
     def by_path(*counts, key):
         """The earlier paths' counts in order, then the later paths' ``key``."""
@@ -5463,7 +5734,7 @@ def main(argv=None) -> int:
               ffn_rows + bwd["fwd_rows"] + rows_px["ffn_rows"], main_row, None),
         entry("ln_geglu_ffn_bwd", "worddiffusion_tpu_torch/csrc/ln_geglu_ffn_bwd.cu",
               "worddiffusion_tpu/ops/ffn_pallas.py:397", bwd_paths,
-              bwd["rows"] + rows_px["bwd_rows"], bwd_row, None),
+              bwd["rows"] + rows_px["bwd_rows"] + wide35["bwd_rows"], bwd_row, None),
         entry("attention", "worddiffusion_tpu_torch/csrc/attention.cu",
               "bench_kernels/attention_pallas.py:25", attn_paths,
               attn["rows"] + rows_px["attn_rows"], attn_row, attn_row["library_ms"]),
@@ -5479,13 +5750,13 @@ def main(argv=None) -> int:
               "worddiffusion_tpu/models/attention.py:198", probs_paths, new["maps"]["rows"],
               new["maps"]["rows"][0], new["maps"]["rows"][0]["library_ms"]),
         entry("fold_attention", "worddiffusion_tpu_torch/csrc/fold_attention.cu",
-              "bench_kernels/attn_fold_sublayer_pallas.py:100", fold_paths, fold["rows"],
-              fold_row, None),
+              "bench_kernels/attn_fold_sublayer_pallas.py:100", fold_paths,
+              fold["rows"] + wide35["fold_rows"], fold_row, None),
         # B.7: the same kernel through B.7's [B, C, H*L] folds; no path of the
         # port (or of the JAX package) calls that entry, as each path's count shows
         entry("fold_attention_flat", "worddiffusion_tpu_torch/csrc/fold_attention.cu",
-              "bench_kernels/attn_fold_pallas.py:36", fold7_paths, fold["rows"],
-              dict(fold_row, ms=fold_row["ms7"]), None),
+              "bench_kernels/attn_fold_pallas.py:36", fold7_paths,
+              fold["rows"] + wide35["fold_rows"], dict(fold_row, ms=fold_row["ms7"]), None),
         entry("groupnorm", "worddiffusion_tpu_torch/csrc/groupnorm.cu",
               "bench_kernels/groupnorm_pallas.py:26", gn_paths,
               norms["gn_rows"] + rows_px["gn_rows"], gn_row, gn_row["library_ms"]),

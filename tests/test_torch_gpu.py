@@ -7,6 +7,8 @@ This file imports no JAX, so that it runs on a machine without it:
 (``--noconftest``: tests/conftest.py configures JAX.)
 """
 
+import ctypes
+
 import pytest
 import torch
 
@@ -258,11 +260,19 @@ def test_sublayer_on_parameter_layout_weights_matches_plain_autograd(cuda, m):
         assert err <= BWD_REL_TOL * b.float().abs().max().item(), (name, err)
 
 
-def _bwd_inputs(m, device, seed=0):
-    t = _inputs(m, device, seed)
+def _bwd_inputs(m, device, seed=0, d=D):
+    if d == D:
+        t = _inputs(m, device, seed)
+    else:
+        g = torch.Generator().manual_seed(seed)
+        r = lambda *s: torch.randn(*s, generator=g)
+        t = dict(x=r(m, d).bfloat16(), gamma=1 + 0.1 * r(d), beta=0.1 * r(d),
+                 w1=(r(d, 8 * d) / d ** 0.5).bfloat16(), b1=0.02 * r(8 * d),
+                 w2=(r(4 * d, d) / (4 * d) ** 0.5).bfloat16(), b2=0.02 * r(d))
+        t = {k: v.to(device) for k, v in t.items()}
     t.pop("b2")
     g = torch.Generator().manual_seed(seed + 100)
-    t["dy"] = (0.1 * torch.randn(m, D, generator=g)).bfloat16().to(device)
+    t["dy"] = (0.1 * torch.randn(m, d, generator=g)).bfloat16().to(device)
     order = ("x", "dy", "gamma", "beta", "w1", "b1", "w2")
     return {k: t[k] for k in order}
 
@@ -271,11 +281,17 @@ def _bwd_inputs(m, device, seed=0):
 # M, one tile and one tile and a row (the clusters that share a tile), and a
 # pixel-space site (B=16 at 64 x 256 tokens: 4096 tiles)
 BWD_M = [128 * 256, 128 * 64, 1000, 64, 65, 16 * 64 * 256]
+# (M, d): those at the presets' 320, every other width the forward takes at
+# M = 1024 (the fused route up to 320, the split one above), and channel_mult
+# (1, 2)'s middle block at the training batch (d = 640, M = 128 * 64) and a
+# ragged M at 768
+BWD_CASES = ([(m, D) for m in BWD_M] + [(1024, d) for d in range(64, 769, 64) if d != D]
+             + [(128 * 64, 640), (1000, 768)])
 
 
-@pytest.mark.parametrize("m", BWD_M)
-def test_bwd_kernel_matches_plain(cuda, m):
-    t = _bwd_inputs(m, cuda)
+@pytest.mark.parametrize("m,d", BWD_CASES)
+def test_bwd_kernel_matches_plain(cuda, m, d):
+    t = _bwd_inputs(m, cuda, d=d)
     before = ffn.bwd_launches
     got = ffn.ln_geglu_ffn_bwd(**t)
     torch.cuda.synchronize()
@@ -288,12 +304,14 @@ def test_bwd_kernel_matches_plain(cuda, m):
         assert err <= BWD_REL_TOL * w.float().abs().max().item(), (name, err)
 
 
-@pytest.mark.parametrize("m", [128 * 64 + 40, 65, 128 * 256])
-def test_bwd_kernel_is_bitwise_repeatable(cuda, m):
+@pytest.mark.parametrize("m,d", [(128 * 64 + 40, D), (65, D), (128 * 256, D), (1000, 192),
+                                 (128 * 64, 640), (65, 640), (1000, 768)])
+def test_bwd_kernel_is_bitwise_repeatable(cuda, m, d):
     """No atomics: the sums run in a fixed order, so two runs agree bit
     for bit (the trainer's bitwise resume rests on it), with one CTA a tile
-    (a ragged last tile) and with clusters that share a tile."""
-    t = _bwd_inputs(m, cuda, seed=3)
+    (a ragged last tile) and with clusters that share a tile, on the fused
+    route (d <= 320) and on the split one."""
+    t = _bwd_inputs(m, cuda, seed=3, d=d)
     first = ffn.ln_geglu_ffn_bwd(**t)
     second = ffn.ln_geglu_ffn_bwd(**t)
     torch.cuda.synchronize()
@@ -301,10 +319,12 @@ def test_bwd_kernel_is_bitwise_repeatable(cuda, m):
         assert torch.equal(a, b), name
 
 
-@pytest.mark.parametrize("bad", ["fp32_dy", "dy_shape", "w2_dtype", "wide_d", "narrow_d"])
+@pytest.mark.parametrize("bad", ["fp32_dy", "dy_shape", "w2_dtype", "odd_d", "wide_d",
+                                 "narrow_d"])
 def test_bwd_kernel_refuses_what_it_does_not_take(cuda, bad):
-    """Only d = 320: B.3 is built for the presets' width (training at
-    channel_mult (1, 2) is the next slice); the forward takes d = 64..768."""
+    """B.3 takes the forward's widths, d = 64k from 64 to 768: d = 368 (not a
+    multiple of 64), 832 (past 768) and 32 raise, as do operands of another
+    dtype or shape."""
     t = _bwd_inputs(64, cuda)
     if bad == "fp32_dy":
         t["dy"] = t["dy"].float()
@@ -312,37 +332,33 @@ def test_bwd_kernel_refuses_what_it_does_not_take(cuda, bad):
         t["dy"] = t["dy"][:32].contiguous()
     elif bad == "w2_dtype":
         t["w2"] = t["w2"].float()
-    elif bad == "wide_d":
-        t["x"] = torch.zeros(64, 368, dtype=torch.bfloat16, device=cuda)
     else:
-        t = _bwd_inputs(64, "cpu")
-        d = 256
-        t = dict(t, x=t["x"][:, :d], dy=t["dy"][:, :d], gamma=t["gamma"][:d], beta=t["beta"][:d],
-                 w1=t["w1"][:d], w2=t["w2"][:, :d])
-        t = {k: v.contiguous().to(cuda) for k, v in t.items()}
+        d = {"odd_d": 368, "wide_d": 832, "narrow_d": 32}[bad]
+        t = _bwd_inputs(64, cuda, d=d)
     before = ffn.bwd_launches
     with pytest.raises(ValueError):
         ffn.ln_geglu_ffn_bwd(**t)
     assert ffn.bwd_launches == before
 
 
-def test_bwd_gradients_come_back_contiguous_in_parameter_layout(cuda):
+@pytest.mark.parametrize("d", [D, 640])
+def test_bwd_gradients_come_back_contiguous_in_parameter_layout(cuda, d):
     """The backward kernels write dW1 [2*inner, d] and dW2 [d, inner], the
     parameters' layout, so LnGegluFFN returns them as they are: contiguous
     fp32 tensors of the parameters' shapes, equal to the JAX-layout entry's
-    gradients transposed, bit for bit."""
-    t = _bwd_inputs(1000, cuda, seed=7)
+    gradients transposed, bit for bit, on either route."""
+    t = _bwd_inputs(1000, cuda, seed=7, d=d)
     w1, w2 = t["w1"].t().contiguous(), t["w2"].t().contiguous()
     got = ffn._bwd_params(t["x"], t["dy"], t["gamma"], t["beta"], w1, t["b1"], w2, 1e-5)
     jax_layout = ffn.ln_geglu_ffn_bwd(**t)
     torch.cuda.synchronize()
-    assert got[3].shape == (2 * INNER, D) and got[5].shape == (D, INNER)
+    assert got[3].shape == (8 * d, d) and got[5].shape == (d, 4 * d)
     assert got[3].is_contiguous() and got[5].is_contiguous()
     for name, a, b in zip(GRADS, got, jax_layout):
         assert torch.equal(a, b.t() if name in ("dw1", "dw2") else b), name
     p = {k: v.float().t().contiguous().requires_grad_() for k, v in (("w1", t["w1"]),
                                                                      ("w2", t["w2"]))}
-    b2 = torch.zeros(D, device=cuda)
+    b2 = torch.zeros(d, device=cuda)
     out = ffn.LnGegluFFN.apply(t["x"], t["gamma"], t["beta"], p["w1"], t["b1"], p["w2"], b2,
                                1e-5)
     out.backward(t["dy"])
@@ -351,20 +367,23 @@ def test_bwd_gradients_come_back_contiguous_in_parameter_layout(cuda):
         assert g.dtype == torch.float32 and g.shape == p[k].shape and g.is_contiguous(), k
 
 
-def test_block_backward_goes_through_the_kernels(cuda):
+@pytest.mark.parametrize("dim,n", [(D, 256), (640, 64)])
+def test_block_backward_goes_through_the_kernels(cuda, dim, n):
     """The fault this guards against: a kernel output without an autograd
     graph. On CUDA the FF sub-layer's output needs a gradient, the
     backward launches the backward kernel, and a transformer block's
-    gradients agree with the plain autograd path's."""
+    gradients agree with the plain autograd path's: the presets' block and
+    channel_mult (1, 2)'s middle block (640 wide, 4 heads of 160, 64 tokens:
+    B.3's split route)."""
     from worddiffusion_tpu_torch.models.attention import BasicTransformerBlock
     from worddiffusion_tpu_torch.models.layers import init_weights_
 
-    blocks = [init_weights_(BasicTransformerBlock(D, 4, 80, 320, use_pallas_ffn=u),
+    blocks = [init_weights_(BasicTransformerBlock(dim, 4, dim // 4, 320, use_pallas_ffn=u),
                             seed=1, zero_init=False).to(cuda) for u in (None, False)]
     g = torch.Generator().manual_seed(0)
-    x = torch.randn(8, 256, D, generator=g).bfloat16().to(cuda)
+    x = torch.randn(8, n, dim, generator=g).bfloat16().to(cuda)
     ctx = torch.randn(8, 42, 320, generator=g).bfloat16().to(cuda)
-    co = torch.randn(8, 256, D, generator=g).to(cuda)
+    co = torch.randn(8, n, dim, generator=g).to(cuda)
     grads = []
     for blk in blocks:
         xi = x.clone().requires_grad_()
@@ -663,6 +682,11 @@ def test_block_backward_reaches_qkv_through_the_attention_kernel(cuda):
 # case (L = 13 pads to 16, N = 40 ends mid-tile).
 FOLD_SHAPES = [(16, 256, 42), (16, 64, 42), (128, 256, 42), (128, 64, 42), (2, 40, 13),
                (2, 64, 80), (2, 40, 42)]
+# (B, N, L, C): those at the presets' C = 320, then channel_mult (1, 2)'s middle
+# block (C = 640, N = 64) at the regeneration and training batches, a ragged
+# N with L = 13, and L = 64 and 80 (one ring slot: a head's wt and vw in turn)
+FOLD_CASES = [(b, n, l, D) for b, n, l in FOLD_SHAPES] + [
+    (16, 64, 42, 640), (128, 64, 42, 640), (2, 40, 13, 640), (2, 64, 64, 640), (2, 64, 80, 640)]
 
 
 def _fold_inputs(b, n, l, device, c=D, heads=4, seed=0):
@@ -675,8 +699,8 @@ def _fold_inputs(b, n, l, device, c=D, heads=4, seed=0):
 
 
 @pytest.mark.parametrize("layout", ["b7", "b8", "b8_padded"])
-@pytest.mark.parametrize("b,n,l", FOLD_SHAPES)
-def test_fold_kernel_matches_plain(cuda, layout, b, n, l):
+@pytest.mark.parametrize("b,n,l,c", FOLD_CASES)
+def test_fold_kernel_matches_plain(cuda, layout, b, n, l, c):
     """bf16 out: the two differ in the order of the fp32 sums, which can
     move one bf16 rounding -> within 1% of max |out|; bitwise repeatable,
     and bitwise the contiguous per-head layout's result whatever the
@@ -685,17 +709,20 @@ def test_fold_kernel_matches_plain(cuda, layout, b, n, l):
     producer's threads: a head's columns start off 16 bytes); "b8_padded"
     is wt4 as the [..., :L] view of an L stride rounded up to 8, as
     build_folds returns it (TMA); the contiguous layout is copied by the
-    producer's threads unless L is a multiple of 8."""
+    producer's threads unless L is a multiple of 8. At C = 640 (the wide
+    kernel, TMA only) the wrapper copies those layouts to build_folds' L
+    stride first ("padded")."""
     from worddiffusion_tpu_torch.ops import fold_attention as fa
 
-    t = _fold_inputs(b, n, l, cuda)
+    t = _fold_inputs(b, n, l, cuda, c=c)
     vecs = (t["gamma"], t["beta"], t["b_out"])
     wt4, vw4 = t["wt4"], t["vw4"]
+    copy = "copy" if c <= D else "padded"  # the wide kernel's wt arrives by TMA only
     if layout == "b7":
-        wt = t["wt4"].permute(0, 2, 1, 3).reshape(b, D, 4 * l).contiguous()
-        vw = t["vw4"].reshape(b, 4 * l, D)
-        wt4, vw4 = wt.view(b, D, 4, l).permute(0, 2, 1, 3), vw.view(b, 4, l, D)
-        assert fa.wt_route(wt4) == "copy"
+        wt = t["wt4"].permute(0, 2, 1, 3).reshape(b, c, 4 * l).contiguous()
+        vw = t["vw4"].reshape(b, 4 * l, c)
+        wt4, vw4 = wt.view(b, c, 4, l).permute(0, 2, 1, 3), vw.view(b, 4, l, c)
+        assert fa.wt_route(wt4) == copy
         run = lambda: fa.fold_attention(t["x"], wt, vw, *vecs, 4)
     elif layout == "b8_padded":
         lp = -(-l // 8) * 8
@@ -703,7 +730,7 @@ def test_fold_kernel_matches_plain(cuda, layout, b, n, l):
         assert fa.wt_route(wt4) == "tma"
         run = lambda: fa.fold_attention_heads(t["x"], wt4, t["vw4"], *vecs)
     else:
-        assert fa.wt_route(wt4) == ("tma" if l % 8 == 0 else "copy")
+        assert fa.wt_route(wt4) == ("tma" if l % 8 == 0 else copy)
         run = lambda: fa.fold_attention_heads(t["x"], t["wt4"], t["vw4"], *vecs)
     before = fa.launches
     got, again = run(), run()
@@ -719,19 +746,22 @@ def test_fold_kernel_matches_plain(cuda, layout, b, n, l):
 
 
 @pytest.mark.parametrize("c,heads,b,n,l", [(64, 4, 2, 40, 13), (128, 1, 2, 64, 80),
-                                           (160, 4, 3, 100, 40), (304, 2, 2, 64, 42)])
+                                           (160, 4, 3, 100, 40), (304, 2, 2, 64, 42),
+                                           (336, 4, 2, 64, 42), (512, 4, 3, 70, 33),
+                                           (576, 8, 2, 64, 72)])
 def test_fold_kernel_matches_plain_below_full_width(cuda, c, heads, b, n, l):
-    """A width C < 320 (C % 16 == 0) runs padded to 320, its columns past C
-    zero: within 1% of plain's max |out|, bitwise repeatable, wt4 by TMA (L
-    stride padded to 8) and as it lies (copied where L % 8) giving the same
-    bits. C = 64 and 160 leave whole boxes of x, vw and wt past C."""
+    """A width C (C % 16 == 0) runs padded to the register width above it,
+    320 or 640, its columns past C zero: within 1% of plain's max |out|,
+    bitwise repeatable, wt4 by TMA (L stride padded to 8) and as it lies
+    (copied where L % 8) giving the same bits. C = 64, 160 and 336 leave
+    whole boxes of x, vw and wt past C."""
     from worddiffusion_tpu_torch.ops import fold_attention as fa
 
     t = _fold_inputs(b, n, l, cuda, c=c, heads=heads, seed=c)
     vecs = (t["gamma"], t["beta"], t["b_out"])
     wt4p = torch.nn.functional.pad(t["wt4"], (0, -l % 8))[..., :l]
     assert fa.wt_route(wt4p) == "tma"
-    assert fa.wt_route(t["wt4"]) == ("tma" if l % 8 == 0 else "copy")
+    assert fa.wt_route(t["wt4"]) == ("tma" if l % 8 == 0 else "copy" if c <= D else "padded")
     before = fa.launches
     got, again = (fa.fold_attention_heads(t["x"], wt4p, t["vw4"], *vecs) for _ in range(2))
     contiguous = fa.fold_attention_heads(t["x"], t["wt4"], t["vw4"], *vecs)
@@ -755,8 +785,9 @@ def test_fold_routes_fill_the_card_and_copy_rows_as_they_lie(cuda):
     from worddiffusion_tpu_torch.ops import fold_attention as fa
 
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert fa.ctas(16, 256, 42) == 64 and fa.ctas(16, 64, 42) == 16
-    assert fa.ctas(128, 256, 42) == min(512, sms) and fa.ctas(128, 64, 42) == min(128, sms)
+    assert fa.ctas(16, 256, D, 42) == 64 and fa.ctas(16, 64, D, 42) == 16
+    assert fa.ctas(128, 256, D, 42) == min(512, sms) and fa.ctas(128, 64, D, 42) == min(128, sms)
+    assert fa.ctas(16, 64, 640, 42) == 16 and fa.ctas(128, 64, 640, 42) == min(128, sms)
     g = torch.Generator().manual_seed(0)
     ctx = torch.randn(2, 42, 320, generator=g).bfloat16().to(cuda)
     ws = [(torch.randn(320, 320, generator=g) / 320 ** 0.5).to(cuda) for _ in range(4)]
@@ -798,15 +829,15 @@ def test_fold_kernel_reads_wt_inside_its_allocation(cuda, case, route):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("bad", ["fp32_x", "c_not_16", "c_over_320", "l_over_limit",
+@pytest.mark.parametrize("bad", ["fp32_x", "c_not_16", "c_over_640", "l_over_limit",
                                  "heads_l_over_c", "strided_x", "wt_l_strided"])
 def test_fold_kernel_refuses_what_it_does_not_take(cuda, bad):
     from worddiffusion_tpu_torch.ops import fold_attention as fa
 
     if bad == "c_not_16":
         t = _fold_inputs(2, 64, 13, cuda, c=72)
-    elif bad == "c_over_320":
-        t = _fold_inputs(2, 64, 13, cuda, c=336)
+    elif bad == "c_over_640":
+        t = _fold_inputs(2, 64, 13, cuda, c=656)
     elif bad == "l_over_limit":
         t = _fold_inputs(2, 64, fa._lib().wd_fold_attention_max_l() + 1, cuda, heads=1)
     elif bad == "heads_l_over_c":
@@ -1618,7 +1649,8 @@ def test_unet_channel_mult_12_on_the_kernels(cuda):
 def test_out_of_range_widths_raise(cuda):
     """No fallback on a CUDA tensor: B.1 raises for a d that is not a
     multiple of 64 or is past 768, B.4 for a head past 256, and the FF
-    Function raises at d = 640 where a gradient is wanted (B.3 takes 320)."""
+    Function raises at d = 832 where a gradient is wanted (the model runs
+    that width plain); at d = 640 it launches B.3, whose widths are B.1's."""
     from worddiffusion_tpu_torch.ops import attention
 
     for d in (100, 336, 832):
@@ -1632,8 +1664,17 @@ def test_out_of_range_widths_raise(cuda):
     with pytest.raises(ValueError, match="D <= 256"):
         attention.fused_attention(q, q, q, 0.1)
     assert attention.launches == before
-    assert ffn._lib().wd_ln_geglu_ffn_bwd_d() == ffn.BWD_D
+    widths = (ctypes.c_int * 4)()
+    ffn._lib().wd_ln_geglu_ffn_bwd_d(widths)
+    assert tuple(widths) == (*ffn.BWD_WIDTHS, 320)  # the library's, and the fused route's widest
+    t = _wide_ffn(64, 832, seed=4)
+    x = t["x"].clone().requires_grad_()
+    with pytest.raises(ValueError, match="from 64 to 768"):
+        ffn.fused_ln_geglu_ffn(x, t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"], t["b2"])
     t = _wide_ffn(64, 640, seed=4)
     x = t["x"].clone().requires_grad_()
-    with pytest.raises(ValueError, match=r"ROADMAP A\.3"):
-        ffn.fused_ln_geglu_ffn(x, t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"], t["b2"])
+    before = ffn.bwd_launches
+    ffn.fused_ln_geglu_ffn(x, t["gamma"], t["beta"], t["w1"], t["b1"], t["w2"],
+                           t["b2"]).float().sum().backward()
+    torch.cuda.synchronize()
+    assert ffn.bwd_launches == before + 1 and bool(torch.isfinite(x.grad.float()).all())

@@ -53,6 +53,16 @@ def test_conv_shapes_cover_both_unet_resolutions_at_both_batches():
     assert {chip_smoke.TRAIN_B * 256, chip_smoke.TRAIN_B * 64} <= set(kernel_times.FFN_BWD_M)
 
 
+def test_wide_shapes_cover_the_smoke_runs_wide_rows():
+    """B.3 is timed at every width and (1, 2) training site chip_smoke.py's
+    phase 35 holds against plain, and the fold at its C = 640 shapes."""
+    assert set(chip_smoke.BWD_WIDE_SHAPES) <= set(kernel_times.FFN_BWD_WIDE)
+    assert {d for _, d in kernel_times.FFN_BWD_WIDE} == set(range(64, 769, 64))
+    assert chip_smoke.FOLD_WIDE_C == kernel_times.FOLD_WIDE_C
+    assert set(chip_smoke.FOLD_WIDE_SHAPES) <= set(kernel_times.FOLD_WIDE_BN)
+    assert "ffn_bwd_wide" in kernel_times.KINDS and "fold_wide" in kernel_times.KINDS
+
+
 def test_ffn_bwd_shapes_cover_the_pixel_sites():
     """B.3 is timed at pixel space's two sites (B=16 at 64 x 256 and 32 x 128
     tokens), as chip_smoke.py drives them, beside the training step's."""

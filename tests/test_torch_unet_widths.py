@@ -179,12 +179,17 @@ def test_ffn_kernel_width_check():
         assert "use_pallas_ffn" not in str(e.value)
 
 
-def test_backward_width_names_the_queued_slice():
-    """B.3 takes d = 320: training at (1, 2) reaches it at d = 640 and raises
-    with a message that names the queued slice."""
-    ffn.check_backward_width(320)
-    with pytest.raises(ValueError, match=r"ROADMAP A\.3.*d = 64\.\.768"):
-        ffn.check_backward_width(640)
+@pytest.mark.parametrize("d,takes", [(64, True), (320, True), (640, True), (768, True),
+                                     (32, False), (100, False), (336, False), (832, False)])
+def test_backward_width_takes_the_forward_widths(d, takes):
+    """B.3 takes every d = 64k from 64 to 768, the forward kernel's widths, so
+    training at (1, 2) reaches it at d = 640; any other d raises, naming the
+    range."""
+    if takes:
+        ffn.check_backward_width(d)
+    else:
+        with pytest.raises(ValueError, match=r"d = 64k from 64 to 768, got d = " + str(d)):
+            ffn.check_backward_width(d)
 
 
 @pytest.mark.parametrize("dim", [64, 832])

@@ -35,6 +35,10 @@
 // writes LN(x), the [N, H, L] scores and probabilities and the [N, C] product to
 // memory between them; here none of them leaves the SM.
 //
+// At channel_mult (1, 2)'s middle block (C = 640, N = 64, H = 4, L = 42, folds
+// padded to 48) and B = 128 the same count gives 84 MB (x and y 21 MB, folds
+// 63 MB) against 3.6 us of tensor work: 25 us, memory-bound as well.
+//
 // Design (the parts of attention.cu's B.4, csrc/hopper.cuh):
 //   - a CTA is a consumer warpgroup and a producer warpgroup, one CTA an SM
 //     (227 KB of shared memory, 255 registers a thread, so setmaxnreg has
@@ -79,7 +83,28 @@
 //     columns past C zero: the tensor maps have C columns, so TMA fills the
 //     rest of every box with zeros and clips the stores, and the LayerNorm
 //     takes its statistics over the C columns only. The padding adds zeros
-//     to the sums, and costs the full width's work.
+//     to the sums, and costs the full width's work;
+//   - 320 < C <= 640 (channel_mult (1, 2)'s middle block is 640) runs the
+//     wide kernel as C = 640, padded as above (C = 336 does 640's work, 1.9
+//     times its own). o [64, 640] fp32 would be 320 registers a thread of one
+//     warpgroup, so two consumer warpgroups each hold [64, 320] of it, the
+//     narrow kernel's register tile, and both compute every head's scores
+//     over all C (the score product is as large as a warpgroup's own p . vw_h;
+//     the duplicate costs tensor work that the memory bound hides, and spares
+//     a barrier a head to share p). A third warpgroup or even one producer
+//     warp would cap every thread at 168 registers (a CTA of 9 to 12 warps
+//     has 3 on one of the SM's four register partitions: ptxas spilled o and
+//     serialised the products, C7512), so the wide CTA is the two consumer
+//     warpgroups alone, 255 registers a thread, and consumer thread 0 issues
+//     the TMA loads: each slot's next load once all eight warps have released
+//     it. The x tile is 80 KB, so there is one x buffer (the next tile's x
+//     lands once the tile's store has read it; at (1, 2)'s shapes a CTA has
+//     one tile) and a ring of slots of one wt_h or one vw_h each (C * LP * 2
+//     bytes, a head's wt and vw consecutive loads): 2 at L <= 48 (6 at L <=
+//     16), 1 at L = 64 and 80, where a head stage no longer fits beside x and
+//     each load waits for the product before it. wt4 must come by TMA: the
+//     wrapper (ops/fold_attention.py) gives a layout the tensor map cannot
+//     read (B.7's rows, an odd L) the L stride build_folds gives, one copy.
 // The residual joins the fp32 sum first (o = x + b_out, then each head's
 // product in head order), one rounding at the end, as the contract above: the
 // association differs from B.8's body, (x + sum_h) + b_out, only in fp32
@@ -111,6 +136,7 @@ using namespace hopper;
 
 constexpr int C = 320;      // the register tile's width: o [64, C] fp32 is the consumer's
                             // registers (a narrower width runs padded to it)
+constexpr int C_WIDE = 640;  // the wide kernel's: two consumer warpgroups of C columns each
 constexpr int MAX_L = 80;   // = C / H at the UNet's widths: one head per 80 channels
 constexpr int BM = 64;      // rows a tile: one wgmma M
 constexpr int ATOMS = C / 64;         // 64-column atoms of the 128-byte swizzle across C
@@ -275,40 +301,44 @@ __device__ __forceinline__ void produce(unsigned char* sm, const CUtensorMap* xm
   }
 }
 
-// LayerNorm of an x tile in place (rows past n arrive as zeros and are
-// computed on, not stored): lane l of warp w takes rows 16 w + 4 q + l / 8 (q
-// = 0..3), each the 8-column chunk l % 8 of every atom, so that a warp's
-// 16-byte reads of an atom are 512 contiguous bytes; fp32 statistics in two
-// passes over shared memory (the mean, then the centred squares), then a third
-// that writes, the four rows of a lane side by side, so that few registers are
-// live beside o. Columns past c (zeros) are left out of the statistics and
-// left zero.
+// LayerNorm of an x tile of CW columns in place (rows past n arrive as zeros
+// and are computed on, not stored): lane l of warp w (of NWG warpgroups' 4
+// NWG warps) takes rows (16 / NWG) w + 4 q + l / 8 (q < 4 / NWG), each the
+// 8-column chunk l % 8 of every atom, so that a warp's 16-byte reads of an
+// atom are 512 contiguous bytes; fp32 statistics in two passes over shared
+// memory (the mean, then the centred squares), then a third that writes, a
+// lane's rows side by side, so that few registers are live beside o. Columns
+// past c (zeros) are left out of the statistics and left zero.
+template <int CW, int NWG>
 __device__ __forceinline__ void layer_norm(unsigned char* xn, const float* __restrict__ gamma,
                                            const float* __restrict__ beta, float eps, int c,
                                            int warp, int lane) {
-  const int c8 = lane & 7, r0 = 16 * warp + (lane >> 3);
-  float mu[4] = {0.f, 0.f, 0.f, 0.f}, rs[4] = {0.f, 0.f, 0.f, 0.f};
+  constexpr int NA = CW / 64, RQ = 4 / NWG;
+  const int c8 = lane & 7, r0 = (16 / NWG) * warp + (lane >> 3);
+  float mu[RQ], rs[RQ];
 #pragma unroll
-  for (int a = 0; a < ATOMS; ++a)
+  for (int q = 0; q < RQ; ++q) mu[q] = rs[q] = 0.f;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+  for (int a = 0; a < NA; ++a)
+#pragma unroll
+    for (int q = 0; q < RQ; ++q) {
       float f[8];
       unpack8(*reinterpret_cast<const uint4*>(xn + a * ATOM + sw128(r0 + 4 * q, 8 * c8)), f);
 #pragma unroll
       for (int e = 0; e < 8; ++e) mu[q] += f[e];
     }
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
+  for (int q = 0; q < RQ; ++q) {
     mu[q] += __shfl_xor_sync(0xffffffffu, mu[q], 1);
     mu[q] += __shfl_xor_sync(0xffffffffu, mu[q], 2);
     mu[q] += __shfl_xor_sync(0xffffffffu, mu[q], 4);
     mu[q] /= float(c);
   }
 #pragma unroll
-  for (int a = 0; a < ATOMS; ++a) {
+  for (int a = 0; a < NA; ++a) {
     if (64 * a + 8 * c8 >= c) continue;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < RQ; ++q) {
       float f[8];
       unpack8(*reinterpret_cast<const uint4*>(xn + a * ATOM + sw128(r0 + 4 * q, 8 * c8)), f);
 #pragma unroll
@@ -316,14 +346,14 @@ __device__ __forceinline__ void layer_norm(unsigned char* xn, const float* __res
     }
   }
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
+  for (int q = 0; q < RQ; ++q) {
     rs[q] += __shfl_xor_sync(0xffffffffu, rs[q], 1);
     rs[q] += __shfl_xor_sync(0xffffffffu, rs[q], 2);
     rs[q] += __shfl_xor_sync(0xffffffffu, rs[q], 4);
     rs[q] = rsqrtf(rs[q] / float(c) + eps);
   }
 #pragma unroll
-  for (int a = 0; a < ATOMS; ++a) {
+  for (int a = 0; a < NA; ++a) {
     const int c0 = 64 * a + 8 * c8;
     if (c0 >= c) continue;
     const float4 g0 = __ldg(reinterpret_cast<const float4*>(gamma + c0));
@@ -333,7 +363,7 @@ __device__ __forceinline__ void layer_norm(unsigned char* xn, const float* __res
     const float gm[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
     const float bt[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < RQ; ++q) {
       uint4* at = reinterpret_cast<uint4*>(xn + a * ATOM + sw128(r0 + 4 * q, 8 * c8));
       float f[8], y[8];
       unpack8(*at, f);
@@ -381,6 +411,112 @@ __device__ __forceinline__ void for_fragment(float (&oa)[64], float (&ob)[64], f
 __device__ __forceinline__ float2 pair_at(const unsigned char* xt, int r, int col) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
       xt + (col >> 6) * ATOM + sw128(r, col & 63)));
+}
+
+// A consumer warpgroup's pieces, shared by the narrow and the wide kernel; the
+// warpgroup holds o's 320 columns from cw0 (0 in the narrow kernel), the
+// thread rows r0 and r0 + 8 of them.
+
+// o = x + b_out, from the raw tile before it is normalised in place.
+__device__ __forceinline__ void init_o(float (&oa)[64], float (&ob)[64], float (&oc)[32],
+                                       const unsigned char* xt, const float* __restrict__ bo,
+                                       int c, int r0, int t, int cw0) {
+  for_fragment(oa, ob, oc, t, [&](int col, float& d0, float& d1, float& d2, float& d3) {
+    col += cw0;
+    const float2 bv = col < c ? __ldg(reinterpret_cast<const float2*>(bo + col))
+                              : make_float2(0.f, 0.f);
+    const float2 x0 = pair_at(xt, r0, col), x1 = pair_at(xt, r0 + 8, col);
+    d0 = x0.x + bv.x;
+    d1 = x0.y + bv.y;
+    d2 = x1.x + bv.x;
+    d3 = x1.y + bv.y;
+  });
+}
+
+// y = bf16(o) into the tile.
+__device__ __forceinline__ void store_y(float (&oa)[64], float (&ob)[64], float (&oc)[32],
+                                        unsigned char* xt, int r0, int t, int cw0) {
+  for_fragment(oa, ob, oc, t, [&](int col, float& d0, float& d1, float& d2, float& d3) {
+    col += cw0;
+    unsigned char* at = xt + (col >> 6) * ATOM;
+    *reinterpret_cast<uint32_t*>(at + sw128(r0, col & 63)) = pack_bf16(d0, d1);
+    *reinterpret_cast<uint32_t*>(at + sw128(r0 + 8, col & 63)) = pack_bf16(d2, d3);
+  });
+}
+
+// s = xn . wt_h over the tile's CW columns: CW / 16 steps of m64 x LP x k16;
+// xn K-major, wt_h MN-major (panels CW * 32 bytes apart); waited for.
+template <int CW, int LP>
+__device__ __forceinline__ void scores(float (&s)[LP / 2], const unsigned char* xn,
+                                       const unsigned char* ws) {
+  const uint64_t wd = desc_mn32(ws, CW * 32);
+  pin(s);
+  wgmma_fence();
+#pragma unroll
+  for (int k = 0; k < CW / 16; ++k)
+    wgmma_ss<0, 1>(s, make_desc_sw128(xn + (k >> 2) * ATOM + (k & 3) * 32),
+                   wd + ((k * 16 * 32) >> 4), k > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(s);
+}
+
+// The exact fp32 softmax over the row's l columns (s[4j..4j+1] row g,
+// s[4j+2..] row g + 8, columns 8j + 2t, + 1), in bf16 into p as p . vw's A
+// fragments: n-tiles 2kb and 2kb + 1 are keys 16kb .. + 15.
+template <int LP>
+__device__ __forceinline__ void softmax_p(float (&s)[LP / 2], uint32_t (&p)[LP / 16][4], int l,
+                                          int t) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < LP / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (col >= l) s[4 * j] = s[4 * j + 2] = -INFINITY;
+    if (col + 1 >= l) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  mx[0] = quad_max(mx[0]);
+  mx[1] = quad_max(mx[1]);
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < LP / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[4 * j + e] = __expf(s[4 * j + e] - mx[e >> 1]);
+      sum[e >> 1] += s[4 * j + e];
+    }
+  const float inv[2] = {1.f / quad_sum(sum[0]), 1.f / quad_sum(sum[1])};
+#pragma unroll
+  for (int kb = 0; kb < LP / 16; ++kb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      p[kb][e] = pack_bf16(s[8 * kb + 2 * e] * inv[e & 1], s[8 * kb + 2 * e + 1] * inv[e & 1]);
+}
+
+// o += p . vw_h: LP / 16 steps of m64 x (128, 128, 64) x k16 on the 5 atoms
+// of vw_h at vd (MN-major, atoms LP * 128 bytes apart); waited for.
+template <int LP>
+__device__ __forceinline__ void add_pv(float (&oa)[64], float (&ob)[64], float (&oc)[32],
+                                       uint32_t (&p)[LP / 16][4], uint64_t vd) {
+  pin(oa);
+  pin(ob);
+  pin(oc);
+#pragma unroll
+  for (int kb = 0; kb < LP / 16; ++kb) pin(p[kb]);
+  wgmma_fence();
+#pragma unroll
+  for (int kb = 0; kb < LP / 16; ++kb) {
+    const uint64_t k0 = (kb * 16 * 128) >> 4;
+    wgmma_rs<1>(oa, p[kb], vd + k0, 1);
+    wgmma_rs<1>(ob, p[kb], vd + k0 + ((2 * LP * 128) >> 4), 1);
+    wgmma_rs<1>(oc, p[kb], vd + k0 + ((4 * LP * 128) >> 4), 1);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  pin(oa);
+  pin(ob);
+  pin(oc);
 }
 
 // grid: persistent CTAs (as many as are resident at once), each walking its
@@ -439,17 +575,9 @@ __global__ void __launch_bounds__(THREADS, 1)
     wait_phase(xfull + (i & 1), (i >> 1) & 1);
     // o starts as x + b_out, from the raw tile before it is normalised in place
     const int r0 = 16 * warp + g;
-    for_fragment(oa, ob, oc, t, [&](int col, float& d0, float& d1, float& d2, float& d3) {
-      const float2 bv = col < c ? __ldg(reinterpret_cast<const float2*>(bo + col))
-                                : make_float2(0.f, 0.f);
-      const float2 x0 = pair_at(xn, r0, col), x1 = pair_at(xn, r0 + 8, col);
-      d0 = x0.x + bv.x;
-      d1 = x0.y + bv.y;
-      d2 = x1.x + bv.x;
-      d3 = x1.y + bv.y;
-    });
+    init_o(oa, ob, oc, xn, bo, c, r0, t, 0);
     __syncwarp();  // the warp's rows are read before its lanes normalise them
-    layer_norm(xn, gamma, beta, eps, c, warp, lane);
+    layer_norm<C, 1>(xn, gamma, beta, eps, c, warp, lane);
     fence_proxy_async();  // xn's stores, visible to wgmma
     bar_sync(CONS_BAR, 128);
     for (int h = 0; h < heads; ++h, ++m) {
@@ -457,72 +585,12 @@ __global__ void __launch_bounds__(THREADS, 1)
       const uint32_t parity = (m / S.nst) & 1;
       const unsigned char* ws = sm + S.stages + st * S.stage;
       const unsigned char* vs = ws + S.wt;
-      // s = xn . wt_h: C / 16 steps of m64 x LP x k16; xn K-major, wt_h MN-major
-      // (panels C * 32 bytes apart)
       wait_full(wfull + st, parity);
-      const uint64_t wd = desc_mn32(ws, C * 32);
-      pin(s);
-      wgmma_fence();
-#pragma unroll
-      for (int k = 0; k < C / 16; ++k)
-        wgmma_ss<0, 1>(s, make_desc_sw128(xn + (k >> 2) * ATOM + (k & 3) * 32),
-                       wd + ((k * 16 * 32) >> 4), k > 0);
-      wgmma_commit();
-      wgmma_wait<0>();
-      pin(s);
+      scores<C, LP>(s, xn, ws);
       release(wempty + st, lane);
-
-      // exact fp32 softmax over the row's l columns (s[4j..4j+1] row g, s[4j+2..]
-      // row g + 8, columns 8j + 2t, + 1)
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < LP / 8; ++j) {
-        const int col = 8 * j + 2 * t;
-        if (col >= l) s[4 * j] = s[4 * j + 2] = -INFINITY;
-        if (col + 1 >= l) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
-        mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
-      }
-      mx[0] = quad_max(mx[0]);
-      mx[1] = quad_max(mx[1]);
-      float sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < LP / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s[4 * j + e] = __expf(s[4 * j + e] - mx[e >> 1]);
-          sum[e >> 1] += s[4 * j + e];
-        }
-      const float inv[2] = {1.f / quad_sum(sum[0]), 1.f / quad_sum(sum[1])};
-      // p in bf16 as p . vw's A fragments: n-tiles 2kb and 2kb + 1 are keys 16kb .. + 15
-#pragma unroll
-      for (int kb = 0; kb < LP / 16; ++kb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          p[kb][e] = pack_bf16(s[8 * kb + 2 * e] * inv[e & 1], s[8 * kb + 2 * e + 1] * inv[e & 1]);
-
-      // o += p . vw_h: LP / 16 steps of m64 x (128, 128, 64) x k16 (vw_h MN-major,
-      // atoms LP * 128 bytes apart)
+      softmax_p<LP>(s, p, l, t);
       wait_full(vfull + st, parity);
-      const uint64_t vd = desc_mn(vs, LP * 128);
-      pin(oa);
-      pin(ob);
-      pin(oc);
-#pragma unroll
-      for (int kb = 0; kb < LP / 16; ++kb) pin(p[kb]);
-      wgmma_fence();
-#pragma unroll
-      for (int kb = 0; kb < LP / 16; ++kb) {
-        const uint64_t k0 = (kb * 16 * 128) >> 4;
-        wgmma_rs<1>(oa, p[kb], vd + k0, 1);
-        wgmma_rs<1>(ob, p[kb], vd + k0 + ((2 * LP * 128) >> 4), 1);
-        wgmma_rs<1>(oc, p[kb], vd + k0 + ((4 * LP * 128) >> 4), 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      pin(oa);
-      pin(ob);
-      pin(oc);
+      add_pv<LP>(oa, ob, oc, p, desc_mn(vs, LP * 128));
       release(vempty + st, lane);
       if (h == 0 && i > 0 && tid == 0) {
         // the last tile's store has read its x buffer: the tile after this may land there
@@ -533,16 +601,170 @@ __global__ void __launch_bounds__(THREADS, 1)
     // y = bf16(o) into xn, its last reader (the score products) done in every
     // warp; then TMA stores, rows past n clipped
     bar_sync(CONS_BAR, 128);
-    for_fragment(oa, ob, oc, t, [&](int col, float& d0, float& d1, float& d2, float& d3) {
-      unsigned char* at = xn + (col >> 6) * ATOM;
-      *reinterpret_cast<uint32_t*>(at + sw128(r0, col & 63)) = pack_bf16(d0, d1);
-      *reinterpret_cast<uint32_t*>(at + sw128(r0 + 8, col & 63)) = pack_bf16(d2, d3);
-    });
+    store_y(oa, ob, oc, xn, r0, t, 0);
     fence_proxy_async();  // y's stores, visible to the TMA store
     bar_sync(CONS_BAR, 128);
     if (tid == 0) {
       for (int a = 0; a < ATOMS; ++a) tma_store_3d(&omap, xn + a * ATOM, 64 * a, row0, b);
       bulk_commit();
+    }
+  }
+  if (tid == 0) bulk_wait<0>();
+}
+
+// --- the wide kernel: 320 < C <= 640 ---
+
+// Shared memory of a wide CTA, bytes from a 1024-byte aligned base: the x tile
+// [64][640] (10 atoms), then NS slots of C_WIDE * LP * 2 bytes (a wt_h in LP /
+// 16 panels, or a vw_h in 10 atoms, as the narrow kernel's), as many pairs as
+// fit (at most MAX_STAGES), else as many slots; then the barriers (x full;
+// full, empty per slot).
+struct WideSmem {
+  int slot, ns, bars, size;
+};
+
+__host__ __device__ constexpr WideSmem wide_layout(int lp) {
+  WideSmem s{};
+  s.slot = C_WIDE * lp * 2;
+  const int avail = SMEM - 1024 - 8 * (1 + 4 * MAX_STAGES) - BM * C_WIDE * 2;
+  const int pairs = avail / (2 * s.slot);
+  s.ns = pairs >= 1 ? 2 * (pairs > MAX_STAGES ? MAX_STAGES : pairs) : avail / s.slot;
+  s.bars = BM * C_WIDE * 2 + s.ns * s.slot;
+  s.size = s.bars + 8 * (1 + 2 * s.ns) + 1024;  // + the base's alignment
+  return s;
+}
+
+// Slot load j of a wide CTA (two a head of each of its units: wt_h, then
+// vw_h), by TMA into slot j % NS, completing on its full barrier; nothing past
+// the CTA's last unit. The caller has seen the slot's last load released.
+template <int LP>
+__device__ __forceinline__ void wide_load(unsigned char* sm, const CUtensorMap* wtmap,
+                                          const CUtensorMap* vwmap, uint64_t* full, int j,
+                                          int heads, int units, int groups) {
+  constexpr WideSmem S = wide_layout(LP);
+  const int i = j / (2 * heads), h = (j / 2) % heads;
+  const int u = blockIdx.x + i * gridDim.x;
+  if (u >= units) return;
+  const int b = u / groups, slot = j % S.ns;
+  unsigned char* dst = sm + BM * C_WIDE * 2 + slot * S.slot;
+  mbar_expect_tx(full + slot, S.slot);
+  if (j % 2 == 0) {  // wt_h: LP / 16 panels of NB boxes of WT_BOX rows
+    constexpr int NB = C_WIDE / WT_BOX;
+    for (int q = 0; q < NB * (LP / 16); ++q)
+      tma_load_4d(dst + (q / NB) * C_WIDE * 32 + (q % NB) * WT_BOX * 32, wtmap, full + slot,
+                  16 * (q / NB), (q % NB) * WT_BOX, h, b);
+  } else {  // vw_h: 10 atoms of [LP][64]
+    for (int a = 0; a < C_WIDE / 64; ++a)
+      tma_load_4d(dst + a * LP * 128, vwmap, full + slot, 64 * a, 0, h, b);
+  }
+}
+
+// As slot load j once every consumer warp has released the slot's last load.
+template <int LP>
+__device__ __forceinline__ void wide_refill(unsigned char* sm, const CUtensorMap* wtmap,
+                                            const CUtensorMap* vwmap, uint64_t* full,
+                                            uint64_t* empty, int j, int loads, int heads,
+                                            int units, int groups) {
+  constexpr WideSmem S = wide_layout(LP);
+  if (j >= loads) return;
+  wait_phase(empty + j % S.ns, ((j / S.ns) & 1) ^ 1);
+  wide_load<LP>(sm, wtmap, vwmap, full, j, heads, units, groups);
+}
+
+// grid: persistent CTAs as the narrow kernel's; 256 threads, warpgroup w the
+// columns [320 w, 320 w + 320) of o; thread 0 also issues every TMA load (x,
+// and each slot's next load after its release) and the stores.
+template <int LP>
+__global__ void __launch_bounds__(256, 1)
+    fold_attention_wide_kernel(const __grid_constant__ CUtensorMap xmap,
+                               const __grid_constant__ CUtensorMap wtmap,
+                               const __grid_constant__ CUtensorMap vwmap,
+                               const __grid_constant__ CUtensorMap omap,
+                               const float* __restrict__ gamma, const float* __restrict__ beta,
+                               const float* __restrict__ bo, int c, int heads, int l, float eps,
+                               int units, int groups) {
+  constexpr WideSmem S = wide_layout(LP);
+  constexpr int X_BYTES = BM * C_WIDE * 2;
+  static_assert(S.ns >= 1 && S.size <= SMEM, "the ring fits");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* xfull = reinterpret_cast<uint64_t*>(sm + S.bars);
+  uint64_t* full = xfull + 1;
+  uint64_t* empty = full + S.ns;
+  unsigned char* xn = sm;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int cw0 = C * (tid / 128);  // this warpgroup's first column of o
+  const int mine = blockIdx.x < units ? (units - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int loads = 2 * heads * mine;
+  if (tid == 0) {
+    mbar_init(xfull, 1);
+    for (int i = 0; i < S.ns; ++i) {
+      mbar_init(full + i, 1);   // thread 0's expect_tx
+      mbar_init(empty + i, 8);  // each consumer warp
+    }
+    fence_mbar_init();
+    if (mine) {  // the first tile's x, and the ring's first loads
+      mbar_expect_tx(xfull, X_BYTES);
+      for (int a = 0; a < C_WIDE / 64; ++a)
+        tma_load_3d(xn + a * ATOM, &xmap, xfull, 64 * a, (blockIdx.x % groups) * BM,
+                    blockIdx.x / groups);
+      for (int j = 0; j < S.ns && j < loads; ++j)
+        wide_load<LP>(sm, &wtmap, &vwmap, full, j, heads, units, groups);
+    }
+  }
+  __syncthreads();
+
+  float s[LP / 2], oa[64], ob[64], oc[32];
+  uint32_t p[LP / 16][4];
+#pragma unroll
+  for (int i = 0; i < LP / 2; ++i) s[i] = 0.f;
+  int k = 0, i = 0;  // slot loads consumed and units so far
+  for (int u = blockIdx.x; u < units; u += gridDim.x, ++i) {
+    const int b = u / groups, row0 = (u % groups) * BM;
+    wait_phase(xfull, i & 1);
+    // o starts as x + b_out, from the raw tile before it is normalised in place
+    const int r0 = 16 * (warp % 4) + g;
+    init_o(oa, ob, oc, xn, bo, c, r0, t, cw0);
+    bar_sync(CONS_BAR, 256);  // both warpgroups have read the raw rows
+    layer_norm<C_WIDE, 2>(xn, gamma, beta, eps, c, warp, lane);
+    fence_proxy_async();  // xn's stores, visible to wgmma
+    bar_sync(CONS_BAR, 256);
+    for (int h = 0; h < heads; ++h, k += 2) {
+      const int sw = k % S.ns, sv = (k + 1) % S.ns;
+      wait_full(full + sw, (k / S.ns) & 1);
+      scores<C_WIDE, LP>(s, xn, sm + X_BYTES + sw * S.slot);  // over all 640 columns
+      release(empty + sw, lane);
+      softmax_p<LP>(s, p, l, t);
+      // wt_h's slot takes its next load (the scores no longer live)
+      if (tid == 0)
+        wide_refill<LP>(sm, &wtmap, &vwmap, full, empty, k + S.ns, loads, heads, units, groups);
+      // o += p . vw_h over this warpgroup's 5 atoms of the 10
+      wait_full(full + sv, ((k + 1) / S.ns) & 1);
+      add_pv<LP>(oa, ob, oc, p, desc_mn(sm + X_BYTES + sv * S.slot + (cw0 / 64) * LP * 128,
+                                        LP * 128));
+      release(empty + sv, lane);
+      if (tid == 0)
+        wide_refill<LP>(sm, &wtmap, &vwmap, full, empty, k + 1 + S.ns, loads, heads, units,
+                        groups);
+    }
+    // y = bf16(o) into xn, its last reader (the score products) done in every
+    // warp; then TMA stores, rows past n clipped; the next tile's x lands once
+    // they have read it
+    bar_sync(CONS_BAR, 256);
+    store_y(oa, ob, oc, xn, r0, t, cw0);
+    fence_proxy_async();  // y's stores, visible to the TMA store
+    bar_sync(CONS_BAR, 256);
+    if (tid == 0) {
+      for (int a = 0; a < C_WIDE / 64; ++a) tma_store_3d(&omap, xn + a * ATOM, 64 * a, row0, b);
+      bulk_commit();
+      const int next = u + gridDim.x;
+      if (next < units) {
+        bulk_wait_read<0>();
+        mbar_expect_tx(xfull, X_BYTES);
+        for (int a = 0; a < C_WIDE / 64; ++a)
+          tma_load_3d(xn + a * ATOM, &xmap, xfull, 64 * a, (next % groups) * BM, next / groups);
+      }
     }
   }
   if (tid == 0) bulk_wait<0>();
@@ -571,7 +793,7 @@ struct Args {
 
 bool valid(const Args& a) {
   return a.b >= 1 && a.b <= 65535 && a.n >= 1 && a.heads >= 1 && a.l >= 1 && a.l <= MAX_L &&
-         a.heads * a.l <= a.c && a.c % 16 == 0 && a.c <= C;
+         a.heads * a.l <= a.c && a.c % 16 == 0 && a.c <= C_WIDE;
 }
 
 int lp_of(int l) { return (l + 15) / 16 * 16; }
@@ -595,24 +817,33 @@ int wt_mode(const Args& a, CUtensorMap* map) {
   return WT_COPY;
 }
 
-// The CTAs of the instance at LP resident at once on the device (one an SM by
-// its shared memory), into *resident, once the instance may take its shared
-// memory; read once per instance and device.
-template <int LP>
+// The CTAs of the instance (the narrow or the wide kernel at LP) resident at
+// once on the device (one an SM by its shared memory), into *resident, once
+// the instance may take its shared memory; read once per instance and device.
+template <bool WIDE, int LP>
 cudaError_t resident_ctas(int* resident) {
-  constexpr Smem S = smem_layout(LP);
   static std::atomic<int> cached[64];  // zero: not yet read
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if ((*resident = cached[dev].load())) return cudaSuccess;
-  e = cudaFuncSetAttribute(fold_attention_kernel<LP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           S.size);
-  if (e != cudaSuccess) return e;
   int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fold_attention_kernel<LP>, THREADS,
-                                                    S.size);
+  if constexpr (WIDE) {
+    constexpr int size = wide_layout(LP).size;
+    e = cudaFuncSetAttribute(fold_attention_wide_kernel<LP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, size);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fold_attention_wide_kernel<LP>,
+                                                      256, size);
+  } else {
+    constexpr Smem S = smem_layout(LP);
+    e = cudaFuncSetAttribute(fold_attention_kernel<LP>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, S.size);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fold_attention_kernel<LP>, THREADS,
+                                                      S.size);
+  }
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   *resident = per_sm * sm_count();
@@ -623,24 +854,30 @@ cudaError_t resident_ctas(int* resident) {
 // The CTAs a launch at LP of `units` tiles takes: as many as are resident, at
 // most one a tile; 0 on an error.
 template <int LP>
-int ctas(int units) {
+int ctas(int units, bool wide) {
   int resident = 0;
-  return resident_ctas<LP>(&resident) == cudaSuccess ? std::min(units, resident) : 0;
+  const cudaError_t e = wide ? resident_ctas<true, LP>(&resident)
+                             : resident_ctas<false, LP>(&resident);
+  return e == cudaSuccess ? std::min(units, resident) : 0;
+}
+
+// The maps of x, out (C columns: TMA fills the boxes' columns past a.c with
+// zeros and clips the stores) and vw.
+bool io_maps(const Args& a, int lp, CUtensorMap* xmap, CUtensorMap* vwmap, CUtensorMap* omap) {
+  const long long c = a.c, nc = (long long)a.n * c, lc = (long long)a.l * c;
+  return encode(xmap, map_key(a.x, 3, {c, a.n, a.b}, {2 * c, 2 * nc}, {64, BM, 1})) &&
+         encode(omap, map_key(a.out, 3, {c, a.n, a.b}, {2 * c, 2 * nc}, {64, BM, 1})) &&
+         encode(vwmap, map_key(a.vw, 4, {c, a.l, a.heads, a.b}, {2 * c, 2 * lc, 2 * lc * a.heads},
+                               {64, lp, 1, 1}));
 }
 
 template <int LP>
 cudaError_t launch(const Args& a, int mode, const CUtensorMap& wtmap, cudaStream_t stream) {
   constexpr Smem S = smem_layout(LP);
   CUtensorMap xmap, vwmap, omap;
-  // C columns (a.c <= C): TMA fills the boxes' columns past a.c with zeros
-  const long long c = a.c, nc = (long long)a.n * c, lc = (long long)a.l * c;
-  if (!encode(&xmap, map_key(a.x, 3, {c, a.n, a.b}, {2 * c, 2 * nc}, {64, BM, 1})) ||
-      !encode(&omap, map_key(a.out, 3, {c, a.n, a.b}, {2 * c, 2 * nc}, {64, BM, 1})) ||
-      !encode(&vwmap, map_key(a.vw, 4, {c, a.l, a.heads, a.b}, {2 * c, 2 * lc, 2 * lc * a.heads},
-                          {64, LP, 1, 1})))
-    return cudaErrorInvalidValue;
+  if (!io_maps(a, LP, &xmap, &vwmap, &omap)) return cudaErrorInvalidValue;
   int resident = 0;
-  cudaError_t err = resident_ctas<LP>(&resident);
+  cudaError_t err = resident_ctas<false, LP>(&resident);
   if (err != cudaSuccess) return err;
   const int groups = row_tiles(a.n), units = a.b * groups;
   fold_attention_kernel<LP><<<std::min(units, resident), THREADS, S.size, stream>>>(
@@ -651,51 +888,81 @@ cudaError_t launch(const Args& a, int mode, const CUtensorMap& wtmap, cudaStream
   return cudaGetLastError();
 }
 
+// The wide kernel reads wt by TMA only (a copy route is refused).
+template <int LP>
+cudaError_t launch_wide(const Args& a, int mode, const CUtensorMap& wtmap, cudaStream_t stream) {
+  if (mode != WT_TMA) return cudaErrorInvalidValue;
+  CUtensorMap xmap, vwmap, omap;
+  if (!io_maps(a, LP, &xmap, &vwmap, &omap)) return cudaErrorInvalidValue;
+  int resident = 0;
+  cudaError_t err = resident_ctas<true, LP>(&resident);
+  if (err != cudaSuccess) return err;
+  const int groups = row_tiles(a.n), units = a.b * groups;
+  fold_attention_wide_kernel<LP><<<std::min(units, resident), 256, wide_layout(LP).size,
+                                   stream>>>(
+      xmap, wtmap, vwmap, omap, static_cast<const float*>(a.gamma),
+      static_cast<const float*>(a.beta), static_cast<const float*>(a.bo), a.c, a.heads, a.l,
+      a.eps, units, groups);
+  return cudaGetLastError();
+}
+
+template <int LP>
+cudaError_t launch_at(const Args& a, int mode, const CUtensorMap& wtmap, cudaStream_t s) {
+  return a.c > C ? launch_wide<LP>(a, mode, wtmap, s) : launch<LP>(a, mode, wtmap, s);
+}
+
 cudaError_t run(const Args& a, int mode, const CUtensorMap& wtmap, cudaStream_t s) {
   switch (lp_of(a.l)) {
-    case 16: return launch<16>(a, mode, wtmap, s);
-    case 32: return launch<32>(a, mode, wtmap, s);
-    case 48: return launch<48>(a, mode, wtmap, s);
-    case 64: return launch<64>(a, mode, wtmap, s);
-    case 80: return launch<80>(a, mode, wtmap, s);
+    case 16: return launch_at<16>(a, mode, wtmap, s);
+    case 32: return launch_at<32>(a, mode, wtmap, s);
+    case 48: return launch_at<48>(a, mode, wtmap, s);
+    case 64: return launch_at<64>(a, mode, wtmap, s);
+    case 80: return launch_at<80>(a, mode, wtmap, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+bool lp_taken(int c, int lp) {
+  return lp >= 16 && lp <= MAX_L && lp % 16 == 0 && c >= 16 && c <= C_WIDE;
 }
 
 }  // namespace
 
 extern "C" {
 
-int wd_fold_attention_max_c() { return C; }
+int wd_fold_attention_max_c() { return C_WIDE; }
 int wd_fold_attention_max_l() { return MAX_L; }
 
-// The dynamic shared memory of a CTA at LP (L rounded up to 16), bytes.
-int wd_fold_attention_smem(int lp) {
-  if (lp < 16 || lp > MAX_L || lp % 16) return 0;
-  return smem_layout(lp).size;
+// The dynamic shared memory of a CTA at width c and LP (L rounded up to 16), bytes.
+int wd_fold_attention_smem(int c, int lp) {
+  if (!lp_taken(c, lp)) return 0;
+  return c > C ? wide_layout(lp).size : smem_layout(lp).size;
 }
 
-// Head stages a CTA's ring holds at LP.
-int wd_fold_attention_stages(int lp) {
-  if (lp < 16 || lp > MAX_L || lp % 16) return 0;
-  return smem_layout(lp).nst;
+// Slots of a CTA's ring at width c and LP, each a wt_h or a vw_h (the narrow
+// kernel's head stages are two slots each).
+int wd_fold_attention_slots(int c, int lp) {
+  if (!lp_taken(c, lp)) return 0;
+  return c > C ? wide_layout(lp).ns : 2 * smem_layout(lp).nst;
 }
 
 // The persistent CTAs a launch at these shapes takes (0 on an error).
-int wd_fold_attention_ctas(int b, int n, int l) {
+int wd_fold_attention_ctas(int b, int n, int c, int l) {
   const int units = b * row_tiles(n);
+  const bool wide = c > C;
+  if (c < 16 || c > C_WIDE) return 0;
   switch (lp_of(l)) {
-    case 16: return ctas<16>(units);
-    case 32: return ctas<32>(units);
-    case 48: return ctas<48>(units);
-    case 64: return ctas<64>(units);
-    case 80: return ctas<80>(units);
+    case 16: return ctas<16>(units, wide);
+    case 32: return ctas<32>(units, wide);
+    case 48: return ctas<48>(units, wide);
+    case 64: return ctas<64>(units, wide);
+    case 80: return ctas<80>(units, wide);
     default: return 0;
   }
 }
 
 // How wt reaches shared memory at these shapes and strides: 0 TMA, 1 copies by
-// the producer's threads.
+// the producer's threads (c <= 320; the wide kernel takes TMA only).
 int wd_fold_attention_wt_mode(const void* wt, int b, int heads, int c, int l, long long wt_sb,
                               long long wt_sh, long long wt_sc) {
   const Args a{nullptr, wt, nullptr, nullptr, nullptr, nullptr, nullptr, b, 1, c, heads, l,
@@ -707,9 +974,10 @@ int wd_fold_attention_wt_mode(const void* wt, int b, int heads, int c, int l, lo
 
 // out [b, n, c] = x + sum_h softmax(LN(x) . wt_h) . vw_h + bo, with x and out bf16
 // [b, n, c] contiguous and 16-byte aligned; wt bf16, element (b, h, c, l) at
-// b*wt_sb + h*wt_sh + c*wt_sc + l; vw bf16 [b, heads, l, c] contiguous and
+// b*wt_sb + h*wt_sh + c*wt_sc + l (above c = 320 in a layout the tensor map
+// reads: wd_fold_attention_wt_mode 0); vw bf16 [b, heads, l, c] contiguous and
 // 16-byte aligned; gamma, beta, bo fp32 [c], 16-byte aligned. Needs c % 16 == 0,
-// c <= 320, 1 <= l <= MAX_L and heads * l <= c. Returns a cudaError_t (0 on
+// c <= 640, 1 <= l <= MAX_L and heads * l <= c. Returns a cudaError_t (0 on
 // success; a failed tensor-map encode is cudaErrorInvalidValue).
 int wd_fold_attention(const void* x, const void* wt, const void* vw, const void* gamma,
                       const void* beta, const void* bo, void* out, int b, int n, int c,

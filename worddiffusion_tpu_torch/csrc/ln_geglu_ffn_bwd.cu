@@ -23,13 +23,40 @@
 // What bounds it on this card: operations. At the flagship width (d = 320,
 // inner = 1280) the backward does 16*M*d*inner FLOP (214.7 GFLOP at M = 32768):
 // recompute 4, dact 2, dxn 4, dW1 4, dW2 2, far above the H100's bf16 ridge of
-// about 295 FLOP per byte; 0.217 ms at 989 TFLOP/s.
+// about 295 FLOP per byte; 0.217 ms at 989 TFLOP/s. At d = 640, M = 8192 (the
+// middle block of channel_mult (1, 2) at B = 128) it is the same 214.7 GFLOP.
 //
-// Design. CTAs run in parallel and in no order, and fp32 atomics would make the
-// gradients depend on the order in which CTAs finish, which would break the
-// trainer's bitwise resume; so every sum is taken in a fixed order, in three
-// launches on one stream, every product on wgmma with both operands in shared
-// memory, every operand tile brought by TMA (csrc/hopper.cuh):
+// Widths: every d = 64k from 64 to 768, the widths the forward kernel takes
+// (JAX's fits_vmem(d, 4d)), with inner any positive multiple of 64. Two routes,
+// chosen by d at compile time:
+//   - d <= 320: the fused route, A (rows), B (weights), C (sums) below. Row
+//     kernel A keeps a 64-row tile's x and dy in shared memory (2 * 128 d
+//     bytes) beside a 4-stage ring of W1 rows and W2 columns (4 * 96 d bytes):
+//     640 d bytes, 227 KB at d = 320, which is as wide as it fits. d = 320 is
+//     the plan the port has trained with since it was written.
+//   - d > 320: the split route. A's x and dy tiles alone are 160 KB at d = 640
+//     (192 KB at 768), so they cannot stay resident beside any ring stage
+//     (one stage is 60 KB at 640), and its dxn [64, d] accumulator would be
+//     d/4 fp32 registers a thread of each consumer warpgroup (192 at 768,
+//     beside [a | u] and dact under setmaxnreg 240). So A is split in three
+//     and its operands streamed: S0 normalises x into xn (and the row
+//     statistics) one warp a row; S1 recomputes [a | u] and dact for a
+//     128-row x 64-column tile of inner, K = d streamed in 64-column atoms
+//     of xn, dy, W1 and W2 through a 4-stage TMA ring (96 accumulator
+//     registers a thread), and writes dhc, act and db1's partials; S2 is
+//     dxn = dhc . W1 as its own wgmma product over K = 2 inner (a 128 x 192
+//     or 128 x 256 tile, fp32 to device memory); S3 is the LayerNorm
+//     backward, one warp a row, then the per-block column partials. dxn's
+//     round trip costs 8 M d bytes (42 MB at d = 640, M = 8192: about 13 us
+//     at 3.35 TB/s) against the 217 us bound. B and C are shared by both
+//     routes (B's column tile set by d).
+//
+// Design of the fused route. CTAs run in parallel and in no order, and fp32
+// atomics would make the gradients depend on the order in which CTAs finish,
+// which would break the trainer's bitwise resume; so every sum is taken in a
+// fixed order, in three launches on one stream, every product on wgmma with
+// both operands in shared memory, every operand tile brought by TMA
+// (csrc/hopper.cuh):
 //   A. rows: a CTA is two consumer warpgroups and a producer warpgroup
 //      (setmaxnreg 24 / 240) on a 64-row tile. The producer's thread 0 loads
 //      the tile's x and dy (TMA boxes of [64 rows][64 d], 128-byte swizzle),
@@ -59,18 +86,21 @@
 //      [r*64/CL, (r+1)*64/CL), which then run the LayerNorm backward into dx
 //      and per-tile column partials of dgamma, dbeta, db2.
 //   B. weights: dW1 = dhc^T . xn and dW2 (as its transpose act^T . dy) on
-//      wgmma with both operands M-major (transposed): a CTA per 128 x 160 output
-//      tile and quarter of M, two consumer warpgroups of 64 output rows and a
-//      producer warpgroup whose thread 0 brings each 64-row step's dhc (or act)
-//      [64 x 128] and xn (or dy) [64 x 192] by TMA into a 4-stage ring
+//      wgmma with both operands M-major (transposed): a CTA per 128 x WN
+//      output tile (WN = 160 at d = 320; ceil(d / 192) column tiles of at
+//      most 192, the last one ragged) and quarter of M, two consumer
+//      warpgroups of 64 output rows and a producer warpgroup whose thread 0
+//      brings each 64-row step's dhc (or act) [64 x 128] and xn (or dy)
+//      [64 x 64 YA] (YA = 3 at d = 320) by TMA into a 4-stage ring
 //      (128-byte swizzle; rows past M and columns past the matrix arrive as
 //      zeros); a cluster of 4 CTAs a tile, 240 CTAs on the 132 SMs, the four
 //      fp32 partials summed in rank order through distributed shared memory.
 //   C. the per-tile partials of dgamma, dbeta, db2 and db1 summed in order.
-// No atomics anywhere; for a given M the clusters, and so every sum's order,
-// are fixed: bitwise repeatable.
+// No atomics anywhere, on either route; for a given M the clusters and tiles,
+// and so every sum's order, are fixed: bitwise repeatable.
 // Scratch: xn [M, d], dhc [M, 2*inner], act [M, inner] (bf16), written by A and
-// read by B; the partials [tiles*CL, 3*d] and [tiles, 2*inner] (fp32).
+// read by B; the partials [tiles*CL, 3*d] and [tiles, 2*inner] (fp32); on the
+// split route also the row statistics [2, M] and dxn [M, d] (fp32).
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -89,7 +119,8 @@ namespace {
 
 using namespace hopper;
 
-constexpr int D_TAKEN = 320;
+constexpr int D_MIN = 64, D_MAX = 768, D_STEP = 64;  // the widths both routes take
+constexpr int FUSED_MAX = 320;  // the widest d of the fused row kernel (its shared memory)
 constexpr int BM = 64;         // rows per tile of kernel A: one wgmma M
 constexpr int NC = 16;         // inner columns per chunk (a ring stage)
 constexpr int CONS = 256;      // two consumer warpgroups
@@ -128,7 +159,8 @@ struct SmemA {
   static constexpr int rstd = mu + BM * 4;
   static constexpr int bars = rstd + BM * 4;             // full, empty per stage; x full
   static constexpr int total = bars + 8 * (2 * STAGES + 1) + 1024;  // + the alignment
-  static_assert(D % 64 == 0 && STAGE % 1024 == 0 && TILE % 1024 == 0, "swizzle alignment");
+  static_assert(D % 64 == 0 && D <= FUSED_MAX, "the fused route's widths");
+  static_assert(STAGE % 1024 == 0 && TILE % 1024 == 0, "swizzle alignment");
   static_assert(BM * LDR * 4 <= STAGES * STAGE, "dxn fits over the ring");
   static_assert(total <= SMEM_MAX, "a CTA's shared memory");
 };
@@ -556,20 +588,31 @@ __global__ void __launch_bounds__(THREADS, 1)
   cluster.sync();  // every remote read done before any CTA of the cluster leaves
 }
 
-// Kernel B: the weight gradients. Tile t of 128 rows x 160 columns of
+// Kernel B: the weight gradients. Tile t of 128 rows x WN columns of
 //   dW1 [2 inner, D] = X^T . Y, X = dhc [M, 2 inner], Y = xn [M, D]   (t < T1), or
 //   dW2^T [inner, D] = X^T . Y, X = act [M, inner], Y = dy [M, D], stored as dW2 [D, inner];
 // grid (tiles * SPLIT), cluster (SPLIT, 1, 1): CTA r of a cluster walks the r-th
 // of SPLIT equal runs of M's 64-row steps.
 constexpr int SPLIT = 4;
-constexpr int WR = 128, WN = 160, WK = 64;  // tile rows, columns; M rows a step
+constexpr int WR = 128, WK = 64;  // tile rows; M rows a step
 constexpr int W_STAGES = 4;
 constexpr int WX_BYTES = WK * WR * 2;   // two [64 x 64] atoms of X^T
-constexpr int WY_BYTES = WK * 192 * 2;  // three of Y (the last one half used)
-constexpr int W_STAGE = WX_BYTES + WY_BYTES;
-constexpr int W_LDR = WN + 8;
-constexpr int W_SMEM = W_STAGES * W_STAGE + 8 * 2 * W_STAGES + 1024;
-static_assert(WR * W_LDR * 4 <= W_STAGES * W_STAGE, "the partial fits over the ring");
+
+// The column tiles at width D: NT tiles of WN columns (a multiple of 16, at
+// most 192: 160 at D = 320), the last one ragged; Y's stage holds YA 64-column
+// atoms (the last one partly used, or past D and not loaded).
+template <int D>
+struct WPlan {
+  static constexpr int NT = (D + 191) / 192;
+  static constexpr int WN = ((D + NT - 1) / NT + 15) / 16 * 16;
+  static constexpr int YA = (WN + 63) / 64;
+  static constexpr int Y_BYTES = YA * WK * 128;
+  static constexpr int STAGE = WX_BYTES + Y_BYTES;
+  static constexpr int LDR = WN + 8;
+  static constexpr int SMEM = W_STAGES * STAGE + 8 * 2 * W_STAGES + 1024;
+  static_assert(WN <= 192 && WN % 16 == 0 && NT * WN >= D, "column tiles");
+  static_assert(WR * LDR * 4 <= W_STAGES * STAGE, "the partial fits over the ring");
+};
 
 template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -578,7 +621,8 @@ __global__ void __launch_bounds__(THREADS, 1)
                            const __grid_constant__ CUtensorMap actmap,
                            const __grid_constant__ CUtensorMap dymap, float* __restrict__ dw1,
                            float* __restrict__ dw2, int M, int inner) {
-  static_assert(D == 2 * WN, "two column tiles");
+  using W = WPlan<D>;
+  constexpr int WN = W::WN, W_LDR = W::LDR, W_STAGE = W::STAGE;
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -589,15 +633,19 @@ __global__ void __launch_bounds__(THREADS, 1)
 
   const int tid = threadIdx.x;
   const int two_inner = 2 * inner;
-  const int t1 = 2 * ((two_inner + WR - 1) / WR);
+  const int t1 = W::NT * ((two_inner + WR - 1) / WR);
   int t = blockIdx.x / SPLIT;
   const bool first = t < t1;
   if (!first) t -= t1;
-  const int r0 = (t / 2) * WR, n0 = (t % 2) * WN;
+  const int r0 = (t / W::NT) * WR, n0 = (t % W::NT) * WN;
   const int R = first ? two_inner : inner;  // X's columns: the output's rows
   const int steps = (M + WK - 1) / WK;
   const int s0 = rank * steps / SPLIT, s1 = (rank + 1) * steps / SPLIT;
   const int n = s1 - s0;
+  // the atoms of X and Y that hold a column of the matrix (the others are not
+  // loaded: they feed only outputs past its edge, which are not stored)
+  const int xa = r0 + 64 < R ? 2 : 1;
+  const int ya = min(W::YA, (D - n0 + 63) / 64);
 
   if (tid == 0) {
     for (int i = 0; i < W_STAGES; ++i) {
@@ -616,10 +664,10 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = 0; i < n; ++i) {
         const int s = i % W_STAGES, m0 = (s0 + i) * WK;
         wait_phase(empty + s, ((i / W_STAGES) & 1) ^ 1);
-        mbar_expect_tx(full + s, W_STAGE);
+        mbar_expect_tx(full + s, (xa + ya) * 8192);
         unsigned char* xs = sm + s * W_STAGE;
-        for (int a = 0; a < 2; ++a) tma_load_2d(xs + a * 8192, xm, full + s, r0 + 64 * a, m0);
-        for (int a = 0; a < 3; ++a)
+        for (int a = 0; a < xa; ++a) tma_load_2d(xs + a * 8192, xm, full + s, r0 + 64 * a, m0);
+        for (int a = 0; a < ya; ++a)
           tma_load_2d(xs + WX_BYTES + a * 8192, ym, full + s, n0 + 64 * a, m0);
       }
     }
@@ -667,13 +715,14 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
   cluster.sync();
 
-  // rows [rank * 128 / SPLIT, ...) of the tile: the SPLIT partials in rank order
+  // rows [rank * 128 / SPLIT, ...) of the tile: the SPLIT partials in rank order;
+  // columns past D (the last tile's ragged edge) are not stored
   constexpr int ROWS = WR / SPLIT;
   const int lo = rank * ROWS;
   if (first) {
     for (int i = tid; i < ROWS * (WN / 4); i += CONS) {
       const int r = lo + i / (WN / 4), c = (i % (WN / 4)) * 4;
-      if (r0 + r >= R) continue;
+      if (r0 + r >= R || n0 + c >= D) continue;
       float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int q = 0; q < SPLIT; ++q) {
         const float4 v =
@@ -686,13 +735,390 @@ __global__ void __launch_bounds__(THREADS, 1)
     // dW2 [D, inner]: neighbouring threads take neighbouring rows of the tile
     for (int i = tid; i < ROWS * WN; i += CONS) {
       const int r = lo + i % ROWS, c = i / ROWS;
-      if (r0 + r >= R) continue;
+      if (r0 + r >= R || n0 + c >= D) continue;
       float s = 0.f;
       for (int q = 0; q < SPLIT; ++q) s += cluster.map_shared_rank(red, q)[r * W_LDR + c];
       dw2[size_t(n0 + c) * inner + r0 + r] = s;
     }
   }
   cluster.sync();  // every remote read done before any CTA of the cluster leaves
+}
+
+// --- the split route (d > 320): S0 .. S3, then B and C ---
+
+// S0: the LayerNorm forward, one warp a row (N_ROWS rows a CTA): xn =
+// bf16(xhat * gamma + beta) to device memory (for S1 and B), and the row's
+// mean and rstd (fp32; two passes, the mean then the centred squares, as A's).
+constexpr int N_ROWS = 8;
+
+template <int D>
+__global__ void __launch_bounds__(32 * N_ROWS)
+    ffn_bwd_norm_kernel(const bf16* __restrict__ x, const float* __restrict__ gamma,
+                        const float* __restrict__ beta, bf16* __restrict__ xn,
+                        float* __restrict__ mu_g, float* __restrict__ rstd_g, int M, float eps) {
+  constexpr int NV = D / 8, PER = (NV + 31) / 32;
+  const int lane = threadIdx.x % 32;
+  const int r = blockIdx.x * N_ROWS + threadIdx.x / 32;
+  if (r >= M) return;
+  float f[PER][8];
+  float s = 0.f;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int vi = lane + 32 * k;
+    if (vi >= NV) break;
+    unpack8(*reinterpret_cast<const uint4*>(x + size_t(r) * D + vi * 8), f[k]);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) s += f[k][e];
+  }
+  const float mu = warp_sum(s) / D;
+  float v = 0.f;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    if (lane + 32 * k >= NV) break;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) v += (f[k][e] - mu) * (f[k][e] - mu);
+  }
+  const float rs = rsqrtf(warp_sum(v) / D + eps);
+  if (lane == 0) {
+    mu_g[r] = mu;
+    rstd_g[r] = rs;
+  }
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const int vi = lane + 32 * k;
+    if (vi >= NV) break;
+    const float4 ga = *reinterpret_cast<const float4*>(gamma + vi * 8);
+    const float4 gb = *reinterpret_cast<const float4*>(gamma + vi * 8 + 4);
+    const float4 ba = *reinterpret_cast<const float4*>(beta + vi * 8);
+    const float4 bb = *reinterpret_cast<const float4*>(beta + vi * 8 + 4);
+    const float gm[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+    const float bt[8] = {ba.x, ba.y, ba.z, ba.w, bb.x, bb.y, bb.z, bb.w};
+    float y[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) y[e] = (f[k][e] - mu) * rs * gm[e] + bt[e];
+    *reinterpret_cast<uint4*>(xn + size_t(r) * D + vi * 8) = make_uint4(
+        pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]), pack_bf16(y[6], y[7]));
+  }
+}
+
+// S1: [a | u] = xn . W1^T + b1 and dact = dy . W2 for a tile of GM rows and GN
+// columns of inner (CTA = row tile * inner / GN + column tile), K = d in
+// 64-column atoms through a ring of G_STAGES stages, each xn and dy [GM][64],
+// W1's a rows and u rows [GN][64] (K-major) and W2 [64][GN] (MN-major), all
+// 128-byte swizzled TMA boxes; consumer warpgroup w takes rows [64 w, 64 w +
+// 64) (m64n64k16, three accumulators of 32 registers). Then GEGLU and its
+// derivative in the accumulators' registers, as A's: act and dhc to device
+// memory, and db1's column sums over the tile's rows (the 8 rows of a lane
+// group by a fixed butterfly, then the 8 warps in order) into part2's row of
+// the row tile. Rows past M arrive as zeros: dact = 0 there, so they add 0.
+constexpr int GM = 128, GN = 64, G_STAGES = 4;
+constexpr int G_ROWS = GM * 128;  // xn or dy: [128 rows][64] bf16
+constexpr int G_W = GN * 128;     // W1's a or u rows, or W2's columns: [64][64] bf16
+constexpr int G_STAGE = 2 * G_ROWS + 3 * G_W;
+constexpr int G_SMEM = G_STAGES * G_STAGE + 8 * 2 * G_STAGES + 1024;
+static_assert(G_SMEM <= SMEM_MAX && G_STAGE % 1024 == 0, "S1's ring");
+static_assert(8 * 2 * GN * 4 <= G_STAGES * G_STAGE, "db1's warp sums fit over the ring");
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    ffn_bwd_gate_kernel(const __grid_constant__ CUtensorMap xnmap,
+                        const __grid_constant__ CUtensorMap dymap,
+                        const __grid_constant__ CUtensorMap w1map,
+                        const __grid_constant__ CUtensorMap w2map, const float* __restrict__ b1,
+                        bf16* __restrict__ dhc_g, bf16* __restrict__ act_g,
+                        float* __restrict__ part2, int M, int inner) {
+  constexpr int KS = D / 64;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + G_STAGES * G_STAGE);
+  uint64_t* empty = full + G_STAGES;
+  const int tid = threadIdx.x;
+  const int ctiles = inner / GN;
+  const int rt = blockIdx.x / ctiles, c0 = (blockIdx.x % ctiles) * GN, row0 = rt * GM;
+
+  if (tid == 0) {
+    for (int i = 0; i < G_STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 8);  // each consumer warp
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONS) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == CONS) {
+      for (int k = 0; k < KS; ++k) {
+        const int s = k % G_STAGES;
+        wait_phase(empty + s, ((k / G_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, G_STAGE);
+        unsigned char* st = sm + s * G_STAGE;
+        tma_load_2d(st, &xnmap, full + s, 64 * k, row0);
+        tma_load_2d(st + G_ROWS, &dymap, full + s, 64 * k, row0);
+        tma_load_2d(st + 2 * G_ROWS, &w1map, full + s, 64 * k, c0);
+        tma_load_2d(st + 2 * G_ROWS + G_W, &w1map, full + s, 64 * k, inner + c0);
+        tma_load_2d(st + 2 * G_ROWS + 2 * G_W, &w2map, full + s, c0, 64 * k);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, g8 = (lane >> 2) + 16 * (warp % 4), t4 = lane & 3;
+  float acc_a[GN / 2], acc_u[GN / 2], dact[GN / 2];
+  for (int k = 0; k < KS; ++k) {
+    const int s = k % G_STAGES;
+    wait_phase(full + s, (k / G_STAGES) & 1);
+    __syncwarp();
+    const unsigned char* st = sm + s * G_STAGE;
+    const unsigned char* xs = st + wg * (G_ROWS / 2);
+    const unsigned char* ys = st + G_ROWS + wg * (G_ROWS / 2);
+    const unsigned char* was = st + 2 * G_ROWS;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int acc = (k | kk) != 0;
+      wgmma_ss<0, 0>(acc_a, make_desc_sw128(xs + kk * 32), make_desc_sw128(was + kk * 32), acc);
+      wgmma_ss<0, 0>(acc_u, make_desc_sw128(xs + kk * 32), make_desc_sw128(was + G_W + kk * 32),
+                     acc);
+      wgmma_ss<0, 1>(dact, make_desc_sw128(ys + kk * 32),
+                     make_desc(was + 2 * G_W + kk * 2048, 8192, 1024, SW128), acc);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (k > 0) release(empty + (k - 1) % G_STAGES, lane);  // step k - 1's products are done
+  }
+  wgmma_wait<0>();
+  pin(acc_a);
+  pin(acc_u);
+  pin(dact);
+  bar_sync(CONS_BAR, CONS);  // both warpgroups' products done: the ring is free
+
+  // thread (g8, t4) holds columns 8 j + 2 t4, + 1 of the tile's 64, rows g8 and g8 + 8
+  float* db1s = reinterpret_cast<float*>(sm);  // [8 warps][a 64 | u 64]
+  const int two_inner = 2 * inner;
+#pragma unroll
+  for (int j = 0; j < GN / 8; ++j) {
+    const int gc = c0 + 8 * j + 2 * t4;
+    const float2 ba = *reinterpret_cast<const float2*>(b1 + gc);
+    const float2 bu = *reinterpret_cast<const float2*>(b1 + inner + gc);
+    float sa[2], su[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float act2[2], da2[2], du2[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float a = acc_a[4 * j + 2 * h + e] + (e ? ba.y : ba.x);
+        const float u = acc_u[4 * j + 2 * h + e] + (e ? bu.y : bu.x);
+        const float t = tanhf(GELU_C * (u + GELU_K * u * u * u));
+        const float gu = 0.5f * u * (1.f + t);
+        const float dgu =
+            0.5f * (1.f + t) + 0.5f * u * (1.f - t * t) * GELU_C * (1.f + 3.f * GELU_K * u * u);
+        const float dd = dact[4 * j + 2 * h + e];
+        act2[e] = a * gu;
+        da2[e] = dd * gu;
+        du2[e] = dd * a * dgu;
+        sa[e] = (h ? sa[e] : 0.f) + da2[e];
+        su[e] = (h ? su[e] : 0.f) + du2[e];
+      }
+      const int r = row0 + 64 * wg + g8 + 8 * h;
+      if (r < M) {
+        *reinterpret_cast<uint32_t*>(act_g + size_t(r) * inner + gc) = pack_bf16(act2[0], act2[1]);
+        *reinterpret_cast<uint32_t*>(dhc_g + size_t(r) * two_inner + gc) =
+            pack_bf16(da2[0], da2[1]);
+        *reinterpret_cast<uint32_t*>(dhc_g + size_t(r) * two_inner + inner + gc) =
+            pack_bf16(du2[0], du2[1]);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        sa[e] += __shfl_xor_sync(0xffffffffu, sa[e], o);
+        su[e] += __shfl_xor_sync(0xffffffffu, su[e], o);
+      }
+      if (lane < 4) {
+        db1s[warp * 2 * GN + 8 * j + 2 * t4 + e] = sa[e];
+        db1s[warp * 2 * GN + GN + 8 * j + 2 * t4 + e] = su[e];
+      }
+    }
+  }
+  bar_sync(CONS_BAR, CONS);
+  if (tid < 2 * GN) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < CONS / 32; ++w) sum += db1s[w * 2 * GN + tid];
+    part2[size_t(rt) * two_inner + (tid < GN ? c0 + tid : inner + c0 + tid - GN)] = sum;
+  }
+}
+
+// S2: dxn [M, D] = dhc . W1 in fp32, a tile of 128 rows (consumer warpgroup w
+// the rows [64 w, 64 w + 64)) and XN columns, K = 2 inner in 64-row steps
+// through a ring: dhc [128][64] (K-major) and XA atoms of W1's rows [64][64]
+// (MN-major: W1 [2 inner, d] is K x N, N contiguous), 128-byte swizzle. d's
+// ATOMS atoms are cut into TILES column tiles of XA atoms (the last one
+// ragged; atoms past d are not loaded and their columns not stored).
+template <int D>
+struct DxnPlan {
+  static constexpr int ATOMS = D / 64;
+  static constexpr int TILES = (ATOMS + 3) / 4;
+  static constexpr int XA = (ATOMS + TILES - 1) / TILES;
+  static constexpr int XN = 64 * XA;
+  static constexpr int STAGES = 4;
+  static constexpr int STAGE = G_ROWS + XA * 8192;
+  static constexpr int SMEM = STAGES * STAGE + 8 * 2 * STAGES + 1024;
+  static_assert(XN <= 256 && SMEM <= SMEM_MAX, "S2's tile and ring");
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+    ffn_bwd_dxn_kernel(const __grid_constant__ CUtensorMap dhcmap,
+                       const __grid_constant__ CUtensorMap w1map, float* __restrict__ dxn, int M,
+                       int inner) {
+  using P = DxnPlan<D>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + P::STAGES * P::STAGE);
+  uint64_t* empty = full + P::STAGES;
+  const int tid = threadIdx.x;
+  const int row0 = (blockIdx.x / P::TILES) * GM, n0 = (blockIdx.x % P::TILES) * P::XN;
+  const int steps = 2 * inner / 64;
+  const int xa = min(P::XA, (D - n0) / 64);  // the tile's atoms inside d
+
+  if (tid == 0) {
+    for (int i = 0; i < P::STAGES; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(empty + i, 8);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONS) {
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == CONS) {
+      for (int k = 0; k < steps; ++k) {
+        const int s = k % P::STAGES;
+        wait_phase(empty + s, ((k / P::STAGES) & 1) ^ 1);
+        mbar_expect_tx(full + s, G_ROWS + xa * 8192);
+        unsigned char* st = sm + s * P::STAGE;
+        tma_load_2d(st, &dhcmap, full + s, 64 * k, row0);
+        for (int a = 0; a < xa; ++a)
+          tma_load_2d(st + G_ROWS + a * 8192, &w1map, full + s, n0 + 64 * a, 64 * k);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int wg = warp / 4, g8 = (lane >> 2) + 16 * (warp % 4), t4 = lane & 3;
+  float acc[P::XN / 2];
+  for (int k = 0; k < steps; ++k) {
+    const int s = k % P::STAGES;
+    wait_phase(full + s, (k / P::STAGES) & 1);
+    __syncwarp();
+    const unsigned char* st = sm + s * P::STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss<0, 1>(acc, make_desc_sw128(st + wg * (G_ROWS / 2) + kk * 32),
+                     make_desc(st + G_ROWS + kk * 2048, 8192, 1024, SW128), (k | kk) != 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (k > 0) release(empty + (k - 1) % P::STAGES, lane);
+  }
+  wgmma_wait<0>();
+  pin(acc);
+  const int r = row0 + 64 * wg + g8;
+#pragma unroll
+  for (int j = 0; j < P::XN / 8; ++j) {
+    const int col = n0 + 8 * j + 2 * t4;
+    if (col >= D) continue;
+    if (r < M)
+      *reinterpret_cast<float2*>(dxn + size_t(r) * D + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (r + 8 < M)
+      *reinterpret_cast<float2*>(dxn + size_t(r + 8) * D + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// S3: the LayerNorm backward of LR rows a CTA, one warp a row (A's epilogue
+// on dxn from device memory): dx = bf16(dy + rstd * (dxhat - mean(dxhat) -
+// xhat * mean(dxhat * xhat))); then the CTA's column partials of dgamma, dbeta
+// and db2 over its rows in row order, a thread a column, into part1's row of
+// the CTA.
+constexpr int LR = 64;
+
+template <int D>
+__global__ void __launch_bounds__(32 * N_ROWS)
+    ffn_bwd_ln_kernel(const float* __restrict__ dxn, const bf16* __restrict__ x,
+                      const bf16* __restrict__ dy, const float* __restrict__ mu_g,
+                      const float* __restrict__ rstd_g, const float* __restrict__ gamma,
+                      bf16* __restrict__ dx, float* __restrict__ part1, int M) {
+  constexpr int NV = D / 8, PER = (NV + 31) / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = blockIdx.x * LR;
+  for (int r = warp; r < LR; r += N_ROWS) {
+    const int gr = row0 + r;
+    if (gr >= M) break;
+    const float mu = mu_g[gr], rstd = rstd_g[gr];
+    float dn[PER][8], xh[PER][8], dyv[PER][8];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int vi = lane + 32 * k;
+      if (vi >= NV) break;
+      const float4 lo = *reinterpret_cast<const float4*>(dxn + size_t(gr) * D + vi * 8);
+      const float4 hi = *reinterpret_cast<const float4*>(dxn + size_t(gr) * D + vi * 8 + 4);
+      dn[k][0] = lo.x; dn[k][1] = lo.y; dn[k][2] = lo.z; dn[k][3] = lo.w;
+      dn[k][4] = hi.x; dn[k][5] = hi.y; dn[k][6] = hi.z; dn[k][7] = hi.w;
+      unpack8(*reinterpret_cast<const uint4*>(x + size_t(gr) * D + vi * 8), xh[k]);
+      unpack8(*reinterpret_cast<const uint4*>(dy + size_t(gr) * D + vi * 8), dyv[k]);
+      const float4 ga = *reinterpret_cast<const float4*>(gamma + vi * 8);
+      const float4 gb = *reinterpret_cast<const float4*>(gamma + vi * 8 + 4);
+      const float gm[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        xh[k][j] = (xh[k][j] - mu) * rstd;
+        const float dxh = dn[k][j] * gm[j];
+        s1 += dxh;
+        s2 += dxh * xh[k][j];
+      }
+    }
+    const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int vi = lane + 32 * k;
+      if (vi >= NV) break;
+      const float4 ga = *reinterpret_cast<const float4*>(gamma + vi * 8);
+      const float4 gb = *reinterpret_cast<const float4*>(gamma + vi * 8 + 4);
+      const float gm[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+      float y[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        y[j] = dyv[k][j] + rstd * (dn[k][j] * gm[j] - m1 - xh[k][j] * m2);
+      *reinterpret_cast<uint4*>(dx + size_t(gr) * D + vi * 8) = make_uint4(
+          pack_bf16(y[0], y[1]), pack_bf16(y[2], y[3]), pack_bf16(y[4], y[5]), pack_bf16(y[6], y[7]));
+    }
+  }
+  float* p1 = part1 + size_t(blockIdx.x) * 3 * D;
+  for (int c = threadIdx.x; c < D; c += 32 * N_ROWS) {
+    float sg = 0.f, sb = 0.f, sy = 0.f;
+    for (int r = 0; r < LR && row0 + r < M; ++r) {
+      const size_t i = size_t(row0 + r) * D + c;
+      const float dn = dxn[i];
+      const float xh = (__bfloat162float(x[i]) - mu_g[row0 + r]) * rstd_g[row0 + r];
+      sg += dn * xh;
+      sb += dn;
+      sy += __bfloat162float(dy[i]);
+    }
+    p1[c] = sg;
+    p1[D + c] = sb;
+    p1[2 * D + c] = sy;
+  }
 }
 
 // Kernel C: column j of [dgamma | dbeta | db2] (j < 3 D, over part1's n1 rows)
@@ -760,8 +1186,22 @@ cudaError_t launch_cluster(K kernel, int grid, int cl, size_t smem, cudaStream_t
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+template <int D>
 int weight_tiles(int inner) {
-  return 2 * ((2 * inner + WR - 1) / WR) + 2 * ((inner + WR - 1) / WR);
+  return WPlan<D>::NT * ((2 * inner + WR - 1) / WR + (inner + WR - 1) / WR);
+}
+
+// The split route's scratch: part1 [n1][3 D] | part2 [n2][2 inner] | mean [Mp] |
+// rstd [Mp] | dxn [M][D] (fp32), Mp = M rounded up to 4 floats (16 bytes).
+struct SplitParts {
+  long long n1, n2, mp;
+  long long floats(int m, int d, int inner) const {
+    return n1 * 3 * d + n2 * 2 * inner + 2 * mp + (long long)m * d;
+  }
+};
+
+SplitParts split_parts(int m) {
+  return {(m + LR - 1) / LR, (m + GM - 1) / GM, (m + 3) / 4 * 4};
 }
 
 template <int D>
@@ -770,94 +1210,207 @@ cudaError_t launch_all(const void* x, const void* dy, const void* gamma, const v
                        void* dbeta, void* dw1, void* db1, void* dw2, void* db2, void* xn,
                        void* dhc, void* act, void* part, int M, int inner, float eps,
                        cudaStream_t s) {
-  static std::atomic<unsigned long long> raised_a{0}, raised_b{0};
-  constexpr size_t smem_a = SmemA<D>::total;
-  cudaError_t e = raise_smem(ffn_bwd_rows_kernel<D>, smem_a, raised_a);
-  if (e != cudaSuccess) return e;
-  e = raise_smem(ffn_bwd_weights_kernel<D>, W_SMEM, raised_b);
+  static std::atomic<unsigned long long> raised_a{0}, raised_b{0}, raised_x{0};
+  constexpr size_t smem_w = WPlan<D>::SMEM;
+  cudaError_t e = raise_smem(ffn_bwd_weights_kernel<D>, smem_w, raised_b);
   if (e != cudaSuccess) return e;
   const long long m = M, d = D, in = inner;
-  CUtensorMap xmap, dymap, w1map, w2map, xnmap, dhcmap, actmap;
-  if (!encode(&xmap, map_key(x, 2, {d, m}, {2 * d}, {64, BM})) ||
-      !encode(&dymap, map_key(dy, 2, {d, m}, {2 * d}, {64, BM})) ||
-      !encode(&w1map, map_key(w1, 3, {d, in, 2}, {2 * d, 2 * d * in}, {32, NC, 2},
-                              CU_TENSOR_MAP_SWIZZLE_64B)) ||
-      !encode(&w2map, map_key(w2, 2, {in, d}, {2 * in}, {NC, D / 2}, CU_TENSOR_MAP_SWIZZLE_32B)) ||
+  CUtensorMap dymap, xnmap, dhcmap, actmap;
+  if (!encode(&dymap, map_key(dy, 2, {d, m}, {2 * d}, {64, BM})) ||
       !encode(&xnmap, map_key(xn, 2, {d, m}, {2 * d}, {64, BM})) ||
       !encode(&dhcmap, map_key(dhc, 2, {2 * in, m}, {4 * in}, {64, WK})) ||
       !encode(&actmap, map_key(act, 2, {in, m}, {2 * in}, {64, WK})))
     return cudaErrorInvalidValue;
-  const RowsPlan p = rows_plan(M, inner);
-  float* part1 = static_cast<float*>(part);
-  float* part2 = part1 + size_t(p.ctas()) * 3 * D;
   const auto f32 = [](const void* q) { return static_cast<const float*>(q); };
-  e = launch_cluster(ffn_bwd_rows_kernel<D>, p.ctas(), p.cl, smem_a, s, xmap, dymap,
-                     w1map, w2map, xnmap, static_cast<const bf16*>(x), f32(gamma), f32(beta),
-                     f32(b1), static_cast<bf16*>(dx), static_cast<bf16*>(dhc),
-                     static_cast<bf16*>(act), part1, part2, M, inner, p.cl, eps);
-  if (e != cudaSuccess) return e;
-  e = launch_cluster(ffn_bwd_weights_kernel<D>, weight_tiles(inner) * SPLIT, SPLIT, W_SMEM, s,
+  float* part1 = static_cast<float*>(part);
+  float* part2;
+  int n1, n2;
+  if constexpr (D <= FUSED_MAX) {
+    constexpr size_t smem_a = SmemA<D>::total;
+    e = raise_smem(ffn_bwd_rows_kernel<D>, smem_a, raised_a);
+    if (e != cudaSuccess) return e;
+    CUtensorMap xmap, w1map, w2map;
+    if (!encode(&xmap, map_key(x, 2, {d, m}, {2 * d}, {64, BM})) ||
+        !encode(&w1map, map_key(w1, 3, {d, in, 2}, {2 * d, 2 * d * in}, {32, NC, 2},
+                                CU_TENSOR_MAP_SWIZZLE_64B)) ||
+        !encode(&w2map, map_key(w2, 2, {in, d}, {2 * in}, {NC, D / 2}, CU_TENSOR_MAP_SWIZZLE_32B)))
+      return cudaErrorInvalidValue;
+    const RowsPlan p = rows_plan(M, inner);
+    part2 = part1 + size_t(p.ctas()) * 3 * D;
+    n1 = p.ctas();
+    n2 = p.tiles;
+    e = launch_cluster(ffn_bwd_rows_kernel<D>, p.ctas(), p.cl, smem_a, s, xmap, dymap,
+                       w1map, w2map, xnmap, static_cast<const bf16*>(x), f32(gamma), f32(beta),
+                       f32(b1), static_cast<bf16*>(dx), static_cast<bf16*>(dhc),
+                       static_cast<bf16*>(act), part1, part2, M, inner, p.cl, eps);
+    if (e != cudaSuccess) return e;
+  } else {
+    using P = DxnPlan<D>;
+    e = raise_smem(ffn_bwd_gate_kernel<D>, G_SMEM, raised_a);
+    if (e == cudaSuccess) e = raise_smem(ffn_bwd_dxn_kernel<D>, P::SMEM, raised_x);
+    if (e != cudaSuccess) return e;
+    CUtensorMap xnmap_g, dymap_g, w1map, w2map, dhcmap_x;
+    if (!encode(&xnmap_g, map_key(xn, 2, {d, m}, {2 * d}, {64, GM})) ||
+        !encode(&dymap_g, map_key(dy, 2, {d, m}, {2 * d}, {64, GM})) ||
+        !encode(&w1map, map_key(w1, 2, {d, 2 * in}, {2 * d}, {64, GN})) ||
+        !encode(&w2map, map_key(w2, 2, {in, d}, {2 * in}, {GN, 64})) ||
+        !encode(&dhcmap_x, map_key(dhc, 2, {2 * in, m}, {4 * in}, {64, GM})))
+      return cudaErrorInvalidValue;
+    const SplitParts sp = split_parts(M);
+    n1 = int(sp.n1);
+    n2 = int(sp.n2);
+    part2 = part1 + size_t(sp.n1) * 3 * D;
+    float* mu = part2 + size_t(sp.n2) * 2 * inner;
+    float* rstd = mu + sp.mp;
+    float* dxn = rstd + sp.mp;
+    const int row_tiles = int(sp.n2);
+    ffn_bwd_norm_kernel<D><<<(M + N_ROWS - 1) / N_ROWS, 32 * N_ROWS, 0, s>>>(
+        static_cast<const bf16*>(x), f32(gamma), f32(beta), static_cast<bf16*>(xn), mu, rstd,
+        M, eps);
+    ffn_bwd_gate_kernel<D><<<row_tiles * (inner / GN), THREADS, G_SMEM, s>>>(
+        xnmap_g, dymap_g, w1map, w2map, f32(b1), static_cast<bf16*>(dhc),
+        static_cast<bf16*>(act), part2, M, inner);
+    ffn_bwd_dxn_kernel<D><<<row_tiles * P::TILES, THREADS, P::SMEM, s>>>(dhcmap_x, w1map, dxn,
+                                                                         M, inner);
+    ffn_bwd_ln_kernel<D><<<n1, 32 * N_ROWS, 0, s>>>(
+        dxn, static_cast<const bf16*>(x), static_cast<const bf16*>(dy), mu, rstd, f32(gamma),
+        static_cast<bf16*>(dx), part1, M);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  e = launch_cluster(ffn_bwd_weights_kernel<D>, weight_tiles<D>(inner) * SPLIT, SPLIT, smem_w, s,
                      dhcmap, xnmap, actmap, dymap, static_cast<float*>(dw1),
                      static_cast<float*>(dw2), M, inner);
   if (e != cudaSuccess) return e;
   const int width = 3 * D + 2 * inner;
   ffn_bwd_reduce_kernel<<<(width + 31) / 32, C_THREADS, 0, s>>>(
-      part1, p.ctas(), part2, p.tiles, D, inner,
+      part1, n1, part2, n2, D, inner,
       static_cast<float*>(dgamma), static_cast<float*>(dbeta), static_cast<float*>(db2),
       static_cast<float*>(db1));
   return cudaGetLastError();
 }
 
+// f.template run<D>() at the width d; false for a width the kernels do not take.
+template <typename F>
+bool with_width(int d, F&& f) {
+  switch (d) {
+    case 64: f.template run<64>(); return true;
+    case 128: f.template run<128>(); return true;
+    case 192: f.template run<192>(); return true;
+    case 256: f.template run<256>(); return true;
+    case 320: f.template run<320>(); return true;
+    case 384: f.template run<384>(); return true;
+    case 448: f.template run<448>(); return true;
+    case 512: f.template run<512>(); return true;
+    case 576: f.template run<576>(); return true;
+    case 640: f.template run<640>(); return true;
+    case 704: f.template run<704>(); return true;
+    case 768: f.template run<768>(); return true;
+    default: return false;
+  }
+}
+
+// The plan at (M, d, inner) into out[0..9], as wd_ln_geglu_ffn_bwd_plan returns it.
+struct PlanOf {
+  int m, inner, *out;
+  template <int D>
+  void run() {
+    const int wctas = weight_tiles<D>(inner) * SPLIT;
+    if constexpr (D <= FUSED_MAX) {
+      const RowsPlan p = rows_plan(m, inner);
+      const int v[10] = {0, BM, STAGES, p.ctas(), p.cl, 0, wctas, SPLIT, W_STAGES, WPlan<D>::WN};
+      for (int i = 0; i < 10; ++i) out[i] = v[i];
+    } else {
+      const int rt = (m + GM - 1) / GM;
+      const int v[10] = {1, GM, G_STAGES, rt * (inner / GN), 1, rt * DxnPlan<D>::TILES,
+                         wctas, SPLIT, W_STAGES, WPlan<D>::WN};
+      for (int i = 0; i < 10; ++i) out[i] = v[i];
+    }
+  }
+};
+
+struct SmemOf {
+  int which, out = 0;
+  template <int D>
+  void run() {
+    if (which == 1) out = WPlan<D>::SMEM;
+    else if constexpr (D <= FUSED_MAX) out = which == 0 ? SmemA<D>::total : 0;
+    else out = which == 0 ? G_SMEM : DxnPlan<D>::SMEM;
+  }
+};
+
+struct Launch {
+  const void *x, *dy, *gamma, *beta, *w1, *b1, *w2;
+  void *dx, *dgamma, *dbeta, *dw1, *db1, *dw2, *db2, *xn, *dhc, *act, *part;
+  int m, inner;
+  float eps;
+  cudaStream_t stream;
+  cudaError_t err = cudaSuccess;
+  template <int D>
+  void run() {
+    err = launch_all<D>(x, dy, gamma, beta, w1, b1, w2, dx, dgamma, dbeta, dw1, db1, dw2, db2,
+                        xn, dhc, act, part, m, inner, eps, stream);
+  }
+};
+
 }  // namespace
 
 extern "C" {
 
-// The feature width the backward kernels take.
-int wd_ln_geglu_ffn_bwd_d() { return D_TAKEN; }
-
-// The plan at M rows into out[0..6]: the row kernel's rows a tile, ring stages,
-// CTAs and cluster size (CTAs sharing a tile); the weight kernel's CTAs,
-// cluster size (M split) and ring stages. Returns 0, or cudaErrorInvalidValue
-// for M < 1 or an inner the kernels do not take.
-int wd_ln_geglu_ffn_bwd_plan(int m, int inner, int* out) {
-  if (m < 1 || inner <= 0 || inner % 64) return cudaErrorInvalidValue;
-  const RowsPlan p = rows_plan(m, inner);
-  const int v[7] = {BM, STAGES, p.ctas(), p.cl, weight_tiles(inner) * SPLIT, SPLIT,
-                    W_STAGES};
-  for (int i = 0; i < 7; ++i) out[i] = v[i];
-  return 0;
+// The widths the backward kernels take, (least, most, step), and the widest
+// d of the fused route (above it, the split route).
+void wd_ln_geglu_ffn_bwd_d(int* out) {
+  out[0] = D_MIN;
+  out[1] = D_MAX;
+  out[2] = D_STEP;
+  out[3] = FUSED_MAX;
 }
 
-// The dynamic shared memory of a CTA of the row kernel (0) or the
-// weight-gradient kernel (1), bytes.
-int wd_ln_geglu_ffn_bwd_smem(int which) {
-  return int(which ? W_SMEM : SmemA<D_TAKEN>::total);
+// The plan at (M, d, inner) into out[0..9]: the route (0 fused, 1 split); the
+// row kernel's rows a tile, ring stages, CTAs and cluster size (A's; on the
+// split route S1's, cluster 1); S2's CTAs (0 on the fused route); the weight
+// kernel's CTAs, cluster size (M split), ring stages and column tile. Returns
+// 0, or cudaErrorInvalidValue for M < 1 or a width the kernels do not take.
+int wd_ln_geglu_ffn_bwd_plan(int m, int d, int inner, int* out) {
+  if (m < 1 || inner <= 0 || inner % 64) return cudaErrorInvalidValue;
+  PlanOf f{m, inner, out};
+  return with_width(d, f) ? 0 : cudaErrorInvalidValue;
+}
+
+// The dynamic shared memory of a CTA at width d, bytes: of the row kernel (A,
+// or S1 on the split route; which = 0), the weight-gradient kernel (1) or S2
+// (2; 0 on the fused route). 0 for a width the kernels do not take.
+int wd_ln_geglu_ffn_bwd_smem(int which, int d) {
+  SmemOf f{which};
+  return with_width(d, f) ? f.out : 0;
 }
 
 // fp32 elements of the partial-sum scratch at M rows.
 long long wd_ln_geglu_ffn_bwd_part_floats(int m, int d, int inner) {
   if (m <= 0) return 0;
+  if (d > FUSED_MAX) return split_parts(m).floats(m, d, inner);
   const RowsPlan p = rows_plan(m, inner);
   return (long long)p.ctas() * 3 * d + (long long)p.tiles * 2 * inner;
 }
 
-// Launches the three kernels on `stream`; returns the CUDA error code (0 on
-// success): a shape they do not take (d != 320, inner not a positive multiple
-// of 64), a tensor map the driver refuses, or a launch the device refuses.
-// Weights in parameter layout (w1 [2 inner, d], w2 [d, inner]); dw1 [2 inner,
-// d] and dw2 [d, inner] come back so. Scratch: xn [M, d], dhc [M, 2 inner], act
-// [M, inner] (bf16) and part (wd_ln_geglu_ffn_bwd_part_floats fp32), all
-// written before they are read; every tensor 16-byte aligned.
+// Launches the kernels of d's route on `stream`; returns the CUDA error code (0
+// on success): a shape they do not take (d not a multiple of 64 in 64..768,
+// inner not a positive multiple of 64), a tensor map cuTensorMapEncodeTiled
+// refuses, or a launch the device refuses. Weights in parameter layout (w1
+// [2 inner, d], w2 [d, inner]); dw1 [2 inner, d] and dw2 [d, inner] come back
+// so. Scratch: xn [M, d], dhc [M, 2 inner], act [M, inner] (bf16) and part
+// (wd_ln_geglu_ffn_bwd_part_floats fp32), all written before they are read;
+// every tensor 16-byte aligned.
 int wd_ln_geglu_ffn_bwd(const void* x, const void* dy, const void* gamma, const void* beta,
                         const void* w1, const void* b1, const void* w2, void* dx, void* dgamma,
                         void* dbeta, void* dw1, void* db1, void* dw2, void* db2, void* xn,
                         void* dhc, void* act, void* part, int M, int d, int inner, float eps,
                         void* stream) {
   if (M <= 0) return cudaSuccess;
-  if (d != D_TAKEN || inner <= 0 || inner % 64) return cudaErrorInvalidValue;
-  return launch_all<D_TAKEN>(x, dy, gamma, beta, w1, b1, w2, dx, dgamma, dbeta, dw1, db1, dw2,
-                             db2, xn, dhc, act, part, M, inner, eps,
-                             static_cast<cudaStream_t>(stream));
+  if (inner <= 0 || inner % 64) return cudaErrorInvalidValue;
+  Launch f{x, dy, gamma, beta, w1, b1, w2, dx, dgamma, dbeta, dw1, db1, dw2, db2, xn, dhc, act,
+           part, M, inner, eps, static_cast<cudaStream_t>(stream)};
+  return with_width(d, f) ? f.err : cudaErrorInvalidValue;
 }
 
 }  // extern "C"

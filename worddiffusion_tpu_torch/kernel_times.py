@@ -30,8 +30,12 @@ kernel name; B.8 through ``fold_attention_heads`` on folds as
 B=128 (``train_step``); B.1 at the widths of ``channel_mult=(1, 2)``
 (``ffn_wide``: d = 320 and 640 at its middle block's M, and d = 768) and
 B.4 at its head widths (``attention_wide``: D = 80, 160 and 256 at its
-middle block's shape), where a tree whose kernel refuses a width records it
-as not taken. ``--kinds`` keeps only the named kinds:
+middle block's shape), B.3 at every width its kernels take
+(``ffn_bwd_wide``: the Function's backward alone as above, d = 64k up to
+768 at M = 1024, d = 320 at M = 128*256 and d = 640 at M = 128*64, the two
+(1, 2) training sites) and the fold at C = 640 (``fold_wide``: B.8's layout
+at (B, N) = (16, 64) and (128, 64), L = 42, and B.7's at the second), where a
+tree whose kernel refuses a width records it as not taken. ``--kinds`` keeps only the named kinds:
 
 - ``host_ms``: the host's time to issue one call, 10 calls back to back on
   the host's clock without waiting for the card, the median of 10;
@@ -116,8 +120,14 @@ FFN_WIDE = ((16 * 64, 320), (128 * 64, 320), (16 * 64, 640), (128 * 64, 640), (4
 # (B, Nq, Nk, D) of B.4 at the (1, 2) middle block's shape, D = 80 beside the
 # wider heads (160: 4 heads of 640; 256 the widest the kernel takes)
 ATTN_WIDE = tuple((b, 64, 42, d) for d in (80, 160, 256) for b in (16, 128))
+# (M, d) of B.3 at every width its kernels take (M = 1024), and channel_mult
+# (1, 2)'s training sites at B = 128: d = 320 at 256 tokens, d = 640 at 64
+FFN_BWD_WIDE = tuple((1024, d) for d in range(64, 769, 64)) + ((128 * 256, 320),
+                                                               (128 * 64, 640))
+# (B, N) of the fold at C = 640 (the (1, 2) middle block), and B.7's layout
+FOLD_WIDE_C, FOLD_WIDE_BN, FOLD_WIDE_B7_BN = 640, ((16, 64), (128, 64)), ((128, 64),)
 KINDS = ("attention", "conv", "ffn", "ffn_bf16", "geglu", "ffn_bwd", "groupnorm", "fold",
-         "fold_b7", "train_step", "ffn_wide", "attention_wide")
+         "fold_b7", "train_step", "ffn_wide", "attention_wide", "ffn_bwd_wide", "fold_wide")
 TRAIN_B = 128
 METHODS = ("host_ms", "single_ms", "launch_ms", "kernel_ms")
 
@@ -240,7 +250,7 @@ def ffn_inputs(m: int, seed: int, d: int = D, inner: int = INNER):
     return {k: v.cuda() for k, v in t.items()}
 
 
-def fold_inputs(b: int, n: int, seed: int):
+def fold_inputs(b: int, n: int, seed: int, c: int = D):
     """x, the LayerNorm affine and out bias, and B.8's folds as
     ``models.attention.build_folds`` returns them: wt4 [B, H, C, L] as the
     [..., :L] view of an L stride rounded up to 8, vw4 [B, H, L, C]
@@ -250,9 +260,9 @@ def fold_inputs(b: int, n: int, seed: int):
 
     g = torch.Generator().manual_seed(seed)
     r = lambda *s: torch.randn(*s, generator=g)
-    t = dict(x=r(b, n, D).bfloat16(), wt4=(r(b, HEADS, D, FOLD_L) / D ** 0.5).bfloat16(),
-             vw4=r(b, HEADS, FOLD_L, D).bfloat16(), gamma=1 + 0.1 * r(D), beta=0.1 * r(D),
-             b_out=0.02 * r(D))
+    t = dict(x=r(b, n, c).bfloat16(), wt4=(r(b, HEADS, c, FOLD_L) / c ** 0.5).bfloat16(),
+             vw4=r(b, HEADS, FOLD_L, c).bfloat16(), gamma=1 + 0.1 * r(c), beta=0.1 * r(c),
+             b_out=0.02 * r(c))
     t = {k: v.cuda() for k, v in t.items()}
     t["wt4"] = F.pad(t["wt4"], (0, -FOLD_L % 8))[..., :FOLD_L]
     return t
@@ -349,6 +359,36 @@ def worker(tree: str, deep: bool, kinds: tuple[str, ...] = KINDS, other: bool = 
         out["ffn_bwd"].append(dict(shape=[m], kernel=three_ways(
             lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)), library=None))
         del t, leaves, y
+    for i, (m, d) in enumerate(FFN_BWD_WIDE if "ffn_bwd_wide" in kinds else ()):
+        # as ffn_bwd, at every width; a tree whose Function refuses the width
+        # (its check when a gradient is wanted) records it as not taken
+        t = ffn_inputs(m, seed=370 + i, d=d, inner=4 * d)
+        leaves = [t[k].requires_grad_() for k in ("x", "gamma", "beta", "w1", "b1", "w2", "b2")]
+        try:
+            y = ffn.LnGegluFFN.apply(*leaves, 1e-5)
+        except ValueError:
+            if not other:
+                raise
+            y = None
+        dy = (0.1 * torch.randn(m, d, generator=torch.Generator().manual_seed(390 + i)))
+        dy = dy.bfloat16().cuda()
+        out["ffn_bwd_wide"].append(dict(shape=[m, d], library=None, kernel=None if y is None else
+                                        three_ways(lambda: torch.autograd.grad(
+                                            y, leaves, dy, retain_graph=True))))
+        del t, leaves, y
+    for i, (b, n) in enumerate(FOLD_WIDE_BN if "fold_wide" in kinds else ()):
+        c = FOLD_WIDE_C
+        t = fold_inputs(b, n, seed=650 + i, c=c)
+        vecs = (t["gamma"], t["beta"], t["b_out"])
+        out["fold_wide"].append(dict(shape=[b, n, FOLD_L, c, "b8"], library=None,
+                                     kernel=takes(lambda: fold_attention.fold_attention_heads(
+                                         t["x"], t["wt4"], t["vw4"], *vecs), other)))
+        if (b, n) in FOLD_WIDE_B7_BN:
+            wt = t["wt4"].permute(0, 2, 1, 3).reshape(b, c, HEADS * FOLD_L).contiguous()
+            vw = t["vw4"].view(b, HEADS * FOLD_L, c)
+            out["fold_wide"].append(dict(shape=[b, n, FOLD_L, c, "b7"], library=None,
+                                         kernel=takes(lambda: fold_attention.fold_attention(
+                                             t["x"], wt, vw, *vecs, HEADS), other)))
     for i, (b, n) in enumerate(FOLD_BN if {"fold", "fold_b7"} & set(kinds) else ()):
         t = fold_inputs(b, n, seed=600 + i)
         vecs = (t["gamma"], t["beta"], t["b_out"])
@@ -382,13 +422,15 @@ def worker(tree: str, deep: bool, kinds: tuple[str, ...] = KINDS, other: bool = 
             groupnorm={str(s[:4]): groupnorm.route(torch.empty(s[0], s[1] * s[2], s[3],
                                                                device="meta"), s[4])
                        for s in GN_SHAPES})
-        if hasattr(ffn, "bwd_plan"):
-            out["clusters"]["ffn_bwd"] = {m: ffn.bwd_plan(m, INNER) for m in FFN_BWD_M}
+        out["clusters"]["ffn_bwd"] = {m: ffn.bwd_plan(m, D, INNER) for m in FFN_BWD_M}
+        out["clusters"]["ffn_bwd_wide"] = {f"{m}, {d}": ffn.bwd_plan(m, d, 4 * d)
+                                           for m, d in FFN_BWD_WIDE}
         if hasattr(gn_conv, "plan"):
             out["clusters"]["conv"] = {str(s): gn_conv.plan(*s, 32) for s in CONV_SHAPES}
-        if hasattr(fold_attention, "ctas"):
-            out["clusters"]["fold_ctas"] = {
-                str(bn): fold_attention.ctas(bn[0], bn[1], FOLD_L) for bn in FOLD_BN}
+        out["clusters"]["fold_ctas"] = {
+            str(bn): fold_attention.ctas(bn[0], bn[1], D, FOLD_L) for bn in FOLD_BN}
+        out["clusters"]["fold_wide_ctas"] = {
+            str(bn): fold_attention.ctas(bn[0], bn[1], FOLD_WIDE_C, FOLD_L) for bn in FOLD_WIDE_BN}
         if "groupnorm" in kinds:
             out["gn_routes"] = gn_routes(groupnorm)
         if "conv" in kinds and hasattr(gn_conv, "plan"):
@@ -571,21 +613,26 @@ def resources(lib: str) -> list[dict]:
             extra = dict(warpgroups=plan[2], stages=plan[3], w2_ring=plan[4])
         elif "gn_cluster_kernel" in line:
             warps, name, dyn = 8, "gn_cluster", 112 * 1024
-        elif "ffn_bwd_rows_kernel" in line:
-            warps, name, dyn = 12, "ffn_bwd_rows", cdll.wd_ln_geglu_ffn_bwd_smem(0)
-        elif "ffn_bwd_weights_kernel" in line:
-            warps, name, dyn = 12, "ffn_bwd_weights", cdll.wd_ln_geglu_ffn_bwd_smem(1)
+        elif m := re.search(r"ffn_bwd_(rows|gate|dxn|weights)_kernelILi(\d+)EE", line):
+            # B.3's warp-specialised kernels at width d (2 consumer warpgroups
+            # and the producer): A (rows) or S1 (gate), S2 (dxn), B (weights)
+            d = int(m.group(2))
+            which = {"rows": 0, "gate": 0, "weights": 1, "dxn": 2}[m.group(1)]
+            warps, name = 12, f"ffn_bwd_{m.group(1)}<{d}>"
+            dyn = cdll.wd_ln_geglu_ffn_bwd_smem(which, d)
+        elif m := re.search(r"ffn_bwd_(norm|ln)_kernelILi(\d+)EE", line):
+            warps, name, dyn = 8, f"ffn_bwd_{m.group(1)}<{m.group(2)}>", 0
         elif m := re.search(r"conv_kernelILi(\d+)ELb([01])E", line):
             # B.6: two consumer warpgroups and the producer; the largest plan's
             # shared memory of its instances (the UNet's and the VAE's sites)
             warps, name = 12, f"conv<{m.group(1)}, {'K split' if m.group(2) == '1' else '128 px'}>"
             dyn = max((p["smem"] for p in conv_plans() if p["channels"] == int(m.group(1))
                        and p["k_split"] == int(m.group(2))), default=0)
-        elif m := re.search(r"fold_attention_kernelILi(\d+)EE", line):
-            lp = int(m.group(1))
-            warps, name = 8, f"fold_attention<{lp}>"
-            dyn = cdll.wd_fold_attention_smem(lp)
-            extra = dict(stages=cdll.wd_fold_attention_stages(lp))
+        elif m := re.search(r"fold_attention_(wide_)?kernelILi(\d+)EE", line):
+            lp, c = int(m.group(2)), FOLD_WIDE_C if m.group(1) else D
+            warps, name = 8, f"fold_attention{'_wide' if m.group(1) else ''}<{lp}>"
+            dyn = cdll.wd_fold_attention_smem(c, lp)
+            extra = dict(slots=cdll.wd_fold_attention_slots(c, lp))
         else:
             continue
         per_warp = -(-usage["REG"] * 32 // 256) * 256
@@ -740,9 +787,13 @@ def main(argv=None) -> int:
     if "sweep" in deep:
         print("attention Nk sweep", json.dumps(deep["sweep"]))
     for r in runs:
-        for kind in ("ffn_bwd", "conv", "fold", "fold_b7", "train_step"):
+        for kind in ("ffn_bwd", "conv", "fold", "fold_b7", "train_step", "ffn_bwd_wide",
+                     "fold_wide"):
             for row in r.get(kind, []):
                 k = row["kernel"]
+                if k is None:
+                    print(f"{r['tree']} {kind} {row['shape']}: not taken")
+                    continue
                 print(f"{r['tree']} {kind} {row['shape']}: " + "; ".join(
                     f"{m} {k[m]:.4f}" for m in METHODS)
                     + " | by kernel " + ", ".join(f"{n} {v:.4f}" for n, v in sorted(

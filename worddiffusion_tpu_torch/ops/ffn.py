@@ -26,10 +26,12 @@ this rank's slice of the inner width, then the sum over the model ranks
 and the residual (nothing in the JAX package calls B.2: its partitioning
 rule gathers the sharded weights ahead of B.1).
 
-The forward kernel takes every d = 64k from 64 to 768 (any inner % 64 ==
-0): the widths at which JAX's model sends its FF sub-layer to the Pallas
-kernel, ``kernel_takes(d, 4d)``, the port's copy of that guard. The
-backward kernel takes d = 320 (``check_backward_width``).
+Both kernels take every d = 64k from 64 to 768 (any inner % 64 == 0): the
+widths at which JAX's model sends its FF sub-layer to the Pallas kernel,
+``kernel_takes(d, 4d)``, the port's copy of that guard
+(``check_backward_width`` holds the backward to them). The backward runs
+one of two routes by d (``bwd_plan``): up to 320 the fused row kernel, above
+it the split one (``csrc/ln_geglu_ffn_bwd.cu``).
 
 ``launches``, ``bwd_launches`` and ``geglu_launches`` count kernel
 launches, so that a run can show that its main path went through the
@@ -56,8 +58,9 @@ plain_calls = 0
 
 # JAX's VMEM budget for the fused FF (ffn_pallas.py::pick_block_m), bytes
 _VMEM_BUDGET = 14 * 1024 * 1024
-# The width the backward kernel takes (csrc/ln_geglu_ffn_bwd.cu, D_TAKEN)
-BWD_D = 320
+# The widths the backward kernels take, (least, most, step): the forward's
+# (csrc/ln_geglu_ffn_bwd.cu, D_MIN / D_MAX / D_STEP; wd_ln_geglu_ffn_bwd_d)
+BWD_WIDTHS = (64, 768, 64)
 
 _GELU_C, _GELU_K = math.sqrt(2.0 / math.pi), 0.044715
 
@@ -99,15 +102,14 @@ def kernel_takes(d: int, inner: int) -> bool:
 
 
 def check_backward_width(d: int) -> None:
-    """Raises unless the backward kernel (B.3) takes width d: it is built for
-    d = 320, every UNet preset's width; training at another width is the
-    next slice of the port."""
-    if d != BWD_D:
+    """Raises unless the backward kernels (B.3) take width d: every
+    d = 64k from 64 to 768, the widths of the forward kernel, at which the
+    model sends its FF sub-layer to the kernels (``kernel_takes(d, 4d)``)."""
+    lo, hi, step = BWD_WIDTHS
+    if d % step or not lo <= d <= hi:
         raise ValueError(
-            f"ln_geglu_ffn_bwd: the FF backward kernel takes d = {BWD_D} only, got d = {d}. "
-            "Training a UNet of another width (channel_mult=(1, 2) runs its middle blocks at "
-            "d = 640) is queued as the next slice of the port (ROADMAP A.3: B.3 for "
-            "d = 64..768); regeneration and sampling run every d = 64k up to 768.")
+            f"ln_geglu_ffn_bwd: the FF backward kernel takes d = {step}k from {lo} to {hi}, "
+            f"got d = {d}")
 
 
 def geglu_ffn_reference(x, w1, b1, w2, b2):
@@ -364,11 +366,12 @@ def _lib():
     lib.wd_geglu_ffn.restype = i
     lib.wd_ln_geglu_ffn_bwd.argtypes = [p] * 18 + [i, i, i, ctypes.c_float, p]
     lib.wd_ln_geglu_ffn_bwd.restype = i
-    lib.wd_ln_geglu_ffn_d.argtypes = [ctypes.POINTER(i)]
-    lib.wd_ln_geglu_ffn_d.restype = None
+    for fn in ("wd_ln_geglu_ffn_d", "wd_ln_geglu_ffn_bwd_d"):
+        getattr(lib, fn).argtypes = [ctypes.POINTER(i)]
+        getattr(lib, fn).restype = None
     for fn, args in (("wd_ln_geglu_ffn_plan", [i, ctypes.POINTER(i)]),
-                     ("wd_ln_geglu_ffn_cluster", [i, i]), ("wd_ln_geglu_ffn_bwd_d", []),
-                     ("wd_ln_geglu_ffn_bwd_plan", [i, i, ctypes.POINTER(i)])):
+                     ("wd_ln_geglu_ffn_cluster", [i, i]),
+                     ("wd_ln_geglu_ffn_bwd_plan", [i, i, i, ctypes.POINTER(i)])):
         getattr(lib, fn).argtypes = args
         getattr(lib, fn).restype = i
     lib.wd_ln_geglu_ffn_bwd_part_floats.argtypes = [i, i, i]
@@ -405,19 +408,24 @@ def cluster_size(m: int, inner: int) -> int:
     return _lib().wd_ln_geglu_ffn_cluster(m, inner)
 
 
-BWD_PLAN_KEYS = ("rows_tile", "rows_stages", "rows_ctas", "rows_cluster", "weights_ctas",
-                 "weights_cluster", "weights_stages")
+BWD_ROUTES = ("fused", "split")
+BWD_PLAN_KEYS = ("route", "rows_tile", "rows_stages", "rows_ctas", "rows_cluster", "dxn_ctas",
+                 "weights_ctas", "weights_cluster", "weights_stages", "weights_tile_n")
 
 
-def bwd_plan(m: int, inner: int) -> dict:
-    """The backward's launch plan at M rows: the row kernel's rows a tile,
-    ring stages, CTAs and cluster size (the CTAs that share a tile); the
-    weight-gradient kernel's CTAs, cluster size (its split of M) and ring
-    stages."""
+def bwd_plan(m: int, d: int, inner: int) -> dict:
+    """The backward's launch plan at M rows and width d: its route ("fused":
+    the row kernel A, d <= 320; "split": S0-S3); the row kernel's rows a
+    tile, ring stages, CTAs and cluster size (the CTAs that share a tile; on
+    the split route those of S1, the [a | u] and dact recompute); S2's CTAs
+    (the dxn product; 0 on the fused route); the weight-gradient kernel's
+    CTAs, cluster size (its split of M), ring stages and column tile."""
     out = (ctypes.c_int * len(BWD_PLAN_KEYS))()
-    if _lib().wd_ln_geglu_ffn_bwd_plan(m, inner, out):
-        raise ValueError(f"ln_geglu_ffn_bwd: no plan for M={m}, inner={inner}")
-    return dict(zip(BWD_PLAN_KEYS, out))
+    if _lib().wd_ln_geglu_ffn_bwd_plan(m, d, inner, out):
+        raise ValueError(f"ln_geglu_ffn_bwd: no plan for M={m}, d={d}, inner={inner}")
+    plan_ = dict(zip(BWD_PLAN_KEYS, out))
+    plan_["route"] = BWD_ROUTES[plan_["route"]]
+    return plan_
 
 
 def _check(name, t, shape, dtype, dev):
@@ -506,7 +514,7 @@ def _launch_bwd(x, dy, gamma, beta, w1, b1, w2, eps):
     global bwd_launches
     lib = _lib()
     check_backward_width(x.shape[-1])
-    d, inner = _check_operands(x, gamma, beta, w1, b1, w2, (BWD_D, BWD_D, 64))
+    d, inner = _check_operands(x, gamma, beta, w1, b1, w2, BWD_WIDTHS)
     if x.dim() != 2:
         raise ValueError(f"ln_geglu_ffn_bwd: x must be [M, d], got {tuple(x.shape)}")
     _check("dy", dy, x.shape, torch.bfloat16, x.get_device())

@@ -16,8 +16,13 @@ layout of the folds, over the one CUDA kernel ``csrc/fold_attention.cu``:
 
 vw and vw4 are the same memory; B.7's wt is handed on as the strided
 [B, H, C, L] view of its bytes, which the kernel reads through its
-strides. Both entries go through the autograd Function ``FoldAttention``:
-a CUDA tensor launches the kernel, a CPU tensor takes the plain PyTorch
+strides. The kernel takes every C % 16 == 0 up to 640: up to 320 its
+narrow instance, above it the wide one (two consumer warpgroups), which
+reads wt4 by TMA alone, so a wt4 its tensor map cannot read (B.7's rows, an
+L stride off 8 elements) is first copied to the L stride ``build_folds``
+lays out (``wt_route``: "copy" at C <= 320, "padded" above). Both entries
+go through the autograd Function ``FoldAttention``: a CUDA tensor launches
+the kernel, a CPU tensor takes the plain PyTorch
 version ``fold_attention_reference``, and a CUDA input the kernel does
 not take raises instead of falling back. Neither TPU kernel has a
 backward kernel (both ``custom_vjp``s recompute through XLA), so the
@@ -118,7 +123,7 @@ def _lib():
     for fn in ("wd_fold_attention_max_c", "wd_fold_attention_max_l"):
         getattr(lib, fn).argtypes = []
         getattr(lib, fn).restype = i
-    lib.wd_fold_attention_ctas.argtypes = [i] * 3
+    lib.wd_fold_attention_ctas.argtypes = [i] * 4
     lib.wd_fold_attention_ctas.restype = i
     lib.wd_fold_attention_wt_mode.argtypes = [p] + [i] * 4 + [ll] * 3
     lib.wd_fold_attention_wt_mode.restype = i
@@ -128,15 +133,17 @@ def _lib():
 
 
 # how wt4 reaches shared memory: TMA boxes of a per-head tensor map, or
-# copies by the producer warpgroup's threads
+# copies by the producer warpgroup's threads (C <= 320; above, one copy to
+# the TMA layout first: "padded")
 WT_ROUTES = ("tma", "copy")
+NARROW_C = 320
 
 
-def ctas(b: int, n: int, l: int) -> int:
+def ctas(b: int, n: int, c: int, l: int) -> int:
     """The persistent CTAs the kernel launches at these shapes: as many as
     are resident on the card (one an SM), at most one a 64-row tile; each
     walks its tiles with all H heads."""
-    return _lib().wd_fold_attention_ctas(b, n, l)
+    return _lib().wd_fold_attention_ctas(b, n, c, l)
 
 
 def wt_route(wt4) -> str:
@@ -147,7 +154,17 @@ def wt_route(wt4) -> str:
     mode = _lib().wd_fold_attention_wt_mode(wt4.data_ptr(), *wt4.shape, *wt4.stride()[:3])
     if mode < 0:
         raise ValueError(f"fold_attention: the kernel does not take wt4 {tuple(wt4.shape)}")
+    if mode and wt4.shape[2] > NARROW_C:
+        return "padded"
     return WT_ROUTES[mode]
+
+
+def _tma_layout(wt4):
+    """A copy of wt4 with its L stride rounded up to 8 elements, as
+    build_folds lays it out, which the wide kernel's tensor map reads (it
+    reads no element past a row's L)."""
+    b, h, c, l = wt4.shape
+    return wt4.new_empty(b, h, c, -(-l // 8) * 8)[..., :l].copy_(wt4)
 
 
 def _check_operands(x, wt4, vw4, vecs, max_c, max_l):
@@ -195,6 +212,8 @@ def _launch(x, wt4, vw4, gamma, beta, b_out, eps, flat):
     out = torch.empty_like(x)
     if b == 0 or n == 0:
         return out
+    if c > NARROW_C and wt_route(wt4) == "padded":
+        wt4 = _tma_layout(wt4)
     err = build.launch_on(x, lambda stream: lib.wd_fold_attention(
         x.data_ptr(), wt4.data_ptr(), vw4.data_ptr(), *(v.data_ptr() for v in vecs),
         out.data_ptr(), b, n, c, h, l, *wt4.stride()[:3], float(eps), stream))
